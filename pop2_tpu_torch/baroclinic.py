@@ -1,0 +1,235 @@
+"""Baroclinic (3-D explicit) dynamics driver.
+
+Reference: ``source/baroclinic.F90`` — ``baroclinic_driver`` (:578, tracer and
+momentum block loops), ``clinic`` (:1635, Fx/Fy assembly), ``tracer_update``
+(:1902), ``baroclinic_correct_adjust`` (:1217). The reference's per-block,
+per-level loops with carried vertical state are whole-field tensor
+expressions here, except the three hot pieces that are hand-written CUDA
+kernels on the GPU: the tracer tendency (``tracer_cuda``), the momentum
+forcing (``clinic_cuda``) and every implicit vertical solve
+(``tridiag_cuda``).
+
+Time-mixing: leapfrog with Euler-forward first step and time-averaging.
+
+This slice carries the dynamical core only. The branches of the JAX package's
+driver for GM, submesoscale, KPP sources, shortwave absorption, passive
+tracers, interior restoring, estuaries, overflows, geothermal flux and frazil
+ice are left out; ``supported.check_supported`` refuses the config switches
+that would select them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pop2_tpu_torch import clinic_cuda, eos, tracer_cuda, tridiag, vmix
+from pop2_tpu_torch import constants as const
+from pop2_tpu_torch.config import ModelConfig
+from pop2_tpu_torch.forcing import Forcing
+from pop2_tpu_torch.grid import Grid, thickness_u
+from pop2_tpu_torch.state import State
+from pop2_tpu_torch.stencil import BC
+
+
+class BaroclinicOut(NamedTuple):
+    tracer_new: torch.Tensor  # predictor tracers (T,S updated if press avg)
+    u_new: torch.Tensor       # normalized baroclinic velocity U'
+    v_new: torch.Tensor
+    rho_new: torch.Tensor     # density from predictor T,S (press avg only)
+    zx: torch.Tensor          # (ny, nx) vertically-averaged forcing
+    zy: torch.Tensor
+    vdc: torch.Tensor         # (2, km, ny, nx) diffusivity used, for corrector
+    vvc: torch.Tensor         # (km, ny, nx) viscosity used
+
+
+def _timestep_arrays(cfg: ModelConfig, leapfrog: bool, device):
+    """c2dt factors (source/step_mod.F90:302-320): (c2dtt (km,) tensor,
+    c2dtu, c2dtp)."""
+    dtt, dtu, dtp = cfg.time.dtt, cfg.time.dtu, cfg.time.dtp
+    fac = 2.0 if leapfrog else 1.0
+    if cfg.time.laccel:
+        raise NotImplementedError(
+            "depth acceleration (laccel) is not ported yet (ROADMAP.md "
+            "Queue 1 item 11)")
+    c2dtt = torch.full((cfg.km,), fac * dtt, dtype=cfg.torch_dtype,
+                       device=device)
+    return c2dtt, fac * dtu, fac * dtp
+
+
+def _masked_density(cfg, grid, ts_range, tracer):
+    rho = eos.state(cfg, grid.vgrid.pressz, tracer[0], tracer[1], ts_range)
+    return torch.where(grid.kmask_t, rho, 0.0)
+
+
+def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
+           state: State, forcing: Forcing, dh, dhu,
+           leapfrog: bool) -> BaroclinicOut:
+    c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
+    beta = cfg.time.alpha if leapfrog else cfg.time.theta
+    varthick = cfg.sfc_layer == "varthick"
+    press_avg = cfg.lpressure_avg and leapfrog
+    vg = grid.vgrid
+
+    if leapfrog:
+        tmix, umix, vmix_m, rhomix = (state.tracer_old, state.u_old,
+                                      state.v_old, state.rho_old)
+    else:
+        tmix, umix, vmix_m, rhomix = (state.tracer_cur, state.u_cur,
+                                      state.v_cur, state.rho_cur)
+
+    # ---- vertical mixing coefficients (source/baroclinic.F90:714-734) -----
+    coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix)
+
+    # ---- tracer tendencies (tracer_update, source/baroclinic.F90:1902):
+    # hdifft + comp_flux_vel/advt + vdifft fused in one kernel
+    ft = tracer_cuda.tracer_tendency(
+        cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
+        state.tracer_old, coeffs.vdc, forcing.stf, dh)
+    if varthick:
+        # freshwater tracer flux into the surface layer
+        # (source/baroclinic.F90:2128-2138); ft is this step's own tensor
+        ft[:, 0] += vg.dzr[0] * forcing.tfw
+
+    # ---- build RHS / predictor update (source/baroclinic.F90:2212-2300) ---
+    rhs = torch.where(grid.kmask_t[None], c2dtt.reshape(1, cfg.km, 1, 1) * ft,
+                      0.0)
+    if varthick and press_avg:
+        # surface RHS for the T,S predictor includes the known part of the
+        # surface-height change (source/baroclinic.F90:2217-2222)
+        pterm = (2.0 * state.tracer_cur[:2, 0]
+                 * (state.psurf_cur - state.psurf_old)[None]
+                 / (const.GRAV * vg.dz[0]))
+        rhs[:2, 0] = torch.where(grid.kmask_t[0][None],
+                                 c2dtt[0] * ft[:2, 0] - pterm, 0.0)
+        # predictor tridiagonal update of T,S, with PSURF(cur) on the LHS
+        # (source/baroclinic.F90:885-895)
+        tracer_new = torch.stack([
+            state.tracer_old[n] + tridiag.impvmixt(
+                rhs[n], coeffs.vdc[n], state.psurf_cur, grid.KMT, vg.dz,
+                vg.dzwr, c2dtt, cfg.aidif, varthick=True)
+            for n in range(2)])
+    elif not varthick:
+        # tracer 0 has its own diffusivity class; the others share vdc[1]
+        # and one factorization
+        dT0 = tridiag.impvmixt(
+            rhs[0], coeffs.vdc[0], state.psurf_cur, grid.KMT, vg.dz,
+            vg.dzwr, c2dtt, cfg.aidif, varthick=False)
+        dTs = tridiag.impvmixt_batch(
+            rhs[1:], coeffs.vdc[1], state.psurf_cur, grid.KMT, vg.dz,
+            vg.dzwr, c2dtt, cfg.aidif, varthick=False)
+        tracer_new = state.tracer_old + torch.cat([dT0[None], dTs], dim=0)
+    else:
+        # varthick without pressure averaging (or Euler step): the full
+        # update happens after the barotropic solve; carry the RHS
+        tracer_new = rhs
+
+    # ---- density at new time for pressure averaging -----------------------
+    if press_avg:
+        rho_new = _masked_density(cfg, grid, ts_range, tracer_new)
+    else:
+        rho_new = state.rho_cur
+
+    # ---- momentum (clinic, source/baroclinic.F90:1635-1895): advu +
+    # coriolis + gradp + hdiffu + vdiffu + ZX/ZY fused in one kernel
+    fx, fy, zx, zy = clinic_cuda.clinic_rhs(
+        cfg, grid, state, umix, vmix_m, rho_new, coeffs.vvc, forcing.smf,
+        dhu, leapfrog)
+
+    # implicit Coriolis 2x2 transform (source/baroclinic.F90:1013-1027)
+    if cfg.time.impcor:
+        w1 = c2dtu * beta * grid.FCOR
+        w2 = c2dtu / (1.0 + w1 ** 2)
+        rhs_u = (fx + w1 * fy) * w2
+        rhs_v = (fy - w1 * fx) * w2
+    else:
+        rhs_u = c2dtu * fx
+        rhs_v = c2dtu * fy
+
+    # implicit vertical friction (source/baroclinic.F90:1066-1069)
+    rhs_u, rhs_v = tridiag.impvmixu(rhs_u, rhs_v, coeffs.vvc, grid.KMU,
+                                    vg.dz, vg.dzwr, c2dtu, cfg.aidif)
+
+    # unnormalized baroclinic velocity (source/baroclinic.F90:1077-1080)
+    upp = state.u_old + rhs_u
+    vpp = state.v_old + rhs_v
+
+    # subtract vertical mean (source/baroclinic.F90:1092-1140)
+    dzc = thickness_u(cfg, grid)
+    ubar = grid.HUR * torch.sum(upp * dzc, dim=0)
+    vbar = grid.HUR * torch.sum(vpp * dzc, dim=0)
+    u_new = torch.where(grid.kmask_u, upp - ubar[None], 0.0)
+    v_new = torch.where(grid.kmask_u, vpp - vbar[None], 0.0)
+
+    return BaroclinicOut(tracer_new=tracer_new, u_new=u_new, v_new=v_new,
+                         rho_new=rho_new, zx=zx, zy=zy, vdc=coeffs.vdc,
+                         vvc=coeffs.vvc)
+
+
+def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
+                   state: State, out: BaroclinicOut, psurf_new,
+                   coeffs_vdc, leapfrog: bool):
+    """Corrector/adjustment pass (source/baroclinic.F90:1217-1497):
+    finish the tracer update with the new surface pressure, apply convective
+    adjustment and freezing reset, and recompute the new density.
+
+    ``coeffs_vdc``: the same vertical diffusivity used by the predictor.
+    Returns (tracer_new, rho_new).
+    """
+    c2dtt, _, _ = _timestep_arrays(cfg, leapfrog, psurf_new.device)
+    varthick = cfg.sfc_layer == "varthick"
+    press_avg = cfg.lpressure_avg and leapfrog
+    tracer_new = out.tracer_new
+    vg = grid.vgrid
+    grav_dz1 = const.GRAV * vg.dz[0]
+
+    if varthick:
+        if press_avg:
+            # corrector RHS for T,S at the surface
+            # (source/baroclinic.F90:1283-1296)
+            dts = []
+            for n in range(2):
+                rhs1 = torch.where(
+                    grid.kmask_t[0],
+                    ((2.0 * state.tracer_cur[n, 0] - state.tracer_old[n, 0])
+                     * (state.psurf_cur - state.psurf_old)
+                     - tracer_new[n, 0] * (psurf_new - state.psurf_cur))
+                    / grav_dz1, 0.0)
+                dT = tridiag.impvmixt_correct(
+                    rhs1, coeffs_vdc[n], psurf_new, grid.KMT, vg.dz, vg.dzwr,
+                    c2dtt, cfg.aidif, varthick=True)
+                dts.append(tracer_new[n] + dT)
+            tracer_new = torch.stack(dts)
+        else:
+            # no pressure averaging (or Euler step): tracer_new holds the
+            # RHS; apply the surface-pressure term and solve all tracers
+            # (source/baroclinic.F90:1326-1344); psurf at mixtime is
+            # psurf_cur for the Euler/non-avg path
+            rhs_all = tracer_new.clone()
+            rhs_all[:, 0] += torch.where(
+                grid.kmask_t[0][None],
+                -state.tracer_old[:, 0]
+                * (psurf_new - state.psurf_cur)[None] / grav_dz1, 0.0)
+            dT0 = tridiag.impvmixt(
+                rhs_all[0], coeffs_vdc[0], psurf_new, grid.KMT, vg.dz,
+                vg.dzwr, c2dtt, cfg.aidif, varthick=True)
+            dTs = tridiag.impvmixt_batch(
+                rhs_all[1:], coeffs_vdc[1], psurf_new, grid.KMT, vg.dz,
+                vg.dzwr, c2dtt, cfg.aidif, varthick=True)
+            tracer_new = state.tracer_old + torch.cat([dT0[None], dTs],
+                                                      dim=0)
+
+    # reset surface temperature to freezing floor
+    # (source/baroclinic.F90:1418-1421)
+    if cfg.reset_to_freezing:
+        if tracer_new is out.tracer_new:
+            tracer_new = tracer_new.clone()
+        tracer_new[0, 0] = torch.clamp(tracer_new[0, 0], min=-2.0)
+
+    # convective adjustment (no-op for convection_type='diffusion')
+    tracer_new = vmix.convad(cfg, grid, tracer_new)
+
+    # recompute density from final tracers (source/baroclinic.F90:1476-1482)
+    rho_new = _masked_density(cfg, grid, ts_range, tracer_new)
+    return tracer_new, rho_new

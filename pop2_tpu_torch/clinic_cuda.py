@@ -1,0 +1,192 @@
+"""The fused momentum forcing: CUDA kernel, wrapper and plain version.
+
+Replaces the TPU kernel ``clinic_pallas.py`` (``_kernel`` /
+``clinic_rhs_tiles``) with ``csrc/clinic.cu``:
+
+    fx = -L(u) + f*(wc*v_cur + wo*v_old) - PKX + am*Lap(u,v) + D_v(u_old)
+    fy = -L(v) - f*(wc*u_cur + wo*u_old) - PKY + am*Lap(v,-u) + D_v(v_old)
+
+masked to ocean, plus the thickness-weighted vertical means ZX, ZY.
+
+On an H100 the forcing is bound by bytes: six distinct 3-D inputs on the
+model's path (the mixing-time velocities are the old ones on a leapfrog step
+and the current ones on an Euler step, so they alias two of the other inputs)
+and two 3-D outputs plus two dozen 2-D fields, against about 150 flops per
+output pair.
+The plain version materializes the four U-face flux fields, every shifted
+operand and the pressure cumsum in device memory; the kernel gives one thread
+to each (j, i) column and carries w-from-continuity, the running pressure
+integral, the friction flux and the ZX/ZY sums down k in registers, so the
+vertical means need no second pass and no atomics and are deterministic (see
+the note in ``csrc/clinic.cu``). Float32 and float64.
+
+This slice carries the mode the dynamical core runs: del2 friction fused
+(``with_hdiffu=True``), closed north-south boundary, 1-D layer thickness. The
+TPU kernel's other modes (``with_hdiffu=False`` under anisotropic viscosity,
+the tripole top row) raise ``NotImplementedError``; they are extensions of
+this kernel listed in ROADMAP.md Queue 2.
+
+The pressure averaging, the Boussinesq scaling of the density and the choice
+of Coriolis weights stay in the wrapper, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import advect, constants as const, hmix, pgrad, vmix
+from pop2_tpu_torch.grid import grid_bc, thickness_u
+
+#: kernel launches so far (a plain counter; reset it to measure a run)
+launches = 0
+
+#: order of the stacked 2-D metric operand; DUCM = DUC + DUM, the combined
+#: centre weight of hmix_del2.F90:892 (must match enum G2D in csrc/clinic.cu)
+G2D = ("DYU", "DXU", "UAREA_R", "FCOR", "KXU", "KYU", "DXUR", "DYUR",
+       "DUCM", "DUN", "DUS", "DUE", "DUW",
+       "DMC", "DMN", "DMS", "DME", "DMW", "HUR")
+
+
+def _check_mode(cfg, grid):
+    todo = []
+    if cfg.hmix_momentum != "del2":
+        todo.append(f"hmix_momentum={cfg.hmix_momentum!r} "
+                    "(with_hdiffu=False)")
+    if cfg.ns_boundary != "closed":
+        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole north edge)")
+    if cfg.ew_boundary not in ("cyclic", "closed"):
+        todo.append(f"ew_boundary={cfg.ew_boundary!r}")
+    if cfg.ltopostress:
+        todo.append("ltopostress")
+    if grid.DZU is not None:
+        todo.append("3-D layer thickness")
+    if todo:
+        raise NotImplementedError(
+            "momentum forcing kernel mode not ported yet (ROADMAP.md Queue 2 "
+            "kernel 3): " + "; ".join(todo))
+
+
+def pack_g2d(cfg, grid):
+    """Stack the static 2-D metric operands in ``G2D`` order,
+    (19, ny, nx)."""
+    fields = {name: getattr(grid, name) for name in G2D if name != "DUCM"}
+    fields["DUCM"] = grid.DUC + grid.DUM
+    return torch.stack([fields[name] for name in G2D])
+
+
+def kernel_statics(cfg, grid):
+    """The kernel's operands that depend on the grid alone: ``(g2d, dzwr2,
+    facs)`` = the stacked metrics, 1/(mid-level spacing below level k) and
+    the half-level pressure factors dzw*g/2. Built at the first launch on a
+    ``Grid`` object and kept on it, so a step does not rebuild them; a
+    ``replace``d or moved grid is a new object and gets its own."""
+    hit = grid.__dict__.get("_clinic_statics")
+    if hit is None:
+        dz = grid.vgrid.dz
+        dzwr2 = 1.0 / (0.5 * (dz + torch.cat([dz[1:], dz[-1:]])))
+        facs = grid.vgrid.dzw[0:cfg.km] * (const.GRAV * 0.5)
+        hit = (pack_g2d(cfg, grid), dzwr2, facs)
+        grid.__dict__["_clinic_statics"] = hit
+    return hit
+
+
+def coriolis_weights(cfg, leapfrog: bool):
+    """(wc, wo): weights of the current and old velocity in the Coriolis
+    term (source/baroclinic.F90:971-995)."""
+    if cfg.time.impcor and leapfrog:
+        return cfg.time.gamma, 1.0 - cfg.time.gamma
+    if leapfrog:
+        return 1.0, 0.0
+    return 0.0, 1.0
+
+
+def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
+                     vvc, smf, dhu, wc: float, wo: float):
+    """Plain PyTorch version: -advu + Coriolis - gradp + hdiffu_del2
+    + vdiffu, masked, and the ZX/ZY sums (clinic,
+    source/baroclinic.F90:1635-1895 and :1035-1057). ``rhoavg`` is the
+    averaged, Boussinesq-scaled density (``pgrad.rho_average``)."""
+    bc = grid_bc(cfg)
+    luk, lvk = advect.advu(cfg, grid, bc, ucur, vcur, dhu)
+    fx = -luk + grid.FCOR * (wc * vcur + wo * vold)
+    fy = -lvk - grid.FCOR * (wc * ucur + wo * uold)
+
+    pkx, pky = pgrad.gradp(cfg, grid, bc, rhoavg)
+    fx = fx - pkx
+    fy = fy - pky
+
+    hduk, hdvk = hmix.hdiffu(cfg, grid, bc, umix, vmixm)
+    fx = fx + hduk
+    fy = fy + hdvk
+
+    du, dv = vmix.vdiffu(cfg, grid, vvc, uold, vold, smf)
+    fx = torch.where(grid.kmask_u, fx + du, 0.0)
+    fy = torch.where(grid.kmask_u, fy + dv, 0.0)
+
+    # vertical average of the forcing (fx/fy are zero below the bottom)
+    dzc = thickness_u(cfg, grid)
+    zx = grid.HUR * torch.sum(fx * dzc, dim=0)
+    zy = grid.HUR * torch.sum(fy * dzc, dim=0)
+    return fx, fy, zx, zy
+
+
+def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
+                      vvc, smf, dhu, wc: float, wo: float):
+    """(fx, fy, zx, zy) from explicit fields: eight (km, ny, nx) tensors,
+    smf (2, ny, nx), dhu (ny, nx) and the Coriolis weights. CUDA tensors go
+    through the kernel, CPU tensors through the plain version."""
+    global launches
+    _check_mode(cfg, grid)
+    if not ucur.is_cuda:
+        return clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix,
+                                vmixm, rhoavg, vvc, smf, dhu, wc, wo)
+    km, ny, nx = ucur.shape
+    dev, dt = ucur.device, ucur.dtype
+    vg = grid.vgrid
+    dz = vg.dz
+    g2d, dzwr2, facs = kernel_statics(cfg, grid)
+    f3, f2 = (km, ny, nx), (ny, nx)
+    for name, t in (("ucur", ucur), ("vcur", vcur), ("uold", uold),
+                    ("vold", vold), ("umix", umix), ("vmix", vmixm),
+                    ("rhoavg", rhoavg), ("vvc", vvc)):
+        cb.check_operand(name, t, f3, dt, dev)
+    cb.check_operand("g2d", g2d, (len(G2D), ny, nx), dt, dev)
+    cb.check_operand("KMU", grid.KMU, f2, torch.int32, dev)
+    cb.check_operand("dhu", dhu, f2, dt, dev)
+    cb.check_operand("smf", smf, (2, ny, nx), dt, dev)
+    cb.check_operand("dz", dz, (km,), dt, dev)
+    lib = cb.lib()
+    if lib.pop2_clinic_g2d_count() != len(G2D):
+        raise RuntimeError("G2D layout differs between clinic_cuda.py and "
+                           "csrc/clinic.cu")
+    fx = torch.empty_like(ucur)
+    fy = torch.empty_like(ucur)
+    zx = torch.empty_like(dhu)
+    zy = torch.empty_like(dhu)
+    err = lib.pop2_clinic(
+        cb.dtype_code(ucur), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
+        ucur.data_ptr(), vcur.data_ptr(), uold.data_ptr(), vold.data_ptr(),
+        umix.data_ptr(), vmixm.data_ptr(), rhoavg.data_ptr(), vvc.data_ptr(),
+        g2d.data_ptr(), grid.KMU.data_ptr(), dhu.data_ptr(), smf.data_ptr(),
+        dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
+        dzwr2.data_ptr(), facs.data_ptr(),
+        float(cfg.auto_am), float(cfg.bottom_drag), float(wc), float(wo),
+        fx.data_ptr(), fy.data_ptr(), zx.data_ptr(), zy.data_ptr(),
+        cb.stream_ptr())
+    cb.check_launch(err, "clinic_rhs")
+    launches += 1
+    return fx, fy, zx, zy
+
+
+def clinic_rhs(cfg, grid, state, umix, vmixm, rho_new, vvc, smf, dhu,
+               leapfrog: bool):
+    """Model-facing wrapper: form the pressure-averaged, Boussinesq-scaled
+    density, pick the Coriolis time weights, and compute (fx, fy, zx, zy)
+    (source/baroclinic.F90:935-1057)."""
+    rhoavg = pgrad.rho_average(cfg, grid, state.rho_old, state.rho_cur,
+                               rho_new, leapfrog)
+    wc, wo = coriolis_weights(cfg, leapfrog)
+    return clinic_rhs_fields(cfg, grid, state.u_cur, state.v_cur,
+                             state.u_old, state.v_old, umix, vmixm, rhoavg,
+                             vvc, smf, dhu, wc, wo)

@@ -1,0 +1,118 @@
+"""Top-level model driver: wiring of grid, forcing, state and the step, plus
+the step-type policy of the time manager.
+
+Replaces the reference's driver layer (``drivers/mct/ocn_comp_mct.F90`` run
+loop + ``source/time_management.F90`` switches) for standalone runs: the
+'avg' time-mixing policy, Euler-forward first step, leapfrog afterwards,
+averaging filter every ``time_mix_freq`` steps
+(source/time_management.F90:2157-2175). The calendar, tavg/history streams and
+a captured-graph run loop are later slices (ROADMAP.md Queue 1 item 10); a
+step counter stands in for the calendar here.
+
+``Model(cfg)`` runs on the GPU: the default device is ``cuda`` and a machine
+without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
+runs the same code with the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from pop2_tpu_torch import constants as const
+from pop2_tpu_torch import eos, solvers, step as step_mod
+from pop2_tpu_torch.barotropic import diagonal_correction
+from pop2_tpu_torch.config import ModelConfig
+from pop2_tpu_torch.forcing import Forcing, analytic_forcing
+from pop2_tpu_torch.grid import Grid, build_grid, grid_bc, resolve_device
+from pop2_tpu_torch.state import State, initial_state
+from pop2_tpu_torch.supported import check_supported
+
+
+class Model:
+    """Standalone ocean model instance on one device."""
+
+    def __init__(self, cfg: ModelConfig, grid: Optional[Grid] = None,
+                 device="cuda"):
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.device = device
+        self.grid = (grid.to(device) if grid is not None
+                     else build_grid(cfg, device))
+        self.bc = grid_bc(cfg)
+        self.ts_range = (
+            eos.build_ts_range(self.grid.vgrid.zt.double().cpu().numpy(),
+                               cfg.torch_dtype, device)
+            if cfg.state_range_opt == "enforce" else None)
+        self.forcing = analytic_forcing(cfg, self.grid)
+        self.nsteps_total = 0
+        # PCSI eigenvalue bounds are prepared once per leapfrog flag: the
+        # diagonal correction is a pure function of (cfg, grid, leapfrog)
+        self._pcsi_eigs: Dict[bool, Tuple[float, float]] = {}
+        if cfg.solver.choice.lower() == "pcsi":
+            for leapfrog in (False, True):
+                op = solvers.make_operator(
+                    self.grid, diagonal_correction(cfg, self.grid, leapfrog))
+                if (cfg.solver.solve_dtype == "float64"
+                        and cfg.torch_dtype != torch.float64):
+                    op = op.to(torch.float64)
+                self._pcsi_eigs[leapfrog] = solvers.lanczos_eigs(
+                    cfg, op, self.bc)
+
+    # -- time manager (source/time_management.F90:2157-2234) ----------------
+    def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
+        """(leapfrog, avg_ts) for 1-based step number ``nsteps_total``."""
+        leapfrog = nsteps_total != 1
+        tm = self.cfg.time
+        avg_ts = (nsteps_total % tm.time_mix_freq == 0 and nsteps_total > 1)
+        return leapfrog, avg_ts
+
+    def initial_state(self) -> State:
+        self.nsteps_total = 0
+        return initial_state(self.cfg, self.grid, self.device)
+
+    def advance(self, state: State, forcing: Optional[Forcing] = None):
+        """Advance one step; returns (state, StepDiagnostics)."""
+        forcing = forcing or self.forcing
+        self.nsteps_total += 1
+        leapfrog, avg_ts = self.step_flags(self.nsteps_total)
+        return step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
+                             state, forcing, leapfrog, avg_ts,
+                             self._pcsi_eigs.get(leapfrog))
+
+    def run(self, state: State, nsteps: int,
+            forcing: Optional[Forcing] = None) -> State:
+        for _ in range(nsteps):
+            state, _ = self.advance(state, forcing)
+        return state
+
+    # -- diagnostics (source/diagnostics.F90:1174-, check_KE :3260) ---------
+    def diagnostics(self, state: State) -> Dict[str, float]:
+        g = self.grid
+        dz = g.vgrid.dz.reshape(-1, 1, 1)
+        wu = torch.where(g.kmask_u, dz * g.UAREA, 0.0)
+        wt = torch.where(g.kmask_t, dz * g.TAREA, 0.0)
+        ke = 0.5 * torch.sum(wu * (state.u_cur ** 2 + state.v_cur ** 2)) \
+            / torch.sum(wu)
+        tvol = torch.sum(wt)
+        tmean = torch.sum(wt * state.tracer_cur[0]) / tvol
+        smean = torch.sum(wt * state.tracer_cur[1]) / tvol
+        ssh = torch.sqrt(torch.sum((state.psurf_cur / const.GRAV) ** 2
+                                   * g.RCALCT) / torch.sum(g.RCALCT))
+        return {
+            "KE": float(ke),
+            "TEMP_mean": float(tmean),
+            "SALT_mean": float(smean) * const.SALT_TO_PPT,
+            "SSH_rms_cm": float(ssh),
+            "U_max": float(torch.abs(state.u_cur).max()),
+        }
+
+    def check_ke(self, state: State, ke_limit: float = 100.0) -> None:
+        """Blow-up guard (source/diagnostics.F90:3260)."""
+        ke = self.diagnostics(state)["KE"]
+        if not math.isfinite(ke) or ke > ke_limit:
+            raise FloatingPointError(
+                f"KE blow-up detected: KE={ke} exceeds {ke_limit} cm^2/s^2")

@@ -1,0 +1,325 @@
+"""Barotropic elliptic solvers: ChronGear, PCSI, and standard PCG.
+
+Reference: ``source/POP_SolversMod.F90`` — ChronGear (:1841, one fused 2-field
+reduction per iteration), PCSI (:1510, Stiefel iteration with no
+per-iteration reduction; eigenvalue bounds from a Lanczos pass at init,
+:2699), PCG (:1200), and the 9-point operator (:2376) exploiting weight
+symmetry.
+
+The iteration is a Python loop of eager tensor ops. The scalars of the
+recurrences (alpha, beta, rho, sigma) stay 0-d tensors on the device; the
+residual norm comes back to the host only on the convergence-check
+iterations (every ``convergence_check_freq``), so the loop stops at the same
+iteration numbers as the JAX package's ``lax.while_loop`` and iteration
+counts are comparable. Between checks nothing synchronizes. The loop is
+launch-bound on a GPU (a dozen small kernels per iteration); a CUDA graph of
+the loop body is later work.
+
+The JAX package's double-single ``solve_refined`` exists because its target
+has no float64 datapath; the GPU has one, so ``solve_dtype='float64'`` under
+a float32 model simply casts the 2-D solve to float64 (``solve``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pop2_tpu_torch.config import ModelConfig
+from pop2_tpu_torch.grid import Grid
+from pop2_tpu_torch.reductions import global_sum
+from pop2_tpu_torch.stencil import BC
+
+
+class BtropOperator(NamedTuple):
+    """9-point operator weights on T points, compressed form: the S/W/SW
+    weights are shifted copies of N/E/NE. ``center`` includes the
+    time-dependent free-surface diagonal term (POP_SolversPrep,
+    source/POP_SolversMod.F90:181-270)."""
+    center: torch.Tensor
+    north: torch.Tensor
+    east: torch.Tensor
+    ne: torch.Tensor
+    mask: torch.Tensor    # RCALCT (1/0) — reductions masked to ocean points
+    resid_norm: torch.Tensor  # 1/sum(TAREA^2 over ocean): rms normalization
+
+    def to(self, dtype):
+        return BtropOperator(*(t.to(dtype) for t in self))
+
+
+def make_operator(grid: Grid, diagonal_correction) -> BtropOperator:
+    """center = centerWgtClinicIndep - diagonalCorrection
+    (source/POP_SolversMod.F90:249-253)."""
+    return BtropOperator(
+        center=grid.btrop_c_indep - diagonal_correction,
+        north=grid.btrop_n, east=grid.btrop_e, ne=grid.btrop_ne,
+        mask=grid.RCALCT, resid_norm=grid.residual_norm)
+
+
+def _shifted_weights(op: BtropOperator, bc: BC):
+    """The S, W, SE, NW, SW weights of the compressed operator."""
+    return (bc.s(op.north), bc.w(op.east), bc.s(op.ne), bc.w(op.ne),
+            bc.sw(op.ne))
+
+
+def apply_op(op: BtropOperator, x, bc: BC, shifted=None):
+    """A @ x via the 9-point stencil (source/POP_SolversMod.F90:2412-2426).
+    ``shifted`` takes the precomputed ``_shifted_weights`` so a solver loop
+    shifts the weights once instead of at every application."""
+    w_s, w_w, w_se, w_nw, w_sw = shifted or _shifted_weights(op, bc)
+    return (op.center * x
+            + op.north * bc.n(x) + w_s * bc.s(x)
+            + op.east * bc.e(x) + w_w * bc.w(x)
+            + op.ne * bc.ne(x) + w_se * bc.se(x)
+            + w_nw * bc.nw(x) + w_sw * bc.sw(x))
+
+
+def _masked_sum(x, mask, b4b: bool = False):
+    """Masked global dot-product sum (POP_GlobalSum)."""
+    return global_sum(x * mask, b4b=b4b)
+
+
+def _diag_precond(op: BtropOperator):
+    nz = op.center != 0.0
+    return torch.where(nz, 1.0 / torch.where(nz, op.center, 1.0), 0.0)
+
+
+def make_precond_apply(cfg: ModelConfig, op: BtropOperator, bc: BC):
+    """Returns z = M^-1 r as a closure: the diagonal preconditioner
+    (source/POP_SolversMod.F90:2273-2364). The 9-point file/SPAI/FSPAI
+    stencils are a later slice (ROADMAP.md Queue 1 item 5)."""
+    choice = cfg.solver.preconditioner.lower()
+    if choice != "diagonal":
+        raise NotImplementedError(
+            f"preconditioner {cfg.solver.preconditioner!r} is not ported yet "
+            "(ROADMAP.md Queue 1 item 5)")
+    a0r = _diag_precond(op)
+    return lambda r: r * a0r
+
+
+def _safe(x):
+    """x where nonzero, else 1: guards the recurrences' divisions so an
+    already-converged (e.g. zero-RHS) system stays finite."""
+    return torch.where(x != 0.0, x, 1.0)
+
+
+def _tolerance(cfg: ModelConfig, op: BtropOperator) -> float:
+    """Squared-residual threshold (source/POP_SolversMod.F90:906)."""
+    return cfg.solver.convergence_criterion ** 2 / float(op.resid_norm)
+
+
+def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+               tol: Optional[float] = None, max_iter: Optional[int] = None):
+    """Chronopoulos-Gear preconditioned CG
+    (source/POP_SolversMod.F90:1841-2266). Returns (x, iterations, rr) with
+    ``iterations`` a Python int and ``rr`` the squared residual of the last
+    check (a 0-d tensor; inf if no check ran)."""
+    sol = cfg.solver
+    minv = make_precond_apply(cfg, op, bc)
+    sh = _shifted_weights(op, bc)
+    if tol is None:
+        tol = _tolerance(cfg, op)
+    if max_iter is None:
+        max_iter = sol.max_iterations
+    ncheck = sol.convergence_check_freq
+
+    # initial residual + one pass of the standard algorithm
+    r = b - apply_op(op, x0, bc, sh)
+    rr_init = _masked_sum(r * r, op.mask, cfg.b4b)
+    z = minv(r)
+    s = z
+    q = apply_op(op, s, bc, sh)
+    rho_old = _masked_sum(r * z, op.mask, cfg.b4b)
+    sigma = _masked_sum(s * q, op.mask, cfg.b4b)
+    alpha = rho_old / _safe(sigma)
+    x = x0 + alpha * s
+    r = r - alpha * q
+
+    if float(rr_init) < tol:
+        return x, 0, rr_init
+    rr = torch.full_like(rr_init, math.inf)
+    m = 0
+    while m < max_iter:
+        z = minv(r)
+        az = apply_op(op, z, bc, sh)
+        rho = _masked_sum(r * z, op.mask, cfg.b4b)
+        delta = _masked_sum(az * z, op.mask, cfg.b4b)
+        beta = rho / _safe(rho_old)
+        sigma = delta - beta ** 2 * sigma
+        alpha = rho / _safe(sigma)
+        s = z + beta * s
+        q = az + beta * q
+        x = x + alpha * s
+        r = r - alpha * q
+        rho_old = rho
+        m += 1
+        if m % ncheck == 0:
+            # true residual, and the only host read of the loop
+            r = b - apply_op(op, x, bc, sh)
+            rr = _masked_sum(r * r, op.mask, cfg.b4b)
+            if float(rr) < tol:
+                break
+    return x, m, rr
+
+
+def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+         eig_min: float, eig_max: float, tol: Optional[float] = None,
+         max_iter: Optional[int] = None):
+    """Preconditioned Classical Stiefel Iteration
+    (source/POP_SolversMod.F90:1510-1835; Hu et al. 2013): no reductions in
+    the steady-state loop body. eig_min/eig_max bound the preconditioned
+    operator's spectrum. Returns (x, iterations, rr)."""
+    sol = cfg.solver
+    minv = make_precond_apply(cfg, op, bc)
+    sh = _shifted_weights(op, bc)
+    if tol is None:
+        tol = _tolerance(cfg, op)
+    if max_iter is None:
+        max_iter = sol.max_iterations
+    ncheck = sol.convergence_check_freq
+    nstart = sol.convergence_check_start
+
+    csalpha = 2.0 / (eig_max - eig_min)
+    csbeta = (eig_max + eig_min) / (eig_max - eig_min)
+    csy = csbeta / csalpha
+    omga = 2.0 / csy  # host scalars: the recurrence has no data in it
+
+    r = b - apply_op(op, x0, bc, sh)
+    q = (1.0 / csy) * minv(r)
+    x = x0 + q
+    r = b - apply_op(op, x, bc, sh)
+
+    rr = torch.full((), math.inf, dtype=x0.dtype, device=x0.device)
+    m = 0
+    while m < max_iter:
+        omga = 1.0 / (csy - omga / (4.0 * csalpha * csalpha))
+        q = omga * minv(r) + (csy * omga - 1.0) * q
+        x = x + q
+        r = b - apply_op(op, x, bc, sh)
+        m += 1
+        if m % ncheck == 0 and m >= nstart:
+            rr = _masked_sum(r * r, op.mask, cfg.b4b)
+            if float(rr) < tol:
+                break
+    return x, m, rr
+
+
+def pcg(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+        tol: Optional[float] = None, max_iter: Optional[int] = None):
+    """Standard preconditioned CG (source/POP_SolversMod.F90:1200-1508).
+    Returns (x, iterations, rr)."""
+    sol = cfg.solver
+    minv = make_precond_apply(cfg, op, bc)
+    sh = _shifted_weights(op, bc)
+    if tol is None:
+        tol = _tolerance(cfg, op)
+    if max_iter is None:
+        max_iter = sol.max_iterations
+    ncheck = sol.convergence_check_freq
+
+    x = x0
+    r = b - apply_op(op, x0, bc, sh)
+    s = torch.zeros_like(x0)
+    eta_old = torch.ones((), dtype=x0.dtype, device=x0.device)
+    rr = torch.full((), math.inf, dtype=x0.dtype, device=x0.device)
+    m = 0
+    while m < max_iter:
+        z = minv(r)
+        eta = _masked_sum(r * z, op.mask, cfg.b4b)
+        s = z + s * (eta / _safe(eta_old))
+        q = apply_op(op, s, bc, sh)
+        sq = _masked_sum(s * q, op.mask, cfg.b4b)
+        alpha = eta / _safe(sq)
+        x = x + alpha * s
+        r = r - alpha * q
+        eta_old = eta
+        m += 1
+        if m % ncheck == 0:
+            r = b - apply_op(op, x, bc, sh)
+            rr = _masked_sum(r * r, op.mask, cfg.b4b)
+            if float(rr) < tol:
+                break
+    return x, m, rr
+
+
+def lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
+                 n_iter: Optional[int] = None,
+                 seed: int = 0) -> Tuple[float, float]:
+    """Estimate extreme eigenvalues of the diagonally-preconditioned operator
+    by a Lanczos pass (PcsiLanczos, source/POP_SolversMod.F90:2699-3120; the
+    reference then solves the tridiagonal eigenproblem with ratqr :3122 —
+    here numpy does it on the host at init time).
+
+    Returns (eig_min, eig_max) scaled with the reference's safety margins.
+    """
+    if n_iter is None:
+        n_iter = cfg.solver.lanczos_iterations
+    mask = op.mask.double().cpu().numpy()
+
+    # Lanczos needs a symmetric operator: use the symmetrized
+    # D^{-1/2} (-A) D^{-1/2} with D = |diag(A)|, which is similar to the
+    # diagonally-preconditioned M^{-1}A used by the PCSI recurrence and
+    # therefore shares its (positive) spectrum.
+    d = torch.abs(op.center)
+    pos = d > 0.0
+    dmh = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, d, 1.0)), 0.0)
+    sh = _shifted_weights(op, bc)
+
+    rng = np.random.RandomState(seed)
+    v0 = rng.rand(*mask.shape) * mask
+    v0 /= np.sqrt((v0 * v0).sum())
+    v = torch.as_tensor(v0).to(device=op.center.device, dtype=op.center.dtype)
+
+    # the recurrence stays on the device; alphas and betas come back once
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros((), dtype=v.dtype, device=v.device)
+    alphas, betas = [], []
+    for _ in range(n_iter):
+        w = -dmh * apply_op(op, dmh * v, bc, sh) * op.mask
+        alpha = torch.sum(w * v)
+        w = w - alpha * v - beta * v_prev
+        beta = torch.sqrt(torch.sum(w * w))
+        broke = beta < 1e-30
+        v_prev, v = v, torch.where(broke, v, w / torch.where(broke, 1.0,
+                                                             beta))
+        alphas.append(alpha)
+        betas.append(beta)
+    alphas = torch.stack(alphas).double().cpu().numpy()
+    betas = torch.stack(betas).double().cpu().numpy()
+    # truncate at breakdown (beta ~ 0)
+    stop = np.nonzero(betas < 1e-30)[0]
+    if stop.size:
+        ncut = int(stop[0]) + 1
+        alphas, betas = alphas[:ncut], betas[:ncut]
+    T = np.diag(alphas) + np.diag(betas[:-1], 1) + np.diag(betas[:-1], -1)
+    eigs = np.linalg.eigvalsh(T)
+    # |eigs| bounds with margins like the reference (PcsiLanczos scales nu
+    # by 1/1.05 and mu by 1.05 empirically)
+    emin = float(np.min(np.abs(eigs))) / 1.05
+    emax = float(np.max(np.abs(eigs))) * 1.05
+    return emin, emax
+
+
+def solve(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+          eigs: Optional[Tuple[float, float]] = None):
+    """Dispatch on cfg.solver.choice (source/POP_SolversMod.F90:327-500).
+    With ``solve_dtype='float64'`` under a float32 model the whole 2-D solve
+    runs in float64 and the solution is cast back."""
+    out_dtype = x0.dtype
+    if cfg.solver.solve_dtype == "float64" and out_dtype != torch.float64:
+        op, x0, b = op.to(torch.float64), x0.double(), b.double()
+    choice = cfg.solver.choice.lower()
+    if choice == "chrongear":
+        x, m, rr = chron_gear(cfg, op, bc, x0, b)
+    elif choice == "pcsi":
+        if eigs is None:
+            raise ValueError("PCSI requires Lanczos eigenvalue bounds")
+        x, m, rr = pcsi(cfg, op, bc, x0, b, eigs[0], eigs[1])
+    elif choice == "pcg":
+        x, m, rr = pcg(cfg, op, bc, x0, b)
+    else:
+        raise NotImplementedError(choice)
+    return x.to(out_dtype), m, rr

@@ -1,0 +1,78 @@
+"""The one place that says which config switches the port carries.
+
+The port keeps the JAX package's whole ``ModelConfig`` so both packages accept
+the same presets, but it grows slice by slice. ``check_supported`` is called
+when a grid or a ``Model`` is built and raises ``NotImplementedError`` naming
+the roadmap item (ROADMAP.md, Queue 1 / Queue 2) for every switch whose
+physics is not ported yet — nothing falls through to a different scheme.
+"""
+
+from __future__ import annotations
+
+from pop2_tpu_torch.config import ModelConfig
+
+
+def unsupported(cfg: ModelConfig) -> list:
+    """Reasons ``cfg`` cannot run on this slice of the port (empty = ok)."""
+    t = cfg.time
+    checks = [
+        (cfg.horiz_grid != "internal" or cfg.topography != "internal"
+         or cfg.vert_grid not in ("internal", "uniform"),
+         "grid/topography 'file' readers (Queue 1 item 11: io/grid_files)"),
+        (cfg.partial_bottom_cells,
+         "partial_bottom_cells (Queue 2 kernel 1: 3-D DZT)"),
+        (cfg.ns_boundary != "closed",
+         f"ns_boundary={cfg.ns_boundary!r} (Queue 1 item 5: tripole.py; "
+         "Queue 2 kernels 2-3: tripole north edge)"),
+        (cfg.ew_boundary not in ("cyclic", "closed"),
+         f"ew_boundary={cfg.ew_boundary!r}"),
+        (cfg.nt != 2 or bool(cfg.passive_tracers),
+         "passive tracers / nt > 2 (Queue 1 item 8: passive_tracers.py)"),
+        (cfg.state_choice not in ("mwjf", "jmcd", "linear"),
+         f"state_choice={cfg.state_choice!r} (Queue 1 item 11)"),
+        (cfg.tadvect != "centered",
+         f"tadvect={cfg.tadvect!r} (Queue 1 item 5: advt_upwind3; "
+         "Queue 2 kernel 2: upwind3 mode)"),
+        (cfg.hmix_tracer != "del2",
+         f"hmix_tracer={cfg.hmix_tracer!r} (Queue 1 items 7/11: gm.py, "
+         "del4; Queue 2 kernel 2: with_del2=False, kernels 4-6)"),
+        (cfg.hmix_momentum != "del2",
+         f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 items 5/11: "
+         "hmix_aniso, del4; Queue 2 kernel 3: with_hdiffu=False)"),
+        (cfg.vmix not in ("const", "rich"),
+         f"vmix={cfg.vmix!r} (Queue 1 item 6: kpp.py)"),
+        (not cfg.implicit_vertical_mix,
+         "explicit vertical mixing (absent from the JAX package too)"),
+        (cfg.liceform, "liceform (Queue 1 item 5: ice.py)"),
+        (cfg.sw_absorption != "none",
+         f"sw_absorption={cfg.sw_absorption!r} (Queue 1 item 5)"),
+        (cfg.geoheatflux_const != 0.0,
+         "geoheatflux_const (Queue 1 item 11)"),
+        (cfg.ldamp_uv, "ldamp_uv (Queue 1 item 11)"),
+        (cfg.lestuary_exch, "lestuary_exch (Queue 1 item 11: estuary.py)"),
+        (cfg.ltidal_mixing, "ltidal_mixing (Queue 1 item 6)"),
+        (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11)"),
+        (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
+        (bool(cfg.overflows), "overflows (Queue 1 item 8: overflows.py)"),
+        (cfg.lsubmeso, "lsubmeso (Queue 1 item 7: submeso.py)"),
+        (t.time_mix_opt != "avg",
+         f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 5: Robert "
+         "filter; item 10: avgfit calendar)"),
+        (t.laccel, "laccel depth acceleration (Queue 1 item 11)"),
+        (cfg.solver.preconditioner.lower() != "diagonal",
+         f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 5: "
+         "build_fspai9 / spai / file)"),
+        (cfg.solver.choice.lower() not in ("chrongear", "pcg", "pcsi"),
+         f"solver choice {cfg.solver.choice!r}"),
+        (cfg.b4b, "b4b reproducible sums (Queue 1 item 12)"),
+        (tuple(cfg.mesh_shape) != (1, 1),
+         "mesh_shape != (1, 1) (Queue 1 item 12: multi-GPU)"),
+    ]
+    return [why for bad, why in checks if bad]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    why = unsupported(cfg)
+    if why:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md): " + "; ".join(why))

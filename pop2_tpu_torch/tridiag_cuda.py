@@ -1,0 +1,108 @@
+"""The masked batched Thomas sweep: CUDA kernel, wrapper and plain version.
+
+Replaces the TPU kernel ``tridiag_pallas.py`` (``_thomas_kernel`` /
+``thomas_tiles``) with ``csrc/thomas.cu``.
+
+On an H100 the sweep is bound by bytes: the least it can move is the coupling
+``a`` once, each right-hand side once and each solution once, (1 + 2 nr)
+fields, with about ten flops per value. The kernel gives one thread to each
+water column, so every level's loads of a warp are consecutive; the nr
+right-hand sides share one factorisation and ride in registers going down;
+the elimination coefficients wait for the backward sweep in a per-thread
+local array (see the note in ``csrc/thomas.cu`` for why not a scratch
+tensor). Unlike the TPU kernel it is instantiated for float32 and float64.
+
+``thomas`` launches the kernel for CUDA tensors and calls ``thomas_plain``
+for CPU tensors; it never falls back from one to the other. Both form
+``hfac_k * rhs_k`` themselves: callers pass the right-hand side unscaled.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pop2_tpu_torch import _cuda_build as cb
+
+#: kernel launches so far (a plain counter; reset it to measure a run)
+launches = 0
+
+_MAX_NR = 3  # right-hand sides per launch the kernel is instantiated for
+
+
+def thomas_plain(hfac, h1, kmax, a, rhs):
+    """Plain PyTorch version of the sweep (the reference's Thomas algorithm,
+    source/vertical_mix.F90:1164, :1679), vectorized over every column.
+
+    hfac: (km,) diagonal mass terms dz_k/c2dt_k.
+    h1: (ny, nx) surface diagonal term (incl. the psurf correction).
+    kmax: (ny, nx) int32 deepest level (1-based; 0 = land).
+    a: (km, ny, nx) subdiagonal coupling, zero at the last level.
+    rhs: (nr, km, ny, nx) right-hand sides before the hfac scaling.
+    Returns (nr, km, ny, nx) solutions, zero below kmax.
+    """
+    km = a.shape[0]
+    kmax = kmax[None]  # broadcast over the right-hand sides
+    zero = torch.zeros_like(rhs[:, 0])
+
+    # level-1 set-up (source/vertical_mix.F90:1263-1274)
+    A_prev = a[0]
+    D = h1 + A_prev
+    E = [A_prev / D]
+    B = h1 * E[0]
+    F = [hfac[0] * rhs[:, 0] / D]
+
+    # forward elimination
+    for k in range(1, km):
+        kk = k + 1  # 1-based level
+        at_bottom = (kmax == kk)[0]
+        wet = kmax >= kk  # level kk is ocean
+        A_k = a[k]
+        D = torch.where(at_bottom, hfac[k] + B, hfac[k] + A_k + B)
+        D = torch.where(wet[0], D, torch.ones_like(D))  # no 0/0 on land
+        E_k = torch.where(wet[0], A_k / D, torch.zeros_like(D))
+        B = (hfac[k] + B) * E_k
+        F.append(torch.where(wet, (hfac[k] * rhs[:, k] + A_prev * F[-1])
+                             / D, zero))
+        E.append(E_k)
+        A_prev = A_k
+
+    # back substitution (source/vertical_mix.F90:1338-1349)
+    for k in range(km - 2, -1, -1):
+        interior = (k + 1) < kmax
+        F[k] = torch.where(interior, F[k] + E[k] * F[k + 1], F[k])
+    return torch.stack(F, dim=1)
+
+
+def thomas(hfac, h1, kmax, a, rhs):
+    """Solve the masked tridiagonal systems of every column; shapes as in
+    ``thomas_plain``. CUDA tensors go through the kernel (float32 or
+    float64, contiguous, km within the kernel's bound), CPU tensors through
+    the plain version."""
+    global launches
+    if not rhs.is_cuda:
+        return thomas_plain(hfac, h1, kmax, a, rhs)
+    nr, km, ny, nx = rhs.shape
+    dev, dt = rhs.device, rhs.dtype
+    lib = cb.lib()
+    if km > lib.pop2_thomas_max_levels():
+        raise NotImplementedError(
+            f"km={km} exceeds the kernel's bound of "
+            f"{lib.pop2_thomas_max_levels()} levels")
+    cb.check_operand("hfac", hfac, (km,), dt, dev)
+    cb.check_operand("h1", h1, (ny, nx), dt, dev)
+    cb.check_operand("kmax", kmax, (ny, nx), torch.int32, dev)
+    cb.check_operand("a", a, (km, ny, nx), dt, dev)
+    cb.check_operand("rhs", rhs, (nr, km, ny, nx), dt, dev)
+    if nr > _MAX_NR:
+        raise NotImplementedError(
+            f"{nr} right-hand sides on one factorisation: the kernel is "
+            f"instantiated for at most {_MAX_NR} (more passive tracers: "
+            "ROADMAP.md Queue 1 item 8)")
+    out = torch.empty_like(rhs)
+    err = lib.pop2_thomas(
+        cb.dtype_code(rhs), nr, km, ny * nx, hfac.data_ptr(), h1.data_ptr(),
+        kmax.data_ptr(), a.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+        cb.stream_ptr())
+    cb.check_launch(err, "thomas")
+    launches += 1
+    return out

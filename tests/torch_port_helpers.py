@@ -1,0 +1,110 @@
+"""Shared helpers of the tests/test_torch_*.py files: hand the same config
+and the same NumPy inputs to the JAX package and to its PyTorch port."""
+
+import dataclasses
+
+import numpy as np
+
+from pop2_tpu_torch import config as tconfig
+
+
+def torch_cfg(jcfg):
+    """The port's ModelConfig with the field values of a JAX-package one."""
+    d = dataclasses.asdict(jcfg)
+    d["time"] = tconfig.TimeConfig(**d["time"])
+    d["solver"] = tconfig.SolverConfig(**d["solver"])
+    d["overflows"] = ()
+    return tconfig.ModelConfig(**d)
+
+
+def jax_leaves(obj, prefix=""):
+    """{name: ndarray} of the array leaves of a JAX-package dataclass."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            out.update(jax_leaves(v, f"{prefix}{f.name}."))
+        elif hasattr(v, "shape"):
+            out[prefix + f.name] = np.asarray(v)
+    return out
+
+
+def scale_err(got, want):
+    """max |got - want| over the reference's max magnitude."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = np.abs(want).max() or 1.0
+    return float(np.abs(got - want).max() / scale)
+
+
+def assert_leaves_close(tleaves, jleaves, rtol, skip=()):
+    """Every tensor leaf of the port equals the JAX package's leaf."""
+    for name, t in tleaves:
+        if name in skip:
+            continue
+        want = jleaves[name]
+        got = t.numpy()
+        assert got.shape == want.shape, name
+        if got.dtype == np.bool_ or np.issubdtype(got.dtype, np.integer):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=0,
+                                       err_msg=name)
+
+
+def stepped_bottom(jgrid, tgrid, ew, seed):
+    """Both grids with a seeded stepped bathymetry inside the ocean mask.
+
+    The internal topography generator gives full-depth ocean everywhere, so
+    the kernels' bottom masking (levels below KMT/KMU, the bottom level
+    itself) would only ever see 0 and km. This replaces KMT by smooth random
+    depths of 2..km levels and recomputes the leaves derived from it that the
+    kernel modules read (not the barotropic operator weights)."""
+    import torch
+
+    kmt0 = np.asarray(jgrid.KMT)
+    km = int(kmt0.max())
+    ny, nx = kmt0.shape
+    rng = np.random.RandomState(seed)
+    jj, ii = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    depth = 0.55 + 0.45 * np.sin(2 * np.pi * (ii / nx + rng.rand())) \
+        * np.cos(2 * np.pi * (jj / ny + rng.rand()))
+    depth += 0.15 * rng.randn(ny, nx)
+    kmt = np.where(kmt0 > 0, np.clip(np.rint(depth * km), 2, km), 0)
+    kmt = kmt.astype(np.int32)
+
+    def sh(f, di, dj):
+        g = np.roll(f, (-dj, -di), axis=(0, 1))
+        if dj > 0:
+            g[-dj:] = 0
+        elif dj < 0:
+            g[:-dj] = 0
+        if ew == "closed" and di > 0:
+            g[:, -di:] = 0
+        elif ew == "closed" and di < 0:
+            g[:, :-di] = 0
+        return g
+
+    kmu = np.minimum(np.minimum(kmt, sh(kmt, 1, 0)),
+                     np.minimum(sh(kmt, 0, 1), sh(kmt, 1, 1)))
+    zw_pad = np.concatenate([[0.0], np.asarray(jgrid.vgrid.zw, np.float64)])
+    hu = zw_pad[kmu]
+    kidx = np.arange(1, km + 1)[:, None, None]
+    new = dict(
+        KMT=kmt, KMU=kmu.astype(np.int32), HT=zw_pad[kmt], HU=hu,
+        HUR=np.where(hu > 0, 1.0 / np.where(hu > 0, hu, 1.0), 0.0),
+        RCALCT=(kmt >= 1).astype(np.float64),
+        RCALCU=(kmu >= 1).astype(np.float64),
+        kmask_t=kidx <= kmt[None], kmask_u=kidx <= kmu[None],
+        KMTN=sh(kmt, 0, 1), KMTS=sh(kmt, 0, -1), KMTE=sh(kmt, 1, 0),
+        KMTW=sh(kmt, -1, 0))
+    jnew, tnew = {}, {}
+    for name, a in new.items():
+        old_j, old_t = getattr(jgrid, name), getattr(tgrid, name)
+        jnew[name] = np.asarray(a).astype(np.asarray(old_j).dtype)
+        tnew[name] = torch.as_tensor(np.ascontiguousarray(a)).to(old_t.dtype)
+    import jax.numpy as jnp
+    return (jgrid.replace(**{k: jnp.asarray(v) for k, v in jnew.items()}),
+            tgrid.replace(**tnew))
