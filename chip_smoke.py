@@ -6,17 +6,28 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from the sources in the checkout,
-holds each against its plain PyTorch version at the shapes the main path
-gives it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
-and float64, times both, drives the port's main path (``Model.advance``:
-Euler step, leapfrog steps, averaging steps) at that size in float32 and in
-float64, checks through the wrappers' launch counters that the path really
-went through the kernels, compares five steps with the kernels against five
-steps with the plain versions (and, in float32, both against the float64
-run), breaks a step's time down by part and by device kernel, and compares
-the GPU path with the CPU path on a small grid. Every phase that fails makes
-the script exit non-zero; with no GPU it exits at once without a result. It
-takes no arguments: every run is the whole check.
+holds each against its plain PyTorch version at the shapes the main paths
+give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
+and float64, times both, and drives the port's three paths through
+``Model.advance`` (Euler step, leapfrog steps, averaging steps) at that size
+in float32 and in float64:
+
+    core     the dynamical core (Laplacian tracer mixing)
+    gm_full  GM/Redi mixing with the transition layer and bfre diffusivities:
+             slope kernel -> plain searches -> chain kernel -> tracer kernel
+             without the Laplacian
+    gm_flux  GM/Redi mixing without the transition layer, constant
+             diffusivities: plain chain -> flux-assembly kernel
+
+For each path it checks through the wrappers' launch counters (zeroed just
+before, read just after) that the steps really went through the kernels. It
+compares five steps with the kernels against five steps with the plain
+versions (and, in float32, both against the float64 run) on the core and
+gm_full paths, breaks a step's time down by part and by device kernel (the
+gm_full path from rest and from a stratified state with slopes for GM to
+work on), and compares the GPU path with the CPU path on a small grid. Every phase that
+fails makes the script exit non-zero; with no GPU it exits at once without a
+result. It takes no arguments: every run is the whole check.
 
 Output: one JSON object per line; the ``kernels`` line, then the card's name
 and power limit, then the final ``{"ok": true, "device": ...}`` line.
@@ -40,17 +51,22 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from pop2_tpu_torch import _cuda_build as cb  # noqa: E402
-from pop2_tpu_torch import clinic_cuda, tracer_cuda, tridiag_cuda  # noqa: E402
+from pop2_tpu_torch import baroclinic, clinic_cuda, gm, gm_chain_cuda  # noqa: E402
+from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, tracer_cuda  # noqa: E402
+from pop2_tpu_torch import tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
-from pop2_tpu_torch import pgrad  # noqa: E402
+from pop2_tpu_torch import pgrad, sample  # noqa: E402
 from pop2_tpu_torch.config import SolverConfig, get_config  # noqa: E402
-from pop2_tpu_torch.grid import build_grid  # noqa: E402
+from pop2_tpu_torch.grid import build_grid, grid_bc  # noqa: E402
 from pop2_tpu_torch.model import Model  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 20240613
-STEPS_F32 = 40   # Euler step, leapfrog steps, averaging steps at 17 and 34
-STEPS_F64 = 12
+# steps per path and dtype: an Euler step, leapfrog steps and (float32, from
+# step 17 on) an averaging step
+STEPS = {"core": {"float32": 20, "float64": 6},
+         "gm_full": {"float32": 20, "float64": 8},
+         "gm_flux": {"float32": 4, "float64": 3}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): device memory rate and
@@ -65,7 +81,53 @@ BAND = {
     ("clinic", torch.float32): 4e-5,
     ("thomas", torch.float64): 1e-12, ("tracer", torch.float64): 1e-12,
     ("clinic", torch.float64): 1e-12,
+    ("tracer_advdiff", torch.float32): 2e-5,
+    ("tracer_advdiff", torch.float64): 1e-12,
+    # flux assembly: GTK by scale; VDC_GM is held point by point (GM_VDC_RTOL)
+    ("gm_flux", torch.float32): 2e-5, ("gm_flux", torch.float64): 1e-12,
+    # chain: float32 within 5e-5 of scale or 5e-2 of the value (points riding
+    # the clamped-slope cancellation carry a local relative spread)
+    ("gm_chain", torch.float32): 5e-5, ("gm_chain", torch.float64): 1e-12,
 }
+GM_CHAIN_REL = {torch.float32: 5e-2, torch.float64: 0.0}
+GM_VDC_RTOL = {torch.float32: 4e-6, torch.float64: 1e-12}
+# slopes are held as every consumer sees them. All of them multiply a slope
+# by a taper that is zero from a geometric slope of TAPER_ZERO on, so a point
+# is "live" where at least one of the two versions gives a geometric slope
+# below TAPER_ZERO, and "dead" where both lie at or above it.
+#   live points: the geometric slopes, saturated at +-TAPER_ZERO, agree within
+#     rtol*|want| + atol*TAPER_ZERO except at no more than `cap` of the live
+#     points, within far*TAPER_ZERO except at no more than `far_cap` of them,
+#     and within loose*TAPER_ZERO everywhere. float32: the rtol and atol of
+#     the JAX package's test of its slope kernel; weakly stratified points,
+#     whose vertical density difference is the small difference of a thermal
+#     and a haline term, carry the rounding of the terms amplified without a
+#     bound (seen at 54 M live points: 1.7e-4 of them outside rtol + atol,
+#     2 to 3 points beyond 1e-2 of TAPER_ZERO, the worst at 6.8e-2), hence
+#     the two caps; the loose band is the relative one of the dead points.
+#     float64: no exceptions, 1e-9 of TAPER_ZERO (the same amplification:
+#     1.1e-10 seen).
+#   dead points: where the slope divides by the -1e-20 clamp (|S| > CLAMPED,
+#     riding a cancellation in the numerator) within 5 % of the value, the
+#     JAX package's allowance; elsewhere within dead_rel of the value; or
+#     both versions steeper than STEEP: the vertical density difference is
+#     within rounding of zero and the two evaluation orders land on different
+#     sides of the clamp (1e5 in one, 1e15 in the other).
+# N^2 has no taper: every point is live, the scale is the field's largest
+# value.
+SLOPE_BAND = {
+    torch.float32: dict(rtol=3e-4, atol=1e-6, cap=5e-4, far=1e-2,
+                        far_cap=1e-6, loose=0.5, dead_rel=0.5),
+    torch.float64: dict(rtol=1e-12, atol=1e-9, cap=0.0, far=1e-9,
+                        far_cap=0.0, loose=1e-9, dead_rel=1e-8)}
+N2_BAND = {
+    torch.float32: dict(rtol=3e-4, atol=1e-6, cap=5e-4, far=2e-5,
+                        far_cap=0.0, loose=2e-5),
+    torch.float64: dict(rtol=1e-12, atol=1e-12, cap=0.0, far=1e-12,
+                        far_cap=0.0, loose=1e-12)}
+CLAMPED = 1.0e8
+STEEP = 3.0        # geometric slope far beyond any that is not tapered away
+TAPER_ZERO = 0.18  # the notanh taper is zero from 0.6 of the slope limit on
 # whole-path bands, kernels against plain versions over 5 steps, relative to
 # each field's scale. float64: the parity band of the JAX package's step-5
 # test on every field. float32 is looser, by field: tracers get the band of
@@ -96,22 +158,43 @@ SOURCES = {
                "pop2_tpu/tracer_pallas.py:563"),
     "clinic": ("pop2_tpu_torch/csrc/clinic.cu",
                "pop2_tpu/clinic_pallas.py:461"),
+    "tracer_advdiff": ("pop2_tpu_torch/csrc/tracer.cu",
+                       "pop2_tpu/tracer_pallas.py:563"),
+    "gm_slope": ("pop2_tpu_torch/csrc/gm_slope.cu",
+                 "pop2_tpu/gm_slope_pallas.py:398"),
+    "gm_chain": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                 "pop2_tpu/gm_chain_pallas.py:612"),
+    "gm_flux": ("pop2_tpu_torch/csrc/gm_flux.cu",
+                "pop2_tpu/gm_pallas.py:358"),
 }
+# the path whose launch count each kernel's record carries
+PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
+           "tracer_advdiff": "gm_full", "gm_slope": "gm_full",
+           "gm_chain": "gm_full", "gm_flux": "gm_flux"}
+
+# the GM configurations over the dynamical core's menu
+GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
+               gm_kappa_isop_type="bfre", gm_kappa_thic_type="bfre",
+               gm_kappa_isop_deep=0.2, gm_kappa_thic_deep=0.1,
+               gm_ah=3.0e7, gm_ah_bolus=3.0e7, gm_ah_bkg_srfbl=3.0e7,
+               lsubmeso=False)
+GM_FLUX = dict(hmix_tracer="gm", gm_transition_layer=False, lsubmeso=False)
+PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def full_config(dtype: str):
-    """The dynamical-core slice at the production gx1v7 dimensions. Under a
+def full_config(dtype: str, path: str = "core"):
+    """One of the port's paths at the production gx1v7 dimensions. Under a
     float32 model the 2-D solve runs in float64, as the production preset
     does: in float32 the residual floor of the solve lies above the
     convergence criterion of 1e-13 and ChronGear runs to max_iterations
     every step (in the JAX package too)."""
     solver = SolverConfig(solve_dtype="float64")
     return get_config("test", nx=320, ny=384, km=60, vmix="rich",
-                      dtype=dtype, solver=solver)
+                      dtype=dtype, solver=solver, **PATHS[path])
 
 
 def time_ms(fn, n_warm: int, n_timed: int) -> float:
@@ -149,6 +232,126 @@ def compare(name, dtype, got, want):
             f"{name} {dtype}: kernel differs from plain version by "
             f"{worst_rel:.3e} of scale, band {band:.1e}")
     return worst_abs, worst_rel
+
+
+def _require_finite(name, dtype, tensors):
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name} {dtype}: kernel output not finite")
+
+
+def true_slope_factors(grid):
+    """Factors that turn the slope kernel's outputs into geometric slopes,
+    one per output: the quarter-cell slopes are differences across a face
+    over differences across a level (times dzw / dx or dy), the slope
+    measure is a geometric slope already, N^2 has none."""
+    vg = grid.vgrid
+    km = vg.dz.shape[0]
+    dzw = torch.stack([vg.dzw[0:km], vg.dzw[1:km + 1]])       # (half, km)
+    planes = torch.stack([dzw[h].reshape(km, 1, 1) / d
+                          for d in (grid.DXT, grid.DXT, grid.DYT, grid.DYT)
+                          for h in (0, 1)])
+    return planes, 1.0, None
+
+
+def compare_slopes(name, dtype, got, want, factors):
+    """The slope kernel's outputs against the plain version's at SLOPE_BAND
+    and N2_BAND (see there); ``factors`` turn each output into a geometric
+    slope (None: no taper applies, every point is live). Returns a record:
+    the largest error over the live points (of the saturated geometric
+    slope; for N^2 of the value) absolute and relative to its scale, the
+    live points outside rtol + atol and beyond the far band, and the dead
+    points by the rule that passed them."""
+    out = {"max_abs_err": 0.0, "rel_err": 0.0, "live_points": 0,
+           "live_points_beyond_rtol_atol": 0, "live_points_far": 0,
+           "clamped_points": 0,
+           "steep_points_passed": 0}
+    _require_finite(name, dtype, got)
+    for g, w, factor in zip(got, want, factors):
+        band = (N2_BAND if factor is None else SLOPE_BAND)[dtype]
+        if factor is None:
+            live = torch.ones_like(w, dtype=torch.bool)
+            scale = float(w.abs().max()) or 1.0
+            err, ref = (g - w).abs(), w.abs()
+        else:
+            gg, gw = g * factor, w * factor
+            live = (gg.abs() < TAPER_ZERO) | (gw.abs() < TAPER_ZERO)
+            scale = TAPER_ZERO
+            sat = gw.clamp(-scale, scale)
+            err, ref = (gg.clamp(-scale, scale) - sat).abs(), sat.abs()
+        n_live = int(live.sum())
+        beyond = int((live & (err > band["rtol"] * ref
+                              + band["atol"] * scale)).sum())
+        far = int((live & (err > band["far"] * scale)).sum())
+        worst = float(err[live].max())
+        if (beyond > band["cap"] * n_live or far > band["far_cap"] * n_live
+                or worst > band["loose"] * scale):
+            raise AssertionError(
+                f"{name} {dtype}: of {n_live} live points {beyond} off the "
+                f"plain version beyond rtol {band['rtol']:.0e} + "
+                f"{band['atol']:.0e} of scale {scale:.3e} (cap "
+                f"{band['cap']:.0e} of them), {far} beyond "
+                f"{band['far']:.0e} of scale (cap {band['far_cap']:.0e}), "
+                f"the worst by {worst / scale:.3e} of scale (band "
+                f"{band['loose']:.0e})")
+        out["live_points"] += n_live
+        out["live_points_beyond_rtol_atol"] += beyond
+        out["live_points_far"] += far
+        out["max_abs_err"] = max(out["max_abs_err"], worst)
+        out["rel_err"] = max(out["rel_err"], worst / scale)
+        if factor is None:
+            continue
+        aw, raw_err = w.abs(), (g - w).abs()
+        clamped = aw > CLAMPED
+        close = raw_err <= torch.where(clamped, 5e-2, band["dead_rel"]) * aw
+        steep = (gg.abs() > STEEP) & (gw.abs() > STEEP)
+        bad = ~live & ~close & ~steep
+        if bool(bad.any()):
+            shown = [(tuple(i.tolist()), float(g[tuple(i)]),
+                      float(w[tuple(i)])) for i in bad.nonzero()[:5]]
+            raise AssertionError(
+                f"{name} {dtype}: {int(bad.sum())} tapered-away points off "
+                f"the plain version; (index, kernel, plain): {shown}")
+        out["clamped_points"] += int(clamped.sum())
+        out["steep_points_passed"] += int((~live & ~close).sum())
+    return out
+
+
+def compare_chain(name, dtype, got, want):
+    """Each output within BAND of the field's scale or GM_CHAIN_REL of the
+    value. Returns (max abs err, worst err over scale, points excused by the
+    relative band)."""
+    band, rel = BAND[(name, dtype)], GM_CHAIN_REL[dtype]
+    worst_abs, worst_rel, excused = 0.0, 0.0, 0
+    _require_finite(name, dtype, got)
+    for g, w in zip(got, want):
+        aw = w.abs()
+        scale = float(aw.max()) or 1.0
+        err = (g - w).abs()
+        far = err > band * scale
+        if not bool((~far | (err <= rel * aw)).all()):
+            raise AssertionError(
+                f"{name} {dtype}: kernel differs from plain version by "
+                f"{float(err.max()) / scale:.3e} of scale, band {band:.1e} "
+                f"of scale or {rel:.0e} of the value")
+        excused += int(far.sum())
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_rel = max(worst_rel, float(err.max()) / scale)
+    return worst_abs, worst_rel, excused
+
+
+def compare_vdc(name, dtype, got, want):
+    """VDC_GM point by point at GM_VDC_RTOL; returns the worst relative
+    error."""
+    rtol = GM_VDC_RTOL[dtype]
+    _require_finite(name, dtype, [got])
+    err, aw = (got - want).abs(), want.abs()
+    if not bool((err <= rtol * aw).all()):
+        raise AssertionError(
+            f"{name} {dtype}: VDC_GM off the plain version by "
+            f"{float(torch.where(aw > 0, err / aw, err).max()):.3e}, rtol "
+            f"{rtol:.0e}")
+    return float(torch.where(aw > 0, err / aw, 0.0).max())
 
 
 def bound(nbytes: float, flops: float, dtype):
@@ -267,6 +470,234 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     return rec
 
 
+def ts_range_of(cfg, grid):
+    """The equation of state's per-level T/S range, as ``Model`` builds it."""
+    if cfg.state_range_opt != "enforce":
+        return None
+    return eos.build_ts_range(grid.vgrid.zt.double().cpu().numpy(),
+                              cfg.torch_dtype, grid.KMT.device)
+
+
+def searched_inputs(cfg, grid, sla, seed: int):
+    """(diabatic depth, slope measure) under which the transition-layer
+    search has its second and third sweeps at work in many columns, down to
+    the bottom: a seeded diabatic depth spread over the upper dozen levels
+    and slope measures scaled up a hundredfold. (With the first layer as
+    diabatic depth, all this slice has without a KPP boundary layer, the
+    search settles within the top few levels.)"""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    vg = grid.vgrid
+    lo, hi = 0.3 * float(vg.zw[0]), float(vg.zt[12])
+    dd = lo + (hi - lo) * torch.rand(cfg.ny, cfg.nx, generator=gen,
+                                     dtype=torch.float64)
+    return dd.to(device=sla.device, dtype=sla.dtype), sla * 100.0
+
+
+def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """The three GM kernels and the tracer kernel's mode without the
+    Laplacian, each against its plain version at the GM paths' shapes, with
+    times and bounds. Returns {name: record}."""
+    cfg = full_config(dtype_name, "gm_full")
+    dt = cfg.torch_dtype
+    grid = build_grid(cfg, DEV)
+    bc = grid_bc(cfg)
+    tr = ts_range_of(cfg, grid)
+    km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    tmix = sample.grid_tracers(cfg, grid, SEED + 2)
+    rec = {}
+
+    # ---- slopes: T, S in; 8 slopes, 2 slope measures, N^2 out --------------
+    args = (cfg, grid, bc, tr, tmix)
+    slp, sla, n2 = gm_slope_cuda.slopes(*args)
+    torch.cuda.synchronize()
+    want = gm_slope_cuda.slopes_plain(*args)
+    r = compare_slopes("gm_slope", dt, (slp, sla, n2), want,
+                       true_slope_factors(grid))
+    r["ms"] = time_ms(lambda: gm_slope_cuda.slopes(*args), 3, n_timed)
+    r["plain_ms"] = time_ms(lambda: gm_slope_cuda.slopes_plain(*args), 1, 3)
+    r["bound_ms"], r["bound_by"] = bound(
+        s * (13 * N + 2 * P + 19 * km) + 4 * P, N * 300, dt)
+    rec["gm_slope"] = r
+    del want
+
+    # ---- chain, the main path's instance: bfre, no diagnostic columns ------
+    # tmix, 8 slopes, 2 slope measures, the vertical profile in; GTK per
+    # tracer and VDC_GM out; six float and three int 2-D fields
+    rb = gm._rossby_radius(grid)
+    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla, rb)
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    # the plain search between the two kernels: as this path runs it, and
+    # with every level searched (host-bound loops of small launches)
+    deep = searched_inputs(cfg, grid, sla, SEED + 5)
+    emit({"phase": "gm_search_plain", "dtype": dtype_name,
+          "ms_first_layer_depth": time_ms(lambda: gm.transition_layer(
+              cfg, grid, gm.first_layer_depth(grid), sla, rb), 1, 5),
+          "deepest_level_first_layer_depth": int(tlt.k_level.max()),
+          "ms_searched_to_the_bottom": time_ms(lambda: gm.transition_layer(
+              cfg, grid, *deep, rb), 1, 5),
+          "deepest_level_searched": int(gm.transition_layer(
+              cfg, grid, *deep, rb).k_level.max())})
+    del deep
+    args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, False)
+    got = gm_chain_cuda.chain(*args)[:2]
+    torch.cuda.synchronize()
+    want = gm_chain_cuda.chain_plain(*args)[:2]
+    err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
+    del want
+    ms = time_ms(lambda: gm_chain_cuda.chain(*args), 3, n_timed)
+    plain_ms = time_ms(lambda: gm_chain_cuda.chain_plain(*args), 1, 3)
+    b_ms, b_by = bound(s * (N * (2 * nt + 12) + 6 * P + 8 * km) + 12 * P,
+                       N * (400 + 80 * nt), dt)
+    rec["gm_chain"] = {"max_abs_err": err_abs, "rel_err": err_rel,
+                       "points_within_relative_band_only": excused,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by,
+                       "transition_levels": sorted(
+                           set(tlt.k_level.flatten().tolist()))}
+    del slp, sla, n2, kv, tlt, got
+
+    # ---- flux assembly: the gm_flux path's instance (cancellation: the skew
+    # terms vanish and tz and the streamfunction are not read), and the skew
+    # instance beside it -------------------------------------------------
+    cfg_f = full_config(dtype_name, "gm_flux")
+    f = sample.flux_operands(cfg_f, grid, bc, tr, tmix)
+    r = {}
+    for cancellation, tag, n_in in ((True, "", 2 * nt + 12),
+                                    (False, "_skew", 3 * nt + 20)):
+        args = (cfg_f, grid, bc) + f + (cancellation,)
+        got = gm_cuda.flux_assembly(*args)
+        torch.cuda.synchronize()
+        want = gm_cuda.flux_assembly_plain(*args)
+        err_abs, err_rel = compare("gm_flux", dt, got[:1], want[:1])
+        vdc_rel = compare_vdc("gm_flux", dt, got[1], want[1])
+        del got, want
+        ms = time_ms(lambda: gm_cuda.flux_assembly(*args), 3, n_timed)
+        plain_ms = time_ms(lambda: gm_cuda.flux_assembly_plain(*args), 1, 3)
+        b_ms, b_by = bound(s * (N * (n_in + nt + 1) + 3 * P + 3 * km)
+                           + 4 * P, N * (60 + 60 * nt), dt)
+        r.update({"max_abs_err" + tag: err_abs, "rel_err" + tag: err_rel,
+                  "vdc_rel_err" + tag: vdc_rel, "ms" + tag: ms,
+                  "plain_ms" + tag: plain_ms, "bound_ms" + tag: b_ms,
+                  "bound_by" + tag: b_by})
+    rec["gm_flux"] = r
+    del f
+
+    # ---- tracer tendency without the Laplacian: u, v, vdc (2), trcr, told
+    # and the output per tracer; tmix is not read ----------------------------
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 3)
+    f = random_fields(cfg, grid, gen)
+    args = (cfg, grid, f["ucur"], f["vcur"], f["trcr"], f["told"], f["told"],
+            f["vdc"], f["stf"], f["dh"])
+    got = tracer_cuda.tracer_tendency(*args)
+    torch.cuda.synchronize()
+    want = tracer_cuda.tracer_tendency_plain(*args)
+    err_abs, err_rel = compare("tracer_advdiff", dt, [got], [want])
+    ms = time_ms(lambda: tracer_cuda.tracer_tendency(*args), 3, n_timed)
+    plain_ms = time_ms(lambda: tracer_cuda.tracer_tendency_plain(*args), 1, 3)
+    b_ms, b_by = bound(s * (N * (4 + 2 * nt) + P * (nt + 8) + 4 * km) + 4 * P,
+                       N * (30 + 35 * nt), dt)
+    rec["tracer_advdiff"] = {"max_abs_err": err_abs, "rel_err": err_rel,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
+    return rec
+
+
+def gm_other_modes_phase(dtype_name: str):
+    """The modes of the GM kernels that the main paths' configurations do not
+    select: closed east-west boundary, the diagnostic columns, constant
+    diffusivities, unequal slope limits (with the bottom-cell diffusion floor
+    and the diffusivity-valued surface diffusion), a transition layer that
+    the search extended, the flux assembly's skew branch, the tracer
+    kernel's rigid lid without the Laplacian. Each against its plain
+    version at full size. Not timed."""
+    worst = {}
+    variants = {
+        "bfre": {},
+        "const_slm": dict(gm_kappa_isop_type="const",
+                          gm_kappa_thic_type="const", gm_slm_b=0.25,
+                          gm_ah_bolus=2.0e7, gm_ah_bkg_bottom=1.0e6,
+                          gm_use_const_ah_bkg_srfbl=False),
+    }
+    for ew in ("cyclic", "closed"):
+        base = full_config(dtype_name, "gm_full").with_(ew_boundary=ew)
+        dt = base.torch_dtype
+        grid = build_grid(base, DEV)
+        bc = grid_bc(base)
+        tr = ts_range_of(base, grid)
+        tmix = sample.grid_tracers(base, grid, SEED + 4)
+        got = gm_slope_cuda.slopes(base, grid, bc, tr, tmix)
+        torch.cuda.synchronize()
+        want = gm_slope_cuda.slopes_plain(base, grid, bc, tr, tmix)
+        r = compare_slopes("gm_slope", dt, got, want,
+                           true_slope_factors(grid))
+        worst[f"slope_{ew}"] = r["rel_err"]
+        worst[f"slope_{ew}_steep_points_passed"] = r["steep_points_passed"]
+        slp, sla, n2 = got
+        del want
+        tlt = gm.transition_layer(
+            base, grid, *searched_inputs(base, grid, sla, SEED + 5),
+            gm._rossby_radius(grid))
+        for label, over in variants.items():
+            cfg = base.with_(**over)
+            kv = (gm.kappa_vertical_bfre(cfg, grid, tr, tmix,
+                                         tlt.interior_depth, n2=n2)
+                  if cfg.gm_kappa_isop_type == "bfre"
+                  else torch.ones_like(n2))
+            args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, True)
+            got = gm_chain_cuda.chain(*args)
+            torch.cuda.synchronize()
+            want = gm_chain_cuda.chain_plain(*args)
+            worst[f"chain_diags_searched_{label}_{ew}"] = compare_chain(
+                "gm_chain", dt, (got[0], got[1], *got[2]),
+                (want[0], want[1], *want[2]))[1]
+            del got, want, kv
+        worst[f"chain_searched_levels_{ew}"] = len(
+            set(tlt.k_level.flatten().tolist()))
+        del slp, sla, n2, tlt
+        if ew == "cyclic":
+            continue  # timed in the kernel phase
+        cfg_f = full_config(dtype_name, "gm_flux").with_(ew_boundary=ew)
+        f = sample.flux_operands(cfg_f, grid, bc, tr, tmix)
+        for cancellation in (True, False):
+            args = (cfg_f, grid, bc) + f + (cancellation,)
+            got = gm_cuda.flux_assembly(*args)
+            torch.cuda.synchronize()
+            want = gm_cuda.flux_assembly_plain(*args)
+            branch = "cancel" if cancellation else "skew"
+            worst[f"flux_{branch}_{ew}"] = compare("gm_flux", dt, got[:1],
+                                                   want[:1])[1]
+            worst[f"flux_{branch}_{ew}_vdc"] = compare_vdc(
+                "gm_flux", dt, got[1], want[1])
+            del got, want
+        del f
+    for ew in ("cyclic", "closed"):
+        cfg = full_config(dtype_name, "gm_full").with_(ew_boundary=ew,
+                                                       sfc_layer="rigid")
+        grid = build_grid(cfg, DEV)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 6)
+        f = random_fields(cfg, grid, gen)
+        args = (cfg, grid, f["ucur"], f["vcur"], f["trcr"], f["tmix"],
+                f["told"], f["vdc"], f["stf"], f["dh"])
+        got = tracer_cuda.tracer_tendency(*args)
+        torch.cuda.synchronize()
+        want = tracer_cuda.tracer_tendency_plain(*args)
+        worst[f"tracer_advdiff_{ew}_rigid"] = compare(
+            "tracer_advdiff", cfg.torch_dtype, [got], [want])[1]
+    dt = full_config(dtype_name).torch_dtype
+    emit({"phase": "gm_other_modes", "dtype": dtype_name,
+          "rel_err_of_scale": worst,
+          "band": {"slope": SLOPE_BAND[dt], "n2": N2_BAND[dt],
+                   "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]],
+                   "flux": BAND[("gm_flux", dt)],
+                   "flux_vdc_rtol": GM_VDC_RTOL[dt],
+                   "tracer_advdiff": BAND[("tracer_advdiff", dt)]}})
+
+
 def other_modes_phase(dtype_name: str):
     """The modes of the tracer and momentum kernels that the main path's
     configuration does not select but the kernels carry (closed east-west
@@ -310,24 +741,43 @@ def other_modes_phase(dtype_name: str):
                    "clinic": BAND[("clinic", cfg.torch_dtype)]}})
 
 
+COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
+            "clinic": clinic_cuda, "gm_slope": gm_slope_cuda,
+            "gm_chain": gm_chain_cuda, "gm_flux": gm_cuda}
+
+
 def reset_counts():
-    tridiag_cuda.launches = 0
-    tracer_cuda.launches = 0
-    clinic_cuda.launches = 0
+    for mod in COUNTERS.values():
+        mod.launches = 0
 
 
 def read_counts():
-    return {"thomas": tridiag_cuda.launches, "tracer": tracer_cuda.launches,
-            "clinic": clinic_cuda.launches}
+    return {name: mod.launches for name, mod in COUNTERS.items()}
 
 
-def path_phase(dtype_name: str, nsteps: int):
-    """Drive Model.advance for nsteps at full size; the launch counters are
-    zeroed just before and read just after."""
-    cfg = full_config(dtype_name)
+def expected_counts(path: str, nsteps: int):
+    """Launches of ``nsteps`` steps from the initial state: the implicit
+    solves take 3 launches on the Euler step and 5 on a leapfrog step; every
+    other kernel of a path is launched once a step."""
+    once = {"core": ("tracer", "clinic"),
+            "gm_full": ("tracer", "clinic", "gm_slope", "gm_chain"),
+            "gm_flux": ("tracer", "clinic", "gm_flux")}[path]
+    expect = dict.fromkeys(COUNTERS, 0)
+    expect.update(dict.fromkeys(once, nsteps))
+    expect["thomas"] = 3 + 5 * (nsteps - 1)
+    return expect
+
+
+def path_phase(path: str, dtype_name: str):
+    """Drive Model.advance at full size from the model's own initial state
+    (rest, the Levitus profile); the launch counters are zeroed just before
+    and read just after."""
+    nsteps = STEPS[path][dtype_name]
+    cfg = full_config(dtype_name, path)
     model = Model(cfg)  # default device: the GPU
     state = model.initial_state()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     iters = []
     diag_step4 = None
@@ -342,19 +792,19 @@ def path_phase(dtype_name: str, nsteps: int):
     counts = read_counts()
 
     n_avg = sum(model.step_flags(n)[1] for n in range(1, nsteps + 1))
-    expect = {"thomas": 3 + 5 * (nsteps - 1), "tracer": nsteps,
-              "clinic": nsteps}
+    expect = expected_counts(path, nsteps)
     if counts != expect:
-        raise AssertionError(f"launch counts {counts}, expected {expect}")
+        raise AssertionError(f"{path}: launch counts {counts}, expected "
+                             f"{expect}")
     for name, t in state.leaves():
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{dtype_name} path: {name} not finite")
+            raise AssertionError(f"{path} {dtype_name}: {name} not finite")
     diag = model.diagnostics(state)
     model.check_ke(state)
     if not all(math.isfinite(v) for v in diag.values()):
         raise AssertionError(f"diagnostics not finite: {diag}")
     points = cfg.nx * cfg.ny * cfg.km
-    emit({"phase": "path", "dtype": dtype_name,
+    emit({"phase": "path", "path": path, "dtype": dtype_name,
           "dims": [cfg.nx, cfg.ny, cfg.km], "nt": cfg.nt, "steps": nsteps,
           "averaging_steps": n_avg, "seconds": seconds,
           "steps_per_s": nsteps / seconds,
@@ -365,9 +815,21 @@ def path_phase(dtype_name: str, nsteps: int):
     return counts
 
 
-def _run_steps(cfg, nsteps, device=DEV):
+def stratified_state(model, seed: int):
+    """The model's state of rest with the stratified, horizontally varying
+    T and S of ``stratified_tracers`` at a fifth of its noise in place of the
+    horizontally uniform profile, under which GM has nothing to mix."""
+    cfg, grid = model.cfg, model.grid
+    tracers = sample.grid_tracers(cfg, grid, seed, noise=0.02)
+    rho = baroclinic._masked_density(cfg, grid, model.ts_range, tracers)
+    return model.initial_state().replace(
+        tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
+
+
+def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False):
     model = Model(cfg, device=device)
-    state = model.initial_state()
+    state = (stratified_state(model, SEED + 7) if stratified
+             else model.initial_state())
     iters = []
     for _ in range(nsteps):
         state, diags = model.advance(state)
@@ -388,43 +850,53 @@ def _state_diffs(a, b):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside the block the three wrappers are replaced by their plain
-    PyTorch versions, so a whole run on the card can be compared with and
-    without the kernels. The package itself has no such switch: its wrappers
-    choose by the tensor's device alone."""
-    saved = (tridiag_cuda.thomas, tracer_cuda.tracer_tendency,
-             clinic_cuda.clinic_rhs_fields)
-    tridiag_cuda.thomas = tridiag_cuda.thomas_plain
-    tracer_cuda.tracer_tendency = tracer_cuda.tracer_tendency_plain
-    clinic_cuda.clinic_rhs_fields = clinic_cuda.clinic_rhs_plain
+    """Inside the block the wrappers are replaced by their plain PyTorch
+    versions, so a whole run on the card can be compared with and without
+    the kernels. The package itself has no such switch: its wrappers choose
+    by the tensor's device alone."""
+    swaps = [(tridiag_cuda, "thomas", tridiag_cuda.thomas_plain),
+             (tracer_cuda, "tracer_tendency",
+              tracer_cuda.tracer_tendency_plain),
+             (clinic_cuda, "clinic_rhs_fields", clinic_cuda.clinic_rhs_plain),
+             (gm_slope_cuda, "slopes", gm_slope_cuda.slopes_plain),
+             (gm_chain_cuda, "chain", gm_chain_cuda.chain_plain),
+             (gm, "flux_assembly", gm_cuda.flux_assembly_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (tridiag_cuda.thomas, tracer_cuda.tracer_tendency,
-         clinic_cuda.clinic_rhs_fields) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def path_vs_plain_phase(nsteps: int = 5):
+def path_vs_plain_phase(path: str, nsteps: int = 5):
     """nsteps with the kernels against nsteps with the plain versions forced,
     same initial state, at full size: float64 first, then float32, where both
     runs are also held against the float64 run (the witness that their
-    difference is float32 rounding and not a fault of a kernel)."""
+    difference is float32 rounding and not a fault of a kernel). The GM path
+    starts from the stratified state, so that GM has slopes to work on."""
     ref = None
+    stratified = path != "core"
+    on_path = [k for k, v in expected_counts(path, nsteps).items() if v]
     for dtype_name in ("float64", "float32"):
-        cfg = full_config(dtype_name)
+        cfg = full_config(dtype_name, path)
         reset_counts()
-        s_kernel, it_k = _run_steps(cfg, nsteps)
+        s_kernel, it_k = _run_steps(cfg, nsteps, stratified=stratified)
         n_kernel = read_counts()
         reset_counts()
         with plain_versions():
-            s_plain, it_p = _run_steps(cfg, nsteps)
-        if any(read_counts().values()) or not all(n_kernel.values()):
+            s_plain, it_p = _run_steps(cfg, nsteps, stratified=stratified)
+        if any(read_counts().values()) or not all(n_kernel[k]
+                                                  for k in on_path):
             raise AssertionError("the comparison did not separate the "
                                  "kernel run from the plain run")
         diffs = _state_diffs(s_kernel, s_plain)
         band = PATH_BAND[cfg.torch_dtype]
-        out = {"phase": "path_vs_plain", "dtype": dtype_name,
-               "steps": nsteps, "rel_diff": diffs, "band": band,
+        out = {"phase": "path_vs_plain", "path": path, "dtype": dtype_name,
+               "steps": nsteps, "stratified_start": stratified,
+               "rel_diff": diffs, "band": band,
                "solver_iters_kernel": it_k, "solver_iters_plain": it_p}
         broken = {k: v for k, v in diffs.items() if not v <= band[k]}
         if ref is None:
@@ -438,29 +910,46 @@ def path_vs_plain_phase(nsteps: int = 5):
                            if not d_k[k] <= WITNESS_RATIO * d_p[k]})
         emit(out)
         if broken:
-            raise AssertionError(f"{dtype_name} path with kernels differs "
-                                 f"from the plain path beyond its band: "
-                                 f"{broken}")
+            raise AssertionError(f"{path} {dtype_name} path with kernels "
+                                 f"differs from the plain path beyond its "
+                                 f"band: {broken}")
 
 
-def breakdown_phase(dtype_name: str, nsteps: int = 6, nprof: int = 2):
-    """Where a leapfrog step's time goes at full size. First the three parts
-    of ``step.step`` by the host clock with a synchronize around each (so the
-    parts do not overlap and their sum exceeds an unsynchronized step
-    slightly); then ``nprof`` steps under ``torch.profiler`` for the device's
-    busy time and the kernels that hold it. The profiler adds host time to
-    every launch, so the busy share of its own window is a lower bound; the
-    device time of the profiled steps over the unprofiled step time is the
-    estimate of the share in normal running."""
+def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
+                    nsteps: int = 6, nprof: int = 2):
+    """Where a leapfrog step's time goes at full size, from the model's own
+    initial state (rest, horizontally uniform: GM has no slopes to work on
+    and its transition-layer search ends after a few levels) or from the
+    stratified state, where the search runs as deep as the slopes carry the
+    layer (the deepest level it reached is reported). First the three parts
+    of ``step.step`` (and, on the gm_full path, the four parts of the GM
+    tendency inside the baroclinic driver) by the host clock with a
+    synchronize around each (so the parts do not overlap and their sum
+    exceeds an unsynchronized step slightly); then ``nprof`` steps under
+    ``torch.profiler`` for the device's busy time and the kernels that hold
+    it. The profiler adds host time to every launch, so the busy share of its
+    own window is a lower bound; the device time of the profiled steps over
+    the unprofiled step time is the estimate of the share in normal
+    running."""
     from torch.profiler import ProfilerActivity, profile
 
-    from pop2_tpu_torch import baroclinic, barotropic
+    from pop2_tpu_torch import barotropic
 
-    cfg = full_config(dtype_name)
+    cfg = full_config(dtype_name, path)
     model = Model(cfg)
-    state = model.run(model.initial_state(), 3)  # past the Euler step
-    parts = {"baroclinic_driver": 0.0, "barotropic_driver": 0.0,
-             "correct_adjust": 0.0}
+    start = (stratified_state(model, SEED + 7) if stratified
+             else model.initial_state())
+    state = model.run(start, 3)  # past the Euler step
+    spans = [("baroclinic_driver", baroclinic, "driver"),
+             ("barotropic_driver", barotropic, "driver"),
+             ("correct_adjust", baroclinic, "correct_adjust")]
+    if path == "gm_full":
+        spans += [("gm_slopes_kernel", gm_slope_cuda, "slopes"),
+                  ("gm_transition_layer_plain", gm, "transition_layer"),
+                  ("gm_bfre_profile_plain", gm, "kappa_vertical_bfre"),
+                  ("gm_chain_kernel", gm_chain_cuda, "chain")]
+    parts = {name: 0.0 for name, _, _ in spans}
+    deepest = [0]
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
@@ -469,13 +958,14 @@ def breakdown_phase(dtype_name: str, nsteps: int = 6, nprof: int = 2):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             parts[name] += time.perf_counter() - t0
+            if isinstance(out, gm.TLT):  # read outside the timed span
+                deepest[0] = max(deepest[0], int(out.k_level.max()))
             return out
         return wrapper
 
-    saved = (baroclinic.driver, barotropic.driver, baroclinic.correct_adjust)
-    baroclinic.driver = timed("baroclinic_driver", saved[0])
-    barotropic.driver = timed("barotropic_driver", saved[1])
-    baroclinic.correct_adjust = timed("correct_adjust", saved[2])
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in spans]
+    for (name, mod, attr), (_, _, fn) in zip(spans, saved):
+        setattr(mod, attr, timed(name, fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -486,8 +976,8 @@ def breakdown_phase(dtype_name: str, nsteps: int = 6, nprof: int = 2):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        (baroclinic.driver, barotropic.driver,
-         baroclinic.correct_adjust) = saved
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -503,7 +993,9 @@ def breakdown_phase(dtype_name: str, nsteps: int = 6, nprof: int = 2):
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
     busy_us = sum(ev.self_device_time_total for ev in kernels)
-    emit({"phase": "breakdown", "dtype": dtype_name, "steps": nsteps,
+    emit({"phase": "breakdown", "path": path, "dtype": dtype_name,
+          "start": "stratified" if stratified else "rest", "steps": nsteps,
+          "transition_layer_deepest_level": deepest[0] or None,
           "ms_per_step": total / nsteps * 1e3,
           "ms_per_step_by_part": {k: v / nsteps * 1e3
                                   for k, v in parts.items()},
@@ -521,16 +1013,24 @@ def breakdown_phase(dtype_name: str, nsteps: int = 6, nprof: int = 2):
                ev.count // nprof] for ev in kernels[:10]]})
 
 
-def small_vs_cpu_phase(nsteps: int = 5):
+def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
-    small 'mini' grid in float64: the parity band of the step-5 test."""
-    cfg = get_config("mini")
-    s_gpu, it_g = _run_steps(cfg, nsteps, DEV)
-    s_cpu, it_c = _run_steps(cfg, nsteps, torch.device("cpu"))
+    small 'mini' grid in float64: the parity band of the step-5 test. The GM
+    path starts from the stratified state."""
+    cfg = get_config("mini", **PATHS[path])
+    stratified = path != "core"
+    reset_counts()
+    s_gpu, it_g = _run_steps(cfg, nsteps, DEV, stratified)
+    counts = read_counts()
+    s_cpu, it_c = _run_steps(cfg, nsteps, torch.device("cpu"), stratified)
+    if read_counts() != counts:
+        raise AssertionError("the CPU run launched a kernel")
     diffs = _state_diffs(s_gpu, s_cpu)
-    emit({"phase": "small_vs_cpu", "dims": [cfg.nx, cfg.ny, cfg.km],
-          "dtype": cfg.dtype, "steps": nsteps, "rel_diff": diffs,
-          "band": 1e-7, "solver_iters_gpu": it_g, "solver_iters_cpu": it_c})
+    emit({"phase": "small_vs_cpu", "path": path,
+          "dims": [cfg.nx, cfg.ny, cfg.km], "dtype": cfg.dtype,
+          "steps": nsteps, "stratified_start": stratified, "rel_diff": diffs,
+          "band": 1e-7, "launches_gpu": counts, "solver_iters_gpu": it_g,
+          "solver_iters_cpu": it_c})
     if not max(diffs.values()) <= 1e-7:
         raise AssertionError(f"GPU and CPU paths differ: {diffs}")
 
@@ -540,8 +1040,8 @@ def ptxas_summary():
     each kernel, from what nvcc printed when the library was built."""
     worst, entry = {}, None
     for line in cb.build_log().splitlines():
-        m = re.search(r"entry function '\w*?(thomas|tracer|clinic)_kernel",
-                      line)
+        m = re.search(r"entry function '\w*?(thomas|tracer|clinic|gm_slope|"
+                      r"gm_chain|gm_flux)_kernel", line)
         if m:
             entry = worst.setdefault(m.group(1), [0, 0])
         for slot, pattern in ((0, r"Used (\d+) registers"),
@@ -572,25 +1072,34 @@ def main():
     records = {}
     for dtype_name in ("float32", "float64"):
         records[dtype_name] = kernel_phase(dtype_name)
+        records[dtype_name].update(gm_kernel_phase(dtype_name))
         other_modes_phase(dtype_name)
-    launches = {"float32": path_phase("float32", STEPS_F32)}
-    path_vs_plain_phase()
-    launches["float64"] = path_phase("float64", STEPS_F64)
-    breakdown_phase("float32")
-    small_vs_cpu_phase()
+        gm_other_modes_phase(dtype_name)
+    launches = {}
+    for path in PATHS:
+        for dtype_name in ("float32", "float64"):
+            launches[(path, dtype_name)] = path_phase(path, dtype_name)
+    for path in ("core", "gm_full"):
+        path_vs_plain_phase(path)
+        breakdown_phase(path, "float32")
+        if path == "gm_full":
+            breakdown_phase(path, "float32", stratified=True)
+        small_vs_cpu_phase(path)
 
     kernels = []
     for dtype_name, recs in records.items():
         for name, r in recs.items():
             source, replaces = SOURCES[name]
-            n = launches[dtype_name][name]
+            counter = "tracer" if name == "tracer_advdiff" else name
+            n = launches[(PATH_OF[name], dtype_name)][counter]
             if not n:
                 raise AssertionError(
-                    f"{name} ({dtype_name}) was not launched on the main "
-                    "path")
+                    f"{name} ({dtype_name}) was not launched on the "
+                    f"{PATH_OF[name]} path")
             kernels.append({"name": f"{name}_{dtype_name}", "route": "cuda",
                             "source": source, "replaces": replaces,
-                            "launches": n, **r, "library_ms": None})
+                            "path": PATH_OF[name], "launches": n, **r,
+                            "library_ms": None})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

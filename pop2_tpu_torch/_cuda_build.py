@@ -26,8 +26,9 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("thomas.cu", "tracer.cu", "clinic.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("thomas.cu", "tracer.cu", "clinic.cu", "gm_slope.cu",
+           "gm_chain.cu", "gm_flux.cu")
+HEADERS = ("common.cuh", "gm_flux.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,12 +95,20 @@ def _declare(lib) -> None:
                   ctypes.c_double)
     lib.pop2_thomas.argtypes = [i, i, i, l] + [p] * 7
     lib.pop2_thomas.restype = i
-    lib.pop2_tracer.argtypes = [i] * 7 + [p] * 20 + [d, p, p]
+    lib.pop2_tracer.argtypes = [i] * 8 + [p] * 20 + [d, p, p]
     lib.pop2_tracer.restype = i
     lib.pop2_clinic.argtypes = [i] * 5 + [p] * 17 + [d] * 4 + [p] * 5
     lib.pop2_clinic.restype = i
-    lib.pop2_thomas_max_levels.restype = i
-    lib.pop2_clinic_g2d_count.restype = i
+    lib.pop2_gm_slopes.argtypes = [i] * 5 + [d] + [p] * 9
+    lib.pop2_gm_slopes.restype = i
+    lib.pop2_gm_chain.argtypes = [i] * 8 + [p] * 19
+    lib.pop2_gm_chain.restype = i
+    lib.pop2_gm_flux.argtypes = [i] * 7 + [p] * 17
+    lib.pop2_gm_flux.restype = i
+    for count in ("pop2_thomas_max_levels", "pop2_clinic_g2d_count",
+                  "pop2_gm_slope_coef_rows", "pop2_gm_chain_lev_rows",
+                  "pop2_gm_flux_max_tracers"):
+        getattr(lib, count).restype = i
 
 
 def lib():

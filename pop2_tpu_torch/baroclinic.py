@@ -4,27 +4,29 @@ Reference: ``source/baroclinic.F90`` — ``baroclinic_driver`` (:578, tracer and
 momentum block loops), ``clinic`` (:1635, Fx/Fy assembly), ``tracer_update``
 (:1902), ``baroclinic_correct_adjust`` (:1217). The reference's per-block,
 per-level loops with carried vertical state are whole-field tensor
-expressions here, except the three hot pieces that are hand-written CUDA
-kernels on the GPU: the tracer tendency (``tracer_cuda``), the momentum
-forcing (``clinic_cuda``) and every implicit vertical solve
-(``tridiag_cuda``).
+expressions here, except the hot pieces that are hand-written CUDA kernels
+on the GPU: the tracer tendency (``tracer_cuda``), the momentum forcing
+(``clinic_cuda``), every implicit vertical solve (``tridiag_cuda``) and,
+under ``hmix_tracer='gm'``, the GM/Redi mixing (``gm_slope_cuda`` +
+``gm_chain_cuda``, or ``gm_cuda`` at the end of ``gm.hdifft_gm``).
 
 Time-mixing: leapfrog with Euler-forward first step and time-averaging.
 
-This slice carries the dynamical core only. The branches of the JAX package's
-driver for GM, submesoscale, KPP sources, shortwave absorption, passive
-tracers, interior restoring, estuaries, overflows, geothermal flux and frazil
-ice are left out; ``supported.check_supported`` refuses the config switches
-that would select them.
+The port carries the dynamical core and GM. The branches of the JAX
+package's driver for the submesoscale scheme, KPP sources, shortwave
+absorption, passive tracers, interior restoring, estuaries, overflows,
+geothermal flux and frazil ice are left out; ``supported.check_supported``
+refuses the config switches that would select them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from pop2_tpu_torch import clinic_cuda, eos, tracer_cuda, tridiag, vmix
+from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, tracer_cuda
+from pop2_tpu_torch import tridiag, vmix
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -42,6 +44,7 @@ class BaroclinicOut(NamedTuple):
     zy: torch.Tensor
     vdc: torch.Tensor         # (2, km, ny, nx) diffusivity used, for corrector
     vvc: torch.Tensor         # (km, ny, nx) viscosity used
+    gm: Optional[gm.GMOut] = None  # GM tendency and diagnostics, if GM ran
 
 
 def _timestep_arrays(cfg: ModelConfig, leapfrog: bool, device):
@@ -65,7 +68,7 @@ def _masked_density(cfg, grid, ts_range, tracer):
 
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
            state: State, forcing: Forcing, dh, dhu,
-           leapfrog: bool) -> BaroclinicOut:
+           leapfrog: bool, want_gm_diags: bool = True) -> BaroclinicOut:
     c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     varthick = cfg.sfc_layer == "varthick"
@@ -83,10 +86,23 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix)
 
     # ---- tracer tendencies (tracer_update, source/baroclinic.F90:1902):
-    # hdifft + comp_flux_vel/advt + vdifft fused in one kernel
+    # hdifft + comp_flux_vel/advt + vdifft fused in one kernel. Under GM the
+    # horizontal mixing is the GM kernels', its |S|^2 vertical diffusivity
+    # joins the implicit solves (source/hmix_gm.F90:1741-1748), and the
+    # tracer kernel runs without the Laplacian
+    gm_out = None
+    if cfg.hmix_tracer == "gm":
+        if gm_chain_cuda.available(cfg, grid):
+            gm_out = gm_chain_cuda.hdifft_chain(
+                cfg, grid, bc, ts_range, tmix, want_diags=want_gm_diags)
+        else:
+            gm_out = gm.hdifft_gm(cfg, grid, bc, ts_range, tmix)
+        coeffs = coeffs._replace(vdc=coeffs.vdc + gm_out.vdc_gm[None])
     ft = tracer_cuda.tracer_tendency(
         cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
         state.tracer_old, coeffs.vdc, forcing.stf, dh)
+    if gm_out is not None:
+        ft += gm_out.gtk  # ft is this step's own tensor
     if varthick:
         # freshwater tracer flux into the surface layer
         # (source/baroclinic.F90:2128-2138); ft is this step's own tensor
@@ -164,7 +180,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     return BaroclinicOut(tracer_new=tracer_new, u_new=u_new, v_new=v_new,
                          rho_new=rho_new, zx=zx, zy=zy, vdc=coeffs.vdc,
-                         vvc=coeffs.vvc)
+                         vvc=coeffs.vvc, gm=gm_out)
 
 
 def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,

@@ -1,0 +1,283 @@
+// GM/Redi flux assembly of one water column (source/hmix_gm.F90:1720-2080):
+// the per-face diffusive + skew fluxes, the vertical flux with its carry down
+// the column, their divergence GTK for every tracer, and VDC_GM, the |S|^2
+// vertical diffusivity handed to the implicit solve.
+//
+// Written once and used by two kernels. `gm_flux.cu` feeds it precomputed
+// tracer differences and the slope / streamfunction / diffusivity fields;
+// `gm_chain.cu` feeds it tracer differences formed from the tracer columns
+// and weights it derives from the slope kernel's output. The two differ only
+// in the providers they hand to `gm_flux_column`:
+//
+//   weights provider  W:  own(k, GmWeights*)               this column
+//                         face(nb, k, &weff, &vt, &vb)     neighbour nb: its
+//                             effective diffusivity and the skew weights of
+//                             the face it shares with this column
+//   difference provider D: tx_c/tx_w/ty_c/ty_s(n, k), tz(n, k, col)
+//
+// One thread owns a column. The east- and north-face fluxes need the
+// neighbour's weights, and the divergence needs the west and south
+// neighbours' fluxes, so a thread evaluates the fluxes through all four of
+// its faces itself from the weights of its 4-neighbourhood: redundant
+// arithmetic, nothing exchanged between threads, no intermediate in device
+// memory. The vertical flux through a level's bottom needs the top-half
+// weights of the level below: the column's own weights are computed one level
+// ahead and handed down.
+#pragma once
+
+#include "common.cuh"
+
+namespace pop2 {
+
+constexpr int kMaxTracers = 16;  // per-thread vertical-flux carries
+enum { kC = 0, kE = 1, kW = 2, kN = 3, kS = 4 };  // column of the stencil
+enum { fE = 0, fW = 1, fN = 2, fS = 3 };          // face of a cell
+
+// The face of neighbour `col` that touches the centre column.
+__device__ __forceinline__ int facing(int col) {
+  return col == kE ? fW : col == kW ? fE : col == kN ? fS : fN;
+}
+
+// Offsets of the five columns of the stencil in a (ny, nx) plane, and which
+// exist (a closed edge cuts a neighbour off: everything read there is zero).
+struct Stencil {
+  long off[5];
+  bool valid[5];
+};
+
+__device__ __forceinline__ Stencil make_stencil(const Column& c, int nx) {
+  Stencil s;
+  s.off[kC] = (long)c.j * nx + c.i;
+  s.off[kE] = (long)c.j * nx + c.ie;
+  s.off[kW] = (long)c.j * nx + c.iw;
+  s.off[kN] = (long)c.jn * nx + c.i;
+  s.off[kS] = (long)c.js * nx + c.i;
+  s.valid[kC] = true;
+  s.valid[kE] = c.ve;
+  s.valid[kW] = c.vw;
+  s.valid[kN] = c.vn;
+  s.valid[kS] = c.vs;
+  return s;
+}
+
+// 2-D operands of a column: bottom levels of the stencil and the metric
+// ratios hyx = HTE/HUS (own and west), hxy = HTN/HUW (own and south).
+template <typename T>
+struct GmMetrics {
+  int kmt[5];
+  T hyx, hyxw, hxy, hxys, tarea_r;
+};
+
+template <typename T>
+__device__ __forceinline__ GmMetrics<T> load_metrics(
+    const Stencil& s, const int* __restrict__ kmt, const T* __restrict__ hyx,
+    const T* __restrict__ hxy, const T* __restrict__ tarea_r) {
+  GmMetrics<T> m;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) m.kmt[c] = s.valid[c] ? kmt[s.off[c]] : 0;
+  m.hyx = hyx[s.off[kC]];
+  m.hyxw = ldz(hyx, s.off[kW], s.valid[kW]);
+  m.hxy = hxy[s.off[kC]];
+  m.hxys = ldz(hxy, s.off[kS], s.valid[kS]);
+  m.tarea_r = tarea_r[s.off[kC]];
+  return m;
+}
+
+// Tracer-independent weights of one column at one level; faces e, w, n, s.
+template <typename T>
+struct GmWeights {
+  T weff;          // kappa_isop + hor_diff, top half + bottom half
+  T vt[4], vb[4];  // kappa_isop*slope*dz - streamfunction, top / bottom half
+  T a[4];          // dz*kappa_isop*slope + streamfunction, bottom half
+  T b[4];          // the same of the top half (used by the level above)
+  T part_a;        // dz/4 * kappa_isop * sum(h * slope^2), bottom half
+  T part_b;        // the same of the top half
+};
+
+// With CANCEL (equal isopycnal and thickness diffusivities, one slope
+// taper) the skew weights vanish and the streamfunction is not read.
+template <typename T, bool CANCEL>
+__device__ __forceinline__ void gm_make_weights(
+    T dzk, T kis_t, T kis_b, T hd_t, T hd_b, const T (&sl_t)[4],
+    const T (&sl_b)[4], const T (&sf_t)[4], const T (&sf_b)[4],
+    const GmMetrics<T>& m, GmWeights<T>* w) {
+  w->weff = kis_t + kis_b + hd_t + hd_b;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    if (CANCEL) {
+      w->vt[f] = T(0);
+      w->vb[f] = T(0);
+      w->a[f] = dzk * kis_b * sl_b[f];
+      w->b[f] = dzk * kis_t * sl_t[f];
+    } else {
+      w->vt[f] = kis_t * sl_t[f] * dzk - sf_t[f];
+      w->vb[f] = kis_b * sl_b[f] * dzk - sf_b[f];
+      w->a[f] = dzk * kis_b * sl_b[f] + sf_b[f];
+      w->b[f] = dzk * kis_t * sl_t[f] + sf_t[f];
+    }
+  }
+  const T qx_b = m.hyx * sl_b[fE] * sl_b[fE] + m.hyxw * sl_b[fW] * sl_b[fW];
+  const T qy_b = m.hxy * sl_b[fN] * sl_b[fN] + m.hxys * sl_b[fS] * sl_b[fS];
+  const T qx_t = m.hyx * sl_t[fE] * sl_t[fE] + m.hyxw * sl_t[fW] * sl_t[fW];
+  const T qy_t = m.hxy * sl_t[fN] * sl_t[fN] + m.hxys * sl_t[fS] * sl_t[fS];
+  w->part_a = dzk * T(0.25) * kis_b * (qx_b + qy_b);
+  w->part_b = dzk * T(0.25) * kis_t * (qx_t + qy_t);
+}
+
+// Diffusive + skew flux through the face between column A and the column B
+// east (or north) of it, scaled as the reference scales it: `coef` is the
+// masked quarter metric of A, `diff` the tracer difference across the face,
+// `wsum` the two columns' effective diffusivities, (vt_a, vb_a) the skew
+// weights of A's face and (vt_b, vb_b) of B's face looking back.
+template <typename T, bool CANCEL>
+__device__ __forceinline__ T gm_face_flux(T dzk, T coef, T diff, T wsum,
+                                          T vt_a, T vb_a, T vt_b, T vb_b,
+                                          T tz_a, T tzp_a, T tz_b, T tzp_b) {
+  T f = dzk * coef * diff * wsum;
+  if (!CANCEL)
+    f = f - coef * (vt_a * tz_a + vb_a * tzp_a + vt_b * tz_b + vb_b * tzp_b);
+  return f;
+}
+
+// Tracer differences read from precomputed (nt, km, ny, nx) fields.
+template <typename T>
+struct GivenDiffs {
+  const T* __restrict__ tx;
+  const T* __restrict__ ty;
+  const T* __restrict__ tz_;
+  Stencil s;
+  long ls, ts;  // level and tracer strides
+
+  __device__ __forceinline__ T at(const T* f, int n, int k, int col) const {
+    return ldz(f + n * ts + k * ls, s.off[col], s.valid[col]);
+  }
+  __device__ __forceinline__ T tx_c(int n, int k) const {
+    return at(tx, n, k, kC);
+  }
+  __device__ __forceinline__ T tx_w(int n, int k) const {
+    return at(tx, n, k, kW);
+  }
+  __device__ __forceinline__ T ty_c(int n, int k) const {
+    return at(ty, n, k, kC);
+  }
+  __device__ __forceinline__ T ty_s(int n, int k) const {
+    return at(ty, n, k, kS);
+  }
+  __device__ __forceinline__ T tz(int n, int k, int col) const {
+    return at(tz_, n, k, col);
+  }
+};
+
+// Tracer differences formed from the tracer columns themselves: face
+// differences masked where either side is below its bottom, tz(k) = T(k-1) -
+// T(k) with tz(0) = 0.
+template <typename T>
+struct TracerDiffs {
+  const T* __restrict__ t;
+  Stencil s;
+  int kmt[5];
+  long ls, ts;
+
+  __device__ __forceinline__ T at(int n, int k, int col) const {
+    return ldz(t + n * ts + k * ls, s.off[col], s.valid[col]);
+  }
+  __device__ __forceinline__ T face(int n, int k, int a, int b) const {
+    return (k < kmt[a] && k < kmt[b]) ? at(n, k, b) - at(n, k, a) : T(0);
+  }
+  __device__ __forceinline__ T tx_c(int n, int k) const {
+    return face(n, k, kC, kE);
+  }
+  __device__ __forceinline__ T tx_w(int n, int k) const {
+    return face(n, k, kW, kC);
+  }
+  __device__ __forceinline__ T ty_c(int n, int k) const {
+    return face(n, k, kC, kN);
+  }
+  __device__ __forceinline__ T ty_s(int n, int k) const {
+    return face(n, k, kS, kC);
+  }
+  __device__ __forceinline__ T tz(int n, int k, int col) const {
+    return k > 0 ? at(n, k - 1, col) - at(n, k, col) : T(0);
+  }
+};
+
+// GTK (nt, km, ny, nx) and VDC_GM (km, ny, nx) of the thread's column.
+// `lev` holds three rows of km level scalars: dz, 1/dz, and dzw between the
+// level and the one below.
+template <typename T, bool CANCEL, class W, class D>
+__device__ __forceinline__ void gm_flux_column(
+    W& wp, const D& dp, const GmMetrics<T>& m, int nt, int km, long ls,
+    long ts, long oc, const T* __restrict__ lev, T* __restrict__ gtk,
+    T* __restrict__ vdc) {
+  const T fac = CANCEL ? T(0.5) : T(0.25);
+  T fztop[kMaxTracers];
+  for (int n = 0; n < nt; ++n) fztop[n] = T(0);
+
+  GmWeights<T> cur, nxt;
+  wp.own(0, &cur);
+  for (int k = 0; k < km; ++k) {
+    const int kk = k + 1;  // 1-based level
+    const bool last = k == km - 1;
+    const int kp = last ? k : k + 1;
+    if (!last) wp.own(kp, &nxt);
+    const T dzk = lev[k], dzrk = lev[km + k], dzwk = lev[2 * km + k];
+
+    T weff[5], vt[5], vb[5];  // neighbours: the face looking back at us
+#pragma unroll
+    for (int col = kE; col <= kS; ++col)
+      wp.face(col, k, &weff[col], &vt[col], &vb[col]);
+
+    const bool in_c = kk <= m.kmt[kC];
+    const bool below = kk < m.kmt[kC] && !last;
+    const T cx_c = (in_c && kk <= m.kmt[kE]) ? T(0.25) * m.hyx : T(0);
+    const T cx_w = (in_c && kk <= m.kmt[kW]) ? T(0.25) * m.hyxw : T(0);
+    const T cy_c = (in_c && kk <= m.kmt[kN]) ? T(0.25) * m.hxy : T(0);
+    const T cy_s = (in_c && kk <= m.kmt[kS]) ? T(0.25) * m.hxys : T(0);
+
+    for (int n = 0; n < nt; ++n) {
+      const T tx_c = dp.tx_c(n, k), tx_w = dp.tx_w(n, k);
+      const T ty_c = dp.ty_c(n, k), ty_s = dp.ty_s(n, k);
+      T tz[5], tzp[5];  // the skew terms alone read them
+#pragma unroll
+      for (int col = 0; col < 5; ++col) {
+        tz[col] = CANCEL ? T(0) : dp.tz(n, k, col);
+        tzp[col] = CANCEL ? T(0) : dp.tz(n, kp, col);
+      }
+      const T fx_c = gm_face_flux<T, CANCEL>(
+          dzk, cx_c, tx_c, cur.weff + weff[kE], cur.vt[fE], cur.vb[fE],
+          vt[kE], vb[kE], tz[kC], tzp[kC], tz[kE], tzp[kE]);
+      const T fx_w = gm_face_flux<T, CANCEL>(
+          dzk, cx_w, tx_w, weff[kW] + cur.weff, vt[kW], vb[kW], cur.vt[fW],
+          cur.vb[fW], tz[kW], tzp[kW], tz[kC], tzp[kC]);
+      const T fy_c = gm_face_flux<T, CANCEL>(
+          dzk, cy_c, ty_c, cur.weff + weff[kN], cur.vt[fN], cur.vb[fN],
+          vt[kN], vb[kN], tz[kC], tzp[kC], tz[kN], tzp[kN]);
+      const T fy_s = gm_face_flux<T, CANCEL>(
+          dzk, cy_s, ty_s, weff[kS] + cur.weff, vt[kS], vb[kS], cur.vt[fS],
+          cur.vb[fS], tz[kS], tzp[kS], tz[kC], tzp[kC]);
+
+      // vertical flux through the level's bottom: this level's bottom half
+      // and the top half of the level below
+      T fz = T(0);
+      if (below) {
+        const T work =
+            cur.a[fE] * m.hyx * tx_c + cur.a[fW] * m.hyxw * tx_w +
+            cur.a[fN] * m.hxy * ty_c + cur.a[fS] * m.hxys * ty_s +
+            nxt.b[fE] * m.hyx * dp.tx_c(n, kp) +
+            nxt.b[fW] * m.hyxw * dp.tx_w(n, kp) +
+            nxt.b[fN] * m.hxy * dp.ty_c(n, kp) +
+            nxt.b[fS] * m.hxys * dp.ty_s(n, kp);
+        fz = -fac * work;
+      }
+      const T div = (fx_c - fx_w + fy_c - fy_s + fztop[n] - fz) * dzrk *
+                    m.tarea_r;
+      gtk[n * ts + k * ls + oc] = in_c ? div : T(0);
+      fztop[n] = fz;
+    }
+    vdc[k * ls + oc] =
+        below ? dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
+    cur = nxt;
+  }
+}
+
+}  // namespace pop2

@@ -5,26 +5,30 @@
 // (source/vertical_mix.F90:691) in one pass.
 //
 // Replaces the TPU kernel tracer_pallas.py `_kernel` /
-// `tracer_tendency_tiles` in its with_del2=True, centered-advection,
-// closed north-south mode (the modes the dynamical-core slice runs).
+// `tracer_tendency_tiles` in its centered-advection, closed north-south
+// modes: with the Laplacian mixing fused (DEL2, the dynamical-core path) and
+// without it (advection + vertical diffusion only, the mode the GM path
+// runs: the horizontal mixing is then the GM kernels' and tmix is not read).
 //
 // Bound on this card: bytes. Minimum traffic is u, v, vdc (2 classes) and
 // trcr, told, out per tracer (the model passes told or trcr again as tmix):
-// (4 + 3 nt) distinct 3-D fields plus a dozen 2-D ones, against some 60 flops per output value. The design: one thread per
-// (j, i) column, i fastest, k looped with the continuity cumsum (w at the
-// level's top and bottom) carried in registers. Each thread needs the volume
-// fluxes through all four lateral faces of its cell; it computes the west
-// and south ones from the neighbours' u, v and metrics itself (redundant
-// arithmetic, no exchange between threads), so the flux velocities never
-// touch device memory. The loop over tracers sits inside the level loop, so
-// the flux velocities are formed once per column and level. Neighbour and
-// k+-1 re-reads are left to L1/L2; shared-memory tiling and register carries
-// of the k+-1 values are later work.
+// (4 + 3 nt) distinct 3-D fields plus a dozen 2-D ones, against some 60 flops
+// per output value. The design: one thread per (j, i) column, i fastest, k
+// looped with the continuity cumsum (w at the level's top and bottom)
+// carried in registers. Each thread needs the volume fluxes through all four
+// lateral faces of its cell; it computes the west and south ones from the
+// neighbours' u, v and metrics itself (redundant arithmetic, no exchange
+// between threads), so the flux velocities never touch device memory.
+// Without DEL2 the mixing-time tracer drops out of the traffic: (4 + 2 nt)
+// fields. The loop over tracers sits inside the level loop, so the flux
+// velocities are formed once per column and level. Neighbour and k+-1
+// re-reads are left to L1/L2; shared-memory tiling and register carries of
+// the k+-1 values are later work.
 #include "common.cuh"
 
 namespace pop2 {
 
-template <typename T>
+template <typename T, bool DEL2>
 __global__ void __launch_bounds__(kThreads)
 tracer_kernel(int nt, int km, int ny, int nx, int cyclic, int varthick,
               const T* __restrict__ u, const T* __restrict__ v,
@@ -124,11 +128,14 @@ tracer_kernel(int nt, int km, int ny, int nx, int cyclic, int varthick,
       ltk = ltk + dz2rk * (top - bot);
 
       // Laplacian diffusion of the mixing-time tracer (hdifft_del2)
-      const T* tmk = tmix + base;
-      const T hdtk = ah * (ccd * tmk[oc] + cn * ldz(tmk, on, c.vn)
-                           + cs * ldz(tmk, os, c.vs)
-                           + ce * ldz(tmk, oe, c.ve)
-                           + cw * ldz(tmk, ow, c.vw));
+      T hdtk = T(0);
+      if (DEL2) {
+        const T* tmk = tmix + base;
+        hdtk = ah * (ccd * tmk[oc] + cn * ldz(tmk, on, c.vn)
+                     + cs * ldz(tmk, os, c.vs)
+                     + ce * ldz(tmk, oe, c.ve)
+                     + cw * ldz(tmk, ow, c.vw));
+      }
 
       // explicit vertical diffusion of the old-time tracer (vdifft):
       // tracer 0 uses diffusivity class 0, all others class 1
@@ -152,8 +159,10 @@ tracer_kernel(int nt, int km, int ny, int nx, int cyclic, int varthick,
 }  // namespace pop2
 
 // dtype: 0 = float32, 1 = float64. Returns cudaGetLastError() of the launch.
-extern "C" int pop2_tracer(int dtype, int nt, int km, int ny, int nx,
-                           int cyclic, int varthick, const void* u,
+// with_del2 = 0 selects the advection + vertical-diffusion instance (tmix
+// and ah are then not read).
+extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int km, int ny,
+                           int nx, int cyclic, int varthick, const void* u,
                            const void* v, const void* trcr, const void* tmix,
                            const void* told, const void* vdc, const void* stf,
                            const void* dh, const int* kmt, const void* dyu,
@@ -165,18 +174,22 @@ extern "C" int pop2_tracer(int dtype, int nt, int km, int ny, int nx,
   using namespace pop2;
   const dim3 grid(blocks_for((long)ny * nx)), block(kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_TRACER(T)                                                       \
-  tracer_kernel<T><<<grid, block, 0, s>>>(                                   \
+#define POP2_TRACER(T, DEL2)                                                 \
+  tracer_kernel<T, DEL2><<<grid, block, 0, s>>>(                             \
       nt, km, ny, nx, cyclic, varthick, (const T*)u, (const T*)v,            \
       (const T*)trcr, (const T*)tmix, (const T*)told, (const T*)vdc,         \
       (const T*)stf, (const T*)dh, kmt, (const T*)dyu, (const T*)dxu,        \
       (const T*)tarea_r, (const T*)dtn, (const T*)dts, (const T*)dte,        \
       (const T*)dtw, (const T*)dz, (const T*)dzr, (const T*)dz2r,            \
       (const T*)dzwr2, (T)ah, (T*)out)
-  if (dtype == 0)
-    POP2_TRACER(float);
+  if (dtype == 0 && with_del2)
+    POP2_TRACER(float, true);
+  else if (dtype == 0)
+    POP2_TRACER(float, false);
+  else if (with_del2)
+    POP2_TRACER(double, true);
   else
-    POP2_TRACER(double);
+    POP2_TRACER(double, false);
 #undef POP2_TRACER
   return (int)cudaGetLastError();
 }

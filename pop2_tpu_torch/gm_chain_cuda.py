@@ -1,0 +1,196 @@
+"""The GM chain after the slopes, fused with the flux assembly: CUDA kernel,
+wrapper, plain version, and the model-facing entry ``hdifft_chain``.
+
+Replaces the TPU kernel ``gm_chain_pallas.py`` (``_kernel`` /
+``chain_tiles``, entry ``hdifft_chain``) with ``csrc/gm_chain.cu``. With the
+transition layer on and const or bfre diffusivities of one type, a step runs
+
+    slope kernel (``gm_slope_cuda.slopes``)
+      -> plain transition-layer search and bfre vertical profile
+         (``gm.transition_layer``, ``gm.kappa_vertical_bfre``: sequential
+         searches down the column on 2-D fields)
+      -> chain kernel: notanh tapers, diffusivities with the deep floors,
+         merged streamfunction, vertical transition profile, skew-flux
+         weights, per-tracer flux divergence GTK and VDC_GM, optionally the
+         diagnostic columns kappa_isop / kappa_thic / hor_diff.
+
+On an H100 the chain kernel is bound by bytes: nt + 11 fields in, nt + 1
+(+ 3) out. The plain version is ``gm.assemble`` with the plain flux
+assembly: some 60 full-field intermediates in device memory. The kernel keeps
+all of them in registers (see the note in ``csrc/gm_chain.cu``). Float32 and
+float64.
+
+Left for later, each raising ``NotImplementedError`` (ROADMAP.md Queue 2
+kernel 5): the submesoscale fold-in (``with_sm``), the tripole top row, 3-D
+layer thickness.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import gm, gm_cuda, gm_slope_cuda
+from pop2_tpu_torch.gm_cuda import flux_assembly_plain
+
+#: kernel launches so far (a plain counter; reset it to measure a run)
+launches = 0
+
+#: rows of the per-level scalar table (csrc/gm_chain.cu reads the same)
+LEV_ROWS = ("DZ", "DZR", "DZWKP", "RDT", "RDB", "TRT", "TRB", "DZWR")
+
+
+def available(cfg, grid) -> bool:
+    """The fused chain applies: transition layer on, isotropic const or bfre
+    diffusivities of one type (as the TPU kernel's ``available``)."""
+    return (cfg.gm_transition_layer
+            and cfg.gm_aniso is None
+            and cfg.gm_kappa_isop_type == cfg.gm_kappa_thic_type
+            and cfg.gm_kappa_isop_type in ("const", "bfre"))
+
+
+def _check_mode(cfg, grid, with_sm: bool = False):
+    todo = []
+    if with_sm or cfg.lsubmeso:
+        todo.append("with_sm (the submesoscale fold-in; Queue 1 item 7: "
+                    "submeso.py)")
+    if not available(cfg, grid):
+        todo.append("a GM configuration outside the chain (transition layer "
+                    "off, anisotropic, or kappa types other than one of "
+                    "const/bfre): gm.hdifft_gm carries those")
+    if cfg.ns_boundary != "closed":
+        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole top row)")
+    if cfg.ew_boundary not in ("cyclic", "closed"):
+        todo.append(f"ew_boundary={cfg.ew_boundary!r}")
+    if grid.DZT is not None:
+        todo.append("3-D layer thickness")
+    if todo:
+        raise NotImplementedError(
+            "GM chain kernel mode not ported yet (ROADMAP.md Queue 2 "
+            "kernel 5): " + "; ".join(todo))
+
+
+def level_scalars(grid):
+    """(8, km) per-level scalars: dz, 1/dz, dzw below the level, the
+    reference depths of the top / bottom quarter of the cell, the taper test
+    depths zt(k+1) / zw(k+1), and 1/dzw below the level. They depend on the
+    grid alone: built once and kept on the Grid object."""
+    hit = grid.__dict__.get("_gm_chain_lev")
+    if hit is None:
+        vg = grid.vgrid
+        km = vg.dz.shape[0]
+        trt = gm._down(vg.zt, repeat_last=True).clone()
+        trt[km - 1] = vg.zw[km - 1]
+        hit = torch.stack([
+            vg.dz, 1.0 / vg.dz, vg.dzw[1:km + 1], vg.zt - 0.25 * vg.dz,
+            vg.zt + 0.25 * vg.dz, trt, gm._down(vg.zw, repeat_last=True),
+            vg.dzwr[1:km + 1]]).contiguous()
+        grid.__dict__["_gm_chain_lev"] = hit
+    return hit
+
+
+def chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                want_diags: bool = True):
+    """Plain PyTorch version: (gtk, vdc_gm, diags) from the slope kernel's
+    outputs, the vertical profile ``kv`` (km, ny, nx; ones for const kappa)
+    and the transition-layer fields. ``diags`` is (3, km, ny, nx) =
+    kappa_isop, kappa_thic, hor_diff, or None."""
+    slx, sly = gm_slope_cuda.unpack_slopes(slp)
+    tx, ty, tz = gm.tracer_diffs(cfg, grid, bc, tmix)
+    kappa_isop, kappa_thic, kappa_equal = gm.kappa_from_profile(cfg, kv)
+    out = gm.assemble(cfg, grid, bc, tx, ty, tz, slx, sly, sla, tlt,
+                      kappa_isop, kappa_thic, kappa_equal, kv,
+                      flux=flux_assembly_plain)
+    diags = (torch.stack([out.kappa_isop, out.kappa_thic, out.hor_diff])
+             if want_diags else None)
+    return out.gtk, out.vdc_gm, diags
+
+
+def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
+          with_sm: bool = False):
+    """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
+    through the kernel, CPU tensors through the plain version."""
+    global launches
+    _check_mode(cfg, grid, with_sm)
+    if not tmix.is_cuda:
+        return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                           want_diags)
+    nt, km, ny, nx = tmix.shape
+    dev, dt = tmix.device, tmix.dtype
+    lib = cb.lib()
+    if nt > lib.pop2_gm_flux_max_tracers():
+        raise NotImplementedError(
+            f"GM chain kernel carries at most "
+            f"{lib.pop2_gm_flux_max_tracers()} tracers a launch, got {nt}")
+    lev = level_scalars(grid)
+    hyx, hxy, _ = gm_cuda.kernel_statics(grid)
+    f3, f2 = (km, ny, nx), (ny, nx)
+    for name, t, shape in (
+            ("tmix", tmix, (nt,) + f3), ("slp", slp, (8,) + f3),
+            ("sla", sla, (2,) + f3), ("kv", kv, f3),
+            ("lev", lev, (lib.pop2_gm_chain_lev_rows(), km)),
+            ("hyx", hyx, f2), ("hxy", hxy, f2),
+            ("TAREA_R", grid.TAREA_R, f2),
+            ("diabatic_depth", tlt.diabatic_depth, f2),
+            ("thickness", tlt.thickness, f2),
+            ("interior_depth", tlt.interior_depth, f2)):
+        cb.check_operand(name, t, shape, dt, dev)
+    for name, t in (("KMT", grid.KMT), ("k_level", tlt.k_level),
+                    ("ztw", tlt.ztw)):
+        cb.check_operand(name, t, f2, torch.int32, dev)
+    kv_bfre = cfg.gm_kappa_isop_type == "bfre"
+    flags = (int(kv_bfre) | int(bool(want_diags)) << 1
+             | int(cfg.gm_slm_r == cfg.gm_slm_b) << 2)
+    params = (ctypes.c_double * 8)(
+        cfg.gm_slm_r, cfg.gm_slm_b, cfg.gm_ah, cfg.gm_ah_bolus,
+        cfg.gm_kappa_isop_deep, cfg.gm_kappa_thic_deep, cfg.gm_ah_bkg_srfbl,
+        cfg.gm_ah_bkg_bottom)
+    gtk = torch.empty_like(tmix)
+    vdc = torch.empty(f3, dtype=dt, device=dev)
+    diags = (torch.empty((3,) + f3, dtype=dt, device=dev) if want_diags
+             else None)
+    err = lib.pop2_gm_chain(
+        cb.dtype_code(tmix), nt, km, ny, nx,
+        int(cfg.ew_boundary == "cyclic"), flags,
+        int(bool(cfg.gm_use_const_ah_bkg_srfbl)), params, lev.data_ptr(),
+        tmix.data_ptr(), slp.data_ptr(), sla.data_ptr(), kv.data_ptr(),
+        hyx.data_ptr(), hxy.data_ptr(), grid.TAREA_R.data_ptr(),
+        tlt.diabatic_depth.data_ptr(), tlt.thickness.data_ptr(),
+        tlt.interior_depth.data_ptr(), grid.KMT.data_ptr(),
+        tlt.k_level.data_ptr(),
+        tlt.ztw.data_ptr(), gtk.data_ptr(), vdc.data_ptr(),
+        diags.data_ptr() if want_diags else None, cb.stream_ptr())
+    cb.check_launch(err, "gm chain")
+    launches += 1
+    return gtk, vdc, diags
+
+
+def hdifft_chain(cfg, grid, bc, ts_range, tmix, hblt=None, hmxl=None,
+                 want_diags: bool = True) -> gm.GMOut:
+    """The fused GM tendency: slope kernel -> plain transition-layer search
+    and bfre profile -> chain kernel. On CPU tensors both kernels are their
+    plain versions."""
+    gm.check_gm_config(cfg, hblt)
+    _check_mode(cfg, grid, with_sm=hmxl is not None)
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, ts_range, tmix)
+
+    # without a KPP boundary layer the diabatic depth is the first layer
+    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
+                              gm._rossby_radius(grid))
+    if cfg.gm_kappa_isop_type == "bfre":
+        kv = gm.kappa_vertical_bfre(cfg, grid, ts_range, tmix,
+                                    tlt.interior_depth, n2=n2)
+    else:
+        kv = torch.ones_like(n2)
+
+    gtk, vdc, diags = chain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                            want_diags)
+    return gm.GMOut(
+        gtk=gtk, vdc_gm=vdc,
+        kappa_isop=diags[0] if want_diags else None,
+        kappa_thic=diags[1] if want_diags else None,
+        hor_diff=diags[2] if want_diags else None,
+        dia_depth=tlt.diabatic_depth, tlt_thick=tlt.thickness,
+        int_depth=tlt.interior_depth)

@@ -1,0 +1,202 @@
+"""GM/Redi flux assembly: CUDA kernel, wrapper and plain version.
+
+Replaces the TPU kernel ``gm_pallas.py`` (``_kernel`` /
+``flux_assembly_tiles``, entry ``flux_assembly_tiles_wrapper``) with
+``csrc/gm_flux.cu``: the tracer tendency GTK and the vertical diffusivity
+VDC_GM from the tracer face/vertical differences, the quarter-cell slopes,
+the merged streamfunction and the isopycnal and horizontal diffusivities
+(source/hmix_gm.F90:1720-2080).
+
+On an H100 the assembly is bound by bytes: 3 nt difference fields and 20
+weight-source fields in, nt + 1 out. The plain version materializes the
+effective diffusivities, the skew weights, three flux fields per tracer and
+every shifted copy in device memory; the kernel gives one thread to each
+(j, i) column, forms the weights of the column and of the facing face of its
+four neighbours in registers from the unpacked fields, and carries the
+vertical flux through each level's top down the column (see
+``csrc/gm_flux.cuh``, which the fused chain kernel shares). Both
+``cancellation`` branches, float32 and float64.
+
+Isotropic diffusivities, closed north-south boundary, 1-D layer thickness:
+the tripole top row and the anisotropic variant raise
+``NotImplementedError`` (ROADMAP.md Queue 2 kernel 6).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pop2_tpu_torch import _cuda_build as cb
+
+#: kernel launches so far (a plain counter; reset it to measure a run)
+launches = 0
+
+
+def _check_mode(cfg, grid):
+    todo = []
+    if cfg.gm_aniso is not None:
+        todo.append(f"gm_aniso={cfg.gm_aniso!r}")
+    if cfg.ns_boundary != "closed":
+        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole top row)")
+    if cfg.ew_boundary not in ("cyclic", "closed"):
+        todo.append(f"ew_boundary={cfg.ew_boundary!r}")
+    if grid.DZT is not None:
+        todo.append("3-D layer thickness")
+    if todo:
+        raise NotImplementedError(
+            "GM flux-assembly kernel mode not ported yet (ROADMAP.md Queue 2 "
+            "kernel 6): " + "; ".join(todo))
+
+
+def level_below(f, dim=0, repeat_last=False):
+    """f at level k+1 along ``dim``; below the last level zero, or the last
+    level again."""
+    n = f.shape[dim]
+    tail = f.narrow(dim, n - 1, 1)
+    if not repeat_last:
+        tail = torch.zeros_like(tail)
+    return torch.cat([f.narrow(dim, 1, n - 1), tail], dim=dim)
+
+
+def flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
+                        kisop, hor_diff, cancellation: bool):
+    """Plain PyTorch version: (GTK (nt, km, ny, nx), VDC_GM (km, ny, nx)).
+
+    tx, ty, tz: (nt, km, ny, nx) masked east/north face differences and
+    tz[:, k] = T(k-1) - T(k); slx, sly, sf_slx, sf_sly: (face, half, km, ny,
+    nx) slopes and merged streamfunction (face 0 = east/north, 1 =
+    west/south; half 0 = top, 1 = bottom); kisop, hor_diff: (half, km, ny,
+    nx)."""
+    km = cfg.km
+    vg = grid.vgrid
+    dz = vg.dz.reshape(km, 1, 1)
+    dzr = vg.dzr.reshape(km, 1, 1)
+    kidx = torch.arange(1, km + 1, device=tx.device,
+                        dtype=torch.int32).reshape(km, 1, 1)
+
+    hyx = grid.HTE / grid.HUS
+    hxy = grid.HTN / grid.HUW
+    hyxw = bc.w(hyx)
+    hxys = bc.s(hxy)
+
+    # effective vertical diffusivity VDC_GM (source/hmix_gm.F90:1720-1750)
+    km_mask = (kidx < grid.KMT[None]).to(tx.dtype)
+    quad = (hyx * slx[0, 1] ** 2 + hyxw * slx[1, 1] ** 2
+            + hxy * sly[0, 1] ** 2 + hxys * sly[1, 1] ** 2)
+    quad_top = (hyx * slx[0, 0] ** 2 + hyxw * slx[1, 0] ** 2
+                + hxy * sly[0, 0] ** 2 + hxys * sly[1, 0] ** 2)
+    kisop_ktp_kp1 = level_below(kisop[0])
+    dz_kp1 = level_below(dz, repeat_last=True)
+    dzw_k = vg.dzw[1:km + 1].reshape(km, 1, 1)
+    vdc_gm = (dzw_k * km_mask * grid.TAREA_R
+              * (dz * 0.25 * kisop[1] * quad
+                 + dz_kp1 * 0.25 * kisop_ktp_kp1 * level_below(quad_top)))
+    vdc_gm[-1] = 0.0
+
+    # horizontal fluxes (source/hmix_gm.F90:1805-1895)
+    in_c = kidx <= grid.KMT[None]
+    cx = torch.where(in_c & (kidx <= grid.KMTE[None]), 0.25 * hyx, 0.0)
+    cy = torch.where(in_c & (kidx <= grid.KMTN[None]), 0.25 * hxy, 0.0)
+
+    w = kisop[0] + kisop[1] + hor_diff[0] + hor_diff[1]
+    fx = dz * cx * tx * (w + bc.e(w))
+    fy = dz * cy * ty * (w + bc.n(w))
+
+    # skew contribution; zero when the isopycnal and thickness diffusivities
+    # are equal and equally tapered ('cancellation', :970-983)
+    tz_kp1 = level_below(tz, 1, repeat_last=True)
+    if not cancellation:
+        w1 = kisop[0] * slx[0, 0] * dz - sf_slx[0, 0]
+        w2 = kisop[1] * slx[0, 1] * dz - sf_slx[0, 1]
+        w3 = bc.e(kisop[0] * slx[1, 0] * dz - sf_slx[1, 0])
+        w4 = bc.e(kisop[1] * slx[1, 1] * dz - sf_slx[1, 1])
+        fx = fx - cx * (w1 * tz + w2 * tz_kp1 + w3 * bc.e(tz)
+                        + w4 * bc.e(tz_kp1))
+        w1 = kisop[0] * sly[0, 0] * dz - sf_sly[0, 0]
+        w2 = kisop[1] * sly[0, 1] * dz - sf_sly[0, 1]
+        w3 = bc.n(kisop[0] * sly[1, 0] * dz - sf_sly[1, 0])
+        w4 = bc.n(kisop[1] * sly[1, 1] * dz - sf_sly[1, 1])
+        fy = fy - cy * (w1 * tz + w2 * tz_kp1 + w3 * bc.n(tz)
+                        + w4 * bc.n(tz_kp1))
+
+    # vertical flux at the bottom of each cell (source/hmix_gm.F90:1900-2080)
+    def cross(sx, sy, txl, tyl):
+        return (sx[0] * hyx * txl + sx[1] * hyxw * bc.w(txl)
+                + sy[0] * hxy * tyl + sy[1] * hxys * bc.s(tyl))
+
+    tx_kp1 = level_below(tx, 1, repeat_last=True)
+    ty_kp1 = level_below(ty, 1, repeat_last=True)
+    work = (dz * kisop[1] * cross(slx[:, 1], sly[:, 1], tx, ty)
+            + dz_kp1 * kisop_ktp_kp1
+            * cross(level_below(slx[:, 0], 1), level_below(sly[:, 0], 1),
+                    tx_kp1, ty_kp1))
+    if cancellation:
+        fz = -km_mask * 0.5 * work
+    else:
+        work = (work + cross(sf_slx[:, 1], sf_sly[:, 1], tx, ty)
+                + cross(level_below(sf_slx[:, 0], 1),
+                        level_below(sf_sly[:, 0], 1), tx_kp1, ty_kp1))
+        fz = -km_mask * 0.25 * work
+    fz[:, -1] = 0.0
+    fz_top = torch.cat([torch.zeros_like(fz[:, :1]), fz[:, :-1]], dim=1)
+
+    gtk = ((fx - bc.w(fx) + fy - bc.s(fy) + fz_top - fz)
+           * dzr * grid.TAREA_R)
+    return torch.where(grid.kmask_t[None], gtk, 0.0), vdc_gm
+
+
+def kernel_statics(grid):
+    """The kernel's operands that depend on the grid alone: ``(hyx, hxy,
+    lev)`` = HTE/HUS, HTN/HUW and the (3, km) level scalars dz, 1/dz,
+    dzw below the level. Built at the first launch on a ``Grid`` object and
+    kept on it."""
+    hit = grid.__dict__.get("_gm_flux_statics")
+    if hit is None:
+        vg = grid.vgrid
+        km = vg.dz.shape[0]
+        hit = ((grid.HTE / grid.HUS).contiguous(),
+               (grid.HTN / grid.HUW).contiguous(),
+               torch.stack([vg.dz, vg.dzr, vg.dzw[1:km + 1]]).contiguous())
+        grid.__dict__["_gm_flux_statics"] = hit
+    return hit
+
+
+def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
+                  kisop, hor_diff, cancellation: bool):
+    """(GTK, VDC_GM); arguments as ``flux_assembly_plain``. CUDA tensors go
+    through the kernel, CPU tensors through the plain version."""
+    global launches
+    _check_mode(cfg, grid)
+    if not tx.is_cuda:
+        return flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly,
+                                   sf_slx, sf_sly, kisop, hor_diff,
+                                   cancellation)
+    nt, km, ny, nx = tx.shape
+    dev, dt = tx.device, tx.dtype
+    lib = cb.lib()
+    if nt > lib.pop2_gm_flux_max_tracers():
+        raise NotImplementedError(
+            f"GM flux-assembly kernel carries at most "
+            f"{lib.pop2_gm_flux_max_tracers()} tracers a launch, got {nt}")
+    hyx, hxy, lev = kernel_statics(grid)
+    f4, f5, f2 = (nt, km, ny, nx), (2, 2, km, ny, nx), (ny, nx)
+    for name, t, shape in (
+            ("tx", tx, f4), ("ty", ty, f4), ("tz", tz, f4),
+            ("slx", slx, f5), ("sly", sly, f5), ("sf_slx", sf_slx, f5),
+            ("sf_sly", sf_sly, f5), ("kisop", kisop, (2, km, ny, nx)),
+            ("hor_diff", hor_diff, (2, km, ny, nx)), ("hyx", hyx, f2),
+            ("hxy", hxy, f2), ("TAREA_R", grid.TAREA_R, f2)):
+        cb.check_operand(name, t, shape, dt, dev)
+    cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
+    gtk = torch.empty_like(tx)
+    vdc = torch.empty((km, ny, nx), dtype=dt, device=dev)
+    err = lib.pop2_gm_flux(
+        cb.dtype_code(tx), nt, km, ny, nx, int(cfg.ew_boundary == "cyclic"),
+        int(bool(cancellation)), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
+        slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(), sf_sly.data_ptr(),
+        kisop.data_ptr(), hor_diff.data_ptr(), grid.KMT.data_ptr(),
+        hyx.data_ptr(), hxy.data_ptr(), grid.TAREA_R.data_ptr(),
+        lev.data_ptr(), gtk.data_ptr(), vdc.data_ptr(), cb.stream_ptr())
+    cb.check_launch(err, "gm flux_assembly")
+    launches += 1
+    return gtk, vdc

@@ -123,8 +123,10 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     dh, dhu = dhdt(cfg, grid, bc, state)
 
     # 2. explicit baroclinic update (source/step_mod.F90:375)
+    # (no time-averaged history yet: the GM diagnostic columns are not
+    # written)
     bout = baroclinic.driver(cfg, grid, bc, ts_range, state, forcing,
-                             dh, dhu, leapfrog)
+                             dh, dhu, leapfrog, want_gm_diags=False)
 
     # 3. implicit barotropic solve (source/step_mod.F90:437)
     tout = barotropic.driver(cfg, grid, bc, state, forcing, bout.zx,

@@ -23,7 +23,7 @@ def unsupported(cfg: ModelConfig) -> list:
          "partial_bottom_cells (Queue 2 kernel 1: 3-D DZT)"),
         (cfg.ns_boundary != "closed",
          f"ns_boundary={cfg.ns_boundary!r} (Queue 1 item 5: tripole.py; "
-         "Queue 2 kernels 2-3: tripole north edge)"),
+         "Queue 2 kernels 2-6: tripole rows)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
         (cfg.nt != 2 or bool(cfg.passive_tracers),
@@ -33,9 +33,9 @@ def unsupported(cfg: ModelConfig) -> list:
         (cfg.tadvect != "centered",
          f"tadvect={cfg.tadvect!r} (Queue 1 item 5: advt_upwind3; "
          "Queue 2 kernel 2: upwind3 mode)"),
-        (cfg.hmix_tracer != "del2",
-         f"hmix_tracer={cfg.hmix_tracer!r} (Queue 1 items 7/11: gm.py, "
-         "del4; Queue 2 kernel 2: with_del2=False, kernels 4-6)"),
+        (cfg.hmix_tracer not in ("del2", "gm"),
+         f"hmix_tracer={cfg.hmix_tracer!r} (Queue 1 items 7/11: hmix del4 "
+         "beside gm.py)"),
         (cfg.hmix_momentum != "del2",
          f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 items 5/11: "
          "hmix_aniso, del4; Queue 2 kernel 3: with_hdiffu=False)"),
@@ -54,7 +54,8 @@ def unsupported(cfg: ModelConfig) -> list:
         (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11)"),
         (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
         (bool(cfg.overflows), "overflows (Queue 1 item 8: overflows.py)"),
-        (cfg.lsubmeso, "lsubmeso (Queue 1 item 7: submeso.py)"),
+        (cfg.lsubmeso, "lsubmeso (Queue 1 item 7: submeso.py; Queue 2 "
+         "kernel 5: with_sm)"),
         (t.time_mix_opt != "avg",
          f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 5: Robert "
          "filter; item 10: avgfit calendar)"),
@@ -68,7 +69,29 @@ def unsupported(cfg: ModelConfig) -> list:
         (tuple(cfg.mesh_shape) != (1, 1),
          "mesh_shape != (1, 1) (Queue 1 item 12: multi-GPU)"),
     ]
+    if cfg.hmix_tracer == "gm":
+        checks += _gm_checks(cfg)
     return [why for bad, why in checks if bad]
+
+
+def _gm_checks(cfg: ModelConfig) -> list:
+    """What of GM the port carries: isotropic, const or bfre diffusivities of
+    one type, transition layer on or off, MWJF (the slope kernel evaluates
+    its derivatives), full cells, closed north-south boundary."""
+    kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
+    return [
+        (cfg.gm_aniso is not None,
+         f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11: GM variants)"),
+        (any(k not in ("const", "bfre") for k in kinds),
+         f"gm kappa types {kinds!r} (Queue 1 item 11: GM variants depth, "
+         "Visbeck vmhs, Eden-Greatbatch eg)"),
+        (kinds[0] != kinds[1],
+         f"gm kappa types {kinds!r} differing (Queue 1 item 11: GM "
+         "variants)"),
+        (cfg.state_choice != "mwjf",
+         f"GM with state_choice={cfg.state_choice!r} (Queue 2 kernel 4: the "
+         "slope kernel carries MWJF)"),
+    ]
 
 
 def check_supported(cfg: ModelConfig) -> None:

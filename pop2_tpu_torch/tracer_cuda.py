@@ -8,17 +8,20 @@ Replaces the TPU kernel ``tracer_pallas.py`` (``_kernel`` /
 On an H100 the tendency is bound by bytes: u, v, the two diffusivity classes
 and trcr, told, ft per tracer, (4 + 3 nt) distinct 3-D fields on the model's
 path (tmix is told on a leapfrog step and trcr on an Euler step), against
-some 60 flops per output value. The plain version materializes the six flux-velocity
-fields and every shifted operand in device memory; the kernel gives one
-thread to each (j, i) column, loops over k with the continuity cumsum in
-registers, and recomputes the west/south face fluxes from the neighbours'
-velocities so nothing but the operands and the result crosses device memory
-(see the note in ``csrc/tracer.cu``). Float32 and float64.
+some 60 flops per output value. The plain version materializes the six
+flux-velocity fields and every shifted operand in device memory; the kernel
+gives one thread to each (j, i) column, loops over k with the continuity
+cumsum in registers, and recomputes the west/south face fluxes from the
+neighbours' velocities so nothing but the operands and the result crosses
+device memory (see the note in ``csrc/tracer.cu``). Float32 and float64.
 
-This slice carries the mode the dynamical core runs: del2 mixing fused
-(``with_del2=True``), centered advection, closed north-south boundary, 1-D
-layer thickness. The other modes of the TPU kernel (upwind3, tripole north
-edge, ``with_del2=False`` under GM) raise ``NotImplementedError``; they are
+Two modes, chosen by ``cfg.hmix_tracer``: ``'del2'`` fuses the Laplacian
+mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` leaves the
+horizontal mixing to the GM kernels and computes advection + vertical
+diffusion only (``with_del2=False``), a separate instance of the kernel that
+does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered advection,
+closed north-south boundary, 1-D layer thickness. The other modes of the TPU
+kernel (upwind3, tripole north edge) raise ``NotImplementedError``; they are
 extensions of this kernel listed in ROADMAP.md Queue 2.
 """
 
@@ -38,8 +41,9 @@ def _check_mode(cfg, grid):
     todo = []
     if cfg.tadvect != "centered":
         todo.append(f"tadvect={cfg.tadvect!r} (upwind3 mode)")
-    if cfg.hmix_tracer != "del2":
-        todo.append(f"hmix_tracer={cfg.hmix_tracer!r} (with_del2=False)")
+    if cfg.hmix_tracer not in ("del2", "gm"):
+        todo.append(f"hmix_tracer={cfg.hmix_tracer!r} (with_del2=False "
+                    "beside a mixing scheme that is not ported)")
     if cfg.ns_boundary != "closed":
         todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole north edge)")
     if cfg.ew_boundary not in ("cyclic", "closed"):
@@ -52,13 +56,20 @@ def _check_mode(cfg, grid):
             "kernel 2): " + "; ".join(todo))
 
 
+def with_del2(cfg) -> bool:
+    """Whether the Laplacian mixing is fused into the tendency."""
+    return cfg.hmix_tracer == "del2"
+
+
 def tracer_tendency_plain(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
-    """Plain PyTorch version: hdifft_del2 - advt_centered(comp_flux_vel)
-    + vdifft, the chain of source/baroclinic.F90:1902 (tracer_update)."""
+    """Plain PyTorch version: [hdifft_del2] - advt_centered(comp_flux_vel)
+    + vdifft, the chain of source/baroclinic.F90:1902 (tracer_update); the
+    Laplacian only in the ``with_del2`` mode."""
     bc = grid_bc(cfg)
-    ft = hmix.hdifft(cfg, grid, bc, tmix)
     fv = advect.comp_flux_vel(cfg, grid, bc, u, v, dh)
-    ft = ft - advect.advt(cfg, grid, bc, fv, trcr)
+    ft = -advect.advt(cfg, grid, bc, fv, trcr)
+    if with_del2(cfg):
+        ft = hmix.hdifft(cfg, grid, bc, tmix) + ft
     return ft + vmix.vdifft(cfg, grid, vdc, told, stf)
 
 
@@ -91,7 +102,7 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
     out = torch.empty_like(trcr)
     err = cb.lib().pop2_tracer(
-        cb.dtype_code(trcr), nt, km, ny, nx,
+        cb.dtype_code(trcr), int(with_del2(cfg)), nt, km, ny, nx,
         int(cfg.ew_boundary == "cyclic"), int(cfg.sfc_layer == "varthick"),
         u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
         told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),

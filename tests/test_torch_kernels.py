@@ -254,7 +254,7 @@ def test_tracer_plain_matches_pallas_interpret_f32(pairs):
 
 @pytest.mark.parametrize("over,match", [
     (dict(tadvect="upwind3"), "upwind3"),
-    (dict(hmix_tracer="gm"), "with_del2=False"),
+    (dict(hmix_tracer="del4"), "with_del2=False"),
     (dict(ns_boundary="tripole"), "tripole"),
 ])
 def test_tracer_modes_not_ported_raise(pairs, over, match):

@@ -179,7 +179,7 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
 
 @pytest.mark.parametrize("over,names", [
     (dict(vmix="kpp"), "Queue 1 item 6"),
-    (dict(hmix_tracer="gm"), "Queue 1 items 7"),
+    (dict(hmix_tracer="del4"), "Queue 1 items 7"),
     (dict(hmix_momentum="aniso"), "hmix_aniso"),
     (dict(tadvect="upwind3"), "advt_upwind3"),
     (dict(ns_boundary="tripole"), "tripole"),

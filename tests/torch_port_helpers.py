@@ -4,6 +4,7 @@ and the same NumPy inputs to the JAX package and to its PyTorch port."""
 import dataclasses
 
 import numpy as np
+import torch
 
 from pop2_tpu_torch import config as tconfig
 
@@ -62,8 +63,6 @@ def stepped_bottom(jgrid, tgrid, ew, seed):
     itself) would only ever see 0 and km. This replaces KMT by smooth random
     depths of 2..km levels and recomputes the leaves derived from it that the
     kernel modules read (not the barotropic operator weights)."""
-    import torch
-
     kmt0 = np.asarray(jgrid.KMT)
     km = int(kmt0.max())
     ny, nx = kmt0.shape
@@ -108,3 +107,37 @@ def stepped_bottom(jgrid, tgrid, ew, seed):
     import jax.numpy as jnp
     return (jgrid.replace(**{k: jnp.asarray(v) for k, v in jnew.items()}),
             tgrid.replace(**tnew))
+
+
+class GridPair:
+    """One config in both packages with both grids (the port's on the CPU),
+    on a seeded stepped bathymetry."""
+
+    def __init__(self, preset, seed=1, **over):
+        from pop2_tpu.config import get_config
+        from pop2_tpu.grid import build_grid as j_build_grid
+        from pop2_tpu_torch.grid import build_grid as t_build_grid
+
+        self.jcfg = get_config(preset, **over)
+        self.tcfg = torch_cfg(self.jcfg)
+        self.jgrid, self.tgrid = stepped_bottom(
+            j_build_grid(self.jcfg), t_build_grid(self.tcfg, "cpu"),
+            self.jcfg.ew_boundary, seed=seed)
+        self.np_dtype = (np.float64 if self.jcfg.dtype == "float64"
+                         else np.float32)
+
+    def with_(self, **over):
+        """Same grids, other non-geometric config fields."""
+        new = object.__new__(GridPair)
+        new.__dict__.update(self.__dict__)
+        new.jcfg = self.jcfg.with_(**over)
+        new.tcfg = torch_cfg(new.jcfg)
+        return new
+
+    def ts_ranges(self):
+        """(JAX, port) per-level T/S ranges of the equation of state."""
+        from pop2_tpu import eos as jeos
+        from pop2_tpu_torch import eos as teos
+        zt = np.asarray(self.jgrid.vgrid.zt, np.float64)
+        return (jeos.build_ts_range(zt, self.jcfg.jnp_dtype),
+                teos.build_ts_range(zt, self.tcfg.torch_dtype))
