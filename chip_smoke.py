@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
-and float64, times both, and drives the port's three paths through
+and float64, times both (and reports each kernel's block, shared memory and
+blocks an SM holds), holds the two kernels that stage in shared memory
+(thomas, the GM chain) against their plain versions on a grid their tiles
+do not divide, and drives the port's three paths through
 ``Model.advance`` (Euler step, leapfrog steps, averaging steps) at that size
 in float32 and in float64:
 
@@ -36,6 +39,7 @@ and power limit, then the final ``{"ok": true, "device": ...}`` line.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -68,6 +72,10 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "gm_full": {"float32": 20, "float64": 8},
          "gm_flux": {"float32": 4, "float64": 3}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
+# a horizontal size that no tile of the kernels divides (nx, ny), and the
+# level counts held there: one level, and the kernels' bound of 64
+RAGGED = (37, 53)
+RAGGED_KM = (1, 61, 64)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): device memory rate and
 # the non-tensor-core arithmetic rates the kernels can use
@@ -198,7 +206,8 @@ def full_config(dtype: str, path: str = "core"):
 
 
 def time_ms(fn, n_warm: int, n_timed: int) -> float:
-    """Median time of one call, by CUDA events around each call."""
+    """Median time of one call, by CUDA events around each call (the host's
+    time in the call counts where the card waits for it)."""
     for _ in range(n_warm):
         fn()
     torch.cuda.synchronize()
@@ -211,6 +220,29 @@ def time_ms(fn, n_warm: int, n_timed: int) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_ms_back_to_back(fn, n_calls: int, n_rounds: int = 3) -> float:
+    """Time of one call where calls follow each other: CUDA events around
+    ``n_calls`` calls back to back, divided by ``n_calls``, the median over
+    ``n_rounds`` rounds (after three calls of warm-up). The host queues the
+    next launch while the card runs the last, so this is the kernel's own
+    time wherever it is longer than the wrapper's host time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n_rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / n_calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -360,6 +392,33 @@ def bound(nbytes: float, flops: float, dtype):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def launch_info(name: str, dt, tag: str = "", **kw):
+    """Block shape, dynamic shared memory and blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
+    ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
+    shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt and
+    flags, the one-column kernels their variant."""
+    lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
+        torch.finfo(dt).bits // 8
+    if name == "thomas":
+        cols, smem = tridiag_cuda.launch_plan(s, kw["nr"], kw["km"])
+        block = [cols, 1, 1]
+        n = lib.pop2_thomas_blocks_per_sm(code, kw["nr"], cols, smem)
+    elif name == "gm_chain":
+        (cols, rows), smem = gm_chain_cuda.launch_plan(s, kw["nt"])
+        block = [cols, rows, 1]
+        n = lib.pop2_gm_chain_blocks_per_sm(code, kw["flags"], rows, smem)
+    else:
+        block, smem = [cb.ONE_COLUMN_THREADS, 1, 1], 0
+        n = getattr(lib, f"pop2_{name}_blocks_per_sm")(code,
+                                                       kw.get("variant", 0))
+    if n <= 0:
+        raise AssertionError(f"{name}: occupancy query failed ({n})")
+    return {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
+            "blocks_per_sm" + tag: n,
+            "warps_per_sm" + tag: n * block[0] * block[1] // 32}
+
+
 def random_fields(cfg, grid, gen):
     """Kernel operands with the magnitudes the JAX package's kernel tests
     use, masked to ocean, from the seeded generator."""
@@ -390,6 +449,17 @@ def random_fields(cfg, grid, gen):
     return f
 
 
+def thomas_operands(cfg, grid, f):
+    """(hfac, h1, a) of the tracer solve from ``random_fields``."""
+    vg, km = grid.vgrid, cfg.km
+    c2dt = 2.0 * cfg.time.dtt
+    hfac = vg.dz / c2dt
+    h1 = (hfac[0] + f["psurf"] / (const.GRAV * c2dt)).contiguous()
+    a = cfg.aidif * vg.dzwr[1:km + 1].reshape(km, 1, 1) * f["vdc"][1]
+    a[-1] = 0.0
+    return hfac, h1, a
+
+
 def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     """Each kernel against its plain version at the main path's shapes and
     with the main path's aliasing of operands (a leapfrog step: the
@@ -403,15 +473,10 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     f = random_fields(cfg, grid, gen)
     km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
     N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
-    vg = grid.vgrid
     rec = {}
 
     # ---- thomas: the tracer solve's operands, nr = 2 and nr = 1 -----------
-    c2dt = 2.0 * cfg.time.dtt
-    hfac = vg.dz / c2dt
-    h1 = (hfac[0] + f["psurf"] / (const.GRAV * c2dt)).contiguous()
-    a = cfg.aidif * vg.dzwr[1:km + 1].reshape(km, 1, 1) * f["vdc"][1]
-    a[-1] = 0.0
+    hfac, h1, a = thomas_operands(cfg, grid, f)
     r = {}
     for nr in (2, 1):
         rhs = f["rhs"][:nr].contiguous()
@@ -421,13 +486,17 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
         want = tridiag_cuda.thomas_plain(*args)
         err_abs, err_rel = compare("thomas", dt, [got], [want])
         ms = time_ms(lambda: tridiag_cuda.thomas(*args), 3, n_timed)
+        b2b = time_ms_back_to_back(
+            lambda: tridiag_cuda.thomas(*args), n_timed)
         plain_ms = time_ms(lambda: tridiag_cuda.thomas_plain(*args), 1, 3)
         b_ms, b_by = bound(s * (N * (1 + 2 * nr) + P + km) + 4 * P,
                            N * (8 + 5 * nr), dt)
         tag = "" if nr == 2 else "_nr1"
         r.update({"max_abs_err" + tag: err_abs, "rel_err" + tag: err_rel,
-                  "ms" + tag: ms, "plain_ms" + tag: plain_ms,
-                  "bound_ms" + tag: b_ms, "bound_by" + tag: b_by})
+                  "ms" + tag: ms, "ms_back_to_back" + tag: b2b,
+                  "plain_ms" + tag: plain_ms,
+                  "bound_ms" + tag: b_ms, "bound_by" + tag: b_by,
+                  **launch_info("thomas", dt, tag, nr=nr, km=km)})
     rec["thomas"] = r
 
     # ---- tracer tendency ----------------------------------------------------
@@ -439,12 +508,15 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     want = tracer_cuda.tracer_tendency_plain(*args)
     err_abs, err_rel = compare("tracer", dt, [got], [want])
     ms = time_ms(lambda: tracer_cuda.tracer_tendency(*args), 3, n_timed)
+    b2b = time_ms_back_to_back(
+        lambda: tracer_cuda.tracer_tendency(*args), n_timed)
     plain_ms = time_ms(lambda: tracer_cuda.tracer_tendency_plain(*args), 1, 3)
     b_ms, b_by = bound(s * (N * (4 + 3 * nt) + P * (nt + 8) + 4 * km) + 4 * P,
                        N * (30 + 45 * nt), dt)
     rec["tracer"] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by}
+                     "ms_back_to_back": b2b, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     **launch_info("tracer", dt, variant=1)}
 
     # ---- momentum forcing (leapfrog, pressure-averaged) ---------------------
     rhoavg = pgrad.rho_average(cfg, grid, f["rho"][0], f["rho"][1],
@@ -457,6 +529,8 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     want = clinic_cuda.clinic_rhs_plain(*args)
     err_abs, err_rel = compare("clinic", dt, got, want)
     ms = time_ms(lambda: clinic_cuda.clinic_rhs_fields(*args), 3, n_timed)
+    b2b = time_ms_back_to_back(
+        lambda: clinic_cuda.clinic_rhs_fields(*args), n_timed)
     plain_ms = time_ms(lambda: clinic_cuda.clinic_rhs_plain(*args), 1, 3)
     # six distinct 3-D inputs (the mixing-time pair is the old pair again);
     # the kernel reads nothing below a column's bottom: count the inputs of
@@ -465,8 +539,10 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     b_ms, b_by = bound(s * (N * (6 * wet + 2) + P * (19 + 2 + 1 + 2)
                             + 5 * km) + 4 * P, N * wet * 200, dt)
     rec["clinic"] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "ocean_fraction_u": wet}
+                     "ms_back_to_back": b2b, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "ocean_fraction_u": wet,
+                     **launch_info("clinic", dt)}
     return rec
 
 
@@ -488,7 +564,7 @@ def searched_inputs(cfg, grid, sla, seed: int):
     gen = torch.Generator()
     gen.manual_seed(seed)
     vg = grid.vgrid
-    lo, hi = 0.3 * float(vg.zw[0]), float(vg.zt[12])
+    lo, hi = 0.3 * float(vg.zw[0]), float(vg.zt[min(12, cfg.km - 1)])
     dd = lo + (hi - lo) * torch.rand(cfg.ny, cfg.nx, generator=gen,
                                      dtype=torch.float64)
     return dd.to(device=sla.device, dtype=sla.dtype), sla * 100.0
@@ -516,9 +592,13 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     r = compare_slopes("gm_slope", dt, (slp, sla, n2), want,
                        true_slope_factors(grid))
     r["ms"] = time_ms(lambda: gm_slope_cuda.slopes(*args), 3, n_timed)
+    b2b = time_ms_back_to_back(
+        lambda: gm_slope_cuda.slopes(*args), n_timed)
+    r["ms_back_to_back"] = b2b
     r["plain_ms"] = time_ms(lambda: gm_slope_cuda.slopes_plain(*args), 1, 3)
     r["bound_ms"], r["bound_by"] = bound(
         s * (13 * N + 2 * P + 19 * km) + 4 * P, N * 300, dt)
+    r.update(launch_info("gm_slope", dt))
     rec["gm_slope"] = r
     del want
 
@@ -548,15 +628,21 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
     del want
     ms = time_ms(lambda: gm_chain_cuda.chain(*args), 3, n_timed)
+    b2b = time_ms_back_to_back(
+        lambda: gm_chain_cuda.chain(*args), n_timed)
     plain_ms = time_ms(lambda: gm_chain_cuda.chain_plain(*args), 1, 3)
     b_ms, b_by = bound(s * (N * (2 * nt + 12) + 6 * P + 8 * km) + 12 * P,
                        N * (400 + 80 * nt), dt)
     rec["gm_chain"] = {"max_abs_err": err_abs, "rel_err": err_rel,
                        "points_within_relative_band_only": excused,
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "ms": ms, "ms_back_to_back": b2b,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by,
                        "transition_levels": sorted(
-                           set(tlt.k_level.flatten().tolist()))}
+                           set(tlt.k_level.flatten().tolist())),
+                       **launch_info("gm_chain", dt, nt=nt,
+                                     flags=gm_chain_cuda.kernel_flags(
+                                         cfg, False))}
     del slp, sla, n2, kv, tlt, got
 
     # ---- flux assembly: the gm_flux path's instance (cancellation: the skew
@@ -575,13 +661,18 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
         vdc_rel = compare_vdc("gm_flux", dt, got[1], want[1])
         del got, want
         ms = time_ms(lambda: gm_cuda.flux_assembly(*args), 3, n_timed)
+        b2b = time_ms_back_to_back(
+            lambda: gm_cuda.flux_assembly(*args), n_timed)
         plain_ms = time_ms(lambda: gm_cuda.flux_assembly_plain(*args), 1, 3)
         b_ms, b_by = bound(s * (N * (n_in + nt + 1) + 3 * P + 3 * km)
                            + 4 * P, N * (60 + 60 * nt), dt)
         r.update({"max_abs_err" + tag: err_abs, "rel_err" + tag: err_rel,
                   "vdc_rel_err" + tag: vdc_rel, "ms" + tag: ms,
-                  "plain_ms" + tag: plain_ms, "bound_ms" + tag: b_ms,
-                  "bound_by" + tag: b_by})
+                  "ms_back_to_back" + tag: b2b, "plain_ms" + tag: plain_ms,
+                  "bound_ms" + tag: b_ms,
+                  "bound_by" + tag: b_by,
+                  **launch_info("gm_flux", dt, tag,
+                                variant=int(cancellation))})
     rec["gm_flux"] = r
     del f
 
@@ -597,12 +688,16 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     want = tracer_cuda.tracer_tendency_plain(*args)
     err_abs, err_rel = compare("tracer_advdiff", dt, [got], [want])
     ms = time_ms(lambda: tracer_cuda.tracer_tendency(*args), 3, n_timed)
+    b2b = time_ms_back_to_back(
+        lambda: tracer_cuda.tracer_tendency(*args), n_timed)
     plain_ms = time_ms(lambda: tracer_cuda.tracer_tendency_plain(*args), 1, 3)
     b_ms, b_by = bound(s * (N * (4 + 2 * nt) + P * (nt + 8) + 4 * km) + 4 * P,
                        N * (30 + 35 * nt), dt)
     rec["tracer_advdiff"] = {"max_abs_err": err_abs, "rel_err": err_rel,
-                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+                             "ms": ms, "ms_back_to_back": b2b,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by,
+                             **launch_info("tracer", dt, variant=0)}
     return rec
 
 
@@ -696,6 +791,83 @@ def gm_other_modes_phase(dtype_name: str):
                    "flux": BAND[("gm_flux", dt)],
                    "flux_vdc_rtol": GM_VDC_RTOL[dt],
                    "tracer_advdiff": BAND[("tracer_advdiff", dt)]}})
+
+
+def ragged_config(dtype_name: str, km: int, ew: str):
+    """The gm_full configuration on the RAGGED grid with km levels (evenly
+    spaced where the internal vertical grid cannot take so few)."""
+    extra = {"vert_grid": "uniform"} if km == 1 else {}
+    return get_config("test", nx=RAGGED[0], ny=RAGGED[1], km=km, vmix="rich",
+                      dtype=dtype_name,
+                      solver=SolverConfig(solve_dtype="float64"),
+                      ew_boundary=ew, **GM_FULL, **extra)
+
+
+def ragged_phase(dtype_name: str):
+    """The two kernels with shared-memory tiles against their plain versions
+    where the tiles do not divide the domain: the RAGGED horizontal size, E-W
+    cyclic and closed, at RAGGED_KM levels (one level, and the kernels'
+    bound). thomas for 1, 2 and 3 right-hand sides; the chain kernel in its
+    eight template instances (bfre or const kappa, diagnostic columns or
+    not, equal or unequal slope limits), each with the constant and the
+    diffusivity-valued surface diffusion (``hd_const``). Bands as at full
+    size. Not timed."""
+    worst = {}
+    for km, ew in itertools.product(RAGGED_KM, ("cyclic", "closed")):
+        base = ragged_config(dtype_name, km, ew)
+        dt = base.torch_dtype
+        grid = build_grid(base, DEV)
+        if ew == "cyclic":  # the sweep reads no neighbour
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(SEED + 8)
+            f = random_fields(base, grid, gen)
+            hfac, h1, a = thomas_operands(base, grid, f)
+            for nr in (1, 2, 3):
+                rhs = torch.randn(nr, km, *RAGGED[::-1], generator=gen,
+                                  device=DEV, dtype=dt) * grid.kmask_t.to(dt)
+                args = (hfac, h1, grid.KMT, a, rhs)
+                got = tridiag_cuda.thomas(*args)
+                torch.cuda.synchronize()
+                want = tridiag_cuda.thomas_plain(*args)
+                worst[f"thomas_km{km}_nr{nr}"] = compare("thomas", dt, [got],
+                                                         [want])[1]
+        bc = grid_bc(base)
+        tr = ts_range_of(base, grid)
+        tmix = sample.grid_tracers(base, grid, SEED + 9)
+        slp, sla, n2 = gm_slope_cuda.slopes_plain(base, grid, bc, tr, tmix)
+        tlt = gm.transition_layer(
+            base, grid, *searched_inputs(base, grid, sla, SEED + 5),
+            gm._rossby_radius(grid))
+        for bfre, diags, same, hd_const in itertools.product((True, False),
+                                                             repeat=4):
+            # a surface diffusion apart from the isopycnal diffusivity, so
+            # that hd_const shows
+            over = {"gm_use_const_ah_bkg_srfbl": hd_const,
+                    "gm_ah_bkg_srfbl": 1.5e7}
+            if not bfre:
+                over.update(gm_kappa_isop_type="const",
+                            gm_kappa_thic_type="const")
+            if not same:
+                over.update(gm_slm_b=0.25, gm_ah_bolus=2.0e7,
+                            gm_ah_bkg_bottom=1.0e6)
+            cfg = base.with_(**over)
+            kv = (gm.kappa_vertical_bfre(cfg, grid, tr, tmix,
+                                         tlt.interior_depth, n2=n2)
+                  if bfre else torch.ones_like(n2))
+            args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, diags)
+            got = gm_chain_cuda.chain(*args)
+            torch.cuda.synchronize()
+            want = gm_chain_cuda.chain_plain(*args)
+            outs = [(g, w) for g, w in zip(got[:2], want[:2])]
+            if diags:
+                outs += list(zip(got[2], want[2]))
+            flags = gm_chain_cuda.kernel_flags(cfg, diags)
+            key = f"chain_km{km}_{ew}_flags{flags}_hd{int(hd_const)}"
+            worst[key] = compare_chain("gm_chain", dt, *zip(*outs))[1]
+    emit({"phase": "ragged", "dtype": dtype_name, "dims": list(RAGGED),
+          "km": list(RAGGED_KM), "rel_err_of_scale": worst,
+          "band": {"thomas": BAND[("thomas", dt)],
+                   "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]]}})
 
 
 def other_modes_phase(dtype_name: str):
@@ -1035,20 +1207,25 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
         raise AssertionError(f"GPU and CPU paths differ: {diffs}")
 
 
-def ptxas_summary():
-    """{kernel: [registers, spill-store bytes]} at the worst instantiation of
-    each kernel, from what nvcc printed when the library was built."""
+def ptxas_summary(log: str | None = None):
+    """{kernel: {registers, spill-store bytes, static shared memory bytes,
+    stack frame bytes}} at the worst instantiation of each kernel, from what
+    nvcc printed when the library was built (``log``, by default this
+    checkout's)."""
+    keys = ("registers", "spill_store_bytes", "static_smem_bytes",
+            "stack_frame_bytes")
+    patterns = (r"Used (\d+) registers", r"(\d+) bytes spill stores",
+                r"(\d+) bytes smem", r"(\d+) bytes stack frame")
     worst, entry = {}, None
-    for line in cb.build_log().splitlines():
+    for line in (cb.build_log() if log is None else log).splitlines():
         m = re.search(r"entry function '\w*?(thomas|tracer|clinic|gm_slope|"
                       r"gm_chain|gm_flux)_kernel", line)
         if m:
-            entry = worst.setdefault(m.group(1), [0, 0])
-        for slot, pattern in ((0, r"Used (\d+) registers"),
-                              (1, r"(\d+) bytes spill stores")):
+            entry = worst.setdefault(m.group(1), dict.fromkeys(keys, 0))
+        for key, pattern in zip(keys, patterns):
             m = re.search(pattern, line)
             if m and entry is not None:
-                entry[slot] = max(entry[slot], int(m.group(1)))
+                entry[key] = max(entry[key], int(m.group(1)))
     return worst
 
 
@@ -1063,11 +1240,24 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
-    cb.lib()  # build (or reuse) and load the kernels
+    lib = cb.lib()  # build (or reuse) and load the kernels
+    # the planners' copies of what the library and the card say
+    card_smem = lib.pop2_max_dynamic_smem()
+    if card_smem != cb.SMEM_PER_BLOCK:
+        raise AssertionError(f"the card gives a block {card_smem} bytes of "
+                             f"shared memory, the planners assume "
+                             f"{cb.SMEM_PER_BLOCK}")
+    for nt in range(1, gm_chain_cuda.MAX_TRACERS + 1):
+        c_values = lib.pop2_gm_chain_smem_values(nt)
+        if c_values != gm_chain_cuda.smem_values(nt):
+            raise AssertionError(f"gm_chain shared memory a column (nt={nt}):"
+                                 f" library {c_values}, planner "
+                                 f"{gm_chain_cuda.smem_values(nt)}")
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": cb.build_seconds,
           "library": "nvcc sm_90a, ctypes",
-          "max_registers_and_spill_bytes": ptxas_summary()})
+          "smem_per_block_bytes": card_smem,
+          "ptxas_worst_instance": ptxas_summary()})
 
     records = {}
     for dtype_name in ("float32", "float64"):
@@ -1075,6 +1265,7 @@ def main():
         records[dtype_name].update(gm_kernel_phase(dtype_name))
         other_modes_phase(dtype_name)
         gm_other_modes_phase(dtype_name)
+        ragged_phase(dtype_name)
     launches = {}
     for path in PATHS:
         for dtype_name in ("float32", "float64"):

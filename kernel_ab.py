@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Time this checkout's thomas, GM chain and GM flux-assembly kernels beside
+another checkout's, in turns, on one GPU: the tool for judging a kernel's
+redesign against the design it replaces.
+
+    mkdir -p _parent && git archive <commit> pop2_tpu_torch | tar -x -C _parent
+    python3 kernel_ab.py _parent
+
+(``_parent/`` is git-ignored.) Both checkouts are driven through their
+wrappers (``tridiag_cuda.thomas``, ``gm_chain_cuda.chain``,
+``gm_cuda.flux_assembly``), whose interface a redesign keeps: the other
+checkout's package is imported from its own directory, apart from this
+one's, and builds its kernels from its own sources. The operands are those
+of ``chip_smoke.py``'s kernel phases at 320 x 384 x 60, nt = 2, in float32
+and float64: thomas for 1 and 2 right-hand sides, the chain kernel in the
+gm_full path's instance, the flux assembly in both of its instances (the
+gm_flux path's cancellation and the skew). Each kernel runs in turns other,
+this, this, other; a turn takes both of ``chip_smoke.py``'s times: ``ms``
+(median of single calls between CUDA events, the ``kernels`` line's
+method) and ``ms_back_to_back`` (calls back to back). The two checkouts'
+outputs are compared (largest difference over the output's largest value).
+
+Prints the card's name and power limit, then one JSON object a line.
+"""
+
+from __future__ import annotations
+
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import gm, gm_chain_cuda, gm_cuda, gm_slope_cuda, sample
+from pop2_tpu_torch import tridiag_cuda
+from pop2_tpu_torch.grid import build_grid, grid_bc
+
+PKG = "pop2_tpu_torch"
+N = 20  # calls a turn, for each of the two times
+
+
+def _ours() -> dict:
+    return {k: m for k, m in sys.modules.items()
+            if k == PKG or k.startswith(PKG + ".")}
+
+
+def other_package(root: Path) -> dict:
+    """The other checkout's wrapper modules and build module, imported from
+    ``root`` under the package's own name and then set apart, so that this
+    checkout's modules stay what ``import`` finds."""
+    ours = _ours()
+    for k in ours:
+        del sys.modules[k]
+    sys.path.insert(0, str(root))
+    try:
+        mods = {n: importlib.import_module(f"{PKG}.{n}")
+                for n in ("_cuda_build", "tridiag_cuda", "gm_chain_cuda",
+                          "gm_cuda")}
+    finally:
+        sys.path.remove(str(root))
+        for k in _ours():
+            del sys.modules[k]
+        sys.modules.update(ours)
+    where = Path(mods["_cuda_build"].__file__).resolve()
+    if root not in where.parents:
+        raise SystemExit(f"{root}: no {PKG} package there ({where})")
+    return mods
+
+
+def in_turns(other, this) -> dict:
+    """Both times of each, in turns other, this, this, other."""
+    rec = {"ms_other": [], "ms_this": [], "ms_back_to_back_other": [],
+           "ms_back_to_back_this": []}
+    for name, fn in (("other", other), ("this", this), ("this", this),
+                     ("other", other)):
+        rec["ms_" + name].append(cs.time_ms(fn, 3, N))
+        rec["ms_back_to_back_" + name].append(
+            cs.time_ms_back_to_back(fn, N))
+    for key in ("ms", "ms_back_to_back"):
+        rec[key + "_this_over_other"] = (sum(rec[key + "_this"])
+                                         / sum(rec[key + "_other"]))
+    return rec
+
+
+def rel_diff(got, want) -> float:
+    """Largest difference between two checkouts' outputs over the largest
+    value, across the outputs."""
+    return max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+               for a, b in zip(got, want))
+
+
+def thomas_cases(other, dtype_name):
+    cfg = cs.full_config(dtype_name)
+    grid = build_grid(cfg, cs.DEV)
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    f = cs.random_fields(cfg, grid, gen)
+    hfac, h1, a = cs.thomas_operands(cfg, grid, f)
+    for nr in (1, 2):
+        args = (hfac, h1, grid.KMT, a, f["rhs"][:nr].contiguous())
+        rec = in_turns(lambda: other["tridiag_cuda"].thomas(*args),
+                       lambda: tridiag_cuda.thomas(*args))
+        rec["rel_diff_this_vs_other"] = rel_diff(
+            [tridiag_cuda.thomas(*args)],
+            [other["tridiag_cuda"].thomas(*args)])
+        cs.emit({"kernel": "thomas", "dtype": dtype_name, "nr": nr, **rec})
+
+
+def gm_cases(other, dtype_name):
+    cfg = cs.full_config(dtype_name, "gm_full")
+    # each checkout's wrappers keep their per-grid tables on the grid object
+    grid, grid_o = build_grid(cfg, cs.DEV), build_grid(cfg, cs.DEV)
+    bc = grid_bc(cfg)
+    tr = cs.ts_range_of(cfg, grid)
+    tmix = sample.grid_tracers(cfg, grid, cs.SEED + 2)
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
+    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
+                              gm._rossby_radius(grid))
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    ops = (tmix, slp, sla, kv, tlt, False)
+    rec = in_turns(
+        lambda: other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops),
+        lambda: gm_chain_cuda.chain(cfg, grid, bc, *ops))
+    rec["rel_diff_this_vs_other"] = rel_diff(
+        gm_chain_cuda.chain(cfg, grid, bc, *ops)[:2],
+        other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops)[:2])
+    cs.emit({"kernel": "gm_chain", "dtype": dtype_name, **rec})
+    del slp, sla, n2, kv, tlt, ops
+
+    cfg_f = cs.full_config(dtype_name, "gm_flux")
+    f = sample.flux_operands(cfg_f, grid, bc, tr, tmix)
+    for cancellation in (True, False):
+        ops = f + (cancellation,)
+        rec = in_turns(
+            lambda: other["gm_cuda"].flux_assembly(cfg_f, grid_o, bc, *ops),
+            lambda: gm_cuda.flux_assembly(cfg_f, grid, bc, *ops))
+        rec["rel_diff_this_vs_other"] = rel_diff(
+            gm_cuda.flux_assembly(cfg_f, grid, bc, *ops),
+            other["gm_cuda"].flux_assembly(cfg_f, grid_o, bc, *ops))
+        cs.emit({"kernel": "gm_flux", "dtype": dtype_name,
+                 "instance": "cancellation" if cancellation else "skew",
+                 **rec})
+
+
+def main():
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    other = other_package(Path(sys.argv[1]).resolve())
+    ocb = other["_cuda_build"]
+    ocb.lib()
+    cb.lib()
+    cs.emit({"build_seconds_other": ocb.build_seconds,
+             "build_seconds_this": cb.build_seconds,
+             "ptxas_other": cs.ptxas_summary(ocb.build_log()),
+             "ptxas_this": cs.ptxas_summary()})
+    for dtype_name in ("float32", "float64"):
+        thomas_cases(other, dtype_name)
+        gm_cases(other, dtype_name)
+
+
+if __name__ == "__main__":
+    main()

@@ -29,6 +29,10 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = ("thomas.cu", "tracer.cu", "clinic.cu", "gm_slope.cu",
            "gm_chain.cu", "gm_flux.cu")
 HEADERS = ("common.cuh", "gm_flux.cuh")
+# kernels of one thread a column in blocks of ONE_COLUMN_THREADS (kThreads of
+# csrc/common.cuh) and no shared memory
+ONE_COLUMN_KERNELS = ("tracer", "clinic", "gm_slope", "gm_flux")
+ONE_COLUMN_THREADS = 128
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +41,19 @@ _lib = None
 build_seconds = 0.0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+# Dynamic shared memory a block may take on an H100 (227 KB of the SM's 228;
+# the launch planners keep under it). The library's pop2_max_dynamic_smem
+# reads the card's own figure; chip_smoke.py holds the two together.
+SMEM_PER_BLOCK = 232448
+
+
+def check_smem(smem: int, what: str) -> None:
+    """Raise where a block would need more shared memory than the card
+    gives one block."""
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block, "
+                         f"the card gives at most {SMEM_PER_BLOCK} (227 KB)")
 
 
 def _nvcc() -> str:
@@ -93,21 +110,29 @@ def _build(so_path: Path) -> None:
 def _declare(lib) -> None:
     p, i, l, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                   ctypes.c_double)
-    lib.pop2_thomas.argtypes = [i, i, i, l] + [p] * 7
+    lib.pop2_thomas.argtypes = [i, i, i, l, i, l] + [p] * 7
     lib.pop2_thomas.restype = i
+    lib.pop2_thomas_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_gm_chain_smem_values.argtypes = [i]
+    for name in ONE_COLUMN_KERNELS:
+        getattr(lib, f"pop2_{name}_blocks_per_sm").argtypes = [i, i]
+        getattr(lib, f"pop2_{name}_blocks_per_sm").restype = i
     lib.pop2_tracer.argtypes = [i] * 8 + [p] * 20 + [d, p, p]
     lib.pop2_tracer.restype = i
     lib.pop2_clinic.argtypes = [i] * 5 + [p] * 17 + [d] * 4 + [p] * 5
     lib.pop2_clinic.restype = i
     lib.pop2_gm_slopes.argtypes = [i] * 5 + [d] + [p] * 9
     lib.pop2_gm_slopes.restype = i
-    lib.pop2_gm_chain.argtypes = [i] * 8 + [p] * 19
+    lib.pop2_gm_chain.argtypes = [i] * 9 + [l] + [p] * 19
     lib.pop2_gm_chain.restype = i
     lib.pop2_gm_flux.argtypes = [i] * 7 + [p] * 17
     lib.pop2_gm_flux.restype = i
-    for count in ("pop2_thomas_max_levels", "pop2_clinic_g2d_count",
-                  "pop2_gm_slope_coef_rows", "pop2_gm_chain_lev_rows",
-                  "pop2_gm_flux_max_tracers"):
+    for count in ("pop2_clinic_g2d_count", "pop2_gm_slope_coef_rows",
+                  "pop2_gm_chain_lev_rows", "pop2_gm_flux_max_tracers",
+                  "pop2_thomas_blocks_per_sm",
+                  "pop2_gm_chain_blocks_per_sm", "pop2_gm_chain_smem_values",
+                  "pop2_max_dynamic_smem"):
         getattr(lib, count).restype = i
 
 

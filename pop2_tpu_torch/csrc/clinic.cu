@@ -264,3 +264,11 @@ extern "C" int pop2_clinic(int dtype, int km, int ny, int nx, int cyclic,
 }
 
 extern "C" int pop2_clinic_g2d_count() { return pop2::G_COUNT; }
+
+// Blocks of the one-column launch that one SM holds at once (variant unused).
+extern "C" int pop2_clinic_blocks_per_sm(int dtype, int variant) {
+  using namespace pop2;
+  (void)variant;
+  return dtype == 0 ? blocks_per_sm(clinic_kernel<float>, kThreads, 0)
+                    : blocks_per_sm(clinic_kernel<double>, kThreads, 0);
+}

@@ -1,18 +1,27 @@
 // Shared helpers for the hand-written Hopper kernels of the ocean core.
 //
-// All three kernels use the same layout: one thread per (j, i) water column,
-// i fastest so a warp reads 32 neighbouring addresses, a loop over k with
-// the column's carries in registers, neighbours read straight from global
-// memory (L1/L2 serve the re-reads). Fields are dense row-major
-// (..., km, ny, nx) arrays; closed boundaries read zero, a cyclic east-west
-// boundary wraps the index.
+// Fields are dense row-major (..., km, ny, nx) arrays, i fastest, so a warp
+// of neighbouring columns reads 32 neighbouring addresses; closed boundaries
+// read zero, a cyclic east-west boundary wraps the index. Two designs:
+//
+//   one thread per (j, i) water column, a loop over k with the column's
+//   carries in registers and the neighbours read straight from global
+//   memory, L1/L2 serving the re-reads (tracer, clinic, gm_slope, gm_flux);
+//
+//   shared-memory staging with asynchronous copies (`cp.async`) issued ahead
+//   of the arithmetic: thomas stages whole columns, gm_chain a 2-D tile of
+//   columns with a one-column halo, level by level, and exchanges the
+//   columns' weights through shared memory. Their block shape and dynamic
+//   shared memory come from the caller (the wrappers' launch planners); the
+//   C entries check them against the layout, and the card refuses a block
+//   over what it gives one (`allow_large_smem`).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace pop2 {
 
-constexpr int kThreads = 128;  // threads per block: 4 warps, 1 column each
+constexpr int kThreads = 128;  // threads per block of the one-column kernels
 
 // Horizontal position of a thread's column and of its four neighbours.
 // An index that would leave the domain through a closed edge is clamped to
@@ -23,26 +32,34 @@ struct Column {
   bool vn, vs, ve, vw;
 };
 
+// The column at (j, i), which must lie inside the domain.
+__device__ __forceinline__ void locate_at(int ny, int nx, int cyclic, int j,
+                                          int i, Column* c) {
+  c->j = j;
+  c->i = i;
+  c->vs = j > 0;
+  c->vn = j < ny - 1;
+  c->js = c->vs ? j - 1 : j;
+  c->jn = c->vn ? j + 1 : j;
+  if (cyclic) {
+    c->ve = c->vw = true;
+    c->ie = (i + 1 == nx) ? 0 : i + 1;
+    c->iw = (i == 0) ? nx - 1 : i - 1;
+  } else {
+    c->ve = i < nx - 1;
+    c->vw = i > 0;
+    c->ie = c->ve ? i + 1 : i;
+    c->iw = c->vw ? i - 1 : i;
+  }
+}
+
+// The column of this thread in a one-column-a-thread launch.
 __device__ __forceinline__ bool locate(int ny, int nx, int cyclic,
                                        Column* c) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= (long)ny * nx) return false;
-  c->j = (int)(p / nx);
-  c->i = (int)(p - (long)c->j * nx);
-  c->vs = c->j > 0;
-  c->vn = c->j < ny - 1;
-  c->js = c->vs ? c->j - 1 : c->j;
-  c->jn = c->vn ? c->j + 1 : c->j;
-  if (cyclic) {
-    c->ve = c->vw = true;
-    c->ie = (c->i + 1 == nx) ? 0 : c->i + 1;
-    c->iw = (c->i == 0) ? nx - 1 : c->i - 1;
-  } else {
-    c->ve = c->i < nx - 1;
-    c->vw = c->i > 0;
-    c->ie = c->ve ? c->i + 1 : c->i;
-    c->iw = c->vw ? c->i - 1 : c->i;
-  }
+  const int j = (int)(p / nx);
+  locate_at(ny, nx, cyclic, j, (int)(p - (long)j * nx), c);
   return true;
 }
 
@@ -54,5 +71,55 @@ __device__ __forceinline__ T ldz(const T* __restrict__ f, long off,
 }
 
 inline int blocks_for(long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+// ---- asynchronous copies into shared memory (sm_80 and later) ------------
+
+// Start copying one value from device memory into shared memory; with
+// valid == false nothing is read and the value becomes zero.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem, bool valid) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte values");
+  constexpr int kBytes = sizeof(T);
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(gmem), "n"(kBytes), "r"(valid ? kBytes : 0)
+               : "memory");
+}
+
+// Close the group of copies this thread started since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Let a kernel take `smem` bytes of dynamic shared memory a block and
+// prefer shared memory over L1 in the SM's split. The attributes belong to
+// the current device, so this is called before every launch (it is cheap);
+// it fails where the card gives a block less than `smem`.
+template <typename K>
+inline cudaError_t allow_large_smem(K* kernel, long smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Blocks of `threads` threads and `smem` bytes of dynamic shared memory that
+// fit on one SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// minus the CUDA error.
+template <typename K>
+inline int blocks_per_sm(K* kernel, int threads, long smem) {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel, threads, (size_t)smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
 
 }  // namespace pop2

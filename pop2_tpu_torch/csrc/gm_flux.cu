@@ -14,8 +14,9 @@
 // memory so its tiles fit fast memory; here each thread forms the weights it
 // needs from the unpacked fields in registers, for its own column and (the
 // one face that touches it) for each of its four neighbours, so no pack is
-// ever written. The arithmetic is `gm_flux_column` in gm_flux.cuh, shared
-// with the fused chain kernel. Both `cancellation` branches are instances.
+// ever written. The arithmetic is `gm_flux_level` in gm_flux.cuh, driven
+// here by `gm_flux_column` and shared with the fused chain kernel. Both
+// `cancellation` branches are instances.
 #include "gm_flux.cuh"
 
 namespace pop2 {
@@ -127,4 +128,15 @@ extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
     POP2_GM_FLUX(double, false);
 #undef POP2_GM_FLUX
   return (int)cudaGetLastError();
+}
+
+// Blocks of the one-column launch that one SM holds at once; variant: the
+// cancellation instance (1) or the skew one (0).
+extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int variant) {
+  using namespace pop2;
+  if (dtype == 0)
+    return variant ? blocks_per_sm(gm_flux_kernel<float, true>, kThreads, 0)
+                   : blocks_per_sm(gm_flux_kernel<float, false>, kThreads, 0);
+  return variant ? blocks_per_sm(gm_flux_kernel<double, true>, kThreads, 0)
+                 : blocks_per_sm(gm_flux_kernel<double, false>, kThreads, 0);
 }

@@ -3,33 +3,29 @@
 // the column, their divergence GTK for every tracer, and VDC_GM, the |S|^2
 // vertical diffusivity handed to the implicit solve.
 //
-// Written once and used by two kernels. `gm_flux.cu` feeds it precomputed
-// tracer differences and the slope / streamfunction / diffusivity fields;
-// `gm_chain.cu` feeds it tracer differences formed from the tracer columns
-// and weights it derives from the slope kernel's output. The two differ only
-// in the providers they hand to `gm_flux_column`:
-//
-//   weights provider  W:  own(k, GmWeights*)               this column
-//                         face(nb, k, &weff, &vt, &vb)     neighbour nb: its
-//                             effective diffusivity and the skew weights of
-//                             the face it shares with this column
-//   difference provider D: tx_c/tx_w/ty_c/ty_s(n, k), tz(n, k, col)
-//
-// One thread owns a column. The east- and north-face fluxes need the
-// neighbour's weights, and the divergence needs the west and south
-// neighbours' fluxes, so a thread evaluates the fluxes through all four of
-// its faces itself from the weights of its 4-neighbourhood: redundant
-// arithmetic, nothing exchanged between threads, no intermediate in device
-// memory. The vertical flux through a level's bottom needs the top-half
-// weights of the level below: the column's own weights are computed one level
-// ahead and handed down.
+// Written once and used by two kernels; the arithmetic of a level is
+// `gm_flux_level`, fed with
+//   the level's scalars and face masks (GmLevel, from `gm_level`),
+//   the column's own weights at the level (GmWeights `cur`, from
+//     `gm_make_weights`) and the next level's (`nxt`: the vertical flux
+//     through the level's bottom needs the top-half weights of the level
+//     below),
+//   each neighbour's effective diffusivity and the skew weights of the face
+//     it shares with the column, through a provider (HeldWeights: values in
+//     registers),
+//   a difference provider D: tx_c/tx_w/ty_c/ty_s(n, k), tz(n, k, col).
+// `gm_flux.cu` (one thread a column, neighbours read from device memory)
+// drives it through `gm_flux_column` with its own and facing weights formed
+// from the given fields; `gm_chain.cu` (a 2-D tile of columns in shared
+// memory) forms every column's weights once a level and hands the
+// neighbours' from shared memory.
 #pragma once
 
 #include "common.cuh"
 
 namespace pop2 {
 
-constexpr int kMaxTracers = 16;  // per-thread vertical-flux carries
+constexpr int kMaxTracers = 16;  // tracers a launch (vertical-flux carries)
 enum { kC = 0, kE = 1, kW = 2, kN = 3, kS = 4 };  // column of the stencil
 enum { fE = 0, fW = 1, fN = 2, fS = 3 };          // face of a cell
 
@@ -168,114 +164,154 @@ struct GivenDiffs {
   }
 };
 
-// Tracer differences formed from the tracer columns themselves: face
-// differences masked where either side is below its bottom, tz(k) = T(k-1) -
-// T(k) with tz(0) = 0.
+// Of each neighbour column of the stencil: its effective diffusivity and the
+// skew weights of the face it shares with the centre column (zero where a
+// closed edge cuts the neighbour off).
 template <typename T>
-struct TracerDiffs {
-  const T* __restrict__ t;
-  Stencil s;
-  int kmt[5];
-  long ls, ts;
-
-  __device__ __forceinline__ T at(int n, int k, int col) const {
-    return ldz(t + n * ts + k * ls, s.off[col], s.valid[col]);
-  }
-  __device__ __forceinline__ T face(int n, int k, int a, int b) const {
-    return (k < kmt[a] && k < kmt[b]) ? at(n, k, b) - at(n, k, a) : T(0);
-  }
-  __device__ __forceinline__ T tx_c(int n, int k) const {
-    return face(n, k, kC, kE);
-  }
-  __device__ __forceinline__ T tx_w(int n, int k) const {
-    return face(n, k, kW, kC);
-  }
-  __device__ __forceinline__ T ty_c(int n, int k) const {
-    return face(n, k, kC, kN);
-  }
-  __device__ __forceinline__ T ty_s(int n, int k) const {
-    return face(n, k, kS, kC);
-  }
-  __device__ __forceinline__ T tz(int n, int k, int col) const {
-    return k > 0 ? at(n, k - 1, col) - at(n, k, col) : T(0);
-  }
+struct FacingWeights {
+  T weff[5], vt[5], vb[5];
 };
 
-// GTK (nt, km, ny, nx) and VDC_GM (km, ny, nx) of the thread's column.
-// `lev` holds three rows of km level scalars: dz, 1/dz, and dzw between the
-// level and the one below.
+// The weights a level's face fluxes read, as `gm_flux_level` asks for them:
+// own_weff(), own_vt(f), own_vb(f) of the column itself, nb_weff(c),
+// nb_vt(c), nb_vb(c) of neighbour column c (its face that looks back). Here
+// held in registers; gm_chain.cu reads them from shared memory instead.
+template <typename T>
+struct HeldWeights {
+  const GmWeights<T>& own;
+  const FacingWeights<T>& nb;
+
+  __device__ __forceinline__ T own_weff() const { return own.weff; }
+  __device__ __forceinline__ T own_vt(int f) const { return own.vt[f]; }
+  __device__ __forceinline__ T own_vb(int f) const { return own.vb[f]; }
+  __device__ __forceinline__ T nb_weff(int c) const { return nb.weff[c]; }
+  __device__ __forceinline__ T nb_vt(int c) const { return nb.vt[c]; }
+  __device__ __forceinline__ T nb_vb(int c) const { return nb.vb[c]; }
+};
+
+// Level k of a column apart from its weights: the level scalars (`lev`
+// holds three rows of km: dz, 1/dz, and dzw between the level and the one
+// below), whether the level and the one below are ocean, and the masked
+// quarter metrics of its four faces.
+template <typename T>
+struct GmLevel {
+  int k, kp;  // the level, and the one below it (k itself at the bottom)
+  bool in_c, below;
+  T dzk, dzrk, dzwk;
+  T cx_c, cx_w, cy_c, cy_s;
+};
+
+template <typename T>
+__device__ __forceinline__ GmLevel<T> gm_level(const GmMetrics<T>& m, int km,
+                                               int k,
+                                               const T* __restrict__ lev) {
+  GmLevel<T> g;
+  const int kk = k + 1;  // 1-based level
+  const bool last = k == km - 1;
+  g.k = k;
+  g.kp = last ? k : k + 1;
+  g.dzk = lev[k];
+  g.dzrk = lev[km + k];
+  g.dzwk = lev[2 * km + k];
+  g.in_c = kk <= m.kmt[kC];
+  g.below = kk < m.kmt[kC] && !last;
+  g.cx_c = (g.in_c && kk <= m.kmt[kE]) ? T(0.25) * m.hyx : T(0);
+  g.cx_w = (g.in_c && kk <= m.kmt[kW]) ? T(0.25) * m.hyxw : T(0);
+  g.cy_c = (g.in_c && kk <= m.kmt[kN]) ? T(0.25) * m.hxy : T(0);
+  g.cy_s = (g.in_c && kk <= m.kmt[kS]) ? T(0.25) * m.hxys : T(0);
+  return g;
+}
+
+// GTK of every tracer and VDC_GM at level g.k of the column at offset oc.
+// The face weights come from `w` (see HeldWeights), the vertical-flux
+// weights from the column's own at the level (`cur`: a, part_a) and the
+// level below (`nxt`: b, part_b). fztop[n * fzs] carries the vertical flux
+// through the level's top down the column (zero above the first level).
+template <typename T, bool CANCEL, class D, class W>
+__device__ __forceinline__ void gm_flux_level(
+    const D& dp, const GmMetrics<T>& m, int nt, const GmLevel<T>& g,
+    const GmWeights<T>& cur, const GmWeights<T>& nxt, const W& w,
+    T* fztop, int fzs, long ls, long ts, long oc, T* __restrict__ gtk,
+    T* __restrict__ vdc) {
+  const T fac = CANCEL ? T(0.5) : T(0.25);
+  const int k = g.k, kp = g.kp;
+  const T dzk = g.dzk;
+  const T cx_c = g.cx_c, cx_w = g.cx_w, cy_c = g.cy_c, cy_s = g.cy_s;
+
+  for (int n = 0; n < nt; ++n) {
+    const T tx_c = dp.tx_c(n, k), tx_w = dp.tx_w(n, k);
+    const T ty_c = dp.ty_c(n, k), ty_s = dp.ty_s(n, k);
+    T tz[5], tzp[5];  // the skew terms alone read them
+#pragma unroll
+    for (int col = 0; col < 5; ++col) {
+      tz[col] = CANCEL ? T(0) : dp.tz(n, k, col);
+      tzp[col] = CANCEL ? T(0) : dp.tz(n, kp, col);
+    }
+    const T fx_c = gm_face_flux<T, CANCEL>(
+        dzk, cx_c, tx_c, w.own_weff() + w.nb_weff(kE), w.own_vt(fE),
+        w.own_vb(fE), w.nb_vt(kE), w.nb_vb(kE), tz[kC], tzp[kC], tz[kE],
+        tzp[kE]);
+    const T fx_w = gm_face_flux<T, CANCEL>(
+        dzk, cx_w, tx_w, w.nb_weff(kW) + w.own_weff(), w.nb_vt(kW),
+        w.nb_vb(kW), w.own_vt(fW), w.own_vb(fW), tz[kW], tzp[kW], tz[kC],
+        tzp[kC]);
+    const T fy_c = gm_face_flux<T, CANCEL>(
+        dzk, cy_c, ty_c, w.own_weff() + w.nb_weff(kN), w.own_vt(fN),
+        w.own_vb(fN), w.nb_vt(kN), w.nb_vb(kN), tz[kC], tzp[kC], tz[kN],
+        tzp[kN]);
+    const T fy_s = gm_face_flux<T, CANCEL>(
+        dzk, cy_s, ty_s, w.nb_weff(kS) + w.own_weff(), w.nb_vt(kS),
+        w.nb_vb(kS), w.own_vt(fS), w.own_vb(fS), tz[kS], tzp[kS], tz[kC],
+        tzp[kC]);
+
+    // vertical flux through the level's bottom: this level's bottom half
+    // and the top half of the level below
+    T fz = T(0);
+    if (g.below) {
+      const T work =
+          cur.a[fE] * m.hyx * tx_c + cur.a[fW] * m.hyxw * tx_w +
+          cur.a[fN] * m.hxy * ty_c + cur.a[fS] * m.hxys * ty_s +
+          nxt.b[fE] * m.hyx * dp.tx_c(n, kp) +
+          nxt.b[fW] * m.hyxw * dp.tx_w(n, kp) +
+          nxt.b[fN] * m.hxy * dp.ty_c(n, kp) +
+          nxt.b[fS] * m.hxys * dp.ty_s(n, kp);
+      fz = -fac * work;
+    }
+    const T div = (fx_c - fx_w + fy_c - fy_s + fztop[n * fzs] - fz) *
+                  g.dzrk * m.tarea_r;
+    gtk[n * ts + k * ls + oc] = g.in_c ? div : T(0);
+    fztop[n * fzs] = fz;
+  }
+  vdc[k * ls + oc] =
+      g.below ? g.dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
+}
+
+// GTK (nt, km, ny, nx) and VDC_GM (km, ny, nx) of the thread's column, the
+// weights from a provider W: own(k, GmWeights*) of this column, and
+// face(nb, k, &weff, &vt, &vb) of neighbour nb (its effective diffusivity
+// and the skew weights of the face that looks back at this column). The
+// next level's weights and the differences below the level are read at the
+// one index g.kp, which the compiler then shares (in float32 the
+// cancellation instance keeps eight blocks an SM that way).
 template <typename T, bool CANCEL, class W, class D>
 __device__ __forceinline__ void gm_flux_column(
     W& wp, const D& dp, const GmMetrics<T>& m, int nt, int km, long ls,
     long ts, long oc, const T* __restrict__ lev, T* __restrict__ gtk,
     T* __restrict__ vdc) {
-  const T fac = CANCEL ? T(0.5) : T(0.25);
   T fztop[kMaxTracers];
   for (int n = 0; n < nt; ++n) fztop[n] = T(0);
 
   GmWeights<T> cur, nxt;
   wp.own(0, &cur);
   for (int k = 0; k < km; ++k) {
-    const int kk = k + 1;  // 1-based level
-    const bool last = k == km - 1;
-    const int kp = last ? k : k + 1;
-    if (!last) wp.own(kp, &nxt);
-    const T dzk = lev[k], dzrk = lev[km + k], dzwk = lev[2 * km + k];
-
-    T weff[5], vt[5], vb[5];  // neighbours: the face looking back at us
+    const GmLevel<T> g = gm_level(m, km, k, lev);
+    if (k < km - 1) wp.own(g.kp, &nxt);
+    FacingWeights<T> nb;
 #pragma unroll
     for (int col = kE; col <= kS; ++col)
-      wp.face(col, k, &weff[col], &vt[col], &vb[col]);
-
-    const bool in_c = kk <= m.kmt[kC];
-    const bool below = kk < m.kmt[kC] && !last;
-    const T cx_c = (in_c && kk <= m.kmt[kE]) ? T(0.25) * m.hyx : T(0);
-    const T cx_w = (in_c && kk <= m.kmt[kW]) ? T(0.25) * m.hyxw : T(0);
-    const T cy_c = (in_c && kk <= m.kmt[kN]) ? T(0.25) * m.hxy : T(0);
-    const T cy_s = (in_c && kk <= m.kmt[kS]) ? T(0.25) * m.hxys : T(0);
-
-    for (int n = 0; n < nt; ++n) {
-      const T tx_c = dp.tx_c(n, k), tx_w = dp.tx_w(n, k);
-      const T ty_c = dp.ty_c(n, k), ty_s = dp.ty_s(n, k);
-      T tz[5], tzp[5];  // the skew terms alone read them
-#pragma unroll
-      for (int col = 0; col < 5; ++col) {
-        tz[col] = CANCEL ? T(0) : dp.tz(n, k, col);
-        tzp[col] = CANCEL ? T(0) : dp.tz(n, kp, col);
-      }
-      const T fx_c = gm_face_flux<T, CANCEL>(
-          dzk, cx_c, tx_c, cur.weff + weff[kE], cur.vt[fE], cur.vb[fE],
-          vt[kE], vb[kE], tz[kC], tzp[kC], tz[kE], tzp[kE]);
-      const T fx_w = gm_face_flux<T, CANCEL>(
-          dzk, cx_w, tx_w, weff[kW] + cur.weff, vt[kW], vb[kW], cur.vt[fW],
-          cur.vb[fW], tz[kW], tzp[kW], tz[kC], tzp[kC]);
-      const T fy_c = gm_face_flux<T, CANCEL>(
-          dzk, cy_c, ty_c, cur.weff + weff[kN], cur.vt[fN], cur.vb[fN],
-          vt[kN], vb[kN], tz[kC], tzp[kC], tz[kN], tzp[kN]);
-      const T fy_s = gm_face_flux<T, CANCEL>(
-          dzk, cy_s, ty_s, weff[kS] + cur.weff, vt[kS], vb[kS], cur.vt[fS],
-          cur.vb[fS], tz[kS], tzp[kS], tz[kC], tzp[kC]);
-
-      // vertical flux through the level's bottom: this level's bottom half
-      // and the top half of the level below
-      T fz = T(0);
-      if (below) {
-        const T work =
-            cur.a[fE] * m.hyx * tx_c + cur.a[fW] * m.hyxw * tx_w +
-            cur.a[fN] * m.hxy * ty_c + cur.a[fS] * m.hxys * ty_s +
-            nxt.b[fE] * m.hyx * dp.tx_c(n, kp) +
-            nxt.b[fW] * m.hyxw * dp.tx_w(n, kp) +
-            nxt.b[fN] * m.hxy * dp.ty_c(n, kp) +
-            nxt.b[fS] * m.hxys * dp.ty_s(n, kp);
-        fz = -fac * work;
-      }
-      const T div = (fx_c - fx_w + fy_c - fy_s + fztop[n] - fz) * dzrk *
-                    m.tarea_r;
-      gtk[n * ts + k * ls + oc] = in_c ? div : T(0);
-      fztop[n] = fz;
-    }
-    vdc[k * ls + oc] =
-        below ? dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
+      wp.face(col, k, &nb.weff[col], &nb.vt[col], &nb.vb[col]);
+    gm_flux_level<T, CANCEL>(dp, m, nt, g, cur, nxt, HeldWeights<T>{cur, nb},
+                             fztop, 1, ls, ts, oc, gtk, vdc);
     cur = nxt;
   }
 }

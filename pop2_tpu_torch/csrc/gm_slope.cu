@@ -191,3 +191,11 @@ extern "C" int pop2_gm_slopes(int dtype, int km, int ny, int nx, int cyclic,
 #undef POP2_GM_SLOPES
   return (int)cudaGetLastError();
 }
+
+// Blocks of the one-column launch that one SM holds at once (variant unused).
+extern "C" int pop2_gm_slope_blocks_per_sm(int dtype, int variant) {
+  using namespace pop2;
+  (void)variant;
+  return dtype == 0 ? blocks_per_sm(gm_slope_kernel<float>, kThreads, 0)
+                    : blocks_per_sm(gm_slope_kernel<double>, kThreads, 0);
+}

@@ -12,122 +12,219 @@
 //
 // Bound on this card: bytes. The minimum traffic is A once, every rhs once
 // and every solution once ((1 + 2 nr) fields); there are about ten flops per
-// value. The design: one thread per column, so each level's loads and
-// stores of a warp are 32 consecutive values; B, C and the nr partial
-// solutions of the forward sweep ride in registers. The elimination
-// coefficients E_k must survive from the forward to the backward sweep:
-// they live in a per-thread local array bounded by kMaxLevels (km <= 64
-// covers every grid of the model, the deepest has 62 levels). Local memory
-// is interleaved by thread, so its traffic is as coalesced as a
-// caller-allocated (km, ny, nx) scratch would be, without an allocation
-// per call; it stays in L1/L2 when the working set allows. The forward
-// solutions are parked in `out` and corrected in place going up, so `out`
-// is written twice and read once: about 3 nr + 1 field passes plus E.
+// value. The design: one thread per column (the recurrence is sequential in
+// k; the columns fill the card), a block of C columns, and the block's slab
+// of A and the nr right-hand sides, km levels deep, staged in shared memory
+// by asynchronous copies that the thread starts ahead of the sweep, in groups
+// of kChunk levels, kAhead groups in flight (so the sweep starts when the
+// first group has landed and many levels' loads are in flight at once).
+// Each thread reads and writes only its own column of the slab, so no block
+// barrier is needed, and the layout (level, column) keeps a warp's accesses
+// on 32 consecutive words. The forward sweep overwrites A_k by the
+// elimination coefficient E_k and rhs_k by the forward solution in place;
+// the back substitution reads them there and writes `out` once, level by
+// level. Device-memory traffic is the bound's. The slab, (1 + nr) km C
+// values, is the dynamic shared memory: C comes from the wrapper's planner
+// (`tridiag_cuda.launch_plan`) so that several blocks fit an SM. On an H100
+// 64 or 128 columns a block were no faster than 32, one group of copies in
+// flight slower than two and more than two no faster.
 #include "common.cuh"
 
 namespace pop2 {
 
 constexpr int kMaxLevels = 64;
+constexpr int kChunk = 8;              // levels a group of copies
+constexpr int kAhead = 2;              // groups of copies in flight
+constexpr int kMaxColsPerBlock = 256;  // threads a block at most
 
 template <typename T, int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxColsPerBlock)
 thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
               const T* __restrict__ h1, const int* __restrict__ kmax,
               const T* __restrict__ a, const T* __restrict__ rhs,
               T* __restrict__ out) {
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= ncol) return;
-  const long rs = (long)km * ncol;  // stride between right-hand sides
-  const int kmx = kmax[p];
-  T e[kMaxLevels];
-  T f[NR];
+  extern __shared__ __align__(16) unsigned char pop2_smem[];
+  const int C = blockDim.x, t = threadIdx.x;
+  const long p = (long)blockIdx.x * C + t;
+  if (p >= ncol) return;  // no barrier below: the ragged block just stops
+  T* se = reinterpret_cast<T*>(pop2_smem);  // (km, C): A_k, then E_k
+  T* sf = se + km * C;                      // (NR, km, C): rhs, then F
+  const long rs = (long)km * ncol;          // stride between right-hand sides
 
-  // level-1 set-up (source/vertical_mix.F90:1263-1274)
-  const T h1p = h1[p];
-  T c = a[p];
-  T dinv = T(1) / (h1p + c);
-  T ek = c * dinv;
-  T b = h1p * ek;
-  e[0] = ek;
-  T hf = hfac[0];
+  // copies of this column's levels, a group per kChunk levels, kAhead
+  // groups in flight: chunk g is waited for before its levels are swept and
+  // chunk g + kAhead is started after them
+  const int nchunk = (km + kChunk - 1) / kChunk;
+  auto start_chunk = [&](int g) {
+    const int k1 = min(km, (g + 1) * kChunk);
+    for (int k = g * kChunk; k < k1; ++k) {
+      const long o = (long)k * ncol + p;
+      cp_async(se + k * C + t, a + o, true);
 #pragma unroll
-  for (int n = 0; n < NR; ++n) {
-    f[n] = hf * rhs[n * rs + p] * dinv;
-    out[n * rs + p] = f[n];
-  }
-
-  // forward elimination
-  for (int k = 1; k < km; ++k) {
-    const int kk = k + 1;  // 1-based level
-    const bool at_bot = kmx == kk;
-    const bool below = kmx < kk;
-    const long o = (long)k * ncol + p;
-    const T ak = a[o];
-    hf = hfac[k];
-    const T d = below ? T(1) : hf + b + (at_bot ? T(0) : ak);
-    dinv = T(1) / d;
-    ek = below ? T(0) : ak * dinv;
-    b = (hf + b) * ek;
-    e[k] = ek;
-#pragma unroll
-    for (int n = 0; n < NR; ++n) {
-      f[n] = below ? T(0) : (hf * rhs[n * rs + o] + c * f[n]) * dinv;
-      out[n * rs + o] = f[n];
+      for (int n = 0; n < NR; ++n)
+        cp_async(sf + (n * km + k) * C + t, rhs + n * rs + o, true);
     }
-    c = ak;
+    cp_async_commit();
+  };
+  int started = 0;
+  while (started < min(kAhead, nchunk)) start_chunk(started++);
+
+  const int kmx = kmax[p];
+  T f[NR], c, b;
+  for (int g = 0; g < nchunk; ++g) {
+    // chunk g has landed once at most the chunks started after it are
+    // pending (none after the last one)
+    static_assert(kAhead == 2, "one chunk at most is pending behind g");
+    if (started - g - 1 > 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    const int k1 = min(km, (g + 1) * kChunk);
+    for (int k = g * kChunk; k < k1; ++k) {
+      T* ak_p = se + k * C + t;
+      const T ak = *ak_p;
+      if (k == 0) {
+        // level-1 set-up (source/vertical_mix.F90:1263-1274)
+        const T h1p = h1[p];
+        const T dinv = T(1) / (h1p + ak);
+        const T ek = ak * dinv;
+        b = h1p * ek;
+        *ak_p = ek;
+        const T hf = hfac[0];
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          T* fp = sf + n * km * C + t;
+          f[n] = hf * *fp * dinv;
+          *fp = f[n];
+        }
+      } else {
+        // forward elimination
+        const int kk = k + 1;  // 1-based level
+        const bool at_bot = kmx == kk;
+        const bool below = kmx < kk;
+        const T hf = hfac[k];
+        const T d = below ? T(1) : hf + b + (at_bot ? T(0) : ak);
+        const T dinv = T(1) / d;
+        const T ek = below ? T(0) : ak * dinv;
+        b = (hf + b) * ek;
+        *ak_p = ek;
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          T* fp = sf + (n * km + k) * C + t;
+          f[n] = below ? T(0) : (hf * *fp + c * f[n]) * dinv;
+          *fp = f[n];
+        }
+      }
+      c = ak;
+    }
+    if (started < nchunk) start_chunk(started++);
   }
 
   // back substitution (source/vertical_mix.F90:1338-1349): F_k += E_k F_{k+1}
-  // for k < kmax, sweeping up; f[] holds F_{k+1}
+  // for k < kmax, sweeping up; f[] holds F_{k+1}. Every level of `out` is
+  // written once.
+  const long ob = (long)(km - 1) * ncol + p;
+#pragma unroll
+  for (int n = 0; n < NR; ++n) out[n * rs + ob] = f[n];
   for (int k = km - 2; k >= 0; --k) {
     const bool interior = (k + 1) < kmx;
     const long o = (long)k * ncol + p;
-    ek = e[k];
+    const T ek = se[k * C + t];
 #pragma unroll
     for (int n = 0; n < NR; ++n) {
-      T fk = out[n * rs + o];
-      if (interior) {
-        fk = fk + ek * f[n];
-        out[n * rs + o] = fk;
-      }
+      T fk = sf[(n * km + k) * C + t];
+      if (interior) fk = fk + ek * f[n];
+      out[n * rs + o] = fk;
       f[n] = fk;
     }
   }
 }
 
-template <typename T>
-int thomas_launch(int nr, int km, long ncol, const void* hfac, const void* h1,
-                  const int* kmax, const void* a, const void* rhs, void* out,
-                  cudaStream_t stream) {
-  if (km < 1 || km > kMaxLevels || nr < 1 || nr > 3)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for(ncol)), block(kThreads);
-#define POP2_THOMAS(NR)                                                      \
-  thomas_kernel<T, NR><<<grid, block, 0, stream>>>(                          \
-      km, ncol, (const T*)hfac, (const T*)h1, kmax, (const T*)a,             \
-      (const T*)rhs, (T*)out)
-  switch (nr) {
-    case 1: POP2_THOMAS(1); break;
-    case 2: POP2_THOMAS(2); break;
-    default: POP2_THOMAS(3); break;
-  }
-#undef POP2_THOMAS
+// The launch configuration the wrapper chose: C columns a block (a multiple
+// of 32), `smem` bytes holding the (1 + nr) km C slab.
+inline bool thomas_config_ok(int nr, int km, int cols, long smem,
+                             int value_bytes) {
+  return km >= 1 && km <= kMaxLevels && nr >= 1 && nr <= 3 && cols >= 32 &&
+         cols <= kMaxColsPerBlock && cols % 32 == 0 &&
+         smem >= (long)(1 + nr) * km * cols * value_bytes;
+}
+
+template <typename T, int NR>
+int thomas_run(int km, long ncol, int cols, long smem, const void* hfac,
+               const void* h1, const int* kmax, const void* a,
+               const void* rhs, void* out, cudaStream_t stream) {
+  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((ncol + cols - 1) / cols)), block(cols);
+  thomas_kernel<T, NR><<<grid, block, smem, stream>>>(
+      km, ncol, (const T*)hfac, (const T*)h1, kmax, (const T*)a,
+      (const T*)rhs, (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int thomas_launch(int nr, int km, long ncol, int cols, long smem,
+                  const void* hfac, const void* h1, const int* kmax,
+                  const void* a, const void* rhs, void* out,
+                  cudaStream_t stream) {
+  if (!thomas_config_ok(nr, km, cols, smem, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  switch (nr) {
+    case 1: return thomas_run<T, 1>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                    rhs, out, stream);
+    case 2: return thomas_run<T, 2>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                    rhs, out, stream);
+    default: return thomas_run<T, 3>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                     rhs, out, stream);
+  }
+}
+
+template <typename T, int NR>
+int thomas_occupancy(int cols, long smem) {
+  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR>, smem);
+  if (e != cudaSuccess) return -(int)e;
+  return blocks_per_sm(thomas_kernel<T, NR>, cols, smem);
 }
 
 }  // namespace pop2
 
-// dtype: 0 = float32, 1 = float64. Returns cudaGetLastError() of the launch.
-extern "C" int pop2_thomas(int dtype, int nr, int km, long ncol,
-                           const void* hfac, const void* h1, const int* kmax,
-                           const void* a, const void* rhs, void* out,
-                           void* stream) {
+// dtype: 0 = float32, 1 = float64; cols: columns (threads) a block; smem:
+// dynamic shared memory a block, bytes. Returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for a configuration the kernel does not
+// take or the card cannot hold.
+extern "C" int pop2_thomas(int dtype, int nr, int km, long ncol, int cols,
+                           long smem, const void* hfac, const void* h1,
+                           const int* kmax, const void* a, const void* rhs,
+                           void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return pop2::thomas_launch<float>(nr, km, ncol, hfac, h1, kmax, a, rhs,
-                                      out, s);
-  return pop2::thomas_launch<double>(nr, km, ncol, hfac, h1, kmax, a, rhs,
-                                     out, s);
+    return pop2::thomas_launch<float>(nr, km, ncol, cols, smem, hfac, h1,
+                                      kmax, a, rhs, out, s);
+  return pop2::thomas_launch<double>(nr, km, ncol, cols, smem, hfac, h1,
+                                     kmax, a, rhs, out, s);
 }
 
-extern "C" int pop2_thomas_max_levels() { return pop2::kMaxLevels; }
+// Blocks a launch of this configuration keeps on one SM at once.
+extern "C" int pop2_thomas_blocks_per_sm(int dtype, int nr, int cols,
+                                         long smem) {
+  using namespace pop2;
+  if (nr < 1 || nr > 3) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return nr == 1 ? thomas_occupancy<float, 1>(cols, smem)
+                   : nr == 2 ? thomas_occupancy<float, 2>(cols, smem)
+                             : thomas_occupancy<float, 3>(cols, smem);
+  return nr == 1 ? thomas_occupancy<double, 1>(cols, smem)
+                 : nr == 2 ? thomas_occupancy<double, 2>(cols, smem)
+                           : thomas_occupancy<double, 3>(cols, smem);
+}
+
+// Dynamic shared memory a block may take on the current device, bytes
+// (the launch planners' limit).
+extern "C" int pop2_max_dynamic_smem() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return n;
+}

@@ -193,3 +193,14 @@ extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int km, int ny,
 #undef POP2_TRACER
   return (int)cudaGetLastError();
 }
+
+// Blocks of the one-column launch that one SM holds at once; variant: with
+// the Laplacian (1) or without (0).
+extern "C" int pop2_tracer_blocks_per_sm(int dtype, int variant) {
+  using namespace pop2;
+  if (dtype == 0)
+    return variant ? blocks_per_sm(tracer_kernel<float, true>, kThreads, 0)
+                   : blocks_per_sm(tracer_kernel<float, false>, kThreads, 0);
+  return variant ? blocks_per_sm(tracer_kernel<double, true>, kThreads, 0)
+                 : blocks_per_sm(tracer_kernel<double, false>, kThreads, 0);
+}

@@ -17,8 +17,12 @@ transition layer on and const or bfre diffusivities of one type, a step runs
 On an H100 the chain kernel is bound by bytes: nt + 11 fields in, nt + 1
 (+ 3) out. The plain version is ``gm.assemble`` with the plain flux
 assembly: some 60 full-field intermediates in device memory. The kernel keeps
-all of them in registers (see the note in ``csrc/gm_chain.cu``). Float32 and
-float64.
+all of them on chip: a block is a 2-D tile of columns with a one-column halo
+that walks down k, stages each level by asynchronous copies one level ahead,
+computes every column's weights once a level and hands them to the
+neighbours through shared memory (see the note in ``csrc/gm_chain.cu``).
+``launch_plan`` chooses the tile and its shared memory in plain Python.
+Float32 and float64.
 
 Left for later, each raising ``NotImplementedError`` (ROADMAP.md Queue 2
 kernel 5): the submesoscale fold-in (``with_sm``), the tripole top row, 3-D
@@ -40,6 +44,41 @@ launches = 0
 
 #: rows of the per-level scalar table (csrc/gm_chain.cu reads the same)
 LEV_ROWS = ("DZ", "DZR", "DZWKP", "RDT", "RDB", "TRT", "TRB", "DZWR")
+
+MAX_TRACERS = 16  # kMaxTracers of csrc/gm_flux.cuh
+TILE_COLS = 32  # columns a tile row, halo included (kTileCols: one warp)
+# tile rows, halo included, by value size (at most the kernel's kMaxRows)
+_ROWS = {4: 8, 8: 6}
+
+
+def smem_values(nt: int) -> int:
+    """Values of shared memory a tile column holds with ``nt`` tracers: 19
+    constants, two staged levels of 11 planes, two buffers of 9 published
+    weights, and per tracer a ring of four levels and the vertical-flux
+    carry (``chain_smem_values`` of csrc/gm_chain.cu, which chip_smoke.py
+    holds this against)."""
+    return 19 + 2 * 11 + 2 * 9 + (4 + 1) * nt
+
+
+def launch_plan(value_bytes: int, nt: int):
+    """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
+    chain kernel launch for ``nt`` tracers in values of ``value_bytes``.
+
+    A block is a tile of TILE_COLS x rows columns, the outer ring a halo:
+    (TILE_COLS - 2) x (rows - 2) columns a block are computed. Raises for
+    what the kernel does not take: nt over MAX_TRACERS, values other than
+    float32 or float64, or a tile over the card's 227 KB."""
+    if value_bytes not in _ROWS:
+        raise TypeError(f"kernels take float32 or float64, got "
+                        f"{value_bytes}-byte values")
+    if not 1 <= nt <= MAX_TRACERS:
+        raise NotImplementedError(
+            f"GM chain kernel carries at most {MAX_TRACERS} tracers a "
+            f"launch, got {nt}")
+    rows = _ROWS[value_bytes]
+    smem = smem_values(nt) * TILE_COLS * rows * value_bytes
+    cb.check_smem(smem, f"GM chain tile ({TILE_COLS} x {rows}, nt={nt})")
+    return (TILE_COLS, rows), smem
 
 
 def available(cfg, grid) -> bool:
@@ -108,29 +147,29 @@ def chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
     return out.gtk, out.vdc_gm, diags
 
 
-def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
-          with_sm: bool = False):
-    """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
-    through the kernel, CPU tensors through the plain version."""
-    global launches
-    _check_mode(cfg, grid, with_sm)
-    if not tmix.is_cuda:
-        return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
-                           want_diags)
+def kernel_flags(cfg, want_diags: bool) -> int:
+    """The template instance of the kernel: bit 0 bfre kappa, bit 1 the
+    diagnostic columns, bit 2 equal slope limits."""
+    return (int(cfg.gm_kappa_isop_type == "bfre")
+            | int(bool(want_diags)) << 1
+            | int(cfg.gm_slm_r == cfg.gm_slm_b) << 2)
+
+
+def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
+    """Check the operands and allocate the outputs of a kernel launch.
+    Returns (head, tail, (gtk, vdc, diags)): the arguments of
+    ``pop2_gm_chain`` before the launch plan's rows and shared memory
+    (dtype, nt, km, ny, nx, cyclic, flags, hd_const) and after it (the
+    parameters, the operand and output pointers, the stream)."""
     nt, km, ny, nx = tmix.shape
     dev, dt = tmix.device, tmix.dtype
-    lib = cb.lib()
-    if nt > lib.pop2_gm_flux_max_tracers():
-        raise NotImplementedError(
-            f"GM chain kernel carries at most "
-            f"{lib.pop2_gm_flux_max_tracers()} tracers a launch, got {nt}")
     lev = level_scalars(grid)
     hyx, hxy, _ = gm_cuda.kernel_statics(grid)
     f3, f2 = (km, ny, nx), (ny, nx)
     for name, t, shape in (
             ("tmix", tmix, (nt,) + f3), ("slp", slp, (8,) + f3),
             ("sla", sla, (2,) + f3), ("kv", kv, f3),
-            ("lev", lev, (lib.pop2_gm_chain_lev_rows(), km)),
+            ("lev", lev, (cb.lib().pop2_gm_chain_lev_rows(), km)),
             ("hyx", hyx, f2), ("hxy", hxy, f2),
             ("TAREA_R", grid.TAREA_R, f2),
             ("diabatic_depth", tlt.diabatic_depth, f2),
@@ -140,9 +179,6 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
     for name, t in (("KMT", grid.KMT), ("k_level", tlt.k_level),
                     ("ztw", tlt.ztw)):
         cb.check_operand(name, t, f2, torch.int32, dev)
-    kv_bfre = cfg.gm_kappa_isop_type == "bfre"
-    flags = (int(kv_bfre) | int(bool(want_diags)) << 1
-             | int(cfg.gm_slm_r == cfg.gm_slm_b) << 2)
     params = (ctypes.c_double * 8)(
         cfg.gm_slm_r, cfg.gm_slm_b, cfg.gm_ah, cfg.gm_ah_bolus,
         cfg.gm_kappa_isop_deep, cfg.gm_kappa_thic_deep, cfg.gm_ah_bkg_srfbl,
@@ -151,20 +187,35 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
     vdc = torch.empty(f3, dtype=dt, device=dev)
     diags = (torch.empty((3,) + f3, dtype=dt, device=dev) if want_diags
              else None)
-    err = lib.pop2_gm_chain(
-        cb.dtype_code(tmix), nt, km, ny, nx,
-        int(cfg.ew_boundary == "cyclic"), flags,
-        int(bool(cfg.gm_use_const_ah_bkg_srfbl)), params, lev.data_ptr(),
-        tmix.data_ptr(), slp.data_ptr(), sla.data_ptr(), kv.data_ptr(),
-        hyx.data_ptr(), hxy.data_ptr(), grid.TAREA_R.data_ptr(),
-        tlt.diabatic_depth.data_ptr(), tlt.thickness.data_ptr(),
-        tlt.interior_depth.data_ptr(), grid.KMT.data_ptr(),
-        tlt.k_level.data_ptr(),
-        tlt.ztw.data_ptr(), gtk.data_ptr(), vdc.data_ptr(),
-        diags.data_ptr() if want_diags else None, cb.stream_ptr())
+    head = (cb.dtype_code(tmix), nt, km, ny, nx,
+            int(cfg.ew_boundary == "cyclic"), kernel_flags(cfg, want_diags),
+            int(bool(cfg.gm_use_const_ah_bkg_srfbl)))
+    tail = (params, lev.data_ptr(), tmix.data_ptr(), slp.data_ptr(),
+            sla.data_ptr(), kv.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
+            grid.TAREA_R.data_ptr(), tlt.diabatic_depth.data_ptr(),
+            tlt.thickness.data_ptr(), tlt.interior_depth.data_ptr(),
+            grid.KMT.data_ptr(), tlt.k_level.data_ptr(), tlt.ztw.data_ptr(),
+            gtk.data_ptr(), vdc.data_ptr(),
+            diags.data_ptr() if want_diags else None, cb.stream_ptr())
+    return head, tail, (gtk, vdc, diags)
+
+
+def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
+          with_sm: bool = False):
+    """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
+    through the kernel, CPU tensors through the plain version."""
+    global launches
+    _check_mode(cfg, grid, with_sm)
+    if not tmix.is_cuda:
+        return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                           want_diags)
+    (_, rows), smem = launch_plan(tmix.element_size(), tmix.shape[0])
+    head, tail, out = launch_args(cfg, grid, tmix, slp, sla, kv, tlt,
+                                  want_diags)
+    err = cb.lib().pop2_gm_chain(*head, rows, smem, *tail)
     cb.check_launch(err, "gm chain")
     launches += 1
-    return gtk, vdc, diags
+    return out
 
 
 def hdifft_chain(cfg, grid, bc, ts_range, tmix, hblt=None, hmxl=None,

@@ -6,11 +6,13 @@ Replaces the TPU kernel ``tridiag_pallas.py`` (``_thomas_kernel`` /
 On an H100 the sweep is bound by bytes: the least it can move is the coupling
 ``a`` once, each right-hand side once and each solution once, (1 + 2 nr)
 fields, with about ten flops per value. The kernel gives one thread to each
-water column, so every level's loads of a warp are consecutive; the nr
-right-hand sides share one factorisation and ride in registers going down;
-the elimination coefficients wait for the backward sweep in a per-thread
-local array (see the note in ``csrc/thomas.cu`` for why not a scratch
-tensor). Unlike the TPU kernel it is instantiated for float32 and float64.
+water column and stages a block's columns of ``a`` and the right-hand sides,
+all levels, in shared memory by asynchronous copies started ahead of the
+sweep; the elimination coefficients and forward solutions stay there, and
+the back substitution writes the solution once (see the note in
+``csrc/thomas.cu``). ``launch_plan`` chooses the columns a block and the
+shared memory in plain Python. Unlike the TPU kernel it
+is instantiated for float32 and float64.
 
 ``thomas`` launches the kernel for CUDA tensors and calls ``thomas_plain``
 for CPU tensors; it never falls back from one to the other. Both form
@@ -18,6 +20,8 @@ for CPU tensors; it never falls back from one to the other. Both form
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +31,32 @@ from pop2_tpu_torch import _cuda_build as cb
 launches = 0
 
 _MAX_NR = 3  # right-hand sides per launch the kernel is instantiated for
+MAX_LEVELS = 64  # kMaxLevels of csrc/thomas.cu
+_COLS = 32  # columns a block: a warp
+
+
+class ThomasPlan(NamedTuple):
+    cols: int  # columns (threads) a block
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def launch_plan(value_bytes: int, nr: int, km: int) -> ThomasPlan:
+    """The launch of the kernel for ``nr`` right-hand sides of ``km``
+    levels in values of ``value_bytes``: a warp of columns a block, each
+    block staging (1 + nr) values a level of each of its columns (at most
+    64 KB, so that three blocks fit an SM). Raises for what the kernel does
+    not take: km over MAX_LEVELS or nr over 3."""
+    if not 1 <= km <= MAX_LEVELS:
+        raise NotImplementedError(
+            f"km={km} exceeds the kernel's bound of {MAX_LEVELS} levels")
+    if not 1 <= nr <= _MAX_NR:
+        raise NotImplementedError(
+            f"{nr} right-hand sides on one factorisation: the kernel is "
+            f"instantiated for at most {_MAX_NR} (more passive tracers: "
+            "ROADMAP.md Queue 1 item 8)")
+    smem = (1 + nr) * km * value_bytes * _COLS
+    cb.check_smem(smem, f"thomas (nr={nr}, km={km})")
+    return ThomasPlan(_COLS, smem)
 
 
 def thomas_plain(hfac, h1, kmax, a, rhs):
@@ -76,33 +106,25 @@ def thomas_plain(hfac, h1, kmax, a, rhs):
 def thomas(hfac, h1, kmax, a, rhs):
     """Solve the masked tridiagonal systems of every column; shapes as in
     ``thomas_plain``. CUDA tensors go through the kernel (float32 or
-    float64, contiguous, km within the kernel's bound), CPU tensors through
-    the plain version."""
+    float64, contiguous, within ``launch_plan``'s bounds), CPU tensors
+    through the plain version."""
     global launches
     if not rhs.is_cuda:
         return thomas_plain(hfac, h1, kmax, a, rhs)
     nr, km, ny, nx = rhs.shape
     dev, dt = rhs.device, rhs.dtype
-    lib = cb.lib()
-    if km > lib.pop2_thomas_max_levels():
-        raise NotImplementedError(
-            f"km={km} exceeds the kernel's bound of "
-            f"{lib.pop2_thomas_max_levels()} levels")
+    plan = launch_plan(rhs.element_size(), nr, km)
     cb.check_operand("hfac", hfac, (km,), dt, dev)
     cb.check_operand("h1", h1, (ny, nx), dt, dev)
     cb.check_operand("kmax", kmax, (ny, nx), torch.int32, dev)
     cb.check_operand("a", a, (km, ny, nx), dt, dev)
     cb.check_operand("rhs", rhs, (nr, km, ny, nx), dt, dev)
-    if nr > _MAX_NR:
-        raise NotImplementedError(
-            f"{nr} right-hand sides on one factorisation: the kernel is "
-            f"instantiated for at most {_MAX_NR} (more passive tracers: "
-            "ROADMAP.md Queue 1 item 8)")
+    lib = cb.lib()
     out = torch.empty_like(rhs)
     err = lib.pop2_thomas(
-        cb.dtype_code(rhs), nr, km, ny * nx, hfac.data_ptr(), h1.data_ptr(),
-        kmax.data_ptr(), a.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-        cb.stream_ptr())
+        cb.dtype_code(rhs), nr, km, ny * nx, *plan, hfac.data_ptr(),
+        h1.data_ptr(), kmax.data_ptr(), a.data_ptr(), rhs.data_ptr(),
+        out.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "thomas")
     launches += 1
     return out
