@@ -9,11 +9,11 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
-blocks an SM holds), holds the two kernels that stage in shared memory
-(thomas, the GM chain) against their plain versions on a grid their tiles
-do not divide, and drives the port's three paths through
-``Model.advance`` (Euler step, leapfrog steps, averaging steps) at that size
-in float32 and in float64:
+blocks an SM holds), holds the four kernels that stage in shared memory
+(thomas, the GM chain, the tracer tendency, the momentum forcing) against
+their plain versions on a grid their tiles do not divide, and drives the
+port's three paths through ``Model.advance`` (Euler step, leapfrog steps,
+averaging steps) at that size in float32 and in float64:
 
     core     the dynamical core (Laplacian tracer mixing)
     gm_full  GM/Redi mixing with the transition layer and bfre diffusivities:
@@ -397,7 +397,9 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
     shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt and
-    flags, the one-column kernels their variant."""
+    flags, tracer its group's tracer count ng and del2, the one-column
+    kernels their variant. tracer and clinic also report their tile of
+    interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
         torch.finfo(dt).bits // 8
     if name == "thomas":
@@ -408,15 +410,27 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         (cols, rows), smem = gm_chain_cuda.launch_plan(s, kw["nt"])
         block = [cols, rows, 1]
         n = lib.pop2_gm_chain_blocks_per_sm(code, kw["flags"], rows, smem)
+    elif name == "tracer":
+        (cols, rows), smem = tracer_cuda.launch_plan(s, kw["ng"], kw["del2"])
+        block = [cols, rows, 1]
+        n = lib.pop2_tracer_blocks_per_sm(code, int(kw["del2"]), kw["ng"],
+                                          smem)
+    elif name == "clinic":
+        (cols, rows), smem = clinic_cuda.launch_plan(s)
+        block = [cols, rows, 1]
+        n = lib.pop2_clinic_blocks_per_sm(code, smem)
     else:
         block, smem = [cb.ONE_COLUMN_THREADS, 1, 1], 0
         n = getattr(lib, f"pop2_{name}_blocks_per_sm")(code,
                                                        kw.get("variant", 0))
     if n <= 0:
         raise AssertionError(f"{name}: occupancy query failed ({n})")
-    return {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
+    info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
             "blocks_per_sm" + tag: n,
             "warps_per_sm" + tag: n * block[0] * block[1] // 32}
+    if name in ("tracer", "clinic"):  # a one-column frame around the tile
+        info["tile" + tag] = block[:2]
+    return info
 
 
 def random_fields(cfg, grid, gen):
@@ -516,7 +530,7 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     rec["tracer"] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
                      "ms_back_to_back": b2b, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     **launch_info("tracer", dt, variant=1)}
+                     **launch_info("tracer", dt, ng=nt, del2=True)}
 
     # ---- momentum forcing (leapfrog, pressure-averaged) ---------------------
     rhoavg = pgrad.rho_average(cfg, grid, f["rho"][0], f["rho"][1],
@@ -697,7 +711,8 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
                              "ms": ms, "ms_back_to_back": b2b,
                              "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by,
-                             **launch_info("tracer", dt, variant=0)}
+                             **launch_info("tracer", dt, ng=nt,
+                                           del2=False)}
     return rec
 
 
@@ -804,14 +819,18 @@ def ragged_config(dtype_name: str, km: int, ew: str):
 
 
 def ragged_phase(dtype_name: str):
-    """The two kernels with shared-memory tiles against their plain versions
-    where the tiles do not divide the domain: the RAGGED horizontal size, E-W
-    cyclic and closed, at RAGGED_KM levels (one level, and the kernels'
-    bound). thomas for 1, 2 and 3 right-hand sides; the chain kernel in its
-    eight template instances (bfre or const kappa, diagnostic columns or
-    not, equal or unequal slope limits), each with the constant and the
-    diffusivity-valued surface diffusion (``hd_const``). Bands as at full
-    size. Not timed."""
+    """The four kernels that stage in shared memory against their plain
+    versions where the tiles do not divide the domain: the RAGGED horizontal
+    size, E-W cyclic and closed, at RAGGED_KM levels (one level, and the
+    thomas kernel's bound). thomas for 1, 2 and 3 right-hand sides; the
+    chain kernel in its eight template instances (bfre or const kappa,
+    diagnostic columns or not, equal or unequal slope limits), each with the
+    constant and the diffusivity-valued surface diffusion (``hd_const``);
+    the tracer kernel with and without the Laplacian, for 1, 2 and 3
+    tracers (3 is two launches, over the kernel's group cap; no
+    configuration has three tracers, so the wrapper gets random fields),
+    varthick and rigid lid; the momentum kernel with the leapfrog and the
+    Euler Coriolis weights. Bands as at full size. Not timed."""
     worst = {}
     for km, ew in itertools.product(RAGGED_KM, ("cyclic", "closed")):
         base = ragged_config(dtype_name, km, ew)
@@ -864,10 +883,49 @@ def ragged_phase(dtype_name: str):
             flags = gm_chain_cuda.kernel_flags(cfg, diags)
             key = f"chain_km{km}_{ew}_flags{flags}_hd{int(hd_const)}"
             worst[key] = compare_chain("gm_chain", dt, *zip(*outs))[1]
+        del slp, sla, n2, tlt, tmix
+
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 10)
+        f = random_fields(base, grid, gen)
+        mt = grid.kmask_t.to(dt)
+        for del2, sfc, nt in itertools.product((True, False),
+                                               ("varthick", "rigid"),
+                                               (1, 2, 3)):
+            cfg = base.with_(hmix_tracer="del2" if del2 else "gm",
+                             sfc_layer=sfc)
+            trc = [torch.randn(nt, km, *RAGGED[::-1], generator=gen,
+                               device=DEV, dtype=dt) * mt for _ in range(3)]
+            stf = torch.randn(nt, *RAGGED[::-1], generator=gen, device=DEV,
+                              dtype=dt) * mt[0]
+            args = (cfg, grid, f["ucur"], f["vcur"], *trc, f["vdc"], stf,
+                    f["dh"])
+            got = tracer_cuda.tracer_tendency(*args)
+            torch.cuda.synchronize()
+            want = tracer_cuda.tracer_tendency_plain(*args)
+            name = "tracer" if del2 else "tracer_advdiff"
+            worst[f"{name}_km{km}_{ew}_{sfc}_nt{nt}"] = compare(
+                name, dt, [got], [want])[1]
+        for leapfrog in (True, False):
+            rhoavg = pgrad.rho_average(base, grid, *f["rho"], leapfrog)
+            wc, wo = clinic_cuda.coriolis_weights(base, leapfrog)
+            um, vm = ((f["uold"], f["vold"]) if leapfrog
+                      else (f["ucur"], f["vcur"]))
+            args = (base, grid, f["ucur"], f["vcur"], f["uold"], f["vold"],
+                    um, vm, rhoavg, f["vvc"], f["smf"], f["dhu"], wc, wo)
+            got = clinic_cuda.clinic_rhs_fields(*args)
+            torch.cuda.synchronize()
+            want = clinic_cuda.clinic_rhs_plain(*args)
+            step = "leapfrog" if leapfrog else "euler"
+            worst[f"clinic_km{km}_{ew}_{step}"] = compare("clinic", dt, got,
+                                                          want)[1]
     emit({"phase": "ragged", "dtype": dtype_name, "dims": list(RAGGED),
           "km": list(RAGGED_KM), "rel_err_of_scale": worst,
           "band": {"thomas": BAND[("thomas", dt)],
-                   "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]]}})
+                   "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]],
+                   "tracer": BAND[("tracer", dt)],
+                   "tracer_advdiff": BAND[("tracer_advdiff", dt)],
+                   "clinic": BAND[("clinic", dt)]}})
 
 
 def other_modes_phase(dtype_name: str):
@@ -1253,6 +1311,30 @@ def main():
             raise AssertionError(f"gm_chain shared memory a column (nt={nt}):"
                                  f" library {c_values}, planner "
                                  f"{gm_chain_cuda.smem_values(nt)}")
+    if (lib.pop2_tracer_max_group(), lib.pop2_tracer_tile_rows()) != (
+            tracer_cuda.MAX_GROUP, tracer_cuda.TILE_ROWS):
+        raise AssertionError("tracer group cap and tile rows: library "
+                             f"{lib.pop2_tracer_max_group()}, "
+                             f"{lib.pop2_tracer_tile_rows()}, planner "
+                             f"{tracer_cuda.MAX_GROUP}, "
+                             f"{tracer_cuda.TILE_ROWS}")
+    for ng, del2 in itertools.product(range(1, tracer_cuda.MAX_GROUP + 1),
+                                      (True, False)):
+        c_values = lib.pop2_tracer_smem_values(ng, int(del2))
+        want = tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS)
+        if c_values != want:
+            raise AssertionError(f"tracer shared memory (ng={ng}, del2="
+                                 f"{del2}): library {c_values}, planner "
+                                 f"{want}")
+    for vb, rows in clinic_cuda.TILE_ROWS.items():
+        code = 0 if vb == 4 else 1
+        c_rows = lib.pop2_clinic_tile_rows(code)
+        c_values = lib.pop2_clinic_smem_values(code)
+        if (c_rows, c_values) != (rows, clinic_cuda.smem_values(rows)):
+            raise AssertionError(f"clinic tile ({vb}-byte values): library "
+                                 f"{c_rows} rows, {c_values} values, "
+                                 f"planner {rows}, "
+                                 f"{clinic_cuda.smem_values(rows)}")
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": cb.build_seconds,
           "library": "nvcc sm_90a, ctypes",

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time this checkout's thomas, GM chain and GM flux-assembly kernels beside
-another checkout's, in turns, on one GPU: the tool for judging a kernel's
-redesign against the design it replaces.
+"""Time this checkout's kernels beside another checkout's, in turns, on one
+GPU: the tool for judging a kernel's redesign against the design it
+replaces.
 
     mkdir -p _parent && git archive <commit> pop2_tpu_torch | tar -x -C _parent
     python3 kernel_ab.py _parent
 
 (``_parent/`` is git-ignored.) Both checkouts are driven through their
-wrappers (``tridiag_cuda.thomas``, ``gm_chain_cuda.chain``,
+wrappers (``tridiag_cuda.thomas``, ``tracer_cuda.tracer_tendency``,
+``clinic_cuda.clinic_rhs_fields``, ``gm_chain_cuda.chain``,
 ``gm_cuda.flux_assembly``), whose interface a redesign keeps: the other
 checkout's package is imported from its own directory, apart from this
 one's, and builds its kernels from its own sources. The operands are those
 of ``chip_smoke.py``'s kernel phases at 320 x 384 x 60, nt = 2, in float32
-and float64: thomas for 1 and 2 right-hand sides, the chain kernel in the
-gm_full path's instance, the flux assembly in both of its instances (the
-gm_flux path's cancellation and the skew). Each kernel runs in turns other,
-this, this, other; a turn takes both of ``chip_smoke.py``'s times: ``ms``
-(median of single calls between CUDA events, the ``kernels`` line's
-method) and ``ms_back_to_back`` (calls back to back). The two checkouts'
-outputs are compared (largest difference over the output's largest value).
+and float64: thomas for 1 and 2 right-hand sides, the tracer tendency with
+the Laplacian (the core path's mode) and without it (the GM paths'), the
+momentum forcing on a leapfrog step, the chain kernel in the gm_full path's
+instance, the flux assembly in both of its instances (the gm_flux path's
+cancellation and the skew). Each kernel runs in turns other, this, this,
+other; a turn takes both of ``chip_smoke.py``'s times: ``ms`` (median of
+single calls between CUDA events, the ``kernels`` line's method) and
+``ms_back_to_back`` (calls back to back). The two checkouts' outputs are
+compared: the largest difference over the output's largest value, and
+whether they are bitwise equal.
 
 Prints the card's name and power limit, then one JSON object a line.
 """
@@ -34,7 +38,8 @@ import torch
 
 import chip_smoke as cs
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import gm, gm_chain_cuda, gm_cuda, gm_slope_cuda, sample
+from pop2_tpu_torch import clinic_cuda, gm, gm_chain_cuda, gm_cuda
+from pop2_tpu_torch import gm_slope_cuda, pgrad, sample, tracer_cuda
 from pop2_tpu_torch import tridiag_cuda
 from pop2_tpu_torch.grid import build_grid, grid_bc
 
@@ -57,8 +62,8 @@ def other_package(root: Path) -> dict:
     sys.path.insert(0, str(root))
     try:
         mods = {n: importlib.import_module(f"{PKG}.{n}")
-                for n in ("_cuda_build", "tridiag_cuda", "gm_chain_cuda",
-                          "gm_cuda")}
+                for n in ("_cuda_build", "tridiag_cuda", "tracer_cuda",
+                          "clinic_cuda", "gm_chain_cuda", "gm_cuda")}
     finally:
         sys.path.remove(str(root))
         for k in _ours():
@@ -90,6 +95,46 @@ def rel_diff(got, want) -> float:
     value, across the outputs."""
     return max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
                for a, b in zip(got, want))
+
+
+def bitwise(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def tracer_clinic_cases(other, dtype_name):
+    """The tracer tendency in both modes and the momentum forcing, with the
+    operands and aliasing of ``chip_smoke.kernel_phase``."""
+    for path, seed in (("core", cs.SEED), ("gm_full", cs.SEED + 3)):
+        cfg = cs.full_config(dtype_name, path)
+        # each checkout's wrappers keep their per-grid tables on the grid
+        grid, grid_o = build_grid(cfg, cs.DEV), build_grid(cfg, cs.DEV)
+        gen = torch.Generator(device=cs.DEV)
+        gen.manual_seed(seed)
+        f = cs.random_fields(cfg, grid, gen)
+        ops = (f["ucur"], f["vcur"], f["trcr"], f["told"], f["told"],
+               f["vdc"], f["stf"], f["dh"])
+        mine = lambda: tracer_cuda.tracer_tendency(cfg, grid, *ops)
+        theirs = lambda: other["tracer_cuda"].tracer_tendency(cfg, grid_o,
+                                                              *ops)
+        rec = in_turns(theirs, mine)
+        rec["rel_diff_this_vs_other"] = rel_diff([mine()], [theirs()])
+        rec["bitwise_equal"] = bitwise([mine()], [theirs()])
+        cs.emit({"kernel": "tracer", "dtype": dtype_name,
+                 "mode": "del2" if path == "core" else "no_del2", **rec})
+        if path != "core":
+            continue
+        rhoavg = pgrad.rho_average(cfg, grid, f["rho"][0], f["rho"][1],
+                                   f["rho"][2], True)
+        wc, wo = clinic_cuda.coriolis_weights(cfg, True)
+        ops = (f["ucur"], f["vcur"], f["uold"], f["vold"], f["uold"],
+               f["vold"], rhoavg, f["vvc"], f["smf"], f["dhu"], wc, wo)
+        mine = lambda: clinic_cuda.clinic_rhs_fields(cfg, grid, *ops)
+        theirs = lambda: other["clinic_cuda"].clinic_rhs_fields(cfg, grid_o,
+                                                                *ops)
+        rec = in_turns(theirs, mine)
+        rec["rel_diff_this_vs_other"] = rel_diff(mine(), theirs())
+        rec["bitwise_equal"] = bitwise(mine(), theirs())
+        cs.emit({"kernel": "clinic", "dtype": dtype_name, **rec})
 
 
 def thomas_cases(other, dtype_name):
@@ -163,6 +208,7 @@ def main():
              "ptxas_other": cs.ptxas_summary(ocb.build_log()),
              "ptxas_this": cs.ptxas_summary()})
     for dtype_name in ("float32", "float64"):
+        tracer_clinic_cases(other, dtype_name)
         thomas_cases(other, dtype_name)
         gm_cases(other, dtype_name)
 

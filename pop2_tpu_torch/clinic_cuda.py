@@ -14,11 +14,17 @@ and the current ones on an Euler step, so they alias two of the other inputs)
 and two 3-D outputs plus two dozen 2-D fields, against about 150 flops per
 output pair.
 The plain version materializes the four U-face flux fields, every shifted
-operand and the pressure cumsum in device memory; the kernel gives one thread
-to each (j, i) column and carries w-from-continuity, the running pressure
-integral, the friction flux and the ZX/ZY sums down k in registers, so the
-vertical means need no second pass and no atomics and are deterministic (see
-the note in ``csrc/clinic.cu``). Float32 and float64.
+operand and the pressure cumsum in device memory. The kernel reads each
+operand once: a block is a 2-D tile of columns in a one-column frame that
+walks down k and stages each level in shared memory by asynchronous copies
+ahead of the arithmetic; every column forms its T-face fluxes once a level
+and then its west and south U faces from its neighbours', and takes the east
+and north faces from its neighbours, all through shared memory; w from
+continuity, the running pressure integral, the friction flux and the ZX/ZY
+sums go down k in registers, so the vertical means need no second pass and
+no atomics and are deterministic (see the note in ``csrc/clinic.cu``).
+``launch_plan`` chooses the tile and its shared memory in plain Python.
+Float32 and float64.
 
 This slice carries the mode the dynamical core runs: del2 friction fused
 (``with_hdiffu=True``), closed north-south boundary, 1-D layer thickness. The
@@ -46,6 +52,37 @@ launches = 0
 G2D = ("DYU", "DXU", "UAREA_R", "FCOR", "KXU", "KYU", "DXUR", "DYUR",
        "DUCM", "DUN", "DUS", "DUE", "DUW",
        "DMC", "DMN", "DMS", "DME", "DMW", "HUR")
+
+
+TILE_COLS = 32  # interior columns a tile row (kFrameCols: one warp)
+# interior rows a tile by value size (ClinicTile<T>::kRows of csrc/clinic.cu)
+TILE_ROWS = {4: 8, 8: 6}
+N_WEIGHTS = 10  # Laplacian weights DUCM .. DMW, kept in shared memory
+
+
+def smem_values(rows: int) -> int:
+    """Values of shared memory a tile of ``rows`` rows takes: the DYU, DXU
+    frame planes, four staged levels of u, v (frame planes), three of um,
+    vm, the density (frame planes) and uo, vo, the viscosity (tile planes),
+    two buffers each of the published a, b and uuw, vus, and the Laplacian
+    weights (``ClinicTile<T>::kValues`` of csrc/clinic.cu, which
+    chip_smoke.py holds this against)."""
+    plane, tile = (TILE_COLS + 2) * (rows + 2), TILE_COLS * rows
+    return (2 * plane + 4 * 2 * plane + 3 * (3 * plane + 3 * tile)
+            + 2 * 2 * plane + 2 * 2 * plane + N_WEIGHTS * tile)
+
+
+def launch_plan(value_bytes: int):
+    """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
+    momentum kernel launch in values of ``value_bytes``. Raises for values
+    other than float32 or float64, or a tile over the card's 227 KB."""
+    if value_bytes not in TILE_ROWS:
+        raise TypeError(f"kernels take float32 or float64, got "
+                        f"{value_bytes}-byte values")
+    rows = TILE_ROWS[value_bytes]
+    smem = smem_values(rows) * value_bytes
+    cb.check_smem(smem, f"momentum tile ({TILE_COLS} x {rows})")
+    return (TILE_COLS, rows), smem
 
 
 def _check_mode(cfg, grid):
@@ -83,10 +120,8 @@ def kernel_statics(cfg, grid):
     ``replace``d or moved grid is a new object and gets its own."""
     hit = grid.__dict__.get("_clinic_statics")
     if hit is None:
-        dz = grid.vgrid.dz
-        dzwr2 = 1.0 / (0.5 * (dz + torch.cat([dz[1:], dz[-1:]])))
         facs = grid.vgrid.dzw[0:cfg.km] * (const.GRAV * 0.5)
-        hit = (pack_g2d(cfg, grid), dzwr2, facs)
+        hit = (pack_g2d(cfg, grid), vmix.dzwr2(grid), facs)
         grid.__dict__["_clinic_statics"] = hit
     return hit
 
@@ -143,6 +178,7 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
                                 vmixm, rhoavg, vvc, smf, dhu, wc, wo)
     km, ny, nx = ucur.shape
     dev, dt = ucur.device, ucur.dtype
+    (_, rows), smem = launch_plan(ucur.element_size())
     vg = grid.vgrid
     dz = vg.dz
     g2d, dzwr2, facs = kernel_statics(cfg, grid)
@@ -166,11 +202,12 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     zy = torch.empty_like(dhu)
     err = lib.pop2_clinic(
         cb.dtype_code(ucur), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        ucur.data_ptr(), vcur.data_ptr(), uold.data_ptr(), vold.data_ptr(),
-        umix.data_ptr(), vmixm.data_ptr(), rhoavg.data_ptr(), vvc.data_ptr(),
-        g2d.data_ptr(), grid.KMU.data_ptr(), dhu.data_ptr(), smf.data_ptr(),
-        dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
-        dzwr2.data_ptr(), facs.data_ptr(),
+        rows, smem, ucur.data_ptr(), vcur.data_ptr(), uold.data_ptr(),
+        vold.data_ptr(), umix.data_ptr(), vmixm.data_ptr(),
+        rhoavg.data_ptr(), vvc.data_ptr(), g2d.data_ptr(),
+        grid.KMU.data_ptr(), dhu.data_ptr(), smf.data_ptr(), dz.data_ptr(),
+        vg.dzr.data_ptr(), vg.dz2r.data_ptr(), dzwr2.data_ptr(),
+        facs.data_ptr(),
         float(cfg.auto_am), float(cfg.bottom_drag), float(wc), float(wo),
         fx.data_ptr(), fy.data_ptr(), zx.data_ptr(), zy.data_ptr(),
         cb.stream_ptr())

@@ -6,15 +6,18 @@
 //
 //   one thread per (j, i) water column, a loop over k with the column's
 //   carries in registers and the neighbours read straight from global
-//   memory, L1/L2 serving the re-reads (tracer, clinic, gm_slope, gm_flux);
+//   memory, L1/L2 serving the re-reads (gm_slope, gm_flux);
 //
 //   shared-memory staging with asynchronous copies (`cp.async`) issued ahead
-//   of the arithmetic: thomas stages whole columns, gm_chain a 2-D tile of
-//   columns with a one-column halo, level by level, and exchanges the
-//   columns' weights through shared memory. Their block shape and dynamic
-//   shared memory come from the caller (the wrappers' launch planners); the
-//   C entries check them against the layout, and the card refuses a block
-//   over what it gives one (`allow_large_smem`).
+//   of the arithmetic: thomas stages whole columns; gm_chain, tracer and
+//   clinic a 2-D tile of columns with a one-column halo, level by level,
+//   and hand what a column computes once a level (the chain's weights, the
+//   face velocities of tracer and clinic) to its neighbours through shared
+//   memory. Their block shape and dynamic shared memory come from the
+//   caller (the wrappers' launch planners); the C entries check them
+//   against the layout, and the card refuses a block over what it gives one
+//   (`allow_large_smem`). tracer and clinic share the tile geometry below
+//   (`Frame`, `frame_slot`); the chain keeps its own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,6 +98,55 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- 2-D tiles staged level by level (tracer, clinic) ---------------------
+//
+// A block is a tile of kFrameCols x rows interior columns, a warp a row and
+// one thread a column, inside a frame of HALO columns on every side. A
+// staged plane covers the whole frame, slot (r, c) at r * kPitch + c, the
+// tile's interior column (ty, tx) at slot (ty + HALO, tx + HALO); thread
+// tid copies the frame slots tid + j * nthreads, j < kFrameSlots.
+constexpr int kFrameCols = 32;
+constexpr int kFrameSlots = 2;
+
+template <int HALO>
+struct Frame {
+  static constexpr int kHalo = HALO;
+  static constexpr int kPitch = kFrameCols + 2 * HALO;
+  // slots of a plane of a tile of `rows` rows
+  static constexpr __host__ __device__ int plane(int rows) {
+    return kPitch * (rows + 2 * HALO);
+  }
+  // whether the block's threads cover every slot of a plane
+  static constexpr __host__ __device__ bool covered(int rows) {
+    return rows >= 1 && plane(rows) <= kFrameSlots * kFrameCols * rows;
+  }
+};
+
+// Where frame slot q (< plane(rows)) of the tile whose first interior
+// column is (y0, x0) lies: its frame row r and column c, and the offset of
+// its column in a level plane. False outside the domain: beyond a closed
+// edge, and beyond the north and south edges (a tripole grid's fold will
+// map the north frame rows, gj >= ny, here). A cyclic east-west edge wraps
+// the HALO columns past it.
+template <int HALO>
+__device__ __forceinline__ bool frame_slot(int q, int y0, int x0, int ny,
+                                           int nx, int cyclic, int* r,
+                                           int* c, int* off) {
+  *r = q / Frame<HALO>::kPitch;
+  *c = q - *r * Frame<HALO>::kPitch;
+  const int gj = y0 + *r - HALO;
+  int gi = x0 + *c - HALO;
+  bool in = gj >= 0 && gj < ny;
+  if (cyclic) {
+    in = in && gi >= -HALO && gi < nx + HALO;
+    gi = gi < 0 ? gi + nx : (gi >= nx ? gi - nx : gi);
+  } else {
+    in = in && gi >= 0 && gi < nx;
+  }
+  *off = in ? gj * nx + gi : 0;
+  return in;
 }
 
 // Let a kernel take `smem` bytes of dynamic shared memory a block and

@@ -9,11 +9,17 @@ On an H100 the tendency is bound by bytes: u, v, the two diffusivity classes
 and trcr, told, ft per tracer, (4 + 3 nt) distinct 3-D fields on the model's
 path (tmix is told on a leapfrog step and trcr on an Euler step), against
 some 60 flops per output value. The plain version materializes the six
-flux-velocity fields and every shifted operand in device memory; the kernel
-gives one thread to each (j, i) column, loops over k with the continuity
-cumsum in registers, and recomputes the west/south face fluxes from the
-neighbours' velocities so nothing but the operands and the result crosses
-device memory (see the note in ``csrc/tracer.cu``). Float32 and float64.
+flux-velocity fields and every shifted operand in device memory. The kernel
+reads each operand once: a block is a 2-D tile of columns in a one-column
+frame that walks down k, stages each level in shared memory by asynchronous
+copies two levels ahead, forms every column's face velocities once a level
+and hands them to its neighbours through shared memory, and carries the
+tracers, the old tracers and the top fluxes of the level down k in
+registers (see the note in ``csrc/tracer.cu``). ``launch_plan`` chooses the
+tile and its shared memory in plain Python; a launch carries at most
+``MAX_GROUP`` tracers (a template parameter of the kernel, so the carries
+stay in registers), and above that the wrapper launches groups
+(``tracer_groups``). Float32 and float64.
 
 Two modes, chosen by ``cfg.hmix_tracer``: ``'del2'`` fuses the Laplacian
 mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` leaves the
@@ -35,6 +41,50 @@ from pop2_tpu_torch.grid import grid_bc
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+
+MAX_GROUP = 2  # tracers a launch (kMaxGroup of csrc/tracer.cu)
+TILE_COLS = 32  # interior columns a tile row (kFrameCols: one warp)
+TILE_ROWS = 8  # interior rows a tile (kRows of csrc/tracer.cu)
+HALO = 1  # columns of the tile's frame on each side (kHalo)
+
+
+def tracer_groups(nt: int):
+    """[(n0, ng)]: the launches that cover nt tracers, each ng <=
+    MAX_GROUP tracers from n0; one launch for nt <= MAX_GROUP."""
+    if nt < 1:
+        raise ValueError(f"tracer tendency of {nt} tracers")
+    return [(n0, min(MAX_GROUP, nt - n0)) for n0 in range(0, nt, MAX_GROUP)]
+
+
+def smem_values(ng: int, del2: bool, rows: int) -> int:
+    """Values of shared memory a tile of ``rows`` rows takes for a group of
+    ``ng`` tracers: the DYU, DXU frame planes, three staged levels (u, v,
+    ng trcr and, with the Laplacian, ng tmix frame planes; ng told and ng
+    diffusivity tile planes) and two buffers of the published ute, vtn
+    (``TracerLayout::kValues`` of csrc/tracer.cu, which chip_smoke.py
+    holds this against)."""
+    plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
+    level = (2 + ng * (2 if del2 else 1)) * plane + 2 * ng * TILE_COLS * rows
+    return 2 * plane + 3 * level + 2 * 2 * plane
+
+
+def launch_plan(value_bytes: int, ng: int, del2: bool):
+    """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
+    tracer kernel launch for a group of ``ng`` tracers in values of
+    ``value_bytes``, with the Laplacian or without. Raises for what the
+    kernel does not take: a group over MAX_GROUP, values other than float32
+    or float64, or a tile over the card's 227 KB."""
+    if value_bytes not in (4, 8):
+        raise TypeError(f"kernels take float32 or float64, got "
+                        f"{value_bytes}-byte values")
+    if not 1 <= ng <= MAX_GROUP:
+        raise NotImplementedError(
+            f"tracer kernel carries at most {MAX_GROUP} tracers a launch, "
+            f"got {ng} (tracer_groups splits more)")
+    smem = smem_values(ng, del2, TILE_ROWS) * value_bytes
+    cb.check_smem(smem, f"tracer tile ({TILE_COLS} x {TILE_ROWS}, "
+                        f"ng={ng}, del2={del2})")
+    return (TILE_COLS, TILE_ROWS), smem
 
 
 def _check_mode(cfg, grid):
@@ -85,10 +135,12 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
                                      stf, dh)
     nt, km, ny, nx = trcr.shape
     dev, dt = trcr.device, trcr.dtype
+    del2 = with_del2(cfg)
+    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2)
+              for n0, ng in tracer_groups(nt)]
     vg = grid.vgrid
     dz = vg.dz
-    dz_kp1 = torch.cat([dz[1:], dz[-1:]])
-    dzwr2 = 1.0 / (0.5 * (dz + dz_kp1))
+    dzwr2 = vmix.dzwr2(grid)
     f3, f4, f2 = (km, ny, nx), (nt, km, ny, nx), (ny, nx)
     for name, t, shape in (
             ("u", u, f3), ("v", v, f3), ("trcr", trcr, f4),
@@ -101,16 +153,20 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
         cb.check_operand(name, t, shape, dt, dev)
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
     out = torch.empty_like(trcr)
-    err = cb.lib().pop2_tracer(
-        cb.dtype_code(trcr), int(with_del2(cfg)), nt, km, ny, nx,
-        int(cfg.ew_boundary == "cyclic"), int(cfg.sfc_layer == "varthick"),
-        u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
-        told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),
-        grid.KMT.data_ptr(), grid.DYU.data_ptr(), grid.DXU.data_ptr(),
-        grid.TAREA_R.data_ptr(), grid.DTN.data_ptr(), grid.DTS.data_ptr(),
-        grid.DTE.data_ptr(), grid.DTW.data_ptr(), dz.data_ptr(),
-        vg.dzr.data_ptr(), vg.dz2r.data_ptr(), dzwr2.data_ptr(),
-        float(cfg.auto_ah), out.data_ptr(), cb.stream_ptr())
-    cb.check_launch(err, "tracer_tendency")
-    launches += 1
+    lib = cb.lib()
+    for n0, ng, (_, rows), smem in groups:
+        err = lib.pop2_tracer(
+            cb.dtype_code(trcr), int(del2), nt, n0, ng, km, ny, nx,
+            int(cfg.ew_boundary == "cyclic"),
+            int(cfg.sfc_layer == "varthick"), rows, smem,
+            u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
+            told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),
+            grid.KMT.data_ptr(), grid.DYU.data_ptr(), grid.DXU.data_ptr(),
+            grid.TAREA_R.data_ptr(), grid.DTN.data_ptr(),
+            grid.DTS.data_ptr(), grid.DTE.data_ptr(), grid.DTW.data_ptr(),
+            dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
+            dzwr2.data_ptr(), float(cfg.auto_ah), out.data_ptr(),
+            cb.stream_ptr())
+        cb.check_launch(err, "tracer_tendency")
+        launches += 1
     return out

@@ -117,6 +117,20 @@ def vdifft(cfg: ModelConfig, grid: Grid, vdc, told, stf):
     return torch.where(grid.kmask_t[None], (vtf - vtfb) / dzt[None], 0.0)
 
 
+def dzwr2(grid: Grid) -> torch.Tensor:
+    """(km,) 1/(1/2 (dz_k + dz_k+1)), the bottom level's own thickness below
+    it: ``vdifft``'s and ``vdiffu``'s dzwr_k under 1-D layer thickness, an
+    operand of the tracer and momentum kernels. Built at the first call on a
+    ``Grid`` object and kept on it; a ``replace``d or moved grid is a new
+    object and gets its own."""
+    hit = grid.__dict__.get("_dzwr2")
+    if hit is None:
+        dz = grid.vgrid.dz
+        hit = 1.0 / (0.5 * (dz + torch.cat([dz[1:], dz[-1:]])))
+        grid.__dict__["_dzwr2"] = hit
+    return hit
+
+
 def vdiffu(cfg: ModelConfig, grid: Grid, vvc, uold, vold, smf):
     """Explicit vertical momentum diffusion with wind-stress top BC and
     quadratic bottom drag (source/vertical_mix.F90:853-1026).

@@ -1,16 +1,18 @@
-"""The launch planners of the two kernels that stage in shared memory
-(thomas, GM chain): plain Python that chooses the block shape and the dynamic
-shared memory for each (value size, right-hand sides or tracers, levels),
-and refuses what the kernels do not take, before anything is built. Runs on
-the CPU; the kernels themselves are held against their plain versions on the
-card by chip_smoke.py, which also holds the planners' shared-memory counts
-against the library's."""
+"""The launch planners of the kernels that stage in shared memory (thomas,
+GM chain, tracer tendency, momentum forcing): plain Python that chooses the
+block shape and the dynamic shared memory for each (value size, right-hand
+sides or tracers, levels, mode), and refuses what the kernels do not take,
+before anything is built; and the grid statics the tracer and momentum
+kernels read. Runs on the CPU; the kernels themselves are held against their
+plain versions on the card by chip_smoke.py, which also holds the planners'
+shared-memory counts against the library's."""
 
 import pytest
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import gm_chain_cuda, tridiag_cuda
+from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, tracer_cuda
+from pop2_tpu_torch import tridiag_cuda, vmix
 from pop2_tpu_torch.config import get_config
 from pop2_tpu_torch.grid import build_grid
 
@@ -98,3 +100,101 @@ def test_chain_wrapper_refuses_before_building(no_build):
     tmix = torch.zeros((17,) + f3).as_subclass(OnCard)
     with pytest.raises(NotImplementedError, match="16 tracers"):
         gm_chain_cuda.chain(cfg, grid, None, tmix, None, None, None, None)
+
+
+# every (dtype, tracers a launch, mode) the tracer kernel is instantiated for
+@pytest.mark.parametrize("value_bytes", [4, 8])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("del2", [True, False])
+def test_tracer_plan_fits_the_tile(value_bytes, ng, del2):
+    (cols, rows), smem = tracer_cuda.launch_plan(value_bytes, ng, del2)
+    assert (cols, rows) == (tracer_cuda.TILE_COLS, tracer_cuda.TILE_ROWS)
+    assert smem == tracer_cuda.smem_values(ng, del2, rows) * value_bytes
+    assert smem <= cb.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("value_bytes", [4, 8])
+def test_clinic_plan_fits_the_tile(value_bytes):
+    (cols, rows), smem = clinic_cuda.launch_plan(value_bytes)
+    assert (cols, rows) == (clinic_cuda.TILE_COLS,
+                            clinic_cuda.TILE_ROWS[value_bytes])
+    assert smem == clinic_cuda.smem_values(rows) * value_bytes
+    assert smem <= cb.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("args,err,match", [
+    ((4, 3, True), NotImplementedError, "at most 2 tracers"),
+    ((8, 0, False), NotImplementedError, "at most 2 tracers"),
+    ((2, 1, True), TypeError, "float32 or float64"),
+])
+def test_tracer_plan_refuses(args, err, match):
+    with pytest.raises(err, match=match):
+        tracer_cuda.launch_plan(*args)
+
+
+def test_clinic_plan_refuses_other_values():
+    with pytest.raises(TypeError, match="float32 or float64"):
+        clinic_cuda.launch_plan(2)
+
+
+@pytest.mark.parametrize("nt", [1, 2, 3, 4, 5, 16])
+def test_tracer_groups_cover_every_tracer_once(nt):
+    groups = tracer_cuda.tracer_groups(nt)
+    covered = [n0 + n for n0, ng in groups for n in range(ng)]
+    assert covered == list(range(nt))
+    assert all(1 <= ng <= tracer_cuda.MAX_GROUP for _, ng in groups)
+    # within the cap one launch, so the path's launch counts stay one a step
+    assert len(groups) == -(-nt // tracer_cuda.MAX_GROUP)
+
+
+def _mini_fields(cfg, nt):
+    f3 = (cfg.km, cfg.ny, cfg.nx)
+    zeros = torch.zeros
+    return dict(u=zeros(f3), v=zeros(f3), trcr=zeros((nt,) + f3),
+                vdc=zeros((2,) + f3), stf=zeros(nt, cfg.ny, cfg.nx),
+                dh=zeros(cfg.ny, cfg.nx))
+
+
+@pytest.mark.parametrize("hmix", ["del2", "gm"])
+def test_tracer_wrapper_refuses_a_tile_over_the_card(no_build, monkeypatch,
+                                                     hmix):
+    extra = {} if hmix == "del2" else dict(
+        hmix_tracer="gm", gm_transition_layer=True,
+        gm_kappa_isop_type="bfre", gm_kappa_thic_type="bfre", lsubmeso=False)
+    cfg = get_config("mini", **extra)
+    grid = build_grid(cfg, "cpu")
+    f = _mini_fields(cfg, 3)
+    trcr = f["trcr"].as_subclass(OnCard)
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", 16 * 1024)
+    with pytest.raises(ValueError, match="shared memory a block"):
+        tracer_cuda.tracer_tendency(cfg, grid, f["u"], f["v"], trcr,
+                                    f["trcr"], f["trcr"], f["vdc"], f["stf"],
+                                    f["dh"])
+
+
+def test_clinic_wrapper_refuses_a_tile_over_the_card(no_build, monkeypatch):
+    cfg = get_config("mini")
+    grid = build_grid(cfg, "cpu")
+    f3 = (cfg.km, cfg.ny, cfg.nx)
+    u = torch.zeros(f3)
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", 16 * 1024)
+    with pytest.raises(ValueError, match="shared memory a block"):
+        clinic_cuda.clinic_rhs_fields(
+            cfg, grid, u.as_subclass(OnCard), u, u, u, u, u, u, u,
+            torch.zeros(2, cfg.ny, cfg.nx), torch.zeros(cfg.ny, cfg.nx),
+            1.0, 0.0)
+
+
+def test_dzwr2_is_a_grid_static_of_the_mid_level_spacing():
+    cfg = get_config("mini")
+    grid = build_grid(cfg, "cpu")
+    dz = grid.vgrid.dz.double().numpy()
+    got = vmix.dzwr2(grid)
+    below = list(dz[1:]) + [dz[-1]]  # the bottom level's own thickness
+    want = [1.0 / (0.5 * (a + b)) for a, b in zip(dz, below)]
+    assert got.shape == (cfg.km,) and got.dtype == grid.vgrid.dz.dtype
+    assert torch.allclose(got.double(), torch.tensor(want), rtol=1e-15,
+                          atol=0.0)
+    # built once: the tracer and momentum kernels read the same tensor
+    assert vmix.dzwr2(grid) is got
+    assert clinic_cuda.kernel_statics(cfg, grid)[1] is got
