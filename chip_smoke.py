@@ -9,9 +9,8 @@ It builds the hand-written CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the shapes the main paths
 give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
-blocks an SM holds), holds the four kernels that stage in shared memory
-(thomas, the GM chain, the tracer tendency, the momentum forcing) against
-their plain versions on a grid their tiles do not divide, and drives the
+blocks an SM holds), holds every kernel against its plain version on a
+grid its tile does not divide, and drives the
 port's three paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging steps) at that size in float32 and in float64:
 
@@ -397,9 +396,9 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
     shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt and
-    flags, tracer its group's tracer count ng and del2, the one-column
-    kernels their variant. tracer and clinic also report their tile of
-    interior columns."""
+    flags, tracer its group's tracer count ng and del2, gm_flux nt and
+    cancellation. The kernels in a one-column frame (tracer, clinic,
+    gm_slope, gm_flux) also report their tile of interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
         torch.finfo(dt).bits // 8
     if name == "thomas":
@@ -419,16 +418,22 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         (cols, rows), smem = clinic_cuda.launch_plan(s)
         block = [cols, rows, 1]
         n = lib.pop2_clinic_blocks_per_sm(code, smem)
+    elif name == "gm_slope":
+        (cols, rows), smem = gm_slope_cuda.launch_plan(s)
+        block = [cols, rows, 1]
+        n = lib.pop2_gm_slope_blocks_per_sm(code, smem)
     else:
-        block, smem = [cb.ONE_COLUMN_THREADS, 1, 1], 0
-        n = getattr(lib, f"pop2_{name}_blocks_per_sm")(code,
-                                                       kw.get("variant", 0))
+        (cols, rows), smem = gm_cuda.launch_plan(s, kw["nt"],
+                                                 kw["cancellation"])
+        block = [cols, rows, 1]
+        n = lib.pop2_gm_flux_blocks_per_sm(code, kw["nt"],
+                                           int(kw["cancellation"]), smem)
     if n <= 0:
         raise AssertionError(f"{name}: occupancy query failed ({n})")
     info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
             "blocks_per_sm" + tag: n,
             "warps_per_sm" + tag: n * block[0] * block[1] // 32}
-    if name in ("tracer", "clinic"):  # a one-column frame around the tile
+    if name not in ("thomas", "gm_chain"):  # a one-column frame
         info["tile" + tag] = block[:2]
     return info
 
@@ -685,8 +690,8 @@ def gm_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
                   "ms_back_to_back" + tag: b2b, "plain_ms" + tag: plain_ms,
                   "bound_ms" + tag: b_ms,
                   "bound_by" + tag: b_by,
-                  **launch_info("gm_flux", dt, tag,
-                                variant=int(cancellation))})
+                  **launch_info("gm_flux", dt, tag, nt=nt,
+                                cancellation=cancellation)})
     rec["gm_flux"] = r
     del f
 
@@ -819,18 +824,21 @@ def ragged_config(dtype_name: str, km: int, ew: str):
 
 
 def ragged_phase(dtype_name: str):
-    """The four kernels that stage in shared memory against their plain
+    """The six kernels that stage in shared memory against their plain
     versions where the tiles do not divide the domain: the RAGGED horizontal
     size, E-W cyclic and closed, at RAGGED_KM levels (one level, and the
     thomas kernel's bound). thomas for 1, 2 and 3 right-hand sides; the
-    chain kernel in its eight template instances (bfre or const kappa,
-    diagnostic columns or not, equal or unequal slope limits), each with the
-    constant and the diffusivity-valued surface diffusion (``hd_const``);
-    the tracer kernel with and without the Laplacian, for 1, 2 and 3
-    tracers (3 is two launches, over the kernel's group cap; no
-    configuration has three tracers, so the wrapper gets random fields),
-    varthick and rigid lid; the momentum kernel with the leapfrog and the
-    Euler Coriolis weights. Bands as at full size. Not timed."""
+    slope kernel; the chain kernel in its eight template instances (bfre or
+    const kappa, diagnostic columns or not, equal or unequal slope limits),
+    each with the constant and the diffusivity-valued surface diffusion
+    (``hd_const``); the flux assembly in both branches for 1, 2, 3 and 16
+    tracers (all but 2 take the narrow tile; tracers beyond the
+    configuration's two get noisy copies of its differences); the tracer
+    kernel with and without the Laplacian, for 1, 2 and 3 tracers (3 is two
+    launches, over the kernel's group cap; no configuration has three
+    tracers, so the wrapper gets random fields), varthick and rigid lid;
+    the momentum kernel with the leapfrog and the Euler Coriolis weights.
+    Bands as at full size. Not timed."""
     worst = {}
     for km, ew in itertools.product(RAGGED_KM, ("cyclic", "closed")):
         base = ragged_config(dtype_name, km, ew)
@@ -854,6 +862,37 @@ def ragged_phase(dtype_name: str):
         tr = ts_range_of(base, grid)
         tmix = sample.grid_tracers(base, grid, SEED + 9)
         slp, sla, n2 = gm_slope_cuda.slopes_plain(base, grid, bc, tr, tmix)
+        got = gm_slope_cuda.slopes(base, grid, bc, tr, tmix)
+        torch.cuda.synchronize()
+        r = compare_slopes("gm_slope", dt, got, (slp, sla, n2),
+                           true_slope_factors(grid))
+        worst[f"slope_km{km}_{ew}"] = r["rel_err"]
+        worst[f"slope_km{km}_{ew}_steep_points_passed"] = r[
+            "steep_points_passed"]
+        del got
+        cfg_f = base.with_(gm_transition_layer=False,
+                           gm_kappa_isop_type="const",
+                           gm_kappa_thic_type="const")
+        f = sample.flux_operands(cfg_f, grid, bc, tr, tmix,
+                                 levels=(min(2, km - 1), min(5, km - 1)))
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 11)
+        for nt, cancellation in itertools.product((1, 2, 3, 16),
+                                                  (True, False)):
+            diffs = [torch.cat([t[:nt]] + [
+                (t[n % 2] * (1.0 + 0.1 * torch.randn(
+                    t.shape[1:], generator=gen, device=DEV, dtype=dt)))[None]
+                for n in range(2, nt)]).contiguous() for t in f[:3]]
+            args = (cfg_f, grid, bc, *diffs, *f[3:], cancellation)
+            got = gm_cuda.flux_assembly(*args)
+            torch.cuda.synchronize()
+            want = gm_cuda.flux_assembly_plain(*args)
+            branch = "cancel" if cancellation else "skew"
+            key = f"flux_{branch}_km{km}_{ew}_nt{nt}"
+            worst[key] = compare("gm_flux", dt, got[:1], want[:1])[1]
+            worst[key + "_vdc"] = compare_vdc("gm_flux", dt, got[1], want[1])
+            del got, want, diffs
+        del f
         tlt = gm.transition_layer(
             base, grid, *searched_inputs(base, grid, sla, SEED + 5),
             gm._rossby_radius(grid))
@@ -922,7 +961,10 @@ def ragged_phase(dtype_name: str):
     emit({"phase": "ragged", "dtype": dtype_name, "dims": list(RAGGED),
           "km": list(RAGGED_KM), "rel_err_of_scale": worst,
           "band": {"thomas": BAND[("thomas", dt)],
+                   "slope": SLOPE_BAND[dt], "n2": N2_BAND[dt],
                    "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]],
+                   "flux": BAND[("gm_flux", dt)],
+                   "flux_vdc_rtol": GM_VDC_RTOL[dt],
                    "tracer": BAND[("tracer", dt)],
                    "tracer_advdiff": BAND[("tracer_advdiff", dt)],
                    "clinic": BAND[("clinic", dt)]}})
@@ -1335,6 +1377,26 @@ def main():
                                  f"{c_rows} rows, {c_values} values, "
                                  f"planner {rows}, "
                                  f"{clinic_cuda.smem_values(rows)}")
+    c_rows, c_values = (lib.pop2_gm_slope_tile_rows(),
+                        lib.pop2_gm_slope_smem_values())
+    want = gm_slope_cuda.smem_values(gm_slope_cuda.TILE_ROWS)
+    if (c_rows, c_values) != (gm_slope_cuda.TILE_ROWS, want):
+        raise AssertionError(f"gm_slope tile: library {c_rows} rows, "
+                             f"{c_values} values, planner "
+                             f"{gm_slope_cuda.TILE_ROWS}, {want}")
+    if lib.pop2_gm_flux_max_tracers() != gm_cuda.MAX_TRACERS:
+        raise AssertionError(f"gm_flux tracer cap: library "
+                             f"{lib.pop2_gm_flux_max_tracers()}, planner "
+                             f"{gm_cuda.MAX_TRACERS}")
+    for nt, cancel in itertools.product(range(1, gm_cuda.MAX_TRACERS + 1),
+                                        (True, False)):
+        c_plan = (lib.pop2_gm_flux_tile_rows(nt),
+                  lib.pop2_gm_flux_smem_values(nt, int(cancel)))
+        want = (gm_cuda.tile_rows(nt), gm_cuda.smem_values(nt, cancel))
+        if c_plan != want:
+            raise AssertionError(f"gm_flux tile (nt={nt}, cancellation="
+                                 f"{cancel}): library rows, values {c_plan},"
+                                 f" planner {want}")
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": cb.build_seconds,
           "library": "nvcc sm_90a, ctypes",

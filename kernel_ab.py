@@ -8,21 +8,22 @@ replaces.
 
 (``_parent/`` is git-ignored.) Both checkouts are driven through their
 wrappers (``tridiag_cuda.thomas``, ``tracer_cuda.tracer_tendency``,
-``clinic_cuda.clinic_rhs_fields``, ``gm_chain_cuda.chain``,
-``gm_cuda.flux_assembly``), whose interface a redesign keeps: the other
-checkout's package is imported from its own directory, apart from this
-one's, and builds its kernels from its own sources. The operands are those
-of ``chip_smoke.py``'s kernel phases at 320 x 384 x 60, nt = 2, in float32
-and float64: thomas for 1 and 2 right-hand sides, the tracer tendency with
-the Laplacian (the core path's mode) and without it (the GM paths'), the
-momentum forcing on a leapfrog step, the chain kernel in the gm_full path's
-instance, the flux assembly in both of its instances (the gm_flux path's
-cancellation and the skew). Each kernel runs in turns other, this, this,
-other; a turn takes both of ``chip_smoke.py``'s times: ``ms`` (median of
-single calls between CUDA events, the ``kernels`` line's method) and
-``ms_back_to_back`` (calls back to back). The two checkouts' outputs are
-compared: the largest difference over the output's largest value, and
-whether they are bitwise equal.
+``clinic_cuda.clinic_rhs_fields``, ``gm_slope_cuda.slopes``,
+``gm_chain_cuda.chain``, ``gm_cuda.flux_assembly``), whose interface a
+redesign keeps: the other checkout's package is imported from its own
+directory, apart from this one's, and builds its kernels from its own
+sources. The operands are those of ``chip_smoke.py``'s kernel phases at
+320 x 384 x 60, nt = 2, in float32 and float64: thomas for 1 and 2
+right-hand sides, the tracer tendency with the Laplacian (the core path's
+mode) and without it (the GM paths'), the momentum forcing on a leapfrog
+step, the slopes of the gm_full path's stratified tracers, the chain kernel
+in the gm_full path's instance, the flux assembly in both of its instances
+(the gm_flux path's cancellation and the skew). Each kernel runs in turns
+other, this, this, other; a turn takes both of ``chip_smoke.py``'s times:
+``ms`` (median of single calls between CUDA events, the ``kernels`` line's
+method) and ``ms_back_to_back`` (calls back to back). The two checkouts'
+outputs are compared: the largest difference over the output's largest
+value, and whether they are bitwise equal.
 
 Prints the card's name and power limit, then one JSON object a line.
 """
@@ -63,7 +64,8 @@ def other_package(root: Path) -> dict:
     try:
         mods = {n: importlib.import_module(f"{PKG}.{n}")
                 for n in ("_cuda_build", "tridiag_cuda", "tracer_cuda",
-                          "clinic_cuda", "gm_chain_cuda", "gm_cuda")}
+                          "clinic_cuda", "gm_slope_cuda", "gm_chain_cuda",
+                          "gm_cuda")}
     finally:
         sys.path.remove(str(root))
         for k in _ours():
@@ -148,9 +150,10 @@ def thomas_cases(other, dtype_name):
         args = (hfac, h1, grid.KMT, a, f["rhs"][:nr].contiguous())
         rec = in_turns(lambda: other["tridiag_cuda"].thomas(*args),
                        lambda: tridiag_cuda.thomas(*args))
-        rec["rel_diff_this_vs_other"] = rel_diff(
-            [tridiag_cuda.thomas(*args)],
-            [other["tridiag_cuda"].thomas(*args)])
+        mine = [tridiag_cuda.thomas(*args)]
+        theirs = [other["tridiag_cuda"].thomas(*args)]
+        rec["rel_diff_this_vs_other"] = rel_diff(mine, theirs)
+        rec["bitwise_equal"] = bitwise(mine, theirs)
         cs.emit({"kernel": "thomas", "dtype": dtype_name, "nr": nr, **rec})
 
 
@@ -161,6 +164,19 @@ def gm_cases(other, dtype_name):
     bc = grid_bc(cfg)
     tr = cs.ts_range_of(cfg, grid)
     tmix = sample.grid_tracers(cfg, grid, cs.SEED + 2)
+    ops = (bc, tr, tmix)
+    rec = in_turns(
+        lambda: other["gm_slope_cuda"].slopes(cfg, grid_o, *ops),
+        lambda: gm_slope_cuda.slopes(cfg, grid, *ops))
+    mine = gm_slope_cuda.slopes(cfg, grid, *ops)
+    theirs = other["gm_slope_cuda"].slopes(cfg, grid_o, *ops)
+    # slopes divided by the clamp are ~1e13: compare N^2 and the measure,
+    # and count the slopes that differ at all
+    rec["rel_diff_this_vs_other"] = rel_diff(mine[1:], theirs[1:])
+    rec["slopes_differing"] = int((mine[0] != theirs[0]).sum())
+    rec["bitwise_equal"] = bitwise(mine, theirs)
+    cs.emit({"kernel": "gm_slope", "dtype": dtype_name, **rec})
+    del mine, theirs
     slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
     tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
                               gm._rossby_radius(grid))
@@ -170,9 +186,10 @@ def gm_cases(other, dtype_name):
     rec = in_turns(
         lambda: other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops),
         lambda: gm_chain_cuda.chain(cfg, grid, bc, *ops))
-    rec["rel_diff_this_vs_other"] = rel_diff(
-        gm_chain_cuda.chain(cfg, grid, bc, *ops)[:2],
-        other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops)[:2])
+    mine = gm_chain_cuda.chain(cfg, grid, bc, *ops)[:2]
+    theirs = other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops)[:2]
+    rec["rel_diff_this_vs_other"] = rel_diff(mine, theirs)
+    rec["bitwise_equal"] = bitwise(mine, theirs)
     cs.emit({"kernel": "gm_chain", "dtype": dtype_name, **rec})
     del slp, sla, n2, kv, tlt, ops
 
@@ -183,9 +200,10 @@ def gm_cases(other, dtype_name):
         rec = in_turns(
             lambda: other["gm_cuda"].flux_assembly(cfg_f, grid_o, bc, *ops),
             lambda: gm_cuda.flux_assembly(cfg_f, grid, bc, *ops))
-        rec["rel_diff_this_vs_other"] = rel_diff(
-            gm_cuda.flux_assembly(cfg_f, grid, bc, *ops),
-            other["gm_cuda"].flux_assembly(cfg_f, grid_o, bc, *ops))
+        mine = gm_cuda.flux_assembly(cfg_f, grid, bc, *ops)
+        theirs = other["gm_cuda"].flux_assembly(cfg_f, grid_o, bc, *ops)
+        rec["rel_diff_this_vs_other"] = rel_diff(mine, theirs)
+        rec["bitwise_equal"] = bitwise(mine, theirs)
         cs.emit({"kernel": "gm_flux", "dtype": dtype_name,
                  "instance": "cancellation" if cancellation else "skew",
                  **rec})

@@ -29,11 +29,6 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = ("thomas.cu", "tracer.cu", "clinic.cu", "gm_slope.cu",
            "gm_chain.cu", "gm_flux.cu")
 HEADERS = ("common.cuh", "gm_flux.cuh")
-# kernels of one thread a column in blocks of ONE_COLUMN_THREADS (kThreads of
-# csrc/common.cuh) and no shared memory; thomas, gm_chain, tracer and clinic
-# stage in shared memory (their wrappers' launch_plan)
-ONE_COLUMN_KERNELS = ("gm_slope", "gm_flux")
-ONE_COLUMN_THREADS = 128
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,9 +111,10 @@ def _declare(lib) -> None:
     lib.pop2_thomas_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_smem_values.argtypes = [i]
-    for name in ONE_COLUMN_KERNELS:
-        getattr(lib, f"pop2_{name}_blocks_per_sm").argtypes = [i, i]
-        getattr(lib, f"pop2_{name}_blocks_per_sm").restype = i
+    lib.pop2_gm_slope_blocks_per_sm.argtypes = [i, l]
+    lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_gm_flux_smem_values.argtypes = [i, i]
+    lib.pop2_gm_flux_tile_rows.argtypes = [i]
     lib.pop2_tracer.argtypes = [i] * 11 + [l] + [p] * 20 + [d, p, p]
     lib.pop2_tracer.restype = i
     lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, l]
@@ -128,11 +124,11 @@ def _declare(lib) -> None:
     lib.pop2_clinic_smem_values.argtypes = [i]
     lib.pop2_clinic_tile_rows.argtypes = [i]
     lib.pop2_clinic.restype = i
-    lib.pop2_gm_slopes.argtypes = [i] * 5 + [d] + [p] * 9
+    lib.pop2_gm_slopes.argtypes = [i] * 6 + [l, d] + [p] * 9
     lib.pop2_gm_slopes.restype = i
     lib.pop2_gm_chain.argtypes = [i] * 9 + [l] + [p] * 19
     lib.pop2_gm_chain.restype = i
-    lib.pop2_gm_flux.argtypes = [i] * 7 + [p] * 17
+    lib.pop2_gm_flux.argtypes = [i] * 8 + [l] + [p] * 17
     lib.pop2_gm_flux.restype = i
     for count in ("pop2_clinic_g2d_count", "pop2_gm_slope_coef_rows",
                   "pop2_gm_chain_lev_rows", "pop2_gm_flux_max_tracers",
@@ -141,7 +137,10 @@ def _declare(lib) -> None:
                   "pop2_tracer_blocks_per_sm", "pop2_tracer_smem_values",
                   "pop2_tracer_max_group", "pop2_tracer_tile_rows",
                   "pop2_clinic_blocks_per_sm", "pop2_clinic_smem_values",
-                  "pop2_clinic_tile_rows", "pop2_max_dynamic_smem"):
+                  "pop2_clinic_tile_rows", "pop2_max_dynamic_smem",
+                  "pop2_gm_slope_blocks_per_sm", "pop2_gm_slope_smem_values",
+                  "pop2_gm_slope_tile_rows", "pop2_gm_flux_blocks_per_sm",
+                  "pop2_gm_flux_smem_values", "pop2_gm_flux_tile_rows"):
         getattr(lib, count).restype = i
 
 

@@ -2,29 +2,25 @@
 //
 // Fields are dense row-major (..., km, ny, nx) arrays, i fastest, so a warp
 // of neighbouring columns reads 32 neighbouring addresses; closed boundaries
-// read zero, a cyclic east-west boundary wraps the index. Two designs:
-//
-//   one thread per (j, i) water column, a loop over k with the column's
-//   carries in registers and the neighbours read straight from global
-//   memory, L1/L2 serving the re-reads (gm_slope, gm_flux);
-//
-//   shared-memory staging with asynchronous copies (`cp.async`) issued ahead
-//   of the arithmetic: thomas stages whole columns; gm_chain, tracer and
-//   clinic a 2-D tile of columns with a one-column halo, level by level,
-//   and hand what a column computes once a level (the chain's weights, the
-//   face velocities of tracer and clinic) to its neighbours through shared
-//   memory. Their block shape and dynamic shared memory come from the
-//   caller (the wrappers' launch planners); the C entries check them
-//   against the layout, and the card refuses a block over what it gives one
-//   (`allow_large_smem`). tracer and clinic share the tile geometry below
-//   (`Frame`, `frame_slot`); the chain keeps its own.
+// read zero, a cyclic east-west boundary wraps the index. Every kernel
+// stages in shared memory with asynchronous copies (`cp.async`) issued
+// ahead of the arithmetic: thomas stages whole columns; gm_chain, gm_slope,
+// gm_flux, tracer and clinic a 2-D tile of columns with a one-column halo,
+// level by level, and the stencil kernels among them hand what a column
+// computes once a level (the GM weights, the face velocities of tracer and
+// clinic) to its neighbours through shared memory. Their block shape and
+// dynamic shared memory come from the caller (the wrappers' launch
+// planners); the C entries check them against the layout, and the card
+// refuses a block over what it gives one (`allow_large_smem`). gm_slope,
+// gm_flux, tracer and clinic share the tile geometry below (`Frame`,
+// `frame_slot`): a tile of threads inside a frame of halo slots that the
+// threads copy; the chain keeps its own tile, whose halo columns are
+// threads.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace pop2 {
-
-constexpr int kThreads = 128;  // threads per block of the one-column kernels
 
 // Horizontal position of a thread's column and of its four neighbours.
 // An index that would leave the domain through a closed edge is clamped to
@@ -56,24 +52,12 @@ __device__ __forceinline__ void locate_at(int ny, int nx, int cyclic, int j,
   }
 }
 
-// The column of this thread in a one-column-a-thread launch.
-__device__ __forceinline__ bool locate(int ny, int nx, int cyclic,
-                                       Column* c) {
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (long)ny * nx) return false;
-  const int j = (int)(p / nx);
-  locate_at(ny, nx, cyclic, j, (int)(p - (long)j * nx), c);
-  return true;
-}
-
 // f[off] where the neighbour exists, zero where a closed edge cuts it off.
 template <typename T>
 __device__ __forceinline__ T ldz(const T* __restrict__ f, long off,
                                  bool valid) {
   return valid ? __ldg(f + off) : T(0);
 }
-
-inline int blocks_for(long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // ---- asynchronous copies into shared memory (sm_80 and later) ------------
 
@@ -100,7 +84,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- 2-D tiles staged level by level (tracer, clinic) ---------------------
+// ---- 2-D tiles staged level by level (gm_slope, gm_flux, tracer, clinic) --
 //
 // A block is a tile of kFrameCols x rows interior columns, a warp a row and
 // one thread a column, inside a frame of HALO columns on every side. A

@@ -312,7 +312,7 @@ struct TileTracers {
 };
 
 // The weights the tile's columns published for one level, as
-// `gm_flux_level` reads them (see HeldWeights), straight from shared memory.
+// `gm_flux_level` reads them, straight from shared memory.
 template <typename T>
 struct TileWeights {
   const T* pb;  // (kPubWeights, nthr)

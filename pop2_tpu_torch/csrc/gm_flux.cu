@@ -10,72 +10,181 @@
 // Bound on this card: bytes. The function must read 3 nt difference fields
 // and 20 weight-source fields (8 slopes, 8 streamfunction, 2 + 2
 // diffusivities) and write nt + 1 fields, against a few hundred flops per
-// column and level. The TPU version first packs 17 weight planes in device
-// memory so its tiles fit fast memory; here each thread forms the weights it
-// needs from the unpacked fields in registers, for its own column and (the
-// one face that touches it) for each of its four neighbours, so no pack is
-// ever written. The arithmetic is `gm_flux_level` in gm_flux.cuh, driven
-// here by `gm_flux_column` and shared with the fused chain kernel. Both
-// `cancellation` branches are instances.
+// column and level; with `cancellation` the skew weights vanish, and tz and
+// the streamfunction are not read. The TPU version first packs 17 weight
+// planes in device memory so its tiles fit fast memory; here no pack is
+// written, and each value is read once a level:
+//   - a block is a tile of kFrameCols x rows columns (a warp a row, one
+//     thread a column) in a one-column frame (common.cuh `Frame`), walking
+//     down k; the model's two tracers have an instance with the count and
+//     the rows (kFluxRows) compile-time constants, any other count the
+//     narrow tile (kFluxRowsNarrow), whose staged levels of up to
+//     kMaxTracers tracers fit a block;
+//   - every frame column forms its tracer-independent weights once a level
+//     from the unpacked fields, which only its own thread reads (plain
+//     loads, no shared stage): a tile column the full `GmWeights` (the next
+//     level's, a level ahead), a frame column on the tile's sides only its
+//     effective diffusivity and the facing face's skew weights, formed by
+//     the first threads besides their own. Each publishes weff, vt, vb in
+//     shared memory (two buffers, one barrier a level), and a column's
+//     face fluxes read its neighbours' there;
+//   - tx (tile and W side), ty (tile and S side) and, for the skew terms,
+//     tz (tile and its four sides) of every tracer are staged by `cp.async`
+//     two levels ahead into three buffers: the level's fluxes read level k
+//     and level k+1;
+//   - the vertical-flux carry of each tracer lies in shared memory, so all
+//     tracers (up to kMaxTracers) are one launch and the weights are formed
+//     once for them;
+//   - integer work is what held the first build back (a run-time tracer
+//     count and 64-bit offsets made most of an 870-instruction level in
+//     float32, and spilled at 32 warps an SM): offsets are int (the C entry
+//     checks that they fit), and the model's instance unrolls its loops
+//     over the tracers.
+// The arithmetic of a level is `gm_flux_level` of gm_flux.cuh, shared with
+// the fused chain kernel, driven here by the providers `FrameWeights` and
+// `FrameDiffs`. Both `cancellation` branches are instances. Closed edges
+// read zero (copies of nothing, zero weights); a cyclic edge wraps inside
+// the frame; the ragged last tiles are masked. The block shape and the
+// dynamic shared memory come from the wrapper's planner
+// (`gm_cuda.launch_plan`).
 #include "gm_flux.cuh"
 
 namespace pop2 {
 
-// Weights from the slope (slx, sly), streamfunction (sfx, sfy), isopycnal
-// diffusivity and horizontal diffusivity fields. slx/sly/sfx/sfy are
-// (2 faces, 2 halves, km, ny, nx): plane 2*face + half; kisop/hd are
-// (2 halves, km, ny, nx).
-template <typename T, bool CANCEL>
-struct FieldWeights {
-  const T* __restrict__ slx;
-  const T* __restrict__ sly;
-  const T* __restrict__ sfx;
-  const T* __restrict__ sfy;
-  const T* __restrict__ kisop;
-  const T* __restrict__ hd;
-  const T* __restrict__ lev;
-  Stencil s;
-  GmMetrics<T> m;
-  long ls, ps;  // level stride, plane stride (km levels)
+// the model's tracers, T and S: an instance with this count a compile-time
+// constant (template NT) on the wide tile; any other count is a run-time
+// value (NT = 0) on the narrow tile
+constexpr int kFluxTracersFixed = 2;
+constexpr int kFluxRows = 8;
+constexpr int kFluxRowsNarrow = 2;
+__host__ __device__ constexpr int flux_rows(int nt) {
+  return nt == kFluxTracersFixed ? kFluxRows : kFluxRowsNarrow;
+}
+using FluxFrame = Frame<1>;
 
-  // slope-like field `f` (x faces) / `g` (y faces) of cell face `face`
-  __device__ __forceinline__ T quarter(const T* f, const T* g, int face,
-                                       int half, long o) const {
-    const T* src = face < fN ? f : g;
-    return src[(2 * (face & 1) + half) * ps + o];
-  }
+// what a frame column publishes each level: weff, then vt and vb of faces
+// e, w, n, s (weff alone under `cancellation`)
+enum { pWEFF = 0, pVT = 1, pVB = 5, kFluxPub = 9 };
+// staged difference planes of a tracer
+enum { dTX = 0, dTY = 1, dTZ = 2 };
 
-  __device__ __forceinline__ void own(int k, GmWeights<T>* w) {
-    const long o = k * ls + s.off[kC];
-    T sl_t[4], sl_b[4], sf_t[4], sf_b[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      sl_t[f] = quarter(slx, sly, f, 0, o);
-      sl_b[f] = quarter(slx, sly, f, 1, o);
-      sf_t[f] = CANCEL ? T(0) : quarter(sfx, sfy, f, 0, o);
-      sf_b[f] = CANCEL ? T(0) : quarter(sfx, sfy, f, 1, o);
-    }
-    gm_make_weights<T, CANCEL>(lev[k], kisop[o], kisop[ps + o], hd[o],
-                               hd[ps + o], sl_t, sl_b, sf_t, sf_b, m, w);
-  }
-
-  __device__ __forceinline__ void face(int col, int k, T* weff, T* vt,
-                                       T* vb) const {
-    *weff = *vt = *vb = T(0);
-    if (!s.valid[col]) return;
-    const long o = k * ls + s.off[col];
-    const T kis_t = kisop[o], kis_b = kisop[ps + o];
-    *weff = kis_t + kis_b + hd[o] + hd[ps + o];
-    if (CANCEL) return;
-    const int f = facing(col);
-    const T dzk = lev[k];
-    *vt = kis_t * quarter(slx, sly, f, 0, o) * dzk - quarter(sfx, sfy, f, 0, o);
-    *vb = kis_b * quarter(slx, sly, f, 1, o) * dzk - quarter(sfx, sfy, f, 1, o);
+// The tile's shared memory, in values: three staged levels of nt tracers'
+// difference frame planes, two buffers of the published weights (frame
+// planes), the nt vertical-flux carries (tile planes).
+template <bool CANCEL, int ROWS>
+struct FluxLayout {
+  static constexpr int kW = FluxFrame::kPitch;
+  static constexpr int kP = FluxFrame::plane(ROWS);  // a frame plane
+  static constexpr int kC = kFrameCols * ROWS;       // a tile plane
+  static constexpr int kDiff = CANCEL ? 2 : 3;       // planes a tracer
+  static constexpr int kPub = CANCEL ? 1 : kFluxPub;
+  static constexpr int kTracer = kDiff * kP;  // a tracer's staged level
+  static constexpr int kSlots = (kP + kC - 1) / kC;  // frame slots a thread
+  // frame columns on the tile's sides whose weights a tile thread forms:
+  // the W and E columns and the S and N rows, no corners
+  static constexpr int kSides = 2 * ROWS + 2 * kFrameCols;
+  static constexpr int kSideIters = (kSides + kC - 1) / kC;
+  static constexpr __host__ __device__ long values(int nt) {
+    return 3L * nt * kTracer + 2L * kPub * kP + (long)nt * kC;
   }
 };
 
-template <typename T, bool CANCEL>
-__global__ void __launch_bounds__(kThreads)
+inline long flux_smem_values(int nt, bool cancel) {
+  if (flux_rows(nt) == kFluxRows)
+    return cancel ? FluxLayout<true, kFluxRows>::values(nt)
+                  : FluxLayout<false, kFluxRows>::values(nt);
+  return cancel ? FluxLayout<true, kFluxRowsNarrow>::values(nt)
+                : FluxLayout<false, kFluxRowsNarrow>::values(nt);
+}
+
+// Blocks an SM that the register budget is set for. The model's two
+// tracers: 32 warps in float32 with `cancellation` (the gm_flux path's
+// instance), 16 in its skew instance and in float64. A run-time tracer
+// count, off the model's path, takes the registers it needs.
+template <typename T, bool CANCEL, int NT>
+struct FluxOcc {
+  static constexpr int kMinBlocks =
+      NT != kFluxTracersFixed ? 1 : (sizeof(T) == 4 && CANCEL ? 4 : 2);
+};
+
+// Slot offset of stencil column `col` from the centre in a frame plane.
+template <int W>
+__device__ __forceinline__ int frame_shift(int col) {
+  return col == kE ? 1 : col == kW ? -1 : col == kN ? W : col == kS ? -W : 0;
+}
+
+// The weights the tile's frame columns published for one level, as
+// `gm_flux_level` reads them, from shared memory: pb is the buffer of the
+// level, s the centre column's slot.
+template <typename T, bool CANCEL, int P, int W>
+struct FrameWeights {
+  const T* pb;
+  int s;
+
+  __device__ __forceinline__ T at(int q, int col) const {
+    return pb[q * P + s + frame_shift<W>(col)];
+  }
+  __device__ __forceinline__ T own_weff() const { return at(pWEFF, kC); }
+  __device__ __forceinline__ T own_vt(int f) const {
+    return CANCEL ? T(0) : at(pVT + f, kC);
+  }
+  __device__ __forceinline__ T own_vb(int f) const {
+    return CANCEL ? T(0) : at(pVB + f, kC);
+  }
+  __device__ __forceinline__ T nb_weff(int c) const { return at(pWEFF, c); }
+  __device__ __forceinline__ T nb_vt(int c) const {
+    return CANCEL ? T(0) : at(pVT + facing(c), c);
+  }
+  __device__ __forceinline__ T nb_vb(int c) const {
+    return CANCEL ? T(0) : at(pVB + facing(c), c);
+  }
+};
+
+// The tracer differences of the centre column's stencil, as
+// `gm_flux_level` reads them, from the staged levels: lk holds level k,
+// lkp the level below it (level k again at the bottom); a tracer's planes
+// are NS values apart.
+template <typename T, int P, int W, int NS>
+struct FrameDiffs {
+  const T* lk;
+  const T* lkp;
+  int k, s;
+
+  __device__ __forceinline__ const T* lvl(int n, int L) const {
+    return (L == k ? lk : lkp) + n * NS + s;
+  }
+  __device__ __forceinline__ T tx_c(int n, int L) const {
+    return lvl(n, L)[dTX * P];
+  }
+  __device__ __forceinline__ T tx_w(int n, int L) const {
+    return lvl(n, L)[dTX * P - 1];
+  }
+  __device__ __forceinline__ T ty_c(int n, int L) const {
+    return lvl(n, L)[dTY * P];
+  }
+  __device__ __forceinline__ T ty_s(int n, int L) const {
+    return lvl(n, L)[dTY * P - W];
+  }
+  __device__ __forceinline__ T tz(int n, int L, int col) const {
+    return lvl(n, L)[dTZ * P + frame_shift<W>(col)];
+  }
+};
+
+// The field of a slope-like pair that holds face `face` (`f` the x faces,
+// `g` the y faces, each (2 faces, 2 halves, km, ny, nx)), and the offset of
+// the face's top-half plane in it (the bottom half is ps further).
+template <typename T>
+__device__ __forceinline__ const T* quarter(const T* f, const T* g,
+                                            int face) {
+  return face < fN ? f : g;
+}
+__device__ __forceinline__ int quarter_off(int face, int ps) {
+  return 2 * (face & 1) * ps;
+}
+
+template <typename T, bool CANCEL, int NT>
+__global__ void __launch_bounds__(kFrameCols * flux_rows(NT),
+                                  FluxOcc<T, CANCEL, NT>::kMinBlocks)
 gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
                const T* __restrict__ tx, const T* __restrict__ ty,
                const T* __restrict__ tz, const T* __restrict__ slx,
@@ -85,58 +194,322 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
                const T* __restrict__ hyx, const T* __restrict__ hxy,
                const T* __restrict__ tarea_r, const T* __restrict__ lev,
                T* __restrict__ gtk, T* __restrict__ vdc) {
-  Column c;
-  if (!locate(ny, nx, cyclic, &c)) return;
-  const long ls = (long)ny * nx, ts = (long)km * ls;
-  const Stencil s = make_stencil(c, nx);
-  const GmMetrics<T> m = load_metrics(s, kmt, hyx, hxy, tarea_r);
-  FieldWeights<T, CANCEL> wp{slx, sly, sfx, sfy, kisop, hd, lev, s, m, ls, ts};
-  const GivenDiffs<T> dp{tx, ty, tz, s, ls, ts};
-  gm_flux_column<T, CANCEL>(wp, dp, m, nt, km, ls, ts, s.off[kC], lev, gtk,
-                            vdc);
+  constexpr int ROWS = flux_rows(NT);
+  using Lay = FluxLayout<CANCEL, ROWS>;
+  constexpr int W = Lay::kW, P = Lay::kP, C = Lay::kC;
+  if (NT > 0) nt = NT;
+  extern __shared__ __align__(16) unsigned char pop2_smem[];
+  T* stg = reinterpret_cast<T*>(pop2_smem);  // (3, nt, Lay::kTracer)
+  T* pub = stg + 3 * nt * Lay::kTracer;      // (2, Lay::kPub, P)
+  T* fzt = pub + 2 * Lay::kPub * P;          // (nt, C)
+  const int tid = threadIdx.y * kFrameCols + threadIdx.x;
+  // level and plane strides: the C entry keeps every offset of a field
+  // below 2^31
+  const int ls = ny * nx, ps = km * ls;
+  const int stage_size = nt * Lay::kTracer;
+
+  const int x0 = blockIdx.x * kFrameCols, y0 = blockIdx.y * ROWS;
+  const int s = (threadIdx.y + 1) * W + threadIdx.x + 1;  // own slot
+  const int gi = x0 + threadIdx.x, gj = y0 + threadIdx.y;
+  const bool live = gi < nx && gj < ny;  // the column writes output
+  const int oc = live ? gj * nx + gi : 0;
+
+  // The column of the own slot, whose weights this thread forms: the
+  // live column, or past a cyclic edge the column it wraps to (a live
+  // neighbour reads its weights), or none.
+  int own_off = 0;
+  bool own_in;
+  {
+    int r, c;
+    own_in = frame_slot<1>(s, y0, x0, ny, nx, cyclic, &r, &c, &own_off);
+  }
+  // The frame slots this thread copies; bit 0: inside the domain, bit 1:
+  // tx (tile, W side), bit 2: ty (tile, S side), bit 3: tz (tile, N, S, E,
+  // W sides).
+  int soff[Lay::kSlots];
+  unsigned sflag[Lay::kSlots];
+#pragma unroll
+  for (int j = 0; j < Lay::kSlots; ++j) {
+    const int q = tid + j * C;
+    int r = 0, c = 0, off = 0;
+    const bool in =
+        q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off);
+    const bool row_in = r >= 1 && r <= ROWS;
+    const bool col_in = c >= 1 && c <= kFrameCols;
+    const bool fx = row_in && c <= kFrameCols;
+    const bool fy = col_in && r <= ROWS;
+    const bool fz = !CANCEL && ((row_in && c <= kFrameCols + 1) ||
+                                (col_in && r <= ROWS + 1));
+    soff[j] = off;
+    sflag[j] = q < P ? (unsigned)in | (unsigned)fx << 1 |
+                           (unsigned)fy << 2 | (unsigned)fz << 3
+                     : 0u;
+  }
+  // The frame columns on the tile's sides whose weights this thread forms
+  // besides its own (the first threads): slot, column offset, whether it
+  // lies inside the domain, and the face it turns to the tile.
+  int hq[Lay::kSideIters], hoff[Lay::kSideIters], hface[Lay::kSideIters];
+  bool hin[Lay::kSideIters];
+#pragma unroll
+  for (int j = 0; j < Lay::kSideIters; ++j) {
+    const int h = tid + j * C;
+    int q = -1, face = fE;
+    if (h < ROWS) {  // W column: its east face
+      q = (h + 1) * W;
+      face = fE;
+    } else if (h < 2 * ROWS) {  // E column: its west face
+      q = (h - ROWS + 1) * W + W - 1;
+      face = fW;
+    } else if (h < 2 * ROWS + kFrameCols) {  // S row: its north face
+      q = h - 2 * ROWS + 1;
+      face = fN;
+    } else if (h < Lay::kSides) {  // N row: its south face
+      q = (ROWS + 1) * W + h - 2 * ROWS - kFrameCols + 1;
+      face = fS;
+    }
+    int r, c, off = 0;
+    hin[j] = q >= 0 && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off);
+    hq[j] = q;
+    hoff[j] = off;
+    hface[j] = face;
+  }
+
+  // start the copies of level L into buffer b: a group a level, empty past
+  // the bottom
+  auto stage = [&](int L, int b) {
+    if (L < km) {
+      T* st = stg + b * stage_size;
+      const int lo = L * ls;
+      for (int n = 0; n < nt; ++n) {
+        const int to = n * ps + lo;
+        T* sn = st + n * Lay::kTracer;
+#pragma unroll
+        for (int j = 0; j < Lay::kSlots; ++j) {
+          const int q = tid + j * C;
+          const bool in = sflag[j] & 1u;
+          const int o = to + soff[j];
+          if (sflag[j] & 2u) cp_async(sn + dTX * P + q, tx + o, in);
+          if (sflag[j] & 4u) cp_async(sn + dTY * P + q, ty + o, in);
+          if (!CANCEL && (sflag[j] & 8u))
+            cp_async(sn + dTZ * P + q, tz + o, in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the column's 2-D operands (zero where it writes no output)
+  GmMetrics<T> m = {};
+  if (live) {
+    Column c;
+    locate_at(ny, nx, cyclic, gj, gi, &c);
+    m = load_metrics(make_stencil(c, nx), kmt, hyx, hxy, tarea_r);
+  }
+
+  // the own slot's weights at level L, published into its buffer
+  auto own_weights = [&](int L, GmWeights<T>* w) {
+    const int o = L * ls + own_off;
+    T sl_t[4], sl_b[4], sf_t[4], sf_b[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int q = quarter_off(f, ps) + o;
+      const T* sl = quarter(slx, sly, f);
+      sl_t[f] = own_in ? sl[q] : T(0);
+      sl_b[f] = own_in ? sl[q + ps] : T(0);
+      if (CANCEL) {
+        sf_t[f] = sf_b[f] = T(0);
+      } else {
+        const T* sf = quarter(sfx, sfy, f);
+        sf_t[f] = own_in ? sf[q] : T(0);
+        sf_b[f] = own_in ? sf[q + ps] : T(0);
+      }
+    }
+    const T kis_t = own_in ? kisop[o] : T(0);
+    const T kis_b = own_in ? kisop[ps + o] : T(0);
+    const T hd_t = own_in ? hd[o] : T(0);
+    const T hd_b = own_in ? hd[ps + o] : T(0);
+    gm_make_weights<T, CANCEL>(lev[L], kis_t, kis_b, hd_t, hd_b, sl_t, sl_b,
+                               sf_t, sf_b, m, w);
+    T* pb = pub + (L & 1) * Lay::kPub * P + s;
+    pb[pWEFF * P] = w->weff;
+    if (!CANCEL) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        pb[(pVT + f) * P] = w->vt[f];
+        pb[(pVB + f) * P] = w->vb[f];
+      }
+    }
+  };
+
+  // the side columns' weff and facing skew weights at level L, published
+  // (zeros outside the domain)
+  auto side_weights = [&](int L) {
+    T* pb = pub + (L & 1) * Lay::kPub * P;
+#pragma unroll
+    for (int j = 0; j < Lay::kSideIters; ++j) {
+      if (hq[j] < 0) continue;
+      const bool in = hin[j];
+      const int o = L * ls + hoff[j];
+      const T kis_t = in ? kisop[o] : T(0);
+      const T kis_b = in ? kisop[ps + o] : T(0);
+      const T hd_t = in ? hd[o] : T(0);
+      const T hd_b = in ? hd[ps + o] : T(0);
+      pb[pWEFF * P + hq[j]] = kis_t + kis_b + hd_t + hd_b;
+      if (!CANCEL) {
+        const int f = hface[j];
+        const int q = quarter_off(f, ps) + o;
+        const T* sl = quarter(slx, sly, f);
+        const T* sf = quarter(sfx, sfy, f);
+        const T dzk = lev[L];
+        const T sl_t = in ? sl[q] : T(0), sl_b = in ? sl[q + ps] : T(0);
+        const T sf_t = in ? sf[q] : T(0), sf_b = in ? sf[q + ps] : T(0);
+        pb[(pVT + f) * P + hq[j]] = kis_t * sl_t * dzk - sf_t;
+        pb[(pVB + f) * P + hq[j]] = kis_b * sl_b * dzk - sf_b;
+      }
+    }
+  };
+
+  for (int n = 0; n < nt; ++n) fzt[n * C + tid] = T(0);
+
+  // ---- down the column -----------------------------------------------------
+  // level L in buffer L % 3, kept as three rotating indices
+  int b0 = 0, b1 = 1, b2 = 2;
+  stage(0, b0);
+  stage(1, b1);
+  GmWeights<T> cur, nxt;
+  own_weights(0, &cur);
+  side_weights(0);
+  for (int k = 0; k < km; ++k) {
+    // level k+1 has landed everywhere; level k's weights are published;
+    // every thread is done with level k-1's buffers
+    cp_async_wait<0>();
+    __syncthreads();
+    stage(k + 2, b2);
+    if (k + 1 < km) {
+      own_weights(k + 1, &nxt);
+      side_weights(k + 1);
+    }
+    if (live) {
+      const GmLevel<T> g = gm_level(m, km, k, lev);
+      const T* lk = stg + b0 * stage_size;
+      const FrameDiffs<T, P, W, Lay::kTracer> dp{
+          lk, g.kp == k ? lk : stg + b1 * stage_size, k, s};
+      const FrameWeights<T, CANCEL, P, W> fw{
+          pub + (k & 1) * Lay::kPub * P, s};
+      gm_flux_level<T, CANCEL>(dp, m, nt, g, cur, nxt, fw, fzt + tid, C, ls,
+                               ps, oc, gtk, vdc);
+    }
+    cur = nxt;
+    const int b = b0;
+    b0 = b1;
+    b1 = b2;
+    b2 = b;
+  }
+}
+
+template <typename T, bool CANCEL, int NT>
+struct FluxInstance {
+  static cudaError_t prepare(long smem) {
+    return allow_large_smem(gm_flux_kernel<T, CANCEL, NT>, smem);
+  }
+  static int occupancy(long smem) {
+    const cudaError_t e = prepare(smem);
+    if (e != cudaSuccess) return -(int)e;
+    return blocks_per_sm(gm_flux_kernel<T, CANCEL, NT>,
+                         kFrameCols * flux_rows(NT), smem);
+  }
+};
+
+// The launch configuration the wrapper chose: `rows` rows of kFrameCols
+// columns, `smem` bytes of dynamic shared memory.
+template <typename T>
+bool flux_config_ok(int nt, int km, int ny, int nx, bool cancel, int rows,
+                    long smem) {
+  // offsets in int: the four quarter planes of a slope field, the nt of a
+  // difference field
+  return nt >= 1 && nt <= kMaxTracers && km >= 1 &&
+         (long)(nt > 4 ? nt : 4) * km * ny * nx < (1L << 31) &&
+         rows == flux_rows(nt) &&
+         smem >= flux_smem_values(nt, cancel) * (long)sizeof(T);
 }
 
 }  // namespace pop2
 
+#define POP2_GM_FLUX_INSTANCES(T, ACTION)                                    \
+  if (nt == kFluxTracersFixed && cancellation)                               \
+    ACTION(T, true, kFluxTracersFixed)                                       \
+  else if (nt == kFluxTracersFixed)                                          \
+    ACTION(T, false, kFluxTracersFixed)                                      \
+  else if (cancellation)                                                     \
+    ACTION(T, true, 0)                                                       \
+  else                                                                       \
+    ACTION(T, false, 0)
+
 extern "C" int pop2_gm_flux_max_tracers() { return pop2::kMaxTracers; }
 
-// dtype: 0 = float32, 1 = float64. Returns cudaGetLastError() of the launch.
+// Values of dynamic shared memory the tile takes for nt tracers in a branch
+// (the planner's count, gm_cuda.smem_values).
+extern "C" int pop2_gm_flux_smem_values(int nt, int cancellation) {
+  return (int)pop2::flux_smem_values(nt, cancellation != 0);
+}
+
+// The rows of the tile for nt tracers (the planner's gm_cuda.tile_rows).
+extern "C" int pop2_gm_flux_tile_rows(int nt) { return pop2::flux_rows(nt); }
+
+// dtype: 0 = float32, 1 = float64; rows: rows of the tile; smem: dynamic
+// shared memory a block, bytes. Returns cudaGetLastError() of the launch,
+// or cudaErrorInvalidValue for a configuration the kernel does not take.
 extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
-                            int cyclic, int cancellation, const void* tx,
-                            const void* ty, const void* tz, const void* slx,
-                            const void* sly, const void* sfx, const void* sfy,
+                            int cyclic, int cancellation, int rows,
+                            long smem, const void* tx, const void* ty,
+                            const void* tz, const void* slx, const void* sly,
+                            const void* sfx, const void* sfy,
                             const void* kisop, const void* hd, const int* kmt,
                             const void* hyx, const void* hxy,
                             const void* tarea_r, const void* lev, void* gtk,
                             void* vdc, void* stream) {
   using namespace pop2;
-  const dim3 grid(blocks_for((long)ny * nx)), block(kThreads);
+  const bool cancel = cancellation != 0;
+  if (!(dtype == 0
+            ? flux_config_ok<float>(nt, km, ny, nx, cancel, rows, smem)
+            : flux_config_ok<double>(nt, km, ny, nx, cancel, rows, smem)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((nx + kFrameCols - 1) / kFrameCols),
+                  (unsigned)((ny + rows - 1) / rows));
+  const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_GM_FLUX(T, CANCEL)                                              \
-  gm_flux_kernel<T, CANCEL><<<grid, block, 0, s>>>(                          \
-      nt, km, ny, nx, cyclic, (const T*)tx, (const T*)ty, (const T*)tz,      \
-      (const T*)slx, (const T*)sly, (const T*)sfx, (const T*)sfy,            \
-      (const T*)kisop, (const T*)hd, kmt, (const T*)hyx, (const T*)hxy,      \
-      (const T*)tarea_r, (const T*)lev, (T*)gtk, (T*)vdc)
-  if (dtype == 0 && cancellation)
-    POP2_GM_FLUX(float, true);
-  else if (dtype == 0)
-    POP2_GM_FLUX(float, false);
-  else if (cancellation)
-    POP2_GM_FLUX(double, true);
-  else
-    POP2_GM_FLUX(double, false);
+#define POP2_GM_FLUX(T, CANCEL, NT)                                          \
+  {                                                                          \
+    const cudaError_t e = FluxInstance<T, CANCEL, NT>::prepare(smem);        \
+    if (e != cudaSuccess) return (int)e;                                     \
+    gm_flux_kernel<T, CANCEL, NT><<<grid, block, smem, s>>>(                 \
+        nt, km, ny, nx, cyclic, (const T*)tx, (const T*)ty, (const T*)tz,    \
+        (const T*)slx, (const T*)sly, (const T*)sfx, (const T*)sfy,          \
+        (const T*)kisop, (const T*)hd, kmt, (const T*)hyx, (const T*)hxy,    \
+        (const T*)tarea_r, (const T*)lev, (T*)gtk, (T*)vdc);                 \
+  }
+  if (dtype == 0) {
+    POP2_GM_FLUX_INSTANCES(float, POP2_GM_FLUX)
+  } else {
+    POP2_GM_FLUX_INSTANCES(double, POP2_GM_FLUX)
+  }
 #undef POP2_GM_FLUX
   return (int)cudaGetLastError();
 }
 
-// Blocks of the one-column launch that one SM holds at once; variant: the
-// cancellation instance (1) or the skew one (0).
-extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int variant) {
+// Blocks of a launch of this configuration (nt tracers, a branch, `smem`
+// bytes a block) that one SM holds at once.
+extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int nt, int cancellation,
+                                          long smem) {
   using namespace pop2;
-  if (dtype == 0)
-    return variant ? blocks_per_sm(gm_flux_kernel<float, true>, kThreads, 0)
-                   : blocks_per_sm(gm_flux_kernel<float, false>, kThreads, 0);
-  return variant ? blocks_per_sm(gm_flux_kernel<double, true>, kThreads, 0)
-                 : blocks_per_sm(gm_flux_kernel<double, false>, kThreads, 0);
+#define POP2_GM_FLUX_OCC(T, CANCEL, NT)                                      \
+  return FluxInstance<T, CANCEL, NT>::occupancy(smem);
+  if (dtype == 0) {
+    POP2_GM_FLUX_INSTANCES(float, POP2_GM_FLUX_OCC)
+  } else {
+    POP2_GM_FLUX_INSTANCES(double, POP2_GM_FLUX_OCC)
+  }
+#undef POP2_GM_FLUX_OCC
+  return -(int)cudaErrorInvalidValue;  // not reached: every case returns
 }
+#undef POP2_GM_FLUX_INSTANCES

@@ -11,14 +11,14 @@
 //     through the level's bottom needs the top-half weights of the level
 //     below),
 //   each neighbour's effective diffusivity and the skew weights of the face
-//     it shares with the column, through a provider (HeldWeights: values in
-//     registers),
+//     it shares with the column, through a weights provider W,
 //   a difference provider D: tx_c/tx_w/ty_c/ty_s(n, k), tz(n, k, col).
-// `gm_flux.cu` (one thread a column, neighbours read from device memory)
-// drives it through `gm_flux_column` with its own and facing weights formed
-// from the given fields; `gm_chain.cu` (a 2-D tile of columns in shared
-// memory) forms every column's weights once a level and hands the
-// neighbours' from shared memory.
+// Both kernels are 2-D tiles of columns walking down k that form every
+// column's weights once a level and publish them in shared memory: in
+// `gm_chain.cu` (a tile with a one-column halo of threads) the providers
+// are `TileWeights` and `TileTracers`, the differences formed from the
+// staged tracers; in `gm_flux.cu` (a tile in a one-column frame)
+// `FrameWeights` and `FrameDiffs`, the differences given and staged.
 #pragma once
 
 #include "common.cuh"
@@ -135,60 +135,6 @@ __device__ __forceinline__ T gm_face_flux(T dzk, T coef, T diff, T wsum,
   return f;
 }
 
-// Tracer differences read from precomputed (nt, km, ny, nx) fields.
-template <typename T>
-struct GivenDiffs {
-  const T* __restrict__ tx;
-  const T* __restrict__ ty;
-  const T* __restrict__ tz_;
-  Stencil s;
-  long ls, ts;  // level and tracer strides
-
-  __device__ __forceinline__ T at(const T* f, int n, int k, int col) const {
-    return ldz(f + n * ts + k * ls, s.off[col], s.valid[col]);
-  }
-  __device__ __forceinline__ T tx_c(int n, int k) const {
-    return at(tx, n, k, kC);
-  }
-  __device__ __forceinline__ T tx_w(int n, int k) const {
-    return at(tx, n, k, kW);
-  }
-  __device__ __forceinline__ T ty_c(int n, int k) const {
-    return at(ty, n, k, kC);
-  }
-  __device__ __forceinline__ T ty_s(int n, int k) const {
-    return at(ty, n, k, kS);
-  }
-  __device__ __forceinline__ T tz(int n, int k, int col) const {
-    return at(tz_, n, k, col);
-  }
-};
-
-// Of each neighbour column of the stencil: its effective diffusivity and the
-// skew weights of the face it shares with the centre column (zero where a
-// closed edge cuts the neighbour off).
-template <typename T>
-struct FacingWeights {
-  T weff[5], vt[5], vb[5];
-};
-
-// The weights a level's face fluxes read, as `gm_flux_level` asks for them:
-// own_weff(), own_vt(f), own_vb(f) of the column itself, nb_weff(c),
-// nb_vt(c), nb_vb(c) of neighbour column c (its face that looks back). Here
-// held in registers; gm_chain.cu reads them from shared memory instead.
-template <typename T>
-struct HeldWeights {
-  const GmWeights<T>& own;
-  const FacingWeights<T>& nb;
-
-  __device__ __forceinline__ T own_weff() const { return own.weff; }
-  __device__ __forceinline__ T own_vt(int f) const { return own.vt[f]; }
-  __device__ __forceinline__ T own_vb(int f) const { return own.vb[f]; }
-  __device__ __forceinline__ T nb_weff(int c) const { return nb.weff[c]; }
-  __device__ __forceinline__ T nb_vt(int c) const { return nb.vt[c]; }
-  __device__ __forceinline__ T nb_vb(int c) const { return nb.vb[c]; }
-};
-
 // Level k of a column apart from its weights: the level scalars (`lev`
 // holds three rows of km: dz, 1/dz, and dzw between the level and the one
 // below), whether the level and the one below are ocean, and the masked
@@ -223,10 +169,14 @@ __device__ __forceinline__ GmLevel<T> gm_level(const GmMetrics<T>& m, int km,
 }
 
 // GTK of every tracer and VDC_GM at level g.k of the column at offset oc.
-// The face weights come from `w` (see HeldWeights), the vertical-flux
-// weights from the column's own at the level (`cur`: a, part_a) and the
-// level below (`nxt`: b, part_b). fztop[n * fzs] carries the vertical flux
-// through the level's top down the column (zero above the first level).
+// The face weights come from a provider `w`: own_weff(), own_vt(f),
+// own_vb(f) of the column itself, nb_weff(c), nb_vt(c), nb_vb(c) of
+// neighbour column c (the skew weights of its face that looks back); the
+// vertical-flux weights from the column's own at the level (`cur`: a,
+// part_a) and the level below (`nxt`: b, part_b); the differences from a
+// provider `dp`: tx_c, tx_w, ty_c, ty_s (n, level) and tz(n, level, col), at
+// the levels g.k and g.kp. fztop[n * fzs] carries the vertical flux through
+// the level's top down the column (zero above the first level).
 template <typename T, bool CANCEL, class D, class W>
 __device__ __forceinline__ void gm_flux_level(
     const D& dp, const GmMetrics<T>& m, int nt, const GmLevel<T>& g,
@@ -284,36 +234,6 @@ __device__ __forceinline__ void gm_flux_level(
   }
   vdc[k * ls + oc] =
       g.below ? g.dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
-}
-
-// GTK (nt, km, ny, nx) and VDC_GM (km, ny, nx) of the thread's column, the
-// weights from a provider W: own(k, GmWeights*) of this column, and
-// face(nb, k, &weff, &vt, &vb) of neighbour nb (its effective diffusivity
-// and the skew weights of the face that looks back at this column). The
-// next level's weights and the differences below the level are read at the
-// one index g.kp, which the compiler then shares (in float32 the
-// cancellation instance keeps eight blocks an SM that way).
-template <typename T, bool CANCEL, class W, class D>
-__device__ __forceinline__ void gm_flux_column(
-    W& wp, const D& dp, const GmMetrics<T>& m, int nt, int km, long ls,
-    long ts, long oc, const T* __restrict__ lev, T* __restrict__ gtk,
-    T* __restrict__ vdc) {
-  T fztop[kMaxTracers];
-  for (int n = 0; n < nt; ++n) fztop[n] = T(0);
-
-  GmWeights<T> cur, nxt;
-  wp.own(0, &cur);
-  for (int k = 0; k < km; ++k) {
-    const GmLevel<T> g = gm_level(m, km, k, lev);
-    if (k < km - 1) wp.own(g.kp, &nxt);
-    FacingWeights<T> nb;
-#pragma unroll
-    for (int col = kE; col <= kS; ++col)
-      wp.face(col, k, &nb.weff[col], &nb.vt[col], &nb.vb[col]);
-    gm_flux_level<T, CANCEL>(dp, m, nt, g, cur, nxt, HeldWeights<T>{cur, nb},
-                             fztop, 1, ls, ts, oc, gtk, vdc);
-    cur = nxt;
-  }
 }
 
 }  // namespace pop2

@@ -10,12 +10,16 @@ the merged streamfunction and the isopycnal and horizontal diffusivities
 On an H100 the assembly is bound by bytes: 3 nt difference fields and 20
 weight-source fields in, nt + 1 out. The plain version materializes the
 effective diffusivities, the skew weights, three flux fields per tracer and
-every shifted copy in device memory; the kernel gives one thread to each
-(j, i) column, forms the weights of the column and of the facing face of its
-four neighbours in registers from the unpacked fields, and carries the
-vertical flux through each level's top down the column (see
-``csrc/gm_flux.cuh``, which the fused chain kernel shares). Both
-``cancellation`` branches, float32 and float64.
+every shifted copy in device memory. The kernel reads each value once a
+level: a block is a 2-D tile of columns in a one-column frame that walks
+down k; every frame column forms its weights once a level from the unpacked
+fields and hands them to its neighbours through shared memory; the
+differences are staged by asynchronous copies two levels ahead; the
+vertical-flux carries of all tracers lie in shared memory (see the note in
+``csrc/gm_flux.cu``; the arithmetic of a level is ``csrc/gm_flux.cuh``,
+which the fused chain kernel shares). ``launch_plan`` chooses the tile and
+its shared memory in plain Python. Both ``cancellation`` branches, float32
+and float64.
 
 Isotropic diffusivities, closed north-south boundary, 1-D layer thickness:
 the tripole top row and the anisotropic variant raise
@@ -30,6 +34,54 @@ from pop2_tpu_torch import _cuda_build as cb
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+
+MAX_TRACERS = 16  # kMaxTracers of csrc/gm_flux.cuh
+TILE_COLS = 32  # columns a tile row (kFrameCols: one warp)
+# The model's tracers, T and S, have an instance of the kernel with their
+# count a compile-time constant on a tile of TILE_ROWS rows; any other count
+# takes NARROW_ROWS rows, whose staged levels of up to MAX_TRACERS tracers
+# fit a block (kFluxTracersFixed, kFluxRows, kFluxRowsNarrow).
+MODEL_TRACERS = 2
+TILE_ROWS = 8
+NARROW_ROWS = 2
+HALO = 1  # columns of the tile's frame on each side
+
+
+def tile_rows(nt: int) -> int:
+    """Rows of the flux-assembly tile for ``nt`` tracers."""
+    return TILE_ROWS if nt == MODEL_TRACERS else NARROW_ROWS
+
+
+def smem_values(nt: int, cancellation: bool) -> int:
+    """Values of shared memory the tile takes for ``nt`` tracers: three
+    staged levels of each tracer's tx, ty (and, for the skew terms, tz)
+    frame planes, two buffers of the published weights (weff alone with
+    ``cancellation``, else weff and the four faces' two skew weights), and
+    the tracers' vertical-flux carries (``flux_smem_values`` of
+    csrc/gm_flux.cu, which chip_smoke.py holds this against)."""
+    rows = tile_rows(nt)
+    plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
+    diffs, pub = (2, 1) if cancellation else (3, 9)
+    return (3 * nt * diffs * plane + 2 * pub * plane
+            + nt * TILE_COLS * rows)
+
+
+def launch_plan(value_bytes: int, nt: int, cancellation: bool):
+    """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
+    flux-assembly launch for ``nt`` tracers in values of ``value_bytes``.
+    Raises for what the kernel does not take: nt over MAX_TRACERS, values
+    other than float32 or float64, or a tile over the card's 227 KB."""
+    if value_bytes not in (4, 8):
+        raise TypeError(f"kernels take float32 or float64, got "
+                        f"{value_bytes}-byte values")
+    if not 1 <= nt <= MAX_TRACERS:
+        raise NotImplementedError(
+            f"GM flux-assembly kernel carries at most {MAX_TRACERS} tracers "
+            f"a launch, got {nt}")
+    rows = tile_rows(nt)
+    smem = smem_values(nt, cancellation) * value_bytes
+    cb.check_smem(smem, f"GM flux tile ({TILE_COLS} x {rows}, nt={nt})")
+    return (TILE_COLS, rows), smem
 
 
 def _check_mode(cfg, grid):
@@ -173,11 +225,8 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
                                    cancellation)
     nt, km, ny, nx = tx.shape
     dev, dt = tx.device, tx.dtype
+    (_, rows), smem = launch_plan(tx.element_size(), nt, bool(cancellation))
     lib = cb.lib()
-    if nt > lib.pop2_gm_flux_max_tracers():
-        raise NotImplementedError(
-            f"GM flux-assembly kernel carries at most "
-            f"{lib.pop2_gm_flux_max_tracers()} tracers a launch, got {nt}")
     hyx, hxy, lev = kernel_statics(grid)
     f4, f5, f2 = (nt, km, ny, nx), (2, 2, km, ny, nx), (ny, nx)
     for name, t, shape in (
@@ -192,11 +241,12 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     vdc = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_flux(
         cb.dtype_code(tx), nt, km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        int(bool(cancellation)), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
-        slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(), sf_sly.data_ptr(),
-        kisop.data_ptr(), hor_diff.data_ptr(), grid.KMT.data_ptr(),
-        hyx.data_ptr(), hxy.data_ptr(), grid.TAREA_R.data_ptr(),
-        lev.data_ptr(), gtk.data_ptr(), vdc.data_ptr(), cb.stream_ptr())
+        int(bool(cancellation)), rows, smem, tx.data_ptr(), ty.data_ptr(),
+        tz.data_ptr(), slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(),
+        sf_sly.data_ptr(), kisop.data_ptr(), hor_diff.data_ptr(),
+        grid.KMT.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
+        grid.TAREA_R.data_ptr(), lev.data_ptr(), gtk.data_ptr(),
+        vdc.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm flux_assembly")
     launches += 1
     return gtk, vdc

@@ -15,7 +15,11 @@ version writes the two expansion coefficients (twice: at the level's own and
 at the displaced pressure), the face and vertical density differences and
 every shifted operand to device memory, some 25 field passes; the kernel
 evaluates the MWJF derivatives in registers from per-level coefficients
-(``level_coeffs``) and writes only the results. Float32 and float64.
+(``level_coeffs``) and writes only the results. A block is a 2-D tile of
+columns in a one-column frame that walks down k and stages T and S of the
+frame by asynchronous copies three levels ahead (see the note in
+``csrc/gm_slope.cu``); ``launch_plan`` chooses the tile and its shared
+memory in plain Python. Float32 and float64.
 
 MWJF equation of state, closed north-south boundary, 1-D layer thickness;
 the other modes raise ``NotImplementedError`` (ROADMAP.md Queue 2 kernel 4).
@@ -37,6 +41,33 @@ launches = 0
 COEF_ROWS = ("N00A", "N02A", "N10A", "D00A", "D01A", "D03A",
              "N00B", "N02B", "N10B", "D00B", "D01B", "D03B",
              "TMIN", "TMAX", "SMIN", "SMAX", "DZWT", "DZWB", "DZWR")
+
+TILE_COLS = 32  # columns a tile row (kFrameCols: one warp)
+TILE_ROWS = 8  # rows a tile (kSlopeRows of csrc/gm_slope.cu)
+HALO = 1  # columns of the tile's frame on each side
+RING = 4  # staged levels held at once (kSlopeRing)
+
+
+def smem_values(rows: int) -> int:
+    """Values of shared memory a tile of ``rows`` rows takes: a ring of
+    RING staged levels, each the T and S frame planes and the level's row
+    of the coefficient table (``SlopeLayout::kValues`` of
+    csrc/gm_slope.cu, which chip_smoke.py holds this against)."""
+    plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
+    return RING * (2 * plane + len(COEF_ROWS))
+
+
+def launch_plan(value_bytes: int):
+    """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
+    slope kernel launch in values of ``value_bytes``. Raises for what the
+    kernel does not take: values other than float32 or float64, or a tile
+    over the card's 227 KB."""
+    if value_bytes not in (4, 8):
+        raise TypeError(f"kernels take float32 or float64, got "
+                        f"{value_bytes}-byte values")
+    smem = smem_values(TILE_ROWS) * value_bytes
+    cb.check_smem(smem, f"GM slope tile ({TILE_COLS} x {TILE_ROWS})")
+    return (TILE_COLS, TILE_ROWS), smem
 
 
 def _check_mode(cfg, grid):
@@ -121,6 +152,7 @@ def slopes(cfg, grid, bc, ts_range, tmix):
     dev, dt = tmix.device, tmix.dtype
     if nt < 2:
         raise ValueError("tmix needs temperature and salinity")
+    (_, rows), smem = launch_plan(tmix.element_size())
     coef = level_coeffs(cfg, grid, ts_range)
     f2 = (ny, nx)
     lib = cb.lib()
@@ -135,7 +167,7 @@ def slopes(cfg, grid, bc, ts_range, tmix):
     n2 = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_slopes(
         cb.dtype_code(tmix), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        float(const.GRAV), coef.data_ptr(), tmix.data_ptr(),
+        rows, smem, float(const.GRAV), coef.data_ptr(), tmix.data_ptr(),
         grid.KMT.data_ptr(), grid.DXT.data_ptr(), grid.DYT.data_ptr(),
         slp.data_ptr(), sla.data_ptr(), n2.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm slopes")

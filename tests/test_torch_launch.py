@@ -1,7 +1,8 @@
-"""The launch planners of the kernels that stage in shared memory (thomas,
-GM chain, tracer tendency, momentum forcing): plain Python that chooses the
-block shape and the dynamic shared memory for each (value size, right-hand
-sides or tracers, levels, mode), and refuses what the kernels do not take,
+"""The launch planners of the kernels, which all stage in shared memory
+(thomas, GM slopes, GM chain, GM flux assembly, tracer tendency, momentum
+forcing): plain Python that chooses the block shape and the dynamic shared
+memory for each (value size, right-hand sides or tracers, levels, mode),
+and refuses what the kernels do not take,
 before anything is built; and the grid statics the tracer and momentum
 kernels read. Runs on the CPU; the kernels themselves are held against their
 plain versions on the card by chip_smoke.py, which also holds the planners'
@@ -11,8 +12,8 @@ import pytest
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, tracer_cuda
-from pop2_tpu_torch import tridiag_cuda, vmix
+from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda
+from pop2_tpu_torch import gm_slope_cuda, tracer_cuda, tridiag_cuda, vmix
 from pop2_tpu_torch.config import get_config
 from pop2_tpu_torch.grid import build_grid
 
@@ -198,3 +199,93 @@ def test_dzwr2_is_a_grid_static_of_the_mid_level_spacing():
     # built once: the tracer and momentum kernels read the same tensor
     assert vmix.dzwr2(grid) is got
     assert clinic_cuda.kernel_statics(cfg, grid)[1] is got
+
+
+@pytest.mark.parametrize("value_bytes", [4, 8])
+def test_slope_plan_fits_the_tile(value_bytes):
+    (cols, rows), smem = gm_slope_cuda.launch_plan(value_bytes)
+    assert (cols, rows) == (gm_slope_cuda.TILE_COLS, gm_slope_cuda.TILE_ROWS)
+    assert smem == gm_slope_cuda.smem_values(rows) * value_bytes
+    # a ring of four levels of T and S: small enough that registers, not
+    # shared memory, set the blocks an SM (eight blocks fit)
+    assert 8 * (smem + 1024) <= 228 * 1024
+
+
+def test_slope_plan_refuses_other_values():
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gm_slope_cuda.launch_plan(2)
+
+
+def test_slope_plan_refuses_a_tile_over_the_card(monkeypatch):
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", 8 * 1024)
+    with pytest.raises(ValueError, match="227 KB"):
+        gm_slope_cuda.launch_plan(8)
+
+
+# the path's tracers, one, and the cap, in both branches and dtypes
+@pytest.mark.parametrize("value_bytes", [4, 8])
+@pytest.mark.parametrize("nt", [1, 2, 16])
+@pytest.mark.parametrize("cancellation", [True, False])
+def test_flux_plan_fits_the_tile(value_bytes, nt, cancellation):
+    (cols, rows), smem = gm_cuda.launch_plan(value_bytes, nt, cancellation)
+    assert cols == gm_cuda.TILE_COLS
+    # the model's two tracers on the wide tile, any other count narrow
+    assert rows == (gm_cuda.TILE_ROWS if nt == 2 else gm_cuda.NARROW_ROWS)
+    assert smem == gm_cuda.smem_values(nt, cancellation) * value_bytes
+    assert smem <= cb.SMEM_PER_BLOCK
+    if nt == 2:  # the model's path: two blocks an SM at least
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("args,err,match", [
+    ((4, 17, True), NotImplementedError, "at most 16 tracers"),
+    ((8, 0, False), NotImplementedError, "at most 16 tracers"),
+    ((2, 2, True), TypeError, "float32 or float64"),
+])
+def test_flux_plan_refuses(args, err, match):
+    with pytest.raises(err, match=match):
+        gm_cuda.launch_plan(*args)
+
+
+def test_flux_plan_refuses_a_tile_over_the_card(monkeypatch):
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", 16 * 1024)
+    with pytest.raises(ValueError, match="227 KB"):
+        gm_cuda.launch_plan(8, 16, False)
+
+
+def _gm_flux_setup():
+    cfg = get_config("mini", hmix_tracer="gm", gm_transition_layer=False,
+                     lsubmeso=False)
+    return cfg, build_grid(cfg, "cpu")
+
+
+@pytest.mark.parametrize("dtype,smem_cap,err,match", [
+    (torch.float16, None, TypeError, "float32 or float64"),
+    (torch.float64, 8 * 1024, ValueError, "shared memory a block"),
+])
+def test_slope_wrapper_refuses_before_building(no_build, monkeypatch, dtype,
+                                               smem_cap, err, match):
+    cfg, grid = _gm_flux_setup()
+    if smem_cap is not None:
+        monkeypatch.setattr(cb, "SMEM_PER_BLOCK", smem_cap)
+    tmix = torch.zeros((2, cfg.km, cfg.ny, cfg.nx), dtype=dtype)
+    with pytest.raises(err, match=match):
+        gm_slope_cuda.slopes(cfg, grid, None, None, tmix.as_subclass(OnCard))
+
+
+@pytest.mark.parametrize("nt,smem_cap,err,match", [
+    (17, None, NotImplementedError, "at most 16 tracers"),
+    (2, 8 * 1024, ValueError, "shared memory a block"),
+])
+def test_flux_wrapper_refuses_before_building(no_build, monkeypatch, nt,
+                                              smem_cap, err, match):
+    cfg, grid = _gm_flux_setup()
+    if smem_cap is not None:
+        monkeypatch.setattr(cb, "SMEM_PER_BLOCK", smem_cap)
+    f3 = (cfg.km, cfg.ny, cfg.nx)
+    tx = torch.zeros((nt,) + f3)
+    q = torch.zeros((2, 2) + f3)
+    h = torch.zeros((2,) + f3)
+    with pytest.raises(err, match=match):
+        gm_cuda.flux_assembly(cfg, grid, None, tx.as_subclass(OnCard), tx,
+                              tx, q, q, q, q, h, h, True)
