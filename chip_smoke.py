@@ -11,25 +11,35 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's three paths through ``Model.advance`` (Euler step, leapfrog steps,
-averaging steps) at that size in float32 and in float64:
+port's four paths through ``Model.advance`` (Euler step, leapfrog steps,
+averaging or Robert-filtered steps) at that size in float32 and in float64:
 
-    core     the dynamical core (Laplacian tracer mixing)
-    gm_full  GM/Redi mixing with the transition layer and bfre diffusivities:
-             slope kernel -> plain searches -> chain kernel -> tracer kernel
-             without the Laplacian
-    gm_flux  GM/Redi mixing without the transition layer, constant
-             diffusivities: plain chain -> flux-assembly kernel
+    core      the dynamical core (Laplacian tracer mixing)
+    gm_full   GM/Redi mixing with the transition layer and bfre
+              diffusivities: slope kernel -> plain searches -> chain kernel
+              -> tracer kernel without the Laplacian
+    gm_flux   GM/Redi mixing without the transition layer, constant
+              diffusivities: plain chain -> flux-assembly kernel
+    prod_dyn  the production gx1v7 dynamics menu: tripole north edge,
+              upwind3 advection (the tracer kernel's column form),
+              anisotropic viscosity (the momentum kernel without the
+              Laplacian), GM as gm_full, chlorophyll shortwave, frazil ice,
+              the Robert filter, PCSI with the FSPAI preconditioner
+
+The new modes of the tracer, momentum, slope and chain kernels are also held
+against their plain versions on a bottom with ocean across the tripole fold
+(the internal grid's top rows are land, which would hide the fold).
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels. It
 compares five steps with the kernels against five steps with the plain
-versions (and, in float32, both against the float64 run) on the core and
-gm_full paths, breaks a step's time down by part and by device kernel (the
-gm_full path from rest and from a stratified state with slopes for GM to
-work on), and compares the GPU path with the CPU path on a small grid. Every phase that
-fails makes the script exit non-zero; with no GPU it exits at once without a
-result. It takes no arguments: every run is the whole check.
+versions (and, in float32, both against the float64 run) on the core,
+gm_full and prod_dyn paths, breaks a step's time down by part and by device
+kernel (the GM paths from rest and from a stratified state with slopes for
+GM to work on), and compares the GPU path with the CPU path on a small
+grid. Every phase that fails makes the script exit non-zero; with no GPU it
+exits at once without a result. It takes no arguments: every run is the
+whole check.
 
 Output: one JSON object per line; the ``kernels`` line, then the card's name
 and power limit, then the final ``{"ok": true, "device": ...}`` line.
@@ -69,7 +79,8 @@ SEED = 20240613
 # step 17 on) an averaging step
 STEPS = {"core": {"float32": 20, "float64": 6},
          "gm_full": {"float32": 20, "float64": 8},
-         "gm_flux": {"float32": 4, "float64": 3}}
+         "gm_flux": {"float32": 4, "float64": 3},
+         "prod_dyn": {"float32": 6, "float64": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -157,6 +168,15 @@ PATH_BAND = {
 }
 
 WITNESS_RATIO = 1.5
+# prod_dyn in float32 takes no fixed band: after five steps from the
+# stratified state its float32 runs, with the kernels and with the plain
+# versions alike, lie up to a fifth of scale from the float64 run (v_cur,
+# on an H100; PERF.md): its thresholds (frazil ice, the upwind direction of
+# upwind3, the notanh taper) turn float32 rounding into different decisions,
+# and the Robert filter's conservation sums run in float32. There the kernel
+# run may differ from the plain run by at most WITNESS_RATIO times the plain
+# run's own distance from the float64 run, besides the witness test below.
+WITNESS_BAND_PATHS = ("prod_dyn",)
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -173,11 +193,25 @@ SOURCES = {
                  "pop2_tpu/gm_chain_pallas.py:612"),
     "gm_flux": ("pop2_tpu_torch/csrc/gm_flux.cu",
                 "pop2_tpu/gm_pallas.py:358"),
+    "tracer_upwind3": ("pop2_tpu_torch/csrc/tracer.cu",
+                       "pop2_tpu/tracer_pallas.py:563"),
+    "clinic_aniso": ("pop2_tpu_torch/csrc/clinic.cu",
+                     "pop2_tpu/clinic_pallas.py:461"),
+    "gm_slope_tripole": ("pop2_tpu_torch/csrc/gm_slope.cu",
+                         "pop2_tpu/gm_slope_pallas.py:398"),
+    "gm_chain_tripole": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                         "pop2_tpu/gm_chain_pallas.py:612"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "tracer_advdiff": "gm_full", "gm_slope": "gm_full",
-           "gm_chain": "gm_full", "gm_flux": "gm_flux"}
+           "gm_chain": "gm_full", "gm_flux": "gm_flux",
+           "tracer_upwind3": "prod_dyn", "clinic_aniso": "prod_dyn",
+           "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn"}
+# the launch counter each record's kernel adds to
+COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
+              "clinic_aniso": "clinic", "gm_slope_tripole": "gm_slope",
+              "gm_chain_tripole": "gm_chain"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -186,7 +220,14 @@ GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
                gm_ah=3.0e7, gm_ah_bolus=3.0e7, gm_ah_bkg_srfbl=3.0e7,
                lsubmeso=False)
 GM_FLUX = dict(hmix_tracer="gm", gm_transition_layer=False, lsubmeso=False)
-PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX}
+# the production gx1v7 preset without what the port does not carry yet (KPP,
+# tidal mixing, submesoscale, passive tracers)
+PROD_DYN = dict(vmix="rich", ltidal_mixing=False, lsubmeso=False,
+                passive_tracers=(), nt=2)
+PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
+         "prod_dyn": PROD_DYN}
+# the small grid of the GPU-against-CPU comparison of prod_dyn
+PROD_DYN_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
 
 
 def emit(obj):
@@ -199,6 +240,8 @@ def full_config(dtype: str, path: str = "core"):
     does: in float32 the residual floor of the solve lies above the
     convergence criterion of 1e-13 and ChronGear runs to max_iterations
     every step (in the JAX package too)."""
+    if path == "prod_dyn":  # PCSI 1e-13 with FSPAI, solving in float64
+        return get_config("prod_full", dtype=dtype, **PROD_DYN)
     solver = SolverConfig(solve_dtype="float64")
     return get_config("test", nx=320, ny=384, km=60, vmix="rich",
                       dtype=dtype, solver=solver, **PATHS[path])
@@ -417,7 +460,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     elif name == "clinic":
         (cols, rows), smem = clinic_cuda.launch_plan(s)
         block = [cols, rows, 1]
-        n = lib.pop2_clinic_blocks_per_sm(code, smem)
+        n = lib.pop2_clinic_blocks_per_sm(code, int(kw.get("hdiffu", True)),
+                                          smem)
     elif name == "gm_slope":
         (cols, rows), smem = gm_slope_cuda.launch_plan(s)
         block = [cols, rows, 1]
@@ -1013,6 +1057,178 @@ def other_modes_phase(dtype_name: str):
                    "clinic": BAND[("clinic", cfg.torch_dtype)]}})
 
 
+def fold_case(cfg):
+    """The grid of ``cfg`` on the device with the seeded bottom that has
+    ocean across the tripole fold (``sample.fold_grid``), its boundary and
+    the equation of state's T/S range."""
+    grid = sample.fold_grid(cfg, build_grid(cfg, DEV), SEED + 11)
+    if not bool((grid.KMT[-2:] > 0).any() and (grid.KMU[-1] > 0).any()):
+        raise AssertionError("the fold bottom has no ocean in its top rows")
+    return grid, grid_bc(cfg), ts_range_of(cfg, grid)
+
+
+def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """The kernel modes of the prod_dyn path (the tracer kernel's column
+    form with upwind3 and the fold, the momentum kernel without the
+    Laplacian and with the fold, the slopes and the chain on the fold), each
+    against its plain version at the path's shapes on the fold bottom, with
+    times and bounds. Returns {name: record}."""
+    cfg = full_config(dtype_name, "prod_dyn")
+    dt = cfg.torch_dtype
+    grid, bc, tr = fold_case(cfg)
+    km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 12)
+    f = random_fields(cfg, grid, gen)
+    rec = {}
+
+    def timed(fn, plain, nbytes, flops, **info):
+        r = {"ms": time_ms(fn, 3, n_timed),
+             "ms_back_to_back": time_ms_back_to_back(fn, n_timed),
+             "plain_ms": time_ms(plain, 1, 3)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        r.update(info)
+        return r
+
+    # ---- tracer: upwind3 column form on the fold, without the Laplacian:
+    # u, v, vdc (2), trcr, told and the output per tracer; 12 coefficient
+    # planes and the 2-D fields
+    args = (cfg, grid, f["ucur"], f["vcur"], f["trcr"], f["told"], f["told"],
+            f["vdc"], f["stf"], f["dh"])
+    got = tracer_cuda.tracer_tendency(*args)
+    torch.cuda.synchronize()
+    want = tracer_cuda.tracer_tendency_plain(*args)
+    err_abs, err_rel = compare("tracer", dt, [got], [want])
+    top = compare("tracer", dt, [got[..., -2:, :]], [want[..., -2:, :]])[1]
+    del got, want
+    lib = cb.lib()
+    code = cb.dtype_code(f["ucur"])
+    occ = lib.pop2_tracer_col_blocks_per_sm(code, 0, nt, 1)
+    rec["tracer_upwind3"] = timed(
+        lambda: tracer_cuda.tracer_tendency(*args),
+        lambda: tracer_cuda.tracer_tendency_plain(*args),
+        s * (N * (4 + 2 * nt) + P * (nt + 8 + 12) + 10 * km) + 4 * P,
+        N * (40 + 120 * nt), max_abs_err=err_abs, rel_err=err_rel,
+        rel_err_top_rows=top, block=[tracer_cuda.TILE_COLS,
+                                     tracer_cuda.COL_ROWS, 1],
+        dynamic_smem_bytes=0, blocks_per_sm=occ,
+        warps_per_sm=occ * tracer_cuda.TILE_COLS * tracer_cuda.COL_ROWS // 32)
+
+    # ---- momentum forcing without the Laplacian, on the fold: u, v at two
+    # times, the density, the viscosity in (um, vm are not read)
+    rhoavg = pgrad.rho_average(cfg, grid, f["rho"][0], f["rho"][1],
+                               f["rho"][2], True)
+    wc, wo = clinic_cuda.coriolis_weights(cfg, True)
+    args = (cfg, grid, f["ucur"], f["vcur"], f["uold"], f["vold"], f["uold"],
+            f["vold"], rhoavg, f["vvc"], f["smf"], f["dhu"], wc, wo)
+    got = clinic_cuda.clinic_rhs_fields(*args)
+    torch.cuda.synchronize()
+    want = clinic_cuda.clinic_rhs_plain(*args)
+    err_abs, err_rel = compare("clinic", dt, got, want)
+    top = compare("clinic", dt, [g[..., -2:, :] for g in got],
+                  [w[..., -2:, :] for w in want])[1]
+    del got, want
+    wet = float(grid.kmask_u.to(torch.float64).mean())
+    rec["clinic_aniso"] = timed(
+        lambda: clinic_cuda.clinic_rhs_fields(*args),
+        lambda: clinic_cuda.clinic_rhs_plain(*args),
+        s * (N * (6 * wet + 2) + P * (10 + 2 + 1 + 2) + 5 * km) + 4 * P,
+        N * wet * 150, max_abs_err=err_abs, rel_err=err_rel,
+        rel_err_top_rows=top, ocean_fraction_u=wet,
+        **launch_info("clinic", dt, hdiffu=False))
+
+    # ---- slopes on the fold
+    tmix = sample.grid_tracers(cfg, grid, SEED + 13)
+    args = (cfg, grid, bc, tr, tmix)
+    slp, sla, n2 = gm_slope_cuda.slopes(*args)
+    torch.cuda.synchronize()
+    want = gm_slope_cuda.slopes_plain(*args)
+    r = compare_slopes("gm_slope", dt, (slp, sla, n2), want,
+                       true_slope_factors(grid))
+    del want
+    rec["gm_slope_tripole"] = timed(
+        lambda: gm_slope_cuda.slopes(*args),
+        lambda: gm_slope_cuda.slopes_plain(*args),
+        s * (13 * N + 2 * P + 19 * km) + 4 * P, N * 300, **r,
+        **launch_info("gm_slope", dt))
+
+    # ---- chain on the fold: the path's instance (bfre, no diagnostics)
+    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
+                              gm._rossby_radius(grid))
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, False)
+    got = gm_chain_cuda.chain(*args)[:2]
+    torch.cuda.synchronize()
+    want = gm_chain_cuda.chain_plain(*args)[:2]
+    err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
+    top = compare_chain("gm_chain", dt, [g[..., -2:, :] for g in got],
+                        [w[..., -2:, :] for w in want])[1]
+    del got, want
+    rec["gm_chain_tripole"] = timed(
+        lambda: gm_chain_cuda.chain(*args),
+        lambda: gm_chain_cuda.chain_plain(*args),
+        s * (N * (2 * nt + 12) + 6 * P + 8 * km) + 12 * P,
+        N * (400 + 80 * nt), max_abs_err=err_abs, rel_err=err_rel,
+        rel_err_top_rows=top, points_within_relative_band_only=excused,
+        **launch_info("gm_chain", dt, nt=nt,
+                      flags=gm_chain_cuda.kernel_flags(cfg, False)))
+    return rec
+
+
+def fold_ragged_phase(dtype_name: str):
+    """The prod_dyn kernel modes on the fold bottom where the tiles do not
+    divide the domain (the RAGGED size; the tripole ghost row then lies
+    inside a tile), E-W cyclic and closed, and the momentum kernel with the
+    Laplacian on the fold too. Not timed."""
+    worst = {}
+    for ew, km, vert in (("cyclic", 61, "internal"),
+                         ("closed", 13, "uniform")):
+        cfg = full_config(dtype_name, "prod_dyn").with_(
+            nx=RAGGED[0], ny=RAGGED[1], km=km, ew_boundary=ew,
+            vert_grid=vert)
+        dt = cfg.torch_dtype
+        grid, bc, tr = fold_case(cfg)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 14)
+        f = random_fields(cfg, grid, gen)
+        for adv in ("upwind3", "centered"):
+            c = cfg.with_(tadvect=adv)
+            args = (c, grid, f["ucur"], f["vcur"], f["trcr"], f["told"],
+                    f["told"], f["vdc"], f["stf"], f["dh"])
+            worst[f"tracer_{adv}_{ew}"] = compare(
+                "tracer", dt, [tracer_cuda.tracer_tendency(*args)],
+                [tracer_cuda.tracer_tendency_plain(*args)])[1]
+        rhoavg = pgrad.rho_average(cfg, grid, *f["rho"], True)
+        for hm in ("aniso", "del2"):
+            c = cfg.with_(hmix_momentum=hm)
+            args = (c, grid, f["ucur"], f["vcur"], f["uold"], f["vold"],
+                    f["uold"], f["vold"], rhoavg, f["vvc"], f["smf"],
+                    f["dhu"], 0.3, 0.7)
+            worst[f"clinic_{hm}_{ew}"] = compare(
+                "clinic", dt, clinic_cuda.clinic_rhs_fields(*args),
+                clinic_cuda.clinic_rhs_plain(*args))[1]
+        tmix = sample.grid_tracers(cfg, grid, SEED + 15)
+        args = (cfg, grid, bc, tr, tmix)
+        got = gm_slope_cuda.slopes(*args)
+        r = compare_slopes("gm_slope", dt, got,
+                           gm_slope_cuda.slopes_plain(*args),
+                           true_slope_factors(grid))
+        worst[f"gm_slope_{ew}"] = r["rel_err"]
+        slp, sla, n2 = got
+        tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid),
+                                  sla, gm._rossby_radius(grid))
+        kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                    n2=n2)
+        args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, True)
+        worst[f"gm_chain_{ew}"] = compare_chain(
+            "gm_chain", dt, gm_chain_cuda.chain(*args),
+            gm_chain_cuda.chain_plain(*args))[1]
+    emit({"phase": "fold_ragged", "dtype": dtype_name,
+          "dims": [RAGGED[0], RAGGED[1]], "rel_err_of_scale": worst})
+
+
 COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
             "clinic": clinic_cuda, "gm_slope": gm_slope_cuda,
             "gm_chain": gm_chain_cuda, "gm_flux": gm_cuda}
@@ -1033,7 +1249,8 @@ def expected_counts(path: str, nsteps: int):
     other kernel of a path is launched once a step."""
     once = {"core": ("tracer", "clinic"),
             "gm_full": ("tracer", "clinic", "gm_slope", "gm_chain"),
-            "gm_flux": ("tracer", "clinic", "gm_flux")}[path]
+            "gm_flux": ("tracer", "clinic", "gm_flux"),
+            "prod_dyn": ("tracer", "clinic", "gm_slope", "gm_chain")}[path]
     expect = dict.fromkeys(COUNTERS, 0)
     expect.update(dict.fromkeys(once, nsteps))
     expect["thomas"] = 3 + 5 * (nsteps - 1)
@@ -1166,6 +1383,10 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
                                  "kernel run from the plain run")
         diffs = _state_diffs(s_kernel, s_plain)
         band = PATH_BAND[cfg.torch_dtype]
+        if ref is not None:
+            d_k, d_p = _state_diffs(s_kernel, ref), _state_diffs(s_plain, ref)
+            if path in WITNESS_BAND_PATHS:
+                band = {k: WITNESS_RATIO * d_p[k] for k in d_p}
         out = {"phase": "path_vs_plain", "path": path, "dtype": dtype_name,
                "steps": nsteps, "stratified_start": stratified,
                "rel_diff": diffs, "band": band,
@@ -1174,7 +1395,6 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
         if ref is None:
             ref = s_kernel
         else:
-            d_k, d_p = _state_diffs(s_kernel, ref), _state_diffs(s_plain, ref)
             out.update({"kernel_run_vs_float64": d_k,
                         "plain_run_vs_float64": d_p,
                         "witness_ratio_limit": WITNESS_RATIO})
@@ -1215,7 +1435,7 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
     spans = [("baroclinic_driver", baroclinic, "driver"),
              ("barotropic_driver", barotropic, "driver"),
              ("correct_adjust", baroclinic, "correct_adjust")]
-    if path == "gm_full":
+    if path in ("gm_full", "prod_dyn"):
         spans += [("gm_slopes_kernel", gm_slope_cuda, "slopes"),
                   ("gm_transition_layer_plain", gm, "transition_layer"),
                   ("gm_bfre_profile_plain", gm, "kappa_vertical_bfre"),
@@ -1289,7 +1509,8 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
     small 'mini' grid in float64: the parity band of the step-5 test. The GM
     path starts from the stratified state."""
-    cfg = get_config("mini", **PATHS[path])
+    cfg = (get_config("prod_full", **PROD_DYN, **PROD_DYN_SMALL)
+           if path == "prod_dyn" else get_config("mini", **PATHS[path]))
     stratified = path != "core"
     reset_counts()
     s_gpu, it_g = _run_steps(cfg, nsteps, DEV, stratified)
@@ -1318,8 +1539,8 @@ def ptxas_summary(log: str | None = None):
                 r"(\d+) bytes smem", r"(\d+) bytes stack frame")
     worst, entry = {}, None
     for line in (cb.build_log() if log is None else log).splitlines():
-        m = re.search(r"entry function '\w*?(thomas|tracer|clinic|gm_slope|"
-                      r"gm_chain|gm_flux)_kernel", line)
+        m = re.search(r"entry function '\w*?(thomas|tracer_col|tracer|clinic|"
+                      r"gm_slope|gm_chain|gm_flux)_kernel", line)
         if m:
             entry = worst.setdefault(m.group(1), dict.fromkeys(keys, 0))
         for key, pattern in zip(keys, patterns):
@@ -1407,17 +1628,19 @@ def main():
     for dtype_name in ("float32", "float64"):
         records[dtype_name] = kernel_phase(dtype_name)
         records[dtype_name].update(gm_kernel_phase(dtype_name))
+        records[dtype_name].update(fold_kernel_phase(dtype_name))
         other_modes_phase(dtype_name)
         gm_other_modes_phase(dtype_name)
         ragged_phase(dtype_name)
+        fold_ragged_phase(dtype_name)
     launches = {}
     for path in PATHS:
         for dtype_name in ("float32", "float64"):
             launches[(path, dtype_name)] = path_phase(path, dtype_name)
-    for path in ("core", "gm_full"):
+    for path in ("core", "gm_full", "prod_dyn"):
         path_vs_plain_phase(path)
         breakdown_phase(path, "float32")
-        if path == "gm_full":
+        if path != "core":
             breakdown_phase(path, "float32", stratified=True)
         small_vs_cpu_phase(path)
 
@@ -1425,7 +1648,7 @@ def main():
     for dtype_name, recs in records.items():
         for name, r in recs.items():
             source, replaces = SOURCES[name]
-            counter = "tracer" if name == "tracer_advdiff" else name
+            counter = COUNTER_OF.get(name, name)
             n = launches[(PATH_OF[name], dtype_name)][counter]
             if not n:
                 raise AssertionError(

@@ -115,18 +115,19 @@ def _declare(lib) -> None:
     lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_flux_smem_values.argtypes = [i, i]
     lib.pop2_gm_flux_tile_rows.argtypes = [i]
-    lib.pop2_tracer.argtypes = [i] * 11 + [l] + [p] * 20 + [d, p, p]
+    lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d, p, p]
     lib.pop2_tracer.restype = i
     lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_tracer_col_blocks_per_sm.argtypes = [i, i, i, i]
     lib.pop2_tracer_smem_values.argtypes = [i, i]
-    lib.pop2_clinic.argtypes = [i] * 6 + [l] + [p] * 17 + [d] * 4 + [p] * 5
-    lib.pop2_clinic_blocks_per_sm.argtypes = [i, l]
+    lib.pop2_clinic.argtypes = [i] * 8 + [l] + [p] * 17 + [d] * 4 + [p] * 5
+    lib.pop2_clinic_blocks_per_sm.argtypes = [i, i, l]
     lib.pop2_clinic_smem_values.argtypes = [i]
     lib.pop2_clinic_tile_rows.argtypes = [i]
     lib.pop2_clinic.restype = i
-    lib.pop2_gm_slopes.argtypes = [i] * 6 + [l, d] + [p] * 9
+    lib.pop2_gm_slopes.argtypes = [i] * 7 + [l, d] + [p] * 9
     lib.pop2_gm_slopes.restype = i
-    lib.pop2_gm_chain.argtypes = [i] * 9 + [l] + [p] * 19
+    lib.pop2_gm_chain.argtypes = [i] * 10 + [l] + [p] * 19
     lib.pop2_gm_chain.restype = i
     lib.pop2_gm_flux.argtypes = [i] * 8 + [l] + [p] * 17
     lib.pop2_gm_flux.restype = i
@@ -136,6 +137,7 @@ def _declare(lib) -> None:
                   "pop2_gm_chain_blocks_per_sm", "pop2_gm_chain_smem_values",
                   "pop2_tracer_blocks_per_sm", "pop2_tracer_smem_values",
                   "pop2_tracer_max_group", "pop2_tracer_tile_rows",
+                  "pop2_tracer_col_rows", "pop2_tracer_col_blocks_per_sm",
                   "pop2_clinic_blocks_per_sm", "pop2_clinic_smem_values",
                   "pop2_clinic_tile_rows", "pop2_max_dynamic_smem",
                   "pop2_gm_slope_blocks_per_sm", "pop2_gm_slope_smem_values",

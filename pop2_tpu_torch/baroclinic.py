@@ -10,13 +10,15 @@ on the GPU: the tracer tendency (``tracer_cuda``), the momentum forcing
 under ``hmix_tracer='gm'``, the GM/Redi mixing (``gm_slope_cuda`` +
 ``gm_chain_cuda``, or ``gm_cuda`` at the end of ``gm.hdifft_gm``).
 
-Time-mixing: leapfrog with Euler-forward first step and time-averaging.
+Time-mixing: leapfrog with Euler-forward first step; the averaging or
+Robert filter is ``step``'s.
 
-The port carries the dynamical core and GM. The branches of the JAX
-package's driver for the submesoscale scheme, KPP sources, shortwave
-absorption, passive tracers, interior restoring, estuaries, overflows,
-geothermal flux and frazil ice are left out; ``supported.check_supported``
-refuses the config switches that would select them.
+The port carries the dynamical core, GM, the chlorophyll (or Jerlov)
+shortwave heating and frazil ice. The branches of the JAX package's driver
+for the submesoscale scheme, KPP sources, passive tracers, interior
+restoring, estuaries, overflows and geothermal flux are left out;
+``supported.check_supported`` refuses the config switches that would select
+them.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, tracer_cuda
-from pop2_tpu_torch import tridiag, vmix
+from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, ice
+from pop2_tpu_torch import sw_absorption, tracer_cuda, tridiag, vmix
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -68,7 +70,12 @@ def _masked_density(cfg, grid, ts_range, tracer):
 
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
            state: State, forcing: Forcing, dh, dhu,
-           leapfrog: bool, want_gm_diags: bool = True) -> BaroclinicOut:
+           leapfrog: bool, want_gm_diags: bool = True,
+           sw_profile=None) -> BaroclinicOut:
+    """Explicit baroclinic update (baroclinic_driver,
+    source/baroclinic.F90:578): the tracer predictor and the normalized
+    baroclinic velocity. ``sw_profile``: the Jerlov transmission profile
+    (``sw_absorption.absorb_profile``) when ``sw_absorption='jerlov'``."""
     c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     varthick = cfg.sfc_layer == "varthick"
@@ -107,6 +114,17 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         # freshwater tracer flux into the surface layer
         # (source/baroclinic.F90:2128-2138); ft is this step's own tensor
         ft[:, 0] += vg.dzr[0] * forcing.tfw
+    # penetrative shortwave heating (add_sw_absorb,
+    # source/sw_absorption.F90:818): the Jerlov profile, or the Ohlmann
+    # chlorophyll transmission of a constant chlorophyll field
+    if cfg.sw_absorption == "jerlov" and sw_profile is not None:
+        ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
+                                         sw_profile)
+    elif cfg.sw_absorption == "chlorophyll":
+        chl = torch.full_like(forcing.shf_qsw, cfg.chl_const)
+        trans = sw_absorption.chl_transmission(cfg, grid, chl)
+        ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
+                                         trans)
 
     # ---- build RHS / predictor update (source/baroclinic.F90:2212-2300) ---
     rhs = torch.where(grid.kmask_t[None], c2dtt.reshape(1, cfg.km, 1, 1) * ft,
@@ -185,13 +203,14 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
 def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                    state: State, out: BaroclinicOut, psurf_new,
-                   coeffs_vdc, leapfrog: bool):
+                   coeffs_vdc, leapfrog: bool, avg_ts: bool = False):
     """Corrector/adjustment pass (source/baroclinic.F90:1217-1497):
     finish the tracer update with the new surface pressure, apply convective
-    adjustment and freezing reset, and recompute the new density.
+    adjustment, the freezing reset or frazil ice, and recompute the new
+    density.
 
     ``coeffs_vdc``: the same vertical diffusivity used by the predictor.
-    Returns (tracer_new, rho_new).
+    Returns (tracer_new, rho_new, qice, aqice).
     """
     c2dtt, _, _ = _timestep_arrays(cfg, leapfrog, psurf_new.device)
     varthick = cfg.sfc_layer == "varthick"
@@ -237,8 +256,8 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                                                       dim=0)
 
     # reset surface temperature to freezing floor
-    # (source/baroclinic.F90:1418-1421)
-    if cfg.reset_to_freezing:
+    # (source/baroclinic.F90:1418-1421); frazil ice takes its place
+    if cfg.reset_to_freezing and not cfg.liceform:
         if tracer_new is out.tracer_new:
             tracer_new = tracer_new.clone()
         tracer_new[0, 0] = torch.clamp(tracer_new[0, 0], min=-2.0)
@@ -246,6 +265,13 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     # convective adjustment (no-op for convection_type='diffusion')
     tracer_new = vmix.convad(cfg, grid, tracer_new)
 
+    # frazil ice formation (source/baroclinic.F90:1442-1450)
+    qice, aqice = state.qice, state.aqice
+    if cfg.liceform:
+        tracer_new, qice, aqice = ice.ice_formation(
+            cfg, grid, tracer_new, psurf_new, qice, aqice,
+            0.5 if avg_ts else 1.0)
+
     # recompute density from final tracers (source/baroclinic.F90:1476-1482)
     rho_new = _masked_density(cfg, grid, ts_range, tracer_new)
-    return tracer_new, rho_new
+    return tracer_new, rho_new, qice, aqice

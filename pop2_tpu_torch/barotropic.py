@@ -46,7 +46,8 @@ def diagonal_correction(cfg: ModelConfig, grid: Grid, leapfrog: bool):
 
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
            forcing: Forcing, zx, zy, leapfrog: bool,
-           pcsi_eigs: Optional[Tuple[float, float]] = None) -> BarotropicOut:
+           pcsi_eigs: Optional[Tuple[float, float]] = None,
+           precond=None) -> BarotropicOut:
     dtp = cfg.time.dtp
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     gamma = cfg.time.gamma
@@ -92,7 +93,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
     # ---- solve (source/barotropic.F90:564-598) ----------------------------
     op = solvers.make_operator(grid, diag_corr)
     psurf_new, iters, rr = solvers.solve(cfg, op, bc, state.pguess, rhs,
-                                         eigs=pcsi_eigs)
+                                         eigs=pcsi_eigs, precond=precond)
 
     # ---- checkerboard null-space removal (source/barotropic.F90:606-634) --
     if varthick:

@@ -26,11 +26,15 @@ no atomics and are deterministic (see the note in ``csrc/clinic.cu``).
 ``launch_plan`` chooses the tile and its shared memory in plain Python.
 Float32 and float64.
 
-This slice carries the mode the dynamical core runs: del2 friction fused
-(``with_hdiffu=True``), closed north-south boundary, 1-D layer thickness. The
-TPU kernel's other modes (``with_hdiffu=False`` under anisotropic viscosity,
-the tripole top row) raise ``NotImplementedError``; they are extensions of
-this kernel listed in ROADMAP.md Queue 2.
+Two modes, chosen by ``cfg.hmix_momentum``: ``'del2'`` fuses the Laplacian
+friction (``with_hdiffu=True``, the dynamical-core path); ``'aniso'`` runs
+the kernel without it (``with_hdiffu=False``: the um, vm planes and the ten
+weights are not read) and ``clinic_rhs`` adds the anisotropic friction of
+``hmix_aniso`` afterwards, ZX/ZY included, as the JAX package's wrapper
+does. Closed or tripole north edge (the kernel reads the fold of the north
+ghost row: u, v as NE-corner vectors, the density as a centre scalar, the
+ghost row's south-face flux vus as the fold of an E-face vector), 1-D layer
+thickness.
 
 The pressure averaging, the Boussinesq scaling of the density and the choice
 of Coriolis weights stay in the wrapper, as in the JAX package.
@@ -85,13 +89,18 @@ def launch_plan(value_bytes: int):
     return (TILE_COLS, rows), smem
 
 
+def with_hdiffu(cfg) -> bool:
+    """Whether the Laplacian friction is fused into the kernel."""
+    return cfg.hmix_momentum == "del2"
+
+
 def _check_mode(cfg, grid):
     todo = []
-    if cfg.hmix_momentum != "del2":
-        todo.append(f"hmix_momentum={cfg.hmix_momentum!r} "
-                    "(with_hdiffu=False)")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole north edge)")
+    if cfg.hmix_momentum not in ("del2", "aniso"):
+        todo.append(f"hmix_momentum={cfg.hmix_momentum!r} (with_hdiffu="
+                    "False beside a friction that is not ported)")
+    if cfg.ns_boundary not in ("closed", "tripole"):
+        todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
     if cfg.ltopostress:
@@ -138,10 +147,11 @@ def coriolis_weights(cfg, leapfrog: bool):
 
 def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
                      vvc, smf, dhu, wc: float, wo: float):
-    """Plain PyTorch version: -advu + Coriolis - gradp + hdiffu_del2
+    """Plain PyTorch version: -advu + Coriolis - gradp [+ hdiffu_del2]
     + vdiffu, masked, and the ZX/ZY sums (clinic,
-    source/baroclinic.F90:1635-1895 and :1035-1057). ``rhoavg`` is the
-    averaged, Boussinesq-scaled density (``pgrad.rho_average``)."""
+    source/baroclinic.F90:1635-1895 and :1035-1057); the Laplacian only in
+    the ``with_hdiffu`` mode. ``rhoavg`` is the averaged, Boussinesq-scaled
+    density (``pgrad.rho_average``)."""
     bc = grid_bc(cfg)
     luk, lvk = advect.advu(cfg, grid, bc, ucur, vcur, dhu)
     fx = -luk + grid.FCOR * (wc * vcur + wo * vold)
@@ -151,9 +161,10 @@ def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     fx = fx - pkx
     fy = fy - pky
 
-    hduk, hdvk = hmix.hdiffu(cfg, grid, bc, umix, vmixm)
-    fx = fx + hduk
-    fy = fy + hdvk
+    if with_hdiffu(cfg):
+        hduk, hdvk = hmix.hdiffu(cfg, grid, bc, umix, vmixm)
+        fx = fx + hduk
+        fy = fy + hdvk
 
     du, dv = vmix.vdiffu(cfg, grid, vvc, uold, vold, smf)
     fx = torch.where(grid.kmask_u, fx + du, 0.0)
@@ -201,7 +212,8 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     zx = torch.empty_like(dhu)
     zy = torch.empty_like(dhu)
     err = lib.pop2_clinic(
-        cb.dtype_code(ucur), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
+        cb.dtype_code(ucur), int(with_hdiffu(cfg)), km, ny, nx,
+        int(cfg.ew_boundary == "cyclic"), int(cfg.ns_boundary == "tripole"),
         rows, smem, ucur.data_ptr(), vcur.data_ptr(), uold.data_ptr(),
         vold.data_ptr(), umix.data_ptr(), vmixm.data_ptr(),
         rhoavg.data_ptr(), vvc.data_ptr(), g2d.data_ptr(),
@@ -220,10 +232,20 @@ def clinic_rhs(cfg, grid, state, umix, vmixm, rho_new, vvc, smf, dhu,
                leapfrog: bool):
     """Model-facing wrapper: form the pressure-averaged, Boussinesq-scaled
     density, pick the Coriolis time weights, and compute (fx, fy, zx, zy)
-    (source/baroclinic.F90:935-1057)."""
+    (source/baroclinic.F90:935-1057). Without the fused Laplacian the
+    anisotropic friction is added to the forcing and its vertical mean
+    (clinic_pallas.py's wrapper does the same)."""
     rhoavg = pgrad.rho_average(cfg, grid, state.rho_old, state.rho_cur,
                                rho_new, leapfrog)
     wc, wo = coriolis_weights(cfg, leapfrog)
-    return clinic_rhs_fields(cfg, grid, state.u_cur, state.v_cur,
-                             state.u_old, state.v_old, umix, vmixm, rhoavg,
-                             vvc, smf, dhu, wc, wo)
+    fx, fy, zx, zy = clinic_rhs_fields(
+        cfg, grid, state.u_cur, state.v_cur, state.u_old, state.v_old, umix,
+        vmixm, rhoavg, vvc, smf, dhu, wc, wo)
+    if not with_hdiffu(cfg):
+        hdu, hdv = hmix.hdiffu(cfg, grid, grid_bc(cfg), umix, vmixm)
+        dzc = thickness_u(cfg, grid)
+        fx = fx + hdu
+        fy = fy + hdv
+        zx = zx + grid.HUR * torch.sum(hdu * dzc, dim=0)
+        zy = zy + grid.HUR * torch.sum(hdv * dzc, dim=0)
+    return fx, fy, zx, zy

@@ -1,9 +1,10 @@
-"""Carrying state across: NumPy dictionaries <-> the port's State/Forcing.
+"""Carrying state across: NumPy dictionaries <-> the port's Grid/State/Forcing.
 
-The JAX package's ``State`` and ``Forcing`` have the same leaf names as the
-port's. Handing their leaves over as a dict of NumPy arrays keyed by field
-name lets both packages step from identical inputs (the parity tests do
-this) without either importing the other.
+The JAX package's ``Grid``, ``State`` and ``Forcing`` have the same leaf
+names as the port's. Handing their leaves over as a dict of NumPy arrays
+keyed by field name (nested leaves dotted, ``vgrid.dz``) lets both packages
+step from identical inputs (the parity tests do this) without either
+importing the other.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
-from pop2_tpu_torch.grid import resolve_device
+from pop2_tpu_torch.grid import Grid, VGrid, build_aniso, resolve_device
 from pop2_tpu_torch.state import State
 
 
@@ -51,3 +52,40 @@ def forcing_from_numpy(fields: Mapping[str, np.ndarray], cfg: ModelConfig,
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Every tensor leaf of a ``State`` (or ``Forcing``) as a NumPy array."""
     return {name: t.detach().cpu().numpy() for name, t in state.leaves()}
+
+
+def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
+                    device="cuda") -> Grid:
+    """The port's ``Grid`` on ``device`` (default as ``state_from_numpy``)
+    from a dict of NumPy arrays keyed by leaf name: floating leaves in the
+    config's dtype, integer leaves as int32, masks as bool. The
+    anisotropic-viscosity statics are built again from the grid's own
+    fields (``hmix_aniso.build_statics``), not taken from the dict; partial
+    bottom cells are not carried."""
+    device = resolve_device(device)
+    dt = cfg.torch_dtype
+
+    def tensor(a):
+        a = np.array(a)  # a writable copy; 0-d leaves stay 0-d
+        t = torch.as_tensor(a)
+        if a.dtype == np.bool_:
+            return t.to(device)
+        if np.issubdtype(a.dtype, np.integer):
+            return t.to(device=device, dtype=torch.int32)
+        return t.to(device=device, dtype=dt)
+
+    def fields(cls, prefix, skip=()):
+        names = [f.name for f in dataclasses.fields(cls)
+                 if f.name not in skip]
+        missing = [n for n in names if prefix + n not in leaves]
+        if missing:
+            raise KeyError(f"{cls.__name__} fields missing: {missing}")
+        return {n: tensor(leaves[prefix + n]) for n in names}
+
+    kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "aniso"))
+    kw["vgrid"] = VGrid(**fields(VGrid, "vgrid."))
+    if cfg.hmix_momentum == "aniso":
+        kw["aniso"] = build_aniso(
+            cfg, *(leaves[n] for n in ("HTN", "HTE", "DXU", "DYU", "DXUR",
+                                       "DYUR", "ULAT", "KMU")), device)
+    return Grid(**kw)

@@ -8,9 +8,11 @@
 // hdiffu_del2 (source/hmix_del2.F90:892) and vdiffu
 // (source/vertical_mix.F90:853).
 //
-// Replaces the TPU kernel clinic_pallas.py `_kernel` / `clinic_rhs_tiles` in
-// its with_hdiffu=True, closed north-south mode (the mode the
-// dynamical-core slice runs).
+// Replaces the TPU kernel clinic_pallas.py `_kernel` / `clinic_rhs_tiles`:
+// with the Laplacian friction (HDIFFU, the dynamical-core path) or without
+// it (with_hdiffu=False: the anisotropic friction is added outside, so um,
+// vm and the ten weights are not read), with a closed or a tripole north
+// edge.
 //
 // Bound on this card: bytes. Minimum traffic is six distinct 3-D inputs (u, v
 // at two times, the averaged density, the viscosity; the model passes one of
@@ -48,9 +50,17 @@
 // register plus an immediate offset.
 // Levels below the column's bottom write zero and skip the arithmetic.
 // Closed edges read zero (copies of nothing, zero metrics); a cyclic edge
-// wraps inside the frame; the ragged last tiles are masked. The block shape
-// and the dynamic shared memory come from the wrapper's planner
-// (`clinic_cuda.launch_plan`).
+// wraps inside the frame; the ragged last tiles are masked. On a tripole
+// grid (`fold`) the frame's north ghost row is copied from the folded
+// points (common.cuh `fold_point`), in other tiles: u, v, um, vm and DYU,
+// DXU as NE-corner fields, the density as a centre one; u and v are
+// vectors, so their ghost values flip sign where they are read (the a, b
+// fluxes of the ghost slots, the top row's north neighbour). The ghost
+// row's south-face flux vus is not formed from the frame: it is the fold
+// of an E-face vector, -vus of row ny - 1 at column nx - 2 - i, formed from
+// v and DXU read at that column (advect.advu's `bc.n(vus, "eface",
+// "vector")`). The block shape and the dynamic shared memory come from the
+// wrapper's planner (`clinic_cuda.launch_plan`).
 #include "common.cuh"
 
 namespace pop2 {
@@ -64,9 +74,6 @@ enum G2D {
 // the Laplacian weights DUCM .. DMW, a column's constants in shared memory
 constexpr int kWeights = G_DMW - G_DUCM + 1;
 
-// The tripole top row (the U row forced symmetric, clinic_pallas.py) will
-// map the north frame row in `frame_slot`; with_hdiffu=False (anisotropic
-// viscosity computed outside) will skip the um, vm planes and the weights.
 using ClinicFrame = Frame<1>;
 
 // The tile and its shared memory, in values: the DYU, DXU frame planes;
@@ -89,10 +96,10 @@ struct ClinicTile {
   static_assert(ClinicFrame::covered(kRows), "a frame slot without a copier");
 };
 
-template <typename T>
+template <typename T, bool HDIFFU>
 __global__ void __launch_bounds__(ClinicTile<T>::kThreads,
                                   ClinicTile<T>::kMinBlocks)
-clinic_kernel(int km, int ny, int nx, int cyclic,
+clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
               const T* __restrict__ uc, const T* __restrict__ vc,
               const T* __restrict__ uo, const T* __restrict__ vo,
               const T* __restrict__ um, const T* __restrict__ vm,
@@ -131,23 +138,32 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
   const bool live = gi < nx && gj < ny;  // the column writes output
   const int oc = live ? gj * nx + gi : 0;
 
-  // the frame slots this thread copies (u, v: all of them); bit 0: inside
-  // the domain, bit 1: um, vm (tile, N, S, E, W sides), bit 2: the density
-  // (tile, N row, E column)
-  int soff[kFrameSlots];
+  // the frame slots this thread copies (u, v: all of them), at the offset
+  // of a U-point field (soff) and of the density (doff; they differ on the
+  // tripole ghost row); bit 0: inside the domain, bit 1: um, vm (tile, N,
+  // S, E, W sides), bit 2: the density (tile, N row, E column), bit 3: a
+  // folded ghost slot (u, v flip sign)
+  int soff[kFrameSlots], doff[kFrameSlots];
   unsigned sflag[kFrameSlots];
 #pragma unroll
   for (int j = 0; j < kFrameSlots; ++j) {
     const int q = tid + j * Tile::kThreads;
-    int r = 0, c = 0, off = 0;
+    int r = 0, c = 0, off = 0, offc = 0;
+    bool folded = false;
     const bool in = q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r,
-                                           &c, &off);
+                                           &c, &off, fold, kFoldCorner,
+                                           &folded);
+    if (q < P)
+      frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &offc, fold,
+                    kFoldCenter);
     const bool row_in = r >= 1 && r <= kRows;
     const bool col_in = c >= 1 && c <= kFrameCols;
-    const bool plus = row_in || col_in;
+    const bool plus = HDIFFU && (row_in || col_in);
     const bool dens = r >= 1 && c >= 1;
     soff[j] = off;
-    sflag[j] = (unsigned)in | (unsigned)plus << 1 | (unsigned)dens << 2;
+    doff[j] = offc;
+    sflag[j] = (unsigned)in | (unsigned)plus << 1 | (unsigned)dens << 2 |
+               (unsigned)folded << 3;
     if (q < P) {  // the face metrics, zero outside the domain
       met[q] = in ? g2d[G_DYU * ls + off] : T(0);
       met[P + q] = in ? g2d[G_DXU * ls + off] : T(0);
@@ -160,6 +176,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
                          : (tid < kFrameCols + kRows
                                 ? (tid - kFrameCols + 1) * W + kFrameCols + 1
                                 : -1);
+  // slots on the tripole ghost row, whose vus is the fold's (vus_fold):
+  // the thread's own (a ragged tile's row past the domain) and its N-row one
+  const bool own_ghost = fold && gj == ny && gi < nx;
+  const bool hq_ghost = h_north && fold && y0 + kRows == ny && x0 + tid < nx;
 
   // start the copies of u, v at level L (the whole frame) into buffer b
   auto stage_uv = [&](int L, int b) {
@@ -188,7 +208,7 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
         cp_async(rs(b, 0) + q, um + o, in);
         cp_async(rs(b, 1) + q, vm + o, in);
       }
-      if (sflag[j] & 4u) cp_async(rs(b, 2) + q, ra + o, in);
+      if (sflag[j] & 4u) cp_async(rs(b, 2) + q, ra + (lo + doff[j]), in);
     }
     if (live) {
       const int o = lo + oc;
@@ -211,9 +231,30 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
     for (int j = 0; j < kFrameSlots; ++j) {
       const int q = tid + j * Tile::kThreads;
       if (q >= P) continue;
-      pa[q] = su[q] * met[q] * dzl;
-      pb[q] = sv[q] * met[P + q] * dzl;
+      const T fa = su[q] * met[q] * dzl, fb = sv[q] * met[P + q] * dzl;
+      const bool neg = sflag[j] & 8u;  // the fold of a vector
+      pa[q] = neg ? -fa : fa;
+      pb[q] = neg ? -fb : fb;
     }
+  };
+  // the tripole ghost row's south-face flux at column gi: the fold of vus
+  // as an E-face vector, -vus(ny - 1, nx - 2 - gi), from v and DXU of level
+  // L read where they lie
+  auto vus_fold = [&](int L, int col) {
+    const int j = ny - 1, fi = col == nx - 1 ? nx - 1 : nx - 2 - col;
+    const T dzl = dz[L];
+    auto bat = [&](int jj, int ii) {
+      if (ii < 0 || ii >= nx) {
+        if (!cyclic) return T(0);
+        ii = ii < 0 ? ii + nx : ii - nx;
+      }
+      if (jj < 0) return T(0);
+      const int o = jj * nx + ii;
+      return vc[L * ls + o] * g2d[G_DXU * ls + o] * dzl;
+    };
+    return -(quarter * (bat(j, fi) + bat(j - 1, fi))
+             + eighth * (bat(j, fi - 1) + bat(j - 1, fi - 1)
+                         + bat(j, fi + 1) + bat(j - 1, fi + 1)));
   };
   // 4-point averages of T-face fluxes onto the U-cell faces
   // (source/advection.F90:1245-1339): publish the west face uuw and the
@@ -233,21 +274,23 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
           + eighth * (b[q - 1] + b[q - W - 1] + b[q + 1] + b[q - W + 1]);
     };
     pw[s] = uuw(s);
-    ps[s] = vus(s);
+    ps[s] = own_ghost ? vus_fold(L, gi) : vus(s);
     if (h_north)
-      ps[hq] = vus(hq);
+      ps[hq] = hq_ghost ? vus_fold(L, x0 + tid) : vus(hq);
     else if (hq >= 0)
       pw[hq] = uuw(hq);
   };
 
-  // 2-D operands of the column
+  // 2-D operands of the column; on a tripole grid the top row's north
+  // neighbour is the fold of a vector (sgn_n)
+  const T sgn_n = (fold && gj == ny - 1) ? T(-1) : T(1);
   bool ve = false, vn = false;
   int kmu_c = 0;
   T uarear = T(0), fcor = T(0), kxu = T(0), kyu = T(0), dxur = T(0),
     dyur = T(0), dhu_c = T(0), vuf = T(0), vvf = T(0);
   if (live) {
     Column c;
-    locate_at(ny, nx, cyclic, gj, gi, &c);
+    locate_at(ny, nx, cyclic, gj, gi, &c, fold);
     ve = c.ve;
     vn = c.vn;
     kmu_c = kmu[oc];
@@ -261,9 +304,11 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
     // friction flux through the top: the wind stress at the surface
     vuf = (kmu_c >= 1) ? smf[oc] : T(0);
     vvf = (kmu_c >= 1) ? smf[ls + oc] : T(0);
+    if (HDIFFU) {
 #pragma unroll
-    for (int q = 0; q < kWeights; ++q)
-      wts[q * C + tid] = g2d[(G_DUCM + q) * ls + oc];
+      for (int q = 0; q < kWeights; ++q)
+        wts[q * C + tid] = g2d[(G_DUCM + q) * ls + oc];
+    }
   }
   auto weight = [&](int g) { return wts[(g - G_DUCM) * C + tid]; };
 
@@ -353,9 +398,9 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
 
     // momentum advection with metric terms (advu)
     const T u = u_k, v = v_k;
-    T luk = half * (cc * u + vun * uk[s + W] - vus * uk[s - W]
+    T luk = half * (cc * u + vun * (sgn_n * uk[s + W]) - vus * uk[s - W]
                     + uue * uk[s + 1] - uuw * uk[s - 1]) * uarear * dzrk;
-    T lvk = half * (cc * v + vun * vk[s + W] - vus * vk[s - W]
+    T lvk = half * (cc * v + vun * (sgn_n * vk[s + W]) - vus * vk[s - W]
                     + uue * vk[s + 1] - uuw * vk[s - 1]) * uarear * dzrk;
     T top_u, top_v, bot_u, bot_v;
     if (k == 0) {
@@ -399,23 +444,26 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
     rky_p = rky;
 
     // Laplacian friction with the U/V metric mixing (hdiffu_del2)
-    const T* umk = rs(rb, 0);
-    const T* vmk = rs(rb, 1);
-    const T um_c = umk[s], vm_c = vmk[s];
-    const T nu = umk[s + W], nv = vmk[s + W];
-    const T su = umk[s - W], sv = vmk[s - W];
-    const T eu = umk[s + 1], ev = vmk[s + 1];
-    const T wu = umk[s - 1], wv = vmk[s - 1];
-    const T ducm = weight(G_DUCM), dun = weight(G_DUN), dus = weight(G_DUS);
-    const T due = weight(G_DUE), duw = weight(G_DUW);
-    const T lap_u = ducm * um_c + dun * nu + dus * su + due * eu + duw * wu;
-    const T lap_v = ducm * vm_c + dun * nv + dus * sv + due * ev + duw * wv;
-    const T dmc = weight(G_DMC), dmn = weight(G_DMN), dms = weight(G_DMS);
-    const T dme = weight(G_DME), dmw = weight(G_DMW);
-    const T mix_u = dmc * um_c + dmn * nu + dms * su + dme * eu + dmw * wu;
-    const T mix_v = dmc * vm_c + dmn * nv + dms * sv + dme * ev + dmw * wv;
-    const T hduk = am * (lap_u + mix_v);
-    const T hdvk = am * (lap_v - mix_u);
+    T hduk = T(0), hdvk = T(0);
+    if (HDIFFU) {
+      const T* umk = rs(rb, 0);
+      const T* vmk = rs(rb, 1);
+      const T um_c = umk[s], vm_c = vmk[s];
+      const T nu = sgn_n * umk[s + W], nv = sgn_n * vmk[s + W];
+      const T su = umk[s - W], sv = vmk[s - W];
+      const T eu = umk[s + 1], ev = vmk[s + 1];
+      const T wu = umk[s - 1], wv = vmk[s - 1];
+      const T ducm = weight(G_DUCM), dun = weight(G_DUN);
+      const T dus = weight(G_DUS), due = weight(G_DUE), duw = weight(G_DUW);
+      const T lap_u = ducm * um_c + dun * nu + dus * su + due * eu + duw * wu;
+      const T lap_v = ducm * vm_c + dun * nv + dus * sv + due * ev + duw * wv;
+      const T dmc = weight(G_DMC), dmn = weight(G_DMN);
+      const T dms = weight(G_DMS), dme = weight(G_DME), dmw = weight(G_DMW);
+      const T mix_u = dmc * um_c + dmn * nu + dms * su + dme * eu + dmw * wu;
+      const T mix_v = dmc * vm_c + dmn * nv + dms * sv + dme * ev + dmw * wv;
+      hduk = am * (lap_u + mix_v);
+      hdvk = am * (lap_v - mix_u);
+    }
 
     // explicit vertical friction: quadratic drag at the bottom level
     // (vertical_mix.F90:853-1026)
@@ -434,8 +482,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic,
     vuf = vufb;
     vvf = vvfb;
 
-    const T fxk = (((-luk + cor_x) - pkx) + hduk) + du;
-    const T fyk = (((-lvk + cor_y) - pky) + hdvk) + dv;
+    const T fxk = HDIFFU ? (((-luk + cor_x) - pkx) + hduk) + du
+                         : ((-luk + cor_x) - pkx) + du;
+    const T fyk = HDIFFU ? (((-lvk + cor_y) - pky) + hdvk) + dv
+                         : ((-lvk + cor_y) - pky) + dv;
     fx[ko] = fxk;
     fy[ko] = fyk;
     zxa = zxa + fxk * dzk;
@@ -480,13 +530,24 @@ extern "C" int pop2_clinic_smem_values(int dtype) {
 // dtype: 0 = float32, 1 = float64; rows: rows of the tile; smem: dynamic
 // shared memory a block, bytes. Returns cudaGetLastError() of the launch,
 // or cudaErrorInvalidValue for a configuration the kernel does not take.
-extern "C" int pop2_clinic(int dtype, int km, int ny, int nx, int cyclic,
-                           int rows, long smem, const void* uc,
-                           const void* vc, const void* uo, const void* vo,
-                           const void* um, const void* vm, const void* ra,
-                           const void* vvc, const void* g2d, const int* kmu,
-                           const void* dhu, const void* smf, const void* dz,
-                           const void* dzr, const void* dz2r,
+#define POP2_CLINIC_INSTANCES(T, ACTION) \
+  if (hdiffu)                             \
+    ACTION(T, true)                       \
+  else                                    \
+    ACTION(T, false)
+
+// dtype: 0 = float32, 1 = float64; hdiffu: fuse the Laplacian friction;
+// cyclic: the east-west edge wraps; fold: the north edge is a tripole fold;
+// rows: rows of the tile; smem: dynamic shared memory a block, bytes.
+// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// configuration the kernel does not take.
+extern "C" int pop2_clinic(int dtype, int hdiffu, int km, int ny, int nx,
+                           int cyclic, int fold, int rows, long smem,
+                           const void* uc, const void* vc, const void* uo,
+                           const void* vo, const void* um, const void* vm,
+                           const void* ra, const void* vvc, const void* g2d,
+                           const int* kmu, const void* dhu, const void* smf,
+                           const void* dz, const void* dzr, const void* dz2r,
                            const void* dzwr2, const void* facs, double am,
                            double bdrag, double wcor_c, double wcor_o,
                            void* fx, void* fy, void* zx, void* zy,
@@ -499,37 +560,43 @@ extern "C" int pop2_clinic(int dtype, int km, int ny, int nx, int cyclic,
                   (unsigned)((ny + rows - 1) / rows));
   const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_CLINIC(T)                                                       \
+#define POP2_CLINIC(T, HD)                                                   \
   {                                                                          \
-    const cudaError_t e = allow_large_smem(clinic_kernel<T>, smem);          \
+    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD>, smem);      \
     if (e != cudaSuccess) return (int)e;                                     \
-    clinic_kernel<T><<<grid, block, smem, s>>>(                              \
-        km, ny, nx, cyclic, (const T*)uc, (const T*)vc, (const T*)uo,        \
+    clinic_kernel<T, HD><<<grid, block, smem, s>>>(                          \
+        km, ny, nx, cyclic, fold, (const T*)uc, (const T*)vc, (const T*)uo,  \
         (const T*)vo, (const T*)um, (const T*)vm, (const T*)ra,              \
         (const T*)vvc, (const T*)g2d, kmu, (const T*)dhu, (const T*)smf,     \
         (const T*)dz, (const T*)dzr, (const T*)dz2r, (const T*)dzwr2,        \
         (const T*)facs, (T)am, (T)bdrag, (T)wcor_c, (T)wcor_o, (T*)fx,       \
         (T*)fy, (T*)zx, (T*)zy);                                             \
   }
-  if (dtype == 0)
-    POP2_CLINIC(float)
-  else
-    POP2_CLINIC(double)
+  if (dtype == 0) {
+    POP2_CLINIC_INSTANCES(float, POP2_CLINIC)
+  } else {
+    POP2_CLINIC_INSTANCES(double, POP2_CLINIC)
+  }
 #undef POP2_CLINIC
   return (int)cudaGetLastError();
 }
 
-// Blocks of a launch with `smem` bytes a block that one SM holds at once.
-extern "C" int pop2_clinic_blocks_per_sm(int dtype, long smem) {
+// Blocks of a launch with `smem` bytes a block that one SM holds at once,
+// with the Laplacian fused (hdiffu) or without.
+extern "C" int pop2_clinic_blocks_per_sm(int dtype, int hdiffu, long smem) {
   using namespace pop2;
-  if (dtype == 0) {
-    const cudaError_t e = allow_large_smem(clinic_kernel<float>, smem);
-    if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(clinic_kernel<float>, ClinicTile<float>::kThreads,
-                         smem);
+#define POP2_CLINIC_OCC(T, HD)                                               \
+  {                                                                          \
+    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD>, smem);      \
+    if (e != cudaSuccess) return -(int)e;                                    \
+    return blocks_per_sm(clinic_kernel<T, HD>, ClinicTile<T>::kThreads,      \
+                         smem);                                              \
   }
-  const cudaError_t e = allow_large_smem(clinic_kernel<double>, smem);
-  if (e != cudaSuccess) return -(int)e;
-  return blocks_per_sm(clinic_kernel<double>, ClinicTile<double>::kThreads,
-                       smem);
+  if (dtype == 0) {
+    POP2_CLINIC_INSTANCES(float, POP2_CLINIC_OCC)
+  } else {
+    POP2_CLINIC_INSTANCES(double, POP2_CLINIC_OCC)
+  }
+#undef POP2_CLINIC_OCC
 }
+#undef POP2_CLINIC_INSTANCES

@@ -2,9 +2,13 @@
 //
 // Fields are dense row-major (..., km, ny, nx) arrays, i fastest, so a warp
 // of neighbouring columns reads 32 neighbouring addresses; closed boundaries
-// read zero, a cyclic east-west boundary wraps the index. Every kernel
-// stages in shared memory with asynchronous copies (`cp.async`) issued
-// ahead of the arithmetic: thomas stages whole columns; gm_chain, gm_slope,
+// read zero, a cyclic east-west boundary wraps the index, and a tripole
+// north boundary (`fold`) maps the ghost rows past ny - 1 onto the top
+// physical rows, index-reversed (`fold_point`; vector fields also flip
+// their sign, which the kernels apply where they read such a value).
+// Every kernel but the tracer kernel's column form stages in shared memory
+// with asynchronous copies (`cp.async`) issued ahead of the arithmetic:
+// thomas stages whole columns; gm_chain, gm_slope,
 // gm_flux, tracer and clinic a 2-D tile of columns with a one-column halo,
 // level by level, and the stencil kernels among them hand what a column
 // computes once a level (the GM weights, the face velocities of tracer and
@@ -22,24 +26,45 @@
 
 namespace pop2 {
 
+// Where a field lives on the B-grid cell, for the tripole fold
+// (tripole.py): T points, NE corners (U points), east and north faces.
+enum FoldLoc { kFoldCenter = 0, kFoldCorner, kFoldEface, kFoldNface };
+
+// The physical point (j, i) whose value the tripole ghost row ny - 1 + n
+// (n >= 1) holds at column gi (0 <= gi < nx) for a field at `loc`
+// (mpi/POP_HaloMod.F90:1961-2050): centre and N-face fields reverse
+// i -> nx-1-i, corner and E-face fields i -> nx-2-i with nx-1 -> nx-1;
+// centre and E-face fields take row ny-n, corner and N-face row ny-1-n.
+__device__ __forceinline__ void fold_point(int loc, int n, int gi, int ny,
+                                           int nx, int* j, int* i) {
+  const bool row_below = loc == kFoldCorner || loc == kFoldNface;
+  const bool shifted = loc == kFoldCorner || loc == kFoldEface;
+  *j = row_below ? ny - 1 - n : ny - n;
+  *i = shifted ? (gi == nx - 1 ? nx - 1 : nx - 2 - gi) : nx - 1 - gi;
+}
+
 // Horizontal position of a thread's column and of its four neighbours.
 // An index that would leave the domain through a closed edge is clamped to
-// the column itself and flagged invalid; readers return zero for it.
+// the column itself and flagged invalid; readers return zero for it. The
+// north neighbour is (jn, in): on a tripole grid the top row's north
+// neighbour is the fold of a centre field (row ny - 1, column nx - 1 - i).
 struct Column {
   int j, i;
-  int jn, js, ie, iw;
+  int jn, js, ie, iw, in;
   bool vn, vs, ve, vw;
 };
 
-// The column at (j, i), which must lie inside the domain.
+// The column at (j, i), which must lie inside the domain; `fold`: the
+// north edge is a tripole fold.
 __device__ __forceinline__ void locate_at(int ny, int nx, int cyclic, int j,
-                                          int i, Column* c) {
+                                          int i, Column* c, int fold = 0) {
   c->j = j;
   c->i = i;
   c->vs = j > 0;
-  c->vn = j < ny - 1;
+  c->vn = j < ny - 1 || fold;
   c->js = c->vs ? j - 1 : j;
-  c->jn = c->vn ? j + 1 : j;
+  c->jn = j < ny - 1 ? j + 1 : j;
+  c->in = (j < ny - 1 || !fold) ? i : nx - 1 - i;
   if (cyclic) {
     c->ve = c->vw = true;
     c->ie = (i + 1 == nx) ? 0 : i + 1;
@@ -111,24 +136,32 @@ struct Frame {
 // Where frame slot q (< plane(rows)) of the tile whose first interior
 // column is (y0, x0) lies: its frame row r and column c, and the offset of
 // its column in a level plane. False outside the domain: beyond a closed
-// edge, and beyond the north and south edges (a tripole grid's fold will
-// map the north frame rows, gj >= ny, here). A cyclic east-west edge wraps
-// the HALO columns past it.
+// edge, and beyond the north and south edges unless the north edge is a
+// tripole fold (`fold`): then the ghost rows gj = ny .. ny + HALO - 1 are
+// in, at the offset of the physical point the fold maps them to for a
+// field at `loc` (east-west wrap first, then the fold, as the ghost cells
+// are indexed), and `*folded` says so. A cyclic east-west edge wraps the
+// HALO columns past it.
 template <int HALO>
 __device__ __forceinline__ bool frame_slot(int q, int y0, int x0, int ny,
                                            int nx, int cyclic, int* r,
-                                           int* c, int* off) {
+                                           int* c, int* off, int fold = 0,
+                                           int loc = kFoldCenter,
+                                           bool* folded = nullptr) {
   *r = q / Frame<HALO>::kPitch;
   *c = q - *r * Frame<HALO>::kPitch;
-  const int gj = y0 + *r - HALO;
+  int gj = y0 + *r - HALO;
   int gi = x0 + *c - HALO;
-  bool in = gj >= 0 && gj < ny;
+  const bool ghost = fold && gj >= ny && gj < ny + HALO;
+  bool in = gj >= 0 && (gj < ny || ghost);
   if (cyclic) {
     in = in && gi >= -HALO && gi < nx + HALO;
     gi = gi < 0 ? gi + nx : (gi >= nx ? gi - nx : gi);
   } else {
     in = in && gi >= 0 && gi < nx;
   }
+  if (in && ghost) fold_point(loc, gj - ny + 1, gi, ny, nx, &gj, &gi);
+  if (folded) *folded = in && ghost;
   *off = in ? gj * nx + gi : 0;
   return in;
 }

@@ -39,8 +39,15 @@
 //     tracer's fluxes use them, the vertical-flux carry of each tracer in
 //     shared memory.
 // Closed edges read zero (copies of nothing, zero weights); a cyclic edge
-// wraps inside the halo. The block shape and the dynamic shared memory come
-// from the wrapper's planner (`gm_chain_cuda.launch_plan`).
+// wraps inside the halo. On a tripole grid (`fold`) the threads of the
+// ghost row gj = ny are the fold of the top row's columns (centre fields:
+// row ny - 1, column nx - 1 - i, in another tile): they stage that column's
+// slopes, tracers and geometry and form its weights, and publish as their
+// south face the north face's skew weights with the sign flipped (the
+// faces swap under the 180-degree fold: `BC.n_partner` of the plain
+// version); the top row's north bottom level is the folded KMT. The block
+// shape and the dynamic shared memory come from the wrapper's planner
+// (`gm_chain_cuda.launch_plan`).
 #include "gm_flux.cuh"
 
 namespace pop2 {
@@ -336,7 +343,7 @@ struct TileWeights {
 
 template <typename T, bool BFRE, bool DIAGS, bool SAME_SLM>
 __global__ void __launch_bounds__(kTileCols * ChainTile<T>::kMaxRows)
-gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic,
+gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
                 ChainParams<T> p, const T* __restrict__ lev,
                 const T* __restrict__ tmix, const T* __restrict__ slp,
                 const T* __restrict__ sla, const T* __restrict__ kv,
@@ -358,18 +365,23 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic,
   T* fzt = pub + 2 * kPubWeights * nthr;       // (nt, nthr)
 
   // This thread's tile column (gj, gi); a cyclic edge wraps gi = -1 and
-  // gi = nx, a closed one leaves them invalid (as every gj outside 0..ny-1:
-  // a tripole grid's ghost row would map gj = ny here, ROADMAP.md Queue 2
-  // kernel 5).
+  // gi = nx, a closed one leaves them invalid (as every gj outside 0..ny-1
+  // but the tripole ghost row gj = ny, the fold of row ny - 1).
   const int gi = blockIdx.x * kTileInterior + (int)threadIdx.x - 1;
   const int gj = blockIdx.y * ((int)blockDim.y - 2) + (int)threadIdx.y - 1;
   const bool halo_x = threadIdx.x == 0 || threadIdx.x == kTileCols - 1;
   const bool halo_y = threadIdx.y == 0 || threadIdx.y == blockDim.y - 1;
   const int i = cyclic ? (gi < 0 ? gi + nx : (gi >= nx ? gi - nx : gi)) : gi;
-  const bool valid = !(halo_x && halo_y) && gj >= 0 && gj < ny &&
+  const bool ghost = fold && gj == ny;
+  const bool valid = !(halo_x && halo_y) && gj >= 0 && (gj < ny || ghost) &&
                      (cyclic ? gi >= -1 && gi <= nx : gi >= 0 && gi < nx);
   const bool interior = !halo_x && !halo_y && gi < nx && gj < ny;
-  const long off = valid ? (long)gj * nx + i : 0;
+  long off = 0;
+  if (valid) {
+    int fj = gj, fi = i;
+    if (ghost) fold_point(kFoldCenter, 1, i, ny, nx, &fj, &fi);
+    off = (long)fj * nx + fi;
+  }
   const T eps = T(1.0e-10);
 
   // ---- once per column: geometry, the streamfunction's boundary values
@@ -416,7 +428,7 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic,
     GmMetrics<T> m = {};
     if (interior) {
       Column c;
-      locate_at(ny, nx, cyclic, gj, i, &c);
+      locate_at(ny, nx, cyclic, gj, i, &c, fold);
       m = load_metrics(make_stencil(c, nx), kmt, hyx, hxy, tarea_r);
     }
 #pragma unroll
@@ -517,6 +529,10 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic,
       pb[(wVT + fc) * nthr] = w->vt[fc];
       pb[(wVB + fc) * nthr] = w->vb[fc];
     }
+    if (ghost) {  // the fold shows the top row its north face, sign flipped
+      pb[(wVT + fS) * nthr] = -w->vt[fN];
+      pb[(wVB + fS) * nthr] = -w->vb[fN];
+    }
     if (DIAGS && interior) {
       const long o = L * ls + off;
       diags[o] = T(0.5) * (l.kis[0] + l.kis[1]);
@@ -593,15 +609,16 @@ extern "C" int pop2_gm_chain_smem_values(int nt) {
     default: ACTION(T, true, true, true) break;                              \
   }
 
-// dtype: 0 = float32, 1 = float64; flags: bit 0 bfre kappa, bit 1 write the
+// dtype: 0 = float32, 1 = float64; cyclic: the east-west edge wraps; fold:
+// the north edge is a tripole fold; flags: bit 0 bfre kappa, bit 1 write the
 // diagnostic columns, bit 2 slm_r == slm_b; rows: rows of the tile (halo
 // included); smem: dynamic shared memory a block, bytes; params: slm_r,
 // slm_b, ah, ah_bolus, isop_deep, thic_deep, ah_srfbl, ah_bottom. Returns
 // cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
 // configuration the kernel does not take or the card cannot hold.
 extern "C" int pop2_gm_chain(int dtype, int nt, int km, int ny, int nx,
-                             int cyclic, int flags, int hd_const, int rows,
-                             long smem, const double* params,
+                             int cyclic, int fold, int flags, int hd_const,
+                             int rows, long smem, const double* params,
                              const void* lev, const void* tmix,
                              const void* slp, const void* sla,
                              const void* kv, const void* hyx,
@@ -627,7 +644,7 @@ extern "C" int pop2_gm_chain(int dtype, int nt, int km, int ny, int nx,
                      (T)params[3], (T)params[4], (T)params[5],               \
                      (T)params[6], (T)params[7], hd_const};                  \
     gm_chain_kernel<T, BFRE, DIAGS, SAME><<<grid, block, smem, s>>>(         \
-        nt, km, ny, nx, cyclic, p, (const T*)lev, (const T*)tmix,            \
+        nt, km, ny, nx, cyclic, fold, p, (const T*)lev, (const T*)tmix,      \
         (const T*)slp, (const T*)sla, (const T*)kv, (const T*)hyx,           \
         (const T*)hxy, (const T*)tarea_r, (const T*)dd, (const T*)thk,       \
         (const T*)idp, kmt, klev, ztw, (T*)gtk, (T*)vdc, (T*)diags);         \

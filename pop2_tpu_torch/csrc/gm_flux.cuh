@@ -46,7 +46,7 @@ __device__ __forceinline__ Stencil make_stencil(const Column& c, int nx) {
   s.off[kC] = (long)c.j * nx + c.i;
   s.off[kE] = (long)c.j * nx + c.ie;
   s.off[kW] = (long)c.j * nx + c.iw;
-  s.off[kN] = (long)c.jn * nx + c.i;
+  s.off[kN] = (long)c.jn * nx + c.in;
   s.off[kS] = (long)c.js * nx + c.i;
   s.valid[kC] = true;
   s.valid[kE] = c.ve;

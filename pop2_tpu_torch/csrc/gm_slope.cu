@@ -30,8 +30,12 @@
 // the displaced parcel. Slopes divide by the vertical density difference
 // clamped at -eps2, in the operation order of the plain version. Closed
 // edges read zero (copies of nothing); a cyclic edge wraps inside the frame;
-// the ragged last tiles are masked. The block shape and the dynamic shared
-// memory come from the wrapper's planner (`gm_slope_cuda.launch_plan`).
+// the ragged last tiles are masked. On a tripole grid (`fold`) the frame's
+// north ghost row holds the fold of the top row (T and S are centre
+// scalars: the copy reads the mapped column, in another tile) and the top
+// row's north bottom level is the folded KMT (common.cuh `fold_point`).
+// The block shape and the dynamic shared memory come from the wrapper's
+// planner (`gm_slope_cuda.launch_plan`).
 #include "common.cuh"
 
 namespace pop2 {
@@ -103,7 +107,7 @@ __device__ __forceinline__ T clampv(T x, T lo, T hi) {
 
 template <typename T>
 __global__ void __launch_bounds__(kSlopeThreads, SlopeOcc<T>::kMinBlocks)
-gm_slope_kernel(int km, int ny, int nx, int cyclic, T grav,
+gm_slope_kernel(int km, int ny, int nx, int cyclic, int fold, T grav,
                 const T* __restrict__ coef, const T* __restrict__ tmix,
                 const int* __restrict__ kmt, const T* __restrict__ dxt,
                 const T* __restrict__ dyt, T* __restrict__ slp,
@@ -134,7 +138,8 @@ gm_slope_kernel(int km, int ny, int nx, int cyclic, T grav,
     const int q = tid + j * kSlopeThreads;
     int r = 0, c = 0, off = 0;
     const bool in =
-        q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off);
+        q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off,
+                               fold, kFoldCenter);
     const bool corner = (r == 0 || r == R + 1) && (c == 0 || c == W - 1);
     soff[j] = off;
     sflag[j] = q < P && !corner ? (unsigned)in | 2u : 0u;
@@ -167,11 +172,11 @@ gm_slope_kernel(int km, int ny, int nx, int cyclic, T grav,
   T rdx2 = T(1), rdy2 = T(1);
   if (live) {
     Column c;
-    locate_at(ny, nx, cyclic, gj, gi, &c);
+    locate_at(ny, nx, cyclic, gj, gi, &c, fold);
     kmt_c = kmt[oc];
     kmt_e = c.ve ? kmt[c.j * nx + c.ie] : 0;
     kmt_w = c.vw ? kmt[c.j * nx + c.iw] : 0;
-    kmt_n = c.vn ? kmt[c.jn * nx + c.i] : 0;
+    kmt_n = c.vn ? kmt[c.jn * nx + c.in] : 0;
     kmt_s = c.vs ? kmt[c.js * nx + c.i] : 0;
     const T dx = dxt[oc], dy = dyt[oc];
     rdx2 = T(1) / (dx * dx);
@@ -305,11 +310,12 @@ extern "C" int pop2_gm_slope_smem_values() {
 
 extern "C" int pop2_gm_slope_tile_rows() { return pop2::kSlopeRows; }
 
-// dtype: 0 = float32, 1 = float64; rows: rows of the tile; smem: dynamic
+// dtype: 0 = float32, 1 = float64; cyclic: the east-west edge wraps; fold:
+// the north edge is a tripole fold; rows: rows of the tile; smem: dynamic
 // shared memory a block, bytes. Returns cudaGetLastError() of the launch,
 // or cudaErrorInvalidValue for a configuration the kernel does not take.
 extern "C" int pop2_gm_slopes(int dtype, int km, int ny, int nx, int cyclic,
-                              int rows, long smem, double grav,
+                              int fold, int rows, long smem, double grav,
                               const void* coef, const void* tmix,
                               const int* kmt, const void* dxt,
                               const void* dyt, void* slp, void* sla,
@@ -327,8 +333,8 @@ extern "C" int pop2_gm_slopes(int dtype, int km, int ny, int nx, int cyclic,
     const cudaError_t e = SlopeInstance<T>::prepare(smem);                   \
     if (e != cudaSuccess) return (int)e;                                     \
     gm_slope_kernel<T><<<grid, block, smem, s>>>(                            \
-        km, ny, nx, cyclic, (T)grav, (const T*)coef, (const T*)tmix, kmt,    \
-        (const T*)dxt, (const T*)dyt, (T*)slp, (T*)sla, (T*)n2);             \
+        km, ny, nx, cyclic, fold, (T)grav, (const T*)coef, (const T*)tmix,   \
+        kmt, (const T*)dxt, (const T*)dyt, (T*)slp, (T*)sla, (T*)n2);        \
   }
   if (dtype == 0)
     POP2_GM_SLOPES(float)

@@ -44,6 +44,17 @@
 // wraps inside the frame; the ragged last tiles are masked. The block shape
 // and the dynamic shared memory come from the wrapper's planner
 // (`tracer_cuda.launch_plan`).
+//
+// The upwind3 (QUICKEST) mode and the tripole north edge run a second,
+// simpler kernel (`tracer_col_kernel`, below): one thread a column walking
+// down k that reads its stencil from device memory (through the read-only
+// cache) rather than from a staged frame. upwind3 reaches two columns and
+// two rows out (i +- 2, j +- 2) and its vertical term reads level k+2; on a
+// tripole grid the rows past ny - 1 are the fold of the top rows (tracers,
+// KMT: centre fields), so a column of the top rows reads columns of another
+// tile. Its 12 horizontal coefficient planes (east- and north-face
+// QUICKEST weights, advect.upwind3_planes) and 6 vertical coefficient rows
+// come from the wrapper.
 #include "common.cuh"
 
 namespace pop2 {
@@ -232,7 +243,7 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
     Column c;
     locate_at(ny, nx, cyclic, gj, gi, &c);
     kmt_c = kmt[oc];
-    kmt_n = c.vn ? kmt[c.jn * nx + c.i] : 0;
+    kmt_n = c.vn ? kmt[c.jn * nx + c.in] : 0;
     kmt_s = c.vs ? kmt[c.js * nx + c.i] : 0;
     kmt_e = c.ve ? kmt[c.j * nx + c.ie] : 0;
     kmt_w = c.vw ? kmt[c.j * nx + c.iw] : 0;
@@ -340,6 +351,271 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
   }
 }
 
+// ---- the column kernel: upwind3 and the tripole north edge ---------------
+
+constexpr int kColRows = 8;  // a block: kFrameCols x kColRows columns
+constexpr int kUpwPlanes = 12;  // alfxp..delxm (east), alfyp..delym (north)
+constexpr int kUpwVert = 6;     // talfzp, tbetzp, tgamzp, talfzm, tbetzm,
+                                // tdelzm (km each)
+
+// Index of a horizontal neighbour (j, i) in a (ny, nx) plane, or -1 beyond
+// a closed edge: a cyclic east-west edge wraps, the south edge is closed,
+// and with `fold` the rows ny and ny + 1 are the fold of rows ny - 1 and
+// ny - 2 (centre fields).
+__device__ __forceinline__ int col_index(int j, int i, int ny, int nx,
+                                         int cyclic, int fold) {
+  if (i < 0 || i >= nx) {
+    if (!cyclic) return -1;
+    i = i < 0 ? i + nx : i - nx;
+  }
+  if (j < 0) return -1;
+  if (j >= ny) {
+    if (!fold || j > ny + 1) return -1;
+    fold_point(kFoldCenter, j - ny + 1, i, ny, nx, &j, &i);
+  }
+  return j * nx + i;
+}
+
+template <typename T>
+__device__ __forceinline__ T ld_at(const T* __restrict__ f, int idx) {
+  return idx >= 0 ? __ldg(f + idx) : T(0);
+}
+
+// QUICKEST face value (advect.advt_upwind3 `faceval`): x1 = X one step
+// downstream, x0 = X, xm = X one step upstream, x2 = X two steps
+// downstream; c: the coefficient planes' six values of the face; m1, mm,
+// m2: the stencil's points are ocean at the level.
+template <typename T>
+__device__ __forceinline__ T quickest(bool c_pos, bool m1, bool mm, bool m2,
+                                      const T (&c)[6], T x1, T x0, T xm,
+                                      T x2) {
+  const T alfp = c[0], betp = c[1], gamp = c[2];
+  const T alfm = c[3], betm = c[4], delm = c[5];
+  const T ap = m1 ? alfp : T(0);
+  const T work = m1 ? betp : betp + alfp;
+  const T bp = mm ? work : work + gamp;
+  const T gp = mm ? gamp : T(0);
+  const T am = m2 ? alfm : alfm + delm;
+  const T dm = m2 ? delm : T(0);
+  const T plus = ap * x1 + bp * x0 + gp * xm;
+  const T minus = am * x1 + betm * x0 + dm * x2;
+  return c_pos ? plus : minus;
+}
+
+// Blocks an SM that the column kernel's register budget is set for.
+template <typename T>
+struct TracerColOcc {
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
+};
+
+template <typename T, int NT, bool DEL2, bool UPW>
+__global__ void __launch_bounds__(kFrameCols * kColRows,
+                                  TracerColOcc<T>::kMinBlocks)
+tracer_col_kernel(int n0, int km, int ny, int nx, int cyclic, int fold,
+                  int varthick, const T* __restrict__ u,
+                  const T* __restrict__ v, const T* __restrict__ trcr,
+                  const T* __restrict__ tmix, const T* __restrict__ told,
+                  const T* __restrict__ vdc, const T* __restrict__ stf,
+                  const T* __restrict__ dh, const int* __restrict__ kmt,
+                  const T* __restrict__ dyu, const T* __restrict__ dxu,
+                  const T* __restrict__ tarea_r, const T* __restrict__ dtn,
+                  const T* __restrict__ dts, const T* __restrict__ dte,
+                  const T* __restrict__ dtw, const T* __restrict__ dz,
+                  const T* __restrict__ dzr, const T* __restrict__ dz2r,
+                  const T* __restrict__ dzwr2, const T* __restrict__ upw,
+                  const T* __restrict__ vco, T ah, T* __restrict__ out) {
+  const int gi = blockIdx.x * kFrameCols + threadIdx.x;
+  const int gj = blockIdx.y * kColRows + threadIdx.y;
+  if (gi >= nx || gj >= ny) return;
+  const int ls = ny * nx;
+  const long ts = (long)km * ls;
+  const int oc = gj * nx + gi;
+  auto at = [&](int dj, int di) {
+    return col_index(gj + dj, gi + di, ny, nx, cyclic, fold);
+  };
+  // the stencil's points: centre, e, w, ee, ww, n, s, nn, ss, and the sw
+  // corner of the face velocities
+  const int ie = at(0, 1), iw = at(0, -1), iee = at(0, 2), iww = at(0, -2);
+  const int in = at(1, 0), is = at(-1, 0), inn = at(2, 0), iss = at(-2, 0);
+  const int isw = at(-1, -1);
+  const int k_c = kmt[oc], k_e = ld_at(kmt, ie), k_w = ld_at(kmt, iw);
+  const int k_ee = ld_at(kmt, iee), k_ww = ld_at(kmt, iww);
+  const int k_n = ld_at(kmt, in), k_s = ld_at(kmt, is);
+  const int k_nn = ld_at(kmt, inn), k_ss = ld_at(kmt, iss);
+  const T tarea = tarea_r[oc];
+  const T tarea_w = ld_at(tarea_r, iw), tarea_s = ld_at(tarea_r, is);
+  // face metrics of the four U corners around the T cell
+  const T dyu_c = dyu[oc], dyu_s = ld_at(dyu, is), dyu_w = ld_at(dyu, iw);
+  const T dyu_sw = ld_at(dyu, isw);
+  const T dxu_c = dxu[oc], dxu_s = ld_at(dxu, is), dxu_w = ld_at(dxu, iw);
+  const T dxu_sw = ld_at(dxu, isw);
+  T dtn_c = T(0), dts_c = T(0), dte_c = T(0), dtw_c = T(0);
+  if (DEL2) {
+    dtn_c = dtn[oc];
+    dts_c = dts[oc];
+    dte_c = dte[oc];
+    dtw_c = dtw[oc];
+  }
+  const T half = T(0.5);
+  const T* trn[NT];
+  const T* tmn[NT];
+  const T* ton[NT];
+  const T* vdn[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    trn[n] = trcr + (n0 + n) * ts;
+    tmn[n] = tmix + (n0 + n) * ts;
+    ton[n] = told + (n0 + n) * ts;
+    vdn[n] = vdc + (n0 + n < 1 ? 0 : ts);
+  }
+  T wtk = dh[oc];   // w at the top of the level
+  T wsum = wtk;     // dh + running sum of the horizontal divergence
+  T top_k[NT], vtf_k[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    top_k[n] = T(0);
+    vtf_k[n] = T(0);
+  }
+  for (int k = 0; k < km; ++k) {
+    const int kk = k + 1;
+    const bool last = k == km - 1;
+    const int lo = k * ls;
+    const T dzk = dz[k], dzrk = dzr[k], dz2rk = dz2r[k];
+    // face velocities (comp_flux_vel): a = u DYU dz, b = v DXU dz at the
+    // four U corners
+    auto lu = [&](int idx) { return ld_at(u + lo, idx); };
+    auto lv = [&](int idx) { return ld_at(v + lo, idx); };
+    const T a_c = u[lo + oc] * dyu_c * dzk, a_s = lu(is) * dyu_s * dzk;
+    const T a_w = lu(iw) * dyu_w * dzk, a_sw = lu(isw) * dyu_sw * dzk;
+    const T b_c = v[lo + oc] * dxu_c * dzk, b_w = lv(iw) * dxu_w * dzk;
+    const T b_s = lv(is) * dxu_s * dzk, b_sw = lv(isw) * dxu_sw * dzk;
+    const T ute = half * (a_c + a_s);
+    const T utw = iw >= 0 ? half * (a_w + a_sw) : T(0);
+    const T vtn = half * (b_c + b_w);
+    const T vts = is >= 0 ? half * (b_s + b_sw) : T(0);
+    const T cc = vtn - vts + ute - utw;
+    wsum = wsum + cc * tarea;
+    const bool below = k_c > kk;  // the level below is ocean
+    const T wtkb = below ? wsum : T(0);
+    const bool mask = k_c >= kk;
+
+    // masked Laplacian coefficients
+    const T cn = (mask && k_n >= kk) ? dtn_c : T(0);
+    const T cs = (mask && k_s >= kk) ? dts_c : T(0);
+    const T ce = (mask && k_e >= kk) ? dte_c : T(0);
+    const T cw = (mask && k_w >= kk) ? dtw_c : T(0);
+    const T ccd = -(cn + cs + ce + cw);
+    const T dzwr_k = dzwr2[k];
+
+    // upwind3 vertical coefficients of the level
+    T tz[6] = {};
+    if (UPW) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) tz[q] = vco[q * km + k];
+    }
+    // QUICKEST coefficients of the east and north faces of the column and
+    // of its west and south neighbours (their east / north faces are the
+    // column's west / south ones), read again each level (through the
+    // read-only cache) rather than held in 24 registers
+    T cx[6] = {}, cxw[6] = {}, cy[6] = {}, cys[6] = {};
+    if (UPW) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        cx[q] = __ldg(upw + q * ls + oc);
+        cxw[q] = ld_at(upw + q * ls, iw);
+        cy[q] = __ldg(upw + (6 + q) * ls + oc);
+        cys[q] = ld_at(upw + (6 + q) * ls, is);
+      }
+    }
+    const bool interior2 = kk < k_c - 1;
+    const T azminus = interior2 ? tz[3] : tz[3] + tz[5];
+    const T dzminus = interior2 ? tz[5] : T(0);
+
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const T* tk = trn[n] + lo;
+      auto X = [&](int idx) { return ld_at(tk, idx); };
+      const T tc = tk[oc];
+      const T t_e = X(ie), t_w = X(iw), t_n = X(in), t_s = X(is);
+      const T tc_b = last ? T(0) : trn[n][lo + ls + oc];
+      T ltk, bot;
+      if (UPW) {
+        // horizontal: upwind-biased face values
+        const T t_ee = X(iee), t_ww = X(iww), t_nn = X(inn), t_ss = X(iss);
+        const T ce_ = ute * tarea, cw_ = -utw * tarea;
+        const T cn_ = vtn * tarea, cs_ = -vts * tarea;
+        const T tr_e = quickest(ce_ > T(0), kk <= k_e, kk <= k_w,
+                                kk <= k_ee, cx, t_e, tc, t_w, t_ee);
+        const T tr_w = iw >= 0 ? quickest(utw * tarea_w > T(0), kk <= k_c,
+                                          kk <= k_ww, kk <= k_e, cxw, tc,
+                                          t_w, t_ww, t_e)
+                               : T(0);
+        const T tr_n = quickest(cn_ > T(0), kk <= k_n, kk <= k_s,
+                                kk <= k_nn, cy, t_n, tc, t_s, t_nn);
+        const T tr_s = is >= 0 ? quickest(vts * tarea_s > T(0), kk <= k_c,
+                                          kk <= k_ss, kk <= k_n, cys, tc,
+                                          t_s, t_ss, t_n)
+                               : T(0);
+        const T lh = (ce_ * tr_e + cw_ * tr_w + cn_ * tr_n + cs_ * tr_s) /
+                     dzk;
+        // vertical (QUICKEST through the level's bottom)
+        const T t_km1 = k == 0 ? tc : trn[n][lo - ls + oc];
+        const T t_kp1 = last ? tc : tc_b;
+        const T t_kp2 = k + 2 < km ? trn[n][lo + 2 * ls + oc] : t_kp1;
+        const T tplus = tz[0] * t_kp1 + tz[1] * tc + tz[2] * t_km1;
+        const T tminus = azminus * t_kp1 + tz[4] * tc + dzminus * t_kp2;
+        const T auxb = last ? T(0)
+                            : (wtkb - fabs(wtkb)) * tplus +
+                                  (wtkb + fabs(wtkb)) * tminus;
+        const T aux = top_k[n];
+        T vert = dz2rk * (aux - auxb);
+        if (k == 0 && !varthick)
+          vert = wtk * tc / dzk - half * auxb / dzk;
+        ltk = mask ? lh + vert : T(0);
+        bot = auxb;
+      } else {
+        // centered (advt_centered)
+        ltk = half * (cc * tc + vtn * t_n - vts * t_s + ute * t_e
+                      - utw * t_w) * tarea * dzrk;
+        const T top =
+            k == 0 ? (varthick ? T(0) : T(2) * wtk * tc) : top_k[n];
+        bot = last ? T(0) : wtkb * (tc + tc_b);
+        ltk = ltk + dz2rk * (top - bot);
+      }
+
+      // Laplacian diffusion of the mixing-time tracer (hdifft_del2)
+      T hdtk = T(0);
+      if (DEL2) {
+        const T* tmk = tmn[n] + lo;
+        hdtk = ah * (ccd * tmk[oc] + cn * ld_at(tmk, in) +
+                     cs * ld_at(tmk, is) + ce * ld_at(tmk, ie) +
+                     cw * ld_at(tmk, iw));
+      }
+
+      // explicit vertical diffusion of the old-time tracer (vdifft)
+      const T to_c = ton[n][lo + oc];
+      const T to_b = last ? T(0) : ton[n][lo + ls + oc];
+      const T vtfb = below ? vdn[n][lo + oc] * (to_c - to_b) * dzwr_k : T(0);
+      const T vtf = k == 0 ? (mask ? stf[(n0 + n) * ls + oc] : T(0))
+                           : vtf_k[n];
+      const T vdf = mask ? (vtf - vtfb) * dzrk : T(0);
+
+      out[(n0 + n) * ts + (lo + oc)] = hdtk - ltk + vdf;
+      top_k[n] = bot;
+      vtf_k[n] = vtfb;
+    }
+    wtk = wtkb;
+  }
+}
+
+template <typename T, int NT, bool DEL2, bool UPW>
+struct TracerColInstance {
+  static int occupancy() {
+    return blocks_per_sm(tracer_col_kernel<T, NT, DEL2, UPW>,
+                         kFrameCols * kColRows, 0);
+  }
+};
+
 template <typename T, int NT, bool DEL2>
 struct TracerInstance {
   static cudaError_t prepare(long smem) {
@@ -385,33 +661,64 @@ extern "C" int pop2_tracer_tile_rows() { return pop2::kRows; }
 
 extern "C" int pop2_tracer_max_group() { return pop2::kMaxGroup; }
 
+#define POP2_TRACER_COL_INSTANCES(T, ACTION)                                 \
+  if (ng == 1 && del2 && quick)                                              \
+    ACTION(T, 1, true, true)                                                 \
+  else if (ng == 1 && del2)                                                  \
+    ACTION(T, 1, true, false)                                                \
+  else if (ng == 1 && quick)                                                 \
+    ACTION(T, 1, false, true)                                                \
+  else if (ng == 1)                                                          \
+    ACTION(T, 1, false, false)                                               \
+  else if (del2 && quick)                                                    \
+    ACTION(T, 2, true, true)                                                 \
+  else if (del2)                                                             \
+    ACTION(T, 2, true, false)                                                \
+  else if (quick)                                                            \
+    ACTION(T, 2, false, true)                                                \
+  else                                                                       \
+    ACTION(T, 2, false, false)
+
 // dtype: 0 = float32, 1 = float64; with_del2 = 0 selects the advection +
 // vertical-diffusion instance (tmix and ah are then not read). One launch
 // computes the ng tracers n0 .. n0+ng-1 of nt (the pointers are those of
-// all nt); rows: rows of the tile; smem: dynamic shared memory a block,
-// bytes. Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue
-// for a configuration the kernel does not take.
+// all nt); cyclic: the east-west edge wraps; fold: the north edge is a
+// tripole fold; upwind3: QUICKEST advection (upw: its 12 horizontal
+// coefficient planes, vco: its 6 vertical coefficient rows of km; not read
+// for centered advection). With fold or upwind3 the column kernel runs
+// (rows = its block's rows, smem = 0), else the staged-tile kernel (rows:
+// rows of the tile; smem: dynamic shared memory a block, bytes). Returns
+// cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// configuration the kernel does not take.
 extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
-                           int km, int ny, int nx, int cyclic, int varthick,
-                           int rows, long smem, const void* u, const void* v,
-                           const void* trcr, const void* tmix,
-                           const void* told, const void* vdc, const void* stf,
-                           const void* dh, const int* kmt, const void* dyu,
-                           const void* dxu, const void* tarea_r,
-                           const void* dtn, const void* dts, const void* dte,
-                           const void* dtw, const void* dz, const void* dzr,
-                           const void* dz2r, const void* dzwr2, double ah,
-                           void* out, void* stream) {
+                           int km, int ny, int nx, int cyclic, int fold,
+                           int upwind3, int varthick, int rows, long smem,
+                           const void* u, const void* v, const void* trcr,
+                           const void* tmix, const void* told,
+                           const void* vdc, const void* stf, const void* dh,
+                           const int* kmt, const void* dyu, const void* dxu,
+                           const void* tarea_r, const void* dtn,
+                           const void* dts, const void* dte, const void* dtw,
+                           const void* dz, const void* dzr, const void* dz2r,
+                           const void* dzwr2, const void* upw,
+                           const void* vco, double ah, void* out,
+                           void* stream) {
   using namespace pop2;
-  const bool del2 = with_del2 != 0;
-  if (!(dtype == 0 ? tracer_config_ok<float>(ng, n0, nt, km, ny, nx, del2,
-                                             rows, smem)
-                   : tracer_config_ok<double>(ng, n0, nt, km, ny, nx, del2,
-                                              rows, smem)))
+  const bool del2 = with_del2 != 0, column = fold || upwind3;
+  if (column) {
+    if (!(ng >= 1 && ng <= kMaxGroup && n0 >= 0 && n0 + ng <= nt &&
+          km >= 1 && (long)km * ny * nx < (1L << 31) && rows == kColRows &&
+          smem == 0))
+      return (int)cudaErrorInvalidValue;
+  } else if (!(dtype == 0 ? tracer_config_ok<float>(ng, n0, nt, km, ny, nx,
+                                                    del2, rows, smem)
+                          : tracer_config_ok<double>(ng, n0, nt, km, ny, nx,
+                                                     del2, rows, smem))) {
     return (int)cudaErrorInvalidValue;
+  }
   const dim3 grid((unsigned)((nx + kFrameCols - 1) / kFrameCols),
-                  (unsigned)((ny + kRows - 1) / kRows));
-  const dim3 block(kFrameCols, kRows);
+                  (unsigned)((ny + rows - 1) / rows));
+  const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
 #define POP2_TRACER(T, NT, DEL2)                                             \
   {                                                                          \
@@ -425,14 +732,51 @@ extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
         (const T*)dtw, (const T*)dz, (const T*)dzr, (const T*)dz2r,          \
         (const T*)dzwr2, (T)ah, (T*)out);                                    \
   }
-  if (dtype == 0) {
+#define POP2_TRACER_COL(T, NT, DEL2, UPW)                                    \
+  tracer_col_kernel<T, NT, DEL2, UPW><<<grid, block, 0, s>>>(                \
+      n0, km, ny, nx, cyclic, fold, varthick, (const T*)u, (const T*)v,      \
+      (const T*)trcr, (const T*)tmix, (const T*)told, (const T*)vdc,         \
+      (const T*)stf, (const T*)dh, kmt, (const T*)dyu, (const T*)dxu,        \
+      (const T*)tarea_r, (const T*)dtn, (const T*)dts, (const T*)dte,        \
+      (const T*)dtw, (const T*)dz, (const T*)dzr, (const T*)dz2r,            \
+      (const T*)dzwr2, (const T*)upw, (const T*)vco, (T)ah, (T*)out);
+  const bool quick = upwind3 != 0;
+  if (column) {
+    if (dtype == 0) {
+      POP2_TRACER_COL_INSTANCES(float, POP2_TRACER_COL)
+    } else {
+      POP2_TRACER_COL_INSTANCES(double, POP2_TRACER_COL)
+    }
+  } else if (dtype == 0) {
     POP2_TRACER_INSTANCES(float, POP2_TRACER)
   } else {
     POP2_TRACER_INSTANCES(double, POP2_TRACER)
   }
 #undef POP2_TRACER
+#undef POP2_TRACER_COL
   return (int)cudaGetLastError();
 }
+
+extern "C" int pop2_tracer_col_rows() { return pop2::kColRows; }
+
+// Blocks of the column kernel's launch for a group of ng tracers that one
+// SM holds at once.
+extern "C" int pop2_tracer_col_blocks_per_sm(int dtype, int with_del2,
+                                             int ng, int upwind3) {
+  using namespace pop2;
+  const bool del2 = with_del2 != 0, quick = upwind3 != 0;
+  if (ng < 1 || ng > kMaxGroup) return -(int)cudaErrorInvalidValue;
+#define POP2_TRACER_COL_OCC(T, NT, DEL2, UPW)                                \
+  return TracerColInstance<T, NT, DEL2, UPW>::occupancy();
+  if (dtype == 0) {
+    POP2_TRACER_COL_INSTANCES(float, POP2_TRACER_COL_OCC)
+  } else {
+    POP2_TRACER_COL_INSTANCES(double, POP2_TRACER_COL_OCC)
+  }
+#undef POP2_TRACER_COL_OCC
+  return -(int)cudaErrorInvalidValue;  // not reached: every case returns
+}
+#undef POP2_TRACER_COL_INSTANCES
 
 // Blocks of a launch of this configuration (a group of ng tracers, with the
 // Laplacian or without, `smem` bytes a block) that one SM holds at once.

@@ -21,10 +21,13 @@ Slope indexing: arrays carry a leading axis pair (face, half) with
 face 0 = east/north, face 1 = west/south; half 0 = top (ktp), 1 = bottom
 (kbt), matching the reference's (ieast/iwest, ktp/kbt) quarter cells.
 
+On a tripole grid the north face differences fold as centre scalars and the
+south-face skew weights' ghost row is the fold of the north-face ones with
+the sign flipped (``BC.n_partner``, in the flux assembly).
+
 Not ported yet (each raises, ROADMAP.md Queue 1): the KPP boundary-layer
 depth as diabatic depth (item 6), the 'depth', 'vmhs' and 'eg' diffusivity
-types and the anisotropic variant (item 11), the tripole fold of the
-south-face skew weights (item 5).
+types and the anisotropic variant (item 11).
 """
 
 from __future__ import annotations
@@ -620,8 +623,6 @@ def check_gm_config(cfg: ModelConfig, hblt=None) -> None:
     if hblt is not None:
         todo.append("a KPP boundary-layer depth (Queue 1 item 6: "
                     "kpp.smooth_hblt)")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (Queue 1 item 5)")
     if todo:
         raise NotImplementedError(
             "GM option not ported yet (ROADMAP.md): " + "; ".join(todo))

@@ -24,9 +24,11 @@ neighbours through shared memory (see the note in ``csrc/gm_chain.cu``).
 ``launch_plan`` chooses the tile and its shared memory in plain Python.
 Float32 and float64.
 
-Left for later, each raising ``NotImplementedError`` (ROADMAP.md Queue 2
-kernel 5): the submesoscale fold-in (``with_sm``), the tripole top row, 3-D
-layer thickness.
+Closed or tripole north edge: on a tripole grid the tile's ghost-row
+threads form the folded column's weights and publish the south-face ones as
+the north face's with the sign flipped (``BC.n_partner``). Left for later,
+each raising ``NotImplementedError`` (ROADMAP.md Queue 2 kernel 5): the
+submesoscale fold-in (``with_sm``), 3-D layer thickness.
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ def _check_mode(cfg, grid, with_sm: bool = False):
         todo.append("a GM configuration outside the chain (transition layer "
                     "off, anisotropic, or kappa types other than one of "
                     "const/bfre): gm.hdifft_gm carries those")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole top row)")
+    if cfg.ns_boundary not in ("closed", "tripole"):
+        todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
     if grid.DZT is not None:
@@ -159,7 +161,7 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
     """Check the operands and allocate the outputs of a kernel launch.
     Returns (head, tail, (gtk, vdc, diags)): the arguments of
     ``pop2_gm_chain`` before the launch plan's rows and shared memory
-    (dtype, nt, km, ny, nx, cyclic, flags, hd_const) and after it (the
+    (dtype, nt, km, ny, nx, cyclic, fold, flags, hd_const) and after it (the
     parameters, the operand and output pointers, the stream)."""
     nt, km, ny, nx = tmix.shape
     dev, dt = tmix.device, tmix.dtype
@@ -188,7 +190,8 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
     diags = (torch.empty((3,) + f3, dtype=dt, device=dev) if want_diags
              else None)
     head = (cb.dtype_code(tmix), nt, km, ny, nx,
-            int(cfg.ew_boundary == "cyclic"), kernel_flags(cfg, want_diags),
+            int(cfg.ew_boundary == "cyclic"),
+            int(cfg.ns_boundary == "tripole"), kernel_flags(cfg, want_diags),
             int(bool(cfg.gm_use_const_ah_bkg_srfbl)))
     tail = (params, lev.data_ptr(), tmix.data_ptr(), slp.data_ptr(),
             sla.data_ptr(), kv.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),

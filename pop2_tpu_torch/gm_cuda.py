@@ -166,8 +166,13 @@ def flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
                         + w4 * bc.e(tz_kp1))
         w1 = kisop[0] * sly[0, 0] * dz - sf_sly[0, 0]
         w2 = kisop[1] * sly[0, 1] * dz - sf_sly[0, 1]
-        w3 = bc.n(kisop[0] * sly[1, 0] * dz - sf_sly[1, 0])
-        w4 = bc.n(kisop[1] * sly[1, 1] * dz - sf_sly[1, 1])
+        # tripole: the south-face weights' ghost row is the fold of the
+        # north-face ones with the sign flipped (the faces swap under the
+        # 180-degree rotation, source/hmix_gm.F90 SLY(:,j+1,jsouth))
+        w3 = bc.n_partner(kisop[0] * sly[1, 0] * dz - sf_sly[1, 0], w1,
+                          "center", "vector")
+        w4 = bc.n_partner(kisop[1] * sly[1, 1] * dz - sf_sly[1, 1], w2,
+                          "center", "vector")
         fy = fy - cy * (w1 * tz + w2 * tz_kp1 + w3 * bc.n(tz)
                         + w4 * bc.n(tz_kp1))
 

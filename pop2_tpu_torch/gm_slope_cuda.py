@@ -21,8 +21,10 @@ frame by asynchronous copies three levels ahead (see the note in
 ``csrc/gm_slope.cu``); ``launch_plan`` chooses the tile and its shared
 memory in plain Python. Float32 and float64.
 
-MWJF equation of state, closed north-south boundary, 1-D layer thickness;
-the other modes raise ``NotImplementedError`` (ROADMAP.md Queue 2 kernel 4).
+MWJF equation of state, closed or tripole north edge (the frame's ghost row
+is the fold of the top row: T and S are copied from the mapped columns),
+1-D layer thickness; the other modes raise ``NotImplementedError``
+(ROADMAP.md Queue 2 kernel 4).
 """
 
 from __future__ import annotations
@@ -75,8 +77,8 @@ def _check_mode(cfg, grid):
     if cfg.state_choice != "mwjf":
         todo.append(f"state_choice={cfg.state_choice!r} (the kernel "
                     "evaluates the MWJF derivatives)")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole top row)")
+    if cfg.ns_boundary not in ("closed", "tripole"):
+        todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
     if grid.DZT is not None:
@@ -167,7 +169,8 @@ def slopes(cfg, grid, bc, ts_range, tmix):
     n2 = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_slopes(
         cb.dtype_code(tmix), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        rows, smem, float(const.GRAV), coef.data_ptr(), tmix.data_ptr(),
+        int(cfg.ns_boundary == "tripole"), rows, smem, float(const.GRAV),
+        coef.data_ptr(), tmix.data_ptr(),
         grid.KMT.data_ptr(), grid.DXT.data_ptr(), grid.DYT.data_ptr(),
         slp.data_ptr(), sla.data_ptr(), n2.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm slopes")

@@ -17,10 +17,13 @@ can run with no input files:
   * T<->U averaging weights    source/grid.F90:2882-2932
   * reference pressure         source/state_mod.F90:1724-1766
 
-This slice of the port carries the internal generators only: the ``file``
-readers, partial bottom cells, the tripole fold, overflow pop-ups,
-topographic stress and the anisotropic-viscosity statics are refused by
-``supported.check_supported`` (ROADMAP.md Queue 1 items 5, 8, 11).
+The port carries the internal generators, with a closed or tripole north
+edge (northward shifts of the host fields fold with the field's location and
+kind, as the JAX package's) and the anisotropic-viscosity statics on
+``Grid.aniso``; the ``file`` readers (and with them the file grid's tripole
+DYU correction), partial bottom cells, overflow pop-ups and topographic
+stress are refused by ``supported.check_supported`` (ROADMAP.md Queue 1
+items 8, 11).
 """
 
 from __future__ import annotations
@@ -156,6 +159,8 @@ class Grid(TensorTree):
     # cells only); kept so thickness_t/thickness_u read as in the reference
     DZT: Optional[torch.Tensor] = None   # (km, ny, nx)
     DZU: Optional[torch.Tensor] = None
+    # anisotropic-viscosity statics (hmix_momentum='aniso')
+    aniso: Optional["AnisoStatics"] = None
 
 
 def pressure_bars(depth_m: np.ndarray) -> np.ndarray:
@@ -215,10 +220,39 @@ def _topography_internal(ulat_deg: np.ndarray, ulon_deg: np.ndarray,
     return kmt
 
 
+def _np_fold_row(f: np.ndarray, n: int, loc: str, kind: str) -> np.ndarray:
+    """Host-side tripole ghost row ny-1+n (the NumPy mirror of
+    ``tripole.fold_rows``; mpi/POP_HaloMod.F90:1961-2050)."""
+    sign = -1.0 if kind == "vector" else 1.0
+    ny = f.shape[0]
+    if loc == "center":
+        return sign * f[ny - n, ::-1]
+    if loc == "necorner":
+        return sign * np.roll(f[ny - 1 - n, ::-1], -1)
+    if loc == "eface":
+        return sign * np.roll(f[ny - n, ::-1], -1)
+    if loc == "nface":
+        return sign * f[ny - 1 - n, ::-1]
+    raise ValueError(f"unknown location {loc}")
+
+
 def _np_shift(f: np.ndarray, di: int, dj: int, ew: str, ns: str,
-              fill=0.0) -> np.ndarray:
+              fill=0.0, loc: str = "center",
+              kind: str = "scalar") -> np.ndarray:
     """Host-side shift: result[j,i] = f[j+dj, i+di]; closed edges take
-    ``fill``, cyclic edges wrap."""
+    ``fill``, cyclic edges wrap. On a tripole north edge a northward shift
+    fills the ghost rows from the fold of the field's location and kind
+    (fold first, then the east-west shift, as ghost cells are indexed)."""
+    if ns == "tripole" and dj > 0:
+        g = np.roll(np.asarray(f, dtype=np.float64), -dj, axis=0)
+        ny = f.shape[0]
+        for n in range(1, dj + 1):
+            g[ny - 1 - dj + n, :] = _np_fold_row(f, n, loc, kind)
+        if di != 0:
+            g = _np_shift(g, di, 0, ew, ns, fill)
+        return g
+    if ns == "tripole":
+        ns = "closed"  # the south edge of a tripole grid is closed
     g = np.roll(f, (-dj, -di), axis=(0, 1))
     if ns == "closed" and dj != 0:
         if dj > 0:
@@ -275,8 +309,8 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     nx, ny, km = cfg.nx, cfg.ny, cfg.km
     ew, ns = cfg.ew_boundary, cfg.ns_boundary
 
-    def sh(f, di, dj, fill=0.0):
-        return _np_shift(f, di, dj, ew, ns, fill)
+    def sh(f, di, dj, fill=0.0, loc="center", kind="scalar"):
+        return _np_shift(f, di, dj, ew, ns, fill, loc, kind)
 
     # ---- analytic lat/lon grid (source/grid.F90:1226-1298) -------------
     dlon = 360.0 / nx
@@ -439,32 +473,33 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     # momentum (source/hmix_del2.F90:317-404)
     w1 = (HUS / HTE)
     DUS = w1 * UAREA_R
-    DUN = sh(w1, 0, 1) * UAREA_R
+    DUN = sh(w1, 0, 1, loc="eface") * UAREA_R
     w1 = (HUW / HTN)
     DUW = w1 * UAREA_R
     DUE = sh(w1, 1, 0) * UAREA_R
     DUC = -(DUN + DUS + DUE + DUW)
 
     KXU = (sh(HUW, 1, 0) - HUW) * UAREA_R
-    KYU = (sh(HUS, 0, 1) - HUS) * UAREA_R
+    KYU = (sh(HUS, 0, 1, loc="eface") - HUS) * UAREA_R
 
-    # kxt/kyt are x-/y-directional metric derivatives
+    # kxt/kyt are x-/y-directional metric derivatives: they change sign
+    # under the tripole's 180-degree fold (kind='vector')
     kxt = (HTE - sh(HTE, -1, 0)) * TAREA_R
-    w2 = 0.5 * (kxt + sh(kxt, 0, 1))
+    w2 = 0.5 * (kxt + sh(kxt, 0, 1, kind="vector"))
     DXKX = (sh(w2, 1, 0) - w2) * DXUR
     w2 = 0.5 * (kxt + sh(kxt, 1, 0))
-    DYKX = (sh(w2, 0, 1) - w2) * DYUR
+    DYKX = (sh(w2, 0, 1, loc="eface", kind="vector") - w2) * DYUR
 
     kyt = (HTN - sh(HTN, 0, -1)) * TAREA_R
     w2 = 0.5 * (kyt + sh(kyt, 1, 0))
-    DYKY = (sh(w2, 0, 1) - w2) * DYUR
-    w2 = 0.5 * (kyt + sh(kyt, 0, 1))
+    DYKY = (sh(w2, 0, 1, loc="eface", kind="vector") - w2) * DYUR
+    w2 = 0.5 * (kyt + sh(kyt, 0, 1, kind="vector"))
     DXKY = (sh(w2, 1, 0) - w2) * DXUR
 
     DUM = -(DXKX + DYKY + 2.0 * (KXU ** 2 + KYU ** 2))
     DMC = DXKY - DYKX
     DME = 2.0 * KYU / (HTN + sh(HTN, 1, 0))
-    DMN = -2.0 * KXU / (HTE + sh(HTE, 0, 1))
+    DMN = -2.0 * KXU / (HTE + sh(HTE, 0, 1, loc="eface"))
     DMW = -DME
     DMS = -DMN
 
@@ -517,7 +552,13 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
                   zt=f(zt), zw=f(zw), dzw=f(dzw), dzwr=f(dzwr),
                   pressz=f(pressz))
 
+    aniso = None
+    if cfg.hmix_momentum == "aniso":
+        aniso = build_aniso(cfg, HTN, HTE, DXU, DYU, DXUR, DYUR, ULAT, KMU,
+                            device)
+
     return Grid(
+        aniso=aniso,
         DXU=f(DXU), DYU=f(DYU), DXT=f(DXT), DYT=f(DYT),
         DXUR=f(DXUR), DYUR=f(DYUR), DXTR=f(DXTR), DYTR=f(DYTR),
         HTN=f(HTN), HTE=f(HTE), HUS=f(HUS), HUW=f(HUW),
@@ -541,6 +582,14 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
         area_t=f(area_t), volume_t=f(volume_t),
         residual_norm=f(residual_norm),
     )
+
+
+def build_aniso(cfg: ModelConfig, HTN, HTE, DXU, DYU, DXUR, DYUR, ULAT,
+                KMU, device):
+    """The anisotropic-viscosity statics of a grid from its fields."""
+    from pop2_tpu_torch import hmix_aniso  # deferred: imports grid
+    return hmix_aniso.build_statics(cfg, grid_bc(cfg), HTN, HTE, DXU, DYU,
+                                    DXUR, DYUR, ULAT, KMU, device)
 
 
 def thickness_t(cfg: ModelConfig, grid: Grid):

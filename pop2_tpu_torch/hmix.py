@@ -1,10 +1,11 @@
-"""Horizontal mixing: Laplacian del2 for momentum and tracers (plain PyTorch).
+"""Horizontal mixing: Laplacian del2 for momentum and tracers (plain PyTorch)
+and the dispatch to the anisotropic momentum closure (``hmix_aniso``).
 
 Reference: ``source/hmix_del2.F90:670-1144`` using the stencil coefficients
 precomputed in grid.py. Land boundary conditions enter through per-level
 masking of the tracer coefficients (zero-flux) and through zeroing over land
-for momentum (no-slip). del4, GM and anisotropic mixing are later slices
-(ROADMAP.md Queue 1 items 5, 7, 11) and their dispatch branches raise.
+for momentum (no-slip). del4 is a later slice (ROADMAP.md Queue 1 item 11)
+and its dispatch branches raise; GM is ``gm.py``.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def hdiffu_del2(cfg: ModelConfig, grid: Grid, bc: BC, umixk, vmixk):
     Returns (hduk, hdvk) masked to zero over land."""
     am = cfg.auto_am
     cc = grid.DUC + grid.DUM
-    nu = bc.n(umixk)
-    nv = bc.n(vmixk)
+    nu = bc.n(umixk, "necorner", "vector")
+    nv = bc.n(vmixk, "necorner", "vector")
     lap_u = (cc * umixk + grid.DUN * nu + grid.DUS * bc.s(umixk)
              + grid.DUE * bc.e(umixk) + grid.DUW * bc.w(umixk))
     lap_v = (cc * vmixk + grid.DUN * nv + grid.DUS * bc.s(vmixk)
@@ -77,6 +78,10 @@ def hdiffu(cfg: ModelConfig, grid: Grid, bc: BC, umixk, vmixk):
     """Dispatch (source/horizontal_mix.F90:427-)."""
     if cfg.hmix_momentum == "del2":
         return hdiffu_del2(cfg, grid, bc, umixk, vmixk)
+    if cfg.hmix_momentum == "aniso":
+        from pop2_tpu_torch import hmix_aniso
+        return hmix_aniso.hdiffu_aniso(cfg, grid, bc, grid.aniso, umixk,
+                                       vmixk)
     raise NotImplementedError(
         f"hmix_momentum={cfg.hmix_momentum!r} is not ported yet (ROADMAP.md "
-        "Queue 1 items 5, 11)")
+        "Queue 1 item 11)")

@@ -2,12 +2,14 @@
 the step-type policy of the time manager.
 
 Replaces the reference's driver layer (``drivers/mct/ocn_comp_mct.F90`` run
-loop + ``source/time_management.F90`` switches) for standalone runs: the
-'avg' time-mixing policy, Euler-forward first step, leapfrog afterwards,
-averaging filter every ``time_mix_freq`` steps
-(source/time_management.F90:2157-2175). The calendar, tavg/history streams and
-a captured-graph run loop are later slices (ROADMAP.md Queue 1 item 10); a
-step counter stands in for the calendar here.
+loop + ``source/time_management.F90`` switches) for standalone runs:
+Euler-forward first step, leapfrog afterwards, and the 'avg' policy
+(averaging filter every ``time_mix_freq`` steps,
+source/time_management.F90:2157-2175) or the 'robert' one (the Robert
+filter inside every step). With ``preconditioner='fspai'`` the barotropic
+preconditioner is built once here, on the host in float64. The calendar,
+tavg/history streams and a captured-graph run loop are later slices
+(ROADMAP.md Queue 1 item 10); a step counter stands in for the calendar.
 
 ``Model(cfg)`` runs on the GPU: the default device is ``cuda`` and a machine
 without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
@@ -22,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos, solvers, step as step_mod
+from pop2_tpu_torch import eos, solvers, step as step_mod, sw_absorption
 from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing, analytic_forcing
@@ -49,25 +51,41 @@ class Model:
             if cfg.state_range_opt == "enforce" else None)
         self.forcing = analytic_forcing(cfg, self.grid)
         self.nsteps_total = 0
+        self.sw_profile = (sw_absorption.absorb_profile(cfg, self.grid)
+                           if cfg.sw_absorption == "jerlov" else None)
+        solve64 = (cfg.solver.solve_dtype == "float64"
+                   and cfg.torch_dtype != torch.float64)
+
+        def operator(leapfrog):
+            op = solvers.make_operator(
+                self.grid, diagonal_correction(cfg, self.grid, leapfrog))
+            return op.to(torch.float64) if solve64 else op
+
+        # the factored SPAI (SPD by construction) of the leapfrog operator;
+        # the Euler first step reuses it (any SPD M preconditions)
+        self.precond = None
+        if cfg.solver.preconditioner.lower() == "fspai":
+            self.precond = solvers.build_fspai9(cfg, operator(True))
         # PCSI eigenvalue bounds are prepared once per leapfrog flag: the
         # diagonal correction is a pure function of (cfg, grid, leapfrog)
         self._pcsi_eigs: Dict[bool, Tuple[float, float]] = {}
         if cfg.solver.choice.lower() == "pcsi":
             for leapfrog in (False, True):
-                op = solvers.make_operator(
-                    self.grid, diagonal_correction(cfg, self.grid, leapfrog))
-                if (cfg.solver.solve_dtype == "float64"
-                        and cfg.torch_dtype != torch.float64):
-                    op = op.to(torch.float64)
-                self._pcsi_eigs[leapfrog] = solvers.lanczos_eigs(
-                    cfg, op, self.bc)
+                op = operator(leapfrog)
+                self._pcsi_eigs[leapfrog] = (
+                    solvers.pcg_lanczos_eigs(cfg, op, self.bc, self.precond)
+                    if self.precond is not None
+                    else solvers.lanczos_eigs(cfg, op, self.bc))
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
     def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
         """(leapfrog, avg_ts) for 1-based step number ``nsteps_total``."""
         leapfrog = nsteps_total != 1
         tm = self.cfg.time
-        avg_ts = (nsteps_total % tm.time_mix_freq == 0 and nsteps_total > 1)
+        # the Robert filter acts inside every step; no averaging step then
+        avg_ts = (tm.time_mix_opt == "avg"
+                  and nsteps_total % tm.time_mix_freq == 0
+                  and nsteps_total > 1)
         return leapfrog, avg_ts
 
     def initial_state(self) -> State:
@@ -81,7 +99,8 @@ class Model:
         leapfrog, avg_ts = self.step_flags(self.nsteps_total)
         return step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
                              state, forcing, leapfrog, avg_ts,
-                             self._pcsi_eigs.get(leapfrog))
+                             self._pcsi_eigs.get(leapfrog), self.precond,
+                             self.sw_profile)
 
     def run(self, state: State, nsteps: int,
             forcing: Optional[Forcing] = None) -> State:

@@ -1,6 +1,8 @@
-"""Seeded sample inputs with production-shaped isopycnal slopes, for checks
-of the GM/Redi path: the CPU tests hand them to this package and to its
-reference, the GPU smoke test to the kernels and their plain versions."""
+"""Seeded sample inputs: production-shaped isopycnal slopes for checks of the
+GM/Redi path, and a stepped bottom with ocean across a tripole fold for
+checks of the kernels' north edge. The CPU tests hand them to this package
+and to its reference, the GPU smoke test to the kernels and their plain
+versions."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import numpy as np
 import torch
 
 from pop2_tpu_torch import gm
+from pop2_tpu_torch.grid import _np_shift
 
 
 def stratified_tracers(kmask_t, zt, tlat, nt, seed, dtype=np.float64,
@@ -66,3 +69,63 @@ def flux_operands(cfg, grid, bc, ts_range, tmix, levels=(2, 5)):
     sf_sly = torch.where(in_mask, kthic[None] * sly * dz, 0.0)
     return tuple(t.contiguous() for t in (tx, ty, tz, slx, sly, sf_slx,
                                           sf_sly, kisop, hor_diff))
+
+
+def fold_bottom_kmt(kmt, km, seed):
+    """A seeded stepped bottom of 2..km levels inside the ocean of ``kmt``
+    (ny, nx), with ocean opened across the two top rows (the internal grid
+    makes them land, which would hide the tripole fold from every check):
+    NumPy int32."""
+    kmt = np.asarray(kmt)
+    ny, nx = kmt.shape
+    rng = np.random.RandomState(seed)
+    jj, ii = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    depth = 0.55 + 0.45 * np.sin(2 * np.pi * (ii / nx + rng.rand())) \
+        * np.cos(2 * np.pi * (jj / ny + rng.rand()))
+    depth += 0.15 * rng.randn(ny, nx)
+    ocean = kmt > 0
+    ocean[-2:] = True
+    return np.where(ocean, np.clip(np.rint(depth * km), 2, km),
+                    0).astype(np.int32)
+
+
+def bottom_leaves(kmt, zw, ew, ns):
+    """The grid leaves derived from a bottom ``kmt`` (ny, nx) that the
+    kernels and the plain chains read, NumPy, with the shifts of the grid
+    (a tripole fold included): KMT, KMU, HT, HU, HUR, RCALCT, RCALCU,
+    kmask_t, kmask_u, KMTN, KMTS, KMTE, KMTW. ``zw``: (km,) bottom depths."""
+    kmt = np.asarray(kmt).astype(np.int32)
+    km = len(zw)
+
+    def sh(f, di, dj):
+        return _np_shift(f, di, dj, ew, ns).astype(np.int32)
+
+    kmu = np.minimum(np.minimum(kmt, sh(kmt, 1, 0)),
+                     np.minimum(sh(kmt, 0, 1), sh(kmt, 1, 1)))
+    zw_pad = np.concatenate([[0.0], np.asarray(zw, np.float64)])
+    hu = zw_pad[kmu]
+    kidx = np.arange(1, km + 1)[:, None, None]
+    return dict(
+        KMT=kmt, KMU=kmu, HT=zw_pad[kmt], HU=hu,
+        HUR=np.where(hu > 0, 1.0 / np.where(hu > 0, hu, 1.0), 0.0),
+        RCALCT=(kmt >= 1).astype(np.float64),
+        RCALCU=(kmu >= 1).astype(np.float64),
+        kmask_t=kidx <= kmt[None], kmask_u=kidx <= kmu[None],
+        KMTN=sh(kmt, 0, 1), KMTS=sh(kmt, 0, -1), KMTE=sh(kmt, 1, 0),
+        KMTW=sh(kmt, -1, 0))
+
+
+def fold_grid(cfg, grid, seed):
+    """``grid`` (a tripole grid of this package) on ``fold_bottom_kmt``'s
+    bottom, its derived leaves recomputed through the fold; the barotropic
+    operator weights are left as they are (the kernels do not read them)."""
+    new = bottom_leaves(
+        fold_bottom_kmt(grid.KMT.cpu().numpy(), cfg.km, seed),
+        grid.vgrid.zw.double().cpu().numpy(), cfg.ew_boundary,
+        cfg.ns_boundary)
+    dev = grid.KMT.device
+    return grid.replace(**{
+        name: torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=dev, dtype=getattr(grid, name).dtype)
+        for name, a in new.items()})
+

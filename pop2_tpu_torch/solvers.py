@@ -15,6 +15,11 @@ counts are comparable. Between checks nothing synchronizes. The loop is
 launch-bound on a GPU (a dozen small kernels per iteration); a CUDA graph of
 the loop body is later work.
 
+The preconditioner is the diagonal one or the factored sparse approximate
+inverse ``FSPAI9`` (``build_fspai9``, built once on the host in float64
+NumPy); PCSI's eigenvalue bounds come from a Lanczos pass (diagonal) or from
+the CG-Lanczos coefficients of a preconditioned CG run (``pcg_lanczos_eigs``).
+
 The JAX package's double-single ``solve_refined`` exists because its target
 has no float64 datapath; the GPU has one, so ``solve_dtype='float64'`` under
 a float32 model simply casts the 2-D solve to float64 (``solve``).
@@ -87,17 +92,155 @@ def _diag_precond(op: BtropOperator):
     return torch.where(nz, 1.0 / torch.where(nz, op.center, 1.0), 0.0)
 
 
-def make_precond_apply(cfg: ModelConfig, op: BtropOperator, bc: BC):
-    """Returns z = M^-1 r as a closure: the diagonal preconditioner
-    (source/POP_SolversMod.F90:2273-2364). The 9-point file/SPAI/FSPAI
-    stencils are a later slice (ROADMAP.md Queue 1 item 5)."""
+class FSPAI9(NamedTuple):
+    """Factored sparse approximate inverse: a 9-point stencil G with
+    M = -G^T G ~ A^-1 (A negative definite), SPD by construction
+    (the JAX package's ``solvers.FSPAI9``)."""
+    center: torch.Tensor
+    north: torch.Tensor
+    south: torch.Tensor
+    east: torch.Tensor
+    west: torch.Tensor
+    ne: torch.Tensor
+    nw: torch.Tensor
+    se: torch.Tensor
+    sw: torch.Tensor
+
+    def to(self, dtype):
+        return FSPAI9(*(t.to(dtype) for t in self))
+
+
+_OFFS9 = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1),
+          (1, 1), (1, -1), (-1, 1), (-1, -1))
+_FIELD_OF_OFF = {(0, 0): "center", (1, 0): "north", (-1, 0): "south",
+                 (0, 1): "east", (0, -1): "west", (1, 1): "ne",
+                 (1, -1): "nw", (-1, 1): "se", (-1, -1): "sw"}
+_REV_FIELD = {"center": "center", "north": "south", "south": "north",
+              "east": "west", "west": "east", "ne": "sw", "sw": "ne",
+              "nw": "se", "se": "nw"}
+_SHIFT_OF_FIELD = {"north": "n", "south": "s", "east": "e", "west": "w",
+                   "ne": "ne", "nw": "nw", "se": "se", "sw": "sw"}
+
+
+def _row_stencils(op: BtropOperator, sh):
+    """Dense per-point row weights W1[(dj, di)] of the 9-point operator as
+    float64 NumPy (``apply_op``'s layout: the S/W/SW weights are shifted
+    N/E/NE)."""
+    def host(t):
+        return t.double().cpu().numpy()
+
+    c, n_, e_, ne_ = (host(op.center), host(op.north), host(op.east),
+                      host(op.ne))
+    return {
+        (0, 0): c,
+        (1, 0): n_, (-1, 0): sh(n_, 0, -1),
+        (0, 1): e_, (0, -1): sh(e_, -1, 0),
+        (1, 1): ne_, (-1, 1): sh(ne_, 0, -1),
+        (1, -1): sh(ne_, -1, 0), (-1, -1): sh(ne_, -1, -1),
+    }
+
+
+def build_fspai9(cfg: ModelConfig, op: BtropOperator,
+                 triangular: bool = True) -> FSPAI9:
+    """Build G on the host in float64: for each ocean point p the row g_p
+    on its 9-point neighbourhood solves the local SPD system
+    (-A)[S_p, S_p] y = e_p, normalized g_p = y / sqrt(y_p) (the factored
+    SPAI, Kaporin row). With ``triangular`` the support is the
+    lexicographically lower neighbours (the classical FSPAI structure, an
+    approximate inverse Cholesky factor). The tripole seam is treated as
+    closed for the build only (any SPD M preconditions; the solve keeps
+    the fold). Returns the stencil in the operator's dtype on its
+    device."""
+    from pop2_tpu_torch.grid import _np_shift
+    ew = cfg.ew_boundary
+    ny, nx = op.center.shape
+
+    def sh(f, di, dj):
+        return _np_shift(f, di, dj, ew, "closed", 0.0)
+
+    w1 = _row_stencils(op, sh)
+    w1 = {o: -w for o, w in w1.items()}          # -A: SPD
+    mask = op.mask.double().cpu().numpy() * (w1[(0, 0)] != 0.0)
+
+    P = ny * nx
+    L = np.zeros((P, 9, 9))
+    valid = np.zeros((P, 9), bool)
+    J, I = np.mgrid[0:ny, 0:nx]
+    lex = (J * nx + I).ravel()
+    for a, (dja, dia) in enumerate(_OFFS9):
+        ok = (sh(mask, dia, dja) > 0).ravel()
+        if triangular and a > 0:
+            # the neighbour's lexicographic index (a cyclic edge wraps the
+            # column, triangular but for the seam column)
+            jn = J + dja
+            in_ = (I + dia) % nx if ew == "cyclic" else I + dia
+            inside = (jn >= 0) & (jn < ny) & (in_ >= 0) & (in_ < nx)
+            lex_n = np.where(inside, jn * nx + np.clip(in_, 0, nx - 1), -1)
+            ok = ok & (lex_n.ravel() < lex) & (lex_n.ravel() >= 0)
+        valid[:, a] = ok
+        for bb, (djb, dib) in enumerate(_OFFS9):
+            o = (djb - dja, dib - dia)
+            if o in w1:
+                L[:, a, bb] = sh(w1[o], dia, dja).ravel()
+
+    act = valid[:, :, None] & valid[:, None, :]
+    L = np.where(act, L, 0.0)
+    eye = np.eye(9)[None]
+    # inactive support points get a unit diagonal (decoupled), land rows
+    # the identity, so the batched solve stays nonsingular
+    for a in range(9):
+        L[:, a, a] = np.where(valid[:, a], L[:, a, a], 1.0)
+    L[~valid[:, 0]] = eye
+
+    e0 = np.zeros((P, 9))
+    e0[:, 0] = 1.0
+    y = np.linalg.solve(L, e0[..., None])[..., 0]
+    yp = np.maximum(y[:, 0], 1e-300)
+    G = y / np.sqrt(yp)[:, None]
+    G = np.where(valid, G, 0.0)
+    G[~valid[:, 0]] = 0.0
+
+    return FSPAI9(**{
+        _FIELD_OF_OFF[o]: torch.as_tensor(G[:, a].reshape(ny, nx)).to(
+            device=op.center.device, dtype=op.center.dtype)
+        for a, o in enumerate(_OFFS9)})
+
+
+def fspai_apply(p: FSPAI9, bc: BC):
+    """Closure z = M r = -(G^T (G r)): two 9-point passes. G^T's weight for
+    offset o at point p is G's weight for -o at p+o, so the transposed pass
+    shifts the products."""
+    def bsh(f, name):
+        return f if name == "center" else getattr(bc, _SHIFT_OF_FIELD[name])(f)
+
+    def apply(r):
+        gr = sum(getattr(p, f_) * bsh(r, f_) for f_ in FSPAI9._fields)
+        # (G^T v)[q] = sum_o G[q+o, q] v[q+o] = sum_o bsh_o(G_rev(o) * v)
+        gtv = sum(bsh(getattr(p, _REV_FIELD[f_]) * gr, f_)
+                  for f_ in FSPAI9._fields)
+        return -gtv
+    return apply
+
+
+def make_precond_apply(cfg: ModelConfig, op: BtropOperator, bc: BC,
+                       precond: Optional[FSPAI9] = None):
+    """Returns z = M^-1 r as a closure: the diagonal preconditioner, or the
+    FSPAI stencil where the config asks for it and one is given
+    (source/POP_SolversMod.F90:2273-2364). The 9-point file and SPAI
+    stencils are a later slice (ROADMAP.md Queue 1 item 11)."""
     choice = cfg.solver.preconditioner.lower()
-    if choice != "diagonal":
+    if choice == "diagonal" or precond is None:
+        if choice not in ("diagonal", "fspai"):
+            raise NotImplementedError(
+                f"preconditioner {cfg.solver.preconditioner!r} is not "
+                "ported yet (ROADMAP.md Queue 1 item 11)")
+        a0r = _diag_precond(op)
+        return lambda r: r * a0r
+    if choice != "fspai":
         raise NotImplementedError(
-            f"preconditioner {cfg.solver.preconditioner!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
-    a0r = _diag_precond(op)
-    return lambda r: r * a0r
+            f"preconditioner {cfg.solver.preconditioner!r} is not ported "
+            "yet (ROADMAP.md Queue 1 item 11)")
+    return fspai_apply(precond, bc)
 
 
 def _safe(x):
@@ -112,13 +255,14 @@ def _tolerance(cfg: ModelConfig, op: BtropOperator) -> float:
 
 
 def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+               precond: Optional[FSPAI9] = None,
                tol: Optional[float] = None, max_iter: Optional[int] = None):
     """Chronopoulos-Gear preconditioned CG
     (source/POP_SolversMod.F90:1841-2266). Returns (x, iterations, rr) with
     ``iterations`` a Python int and ``rr`` the squared residual of the last
     check (a 0-d tensor; inf if no check ran)."""
     sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc)
+    minv = make_precond_apply(cfg, op, bc, precond)
     sh = _shifted_weights(op, bc)
     if tol is None:
         tol = _tolerance(cfg, op)
@@ -166,14 +310,14 @@ def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
 
 
 def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-         eig_min: float, eig_max: float, tol: Optional[float] = None,
-         max_iter: Optional[int] = None):
+         eig_min: float, eig_max: float, precond: Optional[FSPAI9] = None,
+         tol: Optional[float] = None, max_iter: Optional[int] = None):
     """Preconditioned Classical Stiefel Iteration
     (source/POP_SolversMod.F90:1510-1835; Hu et al. 2013): no reductions in
     the steady-state loop body. eig_min/eig_max bound the preconditioned
     operator's spectrum. Returns (x, iterations, rr)."""
     sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc)
+    minv = make_precond_apply(cfg, op, bc, precond)
     sh = _shifted_weights(op, bc)
     if tol is None:
         tol = _tolerance(cfg, op)
@@ -208,11 +352,12 @@ def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
 
 
 def pcg(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+        precond: Optional[FSPAI9] = None,
         tol: Optional[float] = None, max_iter: Optional[int] = None):
     """Standard preconditioned CG (source/POP_SolversMod.F90:1200-1508).
     Returns (x, iterations, rr)."""
     sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc)
+    minv = make_precond_apply(cfg, op, bc, precond)
     sh = _shifted_weights(op, bc)
     if tol is None:
         tol = _tolerance(cfg, op)
@@ -303,23 +448,80 @@ def lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
     return emin, emax
 
 
+def pcg_lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
+                     precond: FSPAI9, n_iter: Optional[int] = None,
+                     seed: int = 0) -> Tuple[float, float]:
+    """Extreme eigenvalues of the preconditioned operator M^-1 A for the
+    9-point preconditioner, from the CG-Lanczos identity: PCG on (-A)x = b
+    with M' = -M gives alpha, beta whose tridiagonal
+    T_kk = 1/alpha_k + beta_{k-1}/alpha_{k-1},
+    T_{k,k+1} = sqrt(beta_k)/alpha_k has the Ritz values of M^-1 A. The
+    recurrence runs on the device; the coefficients come back once and the
+    tridiagonal eigenproblem is solved on the host (as the reference's
+    ratqr, source/POP_SolversMod.F90:3122). Returns (eig_min, eig_max) with
+    the reference's safety margins."""
+    if n_iter is None:
+        n_iter = cfg.solver.lanczos_iterations
+    minv = fspai_apply(precond, bc)
+    sh = _shifted_weights(op, bc)
+    mask_np = op.mask.double().cpu().numpy()
+    rng = np.random.RandomState(seed)
+    r = torch.as_tensor(rng.rand(*mask_np.shape) * mask_np).to(
+        device=op.center.device, dtype=op.center.dtype)
+    mask = op.mask.to(r.dtype)
+
+    z = -minv(r) * mask
+    rz_old = torch.sum(r * z)
+    p = z
+    al, be, rzs = [], [], []
+    for _ in range(n_iter):
+        q = -apply_op(op, p, bc, sh) * mask
+        pq = torch.sum(p * q)
+        alpha = rz_old / torch.where(pq != 0.0, pq, 1.0)
+        r = r - alpha * q
+        z = -minv(r) * mask
+        rz = torch.sum(r * z)
+        beta = rz / torch.where(rz_old != 0.0, rz_old, 1.0)
+        p = z + beta * p
+        rz_old = rz
+        al.append(alpha)
+        be.append(beta)
+        rzs.append(rz)
+    al, be, rz = (torch.stack(v).double().cpu().numpy()
+                  for v in (al, be, rzs))
+    # truncate once the recurrence degenerates (rz ~ 0 or not positive)
+    bad = np.nonzero(~((rz > 0) & np.isfinite(al) & (al > 0)))[0]
+    ncut = max(int(bad[0]) if bad.size else n_iter, 2)
+    al, be = al[:ncut], be[:ncut]
+    diag = 1.0 / al
+    diag[1:] += be[:-1] / al[:-1]
+    offd = np.sqrt(np.maximum(be[:-1], 0.0)) / al[:-1]
+    T = np.diag(diag) + np.diag(offd, 1) + np.diag(offd, -1)
+    eigs = np.linalg.eigvalsh(T)
+    return float(np.min(eigs)) / 1.05, float(np.max(eigs)) * 1.05
+
+
 def solve(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-          eigs: Optional[Tuple[float, float]] = None):
+          eigs: Optional[Tuple[float, float]] = None,
+          precond: Optional[FSPAI9] = None):
     """Dispatch on cfg.solver.choice (source/POP_SolversMod.F90:327-500).
     With ``solve_dtype='float64'`` under a float32 model the whole 2-D solve
-    runs in float64 and the solution is cast back."""
+    runs in float64 (the preconditioner too) and the solution is cast
+    back."""
     out_dtype = x0.dtype
     if cfg.solver.solve_dtype == "float64" and out_dtype != torch.float64:
         op, x0, b = op.to(torch.float64), x0.double(), b.double()
+    if precond is not None and precond.center.dtype != op.center.dtype:
+        precond = precond.to(op.center.dtype)
     choice = cfg.solver.choice.lower()
     if choice == "chrongear":
-        x, m, rr = chron_gear(cfg, op, bc, x0, b)
+        x, m, rr = chron_gear(cfg, op, bc, x0, b, precond)
     elif choice == "pcsi":
         if eigs is None:
             raise ValueError("PCSI requires Lanczos eigenvalue bounds")
-        x, m, rr = pcsi(cfg, op, bc, x0, b, eigs[0], eigs[1])
+        x, m, rr = pcsi(cfg, op, bc, x0, b, eigs[0], eigs[1], precond)
     elif choice == "pcg":
-        x, m, rr = pcg(cfg, op, bc, x0, b)
+        x, m, rr = pcg(cfg, op, bc, x0, b, precond)
     else:
         raise NotImplementedError(choice)
     return x.to(out_dtype), m, rr

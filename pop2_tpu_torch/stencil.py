@@ -2,8 +2,10 @@
 
 Fields are global dense tensors shaped ``(..., ny, nx)`` and neighbour access
 is a shift: closed boundaries shift in zeros (the reference's
-``fillValue = 0`` halo updates), cyclic boundaries are ``torch.roll``. The
-tripole north boundary is not carried by this slice of the port and raises.
+``fillValue = 0`` halo updates), cyclic boundaries are ``torch.roll``. On a
+tripole grid the northward shifts of ``BC`` fill the ghost rows from the fold
+(``tripole.py``), which needs the field's location and kind; the south edge
+of a tripole grid is closed.
 
 Index convention: element ``[j, i]`` is the T-point (i,j) of the reference;
 the U-point ``[j, i]`` is the NE corner of T-cell ``[j, i]`` (Arakawa B-grid).
@@ -16,22 +18,27 @@ from __future__ import annotations
 
 import torch
 
+from pop2_tpu_torch.tripole import fold_rows, shift_n_tripole
+
 __all__ = [
     "shift_e", "shift_w", "shift_n", "shift_s",
     "shift_ne", "shift_nw", "shift_se", "shift_sw", "BC",
     "div", "grad", "zcurl", "tgrid_to_ugrid", "ugrid_to_tgrid",
 ]
 
-_TRIPOLE = ("the tripole north boundary is not ported yet "
-            "(ROADMAP.md Queue 1 item 5: tripole.py)")
-
 
 def _shift(f, sign: int, dim: int, bc: str):
     """Value at index+sign along ``dim``; zeros enter at a closed edge."""
     if bc == "cyclic":
         return torch.roll(f, -sign, dims=dim)
+    if bc == "tripole":
+        if sign > 0:
+            raise NotImplementedError(
+                "northward shifts on tripole grids need the field's "
+                "location and kind; use BC.n / BC.nn / BC.n_partner")
+        bc = "closed"  # the south edge of a tripole grid is closed
     if bc != "closed":
-        raise NotImplementedError(f"boundary {bc}: {_TRIPOLE}")
+        raise ValueError(f"unknown boundary {bc!r}")
     n = f.shape[dim]
     edge = torch.zeros_like(f.narrow(dim, 0, 1))
     if sign > 0:
@@ -76,13 +83,16 @@ def shift_sw(f, bc_ew: str = "cyclic", bc_ns: str = "closed"):
 
 
 class BC:
-    """Lightweight boundary-condition bundle used by all stencil ops."""
+    """Lightweight boundary-condition bundle used by all stencil ops.
+
+    Northward shifts take the field's horizontal location and kind, which
+    select the tripole fold (mpi/POP_HaloMod.F90:1961-2050); they are
+    ignored on closed and cyclic edges. Southward and east-west shifts
+    never cross the fold."""
 
     __slots__ = ("ew", "ns")
 
     def __init__(self, ew: str = "cyclic", ns: str = "closed"):
-        if ns == "tripole":
-            raise NotImplementedError(_TRIPOLE)
         self.ew = ew
         self.ns = ns
 
@@ -92,17 +102,39 @@ class BC:
     def w(self, f):
         return shift_w(f, self.ew)
 
-    def n(self, f):
+    def n(self, f, loc: str = "center", kind: str = "scalar"):
+        if self.ns == "tripole":
+            return shift_n_tripole(f, 1, loc, kind)
         return shift_n(f, self.ns)
+
+    def nn(self, f, loc: str = "center", kind: str = "scalar"):
+        """Distance-2 northward shift (value at j+2)."""
+        if self.ns == "tripole":
+            return shift_n_tripole(f, 2, loc, kind)
+        return shift_n(shift_n(f, self.ns), self.ns)
+
+    def n_partner(self, f, partner, loc: str = "center",
+                  kind: str = "scalar"):
+        """Northward shift of a south-face field whose tripole ghost row is
+        the fold of its north-face counterpart ``partner`` (the faces swap
+        under the 180-degree fold, as in the reference's ghost-row
+        evaluation of SLY(:,j+1,jsouth) in hmix_gm.F90). Equals ``n(f)`` on
+        closed and cyclic edges."""
+        if self.ns != "tripole":
+            return shift_n(f, self.ns)
+        return torch.cat([f.narrow(-2, 1, f.shape[-2] - 1),
+                          fold_rows(partner, 1, loc, kind).unsqueeze(-2)],
+                         dim=-2)
 
     def s(self, f):
         return shift_s(f, self.ns)
 
-    def ne(self, f):
-        return shift_e(shift_n(f, self.ns), self.ew)
+    def ne(self, f, loc: str = "center", kind: str = "scalar"):
+        # fold first, then shift east: the ghost-cell indexing
+        return shift_e(self.n(f, loc, kind), self.ew)
 
-    def nw(self, f):
-        return shift_w(shift_n(f, self.ns), self.ew)
+    def nw(self, f, loc: str = "center", kind: str = "scalar"):
+        return shift_w(self.n(f, loc, kind), self.ew)
 
     def se(self, f):
         return shift_s(shift_e(f, self.ew), self.ns)

@@ -6,10 +6,11 @@ solve, tracer corrector, time filtering — is one function from a ``State`` to
 a new ``State``. The reference's three-time-level index rotation (:827-831)
 becomes reassembly of the two-level state.
 
-This slice carries the 'avg' time mixing (Euler first step, leapfrog,
-averaging filter). The Robert filter, the tripole top-row symmetry, the
-overflow branches and the tavg extras of the JAX package's step are later
-slices; ``supported.check_supported`` refuses the switches that select them.
+The time mixing is 'avg' (Euler first step, leapfrog, averaging filter) or
+'robert' (the Robert-Asselin filter every step, step_RF). On a tripole grid
+the degenerate top U row is made symmetric after every update. The overflow
+branches and the tavg extras of the JAX package's step are later slices;
+``supported.check_supported`` refuses the switches that select them.
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from pop2_tpu_torch import baroclinic, barotropic
+from pop2_tpu_torch import baroclinic, barotropic, eos, ice
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import Grid
 from pop2_tpu_torch.state import State
 from pop2_tpu_torch.stencil import BC, tgrid_to_ugrid
+from pop2_tpu_torch.tripole import enforce_top_symmetry
 
 
 class StepDiagnostics(NamedTuple):
@@ -111,13 +113,17 @@ def _avg_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
 
 def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
          forcing: Forcing, leapfrog: bool, avg_ts: bool,
-         pcsi_eigs: Optional[Tuple[float, float]] = None):
+         pcsi_eigs: Optional[Tuple[float, float]] = None, precond=None,
+         sw_profile=None):
     """Advance one timestep (leapfrog, Euler-forward for the first step,
-    optional averaging filter). Returns (state, StepDiagnostics)."""
-    if cfg.time.time_mix_opt != "avg":
+    the averaging or Robert filter). ``precond``: the barotropic solver's
+    preconditioner (``solvers.FSPAI9``) or None for the diagonal one;
+    ``sw_profile``: the Jerlov shortwave profile. Returns
+    (state, StepDiagnostics)."""
+    if cfg.time.time_mix_opt not in ("avg", "robert"):
         raise NotImplementedError(
             f"time_mix_opt={cfg.time.time_mix_opt!r} is not ported yet "
-            "(ROADMAP.md Queue 1 items 5, 10)")
+            "(ROADMAP.md Queue 1 item 10)")
 
     # 1. surface height change (source/step_mod.F90:361)
     dh, dhu = dhdt(cfg, grid, bc, state)
@@ -126,16 +132,17 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     # (no time-averaged history yet: the GM diagnostic columns are not
     # written)
     bout = baroclinic.driver(cfg, grid, bc, ts_range, state, forcing,
-                             dh, dhu, leapfrog, want_gm_diags=False)
+                             dh, dhu, leapfrog, want_gm_diags=False,
+                             sw_profile=sw_profile)
 
     # 3. implicit barotropic solve (source/step_mod.F90:437)
     tout = barotropic.driver(cfg, grid, bc, state, forcing, bout.zx,
-                             bout.zy, leapfrog, pcsi_eigs)
+                             bout.zy, leapfrog, pcsi_eigs, precond)
 
     # 4. corrector/adjustment pass (source/step_mod.F90:457)
-    tracer_new, rho_new = baroclinic.correct_adjust(
+    tracer_new, rho_new, qice, aqice = baroclinic.correct_adjust(
         cfg, grid, bc, ts_range, state, bout, tout.psurf_new, bout.vdc,
-        leapfrog)
+        leapfrog, avg_ts)
 
     # 5. full velocity = baroclinic' + barotropic (source/step_mod.F90:572)
     u_new = torch.where(grid.kmask_u, bout.u_new + tout.ubtrop_new[None],
@@ -146,23 +153,164 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     # 6. pressure guess extrapolation (source/step_mod.F90:634-640)
     pguess = 3.0 * (tout.psurf_new - state.psurf_cur) + state.psurf_old
 
+    ubtrop_new, vbtrop_new = tout.ubtrop_new, tout.vbtrop_new
+    gradpx_new, gradpy_new = tout.gradpx_new, tout.gradpy_new
+    if cfg.ns_boundary == "tripole":
+        # the top U row lies on the fold and is degenerate: each point
+        # coincides with its index-reversed partner; keep them consistent
+        # after every update (mpi/POP_HaloMod.F90:1977-1986)
+        u_new, v_new, ubtrop_new, vbtrop_new, gradpx_new, gradpy_new = (
+            enforce_top_symmetry(f) for f in (
+                u_new, v_new, ubtrop_new, vbtrop_new, gradpx_new,
+                gradpy_new))
+
     new = State(
         tracer_old=state.tracer_cur, tracer_cur=tracer_new,
         u_old=state.u_cur, u_cur=u_new,
         v_old=state.v_cur, v_cur=v_new,
         rho_old=state.rho_cur, rho_cur=rho_new,
-        ubtrop_old=state.ubtrop_cur, ubtrop_cur=tout.ubtrop_new,
-        vbtrop_old=state.vbtrop_cur, vbtrop_cur=tout.vbtrop_new,
+        ubtrop_old=state.ubtrop_cur, ubtrop_cur=ubtrop_new,
+        vbtrop_old=state.vbtrop_cur, vbtrop_cur=vbtrop_new,
         psurf_old=state.psurf_cur, psurf_cur=tout.psurf_new,
-        gradpx_old=state.gradpx_cur, gradpx_cur=tout.gradpx_new,
-        gradpy_old=state.gradpy_cur, gradpy_cur=tout.gradpy_new,
-        pguess=pguess, fw_old=forcing.fw, qice=state.qice,
-        aqice=state.aqice, rf_s_prev=state.rf_s_prev,
+        gradpx_old=state.gradpx_cur, gradpx_cur=gradpx_new,
+        gradpy_old=state.gradpy_cur, gradpy_cur=gradpy_new,
+        pguess=pguess, fw_old=forcing.fw, qice=qice,
+        aqice=aqice, rf_s_prev=state.rf_s_prev,
         rf_s_prev_valid=state.rf_s_prev_valid)
 
     # 7. time filtering (source/step_mod.F90:663-832)
-    if avg_ts:
+    if cfg.time.time_mix_opt == "robert":
+        new = _robert_filter(cfg, grid, ts_range, state, new, forcing)
+    elif avg_ts:
         new = _avg_filter(cfg, grid, ts_range, state, new)
 
     return new, StepDiagnostics(solver_iters=tout.solver_iters,
                                 solver_rr=tout.solver_rr)
+
+
+def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
+                   new: State, forcing: Forcing) -> State:
+    """Robert-Asselin time filter (step_RF, source/step_mod.F90:919-1354).
+
+    With robert_alpha = 1 (the default) only the current time level is
+    filtered: W = old + new - 2 cur, cur += nu/2 W. Tracers are filtered
+    thickness-weighted at the surface; PSURF and the tracers get global
+    conservation adjustments; ice formation and the density act on the
+    filtered fields.
+
+    ``new`` is the post-step state (its *_old the pre-step current values,
+    its *_cur the new-time values); ``state`` is the pre-step state.
+    """
+    rc = 0.5 * cfg.time.robert_nu * cfg.time.robert_alpha
+    rn = 0.5 * cfg.time.robert_nu * (cfg.time.robert_alpha - 1.0)
+    nonzero_new = cfg.time.robert_alpha != 1.0
+    if cfg.sfc_layer != "varthick":
+        raise NotImplementedError(
+            "the Robert filter needs the variable-thickness surface layer "
+            "(source/step_mod.F90:1152)")
+
+    def filt(o, c, n):
+        w = o + n - 2.0 * c
+        c2 = c + rc * w
+        n2 = n + rn * w if nonzero_new else n
+        return c2, n2
+
+    ub_c, ub_n = filt(state.ubtrop_old, state.ubtrop_cur, new.ubtrop_cur)
+    vb_c, vb_n = filt(state.vbtrop_old, state.vbtrop_cur, new.vbtrop_cur)
+    gx_c, gx_n = filt(state.gradpx_old, state.gradpx_cur, new.gradpx_cur)
+    gy_c, gy_n = filt(state.gradpy_old, state.gradpy_cur, new.gradpy_cur)
+    u_c, u_n = filt(state.u_old, state.u_cur, new.u_cur)
+    v_c, v_n = filt(state.v_old, state.v_cur, new.v_cur)
+
+    t_old, t_cur, t_new = state.tracer_old, state.tracer_cur, new.tracer_cur
+    p_old, p_cur, p_new = state.psurf_old, state.psurf_cur, new.psurf_cur
+    dz1 = grid.vgrid.dz[0]
+
+    # interior tracer filter (k >= 2); S kept for the conservation sums
+    store_rf = t_old + t_new - 2.0 * t_cur
+    t_cur_f = t_cur.clone()
+    t_cur_f[:, 1:] += rc * store_rf[:, 1:]
+    t_new_f = t_new
+    if nonzero_new:
+        t_new_f = t_new.clone()
+        t_new_f[:, 1:] += rn * store_rf[:, 1:]
+
+    # surface: thickness-weighted filter (source/step_mod.F90:1071-1144)
+    thick_o = dz1 + p_old / const.GRAV
+    thick_c = dz1 + p_cur / const.GRAV
+    thick_n = dz1 + p_new / const.GRAV
+    s_sfc = (thick_o[None] * t_old[:, 0] + thick_n[None] * t_new[:, 0]
+             - 2.0 * thick_c[None] * t_cur[:, 0])
+
+    # masked volume-weighted S for conservation (:1051-1097)
+    mask3 = grid.kmask_t.to(grid.TAREA.dtype)
+    dzc = grid.vgrid.dz.reshape(cfg.km, 1, 1)
+    store_int = store_rf.clone()
+    store_int[:, 0] = 0.0
+    svol = torch.sum(grid.TAREA[None, None] * mask3[None] * dzc[None]
+                     * store_int, dim=(1, 2, 3))
+    svol = svol + torch.sum(grid.TAREA[None] * mask3[0][None] * s_sfc,
+                            dim=(1, 2))
+
+    tth_c = thick_c[None] * t_cur[:, 0] + rc * s_sfc
+    tth_n = (thick_n[None] * t_new[:, 0] + rn * s_sfc) if nonzero_new \
+        else None
+
+    # PSURF with its own conservation adjustment (:1099-1131)
+    workb = p_old + p_new - 2.0 * p_cur
+    p_cur_f = p_cur + rc * workb
+    p_new_f = p_new + rn * workb if nonzero_new else p_new
+    area = torch.sum(grid.TAREA * grid.RCALCT)
+    rf_sump = torch.sum(workb * grid.TAREA * grid.RCALCT) / area
+    p_cur_f = p_cur_f - rc * rf_sump * grid.RCALCT
+    if nonzero_new:
+        p_new_f = p_new_f - rn * rf_sump * grid.RCALCT
+
+    # surface tracers from the thickness-weighted values (:1132-1142)
+    thick_c_f = dz1 + p_cur_f / const.GRAV
+    t_cur_f[:, 0] = tth_c / thick_c_f[None]
+    if nonzero_new:
+        thick_n_f = dz1 + p_new_f / const.GRAV
+        t_new_f[:, 0] = tth_n / thick_n_f[None]
+
+    # global tracer conservation adjustment (:1160-1209)
+    vol = (torch.sum(mask3[1:] * dzc[1:] * grid.TAREA[None])
+           + torch.sum(mask3[0] * thick_c_f * grid.TAREA))
+    rf_s = svol / vol
+    # stabilized factor: the mean with the previous step's value once
+    # there is one (:1178-1184)
+    factor = torch.where(state.rf_s_prev_valid > 0.5,
+                         0.5 * (rf_s + state.rf_s_prev), rf_s)
+    t_cur_f = t_cur_f - (rc * factor)[:, None, None, None] * mask3[None]
+    if nonzero_new:
+        t_new_f = t_new_f - (rn * rf_s)[:, None, None, None] * mask3[None]
+
+    # ice formation on both filtered levels (:1239-1279)
+    qice, aqice = new.qice, new.aqice
+    if cfg.liceform:
+        t_cur_f, qice, aqice = ice.ice_formation(
+            cfg, grid, t_cur_f, p_cur_f, qice, aqice, 1.0)
+        t_new_f, qice, aqice = ice.ice_formation(
+            cfg, grid, t_new_f, p_new_f, qice, aqice, 1.0)
+
+    # densities of both levels (:1281-1288)
+    rho_c = torch.where(grid.kmask_t, eos.state(
+        cfg, grid.vgrid.pressz, t_cur_f[0], t_cur_f[1], ts_range), 0.0)
+    rho_n = torch.where(grid.kmask_t, eos.state(
+        cfg, grid.vgrid.pressz, t_new_f[0], t_new_f[1], ts_range), 0.0)
+
+    # pressure guess from the filtered levels (:1310-1316)
+    pguess = 3.0 * (p_new_f - p_cur_f) + state.psurf_old
+
+    return State(
+        tracer_old=t_cur_f, tracer_cur=t_new_f,
+        u_old=u_c, u_cur=u_n, v_old=v_c, v_cur=v_n,
+        rho_old=rho_c, rho_cur=rho_n,
+        ubtrop_old=ub_c, ubtrop_cur=ub_n,
+        vbtrop_old=vb_c, vbtrop_cur=vb_n,
+        psurf_old=p_cur_f, psurf_cur=p_new_f,
+        gradpx_old=gx_c, gradpx_cur=gx_n,
+        gradpy_old=gy_c, gradpy_cur=gy_n,
+        pguess=pguess, fw_old=forcing.fw, qice=qice, aqice=aqice,
+        rf_s_prev=rf_s, rf_s_prev_valid=torch.ones_like(
+            state.rf_s_prev_valid))

@@ -21,48 +21,46 @@ def unsupported(cfg: ModelConfig) -> list:
          "grid/topography 'file' readers (Queue 1 item 11: io/grid_files)"),
         (cfg.partial_bottom_cells,
          "partial_bottom_cells (Queue 2 kernel 1: 3-D DZT)"),
-        (cfg.ns_boundary != "closed",
-         f"ns_boundary={cfg.ns_boundary!r} (Queue 1 item 5: tripole.py; "
-         "Queue 2 kernels 2-6: tripole rows)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
         (cfg.nt != 2 or bool(cfg.passive_tracers),
          "passive tracers / nt > 2 (Queue 1 item 8: passive_tracers.py)"),
         (cfg.state_choice not in ("mwjf", "jmcd", "linear"),
          f"state_choice={cfg.state_choice!r} (Queue 1 item 11)"),
-        (cfg.tadvect != "centered",
-         f"tadvect={cfg.tadvect!r} (Queue 1 item 5: advt_upwind3; "
-         "Queue 2 kernel 2: upwind3 mode)"),
+        (cfg.ns_boundary not in ("closed", "tripole"),
+         f"ns_boundary={cfg.ns_boundary!r}"),
+        (cfg.tadvect not in ("centered", "upwind3"),
+         f"tadvect={cfg.tadvect!r} (Queue 1 item 11: advt_lw_lim)"),
         (cfg.hmix_tracer not in ("del2", "gm"),
          f"hmix_tracer={cfg.hmix_tracer!r} (Queue 1 items 7/11: hmix del4 "
          "beside gm.py)"),
-        (cfg.hmix_momentum != "del2",
-         f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 items 5/11: "
-         "hmix_aniso, del4; Queue 2 kernel 3: with_hdiffu=False)"),
+        (cfg.hmix_momentum not in ("del2", "aniso"),
+         f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 item 11: del4)"),
         (cfg.vmix not in ("const", "rich"),
          f"vmix={cfg.vmix!r} (Queue 1 item 6: kpp.py)"),
         (not cfg.implicit_vertical_mix,
          "explicit vertical mixing (absent from the JAX package too)"),
-        (cfg.liceform, "liceform (Queue 1 item 5: ice.py)"),
-        (cfg.sw_absorption != "none",
-         f"sw_absorption={cfg.sw_absorption!r} (Queue 1 item 5)"),
+        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option != "const",
+         f"chl_option={cfg.chl_option!r} (Queue 1 item 11: chlorophyll "
+         "from a file or the ecosystem model)"),
         (cfg.geoheatflux_const != 0.0,
          "geoheatflux_const (Queue 1 item 11)"),
         (cfg.ldamp_uv, "ldamp_uv (Queue 1 item 11)"),
         (cfg.lestuary_exch, "lestuary_exch (Queue 1 item 11: estuary.py)"),
-        (cfg.ltidal_mixing, "ltidal_mixing (Queue 1 item 6)"),
+        (cfg.ltidal_mixing, "ltidal_mixing (Queue 1 item 6: "
+         "tidal_mixing.py)"),
         (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11)"),
         (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
         (bool(cfg.overflows), "overflows (Queue 1 item 8: overflows.py)"),
         (cfg.lsubmeso, "lsubmeso (Queue 1 item 7: submeso.py; Queue 2 "
          "kernel 5: with_sm)"),
-        (t.time_mix_opt != "avg",
-         f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 5: Robert "
-         "filter; item 10: avgfit calendar)"),
+        (t.time_mix_opt not in ("avg", "robert"),
+         f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 10: avgfit "
+         "calendar)"),
         (t.laccel, "laccel depth acceleration (Queue 1 item 11)"),
-        (cfg.solver.preconditioner.lower() != "diagonal",
-         f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 5: "
-         "build_fspai9 / spai / file)"),
+        (cfg.solver.preconditioner.lower() not in ("diagonal", "fspai"),
+         f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 11: "
+         "spai / file)"),
         (cfg.solver.choice.lower() not in ("chrongear", "pcg", "pcsi"),
          f"solver choice {cfg.solver.choice!r}"),
         (cfg.b4b, "b4b reproducible sums (Queue 1 item 12)"),
@@ -77,9 +75,14 @@ def unsupported(cfg: ModelConfig) -> list:
 def _gm_checks(cfg: ModelConfig) -> list:
     """What of GM the port carries: isotropic, const or bfre diffusivities of
     one type, transition layer on or off, MWJF (the slope kernel evaluates
-    its derivatives), full cells, closed north-south boundary."""
+    its derivatives), full cells; on a tripole grid only with the transition
+    layer (the chain kernel folds its north row; the flux-assembly kernel
+    does not yet)."""
     kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
     return [
+        (cfg.ns_boundary == "tripole" and not cfg.gm_transition_layer,
+         "tripole with GM and no transition layer (Queue 2 kernel 6: the "
+         "flux-assembly kernel's tripole row)"),
         (cfg.gm_aniso is not None,
          f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11: GM variants)"),
         (any(k not in ("const", "bfre") for k in kinds),

@@ -25,10 +25,13 @@ Two modes, chosen by ``cfg.hmix_tracer``: ``'del2'`` fuses the Laplacian
 mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` leaves the
 horizontal mixing to the GM kernels and computes advection + vertical
 diffusion only (``with_del2=False``), a separate instance of the kernel that
-does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered advection,
-closed north-south boundary, 1-D layer thickness. The other modes of the TPU
-kernel (upwind3, tripole north edge) raise ``NotImplementedError``; they are
-extensions of this kernel listed in ROADMAP.md Queue 2.
+does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered or upwind3
+(QUICKEST) advection, closed or tripole north edge, 1-D layer thickness.
+Upwind3 and the tripole edge run the kernel's column form (one thread a
+column reading its two-column, two-row stencil and the fold of the rows
+past the north edge from device memory; ``column_mode``), with the 12
+horizontal coefficient planes of ``advect.upwind3_planes`` and the 6
+vertical coefficient rows of ``advect.upwind3_vert_coeffs`` formed here.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ MAX_GROUP = 2  # tracers a launch (kMaxGroup of csrc/tracer.cu)
 TILE_COLS = 32  # interior columns a tile row (kFrameCols: one warp)
 TILE_ROWS = 8  # interior rows a tile (kRows of csrc/tracer.cu)
 HALO = 1  # columns of the tile's frame on each side (kHalo)
+COL_ROWS = 8  # rows of a column-form block (kColRows of csrc/tracer.cu)
 
 
 def tracer_groups(nt: int):
@@ -68,12 +72,14 @@ def smem_values(ng: int, del2: bool, rows: int) -> int:
     return 2 * plane + 3 * level + 2 * 2 * plane
 
 
-def launch_plan(value_bytes: int, ng: int, del2: bool):
+def launch_plan(value_bytes: int, ng: int, del2: bool,
+                column: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
     tracer kernel launch for a group of ``ng`` tracers in values of
-    ``value_bytes``, with the Laplacian or without. Raises for what the
-    kernel does not take: a group over MAX_GROUP, values other than float32
-    or float64, or a tile over the card's 227 KB."""
+    ``value_bytes``, with the Laplacian or without; the column form
+    (``column``) takes no shared memory. Raises for what the kernel does
+    not take: a group over MAX_GROUP, values other than float32 or float64,
+    or a tile over the card's 227 KB."""
     if value_bytes not in (4, 8):
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
@@ -81,21 +87,45 @@ def launch_plan(value_bytes: int, ng: int, del2: bool):
         raise NotImplementedError(
             f"tracer kernel carries at most {MAX_GROUP} tracers a launch, "
             f"got {ng} (tracer_groups splits more)")
+    if column:
+        return (TILE_COLS, COL_ROWS), 0
     smem = smem_values(ng, del2, TILE_ROWS) * value_bytes
     cb.check_smem(smem, f"tracer tile ({TILE_COLS} x {TILE_ROWS}, "
                         f"ng={ng}, del2={del2})")
     return (TILE_COLS, TILE_ROWS), smem
 
 
+def column_mode(cfg) -> bool:
+    """Whether the column form runs: upwind3 advection or a tripole north
+    edge."""
+    return cfg.tadvect == "upwind3" or cfg.ns_boundary == "tripole"
+
+
+def upwind3_operands(cfg, grid, dtype, device):
+    """(upw (12, ny, nx), vco (6, km)): the QUICKEST coefficient planes of
+    the east and north faces and the vertical coefficient rows, as the
+    column form reads them. Built at the first launch on a ``Grid`` object
+    and kept on it."""
+    hit = grid.__dict__.get("_upwind3_operands")
+    if hit is None:
+        x, y, _, _ = advect.upwind3_planes(grid, grid_bc(cfg))
+        hit = (torch.stack(x + y).to(device=device, dtype=dtype)
+               .contiguous(),
+               torch.stack(advect.upwind3_vert_coeffs(grid.vgrid.dz)).to(
+                   device=device, dtype=dtype).contiguous())
+        grid.__dict__["_upwind3_operands"] = hit
+    return hit
+
+
 def _check_mode(cfg, grid):
     todo = []
-    if cfg.tadvect != "centered":
-        todo.append(f"tadvect={cfg.tadvect!r} (upwind3 mode)")
+    if cfg.tadvect not in ("centered", "upwind3"):
+        todo.append(f"tadvect={cfg.tadvect!r}")
     if cfg.hmix_tracer not in ("del2", "gm"):
         todo.append(f"hmix_tracer={cfg.hmix_tracer!r} (with_del2=False "
                     "beside a mixing scheme that is not ported)")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole north edge)")
+    if cfg.ns_boundary not in ("closed", "tripole"):
+        todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
     if grid.DZT is not None:
@@ -112,9 +142,9 @@ def with_del2(cfg) -> bool:
 
 
 def tracer_tendency_plain(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
-    """Plain PyTorch version: [hdifft_del2] - advt_centered(comp_flux_vel)
-    + vdifft, the chain of source/baroclinic.F90:1902 (tracer_update); the
-    Laplacian only in the ``with_del2`` mode."""
+    """Plain PyTorch version: [hdifft_del2] - advt(comp_flux_vel) + vdifft,
+    the chain of source/baroclinic.F90:1902 (tracer_update), with centered
+    or upwind3 advection; the Laplacian only in the ``with_del2`` mode."""
     bc = grid_bc(cfg)
     fv = advect.comp_flux_vel(cfg, grid, bc, u, v, dh)
     ft = -advect.advt(cfg, grid, bc, fv, trcr)
@@ -136,7 +166,9 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     nt, km, ny, nx = trcr.shape
     dev, dt = trcr.device, trcr.dtype
     del2 = with_del2(cfg)
-    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2)
+    column = column_mode(cfg)
+    upw3 = cfg.tadvect == "upwind3"
+    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2, column)
               for n0, ng in tracer_groups(nt)]
     vg = grid.vgrid
     dz = vg.dz
@@ -152,12 +184,15 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             ("DTW", grid.DTW, f2), ("dz", dz, (km,))):
         cb.check_operand(name, t, shape, dt, dev)
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
+    upw, vco = (upwind3_operands(cfg, grid, dt, dev) if upw3
+                else (dz, dz))  # centered advection reads neither
     out = torch.empty_like(trcr)
     lib = cb.lib()
     for n0, ng, (_, rows), smem in groups:
         err = lib.pop2_tracer(
             cb.dtype_code(trcr), int(del2), nt, n0, ng, km, ny, nx,
             int(cfg.ew_boundary == "cyclic"),
+            int(cfg.ns_boundary == "tripole"), int(upw3),
             int(cfg.sfc_layer == "varthick"), rows, smem,
             u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
             told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),
@@ -165,7 +200,8 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             grid.TAREA_R.data_ptr(), grid.DTN.data_ptr(),
             grid.DTS.data_ptr(), grid.DTE.data_ptr(), grid.DTW.data_ptr(),
             dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
-            dzwr2.data_ptr(), float(cfg.auto_ah), out.data_ptr(),
+            dzwr2.data_ptr(), upw.data_ptr(), vco.data_ptr(),
+            float(cfg.auto_ah), out.data_ptr(),
             cb.stream_ptr())
         cb.check_launch(err, "tracer_tendency")
         launches += 1

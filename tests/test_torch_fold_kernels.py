@@ -1,0 +1,164 @@
+"""The plain versions of the kernel modes that the production dynamics menu
+(prod_dyn) adds, on a tripole grid with ocean across the fold, against the
+JAX package on the CPU:
+
+  - the tracer kernel's upwind3 column form, the momentum kernel without
+    the Laplacian (with the anisotropic friction added by the model's
+    entry), the slopes and the chain;
+  - in float64 against the JAX package's jnp chain, at 1e-12 of scale;
+  - in float32 against its Pallas kernels in interpret mode, inside the
+    bands the JAX package holds those kernels to (2e-5 of scale for the
+    tracer tendency, 4e-5 for the momentum forcing, rtol 3e-4 + 1e-6 of
+    scale for the slopes, 5e-5 of scale or 5 % of the value for the chain).
+
+On CPU tensors the wrappers take these plain versions; the CUDA kernels are
+held against them on the GPU by ``chip_smoke.py`` (on the same kind of
+bottom, at the path's size).
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pop2_tpu import advect as jadvect, baroclinic as jbaro  # noqa: E402
+from pop2_tpu import clinic_pallas, gm as jgm, gm_chain_pallas  # noqa: E402
+from pop2_tpu import gm_slope_pallas, tracer_pallas, vmix as jvmix  # noqa: E402
+
+from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_slope_cuda  # noqa: E402
+from pop2_tpu_torch import tracer_cuda  # noqa: E402
+
+from tests.test_torch_gm import _Pallas, _flux_close  # noqa: E402
+from tests.test_torch_tripole import KM, NX, NY, _uv, fold  # noqa: E402,F401
+from tests.torch_port_helpers import scale_err  # noqa: E402
+
+
+# ---- the kernel modes' plain versions against the jnp chain (float64) and
+# the Pallas kernels in interpret mode (float32) ------------------------------
+
+def _tracer_inputs(p, seed):
+    u, v = _uv(p, seed)
+    mt = p.jgrid.kmask_t
+    tr, to = p.tracers(seed + 2), p.tracers(seed + 3)
+    vdc = np.abs(p.rand(seed + 4, 2, KM, NY, NX, scale=10.0, mask=mt))
+    stf = p.rand(seed + 5, 2, NY, NX, mask=np.asarray(mt)[0])
+    dh = p.rand(seed + 6, NY, NX, scale=1e-4, mask=np.asarray(mt)[0])
+    return u, v, tr, to, to, vdc, stf, dh
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_tracer_upwind3_fold_plain(fold, dtype):
+    p = fold[dtype]
+    f = _tracer_inputs(p, 81)
+    got = tracer_cuda.tracer_tendency(
+        p.tcfg, p.tgrid, *(torch.as_tensor(a) for a in f))
+    if dtype == "float64":  # the jnp chain of the JAX package's driver
+        u, v, tr, tm, to, vdc, stf, dh = (jnp.asarray(a) for a in f)
+        fv = jadvect.comp_flux_vel(p.jcfg, p.jgrid, p.jbc, u, v, dh)
+        want = -jadvect.advt(p.jcfg, p.jgrid, p.jbc, fv, tr)
+        want = want + jvmix.vdifft(p.jcfg, p.jgrid, vdc, to, stf)
+        band = 1e-12
+    else:
+        with _Pallas(tracer_pallas):
+            want = tracer_pallas.tracer_tendency(
+                p.jcfg, p.jgrid, *(jnp.asarray(a) for a in f))
+        band = 2e-5
+    assert got.dtype == p.tcfg.torch_dtype
+    assert scale_err(got.numpy(), np.asarray(want)) <= band
+    assert scale_err(got[..., -2:, :].numpy(),
+                     np.asarray(want)[..., -2:, :]) <= band
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_clinic_aniso_fold_plain(fold, dtype):
+    p = fold[dtype]
+    u, v = _uv(p, 91)
+    uo, vo = _uv(p, 93)
+    rho = [1.02 + p.rand(95 + i, KM, NY, NX, scale=1e-3,
+                         mask=p.jgrid.kmask_t) for i in range(3)]
+    vvc = np.abs(p.rand(98, KM, NY, NX, scale=10.0, mask=p.jgrid.kmask_u))
+    smf = p.rand(99, 2, NY, NX, mask=np.asarray(p.jgrid.kmask_u)[0])
+    dhu = p.rand(100, NY, NX, scale=1e-4)
+    # the model's clinic entry: the kernel without the Laplacian, then the
+    # anisotropic friction added (forcing and vertical means)
+    st = dict(u_cur=u, v_cur=v, u_old=uo, v_old=vo, rho_old=rho[0],
+              rho_cur=rho[1])
+    ts = SimpleNamespace(**{k: torch.as_tensor(a) for k, a in st.items()})
+    got = clinic_cuda.clinic_rhs(p.tcfg, p.tgrid, ts, torch.as_tensor(uo),
+                                 torch.as_tensor(vo), torch.as_tensor(rho[2]),
+                                 torch.as_tensor(vvc), torch.as_tensor(smf),
+                                 torch.as_tensor(dhu), True)
+    jst_ = SimpleNamespace(**{k: jnp.asarray(a) for k, a in st.items()})
+    if dtype == "float64":
+        fx, fy = jbaro.clinic_forcing_jnp(
+            p.jcfg, p.jgrid, p.jbc, *(jnp.asarray(a) for a in (
+                u, v, uo, vo, uo, vo, rho[0], rho[1], rho[2], vvc, smf,
+                dhu)), True)
+        dz = np.asarray(p.jgrid.vgrid.dz).reshape(KM, 1, 1)
+        hur = np.asarray(p.jgrid.HUR)
+        want = (fx, fy, hur * np.sum(np.asarray(fx) * dz, axis=0),
+                hur * np.sum(np.asarray(fy) * dz, axis=0))
+        band = 1e-12
+    else:
+        with _Pallas(clinic_pallas):
+            want = clinic_pallas.clinic_rhs(
+                p.jcfg, p.jgrid, jst_, jnp.asarray(uo), jnp.asarray(vo),
+                jnp.asarray(rho[2]), jnp.asarray(vvc), jnp.asarray(smf),
+                jnp.asarray(dhu), True)
+        band = 4e-5
+    for g, w, name in zip(got, want, ("fx", "fy", "zx", "zy")):
+        assert scale_err(g.numpy(), np.asarray(w)) <= band, name
+
+
+def test_slopes_fold_plain_matches_pallas_interpret_f32(fold):
+    p = fold["float32"]
+    jr, tr = p.ts_ranges()
+    tmix = p.tracers(111)
+    with _Pallas(gm_slope_pallas):
+        want = gm_slope_pallas.slopes_raw(p.jcfg, p.jgrid, p.jbc, jr,
+                                          jnp.asarray(tmix))
+    got = gm_slope_cuda.slopes(p.tcfg, p.tgrid, p.tbc, tr,
+                               torch.as_tensor(tmix))
+    # the JAX package's band for this kernel: rtol 3e-4 + 1e-6 of scale,
+    # 5 % at the clamped points
+    for g, w, name in zip(got, want, ("slp", "sla", "n2")):
+        g, w = g.numpy(), np.asarray(w)
+        aw, err = np.abs(w), np.abs(g - w)
+        ok = (err <= 3e-4 * aw + 1e-6 * (aw.max() or 1.0)) | (
+            (aw > 1e8) & (err <= 5e-2 * aw))
+        assert ok.all(), (name, int(np.count_nonzero(~ok)))
+
+
+def test_slopes_fold_plain_matches_jnp_f64(fold):
+    p = fold["float64"]
+    jr, tr = p.ts_ranges()
+    tmix = p.tracers(112)
+    tx, ty, tz, slx, sly = jgm._slopes(p.jcfg, p.jgrid, p.jbc, jr,
+                                       jnp.asarray(tmix))
+    sla = jgm._sla(p.jcfg, p.jgrid, slx, sly)
+    slp, tsla, _ = gm_slope_cuda.slopes(p.tcfg, p.tgrid, p.tbc, tr,
+                                        torch.as_tensor(tmix))
+    tslx, tsly = gm_slope_cuda.unpack_slopes(slp)
+    for g, w, name in ((tslx, slx, "slx"), (tsly, sly, "sly"),
+                       (tsla, sla, "sla")):
+        g, w = g.numpy(), np.asarray(w)
+        ok = np.abs(g - w) <= 1e-12 * np.abs(w) + 1e-14
+        assert ok.all(), name
+
+
+def test_chain_fold_plain_matches_pallas_interpret_f32(fold):
+    p = fold["float32"]
+    jr, tr = p.ts_ranges()
+    tmix = p.tracers(121)
+    with _Pallas(gm_chain_pallas, gm_slope_pallas):
+        want, with_sm = gm_chain_pallas.hdifft_chain(
+            p.jcfg, p.jgrid, p.jbc, jr, jnp.asarray(tmix))
+    assert not with_sm
+    got = gm_chain_cuda.hdifft_chain(p.tcfg, p.tgrid, p.tbc, tr,
+                                     torch.as_tensor(tmix))
+    # the JAX package's bands for the chain (rtol 3e-4 at the value, with
+    # 5e-5 of scale where the value is small)
+    _flux_close(got.gtk.numpy(), want.gtk, "gtk")
+    _flux_close(got.vdc_gm.numpy(), want.vdc_gm, "vdc_gm")

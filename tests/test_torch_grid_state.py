@@ -2,6 +2,9 @@
 stencil operators against the JAX package's, leaf for leaf, on the CPU in
 float64 from the same config and the same NumPy inputs."""
 
+import json
+import os
+import pathlib
 import subprocess
 import sys
 
@@ -49,11 +52,56 @@ def test_grid_leaves_equal(pair):
     assert_leaves_close(tl, jax_leaves(jgrid), rtol=1e-14)
 
 
-def test_initial_state_leaves_equal(pair):
-    jcfg, jgrid, tcfg, tgrid = pair
-    js = j_initial_state(jcfg, jgrid)
+_JAX_STATES = """
+import json, sys
+import jax
+import numpy as np
+jax.config.update("jax_enable_x64", True)
+from pop2_tpu.config import get_config
+from pop2_tpu.grid import build_grid
+from pop2_tpu.state import initial_state
+from tests.torch_port_helpers import jax_leaves
+arrays = {}
+for name, over in json.loads(sys.argv[1]).items():
+    cfg = get_config("mini", **over)
+    for key, a in jax_leaves(initial_state(cfg, build_grid(cfg))).items():
+        arrays[name + "/" + key] = a
+np.savez(sys.argv[2], **arrays)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_states(tmp_path_factory):
+    """The JAX package's initial state of every config, {name: {leaf:
+    array}}, computed in a fresh interpreter with JAX's persistent
+    compilation cache off. The state's density is compiled XLA code; in the
+    test suite's multi-process runs that cache is shared by every worker,
+    and an entry written elsewhere (or a worker lost while loading one)
+    must not decide this comparison."""
+    out = tmp_path_factory.mktemp("jax_states") / "states.npz"
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_ENABLE_COMPILATION_CACHE="false",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(root)] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_STATES, json.dumps(CONFIGS), str(out)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    data = np.load(out)
+    states = {}
+    for key in data.files:
+        name, leaf = key.split("/", 1)
+        states.setdefault(name, {})[leaf] = data[key]
+    return states
+
+
+def test_initial_state_leaves_equal(pair, jax_states, request):
+    _, _, tcfg, tgrid = pair
+    name = request.node.callspec.params["pair"]
     ts = t_initial_state(tcfg, tgrid)
-    assert_leaves_close(ts.leaves(), jax_leaves(js), rtol=1e-14)
+    assert_leaves_close(ts.leaves(), jax_states[name], rtol=1e-14)
 
 
 def test_analytic_forcing_leaves_equal(pair):
@@ -144,12 +192,16 @@ def test_stencil_ops_exact(ew):
         np.asarray(jst.ugrid_to_tgrid(jnp.asarray(f), jbc)))
 
 
-def test_tripole_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="tripole"):
-        tst.BC("cyclic", "tripole")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build_grid(torch_cfg(get_config("mini", ns_boundary="tripole")),
-                     "cpu")
+def test_tripole_grid_and_state_leaves_equal():
+    """The tripole fold in the grid and the initial state (the fold's own
+    primitives and shifts: tests/test_torch_tripole.py)."""
+    jcfg = get_config("mini", ns_boundary="tripole", flat_bottom=False)
+    tcfg = torch_cfg(jcfg)
+    jgrid, tgrid = j_build_grid(jcfg), t_build_grid(tcfg, "cpu")
+    assert tst.BC("cyclic", "tripole").ns == "tripole"
+    assert_leaves_close(tgrid.leaves(), jax_leaves(jgrid), rtol=1e-14)
+    assert_leaves_close(t_initial_state(tcfg, tgrid).leaves(),
+                        jax_leaves(j_initial_state(jcfg, jgrid)), rtol=1e-14)
 
 
 def test_port_imports_nothing_of_jax():

@@ -253,9 +253,9 @@ def test_tracer_plain_matches_pallas_interpret_f32(pairs):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(tadvect="upwind3"), "upwind3"),
+    (dict(tadvect="lw_lim"), "lw_lim"),
     (dict(hmix_tracer="del4"), "with_del2=False"),
-    (dict(ns_boundary="tripole"), "tripole"),
+    (dict(ns_boundary="cyclic"), "cyclic"),
 ])
 def test_tracer_modes_not_ported_raise(pairs, over, match):
     p = pairs[("float64", "cyclic")].with_(**over)
@@ -378,8 +378,8 @@ def test_pack_g2d_matches_jax_layout(pairs):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(hmix_momentum="aniso"), "with_hdiffu=False"),
-    (dict(ns_boundary="tripole"), "tripole"),
+    (dict(hmix_momentum="del4"), "with_hdiffu=False"),
+    (dict(ns_boundary="cyclic"), "cyclic"),
 ])
 def test_clinic_modes_not_ported_raise(pairs, over, match):
     p = pairs[("float64", "cyclic")].with_(**over)

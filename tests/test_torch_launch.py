@@ -114,6 +114,35 @@ def test_tracer_plan_fits_the_tile(value_bytes, ng, del2):
     assert smem <= cb.SMEM_PER_BLOCK
 
 
+# the column form (upwind3, tripole): no shared memory, a fixed block
+@pytest.mark.parametrize("value_bytes", [4, 8])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("del2", [True, False])
+def test_tracer_column_plan(value_bytes, ng, del2):
+    plan = tracer_cuda.launch_plan(value_bytes, ng, del2, column=True)
+    assert plan == ((tracer_cuda.TILE_COLS, tracer_cuda.COL_ROWS), 0)
+
+
+@pytest.mark.parametrize("over,column", [
+    (dict(), False), (dict(tadvect="upwind3"), True),
+    (dict(ns_boundary="tripole"), True),
+    (dict(tadvect="upwind3", ns_boundary="tripole"), True)])
+def test_tracer_column_mode_follows_advection_and_north_edge(over, column):
+    assert tracer_cuda.column_mode(get_config("mini", **over)) == column
+
+
+def test_upwind3_operands_are_grid_statics():
+    cfg = get_config("mini", tadvect="upwind3", ns_boundary="tripole")
+    grid = build_grid(cfg, "cpu")
+    upw, vco = tracer_cuda.upwind3_operands(cfg, grid, torch.float64,
+                                            grid.KMT.device)
+    assert upw.shape == (12, cfg.ny, cfg.nx) and vco.shape == (6, cfg.km)
+    assert upw.is_contiguous() and vco.is_contiguous()
+    assert tracer_cuda.upwind3_operands(cfg, grid, torch.float64,
+                                        grid.KMT.device)[0] is upw
+    assert bool(torch.isfinite(upw).all()) and bool(torch.isfinite(vco).all())
+
+
 @pytest.mark.parametrize("value_bytes", [4, 8])
 def test_clinic_plan_fits_the_tile(value_bytes):
     (cols, rows), smem = clinic_cuda.launch_plan(value_bytes)

@@ -121,7 +121,7 @@ def test_solve_dispatch_and_float64_solve_under_float32(setup):
     with pytest.raises(ValueError, match="Lanczos"):
         tsol.solve(s.tcfg.with_(solver=SolverConfigT(choice="pcsi")), s.top,
                    s.tbc, x0, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tsol.make_precond_apply(
             s.tcfg.with_(solver=SolverConfigT(preconditioner="spai")),
             s.top, s.tbc)

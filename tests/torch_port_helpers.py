@@ -141,3 +141,36 @@ class GridPair:
         zt = np.asarray(self.jgrid.vgrid.zt, np.float64)
         return (jeos.build_ts_range(zt, self.jcfg.jnp_dtype),
                 teos.build_ts_range(zt, self.tcfg.torch_dtype))
+
+
+def fold_bottom(jgrid, tgrid, jcfg, seed):
+    """Both tripole grids on the port's seeded bottom with ocean across the
+    fold (``sample.fold_bottom_kmt``), the leaves derived from the bottom
+    recomputed through the fold (``sample.bottom_leaves``) and the
+    anisotropic-viscosity statics rebuilt by each package from its grid
+    (not the barotropic operator weights: the kernel modules do not read
+    them). The internal grid's two top rows are land, which would hide the
+    fold; the caller's test asserts that these hold ocean."""
+    import jax.numpy as jnp
+    from pop2_tpu import hmix_aniso as janiso
+    from pop2_tpu.stencil import BC as JBC
+    from pop2_tpu_torch import sample
+    from pop2_tpu_torch.grid import build_aniso
+
+    kmt = sample.fold_bottom_kmt(np.asarray(jgrid.KMT), jcfg.km, seed)
+    new = sample.bottom_leaves(kmt, np.asarray(jgrid.vgrid.zw, np.float64),
+                               jcfg.ew_boundary, jcfg.ns_boundary)
+    jnew, tnew = {}, {}
+    for name, a in new.items():
+        old_j, old_t = getattr(jgrid, name), getattr(tgrid, name)
+        jnew[name] = jnp.asarray(np.asarray(a).astype(np.asarray(old_j).dtype))
+        tnew[name] = torch.as_tensor(np.ascontiguousarray(a)).to(old_t.dtype)
+    if jcfg.hmix_momentum == "aniso":
+        args = [np.asarray(getattr(jgrid, n)) for n in
+                ("HTN", "HTE", "DXU", "DYU", "DXUR", "DYUR", "ULAT")]
+        jnew["aniso"] = janiso.build_statics(
+            jcfg, JBC(jcfg.ew_boundary, jcfg.ns_boundary), *args,
+            new["KMU"])
+        tnew["aniso"] = build_aniso(torch_cfg(jcfg), *args, new["KMU"],
+                                    "cpu")
+    return jgrid.replace(**jnew), tgrid.replace(**tnew)
