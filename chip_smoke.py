@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's four paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's five paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64:
 
     core      the dynamical core (Laplacian tracer mixing)
@@ -25,21 +25,27 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
               anisotropic viscosity (the momentum kernel without the
               Laplacian), GM as gm_full, chlorophyll shortwave, frazil ice,
               the Robert filter, PCSI with the FSPAI preconditioner
+    prod_mix  the production gx1v7 menu less its passive tracers: prod_dyn
+              with KPP (plain) and Jayne tidal mixing; GM's transition layer
+              starts at KPP's boundary layer (the search kernel) and the
+              chain kernel folds in the submesoscale streamfunction
 
-The new modes of the tracer, momentum, slope and chain kernels are also held
-against their plain versions on a bottom with ocean across the tripole fold
-(the internal grid's top rows are land, which would hide the fold).
+On every GM path the transition-layer search runs as a kernel. The modes of
+the tracer, momentum, slope and chain kernels that the tripole paths add
+are also held against their plain versions on a bottom with ocean across
+the tripole fold (the internal grid's top rows are land, which would hide
+the fold).
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels. It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
-gm_full and prod_dyn paths, breaks a step's time down by part and by device
-kernel (the GM paths from rest and from a stratified state with slopes for
-GM to work on), and compares the GPU path with the CPU path on a small
-grid. Every phase that fails makes the script exit non-zero; with no GPU it
-exits at once without a result. It takes no arguments: every run is the
-whole check.
+gm_full, prod_dyn and prod_mix paths, breaks a step's time down by part
+and by device kernel (the GM paths from rest and from a stratified state
+with slopes for GM to work on), and compares the GPU path with the CPU
+path on a small grid. Every phase that fails makes the script exit
+non-zero; with no GPU it exits at once without a result. It takes no
+arguments: every run is the whole check.
 
 Output: one JSON object per line; the ``kernels`` line, then the card's name
 and power limit, then the final ``{"ok": true, "device": ...}`` line.
@@ -65,8 +71,8 @@ if not torch.cuda.is_available():
 
 from pop2_tpu_torch import _cuda_build as cb  # noqa: E402
 from pop2_tpu_torch import baroclinic, clinic_cuda, gm, gm_chain_cuda  # noqa: E402
-from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, tracer_cuda  # noqa: E402
-from pop2_tpu_torch import tridiag_cuda  # noqa: E402
+from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, gm_tlt_cuda  # noqa: E402
+from pop2_tpu_torch import kpp, submeso, tracer_cuda, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
 from pop2_tpu_torch import pgrad, sample  # noqa: E402
 from pop2_tpu_torch.config import SolverConfig, get_config  # noqa: E402
@@ -80,7 +86,8 @@ SEED = 20240613
 STEPS = {"core": {"float32": 20, "float64": 6},
          "gm_full": {"float32": 20, "float64": 8},
          "gm_flux": {"float32": 4, "float64": 3},
-         "prod_dyn": {"float32": 6, "float64": 4}}
+         "prod_dyn": {"float32": 6, "float64": 4},
+         "prod_mix": {"float32": 6, "float64": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -106,6 +113,10 @@ BAND = {
     # chain: float32 within 5e-5 of scale or 5e-2 of the value (points riding
     # the clamped-slope cancellation carry a local relative spread)
     ("gm_chain", torch.float32): 5e-5, ("gm_chain", torch.float64): 1e-12,
+    # transition-layer search: K_LEVEL and ZTW equal; the thickness and the
+    # interior depth are differences of the same operands as in the plain
+    # version (expected bitwise), held at rounding of scale
+    ("gm_tlt", torch.float32): 1e-6, ("gm_tlt", torch.float64): 1e-12,
 }
 GM_CHAIN_REL = {torch.float32: 5e-2, torch.float64: 0.0}
 GM_VDC_RTOL = {torch.float32: 4e-6, torch.float64: 1e-12}
@@ -176,7 +187,9 @@ WITNESS_RATIO = 1.5
 # and the Robert filter's conservation sums run in float32. There the kernel
 # run may differ from the plain run by at most WITNESS_RATIO times the plain
 # run's own distance from the float64 run, besides the witness test below.
-WITNESS_BAND_PATHS = ("prod_dyn",)
+# prod_mix has the same thresholds and KPP's first crossing of the critical
+# bulk Richardson number besides.
+WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -201,17 +214,24 @@ SOURCES = {
                          "pop2_tpu/gm_slope_pallas.py:398"),
     "gm_chain_tripole": ("pop2_tpu_torch/csrc/gm_chain.cu",
                          "pop2_tpu/gm_chain_pallas.py:612"),
+    "gm_chain_sm": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                    "pop2_tpu/gm_chain_pallas.py:612"),
+    # no Pallas kernel: the JAX package's jnp search between its GM kernels
+    "gm_tlt_search": ("pop2_tpu_torch/csrc/gm_tlt.cu",
+                      "pop2_tpu/gm.py:304"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "tracer_advdiff": "gm_full", "gm_slope": "gm_full",
            "gm_chain": "gm_full", "gm_flux": "gm_flux",
            "tracer_upwind3": "prod_dyn", "clinic_aniso": "prod_dyn",
-           "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn"}
+           "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn",
+           "gm_chain_sm": "prod_mix", "gm_tlt_search": "prod_mix"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "clinic_aniso": "clinic", "gm_slope_tripole": "gm_slope",
-              "gm_chain_tripole": "gm_chain"}
+              "gm_chain_tripole": "gm_chain", "gm_chain_sm": "gm_chain",
+              "gm_tlt_search": "gm_tlt"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -220,14 +240,17 @@ GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
                gm_ah=3.0e7, gm_ah_bolus=3.0e7, gm_ah_bkg_srfbl=3.0e7,
                lsubmeso=False)
 GM_FLUX = dict(hmix_tracer="gm", gm_transition_layer=False, lsubmeso=False)
-# the production gx1v7 preset without what the port does not carry yet (KPP,
-# tidal mixing, submesoscale, passive tracers)
+# the production gx1v7 preset without KPP, tidal mixing, the submesoscale
+# scheme and passive tracers (prod_dyn), and without passive tracers only
+# (prod_mix)
 PROD_DYN = dict(vmix="rich", ltidal_mixing=False, lsubmeso=False,
                 passive_tracers=(), nt=2)
+PROD_MIX = dict(passive_tracers=(), nt=2)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
-         "prod_dyn": PROD_DYN}
-# the small grid of the GPU-against-CPU comparison of prod_dyn
-PROD_DYN_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
+         "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX}
+PROD_PATHS = ("prod_dyn", "prod_mix")
+# the small grid of the GPU-against-CPU comparison of the production paths
+PROD_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
 
 
 def emit(obj):
@@ -240,8 +263,8 @@ def full_config(dtype: str, path: str = "core"):
     does: in float32 the residual floor of the solve lies above the
     convergence criterion of 1e-13 and ChronGear runs to max_iterations
     every step (in the JAX package too)."""
-    if path == "prod_dyn":  # PCSI 1e-13 with FSPAI, solving in float64
-        return get_config("prod_full", dtype=dtype, **PROD_DYN)
+    if path in PROD_PATHS:  # PCSI 1e-13 with FSPAI, solving in float64
+        return get_config("prod_full", dtype=dtype, **PATHS[path])
     solver = SolverConfig(solve_dtype="float64")
     return get_config("test", nx=320, ny=384, km=60, vmix="rich",
                       dtype=dtype, solver=solver, **PATHS[path])
@@ -391,6 +414,17 @@ def compare_slopes(name, dtype, got, want, factors):
     return out
 
 
+def chain_band(name, dtype, g, w):
+    """(|g - w|, scale of w, points outside the band of scale, whether every
+    such point lies within GM_CHAIN_REL of its value)."""
+    band, rel = BAND[(name, dtype)], GM_CHAIN_REL[dtype]
+    aw = w.abs()
+    scale = float(aw.max()) or 1.0
+    err = (g - w).abs()
+    far = err > band * scale
+    return err, scale, far, bool((~far | (err <= rel * aw)).all())
+
+
 def compare_chain(name, dtype, got, want):
     """Each output within BAND of the field's scale or GM_CHAIN_REL of the
     value. Returns (max abs err, worst err over scale, points excused by the
@@ -399,11 +433,8 @@ def compare_chain(name, dtype, got, want):
     worst_abs, worst_rel, excused = 0.0, 0.0, 0
     _require_finite(name, dtype, got)
     for g, w in zip(got, want):
-        aw = w.abs()
-        scale = float(aw.max()) or 1.0
-        err = (g - w).abs()
-        far = err > band * scale
-        if not bool((~far | (err <= rel * aw)).all()):
+        err, scale, far, holds = chain_band(name, dtype, g, w)
+        if not holds:
             raise AssertionError(
                 f"{name} {dtype}: kernel differs from plain version by "
                 f"{float(err.max()) / scale:.3e} of scale, band {band:.1e} "
@@ -412,6 +443,34 @@ def compare_chain(name, dtype, got, want):
         worst_abs = max(worst_abs, float(err.max()))
         worst_rel = max(worst_rel, float(err.max()) / scale)
     return worst_abs, worst_rel, excused
+
+
+def compare_search(name, dtype, got, want):
+    """The search kernel's TLT against the plain version's: the integer
+    fields equal, the depths within BAND of scale. Returns (max abs err, err
+    over scale, bitwise or not)."""
+    for field in ("k_level", "ztw"):
+        g, w = getattr(got, field), getattr(want, field)
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{name} {dtype}: {field} differs from the plain version at "
+                f"{int((g != w).sum())} columns")
+    err_abs, err_rel = compare(
+        name, dtype, [got.thickness, got.interior_depth],
+        [want.thickness, want.interior_depth])
+    bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
+                  for f in ("thickness", "interior_depth"))
+    return err_abs, err_rel, bitwise
+
+
+def mixed_layer(depth, seed: int):
+    """A mixed-layer depth 0.8 to 1.2 times ``depth`` (seeded): the
+    submesoscale scheme's input where no KPP run gives one."""
+    gen = torch.Generator(device=depth.device)
+    gen.manual_seed(seed)
+    return depth * (0.8 + 0.4 * torch.rand(depth.shape, generator=gen,
+                                           device=depth.device,
+                                           dtype=depth.dtype))
 
 
 def compare_vdc(name, dtype, got, want):
@@ -438,10 +497,11 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     """Block shape, dynamic shared memory and blocks an SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
-    shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt and
-    flags, tracer its group's tracer count ng and del2, gm_flux nt and
-    cancellation. The kernels in a one-column frame (tracer, clinic,
-    gm_slope, gm_flux) also report their tile of interior columns."""
+    shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt, flags
+    and sm, tracer its group's tracer count ng and del2, gm_flux nt and
+    cancellation; gm_tlt (a thread a column) nothing. The kernels in a
+    one-column frame (tracer, clinic, gm_slope, gm_flux) also report their
+    tile of interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
         torch.finfo(dt).bits // 8
     if name == "thomas":
@@ -449,7 +509,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         block = [cols, 1, 1]
         n = lib.pop2_thomas_blocks_per_sm(code, kw["nr"], cols, smem)
     elif name == "gm_chain":
-        (cols, rows), smem = gm_chain_cuda.launch_plan(s, kw["nt"])
+        (cols, rows), smem = gm_chain_cuda.launch_plan(s, kw["nt"],
+                                                       kw.get("sm", False))
         block = [cols, rows, 1]
         n = lib.pop2_gm_chain_blocks_per_sm(code, kw["flags"], rows, smem)
     elif name == "tracer":
@@ -466,6 +527,9 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         (cols, rows), smem = gm_slope_cuda.launch_plan(s)
         block = [cols, rows, 1]
         n = lib.pop2_gm_slope_blocks_per_sm(code, smem)
+    elif name == "gm_tlt":
+        block, smem = [gm_tlt_cuda.THREADS, 1, 1], 0
+        n = lib.pop2_gm_tlt_blocks_per_sm(code)
     else:
         (cols, rows), smem = gm_cuda.launch_plan(s, kw["nt"],
                                                  kw["cancellation"])
@@ -477,7 +541,7 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
             "blocks_per_sm" + tag: n,
             "warps_per_sm" + tag: n * block[0] * block[1] // 32}
-    if name not in ("thomas", "gm_chain"):  # a one-column frame
+    if name not in ("thomas", "gm_chain", "gm_tlt"):  # a one-column frame
         info["tile" + tag] = block[:2]
     return info
 
@@ -872,12 +936,14 @@ def ragged_phase(dtype_name: str):
     versions where the tiles do not divide the domain: the RAGGED horizontal
     size, E-W cyclic and closed, at RAGGED_KM levels (one level, and the
     thomas kernel's bound). thomas for 1, 2 and 3 right-hand sides; the
-    slope kernel; the chain kernel in its eight template instances (bfre or
-    const kappa, diagnostic columns or not, equal or unequal slope limits),
-    each with the constant and the diffusivity-valued surface diffusion
-    (``hd_const``); the flux assembly in both branches for 1, 2, 3 and 16
-    tracers (all but 2 take the narrow tile; tracers beyond the
-    configuration's two get noisy copies of its differences); the tracer
+    slope kernel; the transition-layer search from a deep diabatic depth;
+    the chain kernel in its sixteen template instances (bfre or const
+    kappa, diagnostic columns or not, equal or unequal slope limits, the
+    submesoscale fold-in or not), each with the constant and the
+    diffusivity-valued surface diffusion (``hd_const``); the flux assembly
+    in both branches for 1, 2, 3 and 16 tracers (all but 2 take the narrow
+    tile; tracers beyond the configuration's two get noisy copies of its
+    differences); the tracer
     kernel with and without the Laplacian, for 1, 2 and 3 tracers (3 is two
     launches, over the kernel's group cap; no configuration has three
     tracers, so the wrapper gets random fields), varthick and rigid lid;
@@ -937,11 +1003,15 @@ def ragged_phase(dtype_name: str):
             worst[key + "_vdc"] = compare_vdc("gm_flux", dt, got[1], want[1])
             del got, want, diffs
         del f
-        tlt = gm.transition_layer(
-            base, grid, *searched_inputs(base, grid, sla, SEED + 5),
-            gm._rossby_radius(grid))
-        for bfre, diags, same, hd_const in itertools.product((True, False),
-                                                             repeat=4):
+        deep = searched_inputs(base, grid, sla, SEED + 5)
+        tlt = gm.transition_layer(base, grid, *deep, gm._rossby_radius(grid))
+        worst[f"tlt_search_km{km}_{ew}"] = compare_search(
+            "gm_tlt", dt, gm_tlt_cuda.transition_layer(
+                base, grid, *deep, gm._rossby_radius(grid)), tlt)[1]
+        sm = submeso.amplitudes(base, grid, bc, tr, tmix,
+                                mixed_layer(deep[0], SEED + 19))
+        for bfre, diags, same, hd_const, with_sm in itertools.product(
+                (True, False), repeat=5):
             # a surface diffusion apart from the isopycnal diffusivity, so
             # that hd_const shows
             over = {"gm_use_const_ah_bkg_srfbl": hd_const,
@@ -956,17 +1026,18 @@ def ragged_phase(dtype_name: str):
             kv = (gm.kappa_vertical_bfre(cfg, grid, tr, tmix,
                                          tlt.interior_depth, n2=n2)
                   if bfre else torch.ones_like(n2))
-            args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, diags)
+            args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, diags,
+                    sm if with_sm else None)
             got = gm_chain_cuda.chain(*args)
             torch.cuda.synchronize()
             want = gm_chain_cuda.chain_plain(*args)
             outs = [(g, w) for g, w in zip(got[:2], want[:2])]
             if diags:
                 outs += list(zip(got[2], want[2]))
-            flags = gm_chain_cuda.kernel_flags(cfg, diags)
+            flags = gm_chain_cuda.kernel_flags(cfg, diags, with_sm)
             key = f"chain_km{km}_{ew}_flags{flags}_hd{int(hd_const)}"
             worst[key] = compare_chain("gm_chain", dt, *zip(*outs))[1]
-        del slp, sla, n2, tlt, tmix
+        del slp, sla, n2, tlt, tmix, sm
 
         gen = torch.Generator(device=DEV)
         gen.manual_seed(SEED + 10)
@@ -1006,6 +1077,7 @@ def ragged_phase(dtype_name: str):
           "km": list(RAGGED_KM), "rel_err_of_scale": worst,
           "band": {"thomas": BAND[("thomas", dt)],
                    "slope": SLOPE_BAND[dt], "n2": N2_BAND[dt],
+                   "search": BAND[("gm_tlt", dt)],
                    "chain": [BAND[("gm_chain", dt)], GM_CHAIN_REL[dt]],
                    "flux": BAND[("gm_flux", dt)],
                    "flux_vdc_rtol": GM_VDC_RTOL[dt],
@@ -1178,9 +1250,11 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
 
 
 def fold_ragged_phase(dtype_name: str):
-    """The prod_dyn kernel modes on the fold bottom where the tiles do not
-    divide the domain (the RAGGED size; the tripole ghost row then lies
-    inside a tile), E-W cyclic and closed, and the momentum kernel with the
+    """The prod_dyn and prod_mix kernel modes on the fold bottom where the
+    tiles do not divide the domain (the RAGGED size; the tripole ghost row
+    then lies inside a tile), E-W cyclic and closed: the chain with and
+    without the submesoscale fold-in and the transition-layer search from a
+    deep diabatic depth among them, and the momentum kernel with the
     Laplacian on the fold too. Not timed."""
     worst = {}
     for ew, km, vert in (("cyclic", 61, "internal"),
@@ -1217,21 +1291,216 @@ def fold_ragged_phase(dtype_name: str):
                            true_slope_factors(grid))
         worst[f"gm_slope_{ew}"] = r["rel_err"]
         slp, sla, n2 = got
-        tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid),
-                                  sla, gm._rossby_radius(grid))
+        rb = gm._rossby_radius(grid)
+        deep = searched_inputs(cfg, grid, sla, SEED + 5)
+        tlt = gm.transition_layer(cfg, grid, *deep, rb)
+        worst[f"gm_tlt_{ew}"] = compare_search(
+            "gm_tlt", dt, gm_tlt_cuda.transition_layer(cfg, grid, *deep, rb),
+            tlt)[1]
         kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
                                     n2=n2)
-        args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, True)
-        worst[f"gm_chain_{ew}"] = compare_chain(
-            "gm_chain", dt, gm_chain_cuda.chain(*args),
-            gm_chain_cuda.chain_plain(*args))[1]
+        sm = submeso.amplitudes(cfg, grid, bc, tr, tmix,
+                                mixed_layer(deep[0], SEED + 19))
+        for with_sm in (False, True):
+            args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, True,
+                    sm if with_sm else None)
+            worst[f"gm_chain_{ew}" + ("_sm" if with_sm else "")] = \
+                compare_chain("gm_chain", dt, gm_chain_cuda.chain(*args),
+                              gm_chain_cuda.chain_plain(*args))[1]
     emit({"phase": "fold_ragged", "dtype": dtype_name,
           "dims": [RAGGED[0], RAGGED[1]], "rel_err_of_scale": worst})
 
 
+def kpp_state(cfg, grid, tmix, seed: int):
+    """(KPP's output, its statics, its other inputs) for the tracers
+    ``tmix`` under seeded velocities of 5 cm/s, wind stress, shortwave and a
+    surface heat flux that cools 40 % of the points: boundary-layer and
+    mixed-layer depths of a production shape for the GM kernels."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    dt, km, ny, nx = cfg.torch_dtype, cfg.km, cfg.ny, cfg.nx
+    mt, mu = grid.kmask_t.to(dt), grid.kmask_u.to(dt)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV, dtype=dt)
+
+    heat = 5.0e-4 * randn(ny, nx).abs()
+    cool = torch.rand(ny, nx, generator=gen, device=DEV, dtype=dt) < 0.4
+    args = dict(
+        umix=5.0 * randn(km, ny, nx) * mu, vmix_=5.0 * randn(km, ny, nx) * mu,
+        stf=torch.stack([torch.where(cool, -heat, 0.2 * heat),
+                         torch.zeros_like(heat)]) * mt[0],
+        shf_qsw=2.0e-4 * randn(ny, nx).abs() * mt[0],
+        smft=0.5 * randn(2, ny, nx) * mt[0])
+    args["chl"] = torch.full_like(args["shf_qsw"], cfg.chl_const)
+    st = kpp.build_statics(cfg, grid)
+
+    def run():
+        return kpp.kpp_coeffs(cfg, grid, grid_bc(cfg), st, tmix,
+                              convect_diff=cfg.convect_diff,
+                              convect_visc=cfg.convect_visc, **args)
+    return run(), run
+
+
+def search_bytes(grid, dd, sla, rb, tlt, value_bytes: int) -> int:
+    """Bytes the transition-layer search kernel moves for this run's
+    inputs: every column reads its diabatic depth, Rossby radius and bottom
+    level and writes four 2-D fields; the slope measures count as the
+    values gm_tlt.cu loads, found by following its three passes for all
+    columns at once (a value read twice counts once). The K_LEVEL this walk
+    reaches must be the kernel's, or the count follows another search."""
+    km = sla.shape[1]
+    zt, zw = grid.vgrid.zt, grid.vgrid.zw
+    kmt = grid.KMT.long()
+    seen = torch.zeros(sla.shape, dtype=torch.bool, device=sla.device)
+
+    def load(half, q, on):
+        """sla[half, q] per column (q a (ny, nx) level index), marked read
+        where ``on``."""
+        q = q.clamp(0, km - 1)[None]
+        seen[half].scatter_(0, q, seen[half].gather(0, q) | on[None])
+        return sla[half].gather(0, q)[0]
+
+    # pass 1: no slope measure
+    k1 = (dd[None] >= zw.reshape(-1, 1, 1)).sum(dim=0)   # 0-based
+    fired = (k1 < km) & (kmt != 0)
+    at_zt = fired & (k1 != 0) & (dd < zt[k1.clamp(max=km - 1)])
+    k_level = torch.where(fired, k1 + 1, 0)
+    k_start = torch.where(fired, torch.where(at_zt, k1 + 1, k1 + 2), 0)
+    compute = ~((kmt == 0) | (k_start > kmt) | ((k_start == kmt) & at_zt))
+    # pass 2: the bottom half of K_START's level and the top of the next
+    on = compute & at_zt & (k_start < kmt) & (k_start <= km - 1)
+    q = k_start - 1
+    work = torch.maximum(load(1, q, on), load(0, q + 1, on)) * rb
+    hit = on & (work != 0)
+    reach = dd >= zw[q.clamp(0, km - 1)] - work
+    compute = compute & ~(hit & ~reach)
+    k_level = torch.where(hit & reach, k_start, k_level)
+    k_start = k_start + (hit & reach).long()
+    # pass 3: level k's two halves, then its bottom interface, which also
+    # reads the top half of k + 1 above the column's bottom
+    active = compute & (k_start >= 2)
+    for k in range(2, km + 1):
+        q = k - 1
+        on = active & (k >= k_start) & (k <= kmt)
+        seen[:, q] |= on[None]
+        work = torch.maximum(sla[0, q], sla[1, q]) * rb
+        hit = on & (work != 0)
+        stop = hit & ~(dd >= zt[q] - work)
+        k_level = torch.where(hit & ~stop, k, k_level)
+        on, active = on & ~stop, active & ~stop
+        work = sla[1, q] * rb
+        if k < km:
+            below = on & (k < kmt)
+            seen[0, k] |= below
+            work = torch.where(below, torch.maximum(sla[1, q], sla[0, k])
+                               * rb, work)
+        hit = on & (work != 0)
+        stop = hit & ~(dd >= zw[q] - work)
+        k_level = torch.where(hit & ~stop, k, k_level)
+        active = active & ~stop
+    if not torch.equal(k_level.to(tlt.k_level.dtype), tlt.k_level):
+        raise AssertionError("search_bytes: the walk's K_LEVEL is not the "
+                             "kernel's")
+    ncol = dd.numel()
+    return int(value_bytes * (int(seen.sum()) + 4 * ncol + 2 * km)
+               + 4 * 3 * ncol)
+
+
+def mix_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """The kernels of the prod_mix path beyond prod_dyn's, each against its
+    plain version at the path's shapes on the fold bottom, with times and
+    bounds: the transition-layer search from the smoothed boundary layer
+    that KPP (plain) gives a stratified state under a cooling surface flux,
+    and the chain kernel with the submesoscale fold-in under KPP's
+    mixed-layer depth. Also times the plain search on the same inputs and
+    KPP itself. Returns {name: record}."""
+    cfg = full_config(dtype_name, "prod_mix")
+    dt = cfg.torch_dtype
+    grid, bc, tr = fold_case(cfg)
+    km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    tmix = sample.grid_tracers(cfg, grid, SEED + 16)
+    kout, kpp_run = kpp_state(cfg, grid, tmix, SEED + 17)
+    kpp_ms = time_ms(kpp_run, 1, 3)
+    del kpp_run
+    rec = {}
+
+    def timed(fn, plain, nbytes, flops, **info):
+        r = {"ms": time_ms(fn, 3, n_timed),
+             "ms_back_to_back": time_ms_back_to_back(fn, n_timed),
+             "plain_ms": time_ms(plain, 1, 3)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        r.update(info)
+        return r
+
+    # ---- the search, from the smoothed boundary layer
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
+    rb = gm._rossby_radius(grid)
+    dd = gm.diabatic_depth(cfg, grid, bc, kout.hblt)
+    args = (cfg, grid, dd, sla, rb)
+    got = gm_tlt_cuda.transition_layer(*args)
+    torch.cuda.synchronize()
+    want = gm.transition_layer(*args)
+    err_abs, err_rel, bitwise = compare_search("gm_tlt", dt, got, want)
+    nbytes = search_bytes(grid, dd, sla, rb, got, s)
+    ocean = grid.KMT > 0
+    rec["gm_tlt_search"] = timed(
+        lambda: gm_tlt_cuda.transition_layer(*args),
+        lambda: gm.transition_layer(*args), nbytes, nbytes / s * 4,
+        max_abs_err=err_abs, rel_err=err_rel, bitwise=bitwise,
+        deepest_level=int(got.k_level.max()),
+        mean_level=float(got.k_level[ocean].to(torch.float64).mean()),
+        hblt_deepest_level=int(kout.kbl.max()), bytes=nbytes,
+        **launch_info("gm_tlt", dt))
+    emit({"phase": "kpp_plain", "dtype": dtype_name, "ms": kpp_ms,
+          "hblt_m": [float(kout.hblt[ocean].min()) / 100.0,
+                     float(kout.hblt[ocean].mean()) / 100.0,
+                     float(kout.hblt[ocean].max()) / 100.0],
+          "kbl_levels": [int(kout.kbl[ocean].min()),
+                         int(kout.kbl[ocean].max())]})
+
+    # ---- chain with the submesoscale fold-in, on the fold: the path's
+    # instance (bfre, no diagnostics); the five amplitude planes join the
+    # inputs
+    tlt = got
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    sm = submeso.amplitudes(cfg, grid, bc, tr, tmix, kout.hmxl)
+    args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, False, sm)
+    got = gm_chain_cuda.chain(*args)[:2]
+    torch.cuda.synchronize()
+    want = gm_chain_cuda.chain_plain(*args)[:2]
+    err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
+    top = compare_chain("gm_chain", dt, [g[..., -2:, :] for g in got],
+                        [w[..., -2:, :] for w in want])[1]
+    # the fold-in moved the tendency: without it the kernel's GTK differs,
+    # by how much, and whether the band above refuses a dropped fold-in
+    # (float64 must: its relative band is 0)
+    plain_gm = gm_chain_cuda.chain(*args[:-1])[0]
+    sm_share = float((got[0] - plain_gm).abs().max() / got[0].abs().max())
+    dropped_refused = not chain_band("gm_chain", dt, plain_gm, want[0])[3]
+    if dt == torch.float64 and not dropped_refused:
+        raise AssertionError("gm_chain_sm float64: the chain without the "
+                             "fold-in passes the band of the one with it")
+    del want, plain_gm
+    rec["gm_chain_sm"] = timed(
+        lambda: gm_chain_cuda.chain(*args),
+        lambda: gm_chain_cuda.chain_plain(*args),
+        s * (N * (2 * nt + 12) + 11 * P + 8 * km) + 12 * P,
+        N * (420 + 80 * nt), max_abs_err=err_abs, rel_err=err_rel,
+        rel_err_top_rows=top, points_within_relative_band_only=excused,
+        submeso_share_of_gtk=sm_share,
+        dropped_fold_in_refused=dropped_refused,
+        **launch_info("gm_chain", dt, nt=nt, sm=True,
+                      flags=gm_chain_cuda.kernel_flags(cfg, False, True)))
+    return rec
+
+
 COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
             "clinic": clinic_cuda, "gm_slope": gm_slope_cuda,
-            "gm_chain": gm_chain_cuda, "gm_flux": gm_cuda}
+            "gm_chain": gm_chain_cuda, "gm_flux": gm_cuda,
+            "gm_tlt": gm_tlt_cuda}
 
 
 def reset_counts():
@@ -1247,10 +1516,10 @@ def expected_counts(path: str, nsteps: int):
     """Launches of ``nsteps`` steps from the initial state: the implicit
     solves take 3 launches on the Euler step and 5 on a leapfrog step; every
     other kernel of a path is launched once a step."""
-    once = {"core": ("tracer", "clinic"),
-            "gm_full": ("tracer", "clinic", "gm_slope", "gm_chain"),
+    chain = ("tracer", "clinic", "gm_slope", "gm_tlt", "gm_chain")
+    once = {"core": ("tracer", "clinic"), "gm_full": chain,
             "gm_flux": ("tracer", "clinic", "gm_flux"),
-            "prod_dyn": ("tracer", "clinic", "gm_slope", "gm_chain")}[path]
+            "prod_dyn": chain, "prod_mix": chain}[path]
     expect = dict.fromkeys(COUNTERS, 0)
     expect.update(dict.fromkeys(once, nsteps))
     expect["thomas"] = 3 + 5 * (nsteps - 1)
@@ -1349,6 +1618,7 @@ def plain_versions():
              (clinic_cuda, "clinic_rhs_fields", clinic_cuda.clinic_rhs_plain),
              (gm_slope_cuda, "slopes", gm_slope_cuda.slopes_plain),
              (gm_chain_cuda, "chain", gm_chain_cuda.chain_plain),
+             (gm_tlt_cuda, "transition_layer", gm.transition_layer),
              (gm, "flux_assembly", gm_cuda.flux_assembly_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
@@ -1414,15 +1684,17 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
     and its transition-layer search ends after a few levels) or from the
     stratified state, where the search runs as deep as the slopes carry the
     layer (the deepest level it reached is reported). First the three parts
-    of ``step.step`` (and, on the gm_full path, the four parts of the GM
-    tendency inside the baroclinic driver) by the host clock with a
+    of ``step.step`` (and, on the GM paths, the parts of the GM tendency
+    inside the baroclinic driver; on prod_mix also KPP and the submesoscale
+    amplitudes) by the host clock with a
     synchronize around each (so the parts do not overlap and their sum
     exceeds an unsynchronized step slightly); then ``nprof`` steps under
     ``torch.profiler`` for the device's busy time and the kernels that hold
     it. The profiler adds host time to every launch, so the busy share of its
     own window is a lower bound; the device time of the profiled steps over
     the unprofiled step time is the estimate of the share in normal
-    running."""
+    running. The transition-layer search runs as the kernel; its plain
+    version is timed after the steps on the last step's inputs."""
     from torch.profiler import ProfilerActivity, profile
 
     from pop2_tpu_torch import barotropic
@@ -1435,13 +1707,18 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
     spans = [("baroclinic_driver", baroclinic, "driver"),
              ("barotropic_driver", barotropic, "driver"),
              ("correct_adjust", baroclinic, "correct_adjust")]
-    if path in ("gm_full", "prod_dyn"):
+    if path in ("gm_full",) + PROD_PATHS:
         spans += [("gm_slopes_kernel", gm_slope_cuda, "slopes"),
-                  ("gm_transition_layer_plain", gm, "transition_layer"),
+                  ("gm_transition_layer_kernel", gm_tlt_cuda,
+                   "transition_layer"),
                   ("gm_bfre_profile_plain", gm, "kappa_vertical_bfre"),
                   ("gm_chain_kernel", gm_chain_cuda, "chain")]
+    if path == "prod_mix":
+        spans += [("kpp_plain", kpp, "kpp_coeffs"),
+                  ("submeso_amplitudes_plain", submeso, "amplitudes")]
     parts = {name: 0.0 for name, _, _ in spans}
     deepest = [0]
+    search_args = []
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
@@ -1452,6 +1729,7 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
             parts[name] += time.perf_counter() - t0
             if isinstance(out, gm.TLT):  # read outside the timed span
                 deepest[0] = max(deepest[0], int(out.k_level.max()))
+                search_args[:] = [args]
             return out
         return wrapper
 
@@ -1470,6 +1748,16 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+    search = None
+    if search_args:  # the last step's search, by the kernel and plain
+        args = search_args[0]
+        search = {
+            "kernel_ms": time_ms(
+                lambda: gm_tlt_cuda.transition_layer(*args), 2, 10),
+            "plain_ms": time_ms(lambda: gm.transition_layer(*args), 1, 3),
+            "deepest_level": int(gm.transition_layer(
+                *args).k_level.max())}
+        del args, search_args[:]
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1492,6 +1780,7 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
           "ms_per_step_by_part": {k: v / nsteps * 1e3
                                   for k, v in parts.items()},
           "solver_iters_per_step": iters / nsteps,
+          "transition_layer_search_last_step": search,
           "profiled_steps": nprof,
           "profiled_ms_per_step": window / nprof * 1e3,
           "device_busy_ms_per_step": (busy_us / nprof / 1e3
@@ -1509,8 +1798,8 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
     small 'mini' grid in float64: the parity band of the step-5 test. The GM
     path starts from the stratified state."""
-    cfg = (get_config("prod_full", **PROD_DYN, **PROD_DYN_SMALL)
-           if path == "prod_dyn" else get_config("mini", **PATHS[path]))
+    cfg = (get_config("prod_full", **PATHS[path], **PROD_SMALL)
+           if path in PROD_PATHS else get_config("mini", **PATHS[path]))
     stratified = path != "core"
     reset_counts()
     s_gpu, it_g = _run_steps(cfg, nsteps, DEV, stratified)
@@ -1540,7 +1829,7 @@ def ptxas_summary(log: str | None = None):
     worst, entry = {}, None
     for line in (cb.build_log() if log is None else log).splitlines():
         m = re.search(r"entry function '\w*?(thomas|tracer_col|tracer|clinic|"
-                      r"gm_slope|gm_chain|gm_flux)_kernel", line)
+                      r"gm_slope|gm_chain|gm_flux|gm_tlt)_kernel", line)
         if m:
             entry = worst.setdefault(m.group(1), dict.fromkeys(keys, 0))
         for key, pattern in zip(keys, patterns):
@@ -1568,12 +1857,18 @@ def main():
         raise AssertionError(f"the card gives a block {card_smem} bytes of "
                              f"shared memory, the planners assume "
                              f"{cb.SMEM_PER_BLOCK}")
-    for nt in range(1, gm_chain_cuda.MAX_TRACERS + 1):
-        c_values = lib.pop2_gm_chain_smem_values(nt)
-        if c_values != gm_chain_cuda.smem_values(nt):
-            raise AssertionError(f"gm_chain shared memory a column (nt={nt}):"
-                                 f" library {c_values}, planner "
-                                 f"{gm_chain_cuda.smem_values(nt)}")
+    for nt, sm in itertools.product(range(1, gm_chain_cuda.MAX_TRACERS + 1),
+                                    (False, True)):
+        c_values = lib.pop2_gm_chain_smem_values(nt, int(sm))
+        if c_values != gm_chain_cuda.smem_values(nt, sm):
+            raise AssertionError(f"gm_chain shared memory a column (nt={nt}, "
+                                 f"sm={sm}): library {c_values}, planner "
+                                 f"{gm_chain_cuda.smem_values(nt, sm)}")
+        gm_chain_cuda.launch_plan(8, nt, sm)  # fits 227 KB
+    if lib.pop2_gm_tlt_threads() != gm_tlt_cuda.THREADS:
+        raise AssertionError(f"gm_tlt block: library "
+                             f"{lib.pop2_gm_tlt_threads()} threads, planner "
+                             f"{gm_tlt_cuda.THREADS}")
     if (lib.pop2_tracer_max_group(), lib.pop2_tracer_tile_rows()) != (
             tracer_cuda.MAX_GROUP, tracer_cuda.TILE_ROWS):
         raise AssertionError("tracer group cap and tile rows: library "
@@ -1629,6 +1924,7 @@ def main():
         records[dtype_name] = kernel_phase(dtype_name)
         records[dtype_name].update(gm_kernel_phase(dtype_name))
         records[dtype_name].update(fold_kernel_phase(dtype_name))
+        records[dtype_name].update(mix_kernel_phase(dtype_name))
         other_modes_phase(dtype_name)
         gm_other_modes_phase(dtype_name)
         ragged_phase(dtype_name)
@@ -1637,7 +1933,7 @@ def main():
     for path in PATHS:
         for dtype_name in ("float32", "float64"):
             launches[(path, dtype_name)] = path_phase(path, dtype_name)
-    for path in ("core", "gm_full", "prod_dyn"):
+    for path in ("core", "gm_full", "prod_dyn", "prod_mix"):
         path_vs_plain_phase(path)
         breakdown_phase(path, "float32")
         if path != "core":

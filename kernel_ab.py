@@ -17,8 +17,9 @@ sources. The operands are those of ``chip_smoke.py``'s kernel phases at
 right-hand sides, the tracer tendency with the Laplacian (the core path's
 mode) and without it (the GM paths'), the momentum forcing on a leapfrog
 step, the slopes of the gm_full path's stratified tracers, the chain kernel
-in the gm_full path's instance, the flux assembly in both of its instances
-(the gm_flux path's cancellation and the skew). Each kernel runs in turns
+in the gm_full path's instance and in the prod_dyn path's (the tripole
+fold, on a bottom with ocean across it), the flux assembly in both of its
+instances (the gm_flux path's cancellation and the skew). Each kernel runs in turns
 other, this, this, other; a turn takes both of ``chip_smoke.py``'s times:
 ``ms`` (median of single calls between CUDA events, the ``kernels`` line's
 method) and ``ms_back_to_back`` (calls back to back). The two checkouts'
@@ -192,6 +193,7 @@ def gm_cases(other, dtype_name):
     rec["bitwise_equal"] = bitwise(mine, theirs)
     cs.emit({"kernel": "gm_chain", "dtype": dtype_name, **rec})
     del slp, sla, n2, kv, tlt, ops
+    chain_fold_case(other, dtype_name)
 
     cfg_f = cs.full_config(dtype_name, "gm_flux")
     f = sample.flux_operands(cfg_f, grid, bc, tr, tmix)
@@ -207,6 +209,30 @@ def gm_cases(other, dtype_name):
         cs.emit({"kernel": "gm_flux", "dtype": dtype_name,
                  "instance": "cancellation" if cancellation else "skew",
                  **rec})
+
+
+def chain_fold_case(other, dtype_name):
+    """The chain kernel in the prod_dyn path's instance: the tripole fold,
+    on ``chip_smoke.fold_case``'s bottom with ocean across it."""
+    cfg = cs.full_config(dtype_name, "prod_dyn")
+    grid, bc, tr = cs.fold_case(cfg)
+    grid_o = cs.fold_case(cfg)[0]
+    tmix = sample.grid_tracers(cfg, grid, cs.SEED + 13)
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
+    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
+                              gm._rossby_radius(grid))
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    ops = (tmix, slp, sla, kv, tlt, False)
+    rec = in_turns(
+        lambda: other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops),
+        lambda: gm_chain_cuda.chain(cfg, grid, bc, *ops))
+    mine = gm_chain_cuda.chain(cfg, grid, bc, *ops)[:2]
+    theirs = other["gm_chain_cuda"].chain(cfg, grid_o, bc, *ops)[:2]
+    rec["rel_diff_this_vs_other"] = rel_diff(mine, theirs)
+    rec["bitwise_equal"] = bitwise(mine, theirs)
+    cs.emit({"kernel": "gm_chain", "instance": "tripole",
+             "dtype": dtype_name, **rec})
 
 
 def main():

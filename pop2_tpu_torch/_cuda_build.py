@@ -27,7 +27,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("thomas.cu", "tracer.cu", "clinic.cu", "gm_slope.cu",
-           "gm_chain.cu", "gm_flux.cu")
+           "gm_chain.cu", "gm_flux.cu", "gm_tlt.cu")
 HEADERS = ("common.cuh", "gm_flux.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -110,7 +110,7 @@ def _declare(lib) -> None:
     lib.pop2_thomas.restype = i
     lib.pop2_thomas_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
-    lib.pop2_gm_chain_smem_values.argtypes = [i]
+    lib.pop2_gm_chain_smem_values.argtypes = [i, i]
     lib.pop2_gm_slope_blocks_per_sm.argtypes = [i, l]
     lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_flux_smem_values.argtypes = [i, i]
@@ -127,10 +127,13 @@ def _declare(lib) -> None:
     lib.pop2_clinic.restype = i
     lib.pop2_gm_slopes.argtypes = [i] * 7 + [l, d] + [p] * 9
     lib.pop2_gm_slopes.restype = i
-    lib.pop2_gm_chain.argtypes = [i] * 10 + [l] + [p] * 19
+    lib.pop2_gm_chain.argtypes = [i] * 10 + [l] + [p] * 20
     lib.pop2_gm_chain.restype = i
     lib.pop2_gm_flux.argtypes = [i] * 8 + [l] + [p] * 17
     lib.pop2_gm_flux.restype = i
+    lib.pop2_gm_tlt.argtypes = [i] * 4 + [p] * 10
+    lib.pop2_gm_tlt.restype = i
+    lib.pop2_gm_tlt_blocks_per_sm.argtypes = [i]
     for count in ("pop2_clinic_g2d_count", "pop2_gm_slope_coef_rows",
                   "pop2_gm_chain_lev_rows", "pop2_gm_flux_max_tracers",
                   "pop2_thomas_blocks_per_sm",
@@ -142,7 +145,8 @@ def _declare(lib) -> None:
                   "pop2_clinic_tile_rows", "pop2_max_dynamic_smem",
                   "pop2_gm_slope_blocks_per_sm", "pop2_gm_slope_smem_values",
                   "pop2_gm_slope_tile_rows", "pop2_gm_flux_blocks_per_sm",
-                  "pop2_gm_flux_smem_values", "pop2_gm_flux_tile_rows"):
+                  "pop2_gm_flux_smem_values", "pop2_gm_flux_tile_rows",
+                  "pop2_gm_tlt_threads", "pop2_gm_tlt_blocks_per_sm"):
         getattr(lib, count).restype = i
 
 

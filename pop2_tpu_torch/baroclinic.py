@@ -8,15 +8,18 @@ expressions here, except the hot pieces that are hand-written CUDA kernels
 on the GPU: the tracer tendency (``tracer_cuda``), the momentum forcing
 (``clinic_cuda``), every implicit vertical solve (``tridiag_cuda``) and,
 under ``hmix_tracer='gm'``, the GM/Redi mixing (``gm_slope_cuda`` +
-``gm_chain_cuda``, or ``gm_cuda`` at the end of ``gm.hdifft_gm``).
+``gm_tlt_cuda`` + ``gm_chain_cuda``, or ``gm_cuda`` at the end of
+``gm.hdifft_gm``).
 
 Time-mixing: leapfrog with Euler-forward first step; the averaging or
 Robert filter is ``step``'s.
 
-The port carries the dynamical core, GM, the chlorophyll (or Jerlov)
-shortwave heating and frazil ice. The branches of the JAX package's driver
-for the submesoscale scheme, KPP sources, passive tracers, interior
-restoring, estuaries, overflows and geothermal flux are left out;
+The port carries the dynamical core, KPP (with its non-local tracer
+source and Jayne tidal mixing), GM, the submesoscale scheme (folded into
+the GM chain kernel where that runs, its own tendency otherwise), the
+chlorophyll (or Jerlov) shortwave heating and frazil ice. The branches of
+the JAX package's driver for passive tracers, interior restoring,
+estuaries, overflows and geothermal flux are left out;
 ``supported.check_supported`` refuses the config switches that would select
 them.
 """
@@ -27,8 +30,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, ice
-from pop2_tpu_torch import sw_absorption, tracer_cuda, tridiag, vmix
+from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, ice, kpp
+from pop2_tpu_torch import submeso, sw_absorption, tracer_cuda, tridiag, vmix
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -47,6 +50,7 @@ class BaroclinicOut(NamedTuple):
     vdc: torch.Tensor         # (2, km, ny, nx) diffusivity used, for corrector
     vvc: torch.Tensor         # (km, ny, nx) viscosity used
     gm: Optional[gm.GMOut] = None  # GM tendency and diagnostics, if GM ran
+    kpp: Optional[kpp.KPPOut] = None  # under vmix='kpp': hblt, hmxl, ...
 
 
 def _timestep_arrays(cfg: ModelConfig, leapfrog: bool, device):
@@ -71,11 +75,12 @@ def _masked_density(cfg, grid, ts_range, tracer):
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
            state: State, forcing: Forcing, dh, dhu,
            leapfrog: bool, want_gm_diags: bool = True,
-           sw_profile=None) -> BaroclinicOut:
+           sw_profile=None, kpp_statics=None) -> BaroclinicOut:
     """Explicit baroclinic update (baroclinic_driver,
     source/baroclinic.F90:578): the tracer predictor and the normalized
     baroclinic velocity. ``sw_profile``: the Jerlov transmission profile
-    (``sw_absorption.absorb_profile``) when ``sw_absorption='jerlov'``."""
+    (``sw_absorption.absorb_profile``) when ``sw_absorption='jerlov'``;
+    ``kpp_statics``: ``kpp.build_statics`` when ``vmix='kpp'``."""
     c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     varthick = cfg.sfc_layer == "varthick"
@@ -89,31 +94,55 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         tmix, umix, vmix_m, rhomix = (state.tracer_cur, state.u_cur,
                                       state.v_cur, state.rho_cur)
 
+    # the constant chlorophyll field of the Ohlmann transmission, shared by
+    # KPP's radiative boundary-layer term and the shortwave heating below
+    chl = (torch.full_like(forcing.shf_qsw, cfg.chl_const)
+           if cfg.sw_absorption == "chlorophyll" else None)
+
     # ---- vertical mixing coefficients (source/baroclinic.F90:714-734) -----
-    coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix)
+    coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix,
+                              forcing=forcing, kpp_statics=kpp_statics,
+                              chl=chl)
+    kppo = coeffs.kpp
+    hblt = kppo.hblt if kppo is not None else None
+    hmxl = kppo.hmxl if kppo is not None else None
 
     # ---- tracer tendencies (tracer_update, source/baroclinic.F90:1902):
     # hdifft + comp_flux_vel/advt + vdifft fused in one kernel. Under GM the
-    # horizontal mixing is the GM kernels', its |S|^2 vertical diffusivity
+    # horizontal mixing is the GM kernels' (KPP's boundary layer the
+    # transition layer's diabatic depth), its |S|^2 vertical diffusivity
     # joins the implicit solves (source/hmix_gm.F90:1741-1748), and the
-    # tracer kernel runs without the Laplacian
+    # tracer kernel runs without the Laplacian. The chain kernel folds the
+    # submesoscale streamfunction into GM's; elsewhere the submesoscale
+    # tendency is its own (mix_submeso.F90, beside hdifft in tracer_update)
     gm_out = None
+    submeso_done = False
     if cfg.hmix_tracer == "gm":
         if gm_chain_cuda.available(cfg, grid):
             gm_out = gm_chain_cuda.hdifft_chain(
-                cfg, grid, bc, ts_range, tmix, want_diags=want_gm_diags)
+                cfg, grid, bc, ts_range, tmix, hblt=hblt, hmxl=hmxl,
+                want_diags=want_gm_diags)
+            submeso_done = cfg.lsubmeso
         else:
-            gm_out = gm.hdifft_gm(cfg, grid, bc, ts_range, tmix)
+            gm_out = gm.hdifft_gm(cfg, grid, bc, ts_range, tmix, hblt=hblt)
         coeffs = coeffs._replace(vdc=coeffs.vdc + gm_out.vdc_gm[None])
     ft = tracer_cuda.tracer_tendency(
         cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
         state.tracer_old, coeffs.vdc, forcing.stf, dh)
+    # ft is this step's own tensor: the terms below add to it in place
     if gm_out is not None:
-        ft += gm_out.gtk  # ft is this step's own tensor
+        ft += gm_out.gtk
+    if cfg.lsubmeso and not submeso_done:
+        ft += submeso.submeso_tendency(cfg, grid, bc, ts_range, tmix,
+                                       hmxl=hmxl)[0]
     if varthick:
         # freshwater tracer flux into the surface layer
-        # (source/baroclinic.F90:2128-2138); ft is this step's own tensor
+        # (source/baroclinic.F90:2128-2138)
         ft[:, 0] += vg.dzr[0] * forcing.tfw
+    # KPP non-local transport (add_kpp_sources,
+    # source/vmix_kpp.F90:3633-3692)
+    if kppo is not None:
+        ft += kpp.kpp_sources(cfg, grid, kppo.ghat_src, forcing.stf)
     # penetrative shortwave heating (add_sw_absorb,
     # source/sw_absorption.F90:818): the Jerlov profile, or the Ohlmann
     # chlorophyll transmission of a constant chlorophyll field
@@ -121,7 +150,6 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
                                          sw_profile)
     elif cfg.sw_absorption == "chlorophyll":
-        chl = torch.full_like(forcing.shf_qsw, cfg.chl_const)
         trans = sw_absorption.chl_transmission(cfg, grid, chl)
         ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
                                          trans)
@@ -198,7 +226,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     return BaroclinicOut(tracer_new=tracer_new, u_new=u_new, v_new=v_new,
                          rho_new=rho_new, zx=zx, zy=zy, vdc=coeffs.vdc,
-                         vvc=coeffs.vvc, gm=gm_out)
+                         vvc=coeffs.vvc, gm=gm_out, kpp=kppo)
 
 
 def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,

@@ -24,13 +24,14 @@ from pop2_tpu_torch.state import State
 def _from_numpy(cls, fields: Mapping[str, np.ndarray], cfg: ModelConfig,
                 device):
     names = [f.name for f in dataclasses.fields(cls)]
-    missing = [n for n in names if n not in fields]
+    optional = {f.name for f in dataclasses.fields(cls) if f.default is None}
+    missing = [n for n in names if n not in fields and n not in optional]
     if missing:
         raise KeyError(f"{cls.__name__} fields missing: {missing}")
     dt = cfg.torch_dtype
     device = resolve_device(device)
     return cls(**{n: torch.tensor(np.asarray(fields[n])).to(
-        device=device, dtype=dt) for n in names})
+        device=device, dtype=dt) for n in names if n in fields})
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], cfg: ModelConfig,

@@ -6,10 +6,11 @@
 //     regions, with its boundary values taken at K_LEVEL (:3441-3738)
 //   vertical transition profile of KAPPA_ISOP and HOR_DIFF (:3745-3840)
 //   skew-flux weights, per-tracer flux divergence GTK, VDC_GM (:1720-2080)
-//   optionally the diagnostic columns kappa_isop, kappa_thic, hor_diff.
+//   optionally the diagnostic columns kappa_isop, kappa_thic, hor_diff;
+//   optionally (`SM`, the TPU kernel's `with_sm`) the submesoscale
+//     streamfunction (mix_submeso.F90:341-772) folded into the merged one.
 //
-// Replaces the TPU kernel gm_chain_pallas.py `_kernel` / `chain_tiles`
-// (without its submesoscale fold-in, a later extension).
+// Replaces the TPU kernel gm_chain_pallas.py `_kernel` / `chain_tiles`.
 //
 // Bound on this card: bytes: nt tracer fields, 8 slopes, 2 slope measures
 // and the vertical profile in, nt + 1 (+ 3 diagnostic) fields out, against a
@@ -38,6 +39,13 @@
 //     and its neighbours' facing ones, read from shared memory where a
 //     tracer's fluxes use them, the vertical-flux carry of each tracer in
 //     shared memory.
+// With `SM` a column also holds, once, the submesoscale streamfunction's
+// amplitudes of its four faces and its mixed-layer depth (five 2-D planes,
+// `submeso.amplitudes` of the plain version); each level adds amplitude x
+// mu(z) (the Fox-Kemper vertical shape at the quarter cell's reference
+// depth, inside the mixed layer) to the face's merged streamfunction. The
+// skew flux is linear in the streamfunction, so this equals GM's tendency
+// plus the submesoscale one (`submeso.gtk`).
 // Closed edges read zero (copies of nothing, zero weights); a cyclic edge
 // wraps inside the halo. On a tripole grid (`fold`) the threads of the
 // ghost row gj = ny are the fold of the top row's columns (centre fields:
@@ -45,7 +53,12 @@
 // slopes, tracers and geometry and form its weights, and publish as their
 // south face the north face's skew weights with the sign flipped (the
 // faces swap under the 180-degree fold: `BC.n_partner` of the plain
-// version); the top row's north bottom level is the folded KMT. The block
+// version); the top row's north bottom level is the folded KMT. The
+// submesoscale amplitudes fold the same way: the ghost thread reads the
+// folded column's own (its north face's amplitude, whose buoyancy gradient
+// is that column's, ends up sign-flipped on the top row's north face with
+// the rest of the weight), as the plain version's `BC.n_partner` of the
+// south-face streamfunction does. The block
 // shape and the dynamic shared memory come from the wrapper's planner
 // (`gm_chain_cuda.launch_plan`).
 #include "gm_flux.cuh"
@@ -82,13 +95,20 @@ enum {
   cDD, cTHICK, cIDP, cSAFE, cW5, cW6, cW1, cW2 = cW1 + 4,
   cHYX = cW2 + 4, cHYXW, cHXY, cHXYS, cTAREA, kColConsts
 };
+// with `SM` also the submesoscale amplitudes of faces e, w, n, s and the
+// mixed-layer depth (planes of the `sm` operand in this order)
+enum { cSMA = kColConsts, cSMML = cSMA + 4, kColConstsSM, kSmPlanes = 5 };
+
+__host__ __device__ constexpr int col_consts(bool sm) {
+  return sm ? kColConstsSM : kColConsts;
+}
 
 // Values of dynamic shared memory a tile of `nthr` columns needs: the
 // column constants, two staged levels, a ring of four tracer levels, two
 // buffers of published weights, the vertical-flux carries.
-inline long chain_smem_values(int nt, int nthr) {
-  return (long)(kColConsts + 2 * kStagePlanes + 4 * nt + 2 * kPubWeights +
-                nt) * nthr;
+inline long chain_smem_values(int nt, int nthr, bool sm) {
+  return (long)(col_consts(sm) + 2 * kStagePlanes + 4 * nt +
+                2 * kPubWeights + nt) * nthr;
 }
 
 template <typename T>
@@ -268,8 +288,7 @@ __device__ __forceinline__ ChainLevel<T> chain_level(
 
 // Merged streamfunction of one quarter cell: linear through the diabatic
 // region, quadratic through the transition layer, kappa_thic*slope*dz below.
-// (The submesoscale fold-in, `with_sm`, will add its streamfunction to the
-// result here: ROADMAP.md Queue 2 kernel 5.)
+// (With `SM` the submesoscale streamfunction is added to the result.)
 template <typename T>
 __device__ __forceinline__ T chain_sf(const T* __restrict__ lev, int km,
                                       const ChainCol<T>& c, int k, int half,
@@ -341,7 +360,26 @@ struct TileWeights {
   }
 };
 
-template <typename T, bool BFRE, bool DIAGS, bool SAME_SLM>
+// The submesoscale vertical shape mu(z) of both halves of level k (zero
+// where the half's reference depth lies below the mixed layer or the
+// column).
+template <typename T>
+__device__ __forceinline__ void sm_shape(const T* __restrict__ lev, int km,
+                                         int k, int kmt, T ml, T mu[2]) {
+  const T ml_safe = ml > T(0) ? ml : T(1);
+  const bool in_col = k + 1 <= kmt;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const T rd = lev[(h == 0 ? lRDT : lRDB) * km + k];
+    T w3s = T(1) - T(2) * rd / ml_safe;
+    w3s = w3s * w3s;
+    mu[h] = (rd < ml && in_col)
+                ? (T(1) - w3s) * (T(1) + T(5.0 / 21.0) * w3s)
+                : T(0);
+  }
+}
+
+template <typename T, bool BFRE, bool DIAGS, bool SAME_SLM, bool SM>
 __global__ void __launch_bounds__(kTileCols * ChainTile<T>::kMaxRows)
 gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
                 ChainParams<T> p, const T* __restrict__ lev,
@@ -351,15 +389,15 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
                 const T* __restrict__ tarea_r, const T* __restrict__ dd,
                 const T* __restrict__ thk, const T* __restrict__ idp,
                 const int* __restrict__ kmt, const int* __restrict__ klev,
-                const int* __restrict__ ztw,
+                const int* __restrict__ ztw, const T* __restrict__ sm,
                 T* __restrict__ gtk, T* __restrict__ vdc,
                 T* __restrict__ diags) {
   extern __shared__ __align__(16) unsigned char pop2_smem[];
   const int nthr = kTileCols * blockDim.y;
   const int tid = threadIdx.y * kTileCols + threadIdx.x;
   const long ls = (long)ny * nx, ps = (long)km * ls;
-  T* cst = reinterpret_cast<T*>(pop2_smem);    // (kColConsts, nthr)
-  T* stage = cst + kColConsts * nthr;          // (2, kStagePlanes, nthr)
+  T* cst = reinterpret_cast<T*>(pop2_smem);    // (col_consts(SM), nthr)
+  T* stage = cst + col_consts(SM) * nthr;      // (2, kStagePlanes, nthr)
   T* ring = stage + 2 * kStagePlanes * nthr;   // (4, nt, nthr)
   T* pub = ring + 4 * nt * nthr;               // (2, kPubWeights, nthr)
   T* fzt = pub + 2 * kPubWeights * nthr;       // (nt, nthr)
@@ -421,6 +459,11 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
     for (int fc = 0; fc < 4; ++fc) {
       my[(cW1 + fc) * nthr] = w1[fc];
       my[(cW2 + fc) * nthr] = w2[fc];
+    }
+    if (SM) {
+#pragma unroll
+      for (int q = 0; q < kSmPlanes; ++q)
+        my[(cSMA + q) * nthr] = valid ? sm[q * ls + off] : T(0);
     }
   }
   int kmt5[5] = {};  // bottom levels of the stencil (interior columns)
@@ -511,6 +554,8 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
         p, col, lev, km, L, st[sSLA * nthr], st[(sSLA + 1) * nthr],
         BFRE ? st[sKV * nthr] : T(0));
     T sl_t[4], sl_b[4], sf_t[4], sf_b[4];
+    T mu[2] = {T(0), T(0)};
+    if (SM) sm_shape(lev, km, L, kmt_c, my[cSMML * nthr], mu);
 #pragma unroll
     for (int fc = 0; fc < 4; ++fc) {
       sl_t[fc] = st[(2 * fc) * nthr];
@@ -518,6 +563,11 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
       const T w1 = my[(cW1 + fc) * nthr], w2 = my[(cW2 + fc) * nthr];
       sf_t[fc] = chain_sf(lev, km, col, L, 0, w1, w2, l.kth[0], sl_t[fc]);
       sf_b[fc] = chain_sf(lev, km, col, L, 1, w1, w2, l.kth[1], sl_b[fc]);
+      if (SM) {
+        const T a = my[(cSMA + fc) * nthr];
+        sf_t[fc] += mu[0] * a;
+        sf_b[fc] += mu[1] * a;
+      }
     }
     gm_make_weights<T, false>(lev[lDZ * km + L], l.kis[0], l.kis[1],
                               l.hd[0], l.hd[1], sl_t, sl_b, sf_t, sf_b,
@@ -565,15 +615,15 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
   }
 }
 
-template <typename T, bool BFRE, bool DIAGS, bool SAME>
+template <typename T, bool BFRE, bool DIAGS, bool SAME, bool SM>
 struct ChainInstance {
   static cudaError_t prepare(long smem) {
-    return allow_large_smem(gm_chain_kernel<T, BFRE, DIAGS, SAME>, smem);
+    return allow_large_smem(gm_chain_kernel<T, BFRE, DIAGS, SAME, SM>, smem);
   }
   static int occupancy(int rows, long smem) {
     const cudaError_t e = prepare(smem);
     if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(gm_chain_kernel<T, BFRE, DIAGS, SAME>,
+    return blocks_per_sm(gm_chain_kernel<T, BFRE, DIAGS, SAME, SM>,
                          kTileCols * rows, smem);
   }
 };
@@ -581,41 +631,49 @@ struct ChainInstance {
 // The launch configuration the wrapper chose: `rows` rows of kTileCols
 // columns, `smem` bytes of dynamic shared memory.
 template <typename T>
-bool chain_config_ok(int nt, int km, int rows, long smem) {
+bool chain_config_ok(int nt, int km, int rows, long smem, bool sm) {
   return nt >= 1 && nt <= kMaxTracers && km >= 1 && rows >= 3 &&
          rows <= ChainTile<T>::kMaxRows &&
-         smem >= chain_smem_values(nt, kTileCols * rows) * (long)sizeof(T);
+         smem >= chain_smem_values(nt, kTileCols * rows, sm) *
+                     (long)sizeof(T);
 }
 
 }  // namespace pop2
 
 extern "C" int pop2_gm_chain_lev_rows() { return pop2::kChainLevRows; }
 
-// Values of dynamic shared memory a tile column takes with nt tracers (the
-// planner's per-column count, gm_chain_cuda.smem_values).
-extern "C" int pop2_gm_chain_smem_values(int nt) {
-  return (int)pop2::chain_smem_values(nt, 1);
+// Values of dynamic shared memory a tile column takes with nt tracers, with
+// the submesoscale fold-in or without (the planner's per-column count,
+// gm_chain_cuda.smem_values).
+extern "C" int pop2_gm_chain_smem_values(int nt, int sm) {
+  return (int)pop2::chain_smem_values(nt, 1, sm != 0);
 }
 
+#define POP2_GM_CHAIN_SM(T, B, D, S, ACTION)                                 \
+  if (flags & 8) ACTION(T, B, D, S, true) else ACTION(T, B, D, S, false)
+#define POP2_GM_CHAIN_SAME(T, B, D, ACTION)                                  \
+  if (flags & 4) {                                                           \
+    POP2_GM_CHAIN_SM(T, B, D, true, ACTION)                                  \
+  } else {                                                                   \
+    POP2_GM_CHAIN_SM(T, B, D, false, ACTION)                                 \
+  }
 #define POP2_GM_CHAIN_FLAGS(T, ACTION)                                       \
-  switch (flags & 7) {                                                       \
-    case 0: ACTION(T, false, false, false) break;                            \
-    case 1: ACTION(T, true, false, false) break;                             \
-    case 2: ACTION(T, false, true, false) break;                             \
-    case 3: ACTION(T, true, true, false) break;                              \
-    case 4: ACTION(T, false, false, true) break;                             \
-    case 5: ACTION(T, true, false, true) break;                              \
-    case 6: ACTION(T, false, true, true) break;                              \
-    default: ACTION(T, true, true, true) break;                              \
+  switch (flags & 3) {                                                       \
+    case 0: POP2_GM_CHAIN_SAME(T, false, false, ACTION) break;               \
+    case 1: POP2_GM_CHAIN_SAME(T, true, false, ACTION) break;                \
+    case 2: POP2_GM_CHAIN_SAME(T, false, true, ACTION) break;                \
+    default: POP2_GM_CHAIN_SAME(T, true, true, ACTION) break;                \
   }
 
 // dtype: 0 = float32, 1 = float64; cyclic: the east-west edge wraps; fold:
 // the north edge is a tripole fold; flags: bit 0 bfre kappa, bit 1 write the
-// diagnostic columns, bit 2 slm_r == slm_b; rows: rows of the tile (halo
-// included); smem: dynamic shared memory a block, bytes; params: slm_r,
-// slm_b, ah, ah_bolus, isop_deep, thic_deep, ah_srfbl, ah_bottom. Returns
-// cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
-// configuration the kernel does not take or the card cannot hold.
+// diagnostic columns, bit 2 slm_r == slm_b, bit 3 the submesoscale fold-in
+// (`sm`: (5, ny, nx) amplitudes of faces e, w, n, s and the mixed-layer
+// depth; unread without it); rows: rows of the tile (halo included); smem:
+// dynamic shared memory a block, bytes; params: slm_r, slm_b, ah, ah_bolus,
+// isop_deep, thic_deep, ah_srfbl, ah_bottom. Returns cudaGetLastError() of
+// the launch, or cudaErrorInvalidValue for a configuration the kernel does
+// not take or the card cannot hold.
 extern "C" int pop2_gm_chain(int dtype, int nt, int km, int ny, int nx,
                              int cyclic, int fold, int flags, int hd_const,
                              int rows, long smem, const double* params,
@@ -625,29 +683,33 @@ extern "C" int pop2_gm_chain(int dtype, int nt, int km, int ny, int nx,
                              const void* hxy, const void* tarea_r,
                              const void* dd, const void* thk,
                              const void* idp, const int* kmt,
-                             const int* klev, const int* ztw, void* gtk,
-                             void* vdc, void* diags, void* stream) {
+                             const int* klev, const int* ztw,
+                             const void* sm, void* gtk, void* vdc,
+                             void* diags, void* stream) {
   using namespace pop2;
-  if (!(dtype == 0 ? chain_config_ok<float>(nt, km, rows, smem)
-                   : chain_config_ok<double>(nt, km, rows, smem)))
+  const bool with_sm = (flags & 8) != 0;
+  if (!(dtype == 0 ? chain_config_ok<float>(nt, km, rows, smem, with_sm)
+                   : chain_config_ok<double>(nt, km, rows, smem, with_sm)) ||
+      (with_sm && sm == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((nx + kTileInterior - 1) / kTileInterior),
                   (unsigned)((ny + rows - 3) / (rows - 2)));
   const dim3 block(kTileCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_GM_CHAIN(T, BFRE, DIAGS, SAME)                                  \
+#define POP2_GM_CHAIN(T, BFRE, DIAGS, SAME, SMF)                             \
   {                                                                          \
     const cudaError_t e =                                                    \
-        ChainInstance<T, BFRE, DIAGS, SAME>::prepare(smem);                  \
+        ChainInstance<T, BFRE, DIAGS, SAME, SMF>::prepare(smem);             \
     if (e != cudaSuccess) return (int)e;                                     \
     ChainParams<T> p{(T)params[0], (T)params[1], (T)params[2],               \
                      (T)params[3], (T)params[4], (T)params[5],               \
                      (T)params[6], (T)params[7], hd_const};                  \
-    gm_chain_kernel<T, BFRE, DIAGS, SAME><<<grid, block, smem, s>>>(         \
+    gm_chain_kernel<T, BFRE, DIAGS, SAME, SMF><<<grid, block, smem, s>>>(    \
         nt, km, ny, nx, cyclic, fold, p, (const T*)lev, (const T*)tmix,      \
         (const T*)slp, (const T*)sla, (const T*)kv, (const T*)hyx,           \
         (const T*)hxy, (const T*)tarea_r, (const T*)dd, (const T*)thk,       \
-        (const T*)idp, kmt, klev, ztw, (T*)gtk, (T*)vdc, (T*)diags);         \
+        (const T*)idp, kmt, klev, ztw, (const T*)sm, (T*)gtk, (T*)vdc,       \
+        (T*)diags);                                                          \
   }
   if (dtype == 0) {
     POP2_GM_CHAIN_FLAGS(float, POP2_GM_CHAIN)
@@ -662,8 +724,8 @@ extern "C" int pop2_gm_chain(int dtype, int nt, int km, int ny, int nx,
 extern "C" int pop2_gm_chain_blocks_per_sm(int dtype, int flags, int rows,
                                            long smem) {
   using namespace pop2;
-#define POP2_GM_CHAIN_OCC(T, BFRE, DIAGS, SAME)                              \
-  return ChainInstance<T, BFRE, DIAGS, SAME>::occupancy(rows, smem);
+#define POP2_GM_CHAIN_OCC(T, BFRE, DIAGS, SAME, SMF)                         \
+  return ChainInstance<T, BFRE, DIAGS, SAME, SMF>::occupancy(rows, smem);
   if (dtype == 0) {
     POP2_GM_CHAIN_FLAGS(float, POP2_GM_CHAIN_OCC)
   } else {
@@ -673,3 +735,5 @@ extern "C" int pop2_gm_chain_blocks_per_sm(int dtype, int flags, int rows,
   return -(int)cudaErrorInvalidValue;  // not reached: every case returns
 }
 #undef POP2_GM_CHAIN_FLAGS
+#undef POP2_GM_CHAIN_SAME
+#undef POP2_GM_CHAIN_SM

@@ -10,6 +10,7 @@ file-based and coupled forcing are later slices (ROADMAP.md Queue 1 item 11).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -27,6 +28,9 @@ class Forcing(TensorTree):
     shf_qsw: torch.Tensor   # (ny, nx) penetrating shortwave
     fw: torch.Tensor        # (ny, nx) freshwater flux (cm/s)
     atm_press: torch.Tensor  # (ny, nx) atmospheric pressure
+    # the 18.6-year lunar-nodal-cycle factor on the tidal energy; None is 1
+    # (the cycle itself is not ported: ROADMAP.md Queue 1 item 11)
+    tidal_lnc: Optional[torch.Tensor] = None
 
 
 def analytic_forcing(cfg: ModelConfig, grid: Grid, device=None) -> Forcing:

@@ -25,9 +25,11 @@ On a tripole grid the north face differences fold as centre scalars and the
 south-face skew weights' ghost row is the fold of the north-face ones with
 the sign flipped (``BC.n_partner``, in the flux assembly).
 
-Not ported yet (each raises, ROADMAP.md Queue 1): the KPP boundary-layer
-depth as diabatic depth (item 6), the 'depth', 'vmhs' and 'eg' diffusivity
-types and the anisotropic variant (item 11).
+With KPP the diabatic depth of the transition layer is the smoothed
+boundary-layer depth (``kpp.smooth_hblt``), and without the transition
+layer the boundary-layer depth bounds the near-surface taper. Not ported yet
+(each raises, ROADMAP.md Queue 1 item 11): the 'depth', 'vmhs' and 'eg'
+diffusivity types and the anisotropic variant.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos
+from pop2_tpu_torch import eos, kpp
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.gm_cuda import flux_assembly, flux_assembly_plain
 from pop2_tpu_torch.gm_cuda import level_below as _down
@@ -548,15 +550,17 @@ def kappa_fields(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
 
 def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
              sla, tlt: Optional[TLT], kappa_isop, kappa_thic, kappa_equal,
-             kappa_vert, flux=flux_assembly) -> GMOut:
+             kappa_vert, flux=flux_assembly, bl_depth=None) -> GMOut:
     """Everything of hdifft_gm after the slopes, the transition-layer search
     and the diffusivities: tapers, boundary conditions, horizontal diffusion
     of the surface layer, merged streamfunction and vertical profile (with
-    the transition layer), and the flux assembly ``flux``."""
+    the transition layer), and the flux assembly ``flux``. ``bl_depth``:
+    the KPP boundary-layer depth, the first layer without one."""
     km = cfg.km
     dz = grid.vgrid.dz.reshape(km, 1, 1)
     kidx = _kidx(km, sla.device)
-    bl_depth = first_layer_depth(grid)
+    if bl_depth is None:
+        bl_depth = first_layer_depth(grid)
     tap_isop, tap_thic = _tapers(cfg, grid, sla, bl_depth, tlt)
 
     kisop = tap_isop * kappa_isop         # (half, km, ny, nx)
@@ -615,38 +619,42 @@ def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
                  int_depth=tlt.interior_depth if tlt is not None else None)
 
 
-def check_gm_config(cfg: ModelConfig, hblt=None) -> None:
+def check_gm_config(cfg: ModelConfig) -> None:
     """Raise for what no GM path of the port carries yet."""
-    todo = []
     if cfg.gm_aniso is not None:
-        todo.append(f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11)")
-    if hblt is not None:
-        todo.append("a KPP boundary-layer depth (Queue 1 item 6: "
-                    "kpp.smooth_hblt)")
-    if todo:
         raise NotImplementedError(
-            "GM option not ported yet (ROADMAP.md): " + "; ".join(todo))
+            "GM option not ported yet (ROADMAP.md): "
+            f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11)")
+
+
+def diabatic_depth(cfg: ModelConfig, grid: Grid, bc: BC, hblt=None):
+    """The transition layer's diabatic depth: the KPP boundary-layer depth
+    smoothed once more (hdifft_gm :1227-1228, smooth_hblt's SMOOTH_OUT
+    path), or the first layer without KPP."""
+    if hblt is None:
+        return first_layer_depth(grid)
+    return kpp.smooth_hblt(cfg, grid, bc, hblt)[0]
 
 
 def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
               hblt=None) -> GMOut:
     """GM/Redi tracer tendency + VDC_GM (hdifft_gm,
-    source/hmix_gm.F90:1102-2219). On CUDA tensors the flux assembly at the
-    end goes through the ``gm_cuda`` kernel."""
-    check_gm_config(cfg, hblt)
+    source/hmix_gm.F90:1102-2219); ``hblt``: the KPP boundary-layer depth.
+    On CUDA tensors the flux assembly at the end goes through the
+    ``gm_cuda`` kernel."""
+    check_gm_config(cfg)
     tx, ty, tz, slx, sly = _slopes(cfg, grid, bc, ts_range, tmix)
     sla = _sla(cfg, grid, slx, sly)
 
-    # transition-layer geometry (:1221-1247): without a KPP boundary layer
-    # the diabatic depth is the first layer
+    # transition-layer geometry (:1221-1247)
     tlt = None
     if cfg.gm_transition_layer:
-        tlt = transition_layer(cfg, grid, first_layer_depth(grid), sla,
-                               _rossby_radius(grid))
+        tlt = transition_layer(cfg, grid, diabatic_depth(cfg, grid, bc, hblt),
+                               sla, _rossby_radius(grid))
     # surface-diabatic-layer depth of the bfre normalization (:3085-3087)
-    sdl = tlt.interior_depth if tlt is not None else None
+    sdl = tlt.interior_depth if tlt is not None else hblt
     kappa_isop, kappa_thic, kappa_equal, kappa_vert = kappa_fields(
         cfg, grid, bc, ts_range, tmix, sdl=sdl)
     return assemble(cfg, grid, bc, tx, ty, tz, slx, sly, sla, tlt,
                     kappa_isop, kappa_thic, kappa_equal, kappa_vert,
-                    flux=flux_assembly)
+                    flux=flux_assembly, bl_depth=hblt)

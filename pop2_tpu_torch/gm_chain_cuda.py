@@ -6,13 +6,16 @@ Replaces the TPU kernel ``gm_chain_pallas.py`` (``_kernel`` /
 transition layer on and const or bfre diffusivities of one type, a step runs
 
     slope kernel (``gm_slope_cuda.slopes``)
-      -> plain transition-layer search and bfre vertical profile
-         (``gm.transition_layer``, ``gm.kappa_vertical_bfre``: sequential
-         searches down the column on 2-D fields)
+      -> transition-layer search kernel (``gm_tlt_cuda``) from the diabatic
+         depth (the KPP boundary layer, smoothed, or the first layer) and
+         plain bfre vertical profile (``gm.kappa_vertical_bfre``)
       -> chain kernel: notanh tapers, diffusivities with the deep floors,
          merged streamfunction, vertical transition profile, skew-flux
          weights, per-tracer flux divergence GTK and VDC_GM, optionally the
-         diagnostic columns kappa_isop / kappa_thic / hor_diff.
+         diagnostic columns kappa_isop / kappa_thic / hor_diff, and with
+         ``lsubmeso`` the submesoscale streamfunction folded into the merged
+         one (``with_sm``: 2-D amplitudes from ``submeso.amplitudes`` times
+         the vertical shape, formed in the kernel).
 
 On an H100 the chain kernel is bound by bytes: nt + 11 fields in, nt + 1
 (+ 3) out. The plain version is ``gm.assemble`` with the plain flux
@@ -25,10 +28,10 @@ neighbours through shared memory (see the note in ``csrc/gm_chain.cu``).
 Float32 and float64.
 
 Closed or tripole north edge: on a tripole grid the tile's ghost-row
-threads form the folded column's weights and publish the south-face ones as
-the north face's with the sign flipped (``BC.n_partner``). Left for later,
-each raising ``NotImplementedError`` (ROADMAP.md Queue 2 kernel 5): the
-submesoscale fold-in (``with_sm``), 3-D layer thickness.
+threads form the folded column's weights (its submesoscale amplitudes
+included) and publish the south-face ones as the north face's with the sign
+flipped (``BC.n_partner``). Left for later, raising ``NotImplementedError``
+(ROADMAP.md Queue 2 kernel 5): 3-D layer thickness.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import ctypes
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import gm, gm_cuda, gm_slope_cuda
+from pop2_tpu_torch import gm, gm_cuda, gm_slope_cuda, gm_tlt_cuda, submeso
 from pop2_tpu_torch.gm_cuda import flux_assembly_plain
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
@@ -53,18 +56,25 @@ TILE_COLS = 32  # columns a tile row, halo included (kTileCols: one warp)
 _ROWS = {4: 8, 8: 6}
 
 
-def smem_values(nt: int) -> int:
+#: planes of the submesoscale operand: amplitudes of faces e, w, n, s and
+#: the mixed-layer depth (``submeso.amplitudes``)
+SM_PLANES = 5
+
+
+def smem_values(nt: int, sm: bool = False) -> int:
     """Values of shared memory a tile column holds with ``nt`` tracers: 19
-    constants, two staged levels of 11 planes, two buffers of 9 published
-    weights, and per tracer a ring of four levels and the vertical-flux
-    carry (``chain_smem_values`` of csrc/gm_chain.cu, which chip_smoke.py
-    holds this against)."""
-    return 19 + 2 * 11 + 2 * 9 + (4 + 1) * nt
+    constants (24 with the submesoscale fold-in ``sm``: its five planes),
+    two staged levels of 11 planes, two buffers of 9 published weights, and
+    per tracer a ring of four levels and the vertical-flux carry
+    (``chain_smem_values`` of csrc/gm_chain.cu, which chip_smoke.py holds
+    this against)."""
+    return 19 + (SM_PLANES if sm else 0) + 2 * 11 + 2 * 9 + (4 + 1) * nt
 
 
-def launch_plan(value_bytes: int, nt: int):
+def launch_plan(value_bytes: int, nt: int, sm: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
-    chain kernel launch for ``nt`` tracers in values of ``value_bytes``.
+    chain kernel launch for ``nt`` tracers in values of ``value_bytes``,
+    with the submesoscale fold-in or without (``sm``).
 
     A block is a tile of TILE_COLS x rows columns, the outer ring a halo:
     (TILE_COLS - 2) x (rows - 2) columns a block are computed. Raises for
@@ -78,8 +88,9 @@ def launch_plan(value_bytes: int, nt: int):
             f"GM chain kernel carries at most {MAX_TRACERS} tracers a "
             f"launch, got {nt}")
     rows = _ROWS[value_bytes]
-    smem = smem_values(nt) * TILE_COLS * rows * value_bytes
-    cb.check_smem(smem, f"GM chain tile ({TILE_COLS} x {rows}, nt={nt})")
+    smem = smem_values(nt, sm) * TILE_COLS * rows * value_bytes
+    cb.check_smem(smem, f"GM chain tile ({TILE_COLS} x {rows}, nt={nt}, "
+                  f"sm={bool(sm)})")
     return (TILE_COLS, rows), smem
 
 
@@ -92,11 +103,8 @@ def available(cfg, grid) -> bool:
             and cfg.gm_kappa_isop_type in ("const", "bfre"))
 
 
-def _check_mode(cfg, grid, with_sm: bool = False):
+def _check_mode(cfg, grid):
     todo = []
-    if with_sm or cfg.lsubmeso:
-        todo.append("with_sm (the submesoscale fold-in; Queue 1 item 7: "
-                    "submeso.py)")
     if not available(cfg, grid):
         todo.append("a GM configuration outside the chain (transition layer "
                     "off, anisotropic, or kappa types other than one of "
@@ -133,31 +141,42 @@ def level_scalars(grid):
 
 
 def chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
-                want_diags: bool = True):
+                want_diags: bool = True, sm=None):
     """Plain PyTorch version: (gtk, vdc_gm, diags) from the slope kernel's
-    outputs, the vertical profile ``kv`` (km, ny, nx; ones for const kappa)
-    and the transition-layer fields. ``diags`` is (3, km, ny, nx) =
-    kappa_isop, kappa_thic, hor_diff, or None."""
+    outputs, the vertical profile ``kv`` (km, ny, nx; ones for const kappa),
+    the transition-layer fields and, with the submesoscale fold-in, its
+    amplitudes ``sm`` (5, ny, nx; ``submeso.amplitudes``). ``diags`` is (3,
+    km, ny, nx) = kappa_isop, kappa_thic, hor_diff, or None. With ``sm`` the
+    tendency is GM's plus the submesoscale skew flux of the streamfunction
+    the amplitudes give (``submeso.gtk``), as the JAX package adds
+    ``submeso_tendency`` to ``hdifft_gm``."""
     slx, sly = gm_slope_cuda.unpack_slopes(slp)
     tx, ty, tz = gm.tracer_diffs(cfg, grid, bc, tmix)
     kappa_isop, kappa_thic, kappa_equal = gm.kappa_from_profile(cfg, kv)
     out = gm.assemble(cfg, grid, bc, tx, ty, tz, slx, sly, sla, tlt,
                       kappa_isop, kappa_thic, kappa_equal, kv,
                       flux=flux_assembly_plain)
+    gtk = out.gtk
+    if sm is not None:
+        sfx, sfy = submeso.sf_from_amps(grid, sm)
+        gtk = gtk + submeso.gtk(cfg, grid, bc, sfx, sfy, tx, ty, tz)
     diags = (torch.stack([out.kappa_isop, out.kappa_thic, out.hor_diff])
              if want_diags else None)
-    return out.gtk, out.vdc_gm, diags
+    return gtk, out.vdc_gm, diags
 
 
-def kernel_flags(cfg, want_diags: bool) -> int:
+def kernel_flags(cfg, want_diags: bool, sm: bool = False) -> int:
     """The template instance of the kernel: bit 0 bfre kappa, bit 1 the
-    diagnostic columns, bit 2 equal slope limits."""
+    diagnostic columns, bit 2 equal slope limits, bit 3 the submesoscale
+    fold-in."""
     return (int(cfg.gm_kappa_isop_type == "bfre")
             | int(bool(want_diags)) << 1
-            | int(cfg.gm_slm_r == cfg.gm_slm_b) << 2)
+            | int(cfg.gm_slm_r == cfg.gm_slm_b) << 2
+            | int(bool(sm)) << 3)
 
 
-def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
+def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool,
+                sm=None):
     """Check the operands and allocate the outputs of a kernel launch.
     Returns (head, tail, (gtk, vdc, diags)): the arguments of
     ``pop2_gm_chain`` before the launch plan's rows and shared memory
@@ -181,6 +200,8 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
     for name, t in (("KMT", grid.KMT), ("k_level", tlt.k_level),
                     ("ztw", tlt.ztw)):
         cb.check_operand(name, t, f2, torch.int32, dev)
+    if sm is not None:
+        cb.check_operand("sm", sm, (SM_PLANES,) + f2, dt, dev)
     params = (ctypes.c_double * 8)(
         cfg.gm_slm_r, cfg.gm_slm_b, cfg.gm_ah, cfg.gm_ah_bolus,
         cfg.gm_kappa_isop_deep, cfg.gm_kappa_thic_deep, cfg.gm_ah_bkg_srfbl,
@@ -191,30 +212,33 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool):
              else None)
     head = (cb.dtype_code(tmix), nt, km, ny, nx,
             int(cfg.ew_boundary == "cyclic"),
-            int(cfg.ns_boundary == "tripole"), kernel_flags(cfg, want_diags),
+            int(cfg.ns_boundary == "tripole"),
+            kernel_flags(cfg, want_diags, sm is not None),
             int(bool(cfg.gm_use_const_ah_bkg_srfbl)))
     tail = (params, lev.data_ptr(), tmix.data_ptr(), slp.data_ptr(),
             sla.data_ptr(), kv.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
             grid.TAREA_R.data_ptr(), tlt.diabatic_depth.data_ptr(),
             tlt.thickness.data_ptr(), tlt.interior_depth.data_ptr(),
             grid.KMT.data_ptr(), tlt.k_level.data_ptr(), tlt.ztw.data_ptr(),
+            sm.data_ptr() if sm is not None else None,
             gtk.data_ptr(), vdc.data_ptr(),
             diags.data_ptr() if want_diags else None, cb.stream_ptr())
     return head, tail, (gtk, vdc, diags)
 
 
 def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
-          with_sm: bool = False):
+          sm=None):
     """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
     through the kernel, CPU tensors through the plain version."""
     global launches
-    _check_mode(cfg, grid, with_sm)
+    _check_mode(cfg, grid)
     if not tmix.is_cuda:
         return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
-                           want_diags)
-    (_, rows), smem = launch_plan(tmix.element_size(), tmix.shape[0])
+                           want_diags, sm)
+    (_, rows), smem = launch_plan(tmix.element_size(), tmix.shape[0],
+                                  sm is not None)
     head, tail, out = launch_args(cfg, grid, tmix, slp, sla, kv, tlt,
-                                  want_diags)
+                                  want_diags, sm)
     err = cb.lib().pop2_gm_chain(*head, rows, smem, *tail)
     cb.check_launch(err, "gm chain")
     launches += 1
@@ -223,24 +247,28 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
 
 def hdifft_chain(cfg, grid, bc, ts_range, tmix, hblt=None, hmxl=None,
                  want_diags: bool = True) -> gm.GMOut:
-    """The fused GM tendency: slope kernel -> plain transition-layer search
-    and bfre profile -> chain kernel. On CPU tensors both kernels are their
-    plain versions."""
-    gm.check_gm_config(cfg, hblt)
-    _check_mode(cfg, grid, with_sm=hmxl is not None)
+    """The fused GM tendency, with the submesoscale one folded in under
+    ``lsubmeso``: slope kernel -> transition-layer search kernel and plain
+    bfre profile -> chain kernel. ``hblt``, ``hmxl``: KPP's boundary-layer
+    and mixed-layer depths (the first layer without KPP). On CPU tensors the
+    kernels are their plain versions."""
+    gm.check_gm_config(cfg)
+    _check_mode(cfg, grid)
     slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, ts_range, tmix)
 
-    # without a KPP boundary layer the diabatic depth is the first layer
-    tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
-                              gm._rossby_radius(grid))
+    tlt = gm_tlt_cuda.transition_layer(
+        cfg, grid, gm.diabatic_depth(cfg, grid, bc, hblt), sla,
+        gm._rossby_radius(grid))
     if cfg.gm_kappa_isop_type == "bfre":
         kv = gm.kappa_vertical_bfre(cfg, grid, ts_range, tmix,
                                     tlt.interior_depth, n2=n2)
     else:
         kv = torch.ones_like(n2)
+    sm = (submeso.amplitudes(cfg, grid, bc, ts_range, tmix, hmxl)
+          if cfg.lsubmeso else None)
 
     gtk, vdc, diags = chain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
-                            want_diags)
+                            want_diags, sm)
     return gm.GMOut(
         gtk=gtk, vdc_gm=vdc,
         kappa_isop=diags[0] if want_diags else None,

@@ -24,7 +24,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos, solvers, step as step_mod, sw_absorption
+from pop2_tpu_torch import eos, kpp, solvers, step as step_mod
+from pop2_tpu_torch import sw_absorption
 from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing, analytic_forcing
@@ -53,6 +54,10 @@ class Model:
         self.nsteps_total = 0
         self.sw_profile = (sw_absorption.absorb_profile(cfg, self.grid)
                            if cfg.sw_absorption == "jerlov" else None)
+        # KPP's background profiles, surface-layer pair weights and tidal
+        # coefficient, built once
+        self.kpp_statics = (kpp.build_statics(cfg, self.grid)
+                            if cfg.vmix == "kpp" else None)
         solve64 = (cfg.solver.solve_dtype == "float64"
                    and cfg.torch_dtype != torch.float64)
 
@@ -100,7 +105,7 @@ class Model:
         return step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
                              state, forcing, leapfrog, avg_ts,
                              self._pcsi_eigs.get(leapfrog), self.precond,
-                             self.sw_profile)
+                             self.sw_profile, self.kpp_statics)
 
     def run(self, state: State, nsteps: int,
             forcing: Optional[Forcing] = None) -> State:

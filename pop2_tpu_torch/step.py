@@ -32,6 +32,10 @@ from pop2_tpu_torch.tripole import enforce_top_symmetry
 class StepDiagnostics(NamedTuple):
     solver_iters: int
     solver_rr: torch.Tensor
+    # KPP's boundary-layer and mixed-layer depths (HBLT/HMXL,
+    # vmix_kpp.F90), None without KPP
+    hblt: Optional[torch.Tensor] = None
+    hmxl: Optional[torch.Tensor] = None
 
 
 def dhdt(cfg: ModelConfig, grid: Grid, bc: BC, state: State):
@@ -114,12 +118,12 @@ def _avg_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
 def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
          forcing: Forcing, leapfrog: bool, avg_ts: bool,
          pcsi_eigs: Optional[Tuple[float, float]] = None, precond=None,
-         sw_profile=None):
+         sw_profile=None, kpp_statics=None):
     """Advance one timestep (leapfrog, Euler-forward for the first step,
     the averaging or Robert filter). ``precond``: the barotropic solver's
     preconditioner (``solvers.FSPAI9``) or None for the diagonal one;
-    ``sw_profile``: the Jerlov shortwave profile. Returns
-    (state, StepDiagnostics)."""
+    ``sw_profile``: the Jerlov shortwave profile; ``kpp_statics``: KPP's
+    (``kpp.build_statics``). Returns (state, StepDiagnostics)."""
     if cfg.time.time_mix_opt not in ("avg", "robert"):
         raise NotImplementedError(
             f"time_mix_opt={cfg.time.time_mix_opt!r} is not ported yet "
@@ -133,7 +137,7 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     # written)
     bout = baroclinic.driver(cfg, grid, bc, ts_range, state, forcing,
                              dh, dhu, leapfrog, want_gm_diags=False,
-                             sw_profile=sw_profile)
+                             sw_profile=sw_profile, kpp_statics=kpp_statics)
 
     # 3. implicit barotropic solve (source/step_mod.F90:437)
     tout = barotropic.driver(cfg, grid, bc, state, forcing, bout.zx,
@@ -184,8 +188,11 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     elif avg_ts:
         new = _avg_filter(cfg, grid, ts_range, state, new)
 
-    return new, StepDiagnostics(solver_iters=tout.solver_iters,
-                                solver_rr=tout.solver_rr)
+    kppo = bout.kpp
+    return new, StepDiagnostics(
+        solver_iters=tout.solver_iters, solver_rr=tout.solver_rr,
+        hblt=kppo.hblt if kppo is not None else None,
+        hmxl=kppo.hmxl if kppo is not None else None)
 
 
 def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,

@@ -36,8 +36,8 @@ def unsupported(cfg: ModelConfig) -> list:
          "beside gm.py)"),
         (cfg.hmix_momentum not in ("del2", "aniso"),
          f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 item 11: del4)"),
-        (cfg.vmix not in ("const", "rich"),
-         f"vmix={cfg.vmix!r} (Queue 1 item 6: kpp.py)"),
+        (cfg.vmix not in ("const", "rich", "kpp"),
+         f"vmix={cfg.vmix!r}"),
         (not cfg.implicit_vertical_mix,
          "explicit vertical mixing (absent from the JAX package too)"),
         (cfg.sw_absorption == "chlorophyll" and cfg.chl_option != "const",
@@ -47,13 +47,24 @@ def unsupported(cfg: ModelConfig) -> list:
          "geoheatflux_const (Queue 1 item 11)"),
         (cfg.ldamp_uv, "ldamp_uv (Queue 1 item 11)"),
         (cfg.lestuary_exch, "lestuary_exch (Queue 1 item 11: estuary.py)"),
-        (cfg.ltidal_mixing, "ltidal_mixing (Queue 1 item 6: "
-         "tidal_mixing.py)"),
-        (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11)"),
+        (cfg.ltidal_mixing and cfg.tidal_mixing_method == "polzin",
+         "tidal_mixing_method='polzin' (Queue 1 item 11: Polzin/Melet "
+         "tidal mixing)"),
+        (cfg.ltidal_mixing and cfg.tidal_mixing_method == "schmittner",
+         "tidal_mixing_method='schmittner' (Queue 1 item 11: Schmittner "
+         "tidal mixing)"),
+        (cfg.ltidal_mixing and cfg.tidal_mixing_method not in (
+            "jayne", "polzin", "schmittner"),
+         f"tidal_mixing_method={cfg.tidal_mixing_method!r}"),
+        (cfg.ltidal_mixing and cfg.ltidal_schmittner_socn,
+         "ltidal_schmittner_socn (Queue 1 item 11: the Southern-Ocean "
+         "floor of tidal mixing)"),
+        (cfg.ltidal_mixing and cfg.ltidal_lunar_cycle,
+         "ltidal_lunar_cycle (Queue 1 item 11: the lunar cycle of tidal "
+         "mixing)"),
+        (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11: NIW mixing)"),
         (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
         (bool(cfg.overflows), "overflows (Queue 1 item 8: overflows.py)"),
-        (cfg.lsubmeso, "lsubmeso (Queue 1 item 7: submeso.py; Queue 2 "
-         "kernel 5: with_sm)"),
         (t.time_mix_opt not in ("avg", "robert"),
          f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 10: avgfit "
          "calendar)"),

@@ -27,25 +27,26 @@ DEPTH_CUTOFF = -200.0  # meters
 
 
 def sw_absorb_frac(depth_cm, water_type: int):
-    """Transmission fraction at depth (source/sw_absorption.F90:796-805),
-    NumPy."""
+    """Transmission fraction at the depths of the tensor ``depth_cm``
+    (source/sw_absorption.F90:796-805): the Jerlov profile, and KPP's
+    radiative term of the boundary-layer depth (vmix_kpp.F90:2387-2402,
+    2715-2720)."""
     i = water_type - 1
-    z = -np.asarray(depth_cm) * const.MPERCM
-    frac = (RFAC[i] * np.exp(z / DEPTH1[i])
-            + (1.0 - RFAC[i]) * np.exp(z / DEPTH2[i]))
-    return np.where(z < DEPTH_CUTOFF, 0.0, frac)
+    z = -depth_cm * const.MPERCM
+    frac = (float(RFAC[i]) * torch.exp(z / float(DEPTH1[i]))
+            + (1.0 - float(RFAC[i])) * torch.exp(z / float(DEPTH2[i])))
+    return torch.where(z < DEPTH_CUTOFF, 0.0, frac)
 
 
 def absorb_profile(cfg: ModelConfig, grid: Grid) -> torch.Tensor:
     """Per-interface Jerlov transmission sw_absorb(0:km)
     (source/sw_absorption.F90:364-369): 1 at the surface, 0 below km."""
     km = cfg.km
-    zw = grid.vgrid.zw.double().cpu().numpy()
-    prof = np.zeros(km + 1)
+    zw = grid.vgrid.zw.double().cpu()
+    prof = torch.zeros(km + 1, dtype=torch.float64)
     prof[0] = 1.0
     prof[1:km] = sw_absorb_frac(zw[:km - 1], cfg.jerlov_water_type)
-    return torch.as_tensor(prof).to(device=grid.vgrid.zw.device,
-                                    dtype=cfg.torch_dtype)
+    return prof.to(device=grid.vgrid.zw.device, dtype=cfg.torch_dtype)
 
 
 def add_sw_absorb(cfg: ModelConfig, grid: Grid, ft, shf_qsw, sw_absorb):

@@ -1,21 +1,21 @@
-"""Vertical mixing: coefficients (constant / Richardson), explicit vertical
-diffusion terms, and convective adjustment (plain PyTorch).
+"""Vertical mixing: coefficients (constant / Richardson / KPP), explicit
+vertical diffusion terms, and convective adjustment (plain PyTorch).
 
 Reference: ``source/vertical_mix.F90`` (dispatch, vdifft :691, vdiffu :853,
-convad :1888), ``source/vmix_const.F90``, ``source/vmix_rich.F90:179-414``.
-All routines are whole-column vectorized over (km, ny, nx) — the reference's
-per-level calls with carried top-flux state become shifted-tensor
-expressions. KPP is a later slice (ROADMAP.md Queue 1 item 6).
+convad :1888), ``source/vmix_const.F90``, ``source/vmix_rich.F90:179-414``,
+``source/vmix_kpp.F90`` (``kpp.py``). All routines are whole-column
+vectorized over (km, ny, nx) — the reference's per-level calls with carried
+top-flux state become shifted-tensor expressions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos
+from pop2_tpu_torch import eos, kpp
 from pop2_tpu_torch.advect import _below
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid, thickness_t, thickness_u
@@ -28,17 +28,27 @@ class VmixCoeffs(NamedTuple):
     vdc: torch.Tensor   # (2, km, ny, nx) tracer diffusivity at layer bottoms
     #                     class 0: temperature, class 1: salinity/others
     vvc: torch.Tensor   # (km, ny, nx) momentum viscosity at layer bottoms
+    kpp: Optional[kpp.KPPOut] = None  # under vmix='kpp': ghat, hblt, hmxl
 
 
 def vmix_coeffs(cfg: ModelConfig, grid: Grid, bc: BC, tmix, umix, vmix_,
-                rhomix) -> VmixCoeffs:
-    """Dispatch to the chosen scheme (source/vertical_mix.F90:518-667)."""
+                rhomix, forcing=None, kpp_statics=None,
+                chl=None) -> VmixCoeffs:
+    """Dispatch to the chosen scheme (source/vertical_mix.F90:518-667).
+    KPP takes the surface ``forcing``, its statics (``kpp.build_statics``)
+    and the chlorophyll field of the shortwave absorption."""
     if cfg.vmix == "const":
         return _coeffs_const(cfg, grid)
     if cfg.vmix == "rich":
         return _coeffs_rich(cfg, grid, bc, tmix, umix, vmix_, rhomix)
-    raise NotImplementedError(
-        f"vmix={cfg.vmix!r} is not ported yet (ROADMAP.md Queue 1 item 6)")
+    if cfg.vmix == "kpp":
+        out = kpp.kpp_coeffs(
+            cfg, grid, bc, kpp_statics, tmix, umix, vmix_, forcing.stf,
+            forcing.shf_qsw, forcing.smft, cfg.convect_diff,
+            cfg.convect_visc, chl=chl, tidal_lnc=forcing.tidal_lnc,
+            rhomix=rhomix)
+        return VmixCoeffs(vdc=out.vdc, vvc=out.vvc, kpp=out)
+    raise NotImplementedError(f"vmix scheme {cfg.vmix!r}")
 
 
 def _coeffs_const(cfg: ModelConfig, grid: Grid) -> VmixCoeffs:

@@ -504,7 +504,7 @@ def test_gm_driver_carries_vdc_and_gm_output(runs):
 
 @pytest.mark.parametrize("over,names", [
     (dict(gm_aniso="flow"), "Queue 1 item 11"),
-    (dict(lsubmeso=True), "submeso.py"),
+    (dict(passive_tracers=("iage",), nt=3), "passive_tracers.py"),
     (dict(gm_kappa_isop_type="vmhs", gm_kappa_thic_type="vmhs"), "vmhs"),
     (dict(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg"), "eg"),
     (dict(gm_kappa_isop_type="depth", gm_kappa_thic_type="depth"), "depth"),
@@ -536,15 +536,17 @@ def test_kernel_wrappers_raise_for_modes_not_ported(pairs):
     tlt = tgm.transition_layer(p.tcfg, p.tgrid,
                                tgm.first_layer_depth(p.tgrid), sla,
                                tgm._rossby_radius(p.tgrid))
-    with pytest.raises(NotImplementedError, match="with_sm"):
-        gm_chain_cuda.chain(p.tcfg, p.tgrid, bc, tmix, slp, sla, n2, tlt,
-                            with_sm=True)
-    with pytest.raises(NotImplementedError, match="with_sm"):
-        gm_chain_cuda.hdifft_chain(p.tcfg, p.tgrid, bc, tr, tmix,
+    # partial bottom cells (3-D layer thickness): the chain kernel and the
+    # hdifft_chain entry refuse them
+    dzt_grid = p.tgrid.replace(DZT=p.tgrid.kmask_t.to(tmix.dtype))
+    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
+        gm_chain_cuda.chain(p.tcfg, dzt_grid, bc, tmix, slp, sla, n2, tlt)
+    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
+        gm_chain_cuda.hdifft_chain(p.tcfg, dzt_grid, bc, tr, tmix,
                                    hmxl=tlt.thickness)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gm_chain_cuda.hdifft_chain(p.tcfg, p.tgrid, bc, tr, tmix,
-                                   hblt=tlt.thickness)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        gm_chain_cuda.hdifft_chain(p.with_(gm_aniso="flow").tcfg, p.tgrid,
+                                   bc, tr, tmix, hblt=tlt.thickness)
     # a tripole grid: the flux-assembly kernel has no fold row yet, so GM
     # without the transition layer (which it would run) is refused
     tripole = p.with_(ns_boundary="tripole").tcfg

@@ -1,10 +1,11 @@
-"""The launch planners of the kernels, which all stage in shared memory
+"""The launch planners of the kernels that stage in shared memory
 (thomas, GM slopes, GM chain, GM flux assembly, tracer tendency, momentum
 forcing): plain Python that chooses the block shape and the dynamic shared
 memory for each (value size, right-hand sides or tracers, levels, mode),
 and refuses what the kernels do not take,
-before anything is built; and the grid statics the tracer and momentum
-kernels read. Runs on the CPU; the kernels themselves are held against their
+before anything is built; the plan and the refusals of the
+transition-layer search (a thread a column, no shared memory); and the grid
+statics the tracer and momentum kernels read. Runs on the CPU; the kernels themselves are held against their
 plain versions on the card by chip_smoke.py, which also holds the planners'
 shared-memory counts against the library's."""
 
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda
+from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda, gm_tlt_cuda
 from pop2_tpu_torch import gm_slope_cuda, tracer_cuda, tridiag_cuda, vmix
 from pop2_tpu_torch.config import get_config
 from pop2_tpu_torch.grid import build_grid
@@ -63,6 +64,28 @@ def test_chain_plan_fits_the_tile(value_bytes, nt, rows):
     assert (cols, got_rows) == (gm_chain_cuda.TILE_COLS, rows)
     assert smem == gm_chain_cuda.smem_values(nt) * cols * rows * value_bytes
     assert smem <= cb.SMEM_PER_BLOCK
+
+
+# with the submesoscale fold-in: five more values a column, and still the
+# largest tile (16 tracers in float64) within 227 KB
+@pytest.mark.parametrize("value_bytes", [4, 8])
+@pytest.mark.parametrize("nt", [1, 2, 16])
+def test_chain_plan_with_sm_fits_the_tile(value_bytes, nt):
+    (cols, rows), smem = gm_chain_cuda.launch_plan(value_bytes, nt, sm=True)
+    assert (cols, rows) == gm_chain_cuda.launch_plan(value_bytes, nt)[0]
+    assert gm_chain_cuda.smem_values(nt, True) == (
+        gm_chain_cuda.smem_values(nt) + gm_chain_cuda.SM_PLANES)
+    assert smem == gm_chain_cuda.smem_values(nt, True) * cols * rows * \
+        value_bytes
+    assert smem <= cb.SMEM_PER_BLOCK
+
+
+def test_chain_flags_select_the_sm_instance():
+    cfg = get_config("mini", hmix_tracer="gm", gm_transition_layer=True,
+                     gm_kappa_isop_type="bfre", gm_kappa_thic_type="bfre")
+    assert gm_chain_cuda.kernel_flags(cfg, False) == 0b0101
+    assert gm_chain_cuda.kernel_flags(cfg, False, sm=True) == 0b1101
+    assert gm_chain_cuda.kernel_flags(cfg, True, sm=True) == 0b1111
 
 
 @pytest.mark.parametrize("args,err,match", [
@@ -318,3 +341,34 @@ def test_flux_wrapper_refuses_before_building(no_build, monkeypatch, nt,
     with pytest.raises(err, match=match):
         gm_cuda.flux_assembly(cfg, grid, None, tx.as_subclass(OnCard), tx,
                               tx, q, q, q, q, h, h, True)
+
+
+@pytest.mark.parametrize("ny,nx,km", [(0, 4, 3), (3, 4, 0)])
+def test_search_plan_refuses_an_empty_grid(ny, nx, km):
+    with pytest.raises(ValueError, match="columns"):
+        gm_tlt_cuda.launch_plan(ny, nx, km)
+
+
+def test_search_plan_is_a_thread_a_column():
+    assert gm_tlt_cuda.launch_plan(384, 320, 60) == (
+        -(-384 * 320 // gm_tlt_cuda.THREADS), gm_tlt_cuda.THREADS)
+
+
+@pytest.mark.parametrize("case,err,match", [
+    ("float16", TypeError, "float32 or float64"),
+    ("rb_shape", ValueError, "rb: shape"),
+    ("kmt_dtype", TypeError, "KMT: dtype"),
+])
+def test_search_wrapper_refuses_before_building(no_build, case, err, match):
+    cfg = get_config("mini")
+    grid = build_grid(cfg, "cpu")
+    km, ny, nx = cfg.km, cfg.ny, cfg.nx
+    dt = torch.float16 if case == "float16" else torch.float64
+    sla = torch.ones(2, km, ny, nx, dtype=dt).as_subclass(OnCard)
+    dd = torch.ones(ny, nx, dtype=dt)
+    rb = torch.ones(ny, nx + (case == "rb_shape"), dtype=dt)
+    if case == "kmt_dtype":
+        grid = grid.replace(KMT=grid.KMT.long())
+    grid.__dict__["_gm_tlt_lev"] = torch.ones(2, km, dtype=dt)
+    with pytest.raises(err, match=match):
+        gm_tlt_cuda.transition_layer(cfg, grid, dd, sla, rb)

@@ -1,9 +1,9 @@
 """The production dynamics menu (prod_dyn) as a whole: the port's ``Model``
 against ``pop2_tpu.model.Model`` on the CPU in float64.
 
-prod_dyn is the production gx1v7 preset without what the port does not
-carry yet (KPP, tidal mixing, submesoscale, passive tracers; ROADMAP.md
-Queue 1 items 6-8): tripole north edge, upwind3 advection, anisotropic
+prod_dyn is the production gx1v7 preset without KPP, tidal mixing, the
+submesoscale scheme and passive tracers (prod_mix adds the first three:
+tests/test_torch_prod_mix.py): tripole north edge, upwind3 advection, anisotropic
 'east' viscosity, GM with bfre diffusivities and the transition layer,
 chlorophyll shortwave, frazil ice, the Robert filter, PCSI at 1e-13 with the
 FSPAI preconditioner. It runs at small sizes on two grids:
@@ -201,8 +201,9 @@ def test_prod_dyn_builds_and_what_stays_refused():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TModel(cfg)
-    why = "; ".join(supported.unsupported(t_get_config("prod_full")))
-    for item in ("Queue 1 item 6", "Queue 1 item 7", "Queue 1 item 8"):
-        assert item in why
+    # the full preset lacks only its passive tracers (prod_mix,
+    # tests/test_torch_prod_mix.py, carries the rest)
+    why = supported.unsupported(t_get_config("prod_full"))
+    assert len(why) == 1 and "Queue 1 item 8" in why[0]
     why = supported.unsupported(cfg.with_(gm_transition_layer=False))
     assert len(why) == 1 and "Queue 2 kernel 6" in why[0]

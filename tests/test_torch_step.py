@@ -178,13 +178,15 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
 
 
 @pytest.mark.parametrize("over,names", [
-    (dict(vmix="kpp"), "Queue 1 item 6"),
+    (dict(vmix="kpp", ltidal_mixing=True, tidal_mixing_method="polzin"),
+     "Polzin"),
     (dict(hmix_tracer="del4"), "Queue 1 items 7"),
     (dict(hmix_momentum="del4"), "del4"),
     (dict(tadvect="lw_lim"), "advt_lw_lim"),
     (dict(ns_boundary="tripole", hmix_tracer="gm"), "Queue 2 kernel 6"),
-    (dict(lsubmeso=True), "submeso"),
-    (dict(ltidal_mixing=True), "tidal_mixing.py"),
+    (dict(vmix="kpp", lniw_mixing=True), "NIW"),
+    (dict(vmix="kpp", ltidal_mixing=True, ltidal_lunar_cycle=True),
+     "lunar cycle"),
     (dict(sw_absorption="chlorophyll", chl_option="file"), "chl_option"),
     (dict(partial_bottom_cells=True), "3-D DZT"),
     (dict(passive_tracers=("iage",), nt=3), "passive"),

@@ -49,7 +49,7 @@ from tests.torch_port_helpers import (assert_leaves_close, fold_bottom,  # noqa:
 LOCS = ("center", "necorner", "eface", "nface")
 KINDS = ("scalar", "vector")
 # the prod_dyn menu: the production preset without KPP, tidal mixing,
-# submesoscale and passive tracers (ROADMAP.md Queue 1 items 6-8)
+# submesoscale and passive tracers
 PROD_DYN = dict(vmix="rich", ltidal_mixing=False, lsubmeso=False,
                 passive_tracers=(), nt=2)
 NX, NY, KM = 32, 16, 6   # ny % 8 == 0: the Pallas interpret mode needs it

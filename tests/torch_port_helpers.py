@@ -174,3 +174,26 @@ def fold_bottom(jgrid, tgrid, jcfg, seed):
         tnew["aniso"] = build_aniso(torch_cfg(jcfg), *args, new["KMU"],
                                     "cpu")
     return jgrid.replace(**jnew), tgrid.replace(**tnew)
+
+
+def stretched_pair(jcfg, tmp, growth=1.5):
+    """(JAX config, port config, JAX grid, port grid) of ``jcfg`` on a
+    vertical grid read from a file, written to the directory ``tmp``: 10 m
+    at the surface, each level ``growth`` times the one above (12 levels
+    reach 2.6 km), so that a boundary layer spans several levels at few
+    levels in all. The port has no grid readers: its grid is the JAX
+    package's handed over as NumPy leaves (``convert.grid_from_numpy``) and
+    its config names the internal generators."""
+    import os
+
+    from pop2_tpu.grid import build_grid as j_build_grid
+    from pop2_tpu.io import grid_files
+    from pop2_tpu_torch import convert
+
+    path = os.path.join(str(tmp), f"vgrid_{jcfg.km}")
+    grid_files.write_vert_grid(path, 1000.0 * growth ** np.arange(jcfg.km))
+    jcfg = jcfg.with_(vert_grid="file", vert_grid_file=path)
+    tcfg = torch_cfg(jcfg).with_(vert_grid="uniform")
+    jgrid = j_build_grid(jcfg)
+    return jcfg, tcfg, jgrid, convert.grid_from_numpy(jax_leaves(jgrid),
+                                                      tcfg, "cpu")
