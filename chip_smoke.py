@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's five paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's seven paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64:
 
     core      the dynamical core (Laplacian tracer mixing)
@@ -29,18 +29,31 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
               with KPP (plain) and Jayne tidal mixing; GM's transition layer
               starts at KPP's boundary layer (the search kernel) and the
               chain kernel folds in the submesoscale streamfunction
+    prod_full the whole production configuration,
+              ``production.get_production_config()``: prod_mix with the
+              ideal age and the CFC tracers (nt = 5) under a 10-m wind,
+              thomas for up to four right-hand sides, the tracer kernel in
+              three launches a step
+    prod_flux prod_full without GM's transition layer: plain chain ->
+              the flux-assembly kernel on the tripole grid
 
 On every GM path the transition-layer search runs as a kernel. The modes of
 the tracer, momentum, slope and chain kernels that the tripole paths add
 are also held against their plain versions on a bottom with ocean across
 the tripole fold (the internal grid's top rows are land, which would hide
-the fold).
+the fold); the chain (with prod_full's five tracers too) and the flux
+assembly's tripole row are held there with the top row's north faces opened
+(``sample.open_top_face``: the internal grid's top row lies on the pole,
+where no north-face flux crosses the fold).
+An overflow phase runs the 'mini' preset with the overflows of the JAX
+package's tests on the card against the same on the CPU.
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels. It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
-gm_full, prod_dyn and prod_mix paths, breaks a step's time down by part
+gm_full, prod_dyn, prod_mix and prod_full paths, breaks a step's time down
+by part
 and by device kernel (the GM paths from rest and from a stratified state
 with slopes for GM to work on), and compares the GPU path with the CPU
 path on a small grid. Every phase that fails makes the script exit
@@ -72,10 +85,12 @@ if not torch.cuda.is_available():
 from pop2_tpu_torch import _cuda_build as cb  # noqa: E402
 from pop2_tpu_torch import baroclinic, clinic_cuda, gm, gm_chain_cuda  # noqa: E402
 from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, gm_tlt_cuda  # noqa: E402
-from pop2_tpu_torch import kpp, submeso, tracer_cuda, tridiag_cuda  # noqa: E402
+from pop2_tpu_torch import kpp, overflows, production, submeso  # noqa: E402
+from pop2_tpu_torch import tracer_cuda, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
 from pop2_tpu_torch import pgrad, sample  # noqa: E402
-from pop2_tpu_torch.config import SolverConfig, get_config  # noqa: E402
+from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
+                                   SolverConfig, get_config)
 from pop2_tpu_torch.grid import build_grid, grid_bc  # noqa: E402
 from pop2_tpu_torch.model import Model  # noqa: E402
 
@@ -87,7 +102,9 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "gm_full": {"float32": 20, "float64": 8},
          "gm_flux": {"float32": 4, "float64": 3},
          "prod_dyn": {"float32": 6, "float64": 4},
-         "prod_mix": {"float32": 6, "float64": 4}}
+         "prod_mix": {"float32": 6, "float64": 4},
+         "prod_full": {"float32": 6, "float64": 4},
+         "prod_flux": {"float32": 4, "float64": 3}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -189,7 +206,7 @@ WITNESS_RATIO = 1.5
 # run's own distance from the float64 run, besides the witness test below.
 # prod_mix has the same thresholds and KPP's first crossing of the critical
 # bulk Richardson number besides.
-WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix")
+WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -216,9 +233,17 @@ SOURCES = {
                          "pop2_tpu/gm_chain_pallas.py:612"),
     "gm_chain_sm": ("pop2_tpu_torch/csrc/gm_chain.cu",
                     "pop2_tpu/gm_chain_pallas.py:612"),
+    "gm_chain_sm_nt5": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                        "pop2_tpu/gm_chain_pallas.py:612"),
     # no Pallas kernel: the JAX package's jnp search between its GM kernels
     "gm_tlt_search": ("pop2_tpu_torch/csrc/gm_tlt.cu",
                       "pop2_tpu/gm.py:304"),
+    "thomas_nr3": ("pop2_tpu_torch/csrc/thomas.cu",
+                   "pop2_tpu/tridiag_pallas.py:112"),
+    "thomas_nr4": ("pop2_tpu_torch/csrc/thomas.cu",
+                   "pop2_tpu/tridiag_pallas.py:112"),
+    "gm_flux_tripole": ("pop2_tpu_torch/csrc/gm_flux.cu",
+                        "pop2_tpu/gm_pallas.py:358"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
@@ -226,12 +251,16 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "gm_chain": "gm_full", "gm_flux": "gm_flux",
            "tracer_upwind3": "prod_dyn", "clinic_aniso": "prod_dyn",
            "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn",
-           "gm_chain_sm": "prod_mix", "gm_tlt_search": "prod_mix"}
+           "gm_chain_sm": "prod_mix", "gm_tlt_search": "prod_mix",
+           "gm_chain_sm_nt5": "prod_full",
+           "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
+           "gm_flux_tripole": "prod_flux"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "clinic_aniso": "clinic", "gm_slope_tripole": "gm_slope",
               "gm_chain_tripole": "gm_chain", "gm_chain_sm": "gm_chain",
-              "gm_tlt_search": "gm_tlt"}
+              "gm_chain_sm_nt5": "gm_chain",
+              "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -246,9 +275,16 @@ GM_FLUX = dict(hmix_tracer="gm", gm_transition_layer=False, lsubmeso=False)
 PROD_DYN = dict(vmix="rich", ltidal_mixing=False, lsubmeso=False,
                 passive_tracers=(), nt=2)
 PROD_MIX = dict(passive_tracers=(), nt=2)
+# the whole production configuration, and without the transition layer
+PROD_FLUX = dict(gm_transition_layer=False)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
-         "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX}
-PROD_PATHS = ("prod_dyn", "prod_mix")
+         "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
+         "prod_flux": PROD_FLUX}
+PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux")
+PASSIVE_PATHS = ("prod_full", "prod_flux")
+# the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
+# which the CFC fluxes are zero
+U10_SQR = 4.9e5
 # the small grid of the GPU-against-CPU comparison of the production paths
 PROD_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
 
@@ -263,11 +299,24 @@ def full_config(dtype: str, path: str = "core"):
     does: in float32 the residual floor of the solve lies above the
     convergence criterion of 1e-13 and ChronGear runs to max_iterations
     every step (in the JAX package too)."""
+    if path in PASSIVE_PATHS:  # the flagship's entry point
+        return production.get_production_config(dtype=dtype, **PATHS[path])
     if path in PROD_PATHS:  # PCSI 1e-13 with FSPAI, solving in float64
         return get_config("prod_full", dtype=dtype, **PATHS[path])
     solver = SolverConfig(solve_dtype="float64")
     return get_config("test", nx=320, ny=384, km=60, vmix="rich",
                       dtype=dtype, solver=solver, **PATHS[path])
+
+
+def path_forcing(model):
+    """The forcing of a path's steps: None (the model's own) without
+    passive tracers; with them the model's own under a constant 10-m wind
+    (U10_SQR) and no sea ice."""
+    if not model.cfg.passive_tracers:
+        return None
+    f = model.forcing
+    return f.replace(u10_sqr=torch.full_like(f.fw, U10_SQR),
+                     ifrac=torch.zeros_like(f.fw))
 
 
 def time_ms(fn, n_warm: int, n_timed: int) -> float:
@@ -445,6 +494,21 @@ def compare_chain(name, dtype, got, want):
     return worst_abs, worst_rel, excused
 
 
+def chain_fold_share(name, dtype, cfg, args, want_gtk):
+    """How far the tripole fold moves the top row of the plain chain's GTK
+    (the same inputs with a closed north edge against ``want_gtk``), over
+    its scale there. Fails where that is not far above the band: the
+    comparison of the kernel's top row would then not see the fold."""
+    c = cfg.with_(ns_boundary="closed")
+    closed = gm_chain_cuda.chain_plain(c, args[1], grid_bc(c), *args[3:])[0]
+    top = want_gtk[..., -1, :]
+    share = float((closed[..., -1, :] - top).abs().max() / top.abs().max())
+    if not share > 100.0 * BAND[("gm_chain", dtype)]:
+        raise AssertionError(f"{name} {dtype}: the fold moves the top row "
+                             f"by {share:.2e} only; the check cannot see it")
+    return share
+
+
 def compare_search(name, dtype, got, want):
     """The search kernel's TLT against the plain version's: the integer
     fields equal, the depths within BAND of scale. Returns (max abs err, err
@@ -498,8 +562,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
     shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt, flags
-    and sm, tracer its group's tracer count ng and del2, gm_flux nt and
-    cancellation; gm_tlt (a thread a column) nothing. The kernels in a
+    and sm, tracer its group's tracer count ng and del2, gm_flux nt,
+    cancellation and fold; gm_tlt (a thread a column) nothing. The kernels in a
     one-column frame (tracer, clinic, gm_slope, gm_flux) also report their
     tile of interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
@@ -535,7 +599,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
                                                  kw["cancellation"])
         block = [cols, rows, 1]
         n = lib.pop2_gm_flux_blocks_per_sm(code, kw["nt"],
-                                           int(kw["cancellation"]), smem)
+                                           int(kw["cancellation"]),
+                                           int(kw.get("fold", False)), smem)
     if n <= 0:
         raise AssertionError(f"{name}: occupancy query failed ({n})")
     info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
@@ -625,6 +690,28 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
                   "bound_ms" + tag: b_ms, "bound_by" + tag: b_by,
                   **launch_info("thomas", dt, tag, nr=nr, km=km)})
     rec["thomas"] = r
+    # nr = 3 and 4: the prod_full path's passive tracers in the leapfrog
+    # corrector, and salinity with them on the Euler step
+    for nr in (3, 4):
+        rhs = torch.randn(nr, km, ny, nx, generator=gen, device=DEV,
+                          dtype=dt) * grid.kmask_t.to(dt)
+        args = (hfac, h1, grid.KMT, a, rhs)
+        got = tridiag_cuda.thomas(*args)
+        torch.cuda.synchronize()
+        want = tridiag_cuda.thomas_plain(*args)
+        err_abs, err_rel = compare("thomas", dt, [got], [want])
+        del got, want
+        b_ms, b_by = bound(s * (N * (1 + 2 * nr) + P + km) + 4 * P,
+                           N * (8 + 5 * nr), dt)
+        rec[f"thomas_nr{nr}"] = {
+            "max_abs_err": err_abs, "rel_err": err_rel,
+            "ms": time_ms(lambda: tridiag_cuda.thomas(*args), 3, n_timed),
+            "ms_back_to_back": time_ms_back_to_back(
+                lambda: tridiag_cuda.thomas(*args), n_timed),
+            "plain_ms": time_ms(lambda: tridiag_cuda.thomas_plain(*args), 1,
+                                3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            **launch_info("thomas", dt, nr=nr, km=km)}
 
     # ---- tracer tendency ----------------------------------------------------
     # u, v, vdc (2), trcr, told (= tmix) and the output per tracer
@@ -935,7 +1022,8 @@ def ragged_phase(dtype_name: str):
     """The six kernels that stage in shared memory against their plain
     versions where the tiles do not divide the domain: the RAGGED horizontal
     size, E-W cyclic and closed, at RAGGED_KM levels (one level, and the
-    thomas kernel's bound). thomas for 1, 2 and 3 right-hand sides; the
+    thomas kernel's bound). thomas for 1 to 4 right-hand sides and 6 (two
+    launches); the
     slope kernel; the transition-layer search from a deep diabatic depth;
     the chain kernel in its sixteen template instances (bfre or const
     kappa, diagnostic columns or not, equal or unequal slope limits, the
@@ -959,7 +1047,8 @@ def ragged_phase(dtype_name: str):
             gen.manual_seed(SEED + 8)
             f = random_fields(base, grid, gen)
             hfac, h1, a = thomas_operands(base, grid, f)
-            for nr in (1, 2, 3):
+            # every count a launch takes, and 6 (two launches of 3)
+            for nr in (*range(1, tridiag_cuda.MAX_RHS + 1), 6):
                 rhs = torch.randn(nr, km, *RAGGED[::-1], generator=gen,
                                   device=DEV, dtype=dt) * grid.kmask_t.to(dt)
                 args = (hfac, h1, grid.KMT, a, rhs)
@@ -1144,7 +1233,9 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     form with upwind3 and the fold, the momentum kernel without the
     Laplacian and with the fold, the slopes and the chain on the fold), each
     against its plain version at the path's shapes on the fold bottom, with
-    times and bounds. Returns {name: record}."""
+    times and bounds; the chain with the top row's north faces opened
+    (``sample.open_top_face``) and the fold's share of the top row held far
+    above the band. Returns {name: record}."""
     cfg = full_config(dtype_name, "prod_dyn")
     dt = cfg.torch_dtype
     grid, bc, tr = fold_case(cfg)
@@ -1225,18 +1316,21 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
         s * (13 * N + 2 * P + 19 * km) + 4 * P, N * 300, **r,
         **launch_info("gm_slope", dt))
 
-    # ---- chain on the fold: the path's instance (bfre, no diagnostics)
+    # ---- chain on the fold: the path's instance (bfre, no diagnostics),
+    # with the top row's north faces opened so that flux crosses the fold
     tlt = gm.transition_layer(cfg, grid, gm.first_layer_depth(grid), sla,
                               gm._rossby_radius(grid))
     kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
                                 n2=n2)
-    args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, False)
+    args = (cfg, sample.open_top_face(grid), bc, tmix, slp, sla, kv, tlt,
+            False)
     got = gm_chain_cuda.chain(*args)[:2]
     torch.cuda.synchronize()
     want = gm_chain_cuda.chain_plain(*args)[:2]
     err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
     top = compare_chain("gm_chain", dt, [g[..., -2:, :] for g in got],
                         [w[..., -2:, :] for w in want])[1]
+    fold_share = chain_fold_share("gm_chain_tripole", dt, cfg, args, want[0])
     del got, want
     rec["gm_chain_tripole"] = timed(
         lambda: gm_chain_cuda.chain(*args),
@@ -1244,18 +1338,21 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
         s * (N * (2 * nt + 12) + 6 * P + 8 * km) + 12 * P,
         N * (400 + 80 * nt), max_abs_err=err_abs, rel_err=err_rel,
         rel_err_top_rows=top, points_within_relative_band_only=excused,
+        fold_share_of_top_row=fold_share,
         **launch_info("gm_chain", dt, nt=nt,
                       flags=gm_chain_cuda.kernel_flags(cfg, False)))
     return rec
 
 
 def fold_ragged_phase(dtype_name: str):
-    """The prod_dyn and prod_mix kernel modes on the fold bottom where the
-    tiles do not divide the domain (the RAGGED size; the tripole ghost row
-    then lies inside a tile), E-W cyclic and closed: the chain with and
-    without the submesoscale fold-in and the transition-layer search from a
-    deep diabatic depth among them, and the momentum kernel with the
-    Laplacian on the fold too. Not timed."""
+    """The tripole kernel modes on the fold bottom where the tiles do not
+    divide the domain (the RAGGED size; the tripole ghost row then lies
+    inside a tile), E-W cyclic and closed: the chain with and without the
+    submesoscale fold-in and the transition-layer search from a deep
+    diabatic depth among them, and the momentum kernel with the Laplacian on
+    the fold too; with the top row's north faces opened
+    (``sample.open_top_face``) the chain again and the flux assembly's
+    tripole row for 2 and 5 tracers in both branches. Not timed."""
     worst = {}
     for ew, km, vert in (("cyclic", 61, "internal"),
                          ("closed", 13, "uniform")):
@@ -1307,6 +1404,30 @@ def fold_ragged_phase(dtype_name: str):
             worst[f"gm_chain_{ew}" + ("_sm" if with_sm else "")] = \
                 compare_chain("gm_chain", dt, gm_chain_cuda.chain(*args),
                               gm_chain_cuda.chain_plain(*args))[1]
+        # with the top row's north faces opened, flux crosses the fold:
+        # the chain, and the flux assembly's tripole row for 2 and 5
+        # tracers in both branches
+        opened = sample.open_top_face(grid)
+        args = (cfg, opened, bc, tmix, slp, sla, kv, tlt, True, sm)
+        worst[f"gm_chain_{ew}_sm_open_top"] = compare_chain(
+            "gm_chain", dt, gm_chain_cuda.chain(*args),
+            gm_chain_cuda.chain_plain(*args))[1]
+        del slp, sla, n2, kv, sm
+        c5 = cfg.with_(passive_tracers=("iage", "cfc"), nt=5)
+        tm5 = sample.grid_tracers(c5, opened, SEED + 21)
+        for nt, cancellation in itertools.product((2, 5), (True, False)):
+            c = c5 if nt == 5 else cfg
+            f = sample.flux_operands(c, opened, bc, tr, tm5[:nt],
+                                     levels=(2, 5))
+            args = (c, opened, bc, *f, cancellation)
+            got = gm_cuda.flux_assembly(*args)
+            torch.cuda.synchronize()
+            want = gm_cuda.flux_assembly_plain(*args)
+            key = (f"gm_flux_{ew}_nt{nt}_"
+                   + ("cancel" if cancellation else "skew"))
+            worst[key] = compare("gm_flux", dt, got[:1], want[:1])[1]
+            worst[key + "_vdc"] = compare_vdc("gm_flux", dt, got[1], want[1])
+            del got, want, f
     emit({"phase": "fold_ragged", "dtype": dtype_name,
           "dims": [RAGGED[0], RAGGED[1]], "rel_err_of_scale": worst})
 
@@ -1413,8 +1534,11 @@ def mix_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
     bounds: the transition-layer search from the smoothed boundary layer
     that KPP (plain) gives a stratified state under a cooling surface flux,
     and the chain kernel with the submesoscale fold-in under KPP's
-    mixed-layer depth. Also times the plain search on the same inputs and
-    KPP itself. Returns {name: record}."""
+    mixed-layer depth, for prod_mix's two tracers and prod_full's five,
+    with the top row's north faces opened (``sample.open_top_face``) and
+    the fold's share of the top row held far above the band. Also times the
+    plain search on the same inputs and KPP itself. Returns {name:
+    record}."""
     cfg = full_config(dtype_name, "prod_mix")
     dt = cfg.torch_dtype
     grid, bc, tr = fold_case(cfg)
@@ -1460,41 +1584,214 @@ def mix_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
           "kbl_levels": [int(kout.kbl[ocean].min()),
                          int(kout.kbl[ocean].max())]})
 
-    # ---- chain with the submesoscale fold-in, on the fold: the path's
-    # instance (bfre, no diagnostics); the five amplitude planes join the
+    # ---- chain with the submesoscale fold-in, on the fold with the top
+    # row's north faces opened: the prod_mix path's instance (bfre, no
+    # diagnostics; nt = 2) and the prod_full path's (nt = 5, the passive
+    # tracers beside the same T and S); the five amplitude planes join the
     # inputs
     tlt = got
     kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
                                 n2=n2)
     sm = submeso.amplitudes(cfg, grid, bc, tr, tmix, kout.hmxl)
-    args = (cfg, grid, bc, tmix, slp, sla, kv, tlt, False, sm)
-    got = gm_chain_cuda.chain(*args)[:2]
-    torch.cuda.synchronize()
-    want = gm_chain_cuda.chain_plain(*args)[:2]
-    err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
-    top = compare_chain("gm_chain", dt, [g[..., -2:, :] for g in got],
-                        [w[..., -2:, :] for w in want])[1]
-    # the fold-in moved the tendency: without it the kernel's GTK differs,
-    # by how much, and whether the band above refuses a dropped fold-in
-    # (float64 must: its relative band is 0)
-    plain_gm = gm_chain_cuda.chain(*args[:-1])[0]
-    sm_share = float((got[0] - plain_gm).abs().max() / got[0].abs().max())
-    dropped_refused = not chain_band("gm_chain", dt, plain_gm, want[0])[3]
-    if dt == torch.float64 and not dropped_refused:
-        raise AssertionError("gm_chain_sm float64: the chain without the "
-                             "fold-in passes the band of the one with it")
-    del want, plain_gm
-    rec["gm_chain_sm"] = timed(
-        lambda: gm_chain_cuda.chain(*args),
-        lambda: gm_chain_cuda.chain_plain(*args),
-        s * (N * (2 * nt + 12) + 11 * P + 8 * km) + 12 * P,
-        N * (420 + 80 * nt), max_abs_err=err_abs, rel_err=err_rel,
-        rel_err_top_rows=top, points_within_relative_band_only=excused,
-        submeso_share_of_gtk=sm_share,
-        dropped_fold_in_refused=dropped_refused,
-        **launch_info("gm_chain", dt, nt=nt, sm=True,
-                      flags=gm_chain_cuda.kernel_flags(cfg, False, True)))
+    opened = sample.open_top_face(grid)
+    cfg5 = full_config(dtype_name, "prod_full")
+    tm5 = torch.cat([tmix, sample.grid_tracers(cfg5, grid, SEED + 22)[2:]])
+    for key, c, tm in (("gm_chain_sm", cfg, tmix),
+                       ("gm_chain_sm_nt5", cfg5, tm5)):
+        n = c.nt
+        args = (c, opened, bc, tm, slp, sla, kv, tlt, False, sm)
+        got = gm_chain_cuda.chain(*args)[:2]
+        torch.cuda.synchronize()
+        want = gm_chain_cuda.chain_plain(*args)[:2]
+        err_abs, err_rel, excused = compare_chain("gm_chain", dt, got, want)
+        top = compare_chain("gm_chain", dt, [g[..., -2:, :] for g in got],
+                            [w[..., -2:, :] for w in want])[1]
+        fold_share = chain_fold_share(key, dt, c, args, want[0])
+        # the fold-in moved the tendency: without it the kernel's GTK
+        # differs, by how much, and whether the band above refuses a
+        # dropped fold-in (float64 must: its relative band is 0)
+        plain_gm = gm_chain_cuda.chain(*args[:-1])[0]
+        sm_share = float((got[0] - plain_gm).abs().max()
+                         / got[0].abs().max())
+        dropped_refused = not chain_band("gm_chain", dt, plain_gm,
+                                         want[0])[3]
+        if dt == torch.float64 and not dropped_refused:
+            raise AssertionError(f"{key} float64: the chain without the "
+                                 "fold-in passes the band of the one with "
+                                 "it")
+        del got, want, plain_gm
+        rec[key] = timed(
+            lambda: gm_chain_cuda.chain(*args),
+            lambda: gm_chain_cuda.chain_plain(*args),
+            s * (N * (2 * n + 12) + 11 * P + 8 * km) + 12 * P,
+            N * (420 + 80 * n), max_abs_err=err_abs, rel_err=err_rel,
+            rel_err_top_rows=top, points_within_relative_band_only=excused,
+            fold_share_of_top_row=fold_share, submeso_share_of_gtk=sm_share,
+            dropped_fold_in_refused=dropped_refused,
+            **launch_info("gm_chain", dt, nt=n, sm=True,
+                          flags=gm_chain_cuda.kernel_flags(c, False, True)))
     return rec
+
+
+def flux_fold_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """The flux-assembly kernel's tripole row, the prod_flux path's GM, on
+    the fold bottom with the top row's north faces opened
+    (``sample.open_top_face``), at the path's shapes: nt = 5 in both
+    branches against the plain version, timed (the path's instance is the
+    cancellation branch), and nt = 2 in both. The fold must matter: the top
+    row of the plain version with a closed north edge has to differ from
+    the tripole one by far more than the band. Returns {name: record}."""
+    cfg = full_config(dtype_name, "prod_flux")
+    dt = cfg.torch_dtype
+    grid, bc, tr = fold_case(cfg)
+    grid = sample.open_top_face(grid)
+    km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    tmix = sample.grid_tracers(cfg, grid, SEED + 20)
+    f = sample.flux_operands(cfg, grid, bc, tr, tmix)
+    del tmix
+    closed_bc = grid_bc(cfg.with_(ns_boundary="closed"))
+    r = {}
+    for n, cancellation in itertools.product((nt, 2), (True, False)):
+        ops = [t[:n].contiguous() for t in f[:3]] + list(f[3:])
+        c = cfg if n == nt else cfg.with_(passive_tracers=(), nt=2)
+        args = (c, grid, bc, *ops, cancellation)
+        got = gm_cuda.flux_assembly(*args)
+        torch.cuda.synchronize()
+        want = gm_cuda.flux_assembly_plain(*args)
+        err_abs, err_rel = compare("gm_flux", dt, got[:1], want[:1])
+        vdc_rel = compare_vdc("gm_flux", dt, got[1], want[1])
+        top = compare("gm_flux", dt, [got[0][..., -1, :]],
+                      [want[0][..., -1, :]])[1]
+        closed = gm_cuda.flux_assembly_plain(
+            c.with_(ns_boundary="closed"), grid, closed_bc, *ops,
+            cancellation)[0]
+        fold_share = float((closed[..., -1, :] - want[0][..., -1, :]).abs()
+                           .max() / want[0][..., -1, :].abs().max())
+        if not fold_share > 100.0 * BAND[("gm_flux", dt)]:
+            raise AssertionError(f"gm_flux_tripole {dtype_name}: the fold "
+                                 f"moves the top row by {fold_share:.2e} "
+                                 "only; the check cannot see it")
+        del got, want, closed
+        tag = ("" if n == nt else f"_nt{n}") + ("" if cancellation
+                                                 else "_skew")
+        r.update({"max_abs_err" + tag: err_abs, "rel_err" + tag: err_rel,
+                  "vdc_rel_err" + tag: vdc_rel, "rel_err_top_row" + tag: top,
+                  "fold_share_of_top_row" + tag: fold_share})
+        if n != nt:
+            continue
+        n_in = 2 * n + 12 if cancellation else 3 * n + 20
+        b_ms, b_by = bound(s * (N * (n_in + n + 1) + 3 * P + 3 * km) + 4 * P,
+                           N * (60 + 60 * n), dt)
+        r.update({
+            "ms" + tag: time_ms(lambda: gm_cuda.flux_assembly(*args), 3,
+                                n_timed),
+            "ms_back_to_back" + tag: time_ms_back_to_back(
+                lambda: gm_cuda.flux_assembly(*args), n_timed),
+            "plain_ms" + tag: time_ms(
+                lambda: gm_cuda.flux_assembly_plain(*args), 1, 3),
+            "bound_ms" + tag: b_ms, "bound_by" + tag: b_by,
+            **launch_info("gm_flux", dt, tag, nt=n,
+                          cancellation=cancellation, fold=True)})
+    return {"gm_flux_tripole": r}
+
+
+# The overflows of the JAX package's overflow tests (tests/test_overflows.py)
+# on the 'mini' preset: a box-only one, and one with sidewall points and two
+# product sets
+OVF_BOX = OverflowSpec(
+    name="test_ovf", lat=60.0, width=1.0e7, source_thick=3.0e4,
+    distnc_str_ssb=1.0e7, bottom_slope=0.01, bottom_drag=3.0e-3,
+    inf=RegionBox(kmin=1, kmax=2, jmin=16, jmax=18, imin=2, imax=5),
+    src=RegionBox(kmin=2, kmax=3, jmin=16, jmax=18, imin=6, imax=9),
+    ent=RegionBox(kmin=3, kmax=4, jmin=14, jmax=16, imin=10, imax=13),
+    prd=RegionBox(kmin=5, kmax=6, jmin=12, jmax=14, imin=10, imax=13))
+OVF_POINTS = OverflowSpec(
+    name="pt_ovf", lat=60.0, width=1.0e7, source_thick=3.0e4,
+    distnc_str_ssb=1.0e7, bottom_slope=0.01, bottom_drag=3.0e-3,
+    inf=RegionBox(kmin=1, kmax=2, jmin=16, jmax=18, imin=2, imax=5),
+    src=RegionBox(kmin=2, kmax=3, jmin=16, jmax=18, imin=6, imax=8),
+    ent=RegionBox(kmin=3, kmax=4, jmin=14, jmax=16, imin=14, imax=16),
+    prd=RegionBox(kmin=5, kmax=6, jmin=12, jmax=14, imin=14, imax=16),
+    src_pts=tuple((5, j, 3, 1) for j in range(16, 19)),
+    ent_pts=tuple((13, j, 3, 1) for j in range(14, 17)),
+    prd_sets=(tuple((13, j, 5, 1) for j in range(12, 15)),
+              tuple((13, j, 6, 1) for j in range(12, 15))))
+# kmt records that disagree with the internal topography: the model warns
+# and deactivates the overflow that carries them
+OVF_MISMATCHED = OverflowSpec(**{**vars(OVF_POINTS), "name": "mismatched",
+                                 "kmt_changes": ((6, 16, 3, 2),)})
+
+
+def overflow_phase(nsteps: int = 5):
+    """The overflows on the card against the same on the CPU: the 'mini'
+    preset with the box-only and the point-data overflow (and beside the
+    latter one whose kmt records disagree with the topography), nsteps
+    steps from a state with the source region 4 K colder. float64 within
+    1e-11 of scale; float32 (its 2-D solve in float64) within WITNESS_RATIO
+    times the CPU float32 run's own distance from the float64 run.
+    ``validate_geometry``'s warning and the overflows it keeps are the same
+    on both devices. Prints the first step's transports."""
+    import warnings
+    out = {}
+    for kind, specs in (("box", (OVF_BOX,)),
+                        ("points", (OVF_POINTS, OVF_MISMATCHED))):
+        runs, warned, first = {}, {}, {}
+        for dtype_name, (where, device) in itertools.product(
+                ("float64", "float32"),
+                (("gpu", DEV), ("cpu", torch.device("cpu")))):
+            cfg = get_config("mini", dtype=dtype_name, overflows=specs,
+                             solver=SolverConfig(solve_dtype="float64"))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                model = Model(cfg, device=device)
+            key = (dtype_name, where)
+            warned[key] = ([str(w.message) for w in caught],
+                           [o.name for o in model.cfg.overflows])
+            src = torch.as_tensor(overflows.region_mask3(
+                model.cfg, model.ovf_statics, 0, overflows.REG_SRC) > 0,
+                device=device)
+            state = model.initial_state()
+            tracer = state.tracer_cur.clone()
+            tracer[0] = torch.where(src, tracer[0] - 4.0, tracer[0])
+            state = state.replace(tracer_cur=tracer, tracer_old=tracer)
+            ms, me, mp, phi, _ = overflows.transports(
+                model.cfg, model.grid, model.ovf_statics, tracer)
+            first[key] = {"ms": ms.tolist(), "me": me.tolist(),
+                          "mp": mp.tolist(), "phi": phi.tolist()}
+            reset_counts()
+            for _ in range(nsteps):
+                state, _ = model.advance(state)
+            if where == "cpu" and any(read_counts().values()):
+                raise AssertionError("the CPU run launched a kernel")
+            runs[key] = state
+        if len({repr(v) for v in warned.values()}) != 1:
+            raise AssertionError(f"overflows {kind}: validate_geometry "
+                                 f"differs between devices: {warned}")
+        if first[("float64", "gpu")]["ms"][0] <= 0.0:
+            raise AssertionError(f"overflows {kind}: no transport")
+        d64 = _state_diffs(runs[("float64", "gpu")],
+                           runs[("float64", "cpu")])
+        d32 = _state_diffs(runs[("float32", "gpu")],
+                           runs[("float32", "cpu")])
+        w32 = _state_diffs(runs[("float32", "cpu")],
+                           runs[("float64", "cpu")])
+        band32 = {k: WITNESS_RATIO * v for k, v in w32.items()}
+        rec = {"phase": "overflows", "kind": kind, "steps": nsteps,
+               "overflows_kept": warned[("float64", "gpu")][1],
+               "warnings": warned[("float64", "gpu")][0],
+               "transports_first_step": {f"{d}_{t}": v for (d, t), v
+                                         in first.items()},
+               "rel_diff_float64": d64, "band_float64": 1e-11,
+               "rel_diff_float32": d32, "band_float32": band32}
+        emit(rec)
+        broken = [k for k, v in d64.items() if not v <= 1e-11]
+        broken += [k + "_f32" for k, v in d32.items() if not v <= band32[k]]
+        if broken:
+            raise AssertionError(f"overflows {kind}: GPU and CPU differ "
+                                 f"beyond the band in {broken}")
+        out[kind] = rec
+    return out
 
 
 COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
@@ -1506,23 +1803,43 @@ COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
 def reset_counts():
     for mod in COUNTERS.values():
         mod.launches = 0
+    tridiag_cuda.launches_by_nr.clear()
 
 
 def read_counts():
-    return {name: mod.launches for name, mod in COUNTERS.items()}
+    """Every wrapper's launches, and thomas's by the right-hand sides a
+    launch took (``thomas_nr1`` ...)."""
+    counts = {name: mod.launches for name, mod in COUNTERS.items()}
+    counts.update({f"thomas_nr{n}": tridiag_cuda.launches_by_nr[n]
+                   for n in range(1, tridiag_cuda.MAX_RHS + 1)})
+    return counts
 
 
 def expected_counts(path: str, nsteps: int):
-    """Launches of ``nsteps`` steps from the initial state: the implicit
-    solves take 3 launches on the Euler step and 5 on a leapfrog step; every
-    other kernel of a path is launched once a step."""
+    """Launches of ``nsteps`` steps from the initial state. The implicit
+    solves: with T and S alone 3 on the Euler step (right-hand sides 1, 1
+    and the momentum's 2) and 5 on a leapfrog step (1, 1, 2, 1, 1); with
+    prod_full's three passive tracers 3 (1, 2, 4: salinity and the passive
+    tracers on one factorisation) and 6 (1, 1, 2, 1, 1, 3). The tracer
+    kernel: a launch for each group of at most two tracers a step. Every
+    other kernel of a path: once a step."""
     chain = ("tracer", "clinic", "gm_slope", "gm_tlt", "gm_chain")
+    flux = ("tracer", "clinic", "gm_flux")
     once = {"core": ("tracer", "clinic"), "gm_full": chain,
-            "gm_flux": ("tracer", "clinic", "gm_flux"),
-            "prod_dyn": chain, "prod_mix": chain}[path]
-    expect = dict.fromkeys(COUNTERS, 0)
+            "gm_flux": flux, "prod_dyn": chain, "prod_mix": chain,
+            "prod_full": chain, "prod_flux": flux}[path]
+    expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
-    expect["thomas"] = 3 + 5 * (nsteps - 1)
+    nt = full_config("float64", path).nt
+    expect["tracer"] = nsteps * len(tracer_cuda.tracer_groups(nt))
+    euler, leapfrog = (({1: 1, 2: 1, 4: 1}, {1: 4, 2: 1, 3: 1})
+                       if path in PASSIVE_PATHS
+                       else ({1: 2, 2: 1}, {1: 4, 2: 1}))
+    for nr in range(1, tridiag_cuda.MAX_RHS + 1):
+        expect[f"thomas_nr{nr}"] = (euler.get(nr, 0)
+                                    + leapfrog.get(nr, 0) * (nsteps - 1))
+    expect["thomas"] = sum(euler.values()) + sum(leapfrog.values()) * (
+        nsteps - 1)
     return expect
 
 
@@ -1534,6 +1851,7 @@ def path_phase(path: str, dtype_name: str):
     cfg = full_config(dtype_name, path)
     model = Model(cfg)  # default device: the GPU
     state = model.initial_state()
+    forcing = path_forcing(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1541,7 +1859,7 @@ def path_phase(path: str, dtype_name: str):
     diag_step4 = None
     t0 = time.perf_counter()
     for n in range(1, nsteps + 1):
-        state, diags = model.advance(state)
+        state, diags = model.advance(state, forcing)
         iters.append(int(diags.solver_iters))
         if n == 4:  # early spin-up, for comparison with the JAX package
             diag_step4 = model.diagnostics(state)
@@ -1562,6 +1880,15 @@ def path_phase(path: str, dtype_name: str):
     if not all(math.isfinite(v) for v in diag.values()):
         raise AssertionError(f"diagnostics not finite: {diag}")
     points = cfg.nx * cfg.ny * cfg.km
+    passive = {}
+    if cfg.passive_tracers:
+        # the gas exchange reached the CFC tracers; the age's surface reset
+        sfc = state.tracer_cur[2:, 0].abs().amax(dim=(1, 2)).tolist()
+        passive = {"passive_tracers": model.passive.names,
+                   "surface_max": sfc}
+        if not (sfc[0] == 0.0 and min(sfc[1:]) > 0.0):
+            raise AssertionError(f"{path} {dtype_name}: passive tracers' "
+                                 f"surface maxima {sfc}")
     emit({"phase": "path", "path": path, "dtype": dtype_name,
           "dims": [cfg.nx, cfg.ny, cfg.km], "nt": cfg.nt, "steps": nsteps,
           "averaging_steps": n_avg, "seconds": seconds,
@@ -1569,7 +1896,8 @@ def path_phase(path: str, dtype_name: str):
           "grid_point_steps_per_s": points * nsteps / seconds,
           "solver_iters_per_step": iters, "launches": counts,
           "diagnostics_step4": diag_step4, "diagnostics": diag,
-          "peak_device_mem_bytes": torch.cuda.max_memory_allocated()})
+          "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
+          **passive})
     return counts
 
 
@@ -1588,17 +1916,25 @@ def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False):
     model = Model(cfg, device=device)
     state = (stratified_state(model, SEED + 7) if stratified
              else model.initial_state())
+    forcing = path_forcing(model)
     iters = []
     for _ in range(nsteps):
-        state, diags = model.advance(state)
+        state, diags = model.advance(state, forcing)
         iters.append(int(diags.solver_iters))
     return state, iters
 
 
 def _state_diffs(a, b):
+    """Each of PATH_FIELDS' largest difference over its largest value, and
+    with passive tracers each of those (``tracer2`` ...) on its own scale:
+    they are far smaller than T and S and do not act on the dynamics."""
+    pairs = [(name, getattr(a, name), getattr(b, name))
+             for name in PATH_FIELDS]
+    pairs += [(f"tracer{n}", a.tracer_cur[n], b.tracer_cur[n])
+              for n in range(2, a.tracer_cur.shape[0])]
     out = {}
-    for name in PATH_FIELDS:
-        x, y = getattr(a, name), getattr(b, name).to(getattr(a, name).device)
+    for name, x, y in pairs:
+        y = y.to(x.device)
         if not bool(torch.isfinite(x).all() and torch.isfinite(y).all()):
             raise AssertionError(f"{name} not finite")
         out[name] = float((x - y).abs().max()) / (float(y.abs().max())
@@ -1652,7 +1988,8 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
             raise AssertionError("the comparison did not separate the "
                                  "kernel run from the plain run")
         diffs = _state_diffs(s_kernel, s_plain)
-        band = PATH_BAND[cfg.torch_dtype]
+        fixed = PATH_BAND[cfg.torch_dtype]
+        band = {k: fixed.get(k, fixed["tracer_cur"]) for k in diffs}
         if ref is not None:
             d_k, d_p = _state_diffs(s_kernel, ref), _state_diffs(s_plain, ref)
             if path in WITNESS_BAND_PATHS:
@@ -1703,17 +2040,18 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
     model = Model(cfg)
     start = (stratified_state(model, SEED + 7) if stratified
              else model.initial_state())
-    state = model.run(start, 3)  # past the Euler step
+    forcing = path_forcing(model)
+    state = model.run(start, 3, forcing)  # past the Euler step
     spans = [("baroclinic_driver", baroclinic, "driver"),
              ("barotropic_driver", barotropic, "driver"),
              ("correct_adjust", baroclinic, "correct_adjust")]
-    if path in ("gm_full",) + PROD_PATHS:
+    if path in ("gm_full", "prod_dyn", "prod_mix", "prod_full"):
         spans += [("gm_slopes_kernel", gm_slope_cuda, "slopes"),
                   ("gm_transition_layer_kernel", gm_tlt_cuda,
                    "transition_layer"),
                   ("gm_bfre_profile_plain", gm, "kappa_vertical_bfre"),
                   ("gm_chain_kernel", gm_chain_cuda, "chain")]
-    if path == "prod_mix":
+    if path in ("prod_mix", "prod_full"):
         spans += [("kpp_plain", kpp, "kpp_coeffs"),
                   ("submeso_amplitudes_plain", submeso, "amplitudes")]
     parts = {name: 0.0 for name, _, _ in spans}
@@ -1741,7 +2079,7 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
         t0 = time.perf_counter()
         iters = 0
         for _ in range(nsteps):
-            state, diags = model.advance(state)
+            state, diags = model.advance(state, forcing)
             iters += int(diags.solver_iters)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
@@ -1764,7 +2102,7 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(nprof):
-            state, _ = model.advance(state)
+            state, _ = model.advance(state, forcing)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
 
@@ -1865,6 +2203,10 @@ def main():
                                  f"sm={sm}): library {c_values}, planner "
                                  f"{gm_chain_cuda.smem_values(nt, sm)}")
         gm_chain_cuda.launch_plan(8, nt, sm)  # fits 227 KB
+    if lib.pop2_thomas_max_rhs() != tridiag_cuda.MAX_RHS:
+        raise AssertionError(f"thomas right-hand sides a launch: library "
+                             f"{lib.pop2_thomas_max_rhs()}, planner "
+                             f"{tridiag_cuda.MAX_RHS}")
     if lib.pop2_gm_tlt_threads() != gm_tlt_cuda.THREADS:
         raise AssertionError(f"gm_tlt block: library "
                              f"{lib.pop2_gm_tlt_threads()} threads, planner "
@@ -1925,6 +2267,7 @@ def main():
         records[dtype_name].update(gm_kernel_phase(dtype_name))
         records[dtype_name].update(fold_kernel_phase(dtype_name))
         records[dtype_name].update(mix_kernel_phase(dtype_name))
+        records[dtype_name].update(flux_fold_phase(dtype_name))
         other_modes_phase(dtype_name)
         gm_other_modes_phase(dtype_name)
         ragged_phase(dtype_name)
@@ -1933,12 +2276,14 @@ def main():
     for path in PATHS:
         for dtype_name in ("float32", "float64"):
             launches[(path, dtype_name)] = path_phase(path, dtype_name)
-    for path in ("core", "gm_full", "prod_dyn", "prod_mix"):
+    for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full"):
         path_vs_plain_phase(path)
         breakdown_phase(path, "float32")
         if path != "core":
             breakdown_phase(path, "float32", stratified=True)
         small_vs_cpu_phase(path)
+    small_vs_cpu_phase("prod_flux")
+    overflow_phase()
 
     kernels = []
     for dtype_name, recs in records.items():

@@ -112,7 +112,7 @@ def _declare(lib) -> None:
     lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_smem_values.argtypes = [i, i]
     lib.pop2_gm_slope_blocks_per_sm.argtypes = [i, l]
-    lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, i, l]
     lib.pop2_gm_flux_smem_values.argtypes = [i, i]
     lib.pop2_gm_flux_tile_rows.argtypes = [i]
     lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d, p, p]
@@ -129,14 +129,14 @@ def _declare(lib) -> None:
     lib.pop2_gm_slopes.restype = i
     lib.pop2_gm_chain.argtypes = [i] * 10 + [l] + [p] * 20
     lib.pop2_gm_chain.restype = i
-    lib.pop2_gm_flux.argtypes = [i] * 8 + [l] + [p] * 17
+    lib.pop2_gm_flux.argtypes = [i] * 9 + [l] + [p] * 17
     lib.pop2_gm_flux.restype = i
     lib.pop2_gm_tlt.argtypes = [i] * 4 + [p] * 10
     lib.pop2_gm_tlt.restype = i
     lib.pop2_gm_tlt_blocks_per_sm.argtypes = [i]
     for count in ("pop2_clinic_g2d_count", "pop2_gm_slope_coef_rows",
                   "pop2_gm_chain_lev_rows", "pop2_gm_flux_max_tracers",
-                  "pop2_thomas_blocks_per_sm",
+                  "pop2_thomas_blocks_per_sm", "pop2_thomas_max_rhs",
                   "pop2_gm_chain_blocks_per_sm", "pop2_gm_chain_smem_values",
                   "pop2_tracer_blocks_per_sm", "pop2_tracer_smem_values",
                   "pop2_tracer_max_group", "pop2_tracer_tile_rows",

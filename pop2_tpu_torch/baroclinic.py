@@ -17,11 +17,11 @@ Robert filter is ``step``'s.
 The port carries the dynamical core, KPP (with its non-local tracer
 source and Jayne tidal mixing), GM, the submesoscale scheme (folded into
 the GM chain kernel where that runs, its own tendency otherwise), the
-chlorophyll (or Jerlov) shortwave heating and frazil ice. The branches of
-the JAX package's driver for passive tracers, interior restoring,
-estuaries, overflows and geothermal flux are left out;
-``supported.check_supported`` refuses the config switches that would select
-them.
+chlorophyll (or Jerlov) shortwave heating, frazil ice, the passive tracers'
+surface fluxes, interior sources and resets, and the overflows' tracer
+exchange. The branches of the JAX package's driver for interior restoring,
+estuaries and geothermal flux are left out; ``supported.check_supported``
+refuses the config switches that would select them.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, ice, kpp
-from pop2_tpu_torch import submeso, sw_absorption, tracer_cuda, tridiag, vmix
+from pop2_tpu_torch import overflows, submeso, sw_absorption, tracer_cuda
+from pop2_tpu_torch import tridiag, vmix
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -75,12 +76,18 @@ def _masked_density(cfg, grid, ts_range, tracer):
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
            state: State, forcing: Forcing, dh, dhu,
            leapfrog: bool, want_gm_diags: bool = True,
-           sw_profile=None, kpp_statics=None) -> BaroclinicOut:
+           sw_profile=None, kpp_statics=None, passive=None,
+           ovf_statics=None, ovf_trans=None, ovf_sel=None,
+           ovf_sets_tavg=None) -> BaroclinicOut:
     """Explicit baroclinic update (baroclinic_driver,
     source/baroclinic.F90:578): the tracer predictor and the normalized
     baroclinic velocity. ``sw_profile``: the Jerlov transmission profile
     (``sw_absorption.absorb_profile``) when ``sw_absorption='jerlov'``;
-    ``kpp_statics``: ``kpp.build_statics`` when ``vmix='kpp'``."""
+    ``kpp_statics``: ``kpp.build_statics`` when ``vmix='kpp'``;
+    ``passive``: ``passive_tracers.PassiveTracers`` when the config has
+    passive tracers; ``ovf_statics``: ``overflows.build_statics`` with the
+    step's transports, product-set selection and set means (``step.step``
+    computes them once a step)."""
     c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     varthick = cfg.sfc_layer == "varthick"
@@ -106,6 +113,15 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     kppo = coeffs.kpp
     hblt = kppo.hblt if kppo is not None else None
     hmxl = kppo.hmxl if kppo is not None else None
+    with_passive = passive is not None and bool(passive.packages)
+
+    # surface fluxes with the passive tracers' gas exchange
+    # (set_sflux_passive_tracers, source/passive_tracers.F90:988)
+    if with_passive:
+        stf = forcing.stf.clone()
+        stf[2:] += passive.set_sflux(cfg, grid, state.tracer_old,
+                                     state.tracer_cur, forcing)
+        forcing = forcing.replace(stf=stf)
 
     # ---- tracer tendencies (tracer_update, source/baroclinic.F90:1902):
     # hdifft + comp_flux_vel/advt + vdifft fused in one kernel. Under GM the
@@ -153,6 +169,17 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         trans = sw_absorption.chl_transmission(cfg, grid, chl)
         ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
                                          trans)
+    # passive-tracer interior sources (set_interior_passive_tracers,
+    # source/passive_tracers.F90:768)
+    if with_passive:
+        ft[2:] += passive.set_interior(cfg, grid, state.tracer_old,
+                                       state.tracer_cur, forcing=forcing)
+    # overflow parameterization (ovf_driver, source/overflows.F90:3477; the
+    # conservative regional exchange of overflows.py)
+    if cfg.overflows and ovf_statics is not None:
+        ft += overflows.tendency(cfg, grid, ovf_statics, state.tracer_cur,
+                                 trans=ovf_trans, sel=ovf_sel,
+                                 sets_tavg=ovf_sets_tavg)
 
     # ---- build RHS / predictor update (source/baroclinic.F90:2212-2300) ---
     rhs = torch.where(grid.kmask_t[None], c2dtt.reshape(1, cfg.km, 1, 1) * ft,
@@ -166,12 +193,13 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         rhs[:2, 0] = torch.where(grid.kmask_t[0][None],
                                  c2dtt[0] * ft[:2, 0] - pterm, 0.0)
         # predictor tridiagonal update of T,S, with PSURF(cur) on the LHS
-        # (source/baroclinic.F90:885-895)
-        tracer_new = torch.stack([
+        # (source/baroclinic.F90:885-895); the passive tracers carry their
+        # right-hand side to the corrector
+        tracer_new = torch.cat([torch.stack([
             state.tracer_old[n] + tridiag.impvmixt(
                 rhs[n], coeffs.vdc[n], state.psurf_cur, grid.KMT, vg.dz,
                 vg.dzwr, c2dtt, cfg.aidif, varthick=True)
-            for n in range(2)])
+            for n in range(2)]), rhs[2:]])
     elif not varthick:
         # tracer 0 has its own diffusivity class; the others share vdc[1]
         # and one factorization
@@ -231,11 +259,12 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
 def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                    state: State, out: BaroclinicOut, psurf_new,
-                   coeffs_vdc, leapfrog: bool, avg_ts: bool = False):
+                   coeffs_vdc, leapfrog: bool, avg_ts: bool = False,
+                   passive=None):
     """Corrector/adjustment pass (source/baroclinic.F90:1217-1497):
     finish the tracer update with the new surface pressure, apply convective
-    adjustment, the freezing reset or frazil ice, and recompute the new
-    density.
+    adjustment, the passive tracers' resets, the freezing reset or frazil
+    ice, and recompute the new density.
 
     ``coeffs_vdc``: the same vertical diffusivity used by the predictor.
     Returns (tracer_new, rho_new, qice, aqice).
@@ -263,6 +292,18 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                     rhs1, coeffs_vdc[n], psurf_new, grid.KMT, vg.dz, vg.dzwr,
                     c2dtt, cfg.aidif, varthick=True)
                 dts.append(tracer_new[n] + dT)
+            if cfg.nt > 2:
+                # passive tracers: surface RHS adjustment and one solve for
+                # all of them (source/baroclinic.F90:1303-1321)
+                rhs_p = tracer_new[2:].clone()
+                rhs_p[:, 0] += torch.where(
+                    grid.kmask_t[0][None],
+                    -state.tracer_old[2:, 0]
+                    * (psurf_new - state.psurf_old)[None] / grav_dz1, 0.0)
+                dTs = tridiag.impvmixt_batch(
+                    rhs_p, coeffs_vdc[1], psurf_new, grid.KMT, vg.dz,
+                    vg.dzwr, c2dtt, cfg.aidif, varthick=True)
+                dts.extend(state.tracer_old[2:] + dTs)
             tracer_new = torch.stack(dts)
         else:
             # no pressure averaging (or Euler step): tracer_new holds the
@@ -292,6 +333,11 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     # convective adjustment (no-op for convection_type='diffusion')
     tracer_new = vmix.convad(cfg, grid, tracer_new)
+
+    # passive-tracer resets (reset_passive_tracers,
+    # source/baroclinic.F90:1458-1460), out of place
+    if passive is not None and passive.packages:
+        tracer_new = passive.reset(cfg, grid, tracer_new)
 
     # frazil ice formation (source/baroclinic.F90:1442-1450)
     qice, aqice = state.qice, state.aqice

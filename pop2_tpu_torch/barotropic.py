@@ -47,7 +47,9 @@ def diagonal_correction(cfg: ModelConfig, grid: Grid, leapfrog: bool):
 def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
            forcing: Forcing, zx, zy, leapfrog: bool,
            pcsi_eigs: Optional[Tuple[float, float]] = None,
-           precond=None) -> BarotropicOut:
+           precond=None, ovf_qsurf=None) -> BarotropicOut:
+    """The barotropic step; ``ovf_qsurf``: the overflows' equivalent
+    surface volume flux (``overflows.qsurf``) or None."""
     dtp = cfg.time.dtp
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     gamma = cfg.time.gamma
@@ -84,9 +86,15 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
     rhs = div(w3, w4, grid.DXU, grid.DYU, mask_t, bc) / (beta * c2dtp)
 
     diag_corr = diagonal_correction(cfg, grid, leapfrog)
+    fw_eff = forcing.fw
+    if ovf_qsurf is not None:
+        # prescribed overflow transports enter the column-integrated
+        # continuity like a (globally zero-sum) surface volume flux
+        # (ovf_rhs_brtrpc_continuity, source/overflows.F90:5068-5120)
+        fw_eff = fw_eff + ovf_qsurf
     if varthick:
         rhs = (rhs - diag_corr * state.psurf_cur
-               - forcing.fw * grid.TAREA / (beta * c2dtp))
+               - fw_eff * grid.TAREA / (beta * c2dtp))
     elif cfg.sfc_layer == "oldfree":
         rhs = rhs - diag_corr * state.psurf_cur
 

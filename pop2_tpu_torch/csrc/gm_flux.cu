@@ -44,9 +44,16 @@
 // the fused chain kernel, driven here by the providers `FrameWeights` and
 // `FrameDiffs`. Both `cancellation` branches are instances. Closed edges
 // read zero (copies of nothing, zero weights); a cyclic edge wraps inside
-// the frame; the ragged last tiles are masked. The block shape and the
-// dynamic shared memory come from the wrapper's planner
-// (`gm_cuda.launch_plan`).
+// the frame; the ragged last tiles are masked. A tripole north edge (FOLD,
+// an instance of its own, so that the closed-edge instances keep their
+// code) is the chain kernel's fold (common.cuh `fold_point`): the frame's
+// ghost row is copied from the folded columns (tz and the diffusivities are
+// centre scalars), the north neighbour's bottom level is the folded
+// column's, and the ghost row's south-face skew weights are the folded
+// column's north-face ones with the sign flipped (the faces swap under the
+// 180-degree fold, `BC.n_partner` of the plain version); no top row is
+// patched after the kernel. The block shape and the dynamic shared memory
+// come from the wrapper's planner (`gm_cuda.launch_plan`).
 #include "gm_flux.cuh"
 
 namespace pop2 {
@@ -182,7 +189,7 @@ __device__ __forceinline__ int quarter_off(int face, int ps) {
   return 2 * (face & 1) * ps;
 }
 
-template <typename T, bool CANCEL, int NT>
+template <typename T, bool CANCEL, int NT, bool FOLD>
 __global__ void __launch_bounds__(kFrameCols * flux_rows(NT),
                                   FluxOcc<T, CANCEL, NT>::kMinBlocks)
 gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
@@ -215,13 +222,15 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   const int oc = live ? gj * nx + gi : 0;
 
   // The column of the own slot, whose weights this thread forms: the
-  // live column, or past a cyclic edge the column it wraps to (a live
-  // neighbour reads its weights), or none.
+  // live column, or past a cyclic edge the column it wraps to, or past a
+  // tripole edge the folded column (a live neighbour reads its weights), or
+  // none.
   int own_off = 0;
-  bool own_in;
+  bool own_in, own_fold = false;
   {
     int r, c;
-    own_in = frame_slot<1>(s, y0, x0, ny, nx, cyclic, &r, &c, &own_off);
+    own_in = frame_slot<1>(s, y0, x0, ny, nx, cyclic, &r, &c, &own_off,
+                           FOLD, kFoldCenter, &own_fold);
   }
   // The frame slots this thread copies; bit 0: inside the domain, bit 1:
   // tx (tile, W side), bit 2: ty (tile, S side), bit 3: tz (tile, N, S, E,
@@ -232,8 +241,8 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   for (int j = 0; j < Lay::kSlots; ++j) {
     const int q = tid + j * C;
     int r = 0, c = 0, off = 0;
-    const bool in =
-        q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off);
+    const bool in = q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r,
+                                           &c, &off, FOLD);
     const bool row_in = r >= 1 && r <= ROWS;
     const bool col_in = c >= 1 && c <= kFrameCols;
     const bool fx = row_in && c <= kFrameCols;
@@ -247,9 +256,10 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   }
   // The frame columns on the tile's sides whose weights this thread forms
   // besides its own (the first threads): slot, column offset, whether it
-  // lies inside the domain, and the face it turns to the tile.
+  // lies inside the domain (and on the tripole ghost row), and the face it
+  // turns to the tile.
   int hq[Lay::kSideIters], hoff[Lay::kSideIters], hface[Lay::kSideIters];
-  bool hin[Lay::kSideIters];
+  bool hin[Lay::kSideIters], hfold[Lay::kSideIters];
 #pragma unroll
   for (int j = 0; j < Lay::kSideIters; ++j) {
     const int h = tid + j * C;
@@ -268,7 +278,10 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
       face = fS;
     }
     int r, c, off = 0;
-    hin[j] = q >= 0 && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c, &off);
+    bool folded = false;
+    hin[j] = q >= 0 && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c,
+                                     &off, FOLD, kFoldCenter, &folded);
+    hfold[j] = folded;
     hq[j] = q;
     hoff[j] = off;
     hface[j] = face;
@@ -302,7 +315,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   GmMetrics<T> m = {};
   if (live) {
     Column c;
-    locate_at(ny, nx, cyclic, gj, gi, &c);
+    locate_at(ny, nx, cyclic, gj, gi, &c, FOLD);
     m = load_metrics(make_stencil(c, nx), kmt, hyx, hxy, tarea_r);
   }
 
@@ -338,6 +351,12 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
         pb[(pVT + f) * P] = w->vt[f];
         pb[(pVB + f) * P] = w->vb[f];
       }
+      // on the tripole ghost row the south face is the folded column's
+      // north face, sign flipped
+      if (FOLD && own_fold) {
+        pb[(pVT + fS) * P] = -w->vt[fN];
+        pb[(pVB + fS) * P] = -w->vb[fN];
+      }
     }
   };
 
@@ -356,15 +375,21 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
       const T hd_b = in ? hd[ps + o] : T(0);
       pb[pWEFF * P + hq[j]] = kis_t + kis_b + hd_t + hd_b;
       if (!CANCEL) {
+        // the face turned to the tile; on the tripole ghost row the folded
+        // column's north face, read and sign flipped for its south face
         const int f = hface[j];
-        const int q = quarter_off(f, ps) + o;
-        const T* sl = quarter(slx, sly, f);
-        const T* sf = quarter(sfx, sfy, f);
+        const bool flip = FOLD && hfold[j];
+        const int fr = flip ? fN : f;
+        const int q = quarter_off(fr, ps) + o;
+        const T* sl = quarter(slx, sly, fr);
+        const T* sf = quarter(sfx, sfy, fr);
         const T dzk = lev[L];
         const T sl_t = in ? sl[q] : T(0), sl_b = in ? sl[q + ps] : T(0);
         const T sf_t = in ? sf[q] : T(0), sf_b = in ? sf[q + ps] : T(0);
-        pb[(pVT + f) * P + hq[j]] = kis_t * sl_t * dzk - sf_t;
-        pb[(pVB + f) * P + hq[j]] = kis_b * sl_b * dzk - sf_b;
+        const T vt = kis_t * sl_t * dzk - sf_t;
+        const T vb = kis_b * sl_b * dzk - sf_b;
+        pb[(pVT + f) * P + hq[j]] = flip ? -vt : vt;
+        pb[(pVB + f) * P + hq[j]] = flip ? -vb : vb;
       }
     }
   };
@@ -407,15 +432,15 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   }
 }
 
-template <typename T, bool CANCEL, int NT>
+template <typename T, bool CANCEL, int NT, bool FOLD>
 struct FluxInstance {
   static cudaError_t prepare(long smem) {
-    return allow_large_smem(gm_flux_kernel<T, CANCEL, NT>, smem);
+    return allow_large_smem(gm_flux_kernel<T, CANCEL, NT, FOLD>, smem);
   }
   static int occupancy(long smem) {
     const cudaError_t e = prepare(smem);
     if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(gm_flux_kernel<T, CANCEL, NT>,
+    return blocks_per_sm(gm_flux_kernel<T, CANCEL, NT, FOLD>,
                          kFrameCols * flux_rows(NT), smem);
   }
 };
@@ -435,15 +460,21 @@ bool flux_config_ok(int nt, int km, int ny, int nx, bool cancel, int rows,
 
 }  // namespace pop2
 
-#define POP2_GM_FLUX_INSTANCES(T, ACTION)                                    \
+#define POP2_GM_FLUX_BRANCHES(T, FOLD, ACTION)                               \
   if (nt == kFluxTracersFixed && cancellation)                               \
-    ACTION(T, true, kFluxTracersFixed)                                       \
+    ACTION(T, true, kFluxTracersFixed, FOLD)                                 \
   else if (nt == kFluxTracersFixed)                                          \
-    ACTION(T, false, kFluxTracersFixed)                                      \
+    ACTION(T, false, kFluxTracersFixed, FOLD)                                \
   else if (cancellation)                                                     \
-    ACTION(T, true, 0)                                                       \
+    ACTION(T, true, 0, FOLD)                                                 \
   else                                                                       \
-    ACTION(T, false, 0)
+    ACTION(T, false, 0, FOLD)
+#define POP2_GM_FLUX_INSTANCES(T, ACTION)                                    \
+  if (fold) {                                                                \
+    POP2_GM_FLUX_BRANCHES(T, true, ACTION)                                   \
+  } else {                                                                   \
+    POP2_GM_FLUX_BRANCHES(T, false, ACTION)                                  \
+  }
 
 extern "C" int pop2_gm_flux_max_tracers() { return pop2::kMaxTracers; }
 
@@ -456,11 +487,12 @@ extern "C" int pop2_gm_flux_smem_values(int nt, int cancellation) {
 // The rows of the tile for nt tracers (the planner's gm_cuda.tile_rows).
 extern "C" int pop2_gm_flux_tile_rows(int nt) { return pop2::flux_rows(nt); }
 
-// dtype: 0 = float32, 1 = float64; rows: rows of the tile; smem: dynamic
-// shared memory a block, bytes. Returns cudaGetLastError() of the launch,
-// or cudaErrorInvalidValue for a configuration the kernel does not take.
+// dtype: 0 = float32, 1 = float64; fold: the north edge is a tripole fold;
+// rows: rows of the tile; smem: dynamic shared memory a block, bytes.
+// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// configuration the kernel does not take.
 extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
-                            int cyclic, int cancellation, int rows,
+                            int cyclic, int fold, int cancellation, int rows,
                             long smem, const void* tx, const void* ty,
                             const void* tz, const void* slx, const void* sly,
                             const void* sfx, const void* sfy,
@@ -478,11 +510,11 @@ extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
                   (unsigned)((ny + rows - 1) / rows));
   const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_GM_FLUX(T, CANCEL, NT)                                          \
+#define POP2_GM_FLUX(T, CANCEL, NT, FOLD)                                    \
   {                                                                          \
-    const cudaError_t e = FluxInstance<T, CANCEL, NT>::prepare(smem);        \
+    const cudaError_t e = FluxInstance<T, CANCEL, NT, FOLD>::prepare(smem);  \
     if (e != cudaSuccess) return (int)e;                                     \
-    gm_flux_kernel<T, CANCEL, NT><<<grid, block, smem, s>>>(                 \
+    gm_flux_kernel<T, CANCEL, NT, FOLD><<<grid, block, smem, s>>>(           \
         nt, km, ny, nx, cyclic, (const T*)tx, (const T*)ty, (const T*)tz,    \
         (const T*)slx, (const T*)sly, (const T*)sfx, (const T*)sfy,          \
         (const T*)kisop, (const T*)hd, kmt, (const T*)hyx, (const T*)hxy,    \
@@ -497,13 +529,13 @@ extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
   return (int)cudaGetLastError();
 }
 
-// Blocks of a launch of this configuration (nt tracers, a branch, `smem`
-// bytes a block) that one SM holds at once.
+// Blocks of a launch of this configuration (nt tracers, a branch, the north
+// edge, `smem` bytes a block) that one SM holds at once.
 extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int nt, int cancellation,
-                                          long smem) {
+                                          int fold, long smem) {
   using namespace pop2;
-#define POP2_GM_FLUX_OCC(T, CANCEL, NT)                                      \
-  return FluxInstance<T, CANCEL, NT>::occupancy(smem);
+#define POP2_GM_FLUX_OCC(T, CANCEL, NT, FOLD)                                \
+  return FluxInstance<T, CANCEL, NT, FOLD>::occupancy(smem);
   if (dtype == 0) {
     POP2_GM_FLUX_INSTANCES(float, POP2_GM_FLUX_OCC)
   } else {
@@ -513,3 +545,4 @@ extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int nt, int cancellation,
   return -(int)cudaErrorInvalidValue;  // not reached: every case returns
 }
 #undef POP2_GM_FLUX_INSTANCES
+#undef POP2_GM_FLUX_BRANCHES

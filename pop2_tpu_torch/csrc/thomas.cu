@@ -28,11 +28,21 @@
 // (`tridiag_cuda.launch_plan`) so that several blocks fit an SM. On an H100
 // 64 or 128 columns a block were no faster than 32, one group of copies in
 // flight slower than two and more than two no faster.
+//
+// Right-hand sides: the kernel is instantiated for 1 to kMaxRhs (4, the
+// production menu's most: salinity and three passive tracers on the Euler
+// step); the wrapper launches more in groups of at most kMaxRhs that share
+// A, h1 and kmax (`tridiag_cuda.rhs_groups`), each group reading A again.
+// At 4 right-hand sides in float64 a block's slab of 60 levels is 76.8 KB,
+// so an SM holds three blocks (four at 2 right-hand sides, five at 4 in
+// float32); each block keeps (1 + nr) values a level in flight, so the
+// bytes in flight an SM stay near those of the 2-right-hand-side instance.
 #include "common.cuh"
 
 namespace pop2 {
 
 constexpr int kMaxLevels = 64;
+constexpr int kMaxRhs = 4;             // right-hand sides a launch
 constexpr int kChunk = 8;              // levels a group of copies
 constexpr int kAhead = 2;              // groups of copies in flight
 constexpr int kMaxColsPerBlock = 256;  // threads a block at most
@@ -144,7 +154,8 @@ thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
 // of 32), `smem` bytes holding the (1 + nr) km C slab.
 inline bool thomas_config_ok(int nr, int km, int cols, long smem,
                              int value_bytes) {
-  return km >= 1 && km <= kMaxLevels && nr >= 1 && nr <= 3 && cols >= 32 &&
+  return km >= 1 && km <= kMaxLevels && nr >= 1 && nr <= kMaxRhs &&
+         cols >= 32 &&
          cols <= kMaxColsPerBlock && cols % 32 == 0 &&
          smem >= (long)(1 + nr) * km * cols * value_bytes;
 }
@@ -174,7 +185,9 @@ int thomas_launch(int nr, int km, long ncol, int cols, long smem,
                                     rhs, out, stream);
     case 2: return thomas_run<T, 2>(km, ncol, cols, smem, hfac, h1, kmax, a,
                                     rhs, out, stream);
-    default: return thomas_run<T, 3>(km, ncol, cols, smem, hfac, h1, kmax, a,
+    case 3: return thomas_run<T, 3>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                    rhs, out, stream);
+    default: return thomas_run<T, 4>(km, ncol, cols, smem, hfac, h1, kmax, a,
                                      rhs, out, stream);
   }
 }
@@ -186,10 +199,20 @@ int thomas_occupancy(int cols, long smem) {
   return blocks_per_sm(thomas_kernel<T, NR>, cols, smem);
 }
 
+template <typename T>
+int thomas_occupancy_nr(int nr, int cols, long smem) {
+  switch (nr) {
+    case 1: return thomas_occupancy<T, 1>(cols, smem);
+    case 2: return thomas_occupancy<T, 2>(cols, smem);
+    case 3: return thomas_occupancy<T, 3>(cols, smem);
+    default: return thomas_occupancy<T, 4>(cols, smem);
+  }
+}
+
 }  // namespace pop2
 
-// dtype: 0 = float32, 1 = float64; cols: columns (threads) a block; smem:
-// dynamic shared memory a block, bytes. Returns cudaGetLastError() of the
+// dtype: 0 = float32, 1 = float64; nr: right-hand sides, 1 to 4; cols:
+// columns (threads) a block; smem: dynamic shared memory a block, bytes. Returns cudaGetLastError() of the
 // launch, or cudaErrorInvalidValue for a configuration the kernel does not
 // take or the card cannot hold.
 extern "C" int pop2_thomas(int dtype, int nr, int km, long ncol, int cols,
@@ -208,15 +231,14 @@ extern "C" int pop2_thomas(int dtype, int nr, int km, long ncol, int cols,
 extern "C" int pop2_thomas_blocks_per_sm(int dtype, int nr, int cols,
                                          long smem) {
   using namespace pop2;
-  if (nr < 1 || nr > 3) return -(int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return nr == 1 ? thomas_occupancy<float, 1>(cols, smem)
-                   : nr == 2 ? thomas_occupancy<float, 2>(cols, smem)
-                             : thomas_occupancy<float, 3>(cols, smem);
-  return nr == 1 ? thomas_occupancy<double, 1>(cols, smem)
-                 : nr == 2 ? thomas_occupancy<double, 2>(cols, smem)
-                           : thomas_occupancy<double, 3>(cols, smem);
+  if (nr < 1 || nr > kMaxRhs) return -(int)cudaErrorInvalidValue;
+  return dtype == 0 ? thomas_occupancy_nr<float>(nr, cols, smem)
+                    : thomas_occupancy_nr<double>(nr, cols, smem);
 }
+
+// Right-hand sides a launch takes at most (the planner's tridiag_cuda
+// MAX_RHS).
+extern "C" int pop2_thomas_max_rhs() { return pop2::kMaxRhs; }
 
 // Dynamic shared memory a block may take on the current device, bytes
 // (the launch planners' limit).

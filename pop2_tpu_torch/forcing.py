@@ -3,8 +3,10 @@
 Reference: ``source/forcing.F90`` dispatch + per-field modules. This slice
 carries the standalone analytic option of the reference's test configuration
 (``input_templates/test_pop2_in``): analytic zonal wind stress
-(source/forcing_ws.F90:266-292), zero heat/freshwater fluxes. Restoring,
-file-based and coupled forcing are later slices (ROADMAP.md Queue 1 item 11).
+(source/forcing_ws.F90:266-292), zero heat/freshwater fluxes. The gas-exchange inputs of the CFC and SF6
+packages (10-m wind speed squared, ice fraction, atmospheric mole fractions)
+are optional fields a caller fills. Restoring, file-based and coupled
+forcing are later slices (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ class Forcing(TensorTree):
     # the 18.6-year lunar-nodal-cycle factor on the tidal energy; None is 1
     # (the cycle itself is not ported: ROADMAP.md Queue 1 item 11)
     tidal_lnc: Optional[torch.Tensor] = None
+    # optional gas-exchange inputs (cfc_mod.F90 'model' formulation); without
+    # u10_sqr the gas fluxes are zero
+    u10_sqr: Optional[torch.Tensor] = None   # (ny, nx) 10-m wind^2 (cm^2/s^2)
+    ifrac: Optional[torch.Tensor] = None     # (ny, nx) sea-ice fraction
+    tracer_atm: Optional[torch.Tensor] = None  # (n_gas, 2) (nh, sh) per gas
 
 
 def analytic_forcing(cfg: ModelConfig, grid: Grid, device=None) -> Forcing:

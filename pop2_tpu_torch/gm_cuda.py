@@ -19,11 +19,14 @@ vertical-flux carries of all tracers lie in shared memory (see the note in
 ``csrc/gm_flux.cu``; the arithmetic of a level is ``csrc/gm_flux.cuh``,
 which the fused chain kernel shares). ``launch_plan`` chooses the tile and
 its shared memory in plain Python. Both ``cancellation`` branches, float32
-and float64.
+and float64, a closed or tripole north edge (the fold is read inside the
+kernel: the frame's ghost row from the folded columns, the ghost row's
+south-face skew weights as the folded north face's with the sign flipped,
+as ``flux_assembly_plain`` forms them through ``BC.n_partner``).
 
-Isotropic diffusivities, closed north-south boundary, 1-D layer thickness:
-the tripole top row and the anisotropic variant raise
-``NotImplementedError`` (ROADMAP.md Queue 2 kernel 6).
+Isotropic diffusivities and 1-D layer thickness: the anisotropic variant
+and partial bottom cells raise ``NotImplementedError`` (ROADMAP.md Queue 2
+kernel 6, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -88,8 +91,8 @@ def _check_mode(cfg, grid):
     todo = []
     if cfg.gm_aniso is not None:
         todo.append(f"gm_aniso={cfg.gm_aniso!r}")
-    if cfg.ns_boundary != "closed":
-        todo.append(f"ns_boundary={cfg.ns_boundary!r} (tripole top row)")
+    if cfg.ns_boundary not in ("closed", "tripole"):
+        todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
     if grid.DZT is not None:
@@ -246,7 +249,8 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     vdc = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_flux(
         cb.dtype_code(tx), nt, km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        int(bool(cancellation)), rows, smem, tx.data_ptr(), ty.data_ptr(),
+        int(cfg.ns_boundary == "tripole"), int(bool(cancellation)), rows,
+        smem, tx.data_ptr(), ty.data_ptr(),
         tz.data_ptr(), slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(),
         sf_sly.data_ptr(), kisop.data_ptr(), hor_diff.data_ptr(),
         grid.KMT.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),

@@ -20,10 +20,10 @@ can run with no input files:
 The port carries the internal generators, with a closed or tripole north
 edge (northward shifts of the host fields fold with the field's location and
 kind, as the JAX package's) and the anisotropic-viscosity statics on
-``Grid.aniso``; the ``file`` readers (and with them the file grid's tripole
-DYU correction), partial bottom cells, overflow pop-ups and topographic
-stress are refused by ``supported.check_supported`` (ROADMAP.md Queue 1
-items 8, 11).
+``Grid.aniso``, and the overflows' wet regions and kmt pop-ups on the
+internal topography; the ``file`` readers (and with them the file grid's
+tripole DYU correction), partial bottom cells and topographic stress are
+refused by ``supported.check_supported`` (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -431,6 +431,19 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
                                k + 1, kmt_new)
         kmt_new = np.where(htnew > zt_v[km - 1], km, kmt_new)
         KMT = kmt_new.astype(np.int32)
+
+    # with the internal topography, make the overflow regions (defined on
+    # the real grids' bathymetry) wet so the parameterization has ocean
+    # cells to act on; then the overflows' kmt "pop-up" changes
+    # (init_overflows_kmt, source/overflows.F90:1196-1275), which carve the
+    # source and product channels below the resolved topography
+    if cfg.overflows:
+        from pop2_tpu_torch.overflows import wet_regions  # imports grid
+        KMT = np.array(KMT, dtype=np.int32)
+        wet_regions(cfg, KMT)
+        for spec in cfg.overflows:
+            for (i, j, kmt_old, kmt_new) in spec.kmt_changes:
+                KMT[j, i] = kmt_new
 
     # KMU = min of 4 surrounding KMTs (source/grid.F90:978-985)
     KMU = np.minimum(np.minimum(KMT, sh(KMT, 1, 0)),

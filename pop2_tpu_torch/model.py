@@ -24,8 +24,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos, kpp, solvers, step as step_mod
+from pop2_tpu_torch import eos, kpp, overflows, solvers, step as step_mod
 from pop2_tpu_torch import sw_absorption
+from pop2_tpu_torch.passive_tracers import PassiveTracers
 from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing, analytic_forcing
@@ -41,6 +42,12 @@ class Model:
                  device="cuda"):
         check_supported(cfg)
         device = resolve_device(device)
+        if cfg.overflows and grid is None:
+            # the overflow point data must agree with the topography
+            # (init_overflows_kmt, source/overflows.F90:1196-1275): strict
+            # mode raises, otherwise the inconsistent overflows are
+            # deactivated with a warning, as in the JAX package
+            cfg = overflows.validate_geometry(cfg)
         self.cfg = cfg
         self.device = device
         self.grid = (grid.to(device) if grid is not None
@@ -58,6 +65,15 @@ class Model:
         # coefficient, built once
         self.kpp_statics = (kpp.build_statics(cfg, self.grid)
                             if cfg.vmix == "kpp" else None)
+        self.passive = (PassiveTracers(cfg, cfg.passive_tracers)
+                        if cfg.passive_tracers else None)
+        self.ovf_statics = None
+        if cfg.overflows:
+            self.ovf_statics = overflows.build_statics(cfg, self.grid)
+            # the overflow columns fold into the barotropic operator weights
+            # (ovf_solvers_9pt, source/overflows.F90:5515-5728), before the
+            # preconditioner and the eigenvalue bounds below
+            self.grid = overflows.solvers_9pt(cfg, self.grid)
         solve64 = (cfg.solver.solve_dtype == "float64"
                    and cfg.torch_dtype != torch.float64)
 
@@ -95,7 +111,8 @@ class Model:
 
     def initial_state(self) -> State:
         self.nsteps_total = 0
-        return initial_state(self.cfg, self.grid, self.device)
+        return initial_state(self.cfg, self.grid, self.device,
+                             passive=self.passive)
 
     def advance(self, state: State, forcing: Optional[Forcing] = None):
         """Advance one step; returns (state, StepDiagnostics)."""
@@ -105,7 +122,9 @@ class Model:
         return step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
                              state, forcing, leapfrog, avg_ts,
                              self._pcsi_eigs.get(leapfrog), self.precond,
-                             self.sw_profile, self.kpp_statics)
+                             self.sw_profile, self.kpp_statics,
+                             passive=self.passive,
+                             ovf_statics=self.ovf_statics)
 
     def run(self, state: State, nsteps: int,
             forcing: Optional[Forcing] = None) -> State:

@@ -129,3 +129,15 @@ def fold_grid(cfg, grid, seed):
             device=dev, dtype=getattr(grid, name).dtype)
         for name, a in new.items()})
 
+
+
+def open_top_face(grid):
+    """``grid`` with the top row's north-face length HTN set to the grid's
+    largest. The internal grid's top row lies on the pole, where HTN is all
+    but zero, so no north-face flux crosses the tripole fold there and a
+    check of a kernel's fold would not see the ghost row's weights; the
+    kernels and their plain versions read the same grid, so their
+    comparison stays exact."""
+    htn = grid.HTN.clone()
+    htn[-1] = htn.max()
+    return grid.replace(HTN=htn)

@@ -50,8 +50,7 @@ class State(TensorTree):
     fw_old: torch.Tensor
     qice: torch.Tensor
     aqice: torch.Tensor
-    # Robert-filter conservation memory; carried so the state has the same
-    # leaves as the JAX package's (the Robert filter itself is not ported)
+    # Robert-filter conservation memory
     rf_s_prev: torch.Tensor        # (nt,)
     rf_s_prev_valid: torch.Tensor  # ()
 
@@ -81,9 +80,12 @@ def levitus_profile(zt_cm: np.ndarray):
     return t, s
 
 
-def initial_state(cfg: ModelConfig, grid: Grid, device=None) -> State:
+def initial_state(cfg: ModelConfig, grid: Grid, device=None,
+                  passive=None) -> State:
     """Rest state with the internal Levitus T/S profile, on ``device``
-    (default: where the grid lives)."""
+    (default: where the grid lives); passive-tracer packages
+    (``passive_tracers.PassiveTracers``) supply their own initial fields
+    for slots 2.."""
     if device is None:
         device = grid.KMT.device
     dt = cfg.torch_dtype
@@ -93,6 +95,8 @@ def initial_state(cfg: ModelConfig, grid: Grid, device=None) -> State:
     kmask = grid.kmask_t.cpu().numpy()
     tracer[0] = tinit[:, None, None] * kmask
     tracer[1] = sinit[:, None, None] * kmask
+    if passive is not None and passive.packages:
+        tracer[2:] = passive.init_values(cfg, grid) * kmask[None]
     tracer_t = torch.as_tensor(tracer).to(device=device, dtype=dt)
 
     grid = grid.to(device)

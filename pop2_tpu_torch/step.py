@@ -8,9 +8,11 @@ becomes reassembly of the two-level state.
 
 The time mixing is 'avg' (Euler first step, leapfrog, averaging filter) or
 'robert' (the Robert-Asselin filter every step, step_RF). On a tripole grid
-the degenerate top U row is made symmetric after every update. The overflow
-branches and the tavg extras of the JAX package's step are later slices;
-``supported.check_supported`` refuses the switches that select them.
+the degenerate top U row is made symmetric after every update. With
+overflows the transports are computed once a step and shared by the tracer
+exchange, the barotropic continuity and the sidewall momentum. The tavg
+extras of the JAX package's step are a later slice (ROADMAP.md Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from pop2_tpu_torch import baroclinic, barotropic, eos, ice
+from pop2_tpu_torch import baroclinic, barotropic, eos, ice, overflows
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -118,12 +120,15 @@ def _avg_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
 def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
          forcing: Forcing, leapfrog: bool, avg_ts: bool,
          pcsi_eigs: Optional[Tuple[float, float]] = None, precond=None,
-         sw_profile=None, kpp_statics=None):
+         sw_profile=None, kpp_statics=None, passive=None,
+         ovf_statics=None):
     """Advance one timestep (leapfrog, Euler-forward for the first step,
     the averaging or Robert filter). ``precond``: the barotropic solver's
     preconditioner (``solvers.FSPAI9``) or None for the diagonal one;
     ``sw_profile``: the Jerlov shortwave profile; ``kpp_statics``: KPP's
-    (``kpp.build_statics``). Returns (state, StepDiagnostics)."""
+    (``kpp.build_statics``); ``passive``: the passive-tracer packages
+    (``passive_tracers.PassiveTracers``); ``ovf_statics``: the overflows'
+    (``overflows.build_statics``). Returns (state, StepDiagnostics)."""
     if cfg.time.time_mix_opt not in ("avg", "robert"):
         raise NotImplementedError(
             f"time_mix_opt={cfg.time.time_mix_opt!r} is not ported yet "
@@ -132,27 +137,61 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     # 1. surface height change (source/step_mod.F90:361)
     dh, dhu = dhdt(cfg, grid, bc, state)
 
+    # overflow transports: evaluated once, shared by the tracer exchange and
+    # the barotropic continuity injection (ovf_driver/ovf_transports,
+    # source/overflows.F90:3477,3754)
+    ovf_trans = ovf_q = ovf_sel = ovf_sets_tavg = None
+    with_ovf = bool(cfg.overflows) and ovf_statics is not None
+    if with_ovf:
+        ovf_trans = overflows.transports(cfg, grid, ovf_statics,
+                                         state.tracer_cur)
+        if ovf_statics.sets is not None:
+            # neutral-buoyancy product-set selection (ovf_loc_prd,
+            # source/overflows.F90:4313-4360)
+            ovf_sel, ovf_sets_tavg = overflows.product_set_selection(
+                cfg, grid, ovf_statics, state.tracer_cur, ovf_trans)
+        ovf_q = overflows.qsurf(cfg, grid, ovf_statics, ovf_trans,
+                                sel=ovf_sel)
+
     # 2. explicit baroclinic update (source/step_mod.F90:375)
     # (no time-averaged history yet: the GM diagnostic columns are not
     # written)
     bout = baroclinic.driver(cfg, grid, bc, ts_range, state, forcing,
                              dh, dhu, leapfrog, want_gm_diags=False,
-                             sw_profile=sw_profile, kpp_statics=kpp_statics)
+                             sw_profile=sw_profile, kpp_statics=kpp_statics,
+                             passive=passive, ovf_statics=ovf_statics,
+                             ovf_trans=ovf_trans, ovf_sel=ovf_sel,
+                             ovf_sets_tavg=ovf_sets_tavg)
 
-    # 3. implicit barotropic solve (source/step_mod.F90:437)
-    tout = barotropic.driver(cfg, grid, bc, state, forcing, bout.zx,
-                             bout.zy, leapfrog, pcsi_eigs, precond)
+    # 3. implicit barotropic solve (source/step_mod.F90:437); at overflow
+    # sidewall columns the vertically-integrated forcing is renormalized
+    # for the sub-topography sidewall depth (ovf_rhs_brtrpc_momentum,
+    # source/overflows.F90:5068-5224)
+    zx, zy = bout.zx, bout.zy
+    if with_ovf and ovf_statics.zren is not None:
+        zx = zx * ovf_statics.zren
+        zy = zy * ovf_statics.zren
+    tout = barotropic.driver(cfg, grid, bc, state, forcing, zx, zy,
+                             leapfrog, pcsi_eigs, precond, ovf_qsurf=ovf_q)
 
     # 4. corrector/adjustment pass (source/step_mod.F90:457)
     tracer_new, rho_new, qice, aqice = baroclinic.correct_adjust(
         cfg, grid, bc, ts_range, state, bout, tout.psurf_new, bout.vdc,
-        leapfrog, avg_ts)
+        leapfrog, avg_ts, passive=passive)
 
     # 5. full velocity = baroclinic' + barotropic (source/step_mod.F90:572)
     u_new = torch.where(grid.kmask_u, bout.u_new + tout.ubtrop_new[None],
                         0.0)
     v_new = torch.where(grid.kmask_u, bout.v_new + tout.vbtrop_new[None],
                         0.0)
+    if with_ovf and ovf_statics.mom_u is not None:
+        # sidewall momentum sources: the overflow column renormalization
+        # (ovf_UV + ovf_UV_solution, source/overflows.F90:4848,5884)
+        u_new, v_new = overflows.momentum_adjust(
+            cfg, grid, ovf_statics, ovf_trans, ovf_sel, u_new, v_new,
+            tout.ubtrop_new, tout.vbtrop_new)
+        u_new = torch.where(grid.kmask_u, u_new, 0.0)
+        v_new = torch.where(grid.kmask_u, v_new, 0.0)
 
     # 6. pressure guess extrapolation (source/step_mod.F90:634-640)
     pguess = 3.0 * (tout.psurf_new - state.psurf_cur) + state.psurf_old
@@ -184,7 +223,8 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
 
     # 7. time filtering (source/step_mod.F90:663-832)
     if cfg.time.time_mix_opt == "robert":
-        new = _robert_filter(cfg, grid, ts_range, state, new, forcing)
+        new = _robert_filter(cfg, grid, ts_range, state, new, forcing,
+                             passive=passive)
     elif avg_ts:
         new = _avg_filter(cfg, grid, ts_range, state, new)
 
@@ -196,14 +236,14 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
 
 
 def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
-                   new: State, forcing: Forcing) -> State:
+                   new: State, forcing: Forcing, passive=None) -> State:
     """Robert-Asselin time filter (step_RF, source/step_mod.F90:919-1354).
 
     With robert_alpha = 1 (the default) only the current time level is
     filtered: W = old + new - 2 cur, cur += nu/2 W. Tracers are filtered
     thickness-weighted at the surface; PSURF and the tracers get global
-    conservation adjustments; ice formation and the density act on the
-    filtered fields.
+    conservation adjustments (every tracer's); ice formation, the passive
+    tracers' resets and the density act on the filtered fields.
 
     ``new`` is the post-step state (its *_old the pre-step current values,
     its *_cur the new-time values); ``state`` is the pre-step state.
@@ -292,13 +332,18 @@ def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
     if nonzero_new:
         t_new_f = t_new_f - (rn * rf_s)[:, None, None, None] * mask3[None]
 
-    # ice formation on both filtered levels (:1239-1279)
+    # ice formation on both filtered levels, then the passive resets on the
+    # filtered ones (:1239-1279)
     qice, aqice = new.qice, new.aqice
     if cfg.liceform:
         t_cur_f, qice, aqice = ice.ice_formation(
             cfg, grid, t_cur_f, p_cur_f, qice, aqice, 1.0)
         t_new_f, qice, aqice = ice.ice_formation(
             cfg, grid, t_new_f, p_new_f, qice, aqice, 1.0)
+    if passive is not None and passive.packages:
+        t_cur_f = passive.reset(cfg, grid, t_cur_f)
+        if nonzero_new:
+            t_new_f = passive.reset(cfg, grid, t_new_f)
 
     # densities of both levels (:1281-1288)
     rho_c = torch.where(grid.kmask_t, eos.state(

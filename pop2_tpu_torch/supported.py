@@ -23,8 +23,12 @@ def unsupported(cfg: ModelConfig) -> list:
          "partial_bottom_cells (Queue 2 kernel 1: 3-D DZT)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
-        (cfg.nt != 2 or bool(cfg.passive_tracers),
-         "passive tracers / nt > 2 (Queue 1 item 8: passive_tracers.py)"),
+        ("abio_dic" in cfg.passive_tracers,
+         "passive tracer package 'abio_dic' (Queue 1 item 11: abio_dic.py "
+         "and co2calc.py beside passive_tracers.py)"),
+        ("ecosys" in cfg.passive_tracers,
+         "passive tracer package 'ecosys' (Queue 1 item 11: ecosys.py "
+         "beside passive_tracers.py)"),
         (cfg.state_choice not in ("mwjf", "jmcd", "linear"),
          f"state_choice={cfg.state_choice!r} (Queue 1 item 11)"),
         (cfg.ns_boundary not in ("closed", "tripole"),
@@ -40,9 +44,14 @@ def unsupported(cfg: ModelConfig) -> list:
          f"vmix={cfg.vmix!r}"),
         (not cfg.implicit_vertical_mix,
          "explicit vertical mixing (absent from the JAX package too)"),
-        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option != "const",
-         f"chl_option={cfg.chl_option!r} (Queue 1 item 11: chlorophyll "
-         "from a file or the ecosystem model)"),
+        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option == "file",
+         "chl_option='file' (Queue 1 item 11: chlorophyll from a file)"),
+        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option == "model",
+         "chl_option='model' (Queue 1 item 11: chlorophyll of the ecosystem "
+         "model, ecosys.py)"),
+        (cfg.sw_absorption == "chlorophyll"
+         and cfg.chl_option not in ("const", "file", "model"),
+         f"chl_option={cfg.chl_option!r}"),
         (cfg.geoheatflux_const != 0.0,
          "geoheatflux_const (Queue 1 item 11)"),
         (cfg.ldamp_uv, "ldamp_uv (Queue 1 item 11)"),
@@ -64,7 +73,6 @@ def unsupported(cfg: ModelConfig) -> list:
          "mixing)"),
         (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11: NIW mixing)"),
         (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
-        (bool(cfg.overflows), "overflows (Queue 1 item 8: overflows.py)"),
         (t.time_mix_opt not in ("avg", "robert"),
          f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 10: avgfit "
          "calendar)"),
@@ -86,16 +94,12 @@ def unsupported(cfg: ModelConfig) -> list:
 def _gm_checks(cfg: ModelConfig) -> list:
     """What of GM the port carries: isotropic, const or bfre diffusivities of
     one type, transition layer on or off, MWJF (the slope kernel evaluates
-    its derivatives), full cells; on a tripole grid only with the transition
-    layer (the chain kernel folds its north row; the flux-assembly kernel
-    does not yet)."""
+    its derivatives), full cells, a closed or tripole north edge."""
     kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
     return [
-        (cfg.ns_boundary == "tripole" and not cfg.gm_transition_layer,
-         "tripole with GM and no transition layer (Queue 2 kernel 6: the "
-         "flux-assembly kernel's tripole row)"),
         (cfg.gm_aniso is not None,
-         f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11: GM variants)"),
+         f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11: GM variants; Queue 2 "
+         "kernel 6: two weight planes more a column)"),
         (any(k not in ("const", "bfre") for k in kinds),
          f"gm kappa types {kinds!r} (Queue 1 item 11: GM variants depth, "
          "Visbeck vmhs, Eden-Greatbatch eg)"),

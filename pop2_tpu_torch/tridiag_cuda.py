@@ -12,7 +12,11 @@ sweep; the elimination coefficients and forward solutions stay there, and
 the back substitution writes the solution once (see the note in
 ``csrc/thomas.cu``). ``launch_plan`` chooses the columns a block and the
 shared memory in plain Python. Unlike the TPU kernel it
-is instantiated for float32 and float64.
+is instantiated for float32 and float64. The TPU kernel takes any number of
+right-hand sides; this one is instantiated for 1 to ``MAX_RHS`` (4: the
+production menu's salinity and three passive tracers on one factorisation),
+and ``rhs_groups`` splits more into launches of at most ``MAX_RHS`` that
+share the coupling, each reading it again.
 
 ``thomas`` launches the kernel for CUDA tensors and calls ``thomas_plain``
 for CPU tensors; it never falls back from one to the other. Both form
@@ -21,16 +25,19 @@ for CPU tensors; it never falls back from one to the other. Both form
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
 
-#: kernel launches so far (a plain counter; reset it to measure a run)
+#: kernel launches so far (a plain counter; reset it to measure a run), and
+#: the same by the right-hand sides a launch took
 launches = 0
+launches_by_nr: Counter = Counter()
 
-_MAX_NR = 3  # right-hand sides per launch the kernel is instantiated for
+MAX_RHS = 4  # right-hand sides a launch: kMaxRhs of csrc/thomas.cu
 MAX_LEVELS = 64  # kMaxLevels of csrc/thomas.cu
 _COLS = 32  # columns a block: a warp
 
@@ -40,20 +47,38 @@ class ThomasPlan(NamedTuple):
     smem: int  # dynamic shared memory a block, bytes
 
 
+def rhs_groups(nr: int):
+    """[(n0, n)]: the launches that solve ``nr`` right-hand sides on one
+    factorisation, each n <= MAX_RHS right-hand sides from n0, as even as
+    the count allows (five are 3 + 2, not 4 + 1: the smaller slab keeps
+    more blocks an SM); one launch for nr <= MAX_RHS."""
+    if nr < 1:
+        raise ValueError(f"a tridiagonal solve of {nr} right-hand sides")
+    ngroups = -(-nr // MAX_RHS)
+    base, extra = divmod(nr, ngroups)
+    out, n0 = [], 0
+    for g in range(ngroups):
+        n = base + (g < extra)
+        out.append((n0, n))
+        n0 += n
+    return out
+
+
 def launch_plan(value_bytes: int, nr: int, km: int) -> ThomasPlan:
-    """The launch of the kernel for ``nr`` right-hand sides of ``km``
-    levels in values of ``value_bytes``: a warp of columns a block, each
-    block staging (1 + nr) values a level of each of its columns (at most
-    64 KB, so that three blocks fit an SM). Raises for what the kernel does
-    not take: km over MAX_LEVELS or nr over 3."""
+    """The launch of the kernel for ``nr`` right-hand sides (1 to MAX_RHS,
+    a group of ``rhs_groups``) of ``km`` levels in values of
+    ``value_bytes``: a warp of columns a block, each block staging (1 + nr)
+    values a level of each of its columns (at most 80 KB, so that two
+    blocks fit an SM). Raises for what the kernel does not take: km over
+    MAX_LEVELS, nr outside 1 to MAX_RHS (``rhs_groups`` splits more), a
+    slab over the card's shared memory."""
     if not 1 <= km <= MAX_LEVELS:
         raise NotImplementedError(
             f"km={km} exceeds the kernel's bound of {MAX_LEVELS} levels")
-    if not 1 <= nr <= _MAX_NR:
+    if not 1 <= nr <= MAX_RHS:
         raise NotImplementedError(
-            f"{nr} right-hand sides on one factorisation: the kernel is "
-            f"instantiated for at most {_MAX_NR} (more passive tracers: "
-            "ROADMAP.md Queue 1 item 8)")
+            f"{nr} right-hand sides in one launch: the kernel takes 1 to "
+            f"{MAX_RHS}; rhs_groups splits more into launches")
     smem = (1 + nr) * km * value_bytes * _COLS
     cb.check_smem(smem, f"thomas (nr={nr}, km={km})")
     return ThomasPlan(_COLS, smem)
@@ -106,14 +131,16 @@ def thomas_plain(hfac, h1, kmax, a, rhs):
 def thomas(hfac, h1, kmax, a, rhs):
     """Solve the masked tridiagonal systems of every column; shapes as in
     ``thomas_plain``. CUDA tensors go through the kernel (float32 or
-    float64, contiguous, within ``launch_plan``'s bounds), CPU tensors
+    float64, contiguous, km within ``launch_plan``'s bound; any number of
+    right-hand sides, a launch for each of ``rhs_groups``), CPU tensors
     through the plain version."""
     global launches
     if not rhs.is_cuda:
         return thomas_plain(hfac, h1, kmax, a, rhs)
     nr, km, ny, nx = rhs.shape
     dev, dt = rhs.device, rhs.dtype
-    plan = launch_plan(rhs.element_size(), nr, km)
+    groups = [(n0, n, launch_plan(rhs.element_size(), n, km))
+              for n0, n in rhs_groups(nr)]
     cb.check_operand("hfac", hfac, (km,), dt, dev)
     cb.check_operand("h1", h1, (ny, nx), dt, dev)
     cb.check_operand("kmax", kmax, (ny, nx), torch.int32, dev)
@@ -121,10 +148,12 @@ def thomas(hfac, h1, kmax, a, rhs):
     cb.check_operand("rhs", rhs, (nr, km, ny, nx), dt, dev)
     lib = cb.lib()
     out = torch.empty_like(rhs)
-    err = lib.pop2_thomas(
-        cb.dtype_code(rhs), nr, km, ny * nx, *plan, hfac.data_ptr(),
-        h1.data_ptr(), kmax.data_ptr(), a.data_ptr(), rhs.data_ptr(),
-        out.data_ptr(), cb.stream_ptr())
-    cb.check_launch(err, "thomas")
-    launches += 1
+    for n0, n, plan in groups:
+        err = lib.pop2_thomas(
+            cb.dtype_code(rhs), n, km, ny * nx, *plan, hfac.data_ptr(),
+            h1.data_ptr(), kmax.data_ptr(), a.data_ptr(),
+            rhs[n0].data_ptr(), out[n0].data_ptr(), cb.stream_ptr())
+        cb.check_launch(err, "thomas")
+        launches += 1
+        launches_by_nr[n] += 1
     return out

@@ -4,12 +4,16 @@ JAX package on the CPU:
 
   - the tracer kernel's upwind3 column form, the momentum kernel without
     the Laplacian (with the anisotropic friction added by the model's
-    entry), the slopes and the chain;
+    entry), the slopes and the chain; and the flux assembly's tripole row
+    (GM without the transition layer on the production grid, prod_flux),
+    in both ``cancellation`` branches;
   - in float64 against the JAX package's jnp chain, at 1e-12 of scale;
   - in float32 against its Pallas kernels in interpret mode, inside the
     bands the JAX package holds those kernels to (2e-5 of scale for the
     tracer tendency, 4e-5 for the momentum forcing, rtol 3e-4 + 1e-6 of
-    scale for the slopes, 5e-5 of scale or 5 % of the value for the chain).
+    scale for the slopes, 5e-5 of scale or 5 % of the value for the chain,
+    2e-5 of scale for the flux assembly's GTK with its top row re-patched
+    by the JAX package's wrapper).
 
 On CPU tensors the wrappers take these plain versions; the CUDA kernels are
 held against them on the GPU by ``chip_smoke.py`` (on the same kind of
@@ -25,13 +29,15 @@ import torch
 
 from pop2_tpu import advect as jadvect, baroclinic as jbaro  # noqa: E402
 from pop2_tpu import clinic_pallas, gm as jgm, gm_chain_pallas  # noqa: E402
-from pop2_tpu import gm_slope_pallas, tracer_pallas, vmix as jvmix  # noqa: E402
+from pop2_tpu import gm_pallas, gm_slope_pallas, tracer_pallas  # noqa: E402
+from pop2_tpu import vmix as jvmix  # noqa: E402
 
-from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_slope_cuda  # noqa: E402
-from pop2_tpu_torch import tracer_cuda  # noqa: E402
+from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda  # noqa: E402
+from pop2_tpu_torch import gm_slope_cuda, sample, tracer_cuda  # noqa: E402
 
 from tests.test_torch_gm import _Pallas, _flux_close  # noqa: E402
-from tests.test_torch_tripole import KM, NX, NY, _uv, fold  # noqa: E402,F401
+from tests.test_torch_tripole import KM, NX, NY, FoldPair, _uv  # noqa: E402
+from tests.test_torch_tripole import fold  # noqa: E402,F401
 from tests.torch_port_helpers import scale_err  # noqa: E402
 
 
@@ -162,3 +168,77 @@ def test_chain_fold_plain_matches_pallas_interpret_f32(fold):
     # 5e-5 of scale where the value is small)
     _flux_close(got.gtk.numpy(), want.gtk, "gtk")
     _flux_close(got.vdc_gm.numpy(), want.vdc_gm, "vdc_gm")
+
+
+# ---- the flux assembly's tripole row ----------------------------------------
+
+def _open_top_face(p):
+    """``p``'s grids with the top row's north-face length HTN the grid's
+    largest (``sample.open_top_face``): the internal grid's top row lies on
+    the pole, where HTN is all but zero and no flux would cross the fold."""
+    import jax.numpy as jnp_
+    htn = sample.open_top_face(p.tgrid).HTN.numpy()
+    q = SimpleNamespace(**vars(p))
+    q.jgrid = p.jgrid.replace(HTN=jnp_.asarray(htn))
+    q.tgrid = p.tgrid.replace(HTN=torch.as_tensor(htn).to(p.tgrid.HTN.dtype))
+    return q
+
+
+def _fold_flux_fields(p, seed, cancellation):
+    """The flux assembly's operands on the fold bottom
+    (``sample.flux_operands`` of stratified tracers), NumPy; the
+    streamfunction is not read in the ``cancellation`` branch: zeros."""
+    _, tr = FoldPair.ts_ranges(p)
+    f = [a.numpy() for a in sample.flux_operands(
+        p.tcfg, p.tgrid, p.tbc, tr,
+        torch.as_tensor(FoldPair.tracers(p, seed)),
+        levels=(1, 4))]
+    if cancellation:
+        f[5], f[6] = np.zeros_like(f[5]), np.zeros_like(f[6])
+    return f
+
+
+@pytest.mark.parametrize("cancellation", [False, True])
+def test_flux_assembly_fold_plain_matches_jnp_f64(fold, cancellation):
+    p = _open_top_face(fold["float64"])
+    f = _fold_flux_fields(p, 131, cancellation)
+    jf = [jnp.asarray(a) for a in f]
+    want = jgm.flux_assembly_jnp(p.jcfg, p.jgrid, p.jbc, *jf[:8], jf[7],
+                                 jf[8], cancellation)
+    got = gm_cuda.flux_assembly(p.tcfg, p.tgrid, p.tbc,
+                                *(torch.as_tensor(a) for a in f),
+                                cancellation)
+    for g, w, name in zip(got, want, ("gtk", "vdc_gm")):
+        assert scale_err(g.numpy(), np.asarray(w)) <= 1e-12, name
+        assert scale_err(g[..., -2:, :].numpy(),
+                         np.asarray(w)[..., -2:, :]) <= 1e-12, name
+    # the fold reaches the top row: it differs from a closed north edge
+    closed = gm_cuda.flux_assembly_plain(
+        p.tcfg.with_(ns_boundary="closed"), p.tgrid,
+        type(p.tbc)(p.tcfg.ew_boundary, "closed"),
+        *(torch.as_tensor(a) for a in f), cancellation)[0]
+    assert scale_err(closed[..., -1, :].numpy(),
+                     np.asarray(want[0])[..., -1, :]) > 1e-6
+
+
+@pytest.mark.parametrize("cancellation", [False, True])
+def test_flux_assembly_fold_matches_pallas_interpret_f32(fold, cancellation):
+    p = _open_top_face(fold["float32"])
+    f = _fold_flux_fields(p, 133, cancellation)
+    with _Pallas(gm_pallas):
+        assert gm_pallas.available(p.jcfg, p.jgrid)
+        want_gtk, want_vdc = gm_pallas.flux_assembly_tiles_wrapper(
+            p.jcfg, p.jgrid, p.jbc, *(jnp.asarray(a) for a in f),
+            cancellation)
+    got_gtk, got_vdc = gm_cuda.flux_assembly(
+        p.tcfg, p.tgrid, p.tbc, *(torch.as_tensor(a) for a in f),
+        cancellation)
+    assert got_gtk.dtype == torch.float32
+    # the JAX package's bands (tests/test_gm_pallas.py:91): GTK 2e-5 of
+    # scale, the re-patched top row included; VDC_GM rtol 4e-6 (two
+    # summation orders in float32)
+    assert scale_err(got_gtk.numpy(), np.asarray(want_gtk)) <= 2e-5
+    assert scale_err(got_gtk[..., -1, :].numpy(),
+                     np.asarray(want_gtk)[..., -1, :]) <= 2e-5
+    np.testing.assert_allclose(got_vdc.numpy(), np.asarray(want_vdc),
+                               rtol=4e-6, atol=0)

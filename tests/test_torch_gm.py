@@ -504,7 +504,7 @@ def test_gm_driver_carries_vdc_and_gm_output(runs):
 
 @pytest.mark.parametrize("over,names", [
     (dict(gm_aniso="flow"), "Queue 1 item 11"),
-    (dict(passive_tracers=("iage",), nt=3), "passive_tracers.py"),
+    (dict(passive_tracers=("abio_dic",), nt=4), "passive_tracers.py"),
     (dict(gm_kappa_isop_type="vmhs", gm_kappa_thic_type="vmhs"), "vmhs"),
     (dict(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg"), "eg"),
     (dict(gm_kappa_isop_type="depth", gm_kappa_thic_type="depth"), "depth"),
@@ -547,14 +547,14 @@ def test_kernel_wrappers_raise_for_modes_not_ported(pairs):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         gm_chain_cuda.hdifft_chain(p.with_(gm_aniso="flow").tcfg, p.tgrid,
                                    bc, tr, tmix, hblt=tlt.thickness)
-    # a tripole grid: the flux-assembly kernel has no fold row yet, so GM
-    # without the transition layer (which it would run) is refused
-    tripole = p.with_(ns_boundary="tripole").tcfg
-    with pytest.raises(NotImplementedError, match="tripole"):
-        gm_cuda.flux_assembly(tripole, p.tgrid, bc, *([tmix] * 9), False)
+    # the flux-assembly kernel's anisotropic diffusivities (two weight
+    # planes more) and 3-D layer thickness are refused; its tripole row is
+    # ported (test_torch_fold_kernels.py)
     with pytest.raises(NotImplementedError, match="Queue 2 kernel 6"):
-        tgm.hdifft_gm(tripole.with_(gm_transition_layer=False), p.tgrid, bc,
-                      tr, tmix)
+        gm_cuda.flux_assembly(p.with_(gm_aniso="flow").tcfg, p.tgrid, bc,
+                              *([tmix] * 9), False)
+    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
+        gm_cuda.flux_assembly(p.tcfg, dzt_grid, bc, *([tmix] * 9), False)
     flux_only = p.with_(gm_transition_layer=False).tcfg
     with pytest.raises(NotImplementedError, match="outside the chain"):
         gm_chain_cuda.chain(flux_only, p.tgrid, bc, tmix, slp, sla, n2, tlt)

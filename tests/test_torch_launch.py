@@ -36,7 +36,7 @@ def no_build(monkeypatch):
 
 
 # the smallest and the largest slab the kernel takes
-@pytest.mark.parametrize("value_bytes,nr,km", [(4, 1, 1), (8, 3, 64)])
+@pytest.mark.parametrize("value_bytes,nr,km", [(4, 1, 1), (8, 4, 64)])
 def test_thomas_plan_stages_the_slab_with_two_blocks_an_sm(value_bytes, nr,
                                                            km):
     cols, smem = tridiag_cuda.launch_plan(value_bytes, nr, km)
@@ -49,12 +49,34 @@ def test_thomas_plan_stages_the_slab_with_two_blocks_an_sm(value_bytes, nr,
 @pytest.mark.parametrize("args,match", [
     ((4, 1, 65), "64 levels"),
     ((4, 1, 0), "64 levels"),
-    ((8, 4, 60), "at most 3"),
-    ((8, 0, 60), "at most 3"),
+    ((8, 5, 60), "1 to 4; rhs_groups"),
+    ((8, 0, 60), "1 to 4; rhs_groups"),
 ])
 def test_thomas_plan_refuses(args, match):
     with pytest.raises(NotImplementedError, match=match):
         tridiag_cuda.launch_plan(*args)
+
+
+# every count up to four launches' worth: groups of at most MAX_RHS that
+# cover the right-hand sides once, in order, as even as the count allows,
+# each within the plan's bounds at the production depth in float64
+@pytest.mark.parametrize("nr", range(1, 17))
+def test_thomas_groups_cover_every_rhs_once(nr):
+    groups = tridiag_cuda.rhs_groups(nr)
+    assert len(groups) == -(-nr // tridiag_cuda.MAX_RHS)
+    assert [n0 for n0, _ in groups] == [sum(n for _, n in groups[:g])
+                                        for g in range(len(groups))]
+    sizes = [n for _, n in groups]
+    assert sum(sizes) == nr and max(sizes) - min(sizes) <= 1
+    assert max(sizes) <= tridiag_cuda.MAX_RHS
+    for n in sizes:
+        cols, smem = tridiag_cuda.launch_plan(8, n, 60)
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+def test_thomas_groups_refuse_no_rhs():
+    with pytest.raises(ValueError, match="0 right-hand sides"):
+        tridiag_cuda.rhs_groups(0)
 
 
 # the smallest tile, and the largest the kernel takes (16 tracers in float64)
@@ -105,7 +127,7 @@ def test_check_smem_refuses_a_block_over_227_kb():
 
 
 @pytest.mark.parametrize("nr,km,match", [(1, 65, "64 levels"),
-                                         (4, 8, "at most 3")])
+                                         (6, 65, "64 levels")])
 def test_thomas_wrapper_refuses_before_building(no_build, nr, km, match):
     ny, nx = 3, 4
     rhs = torch.zeros(nr, km, ny, nx).as_subclass(OnCard)

@@ -201,9 +201,8 @@ def test_prod_dyn_builds_and_what_stays_refused():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TModel(cfg)
-    # the full preset lacks only its passive tracers (prod_mix,
-    # tests/test_torch_prod_mix.py, carries the rest)
-    why = supported.unsupported(t_get_config("prod_full"))
-    assert len(why) == 1 and "Queue 1 item 8" in why[0]
-    why = supported.unsupported(cfg.with_(gm_transition_layer=False))
-    assert len(why) == 1 and "Queue 2 kernel 6" in why[0]
+    # the full preset, and GM without the transition layer on the tripole
+    # grid (the flux-assembly kernel's tripole row), are carried
+    # (tests/test_torch_prod_full.py)
+    assert supported.unsupported(t_get_config("prod_full")) == []
+    assert supported.unsupported(cfg.with_(gm_transition_layer=False)) == []

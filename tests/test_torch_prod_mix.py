@@ -212,8 +212,9 @@ def test_prod_mix_builds_and_what_stays_refused():
                        **PROD_MIX)
     assert supported.unsupported(cfg) == []
     assert TModel(cfg, device="cpu").kpp_statics is not None
-    why = "; ".join(supported.unsupported(t_get_config("prod_full")))
-    assert "Queue 1 item 8" in why
+    # the full preset with its passive tracers is carried too
+    # (tests/test_torch_prod_full.py)
+    assert supported.unsupported(t_get_config("prod_full")) == []
     refused = {
         "polzin": cfg.with_(tidal_mixing_method="polzin"),
         "schmittner": cfg.with_(tidal_mixing_method="schmittner"),

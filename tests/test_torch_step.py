@@ -183,13 +183,13 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
     (dict(hmix_tracer="del4"), "Queue 1 items 7"),
     (dict(hmix_momentum="del4"), "del4"),
     (dict(tadvect="lw_lim"), "advt_lw_lim"),
-    (dict(ns_boundary="tripole", hmix_tracer="gm"), "Queue 2 kernel 6"),
+    (dict(hmix_tracer="gm", gm_aniso="flow"), "Queue 2 kernel 6"),
     (dict(vmix="kpp", lniw_mixing=True), "NIW"),
     (dict(vmix="kpp", ltidal_mixing=True, ltidal_lunar_cycle=True),
      "lunar cycle"),
     (dict(sw_absorption="chlorophyll", chl_option="file"), "chl_option"),
     (dict(partial_bottom_cells=True), "3-D DZT"),
-    (dict(passive_tracers=("iage",), nt=3), "passive"),
+    (dict(passive_tracers=("ecosys",), nt=34), "passive"),
     (dict(b4b=True), "b4b"),
     (dict(mesh_shape=(2, 1)), "multi-GPU"),
 ])

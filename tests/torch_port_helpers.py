@@ -10,11 +10,16 @@ from pop2_tpu_torch import config as tconfig
 
 
 def torch_cfg(jcfg):
-    """The port's ModelConfig with the field values of a JAX-package one."""
+    """The port's ModelConfig with the field values of a JAX-package one
+    (the overflow specs and their region boxes included)."""
     d = dataclasses.asdict(jcfg)
     d["time"] = tconfig.TimeConfig(**d["time"])
     d["solver"] = tconfig.SolverConfig(**d["solver"])
-    d["overflows"] = ()
+    boxes = ("inf", "src", "ent", "prd")
+    d["overflows"] = tuple(
+        tconfig.OverflowSpec(**{k: (tconfig.RegionBox(**v) if k in boxes
+                                    else v) for k, v in o.items()})
+        for o in d["overflows"])
     return tconfig.ModelConfig(**d)
 
 
