@@ -21,7 +21,7 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
     gm_flux   GM/Redi mixing without the transition layer, constant
               diffusivities: plain chain -> flux-assembly kernel
     prod_dyn  the production gx1v7 dynamics menu: tripole north edge,
-              upwind3 advection (the tracer kernel's column form),
+              upwind3 advection (the tracer kernel's two-column frame),
               anisotropic viscosity (the momentum kernel without the
               Laplacian), GM as gm_full, chlorophyll shortwave, frazil ice,
               the Robert filter, PCSI with the FSPAI preconditioner
@@ -44,7 +44,8 @@ the tripole fold (the internal grid's top rows are land, which would hide
 the fold); the chain (with prod_full's five tracers too) and the flux
 assembly's tripole row are held there with the top row's north faces opened
 (``sample.open_top_face``: the internal grid's top row lies on the pole,
-where no north-face flux crosses the fold).
+where no north-face flux crosses the fold), the tracer kernel with the top
+U row's DXU opened (``sample.open_top_dxu``).
 An overflow phase runs the 'mini' preset with the overflows of the JAX
 package's tests on the card against the same on the CPU.
 
@@ -225,6 +226,8 @@ SOURCES = {
                 "pop2_tpu/gm_pallas.py:358"),
     "tracer_upwind3": ("pop2_tpu_torch/csrc/tracer.cu",
                        "pop2_tpu/tracer_pallas.py:563"),
+    "tracer_upwind3_nt5": ("pop2_tpu_torch/csrc/tracer.cu",
+                           "pop2_tpu/tracer_pallas.py:563"),
     "clinic_aniso": ("pop2_tpu_torch/csrc/clinic.cu",
                      "pop2_tpu/clinic_pallas.py:461"),
     "gm_slope_tripole": ("pop2_tpu_torch/csrc/gm_slope.cu",
@@ -252,11 +255,12 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "tracer_upwind3": "prod_dyn", "clinic_aniso": "prod_dyn",
            "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn",
            "gm_chain_sm": "prod_mix", "gm_tlt_search": "prod_mix",
-           "gm_chain_sm_nt5": "prod_full",
+           "gm_chain_sm_nt5": "prod_full", "tracer_upwind3_nt5": "prod_full",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
            "gm_flux_tripole": "prod_flux"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
+              "tracer_upwind3_nt5": "tracer",
               "clinic_aniso": "clinic", "gm_slope_tripole": "gm_slope",
               "gm_chain_tripole": "gm_chain", "gm_chain_sm": "gm_chain",
               "gm_chain_sm_nt5": "gm_chain",
@@ -509,6 +513,22 @@ def chain_fold_share(name, dtype, cfg, args, want_gtk):
     return share
 
 
+def tracer_fold_share(name, dtype, args, want):
+    """How far the tripole fold moves the top row of the plain tracer
+    tendency (the same inputs, ``args`` of the wrapper, with a closed north
+    edge against ``want``), over its scale there. Fails where that is not
+    far above the band: the comparison of the kernel's top row would then
+    not see the fold."""
+    c = args[0].with_(ns_boundary="closed")
+    closed = tracer_cuda.tracer_tendency_plain(c, *args[1:])
+    top = want[..., -1, :]
+    share = float((closed[..., -1, :] - top).abs().max() / top.abs().max())
+    if not share > 100.0 * BAND[("tracer", dtype)]:
+        raise AssertionError(f"{name} {dtype}: the fold moves the top row "
+                             f"by {share:.2e} only; the check cannot see it")
+    return share
+
+
 def compare_search(name, dtype, got, want):
     """The search kernel's TLT against the plain version's: the integer
     fields equal, the depths within BAND of scale. Returns (max abs err, err
@@ -562,10 +582,10 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library's
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
     shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt, flags
-    and sm, tracer its group's tracer count ng and del2, gm_flux nt,
-    cancellation and fold; gm_tlt (a thread a column) nothing. The kernels in a
-    one-column frame (tracer, clinic, gm_slope, gm_flux) also report their
-    tile of interior columns."""
+    and sm, tracer its group's tracer count ng, del2, upwind3 and fold,
+    gm_flux nt, cancellation and fold; gm_tlt (a thread a column) nothing.
+    The kernels in a frame (tracer, clinic, gm_slope, gm_flux) also report
+    their tile of interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
         torch.finfo(dt).bits // 8
     if name == "thomas":
@@ -578,10 +598,12 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         block = [cols, rows, 1]
         n = lib.pop2_gm_chain_blocks_per_sm(code, kw["flags"], rows, smem)
     elif name == "tracer":
-        (cols, rows), smem = tracer_cuda.launch_plan(s, kw["ng"], kw["del2"])
+        upw3, fold = kw.get("upwind3", False), kw.get("fold", False)
+        (cols, rows), smem = tracer_cuda.launch_plan(s, kw["ng"], kw["del2"],
+                                                     upw3)
         block = [cols, rows, 1]
         n = lib.pop2_tracer_blocks_per_sm(code, int(kw["del2"]), kw["ng"],
-                                          smem)
+                                          int(upw3), int(fold), smem)
     elif name == "clinic":
         (cols, rows), smem = clinic_cuda.launch_plan(s)
         block = [cols, rows, 1]
@@ -606,7 +628,7 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
             "blocks_per_sm" + tag: n,
             "warps_per_sm" + tag: n * block[0] * block[1] // 32}
-    if name not in ("thomas", "gm_chain", "gm_tlt"):  # a one-column frame
+    if name not in ("thomas", "gm_chain", "gm_tlt"):  # a tile in a frame
         info["tile" + tag] = block[:2]
     return info
 
@@ -1032,11 +1054,11 @@ def ragged_phase(dtype_name: str):
     in both branches for 1, 2, 3 and 16 tracers (all but 2 take the narrow
     tile; tracers beyond the configuration's two get noisy copies of its
     differences); the tracer
-    kernel with and without the Laplacian, for 1, 2 and 3 tracers (3 is two
-    launches, over the kernel's group cap; no configuration has three
-    tracers, so the wrapper gets random fields), varthick and rigid lid;
-    the momentum kernel with the leapfrog and the Euler Coriolis weights.
-    Bands as at full size. Not timed."""
+    kernel with centered and upwind3 advection, with and without the
+    Laplacian, for 1, 2, 3 and 5 tracers (3 and 5 are two and three
+    launches, over the kernel's group cap; the wrapper gets random fields),
+    varthick and rigid lid; the momentum kernel with the leapfrog and the
+    Euler Coriolis weights. Bands as at full size. Not timed."""
     worst = {}
     for km, ew in itertools.product(RAGGED_KM, ("cyclic", "closed")):
         base = ragged_config(dtype_name, km, ew)
@@ -1132,11 +1154,11 @@ def ragged_phase(dtype_name: str):
         gen.manual_seed(SEED + 10)
         f = random_fields(base, grid, gen)
         mt = grid.kmask_t.to(dt)
-        for del2, sfc, nt in itertools.product((True, False),
-                                               ("varthick", "rigid"),
-                                               (1, 2, 3)):
+        for adv, del2, sfc, nt in itertools.product(
+                ("centered", "upwind3"), (True, False),
+                ("varthick", "rigid"), (1, 2, 3, 5)):
             cfg = base.with_(hmix_tracer="del2" if del2 else "gm",
-                             sfc_layer=sfc)
+                             sfc_layer=sfc, tadvect=adv)
             trc = [torch.randn(nt, km, *RAGGED[::-1], generator=gen,
                                device=DEV, dtype=dt) * mt for _ in range(3)]
             stf = torch.randn(nt, *RAGGED[::-1], generator=gen, device=DEV,
@@ -1147,7 +1169,7 @@ def ragged_phase(dtype_name: str):
             torch.cuda.synchronize()
             want = tracer_cuda.tracer_tendency_plain(*args)
             name = "tracer" if del2 else "tracer_advdiff"
-            worst[f"{name}_km{km}_{ew}_{sfc}_nt{nt}"] = compare(
+            worst[f"{name}_{adv}_km{km}_{ew}_{sfc}_nt{nt}"] = compare(
                 name, dt, [got], [want])[1]
         for leapfrog in (True, False):
             rhoavg = pgrad.rho_average(base, grid, *f["rho"], leapfrog)
@@ -1229,13 +1251,15 @@ def fold_case(cfg):
 
 
 def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
-    """The kernel modes of the prod_dyn path (the tracer kernel's column
-    form with upwind3 and the fold, the momentum kernel without the
-    Laplacian and with the fold, the slopes and the chain on the fold), each
-    against its plain version at the path's shapes on the fold bottom, with
-    times and bounds; the chain with the top row's north faces opened
-    (``sample.open_top_face``) and the fold's share of the top row held far
-    above the band. Returns {name: record}."""
+    """The kernel modes of the prod_dyn path (the tracer kernel with upwind3
+    and the fold, the momentum kernel without the Laplacian and with the
+    fold, the slopes and the chain on the fold), each against its plain
+    version at the path's shapes on the fold bottom, with times and bounds;
+    the tracer kernel with the top U row's DXU opened
+    (``sample.open_top_dxu``), also as prod_full's call of five tracers
+    (three launches), and the chain with the top row's north faces opened
+    (``sample.open_top_face``), each with the fold's share of the top row
+    held far above the band. Returns {name: record}."""
     cfg = full_config(dtype_name, "prod_dyn")
     dt = cfg.torch_dtype
     grid, bc, tr = fold_case(cfg)
@@ -1254,29 +1278,37 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
         r.update(info)
         return r
 
-    # ---- tracer: upwind3 column form on the fold, without the Laplacian:
-    # u, v, vdc (2), trcr, told and the output per tracer; 12 coefficient
-    # planes and the 2-D fields
-    args = (cfg, grid, f["ucur"], f["vcur"], f["trcr"], f["told"], f["told"],
-            f["vdc"], f["stf"], f["dh"])
-    got = tracer_cuda.tracer_tendency(*args)
-    torch.cuda.synchronize()
-    want = tracer_cuda.tracer_tendency_plain(*args)
-    err_abs, err_rel = compare("tracer", dt, [got], [want])
-    top = compare("tracer", dt, [got[..., -2:, :]], [want[..., -2:, :]])[1]
-    del got, want
-    lib = cb.lib()
-    code = cb.dtype_code(f["ucur"])
-    occ = lib.pop2_tracer_col_blocks_per_sm(code, 0, nt, 1)
-    rec["tracer_upwind3"] = timed(
-        lambda: tracer_cuda.tracer_tendency(*args),
-        lambda: tracer_cuda.tracer_tendency_plain(*args),
-        s * (N * (4 + 2 * nt) + P * (nt + 8 + 12) + 10 * km) + 4 * P,
-        N * (40 + 120 * nt), max_abs_err=err_abs, rel_err=err_rel,
-        rel_err_top_rows=top, block=[tracer_cuda.TILE_COLS,
-                                     tracer_cuda.COL_ROWS, 1],
-        dynamic_smem_bytes=0, blocks_per_sm=occ,
-        warps_per_sm=occ * tracer_cuda.TILE_COLS * tracer_cuda.COL_ROWS // 32)
+    # ---- tracer: upwind3 on the fold, without the Laplacian, with the top
+    # U row's DXU opened so that flux crosses the fold: u, v, vdc (2), trcr,
+    # told and the output per tracer; 12 coefficient planes and the 2-D
+    # fields. prod_dyn's two tracers (one launch) and prod_full's five
+    # (three launches: 2, 2, 1)
+    opened = sample.open_top_dxu(grid)
+    c5 = cfg.with_(passive_tracers=("iage", "cfc"), nt=5)
+    f5 = random_fields(c5, grid, gen)
+    for key, c, g in (("tracer_upwind3", cfg, f),
+                      ("tracer_upwind3_nt5", c5, f5)):
+        n = c.nt
+        args = (c, opened, g["ucur"], g["vcur"], g["trcr"], g["told"],
+                g["told"], g["vdc"], g["stf"], g["dh"])
+        got = tracer_cuda.tracer_tendency(*args)
+        torch.cuda.synchronize()
+        want = tracer_cuda.tracer_tendency_plain(*args)
+        err_abs, err_rel = compare("tracer", dt, [got], [want])
+        top = compare("tracer", dt, [got[..., -2:, :]],
+                      [want[..., -2:, :]])[1]
+        fold_share = tracer_fold_share(key, dt, args, want)
+        del got, want
+        rec[key] = timed(
+            lambda: tracer_cuda.tracer_tendency(*args),
+            lambda: tracer_cuda.tracer_tendency_plain(*args),
+            s * (N * (4 + 2 * n) + P * (n + 8 + 12) + 10 * km) + 4 * P,
+            N * (40 + 120 * n), max_abs_err=err_abs, rel_err=err_rel,
+            rel_err_top_rows=top, fold_share_of_top_row=fold_share,
+            groups=tracer_cuda.tracer_groups(n),
+            **launch_info("tracer", dt, ng=min(n, tracer_cuda.MAX_GROUP),
+                          del2=False, upwind3=True, fold=True))
+    del f5
 
     # ---- momentum forcing without the Laplacian, on the fold: u, v at two
     # times, the density, the viscosity in (um, vm are not read)
@@ -1346,13 +1378,16 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
 
 def fold_ragged_phase(dtype_name: str):
     """The tripole kernel modes on the fold bottom where the tiles do not
-    divide the domain (the RAGGED size; the tripole ghost row then lies
-    inside a tile), E-W cyclic and closed: the chain with and without the
-    submesoscale fold-in and the transition-layer search from a deep
-    diabatic depth among them, and the momentum kernel with the Laplacian on
-    the fold too; with the top row's north faces opened
-    (``sample.open_top_face``) the chain again and the flux assembly's
-    tripole row for 2 and 5 tracers in both branches. Not timed."""
+    divide the domain (the RAGGED size; the tripole ghost rows then lie
+    inside a tile), E-W cyclic and closed: the tracer kernel with upwind3
+    and centered advection, with and without the Laplacian, for 1, 2 and 5
+    tracers, with the top U row's DXU opened (``sample.open_top_dxu``) and
+    its top rows held apart; the chain with and without the submesoscale
+    fold-in and the transition-layer search from a deep diabatic depth
+    among them, and the momentum kernel with the Laplacian on the fold too;
+    with the top row's north faces opened (``sample.open_top_face``) the
+    chain again and the flux assembly's tripole row for 2 and 5 tracers in
+    both branches. Not timed."""
     worst = {}
     for ew, km, vert in (("cyclic", 61, "internal"),
                          ("closed", 13, "uniform")):
@@ -1364,13 +1399,25 @@ def fold_ragged_phase(dtype_name: str):
         gen = torch.Generator(device=DEV)
         gen.manual_seed(SEED + 14)
         f = random_fields(cfg, grid, gen)
-        for adv in ("upwind3", "centered"):
-            c = cfg.with_(tadvect=adv)
-            args = (c, grid, f["ucur"], f["vcur"], f["trcr"], f["told"],
-                    f["told"], f["vdc"], f["stf"], f["dh"])
-            worst[f"tracer_{adv}_{ew}"] = compare(
-                "tracer", dt, [tracer_cuda.tracer_tendency(*args)],
-                [tracer_cuda.tracer_tendency_plain(*args)])[1]
+        mt = grid.kmask_t.to(dt)
+        opened = sample.open_top_dxu(grid)
+        for adv, del2, nt in itertools.product(("upwind3", "centered"),
+                                               (False, True), (1, 2, 5)):
+            c = cfg.with_(tadvect=adv, hmix_tracer="del2" if del2 else "gm")
+            trc = [torch.randn(nt, km, *RAGGED[::-1], generator=gen,
+                               device=DEV, dtype=dt) * mt for _ in range(3)]
+            stf = torch.randn(nt, *RAGGED[::-1], generator=gen, device=DEV,
+                              dtype=dt) * mt[0]
+            args = (c, opened, f["ucur"], f["vcur"], *trc, f["vdc"], stf,
+                    f["dh"])
+            got = tracer_cuda.tracer_tendency(*args)
+            torch.cuda.synchronize()
+            want = tracer_cuda.tracer_tendency_plain(*args)
+            key = f"tracer_{adv}_{ew}_del2{int(del2)}_nt{nt}"
+            worst[key] = compare("tracer", dt, [got], [want])[1]
+            worst[key + "_top_rows"] = compare(
+                "tracer", dt, [got[..., -2:, :]], [want[..., -2:, :]])[1]
+            del got, want, trc
         rhoavg = pgrad.rho_average(cfg, grid, *f["rho"], True)
         for hm in ("aniso", "del2"):
             c = cfg.with_(hmix_momentum=hm)
@@ -2166,7 +2213,7 @@ def ptxas_summary(log: str | None = None):
                 r"(\d+) bytes smem", r"(\d+) bytes stack frame")
     worst, entry = {}, None
     for line in (cb.build_log() if log is None else log).splitlines():
-        m = re.search(r"entry function '\w*?(thomas|tracer_col|tracer|clinic|"
+        m = re.search(r"entry function '\w*?(thomas|tracer_upw|tracer|clinic|"
                       r"gm_slope|gm_chain|gm_flux|gm_tlt)_kernel", line)
         if m:
             entry = worst.setdefault(m.group(1), dict.fromkeys(keys, 0))
@@ -2218,14 +2265,18 @@ def main():
                              f"{lib.pop2_tracer_tile_rows()}, planner "
                              f"{tracer_cuda.MAX_GROUP}, "
                              f"{tracer_cuda.TILE_ROWS}")
-    for ng, del2 in itertools.product(range(1, tracer_cuda.MAX_GROUP + 1),
-                                      (True, False)):
-        c_values = lib.pop2_tracer_smem_values(ng, int(del2))
-        want = tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS)
+    for ng, del2, upw3 in itertools.product(
+            range(1, tracer_cuda.MAX_GROUP + 1), (True, False),
+            (False, True)):
+        c_values = lib.pop2_tracer_smem_values(ng, int(del2), int(upw3))
+        want = tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS,
+                                       upw3)
         if c_values != want:
             raise AssertionError(f"tracer shared memory (ng={ng}, del2="
-                                 f"{del2}): library {c_values}, planner "
-                                 f"{want}")
+                                 f"{del2}, upwind3={upw3}): library "
+                                 f"{c_values}, planner {want}")
+        for vb in (4, 8):  # fits 227 KB
+            tracer_cuda.launch_plan(vb, ng, del2, upw3)
     for vb, rows in clinic_cuda.TILE_ROWS.items():
         code = 0 if vb == 4 else 1
         c_rows = lib.pop2_clinic_tile_rows(code)

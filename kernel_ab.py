@@ -4,10 +4,12 @@ GPU: the tool for judging a kernel's redesign against the design it
 replaces.
 
     mkdir -p _parent && git archive <commit> pop2_tpu_torch | tar -x -C _parent
-    python3 kernel_ab.py _parent
+    python3 kernel_ab.py _parent [GROUP]
 
-(``_parent/`` is git-ignored.) Both checkouts are driven through their
-wrappers (``tridiag_cuda.thomas``, ``tracer_cuda.tracer_tendency``,
+(``_parent/`` is git-ignored; GROUP, a word of the case groups' names
+``tracer_clinic``, ``tracer_fold``, ``thomas``, ``gm``, runs those alone.)
+Both checkouts are driven through their wrappers
+(``tridiag_cuda.thomas``, ``tracer_cuda.tracer_tendency``,
 ``clinic_cuda.clinic_rhs_fields``, ``gm_slope_cuda.slopes``,
 ``gm_chain_cuda.chain``, ``gm_cuda.flux_assembly``), whose interface a
 redesign keeps: the other checkout's package is imported from its own
@@ -15,7 +17,10 @@ directory, apart from this one's, and builds its kernels from its own
 sources. The operands are those of ``chip_smoke.py``'s kernel phases at
 320 x 384 x 60, nt = 2, in float32 and float64: thomas for 1 and 2
 right-hand sides, the tracer tendency with the Laplacian (the core path's
-mode) and without it (the GM paths'), the momentum forcing on a leapfrog
+mode) and without it (the GM paths'), and on the tripole fold (a bottom
+with ocean across it, the top U row's DXU opened) with upwind3 advection
+for two tracers (the prod_dyn path's launch) and one (prod_full's group of
+one) and with centered advection, the momentum forcing on a leapfrog
 step, the slopes of the gm_full path's stratified tracers, the chain kernel
 in the gm_full path's instance and in the prod_dyn path's (the tripole
 fold, on a bottom with ocean across it), the flux assembly in both of its
@@ -140,6 +145,32 @@ def tracer_clinic_cases(other, dtype_name):
         cs.emit({"kernel": "clinic", "dtype": dtype_name, **rec})
 
 
+def tracer_fold_cases(other, dtype_name):
+    """The tracer tendency on the tripole fold, without the Laplacian: the
+    prod_dyn path's upwind3 launch (nt = 2), prod_full's group of one, and
+    centered advection, with the operands of ``chip_smoke.fold_kernel_phase``
+    on ``chip_smoke.fold_case``'s bottom with the top U row's DXU opened."""
+    cfg = cs.full_config(dtype_name, "prod_dyn")
+    # each checkout's wrappers keep their per-grid tables on the grid
+    grid = sample.open_top_dxu(cs.fold_case(cfg)[0])
+    grid_o = sample.open_top_dxu(cs.fold_case(cfg)[0])
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED + 12)
+    f = cs.random_fields(cfg, grid, gen)
+    for adv, nt in (("upwind3", 2), ("upwind3", 1), ("centered", 2)):
+        c = cfg.with_(tadvect=adv)
+        ops = (f["ucur"], f["vcur"], f["trcr"][:nt], f["told"][:nt],
+               f["told"][:nt], f["vdc"], f["stf"][:nt], f["dh"])
+        mine = lambda: tracer_cuda.tracer_tendency(c, grid, *ops)
+        theirs = lambda: other["tracer_cuda"].tracer_tendency(c, grid_o,
+                                                              *ops)
+        rec = in_turns(theirs, mine)
+        rec["rel_diff_this_vs_other"] = rel_diff([mine()], [theirs()])
+        rec["bitwise_equal"] = bitwise([mine()], [theirs()])
+        cs.emit({"kernel": "tracer", "dtype": dtype_name,
+                 "mode": f"{adv}_tripole_no_del2", "nt": nt, **rec})
+
+
 def thomas_cases(other, dtype_name):
     cfg = cs.full_config(dtype_name)
     grid = build_grid(cfg, cs.DEV)
@@ -236,8 +267,11 @@ def chain_fold_case(other, dtype_name):
 
 
 def main():
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3):
         sys.exit(__doc__)
+    groups = [g for g in (tracer_clinic_cases, tracer_fold_cases,
+                          thomas_cases, gm_cases)
+              if len(sys.argv) == 2 or sys.argv[2] in g.__name__]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -252,9 +286,8 @@ def main():
              "ptxas_other": cs.ptxas_summary(ocb.build_log()),
              "ptxas_this": cs.ptxas_summary()})
     for dtype_name in ("float32", "float64"):
-        tracer_clinic_cases(other, dtype_name)
-        thomas_cases(other, dtype_name)
-        gm_cases(other, dtype_name)
+        for cases in groups:
+            cases(other, dtype_name)
 
 
 if __name__ == "__main__":

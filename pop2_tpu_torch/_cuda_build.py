@@ -117,9 +117,8 @@ def _declare(lib) -> None:
     lib.pop2_gm_flux_tile_rows.argtypes = [i]
     lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d, p, p]
     lib.pop2_tracer.restype = i
-    lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, l]
-    lib.pop2_tracer_col_blocks_per_sm.argtypes = [i, i, i, i]
-    lib.pop2_tracer_smem_values.argtypes = [i, i]
+    lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, i, i, l]
+    lib.pop2_tracer_smem_values.argtypes = [i, i, i]
     lib.pop2_clinic.argtypes = [i] * 8 + [l] + [p] * 17 + [d] * 4 + [p] * 5
     lib.pop2_clinic_blocks_per_sm.argtypes = [i, i, l]
     lib.pop2_clinic_smem_values.argtypes = [i]
@@ -140,7 +139,6 @@ def _declare(lib) -> None:
                   "pop2_gm_chain_blocks_per_sm", "pop2_gm_chain_smem_values",
                   "pop2_tracer_blocks_per_sm", "pop2_tracer_smem_values",
                   "pop2_tracer_max_group", "pop2_tracer_tile_rows",
-                  "pop2_tracer_col_rows", "pop2_tracer_col_blocks_per_sm",
                   "pop2_clinic_blocks_per_sm", "pop2_clinic_smem_values",
                   "pop2_clinic_tile_rows", "pop2_max_dynamic_smem",
                   "pop2_gm_slope_blocks_per_sm", "pop2_gm_slope_smem_values",

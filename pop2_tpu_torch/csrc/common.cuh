@@ -6,20 +6,21 @@
 // north boundary (`fold`) maps the ghost rows past ny - 1 onto the top
 // physical rows, index-reversed (`fold_point`; vector fields also flip
 // their sign, which the kernels apply where they read such a value).
-// Every kernel but the tracer kernel's column form stages in shared memory
-// with asynchronous copies (`cp.async`) issued ahead of the arithmetic:
-// thomas stages whole columns; gm_chain, gm_slope,
-// gm_flux, tracer and clinic a 2-D tile of columns with a one-column halo,
-// level by level, and the stencil kernels among them hand what a column
-// computes once a level (the GM weights, the face velocities of tracer and
-// clinic) to its neighbours through shared memory. Their block shape and
-// dynamic shared memory come from the caller (the wrappers' launch
-// planners); the C entries check them against the layout, and the card
-// refuses a block over what it gives one (`allow_large_smem`). gm_slope,
-// gm_flux, tracer and clinic share the tile geometry below (`Frame`,
-// `frame_slot`): a tile of threads inside a frame of halo slots that the
-// threads copy; the chain keeps its own tile, whose halo columns are
-// threads.
+// Every kernel but the transition-layer search (gm_tlt, a thread a column
+// that reads each value once) stages in shared memory with asynchronous
+// copies (`cp.async`) issued ahead of the arithmetic: thomas stages whole
+// columns; gm_chain, gm_slope, gm_flux, tracer and clinic a 2-D tile of
+// columns with a one-column halo (two for tracer's upwind3), level by
+// level, and the stencil kernels among them hand what a column computes
+// once a level (the GM weights, the face velocities of tracer and clinic,
+// tracer's QUICKEST face values) to its neighbours through shared memory.
+// Their block shape and dynamic shared memory come from the caller (the
+// wrappers' launch planners); the C entries check them against the layout,
+// and the card refuses a block over what it gives one
+// (`allow_large_smem`). gm_slope, gm_flux, tracer and clinic share the tile
+// geometry below (`Frame`, `frame_slot`): a tile of threads inside a frame
+// of halo slots that the threads copy; the chain keeps its own tile, whose
+// halo columns are threads.
 #pragma once
 
 #include <cuda_runtime.h>

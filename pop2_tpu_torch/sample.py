@@ -141,3 +141,16 @@ def open_top_face(grid):
     htn = grid.HTN.clone()
     htn[-1] = htn.max()
     return grid.replace(HTN=htn)
+
+
+def open_top_dxu(grid):
+    """``grid`` with the top U row's east-west length DXU set to the grid's
+    largest. The internal grid's top U row lies on the pole, where DXU is
+    all but zero, so the north-face transport of the top T row, vtn = (v DXU
+    dz + its west neighbour's) / 2, is too, and a check of the tracer
+    kernel's fold would see the rows past the fold only through the second
+    row down; the kernel and its plain version read the same grid, so their
+    comparison stays exact."""
+    dxu = grid.DXU.clone()
+    dxu[-1] = dxu.max()
+    return grid.replace(DXU=dxu)

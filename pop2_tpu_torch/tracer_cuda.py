@@ -10,15 +10,15 @@ and trcr, told, ft per tracer, (4 + 3 nt) distinct 3-D fields on the model's
 path (tmix is told on a leapfrog step and trcr on an Euler step), against
 some 60 flops per output value. The plain version materializes the six
 flux-velocity fields and every shifted operand in device memory. The kernel
-reads each operand once: a block is a 2-D tile of columns in a one-column
-frame that walks down k, stages each level in shared memory by asynchronous
-copies two levels ahead, forms every column's face velocities once a level
-and hands them to its neighbours through shared memory, and carries the
-tracers, the old tracers and the top fluxes of the level down k in
-registers (see the note in ``csrc/tracer.cu``). ``launch_plan`` chooses the
-tile and its shared memory in plain Python; a launch carries at most
-``MAX_GROUP`` tracers (a template parameter of the kernel, so the carries
-stay in registers), and above that the wrapper launches groups
+reads each operand once: a block is a 2-D tile of columns in a frame of
+one column (two for upwind3) that walks down k, stages the levels ahead in
+shared memory by asynchronous copies, forms every column's face fluxes
+once a level and hands them to its neighbours through shared memory, and
+carries the tracers, the old tracers and the top fluxes of the level down
+k in registers (see the note in ``csrc/tracer.cu``). ``launch_plan``
+chooses the tile and its shared memory in plain Python; a launch carries
+at most ``MAX_GROUP`` tracers (a template parameter of the kernel, so the
+carries stay in registers), and above that the wrapper launches groups
 (``tracer_groups``). Float32 and float64.
 
 Two modes, chosen by ``cfg.hmix_tracer``: ``'del2'`` fuses the Laplacian
@@ -26,12 +26,15 @@ mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` leaves the
 horizontal mixing to the GM kernels and computes advection + vertical
 diffusion only (``with_del2=False``), a separate instance of the kernel that
 does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered or upwind3
-(QUICKEST) advection, closed or tripole north edge, 1-D layer thickness.
-Upwind3 and the tripole edge run the kernel's column form (one thread a
-column reading its two-column, two-row stencil and the fold of the rows
-past the north edge from device memory; ``column_mode``), with the 12
-horizontal coefficient planes of ``advect.upwind3_planes`` and the 6
-vertical coefficient rows of ``advect.upwind3_vert_coeffs`` formed here.
+(QUICKEST) advection, closed or tripole north edge (the frame's rows past
+the north edge copied from the folded columns), 1-D layer thickness
+(``tile_mode``). Upwind3 runs the tile in a frame of two columns
+(``UPW_HALO``): each column also forms its east- and north-face QUICKEST
+values once a level and publishes them, from the 12 horizontal coefficient
+planes of ``advect.upwind3_planes`` (staged once a tile) and a level
+table of the vertical grid's spacings and the 6 vertical coefficient rows
+of ``advect.upwind3_vert_coeffs`` (``upwind3_operands``), both formed
+here.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ MAX_GROUP = 2  # tracers a launch (kMaxGroup of csrc/tracer.cu)
 TILE_COLS = 32  # interior columns a tile row (kFrameCols: one warp)
 TILE_ROWS = 8  # interior rows a tile (kRows of csrc/tracer.cu)
 HALO = 1  # columns of the tile's frame on each side (kHalo)
-COL_ROWS = 8  # rows of a column-form block (kColRows of csrc/tracer.cu)
+UPW_HALO = 2  # the frame of upwind3 advection (kUpwHalo)
+UPW_COEF = 6  # QUICKEST values a face (kUpwCoef)
 
 
 def tracer_groups(nt: int):
@@ -60,26 +64,46 @@ def tracer_groups(nt: int):
     return [(n0, min(MAX_GROUP, nt - n0)) for n0 in range(0, nt, MAX_GROUP)]
 
 
-def smem_values(ng: int, del2: bool, rows: int) -> int:
+def smem_values(ng: int, del2: bool, rows: int,
+                upwind3: bool = False) -> int:
     """Values of shared memory a tile of ``rows`` rows takes for a group of
-    ``ng`` tracers: the DYU, DXU frame planes, three staged levels (u, v,
-    ng trcr and, with the Laplacian, ng tmix frame planes; ng told and ng
-    diffusivity tile planes) and two buffers of the published ute, vtn
-    (``TracerLayout::kValues`` of csrc/tracer.cu, which chip_smoke.py
-    holds this against)."""
-    plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
-    level = (2 + ng * (2 if del2 else 1)) * plane + 2 * ng * TILE_COLS * rows
-    return 2 * plane + 3 * level + 2 * 2 * plane
+    ``ng`` tracers (``TracerLayout::kValues`` and
+    ``TracerUpwLayout::kValues`` of csrc/tracer.cu, which chip_smoke.py
+    holds this against). Centered advection: the DYU, DXU frame planes,
+    three staged levels (u, v, ng trcr and, with the Laplacian, ng tmix
+    frame planes; ng told and ng diffusivity tile planes) and two buffers of
+    the published ute, vtn. Upwind3 (a frame of UPW_HALO): once a tile DYU,
+    DXU on the face region (the tile with its S row and W column), KMT on
+    the frame, the S row's and W column's coefficients and TAREA_R, the
+    tile's own 12 coefficient planes; two buffers of each ring, every one
+    of period two: frame levels (u, v on the face region, ng trcr on the
+    frame), centre levels (what a level reads besides its carries: ng told
+    of the level below, ng diffusivities, ng trcr two levels down on the
+    tile, and with the Laplacian ng tmix on the frame) and the published
+    ute, vtn and each tracer's east- and north-face values (face
+    region)."""
+    tile = TILE_COLS * rows
+    if not upwind3:
+        plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
+        level = (2 + ng * (2 if del2 else 1)) * plane + 2 * ng * tile
+        return 2 * plane + 3 * level + 2 * 2 * plane
+    plane = (TILE_COLS + 2 * UPW_HALO) * (rows + 2 * UPW_HALO)
+    face = (TILE_COLS + 1) * (rows + 1)
+    once = (2 * face + plane + (UPW_COEF + 1) * (TILE_COLS + rows)
+            + 2 * UPW_COEF * tile)
+    frame = 2 * face + ng * plane
+    centre = 3 * ng * tile + (ng * plane if del2 else 0)
+    return once + 2 * (frame + centre + (2 + 2 * ng) * face)
 
 
 def launch_plan(value_bytes: int, ng: int, del2: bool,
-                column: bool = False):
+                upwind3: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
     tracer kernel launch for a group of ``ng`` tracers in values of
-    ``value_bytes``, with the Laplacian or without; the column form
-    (``column``) takes no shared memory. Raises for what the kernel does
-    not take: a group over MAX_GROUP, values other than float32 or float64,
-    or a tile over the card's 227 KB."""
+    ``value_bytes``, with the Laplacian or without, centered or upwind3
+    advection (the north edge does not change the plan). Raises for what
+    the kernel does not take: a group over MAX_GROUP, values other than
+    float32 or float64, or a tile over the card's 227 KB."""
     if value_bytes not in (4, 8):
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
@@ -87,32 +111,38 @@ def launch_plan(value_bytes: int, ng: int, del2: bool,
         raise NotImplementedError(
             f"tracer kernel carries at most {MAX_GROUP} tracers a launch, "
             f"got {ng} (tracer_groups splits more)")
-    if column:
-        return (TILE_COLS, COL_ROWS), 0
-    smem = smem_values(ng, del2, TILE_ROWS) * value_bytes
+    smem = smem_values(ng, del2, TILE_ROWS, upwind3) * value_bytes
     cb.check_smem(smem, f"tracer tile ({TILE_COLS} x {TILE_ROWS}, "
-                        f"ng={ng}, del2={del2})")
+                        f"ng={ng}, del2={del2}, upwind3={upwind3})")
     return (TILE_COLS, TILE_ROWS), smem
 
 
-def column_mode(cfg) -> bool:
-    """Whether the column form runs: upwind3 advection or a tripole north
-    edge."""
-    return cfg.tadvect == "upwind3" or cfg.ns_boundary == "tripole"
+def tile_mode(cfg):
+    """(upwind3, fold): the kernel instance a configuration runs, upwind3
+    advection in a frame of UPW_HALO or centered advection in one of HALO,
+    with a tripole north edge or a closed one."""
+    return cfg.tadvect == "upwind3", cfg.ns_boundary == "tripole"
 
 
 def upwind3_operands(cfg, grid, dtype, device):
-    """(upw (12, ny, nx), vco (6, km)): the QUICKEST coefficient planes of
-    the east and north faces and the vertical coefficient rows, as the
-    column form reads them. Built at the first launch on a ``Grid`` object
-    and kept on it."""
+    """(upw (12, ny, nx), lev (km, 11)): the QUICKEST coefficient planes of
+    the east and north faces, and the level table, a row a level of what
+    the upwind3 kernel reads there: dz, dzr, dz2r, dzwr2 (``vmix.dzwr2``),
+    the vertical coefficients talfzp .. tdelzm, one address a level, and
+    1/dz rounded once in ``dtype``, from which the kernel forms its
+    quotients by dz as a division rounds them (``dzr`` is rounded in
+    float64 first). Built at the first launch on a ``Grid`` object and kept
+    on it."""
     hit = grid.__dict__.get("_upwind3_operands")
     if hit is None:
+        vg = grid.vgrid
         x, y, _, _ = advect.upwind3_planes(grid, grid_bc(cfg))
+        cols = (vg.dz, vg.dzr, vg.dz2r, vmix.dzwr2(grid),
+                *advect.upwind3_vert_coeffs(vg.dz))
+        lev = torch.stack(cols, dim=1).to(device=device, dtype=dtype)
         hit = (torch.stack(x + y).to(device=device, dtype=dtype)
                .contiguous(),
-               torch.stack(advect.upwind3_vert_coeffs(grid.vgrid.dz)).to(
-                   device=device, dtype=dtype).contiguous())
+               torch.cat([lev, 1.0 / lev[:, :1]], dim=1).contiguous())
         grid.__dict__["_upwind3_operands"] = hit
     return hit
 
@@ -166,9 +196,8 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     nt, km, ny, nx = trcr.shape
     dev, dt = trcr.device, trcr.dtype
     del2 = with_del2(cfg)
-    column = column_mode(cfg)
-    upw3 = cfg.tadvect == "upwind3"
-    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2, column)
+    upw3, fold = tile_mode(cfg)
+    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2, upw3)
               for n0, ng in tracer_groups(nt)]
     vg = grid.vgrid
     dz = vg.dz
@@ -184,15 +213,14 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             ("DTW", grid.DTW, f2), ("dz", dz, (km,))):
         cb.check_operand(name, t, shape, dt, dev)
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
-    upw, vco = (upwind3_operands(cfg, grid, dt, dev) if upw3
+    upw, lev = (upwind3_operands(cfg, grid, dt, dev) if upw3
                 else (dz, dz))  # centered advection reads neither
     out = torch.empty_like(trcr)
     lib = cb.lib()
     for n0, ng, (_, rows), smem in groups:
         err = lib.pop2_tracer(
             cb.dtype_code(trcr), int(del2), nt, n0, ng, km, ny, nx,
-            int(cfg.ew_boundary == "cyclic"),
-            int(cfg.ns_boundary == "tripole"), int(upw3),
+            int(cfg.ew_boundary == "cyclic"), int(fold), int(upw3),
             int(cfg.sfc_layer == "varthick"), rows, smem,
             u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
             told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),
@@ -200,7 +228,7 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             grid.TAREA_R.data_ptr(), grid.DTN.data_ptr(),
             grid.DTS.data_ptr(), grid.DTE.data_ptr(), grid.DTW.data_ptr(),
             dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
-            dzwr2.data_ptr(), upw.data_ptr(), vco.data_ptr(),
+            dzwr2.data_ptr(), upw.data_ptr(), lev.data_ptr(),
             float(cfg.auto_ah), out.data_ptr(),
             cb.stream_ptr())
         cb.check_launch(err, "tracer_tendency")

@@ -2,7 +2,7 @@
 (prod_dyn) adds, on a tripole grid with ocean across the fold, against the
 JAX package on the CPU:
 
-  - the tracer kernel's upwind3 column form, the momentum kernel without
+  - the tracer kernel's upwind3 mode, the momentum kernel without
     the Laplacian (with the anisotropic friction added by the model's
     entry), the slopes and the chain; and the flux assembly's tripole row
     (GM without the transition layer on the production grid, prod_flux),
@@ -75,6 +75,33 @@ def test_tracer_upwind3_fold_plain(fold, dtype):
     assert scale_err(got.numpy(), np.asarray(want)) <= band
     assert scale_err(got[..., -2:, :].numpy(),
                      np.asarray(want)[..., -2:, :]) <= band
+
+
+# the bands chip_smoke.py holds the tracer kernel to against this plain
+# version (BAND["tracer", ...]): of scale, float64 and float32
+TRACER_BAND = {"float64": 1e-12, "float32": 2e-5}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_tracer_fold_moves_the_top_row(fold, dtype):
+    """With the top U row's DXU opened (``sample.open_top_dxu``: the
+    internal grid's top U row lies on the pole, where DXU is all but zero),
+    the fold moves the plain tendency's top row by far more than the band
+    the kernel is held to under it, so a check of the top row sees the
+    fold's rows."""
+    p = fold[dtype]
+    f = [torch.as_tensor(a) for a in _tracer_inputs(p, 91)]
+    grid = sample.open_top_dxu(p.tgrid)
+    assert float(grid.DXU[-1].min()) == float(p.tgrid.DXU.max())
+    tripole = tracer_cuda.tracer_tendency_plain(p.tcfg, grid, *f)
+    closed = tracer_cuda.tracer_tendency_plain(
+        p.tcfg.with_(ns_boundary="closed"), grid, *f)
+    top = tripole[..., -1, :]
+    share = float((closed[..., -1, :] - top).abs().max() / top.abs().max())
+    assert share > 100.0 * TRACER_BAND[dtype]
+    # the wrapper on CPU tensors is the plain version, fold and all
+    got = tracer_cuda.tracer_tendency(p.tcfg, grid, *f)
+    assert torch.equal(got, tripole)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
-from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda, gm_tlt_cuda
-from pop2_tpu_torch import gm_slope_cuda, tracer_cuda, tridiag_cuda, vmix
+from pop2_tpu_torch import advect, clinic_cuda, gm_chain_cuda, gm_cuda
+from pop2_tpu_torch import gm_slope_cuda, gm_tlt_cuda, tracer_cuda
+from pop2_tpu_torch import tridiag_cuda, vmix
 from pop2_tpu_torch.config import get_config
 from pop2_tpu_torch.grid import build_grid
 
@@ -159,13 +160,50 @@ def test_tracer_plan_fits_the_tile(value_bytes, ng, del2):
     assert smem <= cb.SMEM_PER_BLOCK
 
 
-# the column form (upwind3, tripole): no shared memory, a fixed block
+# the modes the column form once ran (upwind3, and centered advection on a
+# tripole edge) run the staged tile: upwind3 in its frame of two columns,
+# the tripole edge in the layout of its north edge's mode
 @pytest.mark.parametrize("value_bytes", [4, 8])
 @pytest.mark.parametrize("ng", [1, 2])
 @pytest.mark.parametrize("del2", [True, False])
 def test_tracer_column_plan(value_bytes, ng, del2):
-    plan = tracer_cuda.launch_plan(value_bytes, ng, del2, column=True)
-    assert plan == ((tracer_cuda.TILE_COLS, tracer_cuda.COL_ROWS), 0)
+    for upwind3 in (True, False):
+        (cols, rows), smem = tracer_cuda.launch_plan(value_bytes, ng, del2,
+                                                     upwind3)
+        assert (cols, rows) == (tracer_cuda.TILE_COLS, tracer_cuda.TILE_ROWS)
+        assert smem == tracer_cuda.smem_values(ng, del2, rows,
+                                               upwind3) * value_bytes
+        assert 0 < smem <= cb.SMEM_PER_BLOCK
+    # the frame of two columns holds more than the one of one
+    assert (tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS, True)
+            > tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS))
+
+
+# the upwind3 layout of prod_dyn's launch (two tracers, no Laplacian),
+# counted by hand: once a tile 2 x 297 + 432 + 7 x 40 + 12 x 256, then two
+# buffers each of a frame level (2 x 297 + 2 x 432), a centre level (3 x 2
+# x 256) and the published fluxes (6 x 297); float32 leaves four blocks an
+# SM and float64 two (228 KB, 1 KB a block)
+def test_tracer_upwind3_layout_by_hand():
+    values = tracer_cuda.smem_values(2, False, tracer_cuda.TILE_ROWS, True)
+    assert values == (2 * 297 + 432 + 7 * 40 + 12 * 256
+                      + 2 * (2 * 297 + 2 * 432 + 3 * 2 * 256 + 6 * 297))
+    assert values == 13930
+    assert 4 * (4 * values + 1024) <= 228 * 1024
+    assert 2 * (8 * values + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("value_bytes", [4, 8])
+@pytest.mark.parametrize("upwind3", [True, False])
+def test_tracer_plan_refuses_an_over_size_tile(monkeypatch, value_bytes,
+                                               upwind3):
+    need = tracer_cuda.smem_values(2, True, tracer_cuda.TILE_ROWS,
+                                   upwind3) * value_bytes
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", need - 1)
+    with pytest.raises(ValueError, match="shared memory a block"):
+        tracer_cuda.launch_plan(value_bytes, 2, True, upwind3)
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", need)
+    assert tracer_cuda.launch_plan(value_bytes, 2, True, upwind3)[1] == need
 
 
 @pytest.mark.parametrize("over,column", [
@@ -173,19 +211,30 @@ def test_tracer_column_plan(value_bytes, ng, del2):
     (dict(ns_boundary="tripole"), True),
     (dict(tadvect="upwind3", ns_boundary="tripole"), True)])
 def test_tracer_column_mode_follows_advection_and_north_edge(over, column):
-    assert tracer_cuda.column_mode(get_config("mini", **over)) == column
+    # (upwind3, fold): the instance; both off is the core path's
+    mode = tracer_cuda.tile_mode(get_config("mini", **over))
+    assert mode == (over.get("tadvect") == "upwind3",
+                    over.get("ns_boundary") == "tripole")
+    assert any(mode) == column
 
 
 def test_upwind3_operands_are_grid_statics():
     cfg = get_config("mini", tadvect="upwind3", ns_boundary="tripole")
     grid = build_grid(cfg, "cpu")
-    upw, vco = tracer_cuda.upwind3_operands(cfg, grid, torch.float64,
+    upw, lev = tracer_cuda.upwind3_operands(cfg, grid, torch.float64,
                                             grid.KMT.device)
-    assert upw.shape == (12, cfg.ny, cfg.nx) and vco.shape == (6, cfg.km)
-    assert upw.is_contiguous() and vco.is_contiguous()
+    assert upw.shape == (12, cfg.ny, cfg.nx) and lev.shape == (cfg.km, 11)
+    assert upw.is_contiguous() and lev.is_contiguous()
+    # the level table's rows: dz, dzr, dz2r, dzwr2, talfzp .. tdelzm and
+    # 1/dz rounded once
+    vg = grid.vgrid
+    for col, want in enumerate((vg.dz, vg.dzr, vg.dz2r, vmix.dzwr2(grid),
+                                *advect.upwind3_vert_coeffs(vg.dz),
+                                1.0 / vg.dz)):
+        assert torch.equal(lev[:, col], want)
     assert tracer_cuda.upwind3_operands(cfg, grid, torch.float64,
                                         grid.KMT.device)[0] is upw
-    assert bool(torch.isfinite(upw).all()) and bool(torch.isfinite(vco).all())
+    assert bool(torch.isfinite(upw).all()) and bool(torch.isfinite(lev).all())
 
 
 @pytest.mark.parametrize("value_bytes", [4, 8])
