@@ -50,7 +50,12 @@ An overflow phase runs the 'mini' preset with the overflows of the JAX
 package's tests on the card against the same on the CPU.
 
 For each path it checks through the wrappers' launch counters (zeroed just
-before, read just after) that the steps really went through the kernels. It
+before, read just after) that the steps really went through the kernels.
+On core, gm_full and prod_full it runs ``Model.run_compiled`` (CUDA graphs
+of the step's segments) against ``Model.run`` from one state (``run_loop``
+phase): every state leaf bitwise equal (or inside the eager-against-eager
+spread), iterations and launch counts equal, graphs replayed, no host read
+but the solver's convergence checks, and a restart round trip on prod_full. It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
 gm_full, prod_dyn, prod_mix and prod_full paths, breaks a step's time down
@@ -67,14 +72,20 @@ and power limit, then the final ``{"ok": true, "device": ...}`` line.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import inspect
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+import warnings
 
 import torch
 
@@ -89,7 +100,7 @@ from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, gm_tlt_cuda  # noqa: E40
 from pop2_tpu_torch import kpp, overflows, production, submeso  # noqa: E402
 from pop2_tpu_torch import tracer_cuda, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
-from pop2_tpu_torch import pgrad, sample  # noqa: E402
+from pop2_tpu_torch import pgrad, sample, solvers  # noqa: E402
 from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
                                    SolverConfig, get_config)
 from pop2_tpu_torch.grid import build_grid, grid_bc  # noqa: E402
@@ -1310,6 +1321,26 @@ def fold_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
                           del2=False, upwind3=True, fold=True))
     del f5
 
+    # ---- tracer: centered advection on the fold (the staged tile's FOLD
+    # instances), a mode no path runs: held and timed on its own line, with
+    # the bytes of the upwind3 case less its 12 coefficient planes
+    cc = cfg.with_(tadvect="centered")
+    args = (cc, opened, f["ucur"], f["vcur"], f["trcr"], f["told"],
+            f["told"], f["vdc"], f["stf"], f["dh"])
+    got = tracer_cuda.tracer_tendency(*args)
+    torch.cuda.synchronize()
+    want = tracer_cuda.tracer_tendency_plain(*args)
+    err_abs, err_rel = compare("tracer", dt, [got], [want])
+    del got, want
+    emit({"phase": "tracer_centered_fold", "dtype": dtype_name,
+          **timed(lambda: tracer_cuda.tracer_tendency(*args),
+                  lambda: tracer_cuda.tracer_tendency_plain(*args),
+                  s * (N * (4 + 2 * nt) + P * (nt + 8) + 10 * km) + 4 * P,
+                  N * (40 + 60 * nt), max_abs_err=err_abs,
+                  rel_err=err_rel,
+                  **launch_info("tracer", dt, ng=min(nt, tracer_cuda.MAX_GROUP),
+                                del2=False, upwind3=False, fold=True))})
+
     # ---- momentum forcing without the Laplacian, on the fold: u, v at two
     # times, the density, the viscosity in (um, vm are not read)
     rhoavg = pgrad.rho_average(cfg, grid, f["rho"][0], f["rho"][1],
@@ -2062,7 +2093,7 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
 
 
 def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
-                    nsteps: int = 6, nprof: int = 2):
+                    nsteps: int = 6, nprof: int = 1):
     """Where a leapfrog step's time goes at full size, from the model's own
     initial state (rest, horizontally uniform: GM has no slopes to work on
     and its transition-layer search ends after a few levels) or from the
@@ -2177,6 +2208,252 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
           "top_device_kernels_ms_per_step": [
               [ev.key[:60], ev.self_device_time_total / nprof / 1e3,
                ev.count // nprof] for ev in kernels[:10]]})
+
+
+# the captured run loop's paths: (path, dtype, steps from rest); core and
+# gm_full take an averaging step at 17 between captured steps, prod_full
+# (the Robert filter) none
+RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
+            ("prod_full", "float32", 8), ("prod_full", "float64", 8))
+RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
+RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
+
+
+@contextlib.contextmanager
+def solver_iterations():
+    """Inside the block each solve's iteration count is appended to the
+    list it yields: the eager and the captured step both run
+    ``solvers.Solver.run``."""
+    log = []
+    run = solvers.Solver.run
+
+    def logged(self, carry, advance=None):
+        out = run(self, carry, advance)
+        log.append(out[1])
+        return out
+    solvers.Solver.run = logged
+    try:
+        yield log
+    finally:
+        solvers.Solver.run = run
+
+
+def sync_points(fn):
+    """(fn(), {"file:line": count} of the host-device synchronizations it
+    made), by torch's sync debug mode; each named by the innermost frame
+    of this repository's code (the port's or this script's)."""
+    where = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "pop2_tpu_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        f = frames[-1] if frames else None
+        if f is not None and f.name == "sync_points":
+            return  # switching the debug mode on, not fn
+        where[f"{os.path.basename(f.filename)}:{f.lineno}" if f
+              else f"{os.path.basename(filename)}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, dict(where)
+
+
+def solver_read_lines():
+    """The solver loop's host reads (``Solver.run``'s ``float(carry[...])``
+    lines) as "solvers.py:line"."""
+    lines, first = inspect.getsourcelines(solvers.Solver.run)
+    return {f"solvers.py:{first + i}" for i, line in enumerate(lines)
+            if "float(carry[" in line}
+
+
+def _timed(fn):
+    """(fn(), seconds, launch counts, peak device memory) with the counts
+    and the peak reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, read_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def _device_busy(fn, nsteps: int):
+    """(device kernel ms a step, busy share of the window) of ``nsteps``
+    steps under torch.profiler; (None, None) if it saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not busy_us:
+        return None, None
+    return busy_us / nsteps / 1e3, busy_us / (window * 1e6)
+
+
+def _leaf_spread(a, b):
+    """{leaf: max |a - b|} of two states."""
+    return {name: float((x - getattr(b, name)).abs().max())
+            for name, x in a.leaves()}
+
+
+def run_loop_phase(path: str, dtype_name: str, nsteps: int):
+    """``Model.run_compiled`` (CUDA graphs of the step's segments) against
+    ``Model.run`` (eager ``advance``) from one state at full size: two
+    eager runs give the eager-against-eager spread, and the captured run
+    must equal the first bitwise or lie inside that spread on every state
+    leaf, with equal iterations per step, equal launch counts and at least
+    one replay. The eager run's host-device synchronizations, and those of
+    captured steps after the capture, must all be the solver's convergence
+    reads. Then steps/s, the device's busy share, capture seconds, graphs
+    and peak device memory of both."""
+    t_phase = time.perf_counter()
+    cfg = full_config(dtype_name, path)
+    model = Model(cfg)
+    forcing = path_forcing(model)
+    allowed = solver_read_lines()
+    start = model.initial_state()
+
+    def rewind(n=0):
+        model.nsteps_total = n
+        model.time_manager.reset()
+
+    def eager(state=start, n=nsteps):
+        with solver_iterations() as iters:
+            state = model.run(state, n, forcing)
+        return state, list(iters)
+
+    def compiled(state=start, n=nsteps):
+        with solver_iterations() as iters:
+            state, _ = model.run_compiled(state, n, forcing)
+        return state, list(iters)
+
+    parts = {"model": time.perf_counter() - t_phase}
+    # the first eager run fills the grid's caches; the second is audited
+    rewind()
+    (s_eager, it_eager), t_eager, n_eager, mem_eager = _timed(eager)
+    rewind()
+    (s_again, _), syncs_eager = sync_points(eager)
+    parts["eager_runs"] = time.perf_counter() - t_phase - parts["model"]
+    rewind()
+    (s_comp, it_comp), t_comp, n_comp, mem_comp = _timed(compiled)
+    cap = model._captured
+    if cap is None or not cap.replays:
+        raise AssertionError(f"{path} {dtype_name}: run_compiled replayed "
+                             "no graph")
+    # steps past the run, each captured: the audit, then steps/s
+    (s_more, _), syncs_comp = sync_points(
+        lambda: compiled(s_comp, RUN_LOOP_MORE))
+    _, t_more_comp, _, _ = _timed(lambda: compiled(s_more, RUN_LOOP_MORE))
+    rewind(nsteps)
+    _, t_more_eager, _, _ = _timed(lambda: eager(s_eager, RUN_LOOP_MORE))
+    # the device time of a step, under the profiler; the eager step runs
+    # the same kernels (its state is bitwise the same), so its busy share
+    # is that time over its own step time
+    t0 = time.perf_counter()
+    rewind(nsteps)
+    device_ms, busy_profiled = _device_busy(lambda: compiled(s_comp, 1), 1)
+    parts["profiled"] = time.perf_counter() - t0
+
+    spread = _leaf_spread(s_eager, s_again)
+    diff = _leaf_spread(s_comp, s_eager)
+    bitwise = all(torch.equal(x, getattr(s_eager, n))
+                  for n, x in s_comp.leaves())
+    stray = {k: v for k, v in {**syncs_eager, **syncs_comp}.items()
+             if k not in allowed}
+    n_avg = sum(model.step_flags(n)[1] for n in range(1, nsteps + 1))
+    out = {"phase": "run_loop", "path": path, "dtype": dtype_name,
+           "dims": [cfg.nx, cfg.ny, cfg.km], "steps": nsteps,
+           "averaging_steps": n_avg,
+           "bitwise_equal_to_advance": bitwise,
+           "eager_vs_eager_max_abs": max(spread.values()),
+           "captured_vs_eager_max_abs": max(diff.values()),
+           "leaves_outside_spread": [k for k in diff
+                                     if diff[k] > spread[k]],
+           "solver_iters_eager": it_eager, "solver_iters_captured": it_comp,
+           "launches_eager": n_eager, "launches_captured": n_comp,
+           "graphs": cap.graphs, "replays": cap.replays,
+           "capture_seconds": cap.capture_seconds,
+           "seconds_eager": t_eager, "seconds_captured": t_comp,
+           "steps_per_s_eager": nsteps / t_eager,
+           "steps_per_s_captured_run": nsteps / t_comp,
+           "steps_per_s_leapfrog_eager": RUN_LOOP_MORE / t_more_eager,
+           "steps_per_s_leapfrog_captured": RUN_LOOP_MORE / t_more_comp,
+           "device_ms_per_step": device_ms,
+           "device_busy_share_captured_under_profiler": busy_profiled,
+           "device_busy_share_captured": (
+               device_ms * RUN_LOOP_MORE / (t_more_comp * 1e3)
+               if device_ms else None),
+           "device_busy_share_eager": (
+               device_ms * RUN_LOOP_MORE / (t_more_eager * 1e3)
+               if device_ms else None),
+           "peak_device_mem_bytes_eager": mem_eager,
+           "peak_device_mem_bytes_captured": mem_comp,
+           "sync_points_eager": syncs_eager,
+           "sync_points_captured": syncs_comp,
+           "sync_points_allowed": sorted(allowed)}
+    if path == "prod_full" and dtype_name == "float32":
+        t0 = time.perf_counter()
+        out["restart"] = restart_round_trip(model, forcing)
+        parts["restart"] = time.perf_counter() - t0
+    out["phase_seconds"] = {**parts, "total": time.perf_counter() - t_phase}
+    emit(out)
+    broken = []
+    if not bitwise and out["leaves_outside_spread"]:
+        broken.append("state leaves outside the eager spread")
+    if it_eager != it_comp:
+        broken.append("iterations per step")
+    if n_eager != n_comp:
+        broken.append("launch counts")
+    if stray:
+        broken.append(f"host reads outside the solver's checks {stray}")
+    if path == "prod_full" and dtype_name == "float32" \
+            and not out["restart"]["equal"]:
+        broken.append("restart round trip")
+    if broken:
+        raise AssertionError(f"run_loop {path} {dtype_name}: "
+                             + "; ".join(broken))
+    return {"launches": n_comp, "replays": cap.replays}
+
+
+def restart_round_trip(model, forcing):
+    """RESTART_STEPS captured steps, a checkpoint written and read back,
+    RESTART_STEPS more, against 2 RESTART_STEPS straight: every leaf equal
+    (bitwise, or within the eager spread of the caller's check)."""
+    from pop2_tpu_torch.io import restart
+    straight, _ = model.run_compiled(model.initial_state(),
+                                     2 * RESTART_STEPS, forcing)
+    half, _ = model.run_compiled(model.initial_state(), RESTART_STEPS,
+                                 forcing)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        restart.write_restart(os.path.join(tmp, "ckpt"), half,
+                              model.nsteps_total, model.cfg,
+                              compressed=False)
+        t_write = time.perf_counter() - t0
+        back, nsteps = restart.read_restart(tmp, model.cfg)
+    model.initial_state()
+    model.nsteps_total = nsteps
+    resumed, _ = model.run_compiled(back, RESTART_STEPS, forcing)
+    diff = _leaf_spread(resumed, straight)
+    return {"steps": [RESTART_STEPS, RESTART_STEPS],
+            "equal": all(v == 0.0 for v in diff.values()),
+            "max_abs": max(diff.values()), "write_seconds": t_write}
 
 
 def small_vs_cpu_phase(path: str, nsteps: int = 5):
@@ -2312,29 +2589,42 @@ def main():
           "smem_per_block_bytes": card_smem,
           "ptxas_worst_instance": ptxas_summary()})
 
+    by_phase = collections.Counter()  # seconds of each phase function
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            by_phase[phase.__name__] += time.perf_counter() - t0
+
     records = {}
     for dtype_name in ("float32", "float64"):
-        records[dtype_name] = kernel_phase(dtype_name)
-        records[dtype_name].update(gm_kernel_phase(dtype_name))
-        records[dtype_name].update(fold_kernel_phase(dtype_name))
-        records[dtype_name].update(mix_kernel_phase(dtype_name))
-        records[dtype_name].update(flux_fold_phase(dtype_name))
-        other_modes_phase(dtype_name)
-        gm_other_modes_phase(dtype_name)
-        ragged_phase(dtype_name)
-        fold_ragged_phase(dtype_name)
+        records[dtype_name] = run(kernel_phase, dtype_name)
+        records[dtype_name].update(run(gm_kernel_phase, dtype_name))
+        records[dtype_name].update(run(fold_kernel_phase, dtype_name))
+        records[dtype_name].update(run(mix_kernel_phase, dtype_name))
+        records[dtype_name].update(run(flux_fold_phase, dtype_name))
+        run(other_modes_phase, dtype_name)
+        run(gm_other_modes_phase, dtype_name)
+        run(ragged_phase, dtype_name)
+        run(fold_ragged_phase, dtype_name)
     launches = {}
     for path in PATHS:
         for dtype_name in ("float32", "float64"):
-            launches[(path, dtype_name)] = path_phase(path, dtype_name)
+            launches[(path, dtype_name)] = run(path_phase, path, dtype_name)
+    captured = {}
+    for path, dtype_name, nsteps in RUN_LOOP:
+        captured[(path, dtype_name)] = run(run_loop_phase, path, dtype_name,
+                                           nsteps)
     for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full"):
-        path_vs_plain_phase(path)
-        breakdown_phase(path, "float32")
+        run(path_vs_plain_phase, path)
+        run(breakdown_phase, path, "float32")
         if path != "core":
-            breakdown_phase(path, "float32", stratified=True)
-        small_vs_cpu_phase(path)
-    small_vs_cpu_phase("prod_flux")
-    overflow_phase()
+            run(breakdown_phase, path, "float32", True)
+        run(small_vs_cpu_phase, path)
+    run(small_vs_cpu_phase, "prod_flux")
+    run(overflow_phase)
 
     kernels = []
     for dtype_name, recs in records.items():
@@ -2346,12 +2636,16 @@ def main():
                 raise AssertionError(
                     f"{name} ({dtype_name}) was not launched on the "
                     f"{PATH_OF[name]} path")
+            run = captured.get((PATH_OF[name], dtype_name))
             kernels.append({"name": f"{name}_{dtype_name}", "route": "cuda",
                             "source": source, "replaces": replaces,
-                            "path": PATH_OF[name], "launches": n, **r,
-                            "library_ms": None})
+                            "path": PATH_OF[name], "launches": n,
+                            "launches_run_compiled": (
+                                run["launches"][counter] if run else None),
+                            **r, "library_ms": None})
     emit({"kernels": kernels})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": dict(by_phase)})
     print(smi, flush=True)
     emit({"ok": True,
           "device": {"platform": "gpu",

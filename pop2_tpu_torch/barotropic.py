@@ -8,7 +8,7 @@ gradients. The non-leapfrog path is the Euler-forward first step.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -44,18 +44,31 @@ def diagonal_correction(cfg: ModelConfig, grid: Grid, leapfrog: bool):
                        grid.TAREA / (beta * c2dtp * dtp * const.GRAV), 0.0)
 
 
-def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
-           forcing: Forcing, zx, zy, leapfrog: bool,
-           pcsi_eigs: Optional[Tuple[float, float]] = None,
-           precond=None, ovf_qsurf=None) -> BarotropicOut:
-    """The barotropic step; ``ovf_qsurf``: the overflows' equivalent
-    surface volume flux (``overflows.qsurf``) or None."""
+class BarotropicRHS(NamedTuple):
+    """The barotropic step up to its solve (``rhs``): the auxiliary
+    velocities, the reference gradients, the elliptic right-hand side and
+    operator, and ``beta * c2dtp``."""
+    uh: torch.Tensor
+    vh: torch.Tensor
+    gpx_ref: torch.Tensor
+    gpy_ref: torch.Tensor
+    rhs: torch.Tensor
+    op: solvers.BtropOperator
+    beta_c2dtp: float
+
+
+def rhs(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
+        forcing: Forcing, zx, zy, leapfrog: bool,
+        ovf_qsurf=None) -> BarotropicRHS:
+    """The momentum right-hand side, the auxiliary velocities, the elliptic
+    right-hand side and the operator (source/barotropic.F90:420-552);
+    ``ovf_qsurf``: the overflows' equivalent surface volume flux
+    (``overflows.qsurf``) or None."""
     dtp = cfg.time.dtp
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     gamma = cfg.time.gamma
     c2dtp = (2.0 if leapfrog else 1.0) * dtp
     varthick = cfg.sfc_layer == "varthick"
-    mask_u = grid.kmask_u[0]
     mask_t = grid.kmask_t[0]
 
     # ---- r.h.s. of barotropic momentum (source/barotropic.F90:420-445) ----
@@ -83,7 +96,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
     gpy_ref = state.gradpy_old if leapfrog else state.gradpy_cur
     w3 = grid.HU * (uh + beta * c2dtp * gpx_ref)
     w4 = grid.HU * (vh + beta * c2dtp * gpy_ref)
-    rhs = div(w3, w4, grid.DXU, grid.DYU, mask_t, bc) / (beta * c2dtp)
+    b = div(w3, w4, grid.DXU, grid.DYU, mask_t, bc) / (beta * c2dtp)
 
     diag_corr = diagonal_correction(cfg, grid, leapfrog)
     fw_eff = forcing.fw
@@ -93,28 +106,46 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
         # (ovf_rhs_brtrpc_continuity, source/overflows.F90:5068-5120)
         fw_eff = fw_eff + ovf_qsurf
     if varthick:
-        rhs = (rhs - diag_corr * state.psurf_cur
-               - fw_eff * grid.TAREA / (beta * c2dtp))
+        b = (b - diag_corr * state.psurf_cur
+             - fw_eff * grid.TAREA / (beta * c2dtp))
     elif cfg.sfc_layer == "oldfree":
-        rhs = rhs - diag_corr * state.psurf_cur
+        b = b - diag_corr * state.psurf_cur
+    return BarotropicRHS(uh=uh, vh=vh, gpx_ref=gpx_ref, gpy_ref=gpy_ref,
+                         rhs=b, op=solvers.make_operator(grid, diag_corr),
+                         beta_c2dtp=beta * c2dtp)
 
-    # ---- solve (source/barotropic.F90:564-598) ----------------------------
-    op = solvers.make_operator(grid, diag_corr)
-    psurf_new, iters, rr = solvers.solve(cfg, op, bc, state.pguess, rhs,
-                                         eigs=pcsi_eigs, precond=precond)
 
+def finish(cfg: ModelConfig, grid: Grid, bc: BC, r: BarotropicRHS,
+           psurf_new, solver_iters=None, solver_rr=None) -> BarotropicOut:
+    """From the solve's new surface pressure: the null-space removal, the
+    new gradients and barotropic velocities
+    (source/barotropic.F90:606-650)."""
     # ---- checkerboard null-space removal (source/barotropic.F90:606-634) --
-    if varthick:
+    if cfg.sfc_layer == "varthick":
         xcheck = global_sum(psurf_new * grid.checker, b4b=cfg.b4b)
         psurf_new = (psurf_new + grid.constnt * grid.rcheck * xcheck
                      - grid.checker * grid.rconst * xcheck)
 
     # ---- new gradients and barotropic velocities --------------------------
-    gradpx_new, gradpy_new = grad(psurf_new, grid.DXUR, grid.DYUR, mask_u, bc)
-    ubtrop_new = uh - beta * c2dtp * (gradpx_new - gpx_ref)
-    vbtrop_new = vh - beta * c2dtp * (gradpy_new - gpy_ref)
+    gradpx_new, gradpy_new = grad(psurf_new, grid.DXUR, grid.DYUR,
+                                  grid.kmask_u[0], bc)
+    ubtrop_new = r.uh - r.beta_c2dtp * (gradpx_new - r.gpx_ref)
+    vbtrop_new = r.vh - r.beta_c2dtp * (gradpy_new - r.gpy_ref)
 
     return BarotropicOut(psurf_new=psurf_new, gradpx_new=gradpx_new,
                          gradpy_new=gradpy_new, ubtrop_new=ubtrop_new,
-                         vbtrop_new=vbtrop_new, solver_iters=iters,
-                         solver_rr=rr)
+                         vbtrop_new=vbtrop_new, solver_iters=solver_iters,
+                         solver_rr=solver_rr)
+
+
+def driver(cfg: ModelConfig, grid: Grid, bc: BC, state: State,
+           forcing: Forcing, zx, zy, leapfrog: bool,
+           pcsi_eigs=None, precond=None, ovf_qsurf=None) -> BarotropicOut:
+    """The barotropic step: ``rhs``, the solve (source/barotropic.F90:
+    564-598), ``finish``. ``pcsi_eigs``: PCSI's bounds, a pair or
+    ``solvers.PCSIBounds``."""
+    r = rhs(cfg, grid, bc, state, forcing, zx, zy, leapfrog, ovf_qsurf)
+    psurf_new, iters, rr = solvers.solve(
+        cfg, r.op, bc, state.pguess, r.rhs, eigs=pcsi_eigs, precond=precond,
+        tol=solvers.tolerance(cfg, grid))
+    return finish(cfg, grid, bc, r, psurf_new, iters, rr)

@@ -223,8 +223,9 @@ def hdiffu_aniso(cfg: ModelConfig, grid, bc: BC, st: AnisoStatics,
         v1 = st.f_para
         v2 = st.f_perp
     else:
-        v1 = torch.tensor(cfg.visc_para, dtype=u.dtype, device=u.device)
-        v2 = torch.tensor(cfg.visc_perp, dtype=u.dtype, device=u.device)
+        # filled on the device: a copy from the host would synchronize
+        v1 = torch.full((), cfg.visc_para, dtype=u.dtype, device=u.device)
+        v2 = torch.full((), cfg.visc_perp, dtype=u.dtype, device=u.device)
 
     # stress = viscous tensor * strain (:879-928)
     if cfg.aniso_alignment == "grid":

@@ -468,7 +468,7 @@ def bldepth(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
     if cfg.kpp_lshort_wave and cfg.sw_absorption == "chlorophyll":
         if chl is None:
             chl = torch.full_like(bo, cfg.chl_const)
-        chl_co = sw_absorption.chl_coeffs(chl)
+        chl_co = sw_absorption.chl_coeffs(grid, chl)
 
     # the surface buoyancy forcing at each level-centre depth; with
     # lshort_wave the radiative part absorbed above zt(kl) (:2387-2416)

@@ -1,15 +1,23 @@
-"""Top-level model driver: wiring of grid, forcing, state and the step, plus
-the step-type policy of the time manager.
+"""Top-level model driver: wiring of grid, forcing, state and the step, the
+time manager's step-type policy, and the run loops.
 
 Replaces the reference's driver layer (``drivers/mct/ocn_comp_mct.F90`` run
 loop + ``source/time_management.F90`` switches) for standalone runs:
 Euler-forward first step, leapfrog afterwards, and the 'avg' policy
 (averaging filter every ``time_mix_freq`` steps,
-source/time_management.F90:2157-2175) or the 'robert' one (the Robert
-filter inside every step). With ``preconditioner='fspai'`` the barotropic
-preconditioner is built once here, on the host in float64. The calendar,
-tavg/history streams and a captured-graph run loop are later slices
-(ROADMAP.md Queue 1 item 10); a step counter stands in for the calendar.
+source/time_management.F90:2157-2175), 'avgfit' (the same within each
+coupling interval, its timestep fitted, :2195-2213) or 'robert' (the Robert
+filter inside every step). The calendar (``time_management.TimeManager``)
+advances once a step, by half a step on averaging steps. With
+``preconditioner='fspai'`` the barotropic preconditioner is built once
+here, on the host in float64.
+
+``advance``/``run`` take one eager step at a time. ``run_compiled`` (the JAX
+package's ``lax.scan`` loop) runs the Euler first step and the averaging
+steps eagerly and every plain leapfrog step through ``graphs.CapturedStep``:
+on the GPU CUDA graphs of the step's segments, whose only host reads are
+the solver's convergence checks. tavg/history streams are a later slice
+(ROADMAP.md Queue 1 item 10).
 
 ``Model(cfg)`` runs on the GPU: the default device is ``cuda`` and a machine
 without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
@@ -24,8 +32,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from pop2_tpu_torch import constants as const
-from pop2_tpu_torch import eos, kpp, overflows, solvers, step as step_mod
-from pop2_tpu_torch import sw_absorption
+from pop2_tpu_torch import eos, graphs, kpp, overflows, solvers
+from pop2_tpu_torch import step as step_mod, sw_absorption
 from pop2_tpu_torch.passive_tracers import PassiveTracers
 from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
@@ -33,6 +41,7 @@ from pop2_tpu_torch.forcing import Forcing, analytic_forcing
 from pop2_tpu_torch.grid import Grid, build_grid, grid_bc, resolve_device
 from pop2_tpu_torch.state import State, initial_state
 from pop2_tpu_torch.supported import check_supported
+from pop2_tpu_torch.time_management import TimeManager
 
 
 class Model:
@@ -59,6 +68,14 @@ class Model:
             if cfg.state_range_opt == "enforce" else None)
         self.forcing = analytic_forcing(cfg, self.grid)
         self.nsteps_total = 0
+        self.time_manager = TimeManager(
+            cfg.time.dtt, start_year=cfg.time.start_year,
+            start_month=cfg.time.start_month, start_day=cfg.time.start_day,
+            allow_leapyear=cfg.time.allow_leapyear)
+        # the captured leapfrog step of run_compiled, made once an eager
+        # leapfrog step has built every lazily made operand
+        self._captured: Optional[graphs.CapturedStep] = None
+        self._eager_leapfrog_done = False
         self.sw_profile = (sw_absorption.absorb_profile(cfg, self.grid)
                            if cfg.sw_absorption == "jerlov" else None)
         # KPP's background profiles, surface-layer pair weights and tidal
@@ -87,50 +104,114 @@ class Model:
         self.precond = None
         if cfg.solver.preconditioner.lower() == "fspai":
             self.precond = solvers.build_fspai9(cfg, operator(True))
-        # PCSI eigenvalue bounds are prepared once per leapfrog flag: the
-        # diagonal correction is a pure function of (cfg, grid, leapfrog)
-        self._pcsi_eigs: Dict[bool, Tuple[float, float]] = {}
+        # PCSI eigenvalue bounds and the recurrence's coefficient table are
+        # prepared once per leapfrog flag: the diagonal correction is a pure
+        # function of (cfg, grid, leapfrog)
+        self._pcsi_eigs: Dict[bool, solvers.PCSIBounds] = {}
         if cfg.solver.choice.lower() == "pcsi":
             for leapfrog in (False, True):
                 op = operator(leapfrog)
-                self._pcsi_eigs[leapfrog] = (
+                emin, emax = (
                     solvers.pcg_lanczos_eigs(cfg, op, self.bc, self.precond)
                     if self.precond is not None
                     else solvers.lanczos_eigs(cfg, op, self.bc))
+                self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
+                    emin, emax, solvers.pcsi_table(
+                        cfg, emin, emax, op.center.dtype, device))
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
     def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
         """(leapfrog, avg_ts) for 1-based step number ``nsteps_total``."""
         leapfrog = nsteps_total != 1
+        avg_ts = False  # robert filtering happens inside every step
         tm = self.cfg.time
-        # the Robert filter acts inside every step; no averaging step then
-        avg_ts = (tm.time_mix_opt == "avg"
-                  and nsteps_total % tm.time_mix_freq == 0
-                  and nsteps_total > 1)
+        if tm.time_mix_opt == "avg":
+            avg_ts = (nsteps_total % tm.time_mix_freq == 0
+                      and nsteps_total > 1)
+        elif tm.time_mix_opt == "avgfit":
+            # averaging at step 2 of each interval and every time_mix_freq
+            # steps within it, never on the interval's last step
+            # (set_switches, source/time_management.F90:2195-2213)
+            _, _, n, _ = tm.avgfit_params()
+            nsti = (nsteps_total - 1) % n + 1
+            avg_ts = (nsteps_total > 1
+                      and (nsti == 2 or (nsti % tm.time_mix_freq == 0
+                                         and nsti != n)))
         return leapfrog, avg_ts
 
     def initial_state(self) -> State:
         self.nsteps_total = 0
+        self.time_manager.reset()
         return initial_state(self.cfg, self.grid, self.device,
                              passive=self.passive)
+
+    def _next_step(self) -> Tuple[bool, bool]:
+        """Count the step and advance the calendar; its (leapfrog,
+        avg_ts)."""
+        self.nsteps_total += 1
+        leapfrog, avg_ts = self.step_flags(self.nsteps_total)
+        # averaging steps are half steps on the calendar
+        # (source/time_management.F90:1854-1858)
+        self.time_manager.advance(
+            0.5 * self.cfg.time.dtt if avg_ts else None)
+        return leapfrog, avg_ts
+
+    def step_args(self, leapfrog: bool):
+        """The step's keyword arguments after (leapfrog, avg_ts)."""
+        return dict(pcsi_eigs=self._pcsi_eigs.get(leapfrog),
+                    precond=self.precond, sw_profile=self.sw_profile,
+                    kpp_statics=self.kpp_statics, passive=self.passive,
+                    ovf_statics=self.ovf_statics)
 
     def advance(self, state: State, forcing: Optional[Forcing] = None):
         """Advance one step; returns (state, StepDiagnostics)."""
         forcing = forcing or self.forcing
-        self.nsteps_total += 1
-        leapfrog, avg_ts = self.step_flags(self.nsteps_total)
-        return step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
-                             state, forcing, leapfrog, avg_ts,
-                             self._pcsi_eigs.get(leapfrog), self.precond,
-                             self.sw_profile, self.kpp_statics,
-                             passive=self.passive,
-                             ovf_statics=self.ovf_statics)
+        leapfrog, avg_ts = self._next_step()
+        out = step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
+                            state, forcing, leapfrog, avg_ts,
+                            **self.step_args(leapfrog))
+        self._eager_leapfrog_done |= leapfrog
+        return out
 
     def run(self, state: State, nsteps: int,
             forcing: Optional[Forcing] = None) -> State:
         for _ in range(nsteps):
             state, _ = self.advance(state, forcing)
         return state
+
+    def run_compiled(self, state: State, nsteps: int,
+                     forcing: Optional[Forcing] = None):
+        """Advance ``nsteps``: the Euler first step and averaging steps
+        through ``advance``, every plain leapfrog step through the captured
+        step (``graphs.CapturedStep``: on the GPU CUDA graphs, captured at
+        the first plain leapfrog step after an eager leapfrog step; on the
+        CPU the same segments called without capture). Returns (state,
+        diagnostics of the last step). The state returned is the caller's
+        own; the graphs' buffers stay inside the model."""
+        forcing = forcing or self.forcing
+        diags = None
+        in_graph = False  # the state lies in the captured step's buffers
+        for _ in range(nsteps):
+            leapfrog, avg_ts = self.step_flags(self.nsteps_total + 1)
+            if leapfrog and not avg_ts and (self._captured is not None
+                                            or self._eager_leapfrog_done):
+                if self._captured is None:
+                    self._captured = graphs.CapturedStep(self, state,
+                                                         forcing)
+                if not in_graph:
+                    self._captured.load(state)
+                    in_graph = True
+                self._next_step()
+                self._captured.step(forcing)
+                diags = None
+                continue
+            if in_graph:
+                state, in_graph = self._captured.export(), False
+            state, diags = self.advance(state, forcing)
+        if in_graph:
+            state, diags = self._captured.export(), \
+                self._captured.diagnostics()
+        return state, diags
 
     # -- diagnostics (source/diagnostics.F90:1174-, check_KE :3260) ---------
     def diagnostics(self, state: State) -> Dict[str, float]:

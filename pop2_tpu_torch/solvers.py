@@ -6,14 +6,16 @@ per-iteration reduction; eigenvalue bounds from a Lanczos pass at init,
 :2699), PCG (:1200), and the 9-point operator (:2376) exploiting weight
 symmetry.
 
-The iteration is a Python loop of eager tensor ops. The scalars of the
-recurrences (alpha, beta, rho, sigma) stay 0-d tensors on the device; the
-residual norm comes back to the host only on the convergence-check
-iterations (every ``convergence_check_freq``), so the loop stops at the same
-iteration numbers as the JAX package's ``lax.while_loop`` and iteration
-counts are comparable. Between checks nothing synchronizes. The loop is
-launch-bound on a GPU (a dozen small kernels per iteration); a CUDA graph of
-the loop body is later work.
+Each solver is a ``Solver``: an initial pass, runs of iterations and a
+check, over a carry of device tensors. The scalars of the recurrences
+(alpha, beta, rho, sigma; PCSI's coefficients, from a table at a device
+counter) stay on the device; the residual norm comes back to the host only
+on the convergence-check iterations (every ``convergence_check_freq``), so
+the loop stops at the same iteration numbers as the JAX package's
+``lax.while_loop`` and iteration counts are comparable. Between checks
+nothing synchronizes. Eagerly the loop is launch-bound on a GPU (a dozen
+small kernels an iteration); ``graphs.py`` replays each run of iterations
+between checks as one CUDA graph.
 
 The preconditioner is the diagonal one or the factored sparse approximate
 inverse ``FSPAI9`` (``build_fspai9``, built once on the host in float64
@@ -254,140 +256,279 @@ def _tolerance(cfg: ModelConfig, op: BtropOperator) -> float:
     return cfg.solver.convergence_criterion ** 2 / float(op.resid_norm)
 
 
+def tolerance(cfg: ModelConfig, grid: Grid) -> float:
+    """``_tolerance`` of the grid's operator, its norm read from the device
+    once and kept on the grid: a step then reads nothing from the device but
+    the convergence checks."""
+    norm = grid.__dict__.get("_residual_norm_host")
+    if norm is None:
+        norm = float(grid.residual_norm)
+        grid.__dict__["_residual_norm_host"] = norm
+    return cfg.solver.convergence_criterion ** 2 / norm
+
+
+def chunk_schedule(max_iter: int, ncheck: int, nstart: int = 0):
+    """((n, check), ...): the runs of iterations between the host's reads.
+    A check (the true residual and rr) ends every run that ends on a
+    multiple of ``ncheck`` at or past ``nstart``; a last run shorter than
+    ``ncheck`` has none, as the loop makes no check there."""
+    out, m = [], 0
+    while m < max_iter:
+        n = min(ncheck, max_iter - m)
+        m += n
+        out.append((n, m % ncheck == 0 and m >= nstart))
+    return tuple(out)
+
+
+class PCSIBounds(NamedTuple):
+    """PCSI's eigenvalue bounds and, built once, its coefficient table
+    (``pcsi_table``); ``table`` None builds it at each solve."""
+    eig_min: float
+    eig_max: float
+    table: Optional[torch.Tensor] = None
+
+
+def pcsi_table(cfg: ModelConfig, eig_min: float, eig_max: float, dtype,
+               device, max_iter: Optional[int] = None) -> torch.Tensor:
+    """(max_iter, 2): omega_m and csy*omega_m - 1 of the Stiefel recurrence
+    for m = 1.., computed on the host in float64 as the loop computed them.
+    The sequence has no data in it but changes every iteration, so both the
+    eager loop and a captured run of iterations read it from the device at
+    an iteration counter: a graph would keep a host value it captured."""
+    if max_iter is None:
+        max_iter = cfg.solver.max_iterations
+    csalpha = 2.0 / (eig_max - eig_min)
+    csbeta = (eig_max + eig_min) / (eig_max - eig_min)
+    csy = csbeta / csalpha
+    omga = 2.0 / csy
+    rows = []
+    for _ in range(max_iter):
+        omga = 1.0 / (csy - omga / (4.0 * csalpha * csalpha))
+        rows.append((omga, csy * omga - 1.0))
+    table = torch.tensor(rows, dtype=torch.float64).reshape(max_iter, 2)
+    return table.to(device=device, dtype=dtype)
+
+
+class Solver:
+    """A barotropic solver as three parts over a carry, a dict of device
+    tensors: ``init(x0, b)`` (the first pass and the initial residual),
+    ``iterate(carry, n)`` (n iterations, no reduction read) and ``check``
+    (the residual and ``rr``). ``run`` is the host loop: the runs of
+    ``chunks``, each ended where it says by a check whose ``rr`` the host
+    reads. The eager ``solve`` and the captured step (``graphs.py``) run
+    these same parts, so both compute the same arithmetic and stop at the
+    same iterations as the JAX package's ``lax.while_loop``.
+
+    ``written``: the carry entries ``advance`` replaces; the carry owns
+    them (no other tensor shares their memory), so a captured run may copy
+    into them."""
+
+    written: Tuple[str, ...] = ()
+    initial_check = False  # the host reads rr of the first pass
+
+    def __init__(self, cfg: ModelConfig, op: BtropOperator, bc: BC,
+                 precond: Optional[FSPAI9] = None,
+                 tol: Optional[float] = None,
+                 max_iter: Optional[int] = None, nstart: int = 0):
+        sol = cfg.solver
+        self.cfg, self.op, self.bc = cfg, op, bc
+        self.dtype = op.center.dtype
+        self.minv = make_precond_apply(cfg, op, bc, precond)
+        self.sh = _shifted_weights(op, bc)
+        self.tol = _tolerance(cfg, op) if tol is None else tol
+        self.max_iter = sol.max_iterations if max_iter is None else max_iter
+        self.chunks = chunk_schedule(self.max_iter,
+                                     sol.convergence_check_freq, nstart)
+
+    def _apply(self, x):
+        return apply_op(self.op, x, self.bc, self.sh)
+
+    def _sum(self, x):
+        return _masked_sum(x, self.op.mask, self.cfg.b4b)
+
+    def _inf(self):
+        return torch.full((), math.inf, dtype=self.dtype,
+                          device=self.op.center.device)
+
+    def advance(self, carry, n: int, check: bool):
+        """n iterations and, where ``check``, the check: the new values of
+        the ``written`` entries."""
+        new = self.iterate(carry, n)
+        if check:
+            new.update(self.check({**carry, **new}))
+        return new
+
+    def run(self, carry, advance=None):
+        """The iteration loop from ``init``'s carry; returns (carry,
+        iterations, rr), ``rr`` the squared residual of the last check (inf
+        if none ran). ``advance(carry, n, check)`` returns the carry after a
+        run: by default the eager parts, in the captured step a replay."""
+        if advance is None:
+            def advance(c, n, check):
+                return {**c, **self.advance(c, n, check)}
+        if self.initial_check and float(carry["rr0"]) < self.tol:
+            return carry, 0, carry["rr0"]
+        m = 0
+        for n, check in self.chunks:
+            carry = advance(carry, n, check)
+            m += n
+            # the only host read of the loop
+            if check and float(carry["rr"]) < self.tol:
+                break
+        return carry, m, carry["rr"]
+
+
+class ChronGear(Solver):
+    """Chronopoulos-Gear preconditioned CG
+    (source/POP_SolversMod.F90:1841-2266): one fused 2-field reduction an
+    iteration; the check replaces r by the true residual."""
+
+    written = ("x", "r", "s", "q", "rho_old", "sigma", "rr")
+    initial_check = True
+
+    def init(self, x0, b):
+        x0, b = x0.to(self.dtype), b.to(self.dtype)
+        # initial residual + one pass of the standard algorithm
+        r = b - self._apply(x0)
+        rr0 = self._sum(r * r)
+        z = self.minv(r)
+        s = z
+        q = self._apply(s)
+        rho_old = self._sum(r * z)
+        sigma = self._sum(s * q)
+        alpha = rho_old / _safe(sigma)
+        return dict(b=b, x=x0 + alpha * s, r=r - alpha * q, s=s, q=q,
+                    rho_old=rho_old, sigma=sigma, rr0=rr0,
+                    rr=torch.full_like(rr0, math.inf))
+
+    def iterate(self, c, n: int):
+        x, r, s, q = c["x"], c["r"], c["s"], c["q"]
+        rho_old, sigma = c["rho_old"], c["sigma"]
+        for _ in range(n):
+            z = self.minv(r)
+            az = self._apply(z)
+            rho = self._sum(r * z)
+            delta = self._sum(az * z)
+            beta = rho / _safe(rho_old)
+            sigma = delta - beta ** 2 * sigma
+            alpha = rho / _safe(sigma)
+            s = z + beta * s
+            q = az + beta * q
+            x = x + alpha * s
+            r = r - alpha * q
+            rho_old = rho
+        return dict(x=x, r=r, s=s, q=q, rho_old=rho_old, sigma=sigma)
+
+    def check(self, c):
+        r = c["b"] - self._apply(c["x"])
+        return dict(r=r, rr=self._sum(r * r))
+
+
+class PCSI(Solver):
+    """Preconditioned Classical Stiefel Iteration
+    (source/POP_SolversMod.F90:1510-1835; Hu et al. 2013): no reduction in
+    the loop body; the recurrence's coefficients come from ``pcsi_table``
+    at the device counter ``k``; checks from ``convergence_check_start``
+    on."""
+
+    written = ("x", "r", "q", "k", "rr")
+
+    def __init__(self, cfg: ModelConfig, op: BtropOperator, bc: BC,
+                 eig_min: float, eig_max: float, precond=None, tol=None,
+                 max_iter=None, table: Optional[torch.Tensor] = None):
+        super().__init__(cfg, op, bc, precond, tol, max_iter,
+                         nstart=cfg.solver.convergence_check_start)
+        csalpha = 2.0 / (eig_max - eig_min)
+        csbeta = (eig_max + eig_min) / (eig_max - eig_min)
+        self.csy = csbeta / csalpha
+        if table is None or table.shape[0] < self.max_iter:
+            table = pcsi_table(cfg, eig_min, eig_max, self.dtype,
+                               op.center.device, self.max_iter)
+        self.table = table
+
+    def init(self, x0, b):
+        x0, b = x0.to(self.dtype), b.to(self.dtype)
+        r = b - self._apply(x0)
+        q = (1.0 / self.csy) * self.minv(r)
+        x = x0 + q
+        return dict(b=b, x=x, r=b - self._apply(x), q=q,
+                    k=torch.zeros(1, dtype=torch.long, device=x.device),
+                    rr=self._inf())
+
+    def iterate(self, c, n: int):
+        b, x, r, q, k = c["b"], c["x"], c["r"], c["q"], c["k"]
+        for _ in range(n):
+            w = self.table.index_select(0, k)  # (1, 2): omega, csy*omega-1
+            q = w[:, 0] * self.minv(r) + w[:, 1] * q
+            x = x + q
+            r = b - self._apply(x)
+            k = k + 1
+        return dict(x=x, r=r, q=q, k=k)
+
+    def check(self, c):
+        return dict(rr=self._sum(c["r"] * c["r"]))
+
+
+class PCG(Solver):
+    """Standard preconditioned CG (source/POP_SolversMod.F90:1200-1508);
+    the check replaces r by the true residual."""
+
+    written = ("x", "r", "s", "eta_old", "rr")
+
+    def init(self, x0, b):
+        x0, b = x0.to(self.dtype), b.to(self.dtype)
+        return dict(b=b, x=x0.clone(), r=b - self._apply(x0),
+                    s=torch.zeros_like(x0),
+                    eta_old=torch.ones((), dtype=x0.dtype, device=x0.device),
+                    rr=self._inf())
+
+    def iterate(self, c, n: int):
+        x, r, s, eta_old = c["x"], c["r"], c["s"], c["eta_old"]
+        for _ in range(n):
+            z = self.minv(r)
+            eta = self._sum(r * z)
+            s = z + s * (eta / _safe(eta_old))
+            q = self._apply(s)
+            sq = self._sum(s * q)
+            alpha = eta / _safe(sq)
+            x = x + alpha * s
+            r = r - alpha * q
+            eta_old = eta
+        return dict(x=x, r=r, s=s, eta_old=eta_old)
+
+    def check(self, c):
+        r = c["b"] - self._apply(c["x"])
+        return dict(r=r, rr=self._sum(r * r))
+
+
 def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
                precond: Optional[FSPAI9] = None,
                tol: Optional[float] = None, max_iter: Optional[int] = None):
-    """Chronopoulos-Gear preconditioned CG
-    (source/POP_SolversMod.F90:1841-2266). Returns (x, iterations, rr) with
-    ``iterations`` a Python int and ``rr`` the squared residual of the last
-    check (a 0-d tensor; inf if no check ran)."""
-    sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc, precond)
-    sh = _shifted_weights(op, bc)
-    if tol is None:
-        tol = _tolerance(cfg, op)
-    if max_iter is None:
-        max_iter = sol.max_iterations
-    ncheck = sol.convergence_check_freq
-
-    # initial residual + one pass of the standard algorithm
-    r = b - apply_op(op, x0, bc, sh)
-    rr_init = _masked_sum(r * r, op.mask, cfg.b4b)
-    z = minv(r)
-    s = z
-    q = apply_op(op, s, bc, sh)
-    rho_old = _masked_sum(r * z, op.mask, cfg.b4b)
-    sigma = _masked_sum(s * q, op.mask, cfg.b4b)
-    alpha = rho_old / _safe(sigma)
-    x = x0 + alpha * s
-    r = r - alpha * q
-
-    if float(rr_init) < tol:
-        return x, 0, rr_init
-    rr = torch.full_like(rr_init, math.inf)
-    m = 0
-    while m < max_iter:
-        z = minv(r)
-        az = apply_op(op, z, bc, sh)
-        rho = _masked_sum(r * z, op.mask, cfg.b4b)
-        delta = _masked_sum(az * z, op.mask, cfg.b4b)
-        beta = rho / _safe(rho_old)
-        sigma = delta - beta ** 2 * sigma
-        alpha = rho / _safe(sigma)
-        s = z + beta * s
-        q = az + beta * q
-        x = x + alpha * s
-        r = r - alpha * q
-        rho_old = rho
-        m += 1
-        if m % ncheck == 0:
-            # true residual, and the only host read of the loop
-            r = b - apply_op(op, x, bc, sh)
-            rr = _masked_sum(r * r, op.mask, cfg.b4b)
-            if float(rr) < tol:
-                break
-    return x, m, rr
+    """ChronGear's solve. Returns (x, iterations, rr) with ``iterations`` a
+    Python int and ``rr`` the squared residual of the last check (a 0-d
+    tensor; inf if no check ran)."""
+    s = ChronGear(cfg, op, bc, precond, tol, max_iter)
+    carry, m, rr = s.run(s.init(x0, b))
+    return carry["x"], m, rr
 
 
 def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
          eig_min: float, eig_max: float, precond: Optional[FSPAI9] = None,
          tol: Optional[float] = None, max_iter: Optional[int] = None):
-    """Preconditioned Classical Stiefel Iteration
-    (source/POP_SolversMod.F90:1510-1835; Hu et al. 2013): no reductions in
-    the steady-state loop body. eig_min/eig_max bound the preconditioned
-    operator's spectrum. Returns (x, iterations, rr)."""
-    sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc, precond)
-    sh = _shifted_weights(op, bc)
-    if tol is None:
-        tol = _tolerance(cfg, op)
-    if max_iter is None:
-        max_iter = sol.max_iterations
-    ncheck = sol.convergence_check_freq
-    nstart = sol.convergence_check_start
-
-    csalpha = 2.0 / (eig_max - eig_min)
-    csbeta = (eig_max + eig_min) / (eig_max - eig_min)
-    csy = csbeta / csalpha
-    omga = 2.0 / csy  # host scalars: the recurrence has no data in it
-
-    r = b - apply_op(op, x0, bc, sh)
-    q = (1.0 / csy) * minv(r)
-    x = x0 + q
-    r = b - apply_op(op, x, bc, sh)
-
-    rr = torch.full((), math.inf, dtype=x0.dtype, device=x0.device)
-    m = 0
-    while m < max_iter:
-        omga = 1.0 / (csy - omga / (4.0 * csalpha * csalpha))
-        q = omga * minv(r) + (csy * omga - 1.0) * q
-        x = x + q
-        r = b - apply_op(op, x, bc, sh)
-        m += 1
-        if m % ncheck == 0 and m >= nstart:
-            rr = _masked_sum(r * r, op.mask, cfg.b4b)
-            if float(rr) < tol:
-                break
-    return x, m, rr
+    """PCSI's solve; eig_min/eig_max bound the preconditioned operator's
+    spectrum. Returns (x, iterations, rr)."""
+    s = PCSI(cfg, op, bc, eig_min, eig_max, precond, tol, max_iter)
+    carry, m, rr = s.run(s.init(x0, b))
+    return carry["x"], m, rr
 
 
 def pcg(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
         precond: Optional[FSPAI9] = None,
         tol: Optional[float] = None, max_iter: Optional[int] = None):
-    """Standard preconditioned CG (source/POP_SolversMod.F90:1200-1508).
-    Returns (x, iterations, rr)."""
-    sol = cfg.solver
-    minv = make_precond_apply(cfg, op, bc, precond)
-    sh = _shifted_weights(op, bc)
-    if tol is None:
-        tol = _tolerance(cfg, op)
-    if max_iter is None:
-        max_iter = sol.max_iterations
-    ncheck = sol.convergence_check_freq
-
-    x = x0
-    r = b - apply_op(op, x0, bc, sh)
-    s = torch.zeros_like(x0)
-    eta_old = torch.ones((), dtype=x0.dtype, device=x0.device)
-    rr = torch.full((), math.inf, dtype=x0.dtype, device=x0.device)
-    m = 0
-    while m < max_iter:
-        z = minv(r)
-        eta = _masked_sum(r * z, op.mask, cfg.b4b)
-        s = z + s * (eta / _safe(eta_old))
-        q = apply_op(op, s, bc, sh)
-        sq = _masked_sum(s * q, op.mask, cfg.b4b)
-        alpha = eta / _safe(sq)
-        x = x + alpha * s
-        r = r - alpha * q
-        eta_old = eta
-        m += 1
-        if m % ncheck == 0:
-            r = b - apply_op(op, x, bc, sh)
-            rr = _masked_sum(r * r, op.mask, cfg.b4b)
-            if float(rr) < tol:
-                break
-    return x, m, rr
+    """Standard PCG's solve. Returns (x, iterations, rr)."""
+    s = PCG(cfg, op, bc, precond, tol, max_iter)
+    carry, m, rr = s.run(s.init(x0, b))
+    return carry["x"], m, rr
 
 
 def lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
@@ -501,27 +642,36 @@ def pcg_lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
     return float(np.min(eigs)) / 1.05, float(np.max(eigs)) * 1.05
 
 
-def solve(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-          eigs: Optional[Tuple[float, float]] = None,
-          precond: Optional[FSPAI9] = None):
-    """Dispatch on cfg.solver.choice (source/POP_SolversMod.F90:327-500).
-    With ``solve_dtype='float64'`` under a float32 model the whole 2-D solve
-    runs in float64 (the preconditioner too) and the solution is cast
-    back."""
-    out_dtype = x0.dtype
-    if cfg.solver.solve_dtype == "float64" and out_dtype != torch.float64:
-        op, x0, b = op.to(torch.float64), x0.double(), b.double()
+def make_solver(cfg: ModelConfig, op: BtropOperator, bc: BC, eigs=None,
+                precond: Optional[FSPAI9] = None,
+                tol: Optional[float] = None) -> Solver:
+    """The solver of cfg.solver.choice (source/POP_SolversMod.F90:327-500)
+    for ``op``. With ``solve_dtype='float64'`` under a float32 model the
+    whole 2-D solve runs in float64 (the preconditioner too). ``eigs``:
+    PCSI's bounds, a pair or ``PCSIBounds``."""
+    if (cfg.solver.solve_dtype == "float64"
+            and op.center.dtype != torch.float64):
+        op = op.to(torch.float64)
     if precond is not None and precond.center.dtype != op.center.dtype:
         precond = precond.to(op.center.dtype)
     choice = cfg.solver.choice.lower()
     if choice == "chrongear":
-        x, m, rr = chron_gear(cfg, op, bc, x0, b, precond)
-    elif choice == "pcsi":
+        return ChronGear(cfg, op, bc, precond, tol)
+    if choice == "pcsi":
         if eigs is None:
             raise ValueError("PCSI requires Lanczos eigenvalue bounds")
-        x, m, rr = pcsi(cfg, op, bc, x0, b, eigs[0], eigs[1], precond)
-    elif choice == "pcg":
-        x, m, rr = pcg(cfg, op, bc, x0, b, precond)
-    else:
-        raise NotImplementedError(choice)
-    return x.to(out_dtype), m, rr
+        return PCSI(cfg, op, bc, eigs[0], eigs[1], precond, tol,
+                    table=getattr(eigs, "table", None))
+    if choice == "pcg":
+        return PCG(cfg, op, bc, precond, tol)
+    raise NotImplementedError(choice)
+
+
+def solve(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
+          eigs=None, precond: Optional[FSPAI9] = None,
+          tol: Optional[float] = None):
+    """``make_solver``'s solve from x0, its solution cast back to x0's
+    dtype. Returns (x, iterations, rr)."""
+    s = make_solver(cfg, op, bc, eigs, precond, tol)
+    carry, m, rr = s.run(s.init(x0, b))
+    return carry["x"].to(x0.dtype), m, rr

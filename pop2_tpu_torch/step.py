@@ -6,8 +6,11 @@ solve, tracer corrector, time filtering — is one function from a ``State`` to
 a new ``State``. The reference's three-time-level index rotation (:827-831)
 becomes reassembly of the two-level state.
 
-The time mixing is 'avg' (Euler first step, leapfrog, averaging filter) or
-'robert' (the Robert-Asselin filter every step, step_RF). On a tripole grid
+The time mixing is 'avg' or 'avgfit' (Euler first step, leapfrog,
+averaging filter; the model's time manager says which steps average) or
+'robert' (the Robert-Asselin filter every step, step_RF). The step is
+``pre`` (up to the barotropic solver's first pass), the solver's loop and
+``post``; ``graphs.py`` captures ``pre`` and ``post`` as CUDA graphs. On a tripole grid
 the degenerate top U row is made symmetric after every update. With
 overflows the transports are computed once a step and shared by the tracer
 exchange, the barotropic continuity and the sidewall momentum. The tavg
@@ -17,11 +20,12 @@ item 10).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from pop2_tpu_torch import baroclinic, barotropic, eos, ice, overflows
+from pop2_tpu_torch import solvers
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
@@ -117,23 +121,32 @@ def _avg_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
         rf_s_prev=new.rf_s_prev, rf_s_prev_valid=new.rf_s_prev_valid)
 
 
-def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
-         forcing: Forcing, leapfrog: bool, avg_ts: bool,
-         pcsi_eigs: Optional[Tuple[float, float]] = None, precond=None,
-         sw_profile=None, kpp_statics=None, passive=None,
-         ovf_statics=None):
-    """Advance one timestep (leapfrog, Euler-forward for the first step,
-    the averaging or Robert filter). ``precond``: the barotropic solver's
-    preconditioner (``solvers.FSPAI9``) or None for the diagonal one;
-    ``sw_profile``: the Jerlov shortwave profile; ``kpp_statics``: KPP's
-    (``kpp.build_statics``); ``passive``: the passive-tracer packages
-    (``passive_tracers.PassiveTracers``); ``ovf_statics``: the overflows'
-    (``overflows.build_statics``). Returns (state, StepDiagnostics)."""
-    if cfg.time.time_mix_opt not in ("avg", "robert"):
+class PreOut(NamedTuple):
+    """What ``pre`` leaves for the solve and for ``post``."""
+    bout: baroclinic.BaroclinicOut
+    ovf_trans: object
+    ovf_sel: object
+    btrop: barotropic.BarotropicRHS
+    solver: solvers.Solver
+    carry: dict
+
+
+def _check_time_mix(cfg: ModelConfig) -> None:
+    if cfg.time.time_mix_opt not in ("avg", "avgfit", "robert"):
         raise NotImplementedError(
             f"time_mix_opt={cfg.time.time_mix_opt!r} is not ported yet "
             "(ROADMAP.md Queue 1 item 10)")
 
+
+def pre(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
+        forcing: Forcing, leapfrog: bool, pcsi_eigs=None, precond=None,
+        sw_profile=None, kpp_statics=None, passive=None,
+        ovf_statics=None) -> PreOut:
+    """The step up to the barotropic solve: dh/dt, the overflow transports
+    and product-set selection, ``baroclinic.driver``, the overflows'
+    renormalized forcing, ``barotropic.rhs`` and the solver's first pass
+    (``Solver.init``). Reads nothing from the device."""
+    _check_time_mix(cfg)
     # 1. surface height change (source/step_mod.F90:361)
     dh, dhu = dhdt(cfg, grid, bc, state)
 
@@ -163,16 +176,33 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
                              ovf_trans=ovf_trans, ovf_sel=ovf_sel,
                              ovf_sets_tavg=ovf_sets_tavg)
 
-    # 3. implicit barotropic solve (source/step_mod.F90:437); at overflow
-    # sidewall columns the vertically-integrated forcing is renormalized
-    # for the sub-topography sidewall depth (ovf_rhs_brtrpc_momentum,
-    # source/overflows.F90:5068-5224)
+    # 3. implicit barotropic solve (source/step_mod.F90:437), up to the
+    # solve; at overflow sidewall columns the vertically-integrated forcing
+    # is renormalized for the sub-topography sidewall depth
+    # (ovf_rhs_brtrpc_momentum, source/overflows.F90:5068-5224)
     zx, zy = bout.zx, bout.zy
     if with_ovf and ovf_statics.zren is not None:
         zx = zx * ovf_statics.zren
         zy = zy * ovf_statics.zren
-    tout = barotropic.driver(cfg, grid, bc, state, forcing, zx, zy,
-                             leapfrog, pcsi_eigs, precond, ovf_qsurf=ovf_q)
+    btrop = barotropic.rhs(cfg, grid, bc, state, forcing, zx, zy, leapfrog,
+                           ovf_qsurf=ovf_q)
+    solver = solvers.make_solver(cfg, btrop.op, bc, pcsi_eigs, precond,
+                                 tol=solvers.tolerance(cfg, grid))
+    return PreOut(bout=bout, ovf_trans=ovf_trans, ovf_sel=ovf_sel,
+                  btrop=btrop, solver=solver,
+                  carry=solver.init(state.pguess, btrop.rhs))
+
+
+def post(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
+         forcing: Forcing, leapfrog: bool, avg_ts: bool, p: PreOut,
+         psurf_new, passive=None, ovf_statics=None) -> State:
+    """The step from the solve's solution ``psurf_new`` (in the model's
+    dtype) on: ``barotropic.finish``, ``correct_adjust``, the velocity
+    assembly, the overflows' sidewall momentum, the pressure guess, the
+    tripole top-row symmetry and the Robert or averaging filter. Returns
+    the new state."""
+    bout = p.bout
+    tout = barotropic.finish(cfg, grid, bc, p.btrop, psurf_new)
 
     # 4. corrector/adjustment pass (source/step_mod.F90:457)
     tracer_new, rho_new, qice, aqice = baroclinic.correct_adjust(
@@ -184,11 +214,12 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
                         0.0)
     v_new = torch.where(grid.kmask_u, bout.v_new + tout.vbtrop_new[None],
                         0.0)
-    if with_ovf and ovf_statics.mom_u is not None:
+    if (bool(cfg.overflows) and ovf_statics is not None
+            and ovf_statics.mom_u is not None):
         # sidewall momentum sources: the overflow column renormalization
         # (ovf_UV + ovf_UV_solution, source/overflows.F90:4848,5884)
         u_new, v_new = overflows.momentum_adjust(
-            cfg, grid, ovf_statics, ovf_trans, ovf_sel, u_new, v_new,
+            cfg, grid, ovf_statics, p.ovf_trans, p.ovf_sel, u_new, v_new,
             tout.ubtrop_new, tout.vbtrop_new)
         u_new = torch.where(grid.kmask_u, u_new, 0.0)
         v_new = torch.where(grid.kmask_u, v_new, 0.0)
@@ -227,12 +258,38 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
                              passive=passive)
     elif avg_ts:
         new = _avg_filter(cfg, grid, ts_range, state, new)
+    return new
 
-    kppo = bout.kpp
-    return new, StepDiagnostics(
-        solver_iters=tout.solver_iters, solver_rr=tout.solver_rr,
+
+def diagnostics(p: PreOut, iters: int, rr) -> StepDiagnostics:
+    """The step's diagnostics from ``pre``'s output and the solve's."""
+    kppo = p.bout.kpp
+    return StepDiagnostics(
+        solver_iters=iters, solver_rr=rr,
         hblt=kppo.hblt if kppo is not None else None,
         hmxl=kppo.hmxl if kppo is not None else None)
+
+
+def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
+         forcing: Forcing, leapfrog: bool, avg_ts: bool,
+         pcsi_eigs=None, precond=None, sw_profile=None, kpp_statics=None,
+         passive=None, ovf_statics=None):
+    """Advance one timestep (leapfrog, Euler-forward for the first step,
+    the averaging or Robert filter): ``pre``, the solver's loop, ``post``.
+    ``pcsi_eigs``: PCSI's bounds, a pair or ``solvers.PCSIBounds``;
+    ``precond``: the barotropic solver's preconditioner
+    (``solvers.FSPAI9``) or None for the diagonal one; ``sw_profile``: the
+    Jerlov shortwave profile; ``kpp_statics``: KPP's
+    (``kpp.build_statics``); ``passive``: the passive-tracer packages
+    (``passive_tracers.PassiveTracers``); ``ovf_statics``: the overflows'
+    (``overflows.build_statics``). Returns (state, StepDiagnostics)."""
+    p = pre(cfg, grid, bc, ts_range, state, forcing, leapfrog, pcsi_eigs,
+            precond, sw_profile, kpp_statics, passive, ovf_statics)
+    carry, iters, rr = p.solver.run(p.carry)
+    new = post(cfg, grid, bc, ts_range, state, forcing, leapfrog, avg_ts, p,
+               carry["x"].to(state.pguess.dtype), passive=passive,
+               ovf_statics=ovf_statics)
+    return new, diagnostics(p, iters, rr)
 
 
 def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,

@@ -73,9 +73,8 @@ def unsupported(cfg: ModelConfig) -> list:
          "mixing)"),
         (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11: NIW mixing)"),
         (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
-        (t.time_mix_opt not in ("avg", "robert"),
-         f"time_mix_opt={t.time_mix_opt!r} (Queue 1 item 10: avgfit "
-         "calendar)"),
+        (t.time_mix_opt not in ("avg", "avgfit", "robert"),
+         f"time_mix_opt={t.time_mix_opt!r}"),
         (t.laccel, "laccel depth acceleration (Queue 1 item 11)"),
         (cfg.solver.preconditioner.lower() not in ("diagonal", "fspai"),
          f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 11: "

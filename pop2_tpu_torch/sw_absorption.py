@@ -111,17 +111,27 @@ def _interp(x, xp, fp):
     return f0 + ((x - x0) / (xp[i] - x0)) * (fp[i] - f0)
 
 
-def chl_coeffs(chl):
+def _tables(grid: Grid, like):
+    """(log CHLCNC, A_1, A_2, B_1, B_2) on ``like``'s device and dtype,
+    made once and kept on the grid: a copy from the host at every step
+    would synchronize."""
+    hit = grid.__dict__.get("_chl_tables")
+    if hit is None or hit[0].dtype != like.dtype \
+            or hit[0].device != like.device:
+        hit = tuple(torch.as_tensor(a).to(device=like.device,
+                                          dtype=like.dtype)
+                    for a in (np.log(CHLCNC), A_1, A_2, B_1, B_2))
+        grid.__dict__["_chl_tables"] = hit
+    return hit
+
+
+def chl_coeffs(grid: Grid, chl):
     """Ohlmann (2003) double-exponential coefficients (a1, a2, b1, b2)
     interpolated in log-chl for a surface chlorophyll field
     (sw_absorption.F90:640-718)."""
     logc = torch.log(torch.clamp(chl, float(CHLCNC[0]), float(CHLCNC[-1])))
-
-    def tab(a):
-        return torch.as_tensor(a).to(device=chl.device, dtype=logc.dtype)
-
-    logtab = tab(np.log(CHLCNC))
-    return tuple(_interp(logc, logtab, tab(a)) for a in (A_1, A_2, B_1, B_2))
+    logtab, *tabs = _tables(grid, logc)
+    return tuple(_interp(logc, logtab, t) for t in tabs)
 
 
 def chl_trans_at(coeffs, depth_cm):
@@ -139,7 +149,7 @@ def chl_transmission(cfg: ModelConfig, grid: Grid, chl) -> torch.Tensor:
     (the non-penetrating fraction heats the surface layer, as the Jerlov
     profile does) and 0 below the last."""
     km = cfg.km
-    a1, a2, b1, b2 = chl_coeffs(chl)
+    a1, a2, b1, b2 = chl_coeffs(grid, chl)
     zw = grid.vgrid.zw[:km - 1].reshape(km - 1, 1, 1)
     tr = chl_trans_at((a1[None], a2[None], b1[None], b2[None]), zw)
     return torch.cat([torch.ones_like(tr[:1]), tr, torch.zeros_like(tr[:1])],
