@@ -249,6 +249,8 @@ SOURCES = {
                     "pop2_tpu/gm_chain_pallas.py:612"),
     "gm_chain_sm_nt5": ("pop2_tpu_torch/csrc/gm_chain.cu",
                         "pop2_tpu/gm_chain_pallas.py:612"),
+    "gm_chain_sm_nt5_diags": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                              "pop2_tpu/gm_chain_pallas.py:612"),
     # no Pallas kernel: the JAX package's jnp search between its GM kernels
     "gm_tlt_search": ("pop2_tpu_torch/csrc/gm_tlt.cu",
                       "pop2_tpu/gm.py:304"),
@@ -267,6 +269,7 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "gm_slope_tripole": "prod_dyn", "gm_chain_tripole": "prod_dyn",
            "gm_chain_sm": "prod_mix", "gm_tlt_search": "prod_mix",
            "gm_chain_sm_nt5": "prod_full", "tracer_upwind3_nt5": "prod_full",
+           "gm_chain_sm_nt5_diags": "prod_full_tavg",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
            "gm_flux_tripole": "prod_flux"}
 # the launch counter each record's kernel adds to
@@ -275,6 +278,7 @@ COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "clinic_aniso": "clinic", "gm_slope_tripole": "gm_slope",
               "gm_chain_tripole": "gm_chain", "gm_chain_sm": "gm_chain",
               "gm_chain_sm_nt5": "gm_chain",
+              "gm_chain_sm_nt5_diags": "gm_chain_diags",
               "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux"}
 
 # the GM configurations over the dynamical core's menu
@@ -1708,6 +1712,32 @@ def mix_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
             dropped_fold_in_refused=dropped_refused,
             **launch_info("gm_chain", dt, nt=n, sm=True,
                           flags=gm_chain_cuda.kernel_flags(c, False, True)))
+
+    # ---- prod_full's instance with the diagnostic columns (KAPPA_ISOP,
+    # KAPPA_THIC, HOR_DIFF), the path under a tavg stream (tavg_phase):
+    # three (km, ny, nx) outputs more
+    n = cfg5.nt
+    args = (cfg5, opened, bc, tm5, slp, sla, kv, tlt, True, sm)
+    got = gm_chain_cuda.chain(*args)
+    torch.cuda.synchronize()
+    want = gm_chain_cuda.chain_plain(*args)
+    err_abs, err_rel, excused = compare_chain(
+        "gm_chain", dt, (got[0], got[1], *got[2]),
+        (want[0], want[1], *want[2]))
+    diag_rel = compare_chain("gm_chain", dt, list(got[2]),
+                             list(want[2]))[1]
+    del got, want
+    plan = gm_chain_cuda.launch_plan(s, n, True)
+    rec["gm_chain_sm_nt5_diags"] = timed(
+        lambda: gm_chain_cuda.chain(*args),
+        lambda: gm_chain_cuda.chain_plain(*args),
+        s * (N * (2 * n + 15) + 16 * P + 8 * km) + 12 * P,
+        N * (430 + 80 * n), max_abs_err=err_abs, rel_err=err_rel,
+        rel_err_diag_columns=diag_rel,
+        points_within_relative_band_only=excused,
+        launch_plan=[list(plan[0]), plan[1]],
+        **launch_info("gm_chain", dt, nt=n, sm=True,
+                      flags=gm_chain_cuda.kernel_flags(cfg5, True, True)))
     return rec
 
 
@@ -1872,22 +1902,31 @@ def overflow_phase(nsteps: int = 5):
     return out
 
 
-COUNTERS = {"thomas": tridiag_cuda, "tracer": tracer_cuda,
-            "clinic": clinic_cuda, "gm_slope": gm_slope_cuda,
-            "gm_chain": gm_chain_cuda, "gm_flux": gm_cuda,
-            "gm_tlt": gm_tlt_cuda}
+# each wrapper's launch counter, and two mode counters: the chain kernel's
+# launches with the diagnostic columns, the flux assembly's tripole-row
+# (FOLD) instance
+COUNTERS = {"thomas": (tridiag_cuda, "launches"),
+            "tracer": (tracer_cuda, "launches"),
+            "clinic": (clinic_cuda, "launches"),
+            "gm_slope": (gm_slope_cuda, "launches"),
+            "gm_chain": (gm_chain_cuda, "launches"),
+            "gm_flux": (gm_cuda, "launches"),
+            "gm_tlt": (gm_tlt_cuda, "launches"),
+            "gm_chain_diags": (gm_chain_cuda, "launches_with_diags"),
+            "gm_flux_fold": (gm_cuda, "launches_fold")}
 
 
 def reset_counts():
-    for mod in COUNTERS.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
     tridiag_cuda.launches_by_nr.clear()
 
 
 def read_counts():
-    """Every wrapper's launches, and thomas's by the right-hand sides a
-    launch took (``thomas_nr1`` ...)."""
-    counts = {name: mod.launches for name, mod in COUNTERS.items()}
+    """Every wrapper's launches (and the two mode counters), and thomas's by
+    the right-hand sides a launch took (``thomas_nr1`` ...)."""
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in COUNTERS.items()}
     counts.update({f"thomas_nr{n}": tridiag_cuda.launches_by_nr[n]
                    for n in range(1, tridiag_cuda.MAX_RHS + 1)})
     return counts
@@ -1900,7 +1939,9 @@ def expected_counts(path: str, nsteps: int):
     prod_full's three passive tracers 3 (1, 2, 4: salinity and the passive
     tracers on one factorisation) and 6 (1, 1, 2, 1, 1, 3). The tracer
     kernel: a launch for each group of at most two tracers a step. Every
-    other kernel of a path: once a step."""
+    other kernel of a path: once a step, the flux assembly in its
+    tripole-row instance on prod_flux; no path writes the chain's
+    diagnostic columns (no stream, ``tavg_phase``)."""
     chain = ("tracer", "clinic", "gm_slope", "gm_tlt", "gm_chain")
     flux = ("tracer", "clinic", "gm_flux")
     once = {"core": ("tracer", "clinic"), "gm_full": chain,
@@ -1908,6 +1949,8 @@ def expected_counts(path: str, nsteps: int):
             "prod_full": chain, "prod_flux": flux}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
+    if path == "prod_flux":  # the flux assembly's tripole row
+        expect["gm_flux_fold"] = nsteps
     nt = full_config("float64", path).nt
     expect["tracer"] = nsteps * len(tracer_cuda.tracer_groups(nt))
     euler, leapfrog = (({1: 1, 2: 1, 4: 1}, {1: 4, 2: 1, 3: 1})
@@ -1990,8 +2033,16 @@ def stratified_state(model, seed: int):
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
 
 
-def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False):
+def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False,
+               tavg: bool = False):
+    """(state, iterations a step) of ``nsteps`` of ``Model.advance``; with
+    ``tavg`` a third item, the averages of a stream of every field the
+    configuration evaluates over those steps (it writes no file)."""
     model = Model(cfg, device=device)
+    stream = None
+    if tavg:
+        stream = model.enable_tavg(probe_fields(model, None)[0],
+                                   freq_steps=10 ** 9)
     state = (stratified_state(model, SEED + 7) if stratified
              else model.initial_state())
     forcing = path_forcing(model)
@@ -1999,6 +2050,8 @@ def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False):
     for _ in range(nsteps):
         state, diags = model.advance(state, forcing)
         iters.append(int(diags.solver_iters))
+    if tavg:
+        return state, iters, stream.averages()
     return state, iters
 
 
@@ -2428,7 +2481,280 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     if broken:
         raise AssertionError(f"run_loop {path} {dtype_name}: "
                              + "; ".join(broken))
-    return {"launches": n_comp, "replays": cap.replays}
+    return {"launches": n_comp, "replays": cap.replays,
+            "steps_per_s_leapfrog_captured": RUN_LOOP_MORE / t_more_comp,
+            "device_ms_per_step": device_ms,
+            "peak_device_mem_bytes_captured": mem_comp}
+
+
+# tavg_phase: the interval of its stream (steps), and the paths and dtypes
+# it runs (prod_full's 8 steps of RUN_LOOP and RUN_LOOP_MORE more)
+TAVG_FREQ = 4
+TAVG = (("prod_full", "float32", 8), ("prod_full", "float64", 8))
+
+
+def probe_fields(model, forcing):
+    """(the registered tavg fields the model's configuration evaluates,
+    {field: error} of those that raise), from the extras of one eager Euler
+    step from the model's initial state."""
+    from pop2_tpu_torch import step as step_mod, tavg
+    forcing = forcing or model.forcing
+    new, _, extras = step_mod.step(
+        model.cfg, model.grid, model.bc, model.ts_range,
+        model.initial_state(), forcing, False, False,
+        **model.step_args(False), with_extras=True)
+    aux = tavg.TavgAux(forcing=forcing, bc=model.bc, **extras)
+    ok, raising = [], {}
+    for name, d in tavg.FIELDS.items():
+        try:
+            d.fn(model.cfg, model.grid, new, aux)
+        except (ValueError, NotImplementedError) as err:
+            raising[name] = str(err)[:160]
+            continue
+        ok.append(name)
+    return ok, raising
+
+
+def tavg_write_lines():
+    """The stream write's one device read (``tavg._np``'s copy to the host)
+    as "tavg.py:line"."""
+    from pop2_tpu_torch import tavg
+    lines, first = inspect.getsourcelines(tavg._np)
+    return {f"tavg.py:{first + i}" for i, line in enumerate(lines)
+            if '.to("cpu"' in line}
+
+
+def check_tavg_file(fname, stream, snapshot):
+    """The written NetCDF3 file re-read with scipy: every variable of the
+    stream present and finite, each equal to the accumulator buffer
+    ``snapshot`` = (nsamples, buffer) over nsamples (the minima and maxima
+    as they are) in float32, and the file under the classic format's
+    2 GiB offset limit. Returns (bytes, seconds to read and check)."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from pop2_tpu_torch import tavg
+    t0 = time.perf_counter()
+    size = os.path.getsize(fname)
+    if size >= 2 ** 31:
+        raise AssertionError(f"{fname}: {size} bytes, beyond NetCDF3 "
+                             "classic's 2 GiB offsets")
+    nsamples, buf = snapshot
+    host = buf.cpu().numpy()
+    with netcdf_file(fname, mmap=False) as f:
+        missing = [n for n in stream.contents if n not in f.variables]
+        if missing or len(f.variables) != len(stream.contents) + 4:
+            raise AssertionError(f"{fname}: variables missing {missing}")
+        for name in stream.contents:
+            lo, hi, shape = stream._spans[name]
+            a = host[lo:hi].reshape(shape)
+            if tavg.FIELDS[name].method == "avg":
+                a = a * (1.0 / nsamples)
+            got = f.variables[name][:][0]
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{fname}: {name} not finite")
+            if not np.array_equal(got, a.astype(np.float32)):
+                raise AssertionError(f"{fname}: {name} is not the "
+                                     "accumulators over nsamples")
+    return size, time.perf_counter() - t0
+
+
+def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
+    """``Model.run_compiled`` with one step-frequency tavg stream of every
+    field the configuration evaluates (interval TAVG_FREQ) against
+    ``Model.run`` (eager ``advance``), from one state at full size,
+    ``nsteps`` + RUN_LOOP_MORE steps: every accumulator at each write and
+    the state bitwise equal, iterations equal, launch counts equal (the
+    chain kernel with its diagnostic columns and the flux assembly's
+    tripole row once a step, the search kernel twice: in the step and in
+    HDIFT/HDIFS's GM), host reads of captured steps only the solver's and
+    one a stream write, the file of that write re-read against the
+    accumulators (the other files are deleted as they are written). Then
+    captured steps/s with the stream beside ``no_stream`` (run_loop_phase's
+    of this call), device ms a step, the accumulation's device ms, capture
+    seconds, graphs and peak memory; the steps/s between two writes, the
+    write's seconds apart. Returns the captured run's launches."""
+    from pop2_tpu_torch import step as step_mod, tavg
+    t_phase = time.perf_counter()
+    cfg = full_config(dtype_name, path)
+    model = Model(cfg)
+    forcing = path_forcing(model)
+    fields, raising = probe_fields(model, forcing)
+    reads = solver_read_lines()
+    writes = tavg_write_lines()
+    start = model.initial_state()
+    tmp = tempfile.TemporaryDirectory()
+    stream = model.enable_tavg(fields, freq_steps=TAVG_FREQ,
+                               outdir=tmp.name)
+    snaps, write_s, files = [], [], []
+    write = stream.write
+
+    def write_and_keep(out, step_number=0):
+        """The stream's write, with a device copy of the accumulators it
+        wrote; the file is kept for ``check_tavg_file`` while ``files`` is
+        empty, else deleted at once."""
+        snaps.append((stream.nsamples, stream.buffer.clone()))
+        t0 = time.perf_counter()
+        fname = write(out, step_number)
+        write_s.append(time.perf_counter() - t0)
+        if keep_file[0]:
+            files.append((fname, snaps[-1]))
+            keep_file[0] = False
+        else:
+            os.remove(fname)
+        return fname
+    keep_file = [False]
+    stream.write = write_and_keep
+
+    def rewind(n=0):
+        model.nsteps_total = n
+        model.time_manager.reset()
+        stream.reset()
+
+    def eager(state=start, n=nsteps):
+        with solver_iterations() as iters:
+            state = model.run(state, n, forcing)
+        return state, list(iters)
+
+    def compiled(state=start, n=nsteps):
+        with solver_iterations() as iters:
+            state, _ = model.run_compiled(state, n, forcing)
+        return state, list(iters)
+
+    parts = {"model_and_probe": time.perf_counter() - t_phase}
+    rewind()
+    (s_e, it_e), t_e, n_e, mem_e = _timed(eager)
+    (s_e, it_e2), t_more_e, _, _ = _timed(lambda: eager(s_e, RUN_LOOP_MORE))
+    snaps_eager, w_eager = list(snaps), sum(write_s)
+    snaps.clear()
+    write_s.clear()
+    parts["eager_runs"] = time.perf_counter() - t_phase \
+        - parts["model_and_probe"]
+    rewind()
+    (s_c, it_c), t_c, n_c, mem_c = _timed(compiled)
+    cap = model._captured
+    if cap is None or not cap.replays:
+        raise AssertionError(f"tavg {path} {dtype_name}: run_compiled "
+                             "replayed no graph")
+    # steps past the run, captured, with one write (whose file is kept)
+    keep_file[0] = True
+    (s_c, it_c2), syncs = sync_points(lambda: compiled(s_c, RUN_LOOP_MORE))
+    n_writes_audited = 1
+    n_snaps = len(snaps)
+    bitwise_acc = n_snaps == len(snaps_eager) and all(
+        a[0] == b[0] and torch.equal(a[1], b[1])
+        for a, b in zip(snaps, snaps_eager))
+    bitwise_state = all(torch.equal(x, getattr(s_e, n))
+                        for n, x in s_c.leaves())
+    del snaps_eager
+    t0 = time.perf_counter()
+    checked = [check_tavg_file(fname, stream, snap)
+               for fname, snap in files]
+    for fname, _ in files:
+        os.remove(fname)
+    snaps.clear()
+    parts["file_check"] = time.perf_counter() - t0
+    # captured steps/s with the stream between two writes (steps 13-15),
+    # then the step that writes, then one under the profiler
+    n_between = TAVG_FREQ - 1
+    _, t_more_c, _, _ = _timed(lambda: compiled(s_c, n_between))
+    write_s.clear()
+    compiled(s_c, 1)
+    w_more = sum(write_s)
+    snaps.clear()
+    t0 = time.perf_counter()
+    device_ms, busy = _device_busy(lambda: compiled(s_c, 1), 1)
+    # the accumulation alone: one sample from an eager step's extras
+    new, _, extras = step_mod.step(
+        cfg, model.grid, model.bc, model.ts_range, s_c, forcing
+        or model.forcing, True, False, **model.step_args(True),
+        with_extras=True)
+    aux = tavg.TavgAux(forcing=forcing or model.forcing, bc=model.bc,
+                       **extras)
+    stream.accumulate_fields(new, aux)  # warm
+    reset_counts()
+    acc_ms, _ = _device_busy(lambda: stream.accumulate_fields(new, aux), 1)
+    acc_counts = read_counts()
+    parts["profiled"] = time.perf_counter() - t0
+    del new, extras, aux
+    tmp.cleanup()
+
+    total = nsteps + RUN_LOOP_MORE
+    stray = {k: v for k, v in syncs.items() if k not in reads | writes}
+    n_write_reads = sum(v for k, v in syncs.items() if k in writes)
+    per_step = {k: n_c[k] / nsteps for k in ("gm_chain", "gm_chain_diags",
+                                             "gm_flux", "gm_flux_fold",
+                                             "gm_tlt", "gm_slope")}
+    out = {"phase": "tavg", "path": path, "dtype": dtype_name,
+           "dims": [cfg.nx, cfg.ny, cfg.km], "nt": cfg.nt,
+           "steps": [nsteps, RUN_LOOP_MORE], "freq_steps": TAVG_FREQ,
+           "fields": len(fields),
+           "fields_3d": sum(tavg.FIELDS[n].ndims == 3 for n in fields),
+           "fields_raising": raising,
+           "accumulator_bytes": stream.buffer.numel()
+           * stream.buffer.element_size(),
+           "writes_compared": n_snaps,
+           "accumulators_bitwise_equal_to_advance": bitwise_acc,
+           "state_bitwise_equal_to_advance": bitwise_state,
+           "solver_iters_eager": it_e + it_e2,
+           "solver_iters_captured": it_c + it_c2,
+           "launches_eager": n_e, "launches_captured": n_c,
+           "launches_per_step": per_step,
+           "accumulation_launches": acc_counts,
+           "files_checked": [{"bytes": b, "seconds": sec}
+                             for b, sec in checked],
+           "write_seconds_eager": w_eager,
+           "graphs": cap.graphs, "replays": cap.replays,
+           "capture_seconds": cap.capture_seconds,
+           "seconds_eager": t_e, "seconds_captured": t_c,
+           "steps_per_s_leapfrog_eager_with_a_write": RUN_LOOP_MORE
+           / t_more_e,
+           "steps_per_s_leapfrog_captured": n_between / t_more_c,
+           "device_busy_share_captured": (device_ms * n_between
+                                          / (t_more_c * 1e3)
+                                          if device_ms else None),
+           "write_seconds": w_more,
+           "steps_per_s_leapfrog_captured_no_stream": no_stream.get(
+               "steps_per_s_leapfrog_captured"),
+           "device_ms_per_step": device_ms,
+           "device_ms_per_step_no_stream": no_stream.get(
+               "device_ms_per_step"),
+           "device_busy_share_captured_under_profiler": busy,
+           "accumulation_device_ms": acc_ms,
+           "peak_device_mem_bytes_eager": mem_e,
+           "peak_device_mem_bytes_captured": mem_c,
+           "peak_device_mem_bytes_captured_no_stream": no_stream.get(
+               "peak_device_mem_bytes_captured"),
+           "sync_points_captured": syncs,
+           "sync_points_allowed": sorted(reads | writes),
+           "stream_write_reads": n_write_reads,
+           "stream_writes_audited": n_writes_audited,
+           "phase_seconds": {**parts,
+                             "total": time.perf_counter() - t_phase}}
+    emit(out)
+    broken = []
+    if raising:
+        broken.append(f"fields raising {sorted(raising)}")
+    if n_snaps != total // TAVG_FREQ or not bitwise_acc:
+        broken.append("accumulators differ from advance's")
+    if not bitwise_state:
+        broken.append("state differs from advance's")
+    if it_e + it_e2 != it_c + it_c2:
+        broken.append("iterations per step")
+    if n_e != n_c:
+        broken.append("launch counts")
+    want = {"gm_chain": 1, "gm_chain_diags": 1, "gm_flux": 1,
+            "gm_flux_fold": 1, "gm_tlt": 2, "gm_slope": 1}
+    if per_step != want:
+        broken.append(f"launches a step {per_step}, expected {want}")
+    if stray or n_write_reads > n_writes_audited:
+        broken.append(f"host reads beyond the solver's and one a write "
+                      f"{syncs}")
+    if len(checked) != 1:
+        broken.append("the written file was not checked")
+    if broken:
+        raise AssertionError(f"tavg {path} {dtype_name}: "
+                             + "; ".join(broken))
+    return {"launches": n_c, "replays": cap.replays}
 
 
 def restart_round_trip(model, forcing):
@@ -2463,20 +2789,36 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     cfg = (get_config("prod_full", **PATHS[path], **PROD_SMALL)
            if path in PROD_PATHS else get_config("mini", **PATHS[path]))
     stratified = path != "core"
+    tavg = path == "core"  # with a tavg stream on 'mini'
     reset_counts()
-    s_gpu, it_g = _run_steps(cfg, nsteps, DEV, stratified)
+    s_gpu, it_g, *av_g = _run_steps(cfg, nsteps, DEV, stratified, tavg)
     counts = read_counts()
-    s_cpu, it_c = _run_steps(cfg, nsteps, torch.device("cpu"), stratified)
+    s_cpu, it_c, *av_c = _run_steps(cfg, nsteps, torch.device("cpu"),
+                                    stratified, tavg)
     if read_counts() != counts:
         raise AssertionError("the CPU run launched a kernel")
     diffs = _state_diffs(s_gpu, s_cpu)
-    emit({"phase": "small_vs_cpu", "path": path,
-          "dims": [cfg.nx, cfg.ny, cfg.km], "dtype": cfg.dtype,
-          "steps": nsteps, "stratified_start": stratified, "rel_diff": diffs,
-          "band": 1e-7, "launches_gpu": counts, "solver_iters_gpu": it_g,
-          "solver_iters_cpu": it_c})
-    if not max(diffs.values()) <= 1e-7:
-        raise AssertionError(f"GPU and CPU paths differ: {diffs}")
+    out = {"phase": "small_vs_cpu", "path": path,
+           "dims": [cfg.nx, cfg.ny, cfg.km], "dtype": cfg.dtype,
+           "steps": nsteps, "stratified_start": stratified,
+           "rel_diff": diffs, "band": 1e-7, "launches_gpu": counts,
+           "solver_iters_gpu": it_g, "solver_iters_cpu": it_c}
+    broken = {k: v for k, v in diffs.items() if not v <= 1e-7}
+    if tavg:
+        # each field's average, over its scale on the CPU
+        import numpy as np
+        av_g, av_c = av_g[0], av_c[0]
+        tavg_diffs = {n: float(np.abs(av_g[n] - a).max()
+                               / (np.abs(a).max() or 1.0))
+                      for n, a in av_c.items()}
+        worst = max(tavg_diffs, key=tavg_diffs.get)
+        out.update(tavg_fields=len(av_c), tavg_worst_field=worst,
+                   tavg_worst_rel_diff=tavg_diffs[worst])
+        broken.update({f"tavg {n}": v for n, v in tavg_diffs.items()
+                       if not v <= 1e-7})
+    emit(out)
+    if broken:
+        raise AssertionError(f"GPU and CPU paths differ: {broken}")
 
 
 def ptxas_summary(log: str | None = None):
@@ -2617,6 +2959,11 @@ def main():
     for path, dtype_name, nsteps in RUN_LOOP:
         captured[(path, dtype_name)] = run(run_loop_phase, path, dtype_name,
                                            nsteps)
+    for path, dtype_name, nsteps in TAVG:
+        rec = run(tavg_phase, path, dtype_name, nsteps,
+                  captured[(path, dtype_name)])
+        launches[(path + "_tavg", dtype_name)] = rec["launches"]
+        captured[(path + "_tavg", dtype_name)] = rec
     for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full"):
         run(path_vs_plain_phase, path)
         run(breakdown_phase, path, "float32")

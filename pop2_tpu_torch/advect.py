@@ -145,6 +145,18 @@ def upwind3_vert_coeffs(dz):
     return talfzp, tbetzp, tgamzp, talfzm, tbetzm, tdelzm
 
 
+def upwind3_vert(grid: Grid):
+    """``upwind3_vert_coeffs`` of the grid's dz, built once a grid object
+    and kept on it: the coefficients' end values are set level by level,
+    and such an assignment copies its value from the host, which a captured
+    step (the tavg fields of ``graphs.CapturedStep``) cannot do."""
+    hit = grid.__dict__.get("_upwind3_vert")
+    if hit is None:
+        hit = upwind3_vert_coeffs(grid.vgrid.dz)
+        grid.__dict__["_upwind3_vert"] = hit
+    return hit
+
+
 def upwind3_horiz_coeffs(dc, dw, de, de2):
     """Face interpolation coefficients along one direction
     (source/advection.F90:510-551): dc, dw, de, de2 are the cell widths at
@@ -228,8 +240,7 @@ def advt_upwind3(cfg: ModelConfig, grid: Grid, bc: BC, fv: FluxVel, trcr):
            + cn * tr_n + cs * bc.s(tr_n)) / dzt[None]
 
     # vertical (source/advection.F90:2402-2476)
-    talfzp, tbetzp, tgamzp, talfzm, tbetzm, tdelzm = upwind3_vert_coeffs(
-        grid.vgrid.dz)
+    talfzp, tbetzp, tgamzp, talfzm, tbetzm, tdelzm = upwind3_vert(grid)
 
     def kcol(a):
         return a.reshape(1, km, 1, 1)

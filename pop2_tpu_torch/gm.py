@@ -640,8 +640,11 @@ def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
               hblt=None) -> GMOut:
     """GM/Redi tracer tendency + VDC_GM (hdifft_gm,
     source/hmix_gm.F90:1102-2219); ``hblt``: the KPP boundary-layer depth.
-    On CUDA tensors the flux assembly at the end goes through the
-    ``gm_cuda`` kernel."""
+    On CUDA tensors the transition-layer search goes through the
+    ``gm_tlt_cuda`` kernel (``transition_layer`` here reads the device
+    once a level, which a captured step cannot) and the flux assembly at
+    the end through the ``gm_cuda`` kernel."""
+    from pop2_tpu_torch import gm_tlt_cuda  # deferred: it imports this module
     check_gm_config(cfg)
     tx, ty, tz, slx, sly = _slopes(cfg, grid, bc, ts_range, tmix)
     sla = _sla(cfg, grid, slx, sly)
@@ -649,8 +652,9 @@ def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
     # transition-layer geometry (:1221-1247)
     tlt = None
     if cfg.gm_transition_layer:
-        tlt = transition_layer(cfg, grid, diabatic_depth(cfg, grid, bc, hblt),
-                               sla, _rossby_radius(grid))
+        tlt = gm_tlt_cuda.transition_layer(
+            cfg, grid, diabatic_depth(cfg, grid, bc, hblt), sla,
+            _rossby_radius(grid))
     # surface-diabatic-layer depth of the bfre normalization (:3085-3087)
     sdl = tlt.interior_depth if tlt is not None else hblt
     kappa_isop, kappa_thic, kappa_equal, kappa_vert = kappa_fields(

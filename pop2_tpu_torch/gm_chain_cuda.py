@@ -46,6 +46,10 @@ from pop2_tpu_torch.gm_cuda import flux_assembly_plain
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+#: of those, launches that write the diagnostic columns (``want_diags``)
+launches_with_diags = 0
+#: the mode counters ``graphs.CapturedStep`` keeps exact under replay
+MODE_COUNTERS = ("launches_with_diags",)
 
 #: rows of the per-level scalar table (csrc/gm_chain.cu reads the same)
 LEV_ROWS = ("DZ", "DZR", "DZWKP", "RDT", "RDB", "TRT", "TRB", "DZWR")
@@ -230,7 +234,7 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
           sm=None):
     """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
     through the kernel, CPU tensors through the plain version."""
-    global launches
+    global launches, launches_with_diags
     _check_mode(cfg, grid)
     if not tmix.is_cuda:
         return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
@@ -242,6 +246,7 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
     err = cb.lib().pop2_gm_chain(*head, rows, smem, *tail)
     cb.check_launch(err, "gm chain")
     launches += 1
+    launches_with_diags += int(bool(want_diags))
     return out
 
 

@@ -37,6 +37,10 @@ from pop2_tpu_torch import _cuda_build as cb
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+#: of those, launches of the tripole-row (``FOLD``) instance
+launches_fold = 0
+#: the mode counters ``graphs.CapturedStep`` keeps exact under replay
+MODE_COUNTERS = ("launches_fold",)
 
 MAX_TRACERS = 16  # kMaxTracers of csrc/gm_flux.cuh
 TILE_COLS = 32  # columns a tile row (kFrameCols: one warp)
@@ -225,7 +229,7 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
                   kisop, hor_diff, cancellation: bool):
     """(GTK, VDC_GM); arguments as ``flux_assembly_plain``. CUDA tensors go
     through the kernel, CPU tensors through the plain version."""
-    global launches
+    global launches, launches_fold
     _check_mode(cfg, grid)
     if not tx.is_cuda:
         return flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly,
@@ -258,4 +262,5 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
         vdc.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm flux_assembly")
     launches += 1
+    launches_fold += int(cfg.ns_boundary == "tripole")
     return gtk, vdc

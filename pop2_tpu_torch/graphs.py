@@ -16,7 +16,19 @@ a ``torch.cuda.CUDAGraph`` and replayed:
   run ended by a check, one without a check before PCSI's
   ``convergence_check_start``, a shorter last run);
 - ``post`` (``step.post``), which ends by copying the new state into the
-  static state buffers that ``pre`` reads.
+  static state buffers that ``pre`` reads, and, when the model has tavg
+  streams, by their accumulation.
+
+With tavg streams (``Model.run_compiled`` captures only step-frequency
+ones) ``pre`` and ``post`` run with the step's extras, and the accumulation
+of every stream is the end of the ``post`` graph: it reads the new state
+from the static buffers, after the copy, and the extras, which ``post``
+formed before the copy overwrote the pre-step tracers they read. In the
+same graph the extras and the accumulation's intermediates are the
+graph's own temporaries (nothing has to outlive the segment), and a step
+stays three kinds of segment. The streams' accumulators are static
+buffers updated in place (``tavg.TavgStream``); counting the samples and
+writing a full stream happen on the host, between steps.
 
 A step is ``pre``, runs until the host reads ``rr < tol`` at a check (the
 reads the eager loop makes) or the iterations run out, then ``post``. The
@@ -29,10 +41,11 @@ What a capture may not do, and how it is kept out:
   (``solvers.tolerance``), PCSI's coefficients a device table;
 - keep a host value that changes from step to step: a plain leapfrog step
   takes none (the calendar never reaches the step);
-- fill a cache on the ``Grid`` object (the kernel wrappers' operands): a
-  cache first filled inside a capture would hold graph memory that no
-  kernel has written. The graphs are captured only after an eager leapfrog
-  step, and each capture raises if the grid's cache entries changed.
+- fill a cache on the ``Grid`` object (the kernel wrappers' operands, the
+  tavg streams' static fields): a cache first filled inside a capture
+  would hold graph memory that no kernel has written. The graphs are
+  captured only after an eager leapfrog step (with the same streams), and
+  each capture raises if the grid's cache entries changed.
 
 The kernel wrappers count a launch when their Python runs, which on this
 path is once, at capture. Each segment therefore takes back what its
@@ -55,26 +68,31 @@ import torch
 
 from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda
 from pop2_tpu_torch import gm_slope_cuda, gm_tlt_cuda, tracer_cuda
-from pop2_tpu_torch import step as step_mod, tridiag_cuda
+from pop2_tpu_torch import step as step_mod, tavg, tridiag_cuda
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.state import State
 
-#: the modules whose ``launches`` counters the segments keep exact
+#: the modules whose ``launches`` counters the segments keep exact, and
+#: the mode counters a module names in ``MODE_COUNTERS``
 COUNTED = (tridiag_cuda, tracer_cuda, clinic_cuda, gm_slope_cuda,
            gm_chain_cuda, gm_cuda, gm_tlt_cuda)
 
 
 def _counts():
     return ({mod: mod.launches for mod in COUNTED},
-            Counter(tridiag_cuda.launches_by_nr))
+            Counter(tridiag_cuda.launches_by_nr),
+            {(mod, name): getattr(mod, name) for mod in COUNTED
+             for name in getattr(mod, "MODE_COUNTERS", ())})
 
 
 def _set_counts(counts) -> None:
-    launches, by_nr = counts
+    launches, by_nr, modes = counts
     for mod, n in launches.items():
         mod.launches = n
     tridiag_cuda.launches_by_nr.clear()
     tridiag_cuda.launches_by_nr.update(by_nr)
+    for (mod, name), n in modes.items():
+        setattr(mod, name, n)
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -134,6 +152,7 @@ class _Segment:
         self.replays = 0
         self.launches: Dict[object, int] = {}
         self.launches_by_nr: Counter = Counter()
+        self.mode_launches: Dict[Tuple[object, str], int] = {}
         if capture:
             self._capture(grid, stream)
 
@@ -155,6 +174,9 @@ class _Segment:
                          for mod in COUNTED
                          if after[0][mod] != before[0][mod]}
         self.launches_by_nr = after[1] - before[1]
+        self.mode_launches = {key: n - before[2][key]
+                              for key, n in after[2].items()
+                              if n != before[2][key]}
         self.graph = graph
 
     def __call__(self) -> None:
@@ -166,6 +188,8 @@ class _Segment:
         for mod, n in self.launches.items():
             mod.launches += n
         tridiag_cuda.launches_by_nr.update(self.launches_by_nr)
+        for (mod, name), n in self.mode_launches.items():
+            setattr(mod, name, getattr(mod, name) + n)
 
 
 class CapturedStep:
@@ -177,6 +201,8 @@ class CapturedStep:
 
     def __init__(self, model, state: State, forcing: Forcing):
         self.model = model
+        # the tavg streams the post graph accumulates into
+        self.streams = tuple(model.tavg_streams)
         self.capture = state.tracer_cur.is_cuda
         self.state = _clone_tree(state)
         self.forcing = _clone_tree(forcing)
@@ -192,7 +218,7 @@ class CapturedStep:
         m = self.model
         self.pre_out = step_mod.pre(
             m.cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing, True,
-            **m.step_args(True))
+            **m.step_args(True), with_extras=bool(self.streams))
 
     def _chunk(self, n: int, check: bool):
         def fn():
@@ -203,11 +229,20 @@ class CapturedStep:
 
     def _post(self) -> None:
         m, p = self.model, self.pre_out
-        new = step_mod.post(
+        out = step_mod.post(
             m.cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing, True,
             False, p, p.carry["x"].to(self.state.pguess.dtype),
-            passive=m.passive, ovf_statics=m.ovf_statics)
+            passive=m.passive, ovf_statics=m.ovf_statics,
+            with_extras=bool(self.streams))
+        if not self.streams:
+            assign(self.state, out)
+            return
+        new, extras = out  # formed before the copy below
         assign(self.state, new)
+        aux = tavg.TavgAux(forcing=self.forcing, bc=m.bc, **extras,
+                           memo={})
+        for stream in self.streams:
+            stream.accumulate_fields(self.state, aux)
 
     # -- capture -------------------------------------------------------------
     def _check_carry(self) -> None:
@@ -250,6 +285,8 @@ class CapturedStep:
             return carry
         _, iters, rr = p.solver.run(p.carry, advance)
         post()
+        for stream in self.streams:
+            stream.nsamples += 1
         self._last = (p, iters, rr)
 
     # -- the interface -------------------------------------------------------

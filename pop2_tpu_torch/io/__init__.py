@@ -1,2 +1,3 @@
 """Input and output of the port: exact-restart checkpoints
-(``restart.py``)."""
+(``restart.py``) and the netCDF-4 writer of the output streams
+(``netcdf4.py``)."""

@@ -16,8 +16,16 @@ here, on the host in float64.
 package's ``lax.scan`` loop) runs the Euler first step and the averaging
 steps eagerly and every plain leapfrog step through ``graphs.CapturedStep``:
 on the GPU CUDA graphs of the step's segments, whose only host reads are
-the solver's convergence checks. tavg/history streams are a later slice
-(ROADMAP.md Queue 1 item 10).
+the solver's convergence checks.
+
+Output streams (``enable_tavg``, ``enable_history``, ``enable_movie``;
+source/tavg.F90, history.F90, movie.F90) are served by the per-step hook
+``_output_driver`` (history -> movie -> tavg, output.F90:53), which
+``advance`` calls with the step's extras whenever a stream exists.
+``run_compiled`` keeps the JAX package's policy: snapshot streams, or a tavg
+stream scheduled on the calendar, take every step through ``advance``;
+step-frequency tavg streams accumulate inside the captured step, and a
+stream is written (and reset) on the host after the step that fills it.
 
 ``Model(cfg)`` runs on the GPU: the default device is ``cuda`` and a machine
 without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
@@ -76,6 +84,11 @@ class Model:
         # leapfrog step has built every lazily made operand
         self._captured: Optional[graphs.CapturedStep] = None
         self._eager_leapfrog_done = False
+        # output streams and the files they wrote
+        self.tavg_streams = []
+        self.history_streams = []
+        self._tavg_outdir = "."
+        self.tavg_files = []
         self.sw_profile = (sw_absorption.absorb_profile(cfg, self.grid)
                            if cfg.sw_absorption == "jerlov" else None)
         # KPP's background profiles, surface-layer pair weights and tidal
@@ -163,14 +176,119 @@ class Model:
                     kpp_statics=self.kpp_statics, passive=self.passive,
                     ovf_statics=self.ovf_statics)
 
+    # -- output streams (source/tavg.F90, history.F90, movie.F90) -----------
+    def _streams_changed(self) -> None:
+        """A new stream set: the captured step is captured again, after an
+        eager leapfrog step has built what the new streams read (the JAX
+        package rebuilds its scan, ``_scan_tavg_fn = None``)."""
+        self._captured = None
+        self._eager_leapfrog_done = False
+
+    def _register_stream_flag(self, stream, kind: str, prefix: str,
+                              freq_opt, freq: int):
+        """Calendar-based scheduling: register a time flag for the stream
+        (each reference stream owns a time flag, source/tavg.F90:569-585)."""
+        if freq_opt is None:
+            stream.flag_name = None
+            return
+        stream.flag_name = f"{kind}:{prefix}"
+        self.time_manager.init_time_flag(stream.flag_name, freq_opt, freq,
+                                         owner=kind)
+
+    def enable_tavg(self, contents, freq_steps: int = 0, outdir: str = ".",
+                    prefix: str = "tavg", freq_opt: str = None,
+                    freq: int = 1):
+        """Add a tavg output stream (source/tavg.F90 stream mechanism).
+        Schedule by step count (``freq_steps``) or by calendar frequency
+        (``freq_opt`` in nyear/nmonth/nday/nhour/nsecond/nstep + ``freq``).
+        An unknown field raises KeyError."""
+        from pop2_tpu_torch.tavg import TavgStream
+        stream = TavgStream(self.cfg, self.grid, contents,
+                            freq_steps if freq_opt is None else 10 ** 9,
+                            outfile_prefix=prefix)
+        self._register_stream_flag(stream, "tavg", prefix, freq_opt, freq)
+        self.tavg_streams.append(stream)
+        self._tavg_outdir = outdir
+        self._streams_changed()
+        return stream
+
+    def enable_history(self, contents, freq_steps: int = 0,
+                       outdir: str = ".", prefix: str = "pop2_tpu.h",
+                       freq_opt: str = None, freq: int = 1):
+        """Add an instantaneous snapshot stream (source/history.F90)."""
+        from pop2_tpu_torch.history import HistoryStream
+        stream = HistoryStream(self.cfg, self.grid, contents, freq_steps,
+                               outfile_prefix=prefix)
+        self._register_stream_flag(stream, "history", prefix, freq_opt, freq)
+        self.history_streams.append(stream)
+        self._tavg_outdir = outdir
+        self._streams_changed()
+        return stream
+
+    def enable_movie(self, contents, freq_steps: int = 0, outdir: str = ".",
+                     level: int = 0, prefix: str = "pop2_tpu.m",
+                     freq_opt: str = None, freq: int = 1):
+        """Add a 2-D snapshot stream (source/movie.F90)."""
+        from pop2_tpu_torch.history import MovieStream
+        stream = MovieStream(self.cfg, self.grid, contents, freq_steps,
+                             level=level, outfile_prefix=prefix)
+        self._register_stream_flag(stream, "movie", prefix, freq_opt, freq)
+        self.history_streams.append(stream)
+        self._tavg_outdir = outdir
+        self._streams_changed()
+        return stream
+
+    def _stream_due(self, stream):
+        """Calendar-flag scheduling when the stream registered one
+        (time-flag service, source/time_management.F90:2241-3021);
+        otherwise None (step-frequency)."""
+        flag = getattr(stream, "flag_name", None)
+        if flag is not None:
+            return self.time_manager.check_time_flag(flag)
+        return None
+
+    def _write_if(self, stream, due: bool) -> None:
+        """Write a due tavg stream that holds samples, and reset it."""
+        if due and stream.nsamples > 0:
+            self.tavg_files.append(stream.write(self._tavg_outdir,
+                                                self.nsteps_total))
+            stream.reset()
+
+    def _output_driver(self, state: State, forcing: Forcing, extras: dict):
+        """Per-step output hook: history -> movie -> tavg
+        (output_driver, source/output.F90:53)."""
+        from pop2_tpu_torch.tavg import TavgAux
+        aux = TavgAux(forcing=forcing, bc=self.bc, **(extras or {}),
+                      memo={})
+        for stream in self.history_streams:
+            stream.aux = aux
+            due = self._stream_due(stream)
+            if due is None:
+                due = stream.due(self.nsteps_total)
+            if due:
+                self.tavg_files.append(
+                    stream.write(self._tavg_outdir, state,
+                                 self.nsteps_total))
+        for stream in self.tavg_streams:
+            stream.accumulate(state, aux)
+            due = self._stream_due(stream)
+            self._write_if(stream, stream.ready if due is None else due)
+
     def advance(self, state: State, forcing: Optional[Forcing] = None):
-        """Advance one step; returns (state, StepDiagnostics)."""
+        """Advance one step; returns (state, StepDiagnostics). With output
+        streams the step returns its extras and the output hook runs."""
         forcing = forcing or self.forcing
         leapfrog, avg_ts = self._next_step()
+        with_output = bool(self.tavg_streams or self.history_streams)
         out = step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
                             state, forcing, leapfrog, avg_ts,
-                            **self.step_args(leapfrog))
+                            **self.step_args(leapfrog),
+                            with_extras=with_output)
         self._eager_leapfrog_done |= leapfrog
+        if with_output:
+            state, diags, extras = out
+            self._output_driver(state, forcing, extras)
+            return state, diags
         return out
 
     def run(self, state: State, nsteps: int,
@@ -185,11 +303,20 @@ class Model:
         through ``advance``, every plain leapfrog step through the captured
         step (``graphs.CapturedStep``: on the GPU CUDA graphs, captured at
         the first plain leapfrog step after an eager leapfrog step; on the
-        CPU the same segments called without capture). Returns (state,
-        diagnostics of the last step). The state returned is the caller's
-        own; the graphs' buffers stay inside the model."""
+        CPU the same segments called without capture). Step-frequency tavg
+        streams accumulate inside the captured step; a full stream is
+        written after the step that filled it. Snapshot streams and
+        calendar-scheduled tavg streams need the host every step: then
+        every step goes through ``advance``. Returns (state, diagnostics of
+        the last step). The state returned is the caller's own; the graphs'
+        buffers stay inside the model."""
         forcing = forcing or self.forcing
         diags = None
+        if self.history_streams or any(s.flag_name
+                                       for s in self.tavg_streams):
+            for _ in range(nsteps):
+                state, diags = self.advance(state, forcing)
+            return state, diags
         in_graph = False  # the state lies in the captured step's buffers
         for _ in range(nsteps):
             leapfrog, avg_ts = self.step_flags(self.nsteps_total + 1)
@@ -203,6 +330,8 @@ class Model:
                     in_graph = True
                 self._next_step()
                 self._captured.step(forcing)
+                for stream in self.tavg_streams:
+                    self._write_if(stream, stream.ready)
                 diags = None
                 continue
             if in_graph:

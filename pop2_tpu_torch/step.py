@@ -13,9 +13,12 @@ averaging filter; the model's time manager says which steps average) or
 ``post``; ``graphs.py`` captures ``pre`` and ``post`` as CUDA graphs. On a tripole grid
 the degenerate top U row is made symmetric after every update. With
 overflows the transports are computed once a step and shared by the tracer
-exchange, the barotropic continuity and the sidewall momentum. The tavg
-extras of the JAX package's step are a later slice (ROADMAP.md Queue 1
-item 10).
+exchange, the barotropic continuity and the sidewall momentum. With
+``with_extras`` the step also returns the fields the tavg registry
+accumulates from inside the physics (``extras``: KPP's depths and mixing
+internals, the diffusivities, GM's diagnostic columns and transition-layer
+depths, the tracer tendency and the Robert filter's increment), as the JAX
+package's step does.
 """
 
 from __future__ import annotations
@@ -134,18 +137,19 @@ class PreOut(NamedTuple):
 def _check_time_mix(cfg: ModelConfig) -> None:
     if cfg.time.time_mix_opt not in ("avg", "avgfit", "robert"):
         raise NotImplementedError(
-            f"time_mix_opt={cfg.time.time_mix_opt!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            f"time_mix_opt={cfg.time.time_mix_opt!r}: the time mixing is "
+            "'avg', 'avgfit' or 'robert', as in the JAX package")
 
 
 def pre(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
         forcing: Forcing, leapfrog: bool, pcsi_eigs=None, precond=None,
         sw_profile=None, kpp_statics=None, passive=None,
-        ovf_statics=None) -> PreOut:
+        ovf_statics=None, with_extras: bool = False) -> PreOut:
     """The step up to the barotropic solve: dh/dt, the overflow transports
-    and product-set selection, ``baroclinic.driver``, the overflows'
-    renormalized forcing, ``barotropic.rhs`` and the solver's first pass
-    (``Solver.init``). Reads nothing from the device."""
+    and product-set selection, ``baroclinic.driver`` (with GM's diagnostic
+    columns under ``with_extras``), the overflows' renormalized forcing,
+    ``barotropic.rhs`` and the solver's first pass (``Solver.init``). Reads
+    nothing from the device."""
     _check_time_mix(cfg)
     # 1. surface height change (source/step_mod.F90:361)
     dh, dhu = dhdt(cfg, grid, bc, state)
@@ -167,10 +171,8 @@ def pre(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
                                 sel=ovf_sel)
 
     # 2. explicit baroclinic update (source/step_mod.F90:375)
-    # (no time-averaged history yet: the GM diagnostic columns are not
-    # written)
     bout = baroclinic.driver(cfg, grid, bc, ts_range, state, forcing,
-                             dh, dhu, leapfrog, want_gm_diags=False,
+                             dh, dhu, leapfrog, want_gm_diags=with_extras,
                              sw_profile=sw_profile, kpp_statics=kpp_statics,
                              passive=passive, ovf_statics=ovf_statics,
                              ovf_trans=ovf_trans, ovf_sel=ovf_sel,
@@ -195,12 +197,15 @@ def pre(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
 
 def post(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
          forcing: Forcing, leapfrog: bool, avg_ts: bool, p: PreOut,
-         psurf_new, passive=None, ovf_statics=None) -> State:
+         psurf_new, passive=None, ovf_statics=None,
+         with_extras: bool = False):
     """The step from the solve's solution ``psurf_new`` (in the model's
     dtype) on: ``barotropic.finish``, ``correct_adjust``, the velocity
     assembly, the overflows' sidewall momentum, the pressure guess, the
     tripole top-row symmetry and the Robert or averaging filter. Returns
-    the new state."""
+    the new state, and with ``with_extras`` (new state, ``extras``): the
+    extras read ``state`` (its old and current tracers), so they are formed
+    here, before a caller overwrites ``state`` with the new one."""
     bout = p.bout
     tout = barotropic.finish(cfg, grid, bc, p.btrop, psurf_new)
 
@@ -253,12 +258,47 @@ def post(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
         rf_s_prev_valid=state.rf_s_prev_valid)
 
     # 7. time filtering (source/step_mod.F90:663-832)
+    rf_tend_tracer = None
     if cfg.time.time_mix_opt == "robert":
+        prefilter = new.tracer_old
         new = _robert_filter(cfg, grid, ts_range, state, new, forcing,
                              passive=passive)
+        if with_extras:
+            # Robert-filter tendency (RF_TEND_* tavg fields,
+            # source/passive_tracers.F90:723-733): the filter's increment of
+            # the current time level per unit time
+            rf_tend_tracer = (new.tracer_old - prefilter) / cfg.time.dtt
     elif avg_ts:
         new = _avg_filter(cfg, grid, ts_range, state, new)
-    return new
+    if not with_extras:
+        return new
+    return new, extras(cfg, p, state, tracer_new, leapfrog, rf_tend_tracer)
+
+
+def extras(cfg: ModelConfig, p: PreOut, state: State, tracer_new,
+           leapfrog: bool, rf_tend_tracer=None) -> dict:
+    """The step-internal fields the tavg registry accumulates (the JAX
+    package's step extras): KPP's HBLT/HMXL and mixing internals
+    (vmix_kpp.F90), the diffusivity and viscosity, GM's diagnostic columns
+    and transition-layer depths (hmix_gm.F90:2198-2209), the pre-filter
+    tracer tendency over the step ((TNEW - TOLD)/c2dt, baroclinic.F90) from
+    the pre-step ``state``, and the Robert filter's increment. Absent
+    physics gives None."""
+    bout = p.bout
+    kppo, gmo = bout.kpp, bout.gm
+    c2dtt = baroclinic._timestep_arrays(cfg, leapfrog,
+                                        tracer_new.device)[0]
+    base = state.tracer_old if leapfrog else state.tracer_cur
+    out = {name: getattr(kppo, name) if kppo is not None else None
+           for name in ("hblt", "hmxl", "hmxl_dr", "kvmix", "kvmix_m",
+                        "tpower")}
+    out.update(vdc=bout.vdc, vvc=bout.vvc)
+    out.update({name: getattr(gmo, name) if gmo is not None else None
+                for name in ("kappa_isop", "kappa_thic", "hor_diff",
+                             "dia_depth", "tlt_thick", "int_depth")})
+    out["tend_tracer"] = (tracer_new - base) / c2dtt.reshape(1, cfg.km, 1, 1)
+    out["rf_tend_tracer"] = rf_tend_tracer
+    return out
 
 
 def diagnostics(p: PreOut, iters: int, rr) -> StepDiagnostics:
@@ -273,7 +313,7 @@ def diagnostics(p: PreOut, iters: int, rr) -> StepDiagnostics:
 def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
          forcing: Forcing, leapfrog: bool, avg_ts: bool,
          pcsi_eigs=None, precond=None, sw_profile=None, kpp_statics=None,
-         passive=None, ovf_statics=None):
+         passive=None, ovf_statics=None, with_extras: bool = False):
     """Advance one timestep (leapfrog, Euler-forward for the first step,
     the averaging or Robert filter): ``pre``, the solver's loop, ``post``.
     ``pcsi_eigs``: PCSI's bounds, a pair or ``solvers.PCSIBounds``;
@@ -282,14 +322,18 @@ def step(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
     Jerlov shortwave profile; ``kpp_statics``: KPP's
     (``kpp.build_statics``); ``passive``: the passive-tracer packages
     (``passive_tracers.PassiveTracers``); ``ovf_statics``: the overflows'
-    (``overflows.build_statics``). Returns (state, StepDiagnostics)."""
+    (``overflows.build_statics``). Returns (state, StepDiagnostics), and
+    with ``with_extras`` (state, StepDiagnostics, extras) (``extras``)."""
     p = pre(cfg, grid, bc, ts_range, state, forcing, leapfrog, pcsi_eigs,
-            precond, sw_profile, kpp_statics, passive, ovf_statics)
+            precond, sw_profile, kpp_statics, passive, ovf_statics,
+            with_extras)
     carry, iters, rr = p.solver.run(p.carry)
-    new = post(cfg, grid, bc, ts_range, state, forcing, leapfrog, avg_ts, p,
+    out = post(cfg, grid, bc, ts_range, state, forcing, leapfrog, avg_ts, p,
                carry["x"].to(state.pguess.dtype), passive=passive,
-               ovf_statics=ovf_statics)
-    return new, diagnostics(p, iters, rr)
+               ovf_statics=ovf_statics, with_extras=with_extras)
+    if with_extras:
+        return out[0], diagnostics(p, iters, rr), out[1]
+    return out, diagnostics(p, iters, rr)
 
 
 def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,

@@ -97,11 +97,39 @@ def jax_states(tmp_path_factory):
     return states
 
 
+def _density_sides(tgrid, ts, jleaves):
+    """Which side's density lies off the NumPy oracle's (the reference's
+    MWJF, ``tests/reference_oracle/ogrid.state_mwjf``) on the port's
+    tracers: a line per density leaf with each side's largest difference
+    from the oracle over its scale (the oracle clamps T and S to its own
+    fixed range, the packages to theirs: equal away from the clamps)."""
+    from tests.reference_oracle import ogrid
+    trc = ts.tracer_cur.numpy()
+    pz = tgrid.vgrid.pressz.numpy().reshape(-1, 1, 1)
+    mask = tgrid.kmask_t.numpy()
+    oracle = np.where(mask, ogrid.state_mwjf(trc[0], trc[1], pz), 0.0)
+    scale = np.abs(oracle).max()
+    lines = []
+    for leaf in ("rho_old", "rho_cur"):
+        port = getattr(ts, leaf).numpy()
+        lines.append(
+            f"{leaf}: port off the oracle by "
+            f"{np.abs(port - oracle).max() / scale:.3e}, JAX by "
+            f"{np.abs(jleaves[leaf] - oracle).max() / scale:.3e} of scale")
+    return "\n".join(lines)
+
+
 def test_initial_state_leaves_equal(pair, jax_states, request):
     _, _, tcfg, tgrid = pair
     name = request.node.callspec.params["pair"]
     ts = t_initial_state(tcfg, tgrid)
-    assert_leaves_close(ts.leaves(), jax_states[name], rtol=1e-14)
+    try:
+        assert_leaves_close(ts.leaves(), jax_states[name], rtol=1e-14)
+    except AssertionError as err:
+        # say which side moved (ROADMAP.md Queue 3, F1)
+        raise AssertionError(
+            f"{err}\n{_density_sides(tgrid, ts, jax_states[name])}") \
+            from None
 
 
 def test_analytic_forcing_leaves_equal(pair):

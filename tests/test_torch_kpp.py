@@ -188,12 +188,50 @@ FUNCTIONS = ("dbloc", "dbsfc", "ri_iwmix", "ddmix", "bldepth",
              "kpp_sources")
 
 
+def _oracle_buoydiff(c):
+    """DBLOC and DBSFC (source/vmix_kpp.F90:3509-3626) from the NumPy
+    oracle's MWJF density (``okpp.state_mwjf_derivs``, T clamped at -2 as
+    the reference does) on the case's inputs, with the surface-layer pair
+    weights of the JAX package's statics."""
+    T, S = c.trcr
+    pz = np.asarray(c.jg.vgrid.pressz)
+    km = pz.shape[0]
+
+    def rho(t, s, p):
+        return okpp.state_mwjf_derivs(t, s, p.reshape(-1, 1, 1))[0]
+    rho_k = rho(T, S, pz)
+    st = c.j["statics"]
+    pk, pm, pw = (np.asarray(a) for a in (st.pair_k, st.pair_m, st.pair_w))
+    rhoavg = np.tensordot(pw, rho(T[pm], S[pm], pz[pk]), axes=1)
+    safe = np.where(rho_k != 0.0, rho_k, 1.0)
+    grav = okpp.grav
+    dbsfc = np.where(rho_k != 0.0, grav * (1.0 - rhoavg / safe), 0.0)
+    dbsfc[0] = 0.0
+    dbloc = np.zeros_like(rho_k)
+    dbloc[:-1] = np.where(rho_k[1:] != 0.0, grav * (
+        1.0 - rho(T[:-1], S[:-1], pz[1:]) / safe[1:]), 0.0)
+    kidx = np.arange(1, km)[:, None, None]
+    dbloc[:-1] = np.where(kidx >= np.asarray(c.jg.KMT)[None], 0.0,
+                          dbloc[:-1])
+    return {"dbloc": dbloc, "dbsfc": dbsfc}
+
+
 @pytest.mark.parametrize("case", ["closed", "tripole"])
 @pytest.mark.parametrize("fn", FUNCTIONS)
 def test_kpp_function_matches(cases, case, fn):
     c = cases[case]
-    for i, (got, want) in enumerate(_pairs(c.t[fn], c.j[fn])):
-        _check(got, want, f"{fn}[{i}]")
+    try:
+        for i, (got, want) in enumerate(_pairs(c.t[fn], c.j[fn])):
+            _check(got, want, f"{fn}[{i}]")
+    except AssertionError as err:
+        if fn not in ("dbloc", "dbsfc"):
+            raise
+        # say which side moved (ROADMAP.md Queue 3, F2)
+        oracle = _oracle_buoydiff(c)[fn]
+        raise AssertionError(
+            f"{err}; off the NumPy oracle: port "
+            f"{scale_err(c.t[fn].numpy(), oracle):.3e}, JAX "
+            f"{scale_err(c.j[fn], oracle):.3e} of scale") from None
     if fn == "bldepth":  # the boundary-layer levels, and where they lie
         kbl = c.t[fn][4].numpy()
         ocean = np.asarray(c.jg.KMT) > 0
