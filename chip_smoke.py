@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's seven paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's ten paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64:
 
     core      the dynamical core (Laplacian tracer mixing)
@@ -36,6 +36,17 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
               three launches a step
     prod_flux prod_full without GM's transition layer: plain chain ->
               the flux-assembly kernel on the tripole grid
+    prod_vmix prod_full with the rest of vertical mixing: Polzin tidal
+              mixing under the lunar cycle, near-inertial wave mixing from
+              the boundary-layer energy, geothermal heat and depth
+              acceleration below 1000 m (thomas takes the per-level step)
+    prod_hmix the biharmonic menu of the eddy-resolving preset on the
+              gx1v7 shape: del4 tracer mixing beside the tracer kernel
+              without the Laplacian, del4 momentum mixing beside the
+              momentum kernel without the friction, Schmittner tidal
+              mixing with the Southern-Ocean floor, velocity damping
+    core_topo core with topographic stress: the momentum kernel's fused
+              friction acts on u - TSU
 
 On every GM path the transition-layer search runs as a kernel. The modes of
 the tracer, momentum, slope and chain kernels that the tripole paths add
@@ -51,14 +62,20 @@ package's tests on the card against the same on the CPU.
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels.
-On core, gm_full and prod_full it runs ``Model.run_compiled`` (CUDA graphs
-of the step's segments) against ``Model.run`` from one state (``run_loop``
-phase): every state leaf bitwise equal (or inside the eager-against-eager
-spread), iterations and launch counts equal, graphs replayed, no host read
-but the solver's convergence checks, and a restart round trip on prod_full. It
+On core, gm_full, prod_full and the three paths above it runs
+``Model.run_compiled`` (CUDA graphs of the step's segments) against
+``Model.run`` from one state (``run_loop`` phase): every state leaf bitwise
+equal (or inside the eager-against-eager spread), iterations and launch
+counts equal, graphs replayed, no host read but the solver's convergence
+checks, a restart round trip on prod_full, and on prod_vmix the lunar
+factor in the captured step's static forcing buffer equal to the
+calendar's at every step across a jump of the calendar by years. The plain
+parts the last three paths add (Polzin, NIW, del4, the TSU subtraction)
+are timed at full size (``menu_parts_phase``). It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
-gm_full, prod_dyn, prod_mix and prod_full paths, breaks a step's time down
+gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix and core_topo
+paths, breaks a step's time down
 by part
 and by device kernel (the GM paths from rest and from a stratified state
 with slopes for GM to work on), and compares the GPU path with the CPU
@@ -74,6 +91,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import inspect
 import itertools
 import json
@@ -87,6 +105,7 @@ import time
 import traceback
 import warnings
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -100,10 +119,12 @@ from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, gm_tlt_cuda  # noqa: E40
 from pop2_tpu_torch import kpp, overflows, production, submeso  # noqa: E402
 from pop2_tpu_torch import tracer_cuda, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
-from pop2_tpu_torch import pgrad, sample, solvers  # noqa: E402
+from pop2_tpu_torch import hmix, pgrad, sample, solvers  # noqa: E402
+from pop2_tpu_torch import tidal_mixing  # noqa: E402
 from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
                                    SolverConfig, get_config)
-from pop2_tpu_torch.grid import build_grid, grid_bc  # noqa: E402
+from pop2_tpu_torch.grid import (build_grid, build_topostress,  # noqa: E402
+                                 grid_bc, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -116,7 +137,10 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "prod_dyn": {"float32": 6, "float64": 4},
          "prod_mix": {"float32": 6, "float64": 4},
          "prod_full": {"float32": 6, "float64": 4},
-         "prod_flux": {"float32": 4, "float64": 3}}
+         "prod_flux": {"float32": 4, "float64": 3},
+         "prod_vmix": {"float32": 6, "float64": 4},
+         "prod_hmix": {"float32": 6, "float64": 4},
+         "core_topo": {"float32": 4, "float64": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -218,7 +242,8 @@ WITNESS_RATIO = 1.5
 # run's own distance from the float64 run, besides the witness test below.
 # prod_mix has the same thresholds and KPP's first crossing of the critical
 # bulk Richardson number besides.
-WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full")
+WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
+                      "prod_hmix")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -260,6 +285,8 @@ SOURCES = {
                    "pop2_tpu/tridiag_pallas.py:112"),
     "gm_flux_tripole": ("pop2_tpu_torch/csrc/gm_flux.cu",
                         "pop2_tpu/gm_pallas.py:358"),
+    "clinic_topostress": ("pop2_tpu_torch/csrc/clinic.cu",
+                          "pop2_tpu/clinic_pallas.py:461"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
@@ -271,7 +298,7 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "gm_chain_sm_nt5": "prod_full", "tracer_upwind3_nt5": "prod_full",
            "gm_chain_sm_nt5_diags": "prod_full_tavg",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
-           "gm_flux_tripole": "prod_flux"}
+           "gm_flux_tripole": "prod_flux", "clinic_topostress": "core_topo"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "tracer_upwind3_nt5": "tracer",
@@ -279,7 +306,8 @@ COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "gm_chain_tripole": "gm_chain", "gm_chain_sm": "gm_chain",
               "gm_chain_sm_nt5": "gm_chain",
               "gm_chain_sm_nt5_diags": "gm_chain_diags",
-              "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux"}
+              "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux",
+              "clinic_topostress": "clinic"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -296,11 +324,26 @@ PROD_DYN = dict(vmix="rich", ltidal_mixing=False, lsubmeso=False,
 PROD_MIX = dict(passive_tracers=(), nt=2)
 # the whole production configuration, and without the transition layer
 PROD_FLUX = dict(gm_transition_layer=False)
+# the production configuration with the vertical-mixing options a CESM user
+# switches on for a mixing study or a spin-up (depth acceleration: the time
+# configuration's, ``path_config``)
+PROD_VMIX = dict(tidal_mixing_method="polzin", ltidal_lunar_cycle=True,
+                 lniw_mixing=True, niw_energy_type="blke",
+                 geoheatflux_const=0.1)
+# the biharmonic menu of the eddy-resolving tx0.1v3 preset on the gx1v7
+# shape, with Schmittner tidal mixing and velocity damping
+PROD_HMIX = dict(hmix_tracer="del4", hmix_momentum="del4",
+                 tidal_mixing_method="schmittner", ltidal_schmittner_socn=True,
+                 ldamp_uv=True, passive_tracers=(), nt=2)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
-         "prod_flux": PROD_FLUX}
-PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux")
-PASSIVE_PATHS = ("prod_full", "prod_flux")
+         "prod_flux": PROD_FLUX, "prod_vmix": PROD_VMIX,
+         "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True)}
+PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
+              "prod_hmix")
+PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix")
+# the years the calendar jumps in run_loop_phase's lunar check
+LUNAR_JUMP_YEARS = 7
 # the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
 # which the CFC fluxes are zero
 U10_SQR = 4.9e5
@@ -319,12 +362,26 @@ def full_config(dtype: str, path: str = "core"):
     convergence criterion of 1e-13 and ChronGear runs to max_iterations
     every step (in the JAX package too)."""
     if path in PASSIVE_PATHS:  # the flagship's entry point
-        return production.get_production_config(dtype=dtype, **PATHS[path])
-    if path in PROD_PATHS:  # PCSI 1e-13 with FSPAI, solving in float64
-        return get_config("prod_full", dtype=dtype, **PATHS[path])
-    solver = SolverConfig(solve_dtype="float64")
-    return get_config("test", nx=320, ny=384, km=60, vmix="rich",
-                      dtype=dtype, solver=solver, **PATHS[path])
+        cfg = production.get_production_config(dtype=dtype, **PATHS[path])
+    elif path in PROD_PATHS:  # PCSI 1e-13 with FSPAI, solving in float64
+        cfg = get_config("prod_full", dtype=dtype, **PATHS[path])
+    else:
+        solver = SolverConfig(solve_dtype="float64")
+        cfg = get_config("test", nx=320, ny=384, km=60, vmix="rich",
+                         dtype=dtype, solver=solver, **PATHS[path])
+    return path_config(cfg, path)
+
+
+def path_config(cfg, path: str):
+    """``cfg`` with what a path takes from its size: prod_vmix's depth
+    acceleration, 1 down to 1000 m and 2 at the bottom level
+    (``sample.depth_accel_profile`` over the config's level centres)."""
+    if path != "prod_vmix":
+        return cfg
+    dz = vertical_dz(cfg)
+    zt = np.cumsum(dz) - 0.5 * dz
+    return cfg.with_(time=dataclasses.replace(
+        cfg.time, laccel=True, dttxcel=sample.depth_accel_profile(zt)))
 
 
 def path_forcing(model):
@@ -794,6 +851,41 @@ def kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
                      "bound_ms": b_ms, "bound_by": b_by,
                      "ocean_fraction_u": wet,
                      **launch_info("clinic", dt)}
+
+    # ---- the same instance under topographic stress (core_topo): the
+    # fused friction fed the departure from TSU/TSV of this grid, formed
+    # once a step by plain ops (timed apart as the TSU subtraction)
+    tcfg = cfg.with_(ltopostress=True)
+    tgrid = grid.replace(**dict(zip(("TSU", "TSV"), (
+        torch.as_tensor(a, dtype=dt, device=DEV) for a in build_topostress(
+            tcfg, *(getattr(grid, n).double().cpu().numpy() for n in (
+                "HT", "KMT", "KMU", "TLAT", "FCORT", "DXUR", "DYUR",
+                "HUR")))))))
+
+    def relative():
+        return hmix.topostress_relative(tcfg, tgrid, f["uold"], f["vold"])
+    um, vm = relative()
+    if not float((um - f["uold"]).abs().max()) > 0.0:
+        raise AssertionError("topographic stress left the velocities alone")
+    args = (tcfg, tgrid, f["ucur"], f["vcur"], f["uold"], f["vold"], um, vm,
+            rhoavg, f["vvc"], f["smf"], f["dhu"], wc, wo)
+    got = clinic_cuda.clinic_rhs_fields(*args)
+    torch.cuda.synchronize()
+    want = clinic_cuda.clinic_rhs_plain(*args)
+    err_abs, err_rel = compare("clinic", dt, got, want)
+    # two more distinct 3-D inputs (um, vm are no longer uold, vold)
+    b_ms, b_by = bound(s * (N * (8 * wet + 2) + P * (19 + 2 + 1 + 2)
+                            + 5 * km) + 4 * P, N * wet * 200, dt)
+    rec["clinic_topostress"] = {
+        "max_abs_err": err_abs, "rel_err": err_rel,
+        "ms": time_ms(lambda: clinic_cuda.clinic_rhs_fields(*args), 3,
+                      n_timed),
+        "ms_back_to_back": time_ms_back_to_back(
+            lambda: clinic_cuda.clinic_rhs_fields(*args), n_timed),
+        "plain_ms": time_ms(lambda: clinic_cuda.clinic_rhs_plain(*args), 1,
+                            3),
+        "tsu_subtraction_plain_ms": time_ms(relative, 3, n_timed),
+        "bound_ms": b_ms, "bound_by": b_by, **launch_info("clinic", dt)}
     return rec
 
 
@@ -1536,6 +1628,9 @@ def kpp_state(cfg, grid, tmix, seed: int):
         shf_qsw=2.0e-4 * randn(ny, nx).abs() * mt[0],
         smft=0.5 * randn(2, ny, nx) * mt[0])
     args["chl"] = torch.full_like(args["shf_qsw"], cfg.chl_const)
+    if cfg.lniw_mixing:  # the current velocities of the 'blke' NIW energy
+        args.update(ucur=5.0 * randn(km, ny, nx) * mu,
+                    vcur=5.0 * randn(km, ny, nx) * mu)
     st = kpp.build_statics(cfg, grid)
 
     def run():
@@ -1543,6 +1638,63 @@ def kpp_state(cfg, grid, tmix, seed: int):
                               convect_diff=cfg.convect_diff,
                               convect_visc=cfg.convect_visc, **args)
     return run(), run
+
+
+def menu_parts_phase(dtype_name: str, n_timed: int = 10):
+    """The plain parts that prod_vmix and prod_hmix add, each timed alone at
+    full size on the production grid: Polzin's profile of a step's N^2,
+    the NIW energy from the boundary-layer energy with its mixing, the
+    whole KPP pipeline under prod_vmix's menu beside prod_mix's, and the
+    biharmonic tracer (nt = 2) and momentum mixing. Inputs: the stratified
+    tracers of ``sample.grid_tracers`` under ``kpp_state``'s forcing. The
+    TSU subtraction is ``kernel_phase``'s (``clinic_topostress``)."""
+    cfg = full_config(dtype_name, "prod_vmix")
+    grid = build_grid(cfg, DEV)
+    bc = grid_bc(cfg)
+    km = cfg.km
+    tmix = sample.grid_tracers(cfg, grid, SEED + 31)
+    kout, kpp_run = kpp_state(cfg, grid, tmix, SEED + 32)
+    mix = kpp_state(full_config(dtype_name, "prod_mix"), grid, tmix[:2],
+                    SEED + 32)[1]
+    st = kpp.build_statics(cfg, grid)
+    dbloc = kpp.buoydiff(cfg, grid, st, tmix)[0]
+    n2 = dbloc / grid.vgrid.dzw[1:km + 1].reshape(km, 1, 1)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 33)
+    mu = grid.kmask_u.to(cfg.torch_dtype)
+
+    def vel():
+        return 5.0 * torch.randn(km, cfg.ny, cfg.nx, generator=gen,
+                                 device=DEV, dtype=cfg.torch_dtype) * mu
+    umix, vmix_, ucur, vcur = vel(), vel(), vel(), vel()
+    visc, vdc = kpp.ri_iwmix(cfg, grid, bc, st, dbloc, umix, vmix_)[:2]
+
+    def niw():
+        en = kpp.niw_energy(cfg, grid, st, kout.kbl, umix, vmix_, ucur, vcur)
+        return kpp.niw_mix(cfg, grid, st, dbloc, kout.hblt, kout.kbl, visc,
+                           vdc, vdc, en=en)
+    hcfg = full_config(dtype_name, "prod_hmix")
+    parts = {
+        "polzin_profile": lambda: tidal_mixing.polzin_diff(
+            cfg, grid, st.tidal_polzin, n2),
+        "niw_blke_energy_and_mix": niw,
+        "kpp_prod_vmix_menu": kpp_run,
+        "kpp_prod_mix_menu": mix,
+        "del4_tracer_nt2": lambda: hmix.hdifft_del4(hcfg, grid, bc,
+                                                    tmix[:2]),
+        "del4_momentum": lambda: hmix.hdiffu_del4(hcfg, grid, bc, umix,
+                                                  vmix_),
+    }
+    for name, fn in parts.items():
+        out = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        if not all(bool(torch.isfinite(o).all()) for o in outs
+                   if isinstance(o, torch.Tensor)):
+            raise AssertionError(f"{name} {dtype_name}: not finite")
+    ms = {name: time_ms(fn, 2, n_timed) for name, fn in parts.items()}
+    emit({"phase": "menu_parts", "dtype": dtype_name,
+          "dims": [cfg.nx, cfg.ny, km], "plain_ms": ms})
+    return ms
 
 
 def search_bytes(grid, dd, sla, rb, tlt, value_bytes: int) -> int:
@@ -1946,7 +2098,9 @@ def expected_counts(path: str, nsteps: int):
     flux = ("tracer", "clinic", "gm_flux")
     once = {"core": ("tracer", "clinic"), "gm_full": chain,
             "gm_flux": flux, "prod_dyn": chain, "prod_mix": chain,
-            "prod_full": chain, "prod_flux": flux}[path]
+            "prod_full": chain, "prod_flux": flux, "prod_vmix": chain,
+            "prod_hmix": ("tracer", "clinic"),
+            "core_topo": ("tracer", "clinic")}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
     if path == "prod_flux":  # the flux assembly's tripole row
@@ -2104,7 +2258,7 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
     difference is float32 rounding and not a fault of a kernel). The GM path
     starts from the stratified state, so that GM has slopes to work on."""
     ref = None
-    stratified = path != "core"
+    stratified = path not in ("core", "core_topo")
     on_path = [k for k, v in expected_counts(path, nsteps).items() if v]
     for dtype_name in ("float64", "float32"):
         cfg = full_config(dtype_name, path)
@@ -2146,7 +2300,7 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
 
 
 def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
-                    nsteps: int = 6, nprof: int = 1):
+                    nsteps: int = 4, nprof: int = 1):
     """Where a leapfrog step's time goes at full size, from the model's own
     initial state (rest, horizontally uniform: GM has no slopes to work on
     and its transition-layer search ends after a few levels) or from the
@@ -2264,10 +2418,13 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
 
 
 # the captured run loop's paths: (path, dtype, steps from rest); core and
-# gm_full take an averaging step at 17 between captured steps, prod_full
-# (the Robert filter) none
+# gm_full take an averaging step at 17 between captured steps, the
+# production paths (the Robert filter) none; prod_vmix jumps its calendar
+# halfway
 RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
-            ("prod_full", "float32", 8), ("prod_full", "float64", 8))
+            ("prod_full", "float32", 8), ("prod_full", "float64", 8),
+            ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
+            ("core_topo", "float32", 6))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -2374,26 +2531,48 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     one replay. The eager run's host-device synchronizations, and those of
     captured steps after the capture, must all be the solver's convergence
     reads. Then steps/s, the device's busy share, capture seconds, graphs
-    and peak device memory of both."""
+    and peak device memory of both. Under the lunar cycle the eager and the
+    captured run jump the calendar by LUNAR_JUMP_YEARS halfway, one step a
+    call, and the captured step's static lunar buffer must hold the
+    calendar's factor of each captured step."""
     t_phase = time.perf_counter()
     cfg = full_config(dtype_name, path)
     model = Model(cfg)
     forcing = path_forcing(model)
     allowed = solver_read_lines()
     start = model.initial_state()
+    lunar = model._lnc is not None
+    lunar_log = []  # (the static buffer after a captured step, the factor)
 
     def rewind(n=0):
         model.nsteps_total = n
         model.time_manager.reset()
 
+    def steps(state, n, compiled):
+        if not (lunar and n == nsteps):
+            return (model.run_compiled(state, n, forcing)[0] if compiled
+                    else model.run(state, n, forcing))
+        for i in range(n):
+            if i == n // 2:
+                model.time_manager.calendar.iyear += LUNAR_JUMP_YEARS
+            want = model.lunar_factor()
+            if not compiled:
+                state = model.run(state, 1, forcing)
+                continue
+            state, _ = model.run_compiled(state, 1, forcing)
+            if model._captured is not None:
+                lunar_log.append((model._captured.forcing.tidal_lnc.clone(),
+                                  want))
+        return state
+
     def eager(state=start, n=nsteps):
         with solver_iterations() as iters:
-            state = model.run(state, n, forcing)
+            state = steps(state, n, False)
         return state, list(iters)
 
     def compiled(state=start, n=nsteps):
         with solver_iterations() as iters:
-            state, _ = model.run_compiled(state, n, forcing)
+            state = steps(state, n, True)
         return state, list(iters)
 
     parts = {"model": time.perf_counter() - t_phase}
@@ -2464,9 +2643,20 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
         t0 = time.perf_counter()
         out["restart"] = restart_round_trip(model, forcing)
         parts["restart"] = time.perf_counter() - t0
+    if lunar:
+        got = [float(b) for b, _ in lunar_log]
+        want = [float(torch.tensor(w, dtype=cfg.torch_dtype))
+                for _, w in lunar_log]
+        out["lunar"] = {"jump_years": LUNAR_JUMP_YEARS,
+                        "captured_steps": len(got), "buffer": got,
+                        "calendar": want, "equal": got == want}
     out["phase_seconds"] = {**parts, "total": time.perf_counter() - t_phase}
     emit(out)
     broken = []
+    if lunar and not (out["lunar"]["equal"] and len(got) >= 2
+                      and max(want) - min(want) > 1e-3):
+        broken.append("the captured step's lunar factor is not the "
+                      "calendar's at every step, or did not move")
     if not bitwise and out["leaves_outside_spread"]:
         broken.append("state leaves outside the eager spread")
     if it_eager != it_comp:
@@ -2530,7 +2720,6 @@ def check_tavg_file(fname, stream, snapshot):
     ``snapshot`` = (nsamples, buffer) over nsamples (the minima and maxima
     as they are) in float32, and the file under the classic format's
     2 GiB offset limit. Returns (bytes, seconds to read and check)."""
-    import numpy as np
     from scipy.io import netcdf_file
     from pop2_tpu_torch import tavg
     t0 = time.perf_counter()
@@ -2786,9 +2975,10 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
     small 'mini' grid in float64: the parity band of the step-5 test. The GM
     path starts from the stratified state."""
-    cfg = (get_config("prod_full", **PATHS[path], **PROD_SMALL)
-           if path in PROD_PATHS else get_config("mini", **PATHS[path]))
-    stratified = path != "core"
+    cfg = path_config(get_config("prod_full", **PATHS[path], **PROD_SMALL)
+                      if path in PROD_PATHS
+                      else get_config("mini", **PATHS[path]), path)
+    stratified = path not in ("core", "core_topo")
     tavg = path == "core"  # with a tavg stream on 'mini'
     reset_counts()
     s_gpu, it_g, *av_g = _run_steps(cfg, nsteps, DEV, stratified, tavg)
@@ -2806,7 +2996,6 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     broken = {k: v for k, v in diffs.items() if not v <= 1e-7}
     if tavg:
         # each field's average, over its scale on the CPU
-        import numpy as np
         av_g, av_c = av_g[0], av_c[0]
         tavg_diffs = {n: float(np.abs(av_g[n] - a).max()
                                / (np.abs(a).max() or 1.0))
@@ -2951,6 +3140,7 @@ def main():
         run(gm_other_modes_phase, dtype_name)
         run(ragged_phase, dtype_name)
         run(fold_ragged_phase, dtype_name)
+        run(menu_parts_phase, dtype_name)
     launches = {}
     for path in PATHS:
         for dtype_name in ("float32", "float64"):
@@ -2969,6 +3159,9 @@ def main():
         run(breakdown_phase, path, "float32")
         if path != "core":
             run(breakdown_phase, path, "float32", True)
+        run(small_vs_cpu_phase, path)
+    for path in ("prod_vmix", "prod_hmix", "core_topo"):
+        run(path_vs_plain_phase, path)
         run(small_vs_cpu_phase, path)
     run(small_vs_cpu_phase, "prod_flux")
     run(overflow_phase)

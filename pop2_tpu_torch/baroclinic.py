@@ -15,13 +15,15 @@ Time-mixing: leapfrog with Euler-forward first step; the averaging or
 Robert filter is ``step``'s.
 
 The port carries the dynamical core, KPP (with its non-local tracer
-source and Jayne tidal mixing), GM, the submesoscale scheme (folded into
-the GM chain kernel where that runs, its own tendency otherwise), the
-chlorophyll (or Jerlov) shortwave heating, frazil ice, the passive tracers'
-surface fluxes, interior sources and resets, and the overflows' tracer
-exchange. The branches of the JAX package's driver for interior restoring,
-estuaries and geothermal flux are left out; ``supported.check_supported``
-refuses the config switches that would select them.
+source, tidal and near-inertial wave mixing), GM or the biharmonic tracer
+mixing, the submesoscale scheme (folded into the GM chain kernel where
+that runs, its own tendency otherwise), the chlorophyll (or Jerlov)
+shortwave heating, frazil ice, the passive tracers' surface fluxes,
+interior sources and resets, the overflows' tracer exchange, the
+geothermal bottom heat flux and depth acceleration. The branches of the
+JAX package's driver for interior restoring and estuaries are left out;
+``supported.check_supported`` refuses the config switches that would
+select them.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, ice, kpp
+from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, hmix, ice
+from pop2_tpu_torch import kpp
 from pop2_tpu_torch import overflows, submeso, sw_absorption, tracer_cuda
 from pop2_tpu_torch import tridiag, vmix
 from pop2_tpu_torch import constants as const
@@ -54,17 +57,19 @@ class BaroclinicOut(NamedTuple):
     kpp: Optional[kpp.KPPOut] = None  # under vmix='kpp': hblt, hmxl, ...
 
 
-def _timestep_arrays(cfg: ModelConfig, leapfrog: bool, device):
+def _timestep_arrays(cfg: ModelConfig, grid: Grid, leapfrog: bool):
     """c2dt factors (source/step_mod.F90:302-320): (c2dtt (km,) tensor,
-    c2dtu, c2dtp)."""
+    c2dtu, c2dtp). Under depth acceleration (``laccel``) the tracer step
+    of level k is dtt*dttxcel(k), the top level's unaccelerated
+    (source/time_management.F90:975-1009)."""
     dtt, dtu, dtp = cfg.time.dtt, cfg.time.dtu, cfg.time.dtp
     fac = 2.0 if leapfrog else 1.0
-    if cfg.time.laccel:
-        raise NotImplementedError(
-            "depth acceleration (laccel) is not ported yet (ROADMAP.md "
-            "Queue 1 item 11)")
-    c2dtt = torch.full((cfg.km,), fac * dtt, dtype=cfg.torch_dtype,
-                       device=device)
+    xcel = vmix.depth_accel(cfg, grid)
+    if xcel is not None:
+        c2dtt = fac * dtt * xcel
+    else:
+        c2dtt = torch.full((cfg.km,), fac * dtt, dtype=cfg.torch_dtype,
+                           device=grid.KMT.device)
     return c2dtt, fac * dtu, fac * dtp
 
 
@@ -88,7 +93,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     passive tracers; ``ovf_statics``: ``overflows.build_statics`` with the
     step's transports, product-set selection and set means (``step.step``
     computes them once a step)."""
-    c2dtt, c2dtu, _ = _timestep_arrays(cfg, leapfrog, dh.device)
+    c2dtt, c2dtu, _ = _timestep_arrays(cfg, grid, leapfrog)
     beta = cfg.time.alpha if leapfrog else cfg.time.theta
     varthick = cfg.sfc_layer == "varthick"
     press_avg = cfg.lpressure_avg and leapfrog
@@ -109,7 +114,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     # ---- vertical mixing coefficients (source/baroclinic.F90:714-734) -----
     coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix,
                               forcing=forcing, kpp_statics=kpp_statics,
-                              chl=chl)
+                              chl=chl, ucur=state.u_cur, vcur=state.v_cur)
     kppo = coeffs.kpp
     hblt = kppo.hblt if kppo is not None else None
     hmxl = kppo.hmxl if kppo is not None else None
@@ -128,7 +133,8 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     # horizontal mixing is the GM kernels' (KPP's boundary layer the
     # transition layer's diabatic depth), its |S|^2 vertical diffusivity
     # joins the implicit solves (source/hmix_gm.F90:1741-1748), and the
-    # tracer kernel runs without the Laplacian. The chain kernel folds the
+    # tracer kernel runs without the Laplacian; so it does beside the
+    # biharmonic mixing (del4, plain). The chain kernel folds the
     # submesoscale streamfunction into GM's; elsewhere the submesoscale
     # tendency is its own (mix_submeso.F90, beside hdifft in tracer_update)
     gm_out = None
@@ -148,6 +154,8 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     # ft is this step's own tensor: the terms below add to it in place
     if gm_out is not None:
         ft += gm_out.gtk
+    elif cfg.hmix_tracer == "del4":
+        ft += hmix.hdifft(cfg, grid, bc, tmix)
     if cfg.lsubmeso and not submeso_done:
         ft += submeso.submeso_tendency(cfg, grid, bc, ts_range, tmix,
                                        hmxl=hmxl)[0]
@@ -180,6 +188,17 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         ft += overflows.tendency(cfg, grid, ovf_statics, state.tracer_cur,
                                  trans=ovf_trans, sel=ovf_sel,
                                  sets_tavg=ovf_sets_tavg)
+
+    # geothermal bottom heat flux (geoheatflux.F90:69-232 and
+    # vertical_mix.F90:1428-1443: VTFB = -geoflux at k == KMT where
+    # zw(k) >= geoheatflux_depth; it enters the tendency as +geoflux*dzr)
+    if cfg.geoheatflux_const != 0.0:
+        kidx = torch.arange(cfg.km, device=ft.device).reshape(cfg.km, 1, 1)
+        bottom = ((kidx == grid.KMT[None] - 1)
+                  & (vg.zw.reshape(cfg.km, 1, 1) >= cfg.geoheatflux_depth))
+        geo = cfg.geoheatflux_const * const.HFLUX_FACTOR
+        ft[0] += torch.where(bottom, geo * vg.dzr.reshape(cfg.km, 1, 1),
+                             0.0)
 
     # ---- build RHS / predictor update (source/baroclinic.F90:2212-2300) ---
     rhs = torch.where(grid.kmask_t[None], c2dtt.reshape(1, cfg.km, 1, 1) * ft,
@@ -269,7 +288,7 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     ``coeffs_vdc``: the same vertical diffusivity used by the predictor.
     Returns (tracer_new, rho_new, qice, aqice).
     """
-    c2dtt, _, _ = _timestep_arrays(cfg, leapfrog, psurf_new.device)
+    c2dtt, _, _ = _timestep_arrays(cfg, grid, leapfrog)
     varthick = cfg.sfc_layer == "varthick"
     press_avg = cfg.lpressure_avg and leapfrog
     tracer_new = out.tracer_new

@@ -27,14 +27,19 @@ no atomics and are deterministic (see the note in ``csrc/clinic.cu``).
 Float32 and float64.
 
 Two modes, chosen by ``cfg.hmix_momentum``: ``'del2'`` fuses the Laplacian
-friction (``with_hdiffu=True``, the dynamical-core path); ``'aniso'`` runs
-the kernel without it (``with_hdiffu=False``: the um, vm planes and the ten
-weights are not read) and ``clinic_rhs`` adds the anisotropic friction of
-``hmix_aniso`` afterwards, ZX/ZY included, as the JAX package's wrapper
-does. Closed or tripole north edge (the kernel reads the fold of the north
-ghost row: u, v as NE-corner vectors, the density as a centre scalar, the
-ghost row's south-face flux vus as the fold of an E-face vector), 1-D layer
-thickness.
+friction (``with_hdiffu=True``, the dynamical-core path); ``'aniso'`` and
+``'del4'`` run the kernel without it (``with_hdiffu=False``: the um, vm
+planes and the ten weights are not read) and ``clinic_rhs`` adds the
+anisotropic or biharmonic friction of ``hmix`` afterwards, ZX/ZY included,
+as the JAX package's wrapper does. The um, vm operands feed the Laplacian
+friction alone: under ``ltopostress`` ``clinic_rhs`` hands the kernel their
+departure from the topographic-stress velocities
+(``hmix.topostress_relative``, formed once a step), and the kernel's fold
+of the north ghost row folds that difference, as the JAX package's
+``bc.n(umixk - TSU, ...)`` does. Closed or tripole north edge (the kernel
+reads the fold of the north ghost row: u, v as NE-corner vectors, the
+density as a centre scalar, the ghost row's south-face flux vus as the fold
+of an E-face vector), 1-D layer thickness.
 
 The pressure averaging, the Boussinesq scaling of the density and the choice
 of Coriolis weights stay in the wrapper, as in the JAX package.
@@ -96,15 +101,13 @@ def with_hdiffu(cfg) -> bool:
 
 def _check_mode(cfg, grid):
     todo = []
-    if cfg.hmix_momentum not in ("del2", "aniso"):
+    if cfg.hmix_momentum not in ("del2", "aniso", "del4"):
         todo.append(f"hmix_momentum={cfg.hmix_momentum!r} (with_hdiffu="
                     "False beside a friction that is not ported)")
     if cfg.ns_boundary not in ("closed", "tripole"):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if cfg.ltopostress:
-        todo.append("ltopostress")
     if grid.DZU is not None:
         todo.append("3-D layer thickness")
     if todo:
@@ -147,8 +150,8 @@ def coriolis_weights(cfg, leapfrog: bool):
 
 def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
                      vvc, smf, dhu, wc: float, wo: float):
-    """Plain PyTorch version: -advu + Coriolis - gradp [+ hdiffu_del2]
-    + vdiffu, masked, and the ZX/ZY sums (clinic,
+    """Plain PyTorch version: -advu + Coriolis - gradp [+ the Laplacian
+    friction of umix, vmixm] + vdiffu, masked, and the ZX/ZY sums (clinic,
     source/baroclinic.F90:1635-1895 and :1035-1057); the Laplacian only in
     the ``with_hdiffu`` mode. ``rhoavg`` is the averaged, Boussinesq-scaled
     density (``pgrad.rho_average``)."""
@@ -162,7 +165,7 @@ def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     fy = fy - pky
 
     if with_hdiffu(cfg):
-        hduk, hdvk = hmix.hdiffu(cfg, grid, bc, umix, vmixm)
+        hduk, hdvk = hmix.del2_friction(cfg, grid, bc, umix, vmixm)
         fx = fx + hduk
         fy = fy + hdvk
 
@@ -232,15 +235,19 @@ def clinic_rhs(cfg, grid, state, umix, vmixm, rho_new, vvc, smf, dhu,
                leapfrog: bool):
     """Model-facing wrapper: form the pressure-averaged, Boussinesq-scaled
     density, pick the Coriolis time weights, and compute (fx, fy, zx, zy)
-    (source/baroclinic.F90:935-1057). Without the fused Laplacian the
-    anisotropic friction is added to the forcing and its vertical mean
-    (clinic_pallas.py's wrapper does the same)."""
+    (source/baroclinic.F90:935-1057). The fused Laplacian acts on the
+    velocities' departure from the topographic-stress ones under
+    ``ltopostress``. Without it the anisotropic or biharmonic friction is
+    added to the forcing and its vertical mean (clinic_pallas.py's wrapper
+    does the same for aniso)."""
     rhoavg = pgrad.rho_average(cfg, grid, state.rho_old, state.rho_cur,
                                rho_new, leapfrog)
     wc, wo = coriolis_weights(cfg, leapfrog)
+    um, vm = (hmix.topostress_relative(cfg, grid, umix, vmixm)
+              if with_hdiffu(cfg) else (umix, vmixm))
     fx, fy, zx, zy = clinic_rhs_fields(
-        cfg, grid, state.u_cur, state.v_cur, state.u_old, state.v_old, umix,
-        vmixm, rhoavg, vvc, smf, dhu, wc, wo)
+        cfg, grid, state.u_cur, state.v_cur, state.u_old, state.v_old, um,
+        vm, rhoavg, vvc, smf, dhu, wc, wo)
     if not with_hdiffu(cfg):
         hdu, hdv = hmix.hdiffu(cfg, grid, grid_bc(cfg), umix, vmixm)
         dzc = thickness_u(cfg, grid)

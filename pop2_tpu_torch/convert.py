@@ -17,7 +17,8 @@ import torch
 
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
-from pop2_tpu_torch.grid import Grid, VGrid, build_aniso, resolve_device
+from pop2_tpu_torch.grid import (Grid, VGrid, build_aniso, build_topostress,
+                                 resolve_device)
 from pop2_tpu_torch.state import State
 
 
@@ -61,8 +62,10 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
     from a dict of NumPy arrays keyed by leaf name: floating leaves in the
     config's dtype, integer leaves as int32, masks as bool. The
     anisotropic-viscosity statics are built again from the grid's own
-    fields (``hmix_aniso.build_statics``), not taken from the dict; partial
-    bottom cells are not carried."""
+    fields (``hmix_aniso.build_statics``), not taken from the dict; the
+    topographic-stress velocities TSU/TSV are taken from it where it holds
+    them, and under ``ltopostress`` built from the grid's fields where it
+    does not; partial bottom cells are not carried."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
 
@@ -83,8 +86,16 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
             raise KeyError(f"{cls.__name__} fields missing: {missing}")
         return {n: tensor(leaves[prefix + n]) for n in names}
 
-    kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "aniso"))
+    kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "aniso", "TSU",
+                                "TSV"))
     kw["vgrid"] = VGrid(**fields(VGrid, "vgrid."))
+    if "TSU" in leaves and "TSV" in leaves:
+        kw["TSU"], kw["TSV"] = tensor(leaves["TSU"]), tensor(leaves["TSV"])
+    elif cfg.ltopostress:
+        kw["TSU"], kw["TSV"] = (tensor(a) for a in build_topostress(
+            cfg, *(np.asarray(leaves[n], np.float64) for n in (
+                "HT", "KMT", "KMU", "TLAT", "FCORT", "DXUR", "DYUR",
+                "HUR"))))
     if cfg.hmix_momentum == "aniso":
         kw["aniso"] = build_aniso(
             cfg, *(leaves[n] for n in ("HTN", "HTE", "DXU", "DYU", "DXUR",

@@ -30,8 +30,9 @@ class Forcing(TensorTree):
     shf_qsw: torch.Tensor   # (ny, nx) penetrating shortwave
     fw: torch.Tensor        # (ny, nx) freshwater flux (cm/s)
     atm_press: torch.Tensor  # (ny, nx) atmospheric pressure
-    # the 18.6-year lunar-nodal-cycle factor on the tidal energy; None is 1
-    # (the cycle itself is not ported: ROADMAP.md Queue 1 item 11)
+    # () the 18.6-year lunar-nodal-cycle factor on the tidal energy; None
+    # is 1. Under ltidal_lunar_cycle the model refreshes it from its
+    # calendar before every step (Model._lunar_forcing)
     tidal_lnc: Optional[torch.Tensor] = None
     # optional gas-exchange inputs (cfc_mod.F90 'model' formulation); without
     # u10_sqr the gas fluxes are zero

@@ -40,7 +40,9 @@ What a capture may not do, and how it is kept out:
 - read the device: the solver's tolerance is a host value kept on the grid
   (``solvers.tolerance``), PCSI's coefficients a device table;
 - keep a host value that changes from step to step: a plain leapfrog step
-  takes none (the calendar never reaches the step);
+  takes none (the calendar reaches it only as the lunar factor of the
+  tidal energy, which the model writes into its forcing tensor before the
+  step and ``step`` copies into the static forcing buffer);
 - fill a cache on the ``Grid`` object (the kernel wrappers' operands, the
   tavg streams' static fields): a cache first filled inside a capture
   would hold graph memory that no kernel has written. The graphs are

@@ -161,6 +161,10 @@ class Grid(TensorTree):
     DZU: Optional[torch.Tensor] = None
     # anisotropic-viscosity statics (hmix_momentum='aniso')
     aniso: Optional["AnisoStatics"] = None
+    # the topographic-stress equilibrium velocities (ltopostress;
+    # source/topostress.F90:119-235), (ny, nx) at U points
+    TSU: Optional[torch.Tensor] = None
+    TSV: Optional[torch.Tensor] = None
 
 
 def pressure_bars(depth_m: np.ndarray) -> np.ndarray:
@@ -299,6 +303,16 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def vertical_dz(cfg: ModelConfig) -> np.ndarray:
+    """Layer thicknesses (cm), float64, of the config's internal or uniform
+    vertical grid."""
+    if cfg.vert_grid == "internal":
+        return _vert_grid_internal(cfg.km) * const.CMPERM
+    if cfg.vert_grid == "uniform":
+        return np.full(cfg.km, 5500.0 / cfg.km) * const.CMPERM
+    raise ValueError(f"unknown vert_grid option {cfg.vert_grid}")
+
+
 def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     """Generate the full grid for the given config with the internal
     analytic generators, in float64 NumPy, and return it as tensors of the
@@ -378,12 +392,7 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
         FCORT = 2.0 * const.OMEGA * np.sin(TLAT)
 
     # ---- vertical grid -----------------------------------------------------
-    if cfg.vert_grid == "internal":
-        dz = _vert_grid_internal(km) * const.CMPERM
-    elif cfg.vert_grid == "uniform":
-        dz = np.full(km, 5500.0 / km) * const.CMPERM
-    else:
-        raise ValueError(f"unknown vert_grid option {cfg.vert_grid}")
+    dz = vertical_dz(cfg)
     # derived vertical quantities (source/grid.F90:786-803)
     dzw = np.zeros(km + 1)
     dzw[0] = 0.5 * dz[0]
@@ -569,9 +578,13 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     if cfg.hmix_momentum == "aniso":
         aniso = build_aniso(cfg, HTN, HTE, DXU, DYU, DXUR, DYUR, ULAT, KMU,
                             device)
+    TSU = TSV = None
+    if cfg.ltopostress:
+        TSU, TSV = (f(a) for a in build_topostress(
+            cfg, HT, KMT, KMU, TLAT, FCORT, DXUR, DYUR, HUR))
 
     return Grid(
-        aniso=aniso,
+        aniso=aniso, TSU=TSU, TSV=TSV,
         DXU=f(DXU), DYU=f(DYU), DXT=f(DXT), DYT=f(DYT),
         DXUR=f(DXUR), DYUR=f(DYUR), DXTR=f(DXTR), DYTR=f(DYTR),
         HTN=f(HTN), HTE=f(HTE), HUS=f(HUS), HUW=f(HUW),
@@ -603,6 +616,39 @@ def build_aniso(cfg: ModelConfig, HTN, HTE, DXU, DYU, DXUR, DYUR, ULAT,
     from pop2_tpu_torch import hmix_aniso  # deferred: imports grid
     return hmix_aniso.build_statics(cfg, grid_bc(cfg), HTN, HTE, DXU, DYU,
                                     DXUR, DYUR, ULAT, KMU, device)
+
+
+def build_topostress(cfg: ModelConfig, HT, KMT, KMU, TLAT, FCORT, DXUR,
+                     DYUR, HUR):
+    """(TSU, TSV), the Neptune topographic-stress velocities, float64 NumPy
+    (source/topostress.F90:119-301): the depth smoothed ``nsmooth_topo``
+    times by a 9-point filter over ocean points, the streamfunction
+    TSP = -f L^2 H with the length scale L from 12 km at the equator to 3 km
+    at the poles, and its gradient at the U corners."""
+    def sh(f, di, dj):
+        return _np_shift(f, di, dj, cfg.ew_boundary, cfg.ns_boundary)
+
+    HT, KMT, KMU = (np.asarray(a) for a in (HT, KMT, KMU))
+    htnew = np.asarray(HT, np.float64).copy()
+    wet = (KMT > 0).astype(np.float64)
+
+    def s9(f):
+        return (4.0 * f
+                + 2.0 * (sh(f, 1, 0) + sh(f, -1, 0) + sh(f, 0, 1)
+                         + sh(f, 0, -1))
+                + sh(f, 1, 1) + sh(f, 1, -1) + sh(f, -1, 1) + sh(f, -1, -1))
+
+    for _ in range(cfg.nsmooth_topo):
+        nb = s9(wet)
+        htnew = np.where((KMT > 0) & (nb > 0),
+                         s9(htnew * wet) / np.where(nb > 0, nb, 1.0), 0.0)
+    tslse, tslsp = 12.0e5, 3.0e5
+    scale = tslsp + (tslse - tslsp) * (0.5 + 0.5 * np.cos(2.0 * TLAT))
+    tsp = np.where(KMT > 0, -FCORT * scale ** 2 * htnew, 0.0)
+    t_ne, t_n, t_e = sh(tsp, 1, 1), sh(tsp, 0, 1), sh(tsp, 1, 0)
+    TSV = DXUR * 0.5 * HUR * (t_ne - tsp - t_n + t_e)
+    TSU = -DYUR * 0.5 * HUR * (t_ne - tsp + t_n - t_e)
+    return np.where(KMU > 0, TSU, 0.0), np.where(KMU > 0, TSV, 0.0)
 
 
 def thickness_t(cfg: ModelConfig, grid: Grid):

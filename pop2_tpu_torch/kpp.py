@@ -23,13 +23,17 @@ equation-of-state call over the (target, source) level pairs the grid
 needs, contracted with the pair weights built once on the host.
 
 Interface-indexed arrays (VISC/VDC) have shape (km+2, ny, nx) with index k
-the reference's 0:km+1 (k = the interface below layer k). The near-inertial
-wave mixing (``blke``, ``niw_energy``, ``niw_mix``) is not ported
-(``supported.py``, ROADMAP.md Queue 1 item 11).
+the reference's 0:km+1 (k = the interface below layer k). The tidal
+diffusivity (``ri_iwmix``) takes the Jayne, Schmittner or Polzin method
+(``tidal_mixing``), the Southern-Ocean floor and the lunar factor; the
+near-inertial wave mixing (``blke``, ``niw_energy``, ``niw_mix``,
+niw_mixing.F90) deposits its diffusivity below the boundary layer between
+``bldepth`` and ``blmix``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -75,7 +79,12 @@ class KPPStatics(NamedTuple):
     pair_k: torch.Tensor        # (P,) target level of each (k, m) pair
     pair_m: torch.Tensor        # (P,) source level
     pair_w: torch.Tensor        # (km, P) weights: RHOAVG_k = W @ rho_p
-    tidal_coef: Optional[torch.Tensor] = None  # (km, ny, nx) Gamma q E F(z)
+    tidal_coef: Optional[torch.Tensor] = None  # (km, ny, nx) Jayne or
+    #                                            Schmittner coefficient
+    tidal_socn: Optional[torch.Tensor] = None   # (km, ny, nx) SO floor
+    tidal_polzin: Optional[tidal_mixing.PolzinStatics] = None
+    niw_energy: Optional[torch.Tensor] = None   # (ny, nx) NIW flux from a
+    #                                             file (erg/s/cm^2)
 
 
 class KPPOut(NamedTuple):
@@ -193,23 +202,45 @@ def build_statics(cfg: ModelConfig, grid: Grid) -> KPPStatics:
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev,
                                                            dtype=dt)
 
+    tidal = cfg.ltidal_mixing
     return KPPStatics(
         bckgrnd_vdc=t(bck_vdc), bckgrnd_vvc=t(bck_vvc), uref_w=t(uref_w),
         pair_k=torch.as_tensor(pair_k, dtype=torch.long, device=dev),
         pair_m=torch.as_tensor(pair_m, dtype=torch.long, device=dev),
-        pair_w=t(pw), tidal_coef=_tidal_coef_field(cfg, grid, t))
+        pair_w=t(pw), tidal_coef=_tidal_coef_field(cfg, grid, t),
+        tidal_socn=(t(tidal_mixing.schmittner_socn_floor(cfg, grid))
+                    if tidal and cfg.ltidal_schmittner_socn else None),
+        tidal_polzin=(tidal_mixing.polzin_statics(cfg, grid)
+                      if tidal and cfg.tidal_mixing_method == "polzin"
+                      else None),
+        niw_energy=_niw_energy_field(cfg, t))
 
 
 def _tidal_coef_field(cfg, grid, to_tensor):
-    """The static tidal coefficient of the Jayne method, or None without
-    tidal mixing (the other methods are refused by ``supported.py``)."""
-    if not cfg.ltidal_mixing:
+    """The static tidal coefficient of the method: Jayne's F(z) profile or
+    Schmittner's sum over deeper levels; None without tidal mixing or under
+    Polzin (whose profile is the step's)."""
+    method = cfg.tidal_mixing_method
+    if not cfg.ltidal_mixing or method == "polzin":
         return None
-    if cfg.tidal_mixing_method != "jayne":
-        raise NotImplementedError(
-            f"tidal_mixing_method={cfg.tidal_mixing_method!r} is not ported "
-            "yet (ROADMAP.md Queue 1 item 11)")
+    if method == "schmittner":
+        return to_tensor(tidal_mixing.build_tidal_coef_schmittner(cfg, grid))
+    if method != "jayne":
+        raise ValueError(f"tidal_mixing_method={method!r}")
     return to_tensor(tidal_mixing.build_tidal_coef(cfg, grid))
+
+
+def _niw_energy_field(cfg, to_tensor):
+    """The NIW energy flux of ``niw_energy_file`` (a POP binary record),
+    W/m^2 -> erg/s/cm^2 (niw_mixing.F90:361-365); None without a file (the
+    constant ``niw_energy_const`` applies)."""
+    if not cfg.lniw_mixing or cfg.niw_energy_file is None:
+        return None
+    raw = np.fromfile(cfg.niw_energy_file, dtype=">f8")
+    n = cfg.ny * cfg.nx
+    if raw.size < n:
+        raise ValueError("niw_energy_file too small")
+    return to_tensor(1000.0 * raw[:n].reshape(cfg.ny, cfg.nx))
 
 
 def _rho_full(T, S, press):
@@ -292,7 +323,10 @@ def _fill_down(field, kmt):
 def ri_iwmix(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
              dbloc, umix, vmix_, tidal_lnc=None):
     """Interior mixing: background, shear instability and, with
-    ``ltidal_mixing``, the Jayne tidal diffusivity
+    ``ltidal_mixing``, the tidal diffusivity of the configured method (the
+    static coefficient over N^2, or Polzin's profile of the step's N^2),
+    raised to the Southern-Ocean floor where that is on and scaled by the
+    lunar factor ``tidal_lnc`` (None is 1)
     (source/vmix_kpp.F90:1428-1995). Returns (visc, vdc, kvmix, kvmix_m):
     visc and vdc as (km+2, ny, nx) interface arrays (index k = reference
     k; 0 and km+1 zero padding for blmix), the KVMIX/KVMIX_M diagnostics
@@ -323,14 +357,24 @@ def ri_iwmix(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
 
     bck_vdc, bck_vvc = st.bckgrnd_vdc, st.bckgrnd_vvc
     ones = torch.ones_like(ri)
-    if cfg.ltidal_mixing and st.tidal_coef is not None:
+    if cfg.ltidal_mixing and (st.tidal_coef is not None
+                              or st.tidal_polzin is not None):
         # kappa_tidal capped at tidal_mix_max (vmix_kpp.F90:1773-1835,
         # tidal_compute_diff :3046-3140)
         dzt = thickness_t(cfg, grid)
         dzt_kp1 = torch.cat([dzt[1:], dzt[-1:]])
         n2 = dbloc / (0.5 * (dzt + dzt_kp1))
         lnc = 1.0 if tidal_lnc is None else tidal_lnc
-        tdiff = torch.where(n2 > 0.0, lnc * st.tidal_coef / (n2 + EPS), 0.0)
+        if st.tidal_polzin is not None:
+            tdiff = lnc * tidal_mixing.polzin_diff(cfg, grid,
+                                                   st.tidal_polzin, n2)
+        else:
+            tdiff = torch.where(n2 > 0.0, lnc * st.tidal_coef / (n2 + EPS),
+                                0.0)
+        if st.tidal_socn is not None:
+            # Schmittner's Southern-Ocean deep floor
+            # (source/tidal_mixing.F90:1410-1435)
+            tdiff = torch.maximum(tdiff, st.tidal_socn)
         tdiff = torch.clamp(tdiff, max=cfg.tidal_mix_max)
         pr = cfg.prandtl
         kvmix_m = pr * torch.clamp(bck_vvc / pr + tdiff,
@@ -772,13 +816,93 @@ def hmxl_diag(cfg: ModelConfig, grid: Grid, dbsfc):
     return torch.where(any_hit, _pick(hcand, first), hmxl)
 
 
+def blke(cfg: ModelConfig, grid: Grid, u, v, kbl):
+    """Boundary-layer kinetic energy (erg/cm^2): 1/2 rho_sw (u^2 + v^2) dz
+    summed over the levels k <= KBL (blke, source/vmix_kpp.F90:4072-4124)."""
+    km = cfg.km
+    ke = 0.5 * const.RHO_SW * (u ** 2 + v ** 2) * _col(grid.vgrid.dz)
+    return torch.sum(torch.where(_kidx(km, u.device) <= kbl[None], ke, 0.0),
+                     dim=0)
+
+
+def niw_energy(cfg: ModelConfig, grid: Grid, st: KPPStatics, kbl,
+               umix, vmix_, ucur=None, vcur=None):
+    """The NIW energy input En (compute_niw_energy_flux,
+    source/vmix_kpp.F90:3888-4065): under 'external' the file's flux or
+    ``niw_energy_const``; under 'blke' 5 % of the step's change of the
+    boundary-layer kinetic energy, zero within 5 degrees of the equator and
+    cosine-tapered to 10."""
+    coef = (cfg.niw_local_mixing_fraction * cfg.niw_mixing_efficiency
+            * cfg.niw_obs2model_ratio
+            * (1.0 - cfg.niw_boundary_layer_absorption) / const.RHO_FW)
+    if cfg.niw_energy_type == "blke" and ucur is not None:
+        ke_mix = blke(cfg, grid, umix, vmix_, kbl)
+        ke_cur = blke(cfg, grid, ucur, vcur, kbl)
+        en = torch.abs(0.05 * (ke_cur - ke_mix) / cfg.time.dtt)
+        latd = grid.TLAT * const.RADIAN
+        cosf = 0.5 * (torch.cos(2.0 * math.pi * latd / 10.0) + 1.0)
+        en = torch.where(torch.abs(latd) < 5.0, 0.0,
+                         torch.where(torch.abs(latd) < 10.0, en * cosf, en))
+        return coef * en * grid.RCALCT
+    if st.niw_energy is not None:
+        return coef * st.niw_energy * grid.RCALCT
+    return coef * (cfg.niw_energy_const * 1000.0) * grid.RCALCT
+
+
+def niw_mix(cfg: ModelConfig, grid: Grid, st: KPPStatics, dbloc, hblt, kbl,
+            visc, vdc_t, vdc_s, en=None):
+    """Near-inertial-wave mixing (source/niw_mixing.F90 niw_mix :472-700):
+    the energy flux En deposits a diffusivity En/N^2 below the boundary
+    layer, decaying exponentially away from its base and normalized over
+    the column; the boundary layer takes the value at KBL, which also caps
+    the column, and ``niw_mix_max`` caps it all. ``visc``, ``vdc_t``,
+    ``vdc_s`` are (km+2, ...) interface arrays as ``ri_iwmix``'s; returns
+    new ones."""
+    km = cfg.km
+    zw = _col(grid.vgrid.zw)
+    dzw = _col(grid.vgrid.dzw[1:km + 1])
+    kidx = _kidx(km, dbloc.device)
+
+    if en is None:
+        en = niw_energy(cfg, grid, st, kbl, None, None)
+
+    active = (kidx >= kbl[None]) & (kidx < grid.KMT[None])
+    decay = torch.exp(-(zw - hblt[None]) / cfg.niw_vert_decay_scale)
+    norm = torch.sum(torch.where(active, decay * dzw, 0.0), dim=0)
+
+    n2 = dbloc / dzw
+    kap_n2 = torch.where(n2 > 0.0,
+                         en[None] / torch.where(n2 > 0.0, n2, 1.0), 0.0)
+    norm_ok = norm > 0.0
+    kvniw = torch.where(norm_ok[None] & active,
+                        kap_n2 * decay
+                        / torch.where(norm_ok, norm, 1.0)[None], 0.0)
+    kvniw = torch.where(active, torch.clamp(
+        torch.maximum(vdc_t[1:km + 1], kvniw), max=cfg.niw_mix_max), 0.0)
+    # the value at KBL fills the boundary layer and caps the column
+    w4 = torch.where((kbl >= 1) & (kbl <= km), _pick(
+        kvniw, torch.clamp(kbl.long() - 1, 0, km - 1)), 0.0)[None]
+    in_bl = kidx < kbl[None]
+
+    def apply(vk, scale=1.0):
+        mid = torch.where(active, scale * kvniw, vk[1:km + 1])
+        mid = torch.where(in_bl, scale * w4, mid)
+        out = vk.clone()
+        out[1:km + 1] = torch.minimum(mid, scale * w4)
+        return out
+
+    return (apply(visc, cfg.prandtl), apply(vdc_t), apply(vdc_s))
+
+
 def kpp_coeffs(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
                tmix, umix, vmix_, stf, shf_qsw, smft,
                convect_diff: float, convect_visc: float, chl=None,
-               tidal_lnc=None, rhomix=None) -> KPPOut:
+               tidal_lnc=None, rhomix=None, ucur=None,
+               vcur=None) -> KPPOut:
     """The KPP pipeline (driver: source/vmix_kpp.F90:918-1422), with the
     diagnostics the tavg fields read (TPOWER where the mixing-time density
-    ``rhomix`` is given)."""
+    ``rhomix`` is given). ``ucur``/``vcur``, the current velocities, feed
+    the 'blke' NIW energy."""
     km = cfg.km
     dbloc, dbsfc = buoydiff(cfg, grid, st, tmix)
     visc, vdc_s, kvmix, kvmix_m = ri_iwmix(cfg, grid, bc, st, dbloc, umix,
@@ -789,6 +913,10 @@ def kpp_coeffs(cfg: ModelConfig, grid: Grid, bc: BC, st: KPPStatics,
     hblt, ustar, bfsfc, stable, kbl = bldepth(
         cfg, grid, bc, st, dbloc, dbsfc, tmix, umix, vmix_, stf, shf_qsw,
         smft, chl=chl)
+    if cfg.lniw_mixing:
+        en = niw_energy(cfg, grid, st, kbl, umix, vmix_, ucur, vcur)
+        visc, vdc_t, vdc_s = niw_mix(cfg, grid, st, dbloc, hblt, kbl, visc,
+                                     vdc_t, vdc_s, en=en)
     visc, vdc_t, vdc_s, ghat = blmix(cfg, grid, st, visc, vdc_t, vdc_s,
                                      hblt, ustar, bfsfc, stable, kbl)
 

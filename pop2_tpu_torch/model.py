@@ -41,7 +41,7 @@ import torch
 
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch import eos, graphs, kpp, overflows, solvers
-from pop2_tpu_torch import step as step_mod, sw_absorption
+from pop2_tpu_torch import step as step_mod, sw_absorption, tidal_mixing
 from pop2_tpu_torch.passive_tracers import PassiveTracers
 from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
@@ -80,6 +80,13 @@ class Model:
             cfg.time.dtt, start_year=cfg.time.start_year,
             start_month=cfg.time.start_month, start_day=cfg.time.start_day,
             allow_leapyear=cfg.time.allow_leapyear)
+        # the lunar factor of the tidal energy: one 0-d device tensor,
+        # refilled from the calendar before every step (``_lunar_forcing``),
+        # in the model's forcing before any capture
+        self._lnc = None
+        if cfg.ltidal_mixing and cfg.ltidal_lunar_cycle:
+            self._lnc = torch.zeros((), dtype=cfg.torch_dtype, device=device)
+            self.forcing = self._lunar_forcing(self.forcing)
         # the captured leapfrog step of run_compiled, made once an eager
         # leapfrog step has built every lazily made operand
         self._captured: Optional[graphs.CapturedStep] = None
@@ -168,6 +175,24 @@ class Model:
         self.time_manager.advance(
             0.5 * self.cfg.time.dtt if avg_ts else None)
         return leapfrog, avg_ts
+
+    def lunar_factor(self) -> float:
+        """The lunar nodal factor of the tidal energy at the calendar's
+        date (``tidal_mixing.lunar_nodal_modulation``)."""
+        return tidal_mixing.lunar_nodal_modulation(
+            self.time_manager.calendar.year_fraction)
+
+    def _lunar_forcing(self, forcing: Forcing) -> Forcing:
+        """``forcing`` with the next step's lunar factor, read from the
+        calendar before the step advances it (the JAX package's
+        ``advance``), under ``ltidal_lunar_cycle``; else ``forcing``. The
+        factor is written into the model's one device tensor (a fill, no
+        host-device copy), which the captured step copies into its static
+        buffer before each replay."""
+        if self._lnc is None:
+            return forcing
+        self._lnc.fill_(self.lunar_factor())
+        return forcing.replace(tidal_lnc=self._lnc)
 
     def step_args(self, leapfrog: bool):
         """The step's keyword arguments after (leapfrog, avg_ts)."""
@@ -277,7 +302,7 @@ class Model:
     def advance(self, state: State, forcing: Optional[Forcing] = None):
         """Advance one step; returns (state, StepDiagnostics). With output
         streams the step returns its extras and the output hook runs."""
-        forcing = forcing or self.forcing
+        forcing = self._lunar_forcing(forcing or self.forcing)
         leapfrog, avg_ts = self._next_step()
         with_output = bool(self.tavg_streams or self.history_streams)
         out = step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
@@ -307,9 +332,12 @@ class Model:
         streams accumulate inside the captured step; a full stream is
         written after the step that filled it. Snapshot streams and
         calendar-scheduled tavg streams need the host every step: then
-        every step goes through ``advance``. Returns (state, diagnostics of
-        the last step). The state returned is the caller's own; the graphs'
-        buffers stay inside the model."""
+        every step goes through ``advance``. Under ``ltidal_lunar_cycle``
+        the lunar factor is read from the calendar before every step and
+        copied into the captured step's static forcing buffer before its
+        replay. Returns (state, diagnostics of the last step). The state
+        returned is the caller's own; the graphs' buffers stay inside the
+        model."""
         forcing = forcing or self.forcing
         diags = None
         if self.history_streams or any(s.flag_name
@@ -322,14 +350,15 @@ class Model:
             leapfrog, avg_ts = self.step_flags(self.nsteps_total + 1)
             if leapfrog and not avg_ts and (self._captured is not None
                                             or self._eager_leapfrog_done):
+                step_forcing = self._lunar_forcing(forcing)
                 if self._captured is None:
                     self._captured = graphs.CapturedStep(self, state,
-                                                         forcing)
+                                                         step_forcing)
                 if not in_graph:
                     self._captured.load(state)
                     in_graph = True
                 self._next_step()
-                self._captured.step(forcing)
+                self._captured.step(step_forcing)
                 for stream in self.tavg_streams:
                     self._write_if(stream, stream.ready)
                 diags = None

@@ -1,8 +1,8 @@
 """Seeded sample inputs: production-shaped isopycnal slopes for checks of the
-GM/Redi path, and a stepped bottom with ocean across a tripole fold for
-checks of the kernels' north edge. The CPU tests hand them to this package
-and to its reference, the GPU smoke test to the kernels and their plain
-versions."""
+GM/Redi path, a stepped bottom with ocean across a tripole fold for checks
+of the kernels' north edge, and a depth-acceleration profile. The CPU tests
+hand them to this package and to its reference, the GPU smoke test to the
+kernels and their plain versions."""
 
 from __future__ import annotations
 
@@ -154,3 +154,13 @@ def open_top_dxu(grid):
     dxu = grid.DXU.clone()
     dxu[-1] = dxu.max()
     return grid.replace(DXU=dxu)
+
+
+def depth_accel_profile(zt, depth=1000.0e2, deepest=2.0):
+    """A ``dttxcel`` for depth acceleration (``laccel``) over level centres
+    ``zt`` (cm): 1 down to ``depth``, then rising linearly with depth to
+    ``deepest`` at the bottom level (the shape of the reference's
+    accel_file profiles for spin-up)."""
+    zt = np.asarray(zt, np.float64)
+    ramp = np.clip((zt - depth) / (zt[-1] - depth), 0.0, 1.0)
+    return tuple(float(1.0 + (deepest - 1.0) * r) for r in ramp)

@@ -229,6 +229,13 @@ def post(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
         u_new = torch.where(grid.kmask_u, u_new, 0.0)
         v_new = torch.where(grid.kmask_u, v_new, 0.0)
 
+    if cfg.ldamp_uv:
+        # velocity damping of the new time level (damping.F90 damping_uv,
+        # called from step_mod.F90:600-602)
+        spy = 365.0 * 86400.0 / cfg.time.dtt
+        u_new = u_new * (1.0 - torch.clamp(torch.abs(u_new) / spy, max=0.99))
+        v_new = v_new * (1.0 - torch.clamp(torch.abs(v_new) / spy, max=0.99))
+
     # 6. pressure guess extrapolation (source/step_mod.F90:634-640)
     pguess = 3.0 * (tout.psurf_new - state.psurf_cur) + state.psurf_old
 
@@ -272,11 +279,12 @@ def post(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, state: State,
         new = _avg_filter(cfg, grid, ts_range, state, new)
     if not with_extras:
         return new
-    return new, extras(cfg, p, state, tracer_new, leapfrog, rf_tend_tracer)
+    return new, extras(cfg, grid, p, state, tracer_new, leapfrog,
+                       rf_tend_tracer)
 
 
-def extras(cfg: ModelConfig, p: PreOut, state: State, tracer_new,
-           leapfrog: bool, rf_tend_tracer=None) -> dict:
+def extras(cfg: ModelConfig, grid: Grid, p: PreOut, state: State,
+           tracer_new, leapfrog: bool, rf_tend_tracer=None) -> dict:
     """The step-internal fields the tavg registry accumulates (the JAX
     package's step extras): KPP's HBLT/HMXL and mixing internals
     (vmix_kpp.F90), the diffusivity and viscosity, GM's diagnostic columns
@@ -286,8 +294,7 @@ def extras(cfg: ModelConfig, p: PreOut, state: State, tracer_new,
     physics gives None."""
     bout = p.bout
     kppo, gmo = bout.kpp, bout.gm
-    c2dtt = baroclinic._timestep_arrays(cfg, leapfrog,
-                                        tracer_new.device)[0]
+    c2dtt = baroclinic._timestep_arrays(cfg, grid, leapfrog)[0]
     base = state.tracer_old if leapfrog else state.tracer_cur
     out = {name: getattr(kppo, name) if kppo is not None else None
            for name in ("hblt", "hmxl", "hmxl_dr", "kvmix", "kvmix_m",

@@ -35,11 +35,10 @@ def unsupported(cfg: ModelConfig) -> list:
          f"ns_boundary={cfg.ns_boundary!r}"),
         (cfg.tadvect not in ("centered", "upwind3"),
          f"tadvect={cfg.tadvect!r} (Queue 1 item 11: advt_lw_lim)"),
-        (cfg.hmix_tracer not in ("del2", "gm"),
-         f"hmix_tracer={cfg.hmix_tracer!r} (Queue 1 items 7/11: hmix del4 "
-         "beside gm.py)"),
-        (cfg.hmix_momentum not in ("del2", "aniso"),
-         f"hmix_momentum={cfg.hmix_momentum!r} (Queue 1 item 11: del4)"),
+        (cfg.hmix_tracer not in ("del2", "gm", "del4"),
+         f"hmix_tracer={cfg.hmix_tracer!r}"),
+        (cfg.hmix_momentum not in ("del2", "aniso", "del4"),
+         f"hmix_momentum={cfg.hmix_momentum!r}"),
         (cfg.vmix not in ("const", "rich", "kpp"),
          f"vmix={cfg.vmix!r}"),
         (not cfg.implicit_vertical_mix,
@@ -52,30 +51,12 @@ def unsupported(cfg: ModelConfig) -> list:
         (cfg.sw_absorption == "chlorophyll"
          and cfg.chl_option not in ("const", "file", "model"),
          f"chl_option={cfg.chl_option!r}"),
-        (cfg.geoheatflux_const != 0.0,
-         "geoheatflux_const (Queue 1 item 11)"),
-        (cfg.ldamp_uv, "ldamp_uv (Queue 1 item 11)"),
         (cfg.lestuary_exch, "lestuary_exch (Queue 1 item 11: estuary.py)"),
-        (cfg.ltidal_mixing and cfg.tidal_mixing_method == "polzin",
-         "tidal_mixing_method='polzin' (Queue 1 item 11: Polzin/Melet "
-         "tidal mixing)"),
-        (cfg.ltidal_mixing and cfg.tidal_mixing_method == "schmittner",
-         "tidal_mixing_method='schmittner' (Queue 1 item 11: Schmittner "
-         "tidal mixing)"),
         (cfg.ltidal_mixing and cfg.tidal_mixing_method not in (
             "jayne", "polzin", "schmittner"),
          f"tidal_mixing_method={cfg.tidal_mixing_method!r}"),
-        (cfg.ltidal_mixing and cfg.ltidal_schmittner_socn,
-         "ltidal_schmittner_socn (Queue 1 item 11: the Southern-Ocean "
-         "floor of tidal mixing)"),
-        (cfg.ltidal_mixing and cfg.ltidal_lunar_cycle,
-         "ltidal_lunar_cycle (Queue 1 item 11: the lunar cycle of tidal "
-         "mixing)"),
-        (cfg.lniw_mixing, "lniw_mixing (Queue 1 item 11: NIW mixing)"),
-        (cfg.ltopostress, "ltopostress (Queue 1 item 11)"),
         (t.time_mix_opt not in ("avg", "avgfit", "robert"),
          f"time_mix_opt={t.time_mix_opt!r}"),
-        (t.laccel, "laccel depth acceleration (Queue 1 item 11)"),
         (cfg.solver.preconditioner.lower() not in ("diagonal", "fspai"),
          f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 11: "
          "spai / file)"),

@@ -22,8 +22,9 @@ carries stay in registers), and above that the wrapper launches groups
 (``tracer_groups``). Float32 and float64.
 
 Two modes, chosen by ``cfg.hmix_tracer``: ``'del2'`` fuses the Laplacian
-mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` leaves the
-horizontal mixing to the GM kernels and computes advection + vertical
+mixing (``with_del2=True``, the dynamical-core path); ``'gm'`` and
+``'del4'`` leave the horizontal mixing to the GM kernels or to the plain
+biharmonic operator (``hmix.hdifft_del4``) and compute advection + vertical
 diffusion only (``with_del2=False``), a separate instance of the kernel that
 does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered or upwind3
 (QUICKEST) advection, closed or tripole north edge (the frame's rows past
@@ -151,7 +152,7 @@ def _check_mode(cfg, grid):
     todo = []
     if cfg.tadvect not in ("centered", "upwind3"):
         todo.append(f"tadvect={cfg.tadvect!r}")
-    if cfg.hmix_tracer not in ("del2", "gm"):
+    if cfg.hmix_tracer not in ("del2", "gm", "del4"):
         todo.append(f"hmix_tracer={cfg.hmix_tracer!r} (with_del2=False "
                     "beside a mixing scheme that is not ported)")
     if cfg.ns_boundary not in ("closed", "tripole"):

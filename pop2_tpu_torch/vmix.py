@@ -33,10 +33,11 @@ class VmixCoeffs(NamedTuple):
 
 def vmix_coeffs(cfg: ModelConfig, grid: Grid, bc: BC, tmix, umix, vmix_,
                 rhomix, forcing=None, kpp_statics=None,
-                chl=None) -> VmixCoeffs:
+                chl=None, ucur=None, vcur=None) -> VmixCoeffs:
     """Dispatch to the chosen scheme (source/vertical_mix.F90:518-667).
-    KPP takes the surface ``forcing``, its statics (``kpp.build_statics``)
-    and the chlorophyll field of the shortwave absorption."""
+    KPP takes the surface ``forcing``, its statics (``kpp.build_statics``),
+    the chlorophyll field of the shortwave absorption and the current
+    velocities (the 'blke' NIW energy)."""
     if cfg.vmix == "const":
         return _coeffs_const(cfg, grid)
     if cfg.vmix == "rich":
@@ -46,7 +47,7 @@ def vmix_coeffs(cfg: ModelConfig, grid: Grid, bc: BC, tmix, umix, vmix_,
             cfg, grid, bc, kpp_statics, tmix, umix, vmix_, forcing.stf,
             forcing.shf_qsw, forcing.smft, cfg.convect_diff,
             cfg.convect_visc, chl=chl, tidal_lnc=forcing.tidal_lnc,
-            rhomix=rhomix)
+            rhomix=rhomix, ucur=ucur, vcur=vcur)
         return VmixCoeffs(vdc=out.vdc, vvc=out.vvc, kpp=out)
     raise NotImplementedError(f"vmix scheme {cfg.vmix!r}")
 
@@ -141,6 +142,27 @@ def dzwr2(grid: Grid) -> torch.Tensor:
     return hit
 
 
+def depth_accel(cfg: ModelConfig, grid: Grid):
+    """The (km,) factors dttxcel of the tracer timestep under depth
+    acceleration (``laccel``), the top level's 1, or None without it
+    (source/time_management.F90:975-1009). Built at the first call on a
+    ``Grid`` object and kept on it with the factors it was built from."""
+    tm = cfg.time
+    if not (tm.laccel and tm.dttxcel is not None):
+        return None
+    key = (tuple(tm.dttxcel), cfg.torch_dtype)
+    hit = grid.__dict__.get("_dttxcel")
+    if hit is None or hit[0] != key:
+        if len(tm.dttxcel) != cfg.km:
+            raise ValueError(
+                f"dttxcel has {len(tm.dttxcel)} levels, need {cfg.km}")
+        xcel = torch.tensor((1.0,) + tuple(tm.dttxcel[1:]),
+                            dtype=cfg.torch_dtype, device=grid.KMT.device)
+        hit = (key, xcel)
+        grid.__dict__["_dttxcel"] = hit
+    return hit[1]
+
+
 def vdiffu(cfg: ModelConfig, grid: Grid, vvc, uold, vold, smf):
     """Explicit vertical momentum diffusion with wind-stress top BC and
     quadratic bottom drag (source/vertical_mix.F90:853-1026).
@@ -176,11 +198,16 @@ def convad(cfg: ModelConfig, grid: Grid, tnew):
     """Full convective adjustment by pairwise mixing of unstable adjacent
     levels (source/vertical_mix.F90:1888-2027). Only active for
     convection_type='adjustment'; the 'diffusion' form lives in the vmix
-    coefficient schemes. Returns adjusted tracers (nt, km, ny, nx)."""
+    coefficient schemes. Under depth acceleration the pairs mix by
+    dz/dttxcel (source/time_management.F90:1003-1009). Returns adjusted
+    tracers (nt, km, ny, nx)."""
     if cfg.convection_type != "adjustment":
         return tnew
     km = cfg.km
     dz = grid.vgrid.dz
+    xcel = depth_accel(cfg, grid)
+    if xcel is not None:
+        dz = dz / xcel
     pressz = grid.vgrid.pressz
     tnew = tnew.clone()  # levels are updated in place below
 

@@ -254,7 +254,7 @@ def test_tracer_plain_matches_pallas_interpret_f32(pairs):
 
 @pytest.mark.parametrize("over,match", [
     (dict(tadvect="lw_lim"), "lw_lim"),
-    (dict(hmix_tracer="del4"), "with_del2=False"),
+    (dict(hmix_tracer="del6"), "with_del2=False"),  # no such scheme
     (dict(ns_boundary="cyclic"), "cyclic"),
 ])
 def test_tracer_modes_not_ported_raise(pairs, over, match):
@@ -378,7 +378,7 @@ def test_pack_g2d_matches_jax_layout(pairs):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(hmix_momentum="del4"), "with_hdiffu=False"),
+    (dict(hmix_momentum="del6"), "with_hdiffu=False"),  # no such scheme
     (dict(ns_boundary="cyclic"), "cyclic"),
 ])
 def test_clinic_modes_not_ported_raise(pairs, over, match):

@@ -178,15 +178,8 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
 
 
 @pytest.mark.parametrize("over,names", [
-    (dict(vmix="kpp", ltidal_mixing=True, tidal_mixing_method="polzin"),
-     "Polzin"),
-    (dict(hmix_tracer="del4"), "Queue 1 items 7"),
-    (dict(hmix_momentum="del4"), "del4"),
     (dict(tadvect="lw_lim"), "advt_lw_lim"),
     (dict(hmix_tracer="gm", gm_aniso="flow"), "Queue 2 kernel 6"),
-    (dict(vmix="kpp", lniw_mixing=True), "NIW"),
-    (dict(vmix="kpp", ltidal_mixing=True, ltidal_lunar_cycle=True),
-     "lunar cycle"),
     (dict(sw_absorption="chlorophyll", chl_option="file"), "chl_option"),
     (dict(partial_bottom_cells=True), "3-D DZT"),
     (dict(passive_tracers=("ecosys",), nt=34), "passive"),
