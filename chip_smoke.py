@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's ten paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's thirteen paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64:
 
     core      the dynamical core (Laplacian tracer mixing)
@@ -47,22 +47,35 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
               mixing with the Southern-Ocean floor, velocity damping
     core_topo core with topographic stress: the momentum kernel's fused
               friction acts on u - TSU
+    prod_eg   prod_full with Eden-Greatbatch diffusivities: GM through
+              ``gm.hdifft_gm`` (plain slopes, the search kernel, the plain
+              eg diffusivity, the flux-assembly kernel's skew tripole row),
+              the submesoscale tendency on its own
+    prod_aniso prod_full without the transition layer, with Visbeck
+              diffusivities and flow-aligned anisotropic GM: the
+              flux-assembly kernel's anisotropic (ANISO) tripole row
+    core_lw   core with the flux-limited Lax-Wendroff advection (plain,
+              with the plain vertical diffusion: the tracer kernel is not
+              launched), the polynomial equation of state, and GM under it
+              with the depth profile and differing diffusivity types (the
+              flux-assembly kernel's skew branch)
 
-On every GM path the transition-layer search runs as a kernel. The modes of
-the tracer, momentum, slope and chain kernels that the tripole paths add
-are also held against their plain versions on a bottom with ocean across
-the tripole fold (the internal grid's top rows are land, which would hide
-the fold); the chain (with prod_full's five tracers too) and the flux
-assembly's tripole row are held there with the top row's north faces opened
-(``sample.open_top_face``: the internal grid's top row lies on the pole,
-where no north-face flux crosses the fold), the tracer kernel with the top
-U row's DXU opened (``sample.open_top_dxu``).
+On every GM path with the transition layer the search runs as a kernel.
+The modes of the tracer, momentum, slope and chain kernels that the tripole
+paths add are also held against their plain versions on a bottom with
+ocean across the tripole fold (the internal grid's top rows are land,
+which would hide the fold); the chain (with prod_full's five tracers too)
+and the flux assembly's tripole row (isotropic and anisotropic) are held
+there with the top row's north faces opened (``sample.open_top_face``: the
+internal grid's top row lies on the pole, where no north-face flux crosses
+the fold), the tracer kernel with the top U row's DXU opened
+(``sample.open_top_dxu``).
 An overflow phase runs the 'mini' preset with the overflows of the JAX
 package's tests on the card against the same on the CPU.
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels.
-On core, gm_full, prod_full and the three paths above it runs
+On core, gm_full, prod_full and the six paths above it runs
 ``Model.run_compiled`` (CUDA graphs of the step's segments) against
 ``Model.run`` from one state (``run_loop`` phase): every state leaf bitwise
 equal (or inside the eager-against-eager spread), iterations and launch
@@ -74,8 +87,8 @@ parts the last three paths add (Polzin, NIW, del4, the TSU subtraction)
 are timed at full size (``menu_parts_phase``). It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
-gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix and core_topo
-paths, breaks a step's time down
+gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo,
+prod_eg, prod_aniso and core_lw paths, breaks a step's time down
 by part
 and by device kernel (the GM paths from rest and from a stratified state
 with slopes for GM to work on), and compares the GPU path with the CPU
@@ -140,7 +153,10 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "prod_flux": {"float32": 4, "float64": 3},
          "prod_vmix": {"float32": 6, "float64": 4},
          "prod_hmix": {"float32": 6, "float64": 4},
-         "core_topo": {"float32": 4, "float64": 4}}
+         "core_topo": {"float32": 4, "float64": 4},
+         "prod_eg": {"float32": 4, "float64": 3},
+         "prod_aniso": {"float32": 4, "float64": 3},
+         "core_lw": {"float32": 6, "float64": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -242,8 +258,10 @@ WITNESS_RATIO = 1.5
 # run's own distance from the float64 run, besides the witness test below.
 # prod_mix has the same thresholds and KPP's first crossing of the critical
 # bulk Richardson number besides.
+# prod_eg and prod_aniso are prod_full's menu; core_lw's limiter (lw_lim)
+# chooses its stencil by the signs of tracer differences, another threshold.
 WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
-                      "prod_hmix")
+                      "prod_hmix", "prod_eg", "prod_aniso", "core_lw")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -287,6 +305,8 @@ SOURCES = {
                         "pop2_tpu/gm_pallas.py:358"),
     "clinic_topostress": ("pop2_tpu_torch/csrc/clinic.cu",
                           "pop2_tpu/clinic_pallas.py:461"),
+    "gm_flux_aniso": ("pop2_tpu_torch/csrc/gm_flux.cu",
+                      "pop2_tpu/gm_pallas.py:358"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
@@ -298,7 +318,8 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "gm_chain_sm_nt5": "prod_full", "tracer_upwind3_nt5": "prod_full",
            "gm_chain_sm_nt5_diags": "prod_full_tavg",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
-           "gm_flux_tripole": "prod_flux", "clinic_topostress": "core_topo"}
+           "gm_flux_tripole": "prod_flux", "clinic_topostress": "core_topo",
+           "gm_flux_aniso": "prod_aniso"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "tracer_upwind3_nt5": "tracer",
@@ -307,7 +328,7 @@ COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "gm_chain_sm_nt5": "gm_chain",
               "gm_chain_sm_nt5_diags": "gm_chain_diags",
               "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux",
-              "clinic_topostress": "clinic"}
+              "clinic_topostress": "clinic", "gm_flux_aniso": "gm_flux_aniso"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -335,13 +356,28 @@ PROD_VMIX = dict(tidal_mixing_method="polzin", ltidal_lunar_cycle=True,
 PROD_HMIX = dict(hmix_tracer="del4", hmix_momentum="del4",
                  tidal_mixing_method="schmittner", ltidal_schmittner_socn=True,
                  ldamp_uv=True, passive_tracers=(), nt=2)
+# the rest of the horizontal-mixing and advection menu: Eden-Greatbatch
+# diffusivities (a CESM user who switches GM's diffusivity), flow-dependent
+# anisotropic GM with Visbeck diffusivities (a study of eddy diffusivity
+# that suppresses cross-stream transport), and on the dynamical core the
+# flux-limited advection, the polynomial equation of state and GM under it
+# with the depth profile and differing types
+PROD_EG = dict(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg")
+PROD_ANISO = dict(gm_transition_layer=False, gm_aniso="flow",
+                  gm_kappa_isop_type="vmhs", gm_kappa_thic_type="vmhs")
+CORE_LW = dict(tadvect="lw_lim", state_choice="polynomial",
+               hmix_tracer="gm", gm_transition_layer=False,
+               gm_kappa_isop_type="depth", gm_kappa_thic_type="const",
+               lsubmeso=False)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
          "prod_flux": PROD_FLUX, "prod_vmix": PROD_VMIX,
-         "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True)}
+         "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True),
+         "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW}
 PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
-              "prod_hmix")
-PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix")
+              "prod_hmix", "prod_eg", "prod_aniso")
+PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix", "prod_eg",
+                 "prod_aniso")
 # the years the calendar jumps in run_loop_phase's lunar check
 LUNAR_JUMP_YEARS = 7
 # the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
@@ -655,7 +691,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     ``pop2_*_blocks_per_sm``) of a kernel's launch at the main path's
     shapes, keyed with ``tag``. thomas takes nr and km, gm_chain nt, flags
     and sm, tracer its group's tracer count ng, del2, upwind3 and fold,
-    gm_flux nt, cancellation and fold; gm_tlt (a thread a column) nothing.
+    gm_flux nt, cancellation, fold and aniso; gm_tlt (a thread a column)
+    nothing.
     The kernels in a frame (tracer, clinic, gm_slope, gm_flux) also report
     their tile of interior columns."""
     lib, code, s = cb.lib(), cb.dtype_code(torch.empty(0, dtype=dt)), \
@@ -689,12 +726,14 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         block, smem = [gm_tlt_cuda.THREADS, 1, 1], 0
         n = lib.pop2_gm_tlt_blocks_per_sm(code)
     else:
+        aniso = kw.get("aniso", False)
         (cols, rows), smem = gm_cuda.launch_plan(s, kw["nt"],
-                                                 kw["cancellation"])
+                                                 kw["cancellation"], aniso)
         block = [cols, rows, 1]
         n = lib.pop2_gm_flux_blocks_per_sm(code, kw["nt"],
                                            int(kw["cancellation"]),
-                                           int(kw.get("fold", False)), smem)
+                                           int(kw.get("fold", False)),
+                                           int(aniso), smem)
     if n <= 0:
         raise AssertionError(f"{name}: occupancy query failed ({n})")
     info = {"block" + tag: block, "dynamic_smem_bytes" + tag: smem,
@@ -703,6 +742,15 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     if name not in ("thomas", "gm_chain", "gm_tlt"):  # a tile in a frame
         info["tile" + tag] = block[:2]
     return info
+
+
+def aniso_kisop_y(kisop):
+    """The y faces' isopycnal diffusivity of an anisotropic check: the x
+    faces' (``kisop``, (2, km, ny, nx)) times 0.3 in the upper half of the
+    column and 1.7 below (the CPU tests' pattern)."""
+    km = kisop.shape[1]
+    lev = torch.arange(km, device=kisop.device).reshape(1, km, 1, 1)
+    return (kisop * torch.where(lev < km // 2, 0.3, 1.7)).contiguous()
 
 
 def random_fields(cfg, grid, gen):
@@ -1050,9 +1098,10 @@ def gm_other_modes_phase(dtype_name: str):
     select: closed east-west boundary, the diagnostic columns, constant
     diffusivities, unequal slope limits (with the bottom-cell diffusion floor
     and the diffusivity-valued surface diffusion), a transition layer that
-    the search extended, the flux assembly's skew branch, the tracer
-    kernel's rigid lid without the Laplacian. Each against its plain
-    version at full size. Not timed."""
+    the search extended, the flux assembly's skew branch and its
+    anisotropic instances (both branches), the tracer kernel's rigid lid
+    without the Laplacian. Each against its plain version at full size. Not
+    timed."""
     worst = {}
     variants = {
         "bfre": {},
@@ -1101,18 +1150,26 @@ def gm_other_modes_phase(dtype_name: str):
             continue  # timed in the kernel phase
         cfg_f = full_config(dtype_name, "gm_flux").with_(ew_boundary=ew)
         f = sample.flux_operands(cfg_f, grid, bc, tr, tmix)
-        for cancellation in (True, False):
+        ky = aniso_kisop_y(f[7])
+        for cancellation, aniso in itertools.product((True, False),
+                                                     (False, True)):
             args = (cfg_f, grid, bc) + f + (cancellation,)
-            got = gm_cuda.flux_assembly(*args)
+            kw = {"kisop_y": ky} if aniso else {}
+            reset_counts()
+            got = gm_cuda.flux_assembly(*args, **kw)
             torch.cuda.synchronize()
-            want = gm_cuda.flux_assembly_plain(*args)
-            branch = "cancel" if cancellation else "skew"
+            if gm_cuda.launches_aniso != int(aniso):
+                raise AssertionError("gm_flux: the anisotropic instance "
+                                     "was not the one launched")
+            want = gm_cuda.flux_assembly_plain(*args, **kw)
+            branch = (("cancel" if cancellation else "skew")
+                      + ("_aniso" if aniso else ""))
             worst[f"flux_{branch}_{ew}"] = compare("gm_flux", dt, got[:1],
                                                    want[:1])[1]
             worst[f"flux_{branch}_{ew}_vdc"] = compare_vdc(
                 "gm_flux", dt, got[1], want[1])
             del got, want
-        del f
+        del f, ky
     for ew in ("cyclic", "closed"):
         cfg = full_config(dtype_name, "gm_full").with_(ew_boundary=ew,
                                                        sfc_layer="rigid")
@@ -1898,9 +1955,12 @@ def flux_fold_phase(dtype_name: str, n_timed: int = N_TIMED):
     the fold bottom with the top row's north faces opened
     (``sample.open_top_face``), at the path's shapes: nt = 5 in both
     branches against the plain version, timed (the path's instance is the
-    cancellation branch), and nt = 2 in both. The fold must matter: the top
-    row of the plain version with a closed north edge has to differ from
-    the tripole one by far more than the band. Returns {name: record}."""
+    cancellation branch), and nt = 2 in both; the same of the anisotropic
+    instances (prod_aniso's GM: the cancellation branch; the y faces'
+    diffusivity ``aniso_kisop_y``), record ``gm_flux_aniso``. The fold must
+    matter: the top row of the plain version with a closed north edge has
+    to differ from the tripole one by far more than the band. Returns
+    {name: record}."""
     cfg = full_config(dtype_name, "prod_flux")
     dt = cfg.torch_dtype
     grid, bc, tr = fold_case(cfg)
@@ -1911,27 +1971,33 @@ def flux_fold_phase(dtype_name: str, n_timed: int = N_TIMED):
     f = sample.flux_operands(cfg, grid, bc, tr, tmix)
     del tmix
     closed_bc = grid_bc(cfg.with_(ns_boundary="closed"))
-    r = {}
-    for n, cancellation in itertools.product((nt, 2), (True, False)):
+    ky = aniso_kisop_y(f[7])
+    recs = {}
+    for aniso, n, cancellation in itertools.product(
+            (False, True), (nt, 2), (True, False)):
+        r = recs.setdefault("gm_flux_aniso" if aniso else "gm_flux_tripole",
+                            {})
+        kw = {"kisop_y": ky} if aniso else {}
         ops = [t[:n].contiguous() for t in f[:3]] + list(f[3:])
         c = cfg if n == nt else cfg.with_(passive_tracers=(), nt=2)
         args = (c, grid, bc, *ops, cancellation)
-        got = gm_cuda.flux_assembly(*args)
+        got = gm_cuda.flux_assembly(*args, **kw)
         torch.cuda.synchronize()
-        want = gm_cuda.flux_assembly_plain(*args)
+        want = gm_cuda.flux_assembly_plain(*args, **kw)
         err_abs, err_rel = compare("gm_flux", dt, got[:1], want[:1])
         vdc_rel = compare_vdc("gm_flux", dt, got[1], want[1])
         top = compare("gm_flux", dt, [got[0][..., -1, :]],
                       [want[0][..., -1, :]])[1]
         closed = gm_cuda.flux_assembly_plain(
             c.with_(ns_boundary="closed"), grid, closed_bc, *ops,
-            cancellation)[0]
+            cancellation, **kw)[0]
         fold_share = float((closed[..., -1, :] - want[0][..., -1, :]).abs()
                            .max() / want[0][..., -1, :].abs().max())
         if not fold_share > 100.0 * BAND[("gm_flux", dt)]:
-            raise AssertionError(f"gm_flux_tripole {dtype_name}: the fold "
-                                 f"moves the top row by {fold_share:.2e} "
-                                 "only; the check cannot see it")
+            raise AssertionError(f"gm_flux_tripole {dtype_name} (aniso "
+                                 f"{aniso}): the fold moves the top row by "
+                                 f"{fold_share:.2e} only; the check cannot "
+                                 "see it")
         del got, want, closed
         tag = ("" if n == nt else f"_nt{n}") + ("" if cancellation
                                                  else "_skew")
@@ -1940,20 +2006,24 @@ def flux_fold_phase(dtype_name: str, n_timed: int = N_TIMED):
                   "fold_share_of_top_row" + tag: fold_share})
         if n != nt:
             continue
-        n_in = 2 * n + 12 if cancellation else 3 * n + 20
+        # the anisotropic instances read the y faces' diffusivity besides:
+        # two fields more
+        n_in = ((2 * n + 12 if cancellation else 3 * n + 20)
+                + (2 if aniso else 0))
         b_ms, b_by = bound(s * (N * (n_in + n + 1) + 3 * P + 3 * km) + 4 * P,
                            N * (60 + 60 * n), dt)
         r.update({
-            "ms" + tag: time_ms(lambda: gm_cuda.flux_assembly(*args), 3,
-                                n_timed),
+            "ms" + tag: time_ms(lambda: gm_cuda.flux_assembly(*args, **kw),
+                                3, n_timed),
             "ms_back_to_back" + tag: time_ms_back_to_back(
-                lambda: gm_cuda.flux_assembly(*args), n_timed),
+                lambda: gm_cuda.flux_assembly(*args, **kw), n_timed),
             "plain_ms" + tag: time_ms(
-                lambda: gm_cuda.flux_assembly_plain(*args), 1, 3),
+                lambda: gm_cuda.flux_assembly_plain(*args, **kw), 1, 3),
             "bound_ms" + tag: b_ms, "bound_by" + tag: b_by,
             **launch_info("gm_flux", dt, tag, nt=n,
-                          cancellation=cancellation, fold=True)})
-    return {"gm_flux_tripole": r}
+                          cancellation=cancellation, fold=True,
+                          aniso=aniso)})
+    return recs
 
 
 # The overflows of the JAX package's overflow tests (tests/test_overflows.py)
@@ -2065,7 +2135,8 @@ COUNTERS = {"thomas": (tridiag_cuda, "launches"),
             "gm_flux": (gm_cuda, "launches"),
             "gm_tlt": (gm_tlt_cuda, "launches"),
             "gm_chain_diags": (gm_chain_cuda, "launches_with_diags"),
-            "gm_flux_fold": (gm_cuda, "launches_fold")}
+            "gm_flux_fold": (gm_cuda, "launches_fold"),
+            "gm_flux_aniso": (gm_cuda, "launches_aniso")}
 
 
 def reset_counts():
@@ -2092,21 +2163,28 @@ def expected_counts(path: str, nsteps: int):
     tracers on one factorisation) and 6 (1, 1, 2, 1, 1, 3). The tracer
     kernel: a launch for each group of at most two tracers a step. Every
     other kernel of a path: once a step, the flux assembly in its
-    tripole-row instance on prod_flux; no path writes the chain's
-    diagnostic columns (no stream, ``tavg_phase``)."""
+    tripole-row instance on prod_flux, prod_eg and prod_aniso (there
+    anisotropic); no path writes the chain's diagnostic columns (no stream,
+    ``tavg_phase``). core_lw launches no tracer kernel: its lw_lim
+    advection and the vertical diffusion beside it are plain."""
     chain = ("tracer", "clinic", "gm_slope", "gm_tlt", "gm_chain")
     flux = ("tracer", "clinic", "gm_flux")
     once = {"core": ("tracer", "clinic"), "gm_full": chain,
             "gm_flux": flux, "prod_dyn": chain, "prod_mix": chain,
             "prod_full": chain, "prod_flux": flux, "prod_vmix": chain,
             "prod_hmix": ("tracer", "clinic"),
-            "core_topo": ("tracer", "clinic")}[path]
+            "core_topo": ("tracer", "clinic"),
+            "prod_eg": flux + ("gm_tlt",), "prod_aniso": flux,
+            "core_lw": ("clinic", "gm_flux")}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
-    if path == "prod_flux":  # the flux assembly's tripole row
+    if path in ("prod_flux", "prod_eg", "prod_aniso"):  # the tripole row
         expect["gm_flux_fold"] = nsteps
+    if path == "prod_aniso":
+        expect["gm_flux_aniso"] = nsteps
     nt = full_config("float64", path).nt
-    expect["tracer"] = nsteps * len(tracer_cuda.tracer_groups(nt))
+    if "tracer" in once:
+        expect["tracer"] = nsteps * len(tracer_cuda.tracer_groups(nt))
     euler, leapfrog = (({1: 1, 2: 1, 4: 1}, {1: 4, 2: 1, 3: 1})
                        if path in PASSIVE_PATHS
                        else ({1: 2, 2: 1}, {1: 4, 2: 1}))
@@ -2147,6 +2225,8 @@ def path_phase(path: str, dtype_name: str):
     if counts != expect:
         raise AssertionError(f"{path}: launch counts {counts}, expected "
                              f"{expect}")
+    if path == "core_lw" and counts["tracer"]:
+        raise AssertionError("core_lw: the tracer kernel ran under lw_lim")
     for name, t in state.leaves():
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{path} {dtype_name}: {name} not finite")
@@ -2424,7 +2504,8 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
 RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
             ("prod_full", "float32", 8), ("prod_full", "float64", 8),
             ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
-            ("core_topo", "float32", 6))
+            ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
+            ("prod_aniso", "float32", 6), ("core_lw", "float32", 6))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -3105,15 +3186,18 @@ def main():
         raise AssertionError(f"gm_flux tracer cap: library "
                              f"{lib.pop2_gm_flux_max_tracers()}, planner "
                              f"{gm_cuda.MAX_TRACERS}")
-    for nt, cancel in itertools.product(range(1, gm_cuda.MAX_TRACERS + 1),
-                                        (True, False)):
+    for nt, cancel, aniso in itertools.product(
+            range(1, gm_cuda.MAX_TRACERS + 1), (True, False), (False, True)):
         c_plan = (lib.pop2_gm_flux_tile_rows(nt),
-                  lib.pop2_gm_flux_smem_values(nt, int(cancel)))
-        want = (gm_cuda.tile_rows(nt), gm_cuda.smem_values(nt, cancel))
+                  lib.pop2_gm_flux_smem_values(nt, int(cancel), int(aniso)))
+        want = (gm_cuda.tile_rows(nt),
+                gm_cuda.smem_values(nt, cancel, aniso))
         if c_plan != want:
             raise AssertionError(f"gm_flux tile (nt={nt}, cancellation="
-                                 f"{cancel}): library rows, values {c_plan},"
-                                 f" planner {want}")
+                                 f"{cancel}, aniso={aniso}): library rows, "
+                                 f"values {c_plan}, planner {want}")
+        for vb in (4, 8):  # fits 227 KB
+            gm_cuda.launch_plan(vb, nt, cancel, aniso)
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": cb.build_seconds,
           "library": "nvcc sm_90a, ctypes",
@@ -3160,7 +3244,8 @@ def main():
         if path != "core":
             run(breakdown_phase, path, "float32", True)
         run(small_vs_cpu_phase, path)
-    for path in ("prod_vmix", "prod_hmix", "core_topo"):
+    for path in ("prod_vmix", "prod_hmix", "core_topo", "prod_eg",
+                 "prod_aniso", "core_lw"):
         run(path_vs_plain_phase, path)
         run(small_vs_cpu_phase, path)
     run(small_vs_cpu_phase, "prod_flux")

@@ -24,7 +24,9 @@ one) and with centered advection, the momentum forcing on a leapfrog
 step, the slopes of the gm_full path's stratified tracers, the chain kernel
 in the gm_full path's instance and in the prod_dyn path's (the tripole
 fold, on a bottom with ocean across it), the flux assembly in both of its
-instances (the gm_flux path's cancellation and the skew). Each kernel runs in turns
+instances (the gm_flux path's cancellation and the skew) and in both on
+the tripole fold for prod_full's five tracers (the prod_flux path's
+launch; the top row's north faces opened). Each kernel runs in turns
 other, this, this, other; a turn takes both of ``chip_smoke.py``'s times:
 ``ms`` (median of single calls between CUDA events, the ``kernels`` line's
 method) and ``ms_back_to_back`` (calls back to back). The two checkouts'
@@ -240,6 +242,32 @@ def gm_cases(other, dtype_name):
         cs.emit({"kernel": "gm_flux", "dtype": dtype_name,
                  "instance": "cancellation" if cancellation else "skew",
                  **rec})
+    flux_fold_case(other, dtype_name)
+
+
+def flux_fold_case(other, dtype_name):
+    """The flux assembly's tripole row for five tracers (the prod_flux
+    path's launch, a tile of the narrow rows), both branches, on
+    ``chip_smoke.fold_case``'s bottom with the top row's north faces
+    opened, as ``chip_smoke.flux_fold_phase`` holds it."""
+    cfg = cs.full_config(dtype_name, "prod_flux")
+    grid, bc, tr = cs.fold_case(cfg)
+    grid = sample.open_top_face(grid)
+    grid_o = sample.open_top_face(cs.fold_case(cfg)[0])
+    tmix = sample.grid_tracers(cfg, grid, cs.SEED + 20)
+    f = sample.flux_operands(cfg, grid, bc, tr, tmix)
+    for cancellation in (True, False):
+        ops = f + (cancellation,)
+        rec = in_turns(
+            lambda: other["gm_cuda"].flux_assembly(cfg, grid_o, bc, *ops),
+            lambda: gm_cuda.flux_assembly(cfg, grid, bc, *ops))
+        mine = gm_cuda.flux_assembly(cfg, grid, bc, *ops)
+        theirs = other["gm_cuda"].flux_assembly(cfg, grid_o, bc, *ops)
+        rec["rel_diff_this_vs_other"] = rel_diff(mine, theirs)
+        rec["bitwise_equal"] = bitwise(mine, theirs)
+        cs.emit({"kernel": "gm_flux", "dtype": dtype_name, "nt": cfg.nt,
+                 "instance": ("tripole_cancellation" if cancellation
+                              else "tripole_skew"), **rec})
 
 
 def chain_fold_case(other, dtype_name):

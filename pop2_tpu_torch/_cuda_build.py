@@ -112,8 +112,8 @@ def _declare(lib) -> None:
     lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_smem_values.argtypes = [i, i]
     lib.pop2_gm_slope_blocks_per_sm.argtypes = [i, l]
-    lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, i, l]
-    lib.pop2_gm_flux_smem_values.argtypes = [i, i]
+    lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, i, i, l]
+    lib.pop2_gm_flux_smem_values.argtypes = [i, i, i]
     lib.pop2_gm_flux_tile_rows.argtypes = [i]
     lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d, p, p]
     lib.pop2_tracer.restype = i
@@ -128,7 +128,7 @@ def _declare(lib) -> None:
     lib.pop2_gm_slopes.restype = i
     lib.pop2_gm_chain.argtypes = [i] * 10 + [l] + [p] * 20
     lib.pop2_gm_chain.restype = i
-    lib.pop2_gm_flux.argtypes = [i] * 9 + [l] + [p] * 17
+    lib.pop2_gm_flux.argtypes = [i] * 10 + [l] + [p] * 18
     lib.pop2_gm_flux.restype = i
     lib.pop2_gm_tlt.argtypes = [i] * 4 + [p] * 10
     lib.pop2_gm_tlt.restype = i

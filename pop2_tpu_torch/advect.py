@@ -6,8 +6,11 @@ upwind (QUICKEST) tracer advection ``advt_upwind3`` (:2313), momentum
 advection with metric terms ``advu`` (:1127). The reference's k-sequential
 carry of the vertical velocity becomes a masked ``cumsum`` over the whole
 column, and all levels/tracers are computed at once. These functions are the
-plain versions the CUDA tracer and momentum kernels are held against; the
-lw_lim scheme is a later slice (ROADMAP.md Queue 1 item 11).
+plain versions the CUDA tracer and momentum kernels are held against. The
+flux-limited Lax-Wendroff scheme ``advt_lw_lim`` (source/advection.F90:
+2684-3331) has no kernel: the JAX package computes it outside its Pallas
+tracer kernel too, and the baroclinic driver runs it, with the plain
+vertical diffusion, in place of the tracer kernel.
 """
 
 from __future__ import annotations
@@ -95,15 +98,209 @@ def advt_centered(cfg: ModelConfig, grid: Grid, bc: BC, fv: FluxVel, trcr):
     return ltk + dz2r * (top - bot)
 
 
-def advt(cfg: ModelConfig, grid: Grid, bc: BC, fv: FluxVel, trcr):
-    """Dispatch on cfg.tadvect (source/advection.F90:1640-1960)."""
+def advt(cfg: ModelConfig, grid: Grid, bc: BC, fv: FluxVel, trcr,
+         tmix=None, c2dtt=None):
+    """Tracer-advection dispatch on cfg.tadvect (source/advection.F90:
+    1684-1729), one scheme for all tracers. ``trcr`` is the current-time
+    tracer field (centered/upwind3); lw_lim advects the mix-time field
+    ``tmix`` with the per-level timestep ``c2dtt`` (km,)."""
     if cfg.tadvect == "centered":
         return advt_centered(cfg, grid, bc, fv, trcr)
     if cfg.tadvect == "upwind3":
         return advt_upwind3(cfg, grid, bc, fv, trcr)
-    raise NotImplementedError(
-        f"tadvect={cfg.tadvect!r} is not ported yet (ROADMAP.md Queue 1 "
-        "item 11)")
+    if cfg.tadvect == "lw_lim":
+        if tmix is None or c2dtt is None:
+            raise ValueError("lw_lim advection needs tmix and c2dtt")
+        return advt_lw_lim(cfg, grid, bc, fv, tmix, c2dtt)
+    raise NotImplementedError(f"tadvect {cfg.tadvect}")
+
+
+# ---------------------------------------------------------------------------
+# 2nd-order forward-in-time advection with 1-D flux limiters (lw_lim)
+# (source/advection.F90:2684-3331)
+# ---------------------------------------------------------------------------
+
+def _limit(dTR, dOther, LW, MU, base, upwind_pos: bool):
+    """One-dimensional Lax-Wendroff limiter (the psi_dTR pattern of
+    source/advection.F90:3100-3258): where dTR and the adjacent difference
+    share a sign, blend toward the LW face value, else pure upwind.
+    ``upwind_pos`` selects TRACER = base + psi (the upstream cell) or
+    base - psi."""
+    psi = torch.where((dTR > 0.0) & (dOther > 0.0),
+                      torch.minimum(LW * dTR, MU * dOther),
+                      torch.where((dTR < 0.0) & (dOther < 0.0),
+                                  torch.maximum(LW * dTR, MU * dOther),
+                                  0.0))
+    return base + psi if upwind_pos else base - psi
+
+
+def _lw_face_coeffs(vel_dt, d_c, d_dn):
+    """LW face coefficients along one horizontal direction
+    (source/advection.F90:2995-3065): ``vel_dt`` = dt * face velocity,
+    ``d_c``/``d_dn`` the cell widths at (i) and (i+1)."""
+    p5phr = 1.0 / (d_c + d_dn)
+    return torch.where(vel_dt > 0.0, (d_c - vel_dt) * p5phr,
+                       torch.where(vel_dt < 0.0, (d_dn + vel_dt) * p5phr,
+                                   d_c * p5phr))
+
+
+def _mu_coeffs(vel_dt, vel_dt_up, vel_dt_dn, d_c, d_dn, LW_up, LW_dn):
+    """MU face coefficients (the limiter's second factor) along one
+    direction; ``*_up``/``*_dn`` the same quantities at the (i-1)/(i+1)
+    faces (source/advection.F90:2986-3065)."""
+    safe = torch.where(vel_dt != 0.0, vel_dt, 1.0)
+    mu_pos = torch.where(vel_dt_up > 0.0, (d_c - vel_dt_up) / safe,
+                         torch.where(vel_dt_up < 0.0,
+                                     -vel_dt_up / safe * LW_up, 0.0))
+    mu_neg = torch.where(vel_dt_dn < 0.0, -(d_dn + vel_dt_dn) / safe,
+                         torch.where(vel_dt_dn > 0.0,
+                                     -vel_dt_dn / safe * LW_dn, 0.0))
+    return torch.where(vel_dt > 0.0, mu_pos,
+                       torch.where(vel_dt < 0.0, mu_neg, 0.0))
+
+
+def _lw_face_value(X, xs_dn, dTR, dTRm1, dTRp1, c, lw, mu):
+    """The limited tracer value at the east (north) face of every cell
+    from the provisional tracer ``X`` and its neighbour ``xs_dn``, by the
+    sign of the face's flux ``c``."""
+    return torch.where((c > 0.0)[None],
+                       _limit(dTR, dTRm1, lw[None], mu[None], X, True),
+                       torch.where((c < 0.0)[None],
+                                   _limit(dTR, dTRp1, lw[None], mu[None],
+                                          xs_dn, False),
+                                   X + lw[None] * dTR))
+
+
+def advt_lw_lim(cfg: ModelConfig, grid: Grid, bc: BC, fv: FluxVel, tmix,
+                c2dtt):
+    """Flux-limited Lax-Wendroff tracer advection L(T)
+    (source/advection.F90:2684-3331), all tracers and levels at once.
+
+    The scheme is forward in time: it advects the *mix-time* tracers
+    ``tmix`` (advt dispatch, source/advection.F90:1698) with the advective
+    timestep ``c2dtt`` (km,) in the limiter's CFL factors (under depth
+    acceleration the per-level step). The reference's per-level AUX carry
+    becomes a shifted copy of the whole-column AUXB; the vertical, x and y
+    passes update the provisional tracer XSTAR in turn, and the tendency is
+    the pure flux form
+      L(T) = (AUX - AUXB)/dz + CE*T_E + CW*T_E(w) + CN*T_N + CS*T_N(s)."""
+    km = cfg.km
+    tiny = 1.0e-20
+    dzt = thickness_t(cfg, grid).expand((km,) + tuple(grid.KMT.shape))
+    adv_dt = c2dtt.reshape(km, 1, 1)
+    kidx = torch.arange(1, km + 1, dtype=torch.int32,
+                        device=tmix.device).reshape(km, 1, 1)
+
+    # stencil weights (:2756-2775; the PBC form with TAREA_R/DZT holds for
+    # the volume fluxes, which carry dz)
+    ce = fv.ute * grid.TAREA_R / dzt
+    cw = -fv.utw * grid.TAREA_R / dzt
+    cn = fv.vtn * grid.TAREA_R / dzt
+    cs = -fv.vts * grid.TAREA_R / dzt
+
+    # dt * face velocities (:2758-2768, PBC form UTE/(HTE*min(DZT, DZT_e)))
+    dzt_e = torch.clamp(bc.e(dzt), min=tiny)
+    dzt_n = torch.clamp(bc.n(dzt), min=tiny)
+    uvel_e_dt = adv_dt * fv.ute / (grid.HTE * torch.minimum(dzt, dzt_e))
+    vvel_n_dt = adv_dt * fv.vtn / (grid.HTN * torch.minimum(dzt, dzt_n))
+
+    # no advection through the surface of a variable-thickness surface
+    # layer (:2786-2790)
+    wtk_eff = fv.wtk
+    if cfg.sfc_layer == "varthick":
+        wtk_eff = torch.cat([torch.zeros_like(wtk_eff[:1]), wtk_eff[1:]])
+    wtkb = fv.wtkb
+    wtkbp1 = torch.cat([wtkb[1:], torch.zeros_like(wtkb[:1])])
+    wtkb_safe = torch.where(wtkb != 0.0, wtkb, 1.0)
+
+    # vertical LW_z / MU_z (:2919-2993, PBC form with the edge clamp
+    # dz(km+1) := dz(km), which reproduces p5_dz_ph_r(km) = 0.5/dz(km))
+    dzt_kp1 = torch.cat([dzt[1:], dzt[-1:]])
+    dzt_kp2 = torch.cat([dzt[2:], dzt[-1:], dzt[-1:]])[:km]
+    dzt_km1 = torch.cat([dzt[:1], dzt[:-1]])
+    down = wtkb > 0.0
+    lw_z = torch.where(down, (dzt_kp1 - adv_dt * wtkb) / (dzt + dzt_kp1),
+                       (dzt + adv_dt * wtkb) / (dzt + dzt_kp1))
+    mu_z_pos = torch.where(
+        wtkbp1 > 0.0, (dzt_kp1 / adv_dt - wtkbp1) / wtkb_safe,
+        torch.where(wtkbp1 < 0.0,
+                    -wtkbp1 / wtkb_safe * (dzt_kp1 + adv_dt * wtkbp1)
+                    / (dzt_kp1 + dzt_kp2), 0.0))
+    mu_z_neg = torch.where(
+        wtk_eff < 0.0, -(dzt / adv_dt + wtk_eff) / wtkb_safe,
+        torch.where(wtk_eff > 0.0,
+                    -wtk_eff / wtkb_safe * (dzt - adv_dt * wtk_eff)
+                    / (dzt_km1 + dzt), 0.0))
+    mu_z = torch.where(down, mu_z_pos, mu_z_neg)
+
+    # -- vertical contribution (:3100-3160)
+    X = tmix
+    x_kp1 = torch.cat([X[:, 1:], X[:, -1:]], dim=1)
+    x_kp2 = torch.cat([X[:, 2:], X[:, -1:], X[:, -1:]], dim=1)[:, :km]
+    x_km1 = torch.cat([X[:, :1], X[:, :-1]], dim=1)
+    valid_kp1 = ((kidx + 1) <= grid.KMT[None])[None]
+    valid_kp2 = ((kidx + 2) <= grid.KMT[None])[None]
+    not_top = (kidx > 1)[None]
+
+    dTR = x_kp1 - X
+    dTRp1 = torch.where(valid_kp2, x_kp2 - x_kp1, 0.0)
+    dTRm1 = torch.where(not_top, X - x_km1, 0.0)
+    auxb_pos = _limit(dTR, dTRp1, lw_z[None], mu_z[None], x_kp1,
+                      False) * wtkb[None]
+    auxb_neg = _limit(dTR, dTRm1, lw_z[None], mu_z[None], X,
+                      True) * wtkb[None]
+    auxb = torch.where(valid_kp1,
+                       torch.where(down[None], auxb_pos,
+                                   torch.where((wtkb < 0.0)[None], auxb_neg,
+                                               0.0)), 0.0)
+    aux = torch.cat([(wtk_eff[0] * X[:, 0])[:, None], auxb[:, :-1]], dim=1)
+    xout = (aux - auxb - (wtk_eff - wtkb)[None] * X) / dzt[None]
+    xstar = X - adv_dt[None] * xout
+
+    # -- grid-x contribution (:3162-3215)
+    u = uvel_e_dt
+    dxt = grid.DXT
+    dxt_w = torch.clamp(bc.w(dxt), min=tiny)
+    dxt_e = torch.clamp(bc.e(dxt), min=tiny)
+    dxt_ee = torch.clamp(bc.e(bc.e(dxt)), min=tiny)
+    lw_x = _lw_face_coeffs(u, dxt, dxt_e)
+    lw_x_w = _lw_face_coeffs(bc.w(u), dxt_w, dxt)
+    lw_x_e = _lw_face_coeffs(bc.e(u), dxt_e, dxt_ee)
+    mu_x = _mu_coeffs(u, bc.w(u), bc.e(u), dxt, dxt_e, lw_x_w, lw_x_e)
+
+    kmaske = torch.where((kidx <= grid.KMT[None])
+                         & (kidx <= grid.KMTE[None]), 1.0, 0.0)
+    xs_e, xs_w = bc.e(xstar), bc.w(xstar)
+    tr_e = _lw_face_value(
+        xstar, xs_e, (xs_e - xstar) * kmaske[None],
+        (xstar - xs_w) * bc.w(kmaske)[None],
+        (bc.e(xs_e) - xs_e) * bc.e(kmaske)[None], ce, lw_x, mu_x)
+    work = ce[None] * tr_e + cw[None] * bc.w(tr_e) - (ce + cw)[None] * X
+    xout = xout + work
+    xstar = xstar - adv_dt[None] * work
+
+    # -- grid-y contribution and the divergence term (:3220-3286)
+    v = vvel_n_dt
+    dyt = grid.DYT
+    dyt_s = torch.clamp(bc.s(dyt), min=tiny)
+    dyt_n = torch.clamp(bc.n(dyt), min=tiny)
+    dyt_nn = torch.clamp(bc.nn(dyt), min=tiny)
+    lw_y = _lw_face_coeffs(v, dyt, dyt_n)
+    lw_y_s = _lw_face_coeffs(bc.s(v), dyt_s, dyt)
+    lw_y_n = _lw_face_coeffs(bc.n(v), dyt_n, dyt_nn)
+    mu_y = _mu_coeffs(v, bc.s(v), bc.n(v), dyt, dyt_n, lw_y_s, lw_y_n)
+
+    kmaskn = torch.where((kidx <= grid.KMT[None])
+                         & (kidx <= grid.KMTN[None]), 1.0, 0.0)
+    xs_n, xs_s = bc.n(xstar), bc.s(xstar)
+    tr_n = _lw_face_value(
+        xstar, xs_n, (xs_n - xstar) * kmaskn[None],
+        (xstar - xs_s) * bc.s(kmaskn)[None],
+        (bc.n(xs_n) - xs_n) * bc.n(kmaskn)[None], cn, lw_y, mu_y)
+    div = (wtk_eff - wtkb) / dzt + ce + cw + cn + cs
+    xout = xout + (cn[None] * tr_n + cs[None] * bc.s(tr_n)
+                   - (cn + cs - div)[None] * X)
+    return torch.where(grid.kmask_t[None], xout, 0.0)
 
 
 # ---------------------------------------------------------------------------

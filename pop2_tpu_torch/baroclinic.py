@@ -32,7 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pop2_tpu_torch import clinic_cuda, eos, gm, gm_chain_cuda, hmix, ice
+from pop2_tpu_torch import advect, clinic_cuda, eos, gm, gm_chain_cuda, hmix
+from pop2_tpu_torch import ice
 from pop2_tpu_torch import kpp
 from pop2_tpu_torch import overflows, submeso, sw_absorption, tracer_cuda
 from pop2_tpu_torch import tridiag, vmix
@@ -74,7 +75,8 @@ def _timestep_arrays(cfg: ModelConfig, grid: Grid, leapfrog: bool):
 
 
 def _masked_density(cfg, grid, ts_range, tracer):
-    rho = eos.state(cfg, grid.vgrid.pressz, tracer[0], tracer[1], ts_range)
+    rho = eos.state(cfg, grid.vgrid.pressz, tracer[0], tracer[1], ts_range,
+                    fit=grid.vgrid.poly)
     return torch.where(grid.kmask_t, rho, 0.0)
 
 
@@ -136,7 +138,10 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     # tracer kernel runs without the Laplacian; so it does beside the
     # biharmonic mixing (del4, plain). The chain kernel folds the
     # submesoscale streamfunction into GM's; elsewhere the submesoscale
-    # tendency is its own (mix_submeso.F90, beside hdifft in tracer_update)
+    # tendency is its own (mix_submeso.F90, beside hdifft in tracer_update).
+    # The forward-in-time lw_lim advection has no kernel (neither has the JAX
+    # package: its Pallas tracer kernel refuses lw_lim): under it advection
+    # and vertical diffusion are plain, and so is the Laplacian mixing
     gm_out = None
     submeso_done = False
     if cfg.hmix_tracer == "gm":
@@ -146,15 +151,26 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
                 want_diags=want_gm_diags)
             submeso_done = cfg.lsubmeso
         else:
-            gm_out = gm.hdifft_gm(cfg, grid, bc, ts_range, tmix, hblt=hblt)
+            gm_out = gm.hdifft_gm(cfg, grid, bc, ts_range, tmix, hblt=hblt,
+                                  umix=umix, vmix_m=vmix_m)
         coeffs = coeffs._replace(vdc=coeffs.vdc + gm_out.vdc_gm[None])
-    ft = tracer_cuda.tracer_tendency(
-        cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
-        state.tracer_old, coeffs.vdc, forcing.stf, dh)
+    if cfg.tadvect == "lw_lim":
+        fv = advect.comp_flux_vel(cfg, grid, bc, state.u_cur, state.v_cur,
+                                  dh)
+        ft = -advect.advt(cfg, grid, bc, fv, state.tracer_cur, tmix=tmix,
+                          c2dtt=c2dtt)
+        ft += vmix.vdifft(cfg, grid, coeffs.vdc, state.tracer_old,
+                          forcing.stf)
+        del2_done = False
+    else:
+        ft = tracer_cuda.tracer_tendency(
+            cfg, grid, state.u_cur, state.v_cur, state.tracer_cur, tmix,
+            state.tracer_old, coeffs.vdc, forcing.stf, dh)
+        del2_done = tracer_cuda.with_del2(cfg)
     # ft is this step's own tensor: the terms below add to it in place
     if gm_out is not None:
         ft += gm_out.gtk
-    elif cfg.hmix_tracer == "del4":
+    elif not del2_done:
         ft += hmix.hdifft(cfg, grid, bc, tmix)
     if cfg.lsubmeso and not submeso_done:
         ft += submeso.submeso_tendency(cfg, grid, bc, ts_range, tmix,

@@ -15,6 +15,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from pop2_tpu_torch import eos
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import (Grid, VGrid, build_aniso, build_topostress,
@@ -88,7 +89,8 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
 
     kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "aniso", "TSU",
                                 "TSV"))
-    kw["vgrid"] = VGrid(**fields(VGrid, "vgrid."))
+    vg = fields(VGrid, "vgrid.", skip=("poly",))
+    kw["vgrid"] = VGrid(**vg, poly=eos.polynomial_fit(cfg, vg["pressz"]))
     if "TSU" in leaves and "TSV" in leaves:
         kw["TSU"], kw["TSV"] = tensor(leaves["TSU"]), tensor(leaves["TSV"])
     elif cfg.ltopostress:

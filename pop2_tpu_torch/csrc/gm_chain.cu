@@ -349,6 +349,8 @@ struct TileWeights {
     return pb[q * nthr + idx[c]];
   }
   __device__ __forceinline__ T own_weff() const { return at(wWEFF, kC); }
+  // isotropic: one effective diffusivity for the x and the y faces
+  __device__ __forceinline__ T own_weff_y() const { return own_weff(); }
   __device__ __forceinline__ T own_vt(int f) const { return at(wVT + f, kC); }
   __device__ __forceinline__ T own_vb(int f) const { return at(wVB + f, kC); }
   __device__ __forceinline__ T nb_weff(int c) const { return at(wWEFF, c); }

@@ -52,8 +52,15 @@
 // column's, and the ghost row's south-face skew weights are the folded
 // column's north-face ones with the sign flipped (the faces swap under the
 // 180-degree fold, `BC.n_partner` of the plain version); no top row is
-// patched after the kernel. The block shape and the dynamic shared memory
-// come from the wrapper's planner (`gm_cuda.launch_plan`).
+// patched after the kernel. Anisotropic GM (ANISO, instances of their own)
+// reads a second isopycnal diffusivity, the y faces' (kisy; kisop is then
+// the x faces'): every column forms the x faces' skew and vertical-flux
+// weights from kisop and the y faces' from kisy, and publishes two
+// effective diffusivities, one a direction; a side column forms the one of
+// the face it turns to the tile, the tripole ghost row its folded column's
+// y-face weights. Two fields more to read, one plane more to publish. The
+// block shape and the dynamic shared memory come from the wrapper's
+// planner (`gm_cuda.launch_plan`).
 #include "gm_flux.cuh"
 
 namespace pop2 {
@@ -69,22 +76,30 @@ __host__ __device__ constexpr int flux_rows(int nt) {
 }
 using FluxFrame = Frame<1>;
 
-// what a frame column publishes each level: weff, then vt and vb of faces
-// e, w, n, s (weff alone under `cancellation`)
-enum { pWEFF = 0, pVT = 1, pVB = 5, kFluxPub = 9 };
+// what a frame column publishes each level: weff (with ANISO the x faces'
+// and then the y faces'), then vt and vb of faces e, w, n, s (the
+// effective diffusivities alone under `cancellation`)
+template <bool CANCEL, bool ANISO>
+struct FluxPub {
+  static constexpr int kWeff = 0;
+  static constexpr int kWeffY = ANISO ? 1 : 0;
+  static constexpr int kVT = ANISO ? 2 : 1;
+  static constexpr int kVB = kVT + 4;
+  static constexpr int kCount = CANCEL ? kVT : kVB + 4;
+};
 // staged difference planes of a tracer
 enum { dTX = 0, dTY = 1, dTZ = 2 };
 
 // The tile's shared memory, in values: three staged levels of nt tracers'
 // difference frame planes, two buffers of the published weights (frame
 // planes), the nt vertical-flux carries (tile planes).
-template <bool CANCEL, int ROWS>
+template <bool CANCEL, int ROWS, bool ANISO>
 struct FluxLayout {
   static constexpr int kW = FluxFrame::kPitch;
   static constexpr int kP = FluxFrame::plane(ROWS);  // a frame plane
   static constexpr int kC = kFrameCols * ROWS;       // a tile plane
   static constexpr int kDiff = CANCEL ? 2 : 3;       // planes a tracer
-  static constexpr int kPub = CANCEL ? 1 : kFluxPub;
+  static constexpr int kPub = FluxPub<CANCEL, ANISO>::kCount;
   static constexpr int kTracer = kDiff * kP;  // a tracer's staged level
   static constexpr int kSlots = (kP + kC - 1) / kC;  // frame slots a thread
   // frame columns on the tile's sides whose weights a tile thread forms:
@@ -96,22 +111,29 @@ struct FluxLayout {
   }
 };
 
-inline long flux_smem_values(int nt, bool cancel) {
+template <int ROWS, bool ANISO>
+long flux_smem_values_of(int nt, bool cancel) {
+  return cancel ? FluxLayout<true, ROWS, ANISO>::values(nt)
+                : FluxLayout<false, ROWS, ANISO>::values(nt);
+}
+
+inline long flux_smem_values(int nt, bool cancel, bool aniso) {
   if (flux_rows(nt) == kFluxRows)
-    return cancel ? FluxLayout<true, kFluxRows>::values(nt)
-                  : FluxLayout<false, kFluxRows>::values(nt);
-  return cancel ? FluxLayout<true, kFluxRowsNarrow>::values(nt)
-                : FluxLayout<false, kFluxRowsNarrow>::values(nt);
+    return aniso ? flux_smem_values_of<kFluxRows, true>(nt, cancel)
+                 : flux_smem_values_of<kFluxRows, false>(nt, cancel);
+  return aniso ? flux_smem_values_of<kFluxRowsNarrow, true>(nt, cancel)
+               : flux_smem_values_of<kFluxRowsNarrow, false>(nt, cancel);
 }
 
 // Blocks an SM that the register budget is set for. The model's two
 // tracers: 32 warps in float32 with `cancellation` (the gm_flux path's
-// instance), 16 in its skew instance and in float64. A run-time tracer
-// count, off the model's path, takes the registers it needs.
-template <typename T, bool CANCEL, int NT>
+// instance), 16 in its skew instance, in float64 and anisotropic. A
+// run-time tracer count takes the registers it needs.
+template <typename T, bool CANCEL, int NT, bool ANISO>
 struct FluxOcc {
   static constexpr int kMinBlocks =
-      NT != kFluxTracersFixed ? 1 : (sizeof(T) == 4 && CANCEL ? 4 : 2);
+      NT != kFluxTracersFixed ? 1
+                              : (sizeof(T) == 4 && CANCEL && !ANISO ? 4 : 2);
 };
 
 // Slot offset of stencil column `col` from the centre in a frame plane.
@@ -123,27 +145,33 @@ __device__ __forceinline__ int frame_shift(int col) {
 // The weights the tile's frame columns published for one level, as
 // `gm_flux_level` reads them, from shared memory: pb is the buffer of the
 // level, s the centre column's slot.
-template <typename T, bool CANCEL, int P, int W>
+template <typename T, bool CANCEL, bool ANISO, int P, int W>
 struct FrameWeights {
+  using Pub = FluxPub<CANCEL, ANISO>;
   const T* pb;
   int s;
 
   __device__ __forceinline__ T at(int q, int col) const {
     return pb[q * P + s + frame_shift<W>(col)];
   }
-  __device__ __forceinline__ T own_weff() const { return at(pWEFF, kC); }
+  __device__ __forceinline__ T own_weff() const { return at(Pub::kWeff, kC); }
+  __device__ __forceinline__ T own_weff_y() const {
+    return at(Pub::kWeffY, kC);
+  }
   __device__ __forceinline__ T own_vt(int f) const {
-    return CANCEL ? T(0) : at(pVT + f, kC);
+    return CANCEL ? T(0) : at(Pub::kVT + f, kC);
   }
   __device__ __forceinline__ T own_vb(int f) const {
-    return CANCEL ? T(0) : at(pVB + f, kC);
+    return CANCEL ? T(0) : at(Pub::kVB + f, kC);
   }
-  __device__ __forceinline__ T nb_weff(int c) const { return at(pWEFF, c); }
+  __device__ __forceinline__ T nb_weff(int c) const {
+    return at(c == kN || c == kS ? Pub::kWeffY : Pub::kWeff, c);
+  }
   __device__ __forceinline__ T nb_vt(int c) const {
-    return CANCEL ? T(0) : at(pVT + facing(c), c);
+    return CANCEL ? T(0) : at(Pub::kVT + facing(c), c);
   }
   __device__ __forceinline__ T nb_vb(int c) const {
-    return CANCEL ? T(0) : at(pVB + facing(c), c);
+    return CANCEL ? T(0) : at(Pub::kVB + facing(c), c);
   }
 };
 
@@ -189,20 +217,22 @@ __device__ __forceinline__ int quarter_off(int face, int ps) {
   return 2 * (face & 1) * ps;
 }
 
-template <typename T, bool CANCEL, int NT, bool FOLD>
+template <typename T, bool CANCEL, int NT, bool FOLD, bool ANISO>
 __global__ void __launch_bounds__(kFrameCols * flux_rows(NT),
-                                  FluxOcc<T, CANCEL, NT>::kMinBlocks)
+                                  FluxOcc<T, CANCEL, NT, ANISO>::kMinBlocks)
 gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
                const T* __restrict__ tx, const T* __restrict__ ty,
                const T* __restrict__ tz, const T* __restrict__ slx,
                const T* __restrict__ sly, const T* __restrict__ sfx,
                const T* __restrict__ sfy, const T* __restrict__ kisop,
-               const T* __restrict__ hd, const int* __restrict__ kmt,
+               const T* __restrict__ kisy, const T* __restrict__ hd,
+               const int* __restrict__ kmt,
                const T* __restrict__ hyx, const T* __restrict__ hxy,
                const T* __restrict__ tarea_r, const T* __restrict__ lev,
                T* __restrict__ gtk, T* __restrict__ vdc) {
   constexpr int ROWS = flux_rows(NT);
-  using Lay = FluxLayout<CANCEL, ROWS>;
+  using Lay = FluxLayout<CANCEL, ROWS, ANISO>;
+  using Pub = FluxPub<CANCEL, ANISO>;
   constexpr int W = Lay::kW, P = Lay::kP, C = Lay::kC;
   if (NT > 0) nt = NT;
   extern __shared__ __align__(16) unsigned char pop2_smem[];
@@ -341,21 +371,31 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
     const T kis_b = own_in ? kisop[ps + o] : T(0);
     const T hd_t = own_in ? hd[o] : T(0);
     const T hd_b = own_in ? hd[ps + o] : T(0);
-    gm_make_weights<T, CANCEL>(lev[L], kis_t, kis_b, hd_t, hd_b, sl_t, sl_b,
-                               sf_t, sf_b, m, w);
     T* pb = pub + (L & 1) * Lay::kPub * P + s;
-    pb[pWEFF * P] = w->weff;
+    if (ANISO) {
+      const T ky_t = own_in ? kisy[o] : T(0);
+      const T ky_b = own_in ? kisy[ps + o] : T(0);
+      T weff_y;
+      gm_make_weights_aniso<T, CANCEL>(lev[L], kis_t, kis_b, ky_t, ky_b,
+                                       hd_t, hd_b, sl_t, sl_b, sf_t, sf_b, m,
+                                       w, &weff_y);
+      pb[Pub::kWeffY * P] = weff_y;
+    } else {
+      gm_make_weights<T, CANCEL>(lev[L], kis_t, kis_b, hd_t, hd_b, sl_t,
+                                 sl_b, sf_t, sf_b, m, w);
+    }
+    pb[Pub::kWeff * P] = w->weff;
     if (!CANCEL) {
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        pb[(pVT + f) * P] = w->vt[f];
-        pb[(pVB + f) * P] = w->vb[f];
+        pb[(Pub::kVT + f) * P] = w->vt[f];
+        pb[(Pub::kVB + f) * P] = w->vb[f];
       }
       // on the tripole ghost row the south face is the folded column's
       // north face, sign flipped
       if (FOLD && own_fold) {
-        pb[(pVT + fS) * P] = -w->vt[fN];
-        pb[(pVB + fS) * P] = -w->vb[fN];
+        pb[(Pub::kVT + fS) * P] = -w->vt[fN];
+        pb[(Pub::kVB + fS) * P] = -w->vb[fN];
       }
     }
   };
@@ -369,15 +409,23 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
       if (hq[j] < 0) continue;
       const bool in = hin[j];
       const int o = L * ls + hoff[j];
-      const T kis_t = in ? kisop[o] : T(0);
-      const T kis_b = in ? kisop[ps + o] : T(0);
+      const int f = hface[j];
+      // the diffusivity of the face turned to the tile: with ANISO the y
+      // faces' for the S and N rows
+      const bool yface = ANISO && f >= fN;
+      const T* kis = yface ? kisy : kisop;
+      const T kis_t = in ? kis[o] : T(0);
+      const T kis_b = in ? kis[ps + o] : T(0);
       const T hd_t = in ? hd[o] : T(0);
       const T hd_b = in ? hd[ps + o] : T(0);
-      pb[pWEFF * P + hq[j]] = kis_t + kis_b + hd_t + hd_b;
+      if (ANISO)
+        pb[(yface ? Pub::kWeffY : Pub::kWeff) * P + hq[j]] =
+            (kis_t + hd_t) + (kis_b + hd_b);
+      else
+        pb[Pub::kWeff * P + hq[j]] = kis_t + kis_b + hd_t + hd_b;
       if (!CANCEL) {
         // the face turned to the tile; on the tripole ghost row the folded
         // column's north face, read and sign flipped for its south face
-        const int f = hface[j];
         const bool flip = FOLD && hfold[j];
         const int fr = flip ? fN : f;
         const int q = quarter_off(fr, ps) + o;
@@ -388,8 +436,8 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
         const T sf_t = in ? sf[q] : T(0), sf_b = in ? sf[q + ps] : T(0);
         const T vt = kis_t * sl_t * dzk - sf_t;
         const T vb = kis_b * sl_b * dzk - sf_b;
-        pb[(pVT + f) * P + hq[j]] = flip ? -vt : vt;
-        pb[(pVB + f) * P + hq[j]] = flip ? -vb : vb;
+        pb[(Pub::kVT + f) * P + hq[j]] = flip ? -vt : vt;
+        pb[(Pub::kVB + f) * P + hq[j]] = flip ? -vb : vb;
       }
     }
   };
@@ -419,7 +467,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
       const T* lk = stg + b0 * stage_size;
       const FrameDiffs<T, P, W, Lay::kTracer> dp{
           lk, g.kp == k ? lk : stg + b1 * stage_size, k, s};
-      const FrameWeights<T, CANCEL, P, W> fw{
+      const FrameWeights<T, CANCEL, ANISO, P, W> fw{
           pub + (k & 1) * Lay::kPub * P, s};
       gm_flux_level<T, CANCEL>(dp, m, nt, g, cur, nxt, fw, fzt + tid, C, ls,
                                ps, oc, gtk, vdc);
@@ -432,15 +480,16 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   }
 }
 
-template <typename T, bool CANCEL, int NT, bool FOLD>
+template <typename T, bool CANCEL, int NT, bool FOLD, bool ANISO>
 struct FluxInstance {
   static cudaError_t prepare(long smem) {
-    return allow_large_smem(gm_flux_kernel<T, CANCEL, NT, FOLD>, smem);
+    return allow_large_smem(gm_flux_kernel<T, CANCEL, NT, FOLD, ANISO>,
+                            smem);
   }
   static int occupancy(long smem) {
     const cudaError_t e = prepare(smem);
     if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(gm_flux_kernel<T, CANCEL, NT, FOLD>,
+    return blocks_per_sm(gm_flux_kernel<T, CANCEL, NT, FOLD, ANISO>,
                          kFrameCols * flux_rows(NT), smem);
   }
 };
@@ -448,77 +497,88 @@ struct FluxInstance {
 // The launch configuration the wrapper chose: `rows` rows of kFrameCols
 // columns, `smem` bytes of dynamic shared memory.
 template <typename T>
-bool flux_config_ok(int nt, int km, int ny, int nx, bool cancel, int rows,
-                    long smem) {
+bool flux_config_ok(int nt, int km, int ny, int nx, bool cancel, bool aniso,
+                    int rows, long smem) {
   // offsets in int: the four quarter planes of a slope field, the nt of a
   // difference field
   return nt >= 1 && nt <= kMaxTracers && km >= 1 &&
          (long)(nt > 4 ? nt : 4) * km * ny * nx < (1L << 31) &&
          rows == flux_rows(nt) &&
-         smem >= flux_smem_values(nt, cancel) * (long)sizeof(T);
+         smem >= flux_smem_values(nt, cancel, aniso) * (long)sizeof(T);
 }
 
 }  // namespace pop2
 
-#define POP2_GM_FLUX_BRANCHES(T, FOLD, ACTION)                               \
+#define POP2_GM_FLUX_BRANCHES(T, FOLD, ANISO, ACTION)                        \
   if (nt == kFluxTracersFixed && cancellation)                               \
-    ACTION(T, true, kFluxTracersFixed, FOLD)                                 \
+    ACTION(T, true, kFluxTracersFixed, FOLD, ANISO)                          \
   else if (nt == kFluxTracersFixed)                                          \
-    ACTION(T, false, kFluxTracersFixed, FOLD)                                \
+    ACTION(T, false, kFluxTracersFixed, FOLD, ANISO)                         \
   else if (cancellation)                                                     \
-    ACTION(T, true, 0, FOLD)                                                 \
+    ACTION(T, true, 0, FOLD, ANISO)                                          \
   else                                                                       \
-    ACTION(T, false, 0, FOLD)
+    ACTION(T, false, 0, FOLD, ANISO)
 #define POP2_GM_FLUX_INSTANCES(T, ACTION)                                    \
-  if (fold) {                                                                \
-    POP2_GM_FLUX_BRANCHES(T, true, ACTION)                                   \
+  if (fold && aniso) {                                                       \
+    POP2_GM_FLUX_BRANCHES(T, true, true, ACTION)                             \
+  } else if (fold) {                                                         \
+    POP2_GM_FLUX_BRANCHES(T, true, false, ACTION)                            \
+  } else if (aniso) {                                                        \
+    POP2_GM_FLUX_BRANCHES(T, false, true, ACTION)                            \
   } else {                                                                   \
-    POP2_GM_FLUX_BRANCHES(T, false, ACTION)                                  \
+    POP2_GM_FLUX_BRANCHES(T, false, false, ACTION)                           \
   }
 
 extern "C" int pop2_gm_flux_max_tracers() { return pop2::kMaxTracers; }
 
-// Values of dynamic shared memory the tile takes for nt tracers in a branch
-// (the planner's count, gm_cuda.smem_values).
-extern "C" int pop2_gm_flux_smem_values(int nt, int cancellation) {
-  return (int)pop2::flux_smem_values(nt, cancellation != 0);
+// Values of dynamic shared memory the tile takes for nt tracers in a branch,
+// isotropic or anisotropic (the planner's count, gm_cuda.smem_values).
+extern "C" int pop2_gm_flux_smem_values(int nt, int cancellation,
+                                        int aniso) {
+  return (int)pop2::flux_smem_values(nt, cancellation != 0, aniso != 0);
 }
 
 // The rows of the tile for nt tracers (the planner's gm_cuda.tile_rows).
 extern "C" int pop2_gm_flux_tile_rows(int nt) { return pop2::flux_rows(nt); }
 
 // dtype: 0 = float32, 1 = float64; fold: the north edge is a tripole fold;
-// rows: rows of the tile; smem: dynamic shared memory a block, bytes.
+// aniso: anisotropic diffusivities, kisop the x faces', kisy the y faces'
+// (not read otherwise); rows: rows of the tile; smem: dynamic shared memory
+// a block, bytes.
 // Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
 // configuration the kernel does not take.
 extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
-                            int cyclic, int fold, int cancellation, int rows,
-                            long smem, const void* tx, const void* ty,
-                            const void* tz, const void* slx, const void* sly,
-                            const void* sfx, const void* sfy,
-                            const void* kisop, const void* hd, const int* kmt,
+                            int cyclic, int fold, int cancellation, int aniso,
+                            int rows, long smem, const void* tx,
+                            const void* ty, const void* tz, const void* slx,
+                            const void* sly, const void* sfx,
+                            const void* sfy, const void* kisop,
+                            const void* kisy, const void* hd, const int* kmt,
                             const void* hyx, const void* hxy,
                             const void* tarea_r, const void* lev, void* gtk,
                             void* vdc, void* stream) {
   using namespace pop2;
   const bool cancel = cancellation != 0;
-  if (!(dtype == 0
-            ? flux_config_ok<float>(nt, km, ny, nx, cancel, rows, smem)
-            : flux_config_ok<double>(nt, km, ny, nx, cancel, rows, smem)))
+  if (!(dtype == 0 ? flux_config_ok<float>(nt, km, ny, nx, cancel,
+                                           aniso != 0, rows, smem)
+                   : flux_config_ok<double>(nt, km, ny, nx, cancel,
+                                            aniso != 0, rows, smem)) ||
+      (aniso && kisy == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((nx + kFrameCols - 1) / kFrameCols),
                   (unsigned)((ny + rows - 1) / rows));
   const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_GM_FLUX(T, CANCEL, NT, FOLD)                                    \
+#define POP2_GM_FLUX(T, CANCEL, NT, FOLD, ANISO)                             \
   {                                                                          \
-    const cudaError_t e = FluxInstance<T, CANCEL, NT, FOLD>::prepare(smem);  \
+    const cudaError_t e =                                                    \
+        FluxInstance<T, CANCEL, NT, FOLD, ANISO>::prepare(smem);             \
     if (e != cudaSuccess) return (int)e;                                     \
-    gm_flux_kernel<T, CANCEL, NT, FOLD><<<grid, block, smem, s>>>(           \
+    gm_flux_kernel<T, CANCEL, NT, FOLD, ANISO><<<grid, block, smem, s>>>(    \
         nt, km, ny, nx, cyclic, (const T*)tx, (const T*)ty, (const T*)tz,    \
         (const T*)slx, (const T*)sly, (const T*)sfx, (const T*)sfy,          \
-        (const T*)kisop, (const T*)hd, kmt, (const T*)hyx, (const T*)hxy,    \
-        (const T*)tarea_r, (const T*)lev, (T*)gtk, (T*)vdc);                 \
+        (const T*)kisop, (const T*)kisy, (const T*)hd, kmt, (const T*)hyx,   \
+        (const T*)hxy, (const T*)tarea_r, (const T*)lev, (T*)gtk, (T*)vdc);  \
   }
   if (dtype == 0) {
     POP2_GM_FLUX_INSTANCES(float, POP2_GM_FLUX)
@@ -530,12 +590,12 @@ extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
 }
 
 // Blocks of a launch of this configuration (nt tracers, a branch, the north
-// edge, `smem` bytes a block) that one SM holds at once.
+// edge, isotropic or not, `smem` bytes a block) that one SM holds at once.
 extern "C" int pop2_gm_flux_blocks_per_sm(int dtype, int nt, int cancellation,
-                                          int fold, long smem) {
+                                          int fold, int aniso, long smem) {
   using namespace pop2;
-#define POP2_GM_FLUX_OCC(T, CANCEL, NT, FOLD)                                \
-  return FluxInstance<T, CANCEL, NT, FOLD>::occupancy(smem);
+#define POP2_GM_FLUX_OCC(T, CANCEL, NT, FOLD, ANISO)                         \
+  return FluxInstance<T, CANCEL, NT, FOLD, ANISO>::occupancy(smem);
   if (dtype == 0) {
     POP2_GM_FLUX_INSTANCES(float, POP2_GM_FLUX_OCC)
   } else {

@@ -120,6 +120,40 @@ __device__ __forceinline__ void gm_make_weights(
   w->part_b = dzk * T(0.25) * kis_t * (qx_t + qy_t);
 }
 
+// The weights of anisotropic GM (gm_aniso): the x faces e, w take the
+// isopycnal diffusivity kx, the y faces n, s ky; `weff` is the x faces'
+// effective diffusivity, *weff_y the y faces'.
+template <typename T, bool CANCEL>
+__device__ __forceinline__ void gm_make_weights_aniso(
+    T dzk, T kx_t, T kx_b, T ky_t, T ky_b, T hd_t, T hd_b,
+    const T (&sl_t)[4], const T (&sl_b)[4], const T (&sf_t)[4],
+    const T (&sf_b)[4], const GmMetrics<T>& m, GmWeights<T>* w, T* weff_y) {
+  w->weff = (kx_t + hd_t) + (kx_b + hd_b);
+  *weff_y = (ky_t + hd_t) + (ky_b + hd_b);
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const T kt = f < fN ? kx_t : ky_t;
+    const T kb = f < fN ? kx_b : ky_b;
+    if (CANCEL) {
+      w->vt[f] = T(0);
+      w->vb[f] = T(0);
+      w->a[f] = dzk * kb * sl_b[f];
+      w->b[f] = dzk * kt * sl_t[f];
+    } else {
+      w->vt[f] = kt * sl_t[f] * dzk - sf_t[f];
+      w->vb[f] = kb * sl_b[f] * dzk - sf_b[f];
+      w->a[f] = dzk * kb * sl_b[f] + sf_b[f];
+      w->b[f] = dzk * kt * sl_t[f] + sf_t[f];
+    }
+  }
+  const T qx_b = m.hyx * sl_b[fE] * sl_b[fE] + m.hyxw * sl_b[fW] * sl_b[fW];
+  const T qy_b = m.hxy * sl_b[fN] * sl_b[fN] + m.hxys * sl_b[fS] * sl_b[fS];
+  const T qx_t = m.hyx * sl_t[fE] * sl_t[fE] + m.hyxw * sl_t[fW] * sl_t[fW];
+  const T qy_t = m.hxy * sl_t[fN] * sl_t[fN] + m.hxys * sl_t[fS] * sl_t[fS];
+  w->part_a = dzk * T(0.25) * (kx_b * qx_b + ky_b * qy_b);
+  w->part_b = dzk * T(0.25) * (kx_t * qx_t + ky_t * qy_t);
+}
+
 // Diffusive + skew flux through the face between column A and the column B
 // east (or north) of it, scaled as the reference scales it: `coef` is the
 // masked quarter metric of A, `diff` the tracer difference across the face,
@@ -169,9 +203,10 @@ __device__ __forceinline__ GmLevel<T> gm_level(const GmMetrics<T>& m, int km,
 }
 
 // GTK of every tracer and VDC_GM at level g.k of the column at offset oc.
-// The face weights come from a provider `w`: own_weff(), own_vt(f),
-// own_vb(f) of the column itself, nb_weff(c), nb_vt(c), nb_vb(c) of
-// neighbour column c (the skew weights of its face that looks back); the
+// The face weights come from a provider `w`: own_weff() (the x faces'),
+// own_weff_y() (the y faces'), own_vt(f), own_vb(f) of the column itself,
+// nb_weff(c) (of the direction of c), nb_vt(c), nb_vb(c) of neighbour
+// column c (the skew weights of its face that looks back); the
 // vertical-flux weights from the column's own at the level (`cur`: a,
 // part_a) and the level below (`nxt`: b, part_b); the differences from a
 // provider `dp`: tx_c, tx_w, ty_c, ty_s (n, level) and tz(n, level, col), at
@@ -206,11 +241,11 @@ __device__ __forceinline__ void gm_flux_level(
         w.nb_vb(kW), w.own_vt(fW), w.own_vb(fW), tz[kW], tzp[kW], tz[kC],
         tzp[kC]);
     const T fy_c = gm_face_flux<T, CANCEL>(
-        dzk, cy_c, ty_c, w.own_weff() + w.nb_weff(kN), w.own_vt(fN),
+        dzk, cy_c, ty_c, w.own_weff_y() + w.nb_weff(kN), w.own_vt(fN),
         w.own_vb(fN), w.nb_vt(kN), w.nb_vb(kN), tz[kC], tzp[kC], tz[kN],
         tzp[kN]);
     const T fy_s = gm_face_flux<T, CANCEL>(
-        dzk, cy_s, ty_s, w.nb_weff(kS) + w.own_weff(), w.nb_vt(kS),
+        dzk, cy_s, ty_s, w.nb_weff(kS) + w.own_weff_y(), w.nb_vt(kS),
         w.nb_vb(kS), w.own_vt(fS), w.own_vb(fS), tz[kS], tzp[kS], tz[kC],
         tzp[kC]);
 

@@ -10,20 +10,31 @@ Types:
   * ``jmcd``  — Jackett & McDougall (1995), UNESCO + secant bulk modulus.
   * ``linear``— linear expansion about a reference state
                 (source/state_mod.F90:664-672).
+  * ``polynomial`` — Bryan-Cox per-level 9-term cubic fits of UNESCO (1981)
+                (source/state_mod.F90:600-662, fitted as init_state_coeffs
+                :1168-1560 does).
 
-The Bryan-Cox ``polynomial`` fit is not ported yet (ROADMAP.md Queue 1
-item 11).
+The polynomial fit depends on the pressure profile it is made for, one level
+at a time. The levels' own pressures are fitted on the host in NumPy once,
+when the grid is built (``polynomial_fit``), and the fit is a field of the
+vertical grid (``VGrid.poly``), so it moves with the grid. The other
+profiles the package takes densities at (a parcel displaced one level down,
+one level's pressure alone) are rows of that fit (``fit_rows``). A step only
+reads it: a copy from the host inside a step would break a captured step,
+so a density without a fit raises.
 
 Units: T in degC, S in g/g (msu), p in bars; rho in g/cm^3.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from pop2_tpu_torch._tree import TensorTree
 from pop2_tpu_torch.config import ModelConfig
 
 P001 = 0.001
@@ -295,12 +306,14 @@ def linear_rho(T, S_msu, want_drhodt: bool = False,
     return tuple(out) if len(out) > 1 else out[0]
 
 def state(cfg: ModelConfig, pressz, T, S, ts_range: Optional[TSRange] = None,
-          want_drhodt: bool = False, want_drhods: bool = False):
+          want_drhodt: bool = False, want_drhods: bool = False,
+          fit: Optional["PolyFit"] = None):
     """rho (and optional derivatives) for full 3-D (km, ny, nx) fields.
 
     ``pressz`` is the per-level reference pressure (bars), shape (km,) — the
     displaced-parcel variant (k != kk) is available by passing a different
-    pressure profile.
+    pressure profile. Under ``polynomial``, ``fit`` is the fit of that
+    profile: ``grid.vgrid.poly``, or ``fit_rows`` of it.
     """
     p = pressz.reshape(-1, 1, 1)
     TQ, SQ = _adjust_ts(cfg, T, S, ts_range)
@@ -310,14 +323,18 @@ def state(cfg: ModelConfig, pressz, T, S, ts_range: Optional[TSRange] = None,
         return jmcd_rho(TQ, SQ, p, want_drhodt, want_drhods)
     if cfg.state_choice == "linear":
         return linear_rho(TQ, SQ, want_drhodt, want_drhods)
+    if cfg.state_choice == "polynomial":
+        return poly_rho(TQ, SQ, _need_fit(fit), want_drhodt, want_drhods)
     raise NotImplementedError(cfg.state_choice)
 
 
 def state_at_level(cfg: ModelConfig, press_bars, T, S,
-                   ts_range_k: Optional[tuple] = None):
+                   ts_range_k: Optional[tuple] = None,
+                   fit: Optional["PolyFit"] = None):
     """rho for a single level/field displaced to pressure ``press_bars``
     (used by convective adjustment's k -> k+1 displacement,
-    source/vertical_mix.F90:1955-1958)."""
+    source/vertical_mix.F90:1955-1958; under ``polynomial`` ``fit`` is that
+    level's, ``fit_rows(grid.vgrid.poly, k)``)."""
     if ts_range_k is not None:
         tmin, tmax, smin, smax = ts_range_k
         T = torch.clamp(T, min=tmin, max=tmax)
@@ -331,4 +348,208 @@ def state_at_level(cfg: ModelConfig, press_bars, T, S,
         return jmcd_rho(T, S, press_bars)
     if cfg.state_choice == "linear":
         return linear_rho(T, S)
+    if cfg.state_choice == "polynomial":
+        fit = _need_fit(fit)
+        if T.ndim == 2:
+            return poly_rho(T[None], S[None], fit)[0]
+        return poly_rho(T, S, fit)
     raise NotImplementedError(cfg.state_choice)
+
+
+# ---------------------------------------------------------------------------
+# Bryan-Cox 'polynomial' EOS (source/state_mod.F90:600-662 evaluation,
+# init_state_coeffs :1168-1560): per-level 9-term cubic fits of the full
+# UNESCO (1981) equation of state in potential-temperature/salinity
+# anomalies about level-mean reference values. The reference fits with a
+# 1968 JPL iterative least-squares routine (lsqsl2 :1778); here numpy's
+# lstsq solves the same overdetermined system on the host, once a profile.
+# ---------------------------------------------------------------------------
+
+# T/S sampling ranges per 250 m depth bin: the range-enforcement tables
+# above (state_mod.F90:1280-1330)
+_NS_SALT = 5
+_NS_TEMP = 2 * _NS_SALT
+
+
+def unesco_rho(t, s, pbars):
+    """Full UNESCO (1981) in-situ density (kg/m^3) from in-situ T (degC),
+    S (psu), p (bars) — Gill (1982) App. 3 / UNESCO Tech. Paper 36, the
+    formula init_state_coeffs samples (state_mod.F90 'unesco'). NumPy."""
+    t = np.asarray(t, np.float64)
+    s = np.asarray(s, np.float64)
+    p = np.asarray(pbars, np.float64)
+    # density at one standard atmosphere
+    rw = (999.842594 + 6.793952e-2 * t - 9.095290e-3 * t**2
+          + 1.001685e-4 * t**3 - 1.120083e-6 * t**4 + 6.536332e-9 * t**5)
+    rsto = (rw
+            + s * (0.824493 - 4.0899e-3 * t + 7.6438e-5 * t**2
+                   - 8.2467e-7 * t**3 + 5.3875e-9 * t**4)
+            + s**1.5 * (-5.72466e-3 + 1.0227e-4 * t - 1.6546e-6 * t**2)
+            + 4.8314e-4 * s**2)
+    # secant bulk modulus
+    kw = (19652.21 + 148.4206 * t - 2.327105 * t**2
+          + 1.360477e-2 * t**3 - 5.155288e-5 * t**4)
+    ksto = (kw
+            + s * (54.6746 - 0.603459 * t + 1.09987e-2 * t**2
+                   - 6.1670e-5 * t**3)
+            + s**1.5 * (7.944e-2 + 1.6483e-2 * t - 5.3009e-4 * t**2))
+    kstp = (ksto
+            + p * (3.239908 + 1.43713e-3 * t + 1.16092e-4 * t**2
+                   - 5.77905e-7 * t**3)
+            + p * s * (2.2838e-3 - 1.0981e-5 * t - 1.6078e-6 * t**2)
+            + p * s**1.5 * 1.91075e-4
+            + p**2 * (8.50935e-5 - 6.12293e-6 * t + 5.2787e-8 * t**2)
+            + p**2 * s * (-9.9348e-7 + 2.0816e-8 * t + 9.1697e-10 * t**2))
+    return rsto / (1.0 - p / kstp)
+
+
+def potem(t, s, pbars):
+    """Potential temperature from in-situ T, S, p (Bryden 1973; the
+    reference's 'potem', state_mod.F90). NumPy."""
+    t = np.asarray(t, np.float64)
+    s = np.asarray(s, np.float64)
+    p = np.asarray(pbars, np.float64)
+    p2, p3 = p * p, p * p * p
+    potmp = (p * (3.6504e-4 + t * (8.3198e-5 + t * (-5.4065e-7
+                                                    + t * 4.0274e-9)))
+             + p * (s - 35.0) * (1.7439e-5 - t * 2.9778e-7)
+             + p2 * (8.9309e-7 + t * (-3.1628e-8 + t * 2.1987e-10))
+             - 4.1057e-9 * p2 * (s - 35.0)
+             + p3 * (-1.6056e-10 + t * 5.0484e-12))
+    return t - potmp
+
+
+def _poly_coeffs_np(zt_cm: tuple, pressz: tuple):
+    """(coeffs (9, km), to (km), so (km), sigo (km)) in model units, the
+    init_state_coeffs pipeline (state_mod.F90:1340-1537). NumPy."""
+    zt = np.asarray(zt_cm)
+    pz = np.asarray(pressz)
+    km = len(zt)
+    coeffs = np.zeros((9, km))
+    to = np.zeros(km)
+    so = np.zeros(km)
+    sigo = np.zeros(km)
+    for k in range(km):
+        i = min(int(zt[k] * 0.01 / 250.0), 32)
+        ts = np.linspace(TREFMIN[i], TREFMAX[i], _NS_TEMP)
+        ss = np.linspace(SREFMIN[i], SREFMAX[i], _NS_SALT)
+        tg, sg = (a.ravel() for a in np.meshgrid(ts, ss, indexing="ij"))
+        sigma = unesco_rho(tg, sg, pz[k]) - 1.0e3
+        theta = potem(tg, sg, pz[k])
+        t_avg, s_avg = tg.mean(), sg.mean()
+        sigo[k] = unesco_rho(t_avg, s_avg, pz[k]) - 1.0e3
+        to[k] = theta.mean()
+        so[k] = s_avg
+        ta = theta - to[k]
+        sa = sg - so[k]
+        A = np.stack([ta, sa, ta * ta, ta * sa, sa * sa, ta**3,
+                      sa * sa * ta, ta * ta * sa, sa**3], axis=1)
+        coeffs[:, k] = np.linalg.lstsq(A, sigma - sigo[k], rcond=None)[0]
+    # unit rescaling (state_mod.F90:1525-1537): the coefficients go to
+    # (g/cm^3 - 1)/msu units; sigo stays in kg/m^3 (the reference scales
+    # it down then back up, :1526 and :1536) and the evaluation adds
+    # sigo*1e-3 + 1
+    so = so * 1.0e-3 - 0.035
+    for idx, fac in ((0, 1e-3), (2, 1e-3), (4, 1e3), (5, 1e-3),
+                     (6, 1e3), (8, 1e6)):
+        coeffs[idx] *= fac
+    return coeffs, to, so, sigo
+
+
+def _depth_from_pressz(pz: tuple) -> np.ndarray:
+    """Invert the Levitus hydrostatic pressure fit (grid.pressure_bars)
+    for the 250 m range-table binning of the polynomial fit; Newton on
+    the smooth monotone fit converges in a few steps. NumPy."""
+    p = np.asarray(pz, np.float64)
+    d = p / 0.100766                      # linear first guess (m)
+    for _ in range(6):
+        f = (0.059808 * (np.exp(-0.025 * d) - 1.0) + 0.100766 * d
+             + 2.28405e-7 * d * d - p)
+        fp = (-0.025 * 0.059808 * np.exp(-0.025 * d) + 0.100766
+              + 2.0 * 2.28405e-7 * d)
+        d = d - f / fp
+    return np.maximum(d, 0.0) * 100.0     # cm
+
+
+@dataclass(frozen=True)
+class PolyFit(TensorTree):
+    """A pressure profile's polynomial fit on the device, in the model's
+    dtype, each shaped to broadcast over (n, ny, nx) fields of the
+    profile's n levels: coeffs (9, n, 1, 1); tref, sref, sigref (n, 1, 1),
+    the reference's to, so, sigo."""
+    coeffs: torch.Tensor
+    tref: torch.Tensor
+    sref: torch.Tensor
+    sigref: torch.Tensor
+
+
+def polynomial_fit(cfg: ModelConfig, pressz) -> Optional[PolyFit]:
+    """``VGrid.poly``: under ``state_choice='polynomial'`` the fit of the
+    levels' pressures ``pressz`` (bars, (km,)), made when the grid is built,
+    on the host from the values as their dtype holds them and copied to
+    their device and dtype; None under another equation of state."""
+    if cfg.state_choice != "polynomial":
+        return None
+    pz = tuple(np.asarray(pressz.detach().cpu(), np.float64).ravel())
+    coeffs, to, so, sigo = _poly_coeffs_np(tuple(_depth_from_pressz(pz)),
+                                           pz)
+
+    def dev(a, *shape):
+        return torch.as_tensor(a).to(device=pressz.device,
+                                     dtype=pressz.dtype).reshape(*shape)
+    n = len(pz)
+    return PolyFit(coeffs=dev(coeffs, 9, n, 1, 1), tref=dev(to, n, 1, 1),
+                   sref=dev(so, n, 1, 1), sigref=dev(sigo, n, 1, 1))
+
+
+def fit_rows(fit: Optional[PolyFit],
+             rows: Union[str, int]) -> Optional[PolyFit]:
+    """The fit of another profile, taken from ``fit``, the levels' own
+    (``VGrid.poly``). Each level's fit depends on its pressure alone, so
+    these are bitwise the profile's own fit. ``rows='down'``:
+    pressz[min(k+1, km-1)], a parcel displaced one level down (Richardson
+    mixing, GM's N^2 and diffusivities). An int k: level k's pressure
+    alone, one row that broadcasts over any number of levels (convective
+    adjustment; k = 0 is potential density's). None stays None."""
+    if fit is None:
+        return None
+    if rows == "down":
+        def pick(x, dim):
+            return torch.cat([x.narrow(dim, 1, x.shape[dim] - 1),
+                              x.narrow(dim, x.shape[dim] - 1, 1)], dim)
+    else:
+        def pick(x, dim):
+            return x.narrow(dim, rows, 1)
+    return PolyFit(coeffs=pick(fit.coeffs, 1), tref=pick(fit.tref, 0),
+                   sref=pick(fit.sref, 0), sigref=pick(fit.sigref, 0))
+
+
+def _need_fit(fit: Optional[PolyFit]) -> PolyFit:
+    if fit is None:
+        raise ValueError(
+            "state_choice='polynomial': no prebuilt fit for this pressure "
+            "profile; pass fit=grid.vgrid.poly (fitted when the grid is "
+            "built) or eos.fit_rows of it")
+    return fit
+
+
+def poly_rho(T, S_msu, fit: PolyFit, want_drhodt: bool = False,
+             want_drhods: bool = False):
+    """Evaluate the per-level cubic fit (state_mod.F90:600-662); T is
+    potential temperature (the model's prognostic temperature), S in msu;
+    T and S (n, ny, nx) for a fit of n levels (or of one, broadcast)."""
+    c = fit.coeffs
+    tq = T - fit.tref
+    sq = S_msu - fit.sref - 0.035
+    rho = ((c[0] + (c[3] + c[6] * sq) * sq
+            + (c[2] + c[7] * sq + c[5] * tq) * tq) * tq
+           + (c[1] + (c[4] + c[8] * sq) * sq) * sq
+           + fit.sigref * 1.0e-3 + 1.0)
+    out = [rho]
+    if want_drhodt:
+        out.append(c[0] + (c[3] + c[6] * sq) * sq
+                   + (2.0 * c[2] + 2.0 * c[7] * sq + 3.0 * c[5] * tq) * tq)
+    if want_drhods:
+        out.append((c[3] + 2.0 * c[6] * sq + c[7] * tq) * tq + c[1]
+                   + (2.0 * c[4] + 3.0 * c[8] * sq) * sq)
+    return tuple(out) if len(out) > 1 else out[0]

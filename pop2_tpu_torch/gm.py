@@ -27,13 +27,21 @@ the sign flipped (``BC.n_partner``, in the flux assembly).
 
 With KPP the diabatic depth of the transition layer is the smoothed
 boundary-layer depth (``kpp.smooth_hblt``), and without the transition
-layer the boundary-layer depth bounds the near-surface taper. Not ported yet
-(each raises, ROADMAP.md Queue 1 item 11): the 'depth', 'vmhs' and 'eg'
-diffusivity types and the anisotropic variant.
+layer the boundary-layer depth bounds the near-surface taper.
+
+The diffusivity types are the JAX package's: 'const', 'bfre' (the N^2
+profile), 'depth' (an exponential profile), 'vmhs' (Visbeck et al. 1997)
+and 'eg' (Eden & Greatbatch 2008), isopycnal and thickness diffusivities of
+one type or of two (``kappa_fields``); without the transition layer GM may
+be anisotropic (``gm_aniso`` 'grid' or 'flow', ``_aniso_factors``): the
+flux assembly then takes the x and y faces' diffusivities apart, in its
+kernel's ``ANISO`` instances. The 'vmhs' and 'eg' diffusivities and 'flow'
+read the mixing-time velocities (``hdifft_gm``'s ``umix``, ``vmix_m``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,7 +52,7 @@ from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.gm_cuda import flux_assembly, flux_assembly_plain
 from pop2_tpu_torch.gm_cuda import level_below as _down
 from pop2_tpu_torch.grid import Grid
-from pop2_tpu_torch.stencil import BC
+from pop2_tpu_torch.stencil import BC, ugrid_to_tgrid
 
 __all__ = ["GMOut", "TLT", "hdifft_gm", "flux_assembly",
            "flux_assembly_plain"]
@@ -134,7 +142,8 @@ def face_density_diffs(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix):
     tzp_c[0] = 0.0
 
     _, drdt, drds = eos.state(cfg, grid.vgrid.pressz, tmix[0], tmix[1],
-                              ts_range, want_drhodt=True, want_drhods=True)
+                              ts_range, want_drhodt=True, want_drhods=True,
+                              fit=grid.vgrid.poly)
 
     # face density differences with this cell's expansion coefficients
     rx = torch.stack([drdt * txp + drds * tx[1],
@@ -219,18 +228,21 @@ def _tapers(cfg: ModelConfig, grid: Grid, sla, bl_depth, tlt=None):
             torch.where(in_dia, 1.0, taper3))
 
 
-def _displaced_density_diff(cfg, grid, ts_range, tmix):
+def _displaced_density_diff(cfg, grid, ts_range, tmix, clamp=False):
     """drho/dT*(T_k - T_{k+1}) + drho/dS*(S_k - S_{k+1}) with level-k
     coefficients displaced to the pressure of level k+1 and T clamped at
     -2C: the stratification measure of the bfre N^2 profile
-    (source/hmix_gm.F90:3104-3111)."""
-    pz = grid.vgrid.pressz
-    _, drdt, drds = eos.state(cfg, _down(pz, repeat_last=True), tmix[0],
-                              tmix[1], ts_range, want_drhodt=True,
-                              want_drhods=True)
+    (source/hmix_gm.F90:3104-3111); with ``clamp`` at most -1e-20, the
+    measure of kappa_lon_lat_vmhs (:2320-2331) and kappa_eg (:2546-2556)."""
+    vg = grid.vgrid
+    _, drdt, drds = eos.state(cfg, _down(vg.pressz, repeat_last=True),
+                              tmix[0], tmix[1], ts_range, want_drhodt=True,
+                              want_drhods=True,
+                              fit=eos.fit_rows(vg.poly, "down"))
     tclip = torch.clamp(tmix[0], min=-2.0)
-    return (drdt * (tclip - _down(tclip, repeat_last=True))
-            + drds * (tmix[1] - _down(tmix[1], repeat_last=True)))
+    work3 = (drdt * (tclip - _down(tclip, repeat_last=True))
+             + drds * (tmix[1] - _down(tmix[1], repeat_last=True)))
+    return torch.clamp(work3, max=-EPS2) if clamp else work3
 
 
 def buoyancy_frequency(cfg: ModelConfig, grid: Grid, ts_range, tmix):
@@ -504,58 +516,239 @@ def apply_transition_profile(cfg: ModelConfig, grid: Grid, tlt: TLT,
     return kisop, hor_diff
 
 
-def kappa_from_profile(cfg: ModelConfig, kappa_vert):
-    """(kappa_isop, kappa_thic, cancellation) from the vertical profile
-    KAPPA_VERTICAL (KAPPA_ISOP/KAPPA_THIC assembly,
-    source/hmix_gm.F90:1345-1399, and the 'cancellation' flag of equal
-    isopycnal and thickness diffusivities, :970-987). A 'const' diffusivity
-    is a Python float."""
+# ---------------------------------------------------------------------------
+# Flow-dependent diffusivities (kappa_lon_lat_vmhs source/hmix_gm.F90:
+# 2226-2456, kappa_eg :2463-2659, the kappa_type_depth profile :850-872)
+# and anisotropic GM (hmix_gm_aniso.F90)
+# ---------------------------------------------------------------------------
+
+def _btp(grid: Grid, bc: BC):
+    """Beta at T points (source/hmix_gm.F90:902-904)."""
+    return (2.0 * const.OMEGA * torch.cos(ugrid_to_tgrid(grid.ULAT, bc))
+            / const.RADIUS)
+
+
+def kappa_vmhs(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
+               umix, vmix_m):
+    """Visbeck et al. (1997) lateral diffusivity KAPPA_LATERAL = C l^2/T
+    (kappa_lon_lat_vmhs, source/hmix_gm.F90:2226-2456). Returns (ny, nx),
+    cm^2/s, bounded to [3.0e6, 4.0e7]. The integration limits k1, k2 of
+    -2000 m < z < -100 m (:2290) are found on the device, as 0-d tensors
+    (no host read in a step)."""
+    km = cfg.km
+    zt = grid.vgrid.zt
+    kidx = _kidx(km, tmix.device)
+    lev = kidx.reshape(km)
+    in_range = (zt >= 1.0e4) & (zt <= 2.0e5)
+    k1 = torch.argmax(in_range.to(torch.uint8)) + 1           # 1-based
+    after = ~in_range & (lev > k1)
+    k2 = torch.where(after.any(), torch.argmax(after.to(torch.uint8)) + 1,
+                     km)                                      # 1-based
+
+    work3 = _displaced_density_diff(cfg, grid, ts_range, tmix, clamp=True)
+    ut = ugrid_to_tgrid(umix, bc)
+    vt = ugrid_to_tgrid(vmix_m, bc)
+    ut_kp1 = _down(ut, repeat_last=True)
+    vt_kp1 = _down(vt, repeat_last=True)
+
+    dzw = grid.vgrid.dzw[1:km + 1].reshape(km, 1, 1)
+    contrib = (kidx >= k1) & (kidx < k2) & (kidx < grid.KMT[None])
+    rnum = -dzw / ((ut - ut_kp1) ** 2 + (vt - vt_kp1) ** 2 + EPS)
+    grate = torch.sum(torch.where(contrib,
+                                  const.GRAV * rnum * dzw * work3, 0.0),
+                      dim=0)
+    lsc = torch.sum(torch.where(contrib, -const.GRAV * work3, 0.0), dim=0)
+
+    # normalize by the depth span actually integrated (:2399-2410)
+    zt_kmt = zt[torch.clamp(grid.KMT - 1, min=0).long()]
+    # (take: an index by a 0-d tensor would read it back to the host)
+    span = (torch.minimum(torch.take(zt, k2 - 1), zt_kmt)
+            - torch.minimum(torch.take(zt, k1 - 1), zt_kmt))
+    grate = grate / (span + EPS)               # mean Ri
+    lsc = lsc * span                           # c_g^2 = N^2 H^2
+
+    btp = _btp(grid, bc)
+    cg = torch.sqrt(torch.clamp(lsc, min=0.0))
+    w1 = torch.sqrt(2.0 * cg * btp)
+    w2 = cg / (2.0 * btp)
+    inv_t = torch.maximum(torch.abs(grid.FCORT), w1)
+    grate = inv_t / torch.sqrt(torch.clamp(grate, min=0.0) + EPS)   # 1/T
+    lsc = lsc / (grid.FCORT + EPS) ** 2                             # L^2
+    lsc = torch.minimum(lsc, w2)
+    lsc = torch.maximum(lsc, torch.minimum(grid.DXT ** 2, grid.DYT ** 2))
+
+    kappa = torch.clamp(0.13 * grate * lsc, 3.0e6, 4.0e7)
+    return torch.where(grid.KMT <= k1, 3.0e6, kappa)
+
+
+def _sigma_topo_mask(grid: Grid, bc: BC, km: int):
+    """1 where k < KMT and no bottom of the 8 neighbours (folded on a
+    tripole grid) lies at level k (source/hmix_gm.F90:1001-1030)."""
+    kidx = _kidx(km, grid.KMT.device)
+    kmt = grid.KMT
+    at_edge = torch.zeros((km,) + tuple(kmt.shape), dtype=torch.bool,
+                          device=kmt.device)
+    for nb in (bc.e(kmt), bc.w(kmt), bc.n(kmt), bc.s(kmt), bc.ne(kmt),
+               bc.nw(kmt), bc.se(kmt), bc.sw(kmt)):
+        at_edge = at_edge | (kidx == nb[None])
+    return ((kidx < kmt[None]) & ~at_edge).to(grid.FCORT.dtype)
+
+
+def kappa_eg(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
+             umix, vmix_m, hblt=None):
+    """Eden & Greatbatch (2008) 3-D diffusivity KAPPA = c L^2 sigma
+    (kappa_eg, source/hmix_gm.F90:2463-2659). Returns (km, ny, nx) cm^2/s,
+    bounded to [gm_kappa_min_eg, gm_kappa_max_eg]. ``hblt``: the surface
+    diabatic layer (the first layer without one)."""
+    km = cfg.km
+    vg = grid.vgrid
+    kidx = _kidx(km, tmix.device)
+    dzw = vg.dzw[1:km + 1].reshape(km, 1, 1)
+    dzwr = vg.dzwr[1:km + 1].reshape(km, 1, 1)
+
+    work3 = _displaced_density_diff(cfg, grid, ts_range, tmix, clamp=True)
+    below = kidx < grid.KMT[None]
+    n2 = torch.where(below, -const.GRAV * work3 * dzwr, 0.0)
+
+    du2 = ((umix - _down(umix, repeat_last=True)) ** 2
+           + (vmix_m - _down(vmix_m, repeat_last=True)) ** 2)
+    ri = torch.where(below, dzw ** 2 / (ugrid_to_tgrid(du2, bc) + EPS2) * n2,
+                     0.0)
+
+    # first-baroclinic wave speed, Chelton et al. (1998) (:2580-2596): the
+    # sum of sqrt(N^2) dzw over k < KMT, the surface half-layer at k = 1
+    # and the bottom half-layer with N^2 at KMT-1
+    sqn = torch.sqrt(torch.clamp(n2, min=0.0))
+    c_rossby = torch.where(grid.KMT > 1, sqn[0] * vg.dzw[0], 0.0)
+    c_rossby = c_rossby + torch.sum(torch.where(below, sqn * dzw, 0.0),
+                                    dim=0)
+    at_bot = (kidx == grid.KMT[None]) & (kidx > 1)
+    c_rossby = c_rossby + torch.sum(
+        torch.where(at_bot, torch.cat([sqn[:1], sqn[:-1]]) * dzw, 0.0),
+        dim=0)
+    c_rossby = c_rossby / math.pi
+
+    btp = _btp(grid, bc)
+    l_rossby = torch.minimum(c_rossby / (torch.abs(grid.FCORT) + EPS),
+                             torch.sqrt(c_rossby / (2.0 * btp)))
+    inv_t = torch.maximum(torch.abs(grid.FCORT),
+                          torch.sqrt(c_rossby * 2.0 * btp))
+    sigma = (_sigma_topo_mask(grid, bc, km) * inv_t[None]
+             / torch.sqrt(ri + cfg.gm_gamma_eg))
+    sigma = torch.where(below, sigma, 0.0)
+    lscale = torch.minimum(l_rossby[None], sigma / btp[None])
+    kappa = cfg.gm_const_eg * sigma * lscale ** 2
+
+    # within the surface diabatic layer the value of the first level below
+    # it (:2640-2648): the reference's upward copy kappa(k) = kappa(k+1)
+    # where zw(k) <= bl reaches level k from the first level k* whose zw
+    # lies below bl (zw increases), so it is one gather at min(max(k, k*),
+    # km-1)
+    bl = first_layer_depth(grid) if hblt is None else hblt
+    kstar = (vg.zw.reshape(km, 1, 1) <= bl[None]).sum(dim=0)
+    src = torch.clamp(torch.maximum(kidx.long() - 1, kstar[None]),
+                      max=km - 1)
+    kappa = torch.gather(kappa, 0, src)
+    return torch.clamp(kappa, cfg.gm_kappa_min_eg, cfg.gm_kappa_max_eg)
+
+
+def kappa_fields(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
+                 umix=None, vmix_m=None, hblt=None, sdl=None,
+                 kappa_vert=None):
+    """(kappa_isop, kappa_thic) diffusivities, broadcastable to (km, ny, nx)
+    (KAPPA_ISOP/KAPPA_THIC assembly, source/hmix_gm.F90:1345-1399), the
+    'cancellation' flag (equal isop/thic diffusivities, :970-987), and
+    KAPPA_VERTICAL (the depth/bfre vertical profile, 1 otherwise). ``sdl``
+    is the surface-diabatic-layer depth for the bfre profile; a caller that
+    has the profile already hands it as ``kappa_vert``. A 'const'
+    diffusivity is a Python float; 'vmhs' and 'eg' read the mixing-time
+    velocities ``umix``, ``vmix_m``, 'eg' the boundary layer ``hblt``."""
+    km = cfg.km
+    kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
+    if kappa_vert is None:
+        # the depth profile for 'depth' (init_gm :866-873), the normalized
+        # N^2 profile for 'bfre' (:1309-1319), 1 otherwise
+        if "bfre" in kinds:
+            if sdl is None:
+                sdl = first_layer_depth(grid)
+            kappa_vert = kappa_vertical_bfre(cfg, grid, ts_range, tmix, sdl)
+        elif "depth" in kinds:
+            prof = (cfg.gm_kappa_depth_1 + cfg.gm_kappa_depth_2 * torch.exp(
+                -grid.vgrid.zt / cfg.gm_kappa_depth_scale))
+            kappa_vert = prof.reshape(km, 1, 1).expand(
+                (km,) + tuple(grid.FCORT.shape))
+        else:
+            kappa_vert = torch.ones((1, 1, 1), dtype=tmix.dtype,
+                                    device=tmix.device)
+
     def build(ktype, ah, deep):
         if ktype == "const":
             return ah
+        if ktype == "depth":
+            return ah * kappa_vert
         if ktype == "bfre":
             # KAPPA_LATERAL stays at its init value ah for pure bfre
             # (init_gm :859, assembly :1353-1359 / :1381-1387)
             return ah * torch.clamp(kappa_vert, min=deep)
-        raise NotImplementedError(
-            f"gm kappa type {ktype!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 11: GM variants)")
+        if umix is None or vmix_m is None:
+            raise ValueError(f"{ktype} kappa needs mix-time velocities")
+        if ktype == "vmhs":
+            return kappa_vmhs(cfg, grid, bc, ts_range, tmix, umix,
+                              vmix_m)[None]
+        if ktype == "eg":
+            return kappa_eg(cfg, grid, bc, ts_range, tmix, umix, vmix_m,
+                            hblt)
+        raise NotImplementedError(f"gm kappa type {ktype}")
 
     kisop = build(cfg.gm_kappa_isop_type, cfg.gm_ah, cfg.gm_kappa_isop_deep)
-    kthic = build(cfg.gm_kappa_thic_type, cfg.gm_ah_bolus,
-                  cfg.gm_kappa_thic_deep)
-    # the reference's test ignores the kappa_*_deep floors (init_gm
-    # :970-983) and is always off with the transition layer (:985-987)
-    cancellation = (cfg.gm_kappa_isop_type == cfg.gm_kappa_thic_type
-                    and cfg.gm_ah == cfg.gm_ah_bolus
-                    and not cfg.gm_transition_layer)
-    return kisop, kthic, cancellation
-
-
-def kappa_fields(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
-                 sdl=None):
-    """(kappa_isop, kappa_thic, cancellation, KAPPA_VERTICAL): the
-    diffusivities broadcastable to (km, ny, nx) and the bfre vertical profile
-    (1 otherwise). ``sdl`` is the surface-diabatic-layer depth for the bfre
-    profile."""
-    if "bfre" in (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type):
-        if sdl is None:
-            sdl = first_layer_depth(grid)
-        kappa_vert = kappa_vertical_bfre(cfg, grid, ts_range, tmix, sdl)
+    same_type = kinds[0] == kinds[1]
+    if same_type and kinds[0] in ("vmhs", "eg"):
+        kthic = kisop  # ah/ah_bolus do not enter (KAPPA_THIC = KAPPA_ISOP)
     else:
-        kappa_vert = torch.ones((1, 1, 1), dtype=tmix.dtype,
-                                device=tmix.device)
-    return kappa_from_profile(cfg, kappa_vert) + (kappa_vert,)
+        kthic = build(cfg.gm_kappa_thic_type, cfg.gm_ah_bolus,
+                      cfg.gm_kappa_thic_deep)
+    if same_type and kinds[0] in ("const", "depth", "bfre"):
+        # the reference's cancellation test ignores the kappa_*_deep floors
+        # (init_gm :970-983)
+        cancellation = cfg.gm_ah == cfg.gm_ah_bolus
+    else:
+        cancellation = same_type  # vmhs/eg ignore ah/ah_bolus scaling
+    # always off with the transition layer (:985-987)
+    cancellation = cancellation and not cfg.gm_transition_layer
+    return kisop, kthic, cancellation, kappa_vert
+
+
+def _aniso_factors(cfg: ModelConfig, grid: Grid, bc: BC, umix, vmix_m):
+    """Directional diffusivity factors (ax, ay) of anisotropic GM
+    (source/hmix_gm_aniso.F90, Smith & Gent 2004), as the JAX package keeps
+    the scheme: the diagonal of the 2x2 diffusivity tensor in the rotated
+    frame, kappa_x = kmaj cos^2(theta) + kmin sin^2(theta) and the
+    complement for kappa_y, theta the local flow direction ('flow', (km, ny,
+    nx) each) or zero ('grid', floats)."""
+    r = cfg.gm_aniso_ratio
+    if cfg.gm_aniso == "grid":
+        return 1.0, r
+    if cfg.gm_aniso == "flow":
+        if umix is None or vmix_m is None:
+            raise ValueError("gm_aniso='flow' needs mix-time velocities")
+        u2 = ugrid_to_tgrid(umix, bc) ** 2
+        v2 = ugrid_to_tgrid(vmix_m, bc) ** 2
+        s = u2 + v2 + EPS
+        cos2, sin2 = u2 / s, v2 / s
+        return cos2 + r * sin2, sin2 + r * cos2
+    raise NotImplementedError(f"gm_aniso {cfg.gm_aniso}")
 
 
 def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
              sla, tlt: Optional[TLT], kappa_isop, kappa_thic, kappa_equal,
-             kappa_vert, flux=flux_assembly, bl_depth=None) -> GMOut:
+             kappa_vert, flux=flux_assembly, bl_depth=None,
+             aniso=None) -> GMOut:
     """Everything of hdifft_gm after the slopes, the transition-layer search
     and the diffusivities: tapers, boundary conditions, horizontal diffusion
     of the surface layer, merged streamfunction and vertical profile (with
     the transition layer), and the flux assembly ``flux``. ``bl_depth``:
-    the KPP boundary-layer depth, the first layer without one."""
+    the KPP boundary-layer depth, the first layer without one. ``aniso``:
+    anisotropic GM's directional factors (``_aniso_factors``), or None."""
     km = cfg.km
     dz = grid.vgrid.dz.reshape(km, 1, 1)
     kidx = _kidx(km, sla.device)
@@ -591,15 +784,24 @@ def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
             hor_diff = torch.where(in_bl, kappa_isop * (1.0 - tap_isop), 0.0)
         hor_diff[0, 0] = cfg.gm_ah_bkg_srfbl
 
+    # the flux assembly's diffusivities of the x and the y faces (kisop_y
+    # None: one for both)
+    kisop_y = None
     if tlt is not None:
         sf_slx, sf_sly = merged_streamfunction(cfg, grid, tlt, kthic, slx,
                                                sly)
         kisop, hor_diff = apply_transition_profile(cfg, grid, tlt, kisop,
                                                    hor_diff)
+        kisop_x = kisop
     else:
         in_mask = (kidx <= grid.KMT[None])[None, None]
-        sf_slx = torch.where(in_mask, kthic[None] * slx * dz, 0.0)
-        sf_sly = torch.where(in_mask, kthic[None] * sly * dz, 0.0)
+        kisop_x, kthic_x, kthic_y = kisop, kthic, kthic
+        if aniso is not None:  # anisotropic GM (hmix_gm_aniso.F90)
+            ax, ay = aniso
+            kisop_x, kisop_y = kisop * ax, kisop * ay
+            kthic_x, kthic_y = kthic * ax, kthic * ay
+        sf_slx = torch.where(in_mask, kthic_x[None] * slx * dz, 0.0)
+        sf_sly = torch.where(in_mask, kthic_y[None] * sly * dz, 0.0)
 
     # bottom-cell horizontal diffusion floor, after any transition profiling
     # (source/hmix_gm.F90:1757-1761)
@@ -609,7 +811,7 @@ def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
 
     cancellation = kappa_equal and cfg.gm_slm_r == cfg.gm_slm_b
     gtk, vdc_gm = flux(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
-                       kisop, hor_diff, cancellation)
+                       kisop_x, hor_diff, cancellation, kisop_y=kisop_y)
     return GMOut(gtk=gtk, vdc_gm=vdc_gm,
                  kappa_isop=0.5 * (kisop[0] + kisop[1]),
                  kappa_thic=0.5 * (kthic[0] + kthic[1]),
@@ -617,14 +819,6 @@ def assemble(cfg: ModelConfig, grid: Grid, bc: BC, tx, ty, tz, slx, sly,
                  dia_depth=tlt.diabatic_depth if tlt is not None else None,
                  tlt_thick=tlt.thickness if tlt is not None else None,
                  int_depth=tlt.interior_depth if tlt is not None else None)
-
-
-def check_gm_config(cfg: ModelConfig) -> None:
-    """Raise for what no GM path of the port carries yet."""
-    if cfg.gm_aniso is not None:
-        raise NotImplementedError(
-            "GM option not ported yet (ROADMAP.md): "
-            f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11)")
 
 
 def diabatic_depth(cfg: ModelConfig, grid: Grid, bc: BC, hblt=None):
@@ -637,15 +831,20 @@ def diabatic_depth(cfg: ModelConfig, grid: Grid, bc: BC, hblt=None):
 
 
 def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
-              hblt=None) -> GMOut:
+              hblt=None, umix=None, vmix_m=None) -> GMOut:
     """GM/Redi tracer tendency + VDC_GM (hdifft_gm,
-    source/hmix_gm.F90:1102-2219); ``hblt``: the KPP boundary-layer depth.
-    On CUDA tensors the transition-layer search goes through the
-    ``gm_tlt_cuda`` kernel (``transition_layer`` here reads the device
-    once a level, which a captured step cannot) and the flux assembly at
-    the end through the ``gm_cuda`` kernel."""
+    source/hmix_gm.F90:1102-2219); kappa per cfg.gm_kappa_*_type, optionally
+    anisotropic (cfg.gm_aniso, hmix_gm_aniso.F90). ``hblt``: the KPP
+    boundary-layer depth; ``umix``, ``vmix_m``: the mixing-time velocities
+    ('vmhs', 'eg', gm_aniso='flow'). On CUDA tensors the transition-layer
+    search goes through the ``gm_tlt_cuda`` kernel (``transition_layer``
+    here reads the device once a level, which a captured step cannot) and
+    the flux assembly at the end through the ``gm_cuda`` kernel."""
     from pop2_tpu_torch import gm_tlt_cuda  # deferred: it imports this module
-    check_gm_config(cfg)
+    if cfg.gm_aniso is not None and cfg.gm_transition_layer:
+        raise NotImplementedError(
+            "gm_aniso with the transition layer is not supported (the "
+            "reference's aniso GM is a separate scheme)")
     tx, ty, tz, slx, sly = _slopes(cfg, grid, bc, ts_range, tmix)
     sla = _sla(cfg, grid, slx, sly)
 
@@ -658,7 +857,9 @@ def hdifft_gm(cfg: ModelConfig, grid: Grid, bc: BC, ts_range, tmix,
     # surface-diabatic-layer depth of the bfre normalization (:3085-3087)
     sdl = tlt.interior_depth if tlt is not None else hblt
     kappa_isop, kappa_thic, kappa_equal, kappa_vert = kappa_fields(
-        cfg, grid, bc, ts_range, tmix, sdl=sdl)
+        cfg, grid, bc, ts_range, tmix, umix, vmix_m, hblt, sdl=sdl)
+    aniso = (_aniso_factors(cfg, grid, bc, umix, vmix_m)
+             if cfg.gm_aniso is not None else None)
     return assemble(cfg, grid, bc, tx, ty, tz, slx, sly, sla, tlt,
                     kappa_isop, kappa_thic, kappa_equal, kappa_vert,
-                    flux=flux_assembly, bl_depth=hblt)
+                    flux=flux_assembly, bl_depth=hblt, aniso=aniso)

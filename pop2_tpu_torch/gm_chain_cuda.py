@@ -100,8 +100,11 @@ def launch_plan(value_bytes: int, nt: int, sm: bool = False):
 
 def available(cfg, grid) -> bool:
     """The fused chain applies: transition layer on, isotropic const or bfre
-    diffusivities of one type (as the TPU kernel's ``available``)."""
+    diffusivities of one type, the MWJF equation of state that the slope
+    kernel evaluates (as the TPU kernel's ``available`` and the slope
+    kernel's it requires)."""
     return (cfg.gm_transition_layer
+            and cfg.state_choice == "mwjf"
             and cfg.gm_aniso is None
             and cfg.gm_kappa_isop_type == cfg.gm_kappa_thic_type
             and cfg.gm_kappa_isop_type in ("const", "bfre"))
@@ -111,8 +114,9 @@ def _check_mode(cfg, grid):
     todo = []
     if not available(cfg, grid):
         todo.append("a GM configuration outside the chain (transition layer "
-                    "off, anisotropic, or kappa types other than one of "
-                    "const/bfre): gm.hdifft_gm carries those")
+                    "off, anisotropic, kappa types other than one of "
+                    "const/bfre, or an equation of state other than MWJF): "
+                    "gm.hdifft_gm carries those")
     if cfg.ns_boundary not in ("closed", "tripole"):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
@@ -156,7 +160,8 @@ def chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
     ``submeso_tendency`` to ``hdifft_gm``."""
     slx, sly = gm_slope_cuda.unpack_slopes(slp)
     tx, ty, tz = gm.tracer_diffs(cfg, grid, bc, tmix)
-    kappa_isop, kappa_thic, kappa_equal = gm.kappa_from_profile(cfg, kv)
+    kappa_isop, kappa_thic, kappa_equal, _ = gm.kappa_fields(
+        cfg, grid, bc, None, tmix, kappa_vert=kv)
     out = gm.assemble(cfg, grid, bc, tx, ty, tz, slx, sly, sla, tlt,
                       kappa_isop, kappa_thic, kappa_equal, kv,
                       flux=flux_assembly_plain)
@@ -257,7 +262,6 @@ def hdifft_chain(cfg, grid, bc, ts_range, tmix, hblt=None, hmxl=None,
     bfre profile -> chain kernel. ``hblt``, ``hmxl``: KPP's boundary-layer
     and mixed-layer depths (the first layer without KPP). On CPU tensors the
     kernels are their plain versions."""
-    gm.check_gm_config(cfg)
     _check_mode(cfg, grid)
     slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, ts_range, tmix)
 

@@ -24,9 +24,11 @@ kernel: the frame's ghost row from the folded columns, the ghost row's
 south-face skew weights as the folded north face's with the sign flipped,
 as ``flux_assembly_plain`` forms them through ``BC.n_partner``).
 
-Isotropic diffusivities and 1-D layer thickness: the anisotropic variant
-and partial bottom cells raise ``NotImplementedError`` (ROADMAP.md Queue 2
-kernel 6, Queue 1 item 11).
+Isotropic or anisotropic diffusivities (``gm_aniso``: the x faces take
+``kisop``, the y faces ``kisop_y``; the ``ANISO`` instances read both and
+publish two effective diffusivities, one a direction). 1-D layer thickness:
+partial bottom cells raise ``NotImplementedError`` (ROADMAP.md Queue 2
+kernel 6, Queue 1 item 11c).
 """
 
 from __future__ import annotations
@@ -39,8 +41,10 @@ from pop2_tpu_torch import _cuda_build as cb
 launches = 0
 #: of those, launches of the tripole-row (``FOLD``) instance
 launches_fold = 0
+#: of those, launches of an anisotropic (``ANISO``) instance
+launches_aniso = 0
 #: the mode counters ``graphs.CapturedStep`` keeps exact under replay
-MODE_COUNTERS = ("launches_fold",)
+MODE_COUNTERS = ("launches_fold", "launches_aniso")
 
 MAX_TRACERS = 16  # kMaxTracers of csrc/gm_flux.cuh
 TILE_COLS = 32  # columns a tile row (kFrameCols: one warp)
@@ -59,25 +63,29 @@ def tile_rows(nt: int) -> int:
     return TILE_ROWS if nt == MODEL_TRACERS else NARROW_ROWS
 
 
-def smem_values(nt: int, cancellation: bool) -> int:
+def smem_values(nt: int, cancellation: bool, aniso: bool = False) -> int:
     """Values of shared memory the tile takes for ``nt`` tracers: three
     staged levels of each tracer's tx, ty (and, for the skew terms, tz)
     frame planes, two buffers of the published weights (weff alone with
-    ``cancellation``, else weff and the four faces' two skew weights), and
-    the tracers' vertical-flux carries (``flux_smem_values`` of
-    csrc/gm_flux.cu, which chip_smoke.py holds this against)."""
+    ``cancellation``, else weff and the four faces' two skew weights; with
+    ``aniso`` a second weff, the y faces'), and the tracers' vertical-flux
+    carries (``flux_smem_values`` of csrc/gm_flux.cu, which chip_smoke.py
+    holds this against)."""
     rows = tile_rows(nt)
     plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
     diffs, pub = (2, 1) if cancellation else (3, 9)
+    pub += int(bool(aniso))
     return (3 * nt * diffs * plane + 2 * pub * plane
             + nt * TILE_COLS * rows)
 
 
-def launch_plan(value_bytes: int, nt: int, cancellation: bool):
+def launch_plan(value_bytes: int, nt: int, cancellation: bool,
+                aniso: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
-    flux-assembly launch for ``nt`` tracers in values of ``value_bytes``.
-    Raises for what the kernel does not take: nt over MAX_TRACERS, values
-    other than float32 or float64, or a tile over the card's 227 KB."""
+    flux-assembly launch for ``nt`` tracers in values of ``value_bytes``,
+    isotropic or anisotropic (``aniso``). Raises for what the kernel does
+    not take: nt over MAX_TRACERS, values other than float32 or float64, or
+    a tile over the card's 227 KB."""
     if value_bytes not in (4, 8):
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
@@ -86,15 +94,14 @@ def launch_plan(value_bytes: int, nt: int, cancellation: bool):
             f"GM flux-assembly kernel carries at most {MAX_TRACERS} tracers "
             f"a launch, got {nt}")
     rows = tile_rows(nt)
-    smem = smem_values(nt, cancellation) * value_bytes
-    cb.check_smem(smem, f"GM flux tile ({TILE_COLS} x {rows}, nt={nt})")
+    smem = smem_values(nt, cancellation, aniso) * value_bytes
+    cb.check_smem(smem, f"GM flux tile ({TILE_COLS} x {rows}, nt={nt}, "
+                  f"aniso={bool(aniso)})")
     return (TILE_COLS, rows), smem
 
 
 def _check_mode(cfg, grid):
     todo = []
-    if cfg.gm_aniso is not None:
-        todo.append(f"gm_aniso={cfg.gm_aniso!r}")
     if cfg.ns_boundary not in ("closed", "tripole"):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
@@ -118,14 +125,19 @@ def level_below(f, dim=0, repeat_last=False):
 
 
 def flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
-                        kisop, hor_diff, cancellation: bool):
-    """Plain PyTorch version: (GTK (nt, km, ny, nx), VDC_GM (km, ny, nx)).
+                        kisop, hor_diff, cancellation: bool, kisop_y=None):
+    """Plain PyTorch version: (GTK (nt, km, ny, nx), VDC_GM (km, ny, nx)),
+    term for term the JAX package's ``flux_assembly_jnp``.
 
     tx, ty, tz: (nt, km, ny, nx) masked east/north face differences and
     tz[:, k] = T(k-1) - T(k); slx, sly, sf_slx, sf_sly: (face, half, km, ny,
     nx) slopes and merged streamfunction (face 0 = east/north, 1 =
     west/south; half 0 = top, 1 = bottom); kisop, hor_diff: (half, km, ny,
-    nx)."""
+    nx); kisop_y: the y faces' isopycnal diffusivity of anisotropic GM
+    (kisop is then the x faces'), kisop itself when None."""
+    kisop_x = kisop
+    if kisop_y is None:
+        kisop_y = kisop
     km = cfg.km
     vg = grid.vgrid
     dz = vg.dz.reshape(km, 1, 1)
@@ -138,18 +150,23 @@ def flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     hyxw = bc.w(hyx)
     hxys = bc.s(hxy)
 
-    # effective vertical diffusivity VDC_GM (source/hmix_gm.F90:1720-1750)
+    # effective vertical diffusivity VDC_GM (source/hmix_gm.F90:1720-1750),
+    # |S|^2 split by direction so the anisotropic diffusivities weight
+    # their own slope components
     km_mask = (kidx < grid.KMT[None]).to(tx.dtype)
-    quad = (hyx * slx[0, 1] ** 2 + hyxw * slx[1, 1] ** 2
-            + hxy * sly[0, 1] ** 2 + hxys * sly[1, 1] ** 2)
-    quad_top = (hyx * slx[0, 0] ** 2 + hyxw * slx[1, 0] ** 2
-                + hxy * sly[0, 0] ** 2 + hxys * sly[1, 0] ** 2)
-    kisop_ktp_kp1 = level_below(kisop[0])
+    quad_x = hyx * slx[0, 1] ** 2 + hyxw * slx[1, 1] ** 2
+    quad_y = hxy * sly[0, 1] ** 2 + hxys * sly[1, 1] ** 2
+    quad_x_kp1 = hyx * slx[0, 0] ** 2 + hyxw * slx[1, 0] ** 2
+    quad_y_kp1 = hxy * sly[0, 0] ** 2 + hxys * sly[1, 0] ** 2
+    kisop_x_ktp_kp1 = level_below(kisop_x[0])
+    kisop_y_ktp_kp1 = level_below(kisop_y[0])
     dz_kp1 = level_below(dz, repeat_last=True)
     dzw_k = vg.dzw[1:km + 1].reshape(km, 1, 1)
     vdc_gm = (dzw_k * km_mask * grid.TAREA_R
-              * (dz * 0.25 * kisop[1] * quad
-                 + dz_kp1 * 0.25 * kisop_ktp_kp1 * level_below(quad_top)))
+              * (dz * 0.25 * (kisop_x[1] * quad_x + kisop_y[1] * quad_y)
+                 + dz_kp1 * 0.25
+                 * (kisop_x_ktp_kp1 * level_below(quad_x_kp1)
+                    + kisop_y_ktp_kp1 * level_below(quad_y_kp1))))
     vdc_gm[-1] = 0.0
 
     # horizontal fluxes (source/hmix_gm.F90:1805-1895)
@@ -157,49 +174,66 @@ def flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     cx = torch.where(in_c & (kidx <= grid.KMTE[None]), 0.25 * hyx, 0.0)
     cy = torch.where(in_c & (kidx <= grid.KMTN[None]), 0.25 * hxy, 0.0)
 
-    w = kisop[0] + kisop[1] + hor_diff[0] + hor_diff[1]
-    fx = dz * cx * tx * (w + bc.e(w))
-    fy = dz * cy * ty * (w + bc.n(w))
+    keff_x = kisop_x + hor_diff
+    keff_y = kisop_y + hor_diff
+    wx = keff_x[0] + keff_x[1]                  # ktp + kbt at (i, j)
+    wy = keff_y[0] + keff_y[1]
+    fx = dz * cx * tx * (wx + bc.e(wx))
+    fy = dz * cy * ty * (wy + bc.n(wy))
 
     # skew contribution; zero when the isopycnal and thickness diffusivities
-    # are equal and equally tapered ('cancellation', :970-983)
+    # are equal and equally tapered ('cancellation', :970-983; the
+    # directional factors scale both alike, which keeps it)
     tz_kp1 = level_below(tz, 1, repeat_last=True)
     if not cancellation:
-        w1 = kisop[0] * slx[0, 0] * dz - sf_slx[0, 0]
-        w2 = kisop[1] * slx[0, 1] * dz - sf_slx[0, 1]
-        w3 = bc.e(kisop[0] * slx[1, 0] * dz - sf_slx[1, 0])
-        w4 = bc.e(kisop[1] * slx[1, 1] * dz - sf_slx[1, 1])
+        w1 = kisop_x[0] * slx[0, 0] * dz - sf_slx[0, 0]
+        w2 = kisop_x[1] * slx[0, 1] * dz - sf_slx[0, 1]
+        w3 = bc.e(kisop_x[0] * slx[1, 0] * dz - sf_slx[1, 0])
+        w4 = bc.e(kisop_x[1] * slx[1, 1] * dz - sf_slx[1, 1])
         fx = fx - cx * (w1 * tz + w2 * tz_kp1 + w3 * bc.e(tz)
                         + w4 * bc.e(tz_kp1))
-        w1 = kisop[0] * sly[0, 0] * dz - sf_sly[0, 0]
-        w2 = kisop[1] * sly[0, 1] * dz - sf_sly[0, 1]
+        w1 = kisop_y[0] * sly[0, 0] * dz - sf_sly[0, 0]
+        w2 = kisop_y[1] * sly[0, 1] * dz - sf_sly[0, 1]
         # tripole: the south-face weights' ghost row is the fold of the
         # north-face ones with the sign flipped (the faces swap under the
         # 180-degree rotation, source/hmix_gm.F90 SLY(:,j+1,jsouth))
-        w3 = bc.n_partner(kisop[0] * sly[1, 0] * dz - sf_sly[1, 0], w1,
+        w3 = bc.n_partner(kisop_y[0] * sly[1, 0] * dz - sf_sly[1, 0], w1,
                           "center", "vector")
-        w4 = bc.n_partner(kisop[1] * sly[1, 1] * dz - sf_sly[1, 1], w2,
+        w4 = bc.n_partner(kisop_y[1] * sly[1, 1] * dz - sf_sly[1, 1], w2,
                           "center", "vector")
         fy = fy - cy * (w1 * tz + w2 * tz_kp1 + w3 * bc.n(tz)
                         + w4 * bc.n(tz_kp1))
 
     # vertical flux at the bottom of each cell (source/hmix_gm.F90:1900-2080)
-    def cross(sx, sy, txl, tyl):
-        return (sx[0] * hyx * txl + sx[1] * hyxw * bc.w(txl)
-                + sy[0] * hxy * tyl + sy[1] * hxys * bc.s(tyl))
+    # split by direction so the anisotropic diffusivities weight their own
+    # components
+    def cross_x(sl_x, txl):
+        return sl_x[0] * hyx * txl + sl_x[1] * hyxw * bc.w(txl)
+
+    def cross_y(sl_y, tyl):
+        return sl_y[0] * hxy * tyl + sl_y[1] * hxys * bc.s(tyl)
+
+    def kcross(kx, ky, sl_x, sl_y, txl, tyl):
+        return kx * cross_x(sl_x, txl) + ky * cross_y(sl_y, tyl)
 
     tx_kp1 = level_below(tx, 1, repeat_last=True)
     ty_kp1 = level_below(ty, 1, repeat_last=True)
-    work = (dz * kisop[1] * cross(slx[:, 1], sly[:, 1], tx, ty)
-            + dz_kp1 * kisop_ktp_kp1
-            * cross(level_below(slx[:, 0], 1), level_below(sly[:, 0], 1),
-                    tx_kp1, ty_kp1))
+    slx_ktp_kp1 = level_below(slx[:, 0], 1)
+    sly_ktp_kp1 = level_below(sly[:, 0], 1)
     if cancellation:
+        work = (dz * kcross(kisop_x[1], kisop_y[1], slx[:, 1], sly[:, 1],
+                            tx, ty)
+                + dz_kp1 * kcross(kisop_x_ktp_kp1, kisop_y_ktp_kp1,
+                                  slx_ktp_kp1, sly_ktp_kp1, tx_kp1, ty_kp1))
         fz = -km_mask * 0.5 * work
     else:
-        work = (work + cross(sf_slx[:, 1], sf_sly[:, 1], tx, ty)
-                + cross(level_below(sf_slx[:, 0], 1),
-                        level_below(sf_sly[:, 0], 1), tx_kp1, ty_kp1))
+        work = (dz * kcross(kisop_x[1], kisop_y[1], slx[:, 1], sly[:, 1],
+                            tx, ty)
+                + cross_x(sf_slx[:, 1], tx) + cross_y(sf_sly[:, 1], ty)
+                + dz_kp1 * kcross(kisop_x_ktp_kp1, kisop_y_ktp_kp1,
+                                  slx_ktp_kp1, sly_ktp_kp1, tx_kp1, ty_kp1)
+                + cross_x(level_below(sf_slx[:, 0], 1), tx_kp1)
+                + cross_y(level_below(sf_sly[:, 0], 1), ty_kp1))
         fz = -km_mask * 0.25 * work
     fz[:, -1] = 0.0
     fz_top = torch.cat([torch.zeros_like(fz[:, :1]), fz[:, :-1]], dim=1)
@@ -226,18 +260,21 @@ def kernel_statics(grid):
 
 
 def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
-                  kisop, hor_diff, cancellation: bool):
+                  kisop, hor_diff, cancellation: bool, kisop_y=None):
     """(GTK, VDC_GM); arguments as ``flux_assembly_plain``. CUDA tensors go
-    through the kernel, CPU tensors through the plain version."""
-    global launches, launches_fold
+    through the kernel (its ``ANISO`` instance where ``kisop_y`` is given),
+    CPU tensors through the plain version."""
+    global launches, launches_fold, launches_aniso
     _check_mode(cfg, grid)
     if not tx.is_cuda:
         return flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly,
                                    sf_slx, sf_sly, kisop, hor_diff,
-                                   cancellation)
+                                   cancellation, kisop_y=kisop_y)
     nt, km, ny, nx = tx.shape
     dev, dt = tx.device, tx.dtype
-    (_, rows), smem = launch_plan(tx.element_size(), nt, bool(cancellation))
+    aniso = kisop_y is not None
+    (_, rows), smem = launch_plan(tx.element_size(), nt, bool(cancellation),
+                                  aniso)
     lib = cb.lib()
     hyx, hxy, lev = kernel_statics(grid)
     f4, f5, f2 = (nt, km, ny, nx), (2, 2, km, ny, nx), (ny, nx)
@@ -246,21 +283,24 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
             ("slx", slx, f5), ("sly", sly, f5), ("sf_slx", sf_slx, f5),
             ("sf_sly", sf_sly, f5), ("kisop", kisop, (2, km, ny, nx)),
             ("hor_diff", hor_diff, (2, km, ny, nx)), ("hyx", hyx, f2),
-            ("hxy", hxy, f2), ("TAREA_R", grid.TAREA_R, f2)):
+            ("hxy", hxy, f2), ("TAREA_R", grid.TAREA_R, f2)) + (
+            (("kisop_y", kisop_y, (2, km, ny, nx)),) if aniso else ()):
         cb.check_operand(name, t, shape, dt, dev)
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
     gtk = torch.empty_like(tx)
     vdc = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_flux(
         cb.dtype_code(tx), nt, km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        int(cfg.ns_boundary == "tripole"), int(bool(cancellation)), rows,
-        smem, tx.data_ptr(), ty.data_ptr(),
+        int(cfg.ns_boundary == "tripole"), int(bool(cancellation)),
+        int(aniso), rows, smem, tx.data_ptr(), ty.data_ptr(),
         tz.data_ptr(), slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(),
-        sf_sly.data_ptr(), kisop.data_ptr(), hor_diff.data_ptr(),
+        sf_sly.data_ptr(), kisop.data_ptr(),
+        kisop_y.data_ptr() if aniso else None, hor_diff.data_ptr(),
         grid.KMT.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
         grid.TAREA_R.data_ptr(), lev.data_ptr(), gtk.data_ptr(),
         vdc.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm flux_assembly")
     launches += 1
     launches_fold += int(cfg.ns_boundary == "tripole")
+    launches_aniso += int(aniso)
     return gtk, vdc

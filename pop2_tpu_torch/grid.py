@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from pop2_tpu_torch import constants as const
+from pop2_tpu_torch import eos
 from pop2_tpu_torch._tree import TensorTree
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.stencil import BC
@@ -58,6 +59,9 @@ class VGrid(TensorTree):
     dzw: torch.Tensor    # (km+1,), dzw[0] is the reference's dzw(0)
     dzwr: torch.Tensor   # (km+1,)
     pressz: torch.Tensor  # reference pressure (bars) at layer midpoints
+    # the polynomial equation of state's fit of pressz (eos.polynomial_fit;
+    # None under another equation of state)
+    poly: Optional[eos.PolyFit] = None
 
 
 @dataclass(frozen=True)
@@ -570,9 +574,10 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     def fb(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
+    pz = f(pressz)
     vgrid = VGrid(dz=f(dz), c2dz=f(c2dz), dzr=f(dzr), dz2r=f(dz2r),
                   zt=f(zt), zw=f(zw), dzw=f(dzw), dzwr=f(dzwr),
-                  pressz=f(pressz))
+                  pressz=pz, poly=eos.polynomial_fit(cfg, pz))
 
     aniso = None
     if cfg.hmix_momentum == "aniso":

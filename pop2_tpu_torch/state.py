@@ -100,7 +100,8 @@ def initial_state(cfg: ModelConfig, grid: Grid, device=None,
     tracer_t = torch.as_tensor(tracer).to(device=device, dtype=dt)
 
     grid = grid.to(device)
-    rho = eos.state(cfg, grid.vgrid.pressz, tracer_t[0], tracer_t[1])
+    rho = eos.state(cfg, grid.vgrid.pressz, tracer_t[0], tracer_t[1],
+                    fit=grid.vgrid.poly)
     rho = torch.where(grid.kmask_t, rho, torch.zeros_like(rho))
 
     z2 = torch.zeros((ny, nx), dtype=dt, device=device)

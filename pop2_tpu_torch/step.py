@@ -455,9 +455,11 @@ def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
 
     # densities of both levels (:1281-1288)
     rho_c = torch.where(grid.kmask_t, eos.state(
-        cfg, grid.vgrid.pressz, t_cur_f[0], t_cur_f[1], ts_range), 0.0)
+        cfg, grid.vgrid.pressz, t_cur_f[0], t_cur_f[1], ts_range,
+        fit=grid.vgrid.poly), 0.0)
     rho_n = torch.where(grid.kmask_t, eos.state(
-        cfg, grid.vgrid.pressz, t_new_f[0], t_new_f[1], ts_range), 0.0)
+        cfg, grid.vgrid.pressz, t_new_f[0], t_new_f[1], ts_range,
+        fit=grid.vgrid.poly), 0.0)
 
     # pressure guess from the filtered levels (:1310-1316)
     pguess = 3.0 * (p_new_f - p_cur_f) + state.psurf_old

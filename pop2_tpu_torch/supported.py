@@ -29,12 +29,16 @@ def unsupported(cfg: ModelConfig) -> list:
         ("ecosys" in cfg.passive_tracers,
          "passive tracer package 'ecosys' (Queue 1 item 11: ecosys.py "
          "beside passive_tracers.py)"),
-        (cfg.state_choice not in ("mwjf", "jmcd", "linear"),
-         f"state_choice={cfg.state_choice!r} (Queue 1 item 11)"),
+        (cfg.state_choice not in ("mwjf", "jmcd", "linear", "polynomial"),
+         f"state_choice={cfg.state_choice!r}"),
+        (cfg.state_choice == "polynomial" and bool(cfg.overflows),
+         "overflows under state_choice='polynomial' (their densities are "
+         "taken at the overflow regions' own pressures, which have no "
+         "polynomial fit; the JAX package fails there too)"),
         (cfg.ns_boundary not in ("closed", "tripole"),
          f"ns_boundary={cfg.ns_boundary!r}"),
-        (cfg.tadvect not in ("centered", "upwind3"),
-         f"tadvect={cfg.tadvect!r} (Queue 1 item 11: advt_lw_lim)"),
+        (cfg.tadvect not in ("centered", "upwind3", "lw_lim"),
+         f"tadvect={cfg.tadvect!r}"),
         (cfg.hmix_tracer not in ("del2", "gm", "del4"),
          f"hmix_tracer={cfg.hmix_tracer!r}"),
         (cfg.hmix_momentum not in ("del2", "aniso", "del4"),
@@ -72,23 +76,19 @@ def unsupported(cfg: ModelConfig) -> list:
 
 
 def _gm_checks(cfg: ModelConfig) -> list:
-    """What of GM the port carries: isotropic, const or bfre diffusivities of
-    one type, transition layer on or off, MWJF (the slope kernel evaluates
-    its derivatives), full cells, a closed or tripole north edge."""
+    """What of GM the port carries: every diffusivity type of the JAX
+    package, in any isopycnal/thickness pair, under any equation of state,
+    isotropic or anisotropic ('grid', 'flow'; with the transition layer
+    ``gm.hdifft_gm`` raises, as the JAX package's does), full cells, a
+    closed or tripole north edge."""
     kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
+    known = ("const", "depth", "bfre", "vmhs", "eg")
     return [
-        (cfg.gm_aniso is not None,
-         f"gm_aniso={cfg.gm_aniso!r} (Queue 1 item 11: GM variants; Queue 2 "
-         "kernel 6: two weight planes more a column)"),
-        (any(k not in ("const", "bfre") for k in kinds),
-         f"gm kappa types {kinds!r} (Queue 1 item 11: GM variants depth, "
-         "Visbeck vmhs, Eden-Greatbatch eg)"),
-        (kinds[0] != kinds[1],
-         f"gm kappa types {kinds!r} differing (Queue 1 item 11: GM "
-         "variants)"),
-        (cfg.state_choice != "mwjf",
-         f"GM with state_choice={cfg.state_choice!r} (Queue 2 kernel 4: the "
-         "slope kernel carries MWJF)"),
+        (cfg.gm_aniso not in (None, "grid", "flow"),
+         f"gm_aniso={cfg.gm_aniso!r} (the JAX package carries 'grid' and "
+         "'flow')"),
+        (any(k not in known for k in kinds),
+         f"gm kappa types {kinds!r} (the JAX package carries {known!r})"),
     ]
 
 

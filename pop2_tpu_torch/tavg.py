@@ -143,8 +143,9 @@ def _pd(cfg, grid, state):
     level-1 pressure (state(k,1,...), source/advection.F90:1845)."""
     from pop2_tpu_torch import eos
     pz = grid.vgrid.pressz
-    p1 = pz[:1].expand_as(pz)
-    pd = eos.state(cfg, p1, state.tracer_cur[0], state.tracer_cur[1], None)
+    pd = eos.state(cfg, pz[:1].expand_as(pz), state.tracer_cur[0],
+                   state.tracer_cur[1], None,
+                   fit=eos.fit_rows(grid.vgrid.poly, 0))
     return torch.where(grid.kmask_t, pd, 0.0)
 
 
@@ -160,12 +161,12 @@ def _q(cfg, grid, state):
     # rho(T_{k-1}, S_{k-1}) at level-k pressure
     t_up = torch.cat([T[:1], T[:-1]], dim=0)
     s_up = torch.cat([S[:1], S[:-1]], dim=0)
-    r_up = eos.state(cfg, pz, t_up, s_up, None)
+    r_up = eos.state(cfg, pz, t_up, s_up, None, fit=grid.vgrid.poly)
     work3 = torch.cat([r_k[:1], (0.5 * (r_up + r_k))[1:]], dim=0)
     # rho(T_{k+1}, S_{k+1}) at level-k pressure; at the column bottom use r_k
     t_dn = torch.cat([T[1:], T[-1:]], dim=0)
     s_dn = torch.cat([S[1:], S[-1:]], dim=0)
-    r_dn = eos.state(cfg, pz, t_dn, s_dn, None)
+    r_dn = eos.state(cfg, pz, t_dn, s_dn, None, fit=grid.vgrid.poly)
     at_bot = _kidx(km, T.device) == grid.KMT[None]
     work4 = torch.where(at_bot, r_k, 0.5 * (r_dn + r_k))
     dzr = _col(1.0 / grid.vgrid.dz)
@@ -436,11 +437,14 @@ def _qsw_hbl(cfg, grid, state, aux):
 #    computed them (same functions); the total tendency and the implicit
 #    vertical flux come from step extras / the step's diffusivity.
 def _advection(cfg, grid, state, aux):
-    """The advective tendency of every tracer, (nt, km, ny, nx)."""
-    from pop2_tpu_torch import advect
+    """The advective tendency of every tracer, (nt, km, ny, nx); lw_lim
+    advects the mixing-time tracers with the leapfrog step."""
+    from pop2_tpu_torch import advect, baroclinic
+    c2dtt = (baroclinic._timestep_arrays(cfg, grid, True)[0]
+             if cfg.tadvect == "lw_lim" else None)
     return _once(aux, "advt", state, lambda: advect.advt(
         cfg, grid, aux.bc, _flux_vel(cfg, grid, aux, state),
-        state.tracer_cur))
+        state.tracer_cur, tmix=state.tracer_old, c2dtt=c2dtt))
 
 
 def _adv_3d(cfg, grid, state, aux, n):
@@ -454,11 +458,12 @@ def _vint(cfg, grid, f3):
 def _hdif_3d(cfg, grid, state, aux, n):
     """The horizontal-diffusion tendency of tracer ``n``: GM's (its flux
     assembly through the ``gm_cuda`` kernel on CUDA tensors) or the
-    Laplacian's, of the mixing-time tracers."""
+    Laplacian's, of the mixing-time tracers (and GM's velocities)."""
     if cfg.hmix_tracer == "gm":
         from pop2_tpu_torch import gm as gm_mod
         gtk = _once(aux, "hdifft_gm", state, lambda: gm_mod.hdifft_gm(
-            cfg, grid, aux.bc, None, state.tracer_old, hblt=aux.hblt).gtk)
+            cfg, grid, aux.bc, None, state.tracer_old, hblt=aux.hblt,
+            umix=state.u_old, vmix_m=state.v_old).gtk)
         return gtk[n]
     from pop2_tpu_torch import hmix
     return _once(aux, "hdifft", state, lambda: hmix.hdifft(

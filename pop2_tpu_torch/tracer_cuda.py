@@ -150,7 +150,10 @@ def upwind3_operands(cfg, grid, dtype, device):
 
 def _check_mode(cfg, grid):
     todo = []
-    if cfg.tadvect not in ("centered", "upwind3"):
+    if cfg.tadvect == "lw_lim":
+        todo.append("tadvect='lw_lim' (no kernel instance: baroclinic."
+                    "driver runs it plain, as the JAX package does)")
+    elif cfg.tadvect not in ("centered", "upwind3"):
         todo.append(f"tadvect={cfg.tadvect!r}")
     if cfg.hmix_tracer not in ("del2", "gm", "del4"):
         todo.append(f"hmix_tracer={cfg.hmix_tracer!r} (with_del2=False "

@@ -74,7 +74,8 @@ def _coeffs_rich(cfg: ModelConfig, grid: Grid, bc: BC, tmix, umix, vmix_,
     dU2 = (ut - ut[kp1]) ** 2 + (vt - vt[kp1]) ** 2 + EPS
 
     # density of level-k water adiabatically displaced to level k+1
-    rhok_disp = eos.state(cfg, grid.vgrid.pressz[kp1], tmix[0], tmix[1])
+    rhok_disp = eos.state(cfg, grid.vgrid.pressz[kp1], tmix[0], tmix[1],
+                          fit=eos.fit_rows(grid.vgrid.poly, "down"))
     drho = rhok_disp - rhomix[kp1]
 
     dzw_k = grid.vgrid.dzw[1:km + 1].reshape(km, 1, 1)
@@ -208,17 +209,19 @@ def convad(cfg: ModelConfig, grid: Grid, tnew):
     xcel = depth_accel(cfg, grid)
     if xcel is not None:
         dz = dz / xcel
-    pressz = grid.vgrid.pressz
+    pressz, poly = grid.vgrid.pressz, grid.vgrid.poly
     tnew = tnew.clone()  # levels are updated in place below
 
     for _ in range(cfg.nconvad):
         for ks in (0, 1):
             for k in range(ks, km - 1, 2):
                 # density of level k displaced to k+1 vs in-situ at k+1
+                fit = eos.fit_rows(poly, k + 1)
                 rhok = eos.state_at_level(cfg, pressz[k + 1], tnew[0, k],
-                                          tnew[1, k])
+                                          tnew[1, k], fit=fit)
                 rhokp = eos.state_at_level(cfg, pressz[k + 1],
-                                           tnew[0, k + 1], tnew[1, k + 1])
+                                           tnew[0, k + 1], tnew[1, k + 1],
+                                           fit=fit)
                 unstable = ((rhok > rhokp) & grid.kmask_t[k + 1])[None]
                 w = 1.0 / (dz[k] + dz[k + 1])
                 mixed = w * (dz[k] * tnew[:, k] + dz[k + 1] * tnew[:, k + 1])

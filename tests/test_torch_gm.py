@@ -503,13 +503,7 @@ def test_gm_driver_carries_vdc_and_gm_output(runs):
 # ---- (e) what the port does not carry ---------------------------------------
 
 @pytest.mark.parametrize("over,names", [
-    (dict(gm_aniso="flow"), "Queue 1 item 11"),
     (dict(passive_tracers=("abio_dic",), nt=4), "passive_tracers.py"),
-    (dict(gm_kappa_isop_type="vmhs", gm_kappa_thic_type="vmhs"), "vmhs"),
-    (dict(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg"), "eg"),
-    (dict(gm_kappa_isop_type="depth", gm_kappa_thic_type="depth"), "depth"),
-    (dict(gm_kappa_isop_type="bfre"), "differing"),
-    (dict(state_choice="jmcd"), "Queue 2 kernel 4"),
 ])
 def test_unported_gm_switches_raise_at_construction(over, names):
     cfg = t_get_config("mini", hmix_tracer="gm", **over)
@@ -517,6 +511,32 @@ def test_unported_gm_switches_raise_at_construction(over, names):
     assert names in why and "Queue" in why
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(gm_aniso="flow", gm_transition_layer=False),
+    dict(gm_kappa_isop_type="vmhs", gm_kappa_thic_type="vmhs"),
+    dict(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg"),
+    dict(gm_kappa_isop_type="depth", gm_kappa_thic_type="depth"),
+    dict(gm_kappa_isop_type="bfre"),
+    dict(state_choice="jmcd")],
+    ids=["aniso", "vmhs", "eg", "depth", "differing", "jmcd"])
+def test_gm_switches_ported_since_construct_and_step(over):
+    """Once refused at construction (ROADMAP.md Queue 1 item 11b), now
+    carried: each constructs and takes a step from the stratified state
+    (its values are held against the JAX package in
+    test_torch_gm_menu.py and test_torch_advect_eos.py)."""
+    cfg = t_get_config("mini", hmix_tracer="gm", **over)
+    assert supported.unsupported(cfg) == []
+    model = TModel(cfg, device="cpu")
+    tracers = sample.grid_tracers(cfg, model.grid, 7, noise=0.02)
+    rho = tbaroclinic._masked_density(cfg, model.grid, model.ts_range,
+                                      tracers)
+    state = model.initial_state().replace(
+        tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
+    state, _ = model.advance(state)
+    assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
+    assert not gm_chain_cuda.available(cfg, model.grid)
 
 
 def test_supported_gm_switches_construct():
@@ -544,19 +564,31 @@ def test_kernel_wrappers_raise_for_modes_not_ported(pairs):
     with pytest.raises(NotImplementedError, match="3-D layer thickness"):
         gm_chain_cuda.hdifft_chain(p.tcfg, dzt_grid, bc, tr, tmix,
                                    hmxl=tlt.thickness)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        gm_chain_cuda.hdifft_chain(p.with_(gm_aniso="flow").tcfg, p.tgrid,
-                                   bc, tr, tmix, hblt=tlt.thickness)
-    # the flux-assembly kernel's anisotropic diffusivities (two weight
-    # planes more) and 3-D layer thickness are refused; its tripole row is
-    # ported (test_torch_fold_kernels.py)
-    with pytest.raises(NotImplementedError, match="Queue 2 kernel 6"):
-        gm_cuda.flux_assembly(p.with_(gm_aniso="flow").tcfg, p.tgrid, bc,
-                              *([tmix] * 9), False)
+    # anisotropic GM is not the chain's: gm.hdifft_gm runs it, with the
+    # flux assembly's y-face diffusivity (its kernel's ANISO instances)
+    aniso = p.with_(gm_aniso="flow", gm_transition_layer=False).tcfg
+    with pytest.raises(NotImplementedError, match="outside the chain"):
+        gm_chain_cuda.hdifft_chain(aniso, p.tgrid, bc, tr, tmix,
+                                   hblt=tlt.thickness)
+    u = torch.full(p.tgrid.kmask_u.shape, 10.0, dtype=tmix.dtype) \
+        * p.tgrid.kmask_u
+    out = tgm.hdifft_gm(aniso, p.tgrid, bc, tr, tmix, umix=u, vmix_m=-u)
+    assert bool(torch.isfinite(out.gtk).all())
+    f = sample.flux_operands(p.tcfg, p.tgrid, bc, tr, tmix)
+    gtk_x, _ = gm_cuda.flux_assembly(aniso, p.tgrid, bc, *f, False,
+                                     kisop_y=0.5 * f[7])
+    assert not torch.equal(gtk_x, gm_cuda.flux_assembly(
+        aniso, p.tgrid, bc, *f, False)[0])
+    # 3-D layer thickness is refused; the tripole row is ported
+    # (test_torch_fold_kernels.py)
     with pytest.raises(NotImplementedError, match="3-D layer thickness"):
         gm_cuda.flux_assembly(p.tcfg, dzt_grid, bc, *([tmix] * 9), False)
     flux_only = p.with_(gm_transition_layer=False).tcfg
     with pytest.raises(NotImplementedError, match="outside the chain"):
         gm_chain_cuda.chain(flux_only, p.tgrid, bc, tmix, slp, sla, n2, tlt)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tgm.kappa_from_profile(p.with_(gm_kappa_isop_type="eg").tcfg, n2)
+    # the Eden-Greatbatch diffusivity, from the mixing-time velocities
+    eg = p.with_(gm_kappa_isop_type="eg", gm_kappa_thic_type="eg").tcfg
+    kisop, kthic, cancellation, _ = tgm.kappa_fields(
+        eg, p.tgrid, bc, tr, tmix, umix=u, vmix_m=-u)
+    assert kthic is kisop and not cancellation  # the transition layer
+    assert bool((kisop >= eg.gm_kappa_min_eg).all())

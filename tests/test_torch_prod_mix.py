@@ -215,17 +215,13 @@ def test_prod_mix_builds_and_what_stays_refused():
     # the full preset with its passive tracers is carried too
     # (tests/test_torch_prod_full.py)
     assert supported.unsupported(t_get_config("prod_full")) == []
-    # the rest of vertical mixing is carried
-    # (tests/test_torch_vmix_menu.py); the GM variants stay refused
+    # the rest of vertical mixing and the GM variants are carried
+    # (tests/test_torch_vmix_menu.py, tests/test_torch_gm_menu.py)
     for c in (cfg.with_(tidal_mixing_method="polzin"),
               cfg.with_(tidal_mixing_method="schmittner"),
               cfg.with_(ltidal_lunar_cycle=True),
-              cfg.with_(lniw_mixing=True)):
+              cfg.with_(lniw_mixing=True),
+              cfg.with_(gm_aniso="flow", gm_transition_layer=False),
+              cfg.with_(gm_kappa_isop_type="vmhs",
+                        gm_kappa_thic_type="vmhs")):
         assert supported.unsupported(c) == []
-    refused = {
-        "gm_aniso": cfg.with_(gm_aniso="flow"),
-        "gm_kappa": cfg.with_(gm_kappa_isop_type="vmhs",
-                              gm_kappa_thic_type="vmhs")}
-    for name, c in refused.items():
-        why = "; ".join(supported.unsupported(c))
-        assert "Queue 1 item 11" in why, name

@@ -177,9 +177,21 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
             convert.forcing_from_numpy(forcing, cfg)
 
 
+@pytest.mark.parametrize("over", [
+    dict(tadvect="lw_lim"),
+    dict(hmix_tracer="gm", gm_aniso="flow", gm_transition_layer=False)],
+    ids=["lw_lim", "gm_aniso_flow"])
+def test_switches_ported_since_construct_and_step(over):
+    """Once refused at construction (ROADMAP.md Queue 1 item 11b): lw_lim
+    advection and anisotropic GM now construct and step (their values are
+    held against the JAX package in test_torch_advect_eos.py and
+    test_torch_gm_menu.py)."""
+    model = TModel(t_get_config("mini", **over), device="cpu")
+    state, _ = model.advance(model.initial_state())
+    assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
+
+
 @pytest.mark.parametrize("over,names", [
-    (dict(tadvect="lw_lim"), "advt_lw_lim"),
-    (dict(hmix_tracer="gm", gm_aniso="flow"), "Queue 2 kernel 6"),
     (dict(sw_absorption="chlorophyll", chl_option="file"), "chl_option"),
     (dict(partial_bottom_cells=True), "3-D DZT"),
     (dict(passive_tracers=("ecosys",), nt=34), "passive"),

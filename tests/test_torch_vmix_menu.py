@@ -44,6 +44,7 @@ from pop2_tpu_torch import vmix as tvmix  # noqa: E402
 from pop2_tpu_torch.grid import grid_bc as t_grid_bc  # noqa: E402
 from pop2_tpu_torch.model import Model as TModel  # noqa: E402
 
+from tests.test_overflows import _spec as ovf_spec  # noqa: E402
 from tests.torch_port_helpers import (fold_bottom, jax_leaves,  # noqa: E402
                                       scale_err, stretched_pair, torch_cfg)
 
@@ -500,11 +501,26 @@ def test_depth_acceleration_is_supported_and_checked():
         tbaro._timestep_arrays(short.with_(nx=8, ny=6), grid, True)
 
 
+def test_polynomial_equation_of_state_constructs_and_steps():
+    """Once refused at construction (ROADMAP.md Queue 1 item 11b): the
+    production preset's vertical mixing under the polynomial equation of
+    state constructs and steps on a small grid (its densities are held
+    against the JAX package in test_torch_advect_eos.py)."""
+    cfg = production.get_production_config(state_choice="polynomial")
+    assert supported.unsupported(cfg) == []
+    model = TModel(cfg.with_(nx=16, ny=12, km=10, vert_grid="uniform",
+                             passive_tracers=(), nt=2), device="cpu")
+    state, _ = model.advance(model.initial_state())
+    assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
+
+
 @pytest.mark.parametrize("over,item", [
-    (dict(gm_aniso="east"), "Queue 1 item 11"),
+    (dict(gm_aniso="east"), "gm_aniso='east'"),
+    (dict(state_choice="polynomial", overflows=torch_cfg(get_config(
+        "mini").with_(overflows=(ovf_spec(),))).overflows),
+     "overflows under state_choice='polynomial'"),
     (dict(partial_bottom_cells=True), "Queue 2 kernel 1"),
     (dict(lestuary_exch=True), "Queue 1 item 11"),
-    (dict(state_choice="polynomial"), "Queue 1 item 11"),
     (dict(b4b=True), "Queue 1 item 12")])
 def test_remaining_refusals_still_raise(over, item):
     cfg = production.get_production_config(**over)
