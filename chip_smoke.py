@@ -11,8 +11,9 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's thirteen paths through ``Model.advance`` (Euler step, leapfrog steps,
-averaging or Robert-filtered steps) at that size in float32 and in float64:
+port's fifteen paths through ``Model.advance`` (Euler step, leapfrog steps,
+averaging or Robert-filtered steps) at that size in float32 and in float64
+(gm_pbc in float32 alone):
 
     core      the dynamical core (Laplacian tracer mixing)
     gm_full   GM/Redi mixing with the transition layer and bfre
@@ -59,6 +60,13 @@ averaging or Robert-filtered steps) at that size in float32 and in float64:
               launched), the polynomial equation of state, and GM under it
               with the depth profile and differing diffusivity types (the
               flux-assembly kernel's skew branch)
+    prod_pbc  prod_hmix under partial bottom cells, the tx0.1v3 preset's
+              menu on the gx1v7 shape: the thomas, tracer (upwind3) and
+              momentum kernels' PBC instances read the bottom level's
+              thickness (a bottom-cell file written from a seed)
+    gm_pbc    the production configuration under partial bottom cells: GM's
+              kernels on the 1-D dz (as the JAX package's), the PBC
+              instances of thomas (nr up to 4), tracer and momentum
 
 On every GM path with the transition layer the search runs as a kernel.
 The modes of the tracer, momentum, slope and chain kernels that the tripole
@@ -75,7 +83,8 @@ package's tests on the card against the same on the CPU.
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels.
-On core, gm_full, prod_full and the six paths above it runs
+On core, gm_full, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
+prod_aniso, core_lw and prod_pbc runs
 ``Model.run_compiled`` (CUDA graphs of the step's segments) against
 ``Model.run`` from one state (``run_loop`` phase): every state leaf bitwise
 equal (or inside the eager-against-eager spread), iterations and launch
@@ -88,7 +97,11 @@ are timed at full size (``menu_parts_phase``). It
 compares five steps with the kernels against five steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
 gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo,
-prod_eg, prod_aniso and core_lw paths, breaks a step's time down
+prod_eg, prod_aniso, core_lw and prod_pbc paths (gm_pbc: three steps),
+holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
+momentum kernels against their plain versions on stepped bottoms whose
+every column ends in a partial cell (``pbc_kernel_phase``), breaks a step's
+time down
 by part
 and by device kernel (the GM paths from rest and from a stratified state
 with slopes for GM to work on), and compares the GPU path with the CPU
@@ -130,14 +143,15 @@ from pop2_tpu_torch import _cuda_build as cb  # noqa: E402
 from pop2_tpu_torch import baroclinic, clinic_cuda, gm, gm_chain_cuda  # noqa: E402
 from pop2_tpu_torch import eos, gm_cuda, gm_slope_cuda, gm_tlt_cuda  # noqa: E402
 from pop2_tpu_torch import kpp, overflows, production, submeso  # noqa: E402
-from pop2_tpu_torch import tracer_cuda, tridiag_cuda  # noqa: E402
+from pop2_tpu_torch import tracer_cuda, tridiag, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
 from pop2_tpu_torch import hmix, pgrad, sample, solvers  # noqa: E402
 from pop2_tpu_torch import tidal_mixing  # noqa: E402
 from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
                                    SolverConfig, get_config)
-from pop2_tpu_torch.grid import (build_grid, build_topostress,  # noqa: E402
-                                 grid_bc, vertical_dz)
+from pop2_tpu_torch.grid import (bottom_cells, bottom_planes,  # noqa: E402
+                                 build_grid, build_topostress, grid_bc,
+                                 partial_bottom_cells, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -156,7 +170,9 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "core_topo": {"float32": 4, "float64": 4},
          "prod_eg": {"float32": 4, "float64": 3},
          "prod_aniso": {"float32": 4, "float64": 3},
-         "core_lw": {"float32": 6, "float64": 4}}
+         "core_lw": {"float32": 6, "float64": 4},
+         "prod_pbc": {"float32": 6, "float64": 4},
+         "gm_pbc": {"float32": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -261,7 +277,8 @@ WITNESS_RATIO = 1.5
 # prod_eg and prod_aniso are prod_full's menu; core_lw's limiter (lw_lim)
 # chooses its stencil by the signs of tracer differences, another threshold.
 WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
-                      "prod_hmix", "prod_eg", "prod_aniso", "core_lw")
+                      "prod_hmix", "prod_eg", "prod_aniso", "core_lw",
+                      "prod_pbc", "gm_pbc")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -307,6 +324,12 @@ SOURCES = {
                           "pop2_tpu/clinic_pallas.py:461"),
     "gm_flux_aniso": ("pop2_tpu_torch/csrc/gm_flux.cu",
                       "pop2_tpu/gm_pallas.py:358"),
+    "thomas_pbc": ("pop2_tpu_torch/csrc/thomas.cu",
+                   "pop2_tpu/tridiag_pallas.py:112"),
+    "tracer_upwind3_pbc": ("pop2_tpu_torch/csrc/tracer.cu",
+                           "pop2_tpu/tracer_pallas.py:563"),
+    "clinic_pbc": ("pop2_tpu_torch/csrc/clinic.cu",
+                   "pop2_tpu/clinic_pallas.py:461"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
@@ -319,7 +342,8 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "gm_chain_sm_nt5_diags": "prod_full_tavg",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
            "gm_flux_tripole": "prod_flux", "clinic_topostress": "core_topo",
-           "gm_flux_aniso": "prod_aniso"}
+           "gm_flux_aniso": "prod_aniso", "thomas_pbc": "prod_pbc",
+           "tracer_upwind3_pbc": "prod_pbc", "clinic_pbc": "prod_pbc"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "tracer_upwind3_nt5": "tracer",
@@ -328,7 +352,8 @@ COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "gm_chain_sm_nt5": "gm_chain",
               "gm_chain_sm_nt5_diags": "gm_chain_diags",
               "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux",
-              "clinic_topostress": "clinic", "gm_flux_aniso": "gm_flux_aniso"}
+              "clinic_topostress": "clinic", "gm_flux_aniso": "gm_flux_aniso",
+              "tracer_upwind3_pbc": "tracer_pbc"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -369,15 +394,24 @@ CORE_LW = dict(tadvect="lw_lim", state_choice="polynomial",
                hmix_tracer="gm", gm_transition_layer=False,
                gm_kappa_isop_type="depth", gm_kappa_thic_type="const",
                lsubmeso=False)
+# partial bottom cells (the bottom-cell file is written by ``path_config``):
+# the eddy-resolving preset's menu on the gx1v7 shape, and the production
+# configuration
+PROD_PBC = dict(PROD_HMIX, partial_bottom_cells=True)
+GM_PBC = dict(partial_bottom_cells=True)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
          "prod_flux": PROD_FLUX, "prod_vmix": PROD_VMIX,
          "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True),
-         "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW}
+         "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW,
+         "prod_pbc": PROD_PBC, "gm_pbc": GM_PBC}
 PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
-              "prod_hmix", "prod_eg", "prod_aniso")
+              "prod_hmix", "prod_eg", "prod_aniso", "prod_pbc")
 PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix", "prod_eg",
-                 "prod_aniso")
+                 "prod_aniso", "gm_pbc")
+# the bottom-cell files of the partial-cell paths, a file a grid shape, in a
+# directory removed at exit
+BOTTOM_CELLS = tempfile.TemporaryDirectory(prefix="pop2_dzbc_")
 # the years the calendar jumps in run_loop_phase's lunar check
 LUNAR_JUMP_YEARS = 7
 # the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
@@ -408,10 +442,47 @@ def full_config(dtype: str, path: str = "core"):
     return path_config(cfg, path)
 
 
+def bottom_cell_file(cfg):
+    """The bottom-cell file of a partial-cell config's grid: the bottom
+    level of every ocean column a seeded fraction in [0.25, 1] of its full
+    thickness (``sample.write_bottom_cells`` on the full-cell grid's KMT,
+    built on the host), written once a grid shape. Prints the columns whose
+    bottom level is thinner than dz at T and at U points."""
+    full = cfg.with_(partial_bottom_cells=False, bottom_cell_file=None)
+    key = (full.nx, full.ny, full.km, full.vert_grid, full.ew_boundary,
+           full.ns_boundary, full.n_topo_smooth)
+    path = os.path.join(BOTTOM_CELLS.name, "dzbc_" + "_".join(
+        str(k) for k in key) + ".ieeer8")
+    if not os.path.exists(path):
+        grid = build_grid(full.with_(hmix_momentum="del2",
+                                     ltopostress=False), "cpu")
+        kmt, kmu = grid.KMT.numpy(), grid.KMU.numpy()
+        dz = vertical_dz(full)
+        sample.write_bottom_cells(path, kmt, dz, SEED + 31)
+        named = cfg.with_(bottom_cell_file=path)
+        dzt, dzu, _, _ = partial_bottom_cells(
+            named, dz, np.concatenate([[0.0], np.cumsum(dz)]), kmt, kmu,
+            bottom_cells(named, dz, kmt))
+        out = {"phase": "bottom_cells", "dims": [cfg.nx, cfg.ny, cfg.km]}
+        for pt, kmax, plane in zip("tu", (kmt, kmu), bottom_planes(
+                dz, dzt, dzu, kmt, kmu)):
+            wet = kmax > 0
+            out[f"columns_{pt}"] = int(wet.sum())
+            out[f"thinner_{pt}"] = int(
+                (wet & (plane < dz[np.maximum(kmax, 1) - 1])).sum())
+            out[f"bottom_levels_{pt}"] = sorted(
+                int(k) for k in np.unique(kmax[wet]))[:8]
+        emit(out)
+    return path
+
+
 def path_config(cfg, path: str):
     """``cfg`` with what a path takes from its size: prod_vmix's depth
     acceleration, 1 down to 1000 m and 2 at the bottom level
-    (``sample.depth_accel_profile`` over the config's level centres)."""
+    (``sample.depth_accel_profile`` over the config's level centres); the
+    partial-cell paths' bottom-cell file (``bottom_cell_file``)."""
+    if cfg.partial_bottom_cells:
+        return cfg.with_(bottom_cell_file=bottom_cell_file(cfg))
     if path != "prod_vmix":
         return cfg
     dz = vertical_dz(cfg)
@@ -700,7 +771,8 @@ def launch_info(name: str, dt, tag: str = "", **kw):
     if name == "thomas":
         cols, smem = tridiag_cuda.launch_plan(s, kw["nr"], kw["km"])
         block = [cols, 1, 1]
-        n = lib.pop2_thomas_blocks_per_sm(code, kw["nr"], cols, smem)
+        n = lib.pop2_thomas_blocks_per_sm(code, kw["nr"], cols, smem,
+                                           int(kw.get("pbc", False)))
     elif name == "gm_chain":
         (cols, rows), smem = gm_chain_cuda.launch_plan(s, kw["nt"],
                                                        kw.get("sm", False))
@@ -708,16 +780,19 @@ def launch_info(name: str, dt, tag: str = "", **kw):
         n = lib.pop2_gm_chain_blocks_per_sm(code, kw["flags"], rows, smem)
     elif name == "tracer":
         upw3, fold = kw.get("upwind3", False), kw.get("fold", False)
+        pbc = kw.get("pbc", False)
         (cols, rows), smem = tracer_cuda.launch_plan(s, kw["ng"], kw["del2"],
-                                                     upw3)
+                                                     upw3, pbc)
         block = [cols, rows, 1]
         n = lib.pop2_tracer_blocks_per_sm(code, int(kw["del2"]), kw["ng"],
-                                          int(upw3), int(fold), smem)
+                                          int(upw3), int(fold), smem,
+                                          int(pbc))
     elif name == "clinic":
-        (cols, rows), smem = clinic_cuda.launch_plan(s)
+        pbc = kw.get("pbc", False)
+        (cols, rows), smem = clinic_cuda.launch_plan(s, pbc)
         block = [cols, rows, 1]
         n = lib.pop2_clinic_blocks_per_sm(code, int(kw.get("hdiffu", True)),
-                                          smem)
+                                          smem, int(pbc))
     elif name == "gm_slope":
         (cols, rows), smem = gm_slope_cuda.launch_plan(s)
         block = [cols, rows, 1]
@@ -1697,6 +1772,201 @@ def kpp_state(cfg, grid, tmix, seed: int):
     return run(), run
 
 
+def pbc_share(name, dtype, got, full):
+    """How far a kernel's output under partial bottom cells lies from the
+    same kernel's on full cells, over its scale: held far above the band,
+    so that the check against the plain version sees the bottom cells."""
+    share = max(float((g - f).abs().max()) / (float(g.abs().max()) or 1.0)
+                for g, f in zip(got, full))
+    if not share > 100.0 * BAND[(name, dtype)]:
+        raise AssertionError(f"{name} {dtype}: partial bottom cells moved "
+                             f"the output by {share:.2e} only; the check "
+                             f"cannot see them")
+    return share
+
+
+def full_cells(grid):
+    """``grid`` without its partial-bottom-cell fields."""
+    return grid.replace(DZT=None, DZU=None, DZBT=None, DZBU=None)
+
+
+def pbc_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """The partial-bottom-cell (PBC) instances of thomas, the tracer kernel
+    and the momentum kernel against their plain versions at full size, on
+    stepped bottoms whose every ocean column ends in a seeded partial cell
+    (``sample.with_bottom_cells``; the internal topography alone puts every
+    bottom at the last level): prod_pbc's instances timed (thomas for the
+    tracers' two right-hand sides, upwind3 on the fold without the
+    Laplacian, the momentum kernel on the fold without the friction), every
+    other instance held untimed (thomas for 1, 3, 4 right-hand sides;
+    centered advection with and without the Laplacian, closed and on the
+    fold; upwind3 with the Laplacian; the momentum kernel with the friction,
+    closed and on the fold, and fed u - TSU), each output's distance from
+    the full-cell kernel's held far above its band. Returns {name:
+    record}."""
+    rec, worst = {}, {}
+    # ---- closed, the dynamical core's grid on a stepped bottom
+    cfg = full_config(dtype_name)
+    dt = cfg.torch_dtype
+    grid = sample.with_bottom_cells(
+        cfg, sample.fold_grid(cfg, build_grid(cfg, DEV), SEED + 41),
+        SEED + 42)
+    km, ny, nx = cfg.km, cfg.ny, cfg.nx
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 43)
+    f = random_fields(cfg, grid, gen)
+
+    def timed(fn, plain, nbytes, flops, **info):
+        r = {"ms": time_ms(fn, 3, n_timed),
+             "ms_back_to_back": time_ms_back_to_back(fn, n_timed),
+             "plain_ms": time_ms(plain, 1, 3)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        r["bound_share"] = r["bound_ms"] / r["ms_back_to_back"]
+        r.update(info)
+        return r
+
+    # ---- thomas: the tracer solve's operands on the partial cells, under
+    # the convective diffusivity (1e4 cm^2/s, a thousand times
+    # random_fields'), where the coupling is as large as the diagonal and
+    # the bottom level's thickness reaches the solution
+    c2dt = torch.full((km,), 2.0 * cfg.time.dtt, dtype=dt, device=DEV)
+    hfac, h1, hbot = tridiag._diagonal(grid.vgrid.dz, c2dt, grid.KMT,
+                                       grid.DZBT)
+    h1 = (h1 + f["psurf"] / (const.GRAV * c2dt[0])).contiguous()
+    a = tridiag._coupling(grid.vgrid.dz, grid.vgrid.dzwr,
+                          1.0e3 * f["vdc"][1], cfg.aidif, grid.KMT,
+                          grid.DZBT)
+    for nr in (2, 1, 3, 4):
+        rhs = torch.randn(nr, km, ny, nx, generator=gen, device=DEV,
+                          dtype=dt) * grid.kmask_t.to(dt)
+        args = (hfac, h1, grid.KMT, a, rhs, hbot)
+        got = tridiag_cuda.thomas(*args)
+        torch.cuda.synchronize()
+        want = tridiag_cuda.thomas_plain(*args)
+        err_abs, err_rel = compare("thomas", dt, [got], [want])
+        share = pbc_share("thomas", dt, [got],
+                          [tridiag_cuda.thomas(*args[:5])])
+        del got, want
+        if nr != 2:
+            worst[f"thomas_nr{nr}"] = err_rel
+            continue
+        rec["thomas_pbc"] = timed(
+            lambda: tridiag_cuda.thomas(*args),
+            lambda: tridiag_cuda.thomas_plain(*args),
+            s * (N * (1 + 2 * nr) + 2 * P + km) + 4 * P, N * (8 + 5 * nr),
+            max_abs_err=err_abs, rel_err=err_rel, pbc_share=share,
+            **launch_info("thomas", dt, nr=nr, km=km, pbc=True))
+
+    # ---- centered advection with and without the Laplacian, closed
+    for hmix_tracer in ("del2", "del4"):
+        c = cfg.with_(hmix_tracer=hmix_tracer)
+        args = (c, grid, f["ucur"], f["vcur"], f["trcr"], f["tmix"],
+                f["told"], f["vdc"], f["stf"], f["dh"])
+        got = tracer_cuda.tracer_tendency(*args)
+        torch.cuda.synchronize()
+        want = tracer_cuda.tracer_tendency_plain(*args)
+        key = f"tracer_centered_{hmix_tracer}_closed"
+        worst[key] = compare("tracer", dt, [got], [want])[1]
+        worst[key + "_pbc_share"] = pbc_share(
+            "tracer", dt, [got], [tracer_cuda.tracer_tendency(
+                c, full_cells(grid), *args[2:])])
+        del got, want
+
+    # ---- the momentum kernel with the friction, closed, and fed u - TSU
+    rhoavg = pgrad.rho_average(cfg, grid, *f["rho"], True)
+    wc, wo = clinic_cuda.coriolis_weights(cfg, True)
+    tcfg = cfg.with_(ltopostress=True)
+    tgrid = grid.replace(**dict(zip(("TSU", "TSV"), (
+        torch.as_tensor(x, dtype=dt, device=DEV) for x in build_topostress(
+            tcfg, *(getattr(grid, n).double().cpu().numpy() for n in (
+                "HT", "KMT", "KMU", "TLAT", "FCORT", "DXUR", "DYUR",
+                "HUR")))))))
+    for key, c, g in (("clinic_del2_closed", cfg, grid),
+                      ("clinic_topostress_closed", tcfg, tgrid)):
+        um, vm = hmix.topostress_relative(c, g, f["uold"], f["vold"])
+        args = (c, g, f["ucur"], f["vcur"], f["uold"], f["vold"], um, vm,
+                rhoavg, f["vvc"], f["smf"], f["dhu"], wc, wo)
+        got = clinic_cuda.clinic_rhs_fields(*args)
+        torch.cuda.synchronize()
+        want = clinic_cuda.clinic_rhs_plain(*args)
+        worst[key] = compare("clinic", dt, got, want)[1]
+        worst[key + "_pbc_share"] = pbc_share(
+            "clinic", dt, got, clinic_cuda.clinic_rhs_fields(
+                c, full_cells(g), *args[2:]))
+        del got, want
+    del f, grid, tgrid
+
+    # ---- on the fold: prod_pbc's configuration and its stepped bottom
+    cfg = full_config(dtype_name, "prod_pbc")
+    grid, _, _ = fold_case(cfg)
+    grid = sample.with_bottom_cells(cfg, grid, SEED + 44)
+    opened = sample.open_top_dxu(grid)
+    gen.manual_seed(SEED + 45)
+    f = random_fields(cfg, grid, gen)
+    nt = cfg.nt
+    for key, c in (("tracer_upwind3_pbc", cfg),
+                   ("tracer_upwind3_del2_fold", cfg.with_(hmix_tracer="del2")),
+                   ("tracer_centered_del2_fold",
+                    cfg.with_(hmix_tracer="del2", tadvect="centered")),
+                   ("tracer_centered_del4_fold",
+                    cfg.with_(tadvect="centered"))):
+        args = (c, opened, f["ucur"], f["vcur"], f["trcr"], f["tmix"],
+                f["told"], f["vdc"], f["stf"], f["dh"])
+        got = tracer_cuda.tracer_tendency(*args)
+        torch.cuda.synchronize()
+        want = tracer_cuda.tracer_tendency_plain(*args)
+        err_abs, err_rel = compare("tracer", dt, [got], [want])
+        share = pbc_share("tracer", dt, [got], [tracer_cuda.tracer_tendency(
+            c, full_cells(opened), *args[2:])])
+        del got, want
+        if key != "tracer_upwind3_pbc":
+            worst[key], worst[key + "_pbc_share"] = err_rel, share
+            continue
+        # the upwind3 tile's bytes (fold_kernel_phase's tracer_upwind3) and
+        # KMU, DZBT, DZBU
+        rec[key] = timed(
+            lambda: tracer_cuda.tracer_tendency(*args),
+            lambda: tracer_cuda.tracer_tendency_plain(*args),
+            s * (N * (4 + 2 * nt) + P * (nt + 8 + 12 + 2) + 10 * km)
+            + 8 * P, N * (40 + 120 * nt), max_abs_err=err_abs,
+            rel_err=err_rel, pbc_share=share,
+            **launch_info("tracer", dt, ng=min(nt, tracer_cuda.MAX_GROUP),
+                          del2=False, upwind3=True, fold=True, pbc=True))
+
+    rhoavg = pgrad.rho_average(cfg, grid, *f["rho"], True)
+    wc, wo = clinic_cuda.coriolis_weights(cfg, True)
+    wet = float(grid.kmask_u.to(torch.float64).mean())
+    for key, c in (("clinic_pbc", cfg),
+                   ("clinic_del2_fold", cfg.with_(hmix_momentum="del2"))):
+        args = (c, grid, f["ucur"], f["vcur"], f["uold"], f["vold"],
+                f["uold"], f["vold"], rhoavg, f["vvc"], f["smf"], f["dhu"],
+                wc, wo)
+        got = clinic_cuda.clinic_rhs_fields(*args)
+        torch.cuda.synchronize()
+        want = clinic_cuda.clinic_rhs_plain(*args)
+        err_abs, err_rel = compare("clinic", dt, got, want)
+        share = pbc_share("clinic", dt, got, clinic_cuda.clinic_rhs_fields(
+            c, full_cells(grid), *args[2:]))
+        del got, want
+        if key != "clinic_pbc":
+            worst[key], worst[key + "_pbc_share"] = err_rel, share
+            continue
+        # clinic_aniso's bytes and DZBU
+        rec[key] = timed(
+            lambda: clinic_cuda.clinic_rhs_fields(*args),
+            lambda: clinic_cuda.clinic_rhs_plain(*args),
+            s * (N * (6 * wet + 2) + P * (10 + 2 + 1 + 2 + 1) + 5 * km)
+            + 4 * P, N * wet * 150, max_abs_err=err_abs, rel_err=err_rel,
+            pbc_share=share, ocean_fraction_u=wet,
+            **launch_info("clinic", dt, hdiffu=False, pbc=True))
+    emit({"phase": "pbc_modes", "dtype": dtype_name,
+          "rel_err_of_scale": worst,
+          "band": {k: BAND[(k, dt)] for k in ("thomas", "tracer",
+                                              "clinic")}})
+    return rec
+
+
 def menu_parts_phase(dtype_name: str, n_timed: int = 10):
     """The plain parts that prod_vmix and prod_hmix add, each timed alone at
     full size on the production grid: Polzin's profile of a step's N^2,
@@ -2124,9 +2394,10 @@ def overflow_phase(nsteps: int = 5):
     return out
 
 
-# each wrapper's launch counter, and two mode counters: the chain kernel's
+# each wrapper's launch counter, and mode counters: the chain kernel's
 # launches with the diagnostic columns, the flux assembly's tripole-row
-# (FOLD) instance
+# (FOLD) and anisotropic instances, and the partial-bottom-cell (PBC)
+# instances of thomas, the tracer and the momentum kernels
 COUNTERS = {"thomas": (tridiag_cuda, "launches"),
             "tracer": (tracer_cuda, "launches"),
             "clinic": (clinic_cuda, "launches"),
@@ -2136,7 +2407,10 @@ COUNTERS = {"thomas": (tridiag_cuda, "launches"),
             "gm_tlt": (gm_tlt_cuda, "launches"),
             "gm_chain_diags": (gm_chain_cuda, "launches_with_diags"),
             "gm_flux_fold": (gm_cuda, "launches_fold"),
-            "gm_flux_aniso": (gm_cuda, "launches_aniso")}
+            "gm_flux_aniso": (gm_cuda, "launches_aniso"),
+            "thomas_pbc": (tridiag_cuda, "launches_pbc"),
+            "tracer_pbc": (tracer_cuda, "launches_pbc"),
+            "clinic_pbc": (clinic_cuda, "launches_pbc")}
 
 
 def reset_counts():
@@ -2166,7 +2440,11 @@ def expected_counts(path: str, nsteps: int):
     tripole-row instance on prod_flux, prod_eg and prod_aniso (there
     anisotropic); no path writes the chain's diagnostic columns (no stream,
     ``tavg_phase``). core_lw launches no tracer kernel: its lw_lim
-    advection and the vertical diffusion beside it are plain."""
+    advection and the vertical diffusion beside it are plain. On the
+    partial-cell paths every tracer and momentum launch is a PBC instance's,
+    and so are the predictor's solves (T and S on a leapfrog step) and the
+    momentum's, not the corrector's (the JAX package's corrector solves on
+    the 1-D dz)."""
     chain = ("tracer", "clinic", "gm_slope", "gm_tlt", "gm_chain")
     flux = ("tracer", "clinic", "gm_flux")
     once = {"core": ("tracer", "clinic"), "gm_full": chain,
@@ -2175,7 +2453,8 @@ def expected_counts(path: str, nsteps: int):
             "prod_hmix": ("tracer", "clinic"),
             "core_topo": ("tracer", "clinic"),
             "prod_eg": flux + ("gm_tlt",), "prod_aniso": flux,
-            "core_lw": ("clinic", "gm_flux")}[path]
+            "core_lw": ("clinic", "gm_flux"),
+            "prod_pbc": ("tracer", "clinic"), "gm_pbc": chain}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
     if path in ("prod_flux", "prod_eg", "prod_aniso"):  # the tripole row
@@ -2193,6 +2472,10 @@ def expected_counts(path: str, nsteps: int):
                                     + leapfrog.get(nr, 0) * (nsteps - 1))
     expect["thomas"] = sum(euler.values()) + sum(leapfrog.values()) * (
         nsteps - 1)
+    if PATHS[path].get("partial_bottom_cells"):
+        expect["tracer_pbc"] = expect["tracer"]
+        expect["clinic_pbc"] = expect["clinic"]
+        expect["thomas_pbc"] = 1 + 3 * (nsteps - 1)
     return expect
 
 
@@ -2203,6 +2486,8 @@ def path_phase(path: str, dtype_name: str):
     nsteps = STEPS[path][dtype_name]
     cfg = full_config(dtype_name, path)
     model = Model(cfg)  # default device: the GPU
+    if cfg.partial_bottom_cells and model.grid.DZBT is None:
+        raise AssertionError(f"{path}: no partial bottom cells on the grid")
     state = model.initial_state()
     forcing = path_forcing(model)
     torch.cuda.synchronize()
@@ -2505,7 +2790,8 @@ RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
             ("prod_full", "float32", 8), ("prod_full", "float64", 8),
             ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
             ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
-            ("prod_aniso", "float32", 6), ("core_lw", "float32", 6))
+            ("prod_aniso", "float32", 6), ("core_lw", "float32", 6),
+            ("prod_pbc", "float32", 6))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -3154,27 +3440,30 @@ def main():
                              f"{lib.pop2_tracer_tile_rows()}, planner "
                              f"{tracer_cuda.MAX_GROUP}, "
                              f"{tracer_cuda.TILE_ROWS}")
-    for ng, del2, upw3 in itertools.product(
+    for ng, del2, upw3, pbc in itertools.product(
             range(1, tracer_cuda.MAX_GROUP + 1), (True, False),
-            (False, True)):
-        c_values = lib.pop2_tracer_smem_values(ng, int(del2), int(upw3))
+            (False, True), (False, True)):
+        c_values = lib.pop2_tracer_smem_values(ng, int(del2), int(upw3),
+                                               int(pbc))
         want = tracer_cuda.smem_values(ng, del2, tracer_cuda.TILE_ROWS,
-                                       upw3)
+                                       upw3, pbc)
         if c_values != want:
             raise AssertionError(f"tracer shared memory (ng={ng}, del2="
-                                 f"{del2}, upwind3={upw3}): library "
-                                 f"{c_values}, planner {want}")
+                                 f"{del2}, upwind3={upw3}, pbc={pbc}): "
+                                 f"library {c_values}, planner {want}")
         for vb in (4, 8):  # fits 227 KB
-            tracer_cuda.launch_plan(vb, ng, del2, upw3)
-    for vb, rows in clinic_cuda.TILE_ROWS.items():
+            tracer_cuda.launch_plan(vb, ng, del2, upw3, pbc)
+    for (vb, rows), pbc in itertools.product(clinic_cuda.TILE_ROWS.items(),
+                                             (False, True)):
         code = 0 if vb == 4 else 1
         c_rows = lib.pop2_clinic_tile_rows(code)
-        c_values = lib.pop2_clinic_smem_values(code)
-        if (c_rows, c_values) != (rows, clinic_cuda.smem_values(rows)):
-            raise AssertionError(f"clinic tile ({vb}-byte values): library "
-                                 f"{c_rows} rows, {c_values} values, "
-                                 f"planner {rows}, "
-                                 f"{clinic_cuda.smem_values(rows)}")
+        c_values = lib.pop2_clinic_smem_values(code, int(pbc))
+        want = clinic_cuda.smem_values(rows, pbc)
+        if (c_rows, c_values) != (rows, want):
+            raise AssertionError(f"clinic tile ({vb}-byte values, pbc="
+                                 f"{pbc}): library {c_rows} rows, "
+                                 f"{c_values} values, planner {rows}, "
+                                 f"{want}")
     c_rows, c_values = (lib.pop2_gm_slope_tile_rows(),
                         lib.pop2_gm_slope_smem_values())
     want = gm_slope_cuda.smem_values(gm_slope_cuda.TILE_ROWS)
@@ -3220,6 +3509,7 @@ def main():
         records[dtype_name].update(run(fold_kernel_phase, dtype_name))
         records[dtype_name].update(run(mix_kernel_phase, dtype_name))
         records[dtype_name].update(run(flux_fold_phase, dtype_name))
+        records[dtype_name].update(run(pbc_kernel_phase, dtype_name))
         run(other_modes_phase, dtype_name)
         run(gm_other_modes_phase, dtype_name)
         run(ragged_phase, dtype_name)
@@ -3227,7 +3517,7 @@ def main():
         run(menu_parts_phase, dtype_name)
     launches = {}
     for path in PATHS:
-        for dtype_name in ("float32", "float64"):
+        for dtype_name in STEPS[path]:
             launches[(path, dtype_name)] = run(path_phase, path, dtype_name)
     captured = {}
     for path, dtype_name, nsteps in RUN_LOOP:
@@ -3245,9 +3535,11 @@ def main():
             run(breakdown_phase, path, "float32", True)
         run(small_vs_cpu_phase, path)
     for path in ("prod_vmix", "prod_hmix", "core_topo", "prod_eg",
-                 "prod_aniso", "core_lw"):
+                 "prod_aniso", "core_lw", "prod_pbc"):
         run(path_vs_plain_phase, path)
         run(small_vs_cpu_phase, path)
+    run(path_vs_plain_phase, "gm_pbc", 3)
+    run(breakdown_phase, "gm_pbc", "float32")
     run(small_vs_cpu_phase, "prod_flux")
     run(overflow_phase)
 

@@ -106,22 +106,22 @@ def _build(so_path: Path) -> None:
 def _declare(lib) -> None:
     p, i, l, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                   ctypes.c_double)
-    lib.pop2_thomas.argtypes = [i, i, i, l, i, l] + [p] * 7
+    lib.pop2_thomas.argtypes = [i, i, i, l, i, l] + [p] * 8
     lib.pop2_thomas.restype = i
-    lib.pop2_thomas_blocks_per_sm.argtypes = [i, i, i, l]
+    lib.pop2_thomas_blocks_per_sm.argtypes = [i, i, i, l, i]
     lib.pop2_gm_chain_blocks_per_sm.argtypes = [i, i, i, l]
     lib.pop2_gm_chain_smem_values.argtypes = [i, i]
     lib.pop2_gm_slope_blocks_per_sm.argtypes = [i, l]
     lib.pop2_gm_flux_blocks_per_sm.argtypes = [i, i, i, i, i, l]
     lib.pop2_gm_flux_smem_values.argtypes = [i, i, i]
     lib.pop2_gm_flux_tile_rows.argtypes = [i]
-    lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d, p, p]
+    lib.pop2_tracer.argtypes = [i] * 13 + [l] + [p] * 22 + [d] + [p] * 5
     lib.pop2_tracer.restype = i
-    lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, i, i, l]
-    lib.pop2_tracer_smem_values.argtypes = [i, i, i]
-    lib.pop2_clinic.argtypes = [i] * 8 + [l] + [p] * 17 + [d] * 4 + [p] * 5
-    lib.pop2_clinic_blocks_per_sm.argtypes = [i, i, l]
-    lib.pop2_clinic_smem_values.argtypes = [i]
+    lib.pop2_tracer_blocks_per_sm.argtypes = [i, i, i, i, i, l, i]
+    lib.pop2_tracer_smem_values.argtypes = [i, i, i, i]
+    lib.pop2_clinic.argtypes = [i] * 8 + [l] + [p] * 17 + [d] * 4 + [p] * 6
+    lib.pop2_clinic_blocks_per_sm.argtypes = [i, i, l, i]
+    lib.pop2_clinic_smem_values.argtypes = [i, i]
     lib.pop2_clinic_tile_rows.argtypes = [i]
     lib.pop2_clinic.restype = i
     lib.pop2_gm_slopes.argtypes = [i] * 7 + [l, d] + [p] * 9

@@ -233,17 +233,17 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         tracer_new = torch.cat([torch.stack([
             state.tracer_old[n] + tridiag.impvmixt(
                 rhs[n], coeffs.vdc[n], state.psurf_cur, grid.KMT, vg.dz,
-                vg.dzwr, c2dtt, cfg.aidif, varthick=True)
+                vg.dzwr, c2dtt, cfg.aidif, varthick=True, bottom=grid.DZBT)
             for n in range(2)]), rhs[2:]])
     elif not varthick:
         # tracer 0 has its own diffusivity class; the others share vdc[1]
         # and one factorization
         dT0 = tridiag.impvmixt(
             rhs[0], coeffs.vdc[0], state.psurf_cur, grid.KMT, vg.dz,
-            vg.dzwr, c2dtt, cfg.aidif, varthick=False)
+            vg.dzwr, c2dtt, cfg.aidif, varthick=False, bottom=grid.DZBT)
         dTs = tridiag.impvmixt_batch(
             rhs[1:], coeffs.vdc[1], state.psurf_cur, grid.KMT, vg.dz,
-            vg.dzwr, c2dtt, cfg.aidif, varthick=False)
+            vg.dzwr, c2dtt, cfg.aidif, varthick=False, bottom=grid.DZBT)
         tracer_new = state.tracer_old + torch.cat([dT0[None], dTs], dim=0)
     else:
         # varthick without pressure averaging (or Euler step): the full
@@ -274,7 +274,8 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     # implicit vertical friction (source/baroclinic.F90:1066-1069)
     rhs_u, rhs_v = tridiag.impvmixu(rhs_u, rhs_v, coeffs.vvc, grid.KMU,
-                                    vg.dz, vg.dzwr, c2dtu, cfg.aidif)
+                                    vg.dz, vg.dzwr, c2dtu, cfg.aidif,
+                                    bottom=grid.DZBU)
 
     # unnormalized baroclinic velocity (source/baroclinic.F90:1077-1080)
     upp = state.u_old + rhs_u
@@ -311,6 +312,8 @@ def correct_adjust(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     vg = grid.vgrid
     grav_dz1 = const.GRAV * vg.dz[0]
 
+    # the corrector's solves take the 1-D dz under partial bottom cells
+    # too, as the JAX package's do (ROADMAP.md Queue 3)
     if varthick:
         if press_avg:
             # corrector RHS for T,S at the surface

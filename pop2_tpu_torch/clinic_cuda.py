@@ -39,7 +39,10 @@ of the north ghost row folds that difference, as the JAX package's
 ``bc.n(umixk - TSU, ...)`` does. Closed or tripole north edge (the kernel
 reads the fold of the north ghost row: u, v as NE-corner vectors, the
 density as a centre scalar, the ghost row's south-face flux vus as the fold
-of an E-face vector), 1-D layer thickness.
+of an E-face vector), full or partial bottom cells: under partial bottom
+cells (``Grid.DZBU`` set) the ``PBC`` instances read the bottom level's
+thickness at U points, one (ny, nx) plane besides KMU, and stage it with
+KMU on the frame (counter ``launches_pbc``).
 
 The pressure averaging, the Boussinesq scaling of the density and the choice
 of Coriolis weights stay in the wrapper, as in the JAX package.
@@ -55,6 +58,10 @@ from pop2_tpu_torch.grid import grid_bc, thickness_u
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+#: launches of the partial-bottom-cell (PBC) instances
+launches_pbc = 0
+#: the mode counters ``graphs.CapturedStep`` keeps exact under replay
+MODE_COUNTERS = ("launches_pbc",)
 
 #: order of the stacked 2-D metric operand; DUCM = DUC + DUM, the combined
 #: centre weight of hmix_del2.F90:892 (must match enum G2D in csrc/clinic.cu)
@@ -69,28 +76,30 @@ TILE_ROWS = {4: 8, 8: 6}
 N_WEIGHTS = 10  # Laplacian weights DUCM .. DMW, kept in shared memory
 
 
-def smem_values(rows: int) -> int:
+def smem_values(rows: int, pbc: bool = False) -> int:
     """Values of shared memory a tile of ``rows`` rows takes: the DYU, DXU
-    frame planes, four staged levels of u, v (frame planes), three of um,
-    vm, the density (frame planes) and uo, vo, the viscosity (tile planes),
-    two buffers each of the published a, b and uuw, vus, and the Laplacian
-    weights (``ClinicTile<T>::kValues`` of csrc/clinic.cu, which
-    chip_smoke.py holds this against)."""
+    frame planes (and KMU, DZBU under partial bottom cells), four staged
+    levels of u, v (frame planes), three of um, vm, the density (frame
+    planes) and uo, vo, the viscosity (tile planes), two buffers each of
+    the published a, b and uuw, vus, and the Laplacian weights
+    (``ClinicTile<T, PBC>::kValues`` of csrc/clinic.cu, which chip_smoke.py
+    holds this against)."""
     plane, tile = (TILE_COLS + 2) * (rows + 2), TILE_COLS * rows
-    return (2 * plane + 4 * 2 * plane + 3 * (3 * plane + 3 * tile)
+    return ((4 if pbc else 2) * plane + 4 * 2 * plane + 3 * (3 * plane + 3 * tile)
             + 2 * 2 * plane + 2 * 2 * plane + N_WEIGHTS * tile)
 
 
-def launch_plan(value_bytes: int):
+def launch_plan(value_bytes: int, pbc: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
-    momentum kernel launch in values of ``value_bytes``. Raises for values
-    other than float32 or float64, or a tile over the card's 227 KB."""
+    momentum kernel launch in values of ``value_bytes``, full or partial
+    bottom cells. Raises for values other than float32 or float64, or a
+    tile over the card's 227 KB."""
     if value_bytes not in TILE_ROWS:
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
     rows = TILE_ROWS[value_bytes]
-    smem = smem_values(rows) * value_bytes
-    cb.check_smem(smem, f"momentum tile ({TILE_COLS} x {rows})")
+    smem = smem_values(rows, pbc) * value_bytes
+    cb.check_smem(smem, f"momentum tile ({TILE_COLS} x {rows}, pbc={pbc})")
     return (TILE_COLS, rows), smem
 
 
@@ -108,8 +117,6 @@ def _check_mode(cfg, grid):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if grid.DZU is not None:
-        todo.append("3-D layer thickness")
     if todo:
         raise NotImplementedError(
             "momentum forcing kernel mode not ported yet (ROADMAP.md Queue 2 "
@@ -185,14 +192,15 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     """(fx, fy, zx, zy) from explicit fields: eight (km, ny, nx) tensors,
     smf (2, ny, nx), dhu (ny, nx) and the Coriolis weights. CUDA tensors go
     through the kernel, CPU tensors through the plain version."""
-    global launches
+    global launches, launches_pbc
     _check_mode(cfg, grid)
     if not ucur.is_cuda:
         return clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix,
                                 vmixm, rhoavg, vvc, smf, dhu, wc, wo)
     km, ny, nx = ucur.shape
     dev, dt = ucur.device, ucur.dtype
-    (_, rows), smem = launch_plan(ucur.element_size())
+    pbc = grid.DZBU is not None
+    (_, rows), smem = launch_plan(ucur.element_size(), pbc)
     vg = grid.vgrid
     dz = vg.dz
     g2d, dzwr2, facs = kernel_statics(cfg, grid)
@@ -206,6 +214,8 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     cb.check_operand("dhu", dhu, f2, dt, dev)
     cb.check_operand("smf", smf, (2, ny, nx), dt, dev)
     cb.check_operand("dz", dz, (km,), dt, dev)
+    if pbc:
+        cb.check_operand("DZBU", grid.DZBU, f2, dt, dev)
     lib = cb.lib()
     if lib.pop2_clinic_g2d_count() != len(G2D):
         raise RuntimeError("G2D layout differs between clinic_cuda.py and "
@@ -225,9 +235,11 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
         facs.data_ptr(),
         float(cfg.auto_am), float(cfg.bottom_drag), float(wc), float(wo),
         fx.data_ptr(), fy.data_ptr(), zx.data_ptr(), zy.data_ptr(),
-        cb.stream_ptr())
+        grid.DZBU.data_ptr() if pbc else 0, cb.stream_ptr())
     cb.check_launch(err, "clinic_rhs")
     launches += 1
+    if pbc:
+        launches_pbc += 1
     return fx, fy, zx, zy
 
 

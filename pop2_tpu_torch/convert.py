@@ -18,8 +18,8 @@ import torch
 from pop2_tpu_torch import eos
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
-from pop2_tpu_torch.grid import (Grid, VGrid, build_aniso, build_topostress,
-                                 resolve_device)
+from pop2_tpu_torch.grid import (Grid, VGrid, bottom_planes, build_aniso,
+                                 build_topostress, resolve_device)
 from pop2_tpu_torch.state import State
 
 
@@ -66,7 +66,9 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
     fields (``hmix_aniso.build_statics``), not taken from the dict; the
     topographic-stress velocities TSU/TSV are taken from it where it holds
     them, and under ``ltopostress`` built from the grid's fields where it
-    does not; partial bottom cells are not carried."""
+    does not; the partial-bottom-cell thicknesses DZT/DZU are taken from it
+    where it holds them, with the bottom planes DZBT/DZBU formed from
+    them."""
     device = resolve_device(device)
     dt = cfg.torch_dtype
 
@@ -87,10 +89,17 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
             raise KeyError(f"{cls.__name__} fields missing: {missing}")
         return {n: tensor(leaves[prefix + n]) for n in names}
 
-    kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "aniso", "TSU",
-                                "TSV"))
+    kw = fields(Grid, "", skip=("vgrid", "DZT", "DZU", "DZBT", "DZBU",
+                                "aniso", "TSU", "TSV"))
     vg = fields(VGrid, "vgrid.", skip=("poly",))
     kw["vgrid"] = VGrid(**vg, poly=eos.polynomial_fit(cfg, vg["pressz"]))
+    if leaves.get("DZT") is not None and leaves.get("DZU") is not None:
+        thick = [np.asarray(leaves[n], np.float64) for n in ("DZT", "DZU")]
+        planes = bottom_planes(
+            np.asarray(leaves["vgrid.dz"], np.float64), *thick,
+            *(np.asarray(leaves[n]) for n in ("KMT", "KMU")))
+        kw.update(zip(("DZT", "DZU", "DZBT", "DZBU"),
+                      (tensor(a) for a in (*thick, *planes))))
     if "TSU" in leaves and "TSV" in leaves:
         kw["TSU"], kw["TSV"] = tensor(leaves["TSU"]), tensor(leaves["TSV"])
     elif cfg.ltopostress:

@@ -61,6 +61,17 @@
 // v and DXU read at that column (advect.advu's `bc.n(vus, "eface",
 // "vector")`). The block shape and the dynamic shared memory come from the
 // wrapper's planner (`clinic_cuda.launch_plan`).
+//
+// Partial bottom cells (the PBC instances): a U column's thickness is dz but
+// at its bottom level k = KMU - 1, where it is the plane DZBU. The fluxes
+// a = u DYU dzu, b = v DXU dzu take each frame point's own thickness, so
+// KMU and DZBU are staged on the frame once a tile beside DYU and DXU
+// (where the fold's ghost row reads its folded points, so do they). At the
+// column's bottom level the quotients by the thickness (advu's, vdiffu's)
+// take 1/DZBU and 1/(2 DZBU) in place of the level table's dzr and dz2r,
+// the spacing above it is 1/((dz + DZBU)/2), all formed once a column, and
+// ZX/ZY weight the level by DZBU. The full-cell instances' arithmetic is
+// untouched by the mode, bitwise.
 #include "common.cuh"
 
 namespace pop2 {
@@ -82,21 +93,23 @@ using ClinicFrame = Frame<1>;
 // a, b and two of uuw, vus (frame planes); the Laplacian weights. The
 // register budget is set for 3 blocks an SM in float32 (4 blocks, at 64
 // registers, were measured slower) and 2 in float64.
-template <typename T>
+// PBC: two more metric planes, KMU (as values) and DZBU.
+template <typename T, bool PBC = false>
 struct ClinicTile {
   static constexpr int kRows = sizeof(T) == 4 ? 8 : 6;
   static constexpr int kThreads = kFrameCols * kRows;
   static constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
   static constexpr int kP = ClinicFrame::plane(kRows);  // a frame plane
   static constexpr int kC = kThreads;                   // a tile plane
+  static constexpr int kMet = PBC ? 4 : 2;              // metric planes
   static constexpr int kRest = 3 * kP + 3 * kC;         // a level of the rest
   static constexpr int kValues =
-      2 * kP + 4 * 2 * kP + 3 * kRest + 2 * 2 * kP + 2 * 2 * kP +
+      kMet * kP + 4 * 2 * kP + 3 * kRest + 2 * 2 * kP + 2 * 2 * kP +
       kWeights * kC;
   static_assert(ClinicFrame::covered(kRows), "a frame slot without a copier");
 };
 
-template <typename T, bool HDIFFU>
+template <typename T, bool HDIFFU, bool PBC>
 __global__ void __launch_bounds__(ClinicTile<T>::kThreads,
                                   ClinicTile<T>::kMinBlocks)
 clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
@@ -110,15 +123,16 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
               const T* __restrict__ dz2r, const T* __restrict__ dzwr2,
               const T* __restrict__ facs, T am, T bdrag, T wcor_c, T wcor_o,
               T* __restrict__ fx, T* __restrict__ fy, T* __restrict__ zx,
-              T* __restrict__ zy) {
-  using Tile = ClinicTile<T>;
+              T* __restrict__ zy, const T* __restrict__ dzbu) {
+  using Tile = ClinicTile<T, PBC>;
   constexpr int W = ClinicFrame::kPitch, P = Tile::kP, C = Tile::kC;
   constexpr int kRows = Tile::kRows;
   extern __shared__ __align__(16) unsigned char pop2_smem[];
   const int tid = threadIdx.y * kFrameCols + threadIdx.x;
   const int ls = ny * nx;  // level stride (km * ny * nx < 2^31: C entry)
-  T* met = reinterpret_cast<T*>(pop2_smem);  // DYU, DXU: (2, P)
-  T* uvb = met + 2 * P;                      // (4 buffers, u / v, P)
+  // DYU, DXU and with PBC KMU and DZBU: (Tile::kMet, P)
+  T* met = reinterpret_cast<T*>(pop2_smem);
+  T* uvb = met + Tile::kMet * P;             // (4 buffers, u / v, P)
   T* rst = uvb + 4 * 2 * P;                  // (3 buffers, Tile::kRest)
   T* pab = rst + 3 * Tile::kRest;            // (2 buffers, a / b, P)
   T* pfc = pab + 2 * 2 * P;                  // (2 buffers, uuw / vus, P)
@@ -167,6 +181,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
     if (q < P) {  // the face metrics, zero outside the domain
       met[q] = in ? g2d[G_DYU * ls + off] : T(0);
       met[P + q] = in ? g2d[G_DXU * ls + off] : T(0);
+      if (PBC) {
+        met[2 * P + q] = in ? T(kmu[off]) : T(0);
+        met[3 * P + q] = in ? dzbu[off] : T(0);
+      }
     }
   }
   // the frame's N row (vus) and E column (uuw): one extra slot each for the
@@ -231,7 +249,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
     for (int j = 0; j < kFrameSlots; ++j) {
       const int q = tid + j * Tile::kThreads;
       if (q >= P) continue;
-      const T fa = su[q] * met[q] * dzl, fb = sv[q] * met[P + q] * dzl;
+      // the thickness of the frame point at level L
+      const T dzq =
+          (PBC && met[2 * P + q] == T(L + 1)) ? met[3 * P + q] : dzl;
+      const T fa = su[q] * met[q] * dzq, fb = sv[q] * met[P + q] * dzq;
       const bool neg = sflag[j] & 8u;  // the fold of a vector
       pa[q] = neg ? -fa : fa;
       pb[q] = neg ? -fb : fb;
@@ -250,7 +271,8 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
       }
       if (jj < 0) return T(0);
       const int o = jj * nx + ii;
-      return vc[L * ls + o] * g2d[G_DXU * ls + o] * dzl;
+      const T dzo = (PBC && kmu[o] == L + 1) ? dzbu[o] : dzl;
+      return vc[L * ls + o] * g2d[G_DXU * ls + o] * dzo;
     };
     return -(quarter * (bat(j, fi) + bat(j - 1, fi))
              + eighth * (bat(j, fi - 1) + bat(j - 1, fi - 1)
@@ -288,7 +310,18 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
   int kmu_c = 0;
   T uarear = T(0), fcor = T(0), kxu = T(0), kyu = T(0), dxur = T(0),
     dyur = T(0), dhu_c = T(0), vuf = T(0), vvf = T(0);
+  // PBC: the bottom level's thickness, its quotients (1/dzb and 1/(2 dzb),
+  // the level table's dzr and dz2r of the bottom level) and the spacing
+  // 1/((dz + dzb)/2) above it, formed once a column
+  T dzb = T(1), dzbr = T(1), dzb2r = T(1), dzwr_b = T(1);
   if (live) {
+    if (PBC) {
+      dzb = dzbu[oc];
+      dzbr = T(1) / dzb;
+      dzb2r = T(0.5) / dzb;
+      const int kmu_o = kmu[oc];
+      if (kmu_o >= 2) dzwr_b = T(1) / (T(0.5) * (dz[kmu_o - 2] + dzb));
+    }
     Column c;
     locate_at(ny, nx, cyclic, gj, gi, &c, fold);
     ve = c.ve;
@@ -375,7 +408,9 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
       continue;
     }
     const bool last = k == km - 1;
-    const T dzk = dz[k], dzrk = dzr[k], dz2rk = dz2r[k];
+    const bool bot_k = PBC && k + 1 == kmu_c;  // the partial bottom level
+    const T dzk = bot_k ? dzb : dz[k], dzrk = bot_k ? dzbr : dzr[k];
+    const T dz2rk = bot_k ? dzb2r : dz2r[k];
     const T* uk = uv(ub, 0);
     const T* vk = uv(ub, 1);
     const T u_b = last ? T(0) : uv(u0, 0)[s];
@@ -473,7 +508,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
       vufb = vmag * uo_c;
       vvfb = vmag * vo_c;
     } else {
-      const T w = rc(rb, 2)[tid] * dzwr2[k];
+      // the spacing below the level: the bottom level's thickness enters
+      // the one above it
+      const T w = rc(rb, 2)[tid] * ((PBC && k + 2 == kmu_c) ? dzwr_b
+                                                             : dzwr2[k]);
       vufb = w * (uo_c - uo_b);
       vvfb = w * (vo_c - vo_b);
     }
@@ -506,10 +544,11 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
 }
 
 template <typename T>
-bool clinic_config_ok(int km, int ny, int nx, int rows, long smem) {
+bool clinic_config_ok(int km, int ny, int nx, int rows, long smem, bool pbc) {
+  const long values = pbc ? ClinicTile<T, true>::kValues
+                          : ClinicTile<T, false>::kValues;
   return km >= 1 && (long)km * ny * nx < (1L << 31) &&
-         rows == ClinicTile<T>::kRows &&
-         smem >= (long)ClinicTile<T>::kValues * (long)sizeof(T);
+         rows == ClinicTile<T>::kRows && smem >= values * (long)sizeof(T);
 }
 
 }  // namespace pop2
@@ -517,30 +556,40 @@ bool clinic_config_ok(int km, int ny, int nx, int rows, long smem) {
 extern "C" int pop2_clinic_g2d_count() { return pop2::G_COUNT; }
 
 // The tile's rows and the values of dynamic shared memory it takes, by
-// dtype (the planner's, clinic_cuda.TILE_ROWS and smem_values).
+// dtype and bottom cells (the planner's, clinic_cuda.TILE_ROWS and
+// smem_values).
 extern "C" int pop2_clinic_tile_rows(int dtype) {
   return dtype == 0 ? pop2::ClinicTile<float>::kRows
                     : pop2::ClinicTile<double>::kRows;
 }
-extern "C" int pop2_clinic_smem_values(int dtype) {
-  return dtype == 0 ? pop2::ClinicTile<float>::kValues
-                    : pop2::ClinicTile<double>::kValues;
+extern "C" int pop2_clinic_smem_values(int dtype, int pbc) {
+  using namespace pop2;
+  if (pbc)
+    return dtype == 0 ? ClinicTile<float, true>::kValues
+                      : ClinicTile<double, true>::kValues;
+  return dtype == 0 ? ClinicTile<float, false>::kValues
+                    : ClinicTile<double, false>::kValues;
 }
 
 // dtype: 0 = float32, 1 = float64; rows: rows of the tile; smem: dynamic
 // shared memory a block, bytes. Returns cudaGetLastError() of the launch,
 // or cudaErrorInvalidValue for a configuration the kernel does not take.
 #define POP2_CLINIC_INSTANCES(T, ACTION) \
-  if (hdiffu)                             \
-    ACTION(T, true)                       \
+  if (hdiffu && pbc)                      \
+    ACTION(T, true, true)                 \
+  else if (hdiffu)                        \
+    ACTION(T, true, false)                \
+  else if (pbc)                           \
+    ACTION(T, false, true)                \
   else                                    \
-    ACTION(T, false)
+    ACTION(T, false, false)
 
 // dtype: 0 = float32, 1 = float64; hdiffu: fuse the Laplacian friction;
 // cyclic: the east-west edge wraps; fold: the north edge is a tripole fold;
-// rows: rows of the tile; smem: dynamic shared memory a block, bytes.
-// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
-// configuration the kernel does not take.
+// rows: rows of the tile; smem: dynamic shared memory a block, bytes; dzbu:
+// the bottom level's thickness at U points under partial bottom cells (the
+// PBC instances), or null. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a configuration the kernel does not take.
 extern "C" int pop2_clinic(int dtype, int hdiffu, int km, int ny, int nx,
                            int cyclic, int fold, int rows, long smem,
                            const void* uc, const void* vc, const void* uo,
@@ -551,26 +600,27 @@ extern "C" int pop2_clinic(int dtype, int hdiffu, int km, int ny, int nx,
                            const void* dzwr2, const void* facs, double am,
                            double bdrag, double wcor_c, double wcor_o,
                            void* fx, void* fy, void* zx, void* zy,
-                           void* stream) {
+                           const void* dzbu, void* stream) {
   using namespace pop2;
-  if (!(dtype == 0 ? clinic_config_ok<float>(km, ny, nx, rows, smem)
-                   : clinic_config_ok<double>(km, ny, nx, rows, smem)))
+  const bool pbc = dzbu != nullptr;
+  if (!(dtype == 0 ? clinic_config_ok<float>(km, ny, nx, rows, smem, pbc)
+                   : clinic_config_ok<double>(km, ny, nx, rows, smem, pbc)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((nx + kFrameCols - 1) / kFrameCols),
                   (unsigned)((ny + rows - 1) / rows));
   const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_CLINIC(T, HD)                                                   \
+#define POP2_CLINIC(T, HD, PBC)                                              \
   {                                                                          \
-    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD>, smem);      \
+    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD, PBC>, smem); \
     if (e != cudaSuccess) return (int)e;                                     \
-    clinic_kernel<T, HD><<<grid, block, smem, s>>>(                          \
+    clinic_kernel<T, HD, PBC><<<grid, block, smem, s>>>(                     \
         km, ny, nx, cyclic, fold, (const T*)uc, (const T*)vc, (const T*)uo,  \
         (const T*)vo, (const T*)um, (const T*)vm, (const T*)ra,              \
         (const T*)vvc, (const T*)g2d, kmu, (const T*)dhu, (const T*)smf,     \
         (const T*)dz, (const T*)dzr, (const T*)dz2r, (const T*)dzwr2,        \
         (const T*)facs, (T)am, (T)bdrag, (T)wcor_c, (T)wcor_o, (T*)fx,       \
-        (T*)fy, (T*)zx, (T*)zy);                                             \
+        (T*)fy, (T*)zx, (T*)zy, (const T*)dzbu);                             \
   }
   if (dtype == 0) {
     POP2_CLINIC_INSTANCES(float, POP2_CLINIC)
@@ -582,14 +632,16 @@ extern "C" int pop2_clinic(int dtype, int hdiffu, int km, int ny, int nx,
 }
 
 // Blocks of a launch with `smem` bytes a block that one SM holds at once,
-// with the Laplacian fused (hdiffu) or without.
-extern "C" int pop2_clinic_blocks_per_sm(int dtype, int hdiffu, long smem) {
+// with the Laplacian fused (hdiffu) or without, full or partial bottom
+// cells (pbc).
+extern "C" int pop2_clinic_blocks_per_sm(int dtype, int hdiffu, long smem,
+                                         int pbc) {
   using namespace pop2;
-#define POP2_CLINIC_OCC(T, HD)                                               \
+#define POP2_CLINIC_OCC(T, HD, PBC)                                          \
   {                                                                          \
-    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD>, smem);      \
+    const cudaError_t e = allow_large_smem(clinic_kernel<T, HD, PBC>, smem); \
     if (e != cudaSuccess) return -(int)e;                                    \
-    return blocks_per_sm(clinic_kernel<T, HD>, ClinicTile<T>::kThreads,      \
+    return blocks_per_sm(clinic_kernel<T, HD, PBC>, ClinicTile<T>::kThreads, \
                          smem);                                              \
   }
   if (dtype == 0) {

@@ -37,6 +37,13 @@
 // so an SM holds three blocks (four at 2 right-hand sides, five at 4 in
 // float32); each block keeps (1 + nr) values a level in flight, so the
 // bytes in flight an SM stay near those of the 2-right-hand-side instance.
+//
+// Partial bottom cells (PBC instances): the bottom level's thickness differs
+// from the level table's, so its diagonal term hfac_kmax is read from one
+// more (ny, nx) plane, hbot, once a column, and used at k = kmax (and in the
+// level-1 set-up of a one-level column); every other level reads the table.
+// The coupling A, already 3-D, is formed by the wrapper from the column's
+// thicknesses. One plane more than the full-cell instance's traffic.
 #include "common.cuh"
 
 namespace pop2 {
@@ -47,12 +54,12 @@ constexpr int kChunk = 8;              // levels a group of copies
 constexpr int kAhead = 2;              // groups of copies in flight
 constexpr int kMaxColsPerBlock = 256;  // threads a block at most
 
-template <typename T, int NR>
+template <typename T, int NR, bool PBC>
 __global__ void __launch_bounds__(kMaxColsPerBlock)
 thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
               const T* __restrict__ h1, const int* __restrict__ kmax,
               const T* __restrict__ a, const T* __restrict__ rhs,
-              T* __restrict__ out) {
+              T* __restrict__ out, const T* __restrict__ hbot) {
   extern __shared__ __align__(16) unsigned char pop2_smem[];
   const int C = blockDim.x, t = threadIdx.x;
   const long p = (long)blockIdx.x * C + t;
@@ -80,6 +87,8 @@ thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
   while (started < min(kAhead, nchunk)) start_chunk(started++);
 
   const int kmx = kmax[p];
+  // the bottom level's diagonal term (PBC), 0-based level kmx - 1
+  const T hb = PBC ? hbot[p] : T(0);
   T f[NR], c, b;
   for (int g = 0; g < nchunk; ++g) {
     // chunk g has landed once at most the chunks started after it are
@@ -100,7 +109,7 @@ thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
         const T ek = ak * dinv;
         b = h1p * ek;
         *ak_p = ek;
-        const T hf = hfac[0];
+        const T hf = (PBC && kmx == 1) ? hb : hfac[0];
 #pragma unroll
         for (int n = 0; n < NR; ++n) {
           T* fp = sf + n * km * C + t;
@@ -112,7 +121,7 @@ thomas_kernel(int km, long ncol, const T* __restrict__ hfac,
         const int kk = k + 1;  // 1-based level
         const bool at_bot = kmx == kk;
         const bool below = kmx < kk;
-        const T hf = hfac[k];
+        const T hf = (PBC && at_bot) ? hb : hfac[k];
         const T d = below ? T(1) : hf + b + (at_bot ? T(0) : ak);
         const T dinv = T(1) / d;
         const T ek = below ? T(0) : ak * dinv;
@@ -160,80 +169,99 @@ inline bool thomas_config_ok(int nr, int km, int cols, long smem,
          smem >= (long)(1 + nr) * km * cols * value_bytes;
 }
 
-template <typename T, int NR>
+template <typename T, int NR, bool PBC>
 int thomas_run(int km, long ncol, int cols, long smem, const void* hfac,
                const void* h1, const int* kmax, const void* a,
-               const void* rhs, void* out, cudaStream_t stream) {
-  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR>, smem);
+               const void* rhs, void* out, const void* hbot,
+               cudaStream_t stream) {
+  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR, PBC>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((ncol + cols - 1) / cols)), block(cols);
-  thomas_kernel<T, NR><<<grid, block, smem, stream>>>(
+  thomas_kernel<T, NR, PBC><<<grid, block, smem, stream>>>(
       km, ncol, (const T*)hfac, (const T*)h1, kmax, (const T*)a,
-      (const T*)rhs, (T*)out);
+      (const T*)rhs, (T*)out, (const T*)hbot);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NR>
+int thomas_run_pbc(int km, long ncol, int cols, long smem, const void* hfac,
+                   const void* h1, const int* kmax, const void* a,
+                   const void* rhs, void* out, const void* hbot,
+                   cudaStream_t stream) {
+  if (hbot != nullptr)
+    return thomas_run<T, NR, true>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                   rhs, out, hbot, stream);
+  return thomas_run<T, NR, false>(km, ncol, cols, smem, hfac, h1, kmax, a,
+                                  rhs, out, hbot, stream);
 }
 
 template <typename T>
 int thomas_launch(int nr, int km, long ncol, int cols, long smem,
                   const void* hfac, const void* h1, const int* kmax,
                   const void* a, const void* rhs, void* out,
-                  cudaStream_t stream) {
+                  const void* hbot, cudaStream_t stream) {
   if (!thomas_config_ok(nr, km, cols, smem, sizeof(T)))
     return (int)cudaErrorInvalidValue;
   switch (nr) {
-    case 1: return thomas_run<T, 1>(km, ncol, cols, smem, hfac, h1, kmax, a,
-                                    rhs, out, stream);
-    case 2: return thomas_run<T, 2>(km, ncol, cols, smem, hfac, h1, kmax, a,
-                                    rhs, out, stream);
-    case 3: return thomas_run<T, 3>(km, ncol, cols, smem, hfac, h1, kmax, a,
-                                    rhs, out, stream);
-    default: return thomas_run<T, 4>(km, ncol, cols, smem, hfac, h1, kmax, a,
-                                     rhs, out, stream);
+    case 1: return thomas_run_pbc<T, 1>(km, ncol, cols, smem, hfac, h1, kmax,
+                                        a, rhs, out, hbot, stream);
+    case 2: return thomas_run_pbc<T, 2>(km, ncol, cols, smem, hfac, h1, kmax,
+                                        a, rhs, out, hbot, stream);
+    case 3: return thomas_run_pbc<T, 3>(km, ncol, cols, smem, hfac, h1, kmax,
+                                        a, rhs, out, hbot, stream);
+    default: return thomas_run_pbc<T, 4>(km, ncol, cols, smem, hfac, h1,
+                                         kmax, a, rhs, out, hbot, stream);
   }
 }
 
-template <typename T, int NR>
+template <typename T, int NR, bool PBC>
 int thomas_occupancy(int cols, long smem) {
-  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR>, smem);
+  const cudaError_t e = allow_large_smem(thomas_kernel<T, NR, PBC>, smem);
   if (e != cudaSuccess) return -(int)e;
-  return blocks_per_sm(thomas_kernel<T, NR>, cols, smem);
+  return blocks_per_sm(thomas_kernel<T, NR, PBC>, cols, smem);
 }
 
-template <typename T>
+template <typename T, bool PBC>
 int thomas_occupancy_nr(int nr, int cols, long smem) {
   switch (nr) {
-    case 1: return thomas_occupancy<T, 1>(cols, smem);
-    case 2: return thomas_occupancy<T, 2>(cols, smem);
-    case 3: return thomas_occupancy<T, 3>(cols, smem);
-    default: return thomas_occupancy<T, 4>(cols, smem);
+    case 1: return thomas_occupancy<T, 1, PBC>(cols, smem);
+    case 2: return thomas_occupancy<T, 2, PBC>(cols, smem);
+    case 3: return thomas_occupancy<T, 3, PBC>(cols, smem);
+    default: return thomas_occupancy<T, 4, PBC>(cols, smem);
   }
 }
 
 }  // namespace pop2
 
 // dtype: 0 = float32, 1 = float64; nr: right-hand sides, 1 to 4; cols:
-// columns (threads) a block; smem: dynamic shared memory a block, bytes. Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a configuration the kernel does not
-// take or the card cannot hold.
+// columns (threads) a block; smem: dynamic shared memory a block, bytes;
+// hbot: the bottom level's diagonal term, (ncol), under partial bottom cells
+// (the PBC instance), or null. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a configuration the kernel does not take or the
+// card cannot hold.
 extern "C" int pop2_thomas(int dtype, int nr, int km, long ncol, int cols,
                            long smem, const void* hfac, const void* h1,
                            const int* kmax, const void* a, const void* rhs,
-                           void* out, void* stream) {
+                           void* out, const void* hbot, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return pop2::thomas_launch<float>(nr, km, ncol, cols, smem, hfac, h1,
-                                      kmax, a, rhs, out, s);
+                                      kmax, a, rhs, out, hbot, s);
   return pop2::thomas_launch<double>(nr, km, ncol, cols, smem, hfac, h1,
-                                     kmax, a, rhs, out, s);
+                                     kmax, a, rhs, out, hbot, s);
 }
 
-// Blocks a launch of this configuration keeps on one SM at once.
+// Blocks a launch of this configuration (pbc: the PBC instance) keeps on
+// one SM at once.
 extern "C" int pop2_thomas_blocks_per_sm(int dtype, int nr, int cols,
-                                         long smem) {
+                                         long smem, int pbc) {
   using namespace pop2;
   if (nr < 1 || nr > kMaxRhs) return -(int)cudaErrorInvalidValue;
-  return dtype == 0 ? thomas_occupancy_nr<float>(nr, cols, smem)
-                    : thomas_occupancy_nr<double>(nr, cols, smem);
+  if (pbc)
+    return dtype == 0 ? thomas_occupancy_nr<float, true>(nr, cols, smem)
+                      : thomas_occupancy_nr<double, true>(nr, cols, smem);
+  return dtype == 0 ? thomas_occupancy_nr<float, false>(nr, cols, smem)
+                    : thomas_occupancy_nr<double, false>(nr, cols, smem);
 }
 
 // Right-hand sides a launch takes at most (the planner's tridiag_cuda

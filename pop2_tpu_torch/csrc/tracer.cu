@@ -59,6 +59,20 @@
 // register and an immediate. On this card the upwind3 tile is bound by the
 // instructions it issues a level (`kernel_sass.py`; a third of them loads
 // from shared memory), not by its bytes (PERF.md).
+//
+// Partial bottom cells (the PBC instances of both kernels): a column's
+// thickness is dz but at its bottom level, where it is the plane DZBT at T
+// points (k = KMT - 1) and DZBU at U points (k = KMU - 1). The flux
+// velocities u DYU dzu, v DXU dzu take each U point's own thickness, so the
+// U points' KMU and DZBU are staged once a tile beside DYU and DXU; a
+// column reads its DZBT once and forms, once, what its bottom level takes
+// in place of the level table's row: 1/DZBT and 1/(2 DZBT) (dzr, dz2r) and
+// the spacing 1/((dz + DZBT)/2) of the level above it (the interface
+// spacing 1/((dzt_k + dzt_k+1)/2) that the JAX package's jnp chain forms at
+// every level is the table's dzwr2, the same expression of dz, at every
+// other level). The Laplacian and upwind3's vertical coefficients stay on
+// dz, as in the JAX package. The full-cell instances' arithmetic is
+// untouched by the mode, bitwise.
 #include <type_traits>
 
 #include "common.cuh"
@@ -86,25 +100,29 @@ struct TracerOcc {
 // staged levels, each of u, v, NT trcr (and NT tmix) frame planes and NT
 // told and NT diffusivity tile planes; two buffers of the published ute
 // and vtn.
-template <int NT, bool DEL2>
+// PBC: two more metric planes, the U points' KMU (as values) and DZBU.
+template <int NT, bool DEL2, bool PBC = false>
 struct TracerLayout {
   static constexpr int kP = TracerFrame::plane(kRows);  // a frame plane
   static constexpr int kC = kThreadsTile;               // a tile plane
+  static constexpr int kMet = PBC ? 4 : 2;              // metric planes
   static constexpr int kRing = 2 + NT * (DEL2 ? 2 : 1);  // frame planes
   static constexpr int kStage = kRing * kP + 2 * NT * kC;
-  static constexpr int kValues = 2 * kP + 3 * kStage + 2 * 2 * kP;
+  static constexpr int kValues = kMet * kP + 3 * kStage + 2 * 2 * kP;
 };
 
-inline int tracer_smem_values(int ng, bool del2) {
+template <bool PBC>
+inline int tracer_smem_values_of(int ng, bool del2) {
   if (ng == 1)
-    return del2 ? TracerLayout<1, true>::kValues
-                : TracerLayout<1, false>::kValues;
-  return del2 ? TracerLayout<2, true>::kValues
-              : TracerLayout<2, false>::kValues;
+    return del2 ? TracerLayout<1, true, PBC>::kValues
+                : TracerLayout<1, false, PBC>::kValues;
+  return del2 ? TracerLayout<2, true, PBC>::kValues
+              : TracerLayout<2, false, PBC>::kValues;
 }
 
-// Centered advection; FOLD: the north edge is a tripole fold.
-template <typename T, int NT, bool DEL2, bool FOLD>
+// Centered advection; FOLD: the north edge is a tripole fold; PBC: partial
+// bottom cells (kmu, dzbt, dzbu read, else not).
+template <typename T, int NT, bool DEL2, bool FOLD, bool PBC>
 __global__ void __launch_bounds__(kThreadsTile, TracerOcc<T>::kMinBlocks)
 tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
               const T* __restrict__ u, const T* __restrict__ v,
@@ -117,15 +135,17 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
               const T* __restrict__ dte, const T* __restrict__ dtw,
               const T* __restrict__ dz, const T* __restrict__ dzr,
               const T* __restrict__ dz2r, const T* __restrict__ dzwr2, T ah,
-              T* __restrict__ out) {
-  using Lay = TracerLayout<NT, DEL2>;
+              T* __restrict__ out, const int* __restrict__ kmu,
+              const T* __restrict__ dzbt, const T* __restrict__ dzbu) {
+  using Lay = TracerLayout<NT, DEL2, PBC>;
   constexpr int W = TracerFrame::kPitch, P = Lay::kP, C = Lay::kC;
   extern __shared__ __align__(16) unsigned char pop2_smem[];
   const int tid = threadIdx.y * kFrameCols + threadIdx.x;
   const int ls = ny * nx;       // level stride (the C entry keeps
   const long ts = (long)km * ls;  // km * ny * nx below 2^31)
-  T* met = reinterpret_cast<T*>(pop2_smem);  // DYU, DXU: (2, P)
-  T* stg = met + 2 * P;                      // (3 buffers, Lay::kStage)
+  // DYU, DXU and with PBC the U points' KMU and DZBU: (Lay::kMet, P)
+  T* met = reinterpret_cast<T*>(pop2_smem);
+  T* stg = met + Lay::kMet * P;              // (3 buffers, Lay::kStage)
   T* pub = stg + 3 * Lay::kStage;            // (2 buffers, ute / vtn, P)
   // plane p of the staged level in buffer b: u, v, trcr[NT], tmix[NT]
   // (frame planes, slot index), then told[NT], vdc[NT] (tile planes, tid)
@@ -163,6 +183,10 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
     if (q < P && uv) {  // the face metrics, zero outside the domain
       met[q] = in ? dyu[off] : T(0);
       met[P + q] = in ? dxu[off] : T(0);
+      if (PBC) {
+        met[2 * P + q] = in ? T(kmu[off]) : T(0);
+        met[3 * P + q] = in ? dzbu[off] : T(0);
+      }
     }
   }
   // the frame's S row (vtn) and W column (ute): one extra slot each for the
@@ -230,25 +254,38 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
     T* pu = pub + (L & 1) * 2 * P;
     T* pv = pu + P;
     const T dzl = dz[L];
-    pu[s] = half * (su[s] * met[s] * dzl + su[s - W] * met[s - W] * dzl);
-    pv[s] = half * (sv[s] * met[P + s] * dzl +
-                    sv[s - 1] * met[P + s - 1] * dzl);
+    // the thickness of U point q at level L
+    auto dzu = [&](int q) {
+      return (PBC && met[2 * P + q] == T(L + 1)) ? met[3 * P + q] : dzl;
+    };
+    pu[s] = half * (su[s] * met[s] * dzu(s) +
+                    su[s - W] * met[s - W] * dzu(s - W));
+    pv[s] = half * (sv[s] * met[P + s] * dzu(s) +
+                    sv[s - 1] * met[P + s - 1] * dzu(s - 1));
     if (h_south)
-      pv[hq] = half * (sv[hq] * met[P + hq] * dzl +
-                       sv[hq - 1] * met[P + hq - 1] * dzl);
+      pv[hq] = half * (sv[hq] * met[P + hq] * dzu(hq) +
+                       sv[hq - 1] * met[P + hq - 1] * dzu(hq - 1));
     else if (hq >= 0)
-      pu[hq] = half * (su[hq] * met[hq] * dzl +
-                       su[hq - W] * met[hq - W] * dzl);
+      pu[hq] = half * (su[hq] * met[hq] * dzu(hq) +
+                       su[hq - W] * met[hq - W] * dzu(hq - W));
   };
 
   // 2-D operands of the column
   int kmt_c = 0, kmt_n = 0, kmt_s = 0, kmt_e = 0, kmt_w = 0;
   T tarea = T(0), dtn_c = T(0), dts_c = T(0), dte_c = T(0), dtw_c = T(0);
   T wtk = T(0);  // w at the top of the level
+  // PBC: the bottom level's 1/dz, 1/(2 dz) and the spacing above it
+  T dzbr = T(1), dzb2r = T(1), dzwr_b = T(1);
   if (live) {
     Column c;
     locate_at(ny, nx, cyclic, gj, gi, &c, FOLD);
     kmt_c = kmt[oc];
+    if (PBC) {
+      const T dzb = dzbt[oc];
+      dzbr = T(1) / dzb;
+      dzb2r = T(0.5) / dzb;
+      if (kmt_c >= 2) dzwr_b = T(1) / (T(0.5) * (dz[kmt_c - 2] + dzb));
+    }
     kmt_n = c.vn ? kmt[c.jn * nx + c.in] : 0;
     kmt_s = c.vs ? kmt[c.js * nx + c.i] : 0;
     kmt_e = c.ve ? kmt[c.j * nx + c.ie] : 0;
@@ -290,7 +327,9 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
     if (live) {
       const int kk = k + 1;  // 1-based level
       const bool last = k == km - 1;
-      const T dzrk = dzr[k], dz2rk = dz2r[k];
+      const bool bot_k = PBC && kk == kmt_c;  // the partial bottom level
+      const T dzrk = bot_k ? dzbr : dzr[k];
+      const T dz2rk = bot_k ? dzb2r : dz2r[k];
       const T* pu = pub + (k & 1) * 2 * P;
       const T* pv = pu + P;
       const T ute = pu[s], utw = pu[s - 1];
@@ -309,7 +348,9 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
       const T ce = (mask && kmt_e >= kk) ? dte_c : T(0);
       const T cw = (mask && kmt_w >= kk) ? dtw_c : T(0);
       const T ccd = -(cn + cs + ce + cw);
-      const T dzwr_k = dzwr2[k];
+      // the spacing below the level: the bottom level's thickness enters
+      // the one above it
+      const T dzwr_k = (PBC && kk + 1 == kmt_c) ? dzwr_b : dzwr2[k];
 
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -398,10 +439,13 @@ struct TracerUpwOcc {
 //     diffusivities of level L, NT trcr of level L + 2 (tile planes) and
 //     with DEL2 NT tmix of level L (frame);
 //   two buffers of what a column publishes: ute, vtn, NT east-face and NT
-//     north-face values (face region).
+//     north-face values (face region);
+//   with PBC, once a tile: DZBU on the face region and KMU there as bytes
+//     (a plane of values more would drop the float32 tile of two tracers
+//     from four blocks an SM to three).
 // Every ring has two buffers, so the k loop runs two levels a turn and
 // every shared-memory address is a thread's register and an immediate.
-template <int NT, bool DEL2>
+template <int NT, bool DEL2, bool PBC = false>
 struct TracerUpwLayout {
   static constexpr int kP = UpwFrame::plane(kRows);  // a frame plane
   static constexpr int kF = kFaceSlots;              // a face-region plane
@@ -412,19 +456,27 @@ struct TracerUpwLayout {
   static constexpr int kFrameLevel = 2 * kF + NT * kP;
   static constexpr int kCentreLevel = 3 * NT * kC + (DEL2 ? NT * kP : 0);
   static constexpr int kPub = (2 + 2 * NT) * kF;
+  // DZBU, then KMU as bytes, counted in 4-byte values
+  static constexpr int kPbc = PBC ? kF + (kF + 3) / 4 : 0;
   static constexpr int kValues =
-      kStatic + 2 * (kFrameLevel + kCentreLevel + kPub);
+      kStatic + 2 * (kFrameLevel + kCentreLevel + kPub) + kPbc;
 };
 
-inline int tracer_smem_values(int ng, bool del2, bool upwind3) {
+template <bool PBC>
+inline int tracer_smem_values_of(int ng, bool del2, bool upwind3) {
   if (upwind3) {
     if (ng == 1)
-      return del2 ? TracerUpwLayout<1, true>::kValues
-                  : TracerUpwLayout<1, false>::kValues;
-    return del2 ? TracerUpwLayout<2, true>::kValues
-                : TracerUpwLayout<2, false>::kValues;
+      return del2 ? TracerUpwLayout<1, true, PBC>::kValues
+                  : TracerUpwLayout<1, false, PBC>::kValues;
+    return del2 ? TracerUpwLayout<2, true, PBC>::kValues
+                : TracerUpwLayout<2, false, PBC>::kValues;
   }
-  return tracer_smem_values(ng, del2);
+  return tracer_smem_values_of<PBC>(ng, del2);
+}
+
+inline int tracer_smem_values(int ng, bool del2, bool upwind3, bool pbc) {
+  return pbc ? tracer_smem_values_of<true>(ng, del2, upwind3)
+             : tracer_smem_values_of<false>(ng, del2, upwind3);
 }
 
 // QUICKEST face value (advect.advt_upwind3 `faceval`): x1 = X one step
@@ -475,7 +527,8 @@ struct TracerGroup {
 // (east-face alfxp .. delxm, north-face alfyp .. delym; (12, ny, nx)); lev:
 // the level table, (km, kLev): dz, dzr, dz2r, dzwr2, the 6 vertical
 // coefficients talfzp .. tdelzm and 1/dz rounded once in T, a row a level.
-template <typename T, int NT, bool DEL2>
+// PBC: partial bottom cells (kmu, dzbt, dzbu read, else not).
+template <typename T, int NT, bool DEL2, bool PBC>
 __global__ void __launch_bounds__(kThreadsTile, TracerUpwOcc<T>::kMinBlocks)
 tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
                   const TracerGroup<T, NT> g, const T* __restrict__ u,
@@ -485,8 +538,10 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
                   const T* __restrict__ tarea_r, const T* __restrict__ dtn,
                   const T* __restrict__ dts, const T* __restrict__ dte,
                   const T* __restrict__ dtw, const T* __restrict__ upw,
-                  const T* __restrict__ lev, T ah) {
-  using Lay = TracerUpwLayout<NT, DEL2>;
+                  const T* __restrict__ lev, T ah,
+                  const int* __restrict__ kmu, const T* __restrict__ dzbt,
+                  const T* __restrict__ dzbu) {
+  using Lay = TracerUpwLayout<NT, DEL2, PBC>;
   constexpr int H = kUpwHalo, W = UpwFrame::kPitch, FW = kFacePitch;
   constexpr int P = Lay::kP, F = Lay::kF, C = Lay::kC;
   constexpr int FL = Lay::kFrameLevel, CL = Lay::kCentreLevel;
@@ -506,6 +561,9 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
   T* cen = frm + 2 * FL;  // (2, CL)
   // published buffer b: ute, vtn, east-face values [NT], north-face [NT]
   T* pub = cen + 2 * CL;  // (2, PL)
+  // PBC: the face region's DZBU (F) and KMU (F bytes)
+  T* dzf = pub + 2 * PL;
+  unsigned char* kmf = reinterpret_cast<unsigned char*>(dzf + F);
 
   const int x0 = blockIdx.x * kFrameCols, y0 = blockIdx.y * kRows;
   const int s = (threadIdx.y + H) * W + threadIdx.x + H;      // frame slot
@@ -549,6 +607,10 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
       uoff[j] = in ? off : -1;
       met[q] = in ? dyu[off] : T(0);
       met[F + q] = in ? dxu[off] : T(0);
+      if (PBC) {
+        dzf[q] = in ? dzbu[off] : T(0);
+        kmf[q] = in ? (unsigned char)kmu[off] : (unsigned char)0;
+      }
     }
   }
   // the face this thread forms besides its own: the S row's north face
@@ -638,10 +700,14 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
     const T* sv = fb + F;
     const T dzl = lev[L * kLev];
     const T kk = T(L + 1);  // 1-based level, against KMT held as values
-    const T ute = half * (su[fs] * met[fs] * dzl +
-                          su[fs - FW] * met[fs - FW] * dzl);
-    const T vtn = half * (sv[fs] * met[F + fs] * dzl +
-                          sv[fs - 1] * met[F + fs - 1] * dzl);
+    // the thickness of face-region U point q at level L
+    auto dzu = [&](int q) {
+      return (PBC && kmf[q] == L + 1) ? dzf[q] : dzl;
+    };
+    const T ute = half * (su[fs] * met[fs] * dzu(fs) +
+                          su[fs - FW] * met[fs - FW] * dzu(fs - FW));
+    const T vtn = half * (sv[fs] * met[F + fs] * dzu(fs) +
+                          sv[fs - 1] * met[F + fs - 1] * dzu(fs - 1));
     const bool e_pos = ute * tarea > T(0), n_pos = vtn * tarea > T(0);
     const bool me = kk <= kms[s + 1], mw = kk <= kms[s - 1];
     const bool mee = kk <= kms[s + 2];
@@ -677,8 +743,8 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
       const int hs = SOUTH ? (H - 1) * W + tid + H : (hr + H) * W + H - 1;
       const T* sx = fb + po;  // u or v
       const T ta = hal[kUpwCoef * kHaloFaces + tid];
-      const T flux = half * (sx[hq] * met[mo + hq] * dzl +
-                             sx[hq - b] * met[mo + hq - b] * dzl);
+      const T flux = half * (sx[hq] * met[mo + hq] * dzu(hq) +
+                             sx[hq - b] * met[mo + hq - b] * dzu(hq - b));
       const bool pos = flux * ta > T(0);
       const bool m1 = kk <= kms[hs + d], mm = kk <= kms[hs - d];
       const bool m2 = kk <= kms[hs + 2 * d];
@@ -703,8 +769,17 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
   int kmt_c = 0;
   T dtn_c = T(0), dts_c = T(0), dte_c = T(0), dtw_c = T(0);
   T wtk = T(0);  // w at the top of the level
+  // PBC: the bottom level's dz, 1/dz, 1/(2 dz) and the spacing above it
+  T dzb = T(1), dzbr = T(1), dzb2r = T(1), dzwr_b = T(1);
   if (live) {
     kmt_c = kmt[oc];
+    if (PBC) {
+      dzb = dzbt[oc];
+      dzbr = T(1) / dzb;
+      dzb2r = T(0.5) / dzb;
+      if (kmt_c >= 2)
+        dzwr_b = T(1) / (T(0.5) * (lev[(kmt_c - 2) * kLev] + dzb));
+    }
     if (DEL2) {
       dtn_c = dtn[oc];
       dts_c = dts[oc];
@@ -724,7 +799,9 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
     const int kk = k + 1;  // 1-based level
     const bool last = k == km - 1;
     const T* lk = lev + k * kLev;  // the level's row of the table
-    const T dzk = lk[0], dzrk = lk[1], dz2rk = lk[2];
+    const bool bot_k = PBC && kk == kmt_c;  // the partial bottom level
+    const T dzk = bot_k ? dzb : lk[0], dzrk = bot_k ? dzbr : lk[1];
+    const T dz2rk = bot_k ? dzb2r : lk[2];
     const T ute = pb[fs], utw = pb[fs - 1];
     const T vtn = pb[F + fs], vts = pb[F + fs - FW];
 
@@ -745,7 +822,9 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
       cw = (mask && kms[s - 1] >= kkv) ? dtw_c : T(0);
     }
     const T ccd = -(cn + cs + ce + cw);
-    const T dzwr_k = lk[3];
+    // the spacing below the level: the bottom level's thickness enters the
+    // one above it
+    const T dzwr_k = (PBC && kk + 1 == kmt_c) ? dzwr_b : lk[3];
 
     // upwind3 vertical coefficients of the level
     T tz[6];
@@ -764,7 +843,7 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
       const T tr_n = pb[(2 + NT + n) * F + fs];
       const T tr_s = pb[(2 + NT + n) * F + fs - FW];
       const T lh = quotient(ce_ * tr_e + cw_ * tr_w + cn_ * tr_n + cs_ * tr_s,
-                            dzk, lk[10]);
+                            dzk, bot_k ? dzbr : lk[10]);
       // vertical (QUICKEST through the level's bottom)
       const T tc = t_k[n];
       const T tp1 = last ? tc : t_kp1[n];
@@ -848,28 +927,29 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
   }
 }
 
-template <typename T, int NT, bool DEL2, bool FOLD>
+template <typename T, int NT, bool DEL2, bool FOLD, bool PBC>
 struct TracerInstance {
   static cudaError_t prepare(long smem) {
-    return allow_large_smem(tracer_kernel<T, NT, DEL2, FOLD>, smem);
+    return allow_large_smem(tracer_kernel<T, NT, DEL2, FOLD, PBC>, smem);
   }
   static int occupancy(long smem) {
     const cudaError_t e = prepare(smem);
     if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(tracer_kernel<T, NT, DEL2, FOLD>, kThreadsTile,
-                         smem);
+    return blocks_per_sm(tracer_kernel<T, NT, DEL2, FOLD, PBC>,
+                         kThreadsTile, smem);
   }
 };
 
-template <typename T, int NT, bool DEL2>
+template <typename T, int NT, bool DEL2, bool PBC>
 struct TracerUpwInstance {
   static cudaError_t prepare(long smem) {
-    return allow_large_smem(tracer_upw_kernel<T, NT, DEL2>, smem);
+    return allow_large_smem(tracer_upw_kernel<T, NT, DEL2, PBC>, smem);
   }
   static int occupancy(long smem) {
     const cudaError_t e = prepare(smem);
     if (e != cudaSuccess) return -(int)e;
-    return blocks_per_sm(tracer_upw_kernel<T, NT, DEL2>, kThreadsTile, smem);
+    return blocks_per_sm(tracer_upw_kernel<T, NT, DEL2, PBC>, kThreadsTile,
+                         smem);
   }
 };
 
@@ -898,10 +978,12 @@ TracerGroup<T, NT> tracer_group(int n0, int km, int ny, int nx,
 // offsets in int.
 template <typename T>
 bool tracer_config_ok(int ng, int n0, int nt, int km, int ny, int nx,
-                      bool del2, bool upwind3, int rows, long smem) {
+                      bool del2, bool upwind3, bool pbc, int rows,
+                      long smem) {
   return ng >= 1 && ng <= kMaxGroup && n0 >= 0 && n0 + ng <= nt && km >= 1 &&
-         (long)km * ny * nx < (1L << 31) && rows == kRows &&
-         smem >= (long)tracer_smem_values(ng, del2, upwind3) *
+         (!pbc || km < 256) && (long)km * ny * nx < (1L << 31) &&
+         rows == kRows &&
+         smem >= (long)tracer_smem_values(ng, del2, upwind3, pbc) *
                      (long)sizeof(T);
 }
 
@@ -918,10 +1000,12 @@ bool tracer_config_ok(int ng, int n0, int nt, int km, int ny, int nx,
     ACTION(T, 2, false)
 
 // Values of dynamic shared memory the tile takes for a group of ng tracers
-// with centered or upwind3 advection (the planner's count,
-// tracer_cuda.smem_values).
-extern "C" int pop2_tracer_smem_values(int ng, int with_del2, int upwind3) {
-  return pop2::tracer_smem_values(ng, with_del2 != 0, upwind3 != 0);
+// with centered or upwind3 advection, full or partial bottom cells (the
+// planner's count, tracer_cuda.smem_values).
+extern "C" int pop2_tracer_smem_values(int ng, int with_del2, int upwind3,
+                                       int pbc) {
+  return pop2::tracer_smem_values(ng, with_del2 != 0, upwind3 != 0,
+                                  pbc != 0);
 }
 
 extern "C" int pop2_tracer_tile_rows() { return pop2::kRows; }
@@ -937,9 +1021,10 @@ extern "C" int pop2_tracer_max_group() { return pop2::kMaxGroup; }
 // dzwr2, the 6 vertical coefficients and 1/dz rounded once, read in place
 // of dz .. dzwr2;
 // neither read for centered advection); rows: rows of the tile; smem:
-// dynamic shared memory a block, bytes. Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a configuration the kernel does not
-// take.
+// dynamic shared memory a block, bytes; kmu, dzbt, dzbu: KMU and the bottom
+// level's thickness at T and U points under partial bottom cells (the PBC
+// instances), or null. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a configuration the kernel does not take.
 extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
                            int km, int ny, int nx, int cyclic, int fold,
                            int upwind3, int varthick, int rows, long smem,
@@ -952,47 +1037,61 @@ extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
                            const void* dz, const void* dzr, const void* dz2r,
                            const void* dzwr2, const void* upw,
                            const void* lev, double ah, void* out,
-                           void* stream) {
+                           const int* kmu, const void* dzbt,
+                           const void* dzbu, void* stream) {
   using namespace pop2;
   const bool del2 = with_del2 != 0, quick = upwind3 != 0;
+  const bool pbc = dzbt != nullptr;
   if (!(dtype == 0 ? tracer_config_ok<float>(ng, n0, nt, km, ny, nx, del2,
-                                              quick, rows, smem)
+                                              quick, pbc, rows, smem)
                    : tracer_config_ok<double>(ng, n0, nt, km, ny, nx, del2,
-                                               quick, rows, smem)))
+                                               quick, pbc, rows, smem)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((nx + kFrameCols - 1) / kFrameCols),
                   (unsigned)((ny + rows - 1) / rows));
   const dim3 block(kFrameCols, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define POP2_TRACER_CENTERED(T, NT, DEL2, FOLD)                              \
+#define POP2_TRACER_CENTERED(T, NT, DEL2, FOLD, PBC)                         \
   {                                                                          \
-    const cudaError_t e = TracerInstance<T, NT, DEL2, FOLD>::prepare(smem);  \
+    const cudaError_t e =                                                    \
+        TracerInstance<T, NT, DEL2, FOLD, PBC>::prepare(smem);               \
     if (e != cudaSuccess) return (int)e;                                     \
-    tracer_kernel<T, NT, DEL2, FOLD><<<grid, block, smem, s>>>(              \
+    tracer_kernel<T, NT, DEL2, FOLD, PBC><<<grid, block, smem, s>>>(         \
         n0, km, ny, nx, cyclic, varthick, (const T*)u, (const T*)v,          \
         (const T*)trcr, (const T*)tmix, (const T*)told, (const T*)vdc,       \
         (const T*)stf, (const T*)dh, kmt, (const T*)dyu, (const T*)dxu,      \
         (const T*)tarea_r, (const T*)dtn, (const T*)dts, (const T*)dte,      \
         (const T*)dtw, (const T*)dz, (const T*)dzr, (const T*)dz2r,          \
-        (const T*)dzwr2, (T)ah, (T*)out);                                    \
+        (const T*)dzwr2, (T)ah, (T*)out, kmu, (const T*)dzbt,                \
+        (const T*)dzbu);                                                     \
+  }
+#define POP2_TRACER_UPW(T, NT, DEL2, PBC)                                    \
+  {                                                                          \
+    const cudaError_t e = TracerUpwInstance<T, NT, DEL2, PBC>::prepare(smem);\
+    if (e != cudaSuccess) return (int)e;                                     \
+    tracer_upw_kernel<T, NT, DEL2, PBC><<<grid, block, smem, s>>>(           \
+        km, ny, nx, cyclic, fold, varthick,                                  \
+        tracer_group<T, NT>(n0, km, ny, nx, trcr, tmix, told, vdc, stf,      \
+                            out),                                            \
+        (const T*)u, (const T*)v, (const T*)dh, kmt, (const T*)dyu,          \
+        (const T*)dxu, (const T*)tarea_r, (const T*)dtn, (const T*)dts,      \
+        (const T*)dte, (const T*)dtw, (const T*)upw, (const T*)lev, (T)ah,   \
+        kmu, (const T*)dzbt, (const T*)dzbu);                                \
   }
 #define POP2_TRACER(T, NT, DEL2)                                             \
   {                                                                          \
-    if (quick) {                                                             \
-      const cudaError_t e = TracerUpwInstance<T, NT, DEL2>::prepare(smem);   \
-      if (e != cudaSuccess) return (int)e;                                   \
-      tracer_upw_kernel<T, NT, DEL2><<<grid, block, smem, s>>>(              \
-          km, ny, nx, cyclic, fold, varthick,                                \
-          tracer_group<T, NT>(n0, km, ny, nx, trcr, tmix, told, vdc, stf,    \
-                              out),                                          \
-          (const T*)u, (const T*)v, (const T*)dh, kmt, (const T*)dyu,        \
-          (const T*)dxu, (const T*)tarea_r, (const T*)dtn, (const T*)dts,    \
-          (const T*)dte, (const T*)dtw, (const T*)upw, (const T*)lev,        \
-          (T)ah);                                                            \
+    if (quick && pbc) {                                                      \
+      POP2_TRACER_UPW(T, NT, DEL2, true)                                     \
+    } else if (quick) {                                                      \
+      POP2_TRACER_UPW(T, NT, DEL2, false)                                    \
+    } else if (fold && pbc) {                                                \
+      POP2_TRACER_CENTERED(T, NT, DEL2, true, true)                          \
     } else if (fold) {                                                       \
-      POP2_TRACER_CENTERED(T, NT, DEL2, true)                                \
+      POP2_TRACER_CENTERED(T, NT, DEL2, true, false)                         \
+    } else if (pbc) {                                                        \
+      POP2_TRACER_CENTERED(T, NT, DEL2, false, true)                         \
     } else {                                                                 \
-      POP2_TRACER_CENTERED(T, NT, DEL2, false)                               \
+      POP2_TRACER_CENTERED(T, NT, DEL2, false, false)                        \
     }                                                                        \
   }
   if (dtype == 0) {
@@ -1001,23 +1100,33 @@ extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
     POP2_TRACER_INSTANCES(double, POP2_TRACER)
   }
 #undef POP2_TRACER
+#undef POP2_TRACER_UPW
 #undef POP2_TRACER_CENTERED
   return (int)cudaGetLastError();
 }
 
 // Blocks of a launch of this configuration (a group of ng tracers, with the
 // Laplacian or without, centered or upwind3, closed or tripole north edge,
-// `smem` bytes a block) that one SM holds at once.
+// full or partial bottom cells, `smem` bytes a block) that one SM holds at
+// once.
 extern "C" int pop2_tracer_blocks_per_sm(int dtype, int with_del2, int ng,
-                                         int upwind3, int fold, long smem) {
+                                         int upwind3, int fold, long smem,
+                                         int pbc) {
   using namespace pop2;
   const bool del2 = with_del2 != 0, quick = upwind3 != 0;
   if (ng < 1 || ng > kMaxGroup) return -(int)cudaErrorInvalidValue;
 #define POP2_TRACER_OCC(T, NT, DEL2)                                         \
   {                                                                          \
-    if (quick) return TracerUpwInstance<T, NT, DEL2>::occupancy(smem);       \
-    if (fold) return TracerInstance<T, NT, DEL2, true>::occupancy(smem);     \
-    return TracerInstance<T, NT, DEL2, false>::occupancy(smem);              \
+    if (quick && pbc)                                                        \
+      return TracerUpwInstance<T, NT, DEL2, true>::occupancy(smem);          \
+    if (quick) return TracerUpwInstance<T, NT, DEL2, false>::occupancy(smem);\
+    if (fold && pbc)                                                         \
+      return TracerInstance<T, NT, DEL2, true, true>::occupancy(smem);       \
+    if (fold)                                                                \
+      return TracerInstance<T, NT, DEL2, true, false>::occupancy(smem);      \
+    if (pbc)                                                                 \
+      return TracerInstance<T, NT, DEL2, false, true>::occupancy(smem);      \
+    return TracerInstance<T, NT, DEL2, false, false>::occupancy(smem);       \
   }
   if (dtype == 0) {
     POP2_TRACER_INSTANCES(float, POP2_TRACER_OCC)

@@ -30,8 +30,9 @@ Float32 and float64.
 Closed or tripole north edge: on a tripole grid the tile's ghost-row
 threads form the folded column's weights (its submesoscale amplitudes
 included) and publish the south-face ones as the north face's with the sign
-flipped (``BC.n_partner``). Left for later, raising ``NotImplementedError``
-(ROADMAP.md Queue 2 kernel 5): 3-D layer thickness.
+flipped (``BC.n_partner``). The 1-D layer thickness under partial bottom
+cells too: the JAX package computes GM on vgrid.dz there (ROADMAP.md
+Queue 3).
 """
 
 from __future__ import annotations
@@ -121,8 +122,6 @@ def _check_mode(cfg, grid):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if grid.DZT is not None:
-        todo.append("3-D layer thickness")
     if todo:
         raise NotImplementedError(
             "GM chain kernel mode not ported yet (ROADMAP.md Queue 2 "

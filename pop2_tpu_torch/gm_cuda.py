@@ -26,9 +26,9 @@ as ``flux_assembly_plain`` forms them through ``BC.n_partner``).
 
 Isotropic or anisotropic diffusivities (``gm_aniso``: the x faces take
 ``kisop``, the y faces ``kisop_y``; the ``ANISO`` instances read both and
-publish two effective diffusivities, one a direction). 1-D layer thickness:
-partial bottom cells raise ``NotImplementedError`` (ROADMAP.md Queue 2
-kernel 6, Queue 1 item 11c).
+publish two effective diffusivities, one a direction). 1-D layer thickness,
+under partial bottom cells too: the JAX package computes GM on vgrid.dz
+there (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -106,8 +106,6 @@ def _check_mode(cfg, grid):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if grid.DZT is not None:
-        todo.append("3-D layer thickness")
     if todo:
         raise NotImplementedError(
             "GM flux-assembly kernel mode not ported yet (ROADMAP.md Queue 2 "

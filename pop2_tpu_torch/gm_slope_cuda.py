@@ -23,8 +23,9 @@ memory in plain Python. Float32 and float64.
 
 MWJF equation of state, closed or tripole north edge (the frame's ghost row
 is the fold of the top row: T and S are copied from the mapped columns),
-1-D layer thickness; the other modes raise ``NotImplementedError``
-(ROADMAP.md Queue 2 kernel 4).
+1-D layer thickness (under partial bottom cells too, as the JAX package
+computes GM; ROADMAP.md Queue 3); the other modes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,8 +82,6 @@ def _check_mode(cfg, grid):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if grid.DZT is not None:
-        todo.append("3-D layer thickness")
     if todo:
         raise NotImplementedError(
             "GM slope kernel mode not ported yet (ROADMAP.md Queue 2 "

@@ -21,8 +21,10 @@ The port carries the internal generators, with a closed or tripole north
 edge (northward shifts of the host fields fold with the field's location and
 kind, as the JAX package's) and the anisotropic-viscosity statics on
 ``Grid.aniso``, and the overflows' wet regions and kmt pop-ups on the
-internal topography; the ``file`` readers (and with them the file grid's
-tripole DYU correction), partial bottom cells and topographic stress are
+internal topography, and partial bottom cells (the bottom level's
+thickness from a ``bottom_cell_file`` or the full one) with the two planes
+of the bottom level's thickness the kernels read (``bottom_planes``); the
+``file`` readers (and with them the file grid's tripole DYU correction) are
 refused by ``supported.check_supported`` (ROADMAP.md Queue 1 item 11).
 """
 
@@ -159,10 +161,14 @@ class Grid(TensorTree):
     # (source/POP_SolversMod.F90:888-898)
     residual_norm: torch.Tensor
 
-    # partial-bottom-cell thicknesses: always None in this slice (full
-    # cells only); kept so thickness_t/thickness_u read as in the reference
+    # partial-bottom-cell thicknesses (None under full cells): the layers'
+    # thickness at T and U points, equal to dz but at the column's bottom
+    # level, and the thickness of that level, DZBT = DZT[KMT-1] and
+    # DZBU = DZU[KMU-1] (dz[0] on land), the planes the kernels read
     DZT: Optional[torch.Tensor] = None   # (km, ny, nx)
     DZU: Optional[torch.Tensor] = None
+    DZBT: Optional[torch.Tensor] = None  # (ny, nx)
+    DZBU: Optional[torch.Tensor] = None
     # anisotropic-viscosity statics (hmix_momentum='aniso')
     aniso: Optional["AnisoStatics"] = None
     # the topographic-stress equilibrium velocities (ltopostress;
@@ -467,6 +473,11 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     HT = zw_pad[KMT]
     HU = zw_pad[KMU]
 
+    DZT = DZU = None
+    if cfg.partial_bottom_cells:
+        DZT, DZU, HT, HU = partial_bottom_cells(
+            cfg, dz, zw_pad, KMT, KMU, bottom_cells(cfg, dz, KMT))
+
     HUR = np.where(HU > 0.0, 1.0 / np.where(HU > 0.0, HU, 1.0), 0.0)
 
     # landmasks (source/grid.F90:2555-2571)
@@ -588,8 +599,12 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
         TSU, TSV = (f(a) for a in build_topostress(
             cfg, HT, KMT, KMU, TLAT, FCORT, DXUR, DYUR, HUR))
 
+    pbc = {}
+    if DZT is not None:
+        pbc = dict(zip(("DZT", "DZU", "DZBT", "DZBU"), (f(a) for a in (
+            DZT, DZU, *bottom_planes(dz, DZT, DZU, KMT, KMU)))))
     return Grid(
-        aniso=aniso, TSU=TSU, TSV=TSV,
+        aniso=aniso, TSU=TSU, TSV=TSV, **pbc,
         DXU=f(DXU), DYU=f(DYU), DXT=f(DXT), DYT=f(DYT),
         DXUR=f(DXUR), DYUR=f(DYUR), DXTR=f(DXTR), DYTR=f(DYTR),
         HTN=f(HTN), HTE=f(HTE), HUS=f(HUS), HUW=f(HUW),
@@ -613,6 +628,68 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
         area_t=f(area_t), volume_t=f(volume_t),
         residual_norm=f(residual_norm),
     )
+
+
+def _np_shift3(f, di, dj, ew, ns):
+    """``_np_shift`` of every level of a (km, ny, nx) array."""
+    return np.stack([_np_shift(f[k], di, dj, ew, ns) for k in
+                     range(f.shape[0])])
+
+
+def bottom_cells(cfg: ModelConfig, dz, KMT):
+    """DZBC, the bottom level's thickness (ny, nx), float64 NumPy
+    (read_bottom_cell, source/grid.F90:2116): one big-endian float64 record
+    of ``cfg.bottom_cell_file`` (ValueError if the file is shorter), or the
+    full dz(KMT) without a file."""
+    ny, nx = cfg.ny, cfg.nx
+    if cfg.bottom_cell_file is not None:
+        raw = np.fromfile(cfg.bottom_cell_file, dtype=">f8")
+        if raw.size < ny * nx:
+            raise ValueError("bottom_cell_file too small")
+        return raw[:ny * nx].reshape(ny, nx).astype(np.float64)
+    return np.where(KMT > 0, dz[np.maximum(KMT, 1) - 1], dz[0])
+
+
+def partial_bottom_cells(cfg: ModelConfig, dz, zw_pad, KMT, KMU, DZBC):
+    """(DZT, DZU, HT, HU), float64 NumPy, under partial bottom cells
+    (source/grid.F90:917-1010) with the bottom level's thickness DZBC: DZT
+    is dz but DZBC at k = KMT, DZU the least of the four surrounding DZT
+    down to KMU and dz below it, and the depths HT, HU reach the bottom
+    cells' floors."""
+    ny, nx, km = cfg.ny, cfg.nx, cfg.km
+    kidx1 = np.arange(1, km + 1)[:, None, None]
+    DZT = np.where(kidx1 == KMT[None], DZBC[None],
+                   dz[:, None, None] * np.ones((km, ny, nx)))
+    ew, ns = cfg.ew_boundary, cfg.ns_boundary
+    DZU = np.minimum(np.minimum(DZT, _np_shift3(DZT, 1, 0, ew, ns)),
+                     np.minimum(_np_shift3(DZT, 0, 1, ew, ns),
+                                _np_shift3(DZT, 1, 1, ew, ns)))
+    DZU = np.where(kidx1 > KMU[None], dz[:, None, None], DZU)
+    HT = np.where(KMT > 0, zw_pad[np.maximum(KMT - 1, 0)] + DZBC, 0.0)
+    dzu_bot = np.take_along_axis(DZU, np.maximum(KMU - 1, 0)[None],
+                                 axis=0)[0]
+    HU = np.where(KMU > 0, zw_pad[np.maximum(KMU - 1, 0)] + dzu_bot, 0.0)
+    return DZT, DZU, HT, HU
+
+
+def bottom_planes(dz, DZT, DZU, KMT, KMU):
+    """(DZBT, DZBU): the thickness of each column's bottom level at T and U
+    points, DZT[KMT-1] and DZU[KMU-1], dz[0] on land (no level to divide
+    by). Asserts what lets a kernel read a plane in place of the 3-D
+    field: DZT and DZU equal dz at every level but the bottom one."""
+    out = []
+    for D, kmax in ((DZT, KMT), (DZU, KMU)):
+        D, kmax = np.asarray(D, np.float64), np.asarray(kmax)
+        kb = np.maximum(kmax - 1, 0)[None]
+        plane = np.where(kmax > 0, np.take_along_axis(D, kb, axis=0)[0],
+                         dz[0])
+        off = np.arange(D.shape[0])[:, None, None] != kmax[None] - 1
+        if not np.array_equal(D[off], np.broadcast_to(
+                np.asarray(dz)[:, None, None], D.shape)[off]):
+            raise AssertionError("a partial-cell thickness differs from dz "
+                                 "off the column's bottom level")
+        out.append(plane)
+    return out
 
 
 def build_aniso(cfg: ModelConfig, HTN, HTE, DXU, DYU, DXUR, DYUR, ULAT,
@@ -657,8 +734,8 @@ def build_topostress(cfg: ModelConfig, HT, KMT, KMU, TLAT, FCORT, DXUR,
 
 
 def thickness_t(cfg: ModelConfig, grid: Grid):
-    """Layer thickness at T points as a (km, 1, 1) broadcast of dz (full
-    cells; the 3-D partial-bottom-cell form is not ported yet)."""
+    """Layer thickness at T points: (km, ny, nx) under partial bottom
+    cells, else a (km, 1, 1) broadcast of dz."""
     if grid.DZT is not None:
         return grid.DZT
     return grid.vgrid.dz.reshape(cfg.km, 1, 1)

@@ -1,6 +1,7 @@
 """Seeded sample inputs: production-shaped isopycnal slopes for checks of the
 GM/Redi path, a stepped bottom with ocean across a tripole fold for checks
-of the kernels' north edge, and a depth-acceleration profile. The CPU tests
+of the kernels' north edge, partial bottom cells, and a depth-acceleration
+profile. The CPU tests
 hand them to this package and to its reference, the GPU smoke test to the
 kernels and their plain versions."""
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from pop2_tpu_torch import gm
-from pop2_tpu_torch.grid import _np_shift
+from pop2_tpu_torch.grid import _np_shift, bottom_planes, partial_bottom_cells
 
 
 def stratified_tracers(kmask_t, zt, tlat, nt, seed, dtype=np.float64,
@@ -129,6 +130,40 @@ def fold_grid(cfg, grid, seed):
             device=dev, dtype=getattr(grid, name).dtype)
         for name, a in new.items()})
 
+
+def bottom_cell_thickness(kmt, dz, seed, low=0.25, high=1.0):
+    """A seeded DZBC (ny, nx), float64 NumPy: each ocean column's bottom
+    level ``f`` times its full thickness dz[KMT-1], ``f`` uniform in [low,
+    high]; dz[0] on land."""
+    kmt, dz = np.asarray(kmt), np.asarray(dz, np.float64)
+    frac = np.random.RandomState(seed).uniform(low, high, kmt.shape)
+    return np.where(kmt > 0, frac * dz[np.maximum(kmt, 1) - 1], dz[0])
+
+
+def write_bottom_cells(path, kmt, dz, seed):
+    """Write ``bottom_cell_thickness`` as the reference's bottom-cell file
+    (one big-endian float64 record) to ``path``; returns ``path``."""
+    np.ascontiguousarray(bottom_cell_thickness(kmt, dz, seed),
+                         dtype=">f8").tofile(path)
+    return path
+
+
+def with_bottom_cells(cfg, grid, seed):
+    """``grid`` (of this package) under partial bottom cells of
+    ``bottom_cell_thickness`` on its own KMT: DZT, DZU and the bottom
+    planes DZBT, DZBU, through its north edge (a fold included); HT, HU
+    and the operators built from them are left as they are (the kernels
+    and their plain versions read the thicknesses alone)."""
+    kmt, kmu = grid.KMT.cpu().numpy(), grid.KMU.cpu().numpy()
+    dz = grid.vgrid.dz.double().cpu().numpy()
+    zw_pad = np.concatenate([[0.0], grid.vgrid.zw.double().cpu().numpy()])
+    dzt, dzu, _, _ = partial_bottom_cells(
+        cfg, dz, zw_pad, kmt, kmu, bottom_cell_thickness(kmt, dz, seed))
+    fields = (dzt, dzu, *bottom_planes(dz, dzt, dzu, kmt, kmu))
+    return grid.replace(**{
+        name: torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=grid.KMT.device, dtype=grid.vgrid.dz.dtype)
+        for name, a in zip(("DZT", "DZU", "DZBT", "DZBU"), fields)})
 
 
 def open_top_face(grid):

@@ -19,8 +19,6 @@ def unsupported(cfg: ModelConfig) -> list:
         (cfg.horiz_grid != "internal" or cfg.topography != "internal"
          or cfg.vert_grid not in ("internal", "uniform"),
          "grid/topography 'file' readers (Queue 1 item 11: io/grid_files)"),
-        (cfg.partial_bottom_cells,
-         "partial_bottom_cells (Queue 2 kernel 1: 3-D DZT)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
         ("abio_dic" in cfg.passive_tracers,
@@ -79,8 +77,8 @@ def _gm_checks(cfg: ModelConfig) -> list:
     """What of GM the port carries: every diffusivity type of the JAX
     package, in any isopycnal/thickness pair, under any equation of state,
     isotropic or anisotropic ('grid', 'flow'; with the transition layer
-    ``gm.hdifft_gm`` raises, as the JAX package's does), full cells, a
-    closed or tripole north edge."""
+    ``gm.hdifft_gm`` raises, as the JAX package's does), full or partial
+    bottom cells, a closed or tripole north edge."""
     kinds = (cfg.gm_kappa_isop_type, cfg.gm_kappa_thic_type)
     known = ("const", "depth", "bfre", "vmhs", "eg")
     return [

@@ -29,13 +29,17 @@ diffusion only (``with_del2=False``), a separate instance of the kernel that
 does not read ``tmix``: (4 + 2 nt) fields of traffic. Centered or upwind3
 (QUICKEST) advection, closed or tripole north edge (the frame's rows past
 the north edge copied from the folded columns), 1-D layer thickness
-(``tile_mode``). Upwind3 runs the tile in a frame of two columns
+(``tile_mode``), full or partial bottom cells. Upwind3 runs the tile in a
+frame of two columns
 (``UPW_HALO``): each column also forms its east- and north-face QUICKEST
 values once a level and publishes them, from the 12 horizontal coefficient
 planes of ``advect.upwind3_planes`` (staged once a tile) and a level
 table of the vertical grid's spacings and the 6 vertical coefficient rows
 of ``advect.upwind3_vert_coeffs`` (``upwind3_operands``), both formed
-here.
+here. Under partial bottom cells (``Grid.DZBT`` set) the ``PBC`` instances
+also read KMU and the bottom level's thickness at T and U points, three
+(ny, nx) planes (counter ``launches_pbc``); the plain version reads the
+grid's 3-D DZT/DZU through ``thickness_t``/``thickness_u``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ from pop2_tpu_torch.grid import grid_bc
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
+#: launches of the partial-bottom-cell (PBC) instances
+launches_pbc = 0
+#: the mode counters ``graphs.CapturedStep`` keeps exact under replay
+MODE_COUNTERS = ("launches_pbc",)
 
 MAX_GROUP = 2  # tracers a launch (kMaxGroup of csrc/tracer.cu)
 TILE_COLS = 32  # interior columns a tile row (kFrameCols: one warp)
@@ -66,7 +74,7 @@ def tracer_groups(nt: int):
 
 
 def smem_values(ng: int, del2: bool, rows: int,
-                upwind3: bool = False) -> int:
+                upwind3: bool = False, pbc: bool = False) -> int:
     """Values of shared memory a tile of ``rows`` rows takes for a group of
     ``ng`` tracers (``TracerLayout::kValues`` and
     ``TracerUpwLayout::kValues`` of csrc/tracer.cu, which chip_smoke.py
@@ -82,29 +90,33 @@ def smem_values(ng: int, del2: bool, rows: int,
     of the level below, ng diffusivities, ng trcr two levels down on the
     tile, and with the Laplacian ng tmix on the frame) and the published
     ute, vtn and each tracer's east- and north-face values (face
-    region)."""
+    region). Partial bottom cells (``pbc``): centered advection two more
+    frame planes (KMU and DZBU), upwind3 DZBU on the face region and KMU
+    there as bytes, counted in 4-byte values."""
     tile = TILE_COLS * rows
     if not upwind3:
         plane = (TILE_COLS + 2 * HALO) * (rows + 2 * HALO)
         level = (2 + ng * (2 if del2 else 1)) * plane + 2 * ng * tile
-        return 2 * plane + 3 * level + 2 * 2 * plane
+        return (4 if pbc else 2) * plane + 3 * level + 2 * 2 * plane
     plane = (TILE_COLS + 2 * UPW_HALO) * (rows + 2 * UPW_HALO)
     face = (TILE_COLS + 1) * (rows + 1)
     once = (2 * face + plane + (UPW_COEF + 1) * (TILE_COLS + rows)
             + 2 * UPW_COEF * tile)
     frame = 2 * face + ng * plane
     centre = 3 * ng * tile + (ng * plane if del2 else 0)
-    return once + 2 * (frame + centre + (2 + 2 * ng) * face)
+    extra = face + (face + 3) // 4 if pbc else 0
+    return once + 2 * (frame + centre + (2 + 2 * ng) * face) + extra
 
 
 def launch_plan(value_bytes: int, ng: int, del2: bool,
-                upwind3: bool = False):
+                upwind3: bool = False, pbc: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
     tracer kernel launch for a group of ``ng`` tracers in values of
     ``value_bytes``, with the Laplacian or without, centered or upwind3
-    advection (the north edge does not change the plan). Raises for what
-    the kernel does not take: a group over MAX_GROUP, values other than
-    float32 or float64, or a tile over the card's 227 KB."""
+    advection, full or partial bottom cells (the north edge does not change
+    the plan). Raises for what the kernel does not take: a group over
+    MAX_GROUP, values other than float32 or float64, or a tile over the
+    card's 227 KB."""
     if value_bytes not in (4, 8):
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
@@ -112,9 +124,10 @@ def launch_plan(value_bytes: int, ng: int, del2: bool,
         raise NotImplementedError(
             f"tracer kernel carries at most {MAX_GROUP} tracers a launch, "
             f"got {ng} (tracer_groups splits more)")
-    smem = smem_values(ng, del2, TILE_ROWS, upwind3) * value_bytes
+    smem = smem_values(ng, del2, TILE_ROWS, upwind3, pbc) * value_bytes
     cb.check_smem(smem, f"tracer tile ({TILE_COLS} x {TILE_ROWS}, "
-                        f"ng={ng}, del2={del2}, upwind3={upwind3})")
+                        f"ng={ng}, del2={del2}, upwind3={upwind3}, "
+                        f"pbc={pbc})")
     return (TILE_COLS, TILE_ROWS), smem
 
 
@@ -162,8 +175,6 @@ def _check_mode(cfg, grid):
         todo.append(f"ns_boundary={cfg.ns_boundary!r}")
     if cfg.ew_boundary not in ("cyclic", "closed"):
         todo.append(f"ew_boundary={cfg.ew_boundary!r}")
-    if grid.DZT is not None:
-        todo.append("3-D layer thickness")
     if todo:
         raise NotImplementedError(
             "tracer tendency kernel mode not ported yet (ROADMAP.md Queue 2 "
@@ -192,7 +203,7 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     (nt, km, ny, nx); vdc (2, km, ny, nx); stf (nt, ny, nx); dh (ny, nx).
     CUDA tensors go through the kernel, CPU tensors through the plain
     version."""
-    global launches
+    global launches, launches_pbc
     _check_mode(cfg, grid)
     if not trcr.is_cuda:
         return tracer_tendency_plain(cfg, grid, u, v, trcr, tmix, told, vdc,
@@ -201,7 +212,9 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     dev, dt = trcr.device, trcr.dtype
     del2 = with_del2(cfg)
     upw3, fold = tile_mode(cfg)
-    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2, upw3)
+    pbc = grid.DZBT is not None
+    groups = [(n0, ng) + launch_plan(trcr.element_size(), ng, del2, upw3,
+                                     pbc)
               for n0, ng in tracer_groups(nt)]
     vg = grid.vgrid
     dz = vg.dz
@@ -217,6 +230,10 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             ("DTW", grid.DTW, f2), ("dz", dz, (km,))):
         cb.check_operand(name, t, shape, dt, dev)
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
+    if pbc:
+        cb.check_operand("KMU", grid.KMU, f2, torch.int32, dev)
+        cb.check_operand("DZBT", grid.DZBT, f2, dt, dev)
+        cb.check_operand("DZBU", grid.DZBU, f2, dt, dev)
     upw, lev = (upwind3_operands(cfg, grid, dt, dev) if upw3
                 else (dz, dz))  # centered advection reads neither
     out = torch.empty_like(trcr)
@@ -234,7 +251,11 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
             dz.data_ptr(), vg.dzr.data_ptr(), vg.dz2r.data_ptr(),
             dzwr2.data_ptr(), upw.data_ptr(), lev.data_ptr(),
             float(cfg.auto_ah), out.data_ptr(),
+            *((grid.KMU.data_ptr(), grid.DZBT.data_ptr(),
+               grid.DZBU.data_ptr()) if pbc else (0, 0, 0)),
             cb.stream_ptr())
         cb.check_launch(err, "tracer_tendency")
         launches += 1
+        if pbc:
+            launches_pbc += 1
     return out

@@ -21,6 +21,10 @@ share the coupling, each reading it again.
 ``thomas`` launches the kernel for CUDA tensors and calls ``thomas_plain``
 for CPU tensors; it never falls back from one to the other. Both form
 ``hfac_k * rhs_k`` themselves: callers pass the right-hand side unscaled.
+Under partial bottom cells the diagonal term of each column's bottom level
+differs from the level table's: the kernel's ``PBC`` instances read it as
+one more (ny, nx) plane, ``hbot``, and use it at k = kmax (counter
+``launches_pbc``); the plain version takes the 3-D hfac (``bottom_hfac``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ from pop2_tpu_torch import _cuda_build as cb
 #: the same by the right-hand sides a launch took
 launches = 0
 launches_by_nr: Counter = Counter()
+#: launches of the partial-bottom-cell (PBC) instances
+launches_pbc = 0
+#: the mode counters ``graphs.CapturedStep`` keeps exact under replay
+MODE_COUNTERS = ("launches_pbc",)
 
 MAX_RHS = 4  # right-hand sides a launch: kMaxRhs of csrc/thomas.cu
 MAX_LEVELS = 64  # kMaxLevels of csrc/thomas.cu
@@ -84,17 +92,30 @@ def launch_plan(value_bytes: int, nr: int, km: int) -> ThomasPlan:
     return ThomasPlan(_COLS, smem)
 
 
-def thomas_plain(hfac, h1, kmax, a, rhs):
+def bottom_hfac(hfac, hbot, kmax):
+    """(km, ny, nx): the level table ``hfac`` with each column's bottom
+    level (kmax, 1-based) taking ``hbot`` (partial bottom cells)."""
+    km = hfac.shape[0]
+    kidx = torch.arange(km, device=hfac.device).reshape(km, 1, 1)
+    return torch.where(kidx == kmax[None].long() - 1, hbot[None],
+                       hfac.reshape(km, 1, 1))
+
+
+def thomas_plain(hfac, h1, kmax, a, rhs, hbot=None):
     """Plain PyTorch version of the sweep (the reference's Thomas algorithm,
     source/vertical_mix.F90:1164, :1679), vectorized over every column.
 
-    hfac: (km,) diagonal mass terms dz_k/c2dt_k.
+    hfac: (km,) diagonal mass terms dz_k/c2dt_k, or (km, ny, nx) under
+    partial bottom cells (or (km,) with the bottom level's term ``hbot``,
+    formed into the 3-D one by ``bottom_hfac``).
     h1: (ny, nx) surface diagonal term (incl. the psurf correction).
     kmax: (ny, nx) int32 deepest level (1-based; 0 = land).
     a: (km, ny, nx) subdiagonal coupling, zero at the last level.
     rhs: (nr, km, ny, nx) right-hand sides before the hfac scaling.
     Returns (nr, km, ny, nx) solutions, zero below kmax.
     """
+    if hbot is not None:
+        hfac = bottom_hfac(hfac, hbot, kmax)
     km = a.shape[0]
     kmax = kmax[None]  # broadcast over the right-hand sides
     zero = torch.zeros_like(rhs[:, 0])
@@ -128,15 +149,16 @@ def thomas_plain(hfac, h1, kmax, a, rhs):
     return torch.stack(F, dim=1)
 
 
-def thomas(hfac, h1, kmax, a, rhs):
+def thomas(hfac, h1, kmax, a, rhs, hbot=None):
     """Solve the masked tridiagonal systems of every column; shapes as in
-    ``thomas_plain``. CUDA tensors go through the kernel (float32 or
-    float64, contiguous, km within ``launch_plan``'s bound; any number of
-    right-hand sides, a launch for each of ``rhs_groups``), CPU tensors
-    through the plain version."""
-    global launches
+    ``thomas_plain`` with ``hfac`` (km,) and, under partial bottom cells,
+    ``hbot`` (ny, nx) the bottom level's diagonal term. CUDA tensors go
+    through the kernel (float32 or float64, contiguous, km within
+    ``launch_plan``'s bound; any number of right-hand sides, a launch for
+    each of ``rhs_groups``), CPU tensors through the plain version."""
+    global launches, launches_pbc
     if not rhs.is_cuda:
-        return thomas_plain(hfac, h1, kmax, a, rhs)
+        return thomas_plain(hfac, h1, kmax, a, rhs, hbot)
     nr, km, ny, nx = rhs.shape
     dev, dt = rhs.device, rhs.dtype
     groups = [(n0, n, launch_plan(rhs.element_size(), n, km))
@@ -146,14 +168,19 @@ def thomas(hfac, h1, kmax, a, rhs):
     cb.check_operand("kmax", kmax, (ny, nx), torch.int32, dev)
     cb.check_operand("a", a, (km, ny, nx), dt, dev)
     cb.check_operand("rhs", rhs, (nr, km, ny, nx), dt, dev)
+    if hbot is not None:
+        cb.check_operand("hbot", hbot, (ny, nx), dt, dev)
     lib = cb.lib()
     out = torch.empty_like(rhs)
     for n0, n, plan in groups:
         err = lib.pop2_thomas(
             cb.dtype_code(rhs), n, km, ny * nx, *plan, hfac.data_ptr(),
             h1.data_ptr(), kmax.data_ptr(), a.data_ptr(),
-            rhs[n0].data_ptr(), out[n0].data_ptr(), cb.stream_ptr())
+            rhs[n0].data_ptr(), out[n0].data_ptr(),
+            0 if hbot is None else hbot.data_ptr(), cb.stream_ptr())
         cb.check_launch(err, "thomas")
         launches += 1
         launches_by_nr[n] += 1
+        if hbot is not None:
+            launches_pbc += 1
     return out

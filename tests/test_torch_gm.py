@@ -556,14 +556,28 @@ def test_kernel_wrappers_raise_for_modes_not_ported(pairs):
     tlt = tgm.transition_layer(p.tcfg, p.tgrid,
                                tgm.first_layer_depth(p.tgrid), sla,
                                tgm._rossby_radius(p.tgrid))
-    # partial bottom cells (3-D layer thickness): the chain kernel and the
-    # hdifft_chain entry refuse them
-    dzt_grid = p.tgrid.replace(DZT=p.tgrid.kmask_t.to(tmix.dtype))
-    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
-        gm_chain_cuda.chain(p.tcfg, dzt_grid, bc, tmix, slp, sla, n2, tlt)
-    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
-        gm_chain_cuda.hdifft_chain(p.tcfg, dzt_grid, bc, tr, tmix,
-                                   hmxl=tlt.thickness)
+    # partial bottom cells: GM runs on the 1-D dz, as the JAX package's
+    # (ROADMAP.md Queue 3), so on a grid whose bottom cells are full (DZT
+    # equal to dz) the chain and the hdifft_chain entry give the full-cell
+    # output
+    dz3 = p.tgrid.vgrid.dz.reshape(-1, 1, 1).expand(
+        p.tgrid.kmask_t.shape).contiguous()
+    plane = torch.full(p.tgrid.KMT.shape, float(p.tgrid.vgrid.dz[0]),
+                       dtype=tmix.dtype)
+    dzt_grid = p.tgrid.replace(DZT=dz3, DZU=dz3, DZBT=plane, DZBU=plane)
+    for got, want in zip(
+            gm_chain_cuda.chain(p.tcfg, dzt_grid, bc, tmix, slp, sla, n2,
+                                tlt),
+            gm_chain_cuda.chain(p.tcfg, p.tgrid, bc, tmix, slp, sla, n2,
+                                tlt)):
+        assert torch.equal(got, want)
+    for got, want in zip(
+            gm_chain_cuda.hdifft_chain(p.tcfg, dzt_grid, bc, tr, tmix,
+                                       hmxl=tlt.thickness),
+            gm_chain_cuda.hdifft_chain(p.tcfg, p.tgrid, bc, tr, tmix,
+                                       hmxl=tlt.thickness)):
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got, want)
     # anisotropic GM is not the chain's: gm.hdifft_gm runs it, with the
     # flux assembly's y-face diffusivity (its kernel's ANISO instances)
     aniso = p.with_(gm_aniso="flow", gm_transition_layer=False).tcfg
@@ -579,10 +593,12 @@ def test_kernel_wrappers_raise_for_modes_not_ported(pairs):
                                      kisop_y=0.5 * f[7])
     assert not torch.equal(gtk_x, gm_cuda.flux_assembly(
         aniso, p.tgrid, bc, *f, False)[0])
-    # 3-D layer thickness is refused; the tripole row is ported
-    # (test_torch_fold_kernels.py)
-    with pytest.raises(NotImplementedError, match="3-D layer thickness"):
-        gm_cuda.flux_assembly(p.tcfg, dzt_grid, bc, *([tmix] * 9), False)
+    # the flux assembly on the partial-cell grid: the full-cell output
+    # (the tripole row is held in test_torch_fold_kernels.py)
+    for got, want in zip(
+            gm_cuda.flux_assembly(p.tcfg, dzt_grid, bc, *f, False),
+            gm_cuda.flux_assembly(p.tcfg, p.tgrid, bc, *f, False)):
+        assert torch.equal(got, want)
     flux_only = p.with_(gm_transition_layer=False).tcfg
     with pytest.raises(NotImplementedError, match="outside the chain"):
         gm_chain_cuda.chain(flux_only, p.tgrid, bc, tmix, slp, sla, n2, tlt)

@@ -9,6 +9,8 @@ statics the tracer and momentum kernels read. Runs on the CPU; the kernels thems
 plain versions on the card by chip_smoke.py, which also holds the planners'
 shared-memory counts against the library's."""
 
+import itertools
+
 import pytest
 import torch
 
@@ -193,6 +195,28 @@ def test_tracer_upwind3_layout_by_hand():
     assert 2 * (8 * values + 1024) <= 228 * 1024
 
 
+# partial bottom cells: centered advection two more frame planes (KMU and
+# DZBU, 2 x 340), upwind3 DZBU on the face region and KMU there as bytes
+# (297 + 75 values); the float32 upwind3 tile of two tracers keeps its four
+# blocks an SM and the float64 one its two
+def test_tracer_pbc_layout_by_hand():
+    rows = tracer_cuda.TILE_ROWS
+    for ng, del2 in ((1, True), (2, False), (2, True)):
+        assert (tracer_cuda.smem_values(ng, del2, rows, False, True)
+                == tracer_cuda.smem_values(ng, del2, rows) + 2 * 340)
+        assert (tracer_cuda.smem_values(ng, del2, rows, True, True)
+                == tracer_cuda.smem_values(ng, del2, rows, True) + 297 + 75)
+    values = tracer_cuda.smem_values(2, False, rows, True, True)
+    assert values == 14302
+    assert 4 * (4 * values + 1024) <= 228 * 1024
+    assert 2 * (8 * values + 1024) <= 228 * 1024
+    for value_bytes, upwind3 in itertools.product((4, 8), (False, True)):
+        smem = tracer_cuda.launch_plan(value_bytes, 2, True, upwind3,
+                                       True)[1]
+        assert smem == tracer_cuda.smem_values(2, True, rows, upwind3,
+                                               True) * value_bytes
+
+
 @pytest.mark.parametrize("value_bytes", [4, 8])
 @pytest.mark.parametrize("upwind3", [True, False])
 def test_tracer_plan_refuses_an_over_size_tile(monkeypatch, value_bytes,
@@ -244,6 +268,17 @@ def test_clinic_plan_fits_the_tile(value_bytes):
                             clinic_cuda.TILE_ROWS[value_bytes])
     assert smem == clinic_cuda.smem_values(rows) * value_bytes
     assert smem <= cb.SMEM_PER_BLOCK
+
+
+# partial bottom cells: KMU and DZBU as two more frame planes; three
+# blocks an SM in float32, two in float64, as on full cells
+@pytest.mark.parametrize("value_bytes", [4, 8])
+def test_clinic_pbc_plan_fits_the_tile(value_bytes):
+    (cols, rows), smem = clinic_cuda.launch_plan(value_bytes, True)
+    plane = (clinic_cuda.TILE_COLS + 2) * (rows + 2)
+    assert smem == (clinic_cuda.smem_values(rows) + 2 * plane) * value_bytes
+    blocks = 3 if value_bytes == 4 else 2
+    assert blocks * (smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("args,err,match", [

@@ -179,13 +179,15 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
 
 @pytest.mark.parametrize("over", [
     dict(tadvect="lw_lim"),
-    dict(hmix_tracer="gm", gm_aniso="flow", gm_transition_layer=False)],
-    ids=["lw_lim", "gm_aniso_flow"])
+    dict(hmix_tracer="gm", gm_aniso="flow", gm_transition_layer=False),
+    dict(partial_bottom_cells=True)],
+    ids=["lw_lim", "gm_aniso_flow", "partial_bottom_cells"])
 def test_switches_ported_since_construct_and_step(over):
-    """Once refused at construction (ROADMAP.md Queue 1 item 11b): lw_lim
-    advection and anisotropic GM now construct and step (their values are
-    held against the JAX package in test_torch_advect_eos.py and
-    test_torch_gm_menu.py)."""
+    """Once refused at construction (ROADMAP.md Queue 1 items 11b, 11c):
+    lw_lim advection, anisotropic GM and partial bottom cells now construct
+    and step (their values are held against the JAX package in
+    test_torch_advect_eos.py, test_torch_gm_menu.py and
+    test_torch_pbc.py)."""
     model = TModel(t_get_config("mini", **over), device="cpu")
     state, _ = model.advance(model.initial_state())
     assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
@@ -193,7 +195,6 @@ def test_switches_ported_since_construct_and_step(over):
 
 @pytest.mark.parametrize("over,names", [
     (dict(sw_absorption="chlorophyll", chl_option="file"), "chl_option"),
-    (dict(partial_bottom_cells=True), "3-D DZT"),
     (dict(passive_tracers=("ecosys",), nt=34), "passive"),
     (dict(b4b=True), "b4b"),
     (dict(mesh_shape=(2, 1)), "multi-GPU"),

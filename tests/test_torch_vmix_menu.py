@@ -514,12 +514,26 @@ def test_polynomial_equation_of_state_constructs_and_steps():
     assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
 
 
+def test_production_menu_under_partial_bottom_cells_constructs_and_steps():
+    """Once refused at construction (ROADMAP.md Queue 1 item 11c): the
+    production preset under partial bottom cells (the degenerate bottom
+    cell of the full thickness, no file) constructs and steps on a small
+    grid (its values are held against the JAX package in
+    test_torch_pbc.py)."""
+    cfg = production.get_production_config(partial_bottom_cells=True)
+    assert supported.unsupported(cfg) == []
+    model = TModel(cfg.with_(nx=16, ny=12, km=10, vert_grid="uniform",
+                             passive_tracers=(), nt=2), device="cpu")
+    assert model.grid.DZBT is not None
+    state, _ = model.advance(model.initial_state())
+    assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
+
+
 @pytest.mark.parametrize("over,item", [
     (dict(gm_aniso="east"), "gm_aniso='east'"),
     (dict(state_choice="polynomial", overflows=torch_cfg(get_config(
         "mini").with_(overflows=(ovf_spec(),))).overflows),
      "overflows under state_choice='polynomial'"),
-    (dict(partial_bottom_cells=True), "Queue 2 kernel 1"),
     (dict(lestuary_exch=True), "Queue 1 item 11"),
     (dict(b4b=True), "Queue 1 item 12")])
 def test_remaining_refusals_still_raise(over, item):
