@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's fifteen paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's sixteen paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64
 (gm_pbc in float32 alone):
 
@@ -67,6 +67,13 @@ averaging or Robert-filtered steps) at that size in float32 and in float64
     gm_pbc    the production configuration under partial bottom cells: GM's
               kernels on the 1-D dz (as the JAX package's), the PBC
               instances of thomas (nr up to 4), tracer and momentum
+    prod_forced the production configuration forced as an ocean-only run:
+              each step's forcing composed from the state (``ForcedForcing``:
+              a monthly wind-stress file, bulk-NCEP heat and freshwater
+              fluxes from seeded monthly climatologies, a balanced marginal
+              sea, river runoff), the chlorophyll of the forcing, the
+              estuary box model's exchange, interior T/S restoring; the
+              kernels of prod_full
 
 On every GM path with the transition layer the search runs as a kernel.
 The modes of the tracer, momentum, slope and chain kernels that the tripole
@@ -84,20 +91,24 @@ package's tests on the card against the same on the CPU.
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels.
 On core, gm_full, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
-prod_aniso, core_lw and prod_pbc runs
+prod_aniso, core_lw, prod_pbc and prod_forced runs
 ``Model.run_compiled`` (CUDA graphs of the step's segments) against
 ``Model.run`` from one state (``run_loop`` phase): every state leaf bitwise
 equal (or inside the eager-against-eager spread), iterations and launch
 counts equal, graphs replayed, no host read but the solver's convergence
 checks, a restart round trip on prod_full, and on prod_vmix the lunar
 factor in the captured step's static forcing buffer equal to the
-calendar's at every step across a jump of the calendar by years. The plain
+calendar's at every step across a jump of the calendar by years, and on
+prod_forced two steps under a forcing without two of its fields build a
+new captured step, bitwise equal to ``advance``. The plain
 parts the last three paths add (Polzin, NIW, del4, the TSU subtraction)
 are timed at full size (``menu_parts_phase``). It
-compares five steps with the kernels against five steps with the plain
+compares three steps with the kernels against three steps with the plain
 versions (and, in float32, both against the float64 run) on the core,
 gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo,
-prod_eg, prod_aniso, core_lw and prod_pbc paths (gm_pbc: three steps),
+prod_eg, prod_aniso, core_lw, prod_pbc, gm_pbc and prod_forced paths,
+holds every ported forcing function on the card against the CPU in float64
+and times the build of a step's forcing (``forcing_phase``),
 holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
 momentum kernels against their plain versions on stepped bottoms whose
 every column ends in a partial cell (``pbc_kernel_phase``), breaks a step's
@@ -147,12 +158,17 @@ from pop2_tpu_torch import tracer_cuda, tridiag, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
 from pop2_tpu_torch import hmix, pgrad, sample, solvers  # noqa: E402
 from pop2_tpu_torch import tidal_mixing  # noqa: E402
+from pop2_tpu_torch import estuary, forcing as forcing_mod  # noqa: E402
+from pop2_tpu_torch import forcing_sfwf, forcing_shf  # noqa: E402
+from pop2_tpu_torch import forcing_tools, mcog, ms_balance  # noqa: E402
+from pop2_tpu_torch import running_mean, samplers  # noqa: E402
 from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
                                    SolverConfig, get_config)
 from pop2_tpu_torch.grid import (bottom_cells, bottom_planes,  # noqa: E402
                                  build_grid, build_topostress, grid_bc,
                                  partial_bottom_cells, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
+from pop2_tpu_torch.state import initial_state  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 20240613
@@ -172,7 +188,8 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "prod_aniso": {"float32": 4, "float64": 3},
          "core_lw": {"float32": 6, "float64": 4},
          "prod_pbc": {"float32": 6, "float64": 4},
-         "gm_pbc": {"float32": 4}}
+         "gm_pbc": {"float32": 4},
+         "prod_forced": {"float32": 6, "float64": 4}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -242,7 +259,7 @@ N2_BAND = {
 CLAMPED = 1.0e8
 STEEP = 3.0        # geometric slope far beyond any that is not tapered away
 TAPER_ZERO = 0.18  # the notanh taper is zero from 0.6 of the slope limit on
-# whole-path bands, kernels against plain versions over 5 steps, relative to
+# whole-path bands, kernels against plain versions over 3 steps, relative to
 # each field's scale. float64: the parity band of the JAX package's step-5
 # test on every field. float32 is looser, by field: tracers get the band of
 # the JAX package's own float32 kernel-dispatch test; the surface pressure is
@@ -278,7 +295,7 @@ WITNESS_RATIO = 1.5
 # chooses its stencil by the signs of tracer differences, another threshold.
 WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
                       "prod_hmix", "prod_eg", "prod_aniso", "core_lw",
-                      "prod_pbc", "gm_pbc")
+                      "prod_pbc", "gm_pbc", "prod_forced")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -399,19 +416,32 @@ CORE_LW = dict(tadvect="lw_lim", state_choice="polynomial",
 # configuration
 PROD_PBC = dict(PROD_HMIX, partial_bottom_cells=True)
 GM_PBC = dict(partial_bottom_cells=True)
+# the production configuration under the forcing of an ocean-only run:
+# chlorophyll from the forcing, the estuary box model at the river points,
+# interior T/S restoring to the bottom over a year (the depth:
+# ``path_config``), bulk-NCEP freshwater with P - E as a real freshwater
+# flux; each step's forcing composed by ``ForcedForcing``
+PROD_FORCED = dict(sw_absorption="chlorophyll", chl_option="file",
+                   lestuary_exch=True, sfwf_formulation="bulk-NCEP",
+                   lfw_as_salt_flx=False,
+                   pt_interior_restore_tau_days=365.0,
+                   s_interior_restore_tau_days=365.0)
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
          "prod_flux": PROD_FLUX, "prod_vmix": PROD_VMIX,
          "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True),
          "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW,
-         "prod_pbc": PROD_PBC, "gm_pbc": GM_PBC}
+         "prod_pbc": PROD_PBC, "gm_pbc": GM_PBC,
+         "prod_forced": PROD_FORCED}
 PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
-              "prod_hmix", "prod_eg", "prod_aniso", "prod_pbc")
+              "prod_hmix", "prod_eg", "prod_aniso", "prod_pbc",
+              "prod_forced")
 PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix", "prod_eg",
-                 "prod_aniso", "gm_pbc")
-# the bottom-cell files of the partial-cell paths, a file a grid shape, in a
-# directory removed at exit
+                 "prod_aniso", "gm_pbc", "prod_forced")
+# the bottom-cell files of the partial-cell paths, a file a grid shape, and
+# prod_forced's wind-stress files, in directories removed at exit
 BOTTOM_CELLS = tempfile.TemporaryDirectory(prefix="pop2_dzbc_")
+WIND_FILES = tempfile.TemporaryDirectory(prefix="pop2_ws_")
 # the years the calendar jumps in run_loop_phase's lunar check
 LUNAR_JUMP_YEARS = 7
 # the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
@@ -419,6 +449,9 @@ LUNAR_JUMP_YEARS = 7
 U10_SQR = 4.9e5
 # the small grid of the GPU-against-CPU comparison of the production paths
 PROD_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
+# the forcing functions on the GPU against the CPU in float64, relative to
+# each output's scale
+FORCING_BAND = 1e-12
 
 
 def emit(obj):
@@ -480,9 +513,13 @@ def path_config(cfg, path: str):
     """``cfg`` with what a path takes from its size: prod_vmix's depth
     acceleration, 1 down to 1000 m and 2 at the bottom level
     (``sample.depth_accel_profile`` over the config's level centres); the
-    partial-cell paths' bottom-cell file (``bottom_cell_file``)."""
+    partial-cell paths' bottom-cell file (``bottom_cell_file``);
+    prod_forced's interior restoring down to the bottom level."""
     if cfg.partial_bottom_cells:
         return cfg.with_(bottom_cell_file=bottom_cell_file(cfg))
+    if path == "prod_forced":
+        return cfg.with_(pt_interior_restore_max_level=cfg.km,
+                         s_interior_restore_max_level=cfg.km)
     if path != "prod_vmix":
         return cfg
     dz = vertical_dz(cfg)
@@ -500,6 +537,119 @@ def path_forcing(model):
     f = model.forcing
     return f.replace(u10_sqr=torch.full_like(f.fw, U10_SQR),
                      ifrac=torch.zeros_like(f.fw))
+
+
+# prod_forced's climatologies at the model's hour, and their interpolation
+FORCED_CLIMS = {"windspd": "4point", "tair": "linear", "qair": "linear",
+                "qsw": "linear", "cldfrac": "linear", "sst": "linear",
+                "sss": "linear", "precip": "linear", "chl": "linear"}
+
+
+def model_hour(model) -> float:
+    """The model's hour of its year, from its calendar."""
+    cal = model.time_manager.calendar
+    return (cal.year_fraction - cal.iyear) * forcing_tools.HOURS_PER_YEAR
+
+
+def wind_file(cfg, taux, tauy) -> str:
+    """``taux``/``tauy`` (12, ny, nx) written as one POP-format monthly
+    wind-stress file (``forcing.read_ws_file``'s layout: 12 records of the
+    (TAUX, TAUY) pair, big-endian float64), a file a grid shape."""
+    path = os.path.join(WIND_FILES.name, f"ws_{cfg.nx}_{cfg.ny}.ieeer8")
+    np.stack([taux, tauy], axis=1).astype(">f8").tofile(path)
+    return path
+
+
+class ForcedForcing:
+    """prod_forced's forcing of a step, composed around ``Model.advance`` as
+    the JAX package's tests compose a standalone forced run (and as
+    ``tests/test_torch_forcing.py`` does in both packages): the monthly
+    wind stress of a file (``file_wind_stress``); the bulk-NCEP heat flux
+    (``bulk_ncep``) and freshwater flux (``set_sfwf``, with the latent flux
+    of ``sen_lat_flux``) from 12-month seeded climatologies at the model's
+    hour (``sample.forcing_climatology``: 'linear', the wind speed
+    '4point') and the model's own SST and SSS; the marginal sea's salt and
+    freshwater fluxes balanced (``ms_balancing``); the runoff's virtual
+    salt flux (``river_vsf``); the chlorophyll at the model's hour; the
+    runoff at seeded coast points; the interior targets, the initial T/S
+    plus seeded noise; a 7 m/s wind and no ice (``path_forcing``). The
+    climatologies, the file's wind stress, the marginal sea and the targets
+    are made once, on the model's device."""
+
+    def __init__(self, cfg, grid, passive=None, seed: int = SEED + 41):
+        dev, dt = grid.KMT.device, cfg.torch_dtype
+        tr = initial_state(cfg, grid, dev, passive=passive
+                           ).tracer_cur.double().cpu().numpy()
+        clim = sample.forcing_climatology(
+            grid.kmask_t.cpu().numpy(), grid.TLAT.double().cpu().numpy(),
+            tr[0, 0], tr[1, 0], seed)
+        taux, tauy = forcing_mod.read_ws_file(
+            wind_file(cfg, clim["taux"], clim["tauy"]), cfg.ny, cfg.nx)
+        self.ws = [forcing_tools.MonthlyClimatology.create(a, device=dev)
+                   for a in (taux, tauy)]
+        self.clims = {k: forcing_tools.MonthlyClimatology.create(
+            clim[k], interp, device=dev)
+            for k, interp in FORCED_CLIMS.items()}
+        self.region = ms_balance.build_region(grid, clim["ms_mask"],
+                                              clim["ms_points"])
+
+        def tensor(a):
+            return torch.as_tensor(a, device=dev).to(dt)
+        self.roff = tensor(clim["roff"])
+        self.targets = (tensor(tr[0] + clim["t_noise"]),
+                        tensor(tr[1] + clim["s_noise"]))
+        self.river_points = int((clim["roff"] > 0).sum())
+
+    def surface_fluxes(self, cfg, grid, base, sst, sss, thour):
+        """{name: tensor} of the step's surface fields (float64 where the
+        climatologies are)."""
+        f = forcing_mod.file_wind_stress(cfg, grid, base, *self.ws, thour)
+        data = {k: c.at(thour) for k, c in self.clims.items()}
+        stf_t, qsw = forcing_shf.bulk_ncep(cfg, grid, sst, data)
+        _, qlat = forcing_shf.sen_lat_flux(data["windspd"], sst,
+                                           data["tair"], data["qair"])
+        out = forcing_sfwf.set_sfwf(cfg, grid, data["sss"], sss,
+                                    sst_surf=sst, qlat=qlat,
+                                    precip_data=data["precip"],
+                                    ocn_wgt=grid.RCALCT)
+        salt, fw = (ms_balance.ms_balancing(cfg, grid, x, [self.region])
+                    for x in (out.stf_salt, out.fw))
+        salt = salt + estuary.river_vsf(cfg, grid, self.roff, sss)
+        return dict(smf=f.smf, smft=f.smft, stf_t=stf_t, salt=salt,
+                    shf_qsw=qsw, fw=fw, tfw_t=out.tfw_temp, chl=data["chl"])
+
+    def __call__(self, model, state):
+        """The forcing of ``model``'s next step from ``state``."""
+        return self.compose(model.cfg, model.grid, model.forcing, state,
+                            model_hour(model))
+
+    def compose(self, cfg, grid, base, state, thour):
+        """``base`` with the fields of a step at hour ``thour`` from
+        ``state``."""
+        dt = cfg.torch_dtype
+        d = self.surface_fluxes(cfg, grid, base, state.tracer_cur[0, 0],
+                                state.tracer_cur[1, 0], thour)
+        stf, tfw = base.stf.clone(), base.tfw.clone()
+        stf[0], stf[1], tfw[0] = d["stf_t"], d["salt"], d["tfw_t"]
+        return base.replace(
+            smf=d["smf"].to(dt), smft=d["smft"].to(dt), stf=stf, tfw=tfw,
+            shf_qsw=d["shf_qsw"].to(dt), fw=d["fw"].to(dt),
+            chl=d["chl"].to(dt), roff_f=self.roff,
+            pt_interior_data=self.targets[0],
+            s_interior_data=self.targets[1],
+            u10_sqr=torch.full_like(base.fw, U10_SQR),
+            ifrac=torch.zeros_like(base.fw))
+
+
+def step_forcing(path: str, model):
+    """A function of the model and the state before a step that gives the
+    step's forcing: prod_forced's composed from that state
+    (``ForcedForcing``), every other path's the same each step
+    (``path_forcing``)."""
+    if path == "prod_forced":
+        return ForcedForcing(model.cfg, model.grid, model.passive)
+    forcing = path_forcing(model)
+    return lambda model, state: forcing
 
 
 def time_ms(fn, n_warm: int, n_timed: int) -> float:
@@ -2454,7 +2604,8 @@ def expected_counts(path: str, nsteps: int):
             "core_topo": ("tracer", "clinic"),
             "prod_eg": flux + ("gm_tlt",), "prod_aniso": flux,
             "core_lw": ("clinic", "gm_flux"),
-            "prod_pbc": ("tracer", "clinic"), "gm_pbc": chain}[path]
+            "prod_pbc": ("tracer", "clinic"), "gm_pbc": chain,
+            "prod_forced": chain}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
     if path in ("prod_flux", "prod_eg", "prod_aniso"):  # the tripole row
@@ -2481,15 +2632,16 @@ def expected_counts(path: str, nsteps: int):
 
 def path_phase(path: str, dtype_name: str):
     """Drive Model.advance at full size from the model's own initial state
-    (rest, the Levitus profile); the launch counters are zeroed just before
-    and read just after."""
+    (rest, the Levitus profile), on prod_forced under a forcing composed
+    anew each step; the launch counters are zeroed just before and read
+    just after."""
     nsteps = STEPS[path][dtype_name]
     cfg = full_config(dtype_name, path)
     model = Model(cfg)  # default device: the GPU
     if cfg.partial_bottom_cells and model.grid.DZBT is None:
         raise AssertionError(f"{path}: no partial bottom cells on the grid")
     state = model.initial_state()
-    forcing = path_forcing(model)
+    forcing = step_forcing(path, model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2497,7 +2649,7 @@ def path_phase(path: str, dtype_name: str):
     diag_step4 = None
     t0 = time.perf_counter()
     for n in range(1, nsteps + 1):
-        state, diags = model.advance(state, forcing)
+        state, diags = model.advance(state, forcing(model, state))
         iters.append(int(diags.solver_iters))
         if n == 4:  # early spin-up, for comparison with the JAX package
             diag_step4 = model.diagnostics(state)
@@ -2552,22 +2704,37 @@ def stratified_state(model, seed: int):
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
 
 
+# the last model ``_run_steps`` built without a stream, with its config and
+# device: the kernel run and the plain run of a comparison share it (its
+# construction, the FSPAI preconditioner and PCSI's bounds, is seconds at
+# full size and the same for both)
+_LAST_MODEL = []
+
+
+def _model(cfg, device):
+    if not (_LAST_MODEL and _LAST_MODEL[0][:2] == (cfg, str(device))):
+        _LAST_MODEL[:] = [(cfg, str(device), Model(cfg, device=device))]
+    return _LAST_MODEL[0][2]
+
+
 def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False,
-               tavg: bool = False):
-    """(state, iterations a step) of ``nsteps`` of ``Model.advance``; with
-    ``tavg`` a third item, the averages of a stream of every field the
-    configuration evaluates over those steps (it writes no file)."""
-    model = Model(cfg, device=device)
+               tavg: bool = False, path: str = ""):
+    """(state, iterations a step) of ``nsteps`` of ``Model.advance`` under
+    the path's forcing (``step_forcing``), from the model's initial state
+    (its calendar reset); with ``tavg`` a third item, the averages of a
+    stream of every field the configuration evaluates over those steps (it
+    writes no file; the model is its own, not shared)."""
+    model = Model(cfg, device=device) if tavg else _model(cfg, device)
     stream = None
     if tavg:
         stream = model.enable_tavg(probe_fields(model, None)[0],
                                    freq_steps=10 ** 9)
     state = (stratified_state(model, SEED + 7) if stratified
              else model.initial_state())
-    forcing = path_forcing(model)
+    forcing = step_forcing(path, model)
     iters = []
     for _ in range(nsteps):
-        state, diags = model.advance(state, forcing)
+        state, diags = model.advance(state, forcing(model, state))
         iters.append(int(diags.solver_iters))
     if tavg:
         return state, iters, stream.averages()
@@ -2616,7 +2783,7 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def path_vs_plain_phase(path: str, nsteps: int = 5):
+def path_vs_plain_phase(path: str, nsteps: int = 3):
     """nsteps with the kernels against nsteps with the plain versions forced,
     same initial state, at full size: float64 first, then float32, where both
     runs are also held against the float64 run (the witness that their
@@ -2628,11 +2795,13 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
     for dtype_name in ("float64", "float32"):
         cfg = full_config(dtype_name, path)
         reset_counts()
-        s_kernel, it_k = _run_steps(cfg, nsteps, stratified=stratified)
+        s_kernel, it_k = _run_steps(cfg, nsteps, stratified=stratified,
+                                    path=path)
         n_kernel = read_counts()
         reset_counts()
         with plain_versions():
-            s_plain, it_p = _run_steps(cfg, nsteps, stratified=stratified)
+            s_plain, it_p = _run_steps(cfg, nsteps, stratified=stratified,
+                                       path=path)
         if any(read_counts().values()) or not all(n_kernel[k]
                                                   for k in on_path):
             raise AssertionError("the comparison did not separate the "
@@ -2662,6 +2831,7 @@ def path_vs_plain_phase(path: str, nsteps: int = 5):
             raise AssertionError(f"{path} {dtype_name} path with kernels "
                                  f"differs from the plain path beyond its "
                                  f"band: {broken}")
+    _LAST_MODEL.clear()
 
 
 def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
@@ -2791,7 +2961,7 @@ RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
             ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
             ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
             ("prod_aniso", "float32", 6), ("core_lw", "float32", 6),
-            ("prod_pbc", "float32", 6))
+            ("prod_pbc", "float32", 6), ("prod_forced", "float32", 6))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -2905,9 +3075,11 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     t_phase = time.perf_counter()
     cfg = full_config(dtype_name, path)
     model = Model(cfg)
-    forcing = path_forcing(model)
     allowed = solver_read_lines()
     start = model.initial_state()
+    # one forcing for the run (prod_forced's composed from the start, every
+    # field of its menu set)
+    forcing = step_forcing(path, model)(model, start)
     lunar = model._lnc is not None
     lunar_log = []  # (the static buffer after a captured step, the factor)
 
@@ -3010,6 +3182,10 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
         t0 = time.perf_counter()
         out["restart"] = restart_round_trip(model, forcing)
         parts["restart"] = time.perf_counter() - t0
+    if path == "prod_forced":
+        t0 = time.perf_counter()
+        out["rebuild"] = rebuild_check(model, s_comp, forcing, nsteps)
+        parts["rebuild"] = time.perf_counter() - t0
     if lunar:
         got = [float(b) for b, _ in lunar_log]
         want = [float(torch.tensor(w, dtype=cfg.torch_dtype))
@@ -3035,6 +3211,10 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     if path == "prod_full" and dtype_name == "float32" \
             and not out["restart"]["equal"]:
         broken.append("restart round trip")
+    if path == "prod_forced" and not (out["rebuild"]["rebuilt"]
+                                      and out["rebuild"]["equal"]):
+        broken.append(f"rebuild for another forcing structure "
+                      f"{out['rebuild']}")
     if broken:
         raise AssertionError(f"run_loop {path} {dtype_name}: "
                              + "; ".join(broken))
@@ -3313,6 +3493,35 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
     return {"launches": n_c, "replays": cap.replays}
 
 
+def rebuild_check(model, state, forcing, nsteps: int):
+    """Two steps of ``run_compiled`` from ``state`` (after ``nsteps``)
+    under ``forcing`` without its chlorophyll and runoff, another set of
+    tensor fields: the captured step must be built again (a new
+    ``CapturedStep`` whose forcing buffers lack the two fields, captured
+    and replayed) and the state must equal two steps of ``advance``
+    bitwise."""
+    from pop2_tpu_torch import graphs
+    other = forcing.replace(chl=None, roff_f=None)
+    model.time_manager.reset()
+    model.nsteps_total = nsteps
+    eager = model.run(state, 2, other)
+    model.time_manager.reset()
+    model.nsteps_total = nsteps
+    first = model._captured
+    got, _ = model.run_compiled(state, 2, other)
+    new = model._captured
+    diff = _leaf_spread(got, eager)
+    dropped = sorted(graphs.structure(first.forcing)
+                     - graphs.structure(new.forcing))
+    return {"steps": 2, "new_captured_step": new is not first,
+            "fields_dropped": dropped, "graphs": new.graphs,
+            "replays": new.replays,
+            "rebuilt": (new is not first and dropped == ["chl", "roff_f"]
+                        and new.replays > 0),
+            "equal": all(v == 0.0 for v in diff.values()),
+            "max_abs": max(diff.values())}
+
+
 def restart_round_trip(model, forcing):
     """RESTART_STEPS captured steps, a checkpoint written and read back,
     RESTART_STEPS more, against 2 RESTART_STEPS straight: every leaf equal
@@ -3348,10 +3557,12 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     stratified = path not in ("core", "core_topo")
     tavg = path == "core"  # with a tavg stream on 'mini'
     reset_counts()
-    s_gpu, it_g, *av_g = _run_steps(cfg, nsteps, DEV, stratified, tavg)
+    s_gpu, it_g, *av_g = _run_steps(cfg, nsteps, DEV, stratified, tavg,
+                                    path)
     counts = read_counts()
     s_cpu, it_c, *av_c = _run_steps(cfg, nsteps, torch.device("cpu"),
-                                    stratified, tavg)
+                                    stratified, tavg, path)
+    _LAST_MODEL.clear()
     if read_counts() != counts:
         raise AssertionError("the CPU run launched a kernel")
     diffs = _state_diffs(s_gpu, s_cpu)
@@ -3375,6 +3586,219 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     emit(out)
     if broken:
         raise AssertionError(f"GPU and CPU paths differ: {broken}")
+
+
+def _scale_err(got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zero), ``want``
+    moved to ``got``'s device."""
+    want = want.to(got.device)
+    return float((got - want).abs().max()) / (float(want.abs().max())
+                                               or 1.0)
+
+
+def forcing_phase(captured: dict, n_timed: int = 10):
+    """Every ported forcing function at prod_forced's full size on the card
+    against the same function on the CPU, in float64, each output within
+    FORCING_BAND of its scale: the monthly climatology ('nearest',
+    'linear', '4point', hours across the year's wrap and negative), a time
+    series (both tax modes), the wind stress of a file on the tripole grid,
+    the surface restoring, ``sen_lat_flux``, ``bulk_ncep``,
+    ``barnier_restoring``, ``set_sfwf`` (restoring; bulk-NCEP with
+    ``lfw_as_salt_flx`` and without), ``ms_balancing``, ``river_vsf``,
+    ``ebm_solve`` (both branches of its cubic), ``exchange_circulation``
+    with its interface flux, ``import_mcog`` (five columns in three bins),
+    a running mean, a hydrographic section, and the whole composed forcing
+    of a step (``ForcedForcing``). Then the time of building one step's
+    forcing (CUDA events around each build, the median of ``n_timed``) in
+    float32 and float64, and its share of a captured prod_forced step
+    (``captured``: run_loop_phase's result in float32)."""
+    t_phase = time.perf_counter()
+    cfg = full_config("float64", "prod_forced")
+    model = Model(cfg)
+    gpu = model.grid
+    cpu = gpu.to("cpu")
+    rng = np.random.RandomState(SEED + 43)
+    state = initial_state(cfg, gpu, DEV, passive=model.passive)
+    tr = state.tracer_cur.double().cpu().numpy()
+    clim = sample.forcing_climatology(
+        gpu.kmask_t.cpu().numpy(), gpu.TLAT.double().cpu().numpy(),
+        tr[0, 0], tr[1, 0], SEED + 41)
+    shape = (cfg.ny, cfg.nx)
+    month = {k: clim[k][7] for k in FORCED_CLIMS}
+    sst, sss = tr[0, 0], tr[1, 0]
+    tau = np.where(rng.rand(*shape) < 0.2, 0.0, 30.0 * 86400.0)
+    mcog_frac = rng.rand(5, *shape)
+    mcog_frac /= mcog_frac.sum(axis=0) * rng.uniform(0.9, 1.1, shape)
+    mcog_fracr = mcog_frac * rng.uniform(0.5, 1.0, mcog_frac.shape)
+    mcog_q = 200.0 * mcog_fracr * rng.rand(*mcog_frac.shape)
+    ebm = dict(q_river=10.0 ** rng.uniform(0.0, 5.0, shape),
+               tide_amp=rng.uniform(0.2, 3.0, shape),
+               s_lower=rng.uniform(5.0, 35.0, shape),
+               w_h=rng.uniform(500.0, 5000.0, shape),
+               h=rng.uniform(5.0, 20.0, shape),
+               a2=rng.uniform(-1.0, 1.0, shape))
+    mask = gpu.kmask_t.cpu().numpy()
+    tr3 = np.stack([(10.0 + rng.randn(*mask.shape)) * mask,
+                    (0.034 + 1e-3 * rng.randn(*mask.shape)) * mask])
+    years = np.array([1850.0, 1900.0, 1950.0, 2000.0])
+    series = rng.rand(4, *shape)
+    ws = wind_file(cfg, clim["taux"], clim["tauy"])
+    points = [(-30.0, 20.0), (0.0, 100.0), (40.0, -60.0), (60.0, 300.0)]
+
+    def cases(grid):
+        dev = grid.KMT.device
+        c = cfg.with_(sfwf_restore_tau=30.0)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+        out = {}
+        for interp in ("nearest", "linear", "4point"):
+            mc = forcing_tools.MonthlyClimatology.create(clim["sst"], interp,
+                                                         device=dev)
+            out[f"climatology_{interp}"] = [
+                mc.at(h) for h in (0.0, 300.0, 8700.0, -500.0, 20000.0)]
+        ts = forcing_tools.TimeSeries.create(years, series, device=dev)
+        out["time_series"] = [ts.at(y, m) for y in (1800.0, 1923.0, 2050.0)
+                              for m in ("extend", "extrapolate")]
+        base = forcing_mod.analytic_forcing(cfg, grid)
+        f = forcing_mod.file_wind_stress(
+            cfg, grid, base, *forcing_mod.read_ws_file(ws, *shape),
+            torch.tensor(5000.0))
+        out["file_wind_stress"] = [f.smf, f.smft]
+        out["restoring_forcing"] = [forcing_mod.restoring_forcing(
+            cfg, grid, base, t(month["sst"]), t(month["sss"]), t(sst),
+            t(sss)).stf]
+        data = {k: t(v) for k, v in month.items()}
+        out["sen_lat_flux"] = list(forcing_shf.sen_lat_flux(
+            data["windspd"], t(sst), data["tair"], data["qair"]))
+        out["bulk_ncep"] = list(forcing_shf.bulk_ncep(cfg, grid, t(sst),
+                                                      data))
+        out["barnier_restoring"] = list(forcing_shf.barnier_restoring(
+            cfg, grid, t(sst), data["sst"], t(tau), data["qsw"]))
+        for name, over in (("restoring", dict(sfwf_formulation="restoring")),
+                           ("bulk_salt_flux", dict(lfw_as_salt_flx=True)),
+                           ("bulk_freshwater", {})):
+            o = forcing_sfwf.set_sfwf(
+                c.with_(**over), grid, data["sss"], t(sss), sst_surf=t(sst),
+                qlat=out["sen_lat_flux"][1], precip_data=data["precip"],
+                ocn_wgt=grid.RCALCT, mask_sr=t(1.0 - clim["ms_mask"]))
+            out[f"set_sfwf_{name}"] = list(o)
+        region = ms_balance.build_region(grid, clim["ms_mask"],
+                                         clim["ms_points"])
+        out["ms_balancing"] = [ms_balance.ms_balancing(
+            cfg, grid, data["precip"], [region])]
+        out["river_vsf"] = [estuary.river_vsf(cfg, grid, t(clim["roff"]),
+                                              t(sss))]
+        # the box model at the path's river points, with the config's
+        # estuary parameters and the surface salinity as the lower layer's
+        out["ebm_solve"] = list(estuary.ebm_solve(
+            t(clim["roff"]) * const.FWMASS_TO_FWFLUX * grid.TAREA * 1.0e-6,
+            cfg.est_tide_amp, t(sss) * const.SALT_TO_PPT,
+            cfg.est_mouth_width, cfg.est_mouth_depth, cfg.est_length_a1,
+            cfg.est_tidal_pump_a2, cfg.est_lower_depth_ratio))
+        # and on seeded inputs that reach both branches of its cubic (held
+        # apart: near a double root the roots are ill-conditioned)
+        eb = {k: t(v) for k, v in ebm.items()}
+        coef = estuary.ebm_coefficients(**eb, a1=0.876, h0=0.5)
+        disc = estuary.cubic_discriminant(*coef[3:])[2]
+        branches = estuary.ebm_solve(**eb, a1=0.876, h0=0.5)
+        out["ebm_branches"] = [(disc > 0).double(), (disc <= 0).double()]
+        w = estuary.device_layer_weights(cfg, grid, torch.float64)
+        out["exchange_circulation"] = list(estuary.exchange_circulation(
+            cfg, grid, t(tr3), t(clim["roff"]), *w, want_flux=True))
+        bins = mcog.import_mcog(t(mcog_frac), t(mcog_fracr), t(mcog_q),
+                                t(mcog_q.sum(axis=0)), grid.KMT,
+                                col_to_bin=(0, 0, 1, 2, 2), debug=True)
+        out["import_mcog"] = [b for b in bins if b is not None]
+        rm = running_mean.RunningMeans(cfg.time.dtt)
+        rm.define("sst", 5 * 86400.0, t(sst))
+        out["running_mean"] = [rm.update("sst", data["sst"])]
+        sec = samplers.HydroSection(grid, points)
+        st = state.to(dev).replace(tracer_cur=t(tr3))
+        out["hydro_section"] = list(sec.sample(st).values())
+        comp = ForcedForcing(cfg, grid, model.passive)
+        out["composed_forcing"] = [v for _, v in comp.compose(
+            cfg, grid, base, st, 1000.0).leaves()]
+        return (out, int((disc > 0).sum()), int((disc <= 0).sum()),
+                comp.river_points, branches)
+
+    got, n_one, n_three, rivers, g_br = cases(gpu)
+    want, _, _, _, w_br = cases(cpu)
+    errs = {name: max(_scale_err(g, w) for g, w in zip(got[name],
+                                                        want[name]))
+            for name in want}
+    if not (n_one and n_three):
+        raise AssertionError(f"ebm_solve reached one branch only: "
+                             f"{n_one} one-root, {n_three} three-root points")
+    branches = ebm_conditioning(ebm, g_br, w_br)
+
+    # the build of a step's forcing, and its share of a captured step
+    timing = {}
+    for dtype_name in ("float32", "float64"):
+        m = Model(full_config(dtype_name, "prod_forced"))
+        comp = ForcedForcing(m.cfg, m.grid, m.passive)
+        st = m.initial_state()
+        timing[dtype_name] = time_ms(lambda: comp(m, st), 2, n_timed)
+        del m, comp, st
+    step_ms = 1e3 / captured["steps_per_s_leapfrog_captured"]
+    out = {"phase": "forcing", "path": "prod_forced",
+           "dims": [cfg.nx, cfg.ny, cfg.km], "dtype": "float64",
+           "gpu_vs_cpu_rel_err": errs, "band": FORCING_BAND,
+           "worst": max(errs, key=errs.get),
+           "ebm_points_one_root": n_one, "ebm_points_three_roots": n_three,
+           "ebm_solve_both_branches": branches,
+           "river_points": rivers,
+           "build_ms": timing,
+           "captured_step_ms_float32": step_ms,
+           "captured_step_device_ms_float32": captured["device_ms_per_step"],
+           "build_share_of_captured_step_float32": (
+               timing["float32"] / step_ms),
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    broken = {k: v for k, v in errs.items() if not v <= FORCING_BAND}
+    if not branches["within_conditioning"]:
+        broken["ebm_solve_both_branches"] = branches
+    if broken:
+        raise AssertionError(f"forcing functions on the GPU differ from the "
+                             f"CPU beyond {FORCING_BAND}: {broken}")
+    return out
+
+
+def ebm_conditioning(inputs, got, want, n_perturb: int = 3):
+    """The box model on the card (``got``) against the CPU (``want``) on
+    seeded inputs that reach both branches of its cubic, where some points
+    lie near a double root (the discriminant within rounding of zero):
+    there the roots move by about the square root of a change of the
+    coefficients, and a last-bit difference of the card's and the CPU's
+    pow, arccos or cos moves them by up to about 1e-8. Each point is held
+    to FORCING_BAND of the output's scale plus twice the CPU's own response
+    to a random relative change of 4 ulps of every input (the largest over
+    ``n_perturb`` changes): the card agrees with the CPU as closely as the
+    CPU agrees with itself. Returns the plain error, the points beyond
+    FORCING_BAND and whether every point is within its allowance."""
+    eps = 4.0 * torch.finfo(torch.float64).eps
+    gen = torch.Generator().manual_seed(SEED + 44)
+    cpu = {k: torch.as_tensor(v) for k, v in inputs.items()}
+    sens = [torch.zeros_like(w) for w in want]
+    for _ in range(n_perturb):
+        moved = {k: v * (1.0 + eps * (2.0 * torch.rand(
+            v.shape, generator=gen, dtype=v.dtype) - 1.0))
+            for k, v in cpu.items()}
+        for s, m, w in zip(sens, estuary.ebm_solve(**moved, a1=0.876,
+                                                   h0=0.5), want):
+            torch.maximum(s, (m - w).abs(), out=s)
+    out = {"rel_err": 0.0, "points_beyond_band": 0, "within_conditioning":
+           True, "worst_err_over_allowance": 0.0}
+    for g, w, s in zip(got, want, sens):
+        err = (g.cpu() - w).abs()
+        scale = float(w.abs().max()) or 1.0
+        allow = FORCING_BAND * scale + 2.0 * s
+        out["rel_err"] = max(out["rel_err"], float(err.max()) / scale)
+        out["points_beyond_band"] += int((err > FORCING_BAND * scale).sum())
+        out["worst_err_over_allowance"] = max(
+            out["worst_err_over_allowance"], float((err / allow).max()))
+        out["within_conditioning"] &= bool((err <= allow).all())
+    return out
 
 
 def ptxas_summary(log: str | None = None):
@@ -3535,10 +3959,11 @@ def main():
             run(breakdown_phase, path, "float32", True)
         run(small_vs_cpu_phase, path)
     for path in ("prod_vmix", "prod_hmix", "core_topo", "prod_eg",
-                 "prod_aniso", "core_lw", "prod_pbc"):
+                 "prod_aniso", "core_lw", "prod_pbc", "prod_forced"):
         run(path_vs_plain_phase, path)
         run(small_vs_cpu_phase, path)
-    run(path_vs_plain_phase, "gm_pbc", 3)
+    run(forcing_phase, captured[("prod_forced", "float32")])
+    run(path_vs_plain_phase, "gm_pbc")
     run(breakdown_phase, "gm_pbc", "float32")
     run(small_vs_cpu_phase, "prod_flux")
     run(overflow_phase)
@@ -3559,6 +3984,8 @@ def main():
                             "path": PATH_OF[name], "launches": n,
                             "launches_run_compiled": (
                                 run["launches"][counter] if run else None),
+                            "launches_prod_forced": launches[
+                                ("prod_forced", dtype_name)][counter],
                             **r, "library_ms": None})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

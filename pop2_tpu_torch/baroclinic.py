@@ -20,10 +20,10 @@ mixing, the submesoscale scheme (folded into the GM chain kernel where
 that runs, its own tendency otherwise), the chlorophyll (or Jerlov)
 shortwave heating, frazil ice, the passive tracers' surface fluxes,
 interior sources and resets, the overflows' tracer exchange, the
-geothermal bottom heat flux and depth acceleration. The branches of the
-JAX package's driver for interior restoring and estuaries are left out;
-``supported.check_supported`` refuses the config switches that would
-select them.
+geothermal bottom heat flux and depth acceleration, the interior T/S
+restoring toward the forcing's 3-D targets, and the estuary box model's
+exchange circulation at the forcing's river points (``estuary``), all
+plain. Under ``chl_option='file'`` the chlorophyll is the forcing's.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pop2_tpu_torch import advect, clinic_cuda, eos, gm, gm_chain_cuda, hmix
-from pop2_tpu_torch import ice
+from pop2_tpu_torch import estuary, ice
 from pop2_tpu_torch import kpp
 from pop2_tpu_torch import overflows, submeso, sw_absorption, tracer_cuda
 from pop2_tpu_torch import tridiag, vmix
@@ -108,10 +108,15 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         tmix, umix, vmix_m, rhomix = (state.tracer_cur, state.u_cur,
                                       state.v_cur, state.rho_cur)
 
-    # the constant chlorophyll field of the Ohlmann transmission, shared by
-    # KPP's radiative boundary-layer term and the shortwave heating below
-    chl = (torch.full_like(forcing.shf_qsw, cfg.chl_const)
-           if cfg.sw_absorption == "chlorophyll" else None)
+    # the chlorophyll field of the Ohlmann transmission, shared by KPP's
+    # radiative boundary-layer term and the shortwave heating below: the
+    # forcing's under chl_option='file', else (or without one) the constant
+    chl = None
+    if cfg.sw_absorption == "chlorophyll":
+        if cfg.chl_option == "file":
+            chl = forcing.chl
+        if chl is None:
+            chl = torch.full_like(forcing.shf_qsw, cfg.chl_const)
 
     # ---- vertical mixing coefficients (source/baroclinic.F90:714-734) -----
     coeffs = vmix.vmix_coeffs(cfg, grid, bc, tmix, umix, vmix_m, rhomix,
@@ -185,7 +190,7 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
         ft += kpp.kpp_sources(cfg, grid, kppo.ghat_src, forcing.stf)
     # penetrative shortwave heating (add_sw_absorb,
     # source/sw_absorption.F90:818): the Jerlov profile, or the Ohlmann
-    # chlorophyll transmission of a constant chlorophyll field
+    # chlorophyll transmission of the chlorophyll field above
     if cfg.sw_absorption == "jerlov" and sw_profile is not None:
         ft = sw_absorption.add_sw_absorb(cfg, grid, ft, forcing.shf_qsw,
                                          sw_profile)
@@ -198,6 +203,33 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
     if with_passive:
         ft[2:] += passive.set_interior(cfg, grid, state.tracer_old,
                                        state.tracer_cur, forcing=forcing)
+    # T/S interior restoring (set_pt_interior, forcing_pt_interior.F90:569-
+    # 668; set_s_interior, forcing_s_interior.F90): toward the forcing's 3-D
+    # targets down to restore_max_level, the surface level only where
+    # surface restoring is on
+    for n, data, tau_d, maxlev, sfc in (
+            (0, forcing.pt_interior_data, cfg.pt_interior_restore_tau_days,
+             cfg.pt_interior_restore_max_level,
+             cfg.pt_interior_surface_restore),
+            (1, forcing.s_interior_data, cfg.s_interior_restore_tau_days,
+             cfg.s_interior_restore_max_level,
+             cfg.s_interior_surface_restore)):
+        if data is not None:
+            rtau = 1.0 / (tau_d * 86400.0)
+            kidx = torch.arange(cfg.km, device=ft.device).reshape(cfg.km, 1,
+                                                                  1)
+            mask = grid.kmask_t & (kidx < maxlev)
+            if not sfc:
+                mask = mask & (kidx > 0)
+            ft[n] += torch.where(mask, rtau * (data - state.tracer_cur[n]),
+                                 0.0)
+    # estuary exchange circulation (set_estuary_exch_circ,
+    # source/estuary_vsf_mod.F90:645-755): vertical redistribution by the
+    # box model's exchange flow at the river points
+    if cfg.lestuary_exch and forcing.roff_f is not None:
+        w_up, w_lo = estuary.device_layer_weights(cfg, grid, ft.dtype)
+        ft += estuary.exchange_circulation(cfg, grid, state.tracer_cur,
+                                           forcing.roff_f, w_up, w_lo)
     # overflow parameterization (ovf_driver, source/overflows.F90:3477; the
     # conservative regional exchange of overflows.py)
     if cfg.overflows and ovf_statics is not None:

@@ -47,8 +47,13 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], cfg: ModelConfig,
 def forcing_from_numpy(fields: Mapping[str, np.ndarray], cfg: ModelConfig,
                        device="cuda") -> Forcing:
     """A ``Forcing`` on ``device`` (default as ``state_from_numpy``) from a
-    dict of NumPy arrays; keys the port does not carry (the JAX package's
-    optional forcing fields) are ignored."""
+    dict of NumPy arrays. The port's ``Forcing`` has every field of the JAX
+    package's, so a key that names none of them raises ``KeyError``:
+    nothing is dropped."""
+    known = {f.name for f in dataclasses.fields(Forcing)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise KeyError(f"not fields of Forcing: {unknown}")
     return _from_numpy(Forcing, fields, cfg, device)
 
 

@@ -106,26 +106,36 @@ def _tensor_fields(tree):
             if isinstance(getattr(tree, f.name), torch.Tensor)]
 
 
+def structure(tree) -> frozenset:
+    """The names of ``tree``'s tensor fields: two trees of one dataclass
+    with the same structure fill the same buffers."""
+    return frozenset(name for name, _ in _tensor_fields(tree))
+
+
 def assign(dst, src) -> None:
     """Copy each tensor field of ``src`` into ``dst``'s (same dataclass).
-    A field of ``src`` may be one of ``dst``'s buffers (the step hands the
-    current level on as the old one): such a copy goes before the copy
-    that overwrites its source."""
+    The two must hold tensors in the same fields: a field that is a tensor
+    in one and None in the other raises before anything is copied (a
+    buffer captured without a field cannot carry it, and one captured with
+    it would step a stale value), and so does a dtype or shape that
+    differs. A field of ``src`` may be one of ``dst``'s buffers (the step
+    hands the current level on as the old one): such a copy goes before
+    the copy that overwrites its source."""
+    missing = sorted(structure(dst) - structure(src))
+    extra = sorted(structure(src) - structure(dst))
+    if missing or extra:
+        raise ValueError(
+            f"{type(src).__name__} fields {extra} have no buffer and "
+            f"{missing} have no value: the captured step was built for "
+            "another structure and must be built again")
     pending = []
     for name, d in _tensor_fields(dst):
         s = getattr(src, name)
-        if not isinstance(s, torch.Tensor):
-            raise ValueError(f"{name}: no tensor to copy into the buffer")
         if s.shape != d.shape or s.dtype != d.dtype:
             raise ValueError(f"{name}: {s.dtype} {tuple(s.shape)} into a "
                              f"buffer of {d.dtype} {tuple(d.shape)}")
         if s is not d:
             pending.append((d, s))
-    extra = [name for name, _ in _tensor_fields(src)
-             if not isinstance(getattr(dst, name), torch.Tensor)]
-    if extra:
-        raise ValueError(f"{extra}: no buffer to copy into (the graphs were "
-                         "captured without them)")
     while pending:
         reads = Counter(_storage(s) for _, s in pending)
         ready = [i for i, (d, _) in enumerate(pending)
@@ -299,6 +309,11 @@ class CapturedStep:
     def export(self) -> State:
         """The current state, in tensors of the caller's own."""
         return _clone_tree(self.state)
+
+    def accepts(self, forcing: Forcing) -> bool:
+        """Whether ``forcing`` fills the static forcing buffers (the same
+        tensor fields); if not, the step must be built again."""
+        return structure(forcing) == structure(self.forcing)
 
     def step(self, forcing: Forcing) -> None:
         """One plain leapfrog step of the buffered state under

@@ -335,7 +335,8 @@ class Model:
         every step goes through ``advance``. Under ``ltidal_lunar_cycle``
         the lunar factor is read from the calendar before every step and
         copied into the captured step's static forcing buffer before its
-        replay. Returns (state, diagnostics of the last step). The state
+        replay. A forcing whose set of tensor fields differs from the one
+        the step was captured with builds a new captured step. Returns (state, diagnostics of the last step). The state
         returned is the caller's own; the graphs' buffers stay inside the
         model."""
         forcing = forcing or self.forcing
@@ -351,6 +352,14 @@ class Model:
             if leapfrog and not avg_ts and (self._captured is not None
                                             or self._eager_leapfrog_done):
                 step_forcing = self._lunar_forcing(forcing)
+                if self._captured is not None \
+                        and not self._captured.accepts(step_forcing):
+                    # another set of forcing fields: its buffers differ, so
+                    # the step is built and captured again (the JAX
+                    # package traces its scan again)
+                    if in_graph:
+                        state, in_graph = self._captured.export(), False
+                    self._captured = None
                 if self._captured is None:
                     self._captured = graphs.CapturedStep(self, state,
                                                          step_forcing)

@@ -1,7 +1,7 @@
 """Seeded sample inputs: production-shaped isopycnal slopes for checks of the
 GM/Redi path, a stepped bottom with ocean across a tripole fold for checks
-of the kernels' north edge, partial bottom cells, and a depth-acceleration
-profile. The CPU tests
+of the kernels' north edge, partial bottom cells, a depth-acceleration
+profile, and the climatologies of a forced run. The CPU tests
 hand them to this package and to its reference, the GPU smoke test to the
 kernels and their plain versions."""
 
@@ -199,3 +199,82 @@ def depth_accel_profile(zt, depth=1000.0e2, deepest=2.0):
     zt = np.asarray(zt, np.float64)
     ramp = np.clip((zt - depth) / (zt[-1] - depth), 0.0, 1.0)
     return tuple(float(1.0 + (deepest - 1.0) * r) for r in ramp)
+
+
+def coast_points(kmt) -> np.ndarray:
+    """(ny, nx) bool: ocean cells with a land neighbour to the north,
+    south, east or west (the rows beyond the grid's edges count as land,
+    the columns wrap)."""
+    ocean = np.asarray(kmt) > 0
+    pad = np.pad(ocean, ((1, 1), (0, 0)))
+    land_nb = ~(pad[2:] & pad[:-2] & np.roll(ocean, 1, axis=1)
+                & np.roll(ocean, -1, axis=1))
+    return ocean & land_nb
+
+
+def forcing_climatology(kmask_t, tlat, sst, sss, seed):
+    """Seeded monthly climatologies and static fields of a forced run (the
+    bulk-NCEP heat and freshwater fluxes, a monthly wind stress, the
+    chlorophyll, river runoff, a marginal sea, the interior restoring
+    targets' noise), host NumPy float64, plausible for the surface state
+    (``sst`` degC, ``sss`` msu, each (ny, nx)):
+
+    - ``taux``, ``tauy`` (12, ny, nx) at U points, dyn/cm^2: an easterly
+      and westerly pattern in latitude with a seasonal swing;
+    - ``windspd`` 3-12 m/s, ``tair`` 3 K below to 1 K above the SST (K),
+      ``qair`` at 60-90 % of saturation (kg/kg), ``qsw`` 0-300 W/m^2,
+      ``cldfrac`` 0.2-0.9, ``sst`` the SST and ``sss`` the SSS with noise
+      of 0.3 K and 0.1 psu, ``precip`` 1-4 mm/day (kg/m^2/s),
+      ``chl`` 0.05-2 mg/m^3, each (12, ny, nx);
+    - ``roff`` (ny, nx): 0.1-1 mm/day (kg/m^2/s) at about half of the
+      coast points (``coast_points``), zero elsewhere;
+    - ``ms_mask`` (ny, nx) a 3x3 marginal sea inside the ocean, and
+      ``ms_points`` the two ocean points two cells west and east of it;
+    - ``t_noise``, ``s_noise`` (km, ny, nx): 0.1 K and 0.02 psu of noise
+      for the interior restoring targets."""
+    rng = np.random.RandomState(seed)
+    mask = np.asarray(kmask_t)
+    km, ny, nx = mask.shape
+    kmt = mask.sum(axis=0)
+    lat = np.asarray(tlat, np.float64)
+    sst = np.asarray(sst, np.float64)
+    sss = np.asarray(sss, np.float64)
+    phase = 2.0 * np.pi * (np.arange(12) + 0.5) / 12.0
+    season = np.sin(phase)[:, None, None] * np.sin(lat)[None]
+
+    def noise(scale):
+        return scale * rng.randn(12, ny, nx)
+
+    def uniform(low, high):
+        return rng.uniform(low, high, (12, ny, nx))
+
+    out = {
+        "taux": -np.cos(3.0 * lat)[None] + 0.3 * season + noise(0.1),
+        "tauy": 0.2 * np.sin(2.0 * lat)[None] + noise(0.05),
+        "windspd": np.clip(7.5 + 3.0 * season + noise(1.0), 3.0, 12.0),
+        "tair": sst[None] + 273.15 + uniform(-3.0, 1.0),
+    }
+    out["qair"] = (uniform(0.6, 0.9) * 640380.0
+                   / np.exp(5107.4 / out["tair"]) / 1.2)
+    out.update(
+        qsw=np.clip(150.0 + 100.0 * np.cos(lat)[None] * (1.0 + season)
+                    + noise(20.0), 0.0, 300.0),
+        cldfrac=uniform(0.2, 0.9),
+        sst=sst[None] + noise(0.3),
+        sss=sss[None] + noise(1.0e-4),
+        precip=uniform(1.0, 4.0) / 86400.0,
+        chl=np.exp(uniform(np.log(0.05), np.log(2.0))))
+    coast = coast_points(kmt)
+    rivers = coast & (rng.rand(ny, nx) < 0.5)
+    out["roff"] = np.where(rivers, rng.uniform(0.1, 1.0, (ny, nx)),
+                           0.0) / 86400.0
+    # the marginal sea: a 3x3 box whose 3x7 surroundings are ocean
+    inner = [(j, i) for j in range(1, ny - 1) for i in range(3, nx - 3)
+             if (kmt[j - 1:j + 2, i - 3:i + 4] > 0).all()]
+    j, i = inner[rng.randint(len(inner))]
+    ms = np.zeros((ny, nx))
+    ms[j - 1:j + 2, i - 1:i + 2] = 1.0
+    out.update(ms_mask=ms, ms_points=[(j, i - 2), (j, i + 2)],
+               t_noise=0.1 * rng.randn(km, ny, nx) * mask,
+               s_noise=2.0e-5 * rng.randn(km, ny, nx) * mask)
+    return out

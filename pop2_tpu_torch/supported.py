@@ -45,15 +45,12 @@ def unsupported(cfg: ModelConfig) -> list:
          f"vmix={cfg.vmix!r}"),
         (not cfg.implicit_vertical_mix,
          "explicit vertical mixing (absent from the JAX package too)"),
-        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option == "file",
-         "chl_option='file' (Queue 1 item 11: chlorophyll from a file)"),
         (cfg.sw_absorption == "chlorophyll" and cfg.chl_option == "model",
          "chl_option='model' (Queue 1 item 11: chlorophyll of the ecosystem "
          "model, ecosys.py)"),
         (cfg.sw_absorption == "chlorophyll"
          and cfg.chl_option not in ("const", "file", "model"),
          f"chl_option={cfg.chl_option!r}"),
-        (cfg.lestuary_exch, "lestuary_exch (Queue 1 item 11: estuary.py)"),
         (cfg.ltidal_mixing and cfg.tidal_mixing_method not in (
             "jayne", "polzin", "schmittner"),
          f"tidal_mixing_method={cfg.tidal_mixing_method!r}"),

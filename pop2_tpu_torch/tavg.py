@@ -47,7 +47,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from pop2_tpu_torch import constants as const
+from pop2_tpu_torch import constants as const, estuary
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid
 from pop2_tpu_torch.state import State
@@ -345,12 +345,11 @@ _register("ATM_PRESS", "Atmospheric pressure", "dyn/cm^2", 2,
 
 
 def _fcomp(attr, name):
-    """A forcing field the port's ``Forcing`` may not carry (the runoff, the
-    ice fraction, the per-component coupler fluxes of forcing_coupled.F90's
-    tavg calls): zero where it is absent, as in the JAX package where it is
-    None."""
+    """An optional forcing field (the runoff, the ice fraction, the
+    per-component coupler fluxes of forcing_coupled.F90's tavg calls): zero
+    where the forcing holds None, as in the JAX package."""
     def fn(cfg, grid, state, aux):
-        v = getattr(_need(aux, "forcing", name), attr, None)
+        v = getattr(_need(aux, "forcing", name), attr)
         return _zeros2(cfg, grid) if v is None else v
     return fn
 
@@ -673,32 +672,40 @@ _register("RF_TEND_SALT", "Robert Filter Tendency for SALT", "msu/s", 3,
           lambda c, g, s, a: _need(a, "rf_tend_tracer", "RF_TEND_SALT")[1])
 
 
-def _estuary(c, s, a, name):
-    """The estuary box model's fields (source/estuary_vsf_mod.F90): zero
-    unless ``lestuary_exch`` is set with a runoff in the forcing, as in the
-    JAX package; the exchange itself is not ported (``supported.py``
-    refuses ``lestuary_exch``, ROADMAP.md Queue 1 item 11d)."""
+def _estuary_exch_flux(c, g, s, a, n):
+    """Vertical tracer flux across the EBM upper/lower layer interface
+    (FLUX_EXCH_INTRF, source/estuary_vsf_mod.F90:727-751): zero unless
+    ``lestuary_exch`` is set with a runoff in the forcing."""
     if not c.lestuary_exch or a.forcing is None \
-            or getattr(a.forcing, "roff_f", None) is None:
+            or a.forcing.roff_f is None:
         return torch.zeros_like(s.psurf_cur)
-    raise NotImplementedError(
-        f"tavg field {name}: the estuary box model is not ported yet "
-        "(ROADMAP.md Queue 1 item 11d: estuary.py)")
+    w_up, w_lo = estuary.device_layer_weights(c, g, s.tracer_cur.dtype)
+    _, flux = estuary.exchange_circulation(c, g, s.tracer_cur,
+                                           a.forcing.roff_f, w_up, w_lo,
+                                           want_flux=True)
+    return flux[n]
 
 
-# vertical tracer flux across the EBM upper/lower layer interface
-# (FLUX_EXCH_INTRF, source/estuary_vsf_mod.F90:727-751)
 _register("T_FLUX_EXCH_INTRF", "Vertical Temperature Flux Across "
           "Upper/Lower Layer Interface (From EBM)", "degC*cm/s", 2,
-          lambda c, g, s, a: _estuary(c, s, a, "T_FLUX_EXCH_INTRF"))
+          lambda c, g, s, a: _estuary_exch_flux(c, g, s, a, 0))
 _register("S_FLUX_EXCH_INTRF", "Vertical Salt Flux Across Upper/Lower "
           "Layer Interface (From EBM)", "msu*cm/s", 2,
-          lambda c, g, s, a: _estuary(c, s, a, "S_FLUX_EXCH_INTRF"))
-# surface virtual salt flux from river runoff (S_FLUX_ROFF_VSF_SRF,
-# source/estuary_vsf_mod.F90:416-424)
+          lambda c, g, s, a: _estuary_exch_flux(c, g, s, a, 1))
+
+
+def _roff_vsf(c, g, s, a):
+    """Surface virtual salt flux from river runoff (S_FLUX_ROFF_VSF_SRF,
+    source/estuary_vsf_mod.F90:416-424): zero unless ``lestuary_exch`` is
+    set with a runoff in the forcing."""
+    if not c.lestuary_exch or a.forcing is None \
+            or a.forcing.roff_f is None:
+        return torch.zeros_like(s.psurf_cur)
+    return estuary.river_vsf(c, g, a.forcing.roff_f, s.tracer_cur[1, 0])
+
+
 _register("S_FLUX_ROFF_VSF_SRF", "Surface Salt Virtual Salt Flux "
-          "Associated with Rivers (From VSF)", "msu*cm/s", 2,
-          lambda c, g, s, a: _estuary(c, s, a, "S_FLUX_ROFF_VSF_SRF"))
+          "Associated with Rivers (From VSF)", "msu*cm/s", 2, _roff_vsf)
 
 #: the fields whose values depend on the grid and the config alone: their
 #: tensors are built when a stream holding them is made

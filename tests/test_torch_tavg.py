@@ -44,7 +44,8 @@ from pop2_tpu import eos as jeos, tavg as jtavg  # noqa: E402
 from pop2_tpu.config import get_config  # noqa: E402
 from pop2_tpu.model import Model as JModel  # noqa: E402
 
-from pop2_tpu_torch import convert, production, tavg as ttavg  # noqa: E402
+from pop2_tpu_torch import convert, estuary, production  # noqa: E402
+from pop2_tpu_torch import tavg as ttavg  # noqa: E402
 from pop2_tpu_torch.model import Model as TModel  # noqa: E402
 
 from tests.torch_port_helpers import (jax_leaves, stretched_pair,  # noqa: E402
@@ -412,15 +413,20 @@ def test_refusals_stay_loud(tmp_path):
     model.enable_tavg(["HBLT"], freq_steps=2, outdir=str(tmp_path))
     with pytest.raises(ValueError, match="needs step-internal 'hblt'"):
         model.advance(model.initial_state())
-    # the estuary fields: zeros unless the exchange is on, which is item 11d
+    # the estuary fields: zeros unless the exchange is on (item 11d), then
+    # the runoff's virtual salt flux (its values against the JAX package:
+    # test_torch_forcing.py)
     cfg = model.cfg
     aux = ttavg.TavgAux(forcing=types.SimpleNamespace(roff_f=1.0),
                         bc=model.bc)
     state = model.initial_state()
     f = ttavg.FIELDS["S_FLUX_ROFF_VSF_SRF"].fn
     assert float(f(cfg, model.grid, state, aux).abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="11d"):
-        f(cfg.with_(lestuary_exch=True), model.grid, state, aux)
+    on = cfg.with_(lestuary_exch=True)
+    got = f(on, model.grid, state, aux)
+    assert torch.equal(got, estuary.river_vsf(on, model.grid, 1.0,
+                                              state.tracer_cur[1, 0]))
+    assert float(got.abs().max()) > 0.0
 
 
 def test_step_extras_keys_are_the_jax_packages():

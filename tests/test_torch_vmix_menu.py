@@ -534,7 +534,6 @@ def test_production_menu_under_partial_bottom_cells_constructs_and_steps():
     (dict(state_choice="polynomial", overflows=torch_cfg(get_config(
         "mini").with_(overflows=(ovf_spec(),))).overflows),
      "overflows under state_choice='polynomial'"),
-    (dict(lestuary_exch=True), "Queue 1 item 11"),
     (dict(b4b=True), "Queue 1 item 12")])
 def test_remaining_refusals_still_raise(over, item):
     cfg = production.get_production_config(**over)
