@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's sixteen paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's seventeen paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64
 (gm_pbc in float32 alone):
 
@@ -74,6 +74,13 @@ averaging or Robert-filtered steps) at that size in float32 and in float64
               sea, river runoff), the chlorophyll of the forcing, the
               estuary box model's exchange, interior T/S restoring; the
               kernels of prod_full
+    prod_bgc  the production configuration with CESM's ocean
+              biogeochemistry: the 32-tracer ecosystem and the abiotic
+              DIC/DIC14 beside the age and the CFCs (nt = 39), the
+              ecosystem's own chlorophyll in the shortwave absorption; the
+              GM chain kernel in groups of tracers (five launches a step in
+              float32, three in float64), the tracer kernel twenty
+              times, thomas in groups of up to four right-hand sides
 
 On every GM path with the transition layer the search runs as a kernel.
 The modes of the tracer, momentum, slope and chain kernels that the tripole
@@ -103,19 +110,19 @@ prod_forced two steps under a forcing without two of its fields build a
 new captured step, bitwise equal to ``advance``. The plain
 parts the last three paths add (Polzin, NIW, del4, the TSU subtraction)
 are timed at full size (``menu_parts_phase``). It
-compares three steps with the kernels against three steps with the plain
-versions (and, in float32, both against the float64 run) on the core,
-gm_full, prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo,
-prod_eg, prod_aniso, core_lw, prod_pbc, gm_pbc and prod_forced paths,
+compares a step with the kernels against a step with the plain versions
+(and, in float32, both against the float64 run) on the core, gm_full,
+prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
+prod_aniso, core_lw, prod_pbc, gm_pbc and prod_forced paths, and three
+steps on prod_bgc,
 holds every ported forcing function on the card against the CPU in float64
 and times the build of a step's forcing (``forcing_phase``),
 holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
 momentum kernels against their plain versions on stepped bottoms whose
-every column ends in a partial cell (``pbc_kernel_phase``), breaks a step's
-time down
-by part
-and by device kernel (the GM paths from rest and from a stratified state
-with slopes for GM to work on), and compares the GPU path with the CPU
+every column ends in a partial cell (``pbc_kernel_phase``), breaks
+prod_full's step time down by part and by device kernel (from rest and
+from a stratified state with slopes for GM to work on), and compares the
+GPU path with the CPU
 path on a small grid. Every phase that fails makes the script exit
 non-zero; with no GPU it exits at once without a result. It takes no
 arguments: every run is the whole check.
@@ -129,6 +136,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import inspect
 import itertools
 import json
@@ -157,7 +165,7 @@ from pop2_tpu_torch import kpp, overflows, production, submeso  # noqa: E402
 from pop2_tpu_torch import tracer_cuda, tridiag, tridiag_cuda  # noqa: E402
 from pop2_tpu_torch import constants as const  # noqa: E402
 from pop2_tpu_torch import hmix, pgrad, sample, solvers  # noqa: E402
-from pop2_tpu_torch import tidal_mixing  # noqa: E402
+from pop2_tpu_torch import co2calc, ecosys, tidal_mixing  # noqa: E402
 from pop2_tpu_torch import estuary, forcing as forcing_mod  # noqa: E402
 from pop2_tpu_torch import forcing_sfwf, forcing_shf  # noqa: E402
 from pop2_tpu_torch import forcing_tools, mcog, ms_balance  # noqa: E402
@@ -189,7 +197,8 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "core_lw": {"float32": 6, "float64": 4},
          "prod_pbc": {"float32": 6, "float64": 4},
          "gm_pbc": {"float32": 4},
-         "prod_forced": {"float32": 6, "float64": 4}}
+         "prod_forced": {"float32": 6, "float64": 4},
+         "prod_bgc": {"float32": 4, "float64": 3}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -259,7 +268,7 @@ N2_BAND = {
 CLAMPED = 1.0e8
 STEEP = 3.0        # geometric slope far beyond any that is not tapered away
 TAPER_ZERO = 0.18  # the notanh taper is zero from 0.6 of the slope limit on
-# whole-path bands, kernels against plain versions over 3 steps, relative to
+# whole-path bands, kernels against plain versions over 1-3 steps, relative to
 # each field's scale. float64: the parity band of the JAX package's step-5
 # test on every field. float32 is looser, by field: tracers get the band of
 # the JAX package's own float32 kernel-dispatch test; the surface pressure is
@@ -291,11 +300,12 @@ WITNESS_RATIO = 1.5
 # run's own distance from the float64 run, besides the witness test below.
 # prod_mix has the same thresholds and KPP's first crossing of the critical
 # bulk Richardson number besides.
-# prod_eg and prod_aniso are prod_full's menu; core_lw's limiter (lw_lim)
+# prod_eg, prod_aniso and prod_bgc are prod_full's menu; core_lw's limiter
+# (lw_lim)
 # chooses its stencil by the signs of tracer differences, another threshold.
 WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
                       "prod_hmix", "prod_eg", "prod_aniso", "core_lw",
-                      "prod_pbc", "gm_pbc", "prod_forced")
+                      "prod_pbc", "gm_pbc", "prod_forced", "prod_bgc")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -347,6 +357,10 @@ SOURCES = {
                            "pop2_tpu/tracer_pallas.py:563"),
     "clinic_pbc": ("pop2_tpu_torch/csrc/clinic.cu",
                    "pop2_tpu/clinic_pallas.py:461"),
+    "gm_chain_sm_nt39": ("pop2_tpu_torch/csrc/gm_chain.cu",
+                         "pop2_tpu/gm_chain_pallas.py:612"),
+    "gm_flux_tripole_nt39": ("pop2_tpu_torch/csrc/gm_flux.cu",
+                             "pop2_tpu/gm_pallas.py:358"),
 }
 # the path whose launch count each kernel's record carries
 PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
@@ -360,7 +374,10 @@ PATH_OF = {"thomas": "core", "tracer": "core", "clinic": "core",
            "thomas_nr3": "prod_full", "thomas_nr4": "prod_full",
            "gm_flux_tripole": "prod_flux", "clinic_topostress": "core_topo",
            "gm_flux_aniso": "prod_aniso", "thomas_pbc": "prod_pbc",
-           "tracer_upwind3_pbc": "prod_pbc", "clinic_pbc": "prod_pbc"}
+           "tracer_upwind3_pbc": "prod_pbc", "clinic_pbc": "prod_pbc",
+           # no path runs the flux assembly on 39 tracers (prod_bgc's GM is
+           # the chain's): its record carries the kernel's count on prod_flux
+           "gm_chain_sm_nt39": "prod_bgc", "gm_flux_tripole_nt39": "prod_flux"}
 # the launch counter each record's kernel adds to
 COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "tracer_upwind3_nt5": "tracer",
@@ -370,7 +387,9 @@ COUNTER_OF = {"tracer_advdiff": "tracer", "tracer_upwind3": "tracer",
               "gm_chain_sm_nt5_diags": "gm_chain_diags",
               "gm_tlt_search": "gm_tlt", "gm_flux_tripole": "gm_flux",
               "clinic_topostress": "clinic", "gm_flux_aniso": "gm_flux_aniso",
-              "tracer_upwind3_pbc": "tracer_pbc"}
+              "tracer_upwind3_pbc": "tracer_pbc",
+              "gm_chain_sm_nt39": "gm_chain",
+              "gm_flux_tripole_nt39": "gm_flux"}
 
 # the GM configurations over the dynamical core's menu
 GM_FULL = dict(hmix_tracer="gm", gm_transition_layer=True,
@@ -426,18 +445,24 @@ PROD_FORCED = dict(sw_absorption="chlorophyll", chl_option="file",
                    lfw_as_salt_flx=False,
                    pt_interior_restore_tau_days=365.0,
                    s_interior_restore_tau_days=365.0)
+# the production configuration with CESM's ocean biogeochemistry: the
+# 32-tracer ecosystem and the abiotic DIC/DIC14 beside the ideal age and the
+# CFCs (nt = 39), the ecosystem's surface chlorophyll in the shortwave
+# absorption; the GM chain kernel in three launches of 13 tracers a step
+PROD_BGC = dict(passive_tracers=("iage", "cfc", "ecosys", "abio_dic"),
+                nt=39, chl_option="model")
 PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_dyn": PROD_DYN, "prod_mix": PROD_MIX, "prod_full": {},
          "prod_flux": PROD_FLUX, "prod_vmix": PROD_VMIX,
          "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True),
          "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW,
          "prod_pbc": PROD_PBC, "gm_pbc": GM_PBC,
-         "prod_forced": PROD_FORCED}
+         "prod_forced": PROD_FORCED, "prod_bgc": PROD_BGC}
 PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
               "prod_hmix", "prod_eg", "prod_aniso", "prod_pbc",
-              "prod_forced")
+              "prod_forced", "prod_bgc")
 PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix", "prod_eg",
-                 "prod_aniso", "gm_pbc", "prod_forced")
+                 "prod_aniso", "gm_pbc", "prod_forced", "prod_bgc")
 # the bottom-cell files of the partial-cell paths, a file a grid shape, and
 # prod_forced's wind-stress files, in directories removed at exit
 BOTTOM_CELLS = tempfile.TemporaryDirectory(prefix="pop2_dzbc_")
@@ -447,8 +472,13 @@ LUNAR_JUMP_YEARS = 7
 # the 10-m wind speed squared of the passive paths' forcing (7 m/s), without
 # which the CFC fluxes are zero
 U10_SQR = 4.9e5
-# the small grid of the GPU-against-CPU comparison of the production paths
+# the small grid of the GPU-against-CPU comparison of the production paths;
+# prod_bgc's on 20 internal levels, since uniform ones put the ecosystem's
+# whole photic zone in the first level
 PROD_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
+BGC_SMALL = dict(nx=40, ny=24, km=20, vert_grid="internal")
+# the ecosystem's first slot on prod_bgc: after T, S, the age and the CFCs
+BGC_SLOT0 = 5
 # the forcing functions on the GPU against the CPU in float64, relative to
 # each output's scale
 FORCING_BAND = 1e-12
@@ -2446,6 +2476,254 @@ def flux_fold_phase(dtype_name: str, n_timed: int = N_TIMED):
     return recs
 
 
+def _group_bitwise(name, got, part, n0, n, first):
+    """Raise unless a group's own call ``part`` equals rows n0..n0+n of the
+    grouped call ``got`` bitwise (gtk; VDC_GM and what else it returns for
+    the first group)."""
+    if not torch.equal(part[0], got[0][n0:n0 + n]):
+        raise AssertionError(f"{name}: tracers {n0}..{n0 + n - 1} differ "
+                             "between the grouped call and their group's "
+                             "own call")
+    if first and not all(torch.equal(a, b) for a, b in zip(
+            part[1:], got[1:]) if a is not None):
+        raise AssertionError(f"{name}: VDC_GM (or the diagnostic columns) of "
+                             "the grouped call differ from the first "
+                             "group's own call")
+
+
+def bgc_kernel_phase(dtype_name: str, n_timed: int = N_TIMED):
+    """prod_bgc's 39 tracers through the GM chain kernel (its launches,
+    ``gm_chain_cuda.tracer_groups``: 8 + 8 + 8 + 8 + 7 in float32, 13 + 13
+    + 13 in float64) and the flux assembly (its tripole row, both branches,
+    13 + 13 + 13, ``gm_cuda.tracer_groups``), on the fold bottom with the top row's north faces
+    opened, under KPP's layers of a stratified state: against the plain
+    versions (a group at a time, ``chain_plain_grouped``), and bitwise
+    checks of the split: each
+    group of a 39-tracer call equals that group's own call, VDC_GM the
+    first group's, and the first five tracers of a call with the
+    diagnostic columns equal a call on those five. Times, bounds, launch
+    plans of a group. Returns {name: record}."""
+    cfg = full_config(dtype_name, "prod_bgc")
+    dt = cfg.torch_dtype
+    grid, bc, tr = fold_case(cfg)
+    km, ny, nx, nt = cfg.km, cfg.ny, cfg.nx, cfg.nt
+    N, P, s = km * ny * nx, ny * nx, torch.finfo(dt).bits // 8
+    groups = gm_chain_cuda.tracer_groups(nt, s, True)
+    tmix = sample.grid_tracers(cfg, grid, SEED + 51)
+    kout = kpp_state(cfg, grid, tmix[:2].contiguous(), SEED + 52)[0]
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
+    tlt = gm_tlt_cuda.transition_layer(
+        cfg, grid, gm.diabatic_depth(cfg, grid, bc, kout.hblt), sla,
+        gm._rossby_radius(grid))
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    sm = submeso.amplitudes(cfg, grid, bc, tr, tmix, kout.hmxl)
+    grid = sample.open_top_face(grid)
+    del kout, n2
+    rec = {}
+
+    def timed(fn, plain, nbytes, flops, **info):
+        r = {"ms": time_ms(fn, 3, n_timed),
+             "ms_back_to_back": time_ms_back_to_back(fn, n_timed),
+             "plain_ms": time_ms(plain, 1, 3)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        r.update(info)
+        return r
+
+    # ---- the chain: prod_bgc's instance (bfre, the submesoscale fold-in,
+    # no diagnostic columns)
+    def chain(t, diags=False):
+        return gm_chain_cuda.chain(cfg, grid, bc, t, slp, sla, kv, tlt,
+                                   diags, sm)
+
+    def chain_plain():
+        return chain_plain_grouped(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                                   False, sm)[:2]
+    before = gm_chain_cuda.launches
+    got = chain(tmix)[:2]
+    if gm_chain_cuda.launches - before != len(groups):
+        raise AssertionError(f"gm_chain nt={nt}: "
+                             f"{gm_chain_cuda.launches - before} launches, "
+                             f"groups {groups}")
+    torch.cuda.synchronize()
+    err_abs, err_rel, excused = compare_chain("gm_chain", dt, got,
+                                              chain_plain())
+    for g, (n0, n) in enumerate(groups):
+        _group_bitwise("gm_chain", got, chain(tmix[n0:n0 + n]), n0, n,
+                       g == 0)
+    five = chain(tmix[:5], True)
+    _group_bitwise("gm_chain diags", chain(tmix, True), five, 0, 5, True)
+    del got, five
+    g0 = groups[0][1]
+    rec["gm_chain_sm_nt39"] = timed(
+        lambda: chain(tmix), chain_plain,
+        s * (N * (2 * nt + 12) + 11 * P + 8 * km) + 12 * P,
+        N * (420 + 80 * nt), max_abs_err=err_abs, rel_err=err_rel,
+        points_within_relative_band_only=excused, groups=groups,
+        launches_a_call=len(groups), group_bitwise=True,
+        **launch_info("gm_chain", dt, nt=g0, sm=True,
+                      flags=gm_chain_cuda.kernel_flags(cfg, False, True)))
+    del slp, sla, kv, tlt, sm
+
+    # ---- the flux assembly's tripole row at 39 tracers, both branches
+    groups = gm_cuda.tracer_groups(nt)
+    f = sample.flux_operands(cfg, grid, bc, tr, tmix)
+    del tmix
+    r = {}
+    for cancellation in (True, False):
+        def flux(lo=0, hi=nt):
+            return gm_cuda.flux_assembly(
+                cfg, grid, bc, *(t[lo:hi] for t in f[:3]), *f[3:],
+                cancellation)
+
+        def flux_plain():
+            return flux_plain_grouped(cfg, grid, bc, *f,
+                                      cancellation=cancellation)
+        got = flux()
+        torch.cuda.synchronize()
+        want = flux_plain()
+        err_abs, err_rel = compare("gm_flux", dt, got[:1], want[:1])
+        vdc_rel = compare_vdc("gm_flux", dt, got[1], want[1])
+        for g, (n0, n) in enumerate(groups):
+            _group_bitwise("gm_flux", got, flux(n0, n0 + n), n0, n, g == 0)
+        _group_bitwise("gm_flux first five", got, flux(0, 5), 0, 5, True)
+        del got, want
+        tag = "" if cancellation else "_skew"
+        r.update({"max_abs_err" + tag: err_abs, "rel_err" + tag: err_rel,
+                  "vdc_rel_err" + tag: vdc_rel, "group_bitwise" + tag: True})
+        if not cancellation:
+            continue
+        b_ms, b_by = bound(s * (N * (3 * nt + 12) + 3 * P + 3 * km) + 4 * P,
+                           N * (60 + 60 * nt), dt)
+        r.update({"ms": time_ms(flux, 3, n_timed),
+                  "ms_back_to_back": time_ms_back_to_back(flux, n_timed),
+                  "plain_ms": time_ms(flux_plain, 1, 3), "bound_ms": b_ms,
+                  "bound_by": b_by, "groups": groups,
+                  "launches_a_call": len(groups),
+                  **launch_info("gm_flux", dt, nt=groups[0][1],
+                                cancellation=True,
+                                fold=True)})
+    rec["gm_flux_tripole_nt39"] = r
+    return rec
+
+
+def bgc_inputs(cfg, seed: int):
+    """prod_bgc's tracers (old, cur) from the packages' initial fields, each
+    ecosystem field varied point by point by a seeded 30 % (a few below
+    zero, which the interior sources clip; O2 low at a fifth of the
+    points), T by 0.3 K, the old level's passive tracers by 1 %, and a
+    forcing with shortwave, a 5-10 m/s wind and sea ice over part of the
+    surface: NumPy float64, made on the host from the config alone, the
+    same for any device; with the packages."""
+    from pop2_tpu_torch.passive_tracers import PassiveTracers
+    c64 = cfg.with_(dtype="float64")
+    grid = build_grid(c64, "cpu")
+    passive = PassiveTracers(cfg, cfg.passive_tracers)
+    cur = initial_state(c64, grid, "cpu",
+                        passive=passive).tracer_cur.numpy().copy()
+    rng = np.random.default_rng(seed)
+    mt = grid.kmask_t.numpy()
+    cur[0] += 0.3 * rng.standard_normal(mt.shape)
+    eco = cur[BGC_SLOT0:BGC_SLOT0 + len(ecosys.TRACER_NAMES)]
+    eco *= 1.0 + 0.3 * rng.standard_normal(eco.shape)
+    eco[ecosys.IDX["O2"]] *= np.where(rng.random(mt.shape) < 0.2, 0.01, 1.0)
+    old = cur.copy()
+    old[2:] *= 1.0 + 0.01 * rng.standard_normal(old[2:].shape)
+    shape = mt.shape[1:]
+    forcing = dict(
+        shf_qsw=4.0e-3 * np.abs(rng.standard_normal(shape)) * mt[0],
+        u10_sqr=U10_SQR * (0.5 + rng.random(shape)),
+        ifrac=np.clip(1.5 * rng.random(shape) - 0.5, 0.0, 1.0))
+    return old * mt, cur * mt, forcing, passive
+
+
+def bgc_phase(n_timed: int = 5):
+    """The ocean biogeochemistry on the card against the CPU in float64 at
+    prod_bgc's width (320 x 384) on 20 internal levels: the carbonate solve
+    (``co2calc_surface``) of the ecosystem's surface DIC and alkalinity,
+    the ecosystem's interior sources and surface fluxes, the abiotic DIC's;
+    each output within FORCING_BAND of its scale. Then each part's device
+    time at full size (60 levels) in float32 and float64, with the three
+    carbonate solves of a step (the ecosystem's DIC and DIC_ALT_CO2, the
+    abiotic DIC) timed alone: the ecosystem's plain cost a step. Returns
+    {dtype: {part: ms}}."""
+    def parts(cfg, grid, seed):
+        old, cur, frc, passive = bgc_inputs(cfg, seed)
+        dev, dt = grid.KMT.device, cfg.torch_dtype
+
+        def t(a):
+            return torch.as_tensor(a, device=dev, dtype=dt)
+        to, tc = t(old), t(cur)
+        f = forcing_mod.analytic_forcing(cfg, grid).replace(
+            **{k: t(v) for k, v in frc.items()})
+        eco, abio = passive.packages[2], passive.packages[3]
+        sst = torch.clamp(tc[0, 0], -2.0, 35.0)
+        sss = torch.clamp(tc[1, 0] * const.SALT_TO_PPT, 4.0, 40.0)
+        dic, alk = (torch.clamp(tc[BGC_SLOT0 + ecosys.IDX[n], 0], 100.0,
+                                4000.0)
+                    * 1.0e-6 / 1.026 for n in ("DIC", "ALK"))
+        return {
+            "ecosys_set_interior": lambda: eco.set_interior(cfg, grid, to,
+                                                            tc, f),
+            "ecosys_set_sflux": lambda: eco.set_sflux(cfg, grid, to, tc, f),
+            "abio_dic_set_sflux": lambda: abio.set_sflux(cfg, grid, to, tc,
+                                                         f),
+            "abio_dic_set_interior": lambda: abio.set_interior(cfg, grid, to,
+                                                               tc, f),
+            "co2calc_surface": lambda: co2calc.co2calc_surface(sst, sss, dic,
+                                                               alk)}
+
+    cfg = full_config("float64", "prod_bgc").with_(km=20)
+    res = {}
+    for dev in ("cpu", DEV):
+        res[str(dev)] = {n: fn() for n, fn in parts(
+            cfg, build_grid(cfg, dev), SEED + 61).items()}
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got in res[str(DEV)].items():
+        want = res["cpu"][name]
+        pairs = (zip(got, want) if isinstance(got, tuple)
+                 else zip(got.unbind(0), want.unbind(0)))
+        errs[name] = max(_scale_err(g, w) for g, w in pairs)
+    ph = res[str(DEV)]["co2calc_surface"].ph
+    emit({"phase": "bgc", "dims": [cfg.nx, cfg.ny, cfg.km],
+          "band": FORCING_BAND, "rel_err": errs,
+          "ph_range": [float(ph.min()), float(ph.max())]})
+    broken = {k: v for k, v in errs.items() if not v <= FORCING_BAND}
+    if broken:
+        raise AssertionError(f"bgc: GPU and CPU differ beyond "
+                             f"{FORCING_BAND}: {broken}")
+    del res
+    ms, device_ms = {}, {}
+    for dtype_name in ("float32", "float64"):
+        full = full_config(dtype_name, "prod_bgc")
+        fns = parts(full, build_grid(full, DEV), SEED + 62)
+        ms[dtype_name] = {n: time_ms(fn, 2, n_timed)
+                          for n, fn in fns.items()}
+        device_ms[dtype_name] = {n: captured_ms(fn, n_timed)
+                                 for n, fn in fns.items()}
+        del fns
+    emit({"phase": "bgc_parts", "dims": [cfg.nx, cfg.ny, 60],
+          "plain_ms": ms, "captured_device_ms": device_ms,
+          "note": "a step runs the carbonate solve three times"})
+    return device_ms
+
+
+def captured_ms(fn, n_timed: int) -> float:
+    """The device time of ``fn`` alone, as a captured step runs it: ``fn``
+    captured in a CUDA graph (after a warm-up call) and its replays timed
+    by CUDA events (median); without the host's launch time, which a plain
+    part's eager call of thousands of small kernels is made of."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, 2, n_timed)
+    del graph
+    return ms
+
+
 # The overflows of the JAX package's overflow tests (tests/test_overflows.py)
 # on the 'mini' preset: a box-only one, and one with sidewall points and two
 # product sets
@@ -2579,16 +2857,34 @@ def read_counts():
     return counts
 
 
-def expected_counts(path: str, nsteps: int):
+def thomas_schedule(nt: int):
+    """(Euler step, leapfrog step): {right-hand sides: launches} of thomas
+    for ``nt`` tracers. Euler: T (1) and the momentum (2), then salinity
+    with the passive tracers on one factorisation in the groups of
+    ``rhs_groups(nt - 1)``. Leapfrog: the predictor's T and S (1, 1), the
+    momentum (2), the corrector's T and S (1, 1), then the passive tracers
+    in the groups of ``rhs_groups(nt - 2)``. With T and S alone 1, 1, 2
+    and 1, 1, 2, 1, 1; prod_full's nt = 5: 1, 2, 4 and 1, 1, 2, 1, 1, 3;
+    prod_bgc's nt = 39: 1, 2 and eight 4s and two 3s, then 1, 1, 2, 1, 1
+    and seven 4s and three 3s."""
+    def add(base, n):
+        out = dict(base)
+        for _, m in (tridiag_cuda.rhs_groups(n) if n else ()):
+            out[m] = out.get(m, 0) + 1
+        return out
+    return add({1: 1, 2: 1}, nt - 1), add({1: 4, 2: 1}, nt - 2)
+
+
+def expected_counts(path: str, nsteps: int, dtype_name: str = "float64"):
     """Launches of ``nsteps`` steps from the initial state. The implicit
-    solves: with T and S alone 3 on the Euler step (right-hand sides 1, 1
-    and the momentum's 2) and 5 on a leapfrog step (1, 1, 2, 1, 1); with
-    prod_full's three passive tracers 3 (1, 2, 4: salinity and the passive
-    tracers on one factorisation) and 6 (1, 1, 2, 1, 1, 3). The tracer
-    kernel: a launch for each group of at most two tracers a step. Every
-    other kernel of a path: once a step, the flux assembly in its
-    tripole-row instance on prod_flux, prod_eg and prod_aniso (there
-    anisotropic); no path writes the chain's diagnostic columns (no stream,
+    solves: ``thomas_schedule`` of the path's tracers. The tracer kernel: a
+    launch for each group of at most two tracers a step; the GM chain
+    kernel a launch for each of its groups (``gm_chain_cuda.tracer_groups``:
+    on prod_bgc five of 8 or 7 in float32, three of 13 in float64), the flux
+    assembly for each group of at most 16 (``gm_cuda.tracer_groups``). Every
+    other kernel of a path: once a step, the flux assembly in its tripole-row
+    instance on prod_flux, prod_eg and prod_aniso (there anisotropic); no
+    path writes the chain's diagnostic columns (no stream,
     ``tavg_phase``). core_lw launches no tracer kernel: its lw_lim
     advection and the vertical diffusion beside it are plain. On the
     partial-cell paths every tracer and momentum launch is a PBC instance's,
@@ -2605,19 +2901,24 @@ def expected_counts(path: str, nsteps: int):
             "prod_eg": flux + ("gm_tlt",), "prod_aniso": flux,
             "core_lw": ("clinic", "gm_flux"),
             "prod_pbc": ("tracer", "clinic"), "gm_pbc": chain,
-            "prod_forced": chain}[path]
+            "prod_forced": chain, "prod_bgc": chain}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
+    cfg = full_config(dtype_name, path)
+    nt = cfg.nt
+    if "gm_chain" in once:
+        expect["gm_chain"] = nsteps * len(gm_chain_cuda.tracer_groups(
+            nt, torch.finfo(cfg.torch_dtype).bits // 8, cfg.lsubmeso))
+    flux_launches = nsteps * len(gm_cuda.tracer_groups(nt))
+    if "gm_flux" in once:
+        expect["gm_flux"] = flux_launches
     if path in ("prod_flux", "prod_eg", "prod_aniso"):  # the tripole row
-        expect["gm_flux_fold"] = nsteps
+        expect["gm_flux_fold"] = flux_launches
     if path == "prod_aniso":
-        expect["gm_flux_aniso"] = nsteps
-    nt = full_config("float64", path).nt
+        expect["gm_flux_aniso"] = flux_launches
     if "tracer" in once:
         expect["tracer"] = nsteps * len(tracer_cuda.tracer_groups(nt))
-    euler, leapfrog = (({1: 1, 2: 1, 4: 1}, {1: 4, 2: 1, 3: 1})
-                       if path in PASSIVE_PATHS
-                       else ({1: 2, 2: 1}, {1: 4, 2: 1}))
+    euler, leapfrog = thomas_schedule(nt)
     for nr in range(1, tridiag_cuda.MAX_RHS + 1):
         expect[f"thomas_nr{nr}"] = (euler.get(nr, 0)
                                     + leapfrog.get(nr, 0) * (nsteps - 1))
@@ -2637,7 +2938,7 @@ def path_phase(path: str, dtype_name: str):
     just after."""
     nsteps = STEPS[path][dtype_name]
     cfg = full_config(dtype_name, path)
-    model = Model(cfg)  # default device: the GPU
+    model = _model(cfg, DEV)
     if cfg.partial_bottom_cells and model.grid.DZBT is None:
         raise AssertionError(f"{path}: no partial bottom cells on the grid")
     state = model.initial_state()
@@ -2658,7 +2959,7 @@ def path_phase(path: str, dtype_name: str):
     counts = read_counts()
 
     n_avg = sum(model.step_flags(n)[1] for n in range(1, nsteps + 1))
-    expect = expected_counts(path, nsteps)
+    expect = expected_counts(path, nsteps, dtype_name)
     if counts != expect:
         raise AssertionError(f"{path}: launch counts {counts}, expected "
                              f"{expect}")
@@ -2704,17 +3005,24 @@ def stratified_state(model, seed: int):
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
 
 
-# the last model ``_run_steps`` built without a stream, with its config and
-# device: the kernel run and the plain run of a comparison share it (its
-# construction, the FSPAI preconditioner and PCSI's bounds, is seconds at
-# full size and the same for both)
-_LAST_MODEL = []
+# the last two models built for eager runs without a stream, by config and
+# device: a path's float32 and float64 runs (``path_phase``) and its
+# comparison with the plain versions (``path_vs_plain_phase``: the kernel
+# run and the plain run) share them. A model's construction (the grid's
+# anisotropic statics on the host, the FSPAI preconditioner, PCSI's bounds)
+# is seconds at full size; ``initial_state`` resets its step count and
+# calendar, and no graph is captured in them.
+_MODELS = collections.OrderedDict()
 
 
 def _model(cfg, device):
-    if not (_LAST_MODEL and _LAST_MODEL[0][:2] == (cfg, str(device))):
-        _LAST_MODEL[:] = [(cfg, str(device), Model(cfg, device=device))]
-    return _LAST_MODEL[0][2]
+    key = (cfg, str(device))
+    if key not in _MODELS:
+        if len(_MODELS) >= 2:
+            _MODELS.popitem(last=False)
+        _MODELS[key] = Model(cfg, device=device)
+    _MODELS.move_to_end(key)
+    return _MODELS[key]
 
 
 def _run_steps(cfg, nsteps, device=DEV, stratified: bool = False,
@@ -2759,20 +3067,70 @@ def _state_diffs(a, b):
     return out
 
 
+def chain_plain_grouped(cfg, grid, bc, tmix, slp, sla, kv, tlt,
+                        want_diags=True, sm=None):
+    """``gm_chain_cuda.chain_plain`` a group of the kernel's launches at a
+    time (``gm_chain_cuda.tracer_groups``; one call up to 8 tracers): the
+    plain twin takes each tracer alone, so every tracer's result is the
+    whole call's (tests/test_torch_bgc.py holds it bitwise), in the memory
+    of a group (39 tracers at once overrun the card in float64)."""
+    gtk, vdc, diags = torch.empty_like(tmix), None, None
+    for g, (n0, n) in enumerate(gm_chain_cuda.tracer_groups(
+            tmix.shape[0], tmix.element_size(), sm is not None)):
+        part = gm_chain_cuda.chain_plain(cfg, grid, bc, tmix[n0:n0 + n], slp,
+                                         sla, kv, tlt, want_diags and g == 0,
+                                         sm)
+        gtk[n0:n0 + n] = part[0]
+        if g == 0:
+            vdc, diags = part[1], part[2]
+    return gtk, vdc, diags
+
+
+def flux_plain_grouped(cfg, grid, bc, tx, ty, tz, *weights, cancellation,
+                       kisop_y=None):
+    """``gm_cuda.flux_assembly_plain`` a group at a time, as
+    ``chain_plain_grouped``; ``weights``: slx, sly, sf_slx, sf_sly, kisop,
+    hor_diff."""
+    gtk, vdc = torch.empty_like(tx), None
+    for g, (n0, n) in enumerate(gm_cuda.tracer_groups(tx.shape[0])):
+        part = gm_cuda.flux_assembly_plain(
+            cfg, grid, bc, tx[n0:n0 + n], ty[n0:n0 + n], tz[n0:n0 + n],
+            *weights, cancellation, kisop_y=kisop_y)
+        gtk[n0:n0 + n] = part[0]
+        vdc = part[1] if g == 0 else vdc
+    return gtk, vdc
+
+
+def tracer_plain_grouped(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
+    """``tracer_cuda.tracer_tendency_plain`` a group of
+    ``gm_cuda.tracer_groups`` at a time, each tracer with its diffusivity
+    class (T the first of ``vdc``, every other tracer the second)."""
+    out = torch.empty_like(trcr)
+    for n0, n in gm_cuda.tracer_groups(trcr.shape[0]):
+        sl = slice(n0, n0 + n)
+        out[sl] = tracer_cuda.tracer_tendency_plain(
+            cfg, grid, u, v, trcr[sl], tmix[sl], told[sl],
+            vdc if n0 == 0 else vdc[1:].expand_as(vdc), stf[sl], dh)
+    return out
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside the block the wrappers are replaced by their plain PyTorch
     versions, so a whole run on the card can be compared with and without
-    the kernels. The package itself has no such switch: its wrappers choose
-    by the tensor's device alone."""
+    the kernels; those of the tracer-batched kernels take a group of
+    tracers at a time (``chain_plain_grouped``). The package itself has no
+    such switch: its wrappers choose by the tensor's device alone."""
+    def flux(*args, kisop_y=None):
+        return flux_plain_grouped(*args[:-1], cancellation=args[-1],
+                                  kisop_y=kisop_y)
     swaps = [(tridiag_cuda, "thomas", tridiag_cuda.thomas_plain),
-             (tracer_cuda, "tracer_tendency",
-              tracer_cuda.tracer_tendency_plain),
+             (tracer_cuda, "tracer_tendency", tracer_plain_grouped),
              (clinic_cuda, "clinic_rhs_fields", clinic_cuda.clinic_rhs_plain),
              (gm_slope_cuda, "slopes", gm_slope_cuda.slopes_plain),
-             (gm_chain_cuda, "chain", gm_chain_cuda.chain_plain),
+             (gm_chain_cuda, "chain", chain_plain_grouped),
              (gm_tlt_cuda, "transition_layer", gm.transition_layer),
-             (gm, "flux_assembly", gm_cuda.flux_assembly_plain)]
+             (gm, "flux_assembly", flux)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -2783,7 +3141,7 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def path_vs_plain_phase(path: str, nsteps: int = 3):
+def path_vs_plain_phase(path: str, nsteps: int = 2):
     """nsteps with the kernels against nsteps with the plain versions forced,
     same initial state, at full size: float64 first, then float32, where both
     runs are also held against the float64 run (the witness that their
@@ -2831,11 +3189,11 @@ def path_vs_plain_phase(path: str, nsteps: int = 3):
             raise AssertionError(f"{path} {dtype_name} path with kernels "
                                  f"differs from the plain path beyond its "
                                  f"band: {broken}")
-    _LAST_MODEL.clear()
+    _MODELS.clear()
 
 
 def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
-                    nsteps: int = 4, nprof: int = 1):
+                    nsteps: int = 2, nprof: int = 1):
     """Where a leapfrog step's time goes at full size, from the model's own
     initial state (rest, horizontally uniform: GM has no slopes to work on
     and its transition-layer search ends after a few levels) or from the
@@ -2961,7 +3319,8 @@ RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
             ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
             ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
             ("prod_aniso", "float32", 6), ("core_lw", "float32", 6),
-            ("prod_pbc", "float32", 6), ("prod_forced", "float32", 6))
+            ("prod_pbc", "float32", 6), ("prod_forced", "float32", 6),
+            ("prod_bgc", "float32", 5), ("prod_bgc", "float64", 4))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -3120,7 +3479,16 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     (s_eager, it_eager), t_eager, n_eager, mem_eager = _timed(eager)
     rewind()
     (s_again, _), syncs_eager = sync_points(eager)
+    spread = _leaf_spread(s_eager, s_again)
+    del s_again
+    # eager steps past the run, for steps/s (before the graphs hold their
+    # pools: prod_bgc's float64 eager step does not fit beside them)
+    rewind(nsteps)
+    _, t_more_eager, _, _ = _timed(lambda: eager(s_eager, RUN_LOOP_MORE))
     parts["eager_runs"] = time.perf_counter() - t_phase - parts["model"]
+    # the eager runs' cached blocks back to the card: the graphs' private
+    # pools cannot use them (prod_bgc in float64 needs the room)
+    torch.cuda.empty_cache()
     rewind()
     (s_comp, it_comp), t_comp, n_comp, mem_comp = _timed(compiled)
     cap = model._captured
@@ -3131,8 +3499,6 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     (s_more, _), syncs_comp = sync_points(
         lambda: compiled(s_comp, RUN_LOOP_MORE))
     _, t_more_comp, _, _ = _timed(lambda: compiled(s_more, RUN_LOOP_MORE))
-    rewind(nsteps)
-    _, t_more_eager, _, _ = _timed(lambda: eager(s_eager, RUN_LOOP_MORE))
     # the device time of a step, under the profiler; the eager step runs
     # the same kernels (its state is bitwise the same), so its busy share
     # is that time over its own step time
@@ -3141,7 +3507,6 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
     device_ms, busy_profiled = _device_busy(lambda: compiled(s_comp, 1), 1)
     parts["profiled"] = time.perf_counter() - t0
 
-    spread = _leaf_spread(s_eager, s_again)
     diff = _leaf_spread(s_comp, s_eager)
     bitwise = all(torch.equal(x, getattr(s_eager, n))
                   for n, x in s_comp.leaves())
@@ -3227,7 +3592,7 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
 # tavg_phase: the interval of its stream (steps), and the paths and dtypes
 # it runs (prod_full's 8 steps of RUN_LOOP and RUN_LOOP_MORE more)
 TAVG_FREQ = 4
-TAVG = (("prod_full", "float32", 8), ("prod_full", "float64", 8))
+TAVG = (("prod_full", "float32", 8), ("prod_full", "float64", 4))
 
 
 def probe_fields(model, forcing):
@@ -3551,7 +3916,8 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
     small 'mini' grid in float64: the parity band of the step-5 test. The GM
     path starts from the stratified state."""
-    cfg = path_config(get_config("prod_full", **PATHS[path], **PROD_SMALL)
+    small = BGC_SMALL if path == "prod_bgc" else PROD_SMALL
+    cfg = path_config(get_config("prod_full", **PATHS[path], **small)
                       if path in PROD_PATHS
                       else get_config("mini", **PATHS[path]), path)
     stratified = path not in ("core", "core_topo")
@@ -3562,7 +3928,7 @@ def small_vs_cpu_phase(path: str, nsteps: int = 5):
     counts = read_counts()
     s_cpu, it_c, *av_c = _run_steps(cfg, nsteps, torch.device("cpu"),
                                     stratified, tavg, path)
-    _LAST_MODEL.clear()
+    _MODELS.clear()
     if read_counts() != counts:
         raise AssertionError("the CPU run launched a kernel")
     diffs = _state_diffs(s_gpu, s_cpu)
@@ -3925,6 +4291,12 @@ def main():
             return phase(*args)
         finally:
             by_phase[phase.__name__] += time.perf_counter() - t0
+            if phase in (run_loop_phase, tavg_phase):
+                # the phase's model and captured step (they refer to each
+                # other) and their graphs' pools go back to the card:
+                # prod_bgc's float64 graphs alone hold 38 GB
+                gc.collect()
+                torch.cuda.empty_cache()
 
     records = {}
     for dtype_name in ("float32", "float64"):
@@ -3934,6 +4306,7 @@ def main():
         records[dtype_name].update(run(mix_kernel_phase, dtype_name))
         records[dtype_name].update(run(flux_fold_phase, dtype_name))
         records[dtype_name].update(run(pbc_kernel_phase, dtype_name))
+        records[dtype_name].update(run(bgc_kernel_phase, dtype_name))
         run(other_modes_phase, dtype_name)
         run(gm_other_modes_phase, dtype_name)
         run(ragged_phase, dtype_name)
@@ -3943,6 +4316,11 @@ def main():
     for path in PATHS:
         for dtype_name in STEPS[path]:
             launches[(path, dtype_name)] = run(path_phase, path, dtype_name)
+        # with the path's models still built; the newest path over three
+        # steps, the earlier ones over one (the script's time limit)
+        if path not in ("gm_flux", "prod_flux"):
+            run(path_vs_plain_phase, path, 3 if path == "prod_bgc" else 1)
+    _MODELS.clear()
     captured = {}
     for path, dtype_name, nsteps in RUN_LOOP:
         captured[(path, dtype_name)] = run(run_loop_phase, path, dtype_name,
@@ -3952,20 +4330,18 @@ def main():
                   captured[(path, dtype_name)])
         launches[(path + "_tavg", dtype_name)] = rec["launches"]
         captured[(path + "_tavg", dtype_name)] = rec
-    for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full"):
-        run(path_vs_plain_phase, path)
-        run(breakdown_phase, path, "float32")
-        if path != "core":
-            run(breakdown_phase, path, "float32", True)
-        run(small_vs_cpu_phase, path)
-    for path in ("prod_vmix", "prod_hmix", "core_topo", "prod_eg",
-                 "prod_aniso", "core_lw", "prod_pbc", "prod_forced"):
-        run(path_vs_plain_phase, path)
+    # where a step's time goes: the production configuration from rest and
+    # from a stratified state (the other paths' breakdowns, kept in PERF.md,
+    # left out for the script's time limit)
+    run(breakdown_phase, "prod_full", "float32")
+    run(breakdown_phase, "prod_full", "float32", True)
+    for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full",
+                 "prod_vmix", "prod_hmix", "core_topo", "prod_eg",
+                 "prod_aniso", "core_lw", "prod_pbc", "prod_forced",
+                 "prod_bgc", "prod_flux"):
         run(small_vs_cpu_phase, path)
     run(forcing_phase, captured[("prod_forced", "float32")])
-    run(path_vs_plain_phase, "gm_pbc")
-    run(breakdown_phase, "gm_pbc", "float32")
-    run(small_vs_cpu_phase, "prod_flux")
+    run(bgc_phase)
     run(overflow_phase)
 
     kernels = []

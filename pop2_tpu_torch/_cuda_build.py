@@ -42,6 +42,25 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 # the launch planners keep under it). The library's pop2_max_dynamic_smem
 # reads the card's own figure; chip_smoke.py holds the two together.
 SMEM_PER_BLOCK = 232448
+# Shared memory of an SM (228 KB), of which the card keeps 1 KB a block.
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+def even_groups(n: int, cap: int):
+    """[(n0, m)]: ``n`` items in the fewest launches of at most ``cap``
+    each, as even as the count allows (five under a cap of 4 are 3 + 2, not
+    4 + 1; 39 under 16 are 13 + 13 + 13): the largest launch sets the
+    shared memory a block takes, and the smaller slab keeps more blocks an
+    SM."""
+    ngroups = -(-n // cap)
+    base, extra = divmod(n, ngroups)
+    out, n0 = [], 0
+    for g in range(ngroups):
+        m = base + (g < extra)
+        out.append((n0, m))
+        n0 += m
+    return out
 
 
 def check_smem(smem: int, what: str) -> None:

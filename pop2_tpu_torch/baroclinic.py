@@ -23,7 +23,8 @@ interior sources and resets, the overflows' tracer exchange, the
 geothermal bottom heat flux and depth acceleration, the interior T/S
 restoring toward the forcing's 3-D targets, and the estuary box model's
 exchange circulation at the forcing's river points (``estuary``), all
-plain. Under ``chl_option='file'`` the chlorophyll is the forcing's.
+plain. Under ``chl_option='file'`` the chlorophyll is the forcing's, under
+``chl_option='model'`` the ecosystem package's surface chlorophyll.
 """
 
 from __future__ import annotations
@@ -110,10 +111,14 @@ def driver(cfg: ModelConfig, grid: Grid, bc: BC, ts_range,
 
     # the chlorophyll field of the Ohlmann transmission, shared by KPP's
     # radiative boundary-layer term and the shortwave heating below: the
-    # forcing's under chl_option='file', else (or without one) the constant
+    # ecosystem's surface chlorophyll under chl_option='model', the
+    # forcing's under chl_option='file', else (or without either) the
+    # constant
     chl = None
     if cfg.sw_absorption == "chlorophyll":
-        if cfg.chl_option == "file":
+        if cfg.chl_option == "model" and passive is not None:
+            chl = passive.model_chl(state.tracer_cur)
+        if chl is None and cfg.chl_option == "file":
             chl = forcing.chl
         if chl is None:
             chl = torch.full_like(forcing.shf_qsw, cfg.chl_const)

@@ -4,7 +4,8 @@ The JAX package's ``Grid``, ``State`` and ``Forcing`` have the same leaf
 names as the port's. Handing their leaves over as a dict of NumPy arrays
 keyed by field name (nested leaves dotted, ``vgrid.dz``) lets both packages
 step from identical inputs (the parity tests do this) without either
-importing the other.
+importing the other. The passive-tracer packages with parameters carry them
+the same way (``package_to_numpy`` / ``package_from_numpy``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,18 @@ from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import (Grid, VGrid, bottom_planes, build_aniso,
                                  build_topostress, resolve_device)
+from pop2_tpu_torch.abio_dic import AbioDIC
+from pop2_tpu_torch.ecosys import Ecosystem
+from pop2_tpu_torch.passive_tracers import TracerPackage
 from pop2_tpu_torch.state import State
+
+#: each passive-tracer package that has constructor parameters: its class
+#: and their names (the JAX package's attribute and keyword names)
+PACKAGE_PARAMS = {
+    "ecosys": (Ecosystem, ("fe_dust_flux", "pco2_atm", "pco2_atm_alt",
+                           "lburial")),
+    "abio_dic": (AbioDIC, ("pco2_atm", "d14c_atm", "dic_init")),
+}
 
 
 def _from_numpy(cls, fields: Mapping[str, np.ndarray], cfg: ModelConfig,
@@ -117,3 +129,25 @@ def grid_from_numpy(leaves: Mapping[str, np.ndarray], cfg: ModelConfig,
             cfg, *(leaves[n] for n in ("HTN", "HTE", "DXU", "DYU", "DXUR",
                                        "DYUR", "ULAT", "KMU")), device)
     return Grid(**kw)
+
+
+def package_to_numpy(name: str, package) -> Dict[str, np.ndarray]:
+    """The parameters of passive-tracer package ``name`` (a key of
+    ``PACKAGE_PARAMS``) as 0-d NumPy arrays, read from ``package``'s
+    attributes: either package's instance."""
+    return {k: np.asarray(getattr(package, k))
+            for k in PACKAGE_PARAMS[name][1]}
+
+
+def package_from_numpy(name: str,
+                       params: Mapping[str, np.ndarray]) -> TracerPackage:
+    """The port's passive-tracer package ``name`` built with ``params``
+    (``package_to_numpy``'s dict; ``PassiveTracers`` takes the instance in
+    place of the name). Every parameter of the package must be given and
+    nothing else: a missing or unknown key raises ``KeyError``."""
+    cls, names = PACKAGE_PARAMS[name]
+    if set(params) != set(names):
+        raise KeyError(f"{name} parameters: missing "
+                       f"{sorted(set(names) - set(params))}, unknown "
+                       f"{sorted(set(params) - set(names))}")
+    return cls(**{k: np.asarray(v).item() for k, v in params.items()})

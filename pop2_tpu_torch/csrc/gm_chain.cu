@@ -610,7 +610,7 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
       const TileWeights<T> tw{pub + (k & 1) * kPubWeights * nthr, nthr,
                               dp.idx};
       const GmMetrics<T> m = metrics();
-      gm_flux_level<T, false>(dp, m, nt, gm_level(m, km, k, lev), cur, nxt,
+      gm_flux_level<T, false, 0>(dp, m, nt, gm_level(m, km, k, lev), cur, nxt,
                               tw, fzt + tid, nthr, ls, ps, off, gtk, vdc);
     }
     cur = nxt;

@@ -469,7 +469,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
           lk, g.kp == k ? lk : stg + b1 * stage_size, k, s};
       const FrameWeights<T, CANCEL, ANISO, P, W> fw{
           pub + (k & 1) * Lay::kPub * P, s};
-      gm_flux_level<T, CANCEL>(dp, m, nt, g, cur, nxt, fw, fzt + tid, C, ls,
+      gm_flux_level<T, CANCEL, NT>(dp, m, nt, g, cur, nxt, fw, fzt + tid, C, ls,
                                ps, oc, gtk, vdc);
     }
     cur = nxt;

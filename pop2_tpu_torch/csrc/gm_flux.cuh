@@ -25,7 +25,9 @@
 
 namespace pop2 {
 
-constexpr int kMaxTracers = 16;  // tracers a launch (vertical-flux carries)
+// tracers a launch (vertical-flux carries); the wrappers split more into
+// groups of at most this many, one launch a group
+constexpr int kMaxTracers = 16;
 enum { kC = 0, kE = 1, kW = 2, kN = 3, kS = 4 };  // column of the stencil
 enum { fE = 0, fW = 1, fN = 2, fS = 3 };          // face of a cell
 
@@ -211,8 +213,16 @@ __device__ __forceinline__ GmLevel<T> gm_level(const GmMetrics<T>& m, int km,
 // part_a) and the level below (`nxt`: b, part_b); the differences from a
 // provider `dp`: tx_c, tx_w, ty_c, ty_s (n, level) and tz(n, level, col), at
 // the levels g.k and g.kp. fztop[n * fzs] carries the vertical flux through
-// the level's top down the column (zero above the first level).
-template <typename T, bool CANCEL, class D, class W>
+// the level's top down the column (zero above the first level). A null
+// `vdc` leaves VDC_GM unwritten: the wrappers launch more tracers than a
+// launch carries in groups, and only the first group writes it.
+// NT > 0: the count is a compile-time constant and the loop over the
+// tracers unrolls. NT = 0: a run-time count `nt`, and the loop is kept
+// rolled, so that every tracer runs the same instructions whatever the
+// count (an unrolled body with a remainder loop rounded a tracer's fluxes
+// differently by its place in the count): a tracer's result is then the
+// same in any group of a grouped launch.
+template <typename T, bool CANCEL, int NT, class D, class W>
 __device__ __forceinline__ void gm_flux_level(
     const D& dp, const GmMetrics<T>& m, int nt, const GmLevel<T>& g,
     const GmWeights<T>& cur, const GmWeights<T>& nxt, const W& w,
@@ -223,7 +233,7 @@ __device__ __forceinline__ void gm_flux_level(
   const T dzk = g.dzk;
   const T cx_c = g.cx_c, cx_w = g.cx_w, cy_c = g.cy_c, cy_s = g.cy_s;
 
-  for (int n = 0; n < nt; ++n) {
+  auto tracer = [&](int n) {
     const T tx_c = dp.tx_c(n, k), tx_w = dp.tx_w(n, k);
     const T ty_c = dp.ty_c(n, k), ty_s = dp.ty_s(n, k);
     T tz[5], tzp[5];  // the skew terms alone read them
@@ -266,9 +276,17 @@ __device__ __forceinline__ void gm_flux_level(
                   g.dzrk * m.tarea_r;
     gtk[n * ts + k * ls + oc] = g.in_c ? div : T(0);
     fztop[n * fzs] = fz;
+  };
+  if (NT > 0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) tracer(n);
+  } else {
+#pragma unroll 1
+    for (int n = 0; n < nt; ++n) tracer(n);
   }
-  vdc[k * ls + oc] =
-      g.below ? g.dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
+  if (vdc != nullptr)  // a launch of a later tracer group leaves VDC_GM
+    vdc[k * ls + oc] =
+        g.below ? g.dzwk * m.tarea_r * (cur.part_a + nxt.part_b) : T(0);
 }
 
 }  // namespace pop2

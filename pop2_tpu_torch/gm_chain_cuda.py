@@ -25,7 +25,11 @@ that walks down k, stages each level by asynchronous copies one level ahead,
 computes every column's weights once a level and hands them to the
 neighbours through shared memory (see the note in ``csrc/gm_chain.cu``).
 ``launch_plan`` chooses the tile and its shared memory in plain Python.
-Float32 and float64.
+Float32 and float64. A launch carries at most MAX_TRACERS tracers; ``chain``
+launches more in groups (``tracer_groups``, sized for two blocks an SM
+where that leaves groups of half the cap or more): each group's launch
+forms the tracer-independent weights again, and only the first writes
+VDC_GM and the diagnostic columns.
 
 Closed or tripole north edge: on a tripole grid the tile's ghost-row
 threads form the folded column's weights (its submesoscale amplitudes
@@ -55,7 +59,7 @@ MODE_COUNTERS = ("launches_with_diags",)
 #: rows of the per-level scalar table (csrc/gm_chain.cu reads the same)
 LEV_ROWS = ("DZ", "DZR", "DZWKP", "RDT", "RDB", "TRT", "TRB", "DZWR")
 
-MAX_TRACERS = 16  # kMaxTracers of csrc/gm_flux.cuh
+MAX_TRACERS = gm_cuda.MAX_TRACERS  # kMaxTracers of csrc/gm_flux.cuh
 TILE_COLS = 32  # columns a tile row, halo included (kTileCols: one warp)
 # tile rows, halo included, by value size (at most the kernel's kMaxRows)
 _ROWS = {4: 8, 8: 6}
@@ -64,6 +68,31 @@ _ROWS = {4: 8, 8: 6}
 #: planes of the submesoscale operand: amplitudes of faces e, w, n, s and
 #: the mixed-layer depth (``submeso.amplitudes``)
 SM_PLANES = 5
+
+
+def tracer_groups(nt: int, value_bytes: int, sm: bool = False):
+    """[(n0, n)]: the chain kernel's launches that cover ``nt`` tracers in
+    values of ``value_bytes``, with the submesoscale fold-in or without
+    (``sm``). The cap of a group is the largest tracer count whose tile
+    leaves room for two blocks an SM; where that is under half of
+    MAX_TRACERS (float64 with the fold-in: two tracers), MAX_TRACERS, with
+    one block an SM: each launch forms the weights again, so groups of a
+    few tracers cost more than the second block wins. The groups are as
+    even as the count allows (``_cuda_build.even_groups``). prod_bgc's 39:
+    8 + 8 + 8 + 8 + 7 in float32 (6.34 ms back to back on an H100, against
+    8.17 for 13 + 13 + 13 and 7.54 for 16 + 16 + 7), 13 + 13 + 13 in float64
+    (12.52 ms; 16 + 16 + 7 12.49, 8 + 8 + 8 + 8 + 7 14.82). One launch for
+    nt at or under the cap."""
+    if nt < 1:
+        raise ValueError(f"GM chain of {nt} tracers")
+    rows = _ROWS[value_bytes]
+    share = cb.SMEM_PER_SM // 2 - cb.SMEM_RESERVED_PER_BLOCK
+    cap = max([n for n in range(1, MAX_TRACERS + 1)
+               if smem_values(n, sm) * TILE_COLS * rows * value_bytes
+               <= share] or [0])
+    if cap < MAX_TRACERS // 2:
+        cap = MAX_TRACERS
+    return cb.even_groups(nt, cap)
 
 
 def smem_values(nt: int, sm: bool = False) -> int:
@@ -78,20 +107,22 @@ def smem_values(nt: int, sm: bool = False) -> int:
 
 def launch_plan(value_bytes: int, nt: int, sm: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
-    chain kernel launch for ``nt`` tracers in values of ``value_bytes``,
-    with the submesoscale fold-in or without (``sm``).
+    chain kernel launch for ``nt`` tracers (a group of ``tracer_groups``)
+    in values of ``value_bytes``, with the submesoscale fold-in or without
+    (``sm``).
 
     A block is a tile of TILE_COLS x rows columns, the outer ring a halo:
     (TILE_COLS - 2) x (rows - 2) columns a block are computed. Raises for
-    what the kernel does not take: nt over MAX_TRACERS, values other than
-    float32 or float64, or a tile over the card's 227 KB."""
+    what the kernel does not take: nt over MAX_TRACERS (``tracer_groups``
+    splits more), values other than float32 or float64, or a tile over the
+    card's 227 KB."""
     if value_bytes not in _ROWS:
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
     if not 1 <= nt <= MAX_TRACERS:
         raise NotImplementedError(
             f"GM chain kernel carries at most {MAX_TRACERS} tracers a "
-            f"launch, got {nt}")
+            f"launch, got {nt} (tracer_groups splits more)")
     rows = _ROWS[value_bytes]
     smem = smem_values(nt, sm) * TILE_COLS * rows * value_bytes
     cb.check_smem(smem, f"GM chain tile ({TILE_COLS} x {rows}, nt={nt}, "
@@ -183,27 +214,32 @@ def kernel_flags(cfg, want_diags: bool, sm: bool = False) -> int:
             | int(bool(sm)) << 3)
 
 
-def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool,
-                sm=None):
-    """Check the operands and allocate the outputs of a kernel launch.
-    Returns (head, tail, (gtk, vdc, diags)): the arguments of
-    ``pop2_gm_chain`` before the launch plan's rows and shared memory
-    (dtype, nt, km, ny, nx, cyclic, fold, flags, hd_const) and after it (the
-    parameters, the operand and output pointers, the stream)."""
+def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, gtk, vdc=None,
+                diags=None, sm=None):
+    """Check the operands of a kernel launch on the tracers ``tmix`` (a
+    group) into ``gtk`` (its rows of the output), writing VDC_GM into
+    ``vdc`` and the diagnostic columns into ``diags`` where given. Returns
+    (head, tail): the arguments of ``pop2_gm_chain`` before the launch
+    plan's rows and shared memory (dtype, nt, km, ny, nx, cyclic, fold,
+    flags, hd_const) and after it (the parameters, the operand and output
+    pointers, the stream)."""
     nt, km, ny, nx = tmix.shape
     dev, dt = tmix.device, tmix.dtype
     lev = level_scalars(grid)
     hyx, hxy, _ = gm_cuda.kernel_statics(grid)
     f3, f2 = (km, ny, nx), (ny, nx)
     for name, t, shape in (
-            ("tmix", tmix, (nt,) + f3), ("slp", slp, (8,) + f3),
+            ("tmix", tmix, (nt,) + f3), ("gtk", gtk, (nt,) + f3),
+            ("slp", slp, (8,) + f3),
             ("sla", sla, (2,) + f3), ("kv", kv, f3),
             ("lev", lev, (cb.lib().pop2_gm_chain_lev_rows(), km)),
             ("hyx", hyx, f2), ("hxy", hxy, f2),
             ("TAREA_R", grid.TAREA_R, f2),
             ("diabatic_depth", tlt.diabatic_depth, f2),
             ("thickness", tlt.thickness, f2),
-            ("interior_depth", tlt.interior_depth, f2)):
+            ("interior_depth", tlt.interior_depth, f2)) + (
+            (("vdc", vdc, f3),) if vdc is not None else ()) + (
+            (("diags", diags, (3,) + f3),) if diags is not None else ()):
         cb.check_operand(name, t, shape, dt, dev)
     for name, t in (("KMT", grid.KMT), ("k_level", tlt.k_level),
                     ("ztw", tlt.ztw)):
@@ -214,44 +250,54 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, want_diags: bool,
         cfg.gm_slm_r, cfg.gm_slm_b, cfg.gm_ah, cfg.gm_ah_bolus,
         cfg.gm_kappa_isop_deep, cfg.gm_kappa_thic_deep, cfg.gm_ah_bkg_srfbl,
         cfg.gm_ah_bkg_bottom)
-    gtk = torch.empty_like(tmix)
-    vdc = torch.empty(f3, dtype=dt, device=dev)
-    diags = (torch.empty((3,) + f3, dtype=dt, device=dev) if want_diags
-             else None)
     head = (cb.dtype_code(tmix), nt, km, ny, nx,
             int(cfg.ew_boundary == "cyclic"),
             int(cfg.ns_boundary == "tripole"),
-            kernel_flags(cfg, want_diags, sm is not None),
+            kernel_flags(cfg, diags is not None, sm is not None),
             int(bool(cfg.gm_use_const_ah_bkg_srfbl)))
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     tail = (params, lev.data_ptr(), tmix.data_ptr(), slp.data_ptr(),
             sla.data_ptr(), kv.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
             grid.TAREA_R.data_ptr(), tlt.diabatic_depth.data_ptr(),
             tlt.thickness.data_ptr(), tlt.interior_depth.data_ptr(),
             grid.KMT.data_ptr(), tlt.k_level.data_ptr(), tlt.ztw.data_ptr(),
-            sm.data_ptr() if sm is not None else None,
-            gtk.data_ptr(), vdc.data_ptr(),
-            diags.data_ptr() if want_diags else None, cb.stream_ptr())
-    return head, tail, (gtk, vdc, diags)
+            ptr(sm), gtk.data_ptr(), ptr(vdc), ptr(diags), cb.stream_ptr())
+    return head, tail
 
 
 def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
           sm=None):
     """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go
-    through the kernel, CPU tensors through the plain version."""
+    through the kernel, one launch for each group of ``tracer_groups``
+    (the first writes VDC_GM and, with ``want_diags``, the diagnostic
+    columns); CPU tensors through the plain version."""
     global launches, launches_with_diags
     _check_mode(cfg, grid)
     if not tmix.is_cuda:
         return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
                            want_diags, sm)
-    (_, rows), smem = launch_plan(tmix.element_size(), tmix.shape[0],
-                                  sm is not None)
-    head, tail, out = launch_args(cfg, grid, tmix, slp, sla, kv, tlt,
-                                  want_diags, sm)
-    err = cb.lib().pop2_gm_chain(*head, rows, smem, *tail)
-    cb.check_launch(err, "gm chain")
-    launches += 1
-    launches_with_diags += int(bool(want_diags))
-    return out
+    nt, km, ny, nx = tmix.shape
+    vb, with_sm = tmix.element_size(), sm is not None
+    groups = [(n0, n) + launch_plan(vb, n, with_sm)
+              for n0, n in tracer_groups(nt, vb, with_sm)]
+    gtk = torch.empty_like(tmix)
+    vdc = torch.empty((km, ny, nx), dtype=tmix.dtype, device=tmix.device)
+    diags = (torch.empty((3, km, ny, nx), dtype=tmix.dtype,
+                         device=tmix.device) if want_diags else None)
+    lib = cb.lib()
+    for g, (n0, n, (_, rows), smem) in enumerate(groups):
+        first = g == 0
+        head, tail = launch_args(cfg, grid, tmix[n0:n0 + n], slp, sla, kv,
+                                 tlt, gtk[n0:n0 + n],
+                                 vdc if first else None,
+                                 diags if first else None, sm)
+        err = lib.pop2_gm_chain(*head, rows, smem, *tail)
+        cb.check_launch(err, "gm chain")
+        launches += 1
+        launches_with_diags += int(first and want_diags)
+    return gtk, vdc, diags
 
 
 def hdifft_chain(cfg, grid, bc, ts_range, tmix, hblt=None, hmxl=None,

@@ -58,6 +58,18 @@ NARROW_ROWS = 2
 HALO = 1  # columns of the tile's frame on each side
 
 
+def tracer_groups(nt: int):
+    """[(n0, n)]: the flux assembly's launches that cover ``nt`` tracers,
+    each n <= MAX_TRACERS from n0, as few as the cap allows (each launch
+    forms the weights again) and as even as the count allows
+    (``_cuda_build.even_groups``: 39 are 13 + 13 + 13, whose narrow tiles
+    keep 4 / 2 blocks an SM in float32 / float64); one launch for nt <=
+    MAX_TRACERS."""
+    if nt < 1:
+        raise ValueError(f"GM flux assembly of {nt} tracers")
+    return cb.even_groups(nt, MAX_TRACERS)
+
+
 def tile_rows(nt: int) -> int:
     """Rows of the flux-assembly tile for ``nt`` tracers."""
     return TILE_ROWS if nt == MODEL_TRACERS else NARROW_ROWS
@@ -83,9 +95,10 @@ def launch_plan(value_bytes: int, nt: int, cancellation: bool,
                 aniso: bool = False):
     """(block shape (TILE_COLS, rows), dynamic shared memory bytes) of a
     flux-assembly launch for ``nt`` tracers in values of ``value_bytes``,
-    isotropic or anisotropic (``aniso``). Raises for what the kernel does
-    not take: nt over MAX_TRACERS, values other than float32 or float64, or
-    a tile over the card's 227 KB."""
+    isotropic or anisotropic (``aniso``); ``nt`` is a group of
+    ``tracer_groups``. Raises for what the kernel does not take: nt over
+    MAX_TRACERS (``tracer_groups`` splits more), values other than float32
+    or float64, or a tile over the card's 227 KB."""
     if value_bytes not in (4, 8):
         raise TypeError(f"kernels take float32 or float64, got "
                         f"{value_bytes}-byte values")
@@ -261,7 +274,8 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
                   kisop, hor_diff, cancellation: bool, kisop_y=None):
     """(GTK, VDC_GM); arguments as ``flux_assembly_plain``. CUDA tensors go
     through the kernel (its ``ANISO`` instance where ``kisop_y`` is given),
-    CPU tensors through the plain version."""
+    one launch for each group of ``tracer_groups`` (the first writes
+    VDC_GM); CPU tensors through the plain version."""
     global launches, launches_fold, launches_aniso
     _check_mode(cfg, grid)
     if not tx.is_cuda:
@@ -271,8 +285,9 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     nt, km, ny, nx = tx.shape
     dev, dt = tx.device, tx.dtype
     aniso = kisop_y is not None
-    (_, rows), smem = launch_plan(tx.element_size(), nt, bool(cancellation),
-                                  aniso)
+    groups = [(n0, n) + launch_plan(tx.element_size(), n, bool(cancellation),
+                                    aniso)
+              for n0, n in tracer_groups(nt)]
     lib = cb.lib()
     hyx, hxy, lev = kernel_statics(grid)
     f4, f5, f2 = (nt, km, ny, nx), (2, 2, km, ny, nx), (ny, nx)
@@ -287,18 +302,20 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     cb.check_operand("KMT", grid.KMT, f2, torch.int32, dev)
     gtk = torch.empty_like(tx)
     vdc = torch.empty((km, ny, nx), dtype=dt, device=dev)
-    err = lib.pop2_gm_flux(
-        cb.dtype_code(tx), nt, km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        int(cfg.ns_boundary == "tripole"), int(bool(cancellation)),
-        int(aniso), rows, smem, tx.data_ptr(), ty.data_ptr(),
-        tz.data_ptr(), slx.data_ptr(), sly.data_ptr(), sf_slx.data_ptr(),
-        sf_sly.data_ptr(), kisop.data_ptr(),
-        kisop_y.data_ptr() if aniso else None, hor_diff.data_ptr(),
-        grid.KMT.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
-        grid.TAREA_R.data_ptr(), lev.data_ptr(), gtk.data_ptr(),
-        vdc.data_ptr(), cb.stream_ptr())
-    cb.check_launch(err, "gm flux_assembly")
-    launches += 1
-    launches_fold += int(cfg.ns_boundary == "tripole")
-    launches_aniso += int(aniso)
+    for g, (n0, n, (_, rows), smem) in enumerate(groups):
+        err = lib.pop2_gm_flux(
+            cb.dtype_code(tx), n, km, ny, nx,
+            int(cfg.ew_boundary == "cyclic"),
+            int(cfg.ns_boundary == "tripole"), int(bool(cancellation)),
+            int(aniso), rows, smem, tx[n0].data_ptr(), ty[n0].data_ptr(),
+            tz[n0].data_ptr(), slx.data_ptr(), sly.data_ptr(),
+            sf_slx.data_ptr(), sf_sly.data_ptr(), kisop.data_ptr(),
+            kisop_y.data_ptr() if aniso else None, hor_diff.data_ptr(),
+            grid.KMT.data_ptr(), hyx.data_ptr(), hxy.data_ptr(),
+            grid.TAREA_R.data_ptr(), lev.data_ptr(), gtk[n0].data_ptr(),
+            vdc.data_ptr() if g == 0 else None, cb.stream_ptr())
+        cb.check_launch(err, "gm flux_assembly")
+        launches += 1
+        launches_fold += int(cfg.ns_boundary == "tripole")
+        launches_aniso += int(aniso)
     return gtk, vdc

@@ -7,10 +7,11 @@ occupy slots 2.. (0-based) of the tracer array, after TEMP and SALT.
 
 A package is a small object whose functions return whole (n, km, ny, nx)
 source fields or (n, ny, nx) surface fluxes on the tracers' device; the
-framework stacks them. The port carries the ideal age, the CFC and SF6 gas
-tracers (``gas_tracers``) and the impulse-response tracer; the abiotic DIC
-and ecosystem packages are refused by ``supported.check_supported``
-(ROADMAP.md Queue 1 item 11).
+framework stacks them. The port carries every package of the JAX
+package: the ideal age, the CFC and SF6 gas tracers (``gas_tracers``), the
+impulse-response tracer, the abiotic DIC/DIC14 (``abio_dic``) and the
+32-tracer ecosystem (``ecosys``), whose surface chlorophyll is the model's
+under ``chl_option='model'`` (``PassiveTracers.model_chl``).
 """
 
 from __future__ import annotations
@@ -102,11 +103,23 @@ def _make_sf6():
     return GasTracers(("SF6",))
 
 
+def _make_abio_dic():
+    from pop2_tpu_torch.abio_dic import AbioDIC
+    return AbioDIC()
+
+
+def _make_ecosys():
+    from pop2_tpu_torch.ecosys import Ecosystem
+    return Ecosystem()
+
+
 REGISTRY = {
     "iage": IdealAge,
     "cfc": _make_cfc,      # source/cfc_mod.F90
     "sf6": _make_sf6,      # source/sf6_mod.F90
     "irf": IRF,            # source/IRF_mod.F90
+    "abio_dic": _make_abio_dic,  # source/abio_dic_dic14_mod.F90
+    "ecosys": _make_ecosys,      # source/ecosys_driver.F90 (MARBL/BEC)
 }
 
 
@@ -114,15 +127,13 @@ class PassiveTracers:
     """Stacked view over the active packages; slot 0 of the stacked source
     array is tracer index 2 of the model state."""
 
-    def __init__(self, cfg: ModelConfig, packages: Sequence[str]):
-        """packages: names from REGISTRY."""
-        unknown = [p for p in packages if p not in REGISTRY]
-        if unknown:
-            raise NotImplementedError(
-                f"passive tracer packages {unknown} are not ported yet "
-                "(ROADMAP.md Queue 1 item 11)")
-        self.packages: List[TracerPackage] = [REGISTRY[p]()
-                                              for p in packages]
+    def __init__(self, cfg: ModelConfig, packages: Sequence):
+        """packages: names from REGISTRY or TracerPackage instances (a
+        package built with other parameters, ``convert.package_from_numpy``);
+        an unknown name raises ``KeyError``."""
+        self.packages: List[TracerPackage] = [
+            p if isinstance(p, TracerPackage) else REGISTRY[p]()
+            for p in packages]
         self.names: List[str] = []
         for p in self.packages:
             p.slot0 = 2 + len(self.names)
@@ -149,6 +160,17 @@ class PassiveTracers:
         return torch.cat(
             [p.set_sflux(cfg, grid, tracers_old, tracers_cur, forcing)
              for p in self.packages], dim=0)
+
+    def model_chl(self, tracer_cur):
+        """Surface chlorophyll (mg/m^3) of the ecosystem package when it is
+        active (the reference's 'model' chl_option resolves the
+        model_chlorophyll named field, source/sw_absorption.F90:332-345);
+        None otherwise."""
+        from pop2_tpu_torch.ecosys import Ecosystem
+        for p in self.packages:
+            if isinstance(p, Ecosystem):
+                return p.surface_chl(tracer_cur)
+        return None
 
     def reset(self, cfg, grid, tracer_new):
         """The per-package resets applied to the full (nt, ...) new-time

@@ -21,12 +21,6 @@ def unsupported(cfg: ModelConfig) -> list:
          "grid/topography 'file' readers (Queue 1 item 11: io/grid_files)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
-        ("abio_dic" in cfg.passive_tracers,
-         "passive tracer package 'abio_dic' (Queue 1 item 11: abio_dic.py "
-         "and co2calc.py beside passive_tracers.py)"),
-        ("ecosys" in cfg.passive_tracers,
-         "passive tracer package 'ecosys' (Queue 1 item 11: ecosys.py "
-         "beside passive_tracers.py)"),
         (cfg.state_choice not in ("mwjf", "jmcd", "linear", "polynomial"),
          f"state_choice={cfg.state_choice!r}"),
         (cfg.state_choice == "polynomial" and bool(cfg.overflows),
@@ -45,9 +39,6 @@ def unsupported(cfg: ModelConfig) -> list:
          f"vmix={cfg.vmix!r}"),
         (not cfg.implicit_vertical_mix,
          "explicit vertical mixing (absent from the JAX package too)"),
-        (cfg.sw_absorption == "chlorophyll" and cfg.chl_option == "model",
-         "chl_option='model' (Queue 1 item 11: chlorophyll of the ecosystem "
-         "model, ecosys.py)"),
         (cfg.sw_absorption == "chlorophyll"
          and cfg.chl_option not in ("const", "file", "model"),
          f"chl_option={cfg.chl_option!r}"),

@@ -62,14 +62,7 @@ def rhs_groups(nr: int):
     more blocks an SM); one launch for nr <= MAX_RHS."""
     if nr < 1:
         raise ValueError(f"a tridiagonal solve of {nr} right-hand sides")
-    ngroups = -(-nr // MAX_RHS)
-    base, extra = divmod(nr, ngroups)
-    out, n0 = [], 0
-    for g in range(ngroups):
-        n = base + (g < extra)
-        out.append((n0, n))
-        n0 += n
-    return out
+    return cb.even_groups(nr, MAX_RHS)
 
 
 def launch_plan(value_bytes: int, nr: int, km: int) -> ThomasPlan:

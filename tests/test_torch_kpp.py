@@ -26,6 +26,8 @@ against the NumPy oracle of the reference (``tests/reference_oracle/
 okpp.py``) as the JAX package's own test does.
 """
 
+import itertools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -312,3 +314,69 @@ def test_wscale_matches_jax_and_the_oracle():
     for g, w, o in zip(got, want, oracle):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12)
         np.testing.assert_allclose(g.numpy(), o, rtol=1e-12)
+
+
+# ---- the boundary-layer depth's conditioning (ROADMAP.md Queue 3, F4) -------
+
+HMIX = dict(nx=32, ny=16, km=12, hmix_tracer="del4", hmix_momentum="del4",
+            tidal_mixing_method="schmittner", ltidal_schmittner_socn=True,
+            ldamp_uv=True, passive_tracers=(), nt=2)
+
+
+def test_boundary_layer_depth_is_ill_conditioned_on_a_noisy_state(tmp_path):
+    """prod_hmix's menu at 32 x 16 x 12 on stretched levels, from its state
+    of rest with 0.3 K of T noise and 0.01 of S noise, under the model's
+    own wind stress (the first leapfrog step's mixing of the whole-step
+    recipe that shows the gap): KPP's boundary-layer depth, which
+    interpolates the bulk Richardson number between two levels where it
+    changes little, turns last-bit differences of its inputs into
+    differences of order 1e-10 of its scale. There the port's HBLT leaves
+    the JAX package's compiled one by more than the whole-step band
+    (1e-11, which a step carries into S and u: 7.8e-11 and 4.0e-11 after
+    one step), and so does the port's own HBLT when T or S moves by one
+    ulp, by half as much at least; the buoyancy differences that
+    feed it agree to 1e-13 of scale, the level below the boundary layer
+    exactly. A property of the state, not a fault of either package: run
+    op by op, the JAX package's step lies within 7.2e-12 of the port's."""
+    base = get_config("prod_full", **HMIX)
+    jcfg, tcfg, jg, tg = stretched_pair(base, tmp_path)
+    from pop2_tpu_torch.model import Model as TModel
+    tm = TModel(tcfg, grid=tg, device="cpu")
+    mt, mu = tg.kmask_t.numpy(), tg.kmask_u.numpy()
+    rng = np.random.RandomState(29)
+    tr = tm.initial_state().tracer_cur.numpy().copy()
+    tr[0] += 0.3 * rng.randn(*tr[0].shape) * mt
+    tr[1] += 0.01 * rng.randn(*tr[1].shape) * mt
+    rng.randn(*mu.shape)  # the step's u_cur; KPP mixes the old level,
+    u = v = np.zeros(mu.shape)  # at rest on the first leapfrog step
+    shape = mt.shape[1:]
+    heat = 5.0e-4 * np.abs(rng.randn(*shape))
+    stf = np.zeros((2,) + shape)
+    stf[0] = np.where(rng.rand(*shape) < 0.4, -heat, 0.2 * heat) * mt[0]
+    qsw, smft = np.zeros(shape), tm.forcing.smft.numpy()
+    jst, tst = jkpp.build_statics(jcfg, jg), tkpp.build_statics(tcfg, tg)
+    want = jax.jit(lambda t: jkpp.kpp_coeffs(
+        jcfg, jg, j_grid_bc(jcfg), jst, t, *(jnp.asarray(a) for a in (
+            u, v, stf, qsw, smft)), jcfg.convect_diff, jcfg.convect_visc))(
+        jnp.asarray(tr))
+
+    def port(t):
+        return tkpp.kpp_coeffs(tcfg, tg, t_grid_bc(tcfg), tst,
+                               *(_t(a) for a in (t, u, v, stf, qsw, smft)),
+                               tcfg.convect_diff, tcfg.convect_visc)
+    got = port(tr)
+    np.testing.assert_array_equal(got.kbl.numpy(), np.asarray(want.kbl))
+    gap = scale_err(got.hblt.numpy(), want.hblt)
+    own = 0.0  # the port's largest response to T or S moved by one ulp
+    for n, to in itertools.product((0, 1), (np.inf, -np.inf)):
+        bumped = tr.copy()
+        bumped[n] = np.where(mt, np.nextafter(tr[n], to), 0.0)
+        own = max(own, scale_err(port(bumped).hblt.numpy(),
+                                 got.hblt.numpy()))
+    # each package's HBLT lies about one ulp of input rounding from the
+    # other's inputs' value: their distance is at most twice that response
+    assert gap > 1e-11 and gap <= 2.0 * own, (gap, own)
+    jdb = jkpp.buoydiff(jcfg, jg, jst, jnp.asarray(tr))
+    tdb = tkpp.buoydiff(tcfg, tg, tst, _t(tr))
+    for g, w in zip(tdb, jdb):
+        assert scale_err(g.numpy(), w) <= 1e-13

@@ -140,14 +140,19 @@ def test_thomas_wrapper_refuses_before_building(no_build, nr, km, match):
                             torch.zeros(km, ny, nx), rhs)
 
 
-def test_chain_wrapper_refuses_before_building(no_build):
+def test_chain_wrapper_refuses_before_building(no_build, monkeypatch):
+    """17 tracers are two launches (9 + 8, ``gm_chain_cuda.tracer_groups``);
+    each group's tile is planned, and a tile the card cannot hold refused,
+    before anything is built."""
     cfg = get_config("mini", hmix_tracer="gm", gm_transition_layer=True,
                      gm_kappa_isop_type="bfre", gm_kappa_thic_type="bfre",
                      lsubmeso=False)
     grid = build_grid(cfg, "cpu")
     f3 = (cfg.km, cfg.ny, cfg.nx)
+    assert gm_chain_cuda.tracer_groups(17, 4) == [(0, 9), (9, 8)]
+    monkeypatch.setattr(cb, "SMEM_PER_BLOCK", 16 * 1024)
     tmix = torch.zeros((17,) + f3).as_subclass(OnCard)
-    with pytest.raises(NotImplementedError, match="16 tracers"):
+    with pytest.raises(ValueError, match="nt=9"):
         gm_chain_cuda.chain(cfg, grid, None, tmix, None, None, None, None)
 
 
@@ -431,8 +436,9 @@ def test_slope_wrapper_refuses_before_building(no_build, monkeypatch, dtype,
         gm_slope_cuda.slopes(cfg, grid, None, None, tmix.as_subclass(OnCard))
 
 
+# 17 tracers are two launches (9 + 8), each tile planned before building
 @pytest.mark.parametrize("nt,smem_cap,err,match", [
-    (17, None, NotImplementedError, "at most 16 tracers"),
+    (17, 8 * 1024, ValueError, "nt=9"),
     (2, 8 * 1024, ValueError, "shared memory a block"),
 ])
 def test_flux_wrapper_refuses_before_building(no_build, monkeypatch, nt,

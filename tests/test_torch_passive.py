@@ -166,8 +166,14 @@ def test_gas_coefficients_match(name):
 
 
 def test_unknown_and_unported_packages_raise():
+    """Every package of the JAX package is ported (ROADMAP.md Queue 1 item
+    11f): a name outside the registry raises ``KeyError``, as the JAX
+    package's does, and a tracer count the packages do not fill
+    ``ValueError``."""
     cfg = torch_cfg(get_config("mini", nt=3, passive_tracers=("iage",)))
     with pytest.raises(ValueError, match="nt=4"):
         TPassive(cfg.with_(nt=4), ("iage",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(KeyError, match="marbl"):
+        TPassive(cfg, ("marbl",))
+    with pytest.raises(ValueError, match="nt=3"):
         TPassive(cfg, ("abio_dic",))

@@ -182,25 +182,27 @@ def test_convert_defaults_to_cuda_and_raises_without_one():
     dict(hmix_tracer="gm", gm_aniso="flow", gm_transition_layer=False),
     dict(partial_bottom_cells=True),
     dict(sw_absorption="chlorophyll", chl_option="file"),
-    dict(lestuary_exch=True)],
+    dict(lestuary_exch=True),
+    dict(passive_tracers=("ecosys", "abio_dic"), nt=36,
+         sw_absorption="chlorophyll", chl_option="model")],
     ids=["lw_lim", "gm_aniso_flow", "partial_bottom_cells", "chl_file",
-         "lestuary_exch"])
+         "lestuary_exch", "ecosys"])
 def test_switches_ported_since_construct_and_step(over):
     """Once refused at construction (ROADMAP.md Queue 1 items 11b, 11c,
-    11d): lw_lim advection, anisotropic GM, partial bottom cells, the
-    chlorophyll of the forcing and the estuary exchange now construct and
-    step (their values are held against the JAX package in
-    test_torch_advect_eos.py, test_torch_gm_menu.py, test_torch_pbc.py and
-    test_torch_forcing.py; without the forcing's chlorophyll or runoff the
-    constant chlorophyll is used and no exchange runs, as in the JAX
-    package)."""
+    11d, 11f): lw_lim advection, anisotropic GM, partial bottom cells, the
+    chlorophyll of the forcing, the estuary exchange and the ecosystem with
+    the abiotic DIC and the model's chlorophyll now construct and step
+    (their values are held against the JAX package in
+    test_torch_advect_eos.py, test_torch_gm_menu.py, test_torch_pbc.py,
+    test_torch_forcing.py and test_torch_bgc.py; without the forcing's
+    chlorophyll or runoff the constant chlorophyll is used and no exchange
+    runs, as in the JAX package)."""
     model = TModel(t_get_config("mini", **over), device="cpu")
     state, _ = model.advance(model.initial_state())
     assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
 
 
 @pytest.mark.parametrize("over,names", [
-    (dict(passive_tracers=("ecosys",), nt=34), "passive"),
     (dict(b4b=True), "b4b"),
     (dict(mesh_shape=(2, 1)), "multi-GPU"),
 ])

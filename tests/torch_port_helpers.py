@@ -8,6 +8,14 @@ import torch
 
 from pop2_tpu_torch import config as tconfig
 
+# The tests' fields are small (tens of thousands of values): a torch
+# operation on them costs its dispatch, and more intra-op threads only add
+# the wake-ups of a pool that every other test worker of the machine
+# (pytest-xdist, one process a core) contends for, ten times the work
+# itself in a loaded run. One thread a process; XLA's own pool, which the
+# JAX package's side uses, is not touched.
+torch.set_num_threads(1)
+
 
 def torch_cfg(jcfg):
     """The port's ModelConfig with the field values of a JAX-package one
