@@ -11,7 +11,7 @@ give it (320 x 384 x 60, the production gx1v7 dimensions, nt = 2) in float32
 and float64, times both (and reports each kernel's block, shared memory and
 blocks an SM holds), holds every kernel against its plain version on a
 grid its tile does not divide, and drives the
-port's seventeen paths through ``Model.advance`` (Euler step, leapfrog steps,
+port's nineteen paths through ``Model.advance`` (Euler step, leapfrog steps,
 averaging or Robert-filtered steps) at that size in float32 and in float64
 (gm_pbc in float32 alone):
 
@@ -81,6 +81,16 @@ averaging or Robert-filtered steps) at that size in float32 and in float64
               GM chain kernel in groups of tracers (five launches a step in
               float32, three in float64), the tracer kernel twenty
               times, thomas in groups of up to four right-hand sides
+    prod_file the production configuration on a gx-class grid read from
+              POP-format files (``gridgen.generate_gx_files`` at
+              320x384x60: latitude spacing refined at the equator, ANGLE
+              from the file, an earthlike KMT with 3-level shelves beside
+              columns at km): the kernels and launch counts of prod_full
+    gx3v7     the JAX package's gx3v7 preset on generated files at
+              100x116x60 with a closed north edge: KPP, GM with constant
+              diffusivities (plain chain -> the flux-assembly kernel), the
+              momentum kernel without the Laplacian, the tracer kernel
+              centered without the Laplacian, ChronGear solving in float64
 
 On every GM path with the transition layer the search runs as a kernel.
 The modes of the tracer, momentum, slope and chain kernels that the tripole
@@ -94,11 +104,22 @@ the fold), the tracer kernel with the top U row's DXU opened
 (``sample.open_top_dxu``).
 An overflow phase runs the 'mini' preset with the overflows of the JAX
 package's tests on the card against the same on the CPU.
+The ``cpl`` phase runs prod_file's float32 configuration under the coupler
+cap (``OcnComponent``, six steps a coupling interval): initialize, two
+intervals of seeded SI import fields (the first ending in a restart written
+on request), a second component resumed from that restart whose second
+interval's export must equal the first's bitwise, every export field inside
+its physical range, the launches an interval, and the same interval on a
+small file grid in float64 on the GPU against the CPU. The ``spai`` phase
+runs core's configuration with the 9-point SPAI preconditioner and with the
+same stencil read back from an .npz ('file'), which must agree bitwise, and
+reports the host build, the iterations against the diagonal run and PCSI's
+bounds under the stencil.
 
 For each path it checks through the wrappers' launch counters (zeroed just
 before, read just after) that the steps really went through the kernels.
 On core, gm_full, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
-prod_aniso, core_lw, prod_pbc and prod_forced runs
+prod_aniso, core_lw, prod_pbc, prod_forced, prod_bgc and prod_file runs
 ``Model.run_compiled`` (CUDA graphs of the step's segments) against
 ``Model.run`` from one state (``run_loop`` phase): every state leaf bitwise
 equal (or inside the eager-against-eager spread), iterations and launch
@@ -113,8 +134,8 @@ are timed at full size (``menu_parts_phase``). It
 compares a step with the kernels against a step with the plain versions
 (and, in float32, both against the float64 run) on the core, gm_full,
 prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
-prod_aniso, core_lw, prod_pbc, gm_pbc and prod_forced paths, and three
-steps on prod_bgc,
+prod_aniso, core_lw, prod_pbc, gm_pbc, prod_forced, prod_bgc, prod_file
+and gx3v7 paths,
 holds every ported forcing function on the card against the CPU in float64
 and times the build of a step's forcing (``forcing_phase``),
 holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
@@ -149,6 +170,7 @@ import tempfile
 import time
 import traceback
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -170,12 +192,15 @@ from pop2_tpu_torch import estuary, forcing as forcing_mod  # noqa: E402
 from pop2_tpu_torch import forcing_sfwf, forcing_shf  # noqa: E402
 from pop2_tpu_torch import forcing_tools, mcog, ms_balance  # noqa: E402
 from pop2_tpu_torch import running_mean, samplers  # noqa: E402
+from pop2_tpu_torch import coupled, gridgen  # noqa: E402
+from pop2_tpu_torch.barotropic import diagonal_correction  # noqa: E402
 from pop2_tpu_torch.config import (OverflowSpec, RegionBox,  # noqa: E402
                                    SolverConfig, get_config)
 from pop2_tpu_torch.grid import (bottom_cells, bottom_planes,  # noqa: E402
                                  build_grid, build_topostress, grid_bc,
                                  partial_bottom_cells, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
+from pop2_tpu_torch.ocn_component import OcnComponent  # noqa: E402
 from pop2_tpu_torch.state import initial_state  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -198,6 +223,8 @@ STEPS = {"core": {"float32": 20, "float64": 6},
          "prod_pbc": {"float32": 6, "float64": 4},
          "gm_pbc": {"float32": 4},
          "prod_forced": {"float32": 6, "float64": 4},
+         "prod_file": {"float32": 6, "float64": 4},
+         "gx3v7": {"float32": 4, "float64": 4},
          "prod_bgc": {"float32": 4, "float64": 3}}
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
@@ -268,7 +295,7 @@ N2_BAND = {
 CLAMPED = 1.0e8
 STEEP = 3.0        # geometric slope far beyond any that is not tapered away
 TAPER_ZERO = 0.18  # the notanh taper is zero from 0.6 of the slope limit on
-# whole-path bands, kernels against plain versions over 1-3 steps, relative to
+# whole-path bands, kernels against plain versions over one step, relative to
 # each field's scale. float64: the parity band of the JAX package's step-5
 # test on every field. float32 is looser, by field: tracers get the band of
 # the JAX package's own float32 kernel-dispatch test; the surface pressure is
@@ -305,7 +332,8 @@ WITNESS_RATIO = 1.5
 # chooses its stencil by the signs of tracer differences, another threshold.
 WITNESS_BAND_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_vmix",
                       "prod_hmix", "prod_eg", "prod_aniso", "core_lw",
-                      "prod_pbc", "gm_pbc", "prod_forced", "prod_bgc")
+                      "prod_pbc", "gm_pbc", "prod_forced", "prod_bgc",
+                      "prod_file", "gx3v7")
 
 SOURCES = {
     "thomas": ("pop2_tpu_torch/csrc/thomas.cu",
@@ -457,12 +485,15 @@ PATHS = {"core": {}, "gm_full": GM_FULL, "gm_flux": GM_FLUX,
          "prod_hmix": PROD_HMIX, "core_topo": dict(ltopostress=True),
          "prod_eg": PROD_EG, "prod_aniso": PROD_ANISO, "core_lw": CORE_LW,
          "prod_pbc": PROD_PBC, "gm_pbc": GM_PBC,
-         "prod_forced": PROD_FORCED, "prod_bgc": PROD_BGC}
+         "prod_forced": PROD_FORCED, "prod_bgc": PROD_BGC,
+         # the file grids' options come from ``gx_files`` (``full_config``)
+         "prod_file": {}, "gx3v7": {}}
 PROD_PATHS = ("prod_dyn", "prod_mix", "prod_full", "prod_flux", "prod_vmix",
               "prod_hmix", "prod_eg", "prod_aniso", "prod_pbc",
               "prod_forced", "prod_bgc")
 PASSIVE_PATHS = ("prod_full", "prod_flux", "prod_vmix", "prod_eg",
-                 "prod_aniso", "gm_pbc", "prod_forced", "prod_bgc")
+                 "prod_aniso", "gm_pbc", "prod_forced", "prod_bgc",
+                 "prod_file")
 # the bottom-cell files of the partial-cell paths, a file a grid shape, and
 # prod_forced's wind-stress files, in directories removed at exit
 BOTTOM_CELLS = tempfile.TemporaryDirectory(prefix="pop2_dzbc_")
@@ -479,6 +510,15 @@ PROD_SMALL = dict(nx=40, ny=24, km=10, vert_grid="uniform")
 BGC_SMALL = dict(nx=40, ny=24, km=20, vert_grid="internal")
 # the ecosystem's first slot on prod_bgc: after T, S, the age and the CFCs
 BGC_SLOT0 = 5
+# the gx-class grids read from files: prod_file's (gx1v7's shape, from the
+# script's seed), gx3v7's (as the JAX package's tests/test_gx3v7.py writes
+# it) and the small one of the comparisons with the CPU, each written once
+# by ``gridgen.generate_gx_files`` into a directory removed at exit
+GX_FILES = tempfile.TemporaryDirectory(prefix="pop2_gx_")
+GX1 = (320, 384, 60, SEED)
+GX3 = (100, 116, 60, 0)
+GX_SMALL = (40, 24, 12, SEED)
+_GX_PATHS = {}
 # the forcing functions on the GPU against the CPU in float64, relative to
 # each output's scale
 FORCING_BAND = 1e-12
@@ -488,12 +528,34 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def gx_files(nx: int, ny: int, km: int, seed: int) -> dict:
+    """The config options of a gx-class grid read from the files that
+    ``gridgen.generate_gx_files`` writes for these dimensions and seed
+    (written at the first call)."""
+    key = (nx, ny, km, seed)
+    if key not in _GX_PATHS:
+        _GX_PATHS[key] = gridgen.generate_gx_files(
+            os.path.join(GX_FILES.name, "gx_%d_%d_%d_%d" % key), nx, ny, km,
+            seed=seed)
+    paths = _GX_PATHS[key]
+    return dict(nx=nx, ny=ny, km=km, horiz_grid="file", vert_grid="file",
+                topography="file", horiz_grid_file=paths["horiz"],
+                vert_grid_file=paths["vert"], topography_file=paths["topo"])
+
+
 def full_config(dtype: str, path: str = "core"):
-    """One of the port's paths at the production gx1v7 dimensions. Under a
-    float32 model the 2-D solve runs in float64, as the production preset
-    does: in float32 the residual floor of the solve lies above the
-    convergence criterion of 1e-13 and ChronGear runs to max_iterations
-    every step (in the JAX package too)."""
+    """One of the port's paths at the production gx1v7 dimensions (gx3v7's
+    own on its path). Under a float32 model the 2-D solve runs in float64,
+    as the production preset does: in float32 the residual floor of the
+    solve lies above the convergence criterion of 1e-13 and ChronGear runs
+    to max_iterations every step (in the JAX package too)."""
+    if path == "prod_file":
+        return production.get_production_config(dtype=dtype,
+                                                **gx_files(*GX1))
+    if path == "gx3v7":
+        return get_config("gx3v7", dtype=dtype,
+                          solver=SolverConfig(solve_dtype="float64"),
+                          **gx_files(*GX3))
     if path in PASSIVE_PATHS:  # the flagship's entry point
         cfg = production.get_production_config(dtype=dtype, **PATHS[path])
     elif path in PROD_PATHS:  # PCSI 1e-13 with FSPAI, solving in float64
@@ -2901,7 +2963,8 @@ def expected_counts(path: str, nsteps: int, dtype_name: str = "float64"):
             "prod_eg": flux + ("gm_tlt",), "prod_aniso": flux,
             "core_lw": ("clinic", "gm_flux"),
             "prod_pbc": ("tracer", "clinic"), "gm_pbc": chain,
-            "prod_forced": chain, "prod_bgc": chain}[path]
+            "prod_forced": chain, "prod_bgc": chain, "prod_file": chain,
+            "gx3v7": flux}[path]
     expect = dict.fromkeys(read_counts(), 0)
     expect.update(dict.fromkeys(once, nsteps))
     cfg = full_config(dtype_name, path)
@@ -2929,6 +2992,43 @@ def expected_counts(path: str, nsteps: int, dtype_name: str = "float64"):
         expect["clinic_pbc"] = expect["clinic"]
         expect["thomas_pbc"] = 1 + 3 * (nsteps - 1)
     return expect
+
+
+def file_grid_figures(cfg, grid):
+    """Print what the file grid holds that the internal one does not: the
+    ocean fraction, DYU's least and largest row (it varies by row, not
+    along one), the columns that reach km and those with fewer than 5
+    levels, and the top row's U columns (land: gridgen's top T row is
+    land, so prod_file does not test the tripole fold)."""
+    kmt, kmu = grid.KMT.cpu().numpy(), grid.KMU.cpu().numpy()
+    dyu = grid.DYU.double().cpu().numpy()
+    htn = grid.HTN.double().cpu().numpy()
+    ulat = grid.ULAT.double().cpu().numpy() * const.RADIAN
+    wet = kmt > 0
+    rows = dyu[1:-1].mean(axis=1)
+    out = {"phase": "file_grid", "dims": [cfg.nx, cfg.ny, cfg.km],
+           "ocean_fraction": float(wet.mean()),
+           "dyu_row_min_cm": float(rows.min()),
+           "dyu_row_max_cm": float(rows.max()),
+           "dyu_row_min_over_max": float(rows.min() / rows.max()),
+           "dyu_max_spread_along_a_row": float(
+               (dyu.max(axis=1) - dyu.min(axis=1)).max()),
+           "columns_at_km": int((kmt == cfg.km).sum()),
+           "columns_below_5_levels": int((wet & (kmt < 5)).sum()),
+           "ocean_columns": int(wet.sum()),
+           # the narrowest ocean cell, near the pole, and the northernmost
+           # ocean row's latitude: what stiffens the 2-D operator
+           "htn_ocean_min_cm": float(htn[wet].min()),
+           "htn_ocean_max_cm": float(htn[wet].max()),
+           "north_ocean_lat_deg": float(ulat[wet.any(axis=1)].max()),
+           "angle_max_abs": float(grid.ANGLE.abs().max()),
+           "top_row_u_columns": int((kmu[-1] > 0).sum())}
+    emit(out)
+    if not (0.5 < out["ocean_fraction"] < 0.9 and out["columns_at_km"]
+            and out["columns_below_5_levels"]
+            and out["dyu_row_min_over_max"] < 0.75):
+        raise AssertionError(f"the file grid lacks what it was made for: "
+                             f"{out}")
 
 
 def path_phase(path: str, dtype_name: str):
@@ -2965,6 +3065,12 @@ def path_phase(path: str, dtype_name: str):
                              f"{expect}")
     if path == "core_lw" and counts["tracer"]:
         raise AssertionError("core_lw: the tracer kernel ran under lw_lim")
+    if path == "prod_file":
+        if counts != expected_counts("prod_full", nsteps, dtype_name):
+            raise AssertionError("prod_file: launch counts differ from "
+                                 "prod_full's")
+        if dtype_name == "float32":
+            file_grid_figures(cfg, model.grid)
     for name, t in state.leaves():
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{path} {dtype_name}: {name} not finite")
@@ -2994,13 +3100,23 @@ def path_phase(path: str, dtype_name: str):
     return counts
 
 
+# each model's stratified tracers and densities, by seed: made once a model
+# (seconds on the host at full size) and shared by its runs, which step
+# from them without writing into them
+_STRATIFIED = weakref.WeakKeyDictionary()
+
+
 def stratified_state(model, seed: int):
     """The model's state of rest with the stratified, horizontally varying
     T and S of ``stratified_tracers`` at a fifth of its noise in place of the
     horizontally uniform profile, under which GM has nothing to mix."""
     cfg, grid = model.cfg, model.grid
-    tracers = sample.grid_tracers(cfg, grid, seed, noise=0.02)
-    rho = baroclinic._masked_density(cfg, grid, model.ts_range, tracers)
+    made = _STRATIFIED.setdefault(model, {})
+    if seed not in made:
+        tracers = sample.grid_tracers(cfg, grid, seed, noise=0.02)
+        made[seed] = (tracers, baroclinic._masked_density(
+            cfg, grid, model.ts_range, tracers))
+    tracers, rho = made[seed]
     return model.initial_state().replace(
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
 
@@ -3320,7 +3436,8 @@ RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
             ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
             ("prod_aniso", "float32", 6), ("core_lw", "float32", 6),
             ("prod_pbc", "float32", 6), ("prod_forced", "float32", 6),
-            ("prod_bgc", "float32", 5), ("prod_bgc", "float64", 4))
+            ("prod_bgc", "float32", 5), ("prod_bgc", "float64", 4),
+            ("prod_file", "float32", 4))
 RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
 RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
 
@@ -3914,12 +4031,16 @@ def restart_round_trip(model, forcing):
 
 def small_vs_cpu_phase(path: str, nsteps: int = 5):
     """The GPU path (kernels) against the CPU path (plain versions) on the
-    small 'mini' grid in float64: the parity band of the step-5 test. The GM
+    small 'mini' grid in float64: the parity band of the step-5 test (over
+    ``nsteps`` steps). The GM
     path starts from the stratified state."""
     small = BGC_SMALL if path == "prod_bgc" else PROD_SMALL
-    cfg = path_config(get_config("prod_full", **PATHS[path], **small)
-                      if path in PROD_PATHS
-                      else get_config("mini", **PATHS[path]), path)
+    if path == "prod_file":
+        cfg = get_config("prod_full", **gx_files(*GX_SMALL))
+    else:
+        cfg = path_config(get_config("prod_full", **PATHS[path], **small)
+                          if path in PROD_PATHS
+                          else get_config("mini", **PATHS[path]), path)
     stratified = path not in ("core", "core_topo")
     tavg = path == "core"  # with a tavg stream on 'mini'
     reset_counts()
@@ -4167,6 +4288,203 @@ def ebm_conditioning(inputs, got, want, n_perturb: int = 3):
     return out
 
 
+# the coupler cap: six steps an interval (prod_full's 24 steps a day), and
+# each export field's physical range on the ocean points
+CPL_INTERVAL = dict(coupling_freq_opt="nhour", coupling_freq=6)
+EXPORT_RANGES = {"So_t": (271.0, 310.0), "So_s": (20.0, 42.0),
+                 "So_u": (-3.0, 3.0), "So_v": (-3.0, 3.0),
+                 "So_dhdx": (-1e-3, 1e-3), "So_dhdy": (-1e-3, 1e-3),
+                 "So_ssh": (-5.0, 5.0), "Fioo_q": (-2000.0, 2000.0)}
+
+
+def seeded_x2o(cfg, device, seed: int):
+    """Seeded SI import fields (``coupled.IMPORT_FIELDS``) at the
+    magnitudes of the JAX package's own cap test
+    (tests/test_ocn_component.py), as tensors of the config's dtype on
+    ``device``."""
+    rng = np.random.RandomState(seed)
+    shape = (cfg.ny, cfg.nx)
+
+    def f(lo, hi=None):
+        return rng.uniform(-lo, lo, shape) if hi is None \
+            else rng.uniform(lo, hi, shape)
+    fields = {"taux": f(0.1), "tauy": f(0.1), "swnet": f(0.0, 200.0),
+              "sen": f(20.0), "lwup": f(50.0), "lwdn": f(50.0),
+              "melth": f(5.0), "snow": f(1e-5), "rain": f(1e-5),
+              "evap": f(1e-5), "melt": f(1e-6), "rofl": f(1e-6),
+              "rofi": f(1e-7), "salt": f(1e-7), "ifrac": f(0.0, 0.3),
+              "pslv": np.full(shape, 101325.0), "duu10n": f(0.0, 50.0)}
+    assert set(fields) == set(coupled.IMPORT_FIELDS)
+    return {k: torch.as_tensor(v).to(device=device, dtype=cfg.torch_dtype)
+            for k, v in fields.items()}
+
+
+def export_ranges(o2x, mask):
+    """{field: [min, max]} of the export on the ocean points; the names of
+    those outside EXPORT_RANGES or not finite."""
+    ranges, bad = {}, []
+    for name, t in o2x.items():
+        v = t[mask]
+        lo, hi = float(v.min()), float(v.max())
+        ranges[name] = [lo, hi]
+        want = EXPORT_RANGES[name]
+        if not (bool(torch.isfinite(t).all()) and want[0] <= lo
+                and hi <= want[1]):
+            bad.append(name)
+    return ranges, bad
+
+
+def cpl_phase():
+    """The coupler cap at full width: ``OcnComponent`` on prod_file's
+    float32 configuration, six steps a coupling interval. ``initialize``,
+    then two intervals under seeded import fields, the first ending in a
+    restart written on request (``rstwr``); a second component resumed from
+    that restart runs the second interval again, and its export must equal
+    the first component's bitwise. Every export field finite and inside its
+    physical range; the launches of each interval through the wrappers'
+    counters (the first interval's those of six steps of prod_file from
+    rest); the seconds an interval takes and the import and export in ms.
+    Then the same first interval on the small file grid in float64, the
+    GPU against the CPU, within small_vs_cpu_phase's band."""
+    cfg = full_config("float32", "prod_file")
+    x2o = seeded_x2o(cfg, DEV, SEED + 41)
+    out = {"phase": "cpl", "path": "prod_file", "dtype": cfg.dtype,
+           "dims": [cfg.nx, cfg.ny, cfg.km], "steps_per_interval": None}
+    broken = []
+    with tempfile.TemporaryDirectory(prefix="pop2_cpl_") as tmp:
+        t0 = time.perf_counter()
+        comp = OcnComponent(cfg, outdir=tmp, **CPL_INTERVAL)
+        out["component_seconds"] = time.perf_counter() - t0
+        mask = comp.model.grid.RCALCT > 0
+        o2x0 = comp.initialize()
+        exports, seconds, launches = [], [], []
+        for rstwr in (True, False):
+            n0 = comp.model.nsteps_total
+            o2x, dt, counts, _ = _timed(lambda: comp.run(x2o, rstwr=rstwr))
+            exports.append(o2x)
+            seconds.append(dt)
+            launches.append(counts)
+            out["steps_per_interval"] = comp.model.nsteps_total - n0
+        nsteps = out["steps_per_interval"]
+        want = expected_counts("prod_file", nsteps, "float32")
+        if launches[0] != want:
+            broken.append(f"first interval's launches {launches[0]}, "
+                          f"expected {want}")
+        if not launches[1]["gm_chain"] or not launches[1]["tracer"]:
+            broken.append("the second interval launched no kernel")
+        out.update(interval_seconds=seconds, launches=launches,
+                   restart_files=len(comp.restart_files))
+        for name, o2x in (("initial", o2x0), ("interval_1", exports[0]),
+                          ("interval_2", exports[1])):
+            out[f"ranges_{name}"], bad = export_ranges(o2x, mask)
+            broken += [f"{name} {b}" for b in bad]
+        # the adapters' costs on the card: the import of an interval's
+        # fields, and the export of the model state
+        out["import_ms"] = time_ms(
+            lambda: coupled.ocn_import(cfg, comp.model.grid, x2o), 2, 10)
+        out["export_ms"] = time_ms(
+            lambda: coupled.ocn_export(cfg, comp.model.grid, comp.state,
+                                       comp.state.aqice), 2, 10)
+
+        comp2 = OcnComponent(cfg, outdir=tmp, **CPL_INTERVAL)
+        comp2.initialize(restart_dir=tmp)
+        resumed = comp2.run(x2o)
+        out["resumed_at_step"] = comp2.model.nsteps_total - nsteps
+        out["resumed_bitwise"] = {n: bool(torch.equal(t, exports[1][n]))
+                                  for n, t in resumed.items()}
+        if not all(out["resumed_bitwise"].values()) or \
+                set(resumed) != set(exports[1]):
+            broken.append("the resumed interval's export differs")
+        del comp, comp2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first interval on the small file grid, GPU against CPU, float64
+    small = get_config("prod_full", **gx_files(*GX_SMALL))
+    got = {}
+    for key, dev in (("gpu", DEV), ("cpu", torch.device("cpu"))):
+        with tempfile.TemporaryDirectory(prefix="pop2_cpl_") as tmp:
+            comp = OcnComponent(small, outdir=tmp, device=dev,
+                                **CPL_INTERVAL)
+            comp.initialize()
+            got[key] = comp.run(seeded_x2o(small, dev, SEED + 43))
+    diffs = {n: _scale_err(got["gpu"][n], got["cpu"][n])
+             for n in got["cpu"]}
+    out["small_vs_cpu"] = {"dims": [small.nx, small.ny, small.km],
+                           "dtype": small.dtype, "rel_diff": diffs,
+                           "band": 1e-7}
+    broken += [f"small {n} {d}" for n, d in diffs.items() if not d <= 1e-7]
+    emit(out)
+    if broken:
+        raise AssertionError("cpl: " + "; ".join(broken))
+
+
+SPAI_STEPS = 2
+
+
+def spai_phase():
+    """core's configuration in float64 with the 9-point SPAI preconditioner
+    (``solvers.build_spai9``, built on the host at model construction) and
+    with the same stencil written to an .npz and read back as the 'file'
+    preconditioner, SPAI_STEPS steps each from the model's initial state:
+    the two runs must agree bitwise. Prints the host build seconds, the
+    iterations a step against the diagonal run (core's own), and
+    ``pcg_lanczos_eigs``'s bounds of the leapfrog operator under the
+    stencil (the JAX package measured the plain SPAI indefinite on gx1v7;
+    at this grid both packages find a positive lower bound)."""
+    base = full_config("float64", "core")
+    spai = base.with_(solver=dataclasses.replace(base.solver,
+                                                 preconditioner="spai"))
+    out = {"phase": "spai", "path": "core", "dtype": base.dtype,
+           "dims": [base.nx, base.ny, base.km], "steps": SPAI_STEPS}
+    t0 = time.perf_counter()
+    model = Model(spai)
+    out["model_seconds"] = time.perf_counter() - t0
+    op = solvers.make_operator(model.grid, diagonal_correction(
+        spai, model.grid, True))
+    t0 = time.perf_counter()
+    stencil = solvers.build_spai9(spai, op)
+    out["build_seconds"] = time.perf_counter() - t0
+    for name in solvers.Precond9._fields:
+        if not torch.equal(getattr(stencil, name),
+                           getattr(model.precond, name)):
+            raise AssertionError(f"spai: the model's stencil {name} is not "
+                                 "the operator's")
+    out["pcg_lanczos_eigs"] = solvers.pcg_lanczos_eigs(spai, op, model.bc,
+                                                       stencil)
+    states, iters = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pop2_precond_") as tmp:
+        path = os.path.join(tmp, "precond.npz")
+        np.savez(path, **{k: v.cpu().numpy()
+                          for k, v in stencil._asdict().items()})
+        file_cfg = spai.with_(solver=dataclasses.replace(
+            spai.solver, preconditioner="file", preconditioner_file=path))
+        for name, cfg in (("spai", spai), ("file", file_cfg),
+                          ("diagonal", base)):
+            m = model if name == "spai" else Model(cfg)
+            state = m.initial_state()
+            its = []
+            for _ in range(SPAI_STEPS):
+                state, diags = m.advance(state)
+                its.append(int(diags.solver_iters))
+            states[name], iters[name] = state, its
+            del m
+    equal = all(torch.equal(x, getattr(states["file"], n))
+                for n, x in states["spai"].leaves())
+    for name, st in states.items():
+        for leaf, t in st.leaves():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"spai: {name} run's {leaf} not finite")
+    out.update(solver_iters=iters, file_equals_spai_bitwise=equal)
+    emit(out)
+    if not equal:
+        raise AssertionError("spai: the 'file' run differs from the 'spai' "
+                             "run")
+    if out["pcg_lanczos_eigs"][0] <= 0.0:
+        raise AssertionError(f"spai: PCSI's lower bound under the stencil "
+                             f"{out['pcg_lanczos_eigs']} is not positive")
+
+
 def ptxas_summary(log: str | None = None):
     """{kernel: {registers, spill-store bytes, static shared memory bytes,
     stack frame bytes}} at the worst instantiation of each kernel, from what
@@ -4316,10 +4634,10 @@ def main():
     for path in PATHS:
         for dtype_name in STEPS[path]:
             launches[(path, dtype_name)] = run(path_phase, path, dtype_name)
-        # with the path's models still built; the newest path over three
-        # steps, the earlier ones over one (the script's time limit)
+        # with the path's models still built, over one step (the script's
+        # time limit)
         if path not in ("gm_flux", "prod_flux"):
-            run(path_vs_plain_phase, path, 3 if path == "prod_bgc" else 1)
+            run(path_vs_plain_phase, path, 1)
     _MODELS.clear()
     captured = {}
     for path, dtype_name, nsteps in RUN_LOOP:
@@ -4335,12 +4653,17 @@ def main():
     # left out for the script's time limit)
     run(breakdown_phase, "prod_full", "float32")
     run(breakdown_phase, "prod_full", "float32", True)
+    # the earlier paths over three steps, the newest over five (the
+    # script's time limit)
     for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full",
                  "prod_vmix", "prod_hmix", "core_topo", "prod_eg",
                  "prod_aniso", "core_lw", "prod_pbc", "prod_forced",
                  "prod_bgc", "prod_flux"):
-        run(small_vs_cpu_phase, path)
+        run(small_vs_cpu_phase, path, 3)
+    run(small_vs_cpu_phase, "prod_file")
     run(forcing_phase, captured[("prod_forced", "float32")])
+    run(cpl_phase)
+    run(spai_phase)
     run(bgc_phase)
     run(overflow_phase)
 
@@ -4362,6 +4685,8 @@ def main():
                                 run["launches"][counter] if run else None),
                             "launches_prod_forced": launches[
                                 ("prod_forced", dtype_name)][counter],
+                            "launches_prod_file": launches[
+                                ("prod_file", dtype_name)][counter],
                             **r, "library_ms": None})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

@@ -5,7 +5,8 @@ names as the port's. Handing their leaves over as a dict of NumPy arrays
 keyed by field name (nested leaves dotted, ``vgrid.dz``) lets both packages
 step from identical inputs (the parity tests do this) without either
 importing the other. The passive-tracer packages with parameters carry them
-the same way (``package_to_numpy`` / ``package_from_numpy``).
+the same way (``package_to_numpy`` / ``package_from_numpy``), and a
+9-point preconditioner stencil its nine fields (``precond_from_numpy``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from pop2_tpu_torch.grid import (Grid, VGrid, bottom_planes, build_aniso,
 from pop2_tpu_torch.abio_dic import AbioDIC
 from pop2_tpu_torch.ecosys import Ecosystem
 from pop2_tpu_torch.passive_tracers import TracerPackage
+from pop2_tpu_torch.solvers import Precond9
 from pop2_tpu_torch.state import State
 
 #: each passive-tracer package that has constructor parameters: its class
@@ -151,3 +153,18 @@ def package_from_numpy(name: str,
                        f"{sorted(set(names) - set(params))}, unknown "
                        f"{sorted(set(params) - set(names))}")
     return cls(**{k: np.asarray(v).item() for k, v in params.items()})
+
+
+def precond_from_numpy(fields: Mapping[str, np.ndarray], dtype=None,
+                       device="cuda") -> Precond9:
+    """The port's ``solvers.Precond9`` on ``device`` (default as
+    ``state_from_numpy``) from its nine fields as NumPy arrays (a JAX
+    ``Precond9``'s ``_asdict()``, or an open .npz: ``solvers.load_precond``),
+    in ``dtype`` (by default the arrays' own). A missing field raises
+    ``KeyError``."""
+    device = resolve_device(device)
+    missing = [k for k in Precond9._fields if k not in fields]
+    if missing:
+        raise KeyError(f"Precond9 fields missing: {missing}")
+    return Precond9(**{k: torch.as_tensor(np.array(fields[k])).to(
+        device=device, dtype=dtype) for k in Precond9._fields})

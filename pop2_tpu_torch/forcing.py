@@ -10,8 +10,9 @@ surface restoring (``restoring_forcing``), bulk-NCEP heat and freshwater
 fluxes (``forcing_shf``, ``forcing_sfwf``), marginal-seas balancing
 (``ms_balance``), monthly climatologies (``forcing_tools``), and the optional
 fields below: the interior restoring targets, chlorophyll, river runoff, the
-gas-exchange inputs and the per-component coupler fluxes. Coupled forcing is
-a later slice (ROADMAP.md Queue 1 item 11g).
+gas-exchange inputs and the per-component coupler fluxes. A coupled run's
+forcing comes from the coupler's import fields (``coupled.ocn_import``,
+driven by ``ocn_component.OcnComponent``).
 """
 
 from __future__ import annotations

@@ -17,15 +17,17 @@ can run with no input files:
   * T<->U averaging weights    source/grid.F90:2882-2932
   * reference pressure         source/state_mod.F90:1724-1766
 
-The port carries the internal generators, with a closed or tripole north
-edge (northward shifts of the host fields fold with the field's location and
-kind, as the JAX package's) and the anisotropic-viscosity statics on
-``Grid.aniso``, and the overflows' wet regions and kmt pop-ups on the
-internal topography, and partial bottom cells (the bottom level's
-thickness from a ``bottom_cell_file`` or the full one) with the two planes
-of the bottom level's thickness the kernels read (``bottom_planes``); the
-``file`` readers (and with them the file grid's tripole DYU correction) are
-refused by ``supported.check_supported`` (ROADMAP.md Queue 1 item 11).
+The port carries the internal generators and the POP-format files
+(``io/grid_files.py``: the 7-record horizontal grid with its tripole DYU
+correction, ANGLE and the ANGLET formed from it; the vertical-grid text
+file; the KMT record, clipped to [0, km] and closed at closed edges), with
+a closed or tripole north edge (northward shifts of the host fields fold
+with the field's location and kind, as the JAX package's) and the
+anisotropic-viscosity statics on ``Grid.aniso``; the overflows' wet regions
+on the internal topography and their kmt pop-ups on every topography; and
+partial bottom cells (the bottom level's thickness from a
+``bottom_cell_file`` or the full one) with the two planes of the bottom
+level's thickness the kernels read (``bottom_planes``).
 """
 
 from __future__ import annotations
@@ -302,6 +304,24 @@ def _tpoints_from_upoints(ULAT, ULON, sh):
     return TLAT, TLON
 
 
+def _anglet_from_angle(ANGLE, UAREA, TAREA_R, sh):
+    """ANGLET as the area-weighted 4-point average of ANGLE with branch-cut
+    adjustment (source/grid.F90:686-726); south row zeroed."""
+    at0 = UAREA * 0.25 * TAREA_R
+    ats = sh(UAREA, 0, -1) * 0.25 * TAREA_R
+    atw = sh(UAREA, -1, 0) * 0.25 * TAREA_R
+    atsw = sh(UAREA, -1, -1) * 0.25 * TAREA_R
+    a0 = ANGLE
+    aw, as_, asw = sh(ANGLE, -1, 0), sh(ANGLE, 0, -1), sh(ANGLE, -1, -1)
+    neg = a0 < 0.0
+    aw = np.where(neg & (np.abs(aw - a0) > const.PI), aw - const.PI2, aw)
+    as_ = np.where(neg & (np.abs(as_ - a0) > const.PI), as_ - const.PI2, as_)
+    asw = np.where(neg & (np.abs(asw - a0) > const.PI), asw - const.PI2, asw)
+    ANGLET = a0 * at0 + aw * atw + as_ * ats + asw * atsw
+    ANGLET[0, :] = 0.0
+    return ANGLET
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; asking for a CUDA device on a
     machine without one is an error, never a silent CPU run."""
@@ -314,20 +334,24 @@ def resolve_device(device) -> torch.device:
 
 
 def vertical_dz(cfg: ModelConfig) -> np.ndarray:
-    """Layer thicknesses (cm), float64, of the config's internal or uniform
-    vertical grid."""
+    """Layer thicknesses (cm), float64, of the config's internal, uniform
+    or file vertical grid (``io.grid_files.read_vert_grid``)."""
     if cfg.vert_grid == "internal":
         return _vert_grid_internal(cfg.km) * const.CMPERM
     if cfg.vert_grid == "uniform":
         return np.full(cfg.km, 5500.0 / cfg.km) * const.CMPERM
+    if cfg.vert_grid == "file":
+        from pop2_tpu_torch.io import grid_files
+        return grid_files.read_vert_grid(cfg.vert_grid_file, cfg.km)
     raise ValueError(f"unknown vert_grid option {cfg.vert_grid}")
 
 
 def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
-    """Generate the full grid for the given config with the internal
-    analytic generators, in float64 NumPy, and return it as tensors of the
-    config's dtype on ``device`` (the GPU unless the caller asks for the
-    CPU)."""
+    """Generate the full grid for the given config, from the internal
+    analytic generators or from POP-format grid files
+    (``io/grid_files.py``), in float64 NumPy, and return it as tensors of
+    the config's dtype on ``device`` (the GPU unless the caller asks for
+    the CPU)."""
     check_supported(cfg)
     device = resolve_device(device)
     nx, ny, km = cfg.nx, cfg.ny, cfg.km
@@ -336,48 +360,65 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     def sh(f, di, dj, fill=0.0, loc="center", kind="scalar"):
         return _np_shift(f, di, dj, ew, ns, fill, loc, kind)
 
-    # ---- analytic lat/lon grid (source/grid.F90:1226-1298) -------------
-    dlon = 360.0 / nx
-    dlat = 180.0 / ny
-    i = np.arange(1, nx + 1)
-    j = np.arange(1, ny + 1)
-    ulon_deg = i * dlon
-    ulon_deg = np.where(ulon_deg > 180.0, ulon_deg - 360.0, ulon_deg)
-    ulat_deg = -90.0 + j * dlat
-    ULON = np.broadcast_to(ulon_deg[None, :] / const.RADIAN,
-                           (ny, nx)).copy()
-    ULAT = np.broadcast_to(ulat_deg[:, None] / const.RADIAN,
-                           (ny, nx)).copy()
-    lathalf_deg = -90.0 + (j - 0.5) * dlat
+    if cfg.horiz_grid == "internal":
+        # ---- analytic lat/lon grid (source/grid.F90:1226-1298) ---------
+        dlon = 360.0 / nx
+        dlat = 180.0 / ny
+        i = np.arange(1, nx + 1)
+        j = np.arange(1, ny + 1)
+        ulon_deg = i * dlon
+        ulon_deg = np.where(ulon_deg > 180.0, ulon_deg - 360.0, ulon_deg)
+        ulat_deg = -90.0 + j * dlat
+        ULON = np.broadcast_to(ulon_deg[None, :] / const.RADIAN,
+                               (ny, nx)).copy()
+        ULAT = np.broadcast_to(ulat_deg[:, None] / const.RADIAN,
+                               (ny, nx)).copy()
+        lathalf_deg = -90.0 + (j - 0.5) * dlat
 
-    dx_cm = dlon * const.RADIUS / const.RADIAN
-    dy_cm = dlat * const.RADIUS / const.RADIAN
-    HTE = np.full((ny, nx), dy_cm)
-    HUW = np.full((ny, nx), dy_cm)
-    DYT = np.full((ny, nx), dy_cm)
-    DYU = np.full((ny, nx), dy_cm)
-    HTN = dx_cm * np.cos(ULAT)
-    DXU = HTN.copy()
-    # HUS uses the analytic midpoint latitude (grid.F90:1283 lathalf),
-    # independent of the averaged TLAT below
-    HUS = dx_cm * np.cos(lathalf_deg[:, None] / const.RADIAN
-                         ) * np.ones((1, nx))
-    # DXT(j) = dx * p5*(cos(ULAT(j)) + cos(ULAT(j-1))); j-1 wraps to ny
-    # for j=1 as in the reference (source/grid.F90:1261-1287)
-    cos_ulat = np.cos(ULAT)
-    cos_ulat_jm1 = np.roll(cos_ulat, 1, axis=0)
-    DXT = dx_cm * 0.5 * (cos_ulat + cos_ulat_jm1)
+        dx_cm = dlon * const.RADIUS / const.RADIAN
+        dy_cm = dlat * const.RADIUS / const.RADIAN
+        HTE = np.full((ny, nx), dy_cm)
+        HUW = np.full((ny, nx), dy_cm)
+        DYT = np.full((ny, nx), dy_cm)
+        DYU = np.full((ny, nx), dy_cm)
+        HTN = dx_cm * np.cos(ULAT)
+        DXU = HTN.copy()
+        # HUS uses the analytic midpoint latitude (grid.F90:1283 lathalf),
+        # independent of the averaged TLAT below
+        HUS = dx_cm * np.cos(lathalf_deg[:, None] / const.RADIAN
+                             ) * np.ones((1, nx))
+        # DXT(j) = dx * p5*(cos(ULAT(j)) + cos(ULAT(j-1))); j-1 wraps to ny
+        # for j=1 as in the reference (source/grid.F90:1261-1287)
+        cos_ulat = np.cos(ULAT)
+        cos_ulat_jm1 = np.roll(cos_ulat, 1, axis=0)
+        DXT = dx_cm * 0.5 * (cos_ulat + cos_ulat_jm1)
+        ANGLE = np.zeros((ny, nx))
+    elif cfg.horiz_grid == "file":
+        # ---- POP 7-record binary grid file (grid.F90:1314-1542) --------
+        from pop2_tpu_torch.io import grid_files
+        hg = grid_files.read_horiz_grid(cfg.horiz_grid_file, ny, nx)
+        ULAT, ULON = hg["ULAT"], hg["ULON"]
+        HTN, HTE = hg["HTN"], hg["HTE"]
+        HUS, HUW = hg["HUS"], hg["HUW"]
+        ANGLE = hg["ANGLE"]
+        DXU = 0.5 * (HTN + sh(HTN, 1, 0))
+        DXT = 0.5 * (HTN + sh(HTN, 0, -1))
+        DYT = 0.5 * (HTE + sh(HTE, -1, 0))
+        DYU = 0.5 * (HTE + sh(HTE, 0, 1, loc="eface"))
+        if ns == "tripole":
+            DYU[-1, :] = HTE[-1, :]  # tripole correction (grid.F90:1490-1497)
+    else:
+        raise ValueError(f"unknown horiz_grid option {cfg.horiz_grid}")
 
     # T-point coordinates via the Cartesian 4-point average, exactly as
     # the reference's calc_tpoints does for every grid option
     # (source/grid.F90:2939-3104) — NOT the analytic midpoint, which
     # differs from the spherical average by O(1e-5) rad near the poles.
     TLAT, TLON = _tpoints_from_upoints(ULAT, ULON, sh)
-    ANGLE = np.zeros((ny, nx))
-    ANGLET = np.zeros((ny, nx))
 
-    # guard against zero/negative spacings
-    floor = 1.0e-20
+    # guard against zero/negative spacings (land; the reference sets them
+    # to 1, the file grid's floor, the internal grid keeps a tighter one)
+    floor = 1.0 if cfg.horiz_grid == "file" else 1.0e-20
     HTN = np.where(HTN <= 0.0, floor, HTN)
     HTE = np.where(HTE <= 0.0, floor, HTE)
     HUS = np.where(HUS <= 0.0, floor, HUS)
@@ -392,6 +433,8 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     UAREA = DXU * DYU
     TAREA = DXT * DYT
     UAREA_R, TAREA_R = 1.0 / UAREA, 1.0 / TAREA
+    ANGLET = (_anglet_from_angle(ANGLE, UAREA, TAREA_R, sh)
+              if cfg.horiz_grid == "file" else np.zeros((ny, nx)))
 
     # Coriolis (source/grid.F90:1154-1172)
     if cfg.lconst_coriolis:
@@ -418,9 +461,23 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
     pressz = pressure_bars(zt * const.MPERCM)
 
     # ---- topography --------------------------------------------------------
-    KMT = _topography_internal(ULAT * const.RADIAN, ULON * const.RADIAN, km)
-    if cfg.flat_bottom:
-        KMT = np.where(KMT != 0, km, 0).astype(np.int32)
+    if cfg.topography == "internal":
+        KMT = _topography_internal(ULAT * const.RADIAN, ULON * const.RADIAN,
+                                   km)
+        if cfg.flat_bottom:
+            KMT = np.where(KMT != 0, km, 0).astype(np.int32)
+    elif cfg.topography == "file":
+        from pop2_tpu_torch.io import grid_files
+        KMT = grid_files.read_topography(cfg.topography_file, ny, nx)
+        KMT = np.clip(KMT, 0, km).astype(np.int32)
+        if ns == "closed":
+            KMT[0, :] = 0
+            KMT[-1, :] = 0
+        if ew == "closed":
+            KMT[:, 0] = 0
+            KMT[:, -1] = 0
+    else:
+        raise ValueError(f"unknown topography option {cfg.topography}")
 
     # topography smoothing (smooth_topography, source/grid.F90:2393-2530):
     # 9-pt [1 2 1; 2 4 2; 1 2 1] average of the ocean-only depth field,
@@ -452,14 +509,16 @@ def build_grid(cfg: ModelConfig, device="cuda") -> Grid:
         KMT = kmt_new.astype(np.int32)
 
     # with the internal topography, make the overflow regions (defined on
-    # the real grids' bathymetry) wet so the parameterization has ocean
-    # cells to act on; then the overflows' kmt "pop-up" changes
+    # the real grids' bathymetry, where topography files are wet by
+    # construction) wet so the parameterization has ocean cells to act on;
+    # then, on every topography, the overflows' kmt "pop-up" changes
     # (init_overflows_kmt, source/overflows.F90:1196-1275), which carve the
     # source and product channels below the resolved topography
     if cfg.overflows:
-        from pop2_tpu_torch.overflows import wet_regions  # imports grid
         KMT = np.array(KMT, dtype=np.int32)
-        wet_regions(cfg, KMT)
+        if cfg.topography == "internal":
+            from pop2_tpu_torch.overflows import wet_regions  # imports grid
+            wet_regions(cfg, KMT)
         for spec in cfg.overflows:
             for (i, j, kmt_old, kmt_new) in spec.kmt_changes:
                 KMT[j, i] = kmt_new

@@ -127,8 +127,15 @@ def build_statics(cfg: ModelConfig, bc: BC, HTN, HTE, DXU, DYU, DXUR, DYUR,
         dxu3 = DXU ** 3
         f_para = np.zeros((km,) + ULAT.shape)
         f_perp = np.zeros((km,) + ULAT.shape)
+        # the distance depends on the level only through its ocean mask:
+        # levels with the same mask (every level of a flat bottom) share it
+        dists = {}
         for k in range(1, km + 1):
-            dist = _west_boundary_distance(KMU, HTN, k, cfg.vconst_5)
+            mask = (KMU >= k).tobytes()
+            if mask not in dists:
+                dists[mask] = _west_boundary_distance(KMU, HTN, k,
+                                                      cfg.vconst_5)
+            dist = dists[mask]
             bv = cfg.vconst_3 * beta_f * dxu3 \
                 * np.exp(-(cfg.vconst_4 * dist) ** 2)
             f_perp[k - 1] = np.maximum(bu, bv)

@@ -3,7 +3,9 @@
 Reference: ``source/ice.F90`` — ``ice_formation`` (:357-621) warms T (and
 adjusts S) wherever the new temperature falls below freezing, turning the
 deficit into an ice heat-flux accumulator (QICE/AQICE) for the coupler;
-``tfreez`` (:725) is the linear_salt freezing temperature.
+``tfreez`` (:725) is the linear_salt freezing temperature;
+``ice_flx_to_coupler`` (:625) turns the accumulator into the heat flux the
+coupler cap exports.
 """
 
 from __future__ import annotations
@@ -69,3 +71,13 @@ def ice_formation(cfg: ModelConfig, grid: Grid, tnew, psurf_new, qice, aqice,
     tnew[1, 0] += ref_val * potice * cpol / thick
     aqice = aqice - time_weight * potice
     return tnew, qice, aqice
+
+
+def ice_flx_to_coupler(cfg: ModelConfig, grid: Grid, tcur, aqice,
+                       tlast_ice: float):
+    """Convert the accumulated ice potential to the coupler heat flux QFLUX
+    (source/ice.F90:625-720 logic): QFLUX = -AQICE/tlast_ice, in degC cm/s
+    (the coupler adapter divides by hflux_factor for W/m^2). Returns
+    (qflux, aqice reset to zero)."""
+    qflux = -aqice / max(tlast_ice, 1.0e-20)
+    return qflux, torch.zeros_like(aqice)

@@ -9,8 +9,11 @@ source/time_management.F90:2157-2175), 'avgfit' (the same within each
 coupling interval, its timestep fitted, :2195-2213) or 'robert' (the Robert
 filter inside every step). The calendar (``time_management.TimeManager``)
 advances once a step, by half a step on averaging steps. With
-``preconditioner='fspai'`` the barotropic preconditioner is built once
-here, on the host in float64.
+``preconditioner='fspai'`` or ``'spai'`` the barotropic preconditioner's
+9-point stencil is built once here, on the host in float64 from the
+operator of the 2-D solve (the float64 operator under
+``solve_dtype='float64'``); with ``'file'`` it is read from the config's
+``preconditioner_file`` (an .npz of ``solvers.Precond9``'s fields).
 
 ``advance``/``run`` take one eager step at a time. ``run_compiled`` (the JAX
 package's ``lax.scan`` loop) runs the Euler first step and the averaging
@@ -119,11 +122,22 @@ class Model:
                 self.grid, diagonal_correction(cfg, self.grid, leapfrog))
             return op.to(torch.float64) if solve64 else op
 
-        # the factored SPAI (SPD by construction) of the leapfrog operator;
-        # the Euler first step reuses it (any SPD M preconditions)
+        # the barotropic preconditioner's stencil, built once on the host in
+        # float64 from the leapfrog operator (the Euler first step reuses
+        # it) and kept in the solve's dtype: the factored SPAI (SPD by
+        # construction), the plain SPAI, or a stencil read from the file
+        # the config names (without one, the diagonal preconditioner, as in
+        # the JAX package)
         self.precond = None
-        if cfg.solver.preconditioner.lower() == "fspai":
+        choice = cfg.solver.preconditioner.lower()
+        if choice == "file" and cfg.solver.preconditioner_file:
+            self.precond = solvers.load_precond(
+                cfg.solver.preconditioner_file,
+                torch.float64 if solve64 else cfg.torch_dtype, device)
+        elif choice == "fspai":
             self.precond = solvers.build_fspai9(cfg, operator(True))
+        elif choice == "spai":
+            self.precond = solvers.build_spai9(cfg, operator(True))
         # PCSI eigenvalue bounds and the recurrence's coefficient table are
         # prepared once per leapfrog flag: the diagonal correction is a pure
         # function of (cfg, grid, leapfrog)

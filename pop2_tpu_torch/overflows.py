@@ -22,9 +22,9 @@ As in the JAX package, the overflow enters as a conservative closed-circuit
 tracer exchange over statically cropped region slices: product cells are
 relaxed toward the product mixture at rate M_p/V_p while source and
 entrainment cells receive the implied return flow. Regions and sidewall
-points come from config boxes and point data (``config.OverflowSpec``);
-reading the reference's ``overflows_infile`` is a later slice (ROADMAP.md
-Queue 1 item 11). Region masks are kept cropped to their bounding boxes.
+points come from config boxes and point data (``config.OverflowSpec``),
+which ``io.input_templates.read_overflows`` reads from the reference's
+``overflows_infile``. Region masks are kept cropped to their bounding boxes.
 
 The statics are built once on the host in float64 and moved to the grid's
 device. The region volumes and areas the transport law's stability cap

@@ -17,10 +17,13 @@ nothing synchronizes. Eagerly the loop is launch-bound on a GPU (a dozen
 small kernels an iteration); ``graphs.py`` replays each run of iterations
 between checks as one CUDA graph.
 
-The preconditioner is the diagonal one or the factored sparse approximate
-inverse ``FSPAI9`` (``build_fspai9``, built once on the host in float64
-NumPy); PCSI's eigenvalue bounds come from a Lanczos pass (diagonal) or from
-the CG-Lanczos coefficients of a preconditioned CG run (``pcg_lanczos_eigs``).
+The preconditioner is the diagonal one, the factored sparse approximate
+inverse ``FSPAI9`` (``build_fspai9``), or a 9-point stencil ``Precond9``:
+the plain SPAI (``build_spai9``) or one read from a file (``load_precond``,
+the reference's 'file' preconditioner). The stencils are built once on the
+host in float64 NumPy. PCSI's eigenvalue bounds come from a Lanczos pass
+(diagonal) or from the CG-Lanczos coefficients of a preconditioned CG run
+(``pcg_lanczos_eigs``).
 
 The JAX package's double-single ``solve_refined`` exists because its target
 has no float64 datapath; the GPU has one, so ``solve_dtype='float64'`` under
@@ -30,7 +33,7 @@ a float32 model simply casts the 2-D solve to float64 (``solve``).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,6 +114,48 @@ class FSPAI9(NamedTuple):
     def to(self, dtype):
         return FSPAI9(*(t.to(dtype) for t in self))
 
+
+class Precond9(NamedTuple):
+    """A 9-point preconditioner stencil M^-1 ~ A^-1 (the reference's 'file'
+    preconditioner, source/POP_SolversMod.F90:2310-2324, coefficients read
+    from a preconditioner file at init :700-760; the JAX package's
+    ``solvers.Precond9``)."""
+    center: torch.Tensor
+    north: torch.Tensor
+    south: torch.Tensor
+    east: torch.Tensor
+    west: torch.Tensor
+    ne: torch.Tensor
+    nw: torch.Tensor
+    se: torch.Tensor
+    sw: torch.Tensor
+
+    def to(self, dtype):
+        return Precond9(*(t.to(dtype) for t in self))
+
+
+def load_precond(path: str, dtype, device="cuda") -> Precond9:
+    """A 9-point preconditioner from an .npz with the field names of
+    ``Precond9`` (the counterpart of the reference's binary preconditioner
+    file), as tensors of ``dtype`` on ``device``."""
+    from pop2_tpu_torch.convert import precond_from_numpy  # imports solvers
+    with np.load(path) as data:
+        return precond_from_numpy(data, dtype, device)
+
+
+def precond9_apply(p: Precond9, bc: BC):
+    """Closure z = M r of a 9-point stencil."""
+    def apply9(r):
+        return (p.center * r
+                + p.north * bc.n(r) + p.south * bc.s(r)
+                + p.east * bc.e(r) + p.west * bc.w(r)
+                + p.ne * bc.ne(r) + p.nw * bc.nw(r)
+                + p.se * bc.se(r) + p.sw * bc.sw(r))
+    return apply9
+
+
+#: a 9-point preconditioner stencil of either form
+Preconditioner = Union[FSPAI9, Precond9]
 
 _OFFS9 = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1),
           (1, 1), (1, -1), (-1, 1), (-1, -1))
@@ -208,6 +253,81 @@ def build_fspai9(cfg: ModelConfig, op: BtropOperator,
         for a, o in enumerate(_OFFS9)})
 
 
+def build_spai9(cfg: ModelConfig, op: BtropOperator, ridge: float = 1e-10
+                ) -> Precond9:
+    """Build the symmetric 9-point SPAI stencil M ~ A^-1 on the host in
+    float64.
+
+    G_p[a,b] = (A^2)[p+o_a, p+o_b] (A symmetric), so the normal-equation
+    Gram matrices come from the 25-point stencil of A^2, assembled as
+    shifted products of the row stencils. The tripole seam is treated as
+    closed for the build only (the solve keeps the exact fold). The
+    symmetrized stencil can be indefinite (the JAX package measured it on
+    gx1v7), which ``FSPAI9`` is not. Returns the stencil in the operator's
+    dtype on its device."""
+    from pop2_tpu_torch.grid import _np_shift
+    ew = cfg.ew_boundary
+    ny, nx = op.center.shape
+
+    def sh(f, di, dj):
+        return _np_shift(f, di, dj, ew, "closed", 0.0)
+
+    w1 = _row_stencils(op, sh)
+    mask = op.mask.double().cpu().numpy() * (w1[(0, 0)] != 0.0)
+
+    # A^2 stencil: W2[o2][p] = sum_o W1[o][p] * W1[o2-o][p+o]
+    w2 = {}
+    for (dj, di), wa in w1.items():
+        for (dj2, di2), _ in w1.items():
+            o2 = (dj + dj2, di + di2)
+            contrib = wa * sh(w1[(dj2, di2)], di, dj)
+            w2[o2] = w2.get(o2, 0.0) + contrib
+
+    P = ny * nx
+    G = np.zeros((P, 9, 9))
+    b = np.zeros((P, 9))
+    valid = np.zeros((P, 9), bool)
+    for a, (dja, dia) in enumerate(_OFFS9):
+        ok_a = sh(mask, dia, dja) > 0      # support point p+o_a is ocean
+        valid[:, a] = ok_a.ravel()
+        b[:, a] = w1[(dja, dia)].ravel()
+        for bb, (djb, dib) in enumerate(_OFFS9):
+            o = (djb - dja, dib - dia)
+            if o in w2:
+                # (A^2)[p+o_a, p+o_b] = W2[o_b-o_a] evaluated at p+o_a
+                G[:, a, bb] = sh(w2[o], dia, dja).ravel()
+
+    # deactivate invalid support points; regularize
+    act = valid[:, :, None] & valid[:, None, :]
+    G = np.where(act, G, 0.0)
+    diag_scale = np.maximum(np.abs(G[:, 0, 0]), 1.0)
+    eye = np.eye(9)[None]
+    G = G + (ridge * diag_scale[:, None, None] + 1e-300) * eye
+    G[~valid[:, 0]] = eye                  # land rows: trivial system
+    b = np.where(valid, b, 0.0)
+
+    m = np.linalg.solve(G, b[..., None])[..., 0]     # (P, 9)
+    m = np.where(valid, m, 0.0)
+    m[~valid[:, 0]] = 0.0
+
+    fields = {_FIELD_OF_OFF[o]: m[:, a].reshape(ny, nx)
+              for a, o in enumerate(_OFFS9)}
+
+    # symmetrize: M[p, p+o] <- (M[p, p+o] + M[p+o, p]) / 2
+    pairs = (((1, 0), (-1, 0)), ((0, 1), (0, -1)),
+             ((1, 1), (-1, -1)), ((1, -1), (-1, 1)))
+    for o_f, o_r in pairs:
+        f_name, r_name = _FIELD_OF_OFF[o_f], _FIELD_OF_OFF[o_r]
+        f_val, r_val = fields[f_name], fields[r_name]
+        # counterpart of forward entry at p: reverse entry at p+o_f
+        fields[f_name] = 0.5 * (f_val + sh(r_val, o_f[1], o_f[0]))
+        fields[r_name] = 0.5 * (r_val + sh(f_val, o_r[1], o_r[0]))
+
+    return Precond9(**{k: torch.as_tensor(v).to(
+        device=op.center.device, dtype=op.center.dtype)
+        for k, v in fields.items()})
+
+
 def fspai_apply(p: FSPAI9, bc: BC):
     """Closure z = M r = -(G^T (G r)): two 9-point passes. G^T's weight for
     offset o at point p is G's weight for -o at p+o, so the transposed pass
@@ -225,24 +345,20 @@ def fspai_apply(p: FSPAI9, bc: BC):
 
 
 def make_precond_apply(cfg: ModelConfig, op: BtropOperator, bc: BC,
-                       precond: Optional[FSPAI9] = None):
-    """Returns z = M^-1 r as a closure: the diagonal preconditioner, or the
-    FSPAI stencil where the config asks for it and one is given
-    (source/POP_SolversMod.F90:2273-2364). The 9-point file and SPAI
-    stencils are a later slice (ROADMAP.md Queue 1 item 11)."""
+                       precond=None):
+    """Returns z = M^-1 r as a closure: the diagonal preconditioner (where
+    the config asks for it or no stencil is given), the FSPAI stencil, or
+    the 9-point file or SPAI stencil (preconditioner dispatch,
+    source/POP_SolversMod.F90:2273-2364)."""
     choice = cfg.solver.preconditioner.lower()
     if choice == "diagonal" or precond is None:
-        if choice not in ("diagonal", "fspai"):
-            raise NotImplementedError(
-                f"preconditioner {cfg.solver.preconditioner!r} is not "
-                "ported yet (ROADMAP.md Queue 1 item 11)")
         a0r = _diag_precond(op)
         return lambda r: r * a0r
-    if choice != "fspai":
-        raise NotImplementedError(
-            f"preconditioner {cfg.solver.preconditioner!r} is not ported "
-            "yet (ROADMAP.md Queue 1 item 11)")
-    return fspai_apply(precond, bc)
+    if isinstance(precond, FSPAI9):
+        return fspai_apply(precond, bc)
+    if choice in ("file", "spai"):
+        return precond9_apply(precond, bc)
+    raise NotImplementedError(f"preconditioner {cfg.solver.preconditioner}")
 
 
 def _safe(x):
@@ -327,7 +443,7 @@ class Solver:
     initial_check = False  # the host reads rr of the first pass
 
     def __init__(self, cfg: ModelConfig, op: BtropOperator, bc: BC,
-                 precond: Optional[FSPAI9] = None,
+                 precond: Optional[Preconditioner] = None,
                  tol: Optional[float] = None,
                  max_iter: Optional[int] = None, nstart: int = 0):
         sol = cfg.solver
@@ -502,7 +618,7 @@ class PCG(Solver):
 
 
 def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-               precond: Optional[FSPAI9] = None,
+               precond: Optional[Preconditioner] = None,
                tol: Optional[float] = None, max_iter: Optional[int] = None):
     """ChronGear's solve. Returns (x, iterations, rr) with ``iterations`` a
     Python int and ``rr`` the squared residual of the last check (a 0-d
@@ -513,7 +629,7 @@ def chron_gear(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
 
 
 def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-         eig_min: float, eig_max: float, precond: Optional[FSPAI9] = None,
+         eig_min: float, eig_max: float, precond: Optional[Preconditioner] = None,
          tol: Optional[float] = None, max_iter: Optional[int] = None):
     """PCSI's solve; eig_min/eig_max bound the preconditioned operator's
     spectrum. Returns (x, iterations, rr)."""
@@ -523,7 +639,7 @@ def pcsi(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
 
 
 def pcg(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-        precond: Optional[FSPAI9] = None,
+        precond: Optional[Preconditioner] = None,
         tol: Optional[float] = None, max_iter: Optional[int] = None):
     """Standard PCG's solve. Returns (x, iterations, rr)."""
     s = PCG(cfg, op, bc, precond, tol, max_iter)
@@ -590,10 +706,10 @@ def lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
 
 
 def pcg_lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
-                     precond: FSPAI9, n_iter: Optional[int] = None,
+                     precond, n_iter: Optional[int] = None,
                      seed: int = 0) -> Tuple[float, float]:
-    """Extreme eigenvalues of the preconditioned operator M^-1 A for the
-    9-point preconditioner, from the CG-Lanczos identity: PCG on (-A)x = b
+    """Extreme eigenvalues of the preconditioned operator M^-1 A for a
+    9-point preconditioner (``FSPAI9`` or ``Precond9``), from the CG-Lanczos identity: PCG on (-A)x = b
     with M' = -M gives alpha, beta whose tridiagonal
     T_kk = 1/alpha_k + beta_{k-1}/alpha_{k-1},
     T_{k,k+1} = sqrt(beta_k)/alpha_k has the Ritz values of M^-1 A. The
@@ -603,7 +719,8 @@ def pcg_lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
     the reference's safety margins."""
     if n_iter is None:
         n_iter = cfg.solver.lanczos_iterations
-    minv = fspai_apply(precond, bc)
+    minv = (fspai_apply(precond, bc) if isinstance(precond, FSPAI9)
+            else precond9_apply(precond, bc))
     sh = _shifted_weights(op, bc)
     mask_np = op.mask.double().cpu().numpy()
     rng = np.random.RandomState(seed)
@@ -643,7 +760,7 @@ def pcg_lanczos_eigs(cfg: ModelConfig, op: BtropOperator, bc: BC,
 
 
 def make_solver(cfg: ModelConfig, op: BtropOperator, bc: BC, eigs=None,
-                precond: Optional[FSPAI9] = None,
+                precond: Optional[Preconditioner] = None,
                 tol: Optional[float] = None) -> Solver:
     """The solver of cfg.solver.choice (source/POP_SolversMod.F90:327-500)
     for ``op``. With ``solve_dtype='float64'`` under a float32 model the
@@ -668,7 +785,7 @@ def make_solver(cfg: ModelConfig, op: BtropOperator, bc: BC, eigs=None,
 
 
 def solve(cfg: ModelConfig, op: BtropOperator, bc: BC, x0, b,
-          eigs=None, precond: Optional[FSPAI9] = None,
+          eigs=None, precond: Optional[Preconditioner] = None,
           tol: Optional[float] = None):
     """``make_solver``'s solve from x0, its solution cast back to x0's
     dtype. Returns (x, iterations, rr)."""

@@ -16,9 +16,6 @@ def unsupported(cfg: ModelConfig) -> list:
     """Reasons ``cfg`` cannot run on this slice of the port (empty = ok)."""
     t = cfg.time
     checks = [
-        (cfg.horiz_grid != "internal" or cfg.topography != "internal"
-         or cfg.vert_grid not in ("internal", "uniform"),
-         "grid/topography 'file' readers (Queue 1 item 11: io/grid_files)"),
         (cfg.ew_boundary not in ("cyclic", "closed"),
          f"ew_boundary={cfg.ew_boundary!r}"),
         (cfg.state_choice not in ("mwjf", "jmcd", "linear", "polynomial"),
@@ -47,9 +44,10 @@ def unsupported(cfg: ModelConfig) -> list:
          f"tidal_mixing_method={cfg.tidal_mixing_method!r}"),
         (t.time_mix_opt not in ("avg", "avgfit", "robert"),
          f"time_mix_opt={t.time_mix_opt!r}"),
-        (cfg.solver.preconditioner.lower() not in ("diagonal", "fspai"),
-         f"preconditioner={cfg.solver.preconditioner!r} (Queue 1 item 11: "
-         "spai / file)"),
+        (cfg.solver.preconditioner.lower() not in ("diagonal", "fspai",
+                                                   "spai", "file"),
+         f"preconditioner={cfg.solver.preconditioner!r} (the JAX package "
+         "carries diagonal, fspai, spai and file)"),
         (cfg.solver.choice.lower() not in ("chrongear", "pcg", "pcsi"),
          f"solver choice {cfg.solver.choice!r}"),
         (cfg.b4b, "b4b reproducible sums (Queue 1 item 12)"),

@@ -207,7 +207,7 @@ def test_production_config_is_the_jax_packages(tmp_path):
     assert got.nt == 5 and (got.nx, got.ny, got.km) == (320, 384, 60)
     assert production.get_production_config(
         gm_transition_layer=False).gm_transition_layer is False
-    # where the reference's input templates are, the JAX package would read
-    # the file vertical grid and the overflow geometry: the port refuses
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        production.get_production_config(templates=str(tmp_path))
+    # a templates directory without the gx1v7 files: the preset, as the JAX
+    # package returns it (tests/test_torch_files.py reads the files)
+    assert production.get_production_config(templates=str(tmp_path)) == \
+        torch_cfg(jproduction.get_production_config(templates=str(tmp_path)))

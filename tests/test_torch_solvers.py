@@ -121,10 +121,16 @@ def test_solve_dispatch_and_float64_solve_under_float32(setup):
     with pytest.raises(ValueError, match="Lanczos"):
         tsol.solve(s.tcfg.with_(solver=SolverConfigT(choice="pcsi")), s.top,
                    s.tbc, x0, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tsol.make_precond_apply(
-            s.tcfg.with_(solver=SolverConfigT(preconditioner="spai")),
-            s.top, s.tbc)
+    # 'spai' without a stencil is the diagonal preconditioner, as in the
+    # JAX package (tests/test_torch_files.py holds the stencils)
+    spai = s.tcfg.with_(solver=SolverConfigT(preconditioner="spai"))
+    r = torch.as_tensor(s.b)
+    z = tsol.make_precond_apply(spai, s.top, s.tbc)(r)
+    assert torch.equal(z, tsol.make_precond_apply(s.tcfg, s.top, s.tbc)(r))
+    zj = jsol.make_precond_apply(
+        s.jcfg.with_(solver=SolverConfig(preconditioner="spai")), s.jop,
+        s.jbc)(jnp.asarray(s.b))
+    assert scale_err(z.numpy(), np.asarray(zj)) <= 1e-15
 
 
 def test_global_sum_matches_and_b4b_raises(setup):

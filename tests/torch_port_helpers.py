@@ -194,9 +194,10 @@ def stretched_pair(jcfg, tmp, growth=1.5):
     vertical grid read from a file, written to the directory ``tmp``: 10 m
     at the surface, each level ``growth`` times the one above (12 levels
     reach 2.6 km), so that a boundary layer spans several levels at few
-    levels in all. The port has no grid readers: its grid is the JAX
-    package's handed over as NumPy leaves (``convert.grid_from_numpy``) and
-    its config names the internal generators."""
+    levels in all. The port's grid is the JAX package's handed over as
+    NumPy leaves (``convert.grid_from_numpy``) and its config names the
+    internal generators (``tests/test_torch_files.py`` builds both
+    packages' grids from the files)."""
     import os
 
     from pop2_tpu.grid import build_grid as j_build_grid
