@@ -142,11 +142,13 @@ holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
 momentum kernels against their plain versions on stepped bottoms whose
 every column ends in a partial cell (``pbc_kernel_phase``), breaks
 prod_full's step time down by part and by device kernel (from rest and
-from a stratified state with slopes for GM to work on), and compares the
-GPU path with the CPU
-path on a small grid. Every phase that fails makes the script exit
-non-zero; with no GPU it exits at once without a result. It takes no
-arguments: every run is the whole check.
+from a stratified state with slopes for GM to work on), compares the
+GPU path with the CPU path on a small grid, and runs prod_full decomposed
+over two ranks on the card (``ranks_phase``: y slabs of 192 rows, gloo,
+b4b sums, against the whole domain; each stencil kernel halo'd on its
+slab). Every phase that fails makes the script exit non-zero; with no
+GPU it exits at once without a result. It takes no arguments: every run
+is the whole check.
 
 Output: one JSON object per line; the ``kernels`` line, then the card's name
 and power limit, then the final ``{"ok": true, "device": ...}`` line.
@@ -201,6 +203,9 @@ from pop2_tpu_torch.grid import (bottom_cells, bottom_planes,  # noqa: E402
                                  partial_bottom_cells, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
 from pop2_tpu_torch.ocn_component import OcnComponent  # noqa: E402
+from pop2_tpu_torch import stencil as stencil_mod  # noqa: E402
+from pop2_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from pop2_tpu_torch.parallel import multihost  # noqa: E402
 from pop2_tpu_torch.state import initial_state  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -4485,6 +4490,292 @@ def spai_phase():
                              f"{out['pcg_lanczos_eigs']} is not positive")
 
 
+# ---- the ocean decomposed over ranks ----------------------------------------
+# prod_full at full size on RANKS y slabs of 192 rows, one process a slab on
+# the one card (gloo: NCCL refuses two ranks on one device; halo rows and
+# reduction operands go through host buffers), with b4b sums, against the
+# same run on the whole domain
+RANKS = 2
+RANKS_STEPS = 3
+# the decomposed fields against the whole domain's in the same dtype, of
+# scale: float64 and float32 alike (a fault in one dtype's halo or staging
+# would show at any band above the rounding of the other)
+RANKS_BAND64 = 1e-12
+# steps on from the checked ones, in turns: each shift exchanging its own
+# rows ("unbatched") and a stencil's rows fetched in one exchange
+# (``stencil.BC.halo``, "batched")
+RANKS_AB = ("unbatched", "batched", "unbatched", "batched")
+# which wrapper counts a halo'd launch, and its kernel
+RANKS_KERNELS = {"tracer_upwind3": (tracer_cuda, "tracer_tendency"),
+                 "clinic": (clinic_cuda, "clinic_rhs_fields"),
+                 "gm_slopes": (gm_slope_cuda, "slopes"),
+                 "gm_chain_sm": (gm_chain_cuda, "chain"),
+                 "gm_flux": (gm_cuda, "flux_assembly"),
+                 "gm_flux_cancellation": (gm_cuda, "flux_assembly")}
+
+
+def ranks_kernel_cases(dtype_name: str):
+    """{name: (cfg, whole grid, arguments)} of the five stencil kernels at
+    prod_full's shapes on the fold bottom with the top rows' faces opened:
+    the tracer tendency (upwind3, five tracers), the momentum kernel
+    without the Laplacian (the anisotropic path's), the slopes, the chain
+    with the submesoscale fold-in, and the flux assembly in both branches on
+    prod_flux's operands."""
+    cfg = full_config(dtype_name, "prod_full")
+    grid, bc, tr = fold_case(cfg)
+    grid = sample.open_top_dxu(sample.open_top_face(grid))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    f = random_fields(cfg, grid, gen)
+    tmix = sample.grid_tracers(cfg, grid, SEED + 16)
+    cases = {
+        "tracer_upwind3": (cfg, grid, (
+            f["ucur"], f["vcur"], tmix, f["told"], f["told"], f["vdc"],
+            f["stf"], f["dh"])),
+        "clinic": (cfg, grid, (
+            f["ucur"], f["vcur"], f["uold"], f["vold"], f["uold"], f["vold"],
+            1.02 + f["rho"][2], f["vvc"], f["smf"], f["dhu"], 0.6, 0.4)),
+        "gm_slopes": (cfg, grid, (bc, tr, tmix))}
+    slp, sla, n2 = gm_slope_cuda.slopes(cfg, grid, bc, tr, tmix)
+    zt = grid.vgrid.zt
+    hblt = ((zt[2] + (zt[8] - zt[2]) * (0.5 + 0.5 * torch.cos(
+        2 * grid.TLAT))) * (grid.KMT > 0)).contiguous()
+    tlt = gm_tlt_cuda.transition_layer(
+        cfg, grid, gm.diabatic_depth(cfg, grid, bc, hblt), sla,
+        gm._rossby_radius(grid))
+    kv = gm.kappa_vertical_bfre(cfg, grid, tr, tmix, tlt.interior_depth,
+                                n2=n2)
+    sm = submeso.amplitudes(cfg, grid, bc, tr, tmix, 0.8 * hblt)
+    cases["gm_chain_sm"] = (cfg, grid, (bc, tmix, slp, sla, kv, tlt, False,
+                                        sm))
+    cflux = full_config(dtype_name, "prod_flux")
+    ops = list(sample.flux_operands(cflux, grid, bc, tr, tmix))
+    cases["gm_flux"] = (cflux, grid, (bc, *ops, False))
+    ops[5], ops[6] = torch.zeros_like(ops[5]), torch.zeros_like(ops[6])
+    cases["gm_flux_cancellation"] = (cflux, grid, (bc, *ops, True))
+    return cases
+
+
+def _leaves(tree):
+    out = []
+    pmesh.tree_map(out.append, tree)
+    return out
+
+
+def ranks_kernel_checks(dtype_name: str, mesh):
+    """Each stencil kernel launched halo'd on this rank's slab against the
+    whole-domain launch's rows: bitwise, max abs difference, the launches
+    of each (equal), and the halo'd call's ms (CUDA events around a call:
+    its exchange and staging included) and exchanges (the grid's halo rows
+    come once, at a grid's first call)."""
+    cases = ranks_kernel_cases(dtype_name)
+    slab_grid = {}
+    out = {}
+    for name, (cfg, grid, args) in cases.items():
+        mod, fn_name = RANKS_KERNELS[name]
+        fn = getattr(mod, fn_name)
+        n0 = mod.launches
+        want = fn(cfg, grid, *args)
+        n_whole = mod.launches - n0
+        if id(grid) not in slab_grid:
+            slab_grid[id(grid)] = mesh.slab(grid)
+        sgrid, sargs = slab_grid[id(grid)], mesh.slab(args)
+        with pmesh.scope(mesh):
+            n0, e0 = mod.launches, mesh.comm.exchanges
+            got = fn(cfg, sgrid, *sargs)
+            n_halo = mod.launches - n0
+            ms = time_ms(lambda: fn(cfg, sgrid, *sargs), 1, 5)
+            e0 = mesh.comm.exchanges
+            fn(cfg, sgrid, *sargs)
+            exchanges = mesh.comm.exchanges - e0
+        bitwise, err = True, 0.0
+        for g, w in zip(_leaves(got), _leaves(want)):
+            if mesh.is_field(w):
+                w = w.narrow(-2, mesh.j0, mesh.rows)
+            bitwise &= bool(torch.equal(g, w))
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        out[name] = {"bitwise": bitwise, "max_abs_err": err,
+                     "launches_whole": n_whole, "launches_halo": n_halo,
+                     "halo_ms": ms, "exchanges_a_call": exchanges}
+    return out
+
+
+def ranks_batching_ab(model, state, forcing):
+    """{mode: [(step ms, exchanges)]} of the steps of RANKS_AB, each
+    after the last: what a stencil's rows fetched in one exchange save
+    against each shift exchanging its own (``stencil.BC.halo`` returning
+    no rows, which every shift then fetches itself)."""
+    mesh = model.mesh
+    batched = vars(stencil_mod.BC)["halo"]
+    out = {mode: [] for mode in RANKS_AB}
+    for mode in RANKS_AB:
+        if mode == "unbatched":
+            stencil_mod.BC.halo = staticmethod(
+                lambda fields: [None] * len(fields))
+        try:
+            e0 = mesh.comm.exchanges
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = model.advance(state, forcing)
+            torch.cuda.synchronize()
+            out[mode].append((1e3 * (time.perf_counter() - t0),
+                              mesh.comm.exchanges - e0))
+        finally:
+            stencil_mod.BC.halo = batched
+    return out
+
+
+def ranks_worker(dtype_name: str, nsteps: int, tracers_file: str):
+    """One rank of ``ranks_phase`` (run by ``multihost.spawn_ranks``):
+    prod_full with b4b on this rank's slab, ``nsteps`` of ``Model.advance``
+    from the stratified tracers in ``tracers_file`` under the path's
+    forcing, each step timed; its launch counts and exchanges; the gathered
+    fields (rank 0); then the kernels' halo'd launches
+    (``ranks_kernel_checks``)."""
+    cfg = full_config(dtype_name, "prod_full").with_(
+        b4b=True, mesh_shape=(RANKS, 1))
+    model = Model(cfg, device=multihost.local_device())
+    mesh = model.mesh
+    tracers = mesh.slab(torch.load(tracers_file)).to(DEV)
+    rho = baroclinic._masked_density(model.step_cfg, model.grid,
+                                     model.ts_range, tracers)
+    state = model.initial_state().replace(
+        tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
+    forcing = path_forcing(model)
+    reset_counts()
+    mesh.comm.reset_counts()
+    iters, ms = [], []
+    for _ in range(nsteps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diags = model.advance(state, forcing)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        iters.append(int(diags.solver_iters))
+    counts, comm = read_counts(), mesh.comm.counts()
+    fields = {name: multihost.to_host_replicated(getattr(state, name), mesh)
+              for name in PATH_FIELDS + ("tracer_cur",)}
+    ab = ranks_batching_ab(model, state, forcing)
+    del model, state, forcing, tracers, rho
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.comm.reset_counts()
+    reset_counts()
+    kernels = ranks_kernel_checks(dtype_name, mesh)
+    return {"rank": mesh.rank, "rows": [mesh.j0, mesh.j1],
+            "fold": mesh.fold, "iters": iters, "step_ms": ms,
+            "counts": counts, "comm": comm, "kernels": kernels, "ab": ab,
+            "fields": fields if mesh.rank == 0 else None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def ranks_phase(nsteps: int = RANKS_STEPS):
+    """prod_full at 320 x 384 x 60 on RANKS slabs (192 rows each), one
+    process a slab on this card over gloo, b4b sums, ``nsteps`` of
+    ``Model.advance`` in float64 and float32, against the same steps on the
+    whole domain: solver iterations identical every step, the fields
+    within RANKS_BAND64 of scale of the whole-domain run in the same dtype,
+    every rank's launch counts those of the whole-domain run; each of the
+    five stencil kernels launched halo'd on its slab equal to the
+    whole-domain launch's rows bitwise. Prints the step ms, exchanges,
+    all-reduces and staged bytes a step, and the steps of RANKS_AB."""
+    import chip_smoke as cs  # the ranks import this module by its name
+    ref = None
+    kernel_counters = [k for k in COUNTERS
+                       if not k.endswith(("_fold", "_aniso"))]
+    with tempfile.TemporaryDirectory(prefix="pop2_ranks_in_") as tmp:
+        for dtype_name in ("float64", "float32"):
+            cfg = full_config(dtype_name, "prod_full").with_(b4b=True)
+            model = Model(cfg, device=DEV)
+            state = stratified_state(model, SEED + 7)
+            tracers_file = os.path.join(tmp, f"tracers_{dtype_name}.pt")
+            torch.save(state.tracer_cur.cpu(), tracers_file)
+            forcing = path_forcing(model)
+            reset_counts()
+            iters, ms = [], []
+            for _ in range(nsteps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, diags = model.advance(state, forcing)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                iters.append(int(diags.solver_iters))
+            whole_counts = read_counts()
+            whole = {name: getattr(state, name).cpu()
+                     for name in PATH_FIELDS}
+            del model, state, forcing
+            _MODELS.clear()
+            _STRATIFIED.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res = multihost.spawn_ranks(
+                cs.ranks_worker, RANKS, backend="gloo", device="cuda",
+                args=(dtype_name, nsteps, tracers_file), timeout=900)
+            spawn_s = time.perf_counter() - t0
+            got = {k: torch.as_tensor(v) for k, v in res[0]["fields"].items()
+                   if k in PATH_FIELDS}
+            diffs = {}
+            for name in PATH_FIELDS:
+                if not bool(torch.isfinite(got[name]).all()):
+                    raise AssertionError(f"ranks {dtype_name}: {name} not "
+                                         "finite")
+                diffs[name] = float((got[name] - whole[name]).abs().max()) \
+                    / (float(whole[name].abs().max()) or 1.0)
+            band = dict.fromkeys(diffs, RANKS_BAND64)
+            if ref is None:
+                ref = whole
+                witness = None
+            else:  # a reading only: the float32 run's distance from float64
+                witness = {name: float((whole[name].double()
+                                        - ref[name]).abs().max())
+                           / (float(ref[name].abs().max()) or 1.0)
+                           for name in PATH_FIELDS}
+            broken = {k: v for k, v in diffs.items() if not v <= band[k]}
+            for r in res:
+                if r["iters"] != iters:
+                    broken[f"iters_rank{r['rank']}"] = (r["iters"], iters)
+                bad = {k: (r["counts"][k], whole_counts[k])
+                       for k in kernel_counters
+                       if r["counts"][k] != whole_counts[k]}
+                if bad:
+                    broken[f"launches_rank{r['rank']}"] = bad
+                for name, k in r["kernels"].items():
+                    if not k["bitwise"] or (k["launches_halo"]
+                                            != k["launches_whole"]):
+                        broken[f"{name}_rank{r['rank']}"] = k
+            comm = [r["comm"] for r in res]
+            emit({"phase": "ranks", "path": "prod_full", "dtype": dtype_name,
+                  "backend": "gloo", "ranks": RANKS, "b4b": True,
+                  "rows": [r["rows"] for r in res],
+                  "fold_rank": [r["rank"] for r in res if r["fold"]],
+                  "steps": nsteps, "solver_iters": iters,
+                  "solver_iters_ranks": [r["iters"] for r in res],
+                  "whole_step_ms": ms,
+                  "step_ms_ranks": [r["step_ms"] for r in res],
+                  "exchanges_per_step": [c["exchanges"] / nsteps
+                                         for c in comm],
+                  "allreduces_per_step": [c["allreduces"] / nsteps
+                                          for c in comm],
+                  "staged_bytes_per_step": [c["staged_bytes"] / nsteps
+                                            for c in comm],
+                  "sent_bytes_per_step": [c["sent_bytes"] / nsteps
+                                          for c in comm],
+                  "launches_whole": {k: whole_counts[k]
+                                     for k in kernel_counters},
+                  "launches_fold_ranks": [r["counts"]["gm_flux_fold"]
+                                          for r in res],
+                  "rel_diff": diffs, "band": band,
+                  "whole_float32_vs_float64": witness,
+                  "kernels": [{"rank": r["rank"], **r["kernels"]}
+                              for r in res],
+                  "batching_ab_ranks": [r["ab"] for r in res],
+                  "peak_gb_ranks": [r["peak_gb"] for r in res],
+                  "spawn_seconds": spawn_s})
+            if broken:
+                raise AssertionError(f"ranks {dtype_name}: the decomposed "
+                                     f"run differs: {broken}")
+
+
 def ptxas_summary(log: str | None = None):
     """{kernel: {registers, spill-store bytes, static shared memory bytes,
     stack frame bytes}} at the worst instantiation of each kernel, from what
@@ -4653,19 +4944,20 @@ def main():
     # left out for the script's time limit)
     run(breakdown_phase, "prod_full", "float32")
     run(breakdown_phase, "prod_full", "float32", True)
-    # the earlier paths over three steps, the newest over five (the
-    # script's time limit)
+    # the earlier paths over two steps (an Euler and a leapfrog step), the
+    # newest over five (the script's time limit)
     for path in ("core", "gm_full", "prod_dyn", "prod_mix", "prod_full",
                  "prod_vmix", "prod_hmix", "core_topo", "prod_eg",
                  "prod_aniso", "core_lw", "prod_pbc", "prod_forced",
                  "prod_bgc", "prod_flux"):
-        run(small_vs_cpu_phase, path, 3)
+        run(small_vs_cpu_phase, path, 2)
     run(small_vs_cpu_phase, "prod_file")
     run(forcing_phase, captured[("prod_forced", "float32")])
     run(cpl_phase)
     run(spai_phase)
     run(bgc_phase)
     run(overflow_phase)
+    run(ranks_phase)
 
     kernels = []
     for dtype_name, recs in records.items():

@@ -5,7 +5,8 @@ Reference: ``source/budget_diagnostics.F90`` — ``diag_for_tracer_budgets``
 volume, and the mean SSH/volume bookkeeping) and ``tracer_budgets`` (budget
 closure over an averaging interval: dV*T/dt against the accumulated surface
 flux, shortwave and ice terms). Each is a few whole-field reductions on the
-state's device; the results stay tensors.
+state's device; the results stay tensors. On a slab grid of a
+decomposition (``parallel.mesh``) the reductions run over every slab.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import Grid, thickness_t
+from pop2_tpu_torch.parallel import mesh as pmesh
+from pop2_tpu_torch.reductions import global_sum
 from pop2_tpu_torch.state import State
 
 
@@ -25,13 +28,15 @@ def tracer_totals(cfg: ModelConfig, grid: Grid, state: State):
     top-cell volume includes the SSH contribution psurf/g
     (diag_for_tracer_budgets, budget_diagnostics.F90)."""
     dzvol = thickness_t(cfg, grid) * grid.TAREA[None]
-    tot = torch.sum(torch.where(grid.kmask_t[None],
-                                state.tracer_cur * dzvol[None], 0.0),
-                    dim=(1, 2, 3))
-    if cfg.sfc_layer == "varthick":
-        ssh_vol = (state.psurf_cur / const.GRAV) * grid.TAREA * grid.RCALCT
-        tot = tot + torch.sum(state.tracer_cur[:, 0] * ssh_vol[None],
-                              dim=(1, 2))
+    with pmesh.grid_scope(grid):
+        tot = global_sum(torch.where(grid.kmask_t[None],
+                                     state.tracer_cur * dzvol[None], 0.0),
+                         axis=(1, 2, 3))
+        if cfg.sfc_layer == "varthick":
+            ssh_vol = ((state.psurf_cur / const.GRAV) * grid.TAREA
+                       * grid.RCALCT)
+            tot = tot + global_sum(state.tracer_cur[:, 0] * ssh_vol[None],
+                                   axis=(1, 2))
     return tot
 
 
@@ -39,8 +44,9 @@ def ocean_volume(cfg: ModelConfig, grid: Grid, state: State):
     """Total ocean volume (cm^3) incl. the SSH contribution."""
     vol = grid.volume_t
     if cfg.sfc_layer == "varthick":
-        vol = vol + torch.sum((state.psurf_cur / const.GRAV)
-                              * grid.TAREA * grid.RCALCT)
+        with pmesh.grid_scope(grid):
+            vol = vol + global_sum((state.psurf_cur / const.GRAV)
+                                   * grid.TAREA * grid.RCALCT)
     return vol
 
 
@@ -49,10 +55,11 @@ def surface_flux_integral(cfg: ModelConfig, grid: Grid, forcing: Forcing):
     (tracer * cm^3 / s), (nt,): STF plus, for temperature, penetrating
     shortwave, plus the freshwater tracer content TFW."""
     area = grid.TAREA * grid.RCALCT
-    tot = torch.sum(forcing.stf * area[None], dim=(1, 2))
-    tot[0] += torch.sum(forcing.shf_qsw * area)
-    if cfg.sfc_layer == "varthick":
-        tot = tot + torch.sum(forcing.tfw * area[None], dim=(1, 2))
+    with pmesh.grid_scope(grid):
+        tot = global_sum(forcing.stf * area[None], axis=(1, 2))
+        tot[0] += global_sum(forcing.shf_qsw * area)
+        if cfg.sfc_layer == "varthick":
+            tot = tot + global_sum(forcing.tfw * area[None], axis=(1, 2))
     return tot
 
 

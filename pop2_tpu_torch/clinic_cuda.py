@@ -55,6 +55,7 @@ import torch
 from pop2_tpu_torch import _cuda_build as cb
 from pop2_tpu_torch import advect, constants as const, hmix, pgrad, vmix
 from pop2_tpu_torch.grid import grid_bc, thickness_u
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
@@ -187,6 +188,7 @@ def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     return fx, fy, zx, zy
 
 
+@pmesh.halo_wrapped(pmesh.HALO_MAX)
 def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
                       vvc, smf, dhu, wc: float, wo: float):
     """(fx, fy, zx, zy) from explicit fields: eight (km, ny, nx) tensors,

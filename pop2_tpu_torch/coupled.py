@@ -21,6 +21,7 @@ from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import Grid, grid_bc
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.state import State
 from pop2_tpu_torch.stencil import tgrid_to_ugrid, ugrid_to_tgrid
 
@@ -57,13 +58,14 @@ def ocn_import(cfg: ModelConfig, grid: Grid, x2o: Dict[str, torch.Tensor],
     taux = get("taux") * const.MOMENTUM_FACTOR * r
     tauy = get("tauy") * const.MOMENTUM_FACTOR * r
     smft = torch.stack([taux, tauy])
-    smf = torch.stack([
-        torch.where(grid.kmask_u[0],
-                    tgrid_to_ugrid(taux, grid.AU0, grid.AUN, grid.AUE,
-                                   grid.AUNE, bc), 0.0),
-        torch.where(grid.kmask_u[0],
-                    tgrid_to_ugrid(tauy, grid.AU0, grid.AUN, grid.AUE,
-                                   grid.AUNE, bc), 0.0)])
+    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+        smf = torch.stack([
+            torch.where(grid.kmask_u[0],
+                        tgrid_to_ugrid(taux, grid.AU0, grid.AUN, grid.AUE,
+                                       grid.AUNE, bc), 0.0),
+            torch.where(grid.kmask_u[0],
+                        tgrid_to_ugrid(tauy, grid.AU0, grid.AUN, grid.AUE,
+                                       grid.AUNE, bc), 0.0)])
 
     shf_qsw = get("swnet") * r * const.HFLUX_FACTOR
 
@@ -114,10 +116,11 @@ def ocn_export(cfg: ModelConfig, grid: Grid, state: State,
     (ocn_export :535-760): SST (K), SSS (psu), surface currents (m/s),
     surface-slope components, and the ice-formation heat flux."""
     bc = grid_bc(cfg)
-    u_t = ugrid_to_tgrid(state.u_cur[0], bc)
-    v_t = ugrid_to_tgrid(state.v_cur[0], bc)
-    dhdx = ugrid_to_tgrid(state.gradpx_cur, bc) / const.GRAV
-    dhdy = ugrid_to_tgrid(state.gradpy_cur, bc) / const.GRAV
+    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+        u_t = ugrid_to_tgrid(state.u_cur[0], bc)
+        v_t = ugrid_to_tgrid(state.v_cur[0], bc)
+        dhdx = ugrid_to_tgrid(state.gradpx_cur, bc) / const.GRAV
+        dhdy = ugrid_to_tgrid(state.gradpy_cur, bc) / const.GRAV
     out = {
         "So_t": state.tracer_cur[0, 0] + const.T0_KELVIN,
         "So_s": state.tracer_cur[1, 0] * const.SALT_TO_PPT,

@@ -13,6 +13,12 @@ read their scalars to the host with ``float()``, the fields
 (``barotropic_streamfunction``) and the binned profiles stay tensors.
 ``global_diagnostics`` is its own formula (SSH weighted by the ocean
 area, the salinity in psu), not ``Model.diagnostics``.
+
+On a slab grid of a decomposition (``parallel.mesh``) the means, maxima,
+CFL numbers and the binned transports reduce over every slab, so every
+rank reads the whole domain's values; a section's transport (its bounds
+are global indices) and the streamfunction (a sum along y) are ROADMAP.md
+Queue 1 item 12b there and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +31,17 @@ import torch
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid, grid_bc, thickness_u
+from pop2_tpu_torch.parallel import mesh as pmesh
+from pop2_tpu_torch.reductions import global_max, global_sum, slab_total
 from pop2_tpu_torch.state import State
+
+
+def _whole_domain_only(grid: Grid, what: str) -> None:
+    d = pmesh.of_grid(grid)
+    if d is not None and d.comm is not None:
+        raise NotImplementedError(
+            f"{what} on a slab of a decomposition is not ported yet "
+            "(ROADMAP.md Queue 1 item 12b)")
 
 
 class TransportSection(NamedTuple):
@@ -45,33 +61,38 @@ def global_diagnostics(cfg: ModelConfig, grid: Grid, state: State,
                        prev: Optional[State] = None) -> Dict[str, float]:
     """Volume-weighted global means and rates of change
     (diag_global_preupdate/afterupdate, source/diagnostics.F90:1174-1770)."""
+    with pmesh.grid_scope(grid):
+        return _global_diagnostics(cfg, grid, state, prev)
+
+
+def _global_diagnostics(cfg, grid, state, prev):
     g = grid
     dz = g.vgrid.dz.reshape(-1, 1, 1)
     wt_u = torch.where(g.kmask_u, dz * g.UAREA, 0.0)
     wt_t = torch.where(g.kmask_t, dz * g.TAREA, 0.0)
-    uvol = torch.sum(wt_u)
-    tvol = torch.sum(wt_t)
+    uvol = global_sum(wt_u)
+    tvol = global_sum(wt_t)
 
-    ke = 0.5 * torch.sum(wt_u * (state.u_cur ** 2 + state.v_cur ** 2)) \
+    ke = 0.5 * global_sum(wt_u * (state.u_cur ** 2 + state.v_cur ** 2)) \
         / uvol
-    tmean = torch.sum(wt_t * state.tracer_cur[0]) / tvol
-    smean = torch.sum(wt_t * state.tracer_cur[1]) / tvol
+    tmean = global_sum(wt_t * state.tracer_cur[0]) / tvol
+    smean = global_sum(wt_t * state.tracer_cur[1]) / tvol
     out = {
         "KE": float(ke),
         "TEMP_mean": float(tmean),
         "SALT_mean_psu": float(smean) * const.SALT_TO_PPT,
         "SSH_rms_cm": float(torch.sqrt(
-            torch.sum((state.psurf_cur / const.GRAV) ** 2 * g.RCALCT
-                      * g.TAREA) / torch.sum(g.RCALCT * g.TAREA))),
-        "UVEL_max": float(torch.abs(state.u_cur).max()),
-        "WVEL_like_divmax": float(torch.abs(state.psurf_cur).max()
+            global_sum((state.psurf_cur / const.GRAV) ** 2 * g.RCALCT
+                       * g.TAREA) / global_sum(g.RCALCT * g.TAREA))),
+        "UVEL_max": float(global_max(torch.abs(state.u_cur))),
+        "WVEL_like_divmax": float(global_max(torch.abs(state.psurf_cur))
                                   / const.GRAV),
     }
     if prev is not None:
         dt = cfg.time.dtt
         out["dTEMP_dt_per_day"] = (
-            float(torch.sum(wt_t * (state.tracer_cur[0]
-                                    - prev.tracer_cur[0])) / tvol)
+            float(global_sum(wt_t * (state.tracer_cur[0]
+                                     - prev.tracer_cur[0])) / tvol)
             / dt * 86400.0)
     return out
 
@@ -84,17 +105,20 @@ def cfl_numbers(cfg: ModelConfig, grid: Grid, state: State
     u, v = state.u_cur, state.v_cur
     cfl_x = torch.abs(u) * dt * grid.DXUR
     cfl_y = torch.abs(v) * dt * grid.DYUR
-    out = {
-        "cfl_advect_x": float(cfl_x.max()),
-        "cfl_advect_y": float(cfl_y.max()),
-    }
-    if cfg.hmix_momentum == "del2":
-        hd = 4.0 * cfg.auto_am * (grid.DXUR ** 2 + grid.DYUR ** 2) * dt
-        out["cfl_hdiff"] = float(torch.where(grid.kmask_u[0], hd, 0.0).max())
-    elif cfg.hmix_momentum == "del4":
-        hd = (16.0 * abs(cfg.am4)
-              * (grid.DXUR ** 2 + grid.DYUR ** 2) ** 2 * dt)
-        out["cfl_hdiff"] = float(torch.where(grid.kmask_u[0], hd, 0.0).max())
+    with pmesh.grid_scope(grid):
+        out = {
+            "cfl_advect_x": float(global_max(cfl_x)),
+            "cfl_advect_y": float(global_max(cfl_y)),
+        }
+        hd = None
+        if cfg.hmix_momentum == "del2":
+            hd = 4.0 * cfg.auto_am * (grid.DXUR ** 2 + grid.DYUR ** 2) * dt
+        elif cfg.hmix_momentum == "del4":
+            hd = (16.0 * abs(cfg.am4)
+                  * (grid.DXUR ** 2 + grid.DYUR ** 2) ** 2 * dt)
+        if hd is not None:
+            out["cfl_hdiff"] = float(global_max(
+                torch.where(grid.kmask_u[0], hd, 0.0)))
     return out
 
 
@@ -118,6 +142,8 @@ def zonal_transport(cfg: ModelConfig, grid: Grid, state: State,
     hte_like = grid.DYU[:, i_index]
     mask = grid.kmask_u[:, :, i_index]
     tr = torch.sum(torch.where(mask, u * dz * hte_like[None, :], 0.0))
+    with pmesh.grid_scope(grid):
+        tr = slab_total(tr)
     return float(tr) * 1.0e-12  # cm^3/s -> Sv
 
 
@@ -132,6 +158,8 @@ def section_transport(cfg: ModelConfig, grid: Grid, state: State,
     of T-cell (i,j), MASS = 0.5*(U(i,j)DYU(i,j) + U(i,j-1)DYU(i,j-1))*dzu
     with the tracer face average 0.5*(T(i+1,j)+T(i,j)); through the north
     face, the (i-1, j+1) analogues."""
+    _whole_domain_only(grid, "a section's transport (its bounds are "
+                       "global indices)")
     k0, k1 = section.kmin, section.kmax
     j0, j1 = section.jmin, section.jmax
     i0, i1 = section.imin, section.imax
@@ -173,6 +201,8 @@ def barotropic_streamfunction(cfg: ModelConfig, grid: Grid,
     vertically-integrated zonal transport (diagnostic analogue of
     source/diag_bsf.F90 without the elliptic inversion):
     psi(i,j) = -sum_{j'<=j} U_btrop*HU*DYU."""
+    _whole_domain_only(grid, "the barotropic streamfunction (a sum along "
+                       "y)")
     uh = grid.HU * state.ubtrop_cur * grid.DYU * grid.RCALCU
     psi = -torch.cumsum(uh, dim=0)
     return psi * 1.0e-12
@@ -203,6 +233,8 @@ def moc_streamfunction(cfg: ModelConfig, grid: Grid, state: State,
     vdx = torch.where(grid.kmask_u, state.v_cur * grid.DXU * dz, 0.0)
     edges, one_hot = _lat_bins(grid, nlat_bins, vdx.dtype)
     vt = torch.einsum("kyx,yxb->kb", vdx, one_hot)  # northward transport
+    with pmesh.grid_scope(grid):
+        vt = slab_total(vt)
     moc = torch.flip(torch.cumsum(torch.flip(vt, (0,)), dim=0), (0,)) \
         * 1.0e-12
     return edges, moc
@@ -216,15 +248,16 @@ def meridional_transport(cfg: ModelConfig, grid: Grid, state: State,
     (lat_edges_deg, heat_pw[nbins], salt_sv_ppt[nbins])."""
     bc = grid_bc(cfg)
     dz = thickness_u(cfg, grid)
-    # tracer at the U point's latitude: average the two T rows around the
-    # U row (B-grid; the reference interpolates to the aux grid)
-    t_u = torch.stack([0.5 * (state.tracer_cur[n]
-                              + bc.n(state.tracer_cur[n]))
-                       for n in range(2)])
-    vdx = torch.where(grid.kmask_u, state.v_cur * grid.DXU * dz, 0.0)
-    edges, one_hot = _lat_bins(grid, nlat_bins, vdx.dtype)
-    heat = torch.einsum("kyx,yxb->b", vdx * t_u[0], one_hot)
-    salt = torch.einsum("kyx,yxb->b", vdx * t_u[1], one_hot)
+    with pmesh.grid_scope(grid):
+        # tracer at the U point's latitude: average the two T rows around
+        # the U row (B-grid; the reference interpolates to the aux grid)
+        t_u = torch.stack([0.5 * (state.tracer_cur[n]
+                                  + bc.n(state.tracer_cur[n]))
+                           for n in range(2)])
+        vdx = torch.where(grid.kmask_u, state.v_cur * grid.DXU * dz, 0.0)
+        edges, one_hot = _lat_bins(grid, nlat_bins, vdx.dtype)
+        heat = slab_total(torch.einsum("kyx,yxb->b", vdx * t_u[0], one_hot))
+        salt = slab_total(torch.einsum("kyx,yxb->b", vdx * t_u[1], one_hot))
     # heat: degC cm^3/s -> PW via rho cp; salt: msu cm^3/s -> Sv*ppt
     heat_pw = heat * const.RHO_SW * const.CP_SW * 1.0e-22
     salt_svppt = salt * const.SALT_TO_PPT * 1.0e-12

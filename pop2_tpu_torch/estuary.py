@@ -27,6 +27,7 @@ import torch
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.reductions import global_sum
 
 
@@ -45,8 +46,9 @@ def river_vsf(cfg: ModelConfig, grid: Grid, roff_f, s_surface):
         * const.SALT_TO_PPT * r
     # reference-salinity flux (the standard salinity_factor form)
     flux_ref = roff_f * const.SALINITY_FACTOR * r
-    correction = global_sum((flux_ref - flux_loc) * grid.TAREA * r,
-                            b4b=cfg.b4b) / grid.area_t
+    with pmesh.grid_scope(grid):  # on a slab grid, over every slab
+        correction = global_sum((flux_ref - flux_loc) * grid.TAREA * r,
+                                b4b=cfg.b4b) / grid.area_t
     return flux_loc + correction * r
 
 

@@ -27,6 +27,7 @@ from pop2_tpu_torch._tree import TensorTree
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing_tools import MonthlyClimatology
 from pop2_tpu_torch.grid import Grid, grid_bc
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.stencil import ugrid_to_tgrid
 
 
@@ -139,8 +140,9 @@ def file_wind_stress(cfg: ModelConfig, grid: Grid, base: Forcing,
     taux = cx.at(thour) * grid.RCALCU
     tauy = cy.at(thour) * grid.RCALCU
     bc = grid_bc(cfg)
-    smft = torch.stack([ugrid_to_tgrid(taux, bc) * grid.RCALCT,
-                        ugrid_to_tgrid(tauy, bc) * grid.RCALCT])
+    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+        smft = torch.stack([ugrid_to_tgrid(taux, bc) * grid.RCALCT,
+                            ugrid_to_tgrid(tauy, bc) * grid.RCALCT])
     dt = base.smf.dtype
     return base.replace(smf=torch.stack([taux, tauy]).to(dt),
                         smft=smft.to(dt))

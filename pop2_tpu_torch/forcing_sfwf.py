@@ -15,7 +15,9 @@ change in volume-averaged salinity and mean SSH, and nudges ``precip_fact``
 so the net surface freshwater budget closes.
 
 The two global sums of the bulk formulation go through
-``reductions.global_sum`` and stay on the device.
+``reductions.global_sum`` and stay on the device. On a slab grid of a
+decomposition (``parallel.mesh``) they, and the accumulator's host sums,
+run over every slab.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid
-from pop2_tpu_torch.reductions import global_sum
+from pop2_tpu_torch.parallel import mesh as pmesh
+from pop2_tpu_torch.reductions import global_sum, slab_total
 
 
 def restore_rtau(cfg: ModelConfig) -> float:
@@ -76,8 +79,9 @@ def sfwf_bulk_ncep(cfg: ModelConfig, grid: Grid, qlat, precip_data,
     # weak (open-water) restoring, global mean removed (:1274-1287,
     # :1313-1332)
     wrest = -cfg.sfwf_weak_restore * ocn_wgt * mask_sr * dsss
-    num = global_sum(grid.TAREA * wrest, b4b=cfg.b4b)
-    den = global_sum(grid.TAREA * ocn_wgt * mask_sr, b4b=cfg.b4b)
+    with pmesh.grid_scope(grid):
+        num = global_sum(grid.TAREA * wrest, b4b=cfg.b4b)
+        den = global_sum(grid.TAREA * ocn_wgt * mask_sr, b4b=cfg.b4b)
     weak_mean = num / torch.where(den != 0.0, den, 1.0)
     wrest = wrest - ocn_wgt * mask_sr * weak_mean
 
@@ -104,9 +108,10 @@ def sfwf_bulk_ncep(cfg: ModelConfig, grid: Grid, qlat, precip_data,
         tfw_temp = zero
 
     # annual-mean precip accumulation term (:1392-1396)
-    precip_total = global_sum(
-        torch.where(mask_sr > 0.0, precip * grid.TAREA * ocn_wgt, 0.0),
-        b4b=cfg.b4b)
+    with pmesh.grid_scope(grid):
+        precip_total = global_sum(
+            torch.where(mask_sr > 0.0, precip * grid.TAREA * ocn_wgt, 0.0),
+            b4b=cfg.b4b)
     return SfwfOut(stf_salt=stf_salt, fw=fw, tfw_temp=tfw_temp,
                    precip_total=precip_total)
 
@@ -143,6 +148,15 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
+def _over_slabs(grid: Grid, a) -> np.ndarray:
+    """The float64 partial sums ``a`` summed over the slabs of ``grid``'s
+    decomposition (``a`` itself on the whole domain)."""
+    with pmesh.grid_scope(grid):
+        t = slab_total(torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                       device=grid.TAREA.device))
+    return t.cpu().numpy()
+
+
 class PrecipBalance:
     """Host-side ``ladjust_precip`` accumulator
     (precip_adjustment, source/forcing_sfwf.F90:1818-1928).
@@ -163,12 +177,15 @@ class PrecipBalance:
         mask = kmt > 0
         area = _host(grid.TAREA).astype(np.float64)
         dz = _host(grid.vgrid.dz).astype(np.float64)
-        self.area_t = float((area * mask).sum())          # cm^2
         km = dz.shape[0]
         k3 = np.arange(1, km + 1)[:, None, None]
         mask3 = k3 <= kmt[None]
-        self.volume_t_k = (area[None] * mask3
-                           * dz[:, None, None]).sum(axis=(1, 2))  # cm^3
+        # [area (cm^2), the volume of each level (cm^3)], over every slab
+        sums = _over_slabs(grid, np.concatenate([
+            [(area * mask).sum()],
+            (area[None] * mask3 * dz[:, None, None]).sum(axis=(1, 2))]))
+        self.area_t = float(sums[0])
+        self.volume_t_k = sums[1:]
         self.sum_precip = 0.0
         self.sal_initial = None       # (km,) volume-avg salinity, msu
         self.ssh_initial = 0.0
@@ -188,7 +205,8 @@ class PrecipBalance:
         km = dz.shape[0]
         k3 = np.arange(1, km + 1)[:, None, None]
         m3 = k3 <= kmt[None]
-        num = (s * area[None] * m3 * dz[:, None, None]).sum(axis=(1, 2))
+        num = _over_slabs(grid, (s * area[None] * m3
+                                 * dz[:, None, None]).sum(axis=(1, 2)))
         vol = np.where(self.volume_t_k > 0, self.volume_t_k, 1.0)
         return num / vol
 

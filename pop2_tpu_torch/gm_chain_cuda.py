@@ -48,6 +48,7 @@ import torch
 from pop2_tpu_torch import _cuda_build as cb
 from pop2_tpu_torch import gm, gm_cuda, gm_slope_cuda, gm_tlt_cuda, submeso
 from pop2_tpu_torch.gm_cuda import flux_assembly_plain
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
@@ -267,6 +268,7 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, gtk, vdc=None,
     return head, tail
 
 
+@pmesh.halo_wrapped(pmesh.HALO_MAX)
 def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
           sm=None):
     """(gtk, vdc_gm, diags); arguments as ``chain_plain``. CUDA tensors go

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
@@ -270,6 +271,7 @@ def kernel_statics(grid):
     return hit
 
 
+@pmesh.halo_wrapped(pmesh.HALO_MAX)
 def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
                   kisop, hor_diff, cancellation: bool, kisop_y=None):
     """(GTK, VDC_GM); arguments as ``flux_assembly_plain``. CUDA tensors go

@@ -36,6 +36,7 @@ import torch
 from pop2_tpu_torch import _cuda_build as cb
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch import eos, gm
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
@@ -141,6 +142,7 @@ def slopes_plain(cfg, grid, bc, ts_range, tmix):
     return slp, sla, n2
 
 
+@pmesh.halo_wrapped(pmesh.HALO_MAX)
 def slopes(cfg, grid, bc, ts_range, tmix):
     """(slp, sla, n2) for tmix (nt, km, ny, nx), of which T and S (the
     first two tracers) are read. CUDA tensors go through the kernel, CPU

@@ -33,6 +33,17 @@ stream is written (and reset) on the host after the step that fills it.
 ``Model(cfg)`` runs on the GPU: the default device is ``cuda`` and a machine
 without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
 runs the same code with the kernels' plain PyTorch versions.
+
+Under ``mesh_shape = (py, 1)`` (``parallel.mesh``) the model is one rank's y
+slab: it is built on the whole domain as above (the grid and its host
+precomputations, KPP's statics, the preconditioner, PCSI's bounds and
+table), rank 0's set-up scalars are broadcast so every rank holds the same
+bits, and then every horizontal field is cut to the slab (``_decompose``).
+``advance`` runs the step with the decomposition in scope: north-south
+shifts and the kernels take halo rows from the neighbouring slabs, global
+sums are reduced over the ranks, and ``diagnostics`` reduces globally, so
+every rank decides alike. ``run_compiled``, the output streams and the
+coupler cap under a decomposition are ROADMAP.md Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -50,17 +61,26 @@ from pop2_tpu_torch.barotropic import diagonal_correction
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing, analytic_forcing
 from pop2_tpu_torch.grid import Grid, build_grid, grid_bc, resolve_device
+from pop2_tpu_torch.parallel import mesh as pmesh
+from pop2_tpu_torch.reductions import global_max, global_sum
 from pop2_tpu_torch.state import State, initial_state
 from pop2_tpu_torch.supported import check_supported
 from pop2_tpu_torch.time_management import TimeManager
 
 
 class Model:
-    """Standalone ocean model instance on one device."""
+    """Standalone ocean model instance on one device: the whole domain, or
+    under ``mesh_shape = (py, 1)`` this rank's y slab of it (``mesh``: the
+    ``parallel.mesh.Decomposition``; default: the process group's, from
+    ``parallel.multihost.global_mesh``)."""
 
     def __init__(self, cfg: ModelConfig, grid: Optional[Grid] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[pmesh.Decomposition] = None):
         check_supported(cfg)
+        if mesh is None and tuple(cfg.mesh_shape) != (1, 1):
+            from pop2_tpu_torch.parallel import multihost
+            mesh = multihost.global_mesh(cfg)
+        self.mesh = mesh
         device = resolve_device(device)
         if cfg.overflows and grid is None:
             # the overflow point data must agree with the topography
@@ -152,6 +172,48 @@ class Model:
                 self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
                     emin, emax, solvers.pcsi_table(
                         cfg, emin, emax, op.center.dtype, device))
+        # the model of the whole domain, or of this rank's slab
+        self.step_cfg = cfg
+        self._state0 = None
+        if mesh is not None:
+            self._decompose(mesh)
+
+    def _decompose(self, mesh: pmesh.Decomposition) -> None:
+        """Cut the whole-domain model to ``mesh``'s slab: rank 0's residual
+        norm and PCSI bounds broadcast (every rank's solve then stops at
+        the same iteration), the initial state made on the whole grid, and
+        every horizontal field of the grid, the forcing, the statics and
+        the preconditioner cut to the slab's rows. The step sees the slab's
+        config, ny its rows (the north edge stays the whole domain's: the
+        stencil and the fold ask the decomposition where the edge is)."""
+        cfg = self.cfg
+        if mesh.ny != cfg.ny or mesh.nx != cfg.nx:
+            raise ValueError(f"mesh of {mesh.ny}x{mesh.nx} for a "
+                             f"{cfg.ny}x{cfg.nx} grid")
+        scalars = [float(self.grid.residual_norm)]
+        for leapfrog in (False, True):
+            if leapfrog in self._pcsi_eigs:
+                scalars += self._pcsi_eigs[leapfrog][:2]
+        if mesh.comm is not None:
+            scalars = mesh.comm.broadcast_floats(scalars)
+        self._state0 = mesh.slab(self.initial_state())
+        for leapfrog, at in ((False, 1), (True, 3)):
+            if leapfrog in self._pcsi_eigs:
+                emin, emax = scalars[at:at + 2]
+                table = self._pcsi_eigs[leapfrog].table
+                self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
+                    emin, emax, solvers.pcsi_table(
+                        cfg, emin, emax, table.dtype, table.device))
+        # the slab grid carries its decomposition, so what a caller gives
+        # it outside a step (the forcing's builders, the diagnostics)
+        # reduces over every slab (``parallel.mesh.grid_scope``)
+        self.grid = pmesh.attach(mesh.slab(self.grid), mesh)
+        self.grid.__dict__["_residual_norm_host"] = scalars[0]
+        self.forcing = mesh.slab(self.forcing)
+        self.precond = mesh.slab(self.precond)
+        self.kpp_statics = mesh.slab(self.kpp_statics)
+        self.sw_profile = mesh.slab(self.sw_profile)
+        self.step_cfg = cfg.with_(ny=mesh.rows)
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
     def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
@@ -176,8 +238,17 @@ class Model:
     def initial_state(self) -> State:
         self.nsteps_total = 0
         self.time_manager.reset()
+        if self._state0 is not None:  # the slab of the whole domain's
+            return self._state0
         return initial_state(self.cfg, self.grid, self.device,
                              passive=self.passive)
+
+    def _whole_domain_only(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a decomposition (mesh_shape="
+                f"{tuple(self.cfg.mesh_shape)}) is not ported yet "
+                "(ROADMAP.md Queue 1 item 12b)")
 
     def _next_step(self) -> Tuple[bool, bool]:
         """Count the step and advance the calendar; its (leapfrog,
@@ -241,6 +312,7 @@ class Model:
         Schedule by step count (``freq_steps``) or by calendar frequency
         (``freq_opt`` in nyear/nmonth/nday/nhour/nsecond/nstep + ``freq``).
         An unknown field raises KeyError."""
+        self._whole_domain_only("a tavg stream")
         from pop2_tpu_torch.tavg import TavgStream
         stream = TavgStream(self.cfg, self.grid, contents,
                             freq_steps if freq_opt is None else 10 ** 9,
@@ -255,6 +327,7 @@ class Model:
                        outdir: str = ".", prefix: str = "pop2_tpu.h",
                        freq_opt: str = None, freq: int = 1):
         """Add an instantaneous snapshot stream (source/history.F90)."""
+        self._whole_domain_only("a history stream")
         from pop2_tpu_torch.history import HistoryStream
         stream = HistoryStream(self.cfg, self.grid, contents, freq_steps,
                                outfile_prefix=prefix)
@@ -268,6 +341,7 @@ class Model:
                      level: int = 0, prefix: str = "pop2_tpu.m",
                      freq_opt: str = None, freq: int = 1):
         """Add a 2-D snapshot stream (source/movie.F90)."""
+        self._whole_domain_only("a movie stream")
         from pop2_tpu_torch.history import MovieStream
         stream = MovieStream(self.cfg, self.grid, contents, freq_steps,
                              level=level, outfile_prefix=prefix)
@@ -319,10 +393,11 @@ class Model:
         forcing = self._lunar_forcing(forcing or self.forcing)
         leapfrog, avg_ts = self._next_step()
         with_output = bool(self.tavg_streams or self.history_streams)
-        out = step_mod.step(self.cfg, self.grid, self.bc, self.ts_range,
-                            state, forcing, leapfrog, avg_ts,
-                            **self.step_args(leapfrog),
-                            with_extras=with_output)
+        with pmesh.scope(self.mesh):
+            out = step_mod.step(self.step_cfg, self.grid, self.bc,
+                                self.ts_range, state, forcing, leapfrog,
+                                avg_ts, **self.step_args(leapfrog),
+                                with_extras=with_output)
         self._eager_leapfrog_done |= leapfrog
         if with_output:
             state, diags, extras = out
@@ -353,6 +428,8 @@ class Model:
         the step was captured with builds a new captured step. Returns (state, diagnostics of the last step). The state
         returned is the caller's own; the graphs' buffers stay inside the
         model."""
+        self._whole_domain_only("run_compiled (CUDA graphs of a step whose "
+                                "exchanges are host calls)")
         forcing = forcing or self.forcing
         diags = None
         if self.history_streams or any(s.flag_name
@@ -396,23 +473,31 @@ class Model:
 
     # -- diagnostics (source/diagnostics.F90:1174-, check_KE :3260) ---------
     def diagnostics(self, state: State) -> Dict[str, float]:
+        """Global means and maxima; under a decomposition reduced over the
+        ranks (b4b sums under ``cfg.b4b``), so every rank reads the same
+        values."""
         g = self.grid
+        b4b = self.cfg.b4b
         dz = g.vgrid.dz.reshape(-1, 1, 1)
         wu = torch.where(g.kmask_u, dz * g.UAREA, 0.0)
         wt = torch.where(g.kmask_t, dz * g.TAREA, 0.0)
-        ke = 0.5 * torch.sum(wu * (state.u_cur ** 2 + state.v_cur ** 2)) \
-            / torch.sum(wu)
-        tvol = torch.sum(wt)
-        tmean = torch.sum(wt * state.tracer_cur[0]) / tvol
-        smean = torch.sum(wt * state.tracer_cur[1]) / tvol
-        ssh = torch.sqrt(torch.sum((state.psurf_cur / const.GRAV) ** 2
-                                   * g.RCALCT) / torch.sum(g.RCALCT))
+        with pmesh.scope(self.mesh):
+            def total(x):
+                return global_sum(x, b4b=b4b)
+            ke = 0.5 * total(wu * (state.u_cur ** 2 + state.v_cur ** 2)) \
+                / total(wu)
+            tvol = total(wt)
+            tmean = total(wt * state.tracer_cur[0]) / tvol
+            smean = total(wt * state.tracer_cur[1]) / tvol
+            ssh = torch.sqrt(total((state.psurf_cur / const.GRAV) ** 2
+                                   * g.RCALCT) / total(g.RCALCT))
+            umax = global_max(torch.abs(state.u_cur))
         return {
             "KE": float(ke),
             "TEMP_mean": float(tmean),
             "SALT_mean": float(smean) * const.SALT_TO_PPT,
             "SSH_rms_cm": float(ssh),
-            "U_max": float(torch.abs(state.u_cur).max()),
+            "U_max": float(umax),
         }
 
     def check_ke(self, state: State, ke_limit: float = 100.0) -> None:

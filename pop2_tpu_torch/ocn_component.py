@@ -55,6 +55,11 @@ class OcnComponent:
                  restart_freq_opt: str = "never", restart_freq: int = 1,
                  outdir: str = ".", lfw_as_salt_flx: bool = True,
                  device="cuda"):
+        if tuple(cfg.mesh_shape) != (1, 1):
+            raise NotImplementedError(
+                "the coupler cap under a decomposition (mesh_shape="
+                f"{tuple(cfg.mesh_shape)}) is not ported yet (ROADMAP.md "
+                "Queue 1 item 12b)")
         self.cfg = cfg
         self.model = Model(cfg, device=device)
         self.outdir = outdir

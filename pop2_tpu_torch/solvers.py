@@ -80,11 +80,12 @@ def apply_op(op: BtropOperator, x, bc: BC, shifted=None):
     ``shifted`` takes the precomputed ``_shifted_weights`` so a solver loop
     shifts the weights once instead of at every application."""
     w_s, w_w, w_se, w_nw, w_sw = shifted or _shifted_weights(op, bc)
+    rows, = bc.halo([x])  # the y shifts' rows in one exchange
     return (op.center * x
-            + op.north * bc.n(x) + w_s * bc.s(x)
+            + op.north * bc.n(x, rows=rows) + w_s * bc.s(x, rows=rows)
             + op.east * bc.e(x) + w_w * bc.w(x)
-            + op.ne * bc.ne(x) + w_se * bc.se(x)
-            + w_nw * bc.nw(x) + w_sw * bc.sw(x))
+            + op.ne * bc.ne(x, rows=rows) + w_se * bc.se(x, rows=rows)
+            + w_nw * bc.nw(x, rows=rows) + w_sw * bc.sw(x, rows=rows))
 
 
 def _masked_sum(x, mask, b4b: bool = False):
@@ -146,11 +147,12 @@ def load_precond(path: str, dtype, device="cuda") -> Precond9:
 def precond9_apply(p: Precond9, bc: BC):
     """Closure z = M r of a 9-point stencil."""
     def apply9(r):
+        rows, = bc.halo([r])  # the y shifts' rows in one exchange
         return (p.center * r
-                + p.north * bc.n(r) + p.south * bc.s(r)
+                + p.north * bc.n(r, rows=rows) + p.south * bc.s(r, rows=rows)
                 + p.east * bc.e(r) + p.west * bc.w(r)
-                + p.ne * bc.ne(r) + p.nw * bc.nw(r)
-                + p.se * bc.se(r) + p.sw * bc.sw(r))
+                + p.ne * bc.ne(r, rows=rows) + p.nw * bc.nw(r, rows=rows)
+                + p.se * bc.se(r, rows=rows) + p.sw * bc.sw(r, rows=rows))
     return apply9
 
 
@@ -167,6 +169,7 @@ _REV_FIELD = {"center": "center", "north": "south", "south": "north",
               "nw": "se", "se": "nw"}
 _SHIFT_OF_FIELD = {"north": "n", "south": "s", "east": "e", "west": "w",
                    "ne": "ne", "nw": "nw", "se": "se", "sw": "sw"}
+_Y_SHIFTED = {f_ for f_, o in _SHIFT_OF_FIELD.items() if o not in ("e", "w")}
 
 
 def _row_stencils(op: BtropOperator, sh):
@@ -332,14 +335,23 @@ def fspai_apply(p: FSPAI9, bc: BC):
     """Closure z = M r = -(G^T (G r)): two 9-point passes. G^T's weight for
     offset o at point p is G's weight for -o at p+o, so the transposed pass
     shifts the products."""
-    def bsh(f, name):
-        return f if name == "center" else getattr(bc, _SHIFT_OF_FIELD[name])(f)
+    def bsh(f, name, rows=None):
+        if name == "center":
+            return f
+        op = _SHIFT_OF_FIELD[name]
+        if op in ("e", "w"):
+            return getattr(bc, op)(f)
+        return getattr(bc, op)(f, rows=rows)
 
     def apply(r):
-        gr = sum(getattr(p, f_) * bsh(r, f_) for f_ in FSPAI9._fields)
+        rr, = bc.halo([r])  # each pass's y shifts' rows in one exchange
+        gr = sum(getattr(p, f_) * bsh(r, f_, rr) for f_ in FSPAI9._fields)
         # (G^T v)[q] = sum_o G[q+o, q] v[q+o] = sum_o bsh_o(G_rev(o) * v)
-        gtv = sum(bsh(getattr(p, _REV_FIELD[f_]) * gr, f_)
-                  for f_ in FSPAI9._fields)
+        prods = [getattr(p, _REV_FIELD[f_]) * gr for f_ in FSPAI9._fields]
+        rows = bc.halo([v if f_ in _Y_SHIFTED else None
+                        for f_, v in zip(FSPAI9._fields, prods)])
+        gtv = sum(bsh(v, f_, rw)
+                  for f_, v, rw in zip(FSPAI9._fields, prods, rows))
         return -gtv
     return apply
 

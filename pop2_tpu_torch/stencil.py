@@ -12,12 +12,21 @@ the U-point ``[j, i]`` is the NE corner of T-cell ``[j, i]`` (Arakawa B-grid).
 
 Operators: 4-point divergence/gradient/curl (source/operators.F90:49,126,199),
 T<->U-grid area-weighted averaging (source/grid.F90:3297-3420).
+
+Under a decomposition (``parallel.mesh.scope``) a field is a y slab: a
+north-south shift takes its missing rows from the neighbouring slab, one
+exchange a shift (``Decomposition.halo_rows``; ``BC.halo`` fetches the
+rows of several shifts in one), and every rank joins every exchange, so
+even the slabs at the global edges call it. The global south
+edge and a closed north edge keep their zeros; the fold fills the north
+ghost rows on the top slab only. East-west shifts are unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pop2_tpu_torch.parallel import mesh as _mesh
 from pop2_tpu_torch.tripole import fold_rows, shift_n_tripole
 
 __all__ = [
@@ -27,8 +36,10 @@ __all__ = [
 ]
 
 
-def _shift(f, sign: int, dim: int, bc: str):
-    """Value at index+sign along ``dim``; zeros enter at a closed edge."""
+def _shift(f, sign: int, dim: int, bc: str, rows=None):
+    """Value at index+sign along ``dim``; zeros enter at a closed edge.
+    ``rows``: ``BC.halo``'s pair for ``f`` (a y shift under a
+    decomposition then takes its edge row from it and exchanges nothing)."""
     if bc == "cyclic":
         return torch.roll(f, -sign, dims=dim)
     if bc == "tripole":
@@ -40,10 +51,50 @@ def _shift(f, sign: int, dim: int, bc: str):
     if bc != "closed":
         raise ValueError(f"unknown boundary {bc!r}")
     n = f.shape[dim]
-    edge = torch.zeros_like(f.narrow(dim, 0, 1))
+    if dim % f.dim() == f.dim() - 2 and _decomposed():
+        edge = (_north_rows(f, 1, rows=rows) if sign > 0
+                else _south_rows(f, 1, rows=rows))
+    else:
+        edge = torch.zeros_like(f.narrow(dim, 0, 1))
     if sign > 0:
         return torch.cat([f.narrow(dim, 1, n - 1), edge], dim=dim)
     return torch.cat([edge, f.narrow(dim, 0, n - 1)], dim=dim)
+
+
+def _decomposed() -> bool:
+    d = _mesh.active()
+    return d is not None and d.comm is not None
+
+
+def _north_rows(f, dist: int, fold=None, rows=None):
+    """The ``dist`` rows past the slab's north edge: the north neighbour's
+    first rows (from ``rows``, ``BC.halo``'s pair, where given, else
+    exchanged now, every slab joining), or at the global north edge
+    ``fold(f)`` (the tripole's ghost rows) or zeros."""
+    if rows is None:
+        _, north = _mesh.active().halo_rows([f], 0, dist)
+        north = north[0] if north is not None else None
+    else:
+        north = rows[1]
+    if north is not None:
+        return north
+    if fold is not None:
+        return fold(f)
+    return torch.zeros_like(f.narrow(-2, 0, dist))
+
+
+def _south_rows(f, dist: int, rows=None):
+    """The ``dist`` rows past the slab's south edge: the south neighbour's
+    last rows (from ``rows`` where given), or zeros at the global south
+    edge."""
+    if rows is None:
+        south, _ = _mesh.active().halo_rows([f], dist, 0)
+        south = south[0] if south is not None else None
+    else:
+        south = rows[0]
+    if south is not None:
+        return south
+    return torch.zeros_like(f.narrow(-2, 0, dist))
 
 
 def shift_e(f, bc_ew: str = "cyclic"):
@@ -56,14 +107,14 @@ def shift_w(f, bc_ew: str = "cyclic"):
     return _shift(f, -1, -1, bc_ew)
 
 
-def shift_n(f, bc_ns: str = "closed"):
+def shift_n(f, bc_ns: str = "closed", rows=None):
     """f[j+1, i]."""
-    return _shift(f, +1, -2, bc_ns)
+    return _shift(f, +1, -2, bc_ns, rows)
 
 
-def shift_s(f, bc_ns: str = "closed"):
+def shift_s(f, bc_ns: str = "closed", rows=None):
     """f[j-1, i]."""
-    return _shift(f, -1, -2, bc_ns)
+    return _shift(f, -1, -2, bc_ns, rows)
 
 
 def shift_ne(f, bc_ew: str = "cyclic", bc_ns: str = "closed"):
@@ -102,10 +153,10 @@ class BC:
     def w(self, f):
         return shift_w(f, self.ew)
 
-    def n(self, f, loc: str = "center", kind: str = "scalar"):
+    def n(self, f, loc: str = "center", kind: str = "scalar", rows=None):
         if self.ns == "tripole":
-            return shift_n_tripole(f, 1, loc, kind)
-        return shift_n(f, self.ns)
+            return shift_n_tripole(f, 1, loc, kind, rows)
+        return shift_n(f, self.ns, rows)
 
     def nn(self, f, loc: str = "center", kind: str = "scalar"):
         """Distance-2 northward shift (value at j+2)."""
@@ -122,25 +173,53 @@ class BC:
         closed and cyclic edges."""
         if self.ns != "tripole":
             return shift_n(f, self.ns)
-        return torch.cat([f.narrow(-2, 1, f.shape[-2] - 1),
-                          fold_rows(partner, 1, loc, kind).unsqueeze(-2)],
-                         dim=-2)
+        if _decomposed():
+            ghost = _north_rows(f, 1, lambda _: fold_rows(
+                partner, 1, loc, kind).unsqueeze(-2))
+        else:
+            ghost = fold_rows(partner, 1, loc, kind).unsqueeze(-2)
+        return torch.cat([f.narrow(-2, 1, f.shape[-2] - 1), ghost], dim=-2)
 
-    def s(self, f):
-        return shift_s(f, self.ns)
+    def s(self, f, rows=None):
+        return shift_s(f, self.ns, rows)
 
-    def ne(self, f, loc: str = "center", kind: str = "scalar"):
+    @staticmethod
+    def halo(fields):
+        """For each of ``fields`` (tensors, or None), the rows just past its
+        slab's south and north edges, (south, north), each None at a global
+        edge, all fetched from the neighbouring slabs in one exchange; None
+        for a None field and for every field on the whole domain. A
+        distance-1 shift of a field given its pair (``rows=``) exchanges
+        nothing: a stencil of several shifts pays one exchange, not one a
+        shift."""
+        d = _mesh.active()
+        if d is None or d.comm is None:
+            return [None] * len(fields)
+        some = [f for f in fields if f is not None]
+        south, north = d.halo_rows(some, 1, 1)
+        out, i = [], 0
+        for f in fields:
+            if f is None:
+                out.append(None)
+                continue
+            out.append((south[i] if south is not None else None,
+                        north[i] if north is not None else None))
+            i += 1
+        return out
+
+    def ne(self, f, loc: str = "center", kind: str = "scalar", rows=None):
         # fold first, then shift east: the ghost-cell indexing
-        return shift_e(self.n(f, loc, kind), self.ew)
+        return shift_e(self.n(f, loc, kind, rows), self.ew)
 
-    def nw(self, f, loc: str = "center", kind: str = "scalar"):
-        return shift_w(self.n(f, loc, kind), self.ew)
+    def nw(self, f, loc: str = "center", kind: str = "scalar", rows=None):
+        return shift_w(self.n(f, loc, kind, rows), self.ew)
 
-    def se(self, f):
-        return shift_s(shift_e(f, self.ew), self.ns)
+    def se(self, f, rows=None):
+        # south first, so ``rows`` (f's own) serve; the two commute
+        return shift_e(shift_s(f, self.ns, rows), self.ew)
 
-    def sw(self, f):
-        return shift_s(shift_w(f, self.ew), self.ns)
+    def sw(self, f, rows=None):
+        return shift_w(shift_s(f, self.ns, rows), self.ew)
 
     def __eq__(self, other):
         return (isinstance(other, BC) and self.ew == other.ew

@@ -33,6 +33,7 @@ from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.grid import Grid
+from pop2_tpu_torch.reductions import global_sum
 from pop2_tpu_torch.state import State
 from pop2_tpu_torch.stencil import BC, tgrid_to_ugrid
 from pop2_tpu_torch.tripole import enforce_top_symmetry
@@ -402,10 +403,10 @@ def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
     dzc = grid.vgrid.dz.reshape(cfg.km, 1, 1)
     store_int = store_rf.clone()
     store_int[:, 0] = 0.0
-    svol = torch.sum(grid.TAREA[None, None] * mask3[None] * dzc[None]
-                     * store_int, dim=(1, 2, 3))
-    svol = svol + torch.sum(grid.TAREA[None] * mask3[0][None] * s_sfc,
-                            dim=(1, 2))
+    svol = global_sum(grid.TAREA[None, None] * mask3[None] * dzc[None]
+                      * store_int, b4b=cfg.b4b, axis=(1, 2, 3))
+    svol = svol + global_sum(grid.TAREA[None] * mask3[0][None] * s_sfc,
+                             b4b=cfg.b4b, axis=(1, 2))
 
     tth_c = thick_c[None] * t_cur[:, 0] + rc * s_sfc
     tth_n = (thick_n[None] * t_new[:, 0] + rn * s_sfc) if nonzero_new \
@@ -415,8 +416,9 @@ def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
     workb = p_old + p_new - 2.0 * p_cur
     p_cur_f = p_cur + rc * workb
     p_new_f = p_new + rn * workb if nonzero_new else p_new
-    area = torch.sum(grid.TAREA * grid.RCALCT)
-    rf_sump = torch.sum(workb * grid.TAREA * grid.RCALCT) / area
+    area = global_sum(grid.TAREA * grid.RCALCT, b4b=cfg.b4b)
+    rf_sump = global_sum(workb * grid.TAREA * grid.RCALCT,
+                         b4b=cfg.b4b) / area
     p_cur_f = p_cur_f - rc * rf_sump * grid.RCALCT
     if nonzero_new:
         p_new_f = p_new_f - rn * rf_sump * grid.RCALCT
@@ -429,8 +431,8 @@ def _robert_filter(cfg: ModelConfig, grid: Grid, ts_range, state: State,
         t_new_f[:, 0] = tth_n / thick_n_f[None]
 
     # global tracer conservation adjustment (:1160-1209)
-    vol = (torch.sum(mask3[1:] * dzc[1:] * grid.TAREA[None])
-           + torch.sum(mask3[0] * thick_c_f * grid.TAREA))
+    vol = (global_sum(mask3[1:] * dzc[1:] * grid.TAREA[None], b4b=cfg.b4b)
+           + global_sum(mask3[0] * thick_c_f * grid.TAREA, b4b=cfg.b4b))
     rf_s = svol / vol
     # stabilized factor: the mean with the previous step's value once
     # there is one (:1178-1184)

@@ -49,6 +49,7 @@ import torch
 from pop2_tpu_torch import _cuda_build as cb
 from pop2_tpu_torch import advect, hmix, vmix
 from pop2_tpu_torch.grid import grid_bc
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
 launches = 0
@@ -198,6 +199,7 @@ def tracer_tendency_plain(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     return ft + vmix.vdifft(cfg, grid, vdc, told, stf)
 
 
+@pmesh.halo_wrapped(pmesh.HALO_MAX)
 def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     """ft (nt, km, ny, nx) for u, v (km, ny, nx); trcr, tmix, told
     (nt, km, ny, nx); vdc (2, km, ny, nx); stf (nt, ny, nx); dh (ny, nx).

@@ -18,12 +18,19 @@ averaging magnitudes (:1977-1986). Vector fields flip sign (isign = -1,
 
 The fold is an index map here; the CUDA kernels apply the same map to the
 north ghost row of their tiles (``csrc/common.cuh``, ``fold_slot``).
+
+Under a decomposition (``parallel.mesh.scope``) the fold acts on the top
+slab only, which holds the global top rows; the other slabs take the rows
+past their north edge from their neighbour (``shift_n_tripole``) and leave
+their top row alone (``enforce_top_symmetry``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pop2_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["fold_rows", "shift_n_tripole", "enforce_top_symmetry",
            "reduction_weights"]
@@ -58,20 +65,36 @@ def fold_rows(f, n: int, loc: str = "center", kind: str = "scalar"):
 
 
 def shift_n_tripole(f, dist: int = 1, loc: str = "center",
-                    kind: str = "scalar"):
+                    kind: str = "scalar", rows=None):
     """f shifted so that result[j] = f[j+dist], the northern ghost values
-    from the fold; dist in {1, 2}."""
-    rows = [f.narrow(-2, dist, f.shape[-2] - dist)]
-    rows += [fold_rows(f, n, loc, kind).unsqueeze(-2)
+    from the fold; dist in {1, 2}. Under a decomposition the slabs below
+    the top take their neighbour's rows: from ``rows`` (``stencil.BC.halo``'s
+    pair for f, distance 1) where given, else exchanged now (every slab
+    joins the exchange)."""
+    kept = [f.narrow(-2, dist, f.shape[-2] - dist)]
+    d = _mesh.active()
+    if d is not None and d.comm is not None:
+        if rows is not None:
+            north = rows[1]
+        else:
+            _, north = d.halo_rows([f], 0, dist)
+            north = north[0] if north is not None else None
+        if north is not None:
+            return torch.cat(kept + [north], dim=-2)
+    kept += [fold_rows(f, n, loc, kind).unsqueeze(-2)
              for n in range(1, dist + 1)]
-    return torch.cat(rows, dim=-2)
+    return torch.cat(kept, dim=-2)
 
 
 def enforce_top_symmetry(f, loc: str = "necorner", kind: str = "vector"):
     """Make the degenerate top row of a corner or N-face field symmetric
     (mpi/POP_HaloMod.F90:1977-1986): a point and its fold partner both get
     the mean of their magnitudes, each with the partner's sign (times
-    isign for vectors). Other locations are returned as they are."""
+    isign for vectors). Other locations are returned as they are, and so
+    is every slab but the top one of a decomposition."""
+    d = _mesh.active()
+    if d is not None and not d.top:
+        return f
     if loc == "necorner":
         partner = _rev_corner(f[..., -1, :])
     elif loc == "nface":

@@ -503,7 +503,7 @@ def test_gm_driver_carries_vdc_and_gm_output(runs):
 # ---- (e) what the port does not carry ---------------------------------------
 
 @pytest.mark.parametrize("over,names", [
-    (dict(b4b=True), "b4b"),
+    (dict(mesh_shape=(2, 2)), "12c"),
 ])
 def test_unported_gm_switches_raise_at_construction(over, names):
     cfg = t_get_config("mini", hmix_tracer="gm", **over)

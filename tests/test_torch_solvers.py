@@ -134,8 +134,14 @@ def test_solve_dispatch_and_float64_solve_under_float32(setup):
 
 
 def test_global_sum_matches_and_b4b_raises(setup):
+    """The plain sum, and the b4b sum (carried since the decomposition
+    over ranks): within 1e-13 of it, with the same bits for the values in
+    another order."""
     x = torch.as_tensor(setup.x0)
     assert float(global_sum(x)) == pytest.approx(setup.x0.sum(), rel=1e-13)
-    with pytest.raises(NotImplementedError):
-        global_sum(x, b4b=True)
+    b4b = float(global_sum(x, b4b=True))
+    assert b4b == pytest.approx(setup.x0.sum(), rel=1e-13)
+    perm = torch.as_tensor(np.random.RandomState(3).permutation(
+        setup.x0.ravel()).reshape(setup.x0.shape))
+    assert float(global_sum(perm, b4b=True)) == b4b
 

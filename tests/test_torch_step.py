@@ -203,8 +203,8 @@ def test_switches_ported_since_construct_and_step(over):
 
 
 @pytest.mark.parametrize("over,names", [
-    (dict(b4b=True), "b4b"),
-    (dict(mesh_shape=(2, 1)), "multi-GPU"),
+    (dict(mesh_shape=(2, 2)), "12c"),
+    (dict(mesh_shape=(1, 4)), "x decomposition"),
 ])
 def test_unported_switches_raise_at_construction(over, names):
     cfg = t_get_config("mini", **over)

@@ -1,0 +1,252 @@
+"""What the ranks of ``tests/test_torch_parallel.py`` run, in processes of
+their own (``parallel.multihost.spawn_ranks``, gloo on the CPU): every
+function takes whole-domain inputs, cuts its rank's slab, and returns what
+the test compares. This module imports the port alone (no JAX), so a rank
+starts in about a second.
+"""
+
+import functools
+import importlib
+
+import torch
+
+from pop2_tpu_torch import sample
+from pop2_tpu_torch.grid import build_aniso, build_grid
+from pop2_tpu_torch.io import sharded_restart
+from pop2_tpu_torch.model import Model
+from pop2_tpu_torch.parallel import mesh as pmesh
+from pop2_tpu_torch.parallel import multihost
+from pop2_tpu_torch.reductions import global_sum
+from pop2_tpu_torch.stencil import BC
+
+STATE_FIELDS = ("tracer_cur", "u_cur", "v_cur", "psurf_cur", "ubtrop_cur",
+                "vbtrop_cur", "rho_cur", "tracer_old")
+
+
+def _mesh(ny, nx, tripole=False):
+    import torch.distributed as dist
+    return pmesh.make_mesh((dist.get_world_size(), 1), ny, nx, tripole)
+
+
+def fold_model_grid(cfg, seed):
+    """The internal tripole grid of ``cfg`` on ``sample.fold_grid``'s bottom
+    (ocean across the fold), its anisotropic statics rebuilt for that
+    bottom: the grid a whole model runs on to see the fold."""
+    grid = sample.fold_grid(cfg, build_grid(cfg, "cpu"), seed)
+    if cfg.hmix_momentum == "aniso":
+        grid = grid.replace(aniso=build_aniso(
+            cfg, *(getattr(grid, n).numpy() for n in (
+                "HTN", "HTE", "DXU", "DYU", "DXUR", "DYUR", "ULAT")),
+            grid.KMU.numpy(), "cpu"))
+    return grid
+
+
+def b4b_sums(arrays):
+    """Each array's b4b sum (its trailing axes the grid) over the slabs."""
+    out = []
+    for a in arrays:
+        d = _mesh(*a.shape[-2:])
+        with pmesh.scope(d):
+            out.append(float(global_sum(d.slab(torch.as_tensor(a)),
+                                        b4b=True)))
+    return out
+
+
+def wrapper_slabs(cases):
+    """{name: outputs on this slab} of each case (name, wrapper's dotted
+    path in the port, config, whole grid, whole-domain arguments, keyword
+    arguments): the wrapper called on the slab with the decomposition in
+    scope (its halo'd launch)."""
+    out = {}
+    for name, path, cfg, grid, args, kwargs in cases:
+        module, fn = path.rsplit(".", 1)
+        fn = getattr(importlib.import_module("pop2_tpu_torch." + module), fn)
+        d = _mesh(cfg.ny, cfg.nx, cfg.ns_boundary == "tripole")
+        with pmesh.scope(d):
+            out[name] = fn(cfg, d.slab(grid), *d.slab(args),
+                           **d.slab(kwargs))
+        out[name + ":exchanges"] = d.comm.exchanges
+    return out
+
+
+def run_model(cfg, nsteps, grid=None, tracers=None, forcing_fields=None,
+              restart_dir=None):
+    """``nsteps`` of ``Model.advance`` on this rank's slab of ``cfg``
+    (``mesh_shape`` (ranks, 1)) from its initial state, with ``tracers``
+    (whole domain) in place of the initial tracers and the forcing's fields
+    replaced by ``forcing_fields`` (whole domain) where given. Returns the
+    iterations a step, the gathered fields, the diagnostics, the exchange
+    counts; with ``restart_dir`` the state is also written there as a
+    sharded restart."""
+    model = Model(cfg, grid=grid, device="cpu")
+    d = model.mesh
+    state = model.initial_state()
+    if tracers is not None:
+        from pop2_tpu_torch import baroclinic
+        t = d.slab(torch.as_tensor(tracers))
+        rho = baroclinic._masked_density(model.step_cfg, model.grid,
+                                         model.ts_range, t)
+        state = state.replace(tracer_cur=t, tracer_old=t, rho_cur=rho,
+                              rho_old=rho)
+    forcing = model.forcing
+    if forcing_fields:
+        forcing = forcing.replace(**d.slab(forcing_fields))
+    iters = []
+    d.comm.reset_counts()
+    for _ in range(nsteps):
+        state, diags = model.advance(state, forcing)
+        iters.append(int(diags.solver_iters))
+    counts = d.comm.counts()
+    if restart_dir is not None:
+        sharded_restart.write_sharded_restart(restart_dir, state,
+                                              model.nsteps_total, cfg, d)
+    return dict(iters=iters, counts=counts, diags=model.diagnostics(state),
+                fields={k: multihost.to_host_replicated(getattr(state, k), d)
+                        for k in STATE_FIELDS},
+                rows=(d.j0, d.j1))
+
+
+def read_restart(cfg, directory):
+    """This rank's slab of a sharded restart, gathered, and the rows it
+    read."""
+    d = multihost.global_mesh(cfg)
+    state, n = sharded_restart.read_sharded_restart(directory, cfg, mesh=d,
+                                                    device="cpu")
+    return dict(n=n, slab=state, rows=(d.j0, d.j1),
+                whole={k: multihost.to_host_replicated(getattr(state, k), d)
+                       for k in STATE_FIELDS})
+
+
+def gather_scatter(whole):
+    """Round trips of a whole field through the slabs: scattered from rank
+    0 and from the last rank, then gathered on every rank."""
+    d = _mesh(*whole.shape[-2:])
+    a = multihost.make_global_array(whole if d.rank == 0 else None, d)
+    last = d.py - 1
+    b = multihost.make_global_array(whole if d.rank == last else None, d,
+                                    src=last)
+    sl = multihost.process_local_slice(whole.shape, d)
+    return dict(from_root=multihost.to_host_replicated(a, d),
+                from_last=multihost.to_host_replicated(b, d),
+                slab_equal=bool(torch.equal(a, torch.as_tensor(whole[sl]))),
+                rows=(d.j0, d.j1))
+
+
+def shifts(f, ew, ns):
+    """Every north-south shift of ``stencil.BC`` on the slabs of ``f``."""
+    d = _mesh(*f.shape[-2:], tripole=ns == "tripole")
+    bc = BC(ew, ns)
+    x = d.slab(torch.as_tensor(f))
+    ops = {"n": bc.n, "s": bc.s, "ne": bc.ne, "nw": bc.nw, "se": bc.se,
+           "sw": bc.sw, "nn": bc.nn,
+           "n_corner_vec": functools.partial(bc.n, loc="necorner",
+                                             kind="vector"),
+           "nn_nface": functools.partial(bc.nn, loc="nface"),
+           "n_partner": functools.partial(bc.n_partner, partner=x * 2.0,
+                                          loc="nface", kind="vector")}
+    from pop2_tpu_torch.tripole import enforce_top_symmetry
+    with pmesh.scope(d):
+        out = {k: op(x) for k, op in ops.items()}
+        out["symmetry"] = enforce_top_symmetry(x)
+        # the distance-1 shifts given their rows, fetched in one exchange
+        e0 = d.comm.exchanges
+        rows, = bc.halo([x])
+        for k in ("n", "s", "ne", "nw", "se", "sw"):
+            out["rows_" + k] = getattr(bc, k)(x, rows=rows)
+        out["rows_n_corner_vec"] = bc.n(x, "necorner", "vector", rows=rows)
+        exchanges = d.comm.exchanges - e0
+    out = {k: multihost.to_host_replicated(v, d) for k, v in out.items()}
+    out["rows_exchanges"] = exchanges
+    return out
+
+
+def forced_run(cfg, nsteps, inputs):
+    """``nsteps`` of a forced run of ``cfg`` as a standalone caller composes
+    it around ``Model.advance``, on this rank's slab (``mesh_shape``
+    (ranks, 1)) or, for ``mesh_shape`` (1, 1), on the whole domain: the
+    bulk-NCEP freshwater flux (its weak restoring's global mean and the
+    precipitation total) with the precipitation balance's accumulator,
+    marginal-seas balancing of a region given by global (j, i) points, the
+    river runoff's virtual salt flux (its global correction), the estuary
+    exchange in the step, a monthly wind stress interpolated from a
+    climatology, then the diagnostics, budgets and coupler exports of the
+    final state. ``inputs``: whole-domain NumPy fields (qlat, precip, sss,
+    ifrac, ms_mask, roff, taux, tauy) and the distribution points. Returns
+    what the test compares, gathered."""
+    from pop2_tpu_torch import (budget, coupled, diagnostics, estuary,
+                                forcing as forcing_mod, forcing_sfwf,
+                                ms_balance)
+    model = Model(cfg, device="cpu")
+    d = model.mesh
+    cut = d.slab if d is not None else (lambda t: t)
+    g = model.grid
+    f = {k: cut(torch.as_tensor(v)) for k, v in inputs.items()
+         if k != "dist_points"}
+    region = ms_balance.build_region(g, inputs["ms_mask"],
+                                     inputs["dist_points"])
+    balance = forcing_sfwf.PrecipBalance(cfg, g)
+    ocn_wgt = g.RCALCT * (1.0 - f["ifrac"])
+    state = model.initial_state()
+    iters, totals = [], []
+    for n in range(nsteps):
+        sfc = state.tracer_cur[:, 0]
+        out = forcing_sfwf.sfwf_bulk_ncep(
+            cfg, g, f["qlat"], f["precip"], f["sss"], sfc[1], sfc[0],
+            ocn_wgt, mask_sr=1.0 - region.ms_mask,
+            precip_fact=balance.precip_fact)
+        balance.accumulate(out.precip_total, cfg.time.dtt)
+        salt = ms_balance.ms_balancing(cfg, g, out.stf_salt, [region])
+        salt = salt + estuary.river_vsf(cfg, g, f["roff"], sfc[1])
+        stf = model.forcing.stf.clone()
+        stf[1] = salt
+        forcing = forcing_mod.file_wind_stress(
+            cfg, g, model.forcing, f["taux"], f["tauy"], 300.0 + 200.0 * n)
+        forcing = forcing.replace(stf=stf, roff_f=f["roff"])
+        state, diags = model.advance(state, forcing)
+        iters.append(int(diags.solver_iters))
+        totals.append(float(out.precip_total))
+    gather = (functools.partial(multihost.to_host_replicated, mesh=d)
+              if d is not None else (lambda t: t.numpy()))
+    refused = []
+    for call in (lambda: diagnostics.section_transport(
+            cfg, g, state, diagnostics.TransportSection(
+                2, 5, 2, 5, 0, 3, "merid", "s")),
+            lambda: diagnostics.barotropic_streamfunction(cfg, g, state)):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused.append(str(e))
+    return dict(
+        iters=iters, precip_totals=totals,
+        fields={k: gather(getattr(state, k)) for k in STATE_FIELDS},
+        smft=gather(forcing.smft),
+        region=[gather(region.ms_mask), gather(region.dist_frac),
+                float(region.ms_area)],
+        balance=[balance.area_t, balance.volume_t_k.tolist(),
+                 balance.salinity_means(g, state.tracer_cur[1]).tolist(),
+                 balance.sum_precip],
+        diagnostics=diagnostics.global_diagnostics(cfg, g, state),
+        cfl=diagnostics.cfl_numbers(cfg, g, state),
+        transports=[diagnostics.zonal_transport(cfg, g, state, 7),
+                    *(t.tolist() if hasattr(t, "tolist") else t
+                      for t in diagnostics.meridional_transport(
+                          cfg, g, state, 6)[1:]),
+                    diagnostics.moc_streamfunction(cfg, g, state,
+                                                   6)[1].tolist()],
+        budget=[budget.tracer_totals(cfg, g, state).tolist(),
+                float(budget.ocean_volume(cfg, g, state)),
+                budget.surface_flux_integral(cfg, g, forcing).tolist()],
+        export={k: gather(v) for k, v in coupled.ocn_export(
+            cfg, g, state).items()},
+        refused=refused)
+
+
+def suite(calls):
+    """[fn(*args, **kwargs) for fn, args, kwargs in calls]: the checks of
+    one start of the ranks."""
+    return [fn(*args, **kwargs) for fn, args, kwargs in calls]
+
+
+def suite_results(per_rank, calls):
+    """Each rank's ``suite`` results keyed by the calls' names."""
+    return [{c[0]: r for c, r in zip(calls, res)} for res in per_rank]
