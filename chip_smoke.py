@@ -4491,20 +4491,21 @@ def spai_phase():
 
 
 # ---- the ocean decomposed over ranks ----------------------------------------
-# prod_full at full size on RANKS y slabs of 192 rows, one process a slab on
-# the one card (gloo: NCCL refuses two ranks on one device; halo rows and
+# prod_full at full size on the meshes of RANKS_MESHES, one process a block
+# on the one card (gloo: NCCL refuses two ranks on one device; halos and
 # reduction operands go through host buffers), with b4b sums, against the
-# same run on the whole domain
-RANKS = 2
+# same run on the whole domain: y slabs of 192 rows, and 2-D blocks of
+# 192 x 160 whose top row holds the tripole fold across two ranks
+RANKS_MESHES = ((2, 1), (2, 2))
 RANKS_STEPS = 3
 # the decomposed fields against the whole domain's in the same dtype, of
 # scale: float64 and float32 alike (a fault in one dtype's halo or staging
 # would show at any band above the rounding of the other)
 RANKS_BAND64 = 1e-12
-# steps on from the checked ones, in turns: each shift exchanging its own
-# rows ("unbatched") and a stencil's rows fetched in one exchange
-# (``stencil.BC.halo``, "batched")
-RANKS_AB = ("unbatched", "batched", "unbatched", "batched")
+# steps on from the checked ones on the y slabs, in turns: each shift
+# exchanging its own halo ("unbatched") and a stencil's halo fetched in one
+# exchange (``stencil.BC.halo``, "batched")
+RANKS_AB = ("unbatched", "batched")
 # which wrapper counts a halo'd launch, and its kernel
 RANKS_KERNELS = {"tracer_upwind3": (tracer_cuda, "tracer_tendency"),
                  "clinic": (clinic_cuda, "clinic_rhs_fields"),
@@ -4562,12 +4563,18 @@ def _leaves(tree):
 
 
 def ranks_kernel_checks(dtype_name: str, mesh):
-    """Each stencil kernel launched halo'd on this rank's slab against the
-    whole-domain launch's rows: bitwise, max abs difference, the launches
-    of each (equal), and the halo'd call's ms (CUDA events around a call:
-    its exchange and staging included) and exchanges (the grid's halo rows
-    come once, at a grid's first call)."""
+    """Each stencil kernel launched halo'd on this rank's block against
+    the whole-domain launch's rows and columns: bitwise, max abs
+    difference, the launches of each (equal), the design the block's launch
+    takes (``closed``: the closed instance on the extended block; ``fold``:
+    the tripole instance on a top slab's whole rows; ``strip``: the tripole
+    instance with the fold's rows read from the mirror strip, a top-row
+    block of an x decomposition), and the halo'd call's ms (CUDA events
+    around a call: its exchange and staging included) and exchanges (the
+    grid's halo comes once, at a grid's first call)."""
     cases = ranks_kernel_cases(dtype_name)
+    design = ("closed" if not mesh.fold
+              else "strip" if mesh.px > 1 else "fold")
     slab_grid = {}
     out = {}
     for name, (cfg, grid, args) in cases.items():
@@ -4590,12 +4597,13 @@ def ranks_kernel_checks(dtype_name: str, mesh):
         bitwise, err = True, 0.0
         for g, w in zip(_leaves(got), _leaves(want)):
             if mesh.is_field(w):
-                w = w.narrow(-2, mesh.j0, mesh.rows)
+                w = w[..., mesh.j0:mesh.j1, mesh.i0:mesh.i1]
             bitwise &= bool(torch.equal(g, w))
             err = max(err, float((g.double() - w.double()).abs().max()))
         out[name] = {"bitwise": bitwise, "max_abs_err": err,
-                     "launches_whole": n_whole, "launches_halo": n_halo,
-                     "halo_ms": ms, "exchanges_a_call": exchanges}
+                     "design": design, "launches_whole": n_whole,
+                     "launches_halo": n_halo, "halo_ms": ms,
+                     "exchanges_a_call": exchanges}
     return out
 
 
@@ -4624,15 +4632,39 @@ def ranks_batching_ab(model, state, forcing):
     return out
 
 
-def ranks_worker(dtype_name: str, nsteps: int, tracers_file: str):
-    """One rank of ``ranks_phase`` (run by ``multihost.spawn_ranks``):
-    prod_full with b4b on this rank's slab, ``nsteps`` of ``Model.advance``
-    from the stratified tracers in ``tracers_file`` under the path's
-    forcing, each step timed; its launch counts and exchanges; the gathered
-    fields (rank 0); then the kernels' halo'd launches
-    (``ranks_kernel_checks``)."""
+def ranks_worker(runs, shape):
+    """One rank of ``ranks_phase`` (run by ``multihost.spawn_ranks``): each
+    of ``runs``, (dtype, steps, tracers file), in turn on this rank's block
+    of a ``shape`` mesh (``ranks_run``), the card's memory released and its
+    peak reset between them. Returns {dtype: the run's record}."""
+    out = {}
+    for dtype_name, nsteps, tracers_file in runs:
+        torch.cuda.reset_peak_memory_stats()
+        out[dtype_name] = ranks_run(dtype_name, nsteps, tracers_file, shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ranks_run(dtype_name: str, nsteps: int, tracers_file: str, shape):
+    """prod_full with b4b on this rank's block of a ``shape`` mesh, ``nsteps``
+    of ``Model.advance`` from the stratified tracers in ``tracers_file``
+    under the path's forcing, each step timed; its launch counts and
+    exchanges; the gathered fields (rank 0); on the y slabs the steps of
+    RANKS_AB; then the kernels' halo'd launches (``ranks_kernel_checks``);
+    the seconds of each part."""
+    part_s = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        part_s[name] = now - t_part
+        t_part = now
+
     cfg = full_config(dtype_name, "prod_full").with_(
-        b4b=True, mesh_shape=(RANKS, 1))
+        b4b=True, mesh_shape=tuple(shape))
     model = Model(cfg, device=multihost.local_device())
     mesh = model.mesh
     tracers = mesh.slab(torch.load(tracers_file)).to(DEV)
@@ -4641,6 +4673,7 @@ def ranks_worker(dtype_name: str, nsteps: int, tracers_file: str):
     state = model.initial_state().replace(
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
     forcing = path_forcing(model)
+    part("model")
     reset_counts()
     mesh.comm.reset_counts()
     iters, ms = [], []
@@ -4652,36 +4685,44 @@ def ranks_worker(dtype_name: str, nsteps: int, tracers_file: str):
         ms.append(1e3 * (time.perf_counter() - t0))
         iters.append(int(diags.solver_iters))
     counts, comm = read_counts(), mesh.comm.counts()
+    part("steps")
     fields = {name: multihost.to_host_replicated(getattr(state, name), mesh)
               for name in PATH_FIELDS + ("tracer_cur",)}
-    ab = ranks_batching_ab(model, state, forcing)
+    part("gather")
+    ab = (ranks_batching_ab(model, state, forcing) if mesh.px == 1
+          else None)
+    part("batching_ab")
     del model, state, forcing, tracers, rho
     gc.collect()
     torch.cuda.empty_cache()
     mesh.comm.reset_counts()
     reset_counts()
     kernels = ranks_kernel_checks(dtype_name, mesh)
-    return {"rank": mesh.rank, "rows": [mesh.j0, mesh.j1],
+    part("kernels")
+    return {"rank": mesh.rank, "block": [mesh.j0, mesh.j1, mesh.i0,
+                                         mesh.i1], "part_seconds": part_s,
             "fold": mesh.fold, "iters": iters, "step_ms": ms,
             "counts": counts, "comm": comm, "kernels": kernels, "ab": ab,
             "fields": fields if mesh.rank == 0 else None,
             "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def ranks_phase(nsteps: int = RANKS_STEPS):
-    """prod_full at 320 x 384 x 60 on RANKS slabs (192 rows each), one
-    process a slab on this card over gloo, b4b sums, ``nsteps`` of
-    ``Model.advance`` in float64 and float32, against the same steps on the
-    whole domain: solver iterations identical every step, the fields
-    within RANKS_BAND64 of scale of the whole-domain run in the same dtype,
-    every rank's launch counts those of the whole-domain run; each of the
-    five stencil kernels launched halo'd on its slab equal to the
-    whole-domain launch's rows bitwise. Prints the step ms, exchanges,
-    all-reduces and staged bytes a step, and the steps of RANKS_AB."""
+def ranks_phase(nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
+    """prod_full at 320 x 384 x 60 on each mesh of ``meshes`` (y slabs of
+    192 rows; 2-D blocks of 192 x 160), one process a block on this card
+    over gloo, b4b sums, ``nsteps`` of ``Model.advance`` in float64 and
+    float32, against the same steps on the whole domain: solver iterations
+    identical every step, the fields within RANKS_BAND64 of scale of the
+    whole-domain run in the same dtype, every rank's launch counts those
+    of the whole-domain run; each of the five stencil kernels launched
+    halo'd on its block equal to the whole-domain launch's rows and
+    columns bitwise, with the design it took. Prints the step ms,
+    exchanges, all-reduces and staged bytes a step, peak memory a rank,
+    and on the y slabs the steps of RANKS_AB."""
     import chip_smoke as cs  # the ranks import this module by its name
-    ref = None
     kernel_counters = [k for k in COUNTERS
                        if not k.endswith(("_fold", "_aniso"))]
+    wholes = {}
     with tempfile.TemporaryDirectory(prefix="pop2_ranks_in_") as tmp:
         for dtype_name in ("float64", "float32"):
             cfg = full_config(dtype_name, "prod_full").with_(b4b=True)
@@ -4699,81 +4740,93 @@ def ranks_phase(nsteps: int = RANKS_STEPS):
                 torch.cuda.synchronize()
                 ms.append(1e3 * (time.perf_counter() - t0))
                 iters.append(int(diags.solver_iters))
-            whole_counts = read_counts()
-            whole = {name: getattr(state, name).cpu()
-                     for name in PATH_FIELDS}
+            wholes[dtype_name] = dict(
+                iters=iters, ms=ms, counts=read_counts(),
+                tracers_file=tracers_file,
+                fields={name: getattr(state, name).cpu()
+                        for name in PATH_FIELDS})
             del model, state, forcing
             _MODELS.clear()
             _STRATIFIED.clear()
             gc.collect()
             torch.cuda.empty_cache()
+        ref = wholes["float64"]["fields"]
+        for shape in meshes:
+            # both dtypes in one start of the ranks
             t0 = time.perf_counter()
             res = multihost.spawn_ranks(
-                cs.ranks_worker, RANKS, backend="gloo", device="cuda",
-                args=(dtype_name, nsteps, tracers_file), timeout=900)
+                cs.ranks_worker, shape[0] * shape[1], backend="gloo",
+                device="cuda", args=([(d, nsteps, w["tracers_file"])
+                                      for d, w in wholes.items()],
+                                     tuple(shape)), timeout=900)
             spawn_s = time.perf_counter() - t0
-            got = {k: torch.as_tensor(v) for k, v in res[0]["fields"].items()
-                   if k in PATH_FIELDS}
-            diffs = {}
-            for name in PATH_FIELDS:
-                if not bool(torch.isfinite(got[name]).all()):
-                    raise AssertionError(f"ranks {dtype_name}: {name} not "
-                                         "finite")
-                diffs[name] = float((got[name] - whole[name]).abs().max()) \
-                    / (float(whole[name].abs().max()) or 1.0)
-            band = dict.fromkeys(diffs, RANKS_BAND64)
-            if ref is None:
-                ref = whole
-                witness = None
-            else:  # a reading only: the float32 run's distance from float64
-                witness = {name: float((whole[name].double()
-                                        - ref[name]).abs().max())
-                           / (float(ref[name].abs().max()) or 1.0)
-                           for name in PATH_FIELDS}
-            broken = {k: v for k, v in diffs.items() if not v <= band[k]}
-            for r in res:
-                if r["iters"] != iters:
-                    broken[f"iters_rank{r['rank']}"] = (r["iters"], iters)
-                bad = {k: (r["counts"][k], whole_counts[k])
-                       for k in kernel_counters
-                       if r["counts"][k] != whole_counts[k]}
-                if bad:
-                    broken[f"launches_rank{r['rank']}"] = bad
-                for name, k in r["kernels"].items():
-                    if not k["bitwise"] or (k["launches_halo"]
-                                            != k["launches_whole"]):
-                        broken[f"{name}_rank{r['rank']}"] = k
-            comm = [r["comm"] for r in res]
-            emit({"phase": "ranks", "path": "prod_full", "dtype": dtype_name,
-                  "backend": "gloo", "ranks": RANKS, "b4b": True,
-                  "rows": [r["rows"] for r in res],
-                  "fold_rank": [r["rank"] for r in res if r["fold"]],
-                  "steps": nsteps, "solver_iters": iters,
-                  "solver_iters_ranks": [r["iters"] for r in res],
-                  "whole_step_ms": ms,
-                  "step_ms_ranks": [r["step_ms"] for r in res],
-                  "exchanges_per_step": [c["exchanges"] / nsteps
-                                         for c in comm],
-                  "allreduces_per_step": [c["allreduces"] / nsteps
-                                          for c in comm],
-                  "staged_bytes_per_step": [c["staged_bytes"] / nsteps
-                                            for c in comm],
-                  "sent_bytes_per_step": [c["sent_bytes"] / nsteps
-                                          for c in comm],
-                  "launches_whole": {k: whole_counts[k]
-                                     for k in kernel_counters},
-                  "launches_fold_ranks": [r["counts"]["gm_flux_fold"]
-                                          for r in res],
-                  "rel_diff": diffs, "band": band,
-                  "whole_float32_vs_float64": witness,
-                  "kernels": [{"rank": r["rank"], **r["kernels"]}
-                              for r in res],
-                  "batching_ab_ranks": [r["ab"] for r in res],
-                  "peak_gb_ranks": [r["peak_gb"] for r in res],
-                  "spawn_seconds": spawn_s})
-            if broken:
-                raise AssertionError(f"ranks {dtype_name}: the decomposed "
-                                     f"run differs: {broken}")
+            for dtype_name, w in wholes.items():
+                ranks_check(dtype_name, tuple(shape), nsteps, w,
+                            [r[dtype_name] for r in res], ref,
+                            kernel_counters, spawn_s)
+
+
+def ranks_check(dtype_name, shape, nsteps, whole, res, ref, kernel_counters,
+                spawn_s):
+    """Holds one mesh's decomposed run in one dtype (``res``, a record a
+    rank) against the whole domain's (``whole``) and prints it; raises
+    where it differs."""
+    iters, ms, whole_counts = whole["iters"], whole["ms"], whole["counts"]
+    got = {k: torch.as_tensor(v) for k, v in res[0]["fields"].items()
+           if k in PATH_FIELDS}
+    diffs = {}
+    for name in PATH_FIELDS:
+        if not bool(torch.isfinite(got[name]).all()):
+            raise AssertionError(f"ranks {shape} {dtype_name}: {name} not "
+                                 "finite")
+        w = whole["fields"][name]
+        diffs[name] = float((got[name] - w).abs().max()) / (
+            float(w.abs().max()) or 1.0)
+    band = dict.fromkeys(diffs, RANKS_BAND64)
+    # a reading only: the float32 run's distance from float64
+    witness = None if dtype_name == "float64" else {
+        name: float((whole["fields"][name].double() - ref[name]).abs()
+                    .max()) / (float(ref[name].abs().max()) or 1.0)
+        for name in PATH_FIELDS}
+    broken = {k: v for k, v in diffs.items() if not v <= band[k]}
+    for r in res:
+        if r["iters"] != iters:
+            broken[f"iters_rank{r['rank']}"] = (r["iters"], iters)
+        bad = {k: (r["counts"][k], whole_counts[k])
+               for k in kernel_counters
+               if r["counts"][k] != whole_counts[k]}
+        if bad:
+            broken[f"launches_rank{r['rank']}"] = bad
+        for name, k in r["kernels"].items():
+            if not k["bitwise"] or (k["launches_halo"]
+                                    != k["launches_whole"]):
+                broken[f"{name}_rank{r['rank']}"] = k
+    comm = [r["comm"] for r in res]
+    emit({"phase": "ranks", "path": "prod_full", "dtype": dtype_name,
+          "backend": "gloo", "mesh": list(shape), "ranks": len(res),
+          "b4b": True, "blocks": [r["block"] for r in res],
+          "fold_ranks": [r["rank"] for r in res if r["fold"]],
+          "steps": nsteps, "solver_iters": iters,
+          "solver_iters_ranks": [r["iters"] for r in res],
+          "whole_step_ms": ms,
+          "step_ms_ranks": [r["step_ms"] for r in res],
+          "exchanges_per_step": [c["exchanges"] / nsteps for c in comm],
+          "allreduces_per_step": [c["allreduces"] / nsteps for c in comm],
+          "staged_bytes_per_step": [c["staged_bytes"] / nsteps
+                                    for c in comm],
+          "sent_bytes_per_step": [c["sent_bytes"] / nsteps for c in comm],
+          "launches_whole": {k: whole_counts[k] for k in kernel_counters},
+          "launches_fold_ranks": [r["counts"]["gm_flux_fold"] for r in res],
+          "rel_diff": diffs, "band": band,
+          "whole_float32_vs_float64": witness,
+          "kernels": [{"rank": r["rank"], **r["kernels"]} for r in res],
+          "batching_ab_ranks": [r["ab"] for r in res if r["ab"] is not None],
+          "peak_gb_ranks": [r["peak_gb"] for r in res],
+          "part_seconds_ranks": [r["part_seconds"] for r in res],
+          "spawn_seconds_both_dtypes": spawn_s})
+    if broken:
+        raise AssertionError(f"ranks {shape} {dtype_name}: the decomposed "
+                             f"run differs: {broken}")
 
 
 def ptxas_summary(log: str | None = None):

@@ -5,8 +5,8 @@ Reference: ``source/budget_diagnostics.F90`` — ``diag_for_tracer_budgets``
 volume, and the mean SSH/volume bookkeeping) and ``tracer_budgets`` (budget
 closure over an averaging interval: dV*T/dt against the accumulated surface
 flux, shortwave and ice terms). Each is a few whole-field reductions on the
-state's device; the results stay tensors. On a slab grid of a
-decomposition (``parallel.mesh``) the reductions run over every slab.
+state's device; the results stay tensors. On a block grid of a
+decomposition (``parallel.mesh``) the reductions run over every block.
 """
 
 from __future__ import annotations

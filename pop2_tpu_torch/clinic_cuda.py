@@ -183,9 +183,18 @@ def clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
 
     # vertical average of the forcing (fx/fy are zero below the bottom)
     dzc = thickness_u(cfg, grid)
-    zx = grid.HUR * torch.sum(fx * dzc, dim=0)
-    zy = grid.HUR * torch.sum(fy * dzc, dim=0)
+    zx = grid.HUR * _level_sum(fx * dzc)
+    zy = grid.HUR * _level_sum(fy * dzc)
     return fx, fy, zx, zy
+
+
+def _level_sum(x):
+    """x summed over its levels (dim 0) one level after another, as the
+    kernel's thread down its column: the same bits at every point of any
+    plane (torch.sum's order on the CPU depends on where a point lies in
+    the tensor, so a block's plane would round some points otherwise);
+    one call, the scan's last level."""
+    return torch.cumsum(x, 0)[-1]
 
 
 @pmesh.halo_wrapped(pmesh.HALO_MAX)
@@ -228,7 +237,7 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     zy = torch.empty_like(dhu)
     err = lib.pop2_clinic(
         cb.dtype_code(ucur), int(with_hdiffu(cfg)), km, ny, nx,
-        int(cfg.ew_boundary == "cyclic"), int(cfg.ns_boundary == "tripole"),
+        int(cfg.ew_boundary == "cyclic"), pmesh.kernel_fold(cfg, ny),
         rows, smem, ucur.data_ptr(), vcur.data_ptr(), uold.data_ptr(),
         vold.data_ptr(), umix.data_ptr(), vmixm.data_ptr(),
         rhoavg.data_ptr(), vvc.data_ptr(), g2d.data_ptr(),

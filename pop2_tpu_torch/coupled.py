@@ -58,7 +58,7 @@ def ocn_import(cfg: ModelConfig, grid: Grid, x2o: Dict[str, torch.Tensor],
     taux = get("taux") * const.MOMENTUM_FACTOR * r
     tauy = get("tauy") * const.MOMENTUM_FACTOR * r
     smft = torch.stack([taux, tauy])
-    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+    with pmesh.grid_scope(grid):  # on a block grid, the neighbours' halo
         smf = torch.stack([
             torch.where(grid.kmask_u[0],
                         tgrid_to_ugrid(taux, grid.AU0, grid.AUN, grid.AUE,
@@ -116,7 +116,7 @@ def ocn_export(cfg: ModelConfig, grid: Grid, state: State,
     (ocn_export :535-760): SST (K), SSS (psu), surface currents (m/s),
     surface-slope components, and the ice-formation heat flux."""
     bc = grid_bc(cfg)
-    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+    with pmesh.grid_scope(grid):  # on a block grid, the neighbours' halo
         u_t = ugrid_to_tgrid(state.u_cur[0], bc)
         v_t = ugrid_to_tgrid(state.v_cur[0], bc)
         dhdx = ugrid_to_tgrid(state.gradpx_cur, bc) / const.GRAV

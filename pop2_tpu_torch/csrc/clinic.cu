@@ -52,7 +52,8 @@
 // Closed edges read zero (copies of nothing, zero metrics); a cyclic edge
 // wraps inside the frame; the ragged last tiles are masked. On a tripole
 // grid (`fold`) the frame's north ghost row is copied from the folded
-// points (common.cuh `fold_point`), in other tiles: u, v, um, vm and DYU,
+// points (common.cuh `fold_point`, `fold` the rows through the fold's top
+// row), in other tiles: u, v, um, vm and DYU,
 // DXU as NE-corner fields, the density as a centre one; u and v are
 // vectors, so their ghost values flip sign where they are read (the a, b
 // fluxes of the ghost slots, the top row's north neighbour). The ghost
@@ -259,10 +260,10 @@ clinic_kernel(int km, int ny, int nx, int cyclic, int fold,
     }
   };
   // the tripole ghost row's south-face flux at column gi: the fold of vus
-  // as an E-face vector, -vus(ny - 1, nx - 2 - gi), from v and DXU of level
-  // L read where they lie
+  // as an E-face vector, -vus(fold - 1, nx - 2 - gi) (the fold's top row),
+  // from v and DXU of level L read where they lie
   auto vus_fold = [&](int L, int col) {
-    const int j = ny - 1, fi = col == nx - 1 ? nx - 1 : nx - 2 - col;
+    const int j = fold - 1, fi = col == nx - 1 ? nx - 1 : nx - 2 - col;
     const T dzl = dz[L];
     auto bat = [&](int jj, int ii) {
       if (ii < 0 || ii >= nx) {

@@ -6,6 +6,15 @@
 // north boundary (`fold`) maps the ghost rows past ny - 1 onto the top
 // physical rows, index-reversed (`fold_point`; vector fields also flip
 // their sign, which the kernels apply where they read such a value).
+// The `fold` argument is 0 on a closed north edge and otherwise the count of
+// rows through the fold's top row: ny on the whole domain, where the ghost
+// rows fold onto the plane's own top rows; on a top-row block of an x
+// decomposition (parallel/mesh.py `halo_call`) the plane's first `fold` rows
+// are a strip of the mirror block's top rows, in natural order, whose last
+// column is the mirror of the plane's first, and the ghost rows fold onto
+// them: the same index map with its rows counted from the strip's top.
+// The strip lies south of the domain then (`first_row`): a read past the
+// domain's south edge gets zero, as on the whole domain.
 // Every kernel but the transition-layer search (gm_tlt, a thread a column
 // that reads each value once) stages in shared memory with asynchronous
 // copies (`cp.async`) issued ahead of the arithmetic: thomas stages whole
@@ -31,16 +40,23 @@ namespace pop2 {
 // (tripole.py): T points, NE corners (U points), east and north faces.
 enum FoldLoc { kFoldCenter = 0, kFoldCorner, kFoldEface, kFoldNface };
 
-// The physical point (j, i) whose value the tripole ghost row ny - 1 + n
-// (n >= 1) holds at column gi (0 <= gi < nx) for a field at `loc`
+// The first row of the domain in a plane of ny rows: past the mirror strip
+// of a top-row block of an x decomposition (`fold` < ny), else 0.
+__device__ __forceinline__ int first_row(int fold, int ny) {
+  return fold > 0 && fold < ny ? fold : 0;
+}
+
+// The physical point (j, i) whose value the tripole ghost row n (n >= 1)
+// past the top row holds at column gi (0 <= gi < nx) for a field at `loc`
 // (mpi/POP_HaloMod.F90:1961-2050): centre and N-face fields reverse
 // i -> nx-1-i, corner and E-face fields i -> nx-2-i with nx-1 -> nx-1;
-// centre and E-face fields take row ny-n, corner and N-face row ny-1-n.
-__device__ __forceinline__ void fold_point(int loc, int n, int gi, int ny,
+// centre and E-face fields take row fny-n, corner and N-face row fny-1-n,
+// where fny is the `fold` argument (the rows through the fold's top row).
+__device__ __forceinline__ void fold_point(int loc, int n, int gi, int fny,
                                            int nx, int* j, int* i) {
   const bool row_below = loc == kFoldCorner || loc == kFoldNface;
   const bool shifted = loc == kFoldCorner || loc == kFoldEface;
-  *j = row_below ? ny - 1 - n : ny - n;
+  *j = row_below ? fny - 1 - n : fny - n;
   *i = shifted ? (gi == nx - 1 ? nx - 1 : nx - 2 - gi) : nx - 1 - gi;
 }
 
@@ -48,7 +64,7 @@ __device__ __forceinline__ void fold_point(int loc, int n, int gi, int ny,
 // An index that would leave the domain through a closed edge is clamped to
 // the column itself and flagged invalid; readers return zero for it. The
 // north neighbour is (jn, in): on a tripole grid the top row's north
-// neighbour is the fold of a centre field (row ny - 1, column nx - 1 - i).
+// neighbour is the fold of a centre field (row fold - 1, column nx - 1 - i).
 struct Column {
   int j, i;
   int jn, js, ie, iw, in;
@@ -56,15 +72,15 @@ struct Column {
 };
 
 // The column at (j, i), which must lie inside the domain; `fold`: the
-// north edge is a tripole fold.
+// north edge is a tripole fold (nonzero: the rows through its top row).
 __device__ __forceinline__ void locate_at(int ny, int nx, int cyclic, int j,
                                           int i, Column* c, int fold = 0) {
   c->j = j;
   c->i = i;
-  c->vs = j > 0;
+  c->vs = j > first_row(fold, ny);
   c->vn = j < ny - 1 || fold;
   c->js = c->vs ? j - 1 : j;
-  c->jn = j < ny - 1 ? j + 1 : j;
+  c->jn = j < ny - 1 ? j + 1 : (fold ? fold - 1 : j);
   c->in = (j < ny - 1 || !fold) ? i : nx - 1 - i;
   if (cyclic) {
     c->ve = c->vw = true;
@@ -137,31 +153,34 @@ struct Frame {
 // Where frame slot q (< plane(rows)) of the tile whose first interior
 // column is (y0, x0) lies: its frame row r and column c, and the offset of
 // its column in a level plane. False outside the domain: beyond a closed
-// edge, and beyond the north and south edges unless the north edge is a
-// tripole fold (`fold`): then the ghost rows gj = ny .. ny + HALO - 1 are
-// in, at the offset of the physical point the fold maps them to for a
-// field at `loc` (east-west wrap first, then the fold, as the ghost cells
-// are indexed), and `*folded` says so. A cyclic east-west edge wraps the
+// edge, and beyond the north and south edges (the south edge at `lo` or at
+// the fold's `first_row`) unless the north edge is a tripole fold (`fold`,
+// the rows through its top row): then the ghost rows
+// gj = ny .. ny + HALO - 1 are in, at the offset of the physical point the
+// fold maps them to for a field at `loc` (east-west wrap first, then the
+// fold, as the ghost cells are indexed), and `*folded` says so. A cyclic east-west edge wraps the
 // HALO columns past it.
 template <int HALO>
 __device__ __forceinline__ bool frame_slot(int q, int y0, int x0, int ny,
                                            int nx, int cyclic, int* r,
                                            int* c, int* off, int fold = 0,
                                            int loc = kFoldCenter,
-                                           bool* folded = nullptr) {
+                                           bool* folded = nullptr,
+                                           int lo = 0) {
   *r = q / Frame<HALO>::kPitch;
   *c = q - *r * Frame<HALO>::kPitch;
   int gj = y0 + *r - HALO;
   int gi = x0 + *c - HALO;
   const bool ghost = fold && gj >= ny && gj < ny + HALO;
-  bool in = gj >= 0 && (gj < ny || ghost);
+  const int row0 = lo > first_row(fold, ny) ? lo : first_row(fold, ny);
+  bool in = gj >= row0 && (gj < ny || ghost);
   if (cyclic) {
     in = in && gi >= -HALO && gi < nx + HALO;
     gi = gi < 0 ? gi + nx : (gi >= nx ? gi - nx : gi);
   } else {
     in = in && gi >= 0 && gi < nx;
   }
-  if (in && ghost) fold_point(loc, gj - ny + 1, gi, ny, nx, &gj, &gi);
+  if (in && ghost) fold_point(loc, gj - ny + 1, gi, fold, nx, &gj, &gi);
   if (folded) *folded = in && ghost;
   *off = in ? gj * nx + gi : 0;
   return in;

@@ -413,13 +413,14 @@ gm_chain_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
   const bool halo_y = threadIdx.y == 0 || threadIdx.y == blockDim.y - 1;
   const int i = cyclic ? (gi < 0 ? gi + nx : (gi >= nx ? gi - nx : gi)) : gi;
   const bool ghost = fold && gj == ny;
-  const bool valid = !(halo_x && halo_y) && gj >= 0 && (gj < ny || ghost) &&
+  const bool valid = !(halo_x && halo_y) && gj >= first_row(fold, ny) &&
+                     (gj < ny || ghost) &&
                      (cyclic ? gi >= -1 && gi <= nx : gi >= 0 && gi < nx);
   const bool interior = !halo_x && !halo_y && gi < nx && gj < ny;
   long off = 0;
   if (valid) {
     int fj = gj, fi = i;
-    if (ghost) fold_point(kFoldCenter, 1, i, ny, nx, &fj, &fi);
+    if (ghost) fold_point(kFoldCenter, 1, i, fold, nx, &fj, &fi);
     off = (long)fj * nx + fi;
   }
   const T eps = T(1.0e-10);

@@ -220,7 +220,7 @@ __device__ __forceinline__ int quarter_off(int face, int ps) {
 template <typename T, bool CANCEL, int NT, bool FOLD, bool ANISO>
 __global__ void __launch_bounds__(kFrameCols * flux_rows(NT),
                                   FluxOcc<T, CANCEL, NT, ANISO>::kMinBlocks)
-gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
+gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic, int fold,
                const T* __restrict__ tx, const T* __restrict__ ty,
                const T* __restrict__ tz, const T* __restrict__ slx,
                const T* __restrict__ sly, const T* __restrict__ sfx,
@@ -260,7 +260,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   {
     int r, c;
     own_in = frame_slot<1>(s, y0, x0, ny, nx, cyclic, &r, &c, &own_off,
-                           FOLD, kFoldCenter, &own_fold);
+                           FOLD ? fold : 0, kFoldCenter, &own_fold);
   }
   // The frame slots this thread copies; bit 0: inside the domain, bit 1:
   // tx (tile, W side), bit 2: ty (tile, S side), bit 3: tz (tile, N, S, E,
@@ -272,7 +272,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
     const int q = tid + j * C;
     int r = 0, c = 0, off = 0;
     const bool in = q < P && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r,
-                                           &c, &off, FOLD);
+                                           &c, &off, FOLD ? fold : 0);
     const bool row_in = r >= 1 && r <= ROWS;
     const bool col_in = c >= 1 && c <= kFrameCols;
     const bool fx = row_in && c <= kFrameCols;
@@ -310,7 +310,8 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
     int r, c, off = 0;
     bool folded = false;
     hin[j] = q >= 0 && frame_slot<1>(q, y0, x0, ny, nx, cyclic, &r, &c,
-                                     &off, FOLD, kFoldCenter, &folded);
+                                     &off, FOLD ? fold : 0, kFoldCenter,
+                                     &folded);
     hfold[j] = folded;
     hq[j] = q;
     hoff[j] = off;
@@ -345,7 +346,7 @@ gm_flux_kernel(int nt, int km, int ny, int nx, int cyclic,
   GmMetrics<T> m = {};
   if (live) {
     Column c;
-    locate_at(ny, nx, cyclic, gj, gi, &c, FOLD);
+    locate_at(ny, nx, cyclic, gj, gi, &c, FOLD ? fold : 0);
     m = load_metrics(make_stencil(c, nx), kmt, hyx, hxy, tarea_r);
   }
 
@@ -541,8 +542,8 @@ extern "C" int pop2_gm_flux_smem_values(int nt, int cancellation,
 // The rows of the tile for nt tracers (the planner's gm_cuda.tile_rows).
 extern "C" int pop2_gm_flux_tile_rows(int nt) { return pop2::flux_rows(nt); }
 
-// dtype: 0 = float32, 1 = float64; fold: the north edge is a tripole fold;
-// aniso: anisotropic diffusivities, kisop the x faces', kisy the y faces'
+// dtype: 0 = float32, 1 = float64; fold: the north edge is a tripole fold
+// (nonzero: the rows through its top row, common.cuh); aniso: anisotropic diffusivities, kisop the x faces', kisy the y faces'
 // (not read otherwise); rows: rows of the tile; smem: dynamic shared memory
 // a block, bytes.
 // Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
@@ -575,7 +576,8 @@ extern "C" int pop2_gm_flux(int dtype, int nt, int km, int ny, int nx,
         FluxInstance<T, CANCEL, NT, FOLD, ANISO>::prepare(smem);             \
     if (e != cudaSuccess) return (int)e;                                     \
     gm_flux_kernel<T, CANCEL, NT, FOLD, ANISO><<<grid, block, smem, s>>>(    \
-        nt, km, ny, nx, cyclic, (const T*)tx, (const T*)ty, (const T*)tz,    \
+        nt, km, ny, nx, cyclic, fold, (const T*)tx, (const T*)ty,            \
+        (const T*)tz,                                                        \
         (const T*)slx, (const T*)sly, (const T*)sfx, (const T*)sfy,          \
         (const T*)kisop, (const T*)kisy, (const T*)hd, kmt, (const T*)hyx,   \
         (const T*)hxy, (const T*)tarea_r, (const T*)lev, (T*)gtk, (T*)vdc);  \

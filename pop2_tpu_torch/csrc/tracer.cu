@@ -120,11 +120,13 @@ inline int tracer_smem_values_of(int ng, bool del2) {
               : TracerLayout<2, false, PBC>::kValues;
 }
 
-// Centered advection; FOLD: the north edge is a tripole fold; PBC: partial
-// bottom cells (kmu, dzbt, dzbu read, else not).
+// Centered advection; FOLD: the north edge is a tripole fold (`fold` the
+// rows through its top row, common.cuh); PBC: partial bottom cells (kmu,
+// dzbt, dzbu read, else not).
 template <typename T, int NT, bool DEL2, bool FOLD, bool PBC>
 __global__ void __launch_bounds__(kThreadsTile, TracerOcc<T>::kMinBlocks)
-tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
+tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int fold,
+              int varthick,
               const T* __restrict__ u, const T* __restrict__ v,
               const T* __restrict__ trcr, const T* __restrict__ tmix,
               const T* __restrict__ told, const T* __restrict__ vdc,
@@ -170,7 +172,8 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
     const int q = tid + j * kThreadsTile;
     int r = 0, c = 0, off = 0;
     const bool in = q < P && frame_slot<kHalo>(q, y0, x0, ny, nx, cyclic,
-                                               &r, &c, &off, FOLD);
+                                               &r, &c, &off,
+                                               FOLD ? fold : 0);
     const bool row_in = r >= kHalo && r < kRows + kHalo;
     const bool col_in = c >= kHalo && c < kFrameCols + kHalo;
     const bool uv = r >= kHalo - 1 && r < kRows + kHalo && c >= kHalo - 1 &&
@@ -278,7 +281,7 @@ tracer_kernel(int n0, int km, int ny, int nx, int cyclic, int varthick,
   T dzbr = T(1), dzb2r = T(1), dzwr_b = T(1);
   if (live) {
     Column c;
-    locate_at(ny, nx, cyclic, gj, gi, &c, FOLD);
+    locate_at(ny, nx, cyclic, gj, gi, &c, FOLD ? fold : 0);
     kmt_c = kmt[oc];
     if (PBC) {
       const T dzb = dzbt[oc];
@@ -603,7 +606,8 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
       const int rr = q / FW, cc = q - rr * FW;
       int r = 0, c = 0, off = 0;
       const bool in = frame_slot<1>(rr * Frame<1>::kPitch + cc, y0, x0, ny,
-                                    nx, cyclic, &r, &c, &off);
+                                    nx, cyclic, &r, &c, &off, 0, kFoldCenter,
+                                    nullptr, first_row(fold, ny));
       uoff[j] = in ? off : -1;
       met[q] = in ? dyu[off] : T(0);
       met[F + q] = in ? dxu[off] : T(0);
@@ -622,7 +626,8 @@ tracer_upw_kernel(int km, int ny, int nx, int cyclic, int fold, int varthick,
     const int q1 = h_south ? tid + 1
                            : (tid - kFrameCols + 1) * Frame<1>::kPitch;
     const bool in =
-        frame_slot<1>(q1, y0, x0, ny, nx, cyclic, &r, &c, &off);
+        frame_slot<1>(q1, y0, x0, ny, nx, cyclic, &r, &c, &off, 0,
+                      kFoldCenter, nullptr, first_row(fold, ny));
     const int p0 = h_south ? kUpwCoef : 0;  // north- or east-face planes
 #pragma unroll
     for (int q = 0; q < kUpwCoef; ++q)
@@ -1016,7 +1021,7 @@ extern "C" int pop2_tracer_max_group() { return pop2::kMaxGroup; }
 // vertical-diffusion instance (tmix and ah are then not read). One launch
 // computes the ng tracers n0 .. n0+ng-1 of nt (the pointers are those of
 // all nt); cyclic: the east-west edge wraps; fold: the north edge is a
-// tripole fold; upwind3: QUICKEST advection (upw: its 12 horizontal
+// tripole fold (nonzero: the rows through its top row, common.cuh); upwind3: QUICKEST advection (upw: its 12 horizontal
 // coefficient planes; lev: its level table (km, 11) of dz, dzr, dz2r,
 // dzwr2, the 6 vertical coefficients and 1/dz rounded once, read in place
 // of dz .. dzwr2;
@@ -1057,7 +1062,7 @@ extern "C" int pop2_tracer(int dtype, int with_del2, int nt, int n0, int ng,
         TracerInstance<T, NT, DEL2, FOLD, PBC>::prepare(smem);               \
     if (e != cudaSuccess) return (int)e;                                     \
     tracer_kernel<T, NT, DEL2, FOLD, PBC><<<grid, block, smem, s>>>(         \
-        n0, km, ny, nx, cyclic, varthick, (const T*)u, (const T*)v,          \
+        n0, km, ny, nx, cyclic, fold, varthick, (const T*)u, (const T*)v,    \
         (const T*)trcr, (const T*)tmix, (const T*)told, (const T*)vdc,       \
         (const T*)stf, (const T*)dh, kmt, (const T*)dyu, (const T*)dxu,      \
         (const T*)tarea_r, (const T*)dtn, (const T*)dts, (const T*)dte,      \

@@ -14,8 +14,8 @@ read their scalars to the host with ``float()``, the fields
 ``global_diagnostics`` is its own formula (SSH weighted by the ocean
 area, the salinity in psu), not ``Model.diagnostics``.
 
-On a slab grid of a decomposition (``parallel.mesh``) the means, maxima,
-CFL numbers and the binned transports reduce over every slab, so every
+On a block grid of a decomposition (``parallel.mesh``) the means, maxima,
+CFL numbers and the binned transports reduce over every block, so every
 rank reads the whole domain's values; a section's transport (its bounds
 are global indices) and the streamfunction (a sum along y) are ROADMAP.md
 Queue 1 item 12b there and raise.
@@ -40,7 +40,7 @@ def _whole_domain_only(grid: Grid, what: str) -> None:
     d = pmesh.of_grid(grid)
     if d is not None and d.comm is not None:
         raise NotImplementedError(
-            f"{what} on a slab of a decomposition is not ported yet "
+            f"{what} on a block of a decomposition is not ported yet "
             "(ROADMAP.md Queue 1 item 12b)")
 
 
@@ -138,10 +138,18 @@ def zonal_transport(cfg: ModelConfig, grid: Grid, state: State,
     (diag_transport, source/diagnostics.F90:2010-2260 simplified to full
     meridional sections)."""
     dz = grid.vgrid.dz.reshape(-1, 1)
-    u = state.u_cur[:, :, i_index]
-    hte_like = grid.DYU[:, i_index]
-    mask = grid.kmask_u[:, :, i_index]
-    tr = torch.sum(torch.where(mask, u * dz * hte_like[None, :], 0.0))
+    d = pmesh.of_grid(grid)
+    i = i_index
+    if d is not None and d.comm is not None:  # the block's own column
+        i = i_index - d.i0 if d.i0 <= i_index < d.i1 else None
+    if i is None:
+        tr = torch.zeros((), dtype=state.u_cur.dtype,
+                         device=state.u_cur.device)
+    else:
+        u = state.u_cur[:, :, i]
+        hte_like = grid.DYU[:, i]
+        mask = grid.kmask_u[:, :, i]
+        tr = torch.sum(torch.where(mask, u * dz * hte_like[None, :], 0.0))
     with pmesh.grid_scope(grid):
         tr = slab_total(tr)
     return float(tr) * 1.0e-12  # cm^3/s -> Sv

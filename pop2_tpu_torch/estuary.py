@@ -46,7 +46,7 @@ def river_vsf(cfg: ModelConfig, grid: Grid, roff_f, s_surface):
         * const.SALT_TO_PPT * r
     # reference-salinity flux (the standard salinity_factor form)
     flux_ref = roff_f * const.SALINITY_FACTOR * r
-    with pmesh.grid_scope(grid):  # on a slab grid, over every slab
+    with pmesh.grid_scope(grid):  # on a block grid, over every block
         correction = global_sum((flux_ref - flux_loc) * grid.TAREA * r,
                                 b4b=cfg.b4b) / grid.area_t
     return flux_loc + correction * r

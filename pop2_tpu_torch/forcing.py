@@ -140,7 +140,7 @@ def file_wind_stress(cfg: ModelConfig, grid: Grid, base: Forcing,
     taux = cx.at(thour) * grid.RCALCU
     tauy = cy.at(thour) * grid.RCALCU
     bc = grid_bc(cfg)
-    with pmesh.grid_scope(grid):  # on a slab grid, the neighbours' rows
+    with pmesh.grid_scope(grid):  # on a block grid, the neighbours' halo
         smft = torch.stack([ugrid_to_tgrid(taux, bc) * grid.RCALCT,
                             ugrid_to_tgrid(tauy, bc) * grid.RCALCT])
     dt = base.smf.dtype

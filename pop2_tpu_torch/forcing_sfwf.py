@@ -15,9 +15,9 @@ change in volume-averaged salinity and mean SSH, and nudges ``precip_fact``
 so the net surface freshwater budget closes.
 
 The two global sums of the bulk formulation go through
-``reductions.global_sum`` and stay on the device. On a slab grid of a
+``reductions.global_sum`` and stay on the device. On a block grid of a
 decomposition (``parallel.mesh``) they, and the accumulator's host sums,
-run over every slab.
+run over every block.
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ def _host(t) -> np.ndarray:
 
 
 def _over_slabs(grid: Grid, a) -> np.ndarray:
-    """The float64 partial sums ``a`` summed over the slabs of ``grid``'s
+    """The float64 partial sums ``a`` summed over the blocks of ``grid``'s
     decomposition (``a`` itself on the whole domain)."""
     with pmesh.grid_scope(grid):
         t = slab_total(torch.as_tensor(np.asarray(a, dtype=np.float64),
@@ -180,7 +180,7 @@ class PrecipBalance:
         km = dz.shape[0]
         k3 = np.arange(1, km + 1)[:, None, None]
         mask3 = k3 <= kmt[None]
-        # [area (cm^2), the volume of each level (cm^3)], over every slab
+        # [area (cm^2), the volume of each level (cm^3)], over every block
         sums = _over_slabs(grid, np.concatenate([
             [(area * mask).sum()],
             (area[None] * mask3 * dz[:, None, None]).sum(axis=(1, 2))]))

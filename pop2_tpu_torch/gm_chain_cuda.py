@@ -253,7 +253,7 @@ def launch_args(cfg, grid, tmix, slp, sla, kv, tlt, gtk, vdc=None,
         cfg.gm_ah_bkg_bottom)
     head = (cb.dtype_code(tmix), nt, km, ny, nx,
             int(cfg.ew_boundary == "cyclic"),
-            int(cfg.ns_boundary == "tripole"),
+            pmesh.kernel_fold(cfg, ny),
             kernel_flags(cfg, diags is not None, sm is not None),
             int(bool(cfg.gm_use_const_ah_bkg_srfbl)))
 

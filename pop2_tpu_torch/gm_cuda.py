@@ -308,7 +308,7 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
         err = lib.pop2_gm_flux(
             cb.dtype_code(tx), n, km, ny, nx,
             int(cfg.ew_boundary == "cyclic"),
-            int(cfg.ns_boundary == "tripole"), int(bool(cancellation)),
+            pmesh.kernel_fold(cfg, ny), int(bool(cancellation)),
             int(aniso), rows, smem, tx[n0].data_ptr(), ty[n0].data_ptr(),
             tz[n0].data_ptr(), slx.data_ptr(), sly.data_ptr(),
             sf_slx.data_ptr(), sf_sly.data_ptr(), kisop.data_ptr(),

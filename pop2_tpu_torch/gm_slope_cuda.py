@@ -170,7 +170,7 @@ def slopes(cfg, grid, bc, ts_range, tmix):
     n2 = torch.empty((km, ny, nx), dtype=dt, device=dev)
     err = lib.pop2_gm_slopes(
         cb.dtype_code(tmix), km, ny, nx, int(cfg.ew_boundary == "cyclic"),
-        int(cfg.ns_boundary == "tripole"), rows, smem, float(const.GRAV),
+        pmesh.kernel_fold(cfg, ny), rows, smem, float(const.GRAV),
         coef.data_ptr(), tmix.data_ptr(),
         grid.KMT.data_ptr(), grid.DXT.data_ptr(), grid.DYT.data_ptr(),
         slp.data_ptr(), sla.data_ptr(), n2.data_ptr(), cb.stream_ptr())

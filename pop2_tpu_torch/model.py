@@ -34,13 +34,14 @@ stream is written (and reset) on the host after the step that fills it.
 without one gets an error, not a silent CPU run. ``Model(cfg, device="cpu")``
 runs the same code with the kernels' plain PyTorch versions.
 
-Under ``mesh_shape = (py, 1)`` (``parallel.mesh``) the model is one rank's y
-slab: it is built on the whole domain as above (the grid and its host
+Under ``mesh_shape = (py, px)`` (``parallel.mesh``) the model is one rank's
+block: it is built on the whole domain as above (the grid and its host
 precomputations, KPP's statics, the preconditioner, PCSI's bounds and
 table), rank 0's set-up scalars are broadcast so every rank holds the same
-bits, and then every horizontal field is cut to the slab (``_decompose``).
-``advance`` runs the step with the decomposition in scope: north-south
-shifts and the kernels take halo rows from the neighbouring slabs, global
+bits, and then every horizontal field is cut to the block (``_decompose``).
+``advance`` runs the step with the decomposition in scope: shifts and the
+kernels take halo rows and columns from the neighbouring blocks (the
+tripole fold's from the mirror block), global
 sums are reduced over the ranks, and ``diagnostics`` reduces globally, so
 every rank decides alike. ``run_compiled``, the output streams and the
 coupler cap under a decomposition are ROADMAP.md Queue 1 item 12b.
@@ -70,7 +71,7 @@ from pop2_tpu_torch.time_management import TimeManager
 
 class Model:
     """Standalone ocean model instance on one device: the whole domain, or
-    under ``mesh_shape = (py, 1)`` this rank's y slab of it (``mesh``: the
+    under ``mesh_shape = (py, px)`` this rank's block of it (``mesh``: the
     ``parallel.mesh.Decomposition``; default: the process group's, from
     ``parallel.multihost.global_mesh``)."""
 
@@ -172,20 +173,21 @@ class Model:
                 self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
                     emin, emax, solvers.pcsi_table(
                         cfg, emin, emax, op.center.dtype, device))
-        # the model of the whole domain, or of this rank's slab
+        # the model of the whole domain, or of this rank's block
         self.step_cfg = cfg
         self._state0 = None
         if mesh is not None:
             self._decompose(mesh)
 
     def _decompose(self, mesh: pmesh.Decomposition) -> None:
-        """Cut the whole-domain model to ``mesh``'s slab: rank 0's residual
+        """Cut the whole-domain model to ``mesh``'s block: rank 0's residual
         norm and PCSI bounds broadcast (every rank's solve then stops at
         the same iteration), the initial state made on the whole grid, and
         every horizontal field of the grid, the forcing, the statics and
-        the preconditioner cut to the slab's rows. The step sees the slab's
-        config, ny its rows (the north edge stays the whole domain's: the
-        stencil and the fold ask the decomposition where the edge is)."""
+        the preconditioner cut to the block. The step sees the block's
+        config, ny and nx its rows and columns (the edges stay the whole
+        domain's: the stencil and the fold ask the decomposition where an
+        edge is)."""
         cfg = self.cfg
         if mesh.ny != cfg.ny or mesh.nx != cfg.nx:
             raise ValueError(f"mesh of {mesh.ny}x{mesh.nx} for a "
@@ -204,16 +206,16 @@ class Model:
                 self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
                     emin, emax, solvers.pcsi_table(
                         cfg, emin, emax, table.dtype, table.device))
-        # the slab grid carries its decomposition, so what a caller gives
+        # the block grid carries its decomposition, so what a caller gives
         # it outside a step (the forcing's builders, the diagnostics)
-        # reduces over every slab (``parallel.mesh.grid_scope``)
+        # reduces over every block (``parallel.mesh.grid_scope``)
         self.grid = pmesh.attach(mesh.slab(self.grid), mesh)
         self.grid.__dict__["_residual_norm_host"] = scalars[0]
         self.forcing = mesh.slab(self.forcing)
         self.precond = mesh.slab(self.precond)
         self.kpp_statics = mesh.slab(self.kpp_statics)
         self.sw_profile = mesh.slab(self.sw_profile)
-        self.step_cfg = cfg.with_(ny=mesh.rows)
+        self.step_cfg = pmesh.block_cfg(cfg, mesh.rows, mesh.cols)
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
     def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
@@ -238,7 +240,7 @@ class Model:
     def initial_state(self) -> State:
         self.nsteps_total = 0
         self.time_manager.reset()
-        if self._state0 is not None:  # the slab of the whole domain's
+        if self._state0 is not None:  # the block of the whole domain's
             return self._state0
         return initial_state(self.cfg, self.grid, self.device,
                              passive=self.passive)

@@ -8,10 +8,10 @@ fractions) in the adjacent open ocean, so both the marginal sea and the
 global budget stay balanced. Regions are static masks here (the reference
 derives them from REGION_MASK and a distribution-point list), built on the
 host once (``build_region``) and kept on the device; each step's balancing
-is a global sum a region. On a slab grid of a decomposition
+is a global sum a region. On a block grid of a decomposition
 (``parallel.mesh``) a region is built on the whole domain (its points are
-global (j, i)) and cut to the slab, and the balancing's sums run over every
-slab."""
+global (j, i)) and cut to the block, and the balancing's sums run over every
+block."""
 
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ def build_region(grid: Grid, ms_mask, dist_points: Sequence[Tuple[int,
     """dist_points: list of (j, i) open-ocean points; fractions are
     proportional to their cell areas (init_ms_balance :40-335). Host
     NumPy in float64, the region's tensors in the grid's dtype on its
-    device. On a slab grid ``ms_mask`` is the whole domain's or the
-    slab's."""
+    device. On a block grid ``ms_mask`` is the whole domain's or the
+    block's."""
     like = grid.TAREA
     d = pmesh.of_grid(grid)
 

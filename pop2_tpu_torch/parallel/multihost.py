@@ -1,20 +1,21 @@
-"""Ranks: the process group, whole fields to and from slabs, and
+"""Ranks: the process group, whole fields to and from blocks, and
 ``spawn_ranks``.
 
 Counterpart of the JAX package's ``parallel/multihost.py``: where JAX
 brings up one process per host and assembles global arrays from
-process-local data, the port runs one process per y slab
-(``mesh.Decomposition``) over ``torch.distributed``, and a rank's slab of a
-field is its share of the global array.
+process-local data, the port runs one process per block of a (py, px)
+mesh (``mesh.Decomposition``) over ``torch.distributed``, and a rank's
+block of a field is its share of the global array.
 
 * ``initialize_distributed``: ``init_process_group`` with the address
   (``file://`` or ``tcp://localhost:<port>``), world size, rank and
   backend given, and the rank's device set (a card a rank under NCCL).
   The caller chooses the backend; nothing switches it: ``nccl`` where each
   rank has a card of its own, ``gloo`` where ranks run on the CPU or share
-  one card (NCCL refuses two ranks on one device).
+  one card (NCCL refuses two ranks on one device). A rank's fields live on
+  the card unless ``device='cpu'`` is asked for, as the tests do.
 * ``global_mesh``, ``make_global_array`` (a whole field scattered to the
-  ranks' slabs), ``to_host_replicated`` (the slabs gathered into a whole
+  ranks' blocks), ``to_host_replicated`` (the blocks gathered into a whole
   NumPy field on every rank) and ``process_local_slice``.
 * ``spawn_ranks``: a function run in ``world_size`` fresh processes joined
   by a ``file://`` store in a temporary directory (never a fixed TCP port),
@@ -43,7 +44,7 @@ _DEVICE: Optional[torch.device] = None
 
 
 def initialize_distributed(init_method: str, world_size: int, rank: int,
-                           backend: str = "gloo", device="cpu") -> int:
+                           backend: str = "gloo", device="cuda") -> int:
     """Join the process group (idempotent: returns the rank). ``device``:
     where this rank's fields live, 'cpu' or 'cuda'; under NCCL rank r takes
     card r, under gloo every rank the current card."""
@@ -76,21 +77,29 @@ def local_device() -> torch.device:
     return _DEVICE
 
 
+def default_device() -> torch.device:
+    """Where a rank's fields go unless a caller names a device: the device
+    ``initialize_distributed`` gave the rank, else the card."""
+    return _DEVICE or torch.device("cuda")
+
+
 def global_mesh(cfg) -> Decomposition:
-    """This rank's slab of ``cfg`` on ``cfg.mesh_shape`` over the process
+    """This rank's block of ``cfg`` on ``cfg.mesh_shape`` over the process
     group (the JAX package's mesh over the global device list)."""
     return make_mesh(cfg.mesh_shape, cfg.ny, cfg.nx,
-                     tripole=cfg.ns_boundary == "tripole")
+                     tripole=cfg.ns_boundary == "tripole",
+                     cyclic=cfg.ew_boundary == "cyclic")
 
 
 def make_global_array(data, mesh: Decomposition, src: int = 0,
                       device=None):
-    """This rank's slab of a whole field (the reference's scatter_global,
+    """This rank's block of a whole field (the reference's scatter_global,
     mpi/gather_scatter.F90:1348): rank ``src`` holds ``data`` (NumPy or a
-    tensor; the other ranks pass None) and sends every rank its rows."""
+    tensor; the other ranks pass None) and sends every rank its block. On
+    ``device``, by default the one ``initialize_distributed`` gave the rank
+    (the card where none was given)."""
     import torch.distributed as dist
-    device = torch.device(device) if device is not None else (
-        _DEVICE or torch.device("cpu"))
+    device = torch.device(device) if device is not None else default_device()
     if mesh.comm is None:
         return torch.as_tensor(data).to(device)
     if mesh.rank == src:
@@ -100,33 +109,35 @@ def make_global_array(data, mesh: Decomposition, src: int = 0,
         meta = [None, None]
     dist.broadcast_object_list(meta, src=src)
     shape, dtype = meta
-    rows = shape[:-2] + (mesh.rows, shape[-1])
+    block = shape[:-2] + (mesh.rows, mesh.cols)
     # NCCL moves device tensors, gloo host tensors
     wire = device if mesh.comm.backend == "nccl" else torch.device("cpu")
     parts = None
     if mesh.rank == src:
-        parts = [whole.narrow(-2, r * mesh.rows, mesh.rows).contiguous()
-                 .to(wire) for r in range(mesh.py)]
-    out = torch.empty(rows, dtype=dtype, device=wire)
+        parts = [mesh.block(r).slab(whole).contiguous().to(wire)
+                 for r in range(mesh.py * mesh.px)]
+    out = torch.empty(block, dtype=dtype, device=wire)
     dist.scatter(out, parts, src=src)
     return out.to(device)
 
 
 def to_host_replicated(t, mesh: Decomposition) -> np.ndarray:
-    """The slabs of ``t`` gathered into the whole NumPy field on every rank
-    (gather_global, mpi/gather_scatter.F90:74, with every rank receiving
-    it; a tensor without horizontal axes comes back as it is)."""
-    if mesh.comm is None or not mesh.is_field(t, mesh.rows):
+    """The blocks of ``t`` gathered into the whole NumPy field on every
+    rank (gather_global, mpi/gather_scatter.F90:74, with every rank
+    receiving it; a tensor without horizontal axes comes back as it is)."""
+    if mesh.comm is None or not mesh.is_block(t):
         return t.detach().cpu().numpy()
-    parts = mesh.comm.all_gather(t.detach())
-    return torch.cat([p.cpu() for p in parts], dim=-2).numpy()
+    parts = [p.cpu() for p in mesh.comm.all_gather(t.detach())]
+    rows = [torch.cat(parts[ry * mesh.px:(ry + 1) * mesh.px], dim=-1)
+            for ry in range(mesh.py)]
+    return torch.cat(rows, dim=-2).numpy()
 
 
 def process_local_slice(global_shape, mesh: Decomposition):
-    """The index slab of a whole field of ``global_shape`` that this rank
-    holds: each rank reads only its rows of a file."""
+    """The index block of a whole field of ``global_shape`` that this rank
+    holds: each rank reads only its rows and columns of a file."""
     lead = (slice(None),) * (len(global_shape) - 2)
-    return lead + (slice(mesh.j0, mesh.j1), slice(0, global_shape[-1]))
+    return lead + (slice(mesh.j0, mesh.j1), slice(mesh.i0, mesh.i1))
 
 
 _CHILD = """
@@ -155,12 +166,13 @@ def _child(tmp: str, rank: int, world: int, backend: str, device: str):
     dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cpu",
+def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cuda",
                 args=(), kwargs=None, timeout: float = 900.0,
                 threads: int = 1):
     """``fn(*args, **kwargs)`` in ``world_size`` fresh processes, each a
     rank of one process group (``initialize_distributed`` on a
-    ``file://`` store in a temporary directory) on ``device``, with
+    ``file://`` store in a temporary directory) on ``device`` (the card
+    unless 'cpu' is asked for), with
     ``threads`` intra-op threads. ``fn`` is named by its module and
     qualified name, so it must be importable (the processes see this
     package and ``fn``'s module's directory); arguments and results are

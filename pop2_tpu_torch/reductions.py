@@ -9,10 +9,10 @@ maximum; the int64 sums of the limbs are exact, so they have the same bits
 in any order, and the fixed three-term float combine comes after them. The
 scale here is formed from ``frexp`` (the same power of two as the JAX
 package's floor(log2) + 1, without the logarithm's rounding), so a sum has
-the same bits on 1, 2 or 4 slabs and on the CPU or the card. Values below
+the same bits on any decomposition and on the CPU or the card. Values below
 max * 2^-90 are dropped, far below one float64 ulp of the largest element.
 
-Under a decomposition (``parallel.mesh.scope``) a sum is the slab's local
+Under a decomposition (``parallel.mesh.scope``) a sum is the block's local
 sum and an all-reduce: for ``b4b`` an all-reduce MAX of the absmax, then an
 int64 all-reduce SUM of the three limb sums (the combine after both);
 otherwise the local ``torch.sum`` and a float all-reduce SUM. Every rank
@@ -48,7 +48,7 @@ def _axes(x, axis):
 
 def _b4b_sum(x, axes, d=None):
     """Order-independent fixed-point sum of ``x`` over ``axes``; with a
-    decomposition ``d`` over every slab."""
+    decomposition ``d`` over every block."""
     absmax = torch.max(torch.abs(x))  # max is exact in any order
     if d is not None:
         absmax = d.comm.all_reduce(absmax, "max")
@@ -95,7 +95,7 @@ def global_sum(x, b4b: bool = False, axis=None):
 
 
 def global_max(x):
-    """The largest value of ``x`` over every slab (exact in any order)."""
+    """The largest value of ``x`` over every block (exact in any order)."""
     out = torch.max(x)
     d = _decomp()
     if d is not None:
@@ -104,7 +104,7 @@ def global_max(x):
 
 
 def slab_total(t):
-    """``t``, this slab's partial sums (of any shape), summed over every
-    slab; ``t`` itself on the whole domain."""
+    """``t``, this block's partial sums (of any shape), summed over every
+    block; ``t`` itself on the whole domain."""
     d = _decomp()
     return d.comm.all_reduce(t, "sum") if d is not None else t

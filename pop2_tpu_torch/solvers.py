@@ -40,8 +40,10 @@ import torch
 
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid
+from pop2_tpu_torch.parallel import mesh as _mesh
 from pop2_tpu_torch.reductions import global_sum
 from pop2_tpu_torch.stencil import BC
+from pop2_tpu_torch.tripole import folded
 
 
 class BtropOperator(NamedTuple):
@@ -80,10 +82,10 @@ def apply_op(op: BtropOperator, x, bc: BC, shifted=None):
     ``shifted`` takes the precomputed ``_shifted_weights`` so a solver loop
     shifts the weights once instead of at every application."""
     w_s, w_w, w_se, w_nw, w_sw = shifted or _shifted_weights(op, bc)
-    rows, = bc.halo([x])  # the y shifts' rows in one exchange
+    rows, = bc.halo([x])  # the shifts' halo in one exchange
     return (op.center * x
             + op.north * bc.n(x, rows=rows) + w_s * bc.s(x, rows=rows)
-            + op.east * bc.e(x) + w_w * bc.w(x)
+            + op.east * bc.e(x, rows=rows) + w_w * bc.w(x, rows=rows)
             + op.ne * bc.ne(x, rows=rows) + w_se * bc.se(x, rows=rows)
             + w_nw * bc.nw(x, rows=rows) + w_sw * bc.sw(x, rows=rows))
 
@@ -147,10 +149,10 @@ def load_precond(path: str, dtype, device="cuda") -> Precond9:
 def precond9_apply(p: Precond9, bc: BC):
     """Closure z = M r of a 9-point stencil."""
     def apply9(r):
-        rows, = bc.halo([r])  # the y shifts' rows in one exchange
+        rows, = bc.halo([r])  # the shifts' halo in one exchange
         return (p.center * r
                 + p.north * bc.n(r, rows=rows) + p.south * bc.s(r, rows=rows)
-                + p.east * bc.e(r) + p.west * bc.w(r)
+                + p.east * bc.e(r, rows=rows) + p.west * bc.w(r, rows=rows)
                 + p.ne * bc.ne(r, rows=rows) + p.nw * bc.nw(r, rows=rows)
                 + p.se * bc.se(r, rows=rows) + p.sw * bc.sw(r, rows=rows))
     return apply9
@@ -169,7 +171,6 @@ _REV_FIELD = {"center": "center", "north": "south", "south": "north",
               "nw": "se", "se": "nw"}
 _SHIFT_OF_FIELD = {"north": "n", "south": "s", "east": "e", "west": "w",
                    "ne": "ne", "nw": "nw", "se": "se", "sw": "sw"}
-_Y_SHIFTED = {f_ for f_, o in _SHIFT_OF_FIELD.items() if o not in ("e", "w")}
 
 
 def _row_stencils(op: BtropOperator, sh):
@@ -338,21 +339,32 @@ def fspai_apply(p: FSPAI9, bc: BC):
     def bsh(f, name, rows=None):
         if name == "center":
             return f
-        op = _SHIFT_OF_FIELD[name]
-        if op in ("e", "w"):
-            return getattr(bc, op)(f)
-        return getattr(bc, op)(f, rows=rows)
+        return getattr(bc, _SHIFT_OF_FIELD[name])(f, rows=rows)
+
+    shifted = [f_ for f_ in FSPAI9._fields if f_ != "center"]
 
     def apply(r):
-        rr, = bc.halo([r])  # each pass's y shifts' rows in one exchange
+        rr, = bc.halo([r])  # each pass's shifts' halo in one exchange
         gr = sum(getattr(p, f_) * bsh(r, f_, rr) for f_ in FSPAI9._fields)
         # (G^T v)[q] = sum_o G[q+o, q] v[q+o] = sum_o bsh_o(G_rev(o) * v)
-        prods = [getattr(p, _REV_FIELD[f_]) * gr for f_ in FSPAI9._fields]
-        rows = bc.halo([v if f_ in _Y_SHIFTED else None
-                        for f_, v in zip(FSPAI9._fields, prods)])
-        gtv = sum(bsh(v, f_, rw)
-                  for f_, v, rw in zip(FSPAI9._fields, prods, rows))
-        return -gtv
+        hg, = bc.halo([gr])
+        d = _mesh.active()
+        if hg is None:  # the whole domain, or each shift fetching its own
+            prods = [getattr(p, _REV_FIELD[f_]) * gr
+                     for f_ in FSPAI9._fields]
+            return -sum(bsh(v, f_) for f_, v in zip(FSPAI9._fields, prods))
+        # on a block the products past its edges are formed from gr's halo
+        # and the weights' (fetched once): one field travels, not eight,
+        # and each product has the bits its owner's would
+        hw = d.static_halo([getattr(p, _REV_FIELD[f_]) for f_ in shifted])
+        ext = dict(zip(shifted, hw))
+        g = folded(hg)
+
+        def term(f_):
+            if f_ == "center":
+                return p.center * gr
+            return bsh(gr, f_, _mesh.Halo(folded(ext[f_]) * g, 1, None))
+        return -sum(term(f_) for f_ in FSPAI9._fields)
     return apply
 
 

@@ -13,13 +13,17 @@ the U-point ``[j, i]`` is the NE corner of T-cell ``[j, i]`` (Arakawa B-grid).
 Operators: 4-point divergence/gradient/curl (source/operators.F90:49,126,199),
 T<->U-grid area-weighted averaging (source/grid.F90:3297-3420).
 
-Under a decomposition (``parallel.mesh.scope``) a field is a y slab: a
-north-south shift takes its missing rows from the neighbouring slab, one
-exchange a shift (``Decomposition.halo_rows``; ``BC.halo`` fetches the
-rows of several shifts in one), and every rank joins every exchange, so
-even the slabs at the global edges call it. The global south
-edge and a closed north edge keep their zeros; the fold fills the north
-ghost rows on the top slab only. East-west shifts are unchanged.
+Under a decomposition (``parallel.mesh.scope``) a field is a block: a
+shift takes what lies past the block's edges from its neighbours: alone,
+only the rows and columns it reads (``tripole.window``, one exchange a
+shift); ``BC.halo`` fetches the halo (``Decomposition.halo``: rows,
+columns and corners) of several fields in one, handed to the shifts as
+``rows=``. Every rank joins every exchange, so even the
+blocks at the global edges call it. The global south edge and a closed
+north or east-west edge keep their zeros, a cyclic one wraps through the
+ranks, and the fold fills the north ghost rows on the top row of blocks
+from the mirror block's rows. On a (py, 1) mesh an east-west shift stays
+local (the block holds every column).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch.parallel import mesh as _mesh
-from pop2_tpu_torch.tripole import fold_rows, shift_n_tripole
+from pop2_tpu_torch.tripole import (fold_rows, folded, shift_n_tripole,
+                                   window)
 
 __all__ = [
     "shift_e", "shift_w", "shift_n", "shift_s",
@@ -36,75 +41,69 @@ __all__ = [
 ]
 
 
+def _decomposed():
+    """The active decomposition over ranks, or None."""
+    d = _mesh.active()
+    return d if d is not None and d.comm is not None else None
+
+
+def _block_shift(f, dj: int, di: int, rows=None, fold=None, partner=None):
+    """f[j + dj, i + di] on the active block, from its halo (``rows``, a
+    ``mesh.Halo`` of f, where given, else the shift's window fetched now,
+    ``tripole.window``); ``fold``, (loc, kind): the fold's ghost rows past
+    the global north edge of a northward shift (from ``partner``'s strip
+    where given)."""
+    if rows is None:
+        return window(f, dj, di, fold)
+    x = (folded(rows, *fold, partner=partner)
+         if fold is not None and dj > 0 else rows.ext)
+    dep = rows.depth
+    return x[..., dep + dj:dep + dj + f.shape[-2],
+             dep + di:dep + di + f.shape[-1]]
+
+
 def _shift(f, sign: int, dim: int, bc: str, rows=None):
     """Value at index+sign along ``dim``; zeros enter at a closed edge.
-    ``rows``: ``BC.halo``'s pair for ``f`` (a y shift under a
-    decomposition then takes its edge row from it and exchanges nothing)."""
-    if bc == "cyclic":
-        return torch.roll(f, -sign, dims=dim)
+    ``rows``: ``BC.halo``'s ``mesh.Halo`` of ``f`` (a shift under a
+    decomposition then exchanges nothing)."""
     if bc == "tripole":
         if sign > 0:
             raise NotImplementedError(
                 "northward shifts on tripole grids need the field's "
                 "location and kind; use BC.n / BC.nn / BC.n_partner")
         bc = "closed"  # the south edge of a tripole grid is closed
-    if bc != "closed":
+    if bc not in ("closed", "cyclic"):
         raise ValueError(f"unknown boundary {bc!r}")
+    ydim = dim % f.dim() == f.dim() - 2
+    d = _decomposed()
+    if d is not None and (ydim or d.px > 1 or rows is not None):
+        if not ydim and (bc == "cyclic") != d.cyclic:
+            raise ValueError(f"an east-west shift with a {bc} edge on a "
+                             f"mesh whose edge is "
+                             f"{'cyclic' if d.cyclic else 'closed'}")
+        return _block_shift(f, sign if ydim else 0, 0 if ydim else sign,
+                            rows)
+    if bc == "cyclic":
+        return torch.roll(f, -sign, dims=dim)
     n = f.shape[dim]
-    if dim % f.dim() == f.dim() - 2 and _decomposed():
-        edge = (_north_rows(f, 1, rows=rows) if sign > 0
-                else _south_rows(f, 1, rows=rows))
-    else:
-        edge = torch.zeros_like(f.narrow(dim, 0, 1))
+    edge = torch.zeros_like(f.narrow(dim, 0, 1))
     if sign > 0:
         return torch.cat([f.narrow(dim, 1, n - 1), edge], dim=dim)
+    strip = _mesh.fold_top(n) if ydim else n
+    if strip < n:  # a kernel's strip plane: the south edge lies above it
+        return torch.cat([edge, f.narrow(dim, 0, strip - 1), edge,
+                          f.narrow(dim, strip, n - strip - 1)], dim=dim)
     return torch.cat([edge, f.narrow(dim, 0, n - 1)], dim=dim)
 
 
-def _decomposed() -> bool:
-    d = _mesh.active()
-    return d is not None and d.comm is not None
-
-
-def _north_rows(f, dist: int, fold=None, rows=None):
-    """The ``dist`` rows past the slab's north edge: the north neighbour's
-    first rows (from ``rows``, ``BC.halo``'s pair, where given, else
-    exchanged now, every slab joining), or at the global north edge
-    ``fold(f)`` (the tripole's ghost rows) or zeros."""
-    if rows is None:
-        _, north = _mesh.active().halo_rows([f], 0, dist)
-        north = north[0] if north is not None else None
-    else:
-        north = rows[1]
-    if north is not None:
-        return north
-    if fold is not None:
-        return fold(f)
-    return torch.zeros_like(f.narrow(-2, 0, dist))
-
-
-def _south_rows(f, dist: int, rows=None):
-    """The ``dist`` rows past the slab's south edge: the south neighbour's
-    last rows (from ``rows`` where given), or zeros at the global south
-    edge."""
-    if rows is None:
-        south, _ = _mesh.active().halo_rows([f], dist, 0)
-        south = south[0] if south is not None else None
-    else:
-        south = rows[0]
-    if south is not None:
-        return south
-    return torch.zeros_like(f.narrow(-2, 0, dist))
-
-
-def shift_e(f, bc_ew: str = "cyclic"):
+def shift_e(f, bc_ew: str = "cyclic", rows=None):
     """f[j, i+1]."""
-    return _shift(f, +1, -1, bc_ew)
+    return _shift(f, +1, -1, bc_ew, rows)
 
 
-def shift_w(f, bc_ew: str = "cyclic"):
+def shift_w(f, bc_ew: str = "cyclic", rows=None):
     """f[j, i-1]."""
-    return _shift(f, -1, -1, bc_ew)
+    return _shift(f, -1, -1, bc_ew, rows)
 
 
 def shift_n(f, bc_ns: str = "closed", rows=None):
@@ -147,11 +146,11 @@ class BC:
         self.ew = ew
         self.ns = ns
 
-    def e(self, f):
-        return shift_e(f, self.ew)
+    def e(self, f, rows=None):
+        return shift_e(f, self.ew, rows)
 
-    def w(self, f):
-        return shift_w(f, self.ew)
+    def w(self, f, rows=None):
+        return shift_w(f, self.ew, rows)
 
     def n(self, f, loc: str = "center", kind: str = "scalar", rows=None):
         if self.ns == "tripole":
@@ -162,6 +161,8 @@ class BC:
         """Distance-2 northward shift (value at j+2)."""
         if self.ns == "tripole":
             return shift_n_tripole(f, 2, loc, kind)
+        if _decomposed() is not None:
+            return _block_shift(f, 2, 0)
         return shift_n(shift_n(f, self.ns), self.ns)
 
     def n_partner(self, f, partner, loc: str = "center",
@@ -173,11 +174,11 @@ class BC:
         closed and cyclic edges."""
         if self.ns != "tripole":
             return shift_n(f, self.ns)
-        if _decomposed():
-            ghost = _north_rows(f, 1, lambda _: fold_rows(
-                partner, 1, loc, kind).unsqueeze(-2))
-        else:
-            ghost = fold_rows(partner, 1, loc, kind).unsqueeze(-2)
+        d = _decomposed()
+        if d is not None:
+            hf, hp = d.halo([f, partner])
+            return _block_shift(f, 1, 0, hf, (loc, kind), partner=hp)
+        ghost = fold_rows(partner, 1, loc, kind).unsqueeze(-2)
         return torch.cat([f.narrow(-2, 1, f.shape[-2] - 1), ghost], dim=-2)
 
     def s(self, f, rows=None):
@@ -185,40 +186,41 @@ class BC:
 
     @staticmethod
     def halo(fields):
-        """For each of ``fields`` (tensors, or None), the rows just past its
-        slab's south and north edges, (south, north), each None at a global
-        edge, all fetched from the neighbouring slabs in one exchange; None
-        for a None field and for every field on the whole domain. A
-        distance-1 shift of a field given its pair (``rows=``) exchanges
-        nothing: a stencil of several shifts pays one exchange, not one a
-        shift."""
-        d = _mesh.active()
-        if d is None or d.comm is None:
+        """For each of ``fields`` (tensors, or None) its ``mesh.Halo`` of
+        depth 1 (its block's neighbouring rows, columns and corners, and
+        the fold's strip on the top row of blocks), all fetched in one
+        exchange; None for a None field and for every field on the whole
+        domain. A distance-1 shift of a field given its halo (``rows=``)
+        exchanges nothing: a stencil of several shifts pays one exchange,
+        not one a shift."""
+        d = _decomposed()
+        if d is None:
             return [None] * len(fields)
-        some = [f for f in fields if f is not None]
-        south, north = d.halo_rows(some, 1, 1)
-        out, i = [], 0
-        for f in fields:
-            if f is None:
-                out.append(None)
-                continue
-            out.append((south[i] if south is not None else None,
-                        north[i] if north is not None else None))
-            i += 1
-        return out
+        got = iter(d.halo([f for f in fields if f is not None]))
+        return [None if f is None else next(got) for f in fields]
+
+    def _fold(self, loc, kind):
+        return (loc, kind) if self.ns == "tripole" else None
 
     def ne(self, f, loc: str = "center", kind: str = "scalar", rows=None):
+        if _decomposed() is not None:
+            return _block_shift(f, 1, 1, rows, self._fold(loc, kind))
         # fold first, then shift east: the ghost-cell indexing
         return shift_e(self.n(f, loc, kind, rows), self.ew)
 
     def nw(self, f, loc: str = "center", kind: str = "scalar", rows=None):
+        if _decomposed() is not None:
+            return _block_shift(f, 1, -1, rows, self._fold(loc, kind))
         return shift_w(self.n(f, loc, kind, rows), self.ew)
 
     def se(self, f, rows=None):
-        # south first, so ``rows`` (f's own) serve; the two commute
+        if _decomposed() is not None:
+            return _block_shift(f, -1, 1, rows)
         return shift_e(shift_s(f, self.ns, rows), self.ew)
 
     def sw(self, f, rows=None):
+        if _decomposed() is not None:
+            return _block_shift(f, -1, -1, rows)
         return shift_w(shift_s(f, self.ns, rows), self.ew)
 
     def __eq__(self, other):

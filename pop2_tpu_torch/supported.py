@@ -12,7 +12,7 @@ from __future__ import annotations
 from pop2_tpu_torch.config import ModelConfig
 
 
-#: the passive-tracer packages run on y slabs (prod_full's) and held there
+#: the passive-tracer packages run on blocks (prod_full's) and held there
 #: against the whole domain
 DECOMPOSED_PACKAGES = ("iage", "cfc")
 
@@ -55,9 +55,6 @@ def unsupported(cfg: ModelConfig) -> list:
          "carries diagonal, fspai, spai and file)"),
         (cfg.solver.choice.lower() not in ("chrongear", "pcg", "pcsi"),
          f"solver choice {cfg.solver.choice!r}"),
-        (tuple(cfg.mesh_shape)[1:] != (1,),
-         f"mesh_shape={tuple(cfg.mesh_shape)}: an x decomposition "
-         "(Queue 1 item 12c; y slabs, (py, 1), are carried)"),
         (bool(cfg.overflows) and tuple(cfg.mesh_shape) != (1, 1),
          "overflows under a decomposition (their regions are indexed by "
          "global (j, i); Queue 1 item 12b)"),
@@ -65,7 +62,7 @@ def unsupported(cfg: ModelConfig) -> list:
             p not in DECOMPOSED_PACKAGES for p in cfg.passive_tracers),
          f"passive tracers {tuple(cfg.passive_tracers)!r} under a "
          f"decomposition (only {DECOMPOSED_PACKAGES!r} have been run on "
-         "slabs; Queue 1 item 12b)"),
+         "blocks; Queue 1 item 12b)"),
     ]
     if cfg.hmix_tracer == "gm":
         checks += _gm_checks(cfg)

@@ -243,7 +243,8 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     for n0, ng, (_, rows), smem in groups:
         err = lib.pop2_tracer(
             cb.dtype_code(trcr), int(del2), nt, n0, ng, km, ny, nx,
-            int(cfg.ew_boundary == "cyclic"), int(fold), int(upw3),
+            int(cfg.ew_boundary == "cyclic"),
+            pmesh.kernel_fold(cfg, ny) if fold else 0, int(upw3),
             int(cfg.sfc_layer == "varthick"), rows, smem,
             u.data_ptr(), v.data_ptr(), trcr.data_ptr(), tmix.data_ptr(),
             told.data_ptr(), vdc.data_ptr(), stf.data_ptr(), dh.data_ptr(),

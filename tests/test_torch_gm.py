@@ -503,13 +503,15 @@ def test_gm_driver_carries_vdc_and_gm_output(runs):
 # ---- (e) what the port does not carry ---------------------------------------
 
 @pytest.mark.parametrize("over,names", [
-    (dict(mesh_shape=(2, 2)), "12c"),
+    (dict(mesh_shape=(4, 32)), "columns: a block needs at least 2"),
 ])
 def test_unported_gm_switches_raise_at_construction(over, names):
+    """GM on a 2-D mesh is carried (``supported`` names nothing), but a
+    block must be as wide as the widest kernel halo: 'mini''s 32 columns
+    on 32 ranks in x, blocks of one column, are refused at construction."""
     cfg = t_get_config("mini", hmix_tracer="gm", **over)
-    why = "; ".join(supported.unsupported(cfg))
-    assert names in why and "Queue" in why
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert not supported.unsupported(cfg)
+    with pytest.raises(ValueError, match=names):
         TModel(cfg, device="cpu")
 
 

@@ -1,34 +1,45 @@
 """The port decomposed over ranks (``pop2_tpu_torch/parallel``): y slabs
-over ``torch.distributed`` with gloo on the CPU, held against the JAX
-package and against the port on the whole domain.
+and 2-D blocks over ``torch.distributed`` with gloo on the CPU, held
+against the JAX package and against the port on the whole domain.
 
 The ranks run in processes of their own (``multihost.spawn_ranks``, one
 intra-op thread each) what ``tests/torch_parallel_ranks.py`` holds; two
-module fixtures start them, once on four slabs and once on two:
+module fixtures start them, once on four ranks ((4, 1), (2, 2) and (1, 4)
+meshes) and once on two ((2, 1) and (1, 2)):
 
 * the b4b sum has the bits of ``pop2_tpu.reductions.global_sum(b4b=True)``
-  on ``tests/test_b4b.py``'s data, on 1, 2 and 4 slabs;
-* north-south shifts (closed and tripole, every location the fold takes)
-  and each of the five kernel wrappers' plain twins on 2 slabs equal their
-  whole-domain calls bitwise (float64; closed and tripole edges, centered
-  and upwind3 advection, the chain with the submesoscale fold-in, both
-  branches of the flux assembly);
-* 'mini' (the JAX package's 32 x 24 x 8 preset) with b4b on 4 slabs, 5
-  steps: the solver's iterations are those of the JAX package on a (4, 1)
-  mesh and of the port on the whole domain, the fields within 1e-12 of
-  scale of the port's whole-domain run and within PARITY's 1e-7 of the
-  JAX package's; without b4b atol 1e-11 on the tracers and u, 1e-9 on
-  psurf (``tests/test_sharding.py``'s bands);
-* prod_full at 32 x 16 x 10 on 2 slabs (tripole, KPP, GM's chain with the
-  transition layer and the submesoscale scheme, upwind3, anisotropic
-  viscosity, PCSI with FSPAI) against the port on the whole domain;
+  on ``tests/test_b4b.py``'s data, on 1, 2 and 4 slabs and (2, 2) blocks;
+* every shift (the eight neighbours on closed and cyclic edges, the
+  tripole's of every location and kind, ``n_partner``, the top row's
+  symmetry) on every mesh, and each of the five kernel wrappers' plain
+  twins on 2 slabs and (2, 2) blocks, equal their whole-domain calls
+  bitwise (float64; closed and tripole edges, centered and upwind3
+  advection, the chain with the submesoscale fold-in, both branches of the
+  flux assembly);
+* 'mini' (the JAX package's 32 x 24 x 8 preset) with b4b on 4 slabs, (2, 2)
+  and (1, 4) blocks, 5 steps: the solver's iterations are those of the JAX
+  package on a (4, 1) mesh and of the port on the whole domain, the fields
+  those of the port's whole-domain run (within 1e-12 of scale on slabs,
+  bitwise on blocks) and within PARITY's 1e-7 of the JAX package's; without
+  b4b atol 1e-11 on the tracers and u, 1e-9 on psurf
+  (``tests/test_sharding.py``'s bands);
+* prod_full at 32 x 16 x 10 on 2 slabs, (2, 2) and (1, 2) blocks (tripole,
+  KPP, GM's chain with the transition layer and the submesoscale scheme,
+  upwind3, anisotropic viscosity, PCSI with FSPAI) against the port on the
+  whole domain;
 * a forced 'mini' on 2 slabs as a standalone caller composes it (the
   bulk-NCEP freshwater flux with the precipitation balance, marginal-seas
   balancing, the river runoff's salt flux, the estuary exchange) against
   the same run on the whole domain, with its diagnostics and budgets;
 * gathers and scatters, the sharded restart (a bitwise round trip, read
-  under another number of slabs, a dims mismatch), and the refusals.
+  under another mesh, a dims mismatch), the refusals and the rank entry
+  points' defaults.
 """
+
+import functools
+import json
+import os
+import shutil
 
 import numpy as np
 import jax
@@ -88,6 +99,7 @@ def _rand(rng, shape, scale=1.0, mask=None):
     return torch.as_tensor(a if mask is None else a * np.asarray(mask))
 
 
+@functools.lru_cache(maxsize=None)
 def wrapper_cases():
     """(name, wrapper, cfg, whole grid, arguments, keyword arguments) of
     the five wrappers: on 'mini' at 32 x 16 x 8 (closed north edge,
@@ -147,6 +159,7 @@ def wrapper_cases():
     return cases
 
 
+@functools.lru_cache(maxsize=None)
 def prod_inputs():
     """prod_full at 32 x 16 x 10: its config, stratified tracers and the
     10-m wind and ice fields of the production path's forcing."""
@@ -208,47 +221,122 @@ def whole_run(cfg, nsteps, tracers=None, forcing_fields=None):
 
 @pytest.fixture(scope="module")
 def restart_dir(tmp_path_factory):
+    """The sharded restart the four ranks write on (4, 1)."""
     return str(tmp_path_factory.mktemp("sharded"))
 
 
 @pytest.fixture(scope="module")
-def four(restart_dir):
-    """What four slabs compute, in one start of four ranks."""
+def restart_dir_two(tmp_path_factory):
+    """The sharded restart the two ranks write on (1, 2)."""
+    return str(tmp_path_factory.mktemp("sharded_two"))
+
+
+#: the meshes of four ranks the shifts are held on, and their calls' tags
+FOUR_MESHES = {"4x1": (4, 1), "2x2": (2, 2), "1x4": (1, 4)}
+#: (tag, east-west edge, north edge) of the shifts' cases; a tripole fold
+#: across x blocks needs a cyclic edge
+SHIFT_EDGES = [("closed", "cyclic", "closed"), ("tripole", "cyclic", "tripole"),
+               ("closed_ew", "closed", "closed")]
+
+
+def shift_calls(meshes):
+    """The shifts' calls of each mesh of ``meshes`` ({tag: shape}), on the
+    field of ``shift_field``; the (4, 1) mesh's under their old names."""
+    calls = []
+    for tag, shape in meshes.items():
+        for ns_tag, ew, ns in SHIFT_EDGES:
+            if shape[1] > 1 and ns == "tripole" and ew != "cyclic":
+                continue
+            name = (f"shifts_{ns_tag}" if tag == "4x1"
+                    else f"shifts_{tag}_{ns_tag}")
+            calls.append((name, ranks.shifts, (shift_field(), ew, ns,
+                                               shape), {}))
+    return calls
+
+
+def shift_field():
+    return np.random.RandomState(4).randn(2, 24, 16)
+
+
+def four_calls(restart_dir):
+    """What four ranks compute in one start: on four slabs, on (2, 2) and on
+    (1, 4) blocks."""
     mini = get_config("mini", mesh_shape=(4, 1))
-    calls = [
-        ("b4b", ranks.b4b_sums, (b4b_arrays(),), {}),
+    cfg, tracers, ff = prod_inputs()
+    whole = np.random.RandomState(3).randn(3, 24, 32)
+    return [
+        ("b4b", ranks.b4b_sums, (b4b_arrays(), (4, 1)), {}),
+        ("b4b_2x2", ranks.b4b_sums, (b4b_arrays(), (2, 2)), {}),
         ("mini_b4b", ranks.run_model, (mini.with_(b4b=True), NSTEPS),
          {"restart_dir": restart_dir}),
         ("mini", ranks.run_model, (mini, NSTEPS), {}),
-        ("gather", ranks.gather_scatter,
-         (np.random.RandomState(3).randn(3, 24, 32),), {}),
-        ("shifts_closed", ranks.shifts,
-         (np.random.RandomState(4).randn(2, 24, 16), "cyclic", "closed"), {}),
-        ("shifts_tripole", ranks.shifts,
-         (np.random.RandomState(4).randn(2, 24, 16), "cyclic", "tripole"),
-         {})]
-    return ranks.suite_results(multihost.spawn_ranks(
-        ranks.suite, 4, args=([c[1:] for c in calls],), timeout=600), calls)
+        ("mini_b4b_2x2", ranks.run_model,
+         (mini.with_(b4b=True, mesh_shape=(2, 2)), NSTEPS), {}),
+        ("mini_b4b_1x4", ranks.run_model,
+         (mini.with_(b4b=True, mesh_shape=(1, 4)), NSTEPS), {}),
+        ("mini_2x2", ranks.run_model, (mini.with_(mesh_shape=(2, 2)),
+                                       NSTEPS), {}),
+        ("prod_2x2", ranks.run_model,
+         (cfg.with_(mesh_shape=(2, 2)), PROD_STEPS),
+         {"tracers": tracers, "forcing_fields": ff}),
+        ("wrappers_2x2", ranks.wrapper_slabs, (wrapper_cases(), (2, 2)), {}),
+        ("gather", ranks.gather_scatter, (whole, (4, 1)), {}),
+        ("gather_2x2", ranks.gather_scatter, (whole, (2, 2)), {}),
+        ("restart_2x2", ranks.read_restart,
+         (get_config("mini", mesh_shape=(2, 2)), restart_dir), {}),
+        ("forced_2x2", ranks.forced_run,
+         (forced_cfg().with_(mesh_shape=(2, 2)), FORCED_STEPS,
+          forced_inputs(forced_cfg())), {}),
+    ] + shift_calls(FOUR_MESHES)
 
 
-@pytest.fixture(scope="module")
-def two(four, restart_dir):
-    """What two slabs compute, in one start of two ranks (after ``four``,
-    whose restart they read)."""
+def two_calls(restart_dir):
+    """What two ranks compute in one start, on two slabs and on (1, 2)
+    blocks (prod_full's state written on (1, 2) and read on (2, 1))."""
     cfg, tracers, ff = prod_inputs()
-    calls = [
-        ("b4b", ranks.b4b_sums, (b4b_arrays(),), {}),
-        ("wrappers", ranks.wrapper_slabs, (wrapper_cases(),), {}),
+    return [
+        ("b4b", ranks.b4b_sums, (b4b_arrays(), (2, 1)), {}),
+        ("wrappers", ranks.wrapper_slabs, (wrapper_cases(), (2, 1)), {}),
         ("prod", ranks.run_model,
          (cfg.with_(mesh_shape=(2, 1)), PROD_STEPS),
          {"tracers": tracers, "forcing_fields": ff}),
+        ("prod_1x2", ranks.run_model,
+         (cfg.with_(mesh_shape=(1, 2)), PROD_STEPS),
+         {"tracers": tracers, "forcing_fields": ff,
+          "restart_dir": restart_dir}),
         ("restart", ranks.read_restart,
-         (get_config("mini", mesh_shape=(2, 1)), restart_dir), {}),
+         (cfg.with_(mesh_shape=(2, 1)), restart_dir), {}),
         ("forced", ranks.forced_run,
          (forced_cfg().with_(mesh_shape=(2, 1)), FORCED_STEPS,
-          forced_inputs(forced_cfg())), {})]
-    return ranks.suite_results(multihost.spawn_ranks(
-        ranks.suite, 2, args=([c[1:] for c in calls],), timeout=600), calls)
+          forced_inputs(forced_cfg())), {}),
+    ] + shift_calls({"1x2": (1, 2)})
+
+
+@pytest.fixture(scope="module")
+def spawned(restart_dir, restart_dir_two):
+    """The two starts of the ranks, four and two, at once (each start is
+    a process group of its own, their processes side by side)."""
+    from concurrent.futures import ThreadPoolExecutor
+    starts = {4: four_calls(restart_dir), 2: two_calls(restart_dir_two)}
+    with ThreadPoolExecutor(2) as pool:
+        futures = {n: pool.submit(
+            multihost.spawn_ranks, ranks.suite, n, device="cpu",
+            args=([c[1:] for c in calls],), timeout=600)
+            for n, calls in starts.items()}
+        return {n: ranks.suite_results(futures[n].result(), starts[n])
+                for n in starts}
+
+
+@pytest.fixture(scope="module")
+def four(spawned):
+    """What the four ranks computed, a dict a rank."""
+    return spawned[4]
+
+
+@pytest.fixture(scope="module")
+def two(spawned):
+    """What the two ranks computed, a dict a rank."""
+    return spawned[2]
 
 
 @pytest.fixture(scope="module")
@@ -289,8 +377,8 @@ def test_b4b_sum_is_the_jax_packages_on_every_decomposition(four, two, i):
     x = b4b_arrays()[i]
     want = fixed_point_sum(x)
     assert float(global_sum(torch.as_tensor(x), b4b=True)) == want
-    for res in (four, two):
-        assert {r["b4b"][i] for r in res} == {want}, "bits differ"
+    for res, key in ((four, "b4b"), (four, "b4b_2x2"), (two, "b4b")):
+        assert {r[key][i] for r in res} == {want}, "bits differ"
     jax_sum = float(jreductions.global_sum(jnp.asarray(x), b4b=True))
     ex = float(np.frexp(np.abs(x).max())[1])
     xla_scale = float(jnp.exp2(jnp.asarray(ex)))
@@ -314,21 +402,52 @@ def test_b4b_sum_axes_and_zeros():
 
 # ---- shifts, the fold, the wrappers' halo'd plain twins ---------------------
 
-@pytest.mark.parametrize("ns", ["closed", "tripole"])
-def test_shifts_on_four_slabs_are_the_whole_domains(four, ns):
-    f = torch.as_tensor(np.random.RandomState(4).randn(2, 24, 16))
-    bc = BC("cyclic", ns)
+def whole_shifts(ew, ns):
+    """``ranks.shifts``'s operations on the whole domain."""
     from pop2_tpu_torch.tripole import enforce_top_symmetry
-    want = {"n": bc.n(f), "s": bc.s(f), "ne": bc.ne(f), "nw": bc.nw(f),
-            "se": bc.se(f), "sw": bc.sw(f), "nn": bc.nn(f),
-            "n_corner_vec": bc.n(f, "necorner", "vector"),
-            "nn_nface": bc.nn(f, "nface"),
+    f = torch.as_tensor(shift_field())
+    bc = BC(ew, ns)
+    want = {"n": bc.n(f), "s": bc.s(f), "e": bc.e(f), "w": bc.w(f),
+            "ne": bc.ne(f), "nw": bc.nw(f), "se": bc.se(f), "sw": bc.sw(f),
+            "nn": bc.nn(f),
             "n_partner": bc.n_partner(f, f * 2.0, "nface", "vector"),
-            "symmetry": enforce_top_symmetry(f)}
-    for r in four:
-        got = r[f"shifts_{ns}"]
+            "n_partner_corner": bc.n_partner(f, f * 3.0, "necorner"),
+            "symmetry": enforce_top_symmetry(f),
+            "symmetry_nface": enforce_top_symmetry(f, "nface", "scalar")}
+    for loc, kind in ranks.FOLD_CASES:
+        want[f"n_{loc}_{kind}"] = bc.n(f, loc, kind)
+        want[f"nn_{loc}_{kind}"] = bc.nn(f, loc, kind)
+        want[f"ne_{loc}_{kind}"] = bc.ne(f, loc, kind)
+        want[f"nw_{loc}_{kind}"] = bc.nw(f, loc, kind)
+    return want
+
+
+def check_shifts(res, name, ew, ns):
+    want = whole_shifts(ew, ns)
+    for r in res:
+        got = r[name]
         for k, w in want.items():
             np.testing.assert_array_equal(got[k], w.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("ns", ["closed", "tripole"])
+def test_shifts_on_four_slabs_are_the_whole_domains(four, ns):
+    check_shifts(four, f"shifts_{ns}", "cyclic", ns)
+
+
+@pytest.mark.parametrize("mesh,edges", [
+    pytest.param(m, e, id=f"{m}-{e[0]}")
+    for m in ("4x1", "2x2", "1x4", "1x2") for e in SHIFT_EDGES
+    if m != "4x1" or e[0] == "closed_ew"])
+def test_shifts_on_blocks_are_the_whole_domains(four, two, mesh, edges):
+    """Every shift on the blocks of a (2, 2), (1, 4) and (1, 2) mesh (the
+    tripole's partner columns on the mirror ranks, on (1, px) across every
+    rank) and on four slabs of a closed east-west edge is the whole
+    domain's, bitwise."""
+    tag, ew, ns = edges
+    res = two if mesh == "1x2" else four
+    name = f"shifts_{tag}" if mesh == "4x1" else f"shifts_{mesh}_{tag}"
+    check_shifts(res, name, ew, ns)
 
 
 def test_stencil_many_is_the_shifts_one_by_one(four):
@@ -343,18 +462,19 @@ def test_stencil_many_is_the_shifts_one_by_one(four):
         for o in ("n", "s", "ne", "nw", "se", "sw"):
             assert torch.equal(getattr(bc, o)(f, rows=rows),
                                getattr(bc, o)(f)), (ns, o)
-    f = torch.as_tensor(np.random.RandomState(4).randn(2, 24, 16))
+    f = torch.as_tensor(shift_field())
     for ns in ("closed", "tripole"):
         bc = BC("cyclic", ns)
-        want = {o: getattr(bc, o)(f) for o in ("n", "s", "ne", "nw", "se",
-                                              "sw")}
+        want = {o: getattr(bc, o)(f) for o in ("n", "s", "e", "w", "ne",
+                                              "nw", "se", "sw")}
         want["n_corner_vec"] = bc.n(f, "necorner", "vector")
-        for r in four:
-            got = r[f"shifts_{ns}"]
-            assert got["rows_exchanges"] == 1
-            for k, w in want.items():
-                np.testing.assert_array_equal(got["rows_" + k], w.numpy(),
-                                              err_msg=(ns, k))
+        for name in (f"shifts_{ns}", f"shifts_2x2_{ns}", f"shifts_1x4_{ns}"):
+            for r in four:
+                got = r[name]
+                assert got["rows_exchanges"] == 1
+                for k, w in want.items():
+                    np.testing.assert_array_equal(
+                        got["rows_" + k], w.numpy(), err_msg=(name, k))
 
 
 @pytest.mark.parametrize("name", [
@@ -365,27 +485,46 @@ def test_wrapper_halo_call_on_two_slabs_is_bitwise(two, name):
     decomposition (its operands extended by the halo rows of the
     neighbours, the kernel's closed instance below the top slab), has the
     whole-domain call's values on its rows, bitwise."""
+    check_wrapper(two, "wrappers", name)
+
+
+@functools.lru_cache(maxsize=None)
+def whole_wrapper(name):
+    """The leaves of case ``name``'s whole-domain call."""
     import importlib
-    case = {c[0]: c for c in wrapper_cases()}[name]
-    _, path, cfg, grid, args, kwargs = case
+    _, path, cfg, grid, args, kwargs = {c[0]: c
+                                        for c in wrapper_cases()}[name]
     module, fn = path.rsplit(".", 1)
     fn = getattr(importlib.import_module("pop2_tpu_torch." + module), fn)
-    want = fn(cfg, grid, *args, **kwargs)
-    got = [r["wrappers"][name] for r in two]
     leaves = []
-    pmesh.tree_map(leaves.append, want)
-    parts = [[], []]
-    for i, g in enumerate(got):
-        pmesh.tree_map(parts[i].append, g)
-    assert len(leaves) == len(parts[0]) > 0
-    for k, w in enumerate(leaves):
-        if w.dim() >= 2 and w.shape[-2] == cfg.ny:
-            g = torch.cat([parts[0][k], parts[1][k]], dim=-2)
-        else:
-            g = parts[0][k]
-        assert torch.equal(g, w), f"{name}: leaf {k}"
-    # one exchange a call (the grid's halo rows once, the operands')
-    assert all(r["wrappers"][name + ":exchanges"] <= 2 for r in two)
+    pmesh.tree_map(leaves.append, fn(cfg, grid, *args, **kwargs))
+    return leaves
+
+
+def check_wrapper(res, key, name):
+    """The gathered outputs of every rank's halo'd call of case ``name``
+    equal the whole-domain call's, bitwise, at one exchange a call (and
+    one for the grid's halo at its first call)."""
+    leaves = whole_wrapper(name)
+    for r in res:
+        got = []
+        pmesh.tree_map(got.append, r[key][name])
+        assert len(leaves) == len(got) > 0
+        for k, (g, w) in enumerate(zip(got, leaves)):
+            assert torch.equal(g, w), f"{name}: leaf {k}"
+        assert r[key][name + ":exchanges"] <= 2
+
+
+@pytest.mark.parametrize("name", [
+    "tracer_closed", "clinic_closed", "tracer_tripole", "clinic_tripole",
+    "slopes", "chain", "flux", "flux_cancellation"])
+def test_wrapper_halo_call_on_blocks_is_bitwise(four, name):
+    """Each wrapper's plain twin, called on its (2, 2) block (its operands
+    extended by the rows and columns of its neighbours; on the top row of
+    blocks a plane whose first rows are the mirror block's top rows, the
+    tripole instance reading the fold's rows there), has the whole-domain
+    call's values on its block, bitwise."""
+    check_wrapper(four, "wrappers_2x2", name)
 
 
 # ---- whole models -----------------------------------------------------------
@@ -439,9 +578,59 @@ def test_mini_without_b4b_on_four_slabs(four, whole_mini):
     assert got["counts"]["staged_bytes"] == 0  # CPU fields: nothing staged
 
 
-def test_prod_full_on_two_slabs(two):
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_mini_b4b_on_blocks(four, whole_mini, jax_mesh_run, mesh):
+    """'mini' with b4b on (2, 2) and (1, 4) blocks: every rank's iterations
+    those of the port on the whole domain and of the JAX package on a (4, 1)
+    mesh (b4b sums do not depend on the layout), the fields the port's
+    whole-domain run's bitwise and within PARITY's 1e-7 of the JAX
+    package's, the diagnostics alike on every rank."""
+    got = [r[f"mini_b4b_{mesh}"] for r in four]
+    iters, want, diags = whole_mini["b4b"]
+    assert all(g["iters"] == iters == jax_mesh_run[0] for g in got)
+    for name in ranks.STATE_FIELDS:
+        np.testing.assert_array_equal(got[0]["fields"][name], want[name],
+                                      err_msg=name)
+    for name in FIELDS:
+        assert scale_err(got[0]["fields"][name],
+                         jax_mesh_run[1][name]) <= 1e-7, name
+    assert all(g["diags"] == got[0]["diags"] for g in got)
+    assert got[0]["counts"]["exchanges"] > 0
+
+
+def test_mini_without_b4b_on_blocks(four, whole_mini):
+    """'mini' without b4b on (2, 2) blocks: the plain sums in another
+    order, within ``tests/test_sharding.py``'s bands."""
+    got = four[0]["mini_2x2"]
+    _, want, _ = whole_mini["plain"]
+    for name, atol in (("tracer_cur", 1e-11), ("u_cur", 1e-11),
+                       ("psurf_cur", 1e-9)):
+        np.testing.assert_allclose(got["fields"][name], want[name], rtol=0,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def whole_prod():
     cfg, tracers, ff = prod_inputs()
-    iters, want, diags = whole_run(cfg, PROD_STEPS, tracers, ff)
+    return whole_run(cfg, PROD_STEPS, tracers, ff)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x2"])
+def test_prod_full_on_blocks(four, two, whole_prod, mesh):
+    """prod_full at 32 x 16 x 10 on (2, 2) and (1, 2) blocks (the fold
+    across two ranks; on (1, 2) every block holds it and the global south
+    edge): iterations and fields those of the whole domain, bitwise."""
+    iters, want, diags = whole_prod
+    got = [r[f"prod_{mesh}"] for r in (four if mesh == "2x2" else two)]
+    assert all(g["iters"] == iters for g in got)
+    for name in ranks.STATE_FIELDS:
+        np.testing.assert_array_equal(got[0]["fields"][name], want[name],
+                                      err_msg=name)
+    assert all(g["diags"] == got[0]["diags"] for g in got)
+
+
+def test_prod_full_on_two_slabs(two, whole_prod):
+    iters, want, diags = whole_prod
     got = [r["prod"] for r in two]
     assert got[0]["iters"] == got[1]["iters"] == iters
     for name in ranks.STATE_FIELDS:
@@ -468,6 +657,22 @@ def test_forced_run_on_two_slabs(two, whole_forced):
     for name in ranks.STATE_FIELDS:
         assert scale_err(got[0]["fields"][name],
                          want["fields"][name]) <= 1e-12, name
+    for g, w in zip(got[0]["region"], want["region"]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0]["smft"], want["smft"])
+
+
+def test_forced_run_on_blocks(four, whole_forced):
+    """The forced 'mini' on (2, 2) blocks: the marginal sea's region built
+    from global (j, i) and cut to the blocks, the forcing's b4b sums over
+    every block: the whole domain's iterations and fields, bitwise."""
+    got = [r["forced_2x2"] for r in four]
+    want = whole_forced
+    assert all(g["iters"] == want["iters"] for g in got)
+    assert all(g["precip_totals"] == want["precip_totals"] for g in got)
+    for name in ranks.STATE_FIELDS:
+        np.testing.assert_array_equal(got[0]["fields"][name],
+                                      want["fields"][name], err_msg=name)
     for g, w in zip(got[0]["region"], want["region"]):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(got[0]["smft"], want["smft"])
@@ -508,19 +713,27 @@ def test_forced_run_refuses_global_index_diagnostics_on_slabs(two,
 
 # ---- gathers, scatters, the sharded restart ---------------------------------
 
-def test_gather_scatter_round_trips(four):
+@pytest.mark.parametrize("key,blocks", [
+    ("gather", [(0, 6, 0, 32), (6, 12, 0, 32), (12, 18, 0, 32),
+                (18, 24, 0, 32)]),
+    ("gather_2x2", [(0, 12, 0, 16), (0, 12, 16, 32), (12, 24, 0, 16),
+                    (12, 24, 16, 32)])])
+def test_gather_scatter_round_trips(four, key, blocks):
     whole = np.random.RandomState(3).randn(3, 24, 32)
-    rows = []
+    got = []
     for r in four:
-        g = r["gather"]
+        g = r[key]
         np.testing.assert_array_equal(g["from_root"], whole)
         np.testing.assert_array_equal(g["from_last"], whole)
         assert g["slab_equal"]
-        rows.append(g["rows"])
-    assert rows == [(0, 6), (6, 12), (12, 18), (18, 24)]
+        got.append(g["block"])
+    assert got == blocks
 
 
 def test_sharded_restart_round_trip_and_another_py(four, two, restart_dir):
+    """'mini' written on (4, 1) is read whole, bitwise, and onto (2, 2)
+    blocks; prod_full written on (1, 2) blocks is read onto 2 slabs: each
+    rank reads its block only."""
     cfg = get_config("mini")
     written = four[0]["mini_b4b"]["fields"]
     state, n = sharded_restart.read_sharded_restart(restart_dir, cfg,
@@ -529,15 +742,18 @@ def test_sharded_restart_round_trip_and_another_py(four, two, restart_dir):
     for name in ranks.STATE_FIELDS:
         np.testing.assert_array_equal(getattr(state, name).numpy(),
                                       written[name], err_msg=name)
-    for r in two:  # read onto 2 slabs: each rank its rows only
-        assert r["restart"]["n"] == NSTEPS
-        j0, j1 = r["restart"]["rows"]
-        np.testing.assert_array_equal(
-            r["restart"]["slab"].tracer_cur.numpy(),
-            written["tracer_cur"][..., j0:j1, :])
-        for name in ranks.STATE_FIELDS:
-            np.testing.assert_array_equal(r["restart"]["whole"][name],
-                                          written[name], err_msg=name)
+    for res, key, n, written in (
+            (four, "restart_2x2", NSTEPS, written),
+            (two, "restart", PROD_STEPS, two[0]["prod_1x2"]["fields"])):
+        for r in res:
+            assert r[key]["n"] == n
+            j0, j1, i0, i1 = r[key]["block"]
+            np.testing.assert_array_equal(
+                r[key]["slab"].tracer_cur.numpy(),
+                written["tracer_cur"][..., j0:j1, i0:i1])
+            for name in ranks.STATE_FIELDS:
+                np.testing.assert_array_equal(r[key]["whole"][name],
+                                              written[name], err_msg=name)
 
 
 def test_sharded_restart_dims_mismatch(four, restart_dir):
@@ -546,20 +762,53 @@ def test_sharded_restart_dims_mismatch(four, restart_dir):
             restart_dir, get_config("mini", nx=40), device="cpu")
 
 
+def test_sharded_restart_reads_the_slab_layout(four, restart_dir, tmp_path):
+    """A checkpoint of y slabs in the layout written before blocks
+    (``slab<r>`` files whose record names ``py`` and the slab's rows) is
+    read whole, bitwise."""
+    cfg = get_config("mini")
+    step = os.path.join(restart_dir, str(NSTEPS))
+    old = tmp_path / str(NSTEPS)
+    old.mkdir()
+    for r in range(4):
+        with open(os.path.join(step, f"block{r}.json")) as f:
+            meta = json.load(f)
+        assert (meta["i0"], meta["i1"]) == (0, cfg.nx)
+        meta["py"] = meta.pop("ranks")
+        del meta["i0"], meta["i1"]
+        (old / f"slab{r}.json").write_text(json.dumps(meta))
+        shutil.copy(os.path.join(step, f"block{r}.npz"),
+                    old / f"slab{r}.npz")
+    (tmp_path / sharded_restart.POINTER_FILE).write_text(str(NSTEPS))
+    state, n = sharded_restart.read_sharded_restart(str(tmp_path), cfg,
+                                                    device="cpu")
+    assert n == NSTEPS
+    written = four[0]["mini_b4b"]["fields"]
+    for name in ranks.STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(state, name).numpy(),
+                                      written[name], err_msg=name)
+
+
 # ---- what stays refused -----------------------------------------------------
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="12c"):
-        pmesh.make_mesh((2, 2), 24, 32)
+    with pytest.raises(ValueError, match="nx=32 does not split"):
+        pmesh.make_mesh((2, 3), 24, 32)
     with pytest.raises(ValueError, match="equal"):
         pmesh.make_mesh((5, 1), 24, 32)
     with pytest.raises(ValueError, match="rows"):
         pmesh.make_mesh((8, 1), 24, 32)
     with pytest.raises(RuntimeError, match="process group"):
         pmesh.make_mesh((2, 1), 24, 32)
+    with pytest.raises(ValueError, match="columns: a block needs"):
+        pmesh.make_mesh((1, 32), 24, 32)
+    with pytest.raises(ValueError, match="cyclic"):
+        pmesh.make_mesh((1, 2), 24, 32, tripole=True, cyclic=False)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        pmesh.make_mesh((2, 2), 24, 32)
     mini = get_config("mini")
-    assert any("12c" in w for w in supported.unsupported(
-        mini.with_(mesh_shape=(2, 2))))
+    assert not supported.unsupported(mini.with_(mesh_shape=(2, 2)))
+    assert not supported.unsupported(mini.with_(mesh_shape=(1, 4)))
     assert not supported.unsupported(mini.with_(mesh_shape=(4, 1), b4b=True))
     from tests.test_overflows import _spec
     from tests.torch_port_helpers import torch_cfg
@@ -597,3 +846,17 @@ def test_refusals_of_a_decomposed_model():
     b, _ = whole.advance(whole.initial_state())
     for name in FIELDS:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_rank_entry_points_default_to_the_card():
+    """``initialize_distributed``, ``spawn_ranks`` and ``sharded_model``
+    put a rank's fields on the card unless the caller asks for the CPU, as
+    ``Model`` does; ``make_global_array`` falls back to the card where no
+    rank device was set (``default_device``)."""
+    import inspect
+    for fn in (multihost.initialize_distributed, multihost.spawn_ranks,
+               pmesh.sharded_model, Model):
+        assert inspect.signature(fn).parameters["device"].default \
+            == "cuda", fn
+    assert multihost._DEVICE is None  # no process group in this process
+    assert multihost.default_device() == torch.device("cuda")

@@ -27,7 +27,7 @@ import torch
 
 from pop2_tpu.model import Model as JModel  # noqa: E402
 
-from pop2_tpu_torch import convert  # noqa: E402
+from pop2_tpu_torch import convert, supported  # noqa: E402
 from pop2_tpu_torch.config import get_config as t_get_config  # noqa: E402
 from pop2_tpu_torch.grid import build_grid  # noqa: E402
 from pop2_tpu_torch.model import Model as TModel  # noqa: E402
@@ -202,12 +202,15 @@ def test_switches_ported_since_construct_and_step(over):
     assert all(bool(torch.isfinite(t).all()) for _, t in state.leaves())
 
 
-@pytest.mark.parametrize("over,names", [
-    (dict(mesh_shape=(2, 2)), "12c"),
-    (dict(mesh_shape=(1, 4)), "x decomposition"),
+@pytest.mark.parametrize("over,error,names", [
+    (dict(mesh_shape=(2, 2)), RuntimeError, "initialize_distributed"),
+    (dict(mesh_shape=(1, 5)), ValueError, "nx=32"),
 ])
-def test_unported_switches_raise_at_construction(over, names):
+def test_unported_switches_raise_at_construction(over, error, names):
+    """A 2-D mesh is carried (``supported`` names nothing), but a model on
+    one needs the process group of its ranks and blocks of equal columns:
+    without them it raises at construction, naming what is missing."""
     cfg = t_get_config("mini", **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+    assert not supported.unsupported(cfg)
+    with pytest.raises(error, match=names):
         TModel(cfg, device="cpu")
-    assert names in str(err.value)

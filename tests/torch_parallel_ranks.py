@@ -1,7 +1,7 @@
 """What the ranks of ``tests/test_torch_parallel.py`` run, in processes of
 their own (``parallel.multihost.spawn_ranks``, gloo on the CPU): every
-function takes whole-domain inputs, cuts its rank's slab, and returns what
-the test compares. This module imports the port alone (no JAX), so a rank
+function takes whole-domain inputs and a mesh shape (py, px), cuts its
+rank's block, and returns what the test compares. This module imports the port alone (no JAX), so a rank
 starts in about a second.
 """
 
@@ -23,9 +23,8 @@ STATE_FIELDS = ("tracer_cur", "u_cur", "v_cur", "psurf_cur", "ubtrop_cur",
                 "vbtrop_cur", "rho_cur", "tracer_old")
 
 
-def _mesh(ny, nx, tripole=False):
-    import torch.distributed as dist
-    return pmesh.make_mesh((dist.get_world_size(), 1), ny, nx, tripole)
+def _mesh(shape, ny, nx, tripole=False, cyclic=True):
+    return pmesh.make_mesh(shape, ny, nx, tripole, cyclic)
 
 
 def fold_model_grid(cfg, seed):
@@ -41,38 +40,42 @@ def fold_model_grid(cfg, seed):
     return grid
 
 
-def b4b_sums(arrays):
-    """Each array's b4b sum (its trailing axes the grid) over the slabs."""
+def b4b_sums(arrays, shape):
+    """Each array's b4b sum (its trailing axes the grid) over the blocks of
+    a (py, px) mesh."""
     out = []
     for a in arrays:
-        d = _mesh(*a.shape[-2:])
+        d = _mesh(shape, *a.shape[-2:])
         with pmesh.scope(d):
             out.append(float(global_sum(d.slab(torch.as_tensor(a)),
                                         b4b=True)))
     return out
 
 
-def wrapper_slabs(cases):
-    """{name: outputs on this slab} of each case (name, wrapper's dotted
-    path in the port, config, whole grid, whole-domain arguments, keyword
-    arguments): the wrapper called on the slab with the decomposition in
-    scope (its halo'd launch)."""
+def wrapper_slabs(cases, shape):
+    """{name: outputs gathered} of each case (name, wrapper's dotted path
+    in the port, config, whole grid, whole-domain arguments, keyword
+    arguments): the wrapper called on this rank's block of a (py, px) mesh
+    with the decomposition in scope (its halo'd launch)."""
     out = {}
     for name, path, cfg, grid, args, kwargs in cases:
         module, fn = path.rsplit(".", 1)
         fn = getattr(importlib.import_module("pop2_tpu_torch." + module), fn)
-        d = _mesh(cfg.ny, cfg.nx, cfg.ns_boundary == "tripole")
+        d = _mesh(shape, cfg.ny, cfg.nx, cfg.ns_boundary == "tripole",
+                  cfg.ew_boundary == "cyclic")
         with pmesh.scope(d):
-            out[name] = fn(cfg, d.slab(grid), *d.slab(args),
-                           **d.slab(kwargs))
+            got = fn(cfg, d.slab(grid), *d.slab(args), **d.slab(kwargs))
+        out[name] = pmesh.tree_map(
+            lambda t: torch.as_tensor(multihost.to_host_replicated(t, d)),
+            got)
         out[name + ":exchanges"] = d.comm.exchanges
     return out
 
 
 def run_model(cfg, nsteps, grid=None, tracers=None, forcing_fields=None,
               restart_dir=None):
-    """``nsteps`` of ``Model.advance`` on this rank's slab of ``cfg``
-    (``mesh_shape`` (ranks, 1)) from its initial state, with ``tracers``
+    """``nsteps`` of ``Model.advance`` on this rank's block of ``cfg`` (on
+    its ``mesh_shape``) from its initial state, with ``tracers``
     (whole domain) in place of the initial tracers and the forcing's fields
     replaced by ``forcing_fields`` (whole domain) where given. Returns the
     iterations a step, the gathered fields, the diagnostics, the exchange
@@ -103,55 +106,75 @@ def run_model(cfg, nsteps, grid=None, tracers=None, forcing_fields=None,
     return dict(iters=iters, counts=counts, diags=model.diagnostics(state),
                 fields={k: multihost.to_host_replicated(getattr(state, k), d)
                         for k in STATE_FIELDS},
-                rows=(d.j0, d.j1))
+                block=(d.j0, d.j1, d.i0, d.i1))
 
 
 def read_restart(cfg, directory):
-    """This rank's slab of a sharded restart, gathered, and the rows it
+    """This rank's block of a sharded restart, gathered, and the block it
     read."""
     d = multihost.global_mesh(cfg)
     state, n = sharded_restart.read_sharded_restart(directory, cfg, mesh=d,
                                                     device="cpu")
-    return dict(n=n, slab=state, rows=(d.j0, d.j1),
+    return dict(n=n, slab=state, block=(d.j0, d.j1, d.i0, d.i1),
                 whole={k: multihost.to_host_replicated(getattr(state, k), d)
                        for k in STATE_FIELDS})
 
 
-def gather_scatter(whole):
-    """Round trips of a whole field through the slabs: scattered from rank
-    0 and from the last rank, then gathered on every rank."""
-    d = _mesh(*whole.shape[-2:])
-    a = multihost.make_global_array(whole if d.rank == 0 else None, d)
-    last = d.py - 1
+def gather_scatter(whole, shape):
+    """Round trips of a whole field through the blocks of a (py, px) mesh:
+    scattered from rank 0 and from the last rank, then gathered on every
+    rank."""
+    d = _mesh(shape, *whole.shape[-2:])
+    a = multihost.make_global_array(whole if d.rank == 0 else None, d,
+                                    device="cpu")
+    last = d.py * d.px - 1
     b = multihost.make_global_array(whole if d.rank == last else None, d,
-                                    src=last)
+                                    src=last, device="cpu")
     sl = multihost.process_local_slice(whole.shape, d)
     return dict(from_root=multihost.to_host_replicated(a, d),
                 from_last=multihost.to_host_replicated(b, d),
                 slab_equal=bool(torch.equal(a, torch.as_tensor(whole[sl]))),
-                rows=(d.j0, d.j1))
+                block=(d.j0, d.j1, d.i0, d.i1))
 
 
-def shifts(f, ew, ns):
-    """Every north-south shift of ``stencil.BC`` on the slabs of ``f``."""
-    d = _mesh(*f.shape[-2:], tripole=ns == "tripole")
+#: the fold's locations and kinds the shifts are held in
+FOLD_CASES = [(loc, kind) for loc in ("center", "necorner", "eface", "nface")
+              for kind in ("scalar", "vector")]
+
+
+def shifts(f, ew, ns, shape):
+    """Every shift of ``stencil.BC`` on the blocks of ``f`` on a (py, px)
+    mesh: the eight neighbours, the distance-2 north shift, the fold's
+    ghost rows of every location and kind, ``n_partner`` and the top row's
+    symmetry; then the distance-1 shifts given their halo, all fetched in
+    one exchange."""
+    d = _mesh(shape, *f.shape[-2:], tripole=ns == "tripole",
+              cyclic=ew == "cyclic")
     bc = BC(ew, ns)
     x = d.slab(torch.as_tensor(f))
-    ops = {"n": bc.n, "s": bc.s, "ne": bc.ne, "nw": bc.nw, "se": bc.se,
-           "sw": bc.sw, "nn": bc.nn,
-           "n_corner_vec": functools.partial(bc.n, loc="necorner",
-                                             kind="vector"),
-           "nn_nface": functools.partial(bc.nn, loc="nface"),
+    ops = {"n": bc.n, "s": bc.s, "e": bc.e, "w": bc.w, "ne": bc.ne,
+           "nw": bc.nw, "se": bc.se, "sw": bc.sw, "nn": bc.nn,
            "n_partner": functools.partial(bc.n_partner, partner=x * 2.0,
-                                          loc="nface", kind="vector")}
+                                          loc="nface", kind="vector"),
+           "n_partner_corner": functools.partial(
+               bc.n_partner, partner=x * 3.0, loc="necorner")}
+    for loc, kind in FOLD_CASES:
+        ops[f"n_{loc}_{kind}"] = functools.partial(bc.n, loc=loc, kind=kind)
+        ops[f"nn_{loc}_{kind}"] = functools.partial(bc.nn, loc=loc,
+                                                    kind=kind)
+        ops[f"ne_{loc}_{kind}"] = functools.partial(bc.ne, loc=loc,
+                                                    kind=kind)
+        ops[f"nw_{loc}_{kind}"] = functools.partial(bc.nw, loc=loc,
+                                                    kind=kind)
     from pop2_tpu_torch.tripole import enforce_top_symmetry
     with pmesh.scope(d):
         out = {k: op(x) for k, op in ops.items()}
         out["symmetry"] = enforce_top_symmetry(x)
-        # the distance-1 shifts given their rows, fetched in one exchange
+        out["symmetry_nface"] = enforce_top_symmetry(x, "nface", "scalar")
+        # the distance-1 shifts given their halo, fetched in one exchange
         e0 = d.comm.exchanges
         rows, = bc.halo([x])
-        for k in ("n", "s", "ne", "nw", "se", "sw"):
+        for k in ("n", "s", "e", "w", "ne", "nw", "se", "sw"):
             out["rows_" + k] = getattr(bc, k)(x, rows=rows)
         out["rows_n_corner_vec"] = bc.n(x, "necorner", "vector", rows=rows)
         exchanges = d.comm.exchanges - e0
@@ -162,8 +185,8 @@ def shifts(f, ew, ns):
 
 def forced_run(cfg, nsteps, inputs):
     """``nsteps`` of a forced run of ``cfg`` as a standalone caller composes
-    it around ``Model.advance``, on this rank's slab (``mesh_shape``
-    (ranks, 1)) or, for ``mesh_shape`` (1, 1), on the whole domain: the
+    it around ``Model.advance``, on this rank's block of its
+    ``mesh_shape`` or, for ``mesh_shape`` (1, 1), on the whole domain: the
     bulk-NCEP freshwater flux (its weak restoring's global mean and the
     precipitation total) with the precipitation balance's accumulator,
     marginal-seas balancing of a region given by global (j, i) points, the
@@ -250,3 +273,4 @@ def suite(calls):
 def suite_results(per_rank, calls):
     """Each rank's ``suite`` results keyed by the calls' names."""
     return [{c[0]: r for c, r in zip(calls, res)} for res in per_rank]
+
