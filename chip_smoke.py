@@ -105,7 +105,7 @@ the fold), the tracer kernel with the top U row's DXU opened
 An overflow phase runs the 'mini' preset with the overflows of the JAX
 package's tests on the card against the same on the CPU.
 The ``cpl`` phase runs prod_file's float32 configuration under the coupler
-cap (``OcnComponent``, six steps a coupling interval): initialize, two
+cap (``OcnComponent``, three steps a coupling interval): initialize, two
 intervals of seeded SI import fields (the first ending in a restart written
 on request), a second component resumed from that restart whose second
 interval's export must equal the first's bitwise, every export field inside
@@ -132,7 +132,8 @@ new captured step, bitwise equal to ``advance``. The plain
 parts the last three paths add (Polzin, NIW, del4, the TSU subtraction)
 are timed at full size (``menu_parts_phase``). It
 compares a step with the kernels against a step with the plain versions
-(and, in float32, both against the float64 run) on the core, gm_full,
+(and, in float32 on core, gm_full, prod_full and prod_bgc, both against
+the float64 run) on the core, gm_full,
 prod_dyn, prod_mix, prod_full, prod_vmix, prod_hmix, core_topo, prod_eg,
 prod_aniso, core_lw, prod_pbc, gm_pbc, prod_forced, prod_bgc, prod_file
 and gx3v7 paths,
@@ -141,12 +142,16 @@ and times the build of a step's forcing (``forcing_phase``),
 holds the partial-bottom-cell (PBC) instances of thomas, the tracer and the
 momentum kernels against their plain versions on stepped bottoms whose
 every column ends in a partial cell (``pbc_kernel_phase``), breaks
-prod_full's step time down by part and by device kernel (from rest and
-from a stratified state with slopes for GM to work on), compares the
-GPU path with the CPU path on a small grid, and runs prod_full decomposed
-over two ranks on the card (``ranks_phase``: y slabs of 192 rows, gloo,
-b4b sums, against the whole domain; each stencil kernel halo'd on its
-slab). Every phase that fails makes the script exit non-zero; with no
+prod_full's step time down by part and by device kernel (from a
+stratified state with slopes for GM to work on), compares the GPU path
+with the CPU path on a small grid, and runs prod_full decomposed over
+ranks of the card (``ranks_phase``: y slabs of 192 rows and (2, 2)
+blocks, gloo, b4b sums, against the whole domain: float64 through
+``advance``, float32 through ``run_compiled`` with a tavg stream of every
+field, its file bytewise the whole domain's; each stencil kernel halo'd
+on its block; on (2, 2) the ecosystem, the coupler cap and the overflows
+at a small size). Every phase that fails makes the script exit non-zero;
+with no
 GPU it exits at once without a result. It takes no arguments: every run
 is the whole check.
 
@@ -159,6 +164,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import inspect
 import itertools
@@ -203,34 +209,22 @@ from pop2_tpu_torch.grid import (bottom_cells, bottom_planes,  # noqa: E402
                                  partial_bottom_cells, vertical_dz)
 from pop2_tpu_torch.model import Model  # noqa: E402
 from pop2_tpu_torch.ocn_component import OcnComponent  # noqa: E402
-from pop2_tpu_torch import stencil as stencil_mod  # noqa: E402
 from pop2_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from pop2_tpu_torch.parallel import multihost  # noqa: E402
 from pop2_tpu_torch.state import initial_state  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 20240613
-# steps per path and dtype: an Euler step, leapfrog steps and (float32, from
-# step 17 on) an averaging step
-STEPS = {"core": {"float32": 20, "float64": 6},
-         "gm_full": {"float32": 20, "float64": 8},
-         "gm_flux": {"float32": 4, "float64": 3},
-         "prod_dyn": {"float32": 6, "float64": 4},
-         "prod_mix": {"float32": 6, "float64": 4},
-         "prod_full": {"float32": 6, "float64": 4},
-         "prod_flux": {"float32": 4, "float64": 3},
-         "prod_vmix": {"float32": 6, "float64": 4},
-         "prod_hmix": {"float32": 6, "float64": 4},
-         "core_topo": {"float32": 4, "float64": 4},
-         "prod_eg": {"float32": 4, "float64": 3},
-         "prod_aniso": {"float32": 4, "float64": 3},
-         "core_lw": {"float32": 6, "float64": 4},
-         "prod_pbc": {"float32": 6, "float64": 4},
-         "gm_pbc": {"float32": 4},
-         "prod_forced": {"float32": 6, "float64": 4},
-         "prod_file": {"float32": 6, "float64": 4},
-         "gx3v7": {"float32": 4, "float64": 4},
-         "prod_bgc": {"float32": 4, "float64": 3}}
+# eager steps per path and dtype: an Euler step and leapfrog steps (cut for
+# the script's time limit; the averaging step runs in run_loop_phase's core
+# and gm_full runs, at step 17)
+STEPS = {path: {"float32": 3, "float64": 2}
+         for path in ("core", "gm_full", "gm_flux", "prod_dyn", "prod_mix",
+                      "prod_full", "prod_flux", "prod_vmix", "prod_hmix",
+                      "core_topo", "prod_eg", "prod_aniso", "core_lw",
+                      "prod_pbc", "gm_pbc", "prod_forced", "prod_file",
+                      "gx3v7", "prod_bgc")}
+del STEPS["gm_pbc"]["float64"]
 N_TIMED = 20     # timed launches per kernel, after warm-up
 # a horizontal size that no tile of the kernels divides (nx, ny), and the
 # level counts held there: one level, and the kernels' bound of 64
@@ -2681,11 +2675,19 @@ def bgc_inputs(cfg, seed: int):
     points), T by 0.3 K, the old level's passive tracers by 1 %, and a
     forcing with shortwave, a 5-10 m/s wind and sea ice over part of the
     surface: NumPy float64, made on the host from the config alone, the
-    same for any device; with the packages."""
+    same for any device and either dtype; with the packages."""
     from pop2_tpu_torch.passive_tracers import PassiveTracers
-    c64 = cfg.with_(dtype="float64")
+    return (*_bgc_arrays(cfg.with_(dtype="float64"), seed),
+            PassiveTracers(cfg, cfg.passive_tracers))
+
+
+@functools.lru_cache(maxsize=1)
+def _bgc_arrays(c64, seed: int):
+    """``bgc_inputs``' arrays, made once a float64 config and seed (at full
+    size they take seconds on the host)."""
+    from pop2_tpu_torch.passive_tracers import PassiveTracers
     grid = build_grid(c64, "cpu")
-    passive = PassiveTracers(cfg, cfg.passive_tracers)
+    passive = PassiveTracers(c64, c64.passive_tracers)
     cur = initial_state(c64, grid, "cpu",
                         passive=passive).tracer_cur.numpy().copy()
     rng = np.random.default_rng(seed)
@@ -2701,7 +2703,7 @@ def bgc_inputs(cfg, seed: int):
         shf_qsw=4.0e-3 * np.abs(rng.standard_normal(shape)) * mt[0],
         u10_sqr=U10_SQR * (0.5 + rng.random(shape)),
         ifrac=np.clip(1.5 * rng.random(shape) - 0.5, 0.0, 1.0))
-    return old * mt, cur * mt, forcing, passive
+    return old * mt, cur * mt, forcing
 
 
 def bgc_phase(n_timed: int = 5):
@@ -2770,6 +2772,7 @@ def bgc_phase(n_timed: int = 5):
         device_ms[dtype_name] = {n: captured_ms(fn, n_timed)
                                  for n, fn in fns.items()}
         del fns
+    _bgc_arrays.cache_clear()
     emit({"phase": "bgc_parts", "dims": [cfg.nx, cfg.ny, 60],
           "plain_ms": ms, "captured_device_ms": device_ms,
           "note": "a step runs the carbonate solve three times"})
@@ -3262,16 +3265,24 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+# the paths whose kernel-vs-plain run is held in float32 too (the others in
+# float64 alone, for the script's time limit)
+PLAIN_F32_PATHS = ("core", "gm_full", "prod_full", "prod_bgc")
+
+
 def path_vs_plain_phase(path: str, nsteps: int = 2):
     """nsteps with the kernels against nsteps with the plain versions forced,
-    same initial state, at full size: float64 first, then float32, where both
-    runs are also held against the float64 run (the witness that their
-    difference is float32 rounding and not a fault of a kernel). The GM path
-    starts from the stratified state, so that GM has slopes to work on."""
+    same initial state, at full size: float64 first, then on
+    PLAIN_F32_PATHS float32, where both runs are also held against the
+    float64 run (the witness that their difference is float32 rounding and
+    not a fault of a kernel). The GM path starts from the stratified state,
+    so that GM has slopes to work on."""
     ref = None
     stratified = path not in ("core", "core_topo")
     on_path = [k for k, v in expected_counts(path, nsteps).items() if v]
-    for dtype_name in ("float64", "float32"):
+    dtypes = (("float64", "float32") if path in PLAIN_F32_PATHS
+              else ("float64",))
+    for dtype_name in dtypes:
         cfg = full_config(dtype_name, path)
         reset_counts()
         s_kernel, it_k = _run_steps(cfg, nsteps, stratified=stratified,
@@ -3435,16 +3446,16 @@ def breakdown_phase(path: str, dtype_name: str, stratified: bool = False,
 # gm_full take an averaging step at 17 between captured steps, the
 # production paths (the Robert filter) none; prod_vmix jumps its calendar
 # halfway
-RUN_LOOP = (("core", "float32", 20), ("gm_full", "float32", 20),
-            ("prod_full", "float32", 8), ("prod_full", "float64", 8),
-            ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 6),
-            ("core_topo", "float32", 6), ("prod_eg", "float32", 6),
-            ("prod_aniso", "float32", 6), ("core_lw", "float32", 6),
-            ("prod_pbc", "float32", 6), ("prod_forced", "float32", 6),
-            ("prod_bgc", "float32", 5), ("prod_bgc", "float64", 4),
+RUN_LOOP = (("core", "float32", 18), ("gm_full", "float32", 18),
+            ("prod_full", "float32", 4), ("prod_full", "float64", 4),
+            ("prod_vmix", "float32", 8), ("prod_hmix", "float32", 4),
+            ("core_topo", "float32", 4), ("prod_eg", "float32", 4),
+            ("prod_aniso", "float32", 4), ("core_lw", "float32", 4),
+            ("prod_pbc", "float32", 4), ("prod_forced", "float32", 4),
+            ("prod_bgc", "float32", 4), ("prod_bgc", "float64", 4),
             ("prod_file", "float32", 4))
-RUN_LOOP_MORE = 4  # steps more, captured alone, for steps/s and the audit
-RESTART_STEPS = 3  # prod_full float32: 3 + write + read + 3 against 6
+RUN_LOOP_MORE = 2  # steps more, captured alone, for steps/s and the audit
+RESTART_STEPS = 2  # prod_full float32: 2 + write + read + 2 against 4
 
 
 @contextlib.contextmanager
@@ -3712,9 +3723,11 @@ def run_loop_phase(path: str, dtype_name: str, nsteps: int):
 
 
 # tavg_phase: the interval of its stream (steps), and the paths and dtypes
-# it runs (prod_full's 8 steps of RUN_LOOP and RUN_LOOP_MORE more)
+# it runs (prod_full's 4 steps and TAVG_MORE more, the second write among
+# them)
 TAVG_FREQ = 4
-TAVG = (("prod_full", "float32", 8), ("prod_full", "float64", 4))
+TAVG_MORE = 4
+TAVG = (("prod_full", "float32", 4), ("prod_full", "float64", 4))
 
 
 def probe_fields(model, forcing):
@@ -3785,7 +3798,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
     """``Model.run_compiled`` with one step-frequency tavg stream of every
     field the configuration evaluates (interval TAVG_FREQ) against
     ``Model.run`` (eager ``advance``), from one state at full size,
-    ``nsteps`` + RUN_LOOP_MORE steps: every accumulator at each write and
+    ``nsteps`` + TAVG_MORE steps: every accumulator at each write and
     the state bitwise equal, iterations equal, launch counts equal (the
     chain kernel with its diagnostic columns and the flux assembly's
     tripole row once a step, the search kernel twice: in the step and in
@@ -3846,7 +3859,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
     parts = {"model_and_probe": time.perf_counter() - t_phase}
     rewind()
     (s_e, it_e), t_e, n_e, mem_e = _timed(eager)
-    (s_e, it_e2), t_more_e, _, _ = _timed(lambda: eager(s_e, RUN_LOOP_MORE))
+    (s_e, it_e2), t_more_e, _, _ = _timed(lambda: eager(s_e, TAVG_MORE))
     snaps_eager, w_eager = list(snaps), sum(write_s)
     snaps.clear()
     write_s.clear()
@@ -3860,7 +3873,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
                              "replayed no graph")
     # steps past the run, captured, with one write (whose file is kept)
     keep_file[0] = True
-    (s_c, it_c2), syncs = sync_points(lambda: compiled(s_c, RUN_LOOP_MORE))
+    (s_c, it_c2), syncs = sync_points(lambda: compiled(s_c, TAVG_MORE))
     n_writes_audited = 1
     n_snaps = len(snaps)
     bitwise_acc = n_snaps == len(snaps_eager) and all(
@@ -3901,7 +3914,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
     del new, extras, aux
     tmp.cleanup()
 
-    total = nsteps + RUN_LOOP_MORE
+    total = nsteps + TAVG_MORE
     stray = {k: v for k, v in syncs.items() if k not in reads | writes}
     n_write_reads = sum(v for k, v in syncs.items() if k in writes)
     per_step = {k: n_c[k] / nsteps for k in ("gm_chain", "gm_chain_diags",
@@ -3909,7 +3922,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
                                              "gm_tlt", "gm_slope")}
     out = {"phase": "tavg", "path": path, "dtype": dtype_name,
            "dims": [cfg.nx, cfg.ny, cfg.km], "nt": cfg.nt,
-           "steps": [nsteps, RUN_LOOP_MORE], "freq_steps": TAVG_FREQ,
+           "steps": [nsteps, TAVG_MORE], "freq_steps": TAVG_FREQ,
            "fields": len(fields),
            "fields_3d": sum(tavg.FIELDS[n].ndims == 3 for n in fields),
            "fields_raising": raising,
@@ -3929,7 +3942,7 @@ def tavg_phase(path: str, dtype_name: str, nsteps: int, no_stream: dict):
            "graphs": cap.graphs, "replays": cap.replays,
            "capture_seconds": cap.capture_seconds,
            "seconds_eager": t_e, "seconds_captured": t_c,
-           "steps_per_s_leapfrog_eager_with_a_write": RUN_LOOP_MORE
+           "steps_per_s_leapfrog_eager_with_a_write": TAVG_MORE
            / t_more_e,
            "steps_per_s_leapfrog_captured": n_between / t_more_c,
            "device_busy_share_captured": (device_ms * n_between
@@ -4293,9 +4306,9 @@ def ebm_conditioning(inputs, got, want, n_perturb: int = 3):
     return out
 
 
-# the coupler cap: six steps an interval (prod_full's 24 steps a day), and
+# the coupler cap: three steps an interval (prod_full's 24 steps a day), and
 # each export field's physical range on the ocean points
-CPL_INTERVAL = dict(coupling_freq_opt="nhour", coupling_freq=6)
+CPL_INTERVAL = dict(coupling_freq_opt="nhour", coupling_freq=3)
 EXPORT_RANGES = {"So_t": (271.0, 310.0), "So_s": (20.0, 42.0),
                  "So_u": (-3.0, 3.0), "So_v": (-3.0, 3.0),
                  "So_dhdx": (-1e-3, 1e-3), "So_dhdy": (-1e-3, 1e-3),
@@ -4341,13 +4354,13 @@ def export_ranges(o2x, mask):
 
 def cpl_phase():
     """The coupler cap at full width: ``OcnComponent`` on prod_file's
-    float32 configuration, six steps a coupling interval. ``initialize``,
+    float32 configuration, three steps a coupling interval. ``initialize``,
     then two intervals under seeded import fields, the first ending in a
     restart written on request (``rstwr``); a second component resumed from
     that restart runs the second interval again, and its export must equal
     the first component's bitwise. Every export field finite and inside its
     physical range; the launches of each interval through the wrappers'
-    counters (the first interval's those of six steps of prod_file from
+    counters (the first interval's those of three steps of prod_file from
     rest); the seconds an interval takes and the import and export in ms.
     Then the same first interval on the small file grid in float64, the
     GPU against the CPU, within small_vs_cpu_phase's band."""
@@ -4497,15 +4510,22 @@ def spai_phase():
 # same run on the whole domain: y slabs of 192 rows, and 2-D blocks of
 # 192 x 160 whose top row holds the tripole fold across two ranks
 RANKS_MESHES = ((2, 1), (2, 2))
-RANKS_STEPS = 3
+# float64, on every mesh: steps of Model.advance
+RANKS_STEPS = 2
+# float32, on (2, 2) (the y slabs' float32 run left out for the script's
+# time limit): through Model.run_compiled, steps without a stream, then a
+# tavg stream of every field prod_full evaluates, written once after as
+# many steps again as its interval
+RANKS_STREAM_STEPS = (2, 4)
 # the decomposed fields against the whole domain's in the same dtype, of
-# scale: float64 and float32 alike (a fault in one dtype's halo or staging
-# would show at any band above the rounding of the other)
+# scale: float64 through advance (a fault in one dtype's halo or staging
+# would show at any band above the rounding of the other); the float32 run
+# through run_compiled with its stream bitwise
 RANKS_BAND64 = 1e-12
-# steps on from the checked ones on the y slabs, in turns: each shift
-# exchanging its own halo ("unbatched") and a stencil's halo fetched in one
-# exchange (``stencil.BC.halo``, "batched")
-RANKS_AB = ("unbatched", "batched")
+# the small configurations held on (2, 2) blocks in the same ranks (their
+# shape: 64 x 48 x 12; the overflows on the 'mini' grid their specs index)
+RANKS_SMALL = dict(nx=64, ny=48, km=12, vert_grid="uniform")
+RANKS_SMALL_STEPS = 2
 # which wrapper counts a halo'd launch, and its kernel
 RANKS_KERNELS = {"tracer_upwind3": (tracer_cuda, "tracer_tendency"),
                  "clinic": (clinic_cuda, "clinic_rhs_fields"),
@@ -4607,72 +4627,65 @@ def ranks_kernel_checks(dtype_name: str, mesh):
     return out
 
 
-def ranks_batching_ab(model, state, forcing):
-    """{mode: [(step ms, exchanges)]} of the steps of RANKS_AB, each
-    after the last: what a stencil's rows fetched in one exchange save
-    against each shift exchanging its own (``stencil.BC.halo`` returning
-    no rows, which every shift then fetches itself)."""
-    mesh = model.mesh
-    batched = vars(stencil_mod.BC)["halo"]
-    out = {mode: [] for mode in RANKS_AB}
-    for mode in RANKS_AB:
-        if mode == "unbatched":
-            stencil_mod.BC.halo = staticmethod(
-                lambda fields: [None] * len(fields))
-        try:
-            e0 = mesh.comm.exchanges
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = model.advance(state, forcing)
-            torch.cuda.synchronize()
-            out[mode].append((1e3 * (time.perf_counter() - t0),
-                              mesh.comm.exchanges - e0))
-        finally:
-            stencil_mod.BC.halo = batched
-    return out
-
-
-def ranks_worker(runs, shape):
+def ranks_worker(plan, shape):
     """One rank of ``ranks_phase`` (run by ``multihost.spawn_ranks``): each
-    of ``runs``, (dtype, steps, tracers file), in turn on this rank's block
-    of a ``shape`` mesh (``ranks_run``), the card's memory released and its
-    peak reset between them. Returns {dtype: the run's record}."""
+    run of ``plan`` in turn on this rank's block of a ``shape`` mesh (the
+    float64 ``advance`` run, ``ranks_run``; the float32 ``run_compiled``
+    run with its stream, ``ranks_stream_run``; with ``small``, the small
+    configurations, ``small_checks``), the card's memory released and its
+    peak reset between them. Returns {run: its record}."""
     out = {}
-    for dtype_name, nsteps, tracers_file in runs:
+    for name, fn, args in plan:
         torch.cuda.reset_peak_memory_stats()
-        out[dtype_name] = ranks_run(dtype_name, nsteps, tracers_file, shape)
+        out[name] = fn(*args, shape)
+        out[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def ranks_run(dtype_name: str, nsteps: int, tracers_file: str, shape):
-    """prod_full with b4b on this rank's block of a ``shape`` mesh, ``nsteps``
-    of ``Model.advance`` from the stratified tracers in ``tracers_file``
-    under the path's forcing, each step timed; its launch counts and
-    exchanges; the gathered fields (rank 0); on the y slabs the steps of
-    RANKS_AB; then the kernels' halo'd launches (``ranks_kernel_checks``);
-    the seconds of each part."""
+def _parts():
+    """(seconds of each part, ``part(name)`` closing the one since the
+    last)."""
     part_s = {}
-    t_part = time.perf_counter()
+    t_part = [time.perf_counter()]
 
     def part(name):
-        nonlocal t_part
         torch.cuda.synchronize()
         now = time.perf_counter()
-        part_s[name] = now - t_part
-        t_part = now
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+    return part_s, part
 
+
+def ranks_model(dtype_name: str, tracers_file: str, shape):
+    """(model, state, forcing) of prod_full with b4b on this rank's block
+    of a ``shape`` mesh (the whole domain for (1, 1)) from the stratified
+    tracers in ``tracers_file``, under the path's forcing."""
     cfg = full_config(dtype_name, "prod_full").with_(
         b4b=True, mesh_shape=tuple(shape))
-    model = Model(cfg, device=multihost.local_device())
+    model = Model(cfg, device=DEV)
     mesh = model.mesh
-    tracers = mesh.slab(torch.load(tracers_file)).to(DEV)
+    tracers = torch.load(tracers_file)
+    if mesh is not None:
+        tracers = mesh.slab(tracers)
+    tracers = tracers.to(DEV)
     rho = baroclinic._masked_density(model.step_cfg, model.grid,
                                      model.ts_range, tracers)
     state = model.initial_state().replace(
         tracer_cur=tracers, tracer_old=tracers, rho_cur=rho, rho_old=rho)
-    forcing = path_forcing(model)
+    return model, state, path_forcing(model)
+
+
+def ranks_run(dtype_name: str, nsteps: int, tracers_file: str, shape):
+    """prod_full with b4b on this rank's block of a ``shape`` mesh,
+    ``nsteps`` of ``Model.advance`` from the stratified tracers in
+    ``tracers_file`` under the path's forcing, each step timed; its launch
+    counts and exchanges; the gathered fields (rank 0); then the kernels'
+    halo'd launches (``ranks_kernel_checks``); the seconds of each part."""
+    part_s, part = _parts()
+    model, state, forcing = ranks_model(dtype_name, tracers_file, shape)
+    mesh = model.mesh
     part("model")
     reset_counts()
     mesh.comm.reset_counts()
@@ -4689,10 +4702,7 @@ def ranks_run(dtype_name: str, nsteps: int, tracers_file: str, shape):
     fields = {name: multihost.to_host_replicated(getattr(state, name), mesh)
               for name in PATH_FIELDS + ("tracer_cur",)}
     part("gather")
-    ab = (ranks_batching_ab(model, state, forcing) if mesh.px == 1
-          else None)
-    part("batching_ab")
-    del model, state, forcing, tracers, rho
+    del model, state, forcing
     gc.collect()
     torch.cuda.empty_cache()
     mesh.comm.reset_counts()
@@ -4702,23 +4712,186 @@ def ranks_run(dtype_name: str, nsteps: int, tracers_file: str, shape):
     return {"rank": mesh.rank, "block": [mesh.j0, mesh.j1, mesh.i0,
                                          mesh.i1], "part_seconds": part_s,
             "fold": mesh.fold, "iters": iters, "step_ms": ms,
-            "counts": counts, "comm": comm, "kernels": kernels, "ab": ab,
-            "fields": fields if mesh.rank == 0 else None,
-            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "counts": counts, "comm": comm, "kernels": kernels,
+            "fields": fields if mesh.rank == 0 else None}
+
+
+def stream_steps(model, state, forcing, fields, outdir):
+    """RANKS_STREAM_STEPS[0] steps of ``Model.run_compiled`` (one a call,
+    each timed), a tavg stream of ``fields`` every RANKS_STREAM_STEPS[1]
+    steps into ``outdir``, then that many steps more (the last writes).
+    The same on the whole domain (captured from the stream's second step)
+    and on a rank's block (uncaptured). Returns (state, record): the
+    iterations and ms of every step, the launches of the whole run, the
+    exchanges without and with the stream (a rank's), the write's seconds
+    (a rank's part of the gather and, on rank 0, the file) and the files."""
+    mesh = model.mesh
+    comm = mesh.comm if mesh is not None else None
+    iters, ms, counts = [], [], {}
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diags = model.run_compiled(state, 1, forcing)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            iters.append(int(diags.solver_iters))
+    n0, n1 = RANKS_STREAM_STEPS
+    reset_counts()
+    if comm is not None:
+        comm.reset_counts()
+    steps(n0)
+    if comm is not None:
+        counts["without_stream"] = comm.counts()
+        comm.reset_counts()
+    os.makedirs(outdir, exist_ok=True)
+    stream = model.enable_tavg(fields, freq_steps=n1, outdir=outdir)
+    write, write_s = stream.write, []
+
+    def timed_write(path, step_number=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = write(path, step_number)
+        write_s.append(time.perf_counter() - t0)
+        return out
+    stream.write = timed_write
+    steps(n1)
+    if comm is not None:
+        counts["with_stream"] = comm.counts()
+    cap = model._captured
+    return state, {
+        "iters": iters, "step_ms": ms, "launches": read_counts(),
+        "comm": counts, "write_seconds": write_s,
+        "files": list(model.tavg_files),
+        "accumulator_bytes": stream.buffer.numel()
+        * stream.buffer.element_size(),
+        "graphs": cap.graphs, "uncaptured": cap.uncaptured}
+
+
+def ranks_stream_run(dtype_name: str, tracers_file: str, fields, outdir,
+                     shape):
+    """prod_full with b4b on this rank's block of a ``shape`` mesh through
+    ``run_compiled`` with a tavg stream (``stream_steps``): the gathered
+    fields (rank 0), then the kernels' halo'd launches."""
+    part_s, part = _parts()
+    model, state, forcing = ranks_model(dtype_name, tracers_file, shape)
+    mesh = model.mesh
+    part("model")
+    state, rec = stream_steps(model, state, forcing, fields, outdir)
+    part("steps")
+    fields = {name: multihost.to_host_replicated(getattr(state, name), mesh)
+              for name in PATH_FIELDS + ("tracer_cur",)}
+    part("gather")
+    del model, state, forcing
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.comm.reset_counts()
+    reset_counts()
+    kernels = ranks_kernel_checks(dtype_name, mesh)
+    part("kernels")
+    return {**rec, "rank": mesh.rank, "fold": mesh.fold,
+            "block": [mesh.j0, mesh.j1, mesh.i0, mesh.i1],
+            "part_seconds": part_s, "kernels": kernels,
+            "fields": fields if mesh.rank == 0 else None}
+
+
+def small_checks(outdir: str, shape):
+    """The small configurations on this rank's block of a ``shape`` mesh
+    (the whole domain for (1, 1)), float64 with b4b: prod_bgc's ecosystem
+    at RANKS_SMALL, RANKS_SMALL_STEPS of ``advance``; the coupler cap on
+    prod_full at RANKS_SMALL (an interval of CPL_INTERVAL's steps ending
+    in a restart on request, a second cap on a (1, ranks) mesh resumed
+    from it for a second interval); the 'mini' point-data overflow from
+    dense source water, 5 steps. Returns each run's gathered fields (and
+    the cap's exports) and seconds."""
+    shape = tuple(shape)
+    os.makedirs(outdir, exist_ok=True)
+    mesh = None
+
+    def gather(t):
+        if mesh is None or mesh.comm is None:
+            return t.detach().cpu()
+        return torch.as_tensor(multihost.to_host_replicated(t, mesh))
+
+    def fields_of(state):
+        return {name: gather(getattr(state, name))
+                for name in PATH_FIELDS + ("tracer_cur",)}
+    out, part_s = {}, {}
+    t0 = time.perf_counter()
+    cfg = full_config("float64", "prod_bgc").with_(
+        b4b=True, mesh_shape=shape, **RANKS_SMALL)
+    model = Model(cfg, device=DEV)
+    mesh = model.mesh
+    forcing = path_forcing(model)
+    state = model.initial_state()
+    iters = []
+    for _ in range(RANKS_SMALL_STEPS):
+        state, diags = model.advance(state, forcing)
+        iters.append(int(diags.solver_iters))
+    out["ecosys"] = {"iters": iters, "fields": fields_of(state)}
+    part_s["ecosys"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = full_config("float64", "prod_full").with_(
+        b4b=True, mesh_shape=shape, **RANKS_SMALL)
+    x2o = seeded_x2o(cfg, DEV, SEED + 45)
+    first = OcnComponent(cfg, outdir=outdir, device=DEV, **CPL_INTERVAL)
+    mesh = first.model.mesh
+    exports = [first.gather_export(first.initialize()),
+               first.gather_export(first.run(x2o, rstwr=True))]
+    second = OcnComponent(cfg.with_(mesh_shape=(1, shape[0] * shape[1])),
+                          outdir=outdir, device=DEV, **CPL_INTERVAL)
+    second.initialize(restart_dir=outdir)
+    exports.append(second.gather_export(second.run(x2o)))
+    mesh = second.model.mesh
+    out["cap"] = {"exports": [{k: torch.as_tensor(v) for k, v in e.items()}
+                              for e in exports],
+                  "resumed_at": second.model.nsteps_total,
+                  "fields": fields_of(second.state)}
+    part_s["cap"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = get_config("mini", dtype="float64", b4b=True, mesh_shape=shape,
+                     overflows=(OVF_POINTS,))
+    model = Model(cfg, device=DEV)
+    mesh = model.mesh
+    state = model.initial_state()
+    src = torch.as_tensor(overflows.region_mask3(
+        model.cfg, model.ovf_statics, 0, overflows.REG_SRC) > 0, device=DEV)
+    if mesh is not None:
+        src = mesh.slab(src)
+    tracer = state.tracer_cur.clone()
+    tracer[0] = torch.where(src, tracer[0] - 4.0, tracer[0])
+    state = state.replace(tracer_cur=tracer, tracer_old=tracer)
+    iters = []
+    for _ in range(5):
+        state, diags = model.advance(state)
+        iters.append(int(diags.solver_iters))
+    out["overflows"] = {"iters": iters, "fields": fields_of(state)}
+    part_s["overflows"] = time.perf_counter() - t0
+    out["part_seconds"] = part_s
+    return out
 
 
 def ranks_phase(nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
     """prod_full at 320 x 384 x 60 on each mesh of ``meshes`` (y slabs of
     192 rows; 2-D blocks of 192 x 160), one process a block on this card
-    over gloo, b4b sums, ``nsteps`` of ``Model.advance`` in float64 and
-    float32, against the same steps on the whole domain: solver iterations
-    identical every step, the fields within RANKS_BAND64 of scale of the
-    whole-domain run in the same dtype, every rank's launch counts those
-    of the whole-domain run; each of the five stencil kernels launched
-    halo'd on its block equal to the whole-domain launch's rows and
-    columns bitwise, with the design it took. Prints the step ms,
-    exchanges, all-reduces and staged bytes a step, peak memory a rank,
-    and on the y slabs the steps of RANKS_AB."""
+    over gloo, b4b sums, against the same steps on the whole domain:
+    ``nsteps`` of ``Model.advance`` in float64, and on (2, 2) in float32
+    ``Model.run_compiled`` with a tavg stream of every field prod_full
+    evaluates (``stream_steps``). Solver iterations identical every step,
+    the fields within RANKS_BAND64 of scale of the whole-domain run in
+    float64 and equal in float32, the stream's file equal to the whole
+    domain's bytewise, every rank's launch counts those of the whole-domain
+    run; each of the five stencil kernels launched halo'd on its block
+    equal to the whole-domain launch's rows and columns bitwise, with the
+    design it took. On (2, 2) the small configurations too
+    (``small_checks``: the ecosystem, the coupler cap, the overflows),
+    bitwise the whole domain's. Prints the step ms, exchanges, all-reduces
+    and staged bytes a step with and without the stream, the write's
+    seconds, peak memory a rank."""
     import chip_smoke as cs  # the ranks import this module by its name
     kernel_counters = [k for k in COUNTERS
                        if not k.endswith(("_fold", "_aniso"))]
@@ -4730,48 +4903,84 @@ def ranks_phase(nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
             state = stratified_state(model, SEED + 7)
             tracers_file = os.path.join(tmp, f"tracers_{dtype_name}.pt")
             torch.save(state.tracer_cur.cpu(), tracers_file)
-            forcing = path_forcing(model)
-            reset_counts()
-            iters, ms = [], []
-            for _ in range(nsteps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, diags = model.advance(state, forcing)
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
-                iters.append(int(diags.solver_iters))
-            wholes[dtype_name] = dict(
-                iters=iters, ms=ms, counts=read_counts(),
-                tracers_file=tracers_file,
-                fields={name: getattr(state, name).cpu()
-                        for name in PATH_FIELDS})
-            del model, state, forcing
+            del model, state
             _MODELS.clear()
             _STRATIFIED.clear()
+            model, state, forcing = ranks_model(dtype_name, tracers_file,
+                                                (1, 1))
+            t0 = time.perf_counter()
+            if dtype_name == "float64":
+                reset_counts()
+                iters, ms = [], []
+                for _ in range(nsteps):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    state, diags = model.advance(state, forcing)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t1))
+                    iters.append(int(diags.solver_iters))
+                rec = {"iters": iters, "step_ms": ms,
+                       "launches": read_counts()}
+            else:
+                stream_fields, raising = probe_fields(model, forcing)
+                if raising:
+                    raise AssertionError(f"ranks: tavg fields raising "
+                                         f"{sorted(raising)}")
+                state, rec = stream_steps(
+                    model, state, forcing, stream_fields,
+                    os.path.join(tmp, "whole"))
+                rec["stream_fields"] = len(stream_fields)
+            rec.update(tracers_file=tracers_file,
+                       seconds=time.perf_counter() - t0,
+                       fields={name: getattr(state, name).cpu()
+                               for name in PATH_FIELDS})
+            wholes[dtype_name] = rec
+            del model, state, forcing
             gc.collect()
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        small_whole = small_checks(os.path.join(tmp, "cpl_whole"), (1, 1))
+        small_whole["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
         ref = wholes["float64"]["fields"]
         for shape in meshes:
-            # both dtypes in one start of the ranks
+            tag = f"{shape[0]}x{shape[1]}"
+            plan = [("float64", cs.ranks_run,
+                     ("float64", nsteps, wholes["float64"]["tracers_file"]))]
+            if shape == (2, 2):
+                plan += [("float32", cs.ranks_stream_run,
+                          ("float32", wholes["float32"]["tracers_file"],
+                           stream_fields, os.path.join(tmp, tag))),
+                         ("small", cs.small_checks,
+                          (os.path.join(tmp, f"cpl_{tag}"),))]
             t0 = time.perf_counter()
             res = multihost.spawn_ranks(
                 cs.ranks_worker, shape[0] * shape[1], backend="gloo",
-                device="cuda", args=([(d, nsteps, w["tracers_file"])
-                                      for d, w in wholes.items()],
-                                     tuple(shape)), timeout=900)
+                device="cuda", args=(plan, tuple(shape)), timeout=900)
             spawn_s = time.perf_counter() - t0
             for dtype_name, w in wholes.items():
-                ranks_check(dtype_name, tuple(shape), nsteps, w,
-                            [r[dtype_name] for r in res], ref,
-                            kernel_counters, spawn_s)
+                if dtype_name in res[0]:
+                    ranks_check(dtype_name, tuple(shape), w,
+                                [r[dtype_name] for r in res], ref,
+                                kernel_counters, spawn_s)
+            if shape == (2, 2):
+                small_check(small_whole, [r["small"] for r in res])
 
 
-def ranks_check(dtype_name, shape, nsteps, whole, res, ref, kernel_counters,
+def _file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def ranks_check(dtype_name, shape, whole, res, ref, kernel_counters,
                 spawn_s):
     """Holds one mesh's decomposed run in one dtype (``res``, a record a
     rank) against the whole domain's (``whole``) and prints it; raises
     where it differs."""
-    iters, ms, whole_counts = whole["iters"], whole["ms"], whole["counts"]
+    iters, whole_counts = whole["iters"], whole["launches"]
+    nsteps = len(iters)
+    stream = dtype_name == "float32"
     got = {k: torch.as_tensor(v) for k, v in res[0]["fields"].items()
            if k in PATH_FIELDS}
     diffs = {}
@@ -4782,7 +4991,7 @@ def ranks_check(dtype_name, shape, nsteps, whole, res, ref, kernel_counters,
         w = whole["fields"][name]
         diffs[name] = float((got[name] - w).abs().max()) / (
             float(w.abs().max()) or 1.0)
-    band = dict.fromkeys(diffs, RANKS_BAND64)
+    band = dict.fromkeys(diffs, 0.0 if stream else RANKS_BAND64)
     # a reading only: the float32 run's distance from float64
     witness = None if dtype_name == "float64" else {
         name: float((whole["fields"][name].double() - ref[name]).abs()
@@ -4792,41 +5001,105 @@ def ranks_check(dtype_name, shape, nsteps, whole, res, ref, kernel_counters,
     for r in res:
         if r["iters"] != iters:
             broken[f"iters_rank{r['rank']}"] = (r["iters"], iters)
-        bad = {k: (r["counts"][k], whole_counts[k])
+        key = "launches" if stream else "counts"
+        bad = {k: (r[key][k], whole_counts[k])
                for k in kernel_counters
-               if r["counts"][k] != whole_counts[k]}
+               if r[key][k] != whole_counts[k]}
         if bad:
             broken[f"launches_rank{r['rank']}"] = bad
         for name, k in r["kernels"].items():
             if not k["bitwise"] or (k["launches_halo"]
                                     != k["launches_whole"]):
                 broken[f"{name}_rank{r['rank']}"] = k
-    comm = [r["comm"] for r in res]
-    emit({"phase": "ranks", "path": "prod_full", "dtype": dtype_name,
-          "backend": "gloo", "mesh": list(shape), "ranks": len(res),
-          "b4b": True, "blocks": [r["block"] for r in res],
-          "fold_ranks": [r["rank"] for r in res if r["fold"]],
-          "steps": nsteps, "solver_iters": iters,
-          "solver_iters_ranks": [r["iters"] for r in res],
-          "whole_step_ms": ms,
-          "step_ms_ranks": [r["step_ms"] for r in res],
-          "exchanges_per_step": [c["exchanges"] / nsteps for c in comm],
-          "allreduces_per_step": [c["allreduces"] / nsteps for c in comm],
-          "staged_bytes_per_step": [c["staged_bytes"] / nsteps
-                                    for c in comm],
-          "sent_bytes_per_step": [c["sent_bytes"] / nsteps for c in comm],
-          "launches_whole": {k: whole_counts[k] for k in kernel_counters},
-          "launches_fold_ranks": [r["counts"]["gm_flux_fold"] for r in res],
-          "rel_diff": diffs, "band": band,
-          "whole_float32_vs_float64": witness,
-          "kernels": [{"rank": r["rank"], **r["kernels"]} for r in res],
-          "batching_ab_ranks": [r["ab"] for r in res if r["ab"] is not None],
-          "peak_gb_ranks": [r["peak_gb"] for r in res],
-          "part_seconds_ranks": [r["part_seconds"] for r in res],
-          "spawn_seconds_both_dtypes": spawn_s})
+    out = {"phase": "ranks", "path": "prod_full", "dtype": dtype_name,
+           "entry": "run_compiled" if stream else "advance",
+           "backend": "gloo", "mesh": list(shape), "ranks": len(res),
+           "b4b": True, "blocks": [r["block"] for r in res],
+           "fold_ranks": [r["rank"] for r in res if r["fold"]],
+           "steps": nsteps, "solver_iters": iters,
+           "solver_iters_ranks": [r["iters"] for r in res],
+           "whole_step_ms": whole["step_ms"],
+           "step_ms_ranks": [r["step_ms"] for r in res],
+           "launches_whole": {k: whole_counts[k] for k in kernel_counters},
+           "rel_diff": diffs, "band": band,
+           "whole_float32_vs_float64": witness,
+           "kernels": [{"rank": r["rank"], **r["kernels"]} for r in res],
+           "peak_gb_ranks": [r["peak_gb"] for r in res],
+           "part_seconds_ranks": [r["part_seconds"] for r in res],
+           "spawn_seconds": spawn_s}
+    if stream:
+        n0, n1 = RANKS_STREAM_STEPS
+        files = res[0]["files"]
+        same = (len(files) == len(whole["files"]) == 1
+                and _file_bytes(files[0]) == _file_bytes(whole["files"][0]))
+        if not same:
+            broken["tavg_file"] = (files, whole["files"])
+        if any(r["graphs"] != 0 or "gloo" not in r["uncaptured"]
+               for r in res) or not whole["graphs"]:
+            broken["captured"] = [(r["graphs"], r["uncaptured"])
+                                  for r in res] + [whole["graphs"]]
+        per_step = {
+            part: {k: [r["comm"][part][k] / n for r in res]
+                   for k in ("exchanges", "allreduces", "staged_bytes")}
+            for part, n in (("without_stream", n0), ("with_stream", n1))}
+        out.update(
+            stream_fields=whole["stream_fields"],
+            tavg_file_bytes=os.path.getsize(whole["files"][0]),
+            tavg_file_bitwise=same,
+            accumulator_bytes_ranks=[r["accumulator_bytes"] for r in res],
+            graphs_whole=whole["graphs"],
+            uncaptured_ranks=res[0]["uncaptured"],
+            steps_without_and_with_stream=[n0, n1],
+            per_step=per_step,
+            write_seconds_whole=whole["write_seconds"],
+            write_seconds_ranks=[r["write_seconds"] for r in res])
+    else:
+        comm = [r["comm"] for r in res]
+        out.update(
+            exchanges_per_step=[c["exchanges"] / nsteps for c in comm],
+            allreduces_per_step=[c["allreduces"] / nsteps for c in comm],
+            staged_bytes_per_step=[c["staged_bytes"] / nsteps
+                                   for c in comm],
+            sent_bytes_per_step=[c["sent_bytes"] / nsteps for c in comm])
+    emit(out)
     if broken:
         raise AssertionError(f"ranks {shape} {dtype_name}: the decomposed "
                              f"run differs: {broken}")
+
+
+def small_check(whole, res):
+    """Holds the small configurations on (2, 2) blocks (``res``, a record
+    a rank) against the whole domain's bitwise, and prints them."""
+    broken, rel = {}, {}
+    for name in ("ecosys", "cap", "overflows"):
+        w, g = whole[name], res[0][name]
+        for leaf in w["fields"]:
+            d = float((g["fields"][leaf] - w["fields"][leaf]).abs().max())
+            rel[f"{name}:{leaf}"] = d
+            if d != 0.0:
+                broken[f"{name}:{leaf}"] = d
+        if "iters" in w and any(r[name]["iters"] != w["iters"]
+                                for r in res):
+            broken[f"{name}:iters"] = [r[name]["iters"] for r in res]
+    for i, (g, w) in enumerate(zip(res[0]["cap"]["exports"],
+                                   whole["cap"]["exports"])):
+        for k in w:
+            if not torch.equal(g[k], w[k]):
+                broken[f"cap:export{i}:{k}"] = float(
+                    (g[k] - w[k]).abs().max())
+    if res[0]["cap"]["resumed_at"] != whole["cap"]["resumed_at"]:
+        broken["cap:resumed_at"] = res[0]["cap"]["resumed_at"]
+    emit({"phase": "ranks_small", "mesh": [2, 2], "dims": [
+        RANKS_SMALL["nx"], RANKS_SMALL["ny"], RANKS_SMALL["km"]],
+        "checks": ["ecosys (prod_bgc, nt = 39)",
+                   "cap (prod_full, restart resumed on (1, 4))",
+                   "overflows ('mini', point data)"],
+        "max_abs_diff": rel, "exports": len(whole["cap"]["exports"]),
+        "seconds_whole": whole["seconds"],
+        "part_seconds_ranks": [r["part_seconds"] for r in res]})
+    if broken:
+        raise AssertionError(f"ranks small (2, 2): the decomposed runs "
+                             f"differ: {broken}")
 
 
 def ptxas_summary(log: str | None = None):
@@ -4992,10 +5265,9 @@ def main():
                   captured[(path, dtype_name)])
         launches[(path + "_tavg", dtype_name)] = rec["launches"]
         captured[(path + "_tavg", dtype_name)] = rec
-    # where a step's time goes: the production configuration from rest and
-    # from a stratified state (the other paths' breakdowns, kept in PERF.md,
-    # left out for the script's time limit)
-    run(breakdown_phase, "prod_full", "float32")
+    # where a step's time goes: the production configuration from a
+    # stratified state (the breakdown from rest and the other paths', kept
+    # in PERF.md, left out for the script's time limit)
     run(breakdown_phase, "prod_full", "float32", True)
     # the earlier paths over two steps (an Euler and a leapfrog step), the
     # newest over five (the script's time limit)

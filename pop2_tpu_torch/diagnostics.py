@@ -16,9 +16,12 @@ area, the salinity in psu), not ``Model.diagnostics``.
 
 On a block grid of a decomposition (``parallel.mesh``) the means, maxima,
 CFL numbers and the binned transports reduce over every block, so every
-rank reads the whole domain's values; a section's transport (its bounds
-are global indices) and the streamfunction (a sum along y) are ROADMAP.md
-Queue 1 item 12b there and raise.
+rank reads the whole domain's values. A section's transport sums, on each
+block, the part of the section (global indices) the block holds, with the
+b4b sum (on the whole domain too), so its bits do not depend on the
+decomposition; the streamfunction's sum along y runs over the whole
+column on every rank, its column strip fetched from the blocks below and
+above, so its order is the whole domain's.
 """
 
 from __future__ import annotations
@@ -34,14 +37,6 @@ from pop2_tpu_torch.grid import Grid, grid_bc, thickness_u
 from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.reductions import global_max, global_sum, slab_total
 from pop2_tpu_torch.state import State
-
-
-def _whole_domain_only(grid: Grid, what: str) -> None:
-    d = pmesh.of_grid(grid)
-    if d is not None and d.comm is not None:
-        raise NotImplementedError(
-            f"{what} on a block of a decomposition is not ported yet "
-            "(ROADMAP.md Queue 1 item 12b)")
 
 
 class TransportSection(NamedTuple):
@@ -165,39 +160,42 @@ def section_transport(cfg: ModelConfig, grid: Grid, state: State,
     The B-grid face transports follow :2124-2155: through the east face
     of T-cell (i,j), MASS = 0.5*(U(i,j)DYU(i,j) + U(i,j-1)DYU(i,j-1))*dzu
     with the tracer face average 0.5*(T(i+1,j)+T(i,j)); through the north
-    face, the (i-1, j+1) analogues."""
-    _whole_domain_only(grid, "a section's transport (its bounds are "
-                       "global indices)")
-    k0, k1 = section.kmin, section.kmax
-    j0, j1 = section.jmin, section.jmax
-    i0, i1 = section.imin, section.imax
+    face, the (i-1, j+1) analogues. The neighbours are the stencil's shifts
+    (on a block grid with their halos); the section's points are summed
+    with the b4b sum, whose bits are the same on any decomposition."""
     dzu = thickness_u(cfg, grid)
     T, S = state.tracer_cur[0], state.tracer_cur[1]
+    bc = grid_bc(cfg)
+    with pmesh.grid_scope(grid) as d:
+        if section.orient.startswith("merid"):
+            # zonal (U) transport through a meridional section (MASS_M)
+            uh = torch.where(grid.kmask_u,
+                             state.u_cur * grid.DYU[None] * dzu, 0.0)
+            mass = 0.5 * (uh + bc.s(uh))
+            tf = 0.5 * (bc.e(T) + T)
+            sf = 0.5 * (bc.e(S) + S)
+        else:
+            # meridional (V) transport through a zonal section (MASS_Z)
+            vh = torch.where(grid.kmask_u,
+                             state.v_cur * grid.DXU[None] * dzu, 0.0)
+            mass = 0.5 * (vh + bc.w(vh))
+            tf = 0.5 * (bc.n(T) + T)
+            sf = 0.5 * (bc.n(S) + S)
+        km, ny, nx = mass.shape
+        dev = mass.device
+        jg = torch.arange(ny, device=dev)
+        ig = torch.arange(nx, device=dev)
+        if pmesh.over_ranks(d):  # the block's global rows and columns
+            jg, ig = jg + d.j0, ig + d.i0
+        kg = torch.arange(km, device=dev)
+        inside = (((kg >= section.kmin) & (kg <= section.kmax))[:, None,
+                                                                None]
+                  & ((jg >= section.jmin) & (jg <= section.jmax))[:, None]
+                  & ((ig >= section.imin) & (ig <= section.imax)))
 
-    if section.orient.startswith("merid"):
-        # zonal (U) transport through a meridional section (MASS_M)
-        uh = torch.where(grid.kmask_u, state.u_cur * grid.DYU[None] * dzu,
-                         0.0)
-        mass = 0.5 * (uh[:, j0:j1 + 1, i0:i1 + 1]
-                      + uh[:, j0 - 1:j1, i0:i1 + 1])
-        tf = 0.5 * (T[:, j0:j1 + 1, i0 + 1:i1 + 2]
-                    + T[:, j0:j1 + 1, i0:i1 + 1])
-        sf = 0.5 * (S[:, j0:j1 + 1, i0 + 1:i1 + 2]
-                    + S[:, j0:j1 + 1, i0:i1 + 1])
-    else:
-        # meridional (V) transport through a zonal section (MASS_Z)
-        vh = torch.where(grid.kmask_u, state.v_cur * grid.DXU[None] * dzu,
-                         0.0)
-        mass = 0.5 * (vh[:, j0:j1 + 1, i0:i1 + 1]
-                      + vh[:, j0:j1 + 1, i0 - 1:i1])
-        tf = 0.5 * (T[:, j0 + 1:j1 + 2, i0:i1 + 1]
-                    + T[:, j0:j1 + 1, i0:i1 + 1])
-        sf = 0.5 * (S[:, j0 + 1:j1 + 2, i0:i1 + 1]
-                    + S[:, j0:j1 + 1, i0:i1 + 1])
-    mass = mass[k0:k1 + 1]
-    heat = (mass * tf[k0:k1 + 1]).sum()
-    salt = (mass * sf[k0:k1 + 1]).sum()
-    mass = mass.sum()
+        def total(x):
+            return global_sum(torch.where(inside, x, 0.0), b4b=True)
+        heat, salt, mass = total(mass * tf), total(mass * sf), total(mass)
     return (float(mass) * const.MASS_TO_SV,
             float(heat) * const.HEAT_TO_PW,
             float(salt) * const.SALT_TO_SVPPT)
@@ -208,11 +206,17 @@ def barotropic_streamfunction(cfg: ModelConfig, grid: Grid,
     """Barotropic streamfunction psi (Sv) by meridional integration of the
     vertically-integrated zonal transport (diagnostic analogue of
     source/diag_bsf.F90 without the elliptic inversion):
-    psi(i,j) = -sum_{j'<=j} U_btrop*HU*DYU."""
-    _whole_domain_only(grid, "the barotropic streamfunction (a sum along "
-                       "y)")
+    psi(i,j) = -sum_{j'<=j} U_btrop*HU*DYU. On a block grid every rank
+    fetches its columns' whole strip (one exchange) and sums it from the
+    south edge, in the whole domain's order."""
     uh = grid.HU * state.ubtrop_cur * grid.DYU * grid.RCALCU
-    psi = -torch.cumsum(uh, dim=0)
+    with pmesh.grid_scope(grid) as d:
+        if pmesh.over_ranks(d):
+            (strip,), = d.fetch([uh], lambda b: [(0, b.ny, b.i0, b.i1,
+                                                  False)], "bsf_columns")
+            psi = -torch.cumsum(strip, dim=0)[d.j0:d.j1]
+        else:
+            psi = -torch.cumsum(uh, dim=0)
     return psi * 1.0e-12
 
 

@@ -57,6 +57,15 @@ of the launches the card makes.
 On CPU tensors nothing is captured: the same segments are called anew each
 step (the CPU tests reach the split step that way). On the GPU a capture or
 replay that fails raises; there is no eager fallback.
+
+On a rank's block of a decomposition over gloo the segments run with the
+decomposition in scope and are never captured, by rule: a halo exchange or
+a global sum there is a host call of ``torch.distributed`` (the buffers
+staged through host memory), which no CUDA graph can hold. Such a step
+reports ``graphs == 0`` and says why (``uncaptured``); every rank runs the
+same segments, so the ranks' exchanges still pair up. Under NCCL, whose
+collectives a graph could hold, ``Model.run_compiled`` refuses (ROADMAP.md
+Queue 1 item 12b, across cards).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda
 from pop2_tpu_torch import gm_slope_cuda, gm_tlt_cuda, tracer_cuda
 from pop2_tpu_torch import step as step_mod, tavg, tridiag_cuda
 from pop2_tpu_torch.forcing import Forcing
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.state import State
 
 #: the modules whose ``launches`` counters the segments keep exact, and
@@ -209,13 +219,22 @@ class CapturedStep:
     state and forcing buffers, made from ``state`` and ``forcing``. On CUDA
     tensors the first ``step`` runs its segments on the capture stream (the
     warm-up a capture needs, and the step itself) and then captures them;
-    later steps replay. On CPU tensors the segments are called directly."""
+    later steps replay. On CPU tensors, and on a rank's block of a
+    decomposition (``uncaptured`` says why), the segments are called
+    directly."""
 
     def __init__(self, model, state: State, forcing: Forcing):
         self.model = model
         # the tavg streams the post graph accumulates into
         self.streams = tuple(model.tavg_streams)
-        self.capture = state.tracer_cur.is_cuda
+        #: why the segments are not captured (None: they are, on CUDA)
+        self.uncaptured = (
+            f"a block of a {model.mesh.comm.backend} decomposition: its "
+            "exchanges and global sums are host calls"
+            if pmesh.over_ranks(model.mesh)
+            else None if state.tracer_cur.is_cuda
+            else "CPU tensors")
+        self.capture = self.uncaptured is None
         self.state = _clone_tree(state)
         self.forcing = _clone_tree(forcing)
         self.stream = torch.cuda.Stream() if self.capture else None
@@ -229,7 +248,8 @@ class CapturedStep:
     def _pre(self) -> None:
         m = self.model
         self.pre_out = step_mod.pre(
-            m.cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing, True,
+            m.step_cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing,
+            True,
             **m.step_args(True), with_extras=bool(self.streams))
 
     def _chunk(self, n: int, check: bool):
@@ -242,8 +262,8 @@ class CapturedStep:
     def _post(self) -> None:
         m, p = self.model, self.pre_out
         out = step_mod.post(
-            m.cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing, True,
-            False, p, p.carry["x"].to(self.state.pguess.dtype),
+            m.step_cfg, m.grid, m.bc, m.ts_range, self.state, self.forcing,
+            True, False, p, p.carry["x"].to(self.state.pguess.dtype),
             passive=m.passive, ovf_statics=m.ovf_statics,
             with_extras=bool(self.streams))
         if not self.streams:
@@ -320,6 +340,10 @@ class CapturedStep:
         ``forcing``."""
         if forcing is not self.forcing:
             assign(self.forcing, forcing)
+        with pmesh.scope(self.model.mesh):
+            self._step()
+
+    def _step(self) -> None:
         if self.segments:
             seg = self.segments
             self._run(seg["pre"], lambda n, check: seg[(n, check)](),

@@ -43,8 +43,13 @@ bits, and then every horizontal field is cut to the block (``_decompose``).
 kernels take halo rows and columns from the neighbouring blocks (the
 tripole fold's from the mirror block), global
 sums are reduced over the ranks, and ``diagnostics`` reduces globally, so
-every rank decides alike. ``run_compiled``, the output streams and the
-coupler cap under a decomposition are ROADMAP.md Queue 1 item 12b.
+every rank decides alike. ``run_compiled`` runs its segments there without
+capture (gloo's exchanges are host calls, which no CUDA graph holds;
+``graphs.CapturedStep``); the output streams accumulate each rank's block
+and gather the blocks on rank 0, which writes one whole-domain file
+(``tavg.TavgStream``, ``history``). Every rank calls every entry point
+alike: the exchanges and gathers are collective. Ranks with a card each
+(NCCL) are refused (ROADMAP.md Queue 1 item 12b, across cards).
 """
 
 from __future__ import annotations
@@ -215,6 +220,8 @@ class Model:
         self.precond = mesh.slab(self.precond)
         self.kpp_statics = mesh.slab(self.kpp_statics)
         self.sw_profile = mesh.slab(self.sw_profile)
+        self.ovf_statics = overflows.decompose_statics(self.ovf_statics,
+                                                       mesh)
         self.step_cfg = pmesh.block_cfg(cfg, mesh.rows, mesh.cols)
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
@@ -244,13 +251,6 @@ class Model:
             return self._state0
         return initial_state(self.cfg, self.grid, self.device,
                              passive=self.passive)
-
-    def _whole_domain_only(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a decomposition (mesh_shape="
-                f"{tuple(self.cfg.mesh_shape)}) is not ported yet "
-                "(ROADMAP.md Queue 1 item 12b)")
 
     def _next_step(self) -> Tuple[bool, bool]:
         """Count the step and advance the calendar; its (leapfrog,
@@ -313,12 +313,12 @@ class Model:
         """Add a tavg output stream (source/tavg.F90 stream mechanism).
         Schedule by step count (``freq_steps``) or by calendar frequency
         (``freq_opt`` in nyear/nmonth/nday/nhour/nsecond/nstep + ``freq``).
-        An unknown field raises KeyError."""
-        self._whole_domain_only("a tavg stream")
+        An unknown field raises KeyError. Under a decomposition each rank
+        accumulates its block and rank 0 writes the whole domain's file."""
         from pop2_tpu_torch.tavg import TavgStream
         stream = TavgStream(self.cfg, self.grid, contents,
                             freq_steps if freq_opt is None else 10 ** 9,
-                            outfile_prefix=prefix)
+                            outfile_prefix=prefix, mesh=self.mesh)
         self._register_stream_flag(stream, "tavg", prefix, freq_opt, freq)
         self.tavg_streams.append(stream)
         self._tavg_outdir = outdir
@@ -329,10 +329,9 @@ class Model:
                        outdir: str = ".", prefix: str = "pop2_tpu.h",
                        freq_opt: str = None, freq: int = 1):
         """Add an instantaneous snapshot stream (source/history.F90)."""
-        self._whole_domain_only("a history stream")
         from pop2_tpu_torch.history import HistoryStream
         stream = HistoryStream(self.cfg, self.grid, contents, freq_steps,
-                               outfile_prefix=prefix)
+                               outfile_prefix=prefix, mesh=self.mesh)
         self._register_stream_flag(stream, "history", prefix, freq_opt, freq)
         self.history_streams.append(stream)
         self._tavg_outdir = outdir
@@ -343,10 +342,10 @@ class Model:
                      level: int = 0, prefix: str = "pop2_tpu.m",
                      freq_opt: str = None, freq: int = 1):
         """Add a 2-D snapshot stream (source/movie.F90)."""
-        self._whole_domain_only("a movie stream")
         from pop2_tpu_torch.history import MovieStream
         stream = MovieStream(self.cfg, self.grid, contents, freq_steps,
-                             level=level, outfile_prefix=prefix)
+                             level=level, outfile_prefix=prefix,
+                             mesh=self.mesh)
         self._register_stream_flag(stream, "movie", prefix, freq_opt, freq)
         self.history_streams.append(stream)
         self._tavg_outdir = outdir
@@ -371,10 +370,16 @@ class Model:
 
     def _output_driver(self, state: State, forcing: Forcing, extras: dict):
         """Per-step output hook: history -> movie -> tavg
-        (output_driver, source/output.F90:53)."""
+        (output_driver, source/output.F90:53), with the decomposition in
+        scope (the fields' shifts take their halos, a write gathers the
+        blocks)."""
         from pop2_tpu_torch.tavg import TavgAux
         aux = TavgAux(forcing=forcing, bc=self.bc, **(extras or {}),
                       memo={})
+        with pmesh.scope(self.mesh):
+            self._drive_streams(state, aux)
+
+    def _drive_streams(self, state: State, aux) -> None:
         for stream in self.history_streams:
             stream.aux = aux
             due = self._stream_due(stream)
@@ -427,11 +432,16 @@ class Model:
         the lunar factor is read from the calendar before every step and
         copied into the captured step's static forcing buffer before its
         replay. A forcing whose set of tensor fields differs from the one
-        the step was captured with builds a new captured step. Returns (state, diagnostics of the last step). The state
+        the step was captured with builds a new captured step. Under a
+        decomposition over gloo the segments run uncaptured on every rank
+        (``graphs.CapturedStep.uncaptured``: the exchanges are host calls);
+        over NCCL this raises (ROADMAP.md Queue 1 item 12b, across cards).
+        Returns (state, diagnostics of the last step). The state
         returned is the caller's own; the graphs' buffers stay inside the
         model."""
-        self._whole_domain_only("run_compiled (CUDA graphs of a step whose "
-                                "exchanges are host calls)")
+        if pmesh.over_ranks(self.mesh) and self.mesh.comm.backend == "nccl":
+            pmesh.refuse_across_cards("run_compiled's captured step over "
+                                      "NCCL")
         forcing = forcing or self.forcing
         diags = None
         if self.history_streams or any(s.flag_name
@@ -461,8 +471,9 @@ class Model:
                     in_graph = True
                 self._next_step()
                 self._captured.step(step_forcing)
-                for stream in self.tavg_streams:
-                    self._write_if(stream, stream.ready)
+                with pmesh.scope(self.mesh):
+                    for stream in self.tavg_streams:
+                        self._write_if(stream, stream.ready)
                 diags = None
                 continue
             if in_graph:

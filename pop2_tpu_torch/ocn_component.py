@@ -23,10 +23,19 @@ Restarts are the port's ``io/restart`` checkpoints, whose format the JAX
 package shares: a restart either package's component writes resumes in the
 other's. ``OcnComponent(cfg)`` runs on the GPU; ``device="cpu"`` runs the
 plain PyTorch path.
+
+Under ``mesh_shape = (py, px)`` every rank of the process group runs a
+component of its own block, as the CESM cap runs on every task: ``run``
+imports the rank's block of ``x2o`` (block fields, or whole ones, which it
+cuts) and exports the block of ``o2x`` (``gather_export`` assembles the
+whole export); the time flags are the calendar's, the same on every rank;
+its restarts are sharded (``io/sharded_restart``: every rank writes its
+block, and a restart is read onto any mesh, or the whole domain).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -35,8 +44,10 @@ from pop2_tpu_torch import constants as const
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.coupled import IMPORT_FIELDS, ocn_import
 from pop2_tpu_torch.ice import ice_flx_to_coupler
+from pop2_tpu_torch.io import sharded_restart
 from pop2_tpu_torch.io.restart import read_restart, write_restart
 from pop2_tpu_torch.model import Model
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.state import State
 from pop2_tpu_torch.stencil import ugrid_to_tgrid
 
@@ -55,13 +66,11 @@ class OcnComponent:
                  restart_freq_opt: str = "never", restart_freq: int = 1,
                  outdir: str = ".", lfw_as_salt_flx: bool = True,
                  device="cuda"):
-        if tuple(cfg.mesh_shape) != (1, 1):
-            raise NotImplementedError(
-                "the coupler cap under a decomposition (mesh_shape="
-                f"{tuple(cfg.mesh_shape)}) is not ported yet (ROADMAP.md "
-                "Queue 1 item 12b)")
         self.cfg = cfg
         self.model = Model(cfg, device=device)
+        #: this rank's block (None: the whole domain)
+        self.mesh = (self.model.mesh if pmesh.over_ranks(self.model.mesh)
+                     else None)
         self.outdir = outdir
         self.lfw_as_salt_flx = lfw_as_salt_flx
         tm = self.model.time_manager
@@ -83,8 +92,7 @@ class OcnComponent:
         pop_sum_buffer + ocn_export before the first coupling interval
         (ocn_init_mct:424-426)."""
         if restart_dir is not None:
-            self.state, nsteps = read_restart(restart_dir, self.cfg,
-                                              device=self.model.device)
+            self.state, nsteps = self._read_restart(restart_dir)
             self.model.nsteps_total = nsteps
             # replay the calendar to the restart step
             self.model.time_manager.reset()
@@ -101,7 +109,8 @@ class OcnComponent:
         """Advance the ocean over ONE coupling interval.
 
         x2o: dict of SI import fields (IMPORT_FIELDS), tensors on the
-        model's device.
+        model's device: on a rank's block its block of each (a whole field
+        is cut to the block).
         rstwr: driver requests a restart write at the end of the interval
         (seq_timemgr_RestartAlarmIsOn -> override_time_flag,
         ocn_comp_mct.F90:608-616).
@@ -114,7 +123,9 @@ class OcnComponent:
 
         # obtain import state from the driver at the start of the interval
         # (ocn_run_mct:630-646)
-        self.forcing = ocn_import(self.cfg, self.model.grid, x2o,
+        if self.mesh is not None:
+            x2o = self.mesh.slab(x2o)
+        self.forcing = ocn_import(self.model.step_cfg, self.model.grid, x2o,
                                   lfw_as_salt_flx=self.lfw_as_salt_flx)
         self._zero_buffer()
 
@@ -144,14 +155,43 @@ class OcnComponent:
         return fname
 
     def _write_restart(self) -> str:
+        """The restart of the interval's end: on a rank's block every rank
+        writes its block (``io/sharded_restart``, collective)."""
+        if self.mesh is not None:
+            return sharded_restart.write_sharded_restart(
+                self.outdir, self.state, self.model.nsteps_total, self.cfg,
+                self.mesh)
         return write_restart(
             f"{self.outdir}/ocn.r.{self.model.nsteps_total:08d}",
             self.state, self.model.nsteps_total, self.cfg,
             pointer_dir=self.outdir)
 
+    def _read_restart(self, restart_dir: str):
+        """(state, nsteps) of this rank's block (or the whole domain): a
+        sharded restart (its pointer file in ``restart_dir``) written on any
+        mesh, else a whole-domain restart, cut to the block."""
+        device = self.model.device
+        if os.path.exists(os.path.join(restart_dir,
+                                       sharded_restart.POINTER_FILE)):
+            return sharded_restart.read_sharded_restart(
+                restart_dir, self.cfg, mesh=self.mesh, device=device)
+        state, nsteps = read_restart(restart_dir, self.cfg, device=device)
+        return (self.mesh.slab(state) if self.mesh is not None
+                else state), nsteps
+
+    def gather_export(self, o2x: Dict) -> Dict:
+        """The whole domain's export from every rank's block of ``o2x``, as
+        NumPy on every rank (collective); on the whole domain ``o2x`` as
+        NumPy."""
+        from pop2_tpu_torch.parallel.multihost import to_host_replicated
+        if self.mesh is None:
+            return {k: v.detach().cpu().numpy() for k, v in o2x.items()}
+        return {k: to_host_replicated(v, self.mesh) for k, v in o2x.items()}
+
     # -- export buffer (pop_sum_buffer) --------------------------------------
     def _zero_buffer(self):
-        z = torch.zeros((self.cfg.ny, self.cfg.nx),
+        cfg = self.model.step_cfg  # the block's rows and columns
+        z = torch.zeros((cfg.ny, cfg.nx),
                         dtype=self.cfg.torch_dtype,
                         device=self.model.device)
         self._sums = {k: z for k in
@@ -183,20 +223,23 @@ class OcnComponent:
         norm = 1.0 / max(self._tlast_coupled, 1.0e-20)
         s = self._sums
         bc = self.model.bc
-        u_t = ugrid_to_tgrid(s["u"] * norm, bc)
-        v_t = ugrid_to_tgrid(s["v"] * norm, bc)
+        with pmesh.scope(self.model.mesh):  # a block's shifts: the halos
+            u_t = ugrid_to_tgrid(s["u"] * norm, bc)
+            v_t = ugrid_to_tgrid(s["v"] * norm, bc)
+            dhdx = ugrid_to_tgrid(s["dhdx"] * norm, bc)
+            dhdy = ugrid_to_tgrid(s["dhdy"] * norm, bc)
         o2x = {
             "So_t": s["t"] * norm + const.T0_KELVIN,
             "So_s": s["s"] * norm * const.SALT_TO_PPT,
             "So_u": u_t * const.MPERCM,
             "So_v": v_t * const.MPERCM,
-            "So_dhdx": ugrid_to_tgrid(s["dhdx"] * norm, bc) / const.GRAV,
-            "So_dhdy": ugrid_to_tgrid(s["dhdy"] * norm, bc) / const.GRAV,
+            "So_dhdx": dhdx / const.GRAV,
+            "So_dhdy": dhdy / const.GRAV,
             "So_ssh": self.state.psurf_cur / const.GRAV * const.MPERCM,
         }
         if self.cfg.liceform:
             qflux, aqice0 = ice_flx_to_coupler(
-                self.cfg, self.model.grid, self.state.tracer_cur,
+                self.model.step_cfg, self.model.grid, self.state.tracer_cur,
                 self.state.aqice, self._tlast_coupled)
             o2x["Fioo_q"] = qflux / const.HFLUX_FACTOR
             self.state = self.state.replace(aqice=aqice0)

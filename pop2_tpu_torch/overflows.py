@@ -30,6 +30,16 @@ The statics are built once on the host in float64 and moved to the grid's
 device. The region volumes and areas the transport law's stability cap
 reads are host floats and device tensors both, so a step reads no value
 back from the device; the product-set selection stays on the device.
+
+On a rank's block of a decomposition (``parallel.mesh``) the statics are
+built on the whole domain and cut (``decompose_statics``): the regions keep
+their global boxes, the ZX/ZY map is cut to the block and each sidewall
+momentum table keeps the points the block owns, in block indices. A step
+fetches every region's crop of the tracers from the blocks that hold it
+(``Decomposition.fetch``, one exchange), so every rank forms the whole
+domain's region means from the same values in the same order; each block
+then adds the region tendencies, footprints and sidewall shifts at the
+points it owns.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from pop2_tpu_torch import constants as const
 from pop2_tpu_torch import eos
 from pop2_tpu_torch.config import ModelConfig, RegionBox
 from pop2_tpu_torch.grid import Grid, _np_shift, pressure_bars, thickness_t
+from pop2_tpu_torch.parallel import mesh as pmesh
 
 
 class RegionData(NamedTuple):
@@ -55,6 +66,7 @@ class RegionData(NamedTuple):
     area: torch.Tensor    # () footprint area (cm^2)
     vol_host: float       # vol and area as host floats
     area_host: float
+    wvol: torch.Tensor    # (dk, dj, di) cell volumes in the model's dtype
 
 
 class OverflowStatics(NamedTuple):
@@ -129,7 +141,18 @@ def wet_regions(cfg: ModelConfig, kmt: np.ndarray) -> None:
                 kmt[ja, ia] = max(kmt[ja, ia], min(k0 + 1, km))
 
 
-def _region_data(cfg, vol3, kmask, tarea, box, name, device) -> RegionData:
+def _region_volumes(cfg, grid, box):
+    """The cropped cell volumes the region means weight by, formed on the
+    device in the model's dtype (the whole domain's thickness and TAREA)."""
+    k0, k1, j0, j1, i0, i1 = box
+    dz = thickness_t(cfg, grid)[k0:k1 + 1]
+    if dz.shape[1] != 1:  # 3-D layer thickness
+        dz = dz[:, j0:j1 + 1, i0:i1 + 1]
+    return dz * grid.TAREA[None, j0:j1 + 1, i0:i1 + 1]
+
+
+def _region_data(cfg, grid, vol3, kmask, tarea, box,
+                 name) -> RegionData:
     k0, k1, j0, j1, i0, i1 = (box.kmin, box.kmax, box.jmin, box.jmax,
                               box.imin, box.imax)
     m = kmask[k0:k1 + 1, j0:j1 + 1, i0:i1 + 1].astype(np.float64)
@@ -141,10 +164,11 @@ def _region_data(cfg, vol3, kmask, tarea, box, name, device) -> RegionData:
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(
-            device=device, dtype=cfg.torch_dtype)
-    return RegionData(box=(k0, k1, j0, j1, i0, i1), mask=t(m), vol=t(vol),
-                      fmask=t(fm), area=t(area), vol_host=vol,
-                      area_host=area)
+            device=grid.KMT.device, dtype=cfg.torch_dtype)
+    box = (k0, k1, j0, j1, i0, i1)
+    return RegionData(box=box, mask=t(m), vol=t(vol), fmask=t(fm),
+                      area=t(area), vol_host=vol, area_host=area,
+                      wvol=_region_volumes(cfg, grid, box))
 
 
 def region_mask3(cfg: ModelConfig, st: OverflowStatics, o: int,
@@ -218,8 +242,8 @@ def build_statics(cfg: ModelConfig, grid: Grid) -> OverflowStatics:
     for o, spec in enumerate(cfg.overflows):
         row = []
         for r, box in enumerate((spec.inf, spec.src, spec.ent, spec.prd)):
-            row.append(_region_data(cfg, vol3, kmask, tarea, box,
-                                    f"{spec.name}:{r}", device))
+            row.append(_region_data(cfg, grid, vol3, kmask, tarea, box,
+                                    f"{spec.name}:{r}"))
         regions.append(tuple(row))
         press_s[o] = pressure_bars(zt[spec.src.kmin] * const.MPERCM)
         press_e[o] = pressure_bars(zt[spec.ent.kmin] * const.MPERCM)
@@ -339,8 +363,8 @@ def _point_statics(cfg: ModelConfig, grid: Grid, vol3, kmask, tarea):
             kk = [p[2] for p in pts]
             box = RegionBox(kmin=min(kk), kmax=max(kk), jmin=min(jj),
                             jmax=max(jj), imin=min(ii), imax=max(ii))
-            row.append(_region_data(cfg, vol3, kmask, tarea, box,
-                                    f"{spec.name}:prd_set{m}", device))
+            row.append(_region_data(cfg, grid, vol3, kmask, tarea, box,
+                                    f"{spec.name}:prd_set{m}"))
             k_mid = (min(kk) + max(kk)) // 2
             prow.append(float(pressure_bars(zt[k_mid] * const.MPERCM)))
         sets.append(tuple(row))
@@ -360,25 +384,64 @@ def _point_statics(cfg: ModelConfig, grid: Grid, vol3, kmask, tarea):
                                               dtype=cfg.torch_dtype))
 
 
-def _region_tavg(cfg, grid, rd: RegionData, tracer):
-    """Masked volume-weighted tracer means over one cropped region:
-    (nt,) vector."""
-    k0, k1, j0, j1, i0, i1 = rd.box
-    dz = thickness_t(cfg, grid)[k0:k1 + 1]
-    if dz.shape[1] != 1:  # 3-D layer thickness
-        dz = dz[:, j0:j1 + 1, i0:i1 + 1]
-    vol3 = dz * grid.TAREA[None, j0:j1 + 1, i0:i1 + 1]
-    crop = tracer[:, k0:k1 + 1, j0:j1 + 1, i0:i1 + 1]
-    return torch.einsum("kji,kji,nkji->n", rd.mask, vol3, crop) / rd.vol
+def _decomposition():
+    d = pmesh.active()
+    return d if pmesh.over_ranks(d) else None
+
+
+def decompose_statics(st: Optional[OverflowStatics],
+                      d) -> Optional[OverflowStatics]:
+    """``st`` (built on the whole domain) for ``d``'s block: the ZX/ZY map
+    cut to the block, each sidewall momentum table's points the block owns
+    (their order kept) in block indices; the regions keep their global
+    boxes."""
+    if st is None:
+        return None
+
+    def own(tab):
+        if tab is None:
+            return None
+        j, i = tab["j"], tab["i"]
+        keep = (j >= d.j0) & (j < d.j1) & (i >= d.i0) & (i < d.i1)
+        out = {k: v[keep] for k, v in tab.items()}
+        out["j"], out["i"] = out["j"] - d.j0, out["i"] - d.i0
+        return out
+    return st._replace(zren=d.slab(st.zren), mom_u=own(st.mom_u),
+                       mom_v=own(st.mom_v))
+
+
+def _crops(rds, tracer):
+    """Each region's crop of ``tracer`` (nt, km, ny, nx), its whole box: on
+    a rank's block fetched from the blocks that hold it, in one exchange
+    for all of ``rds``."""
+    d = _decomposition()
+    if d is None:
+        return [tracer[:, k0:k1 + 1, j0:j1 + 1, i0:i1 + 1]
+                for k0, k1, j0, j1, i0, i1 in (rd.box for rd in rds)]
+    boxes = [(j0, j1 + 1, i0, i1 + 1, False)
+             for _, _, j0, j1, i0, i1 in (rd.box for rd in rds)]
+    got = d.fetch([tracer], lambda b: boxes, ("overflows",) + tuple(boxes))
+    return [g[:, rd.box[0]:rd.box[1] + 1] for (g,), rd in zip(got, rds)]
+
+
+def _region_tavg(rd: RegionData, crop):
+    """Masked volume-weighted tracer means over one cropped region from
+    its crop of the tracers: (nt,) vector."""
+    return torch.einsum("kji,kji,nkji->n", rd.mask, rd.wvol, crop) / rd.vol
+
+
+def _region_means(rds, tracer):
+    return [_region_tavg(rd, c) for rd, c in zip(rds, _crops(rds, tracer))]
 
 
 def transports(cfg: ModelConfig, grid: Grid, st: OverflowStatics, tracer):
     """Regional averages and (Ms, Me, Mp, phi, tracer averages) for every
     overflow (ovf_reg_avgs + ovf_transports). tracer: (nt, km, ny, nx).
     Returns (ms, me, mp, phi, tavg) with tavg (n_ovf, 4, nt)."""
-    tavg = torch.stack([
-        torch.stack([_region_tavg(cfg, grid, rd, tracer) for rd in row])
-        for row in st.regions])                            # (n, 4, nt)
+    means = iter(_region_means([rd for row in st.regions for rd in row],
+                               tracer))
+    tavg = torch.stack([torch.stack([next(means) for _ in row])
+                        for row in st.regions])            # (n, 4, nt)
 
     t_i, s_i = tavg[:, REG_INF, 0], tavg[:, REG_INF, 1]
     t_s, s_s = tavg[:, REG_SRC, 0], tavg[:, REG_SRC, 1]
@@ -446,9 +509,11 @@ def product_set_selection(cfg: ModelConfig, grid: Grid,
              + phi[:, None] * tavg[:, REG_ENT])
 
     sels, sets_tavg = [], []
+    means = iter(_region_means([rd for row in st.sets for rd in row],
+                               tracer))
     for o, row in enumerate(st.sets):
         s_o = len(row)
-        avgs = tuple(_region_tavg(cfg, grid, rd, tracer) for rd in row)
+        avgs = tuple(next(means) for _ in row)
         sets_tavg.append(avgs)
         if s_o == 1:
             sels.append(torch.zeros((), dtype=torch.long,
@@ -466,11 +531,32 @@ def product_set_selection(cfg: ModelConfig, grid: Grid,
     return torch.stack(sels), tuple(sets_tavg)
 
 
+def _owned(rd: RegionData):
+    """(rows and columns of the block, the same of the region's crop) where
+    the region's box meets this block (the whole box on the whole domain);
+    None where they do not meet."""
+    _, _, j0, j1, i0, i1 = rd.box
+    d = _decomposition()
+    if d is None:
+        return (slice(j0, j1 + 1), slice(i0, i1 + 1)), (slice(None),) * 2
+    a, b = max(j0, d.j0), min(j1 + 1, d.j1)
+    c, e = max(i0, d.i0), min(i1 + 1, d.i1)
+    if a >= b or c >= e:
+        return None
+    return ((slice(a - d.j0, b - d.j0), slice(c - d.i0, e - d.i0)),
+            (slice(a - j0, b - j0), slice(c - i0, e - i0)))
+
+
 def _add_region(out, rd: RegionData, rate):
-    """Add rate (nt,) times a cropped region's mask to ``out`` in place."""
-    k0, k1, j0, j1, i0, i1 = rd.box
-    out[:, k0:k1 + 1, j0:j1 + 1, i0:i1 + 1] += (rate[:, None, None, None]
-                                                * rd.mask[None])
+    """Add rate (nt,) times a cropped region's mask to ``out`` in place, at
+    the points this block holds."""
+    at = _owned(rd)
+    if at is None:
+        return
+    (rows, cols), (mr, mc) = at
+    k0, k1 = rd.box[:2]
+    out[:, k0:k1 + 1, rows, cols] += (rate[:, None, None, None]
+                                      * rd.mask[None, :, mr, mc])
 
 
 def tendency(cfg: ModelConfig, grid: Grid, st: OverflowStatics, tracer,
@@ -533,8 +619,10 @@ def qsurf(cfg: ModelConfig, grid: Grid, st: OverflowStatics, trans,
                     device=ms.device)
 
     def add_fp(rd: RegionData, rate):
-        k0, k1, j0, j1, i0, i1 = rd.box
-        q[j0:j1 + 1, i0:i1 + 1] += rate * rd.fmask
+        at = _owned(rd)
+        if at is not None:
+            (rows, cols), (mr, mc) = at
+            q[rows, cols] += rate * rd.fmask[mr, mc]
 
     for o in range(len(st.regions)):
         if st.sets is not None and sel is not None:

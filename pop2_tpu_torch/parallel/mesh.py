@@ -32,8 +32,9 @@ does explicitly what XLA did implicitly:
   sums. Under gloo (ranks on the CPU, or sharing one card, where NCCL
   refuses two ranks on one device) the buffers go through host memory,
   explicitly, and the bytes staged are counted; under NCCL (a card a rank)
-  they stay on the device. The fields themselves stay where they are and
-  every kernel runs there.
+  they would stay on the device, but that branch has not run across cards
+  and ``make_mesh`` refuses it (``refuse_across_cards``). The fields
+  themselves stay where they are and every kernel runs there.
 * ``halo_call``: a kernel wrapper's launch on its block extended by H rows
   and columns from its neighbours, the extension trimmed from its outputs.
   A block below the top row runs the closed instance (and, with px > 1,
@@ -81,6 +82,12 @@ _FOLD_TOP: Optional[int] = None
 def active() -> Optional["Decomposition"]:
     """The decomposition of the running scope, or None (whole domain)."""
     return _ACTIVE
+
+
+def over_ranks(d: Optional["Decomposition"]) -> bool:
+    """``d`` splits the domain over ranks (a block with a communicator),
+    not None and not a mesh of one block."""
+    return d is not None and d.comm is not None
 
 
 def block_cfg(cfg, ny: int, nx: int):
@@ -285,6 +292,18 @@ class Comm:
     def barrier(self):
         import torch.distributed as dist
         dist.barrier(group=self.group)
+
+    def gather(self, t, root: int = 0):
+        """Every rank's ``t`` (the same shape on every rank) on rank
+        ``root``, in rank order, on the CPU; None on the other ranks."""
+        import torch.distributed as dist
+        w = self._to_wire(t.contiguous())
+        out = None
+        if dist.get_rank(self.group) == root:
+            out = [torch.empty_like(w) for _ in range(
+                dist.get_world_size(self.group))]
+        dist.gather(w, out, dst=root, group=self.group)
+        return None if out is None else [o.cpu() for o in out]
 
     def all_gather(self, t):
         """Every rank's ``t`` (the same shape on every rank), in rank
@@ -722,6 +741,16 @@ class Decomposition:
             .contiguous() if self.is_field(t, (rows, cols)) else t, out)
 
 
+def refuse_across_cards(what: str) -> None:
+    """Raise for what runs only with a card a rank: NCCL's exchanges and a
+    captured step under them have not run on a machine of several cards
+    (ROADMAP.md Queue 1 item 12b, across cards). Ranks that share a card,
+    or run on the CPU, take gloo."""
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item 12b (across "
+        "cards)); ranks on one card or on the CPU run over gloo")
+
+
 def make_mesh(shape: Tuple[int, int], ny: int, nx: int,
               tripole: bool = False, cyclic: bool = True) -> Decomposition:
     """This rank's block of an (ny, nx) grid on a (py, px) mesh over the
@@ -730,7 +759,8 @@ def make_mesh(shape: Tuple[int, int], ny: int, nx: int,
     rows than the widest kernel halo plus the fold's rows, blocks narrower
     than the widest kernel halo, and a tripole fold across blocks of a
     closed east-west edge (its seam's ghost columns would need both a wrap
-    and a zero; POP's tripole grids are cyclic)."""
+    and a zero; POP's tripole grids are cyclic), and a process group over
+    NCCL (``refuse_across_cards``)."""
     py, px = (int(v) for v in shape)
     if py < 1 or ny % py != 0:
         raise ValueError(f"ny={ny} does not split into {py} blocks of equal "
@@ -760,7 +790,10 @@ def make_mesh(shape: Tuple[int, int], ny: int, nx: int,
         if dist.get_world_size() != n:
             raise ValueError(f"mesh of {n} blocks on "
                              f"{dist.get_world_size()} ranks")
-        rank, comm = dist.get_rank(), Comm(dist.get_backend())
+        backend = dist.get_backend()
+        if backend == "nccl":
+            refuse_across_cards("a decomposition over NCCL (a card a rank)")
+        rank, comm = dist.get_rank(), Comm(backend)
     else:
         rank, comm = 0, None
     return Decomposition(py=py, px=px, rank=rank, ny=ny, nx=nx,

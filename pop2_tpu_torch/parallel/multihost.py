@@ -16,7 +16,8 @@ block of a field is its share of the global array.
   the card unless ``device='cpu'`` is asked for, as the tests do.
 * ``global_mesh``, ``make_global_array`` (a whole field scattered to the
   ranks' blocks), ``to_host_replicated`` (the blocks gathered into a whole
-  NumPy field on every rank) and ``process_local_slice``.
+  NumPy field on every rank), ``gather_to_root`` (on one rank, which
+  writes the output files) and ``process_local_slice``.
 * ``spawn_ranks``: a function run in ``world_size`` fresh processes joined
   by a ``file://`` store in a temporary directory (never a fixed TCP port),
   one intra-op thread each; their results come back to the caller. The
@@ -38,7 +39,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pop2_tpu_torch.parallel.mesh import Decomposition, make_mesh, tree_map
+from pop2_tpu_torch.parallel.mesh import (Decomposition, make_mesh,
+                                          over_ranks, tree_map)
 
 _DEVICE: Optional[torch.device] = None
 
@@ -128,9 +130,26 @@ def to_host_replicated(t, mesh: Decomposition) -> np.ndarray:
     if mesh.comm is None or not mesh.is_block(t):
         return t.detach().cpu().numpy()
     parts = [p.cpu() for p in mesh.comm.all_gather(t.detach())]
-    rows = [torch.cat(parts[ry * mesh.px:(ry + 1) * mesh.px], dim=-1)
+    return join_blocks(parts, mesh).numpy()
+
+
+def join_blocks(parts, mesh: Decomposition):
+    """The whole field from every rank's block (``parts``, in rank order,
+    each (..., rows, cols))."""
+    rows = [torch.cat(list(parts[ry * mesh.px:(ry + 1) * mesh.px]), dim=-1)
             for ry in range(mesh.py)]
-    return torch.cat(rows, dim=-2).numpy()
+    return torch.cat(rows, dim=-2)
+
+
+def gather_to_root(t, mesh: Decomposition, root: int = 0):
+    """The blocks of ``t`` gathered into the whole NumPy field on rank
+    ``root`` (gather_global, mpi/gather_scatter.F90:74), None on the other
+    ranks; on the whole domain ``t`` as NumPy. One collective: every rank
+    calls it."""
+    if not over_ranks(mesh):
+        return t.detach().cpu().numpy()
+    parts = mesh.comm.gather(t.detach(), root)
+    return None if parts is None else join_blocks(parts, mesh).numpy()
 
 
 def process_local_slice(global_shape, mesh: Decomposition):

@@ -12,11 +12,6 @@ from __future__ import annotations
 from pop2_tpu_torch.config import ModelConfig
 
 
-#: the passive-tracer packages run on blocks (prod_full's) and held there
-#: against the whole domain
-DECOMPOSED_PACKAGES = ("iage", "cfc")
-
-
 def unsupported(cfg: ModelConfig) -> list:
     """Reasons ``cfg`` cannot run on this slice of the port (empty = ok)."""
     t = cfg.time
@@ -55,14 +50,6 @@ def unsupported(cfg: ModelConfig) -> list:
          "carries diagonal, fspai, spai and file)"),
         (cfg.solver.choice.lower() not in ("chrongear", "pcg", "pcsi"),
          f"solver choice {cfg.solver.choice!r}"),
-        (bool(cfg.overflows) and tuple(cfg.mesh_shape) != (1, 1),
-         "overflows under a decomposition (their regions are indexed by "
-         "global (j, i); Queue 1 item 12b)"),
-        (tuple(cfg.mesh_shape) != (1, 1) and any(
-            p not in DECOMPOSED_PACKAGES for p in cfg.passive_tracers),
-         f"passive tracers {tuple(cfg.passive_tracers)!r} under a "
-         f"decomposition (only {DECOMPOSED_PACKAGES!r} have been run on "
-         "blocks; Queue 1 item 12b)"),
     ]
     if cfg.hmix_tracer == "gm":
         checks += _gm_checks(cfg)

@@ -37,6 +37,13 @@ What the port does differently, for ``Model.run_compiled``'s captured step
 
 ``aux`` carries what the reference accumulates from inside the step: the
 forcing and the step's extras (``step.extras``).
+
+On a rank's block of a decomposition (``parallel.mesh``) a stream
+accumulates the block (its fields evaluated with the block's config, their
+shifts taking halos under the decomposition's scope) and a write gathers
+every rank's buffer on rank 0 (one collective), which writes the whole
+domain's file; the other ranks write nothing. The coordinates are gathered
+once, when the stream is made.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 from pop2_tpu_torch import constants as const, estuary
 from pop2_tpu_torch.config import ModelConfig
 from pop2_tpu_torch.grid import Grid
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.state import State
 
 
@@ -732,13 +740,29 @@ def _np(t) -> np.ndarray:
 def _coords(grid):
     """(z_t in cm, TLAT and TLONG in degrees) as NumPy, read from the
     device once a grid object (kept on it): a write reads nothing else of
-    the grid from the device."""
+    the grid from the device. On a block grid the whole domain's, gathered
+    on every rank (collective: a stream calls it when it is made)."""
     hit = grid.__dict__.get("_tavg_coords")
     if hit is None:
-        hit = (_np(grid.vgrid.zt), _np(grid.TLAT) * const.RADIAN,
-               _np(grid.TLON) * const.RADIAN)
+        d = pmesh.of_grid(grid)
+        if pmesh.over_ranks(d):
+            from pop2_tpu_torch.parallel.multihost import to_host_replicated
+
+            def whole(t):
+                return to_host_replicated(t.detach(), d).copy()
+        else:
+            whole = _np
+        hit = (_np(grid.vgrid.zt), whole(grid.TLAT) * const.RADIAN,
+               whole(grid.TLON) * const.RADIAN)
         grid.__dict__["_tavg_coords"] = hit
     return hit
+
+
+def field_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """The config a stream's fields are evaluated with: ``cfg`` on the
+    whole domain, the block's (``mesh.block_cfg``) on a rank's block."""
+    return (pmesh.block_cfg(cfg, mesh.rows, mesh.cols)
+            if pmesh.over_ranks(mesh) else cfg)
 
 
 def write_fields_netcdf(cfg, grid, fname: str, contents, arrays,
@@ -814,24 +838,28 @@ class TavgStream:
     """One output stream: a set of fields accumulated every step and written
     every ``freq_steps`` steps (reference stream mechanism,
     source/tavg.F90:482-1568). The accumulators are views of one buffer on
-    the grid's device, updated in place (see the module's docstring)."""
+    the grid's device, updated in place (see the module's docstring).
+    ``cfg``: the whole domain's; ``mesh``: the decomposition whose block
+    ``grid`` is (None: the whole domain)."""
 
     def __init__(self, cfg: ModelConfig, grid: Grid, contents: List[str],
-                 freq_steps: int, outfile_prefix: str = "tavg"):
+                 freq_steps: int, outfile_prefix: str = "tavg", mesh=None):
         unknown = [n for n in contents if n not in FIELDS]
         if unknown:
             raise KeyError(f"unknown tavg fields: {unknown} "
                            f"(available: {sorted(FIELDS)})")
         self.cfg = cfg
         self.grid = grid
+        self.mesh = mesh
+        self.field_cfg = fcfg = field_config(cfg, mesh)
         self.contents = list(contents)
         self.freq_steps = freq_steps
         self.prefix = outfile_prefix
         self.flag_name = None
         self.nsamples = 0
         self._defs = [FIELDS[n] for n in dict.fromkeys(self.contents)]
-        shapes = {d.name: ((cfg.km, cfg.ny, cfg.nx) if d.ndims == 3
-                           else (cfg.ny, cfg.nx)) for d in self._defs}
+        shapes = {d.name: ((fcfg.km, fcfg.ny, fcfg.nx) if d.ndims == 3
+                           else (fcfg.ny, fcfg.nx)) for d in self._defs}
         sizes = {n: int(np.prod(s)) for n, s in shapes.items()}
         self.buffer = torch.empty(sum(sizes.values()),
                                   dtype=cfg.torch_dtype,
@@ -844,7 +872,7 @@ class TavgStream:
             self.sums[n] = self.buffer[start:start + sizes[n]].view(shape)
             start += sizes[n]
         self.reset()
-        build_statics(cfg, grid, self.contents)
+        build_statics(fcfg, grid, self.contents)
 
     def accumulate_fields(self, state: State,
                           aux: TavgAux = TavgAux()) -> None:
@@ -853,7 +881,7 @@ class TavgStream:
         the streams of one step may share; a new one if it is None). Device
         work only: no host read, no host value (``graphs.CapturedStep``
         captures it)."""
-        cfg, grid = self.cfg, self.grid
+        cfg, grid = self.field_cfg, self.grid
         if aux.memo is None:
             aux = aux._replace(memo={})
         for d in self._defs:
@@ -884,29 +912,46 @@ class TavgStream:
                       else -big if d.method == "max" else 0.0)
         self.nsamples = 0
 
-    def averages(self) -> Dict[str, np.ndarray]:
+    def averages(self) -> Optional[Dict[str, np.ndarray]]:
         """{field: NumPy array}: the sums over ``nsamples`` (the minima and
-        maxima as they are), from one read of the device buffer."""
+        maxima as they are), from one read of the device buffer. On a
+        rank's block every rank's buffer is gathered (collective) and rank 0
+        gets the whole domain's fields; the other ranks get None."""
         norm = 1.0 / max(self.nsamples, 1)
-        host = _np(self.buffer)
+        if pmesh.over_ranks(self.mesh):
+            parts = self.mesh.comm.gather(self.buffer)
+            if parts is None:
+                return None
+            from pop2_tpu_torch.parallel.multihost import join_blocks
+
+            def field(lo, hi, shape):
+                return join_blocks([p[lo:hi].view(shape) for p in parts],
+                                   self.mesh).numpy()
+        else:
+            host = _np(self.buffer)
+
+            def field(lo, hi, shape):
+                return host[lo:hi].reshape(shape)
         out = {}
         for n in self.contents:
-            lo, hi, shape = self._spans[n]
-            a = host[lo:hi].reshape(shape)
+            a = field(*self._spans[n])
             out[n] = a if FIELDS[n].method in ("min", "max") else a * norm
         return out
 
     def write(self, path: str, step_number: int = 0) -> str:
         """Write the normalized averages (NetCDF3 classic or netCDF-4 by
-        cfg.tavg_fmt_out); returns the path."""
+        cfg.tavg_fmt_out); returns the path. On a rank's block every rank
+        calls it, and rank 0 writes the whole domain's file."""
         fname = f"{path}/{self.prefix}.{step_number:08d}.nc" \
             if not path.endswith(".nc") else path
-        write_fields_netcdf(self.cfg, self.grid, fname, self.contents,
-                            self.averages(), step_number)
+        arrays = self.averages()
+        if arrays is not None:
+            write_fields_netcdf(self.cfg, self.grid, fname, self.contents,
+                                arrays, step_number)
         return fname
 
     # -- accumulator checkpointing (read_tavg/write_tavg,
-    #    source/tavg.F90:2325,1570) --
+    #    source/tavg.F90:2325,1570); on a rank's block, the block's --
     def save_accumulators(self):
         return {"nsamples": self.nsamples,
                 **{f"sum_{k}": _np(v) for k, v in self.sums.items()}}

@@ -703,12 +703,20 @@ def test_forced_run_host_sums_on_two_slabs(two, whole_forced, part):
         assert abs(a - b) <= 1e-12 * max(abs(b), 1e-12 * scale), part
 
 
-def test_forced_run_refuses_global_index_diagnostics_on_slabs(two,
+def test_forced_run_refuses_global_index_diagnostics_on_slabs(two, four,
                                                               whole_forced):
-    assert whole_forced["refused"] == []
-    for r in two:
-        assert len(r["forced"]["refused"]) == 2
-        assert all("12b" in e for e in r["forced"]["refused"])
+    """The global-index diagnostics, once refused on a block, are the whole
+    domain's bitwise on two slabs and on (2, 2) blocks, on every rank:
+    the sections' transports (b4b sums of each block's part) and the
+    barotropic streamfunction (each column's whole strip)."""
+    want = whole_forced["global_index"]
+    assert len(want["sections"]) == len(ranks.SECTIONS)
+    for r, key in [(r, "forced") for r in two] + [(r, "forced_2x2")
+                                                   for r in four]:
+        got = r[key]
+        assert got["global_index"]["sections"] == want["sections"]
+        np.testing.assert_array_equal(got["global_index"]["bsf"],
+                                      want["bsf"])
 
 
 # ---- gathers, scatters, the sharded restart ---------------------------------
@@ -810,40 +818,46 @@ def test_refusals():
     assert not supported.unsupported(mini.with_(mesh_shape=(2, 2)))
     assert not supported.unsupported(mini.with_(mesh_shape=(1, 4)))
     assert not supported.unsupported(mini.with_(mesh_shape=(4, 1), b4b=True))
+    # the overflows and every passive package run on blocks
+    # (tests/test_torch_ranks_services.py)
     from tests.test_overflows import _spec
     from tests.torch_port_helpers import torch_cfg
     ovf = torch_cfg(jget_config("mini").with_(overflows=(_spec(),)))
-    assert any("12b" in w for w in supported.unsupported(
-        ovf.with_(mesh_shape=(2, 1))))
+    assert not supported.unsupported(ovf.with_(mesh_shape=(2, 1)))
     prod = get_config("prod_full", mesh_shape=(2, 1))
     assert not supported.unsupported(prod)  # its iage and cfc
     for pkg in ("ecosys", "abio_dic", "sf6", "irf"):
-        assert any("12b" in w for w in supported.unsupported(
-            prod.with_(passive_tracers=(pkg,))))
+        assert not supported.unsupported(prod.with_(passive_tracers=(pkg,)))
         assert not supported.unsupported(prod.with_(
             passive_tracers=(pkg,), mesh_shape=(1, 1)))
-    with pytest.raises(NotImplementedError, match="12b"):
+    # the cap on blocks needs the ranks' process group, as a Model does
+    with pytest.raises(RuntimeError, match="process group"):
         OcnComponent(mini.with_(mesh_shape=(2, 1)), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         multihost.initialize_distributed("file:///nonexistent", 1, 0, "mpi")
 
 
-def test_refusals_of_a_decomposed_model():
-    """A model on a mesh of one slab runs as the whole domain, and refuses
-    what is not carried under a decomposition (item 12b)."""
+def test_refusals_of_a_decomposed_model(tmp_path):
+    """A model on a mesh of one slab runs as the whole domain: its
+    ``run_compiled`` with a tavg stream, and ``advance`` with history and
+    movie streams, give the whole domain's state and files (the blocks' are
+    ``tests/test_torch_ranks_services.py``'s); nothing of it is refused."""
     cfg = get_config("mini")
-    m = Model(cfg, device="cpu", mesh=pmesh.make_mesh((1, 1), cfg.ny,
-                                                      cfg.nx))
-    st = m.initial_state()
-    for call in (lambda: m.run_compiled(st, 1),
-                 lambda: m.enable_tavg(["TEMP"], freq_steps=1),
-                 lambda: m.enable_history(["TEMP"], freq_steps=1),
-                 lambda: m.enable_movie(["TEMP"], freq_steps=1)):
-        with pytest.raises(NotImplementedError, match="12b"):
-            call()
-    whole = Model(cfg, device="cpu")
-    a, _ = m.advance(st)
-    b, _ = whole.advance(whole.initial_state())
+    runs = []
+    for tag, mesh in (("block", pmesh.make_mesh((1, 1), cfg.ny, cfg.nx)),
+                      ("whole", None)):
+        out = tmp_path / tag
+        out.mkdir()
+        m = Model(cfg, device="cpu", mesh=mesh)
+        m.enable_tavg(["TEMP", "SSH", "BSF"], freq_steps=2, outdir=str(out))
+        st, _ = m.run_compiled(m.initial_state(), 3)
+        m.enable_history(["TEMP"], freq_steps=1, outdir=str(out))
+        m.enable_movie(["UVEL"], freq_steps=1, outdir=str(out))
+        st, _ = m.advance(st)
+        runs.append((st, [(p.rsplit("/", 1)[1], open(p, "rb").read())
+                          for p in m.tavg_files]))
+    (a, fa), (b, fb) = runs
+    assert len(fa) == 4 and fa == fb  # tavg at 2 and 4, history, movie
     for name in FIELDS:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 

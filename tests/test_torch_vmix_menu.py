@@ -536,7 +536,18 @@ def test_production_menu_under_partial_bottom_cells_constructs_and_steps():
      "overflows under state_choice='polynomial'"),
     (dict(mesh_shape=(2, 2), passive_tracers=("ecosys",)),
      "Queue 1 item 12")])
-def test_remaining_refusals_still_raise(over, item):
+def test_remaining_refusals_still_raise(over, item, monkeypatch):
     cfg = production.get_production_config(**over)
+    if tuple(cfg.mesh_shape) == (1, 1):
+        with pytest.raises(NotImplementedError, match=item):
+            supported.check_supported(cfg)
+        return
+    # every package runs on blocks (tests/test_torch_ranks_services.py);
+    # what stays of item 12 is a decomposition over NCCL, a card a rank
+    assert not supported.unsupported(cfg)
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
     with pytest.raises(NotImplementedError, match=item):
-        supported.check_supported(cfg)
+        TModel(cfg, device="cpu")

@@ -7,6 +7,7 @@ starts in about a second.
 
 import functools
 import importlib
+import os
 
 import torch
 
@@ -230,15 +231,6 @@ def forced_run(cfg, nsteps, inputs):
         totals.append(float(out.precip_total))
     gather = (functools.partial(multihost.to_host_replicated, mesh=d)
               if d is not None else (lambda t: t.numpy()))
-    refused = []
-    for call in (lambda: diagnostics.section_transport(
-            cfg, g, state, diagnostics.TransportSection(
-                2, 5, 2, 5, 0, 3, "merid", "s")),
-            lambda: diagnostics.barotropic_streamfunction(cfg, g, state)):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(str(e))
     return dict(
         iters=iters, precip_totals=totals,
         fields={k: gather(getattr(state, k)) for k in STATE_FIELDS},
@@ -261,7 +253,153 @@ def forced_run(cfg, nsteps, inputs):
                 budget.surface_flux_integral(cfg, g, forcing).tolist()],
         export={k: gather(v) for k, v in coupled.ocn_export(
             cfg, g, state).items()},
-        refused=refused)
+        global_index=global_index_diagnostics(cfg, g, state, gather))
+
+
+#: sections of the global-index diagnostics on 'mini' (32 x 24): each
+#: crosses the edges of the (2, 2), (1, 4) and two-slab blocks
+SECTIONS = [(2, 5, 2, 5, 0, 3, "merid", "s"),
+            (7, 9, 10, 14, 0, 7, "merid", "across"),
+            (14, 18, 11, 11, 1, 6, "zonal", "row"),
+            (3, 25, 6, 13, 0, 7, "zonal", "wide")]
+
+
+def global_index_diagnostics(cfg, grid, state, gather):
+    """Each of SECTIONS' transports and the barotropic streamfunction
+    (gathered) of ``state``."""
+    from pop2_tpu_torch import diagnostics
+    return dict(
+        sections=[diagnostics.section_transport(
+            cfg, grid, state, diagnostics.TransportSection(*sec))
+            for sec in SECTIONS],
+        bsf=gather(diagnostics.barotropic_streamfunction(cfg, grid, state)))
+
+
+def _whole(t):
+    return t.detach().cpu().numpy()
+
+
+def _read_files(paths):
+    """{file name: bytes} of the files this rank finds (rank 0 writes)."""
+    out = {}
+    for p in paths:
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[os.path.basename(p)] = f.read()
+    return out
+
+
+def stream_run(cfg, nsteps, outdir, tavg_fields, compiled=True, freq=4,
+               tracers=None, forcing_fields=None, history=(), movie=(),
+               snap_freq=5):
+    """``nsteps`` of ``cfg`` on this rank's block of its ``mesh_shape`` (on
+    the whole domain for (1, 1), in the caller's process) through
+    ``Model.run_compiled`` (or ``run``), with a tavg stream of
+    ``tavg_fields`` every ``freq`` steps and, where named, history and
+    movie streams every ``snap_freq``, all into ``outdir``. Returns the
+    gathered state, the files' bytes (rank 0's), the stream's partial
+    accumulation (rank 0's), the global-index diagnostics, the captured
+    step's graphs and why it was not captured, and the exchange counts."""
+    model = Model(cfg, device="cpu")
+    d = model.mesh if model.mesh is not None and model.mesh.comm else None
+    cut = d.slab if d is not None else (lambda t: t)
+    gather = (functools.partial(multihost.to_host_replicated, mesh=d)
+              if d is not None else _whole)
+    state = model.initial_state()
+    if tracers is not None:
+        from pop2_tpu_torch import baroclinic
+        t = cut(torch.as_tensor(tracers).to(cfg.torch_dtype))
+        rho = baroclinic._masked_density(model.step_cfg, model.grid,
+                                         model.ts_range, t)
+        state = state.replace(tracer_cur=t, tracer_old=t, rho_cur=rho,
+                              rho_old=rho)
+    forcing = model.forcing
+    if forcing_fields:
+        forcing = forcing.replace(**{
+            k: cut(torch.as_tensor(v).to(cfg.torch_dtype))
+            for k, v in forcing_fields.items()})
+    os.makedirs(outdir, exist_ok=True)
+    stream = model.enable_tavg(list(tavg_fields), freq_steps=freq,
+                               outdir=outdir)
+    if history:
+        model.enable_history(list(history), freq_steps=snap_freq,
+                             outdir=outdir)
+    if movie:
+        model.enable_movie(list(movie), freq_steps=snap_freq,
+                           outdir=outdir, level=1)
+    if d is not None:
+        d.comm.reset_counts()
+    if compiled:
+        state, _ = model.run_compiled(state, nsteps, forcing)
+    else:
+        state = model.run(state, nsteps, forcing)
+    cap = model._captured
+    partial = stream.averages()
+    return dict(
+        fields={k: gather(getattr(state, k)) for k in STATE_FIELDS},
+        files=_read_files(model.tavg_files),
+        names=[os.path.basename(p) for p in model.tavg_files],
+        nsamples=stream.nsamples, partial=partial,
+        diags=model.diagnostics(state),
+        global_index=global_index_diagnostics(model.step_cfg, model.grid,
+                                              state, gather),
+        graphs=None if cap is None else cap.graphs,
+        uncaptured=None if cap is None else cap.uncaptured,
+        counts=d.comm.counts() if d is not None else None)
+
+
+def cap_run(cfg, x2o, outdir, resume_shape=None, nsteps=2):
+    """The coupler cap on this rank's block of ``cfg.mesh_shape`` (the
+    whole domain for (1, 1)): two coupling intervals of ``nsteps`` steps
+    under ``x2o[0]`` and ``x2o[1]`` (whole-domain SI fields, which the cap
+    cuts to the block), a restart requested at the second's end, then a
+    cap on ``resume_shape`` (the same shape by default) started from that
+    restart for a third interval under ``x2o[2]``. Returns each export
+    gathered and the final state gathered."""
+    from pop2_tpu_torch.ocn_component import OcnComponent
+
+    def cap(c):
+        return OcnComponent(c, coupling_freq_opt="nstep",
+                            coupling_freq=nsteps, outdir=outdir,
+                            device="cpu")
+
+    def fields(v):
+        return {k: torch.as_tensor(a).to(cfg.torch_dtype)
+                for k, a in v.items()}
+    first = cap(cfg)
+    exports = [first.gather_export(first.initialize())]
+    exports.append(first.gather_export(first.run(fields(x2o[0]))))
+    exports.append(first.gather_export(first.run(fields(x2o[1]),
+                                                 rstwr=True)))
+    flags = [first.model.time_manager.check_time_flag("cpl_ts")]
+    second = cap(cfg.with_(mesh_shape=tuple(resume_shape
+                                            or cfg.mesh_shape)))
+    second.initialize(restart_dir=outdir)
+    resumed_at = second.model.nsteps_total
+    exports.append(second.gather_export(second.run(fields(x2o[2]))))
+    d = second.mesh
+    gather = (functools.partial(multihost.to_host_replicated, mesh=d)
+              if d is not None else _whole)
+    return dict(exports=exports, resumed_at=resumed_at, flags=flags,
+                fields={k: gather(getattr(second.state, k))
+                        for k in STATE_FIELDS},
+                restart_files=[os.path.basename(p)
+                               for p in first.restart_files])
+
+
+def overflow_run(cfg, nsteps, tracers):
+    """``nsteps`` of ``Model.advance`` of an overflow configuration on this
+    rank's block of its ``mesh_shape`` from ``tracers`` (whole domain),
+    with the blocks each of its regions' boxes meets. Returns the gathered
+    fields and iterations."""
+    out = run_model(cfg, nsteps, tracers=tracers)
+    model_cfg = cfg
+    boxes = [(b.jmin, b.jmax, b.imin, b.imax) for spec in model_cfg.overflows
+             for b in (spec.inf, spec.src, spec.ent, spec.prd)]
+    j0, j1, i0, i1 = out["block"]
+    out["meets"] = [max(a, j0) <= min(b, j1 - 1) and max(c, i0)
+                    <= min(e, i1 - 1) for a, b, c, e in boxes]
+    return out
 
 
 def suite(calls):
