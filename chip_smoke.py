@@ -150,7 +150,13 @@ blocks, gloo, b4b sums, against the whole domain: float64 through
 ``advance``, float32 through ``run_compiled`` with a tavg stream of every
 field, its file bytewise the whole domain's; each stencil kernel halo'd
 on its block; on (2, 2) the ecosystem, the coupler cap and the overflows
-at a small size). Every phase that fails makes the script exit non-zero;
+at a small size), then the same prod_full on a (2, 2) mesh in this one
+process (``local_mesh_phase``: a thread a block, the exchanges device
+copies, float64 through ``advance`` and float32 through ``run_compiled``
+captured in CUDA graphs that hold every block, held against the same
+whole-domain runs bitwise; each stencil kernel halo'd on every block; the
+captured step's ms and busy share beside the gloo ranks' figures). Every
+phase that fails makes the script exit non-zero;
 with no
 GPU it exits at once without a result. It takes no arguments: every run
 is the whole check.
@@ -2917,12 +2923,20 @@ def reset_counts():
     tridiag_cuda.launches_by_nr.clear()
 
 
-def read_counts():
+def read_counts(block=None):
     """Every wrapper's launches (and the two mode counters), and thomas's by
-    the right-hand sides a launch took (``thomas_nr1`` ...)."""
-    counts = {name: getattr(mod, attr)
-              for name, (mod, attr) in COUNTERS.items()}
-    counts.update({f"thomas_nr{n}": tridiag_cuda.launches_by_nr[n]
+    the right-hand sides a launch took (``thomas_nr1`` ...): the modules'
+    counters, or a block's of a one-process mesh (``block``, a
+    ``launch_counts.Counts``)."""
+    if block is not None:
+        counts = {name: block.get(mod, attr)
+                  for name, (mod, attr) in COUNTERS.items()}
+        by_nr = block.by_nr
+    else:
+        counts = {name: getattr(mod, attr)
+                  for name, (mod, attr) in COUNTERS.items()}
+        by_nr = tridiag_cuda.launches_by_nr
+    counts.update({f"thomas_nr{n}": by_nr[n]
                    for n in range(1, tridiag_cuda.MAX_RHS + 1)})
     return counts
 
@@ -3529,7 +3543,33 @@ def _timed(fn):
 
 def _device_busy(fn, nsteps: int):
     """(device kernel ms a step, busy share of the window) of ``nsteps``
-    steps under torch.profiler; (None, None) if it saw no kernel."""
+    steps under torch.profiler (``_device_split``); (None, None) if it saw
+    no kernel."""
+    split = _device_split(fn, nsteps)
+    if split is None:
+        return None, None
+    return split["kernel_ms"], split["busy_share"]
+
+
+def _union_us(intervals) -> float:
+    """The time that at least one of the (start, end) intervals covers."""
+    total, reached = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > reached:
+            total += b - max(a, reached)
+            reached = b
+    return total
+
+
+def _device_split(fn, nsteps: int):
+    """The device's work in ``nsteps`` steps under torch.profiler, a step:
+    {"kernels": launches, "kernel_ms": their summed time, "copy_kernels",
+    "copy_ms": those of copy kernels (an exchange's pieces, a stack, a
+    cat, a pad), "busy_ms": the time at least one kernel ran (the union of
+    their intervals), "window_ms": the host clock's}, with "busy_share" =
+    busy_ms / window_ms and "kernel_overlap" = kernel_ms / window_ms (above
+    1 where kernels of several streams ran at once); None if it saw no
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3538,11 +3578,27 @@ def _device_busy(fn, nsteps: int):
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA)
-    if not busy_us:
-        return None, None
-    return busy_us / nsteps / 1e3, busy_us / (window * 1e6)
+    out = dict.fromkeys(("kernels", "kernel_ms", "copy_kernels",
+                         "copy_ms"), 0.0)
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        out["kernels"] += 1
+        out["kernel_ms"] += (end - start) / 1e3
+        if re.search(r"copy|Copy|cat|Cat|pad|Memcpy", ev.name):
+            out["copy_kernels"] += 1
+            out["copy_ms"] += (end - start) / 1e3
+    if not spans:
+        return None
+    out["busy_ms"] = _union_us(spans) / 1e3
+    out = {k: v / nsteps for k, v in out.items()}
+    out["window_ms"] = 1e3 * window / nsteps
+    out["busy_share"] = out["busy_ms"] / out["window_ms"]
+    out["kernel_overlap"] = out["kernel_ms"] / out["window_ms"]
+    return out
 
 
 def _leaf_spread(a, b):
@@ -4658,16 +4714,18 @@ def _parts():
     return part_s, part
 
 
-def ranks_model(dtype_name: str, tracers_file: str, shape):
-    """(model, state, forcing) of prod_full with b4b on this rank's block
-    of a ``shape`` mesh (the whole domain for (1, 1)) from the stratified
-    tracers in ``tracers_file``, under the path's forcing."""
+def ranks_model(dtype_name: str, tracers_file: str, shape, dims=None):
+    """(model, state, forcing) of prod_full with b4b (at ``dims``, by
+    default 320 x 384 x 60) on this rank's block of a ``shape`` mesh (the
+    whole domain for (1, 1); in a process of no process group every block,
+    ``model.MeshModel``, whose state is the whole domain's) from the
+    stratified tracers in ``tracers_file``, under the path's forcing."""
     cfg = full_config(dtype_name, "prod_full").with_(
-        b4b=True, mesh_shape=tuple(shape))
+        b4b=True, mesh_shape=tuple(shape), **(dims or {}))
     model = Model(cfg, device=DEV)
     mesh = model.mesh
     tracers = torch.load(tracers_file)
-    if mesh is not None:
+    if isinstance(mesh, pmesh.Decomposition):
         tracers = mesh.slab(tracers)
     tracers = tracers.to(DEV)
     rho = baroclinic._masked_density(model.step_cfg, model.grid,
@@ -4761,13 +4819,23 @@ def stream_steps(model, state, forcing, fields, outdir):
     if comm is not None:
         counts["with_stream"] = comm.counts()
     cap = model._captured
-    return state, {
+    rec = {
         "iters": iters, "step_ms": ms, "launches": read_counts(),
         "comm": counts, "write_seconds": write_s,
         "files": list(model.tavg_files),
         "accumulator_bytes": stream.buffer.numel()
         * stream.buffer.element_size(),
         "graphs": cap.graphs, "uncaptured": cap.uncaptured}
+    if mesh is None:
+        # the whole domain's captured step with the stream, as the
+        # one-process mesh's is read (``local_stream_steps``)
+        holder = [state]
+
+        def more():
+            holder[0], _ = model.run_compiled(holder[0], LOCAL_PROFILED,
+                                              forcing)
+        rec["device_split"] = _device_split(more, LOCAL_PROFILED)
+    return state, rec
 
 
 def ranks_stream_run(dtype_name: str, tracers_file: str, fields, outdir,
@@ -4875,11 +4943,68 @@ def small_checks(outdir: str, shape):
     return out
 
 
-def ranks_phase(nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
+KERNEL_COUNTERS = [k for k in COUNTERS if not k.endswith(("_fold", "_aniso"))]
+
+
+def whole_runs(tmp, nsteps: int = RANKS_STEPS, dims=None):
+    """The whole domain's runs the decomposed ones are held against,
+    prod_full with b4b (at ``dims``, by default 320 x 384 x 60): ``nsteps``
+    of ``Model.advance`` in float64, and in float32 ``Model.run_compiled``
+    with a tavg stream of every field it evaluates (``stream_steps``);
+    each from the stratified tracers it saves into ``tmp``. Returns
+    ({dtype: record}, the stream's fields)."""
+    wholes, stream_fields = {}, None
+    for dtype_name in ("float64", "float32"):
+        cfg = full_config(dtype_name, "prod_full").with_(b4b=True,
+                                                         **(dims or {}))
+        model = Model(cfg, device=DEV)
+        state = stratified_state(model, SEED + 7)
+        tracers_file = os.path.join(tmp, f"tracers_{dtype_name}.pt")
+        torch.save(state.tracer_cur.cpu(), tracers_file)
+        del model, state
+        _MODELS.clear()
+        _STRATIFIED.clear()
+        model, state, forcing = ranks_model(dtype_name, tracers_file,
+                                            (1, 1), dims)
+        t0 = time.perf_counter()
+        if dtype_name == "float64":
+            reset_counts()
+            iters, ms = [], []
+            for _ in range(nsteps):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, diags = model.advance(state, forcing)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+                iters.append(int(diags.solver_iters))
+            rec = {"iters": iters, "step_ms": ms,
+                   "launches": read_counts()}
+        else:
+            stream_fields, raising = probe_fields(model, forcing)
+            if raising:
+                raise AssertionError(f"ranks: tavg fields raising "
+                                     f"{sorted(raising)}")
+            state, rec = stream_steps(
+                model, state, forcing, stream_fields,
+                os.path.join(tmp, "whole"))
+            rec["stream_fields"] = len(stream_fields)
+        rec.update(tracers_file=tracers_file,
+                   seconds=time.perf_counter() - t0,
+                   fields={name: getattr(state, name).cpu()
+                           for name in PATH_FIELDS})
+        wholes[dtype_name] = rec
+        del model, state, forcing
+        gc.collect()
+        torch.cuda.empty_cache()
+    return wholes, stream_fields
+
+
+def ranks_phase(tmp, nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
     """prod_full at 320 x 384 x 60 on each mesh of ``meshes`` (y slabs of
     192 rows; 2-D blocks of 192 x 160), one process a block on this card
-    over gloo, b4b sums, against the same steps on the whole domain:
-    ``nsteps`` of ``Model.advance`` in float64, and on (2, 2) in float32
+    over gloo, b4b sums, against the same steps on the whole domain
+    (``whole_runs``, into ``tmp``): ``nsteps`` of ``Model.advance`` in
+    float64, and on (2, 2) in float32
     ``Model.run_compiled`` with a tavg stream of every field prod_full
     evaluates (``stream_steps``). Solver iterations identical every step,
     the fields within RANKS_BAND64 of scale of the whole-domain run in
@@ -4891,86 +5016,360 @@ def ranks_phase(nsteps: int = RANKS_STEPS, meshes=RANKS_MESHES):
     (``small_checks``: the ecosystem, the coupler cap, the overflows),
     bitwise the whole domain's. Prints the step ms, exchanges, all-reduces
     and staged bytes a step with and without the stream, the write's
-    seconds, peak memory a rank."""
+    seconds, peak memory a rank. Returns the whole domain's runs, the
+    stream's fields and the (2, 2) records ({dtype: record}), which
+    ``local_mesh_phase`` reads."""
     import chip_smoke as cs  # the ranks import this module by its name
-    kernel_counters = [k for k in COUNTERS
-                       if not k.endswith(("_fold", "_aniso"))]
-    wholes = {}
-    with tempfile.TemporaryDirectory(prefix="pop2_ranks_in_") as tmp:
-        for dtype_name in ("float64", "float32"):
-            cfg = full_config(dtype_name, "prod_full").with_(b4b=True)
-            model = Model(cfg, device=DEV)
-            state = stratified_state(model, SEED + 7)
-            tracers_file = os.path.join(tmp, f"tracers_{dtype_name}.pt")
-            torch.save(state.tracer_cur.cpu(), tracers_file)
-            del model, state
-            _MODELS.clear()
-            _STRATIFIED.clear()
-            model, state, forcing = ranks_model(dtype_name, tracers_file,
-                                                (1, 1))
-            t0 = time.perf_counter()
-            if dtype_name == "float64":
-                reset_counts()
-                iters, ms = [], []
-                for _ in range(nsteps):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    state, diags = model.advance(state, forcing)
-                    torch.cuda.synchronize()
-                    ms.append(1e3 * (time.perf_counter() - t1))
-                    iters.append(int(diags.solver_iters))
-                rec = {"iters": iters, "step_ms": ms,
-                       "launches": read_counts()}
-            else:
-                stream_fields, raising = probe_fields(model, forcing)
-                if raising:
-                    raise AssertionError(f"ranks: tavg fields raising "
-                                         f"{sorted(raising)}")
-                state, rec = stream_steps(
-                    model, state, forcing, stream_fields,
-                    os.path.join(tmp, "whole"))
-                rec["stream_fields"] = len(stream_fields)
-            rec.update(tracers_file=tracers_file,
-                       seconds=time.perf_counter() - t0,
-                       fields={name: getattr(state, name).cpu()
-                               for name in PATH_FIELDS})
-            wholes[dtype_name] = rec
-            del model, state, forcing
-            gc.collect()
-            torch.cuda.empty_cache()
+    wholes, stream_fields = whole_runs(tmp, nsteps)
+    t0 = time.perf_counter()
+    small_whole = small_checks(os.path.join(tmp, "cpl_whole"), (1, 1))
+    small_whole["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = wholes["float64"]["fields"]
+    gloo = {}
+    for shape in meshes:
+        tag = f"{shape[0]}x{shape[1]}"
+        plan = [("float64", cs.ranks_run,
+                 ("float64", nsteps, wholes["float64"]["tracers_file"]))]
+        if shape == (2, 2):
+            plan += [("float32", cs.ranks_stream_run,
+                      ("float32", wholes["float32"]["tracers_file"],
+                       stream_fields, os.path.join(tmp, tag))),
+                     ("small", cs.small_checks,
+                      (os.path.join(tmp, f"cpl_{tag}"),))]
         t0 = time.perf_counter()
-        small_whole = small_checks(os.path.join(tmp, "cpl_whole"), (1, 1))
-        small_whole["seconds"] = time.perf_counter() - t0
+        res = multihost.spawn_ranks(
+            cs.ranks_worker, shape[0] * shape[1], backend="gloo",
+            device="cuda", args=(plan, tuple(shape)), timeout=900)
+        spawn_s = time.perf_counter() - t0
+        for dtype_name, w in wholes.items():
+            if dtype_name in res[0]:
+                out = ranks_check(dtype_name, tuple(shape), w,
+                                  [r[dtype_name] for r in res], ref,
+                                  KERNEL_COUNTERS, spawn_s)
+                if tuple(shape) == (2, 2):
+                    gloo[dtype_name] = out
+        if shape == (2, 2):
+            small_check(small_whole, [r["small"] for r in res])
+    return {"wholes": wholes, "stream_fields": stream_fields,
+            "gloo": gloo}
+
+
+# ---- the ocean on a one-process mesh -------------------------------------
+# prod_full at full size on (2, 2) blocks in this process (the JAX
+# package's mesh over one process's devices): a thread a block, every block
+# on this card, the exchanges device copies (parallel.mesh.LocalComm), the
+# captured step's graphs holding every block; held against the same whole
+# domain runs as the ranks, bitwise
+LOCAL_MESH = (2, 2)
+# replays timed after the float32 run's last write (the stream still on),
+# then one more under the profiler: its interval's write would come at the
+# fourth step after that write
+LOCAL_MORE = 2
+LOCAL_PROFILED = 1
+
+
+def block_count_reads(model):
+    """Each block's launches, as ``read_counts`` reads the module's."""
+    return [read_counts(c) for c in model.block_counts()]
+
+
+def local_stream_steps(model, state, forcing, fields, outdir):
+    """``stream_steps`` on a one-process mesh: RANKS_STREAM_STEPS[0]
+    steps of ``run_compiled`` (one a call, each timed), a tavg stream of
+    ``fields`` every RANKS_STREAM_STEPS[1] steps, that many steps more;
+    the exchanges of an eager step without and with the stream (the replays
+    run the same, in the graphs); the write's seconds; then LOCAL_MORE
+    captured steps more with the stream (replays), timed and under the
+    profiler (the device's busy share). Returns (state after the checked
+    steps, record)."""
+    mesh = model.mesh
+    iters, ms, comm = [], [], {}
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            mesh.reset_comm_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diags = model.run_compiled(state, 1, forcing)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            iters.append(int(diags.solver_iters))
+            yield mesh.comm_counts()
+    n0, n1 = RANKS_STREAM_STEPS
+    for c in model.block_counts():
+        c.reset()
+    comm["without_stream"] = list(steps(n0))[-1]  # the eager leapfrog step
+    os.makedirs(outdir, exist_ok=True)
+    stream = model.enable_tavg(fields, freq_steps=n1, outdir=outdir)
+    write, write_s = stream.write, []
+
+    def timed_write(path, step_number=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = write(path, step_number)
+        write_s.append(time.perf_counter() - t0)
+        return out
+    stream.write = timed_write
+    comm["with_stream"] = list(steps(n1))[0]  # eager: the stream is new
+    launches = block_count_reads(model)
+    cap = model._captured
+    checked, files, write_s = state, list(model.tavg_files), list(write_s)
+    more_ms = []
+    for _ in range(LOCAL_MORE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = model.run_compiled(state, 1, forcing)
+        torch.cuda.synchronize()
+        more_ms.append(1e3 * (time.perf_counter() - t0))
+    holder = [state]
+
+    def busy_steps():
+        holder[0], _ = model.run_compiled(holder[0], LOCAL_PROFILED,
+                                          forcing)
+    split = _device_split(busy_steps, LOCAL_PROFILED) or {}
+    return checked, {
+        "iters": iters, "step_ms": ms, "launches": launches, "comm": comm,
+        "write_seconds": write_s, "files": files,
+        "accumulator_bytes": stream.buffer.numel()
+        * stream.buffer.element_size(),
+        "graphs": cap.graphs, "uncaptured": cap.uncaptured,
+        "replays": cap.replays, "capture_seconds": cap.capture_seconds,
+        "captured_step_ms": more_ms,
+        "device_ms_a_step": split.get("kernel_ms"),
+        "busy_share": split.get("busy_share"),
+        "kernel_overlap": split.get("kernel_overlap"),
+        "device_split": split or None}
+
+
+def local_kernel_checks(dtype_name: str, mesh):
+    """``ranks_kernel_checks`` on every block of a one-process mesh: each
+    stencil kernel's halo'd launch on each block (all at once, a thread a
+    block) against the whole-domain launch's rows and columns, bitwise;
+    the launches of each (the block's own counters) and the exchanges of
+    a call."""
+    cases = ranks_kernel_cases(dtype_name)
+    out = {}
+    blocks = {}
+    for name, (cfg, grid, args) in cases.items():
+        mod, fn_name = RANKS_KERNELS[name]
+        fn = getattr(mod, fn_name)
+        n0 = mod.launches
+        want = fn(cfg, grid, *args)
+        n_whole = mod.launches - n0
+        if id(grid) not in blocks:
+            blocks[id(grid)] = mesh.cut(grid)
+        sgrids, sargs = blocks[id(grid)], mesh.cut(args)
+
+        def call(r):
+            d, counts = mesh.blocks[r], mesh.driver.counts[r]
+            n0, e0 = counts.get(mod), d.comm.exchanges
+            got = fn(cfg, sgrids[r], *sargs[r])
+            return got, counts.get(mod) - n0, d.comm.exchanges - e0
+        res = mesh.run(call)
+        recs = []
+        for d, (got, n_halo, exchanges) in zip(mesh.blocks, res):
+            bitwise, err = True, 0.0
+            for g, w in zip(_leaves(got), _leaves(want)):
+                if d.is_field(w):
+                    w = w[..., d.j0:d.j1, d.i0:d.i1]
+                bitwise &= bool(torch.equal(g, w))
+                err = max(err, float((g.double() - w.double()).abs().max()))
+            recs.append({"rank": d.rank, "bitwise": bitwise,
+                         "max_abs_err": err,
+                         "design": ("closed" if not d.fold else "strip"
+                                    if d.px > 1 else "fold"),
+                         "launches_whole": n_whole,
+                         "launches_halo": n_halo,
+                         "exchanges_a_call": exchanges})
+        out[name] = recs
+        del want, res
+    return out
+
+
+def local_run(dtype_name: str, whole, stream_fields, outdir, dims=None):
+    """prod_full with b4b on a one-process (2, 2) mesh from ``whole``'s
+    stratified tracers: in float64 RANKS_STEPS of ``Model.advance`` (each
+    timed; the exchanges of each), in float32 ``local_stream_steps``; the
+    fields, each block's launches, peak memory and the seconds of each
+    part; at full size the kernels halo'd on every block
+    (``local_kernel_checks``)."""
+    part_s, part = _parts()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, forcing = ranks_model(dtype_name, whole["tracers_file"],
+                                        LOCAL_MESH, dims)
+    mesh = model.mesh
+    part("model")
+    if dtype_name == "float64":
+        for c in model.block_counts():
+            c.reset()
+        iters, ms, comm = [], [], []
+        for _ in range(len(whole["iters"])):
+            mesh.reset_comm_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diags = model.advance(state, forcing)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            iters.append(int(diags.solver_iters))
+            comm.append(mesh.comm_counts())
+        rec = {"iters": iters, "step_ms": ms,
+               "launches": block_count_reads(model), "comm": comm}
+    else:
+        state, rec = local_stream_steps(model, state, forcing,
+                                        stream_fields, outdir)
+    rec["fields"] = {name: getattr(state, name).cpu()
+                     for name in PATH_FIELDS}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    part("steps")
+    del model, state, forcing, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dims is None:
+        cfg = full_config(dtype_name, "prod_full")
+        mesh = pmesh.make_mesh(LOCAL_MESH, cfg.ny, cfg.nx, tripole=True,
+                               cyclic=True, devices=[DEV] * 4)
+        rec["kernels"] = local_kernel_checks(dtype_name, mesh)
+        del mesh
         gc.collect()
         torch.cuda.empty_cache()
-        ref = wholes["float64"]["fields"]
-        for shape in meshes:
-            tag = f"{shape[0]}x{shape[1]}"
-            plan = [("float64", cs.ranks_run,
-                     ("float64", nsteps, wholes["float64"]["tracers_file"]))]
-            if shape == (2, 2):
-                plan += [("float32", cs.ranks_stream_run,
-                          ("float32", wholes["float32"]["tracers_file"],
-                           stream_fields, os.path.join(tmp, tag))),
-                         ("small", cs.small_checks,
-                          (os.path.join(tmp, f"cpl_{tag}"),))]
-            t0 = time.perf_counter()
-            res = multihost.spawn_ranks(
-                cs.ranks_worker, shape[0] * shape[1], backend="gloo",
-                device="cuda", args=(plan, tuple(shape)), timeout=900)
-            spawn_s = time.perf_counter() - t0
-            for dtype_name, w in wholes.items():
-                if dtype_name in res[0]:
-                    ranks_check(dtype_name, tuple(shape), w,
-                                [r[dtype_name] for r in res], ref,
-                                kernel_counters, spawn_s)
-            if shape == (2, 2):
-                small_check(small_whole, [r["small"] for r in res])
+        part("kernels")
+    rec["part_seconds"] = part_s
+    return rec
 
 
-def _file_bytes(path):
-    with open(path, "rb") as f:
-        return f.read()
+def local_mesh_phase(tmp, ranks=None, dims=None):
+    """prod_full with b4b on a (2, 2) mesh in this process
+    (``model.MeshModel``: a thread a block, every block on this card, the
+    exchanges device copies), against the whole domain's runs of
+    ``ranks_phase`` (``ranks``; or its own ``whole_runs`` at ``dims``):
+    float64 through ``advance`` (fields 0.0, iterations and each block's
+    launches equal), float32 through ``run_compiled`` with the tavg stream
+    of every field (graphs > 0, fields 0.0, the file bytewise the whole
+    domain's, iterations and each block's launches equal, nothing staged
+    through the host), and at full size each stencil kernel halo'd on every
+    block bitwise. Prints the captured step's ms and busy share, the
+    exchanges and all-reduces a step, the write's seconds and peak memory
+    beside the gloo ranks' figures of the same call."""
+    if ranks is None:
+        wholes, stream_fields = whole_runs(tmp, RANKS_STEPS, dims)
+        ranks = {"wholes": wholes, "stream_fields": stream_fields,
+                 "gloo": {}}
+    wholes, ref = ranks["wholes"], ranks["wholes"]["float64"]["fields"]
+    broken = {}
+    for dtype_name in ("float64", "float32"):
+        whole = wholes[dtype_name]
+        t0 = time.perf_counter()
+        rec = local_run(dtype_name, whole, ranks["stream_fields"],
+                        os.path.join(tmp, f"local_{dtype_name}"), dims)
+        seconds = time.perf_counter() - t0
+        stream = dtype_name == "float32"
+        bad = {}
+        diffs = {}
+        for name in PATH_FIELDS:
+            g, w = rec["fields"][name], whole["fields"][name]
+            if not bool(torch.isfinite(g).all()):
+                bad[f"{name}_finite"] = False
+            diffs[name] = float((g - w).abs().max())
+            if diffs[name] != 0.0:
+                bad[name] = diffs[name]
+        if rec["iters"] != whole["iters"]:
+            bad["iters"] = (rec["iters"], whole["iters"])
+        for r, counts in enumerate(rec["launches"]):
+            diff = {k: (counts[k], whole["launches"][k])
+                    for k in KERNEL_COUNTERS
+                    if counts[k] != whole["launches"][k]}
+            if diff:
+                bad[f"launches_block{r}"] = diff
+        for name, recs in rec.get("kernels", {}).items():
+            for k in recs:
+                if not k["bitwise"] or k["launches_halo"] \
+                        != k["launches_whole"]:
+                    bad[f"{name}_block{k['rank']}"] = k
+        comm = (rec["comm"] if not stream else
+                [rec["comm"]["without_stream"], rec["comm"]["with_stream"]])
+        staged = [c["staged_bytes"] for step in comm for c in step]
+        if any(staged):
+            bad["staged_bytes"] = staged
+        out = {"phase": "local_mesh", "path": "prod_full",
+               "dtype": dtype_name,
+               "entry": "run_compiled" if stream else "advance",
+               "backend": "local (one process, a thread a block)",
+               "mesh": list(LOCAL_MESH), "b4b": True,
+               "dims": dims or "320x384x60", "steps": len(rec["iters"]),
+               "solver_iters": rec["iters"],
+               "whole_step_ms": whole["step_ms"],
+               "step_ms": rec["step_ms"], "max_abs_diff": diffs,
+               "launches_whole": {k: whole["launches"][k]
+                                  for k in KERNEL_COUNTERS},
+               "launches_blocks_equal": not any(
+                   k.startswith("launches_block") for k in bad),
+               "peak_gb": rec["peak_gb"],
+               "part_seconds": rec["part_seconds"], "seconds": seconds}
+        if stream:
+            files = rec["files"]
+            same = (len(files) == len(whole["files"]) == 1
+                    and _same_file(files[0], whole["files"][0]))
+            if not same:
+                bad["tavg_file"] = (files, whole["files"])
+            if not rec["graphs"] or rec["uncaptured"] is not None:
+                bad["captured"] = (rec["graphs"], rec["uncaptured"])
+            out.update(
+                graphs=rec["graphs"], replays=rec["replays"],
+                capture_seconds=rec["capture_seconds"],
+                tavg_file_bytes=os.path.getsize(whole["files"][0]),
+                tavg_file_bitwise=same,
+                write_seconds=rec["write_seconds"],
+                write_seconds_whole=whole["write_seconds"],
+                captured_step_ms=rec["captured_step_ms"],
+                device_ms_a_step=rec["device_ms_a_step"],
+                busy_share=rec["busy_share"],
+                kernel_overlap=rec["kernel_overlap"],
+                device_split=rec["device_split"],
+                device_split_whole=whole.get("device_split"),
+                per_step={part: {k: [c[k] for c in counts]
+                                 for k in ("exchanges", "allreduces",
+                                           "staged_bytes", "sent_bytes")}
+                          for part, counts in rec["comm"].items()})
+        else:
+            out.update(
+                exchanges_per_step=[[c["exchanges"] for c in step]
+                                    for step in comm],
+                allreduces_per_step=[[c["allreduces"] for c in step]
+                                     for step in comm],
+                staged_bytes_per_step=[[c["staged_bytes"] for c in step]
+                                       for step in comm])
+        if "kernels" in rec:
+            out["kernels"] = rec["kernels"]
+        gloo = ranks["gloo"].get(dtype_name)
+        if gloo is not None:
+            out["gloo_same_call"] = {
+                k: gloo.get(k) for k in (
+                    "step_ms_ranks", "whole_step_ms", "per_step",
+                    "exchanges_per_step", "allreduces_per_step",
+                    "staged_bytes_per_step", "write_seconds_ranks",
+                    "peak_gb_ranks", "spawn_seconds") if k in gloo}
+        emit(out)
+        if bad:
+            broken[dtype_name] = bad
+    if broken:
+        raise AssertionError(f"local mesh {LOCAL_MESH}: the one-process "
+                             f"run differs: {broken}")
+
+
+def _same_file(a, b, chunk=1 << 26) -> bool:
+    """The two files' bytes equal, read a chunk at a time."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
 
 
 def ranks_check(dtype_name, shape, whole, res, ref, kernel_counters,
@@ -5031,7 +5430,7 @@ def ranks_check(dtype_name, shape, whole, res, ref, kernel_counters,
         n0, n1 = RANKS_STREAM_STEPS
         files = res[0]["files"]
         same = (len(files) == len(whole["files"]) == 1
-                and _file_bytes(files[0]) == _file_bytes(whole["files"][0]))
+                and _same_file(files[0], whole["files"][0]))
         if not same:
             broken["tavg_file"] = (files, whole["files"])
         if any(r["graphs"] != 0 or "gloo" not in r["uncaptured"]
@@ -5065,6 +5464,7 @@ def ranks_check(dtype_name, shape, whole, res, ref, kernel_counters,
     if broken:
         raise AssertionError(f"ranks {shape} {dtype_name}: the decomposed "
                              f"run differs: {broken}")
+    return out
 
 
 def small_check(whole, res):
@@ -5282,7 +5682,9 @@ def main():
     run(spai_phase)
     run(bgc_phase)
     run(overflow_phase)
-    run(ranks_phase)
+    with tempfile.TemporaryDirectory(prefix="pop2_ranks_in_") as tmp:
+        ranks = run(ranks_phase, tmp)
+        run(local_mesh_phase, tmp, ranks)
 
     kernels = []
     for dtype_name, recs in records.items():

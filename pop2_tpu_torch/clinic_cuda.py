@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch import advect, constants as const, hmix, pgrad, vmix
 from pop2_tpu_torch.grid import grid_bc, thickness_u
 from pop2_tpu_torch.parallel import mesh as pmesh
@@ -203,7 +204,6 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
     """(fx, fy, zx, zy) from explicit fields: eight (km, ny, nx) tensors,
     smf (2, ny, nx), dhu (ny, nx) and the Coriolis weights. CUDA tensors go
     through the kernel, CPU tensors through the plain version."""
-    global launches, launches_pbc
     _check_mode(cfg, grid)
     if not ucur.is_cuda:
         return clinic_rhs_plain(cfg, grid, ucur, vcur, uold, vold, umix,
@@ -248,9 +248,9 @@ def clinic_rhs_fields(cfg, grid, ucur, vcur, uold, vold, umix, vmixm, rhoavg,
         fx.data_ptr(), fy.data_ptr(), zx.data_ptr(), zy.data_ptr(),
         grid.DZBU.data_ptr() if pbc else 0, cb.stream_ptr())
     cb.check_launch(err, "clinic_rhs")
-    launches += 1
+    launch_counts.add(__name__)
     if pbc:
-        launches_pbc += 1
+        launch_counts.add(__name__, "launches_pbc")
     return fx, fy, zx, zy
 
 

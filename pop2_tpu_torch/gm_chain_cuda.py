@@ -46,6 +46,7 @@ import ctypes
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch import gm, gm_cuda, gm_slope_cuda, gm_tlt_cuda, submeso
 from pop2_tpu_torch.gm_cuda import flux_assembly_plain
 from pop2_tpu_torch.parallel import mesh as pmesh
@@ -275,7 +276,6 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
     through the kernel, one launch for each group of ``tracer_groups``
     (the first writes VDC_GM and, with ``want_diags``, the diagnostic
     columns); CPU tensors through the plain version."""
-    global launches, launches_with_diags
     _check_mode(cfg, grid)
     if not tmix.is_cuda:
         return chain_plain(cfg, grid, bc, tmix, slp, sla, kv, tlt,
@@ -297,8 +297,9 @@ def chain(cfg, grid, bc, tmix, slp, sla, kv, tlt, want_diags: bool = True,
                                  diags if first else None, sm)
         err = lib.pop2_gm_chain(*head, rows, smem, *tail)
         cb.check_launch(err, "gm chain")
-        launches += 1
-        launches_with_diags += int(first and want_diags)
+        launch_counts.add(__name__)
+        launch_counts.add(__name__, "launches_with_diags",
+                          int(first and want_diags))
     return gtk, vdc, diags
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch.parallel import mesh as pmesh
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
@@ -278,7 +279,6 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
     through the kernel (its ``ANISO`` instance where ``kisop_y`` is given),
     one launch for each group of ``tracer_groups`` (the first writes
     VDC_GM); CPU tensors through the plain version."""
-    global launches, launches_fold, launches_aniso
     _check_mode(cfg, grid)
     if not tx.is_cuda:
         return flux_assembly_plain(cfg, grid, bc, tx, ty, tz, slx, sly,
@@ -317,7 +317,8 @@ def flux_assembly(cfg, grid, bc, tx, ty, tz, slx, sly, sf_slx, sf_sly,
             grid.TAREA_R.data_ptr(), lev.data_ptr(), gtk[n0].data_ptr(),
             vdc.data_ptr() if g == 0 else None, cb.stream_ptr())
         cb.check_launch(err, "gm flux_assembly")
-        launches += 1
-        launches_fold += int(cfg.ns_boundary == "tripole")
-        launches_aniso += int(aniso)
+        launch_counts.add(__name__)
+        launch_counts.add(__name__, "launches_fold",
+                          int(cfg.ns_boundary == "tripole"))
+        launch_counts.add(__name__, "launches_aniso", int(aniso))
     return gtk, vdc

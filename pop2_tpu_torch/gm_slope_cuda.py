@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch import constants as const
 from pop2_tpu_torch import eos, gm
 from pop2_tpu_torch.parallel import mesh as pmesh
@@ -94,9 +95,13 @@ def level_coeffs(cfg, grid, ts_range):
     MWJF polynomial coefficients at p(k) (set A) and at p(k+1) (set B, the
     displaced parcel), the T/S clip bounds, and dzw above / below the level
     and 1/dzw below. Computed on the host in float64; built once per
-    (grid, ts_range) and kept on the Grid object."""
+    (grid, ts_range's tensors) and kept on the Grid object (a halo'd call
+    hands the kernel a new tuple of the same tensors each time)."""
     hit = grid.__dict__.get("_gm_slope_coeffs")
-    if hit is not None and hit[0] is ts_range:
+    if hit is not None and (hit[0] is ts_range or (
+            hit[0] is not None and ts_range is not None
+            and len(hit[0]) == len(ts_range)
+            and all(a is b for a, b in zip(hit[0], ts_range)))):
         return hit[1]
     km = cfg.km
     vg = grid.vgrid
@@ -147,7 +152,6 @@ def slopes(cfg, grid, bc, ts_range, tmix):
     """(slp, sla, n2) for tmix (nt, km, ny, nx), of which T and S (the
     first two tracers) are read. CUDA tensors go through the kernel, CPU
     tensors through the plain version."""
-    global launches
     _check_mode(cfg, grid)
     if not tmix.is_cuda:
         return slopes_plain(cfg, grid, bc, ts_range, tmix)
@@ -175,5 +179,5 @@ def slopes(cfg, grid, bc, ts_range, tmix):
         grid.KMT.data_ptr(), grid.DXT.data_ptr(), grid.DYT.data_ptr(),
         slp.data_ptr(), sla.data_ptr(), n2.data_ptr(), cb.stream_ptr())
     cb.check_launch(err, "gm slopes")
-    launches += 1
+    launch_counts.add(__name__)
     return slp, sla, n2

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch import gm
 
 #: kernel launches so far (a plain counter; reset it to measure a run)
@@ -48,7 +49,6 @@ def level_depths(grid):
 def transition_layer(cfg, grid, diabatic_depth, sla, rb) -> gm.TLT:
     """``gm.transition_layer``: CUDA tensors go through the kernel, CPU
     tensors through the plain version."""
-    global launches
     km, ny, nx = sla.shape[1:]
     launch_plan(ny, nx, km)
     if not sla.is_cuda:
@@ -72,6 +72,6 @@ def transition_layer(cfg, grid, diabatic_depth, sla, rb) -> gm.TLT:
         thick.data_ptr(), idp.data_ptr(), klev.data_ptr(), ztw.data_ptr(),
         cb.stream_ptr())
     cb.check_launch(err, "gm transition-layer search")
-    launches += 1
+    launch_counts.add(__name__)
     return gm.TLT(diabatic_depth=dd, thickness=thick, interior_depth=idp,
                   k_level=klev, ztw=ztw)

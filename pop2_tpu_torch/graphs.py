@@ -66,6 +66,10 @@ reports ``graphs == 0`` and says why (``uncaptured``); every rank runs the
 same segments, so the ranks' exchanges still pair up. Under NCCL, whose
 collectives a graph could hold, ``Model.run_compiled`` refuses (ROADMAP.md
 Queue 1 item 12b, across cards).
+
+The blocks of a one-process mesh (``model.MeshModel``) exchange by device
+copies, which a graph holds: ``MeshCapturedStep`` captures each segment
+once for every block, each block issuing on a stream of its own.
 """
 
 from __future__ import annotations
@@ -78,7 +82,8 @@ from typing import Dict, Tuple
 import torch
 
 from pop2_tpu_torch import clinic_cuda, gm_chain_cuda, gm_cuda
-from pop2_tpu_torch import gm_slope_cuda, gm_tlt_cuda, tracer_cuda
+from pop2_tpu_torch import gm_slope_cuda, gm_tlt_cuda, launch_counts
+from pop2_tpu_torch import tracer_cuda
 from pop2_tpu_torch import step as step_mod, tavg, tridiag_cuda
 from pop2_tpu_torch.forcing import Forcing
 from pop2_tpu_torch.parallel import mesh as pmesh
@@ -91,20 +96,24 @@ COUNTED = (tridiag_cuda, tracer_cuda, clinic_cuda, gm_slope_cuda,
 
 
 def _counts():
-    return ({mod: mod.launches for mod in COUNTED},
-            Counter(tridiag_cuda.launches_by_nr),
-            {(mod, name): getattr(mod, name) for mod in COUNTED
+    """This thread's launch counters of the ``COUNTED`` wrappers (the
+    modules', or a block's of a one-process mesh, ``launch_counts``):
+    ({module: launches}, thomas's launches by right-hand sides,
+    {(module, mode counter): n})."""
+    values, by_nr = launch_counts.snapshot(COUNTED)
+    return ({mod: values[(mod.__name__, "launches")] for mod in COUNTED},
+            by_nr,
+            {(mod, name): values[(mod.__name__, name)] for mod in COUNTED
              for name in getattr(mod, "MODE_COUNTERS", ())})
 
 
 def _set_counts(counts) -> None:
+    """Set this thread's launch counters to ``counts`` (``_counts``')."""
     launches, by_nr, modes = counts
-    for mod, n in launches.items():
-        mod.launches = n
-    tridiag_cuda.launches_by_nr.clear()
-    tridiag_cuda.launches_by_nr.update(by_nr)
-    for (mod, name), n in modes.items():
-        setattr(mod, name, n)
+    values = {(mod.__name__, "launches"): n for mod, n in launches.items()}
+    values.update({(mod.__name__, name): n
+                   for (mod, name), n in modes.items()})
+    launch_counts.restore((values, by_nr))
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -188,10 +197,7 @@ class _Segment:
         finally:
             after = _counts()
             _set_counts(before)  # the replays make these launches
-        if {k: id(v) for k, v in grid.__dict__.items()} != caches:
-            raise RuntimeError(
-                f"capturing {self.name} filled or replaced a cache on the "
-                "grid: run an eager step of the same kind first")
+        _check_caches(self.name, grid, caches)
         self.launches = {mod: after[0][mod] - before[0][mod]
                          for mod in COUNTED
                          if after[0][mod] != before[0][mod]}
@@ -207,11 +213,18 @@ class _Segment:
             return
         self.graph.replay()
         self.replays += 1
-        for mod, n in self.launches.items():
-            mod.launches += n
-        tridiag_cuda.launches_by_nr.update(self.launches_by_nr)
-        for (mod, name), n in self.mode_launches.items():
-            setattr(mod, name, getattr(mod, name) + n)
+        values = {(mod.__name__, "launches"): n
+                  for mod, n in self.launches.items()}
+        values.update({(mod.__name__, name): n
+                       for (mod, name), n in self.mode_launches.items()})
+        launch_counts.add_delta((values, self.launches_by_nr))
+
+
+def _check_caches(name: str, grid, caches) -> None:
+    if {k: id(v) for k, v in grid.__dict__.items()} != caches:
+        raise RuntimeError(
+            f"capturing {name} filled or replaced a cache on the grid: run "
+            "an eager step of the same kind first")
 
 
 class CapturedStep:
@@ -221,28 +234,43 @@ class CapturedStep:
     warm-up a capture needs, and the step itself) and then captures them;
     later steps replay. On CPU tensors, and on a rank's block of a
     decomposition (``uncaptured`` says why), the segments are called
-    directly."""
+    directly.
 
-    def __init__(self, model, state: State, forcing: Forcing):
+    The step runs its segment bodies on its ``parts``: here itself, in a
+    ``MeshCapturedStep`` every block's step. A subclass changes only how a
+    body runs on the parts (``_on_parts``), how a segment is captured
+    (``_capture``), and how a whole-domain tree is cut to the parts
+    (``_cut``) and joined (``export``, ``diagnostics``)."""
+
+    def __init__(self, model, state: State, forcing: Forcing,
+                 block_of_mesh: bool = False):
         self.model = model
         # the tavg streams the post graph accumulates into
         self.streams = tuple(model.tavg_streams)
-        #: why the segments are not captured (None: they are, on CUDA)
-        self.uncaptured = (
-            f"a block of a {model.mesh.comm.backend} decomposition: its "
-            "exchanges and global sums are host calls"
+        self.state = _clone_tree(state)
+        self.forcing = _clone_tree(forcing)
+        self.pre_out = None
+        # the last step's (pre's output, iterations, rr)
+        self._last: Tuple[object, int, torch.Tensor] = (None, 0, None)
+        self.parts = [self]
+        # a block of a one-process mesh lends its buffers and segment
+        # bodies to the mesh's step, which captures every block
+        self._capturing(
+            "a block of a one-process mesh: MeshCapturedStep captures it"
+            if block_of_mesh
+            else f"a block of a {model.mesh.comm.backend} decomposition: "
+            "its exchanges and global sums are host calls"
             if pmesh.over_ranks(model.mesh)
             else None if state.tracer_cur.is_cuda
             else "CPU tensors")
-        self.capture = self.uncaptured is None
-        self.state = _clone_tree(state)
-        self.forcing = _clone_tree(forcing)
+
+    def _capturing(self, uncaptured) -> None:
+        #: why the segments are not captured (None: they are, on CUDA)
+        self.uncaptured = uncaptured
+        self.capture = uncaptured is None
         self.stream = torch.cuda.Stream() if self.capture else None
-        self.pre_out = None
         self.segments: Dict[object, _Segment] = {}
         self.capture_seconds = 0.0
-        # the last step's (pre's output, iterations, rr)
-        self._last: Tuple[object, int, torch.Tensor] = (None, 0, None)
 
     # -- the segments' bodies ------------------------------------------------
     def _pre(self) -> None:
@@ -276,7 +304,6 @@ class CapturedStep:
         for stream in self.streams:
             stream.accumulate_fields(self.state, aux)
 
-    # -- capture -------------------------------------------------------------
     def _check_carry(self) -> None:
         """The carry entries the runs write own their memory: a copy into
         one changes nothing else the step reads."""
@@ -292,39 +319,88 @@ class CapturedStep:
                                    "memory with another tensor of the step")
             seen.add(ptr)
 
+    # -- the parts -----------------------------------------------------------
+    def _on_parts(self, body, forked: bool = False) -> list:
+        """``[body(part) for every part]``; ``forked``: in the warm-up
+        before a capture."""
+        with pmesh.scope(self.model.mesh):
+            return [body(self)]
+
+    def _capture(self, name: str, body) -> "_Segment":
+        """``body`` on the parts captured as one segment."""
+        return _Segment(name, lambda: self._on_parts(body), self.model.grid,
+                        True, self.stream)
+
+    def _cut(self, tree) -> list:
+        """The parts' shares of the whole-domain ``tree``."""
+        return [tree]
+
+    # -- one step ------------------------------------------------------------
     def _capture_all(self) -> None:
-        if not self.state.tracer_cur.is_cuda:
+        if not self.parts[0].state.tracer_cur.is_cuda:
             raise ValueError("CUDA graphs capture work on CUDA tensors; on "
                              "the CPU the segments are called directly")
         t0 = time.perf_counter()
-        grid = self.model.grid
-        pre = _Segment("pre", self._pre, grid, True, self.stream)
-        self._check_carry()
-        chunks = {key: _Segment(f"iterations {key}", self._chunk(*key),
-                                grid, True, self.stream)
-                  for key in dict.fromkeys(self.pre_out.solver.chunks)}
-        post = _Segment("post", self._post, grid, True, self.stream)
+        pre = self._capture("pre", lambda p: p._pre())
+        for part in self.parts:
+            part._check_carry()
+        chunks = {key: self._capture(f"iterations {key}",
+                                     lambda p, key=key: p._chunk(*key)())
+                  for key in dict.fromkeys(
+                      self.parts[0].pre_out.solver.chunks)}
+        post = self._capture("post", lambda p: p._post())
         torch.cuda.synchronize()
         self.segments = {"pre": pre, **chunks, "post": post}
         self.capture_seconds = time.perf_counter() - t0
 
     def _run(self, pre, chunk, post) -> None:
+        """One step: ``pre()``, the solver's runs ``chunk(n, check)``
+        between its checks, ``post()``. A check reads the host once: the
+        first part's residual, which every part's global sum gave the same
+        bits."""
         pre()
-        p = self.pre_out
+        p = self.parts[0].pre_out
 
         def advance(carry, n, check):
             chunk(n, check)
             return carry
         _, iters, rr = p.solver.run(p.carry, advance)
         post()
-        for stream in self.streams:
-            stream.nsamples += 1
-        self._last = (p, iters, rr)
+        key = next(k for k, v in p.carry.items() if v is rr)
+        for part in self.parts:
+            for stream in part.streams:
+                stream.nsamples += 1
+            part._last = (part.pre_out, iters, part.pre_out.carry[key])
+
+    def _step(self) -> None:
+        if self.segments:
+            seg = self.segments
+            self._run(seg["pre"], lambda n, check: seg[(n, check)](),
+                      seg["post"])
+            return
+
+        def bodies(forked):
+            on = self._on_parts
+            return (lambda: on(lambda p: p._pre(), forked),
+                    lambda n, check: on(lambda p: p._chunk(n, check)(),
+                                        forked),
+                    lambda: on(lambda p: p._post(), forked))
+        if not self.capture:
+            self._run(*bodies(False))
+            return
+        # warm-up on the capture stream (libraries' lazy set-up there), as
+        # the capture will issue it, which is this step; then the capture
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            self._run(*bodies(True))
+        torch.cuda.current_stream().wait_stream(self.stream)
+        self._capture_all()
 
     # -- the interface -------------------------------------------------------
     def load(self, state: State) -> None:
         """Copy ``state`` into the static state buffers."""
-        assign(self.state, state)
+        for part, s in zip(self.parts, self._cut(state)):
+            assign(part.state, s)
 
     def export(self) -> State:
         """The current state, in tensors of the caller's own."""
@@ -333,34 +409,15 @@ class CapturedStep:
     def accepts(self, forcing: Forcing) -> bool:
         """Whether ``forcing`` fills the static forcing buffers (the same
         tensor fields); if not, the step must be built again."""
-        return structure(forcing) == structure(self.forcing)
+        return structure(forcing) == structure(self.parts[0].forcing)
 
     def step(self, forcing: Forcing) -> None:
         """One plain leapfrog step of the buffered state under
         ``forcing``."""
-        if forcing is not self.forcing:
-            assign(self.forcing, forcing)
-        with pmesh.scope(self.model.mesh):
-            self._step()
-
-    def _step(self) -> None:
-        if self.segments:
-            seg = self.segments
-            self._run(seg["pre"], lambda n, check: seg[(n, check)](),
-                      seg["post"])
-            return
-        uncaptured = (self._pre, lambda n, check: self._chunk(n, check)(),
-                      self._post)
-        if not self.capture:
-            self._run(*uncaptured)
-            return
-        # warm-up on the capture stream (libraries' lazy set-up there), which
-        # is this step; then the capture
-        self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self.stream):
-            self._run(*uncaptured)
-        torch.cuda.current_stream().wait_stream(self.stream)
-        self._capture_all()
+        for part, f in zip(self.parts, self._cut(forcing)):
+            if f is not part.forcing:
+                assign(part.forcing, f)
+        self._step()
 
     def diagnostics(self) -> step_mod.StepDiagnostics:
         """The last step's diagnostics, cloned out of the graphs' memory."""
@@ -376,3 +433,122 @@ class CapturedStep:
     @property
     def replays(self) -> int:
         return sum(s.replays for s in self.segments.values())
+
+
+class MeshCapturedStep(CapturedStep):
+    """``CapturedStep`` of a one-process mesh (``model.MeshModel``) from
+    the whole domain's ``state`` and ``forcing``: its parts are the
+    blocks' steps (a ``CapturedStep`` a block, for its buffers and segment
+    bodies), and every segment runs on all blocks at once
+    (``LocalMesh.run``, a thread a block). On the card each of its graphs
+    holds every block: ``pre``, each run of solver iterations between two
+    checks, ``post`` with the streams' accumulation. In a capture (and in
+    the warm-up step before it) each block issues on a stream of its own,
+    forked from the capture stream by an event and joined back before the
+    capture ends; the blocks' exchanges and collectives
+    (``mesh.LocalComm``) are device copies ordered by events, edges of the
+    graph between the block streams. Each block's launches are counted
+    into its own counters. A capture that fails raises; there is no eager
+    fallback. On CPU tensors the segments run on the blocks uncaptured."""
+
+    def __init__(self, model, state: State, forcing: Forcing):
+        self.model = model
+        mesh = model.mesh
+        self.parts = [CapturedStep(b, s, f, block_of_mesh=True)
+                      for b, s, f in zip(model.blocks, mesh.views(state),
+                                         mesh.views(forcing))]
+        self._capturing(None if state.tracer_cur.is_cuda else "CPU tensors")
+        self.block_streams = ([torch.cuda.Stream() for _ in self.parts]
+                              if self.capture else None)
+
+    def _on_parts(self, body, forked: bool = False) -> list:
+        """``body(part)`` on every block at once; with ``forked`` each
+        block issues on its own stream, forked from the current stream by
+        an event and joined back into it."""
+        mesh = self.model.mesh
+        if not forked:
+            return mesh.run(lambda r: body(self.parts[r]))
+        origin = torch.cuda.current_stream()
+        fork = torch.cuda.Event()
+        fork.record(origin)
+
+        def task(rank):
+            stream = self.block_streams[rank]
+            stream.wait_event(fork)
+            with torch.cuda.stream(stream):
+                out = body(self.parts[rank])
+            joined = torch.cuda.Event()
+            joined.record(stream)
+            return out, joined
+        try:
+            outs = mesh.run(task)
+        except BaseException:
+            # every block stream joined back, so a capture ends on the
+            # block's own error, not on unjoined work
+            for stream in self.block_streams:
+                origin.wait_stream(stream)
+            raise
+        for _, joined in outs:
+            origin.wait_event(joined)
+        return [out for out, _ in outs]
+
+    def _grids(self):
+        """Every grid a block's segment reads: the block grid and the
+        extended grids of its halo'd kernel calls, where the kernels keep
+        their operands (``Decomposition.ext_grids``)."""
+        return [g for p in self.parts
+                for g in [p.model.grid] + p.model.mesh.ext_grids()]
+
+    def _capture(self, name: str, body) -> "_MeshSegment":
+        grids = self._grids()
+        caches = [{k: id(v) for k, v in g.__dict__.items()} for g in grids]
+
+        def counted(part):
+            before = launch_counts.snapshot(COUNTED)
+            try:
+                body(part)
+            finally:
+                after = launch_counts.snapshot(COUNTED)
+                launch_counts.restore(before)
+            return launch_counts.delta(before, after)
+        graph = torch.cuda.CUDAGraph()
+        # the blocks' threads issue into the capture: their allocator calls
+        # run in relaxed mode whichever the capture's, and no block reads
+        # the device inside a segment
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="relaxed"):
+            counts = self._on_parts(counted, forked=True)
+        if [id(g) for g in self._grids()] != [id(g) for g in grids]:
+            raise RuntimeError(
+                f"capturing {name} extended a block grid anew: run an eager "
+                "step of the same kind first")
+        for g, c in zip(grids, caches):
+            _check_caches(name, g, c)
+        return _MeshSegment(graph, counts, self.model.mesh.driver.counts)
+
+    def _cut(self, tree) -> list:
+        return self.model.mesh.views(tree)
+
+    def export(self) -> State:
+        """The whole domain's current state, in tensors of the caller's
+        own."""
+        return self.model.mesh.join([p.state for p in self.parts])
+
+    def diagnostics(self) -> step_mod.StepDiagnostics:
+        """The last step's diagnostics over the whole domain."""
+        return self.model.mesh.join([p.diagnostics() for p in self.parts])
+
+
+class _MeshSegment:
+    """A graph of every block's work on a segment, and each block's
+    launches in it, counted into the blocks' counters at each replay."""
+
+    def __init__(self, graph, counted, counts):
+        self.graph, self.counted, self.counts = graph, counted, counts
+        self.replays = 0
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        for d, c in zip(self.counted, self.counts):
+            launch_counts.add_delta(d, c)

@@ -50,12 +50,19 @@ and gather the blocks on rank 0, which writes one whole-domain file
 (``tavg.TavgStream``, ``history``). Every rank calls every entry point
 alike: the exchanges and gathers are collective. Ranks with a card each
 (NCCL) are refused (ROADMAP.md Queue 1 item 12b, across cards).
+
+Under ``mesh_shape = (py, px)`` with no process group, ``Model(cfg)`` is a
+``MeshModel``: every block in this process on one device, as the JAX
+package runs its mesh, the whole-domain model cut py px times, the caller's
+state the whole domain's, and ``run_compiled`` captured across the blocks
+(``graphs.MeshCapturedStep``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,6 +86,9 @@ class Model:
     under ``mesh_shape = (py, px)`` this rank's block of it (``mesh``: the
     ``parallel.mesh.Decomposition``; default: the process group's, from
     ``parallel.multihost.global_mesh``)."""
+
+    #: the plain leapfrog steps of ``run_compiled``
+    _captured_step = graphs.CapturedStep
 
     def __init__(self, cfg: ModelConfig, grid: Optional[Grid] = None,
                  device="cuda", mesh: Optional[pmesh.Decomposition] = None):
@@ -184,7 +194,17 @@ class Model:
         if mesh is not None:
             self._decompose(mesh)
 
-    def _decompose(self, mesh: pmesh.Decomposition) -> None:
+    def __new__(cls, cfg: ModelConfig, grid: Optional[Grid] = None,
+                device="cuda", mesh=None):
+        # a mesh of several blocks and no process group: every block in
+        # this process (``MeshModel``)
+        if cls is Model and (isinstance(mesh, pmesh.LocalMesh)
+                             or (mesh is None and one_process_mesh(cfg))):
+            cls = MeshModel
+        return super().__new__(cls)
+
+    def _decompose(self, mesh: pmesh.Decomposition,
+                   state0: Optional[State] = None) -> None:
         """Cut the whole-domain model to ``mesh``'s block: rank 0's residual
         norm and PCSI bounds broadcast (every rank's solve then stops at
         the same iteration), the initial state made on the whole grid, and
@@ -201,11 +221,15 @@ class Model:
         for leapfrog in (False, True):
             if leapfrog in self._pcsi_eigs:
                 scalars += self._pcsi_eigs[leapfrog][:2]
-        if mesh.comm is not None:
+        # a rank's own build may round apart from rank 0's: its set-up
+        # scalars are rank 0's
+        broadcast = mesh.comm is not None and not mesh.comm.shares_build
+        if broadcast:
             scalars = mesh.comm.broadcast_floats(scalars)
-        self._state0 = mesh.slab(self.initial_state())
+        self._state0 = mesh.slab(self.initial_state() if state0 is None
+                                 else state0)
         for leapfrog, at in ((False, 1), (True, 3)):
-            if leapfrog in self._pcsi_eigs:
+            if broadcast and leapfrog in self._pcsi_eigs:
                 emin, emax = scalars[at:at + 2]
                 table = self._pcsi_eigs[leapfrog].table
                 self._pcsi_eigs[leapfrog] = solvers.PCSIBounds(
@@ -223,6 +247,26 @@ class Model:
         self.ovf_statics = overflows.decompose_statics(self.ovf_statics,
                                                        mesh)
         self.step_cfg = pmesh.block_cfg(cfg, mesh.rows, mesh.cols)
+
+    def _block(self, mesh: pmesh.Decomposition, state0: State) -> "Model":
+        """A model of ``mesh``'s block cut from this whole-domain model
+        (which stays as it is): its own calendar, streams, captured step
+        and lunar-factor tensor, and the whole domain's fields cut to the
+        block (``_decompose``), the initial state from ``state0``."""
+        block = object.__new__(Model)
+        block.__dict__.update(self.__dict__)
+        block.mesh = mesh
+        block.time_manager = copy.deepcopy(self.time_manager)
+        block._pcsi_eigs = dict(self._pcsi_eigs)
+        block._captured = None
+        block._eager_leapfrog_done = False
+        block.tavg_streams, block.history_streams = [], []
+        block.tavg_files = []
+        if self._lnc is not None:
+            block._lnc = torch.zeros_like(self._lnc)
+            block.forcing = self.forcing.replace(tidal_lnc=block._lnc)
+        block._decompose(mesh, state0)
+        return block
 
     # -- time manager (source/time_management.F90:2157-2234) ----------------
     def step_flags(self, nsteps_total: int) -> Tuple[bool, bool]:
@@ -379,6 +423,12 @@ class Model:
         with pmesh.scope(self.mesh):
             self._drive_streams(state, aux)
 
+    def _write_ready(self) -> None:
+        """Write the tavg streams that a captured step filled."""
+        with pmesh.scope(self.mesh):
+            for stream in self.tavg_streams:
+                self._write_if(stream, stream.ready)
+
     def _drive_streams(self, state: State, aux) -> None:
         for stream in self.history_streams:
             stream.aux = aux
@@ -436,9 +486,10 @@ class Model:
         decomposition over gloo the segments run uncaptured on every rank
         (``graphs.CapturedStep.uncaptured``: the exchanges are host calls);
         over NCCL this raises (ROADMAP.md Queue 1 item 12b, across cards).
-        Returns (state, diagnostics of the last step). The state
-        returned is the caller's own; the graphs' buffers stay inside the
-        model."""
+        A one-process mesh (``MeshModel``) runs the same loop over every
+        block (``graphs.MeshCapturedStep``). Returns (state, diagnostics of
+        the last step). The state returned is the caller's own; the graphs'
+        buffers stay inside the model."""
         if pmesh.over_ranks(self.mesh) and self.mesh.comm.backend == "nccl":
             pmesh.refuse_across_cards("run_compiled's captured step over "
                                       "NCCL")
@@ -464,16 +515,14 @@ class Model:
                         state, in_graph = self._captured.export(), False
                     self._captured = None
                 if self._captured is None:
-                    self._captured = graphs.CapturedStep(self, state,
+                    self._captured = self._captured_step(self, state,
                                                          step_forcing)
                 if not in_graph:
                     self._captured.load(state)
                     in_graph = True
                 self._next_step()
                 self._captured.step(step_forcing)
-                with pmesh.scope(self.mesh):
-                    for stream in self.tavg_streams:
-                        self._write_if(stream, stream.ready)
+                self._write_ready()
                 diags = None
                 continue
             if in_graph:
@@ -519,3 +568,150 @@ class Model:
         if not math.isfinite(ke) or ke > ke_limit:
             raise FloatingPointError(
                 f"KE blow-up detected: KE={ke} exceeds {ke_limit} cm^2/s^2")
+
+
+def one_process_mesh(cfg: ModelConfig) -> bool:
+    """``cfg`` runs on a mesh of several blocks in this process
+    (``MeshModel``): its ``mesh_shape`` is not (1, 1) and no process group
+    exists."""
+    import torch.distributed as dist
+    return tuple(cfg.mesh_shape) != (1, 1) and not (
+        dist.is_available() and dist.is_initialized())
+
+
+#: the attributes of a ``MeshModel`` that are its blocks' (block 0's: the
+#: blocks step alike), not the whole-domain model's
+_OF_THE_BLOCKS = ("nsteps_total", "time_manager", "tavg_streams",
+                  "history_streams", "tavg_files", "_eager_leapfrog_done")
+
+
+class MeshModel(Model):
+    """``Model`` over a (py, px) mesh in one process, as the JAX package
+    runs ``mesh_shape`` on the devices of one process: every block on one
+    device (``device``: the card, or 'cpu'; a list of a device a block must
+    name one card, ``parallel.mesh.refuse_across_cards``), a thread a block
+    (``parallel.mesh.LocalMesh``), their halo exchanges and global sums
+    device copies (``mesh.LocalComm``). ``Model(cfg)`` is one where
+    ``cfg.mesh_shape`` is not (1, 1) and no process group exists.
+
+    The whole-domain model is built once (grid, statics, preconditioner,
+    PCSI's bounds and table) and cut py px times (``Model._block``); this
+    object keeps the whole domain's grid, forcing and config, so what a
+    caller makes from them is the whole domain's. The caller's state is the
+    whole domain's, as a JAX global array is: ``advance`` cuts it to the
+    blocks, runs every block's step at once and joins the blocks' new
+    states; ``run_compiled`` cuts it once, steps the blocks' static buffers
+    (``graphs.MeshCapturedStep``: on the card CUDA graphs that hold every
+    block and every exchange) and joins them once. The streams
+    (``enable_tavg``, ``enable_history``, ``enable_movie``) are made on
+    every block; each write gathers the blocks' buffers on block 0 on the
+    device and writes one whole-domain file (``tavg_files``). Each block's
+    launches are counted apart (``launch_counts``; ``block_counts``), and
+    each reads as the whole domain's."""
+
+    _captured_step = graphs.MeshCapturedStep
+
+    def __init__(self, cfg: ModelConfig, grid: Optional[Grid] = None,
+                 device="cuda", mesh=None):
+        shape = tuple(cfg.mesh_shape)
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else None)
+        if mesh is None:
+            mesh = pmesh.make_mesh(
+                shape, cfg.ny, cfg.nx,
+                tripole=cfg.ns_boundary == "tripole",
+                cyclic=cfg.ew_boundary == "cyclic",
+                devices=devices)
+        if devices is not None:
+            device = devices[0]
+        device = resolve_device(device)
+        mesh.device = device
+        whole = Model(cfg.with_(mesh_shape=(1, 1)), grid=grid,
+                      device=device)
+        whole.cfg = whole.cfg.with_(mesh_shape=(mesh.py, mesh.px))
+        whole.step_cfg = whole.cfg
+        self.__dict__.update({k: v for k, v in whole.__dict__.items()
+                              if k not in _OF_THE_BLOCKS})
+        self.mesh = mesh
+        self._whole = whole
+        state0 = whole.initial_state()
+        self.blocks: List[Model] = [whole._block(d, state0)
+                                    for d in mesh.blocks]
+        self._captured = None
+
+    # the calendar, the streams and the files are the blocks' (block 0's)
+    nsteps_total = property(lambda self: self.blocks[0].nsteps_total)
+    time_manager = property(lambda self: self.blocks[0].time_manager)
+    tavg_streams = property(lambda self: self.blocks[0].tavg_streams)
+    history_streams = property(lambda self: self.blocks[0].history_streams)
+    tavg_files = property(lambda self: self.blocks[0].tavg_files)
+    _eager_leapfrog_done = property(
+        lambda self: self.blocks[0]._eager_leapfrog_done)
+
+    def block_counts(self):
+        """Each block's kernel launches (``launch_counts.Counts``)."""
+        return self.mesh.driver.counts
+
+    def on_blocks(self, fn):
+        """``[fn(block model) for every block]``, the blocks at once (what
+        a caller runs on every block: a stream's ``averages``, a
+        collective)."""
+        return self.mesh.run(lambda r: fn(self.blocks[r]))
+
+    def initial_state(self) -> State:
+        """The whole domain's initial state; the blocks' calendars and step
+        counts start again."""
+        for block in self.blocks:
+            block.initial_state()
+        return initial_state(self.cfg, self.grid, self.device,
+                             passive=self.passive)
+
+    def advance(self, state: State, forcing: Optional[Forcing] = None):
+        """One step of every block from the whole domain's ``state``;
+        returns (the whole domain's new state, StepDiagnostics over the
+        whole domain)."""
+        states = self.mesh.cut(state)
+        forcings = self.mesh.cut(forcing or self.forcing)
+        outs = self.mesh.run(
+            lambda r: self.blocks[r].advance(states[r], forcings[r]))
+        return (self.mesh.join([o[0] for o in outs]),
+                self.mesh.join([o[1] for o in outs]))
+
+    def _streams_changed(self) -> None:
+        self._captured = None
+
+    def enable_tavg(self, contents, freq_steps: int = 0, outdir: str = ".",
+                    prefix: str = "tavg", freq_opt: str = None,
+                    freq: int = 1):
+        """A tavg stream on every block (collective); block 0's writes the
+        whole domain's files. Returns block 0's stream."""
+        self._streams_changed()
+        return self.on_blocks(lambda b: b.enable_tavg(
+            contents, freq_steps, outdir, prefix, freq_opt, freq))[0]
+
+    def enable_history(self, contents, freq_steps: int = 0,
+                       outdir: str = ".", prefix: str = "pop2_tpu.h",
+                       freq_opt: str = None, freq: int = 1):
+        self._streams_changed()
+        return self.on_blocks(lambda b: b.enable_history(
+            contents, freq_steps, outdir, prefix, freq_opt, freq))[0]
+
+    def enable_movie(self, contents, freq_steps: int = 0, outdir: str = ".",
+                     level: int = 0, prefix: str = "pop2_tpu.m",
+                     freq_opt: str = None, freq: int = 1):
+        self._streams_changed()
+        return self.on_blocks(lambda b: b.enable_movie(
+            contents, freq_steps, outdir, level, prefix, freq_opt, freq))[0]
+
+    def _next_step(self) -> Tuple[bool, bool]:
+        for block in self.blocks:
+            flags = block._next_step()
+        return flags
+
+    def _write_ready(self) -> None:
+        self.on_blocks(lambda b: b._write_ready())
+
+    def diagnostics(self, state: State) -> Dict[str, float]:
+        """Global means and maxima of the whole domain's ``state`` (b4b
+        sums under ``cfg.b4b``: the blocks' own give the same bits)."""
+        return self._whole.diagnostics(state)

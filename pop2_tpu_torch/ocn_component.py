@@ -46,7 +46,7 @@ from pop2_tpu_torch.coupled import IMPORT_FIELDS, ocn_import
 from pop2_tpu_torch.ice import ice_flx_to_coupler
 from pop2_tpu_torch.io import sharded_restart
 from pop2_tpu_torch.io.restart import read_restart, write_restart
-from pop2_tpu_torch.model import Model
+from pop2_tpu_torch.model import Model, one_process_mesh
 from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.state import State
 from pop2_tpu_torch.stencil import ugrid_to_tgrid
@@ -66,6 +66,11 @@ class OcnComponent:
                  restart_freq_opt: str = "never", restart_freq: int = 1,
                  outdir: str = ".", lfw_as_salt_flx: bool = True,
                  device="cuda"):
+        if one_process_mesh(cfg):
+            raise NotImplementedError(
+                "the coupler cap on a one-process mesh is not ported: run "
+                "it as ranks of a process group (a cap a rank, "
+                "multihost.spawn_ranks) or on the whole domain")
         self.cfg = cfg
         self.model = Model(cfg, device=device)
         #: this rank's block (None: the whole domain)

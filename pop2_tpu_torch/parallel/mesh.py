@@ -35,6 +35,14 @@ does explicitly what XLA did implicitly:
   they would stay on the device, but that branch has not run across cards
   and ``make_mesh`` refuses it (``refuse_across_cards``). The fields
   themselves stay where they are and every kernel runs there.
+* ``LocalMesh``: with no process group, every block of the mesh in this
+  process on one device (the JAX package's mesh over one process's
+  devices), a thread a block (``multihost.BlockDriver``); their
+  ``LocalComm``s meet in one ``LocalHub``, device to device: a halo's
+  pieces are copied from their owners' tensors straight into place, and
+  a CUDA graph captured across the blocks' streams holds every exchange
+  (``graphs.MeshCapturedStep``). ``scope`` and the fold's rows are a
+  thread's own, so each block's thread sees its own decomposition.
 * ``halo_call``: a kernel wrapper's launch on its block extended by H rows
   and columns from its neighbours, the extension trimmed from its outputs.
   A block below the top row runs the closed instance (and, with px > 1,
@@ -57,6 +65,9 @@ import contextlib
 import dataclasses
 import functools
 import math
+import threading
+import time
+from collections import deque
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -73,21 +84,27 @@ FOLD_ROWS = 3
 #: fold face values formed with the row below, ``advect.advu``'s vus)
 STRIP_ROWS = FOLD_ROWS + 1
 
-_ACTIVE: Optional["Decomposition"] = None
-#: inside a kernel call on a strip plane: the rows through the fold's top
-#: row (``fold_top``)
-_FOLD_TOP: Optional[int] = None
+#: the seconds a block of a one-process mesh waits for another in the hub
+#: (``LocalHub``), and a call of the mesh's blocks may take
+#: (``multihost.BlockDriver``), before the mesh fails
+LOCAL_TIMEOUT = 600.0
+
+#: the running scope's decomposition and, inside a kernel call on a strip
+#: plane, the rows through the fold's top row (``fold_top``): a thread's
+#: own, since the blocks of a one-process mesh (``LocalMesh``) run in
+#: threads of one process
+_local = threading.local()
 
 
 def active() -> Optional["Decomposition"]:
     """The decomposition of the running scope, or None (whole domain)."""
-    return _ACTIVE
+    return getattr(_local, "active", None)
 
 
 def over_ranks(d: Optional["Decomposition"]) -> bool:
     """``d`` splits the domain over ranks (a block with a communicator),
-    not None and not a mesh of one block."""
-    return d is not None and d.comm is not None
+    not None, not a mesh of one block and not a whole ``LocalMesh``."""
+    return isinstance(d, Decomposition) and d.comm is not None
 
 
 def block_cfg(cfg, ny: int, nx: int):
@@ -103,7 +120,8 @@ def fold_top(ny: int) -> int:
     a top-row block of an x decomposition the mirror strip's rows
     (``Decomposition.halo_call``), below which the plane's domain ends (a
     southward shift meets the south edge there)."""
-    return ny if _FOLD_TOP is None else _FOLD_TOP
+    top = getattr(_local, "fold_top", None)
+    return ny if top is None else top
 
 
 def kernel_fold(cfg, ny: int) -> int:
@@ -114,24 +132,22 @@ def kernel_fold(cfg, ny: int) -> int:
 
 @contextlib.contextmanager
 def _fold_scope(top: Optional[int]):
-    global _FOLD_TOP
-    prev, _FOLD_TOP = _FOLD_TOP, top
+    prev, _local.fold_top = getattr(_local, "fold_top", None), top
     try:
         yield
     finally:
-        _FOLD_TOP = prev
+        _local.fold_top = prev
 
 
 @contextlib.contextmanager
 def scope(decomp: Optional["Decomposition"]):
     """Run the enclosed code on ``decomp``'s block (None: the whole domain,
     which is how ``halo_call`` runs a kernel on its extended block)."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, decomp
+    prev, _local.active = active(), decomp
     try:
         yield decomp
     finally:
-        _ACTIVE = prev
+        _local.active = prev
 
 
 def attach(grid, decomp: Optional["Decomposition"]):
@@ -151,12 +167,12 @@ def grid_scope(grid):
     """``scope`` of ``grid``'s decomposition where none is active: a
     function given a block grid (the forcing's functions, the diagnostics)
     sums and shifts over every block, called in a step or outside one."""
-    d = of_grid(grid)
-    if _ACTIVE is None and d is not None:
+    d, running = of_grid(grid), active()
+    if running is None and d is not None:
         with scope(d):
             yield d
     else:
-        yield _ACTIVE
+        yield running
 
 
 def halo_wrapped(halo: int):
@@ -170,7 +186,7 @@ def halo_wrapped(halo: int):
     def wrap(fn):
         @functools.wraps(fn)
         def call(cfg, grid, *args, **kwargs):
-            d = _ACTIVE
+            d = active()
             if d is not None and d.comm is not None:
                 return d.halo_call(fn, cfg, grid, halo, *args, **kwargs)
             return fn(cfg, grid, *args, **kwargs)
@@ -219,6 +235,11 @@ class Comm:
     ``torch.distributed``, with what they cost: ``exchanges`` (calls of
     ``batch_isend_irecv``), ``allreduces``, ``staged_bytes`` (device to host
     and back, gloo on a card) and ``sent_bytes``."""
+
+    #: the blocks behind this communicator are cut from one build of the
+    #: whole domain, so their set-up scalars agree without a broadcast (a
+    #: rank builds its own, which may round apart from rank 0's)
+    shares_build = False
 
     def __init__(self, backend: str, group=None):
         self.backend = backend
@@ -270,6 +291,30 @@ class Comm:
             self.sent_bytes += sum(b.numel() for _, b in sends)
         return [self._from_wire(b, device) for b in out]
 
+    def exchange(self, sends, recvs) -> None:
+        """One exchange of pieces: ``sends`` {peer: [views of this block's
+        tensors]}, ``recvs`` {peer: [the tensors that peer's views fill, in
+        its order]}. Each peer's views are packed into one byte buffer
+        (pieces 8-byte aligned), the buffers go in one batch of
+        point-to-point operations (``sendrecv``), and what comes back is
+        unpacked into place."""
+        if not sends and not recvs:
+            return
+        peers = sorted(recvs)
+        first = next(iter(sends.values() or recvs.values()))[0]
+        got = self.sendrecv(
+            [(q, torch.cat([_as_bytes(v) for v in views]))
+             for q, views in sends.items()],
+            [(q, sum(_padded(d) for d in recvs[q])) for q in peers],
+            first.device)
+        for q, buf in zip(peers, got):
+            at = 0
+            for dst in recvs[q]:
+                size = dst.numel() * dst.element_size()
+                dst.copy_(buf[at:at + size].view(dst.dtype)
+                          .reshape(dst.shape))
+                at += _padded(dst)
+
     def all_reduce(self, t, op: str):
         """``t`` reduced over the ranks (``op`` 'sum' or 'max'); a new
         tensor on ``t``'s device, the same bits on every rank."""
@@ -314,6 +359,219 @@ class Comm:
             dist.get_world_size(self.group))]
         dist.all_gather(out, w, group=self.group)
         return [self._from_wire(o, t.device) for o in out]
+
+
+class MeshAborted(RuntimeError):
+    """Raised in a block of a one-process mesh whose peer failed: the
+    hub (``LocalHub``) was aborted, so no block waits for it."""
+
+
+class LocalHub:
+    """Where the blocks of a one-process mesh (``LocalMesh``, a thread a
+    block) meet: the mailboxes of their point-to-point buffers (a FIFO a
+    sender and receiver) and the rounds of their collectives (the n-th
+    collective of every block meets in round n). Every wait is bounded by
+    ``LOCAL_TIMEOUT`` seconds (as it stood when the hub was made); a block
+    that raises aborts the hub (``abort``), and every block waiting in it,
+    or coming to it later, raises ``MeshAborted`` at once."""
+
+    def __init__(self, n: int):
+        self.n, self.timeout = n, float(LOCAL_TIMEOUT)
+        self._cv = threading.Condition(threading.RLock())
+        #: held by the block that runs: one block's thread runs at a time
+        #: and hands on where it waits in the hub (threads that contend
+        #: for the interpreter lock at every tensor operation run several
+        #: times slower than one thread)
+        self.baton = self._cv
+        self._mail = {}
+        self._rounds = {}
+        #: (rank, exception) of the first block that failed, or None
+        self.failed = None
+        #: the idents of the threads that run the blocks (``multihost.
+        #: BlockDriver``); a collective from another thread raises at once
+        self.threads = frozenset()
+
+    def abort(self, rank: int, exc: BaseException) -> None:
+        with self._cv:
+            if self.failed is None:
+                self.failed = (rank, exc)
+            self._cv.notify_all()
+
+    def _wait(self, ready, rank: int, what: str) -> None:
+        """Wait (holding the lock) until ``ready()``: raises where the hub
+        was aborted, or after ``timeout`` seconds (aborting it)."""
+        deadline = time.monotonic() + self.timeout
+        while True:
+            if self.failed is not None:
+                raise MeshAborted(f"block {rank} in {what}: block "
+                                  f"{self.failed[0]} failed "
+                                  f"({type(self.failed[1]).__name__})")
+            if ready():
+                return
+            left = deadline - time.monotonic()
+            if left <= 0:
+                exc = TimeoutError(
+                    f"block {rank} waited {self.timeout:g} s in {what}: a "
+                    "block skipped an exchange or a collective, or is stuck")
+                self.failed = (rank, exc)
+                self._cv.notify_all()
+                raise exc
+            self._cv.wait(left)
+
+    def _check_thread(self, rank: int) -> None:
+        if threading.get_ident() not in self.threads:
+            raise RuntimeError(
+                f"block {rank} of a one-process mesh called a collective "
+                "outside the mesh's threads: run it on every block through "
+                "LocalMesh.run")
+
+    def post(self, src: int, dst: int, item) -> None:
+        """Block ``src``'s buffer for block ``dst``."""
+        with self._cv:
+            self._mail.setdefault((src, dst), deque()).append(item)
+            self._cv.notify_all()
+
+    def take(self, src, dst):
+        """The oldest item ``src`` posted for ``dst`` (a block, or a
+        (tag, block) pair), once there is one."""
+        rank = dst if isinstance(dst, int) else dst[1]
+        self._check_thread(rank)
+        with self._cv:
+            box = self._mail.setdefault((src, dst), deque())
+            self._wait(lambda: box, rank, f"a receive from block {src}")
+            return box.popleft()
+
+    def meet(self, seq: int, rank: int, kind: str, value):
+        """Every block's ``value`` of collective round ``seq``, in rank
+        order, once all have posted theirs; ``kind`` names the collective
+        (blocks out of step raise)."""
+        self._check_thread(rank)
+        with self._cv:
+            r = self._rounds.setdefault(seq, [kind, [None] * self.n, 0, 0])
+            if r[0] != kind:
+                exc = RuntimeError(
+                    f"blocks out of step: block {rank}'s collective {seq} is "
+                    f"{kind}, another block's {r[0]}")
+                self.failed = self.failed or (rank, exc)
+                self._cv.notify_all()
+                raise exc
+            r[1][rank] = value
+            r[2] += 1
+            self._cv.notify_all()
+            self._wait(lambda: r[2] == self.n, rank, kind)
+            r[3] += 1
+            if r[3] == self.n:
+                del self._rounds[seq]
+            return list(r[1])
+
+
+def _event(t):
+    """An event recorded on the current stream after the work that made
+    ``t`` (None on the CPU)."""
+    if not t.is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
+
+
+def _received(t, ev):
+    """Another block's ``t``, safe to read on this block's stream: the
+    stream waits on ``ev``, and the caching allocator keeps ``t``'s memory
+    until this stream's reads of it are done."""
+    if ev is not None:
+        stream = torch.cuda.current_stream(t.device)
+        stream.wait_event(ev)
+        t.record_stream(stream)
+    return t
+
+
+class LocalComm(Comm):
+    """``Comm`` of a block of a one-process mesh: its exchanges and
+    collectives meet the other blocks' in a ``LocalHub``, device to device
+    (backend ``'local'``). An exchange copies each piece from its owner's
+    view straight into place, nothing packed. A collective posts a copy of
+    the block's tensor (a buffer no later write of the block touches) and
+    every block reduces the copies in rank order on its own stream, so
+    every block gets the same bits (the b4b sums' int64 limbs exactly).
+    Nothing is staged through the host (``staged_bytes`` stays 0), and a
+    CUDA graph captured across the blocks' streams holds all of it."""
+
+    shares_build = True
+
+    def __init__(self, hub: LocalHub, rank: int):
+        super().__init__("local")
+        self.hub, self.rank = hub, rank
+        self._seq = 0
+
+    def _collective(self, kind: str, value):
+        seq, self._seq = self._seq, self._seq + 1
+        return self.hub.meet(seq, self.rank, kind, value)
+
+    def _posted(self, t):
+        t = t.clone()
+        return t, _event(t)
+
+    def exchange(self, sends, recvs) -> None:
+        """``Comm.exchange`` by device copies: the owner posts its views
+        with an event; the receiver's stream waits on it and copies each
+        view into its place; then each owner waits until its receivers have
+        copied (an event a receiver on the device; on the CPU the copies
+        are done when posted) before it goes on, so it may overwrite or
+        free the viewed tensors. One copy a piece, nothing packed."""
+        ev = None
+        for peer, views in sends.items():
+            if ev is None:
+                ev = _event(views[0])
+            self.hub.post(self.rank, peer, (views, ev))
+        for peer, dsts in recvs.items():
+            views, sev = self.hub.take(peer, self.rank)
+            if len(views) != len(dsts):
+                raise RuntimeError(f"block {self.rank}: {len(views)} pieces "
+                                   f"from block {peer}, {len(dsts)} expected")
+            if sev is not None:
+                torch.cuda.current_stream(dsts[0].device).wait_event(sev)
+            for d, v in zip(dsts, views):
+                d.copy_(v)
+            self.hub.post(self.rank, ("copied", peer),
+                          _event(dsts[0]) if dsts else None)
+        for peer, views in sends.items():
+            done = self.hub.take(peer, ("copied", self.rank))
+            if done is not None:
+                torch.cuda.current_stream(views[0].device).wait_event(done)
+        if sends or recvs:
+            self.exchanges += 1
+            self.sent_bytes += sum(v.numel() * v.element_size()
+                                   for views in sends.values()
+                                   for v in views)
+
+    def all_reduce(self, t, op: str):
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r}: 'sum' or 'max'")
+        parts = [_received(v, ev) for v, ev in
+                 self._collective(f"all_reduce {op}", self._posted(t))]
+        self.allreduces += 1
+        stacked = torch.stack(parts)
+        return stacked.sum(0) if op == "sum" else stacked.amax(0)
+
+    def broadcast_floats(self, values, src: int = 0):
+        return [float(v) for v in
+                self._collective("broadcast", list(values))[src]]
+
+    def barrier(self):
+        self._collective("barrier", None)
+
+    def gather(self, t, root: int = 0):
+        """Every block's ``t`` on block ``root``, in rank order, on the
+        device (copies); None on the other blocks."""
+        parts = self._collective("gather", self._posted(t.contiguous()))
+        if self.rank != root:
+            return None
+        return [_received(v, ev) for v, ev in parts]
+
+    def all_gather(self, t):
+        return [_received(v, ev) for v, ev in
+                self._collective("all_gather", self._posted(t.contiguous()))]
 
 
 #: a global rectangle: rows [ja, jb), columns [ia, ib), and whether the
@@ -544,20 +802,9 @@ class Decomposition:
                     want.setdefault(owner, []).append(dst)
         if not stacks or self.comm is None:
             return groups, out
-        sends = [(q, torch.cat([_as_bytes(s[..., a:b, c:e])
-                                for a, b, c, e in srcs for s in stacks]))
-                 for q, srcs in asked.items()]
-        peers = sorted(want)
-        got = self.comm.sendrecv(
-            sends, [(q, sum(_padded(d) for d in want[q])) for q in peers],
-            stacks[0].device)
-        for q, buf in zip(peers, got):
-            at = 0
-            for dst in want[q]:
-                size = dst.numel() * dst.element_size()
-                dst.copy_(buf[at:at + size].view(dst.dtype)
-                          .reshape(dst.shape))
-                at += _padded(dst)
+        self.comm.exchange(
+            {q: [s[..., a:b, c:e] for a, b, c, e in srcs for s in stacks]
+             for q, srcs in asked.items()}, want)
         return groups, out
 
     @staticmethod
@@ -686,6 +933,11 @@ class Decomposition:
         return block_cfg(cfg, rows, cols).with_(ns_boundary=ns,
                                                 ew_boundary=ew)
 
+    def ext_grids(self):
+        """Every extended grid ``ext_grid`` has made and keeps."""
+        return [ext for _, by_halo in self._ext_grids.values()
+                for ext in by_halo.values()]
+
     def ext_grid(self, grid, halo: int):
         """The block grid ``grid`` as a kernel's plane (``kernel_planes`` of
         every horizontal field of it), made once a grid and kept, so that
@@ -742,25 +994,133 @@ class Decomposition:
 
 
 def refuse_across_cards(what: str) -> None:
-    """Raise for what runs only with a card a rank: NCCL's exchanges and a
-    captured step under them have not run on a machine of several cards
-    (ROADMAP.md Queue 1 item 12b, across cards). Ranks that share a card,
-    or run on the CPU, take gloo."""
+    """Raise for what runs only across cards: NCCL's exchanges (a card a
+    rank), a captured step under them, and the blocks of a one-process mesh
+    on several cards (peer copies) have not run on a machine of several
+    cards (ROADMAP.md Queue 1 item 12b, across cards). Blocks on one card,
+    or on the CPU, run in one process (``LocalMesh``) or as ranks over
+    gloo."""
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1 item 12b (across "
-        "cards)); ranks on one card or on the CPU run over gloo")
+        "cards)); blocks on one card or on the CPU run in one process or "
+        "as ranks over gloo")
+
+
+def _card(device) -> Tuple[str, int]:
+    d = torch.device(device)
+    return d.type, d.index or 0
+
+
+def zip_map(fn, trees):
+    """``fn(leaves)`` for each tensor position of ``trees`` (trees of one
+    structure, as ``tree_map`` walks them): the tree of ``fn``'s results,
+    in the first tree's structure; anything else is the first tree's."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(list(trees))
+    if isinstance(first, TensorTree):
+        return type(first)(**{
+            f.name: zip_map(fn, [getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(zip_map(fn, list(v)) for v in zip(*trees)))
+    if isinstance(first, (tuple, list)):
+        return type(first)(zip_map(fn, list(v)) for v in zip(*trees))
+    if isinstance(first, dict):
+        return {k: zip_map(fn, [t[k] for t in trees]) for k in first}
+    return first
+
+
+class LocalMesh:
+    """The py px blocks of a (py, px) mesh in one process, all on one
+    device (the JAX package's mesh over the devices of one process, whose
+    exchanges XLA puts on the device): a ``Decomposition`` a block (rank r
+    = ry px + rx), each with a ``LocalComm`` to one ``LocalHub``. ``run``
+    calls a function on every block at once, a thread a block
+    (``multihost.BlockDriver``: the block's decomposition in scope, its
+    launches counted apart, its work on the caller's stream); ``cut``,
+    ``views`` and ``join`` move whole-domain trees to blocks and back."""
+
+    def __init__(self, py: int, px: int, ny: int, nx: int,
+                 cyclic: bool = True, tripole: bool = False, device=None):
+        self.hub = LocalHub(py * px)
+        self.blocks = [Decomposition(py=py, px=px, rank=r, ny=ny, nx=nx,
+                                     cyclic=bool(cyclic),
+                                     tripole=bool(tripole),
+                                     comm=LocalComm(self.hub, r))
+                       for r in range(py * px)]
+        self.device = None if device is None else torch.device(device)
+        self._driver = None
+
+    def __getattr__(self, name):
+        # the mesh's geometry: py, px, ny, nx, rows, cols, cyclic, tripole
+        if name in ("py", "px", "ny", "nx", "rows", "cols", "cyclic",
+                    "tripole"):
+            return getattr(self.blocks[0], name)
+        raise AttributeError(name)
+
+    @property
+    def driver(self):
+        """The threads that run the blocks (``multihost.BlockDriver``),
+        started at the first call."""
+        if self._driver is None:
+            from pop2_tpu_torch.parallel.multihost import BlockDriver
+            self._driver = BlockDriver(self)
+        return self._driver
+
+    def run(self, fn):
+        """``[fn(rank) for every block]``, the blocks at once (their
+        exchanges and collectives meet in the hub); raises the first
+        block's error, with its rank, within the hub's timeout."""
+        return self.driver.run(fn)
+
+    def cut(self, tree):
+        """Each block's copy of ``tree``'s whole-domain fields
+        (``Decomposition.slab``)."""
+        return [d.slab(tree) for d in self.blocks]
+
+    def views(self, tree):
+        """Each block's view of ``tree``'s whole-domain fields (no
+        copy)."""
+        return [tree_map(lambda t, d=d: t[..., d.j0:d.j1, d.i0:d.i1]
+                         if d.is_field(t) else t, tree)
+                for d in self.blocks]
+
+    def join(self, trees):
+        """The whole-domain tree of the blocks' ``trees`` (rank order):
+        each block field joined, anything else block 0's."""
+        d = self.blocks[0]
+
+        def whole(leaves):
+            if not d.is_block(leaves[0]):
+                return leaves[0]
+            rows = [torch.cat(leaves[ry * self.px:(ry + 1) * self.px],
+                              dim=-1) for ry in range(self.py)]
+            return torch.cat(rows, dim=-2)
+        return zip_map(whole, list(trees))
+
+    def comm_counts(self):
+        """Each block's exchanges, all-reduces, staged and sent bytes."""
+        return [d.comm.counts() for d in self.blocks]
+
+    def reset_comm_counts(self) -> None:
+        for d in self.blocks:
+            d.comm.reset_counts()
 
 
 def make_mesh(shape: Tuple[int, int], ny: int, nx: int,
-              tripole: bool = False, cyclic: bool = True) -> Decomposition:
-    """This rank's block of an (ny, nx) grid on a (py, px) mesh over the
-    process group (``multihost.initialize_distributed``; one block needs
-    none). Refuses ``ny % py``, ``nx % px`` other than 0, blocks of fewer
-    rows than the widest kernel halo plus the fold's rows, blocks narrower
-    than the widest kernel halo, and a tripole fold across blocks of a
-    closed east-west edge (its seam's ghost columns would need both a wrap
-    and a zero; POP's tripole grids are cyclic), and a process group over
-    NCCL (``refuse_across_cards``)."""
+              tripole: bool = False, cyclic: bool = True, devices=None):
+    """The mesh of an (ny, nx) grid on (py, px) blocks: over the process
+    group (``multihost.initialize_distributed``), this rank's block; with
+    no process group, every block in this process (``LocalMesh``, on the
+    one device of ``devices``, a device a block); one block needs neither.
+    Refuses ``ny % py``, ``nx % px`` other than 0, blocks of fewer rows
+    than the widest kernel halo plus the fold's rows, blocks narrower than
+    the widest kernel halo, and a tripole fold across blocks of a closed
+    east-west edge (its seam's ghost columns would need both a wrap and a
+    zero; POP's tripole grids are cyclic); and, naming ROADMAP item 12b
+    (across cards), a process group over NCCL and blocks on several cards
+    (``refuse_across_cards``)."""
     py, px = (int(v) for v in shape)
     if py < 1 or ny % py != 0:
         raise ValueError(f"ny={ny} does not split into {py} blocks of equal "
@@ -781,12 +1141,21 @@ def make_mesh(shape: Tuple[int, int], ny: int, nx: int,
         raise ValueError("a tripole fold across x blocks needs a cyclic "
                          "east-west edge")
     n = py * px
+    device = None
+    if devices is not None:
+        devices = list(devices)
+        if len(devices) != n:
+            raise ValueError(f"{len(devices)} devices for a mesh of {n} "
+                             "blocks")
+        if len({_card(d) for d in devices}) > 1:
+            refuse_across_cards("a one-process mesh over several cards "
+                                "(peer copies between blocks)")
+        device = devices[0]
     if n > 1:
         import torch.distributed as dist
-        if not dist.is_initialized():
-            raise RuntimeError(
-                f"a mesh of {n} blocks needs a process group: "
-                "parallel.multihost.initialize_distributed first")
+        if not (dist.is_available() and dist.is_initialized()):
+            return LocalMesh(py, px, ny, nx, cyclic=cyclic, tripole=tripole,
+                             device=device)
         if dist.get_world_size() != n:
             raise ValueError(f"mesh of {n} blocks on "
                              f"{dist.get_world_size()} ranks")

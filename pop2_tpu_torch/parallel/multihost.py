@@ -22,23 +22,35 @@ block of a field is its share of the global array.
   by a ``file://`` store in a temporary directory (never a fixed TCP port),
   one intra-op thread each; their results come back to the caller. The
   tests and ``chip_smoke.py`` share it.
+* ``BlockDriver``: the blocks of a one-process mesh (``mesh.LocalMesh``,
+  the mesh ``make_mesh`` builds where no process group exists), a thread a
+  block in this process; their exchanges meet in the mesh's hub on the
+  device. A block that raises aborts the hub, and the error reaches the
+  caller with the block's rank; no call outlives its timeout.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import functools
 import importlib
 import os
 import pickle
+import queue
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
+from pop2_tpu_torch import launch_counts
+from pop2_tpu_torch.parallel import mesh as pmesh
 from pop2_tpu_torch.parallel.mesh import (Decomposition, make_mesh,
                                           over_ranks, tree_map)
 
@@ -149,7 +161,7 @@ def gather_to_root(t, mesh: Decomposition, root: int = 0):
     if not over_ranks(mesh):
         return t.detach().cpu().numpy()
     parts = mesh.comm.gather(t.detach(), root)
-    return None if parts is None else join_blocks(parts, mesh).numpy()
+    return None if parts is None else join_blocks(parts, mesh).cpu().numpy()
 
 
 def process_local_slice(global_shape, mesh: Decomposition):
@@ -173,6 +185,7 @@ def _child(tmp: str, rank: int, world: int, backend: str, device: str):
     import torch.distributed as dist
     initialize_distributed("file://" + os.path.join(tmp, "store"), world,
                            rank, backend, device)
+    open(os.path.join(tmp, f"joined{rank}"), "w").close()
     with open(os.path.join(tmp, "call.pkl"), "rb") as f:
         module, name, args, kwargs = pickle.load(f)
     fn = functools.reduce(getattr, name.split("."),
@@ -183,6 +196,11 @@ def _child(tmp: str, rank: int, world: int, backend: str, device: str):
         pickle.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+#: the seconds ``spawn_ranks`` gives its ranks to join their process group
+#: before it stops them (a stuck rendezvous)
+JOIN_TIMEOUT = 180.0
 
 
 def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cuda",
@@ -196,8 +214,10 @@ def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cuda",
     qualified name, so it must be importable (the processes see this
     package and ``fn``'s module's directory); arguments and results are
     pickled, tensors in the results moved to the CPU. Returns the ranks'
-    results in rank order. A rank that fails or outlives ``timeout``
-    seconds stops every rank and raises with its output's end."""
+    results in rank order. A rank that fails, ranks that have not all
+    joined the process group after ``JOIN_TIMEOUT`` seconds (a stuck
+    rendezvous), or a run that outlives ``timeout`` seconds stop every rank
+    and raise with their output's end."""
     mod = sys.modules[fn.__module__]
     paths = [os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))]
@@ -219,13 +239,18 @@ def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cuda",
              backend, str(device), str(threads)], env=env,
             stdout=logs[r], stderr=subprocess.STDOUT)
             for r in range(world_size)]
-        deadline = time.monotonic() + timeout
-        failed = None
+        start, join_timeout = time.monotonic(), JOIN_TIMEOUT
+        failed, joined = None, False
         try:
             while any(p.poll() is None for p in procs):
                 bad = [r for r, p in enumerate(procs)
                        if p.poll() not in (None, 0)]
-                if bad or time.monotonic() > deadline:
+                joined = joined or all(
+                    os.path.exists(os.path.join(tmp, f"joined{r}"))
+                    for r in range(world_size))
+                now = time.monotonic() - start
+                if bad or now > timeout or (not joined
+                                            and now > join_timeout):
                     failed = bad[0] if bad else None
                     break
                 time.sleep(0.05)
@@ -246,11 +271,131 @@ def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cuda",
                     p.wait()
             for log in logs:
                 log.close()
-        what = ("timed out" if failed is None
-                else f"rank {failed} exited {procs[failed].returncode}")
+        what = (f"rank {failed} exited {procs[failed].returncode}"
+                if failed is not None
+                else "timed out" if joined
+                else f"the ranks did not all join the process group in "
+                f"{join_timeout:g} s")
         tails = []
         for r in range(world_size):
             with open(os.path.join(tmp, f"log{r}.txt")) as f:
                 tails.append(f"-- rank {r}:\n{f.read()[-3000:]}")
         raise RuntimeError(f"spawn_ranks({fn.__qualname__}, {world_size}): "
                            f"{what}; the ranks' output:\n" + "\n".join(tails))
+
+
+class BlockDriver:
+    """A thread a block of ``mesh`` (a ``mesh.LocalMesh``), started once
+    and kept: ``run(fn)`` calls ``fn(rank)`` on every block at once, each
+    in its thread with its decomposition in scope (``mesh.scope``), its
+    kernel launches counted into ``counts[rank]``
+    (``launch_counts.counting``) and, on the card, its work issued on the
+    caller's current stream (a captured step switches to the blocks' own).
+    The blocks' exchanges and collectives meet in the mesh's hub, whose
+    every wait is bounded by its timeout; a block that raises aborts the
+    hub, so its peers raise too, and ``run`` raises the first error with
+    the block's rank. A call that outlives the timeout aborts the hub and
+    raises. After a failure the mesh's exchanges are out of step: every
+    later call raises (build the model again)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.counts = [launch_counts.Counts() for _ in mesh.blocks]
+        self._jobs = [queue.Queue() for _ in mesh.blocks]
+        # the threads hold the driver weakly: a model let go takes its
+        # mesh, its driver and their device memory with it
+        ref = weakref.ref(self)
+        self._threads = [threading.Thread(
+            target=_serve, args=(ref, self._jobs[r], r), daemon=True,
+            name=f"pop2-block-{r}") for r in range(len(mesh.blocks))]
+        for t in self._threads:
+            t.start()
+        mesh.hub.threads = frozenset(t.ident for t in self._threads)
+        self.failed = None
+
+    def close(self) -> None:
+        """Stop the threads."""
+        for q in self._jobs:
+            q.put(None)
+
+    def __del__(self):
+        self.close()
+
+    def _call(self, rank: int, fn, stream, threads: int):
+        if torch.get_num_threads() != threads:
+            # the caller's intra-op threads (a thread's own under
+            # OpenMP): a new thread would take every core, and a block's
+            # reductions would round as another count's do
+            torch.set_num_threads(threads)
+        with contextlib.ExitStack() as stack:
+            if stream is not None:
+                stack.enter_context(torch.cuda.stream(stream))
+            stack.enter_context(pmesh.scope(self.mesh.blocks[rank]))
+            stack.enter_context(self.mesh.hub.baton)
+            stack.enter_context(launch_counts.counting(self.counts[rank]))
+            return fn(rank)
+
+    def run(self, fn):
+        """``[fn(rank) for every block]``, the blocks at once; raises
+        where a block raised or the call outlived the hub's timeout."""
+        if self.failed is not None:
+            raise RuntimeError(
+                "the one-process mesh failed in an earlier call "
+                f"({self.failed}); its exchanges are out of step: build the "
+                "model again")
+        stream = (torch.cuda.current_stream(self.mesh.device)
+                  if self.mesh.device is not None
+                  and self.mesh.device.type == "cuda" else None)
+        futures = [concurrent.futures.Future() for _ in self._jobs]
+        threads = torch.get_num_threads()
+        for q, f in zip(self._jobs, futures):
+            q.put((fn, stream, threads, f))
+        timeout = self.mesh.hub.timeout
+        done, pending = concurrent.futures.wait(futures, timeout=timeout)
+        if pending:
+            # the blocks' own waits in the hub end at the same timeout, and
+            # a block that fails or times out there wakes its peers
+            done, pending = concurrent.futures.wait(
+                futures, timeout=min(timeout, 10.0))
+        if pending:
+            exc = TimeoutError(
+                f"a call of the one-process mesh outlived {timeout:g} s; "
+                "blocks "
+                f"{[r for r, f in enumerate(futures) if f in pending]} "
+                "still running")
+            self.mesh.hub.abort(-1, exc)
+            self.failed = str(exc)
+            raise exc
+        errors = [(r, f.exception()) for r, f in enumerate(futures)
+                  if f.exception() is not None]
+        if errors:
+            first = [(r, e) for r, e in errors
+                     if not isinstance(e, pmesh.MeshAborted)] or errors
+            rank, exc = first[0]
+            self.failed = f"block {rank}: {type(exc).__name__}: {exc}"
+            raise RuntimeError(f"block {rank} of the one-process mesh "
+                               f"raised {type(exc).__name__}: {exc}") \
+                from exc
+        return [f.result() for f in futures]
+
+
+def _serve(ref, jobs, rank: int) -> None:
+    """A block's thread of a ``BlockDriver`` (held by ``ref``, weakly):
+    runs its jobs until told to stop or the driver is gone."""
+    first = True
+    while True:
+        job = jobs.get()
+        driver = ref() if job is not None else None
+        if driver is None:
+            return
+        fn, stream, threads, done = job
+        device = driver.mesh.device
+        if first and device is not None and device.index is not None:
+            torch.cuda.set_device(device)
+        first = False
+        try:
+            done.set_result(driver._call(rank, fn, stream, threads))
+        except BaseException as exc:  # noqa: BLE001 (sent to run)
+            driver.mesh.hub.abort(rank, exc)
+            done.set_exception(exc)
+        del driver, fn, job, done, stream

@@ -916,25 +916,33 @@ class TavgStream:
         """{field: NumPy array}: the sums over ``nsamples`` (the minima and
         maxima as they are), from one read of the device buffer. On a
         rank's block every rank's buffer is gathered (collective) and rank 0
-        gets the whole domain's fields; the other ranks get None."""
+        gets the whole domain's fields; the other ranks get None. The
+        blocks of a one-process mesh gather on the device, where block 0
+        joins every field; the device is read once."""
         norm = 1.0 / max(self.nsamples, 1)
         if pmesh.over_ranks(self.mesh):
             parts = self.mesh.comm.gather(self.buffer)
             if parts is None:
                 return None
             from pop2_tpu_torch.parallel.multihost import join_blocks
-
-            def field(lo, hi, shape):
-                return join_blocks([p[lo:hi].view(shape) for p in parts],
-                                   self.mesh).numpy()
+            wholes = [join_blocks([p[lo:hi].view(shape) for p in parts],
+                                  self.mesh)
+                      for lo, hi, shape in (self._spans[n]
+                                            for n in self.contents)]
+            del parts
+            host = _np(torch.cat([w.reshape(-1) for w in wholes]))
+            fields, at = {}, 0
+            for n, w in zip(self.contents, wholes):
+                fields[n] = host[at:at + w.numel()].reshape(tuple(w.shape))
+                at += w.numel()
+            del wholes
         else:
             host = _np(self.buffer)
-
-            def field(lo, hi, shape):
-                return host[lo:hi].reshape(shape)
+            fields = {n: host[lo:hi].reshape(shape)
+                      for n, (lo, hi, shape) in self._spans.items()}
         out = {}
         for n in self.contents:
-            a = field(*self._spans[n])
+            a = fields[n]
             out[n] = a if FIELDS[n].method in ("min", "max") else a * norm
         return out
 

@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 from pop2_tpu_torch import advect, hmix, vmix
 from pop2_tpu_torch.grid import grid_bc
 from pop2_tpu_torch.parallel import mesh as pmesh
@@ -205,7 +206,6 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
     (nt, km, ny, nx); vdc (2, km, ny, nx); stf (nt, ny, nx); dh (ny, nx).
     CUDA tensors go through the kernel, CPU tensors through the plain
     version."""
-    global launches, launches_pbc
     _check_mode(cfg, grid)
     if not trcr.is_cuda:
         return tracer_tendency_plain(cfg, grid, u, v, trcr, tmix, told, vdc,
@@ -258,7 +258,7 @@ def tracer_tendency(cfg, grid, u, v, trcr, tmix, told, vdc, stf, dh):
                grid.DZBU.data_ptr()) if pbc else (0, 0, 0)),
             cb.stream_ptr())
         cb.check_launch(err, "tracer_tendency")
-        launches += 1
+        launch_counts.add(__name__)
         if pbc:
-            launches_pbc += 1
+            launch_counts.add(__name__, "launches_pbc")
     return out

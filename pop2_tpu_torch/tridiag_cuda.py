@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from pop2_tpu_torch import _cuda_build as cb
+from pop2_tpu_torch import launch_counts
 
 #: kernel launches so far (a plain counter; reset it to measure a run), and
 #: the same by the right-hand sides a launch took
@@ -149,7 +150,6 @@ def thomas(hfac, h1, kmax, a, rhs, hbot=None):
     through the kernel (float32 or float64, contiguous, km within
     ``launch_plan``'s bound; any number of right-hand sides, a launch for
     each of ``rhs_groups``), CPU tensors through the plain version."""
-    global launches, launches_pbc
     if not rhs.is_cuda:
         return thomas_plain(hfac, h1, kmax, a, rhs, hbot)
     nr, km, ny, nx = rhs.shape
@@ -172,8 +172,8 @@ def thomas(hfac, h1, kmax, a, rhs, hbot=None):
             rhs[n0].data_ptr(), out[n0].data_ptr(),
             0 if hbot is None else hbot.data_ptr(), cb.stream_ptr())
         cb.check_launch(err, "thomas")
-        launches += 1
-        launches_by_nr[n] += 1
+        launch_counts.add(__name__)
+        launch_counts.add_by_nr(n)
         if hbot is not None:
-            launches_pbc += 1
+            launch_counts.add(__name__, "launches_pbc")
     return out

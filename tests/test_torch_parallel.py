@@ -312,6 +312,14 @@ def two_calls(restart_dir):
     ] + shift_calls({"1x2": (1, 2)})
 
 
+#: seconds the starts of the ranks may take: about three times what they
+#: took in loaded runs of the whole suite (36.4-45.9 s; 8.0 s alone), so
+#: that a rank that hangs fails this module with the ranks' output tails,
+#: well inside the suite's time limit (a stuck rendezvous fails sooner:
+#: ``spawn_ranks``' ``JOIN_TIMEOUT``)
+SPAWN_TIMEOUT = 150
+
+
 @pytest.fixture(scope="module")
 def spawned(restart_dir, restart_dir_two):
     """The two starts of the ranks, four and two, at once (each start is
@@ -321,7 +329,7 @@ def spawned(restart_dir, restart_dir_two):
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(
             multihost.spawn_ranks, ranks.suite, n, device="cpu",
-            args=([c[1:] for c in calls],), timeout=600)
+            args=([c[1:] for c in calls],), timeout=SPAWN_TIMEOUT)
             for n, calls in starts.items()}
         return {n: ranks.suite_results(futures[n].result(), starts[n])
                 for n in starts}
@@ -806,14 +814,13 @@ def test_refusals():
         pmesh.make_mesh((5, 1), 24, 32)
     with pytest.raises(ValueError, match="rows"):
         pmesh.make_mesh((8, 1), 24, 32)
-    with pytest.raises(RuntimeError, match="process group"):
-        pmesh.make_mesh((2, 1), 24, 32)
+    # with no process group the blocks run in this process
+    assert isinstance(pmesh.make_mesh((2, 1), 24, 32), pmesh.LocalMesh)
     with pytest.raises(ValueError, match="columns: a block needs"):
         pmesh.make_mesh((1, 32), 24, 32)
     with pytest.raises(ValueError, match="cyclic"):
         pmesh.make_mesh((1, 2), 24, 32, tripole=True, cyclic=False)
-    with pytest.raises(RuntimeError, match="initialize_distributed"):
-        pmesh.make_mesh((2, 2), 24, 32)
+    assert isinstance(pmesh.make_mesh((2, 2), 24, 32), pmesh.LocalMesh)
     mini = get_config("mini")
     assert not supported.unsupported(mini.with_(mesh_shape=(2, 2)))
     assert not supported.unsupported(mini.with_(mesh_shape=(1, 4)))
@@ -830,8 +837,9 @@ def test_refusals():
         assert not supported.unsupported(prod.with_(passive_tracers=(pkg,)))
         assert not supported.unsupported(prod.with_(
             passive_tracers=(pkg,), mesh_shape=(1, 1)))
-    # the cap on blocks needs the ranks' process group, as a Model does
-    with pytest.raises(RuntimeError, match="process group"):
+    # the cap on blocks needs the ranks' process group (a Model without
+    # one runs its blocks in this process, the cap does not)
+    with pytest.raises(NotImplementedError, match="one-process mesh"):
         OcnComponent(mini.with_(mesh_shape=(2, 1)), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         multihost.initialize_distributed("file:///nonexistent", 1, 0, "mpi")
@@ -865,11 +873,13 @@ def test_refusals_of_a_decomposed_model(tmp_path):
 def test_rank_entry_points_default_to_the_card():
     """``initialize_distributed``, ``spawn_ranks`` and ``sharded_model``
     put a rank's fields on the card unless the caller asks for the CPU, as
-    ``Model`` does; ``make_global_array`` falls back to the card where no
-    rank device was set (``default_device``)."""
+    ``Model`` does, and so does the one-process mesh (``MeshModel``);
+    ``make_global_array`` falls back to the card where no rank device was
+    set (``default_device``)."""
     import inspect
+    from pop2_tpu_torch.model import MeshModel
     for fn in (multihost.initialize_distributed, multihost.spawn_ranks,
-               pmesh.sharded_model, Model):
+               pmesh.sharded_model, Model, MeshModel):
         assert inspect.signature(fn).parameters["device"].default \
             == "cuda", fn
     assert multihost._DEVICE is None  # no process group in this process

@@ -210,6 +210,13 @@ def cap_cfg(dtype):
     return get_config("mini", b4b=True, dtype=dtype)
 
 
+#: seconds the starts of the ranks may take: 116 s alone, 648.5-830.7 s
+#: in loaded runs of the whole suite, so three times that would pass the
+#: suite's limit; a stuck rendezvous fails within ``spawn_ranks``'
+#: ``JOIN_TIMEOUT`` instead
+SPAWN_TIMEOUT = 1300
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     """The two starts of the ranks, four and two, at once: {mesh tag: a
@@ -221,7 +228,7 @@ def spawned(tmp_path_factory):
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(
             multihost.spawn_ranks, ranks.suite, n, device="cpu",
-            args=([c[1:] for c in calls],), timeout=900)
+            args=([c[1:] for c in calls],), timeout=SPAWN_TIMEOUT)
             for n, calls in starts.items()}
         return {n: ranks.suite_results(futures[n].result(), starts[n])
                 for n in starts}

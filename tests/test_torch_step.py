@@ -207,10 +207,20 @@ def test_switches_ported_since_construct_and_step(over):
     (dict(mesh_shape=(1, 5)), ValueError, "nx=32"),
 ])
 def test_unported_switches_raise_at_construction(over, error, names):
-    """A 2-D mesh is carried (``supported`` names nothing), but a model on
-    one needs the process group of its ranks and blocks of equal columns:
-    without them it raises at construction, naming what is missing."""
+    """A 2-D mesh is carried (``supported`` names nothing). A model on one
+    needs blocks of equal columns: without them it raises at construction,
+    naming what is missing. Without a process group the blocks run in this
+    process (``MeshModel``); what needs the ranks' process group
+    (``multihost.local_device``) still raises, naming
+    ``initialize_distributed``."""
     cfg = t_get_config("mini", **over)
     assert not supported.unsupported(cfg)
+    if error is RuntimeError:
+        from pop2_tpu_torch.model import MeshModel
+        from pop2_tpu_torch.parallel import multihost
+        assert isinstance(TModel(cfg, device="cpu"), MeshModel)
+        with pytest.raises(error, match=names):
+            multihost.local_device()
+        return
     with pytest.raises(error, match=names):
         TModel(cfg, device="cpu")
